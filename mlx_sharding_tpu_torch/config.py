@@ -1,0 +1,209 @@
+# Copy of mlx_sharding_tpu/config.py, kept here so the port imports nothing of the JAX package.
+"""Model configuration dataclasses.
+
+TPU-native re-design of the reference's per-arch ``ModelArgs`` dataclasses
+(ref: shard/server/model/llama.py:11-24, gemma2.py:9-21, deepseek_v2.py:11-28).
+Like the reference, a model config is constructed from an HF-style
+``config.json`` dict, and the pipeline-stage bounds ``start_layer`` /
+``end_layer`` ride along inside the config (ref: shard/utils.py:36-39 injects
+them; sharding_weight.py:48-60 bakes them into the shard's config.json).
+
+Unlike the reference we keep one base dataclass with arch-specific
+subclasses registered in ``CONFIG_REGISTRY`` — resolution replaces the
+reference's importlib trick (shard/utils.py:20-30).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+
+@dataclass
+class BaseConfig:
+    """Fields shared by every decoder-only architecture we support."""
+
+    model_type: str = "llama"
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    head_dim: Optional[int] = None
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[dict] = None
+    max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = False
+    # Pipeline-stage bounds, [start_layer, end_layer). Mirrors the reference's
+    # dynamic-sharding config injection (shard/utils.py:36-39).
+    start_layer: int = 0
+    end_layer: Optional[int] = None
+    # MLX-style grouped affine quantization descriptor, e.g.
+    # {"group_size": 64, "bits": 4} (ref: shard/utils.py:54-65).
+    quantization: Optional[dict] = None
+    # KV-cache storage dtype for paged engines: "int8" stores per-row-per-
+    # head-scaled codes ({d, s} pools, see cache.quantize_kv_rows); None/
+    # "bf16" keeps the dense cache_dtype pool. Server/CLI --kv-dtype
+    # overrides; checkpoints may pin it here.
+    kv_cache_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+        if self.head_dim is None:
+            self.head_dim = self.hidden_size // self.num_attention_heads
+        if self.end_layer is None:
+            self.end_layer = self.num_hidden_layers
+        if not (0 <= self.start_layer < self.end_layer <= self.num_hidden_layers):
+            raise ValueError(
+                f"Invalid stage bounds [{self.start_layer}, {self.end_layer}) "
+                f"for a {self.num_hidden_layers}-layer model."
+            )
+
+    # -- stage placement helpers (semantics of sharding_weight.py:16-24) ----
+    @property
+    def is_first_stage(self) -> bool:
+        return self.start_layer == 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.end_layer == self.num_hidden_layers
+
+    @property
+    def num_local_layers(self) -> int:
+        return self.end_layer - self.start_layer
+
+    # Whether this stage needs the token-embedding table. Gemma-2 overrides:
+    # its lm_head is tied to the embedding, so the LAST stage needs it too
+    # (ref: shard/server/model/gemma2.py:23-24).
+    @property
+    def needs_embed(self) -> bool:
+        return self.is_first_stage or (self.tie_word_embeddings and self.is_last_stage)
+
+    @property
+    def needs_head(self) -> bool:
+        return self.is_last_stage
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "BaseConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclass
+class LlamaConfig(BaseConfig):
+    model_type: str = "llama"
+    attention_bias: bool = False
+    mlp_bias: bool = False
+
+
+@dataclass
+class Qwen3Config(LlamaConfig):
+    model_type: str = "qwen3"
+
+
+@dataclass
+class Gemma2Config(BaseConfig):
+    """Gemma-2: softcapped logits/attention, tied embeddings, alternating
+    sliding/global attention (ref: shard/server/model/gemma2.py)."""
+
+    model_type: str = "gemma2"
+    head_dim: Optional[int] = 256
+    rms_norm_eps: float = 1e-6
+    final_logit_softcapping: float = 30.0
+    attn_logit_softcapping: float = 50.0
+    query_pre_attn_scalar: float = 256.0
+    sliding_window: int = 4096
+    tie_word_embeddings: bool = True
+
+
+@dataclass
+class DeepseekV2Config(BaseConfig):
+    """DeepSeek-V2: MLA attention + fine-grained MoE with shared experts
+    (ref: shard/server/model/deepseek_v2.py:11-28)."""
+
+    model_type: str = "deepseek_v2"
+    moe_intermediate_size: int = 1407
+    n_shared_experts: Optional[int] = 2
+    n_routed_experts: Optional[int] = 64
+    routed_scaling_factor: float = 1.0
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    scoring_func: str = "softmax"
+    norm_topk_prob: bool = False
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    attention_bias: bool = False
+    max_position_embeddings: int = 163840
+    rope_theta: float = 10000.0
+    # "compressed": cache the shared KV latent (kv_lora_rank + rope dims per
+    # token, independent of head count) and absorb kv_b into the query/output
+    # sides at attention time — the MLA inference optimization. "full": cache
+    # decompressed per-head K/V (the reference's layout, deepseek_v2.py:120-125).
+    mla_cache_mode: str = "compressed"
+
+    def __post_init__(self):
+        super().__post_init__()
+        # MLA: query/key dim differs from value dim.
+        self.head_dim = self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass
+class MixtralConfig(BaseConfig):
+    """Mixtral 8x7B-style MoE (BASELINE.json config #4; experts stage-local)."""
+
+    model_type: str = "mixtral"
+    num_local_experts: int = 8
+    num_experts_per_tok: int = 2
+    sliding_window: Optional[int] = None
+
+
+# Arch-name resolution. Mirrors the reference's MODEL_REMAPPING
+# (shard/utils.py:14-17): mistral runs through the llama implementation.
+MODEL_REMAPPING = {
+    "mistral": "llama",
+    "qwen2": "llama",
+}
+
+CONFIG_REGISTRY: dict[str, type] = {
+    "llama": LlamaConfig,
+    "qwen3": Qwen3Config,
+    "gemma2": Gemma2Config,
+    "deepseek_v2": DeepseekV2Config,
+    "mixtral": MixtralConfig,
+}
+
+
+def resolve_model_type(model_type: str) -> str:
+    return MODEL_REMAPPING.get(model_type, model_type)
+
+
+def config_from_dict(d: dict[str, Any]):
+    original_type = d.get("model_type", "llama")
+    model_type = resolve_model_type(original_type)
+    if model_type not in CONFIG_REGISTRY:
+        raise ValueError(
+            f"Model type {model_type!r} not supported. "
+            f"Supported: {sorted(CONFIG_REGISTRY)}"
+        )
+    cls = CONFIG_REGISTRY[model_type]
+    d = dict(d)
+    d["model_type"] = model_type
+    if original_type == "qwen2":
+        # Qwen2 uses QKV biases unconditionally and its HF config carries no
+        # attention_bias field.
+        d.setdefault("attention_bias", True)
+    return cls.from_dict(d)
