@@ -5,10 +5,11 @@
   is rounded up to a chunk multiple so every padded write fits. Pad rows are
   overwritten by later contiguous writes before any valid query attends
   them, so they need no mask beyond the causal rule.
-- Decode runs in blocks of ``decode_block`` T=1 steps with sampling on the
-  device; the tokens (and the logprob summaries, when asked for) come to the
-  host once per block. Block i+1 is enqueued before block i is read, so the
-  host's read and its Python loop overlap the card's work.
+- Decode runs in blocks of ``DEFAULT_DECODE_BLOCK`` T=1 steps with
+  sampling on the device; the tokens (and the logprob summaries, when asked
+  for) come to the host once per block. Block i+1 is enqueued before block
+  i is read, so the host's read and its Python loop overlap the card's
+  work. The server's ``--decode-block`` flag comes with a later slice.
 
 The prompt cache, the sequence-parallel paths and speculation come with
 later slices.
@@ -105,13 +106,11 @@ class Generator:
         *,
         max_seq: int = 4096,
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
-        decode_block: int = DEFAULT_DECODE_BLOCK,
     ):
         self.model = model
         self.device = model.device
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
         self.prefill_chunk = prefill_chunk
-        self.decode_block = decode_block
 
     def run_prefill(self, prompt: np.ndarray, cache):
         """Chunked prefill of ``prompt`` (1, T) into ``cache``. Returns the
@@ -183,7 +182,7 @@ class Generator:
             return
         yield from blocked_token_stream(
             lambda carry, n: self._decode_block(carry, n, sp, gen, want_logprobs),
-            (tok, cache, recent), remaining, self.decode_block, want_logprobs,
+            (tok, cache, recent), remaining, DEFAULT_DECODE_BLOCK, want_logprobs,
         )
 
 

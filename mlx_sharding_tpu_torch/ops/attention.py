@@ -3,8 +3,9 @@
 
 Prefill chunks that the flash kernel takes go to
 :func:`~mlx_sharding_tpu_torch.ops.flash_attention.flash_attention`; every
-other call, T=1 decode included, takes the grouped-GQA attention below,
-which is the JAX package's own non-kernel path.
+other call, T=1 decode included, takes the plain grouped-GQA attention
+(``flash_attention_reference`` with the probs rounded to v's dtype), which
+is the JAX package's own non-kernel path.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from mlx_sharding_tpu_torch.ops.flash_attention import (
     HEAD_DIM_ALIGN,
     MAX_HEAD_DIM,
     flash_attention,
+    flash_attention_reference,
 )
 
 
@@ -52,21 +54,7 @@ def causal_attention(
     cast to v's dtype, products accumulated in fp32, as in the JAX path."""
     if flash_eligible(q, k, v, logit_softcap, sliding_window):
         return flash_attention(q, k, v, offset, scale)
-    b, t, hq, dk = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    # keys at or past offset + T are masked for every query: leave them out
-    kv_len = min(s, offset + t)
-    k, v = k[:, :kv_len], v[:, :kv_len]
-    qg = q.reshape(b, t, hkv, hq // hkv, dk)
-    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) * scale
-    if logit_softcap is not None:
-        scores = logit_softcap * torch.tanh(scores / logit_softcap)
-    q_pos = offset + torch.arange(t, device=q.device)[:, None]
-    k_pos = torch.arange(kv_len, device=q.device)[None, :]
-    allowed = k_pos <= q_pos
-    if sliding_window is not None:
-        allowed &= k_pos > q_pos - sliding_window
-    scores = scores.masked_fill(~allowed, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgts,bshd->bthgd", probs.float(), v.float())
-    return out.reshape(b, t, hq, -1).to(q.dtype)
+    return flash_attention_reference(
+        q, k, v, offset, scale, logit_softcap=logit_softcap,
+        sliding_window=sliding_window, probs_dtype=v.dtype,
+    )

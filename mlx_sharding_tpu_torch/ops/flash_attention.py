@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -112,18 +113,35 @@ def shared_memory_bytes(dtype: torch.dtype, dk: int, dv: int) -> int:
     return int(_LIBRARY.get().mst_flash_attention_shared_bytes(_DTYPE_CODES[dtype], dk, dv))
 
 
-def flash_attention_reference(q, k, v, offset: int, scale: float) -> torch.Tensor:
+def flash_attention_reference(
+    q, k, v, offset: int, scale: float, *,
+    logit_softcap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    probs_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
     """The plain version: softmax over the causal prefix in fp32, the same
-    function the kernel computes (and the TPU kernel before it)."""
+    function the kernel computes (and the TPU kernel before it).
+
+    It is also the plain grouped-GQA path of ``causal_attention``, which
+    adds what the kernel does not take (a logit softcap, a sliding window)
+    and rounds the probs to ``probs_dtype`` (v's dtype) before the product,
+    as the JAX package's plain path does."""
     b, t, hq, dk = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    # keys at or past offset + T are masked for every query: leave them out
     kv_len = min(s, offset + t)
     qg = q.reshape(b, t, hkv, hq // hkv, dk).float()
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k[:, :kv_len].float()) * scale
+    if logit_softcap is not None:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
     q_pos = offset + torch.arange(t, device=q.device)[:, None]
     k_pos = torch.arange(kv_len, device=q.device)[None, :]
-    scores = scores.masked_fill(k_pos > q_pos, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    allowed = k_pos <= q_pos
+    if sliding_window is not None:
+        allowed &= k_pos > q_pos - sliding_window
+    probs = torch.softmax(scores.masked_fill(~allowed, NEG_INF), dim=-1)
+    if probs_dtype is not None:
+        probs = probs.to(probs_dtype).float()
     out = torch.einsum("bhgts,bshd->bthgd", probs, v[:, :kv_len].float())
     return out.reshape(b, t, hq, dv).to(q.dtype)
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import REL_L2_TOL, kernel_disagreement
 from mlx_sharding_tpu.ops import causal_attention as j_causal_attention
 from mlx_sharding_tpu.ops.flash_attention import flash_attention as j_flash_attention
 from mlx_sharding_tpu_torch.ops import attention as attention_mod
@@ -132,3 +133,23 @@ def test_mla_compressed_head_dim_waits_for_deepseek_slice():
     q, k, v = torch.zeros(1, 128, 16, 576), torch.zeros(1, 128, 1, 576), torch.zeros(1, 128, 1, 512)
     with pytest.raises(ValueError, match="576.*DeepSeek"):
         fa.flash_attention(q, k, v, 0, 0.1)
+
+
+@pytest.mark.parametrize("offset", [0, 256, 3840])
+def test_smoke_bf16_limit_follows_the_output_scale(offset):
+    """The limit that holds the kernel against its plain version on the card
+    (chip_smoke.py) at the main path's bf16 shapes, with fewer heads: it
+    takes probs rounded to bf16, as the kernel rounds P, and rejects a
+    causal mask shifted by one position either way at every offset."""
+    g = torch.Generator().manual_seed(offset)
+    q = torch.randn(1, 256, 8, 128, generator=g).bfloat16()
+    k = torch.randn(1, 4096, 2, 128, generator=g).bfloat16()
+    v = torch.randn(1, 4096, 2, 128, generator=g).bfloat16()
+    ref = fa.flash_attention_reference(q, k, v, offset, 128**-0.5)
+    rounded = fa.flash_attention_reference(q, k, v, offset, 128**-0.5, probs_dtype=torch.bfloat16)
+    _, worst, rel_l2 = kernel_disagreement(rounded, ref)
+    assert worst <= 0.5 and rel_l2 <= REL_L2_TOL / 2
+    for shifted in [s for s in (offset - 1, offset + 1) if s >= 0]:
+        _, worst, _ = kernel_disagreement(
+            fa.flash_attention_reference(q, k, v, shifted, 128**-0.5), ref)
+        assert worst > 3

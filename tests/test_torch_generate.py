@@ -12,6 +12,7 @@ from mlx_sharding_tpu.config import LlamaConfig
 from mlx_sharding_tpu.generate import Generator as JGenerator
 from mlx_sharding_tpu.generate import stream_generate as j_stream_generate
 from mlx_sharding_tpu.models.llama import LlamaModel as JLlamaModel
+from mlx_sharding_tpu_torch import generate
 from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.generate import Generator, stream_generate
 from tests.test_tokenizer_utils import ByteTokenizer
@@ -70,10 +71,10 @@ def test_logprobs_match(pair):
 
 
 @pytest.mark.parametrize("decode_block", [1, 5, 16])
-def test_decode_block_size_does_not_change_the_stream(pair, decode_block):
+def test_decode_block_size_does_not_change_the_stream(pair, decode_block, monkeypatch):
     jg, tg = pair
-    g = Generator(tg.model, max_seq=512, prefill_chunk=CHUNK, decode_block=decode_block)
-    assert _tokens(g, _prompt(), max_tokens=23) == _tokens(jg, _prompt(), max_tokens=23)
+    monkeypatch.setattr(generate, "DEFAULT_DECODE_BLOCK", decode_block)
+    assert _tokens(tg, _prompt(), max_tokens=23) == _tokens(jg, _prompt(), max_tokens=23)
 
 
 def test_prompt_of_exactly_one_chunk_and_a_single_token(pair):

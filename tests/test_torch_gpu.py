@@ -9,6 +9,7 @@ Without a card every test skips with its reason."""
 import pytest
 import torch
 
+from chip_smoke import REL_L2_TOL, kernel_disagreement
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import causal_attention
@@ -27,20 +28,22 @@ def cuda(monkeypatch):
 
 
 CASES = [
-    # b, t, s, hq, hkv, dk, dv, offset, dtype, atol
-    (1, 256, 4096, 32, 8, 128, 128, 0, torch.bfloat16, 2e-2),
-    (1, 256, 4096, 32, 8, 128, 128, 3840, torch.bfloat16, 2e-2),
-    (2, 128, 384, 8, 2, 64, 64, 100, torch.float32, 1e-4),
-    (1, 128, 256, 8, 8, 192, 128, 64, torch.float32, 1e-4),
-    (1, 100, 256, 8, 1, 256, 256, 17, torch.float32, 1e-4),
-    (1, 100, 256, 8, 1, 256, 256, 17, torch.bfloat16, 2e-2),
+    # b, t, s, hq, hkv, dk, dv, offset, dtype
+    (1, 256, 4096, 32, 8, 128, 128, 0, torch.bfloat16),
+    (1, 256, 4096, 32, 8, 128, 128, 256, torch.bfloat16),
+    (1, 256, 4096, 32, 8, 128, 128, 3840, torch.bfloat16),
+    (2, 128, 384, 8, 2, 64, 64, 100, torch.float32),
+    (1, 128, 256, 8, 8, 192, 128, 64, torch.float32),
+    (1, 100, 256, 8, 1, 256, 256, 17, torch.float32),
+    (1, 100, 256, 8, 1, 256, 256, 17, torch.bfloat16),
 ]
 
 
-@pytest.mark.parametrize("b,t,s,hq,hkv,dk,dv,offset,dtype,atol", CASES)
-def test_kernel_matches_plain_version(cuda, b, t, s, hq, hkv, dk, dv, offset, dtype, atol):
-    """bf16: the kernel rounds P to bf16 before P V while the plain version
-    keeps fp32, over up to 4096 keys; f32: summation order only."""
+@pytest.mark.parametrize("b,t,s,hq,hkv,dk,dv,offset,dtype", CASES)
+def test_kernel_matches_plain_version(cuda, b, t, s, hq, hkv, dk, dv, offset, dtype):
+    """The smoke run's limits: in bf16 a tenth of the reference's rms plus
+    2^-6 of each element, which follows the output's scale as the prefix
+    grows; in f32 1e-4. Both with a relative L2 error of at most 1e-2."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(b, t, hq, dk, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, s, hkv, dk, generator=g, device=cuda).to(dtype)
@@ -50,7 +53,8 @@ def test_kernel_matches_plain_version(cuda, b, t, s, hq, hkv, dk, dv, offset, dt
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     want = fa.flash_attention_reference(q, k, v, offset, dk**-0.5)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    _, worst, rel_l2 = kernel_disagreement(got, want)
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
 
 
 def test_kernel_reads_a_strided_cache_layer(cuda):
