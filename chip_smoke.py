@@ -6,18 +6,31 @@ Phases, each printed as it runs; any failure exits non-zero without the
 final line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. kernels: build every kernel of the main path from ``csrc/`` with nvcc,
-   print the ``-Xptxas -v`` lines, and hold each kernel against its plain
-   PyTorch version on the card at the main path's shapes (and a few more);
+2. kernels: build every kernel library of the main path from ``csrc/`` with
+   nvcc (one nvcc per source, started together), print the ``-Xptxas -v``
+   lines, and hold each kernel against its plain PyTorch version on the card
+   at the main path's shapes (and a few more): flash attention, and the two
+   packed-weight kernels at the five Llama-3.1-8B projection shapes, bit for
+   bit on integer-valued operands and within limits on random bf16;
 3. timing: each kernel, its plain version and the one PyTorch library call
-   that computes the same function, with CUDA events;
+   that computes the same function, with CUDA events (and, for the packed
+   kernels, ``F.linear`` on the dequantized bf16 weight);
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here; five requests (a 600-token completion
    with logprobs, a streamed chat, a seeded top-p sample twice, a streamed
    600-token completion for TTFT and decode tok/s), flash launches checked
    against 32 x the prompt chunks, and the kernel path checked against the
-   plain attention path of the same model.
+   plain attention path of the same model;
+5. main path, 4-bit (``--keep-quantized``): the same weights packed on the
+   card in MLX's layout (group 64, 4 bits, fp16 scales and biases), fused,
+   served by the same server for two 600-token requests, every kernel's
+   launches checked against what the requests imply, and the last
+   position's logits checked against a dense model holding the dequantized
+   weights.
+
+``--kernels-only`` stops after phase 2 (a short first check of a new
+kernel) and prints no result line.
 
 The last three lines are the kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -26,6 +39,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import http.client
 import json
 import math
@@ -80,8 +94,23 @@ F32_ATOL = 1e-4
 REL_L2_TOL = 1e-2
 # bf16 weights and activations over 32 random layers, the kernel path (bf16
 # P in the kernel) against the plain path (bf16 probs): relative L2 error of
-# the last position's logits
+# the last position's logits; the same limit holds the packed model against
+# a dense model of its dequantized weights
 LOGITS_RTOL = 5e-2
+# MLX 4-bit layout of the published mlx-community Llama-3.1-8B-Instruct-4bit
+GROUP_SIZE = 64
+BITS = 4
+# the projections of one Llama-3.1-8B layer as the packed path runs them
+# (QKV and gate+up fused), and the LM head: (name, OUT, IN)
+QUANT_SHAPES = (
+    ("qkv_proj", 6144, 4096),
+    ("o_proj", 4096, 4096),
+    ("gate_up_proj", 28672, 4096),
+    ("down_proj", 4096, 14336),
+    ("lm_head", 128256, 4096),
+)
+LAYER_SHAPES = 4  # the first four run once per layer, the head once per step
+PREFILL_M = CHUNK
 
 
 def log(msg: str) -> None:
@@ -187,19 +216,118 @@ def sdpa_call(q, k, v, offset, scale):
     return call
 
 
+def quant_operands(gen, m, out_dim, in_dim, *, integer, x_dtype=torch.bfloat16,
+                   param_dtype=torch.float16, group_size=GROUP_SIZE, bits=BITS):
+    """x (M, IN) and a packed (q, scales, biases) on the card. ``integer``:
+    random codes, scale 1, bias -2^(bits-1) and integer x in [-4, 4), so
+    every product and partial sum is exact in fp32 and the kernel must equal
+    the plain version bit for bit. Else: a random N(0, 1/IN) weight packed
+    by ``quantize_torch`` and random x."""
+    from mlx_sharding_tpu_torch.ops.quant import quantize_torch
+
+    dev = "cuda"
+    groups = in_dim // group_size
+    if integer:
+        q = torch.randint(-2**31, 2**31, (out_dim, in_dim * bits // 32), generator=gen,
+                          device=dev, dtype=torch.int32)
+        s = torch.ones((out_dim, groups), dtype=param_dtype, device=dev)
+        b = torch.full((out_dim, groups), -float(2 ** (bits - 1)), dtype=param_dtype, device=dev)
+        x = torch.randint(-4, 4, (m, in_dim), generator=gen, device=dev).to(x_dtype)
+        return x, q, s, b
+    w = torch.randn((out_dim, in_dim), generator=gen, device=dev) / math.sqrt(in_dim)
+    q, s, b = quantize_torch(w, group_size, bits)
+    x = torch.randn((m, in_dim), generator=gen, device=dev).to(x_dtype)
+    return x, q, s.to(param_dtype), b.to(param_dtype)
+
+
+def check_quant(kernel, x, q, s, b, group_size, bits, integer, label) -> float:
+    """One kernel call against the plain version; returns max |error|."""
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
+    got = getattr(qm, kernel)(x, q, s, b, group_size, bits)
+    ref = qm.quant_matmul_reference(x, q, s, b, group_size, bits)
+    torch.cuda.synchronize()
+    if integer:
+        err = (got.float() - ref.float()).abs().max().item()
+        same = torch.equal(got, ref)
+        log(f"[kernels] {kernel} {label} integer-valued: bit-exact {same} (max_abs_err {err:.3e})")
+        check(same, f"{kernel} {label} differs from its plain version on exact operands")
+        return err
+    err, worst, rel_l2 = kernel_disagreement(got, ref)
+    log(f"[kernels] {kernel} {label} random: max_abs_err {err:.3e}, rms(ref) "
+        f"{ref.float().pow(2).mean().sqrt().item():.3e}, worst err/limit {worst:.3f} (tol 1), "
+        f"relative L2 {rel_l2:.3e} (tol {REL_L2_TOL})")
+    check(worst <= 1 and rel_l2 <= REL_L2_TOL, f"{kernel} {label} disagrees with its plain version")
+    return err
+
+
+def build_kernels() -> None:
+    """Every kernel library of the path, one nvcc per source, all started
+    together; prints each build's time and ptxas lines."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
+    def build(mod):
+        t0 = time.perf_counter()
+        build_log = mod.build()
+        return mod, build_log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(build, (fa, qm)))
+    for mod, build_log, secs in built:
+        log(f"[kernels] built {mod.SOURCE.name} in {secs:.1f}s")
+        for line in build_log.splitlines():
+            if any(k in line for k in ("registers", "smem", "spill", "cached", "Compiling")):
+                log(f"[kernels]   ptxas: {line.strip()}")
+    log(f"[kernels] flash shared memory per block at D=128 bf16: "
+        f"{fa.shared_memory_bytes(torch.bfloat16, 128, 128)} bytes")
+    for kernel, m in (("gemv", 1), ("gemv", 8), ("matmul", PREFILL_M)):
+        log(f"[kernels] quant_{kernel} shared memory per block at M={m} bf16: "
+            f"{qm.shared_memory_bytes(kernel, torch.bfloat16, BITS, m)} bytes")
+
+
+def phase_quant_kernels(seed: int) -> dict:
+    """Both packed-weight kernels against the plain version: at the five
+    Llama-3.1-8B shapes (the GEMV at M = 1 and 8, the matmul at M = 256),
+    bit for bit on integer-valued operands and within limits on random bf16
+    with fp16 scales; then small cases for the other bits, group sizes,
+    dtypes and ragged edges. Returns the largest random-bf16 error at the
+    main path's shapes, per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    main_err = {"quant_gemv": 0.0, "quant_matmul": 0.0}
+    for name, out_dim, in_dim in QUANT_SHAPES:
+        for integer in (True, False):
+            for kernel, m in (("quant_gemv", 1), ("quant_gemv", 8), ("quant_matmul", PREFILL_M)):
+                x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer)
+                err = check_quant(kernel, x, q, s, b, GROUP_SIZE, BITS, integer,
+                                  f"{name} M={m} OUT={out_dim} IN={in_dim} bf16")
+                if not integer:
+                    main_err[kernel] = max(main_err[kernel], err)
+            del x, q, s, b
+    small = [
+        # kernel, M, OUT, IN, group size, bits, x dtype, scale/bias dtype
+        ("quant_gemv", 3, 200, 512, 32, 8, torch.bfloat16, torch.bfloat16),
+        ("quant_gemv", 8, 77, 96, 32, 4, torch.float32, torch.float32),
+        ("quant_gemv", 5, 130, 8320, 128, 4, torch.bfloat16, torch.float16),
+        ("quant_matmul", 100, 200, 96, 32, 4, torch.bfloat16, torch.float16),
+        ("quant_matmul", 70, 130, 512, 128, 8, torch.float32, torch.float32),
+        ("quant_matmul", 9, 256, 256, 64, 8, torch.bfloat16, torch.bfloat16),
+    ]
+    for kernel, m, out_dim, in_dim, gs, bits, xd, pd in small:
+        for integer in (True, False):
+            x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer, x_dtype=xd,
+                                        param_dtype=pd, group_size=gs, bits=bits)
+            check_quant(kernel, x, q, s, b, gs, bits, integer,
+                        f"M={m} OUT={out_dim} IN={in_dim} gs={gs} bits={bits} "
+                        f"{str(xd)[6:]} x, {str(pd)[6:]} scales")
+    return main_err
+
+
 # ---------------------------------------------------------------- phases
 def phase_kernels(seed: int) -> float:
     """Returns the largest error at the main path's shapes."""
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
 
-    t0 = time.perf_counter()
-    build_log = fa.build()
-    log(f"[kernels] built {fa.SOURCE.name} in {time.perf_counter() - t0:.1f}s")
-    for line in build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line or "cached" in line:
-            log(f"[kernels]   ptxas: {line.strip()}")
-    log(f"[kernels] shared memory per block at D=128 bf16: "
-        f"{fa.shared_memory_bytes(torch.bfloat16, 128, 128)} bytes")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [
         # (b, t, s, hq, hkv, dk, dv, offset, dtype): the main path's bf16
@@ -265,6 +393,123 @@ def phase_timing(seed: int) -> dict:
     return rows
 
 
+def int4pack_weight(q, s, b):
+    """The same 4-bit codes in the layout of PyTorch's library call
+    ``_weight_int4pack_mm``, the yardstick for the packed product (timed
+    here only; the port never calls it). It computes (code - 8) * scale +
+    zero per group, so zero = bias + 8 * scale; its scales and zeros are
+    bf16. Returns (packed words, scales and zeros), or None and the reason
+    the call is not available."""
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None, "torch._weight_int4pack_mm is absent"
+    shifts = torch.arange(8, device=q.device, dtype=torch.int32) * 4
+    codes = ((q[..., None] >> shifts) & 15).reshape(q.shape[0], -1)
+    w_u8 = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)  # even index in the high nibble
+    del codes
+    try:
+        packed = torch._convert_weight_to_int4pack(w_u8, 8)
+    except RuntimeError as e:
+        return None, f"_convert_weight_to_int4pack refused: {str(e).splitlines()[0]}"
+    sz = torch.stack([s.float(), b.float() + 8 * s.float()], -1)
+    return (packed, sz.to(torch.bfloat16).transpose(0, 1).contiguous()), ""
+
+
+def quant_work(m, out_dim, in_dim, bits=BITS, group_size=GROUP_SIZE):
+    """FLOPs and bytes of one packed product: words, fp16 scales and biases
+    and bf16 x read once, the bf16 output written once."""
+    groups = in_dim // group_size
+    nbytes = out_dim * in_dim * bits // 8 + 2 * 2 * out_dim * groups + 2 * m * in_dim + 2 * m * out_dim
+    return 2 * m * in_dim * out_dim, nbytes
+
+
+def phase_quant_timing(seed: int) -> list:
+    """Device times of both packed-weight kernels at the five Llama-3.1-8B
+    shapes (the GEMV at M = 1 and 8, the matmul at M = 256), beside their
+    bound, the plain version, F.linear on the dequantized bf16 weight (what
+    the dequantize-on-load path spends) and torch._weight_int4pack_mm."""
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.ops.quant import dequantize
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    rows = []
+    for name, out_dim, in_dim in QUANT_SHAPES:
+        _, q, s, b = quant_operands(gen, 1, out_dim, in_dim, integer=False)
+        dense = dequantize(q, s, b, GROUP_SIZE, BITS, torch.bfloat16)
+        lib_weight, lib_why = int4pack_weight(q, s, b)
+        for m in (1, 8, PREFILL_M):
+            kernel = "quant_gemv" if m <= qm.GEMV_MAX_M else "quant_matmul"
+            fn = getattr(qm, kernel)
+            x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+            kern = time_ms(lambda: fn(x, q, s, b, GROUP_SIZE, BITS))
+            plain = time_ms(lambda: qm.quant_matmul_reference(x, q, s, b, GROUP_SIZE, BITS))
+            dense_ms = time_ms(lambda: torch.nn.functional.linear(x, dense))
+            lib, why = None, lib_why
+            if lib_weight is not None:
+                lib_fn = lambda: torch._weight_int4pack_mm(x, lib_weight[0], GROUP_SIZE,  # noqa: E731
+                                                           lib_weight[1])
+                try:
+                    got = lib_fn()
+                except RuntimeError as e:
+                    got, why = None, f"_weight_int4pack_mm refused: {str(e).splitlines()[0]}"
+                if got is not None:
+                    ref = qm.quant_matmul_reference(x, q, s, b, GROUP_SIZE, BITS)
+                    _, worst, rel_l2 = kernel_disagreement(got, ref)
+                    if worst <= 1 and rel_l2 <= REL_L2_TOL:
+                        lib = time_ms(lib_fn)
+                    else:
+                        why = (f"disagrees with the plain version (err/limit {worst:.3f}, "
+                               f"rel L2 {rel_l2:.3e})")
+            flops, nbytes = quant_work(m, out_dim, in_dim)
+            ops_ms, bytes_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES * 1e3
+            rows.append(dict(kernel=kernel, name=name, m=m, ms=kern, plain_ms=plain,
+                             dense_ms=dense_ms, library_ms=lib, bound_ms=max(ops_ms, bytes_ms),
+                             ops_ms=ops_ms, bytes_ms=bytes_ms))
+            lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
+            log(f"[timing] {kernel} {name} M={m} OUT={out_dim} IN={in_dim} bf16, fp16 scales: "
+                f"kernel {kern:.4f} ms, plain {plain:.4f} ms, dense F.linear {dense_ms:.4f} ms, "
+                f"int4pack_mm {lib_txt}, bound {max(ops_ms, bytes_ms):.4f} ms "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s")
+        del q, s, b, dense, lib_weight
+    return rows
+
+
+def quant_record(rows, kernel, launches, max_err):
+    """The kernels-line entry of a packed-weight kernel: per-launch means as
+    the main path weighs them. The GEMV: a decode step's 129 launches at
+    M = 1 (32 of each layer shape and the head); the matmul: a prefill
+    chunk's four layer shapes at M = 256, equally."""
+    if kernel == "quant_gemv":
+        sel = [r for r in rows if r["kernel"] == kernel and r["m"] == 1]
+        weights = [1 if r["name"] == "lm_head" else 32 for r in sel]
+    else:
+        sel = [r for r in rows if r["kernel"] == kernel and r["name"] != "lm_head"]
+        weights = [1] * len(sel)
+    total = sum(weights)
+
+    def mean(key):
+        vals = [r[key] for r in sel]
+        if any(v is None for v in vals):
+            return None
+        return sum(w * v for w, v in zip(weights, vals)) / total
+
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": "mlx_sharding_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": ("mlx_sharding_tpu/ops/quant_matmul.py:382" if kernel == "quant_gemv"
+                     else "mlx_sharding_tpu/ops/quant_matmul.py:163"),
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": "operations" if mean("ops_ms") >= mean("bytes_ms") else "bytes",
+        "library_ms": mean("library_ms"),
+        "dense_ms": mean("dense_ms"),
+    }
+
+
 class ByteTokenizer:
     """Token id == one UTF-8 byte; ids >= 256 decode to nothing. No EOS, so
     every request runs to its max_tokens and the counts are exact."""
@@ -315,9 +560,10 @@ def stream_text(events, chat):
     return "".join(out)
 
 
-def phase_main_path(seed: int) -> tuple[int, dict]:
+def phase_main_path(seed: int):
     """The port's server over Llama-3.1-8B at full width. Returns the flash
-    launches of the counted run and the measured request numbers."""
+    launches of the counted run, the measured request numbers and the
+    model."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.models import build_model
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
@@ -429,6 +675,135 @@ def phase_main_path(seed: int) -> tuple[int, dict]:
     check(rel <= LOGITS_RTOL, "kernel path disagrees with the plain path")
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main] torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB")
+    return launches, stats, model
+
+
+def pack_llama(dense, config: dict, group_size=GROUP_SIZE, bits=BITS, param_dtype=torch.float16):
+    """A packed model of the dense model's numbers: every layer projection,
+    the embedding and the LM head packed on their device by
+    ``quantize_torch`` in MLX's layout (scales and biases in
+    ``param_dtype``), as ``loading.load_model(keep_quantized=True)`` keeps
+    an MLX 4-bit checkpoint; the norms are shared."""
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.ops.quant import quantize_torch
+
+    model, _ = build_model({**config, "quantization": {"group_size": group_size, "bits": bits}},
+                           dtype=dense.dtype)
+    sd = {}
+    for name, t in dense.state_dict().items():
+        path = name.removesuffix(".weight")
+        if path != name and isinstance(dense.get_submodule(path),
+                                       (torch.nn.Linear, torch.nn.Embedding)):
+            q, s, b = quantize_torch(t, group_size, bits)
+            sd[name] = {"q": q, "scales": s.to(param_dtype), "biases": b.to(param_dtype)}
+        else:
+            sd[name] = t
+    model.load_weights(sd, dense.device, dense.dtype)
+    return model
+
+
+def phase_main_path_4bit(dense, seed: int):
+    """``--keep-quantized`` at full width: the dense model's weights packed
+    on the card, its last-position logits against a dense model holding the
+    dequantized weights (the dense model itself, overwritten in place), then
+    the dense weights freed and the packed, fused model served. Returns the
+    launches of the counted run per kernel and the request numbers."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.models.base import QuantizedLinear
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
+
+    cfg = dense.config
+    t0 = time.perf_counter()
+    packed = pack_llama(dense, LLAMA_31_8B)
+    torch.cuda.synchronize()
+    mods = {n: m for n, m in packed.named_modules() if isinstance(m, QuantizedLinear)}
+    packed_bytes = sum(t.numel() * t.element_size() for m in mods.values() for t in m.buffers())
+    log(f"[main-4bit] packed {len(mods)} projections (embedding and LM head included) on the card "
+        f"in {time.perf_counter() - t0:.1f}s: group {GROUP_SIZE}, {BITS} bits, fp16 scales and "
+        f"biases, {packed_bytes / 1e9:.3f} GB")
+    with torch.no_grad():
+        for name, mod in mods.items():
+            dense.get_submodule(name).weight.copy_(mod.dequantized(dense.dtype))
+    del mods  # fusion must be able to release the unfused projections
+    tok = ByteTokenizer()
+    words = ("pipeline stages pass activations over rings while the cache grows; "
+             "every chunk of the prompt runs through the flash kernel. ")
+    long_prompt = (words * 8)[:600]
+    gen = Generator(packed, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    log(f"[main-4bit] fused {gen.fused_projections}")
+    prompt = np.asarray([tok.encode(long_prompt)], np.int64)
+    got, _ = gen.run_prefill(prompt, packed.make_cache(1, gen.max_seq))
+    dgen = Generator(dense, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    want, _ = dgen.run_prefill(prompt, dense.make_cache(1, dgen.max_seq))
+    got, want = got.float(), want.float()
+    check(got.shape == (1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+          "packed prefill logits not finite or of the wrong shape")
+    rel = ((got - want).norm() / want.norm()).item()
+    same_top = bool((got.argmax(-1) == want.argmax(-1)).all())
+    log(f"[main-4bit] last-position logits, packed model vs dense model of the dequantized "
+        f"weights over 32 layers: relative L2 error {rel:.3e} (tol {LOGITS_RTOL}), same argmax "
+        f"{same_top}")
+    check(rel <= LOGITS_RTOL and same_top, "packed model disagrees with the dequantized dense model")
+    del dgen, got, want
+    dense.to("meta")  # frees the dense weights: the packed model serves alone
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    server = make_server(ModelProvider(gen, tok, model_name="llama-3.1-8b-4bit"), "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    force_a = {"65": 100.0}
+    stats = {}
+    try:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"warm-up request failed: {status}")
+        fa.flash_attention.launches = qm.quant_gemv.launches = qm.quant_matmul.launches = 0
+        status, body, _, t_end = post(port, "/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 32, "logprobs": 5})
+        check(status == 200, f"completion: status {status}: {body}")
+        usage, choice = body["usage"], body["choices"][0]
+        check(usage["prompt_tokens"] == 600 and usage["completion_tokens"] == 32,
+              f"completion token counts {usage}")
+        lp = choice["logprobs"]
+        check(len(lp["token_logprobs"]) == 32 and all(len(t) == 5 for t in lp["top_logprobs"]),
+              "completion logprobs shape")
+        check(all(math.isfinite(x) and x <= 0 for x in lp["token_logprobs"]),
+              "completion logprobs not finite and <= 0")
+        log(f"[main-4bit] /v1/completions 600-token prompt, 32 tokens, logprobs: 200 in {t_end:.3f}s")
+        status, events, t_head, t_end = post(port, "/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 64, "stream": True, "logit_bias": force_a},
+            stream=True)
+        check(status == 200 and stream_text(events, chat=False) == "A" * 64,
+              f"streamed completion: status {status}")
+        stats = {"ttft_s": t_head, "prefill_tok_s": 600 / t_head,
+                 "decode_tok_s": 63 / (t_end - t_head)}
+        log(f"[main-4bit] /v1/completions stream, 600-token prompt, 64 tokens: TTFT "
+            f"{t_head * 1e3:.1f} ms, prefill {stats['prefill_tok_s']:.1f} tok/s, decode "
+            f"{stats['decode_tok_s']:.2f} tok/s (host clock at the client, one request)")
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "quant_gemv": qm.quant_gemv.launches,
+                    "quant_matmul": qm.quant_matmul.launches}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    layers, chunks, steps = cfg.num_hidden_layers, 2 * 3, 31 + 63
+    expected = {
+        "flash_attention": layers * chunks,
+        # fused QKV, o_proj, fused gate+up and down_proj per layer and chunk
+        "quant_matmul": LAYER_SHAPES * layers * chunks,
+        # the same four and the head per decode step; the head once per chunk
+        "quant_gemv": (LAYER_SHAPES * layers + 1) * steps + chunks,
+    }
+    for name, want_n in expected.items():
+        log(f"[main-4bit] {name} launches {launches[name]}, expected {want_n}")
+        check(launches[name] == want_n, f"{name} launch count disagrees with the requests")
+    stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[main-4bit] torch.cuda.max_memory_allocated while serving packed "
+        f"{stats['max_memory_allocated_gb']:.2f} GB")
     return launches, stats
 
 
@@ -436,6 +811,8 @@ def phase_main_path(seed: int) -> tuple[int, dict]:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build and check the kernels, then stop (no result line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -444,9 +821,17 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
+    build_kernels()
     max_err = phase_kernels(args.seed)
+    quant_err = phase_quant_kernels(args.seed)
+    if args.kernels_only:
+        return 0
     rows = phase_timing(args.seed)
-    launches, _ = phase_main_path(args.seed)
+    quant_rows = phase_quant_timing(args.seed)
+    launches, _, model = phase_main_path(args.seed)
+    quant_launches, _ = phase_main_path_4bit(model, args.seed)
+    del model
 
     # the kernel record: per-launch means over the main path's chunk offsets
     main_rows = [r for r in rows if r["offset"] in MAIN_PATH_OFFSETS]
@@ -466,6 +851,9 @@ def main(argv=None) -> int:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": mean("library_ms"),
     }]}
+    for kernel in ("quant_gemv", "quant_matmul"):
+        record["kernels"].append(
+            quant_record(quant_rows, kernel, quant_launches[kernel], quant_err[kernel]))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """CLI text generation (port of the single-generator path of
 ``mlx_sharding_tpu/cli/generate.py``).
 
-    python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." [--device cpu]
+    python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
+        [--keep-quantized] [--device cpu]
 
 Streams the text and reports prompt/generation tok/s and TTFT on stderr.
 """
@@ -25,6 +26,10 @@ def main(argv=None):
     parser.add_argument("--prefill-chunk", type=int, default=256)
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' runs without a card)")
+    parser.add_argument("--keep-quantized", action="store_true",
+                        help="keep 4-bit decoder weights packed in HBM "
+                        "(fused dequant-matmul) instead of dequantizing at "
+                        "load")
     args = parser.parse_args(argv)
 
     from mlx_sharding_tpu_torch.device import resolve_device
@@ -37,7 +42,7 @@ def main(argv=None):
     from mlx_sharding_tpu_torch.generate import Generator, stream_generate
     from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
-    model, _ = load_model(args.model, device=device)
+    model, _ = load_model(args.model, device=device, keep_quantized=args.keep_quantized)
     generator = Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
     tokenizer = load_tokenizer(args.model)
     if getattr(tokenizer, "chat_template", None):

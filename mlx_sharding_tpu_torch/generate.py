@@ -98,7 +98,14 @@ class StreamChunk:
 class Generator:
     """Serves many requests, one at a time, with one model; each request
     gets its own cache (in the model's dtype), repetition window and random
-    generator."""
+    generator.
+
+    At construction it fuses the model's packed projection groups (QKV,
+    gate+up; ``models.base.apply_projection_fusion``) so that each group is
+    one kernel launch. Unlike the JAX ``Generator``, which fuses a shallow
+    copy of its params, this fuses the caller's model IN PLACE, so the
+    packed weights are held once; ``fused_projections`` names what was
+    fused (nothing for a dense model, or one fused before)."""
 
     def __init__(
         self,
@@ -107,7 +114,10 @@ class Generator:
         max_seq: int = 4096,
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
     ):
+        from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
+
         self.model = model
+        self.fused_projections = apply_projection_fusion(model)
         self.device = model.device
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
         self.prefill_chunk = prefill_chunk

@@ -38,6 +38,8 @@ class LlamaLayer(nn.Module):
 
 
 class LlamaModel(BaseModel):
+    # projections may stay packed (loading.load_model(keep_quantized=True))
+    supports_packed = True
     # HF per-layer weight names -> this module's names
     HF_LAYER_MAP = {
         "input_layernorm.weight": "input_norm",
@@ -57,7 +59,7 @@ class LlamaModel(BaseModel):
     }
 
     def __init__(self, config: LlamaConfig, dtype=torch.bfloat16):
-        super().__init__(config)
+        super().__init__(config, dtype)
         cfg = config
         self.layers = nn.ModuleList(LlamaLayer(cfg, dtype) for _ in range(cfg.num_local_layers))
         kw = dict(device="meta", dtype=dtype)
@@ -81,10 +83,16 @@ class LlamaModel(BaseModel):
         and RoPE at positions ``offset .. offset+T``."""
         b, t, _ = h.shape
         d = self.config.head_dim
-        r = rms_norm(h, p.input_norm, self.config.rms_norm_eps)
-        q = self._linear(r, p.q_proj).reshape(b, t, -1, d)
-        k = self._linear(r, p.k_proj).reshape(b, t, -1, d)
-        v = self._linear(r, p.v_proj).reshape(b, t, -1, d)
+        cfg = self.config
+        r = rms_norm(h, p.input_norm, cfg.rms_norm_eps)
+        if hasattr(p, "qkv_proj"):
+            # fused packed projection (Generator applies the fusion): one
+            # launch; the split sizes come from the config
+            nq, nkv = cfg.num_attention_heads * d, cfg.num_key_value_heads * d
+            q, k, v = torch.split(self._linear(r, p.qkv_proj), [nq, nkv, nkv], dim=-1)
+        else:
+            q, k, v = (self._linear(r, proj) for proj in (p.q_proj, p.k_proj, p.v_proj))
+        q, k, v = (y.reshape(b, t, -1, d) for y in (q, k, v))
         if self.inv_freq.device != h.device:
             self.inv_freq = self.inv_freq.to(h.device)
         return apply_rope(q, self.inv_freq, offset), apply_rope(k, self.inv_freq, offset), v
@@ -94,16 +102,26 @@ class LlamaModel(BaseModel):
         b, t, _ = h.shape
         h = h + self._linear(attn.reshape(b, t, -1), p.o_proj)
         r = rms_norm(h, p.post_norm, self.config.rms_norm_eps)
-        ff = self._linear(
-            F.silu(self._linear(r, p.gate_proj)) * self._linear(r, p.up_proj), p.down_proj
-        )
-        return h + ff
+        if hasattr(p, "gate_up_proj"):  # fused packed gate+up
+            gate, up = torch.split(self._linear(r, p.gate_up_proj),
+                                   self.config.intermediate_size, dim=-1)
+        else:
+            gate, up = self._linear(r, p.gate_proj), self._linear(r, p.up_proj)
+        return h + self._linear(F.silu(gate) * up, p.down_proj)
 
     def _layer(self, p: LlamaLayer, h, k_buf, v_buf, offset: int):
         q, k, v = self.layer_attn_inputs(p, h, offset)
         k_buf, v_buf = write_layer_kv(k_buf, v_buf, k, v, offset)
         attn = causal_attention(q, k_buf, v_buf, offset, self.scale)
         return self.layer_finish(p, h, attn)
+
+    def fused_projection_groups(self) -> dict:
+        """QKV and gate+up share their input activations: once packed, each
+        group is concatenated along OUT and served by one launch."""
+        return {
+            "qkv_proj": ("q_proj", "k_proj", "v_proj"),
+            "gate_up_proj": ("gate_proj", "up_proj"),
+        }
 
     def head_input(self, h):
         return rms_norm(h, self.final_norm, self.config.rms_norm_eps)
@@ -130,7 +148,9 @@ class LlamaModel(BaseModel):
     # ------------------------------------------------------------------
     def map_weights(self, weights: dict) -> dict:
         """HF-named, stage-filtered tensors -> this module's state dict
-        (global layer i lands in local slot i - start_layer)."""
+        (global layer i lands in local slot i - start_layer). Packed
+        ``{q, scales, biases}`` triples pass through as they are, in MLX's
+        (out, in) orientation; ``load_weights`` places them."""
         cfg = self.config
         names = dict(self.HF_LAYER_MAP)
         if cfg.attention_bias:

@@ -5,8 +5,8 @@ Port of ``mlx_sharding_tpu/ops/flash_attention.py::flash_attention`` (the
 Pallas TPU kernel). The kernel is ``csrc/flash_attention.cu``, written by
 hand for Hopper (``sm_90a``); its header says what bounds it on the card
 and what the design does about that. It is compiled with ``nvcc`` on first
-use into ``_build/`` (keyed by a hash of the source and flags) and loaded
-with ``ctypes``: no PyTorch headers, so the build takes seconds.
+use into ``_build/`` and loaded with ``ctypes`` (``cuda_library.py``): no
+PyTorch headers, so the build takes seconds.
 
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises; on a
 CPU tensor it computes :func:`flash_attention_reference`, the plain version
@@ -16,96 +16,41 @@ of the same function. There is no other route and no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
+
 NEG_INF = -1e30
 HEAD_DIM_ALIGN = 64
 MAX_HEAD_DIM = 256
-
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE_DIR / "csrc" / "flash_attention.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class _Library:
-    """The compiled kernel library, built once per process and source hash."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._lib = None
-        self.build_log = ""
-
-    def get(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load(self._build())
-            return self._lib
-
-    def _build(self) -> Path:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError(
-                "nvcc not found: the flash-attention kernel is compiled on "
-                "first use and needs the CUDA toolkit"
-            )
-        digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"flash_attention_{digest.hexdigest()[:16]}.so"
-        if out.exists():
-            self.build_log = f"cached: {out.name}"
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{self.build_log}")
-        os.replace(tmp, out)
-        return out
-
-    @staticmethod
-    def _load(path: Path) -> ctypes.CDLL:
-        lib = ctypes.CDLL(str(path))
-        lib.mst_flash_attention_fwd.restype = ctypes.c_int
-        lib.mst_flash_attention_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int,  # dtype code
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, T, S
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Hq, Hkv, Dk, Dv
-            ctypes.POINTER(ctypes.c_longlong),  # 12 strides
-            ctypes.c_int, ctypes.c_float,  # offset, scale
-            ctypes.c_void_p,  # stream
-        ]
-        lib.mst_cuda_error_string.restype = ctypes.c_char_p
-        lib.mst_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mst_flash_attention_shared_bytes.restype = ctypes.c_longlong
-        lib.mst_flash_attention_shared_bytes.argtypes = [ctypes.c_int] * 3
-        return lib
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.mst_flash_attention_fwd.restype = ctypes.c_int
+    lib.mst_flash_attention_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int,  # dtype code
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, T, S
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Hq, Hkv, Dk, Dv
+        ctypes.POINTER(ctypes.c_longlong),  # 12 strides
+        ctypes.c_int, ctypes.c_float,  # offset, scale
+        ctypes.c_void_p,  # stream
+    ]
+    lib.mst_flash_attention_shared_bytes.restype = ctypes.c_longlong
+    lib.mst_flash_attention_shared_bytes.argtypes = [ctypes.c_int] * 3
 
 
-_LIBRARY = _Library()
+_LIBRARY = CudaLibrary("flash_attention.cu", _bind)
+SOURCE = _LIBRARY.source
 
 
 def build() -> str:
     """Compile (or find) and load the kernel library; returns nvcc's log,
     whose ``-Xptxas -v`` lines give registers and shared memory."""
-    _LIBRARY.get()
-    return _LIBRARY.build_log
+    return _LIBRARY.build()
 
 
 def shared_memory_bytes(dtype: torch.dtype, dk: int, dv: int) -> int:
@@ -206,10 +151,7 @@ def flash_attention(q, k, v, offset: int, scale: float) -> torch.Tensor:
             strides, int(offset), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err:
-        raise RuntimeError(
-            f"flash_attention launch failed: {lib.mst_cuda_error_string(err).decode()}"
-        )
+    _LIBRARY.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 

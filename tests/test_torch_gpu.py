@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernel against its
-plain version, and the model's kernel path against its CPU run. This file
+"""Tests of the port that need an NVIDIA card: the CUDA kernels against their
+plain versions, and the model's kernel paths (dense and packed 4-bit)
+against their CPU runs. This file
 imports no JAX (the card's machine has none), so on the card it runs as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
@@ -9,11 +10,12 @@ Without a card every test skips with its reason."""
 import pytest
 import torch
 
-from chip_smoke import REL_L2_TOL, kernel_disagreement
+from chip_smoke import REL_L2_TOL, kernel_disagreement, pack_llama, quant_operands
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import causal_attention
 from mlx_sharding_tpu_torch.ops import flash_attention as fa
+from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.gpu
 
@@ -94,6 +96,79 @@ def test_tiny_llama_on_the_card_matches_its_cpu_run(cuda):
     before = fa.flash_attention.launches
     gpu_logits, _ = gpu_model(prompt[:, :128].to(cuda), gpu_model.make_cache(1, 256))
     assert fa.flash_attention.launches == before + 2
+    cpu_logits, _ = cpu_model(prompt[:, :128], cpu_model.make_cache(1, 256))
+    torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, atol=1e-3, rtol=1e-3)
+    streams = [
+        [t for t, _ in Generator(m, max_seq=512, prefill_chunk=128).generate_step(
+            prompt[0].tolist(), max_tokens=24)]
+        for m in (cpu_model, gpu_model)
+    ]
+    assert streams[0] == streams[1]
+
+
+QUANT_CASES = [
+    # kernel, M, OUT, IN, group size, bits, x dtype, scale/bias dtype
+    ("quant_gemv", 1, 4096, 4096, 64, 4, torch.bfloat16, torch.float16),
+    ("quant_gemv", 8, 4096, 14336, 64, 4, torch.bfloat16, torch.float16),
+    ("quant_gemv", 3, 200, 512, 32, 8, torch.bfloat16, torch.bfloat16),
+    ("quant_gemv", 8, 77, 96, 32, 4, torch.float32, torch.float32),
+    ("quant_gemv", 5, 130, 8320, 128, 4, torch.bfloat16, torch.float16),
+    ("quant_matmul", 256, 6144, 4096, 64, 4, torch.bfloat16, torch.float16),
+    ("quant_matmul", 100, 200, 96, 32, 4, torch.bfloat16, torch.float16),
+    ("quant_matmul", 70, 130, 512, 128, 8, torch.float32, torch.float32),
+    ("quant_matmul", 9, 256, 256, 64, 8, torch.bfloat16, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+@pytest.mark.parametrize("kernel,m,out_dim,in_dim,gs,bits,x_dtype,p_dtype", QUANT_CASES)
+def test_quant_kernels_match_plain_version(cuda, kernel, m, out_dim, in_dim, gs, bits, x_dtype,
+                                           p_dtype, integer):
+    """Integer-valued operands (codes, scale 1, bias -2^(bits-1), x in
+    [-4, 4)): every sum is exact, so the kernel equals the plain version bit
+    for bit. Random operands: the smoke run's limits."""
+    g = torch.Generator(device=cuda).manual_seed(m + out_dim)
+    x, q, s, b = quant_operands(g, m, out_dim, in_dim, integer=integer, x_dtype=x_dtype,
+                                param_dtype=p_dtype, group_size=gs, bits=bits)
+    fn = getattr(qm, kernel)
+    before = fn.launches
+    got = fn(x, q, s, b, gs, bits)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.shape == (m, out_dim) and got.dtype == x_dtype
+    want = qm.quant_matmul_reference(x, q, s, b, gs, bits)
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        _, worst, rel_l2 = kernel_disagreement(got, want)
+        assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+def test_quant_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, q, s, b = quant_operands(torch.Generator(device=cuda).manual_seed(0), 2, 64, 128,
+                                integer=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_gemv(x.t().contiguous().t(), q, s, b)
+    with pytest.raises(ValueError, match="16-byte"):
+        qm.quant_matmul(torch.empty(2 * 128 + 1, dtype=x.dtype, device=cuda)[1:].view(2, 128),
+                        q, s, b)
+
+
+def test_tiny_packed_llama_on_the_card_matches_its_cpu_run(cuda):
+    """A tiny fp32 Llama packed on the CPU (group 64, fp16 scales), moved
+    to the card: prefill logits through quant_matmul and decode through
+    quant_gemv within 1e-3 of the CPU run, and the same 24 greedy tokens."""
+    cfg = dict(vocab_size=320, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+               num_attention_heads=2, num_key_value_heads=1, head_dim=64)
+    dense, _ = build_model(cfg, dtype=torch.float32)
+    dense.init_params(torch.Generator().manual_seed(0), "cpu")
+    cpu_model = pack_llama(dense, cfg)
+    gpu_model = pack_llama(dense, cfg)
+    gpu_model.to(cuda)
+    prompt = torch.randint(0, 256, (1, 200), generator=torch.Generator().manual_seed(3))
+    before = (qm.quant_matmul.launches, qm.quant_gemv.launches)
+    gpu_logits, _ = gpu_model(prompt[:, :128].to(cuda), gpu_model.make_cache(1, 256))
+    assert qm.quant_matmul.launches == before[0] + 2 * 7 + 1  # 7 projections a layer, the head
+    assert qm.quant_gemv.launches == before[1]
     cpu_logits, _ = cpu_model(prompt[:, :128], cpu_model.make_cache(1, 256))
     torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, atol=1e-3, rtol=1e-3)
     streams = [

@@ -4,8 +4,6 @@ module's plain version), with the JAX weights carried across by
 ``convert.params_from_numpy``; and the port's loader on the tiny on-disk
 checkpoint."""
 
-import json
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -175,15 +173,25 @@ def tiny_checkpoint(tmp_path_factory):
     return make_tiny_checkpoint(tmp_path_factory.mktemp("torch_ckpt"))
 
 
-def test_safetensors_reader_matches_the_library(tiny_checkpoint):
-    from safetensors.numpy import load_file
+def test_safetensors_reader_matches_the_library(tiny_checkpoint, tmp_path):
+    """The HF checkpoint's tensors, and packed U32 words (read as an int32
+    view of the same bits) beside fp16 scales."""
+    from safetensors.numpy import load_file, save_file
 
-    for path in tiny_checkpoint.glob("*.safetensors"):
+    rng = np.random.default_rng(0)
+    save_file({"w.weight": rng.integers(0, 2**32, size=(4, 8), dtype=np.uint32),
+               "w.scales": rng.normal(size=(4, 1)).astype(np.float16)},
+              str(tmp_path / "packed.safetensors"))
+    for path in [*tiny_checkpoint.glob("*.safetensors"), tmp_path / "packed.safetensors"]:
         want = load_file(str(path))
         got = read_safetensors(path)
         assert set(got) == set(want)
         for name, arr in want.items():
-            np.testing.assert_array_equal(got[name].numpy(), arr)
+            if arr.dtype == np.uint32:
+                assert got[name].dtype == torch.int32
+                np.testing.assert_array_equal(got[name].numpy().view(np.uint32), arr)
+            else:
+                np.testing.assert_array_equal(got[name].numpy(), arr)
 
 
 def test_loaded_checkpoint_matches_jax_loader(tiny_checkpoint):
@@ -201,13 +209,6 @@ def test_loaded_checkpoint_matches_jax_loader(tiny_checkpoint):
                              dtype=torch.float32, device="cpu")
     assert len(stage.layers) == 2 and not hasattr(stage, "embed_tokens")
     torch.testing.assert_close(stage.layers[0].q_proj.weight, tm.layers[1].q_proj.weight)
-
-
-def test_mlx_4bit_checkpoint_waits_for_its_slice(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps(
-        {**TINY, "quantization": {"group_size": 64, "bits": 4}}))
-    with pytest.raises(NotImplementedError, match="4-bit.*ROADMAP.md"):
-        load_model(str(tmp_path), device="cpu")
 
 
 def test_missing_checkpoint_directory(tmp_path):
