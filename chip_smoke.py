@@ -9,12 +9,15 @@ final line:
 2. kernels: build every kernel library of the main path from ``csrc/`` with
    nvcc (one nvcc per source, started together), print the ``-Xptxas -v``
    lines, and hold each kernel against its plain PyTorch version on the card
-   at the main path's shapes (and a few more): flash attention, and the two
+   at the main path's shapes (and a few more): flash attention, the two
    packed-weight kernels at the five Llama-3.1-8B projection shapes, bit for
-   bit on integer-valued operands and within limits on random bf16;
+   bit on integer-valued operands and within limits on random bf16, and the
+   ragged paged decode at the 8B shapes over uneven lengths, bf16 and int8
+   pools, and odd pages, groups and dtypes;
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
-   kernels, ``F.linear`` on the dequantized bf16 weight);
+   kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
+   decode, SDPA over K/V gathered beforehand, the gather not timed);
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here; five requests (a 600-token completion
@@ -28,6 +31,14 @@ final line:
    launches checked against what the requests imply, and the last
    position's logits checked against a dense model holding the dequantized
    weights.
+6. continuous batching (run between 4 and 5, on phase 4's dense model):
+   ``--concurrent 8 --paged-pool 16`` with 256-token pages, once with a
+   bf16 pool and once with an int8 pool. A seeded top-p request alone, then
+   nine requests at once (one of them its twin) through the port's server:
+   statuses, token counts, the twins' texts, a request that waited for
+   pages, and the launches of both attention kernels against the batcher's
+   own count of steps and chunks; then, at the engine level, every slot's
+   logits at its first decode step against the single-stream model's.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -40,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import http.client
 import json
 import math
@@ -111,6 +123,20 @@ QUANT_SHAPES = (
 )
 LAYER_SHAPES = 4  # the first four run once per layer, the head once per step
 PREFILL_M = CHUNK
+# continuous batching (phase 6): slots, page size, and a pool small enough
+# that the nine requests below (25 pages in all) cannot all hold pages at once
+SLOTS = 8
+PAGE = 256
+POOL_PAGES = 16
+# (prompt tokens, max_tokens); the last is the seeded top-p twin of a request
+# sent alone before the mix, the others are forced to one byte
+BATCH_MIX = ((40, 64), (200, 48), (255, 32), (256, 32), (257, 96), (600, 64), (900, 96),
+             (1500, 64), (600, 64))
+# the paged kernel's check at the 8B shapes: lengths at and around page
+# edges, an empty slot and a full 4096-position slot
+PAGED_LENGTHS = (0, 1, 255, 256, 257, 600, 1000, 4096)
+# its timing: the first decode step of the mix's first eight requests
+PAGED_TIMING_LENGTHS = tuple(n + 1 for n, _ in BATCH_MIX[:SLOTS])
 
 
 def log(msg: str) -> None:
@@ -265,6 +291,7 @@ def build_kernels() -> None:
     """Every kernel library of the path, one nvcc per source, all started
     together; prints each build's time and ptxas lines."""
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 
     def build(mod):
@@ -272,8 +299,9 @@ def build_kernels() -> None:
         build_log = mod.build()
         return mod, build_log, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(build, (fa, qm)))
+    libraries = (fa, qm, pa)
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(build, libraries))
     for mod, build_log, secs in built:
         log(f"[kernels] built {mod.SOURCE.name} in {secs:.1f}s")
         for line in build_log.splitlines():
@@ -284,6 +312,9 @@ def build_kernels() -> None:
     for kernel, m in (("gemv", 1), ("gemv", 8), ("matmul", PREFILL_M)):
         log(f"[kernels] quant_{kernel} shared memory per block at M={m} bf16: "
             f"{qm.shared_memory_bytes(kernel, torch.bfloat16, BITS, m)} bytes")
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        log(f"[kernels] paged_attention shared memory per block at G=4 D=128 "
+            f"{str(pool_dtype)[6:]} pool: {pa.shared_memory_bytes(pool_dtype, 4, 128, 128)} bytes")
 
 
 def phase_quant_kernels(seed: int) -> dict:
@@ -320,6 +351,93 @@ def phase_quant_kernels(seed: int) -> dict:
             check_quant(kernel, x, q, s, b, gs, bits, integer,
                         f"M={m} OUT={out_dim} IN={in_dim} gs={gs} bits={bits} "
                         f"{str(xd)[6:]} x, {str(pd)[6:]} scales")
+    return main_err
+
+
+def paged_case(gen, lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype):
+    """One layer's page pool on the card, as the engine lays it out: each
+    slot's live pages are distinct pool pages in shuffled order, every table
+    entry past them names the scratch page (the last), and the scratch page
+    holds large values, so that reading it as a live row shows. An int8 pool
+    is quantized with the port's ``quantize_kv_rows``. Returns (q, k pool, v
+    pool, k scales, v scales, tables, lengths); scales are None unless int8."""
+    from mlx_sharding_tpu_torch.cache import quantize_kv_rows
+
+    dev = "cuda"
+    m = len(lengths)
+    need = [-(-n // page) for n in lengths]
+    pages = sum(need) + 3
+    order = torch.randperm(pages, generator=torch.Generator().manual_seed(len(lengths) + page))
+    tables = torch.full((m, spg), pages, dtype=torch.int32)
+    start = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = order[start : start + n]
+        start += n
+    shape = (pages + 1, page, hkv, d)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    k[pages] = 30.0
+    v[pages] = 30.0
+    q = torch.randn((m, hq, d), generator=gen, device=dev).to(q_dtype)
+    ks = vs = None
+    if pool_dtype == torch.int8:
+        kq, vq = quantize_kv_rows(k), quantize_kv_rows(v)
+        k, ks, v, vs = kq["d"], kq["s"], vq["d"], vq["s"]
+    else:
+        k, v = k.to(pool_dtype), v.to(pool_dtype)
+    return (q, k, v, ks, vs, tables.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def phase_paged_kernels(seed: int) -> float:
+    """The ragged paged decode against its plain version: at the 8B shapes
+    (M 8, Hq 32, Hkv 8, D 128, page 256, 16 pages a slot) with bf16 and int8
+    pools, then at odd pages, groups and dtypes. An empty slot must give
+    zeros. Returns the largest error at the 8B shapes."""
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # (lengths, hq, hkv, d, page, pages per slot, pool dtype, q dtype)
+        (PAGED_LENGTHS, 32, 8, 128, PAGE, MAX_SEQ // PAGE, bf16, bf16),
+        (PAGED_LENGTHS, 32, 8, 128, PAGE, MAX_SEQ // PAGE, torch.int8, bf16),
+        ((5, 8, 16, 0, 27, 32), 4, 4, 64, 8, 4, f32, f32),
+        ((1, 15, 16, 17, 100, 0), 8, 2, 128, 16, 8, bf16, bf16),
+        ((127, 128, 129, 500, 0, 3), 8, 1, 64, 128, 4, torch.int8, f32),
+        ((64, 65, 300, 0), 4, 2, 256, 64, 5, bf16, bf16),
+        ((33, 200, 1), 16, 1, 128, 32, 8, torch.int8, bf16),
+        ((9, 24, 0, 40), 16, 2, 64, 8, 6, f32, f32),
+    ]
+    main_err = 0.0
+    default_split = pa.SPLIT_POSITIONS
+    for lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype in cases:
+        q, k, v, ks, vs, tables, lens = paged_case(gen, lengths, hq, hkv, d, page, spg,
+                                                    pool_dtype, q_dtype)
+        scale = d ** -0.5
+        ref = pa.paged_attention_reference(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+        live = lens > 0
+        # the walk split as the path runs it, in many short splits, and whole
+        for split in (default_split, 64, 0):
+            pa.SPLIT_POSITIONS = split
+            try:
+                got = pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+                torch.cuda.synchronize()
+            finally:
+                pa.SPLIT_POSITIONS = default_split
+            empty_zero = bool((got[~live] == 0).all())
+            err, worst, rel_l2 = kernel_disagreement(got[live], ref[live])
+            label = (f"M={len(lengths)} Hq={hq} Hkv={hkv} D={d} page={page} spg={spg} "
+                     f"{str(pool_dtype)[6:]} pool, {str(q_dtype)[6:]} q, split {split}, "
+                     f"lengths {list(lengths)}")
+            log(f"[kernels] paged_attention {label}: max_abs_err {err:.3e}, rms(ref) "
+                f"{ref[live].float().pow(2).mean().sqrt().item():.3e}, worst err/limit "
+                f"{worst:.3f} (tol 1), relative L2 {rel_l2:.3e} (tol {REL_L2_TOL}), empty slots "
+                f"zero {empty_zero}")
+            check(worst <= 1 and rel_l2 <= REL_L2_TOL and empty_zero,
+                  f"paged_attention {label} disagrees with its plain version")
+            if (hq, hkv, d, page) == (32, 8, 128, PAGE) and split == default_split:
+                main_err = max(main_err, err)
     return main_err
 
 
@@ -390,6 +508,88 @@ def phase_timing(seed: int) -> dict:
             f"offset={off}: kernel {kern:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
             f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
             f"kernel vs sdpa max_abs_err {err:.3e}")
+    return rows
+
+
+def paged_work(q, k, v, ks, tables, lens):
+    """FLOPs and bytes the ragged decode needs on these inputs: q and the
+    output once, each slot's live K/V rows once (with their scales for an
+    int8 pool), the table entries of its live pages and the lengths."""
+    m, hq, d = q.shape
+    page, hkv = k.shape[1], k.shape[2]
+    lengths = lens.tolist()
+    rows = sum(lengths)
+    row_bytes = hkv * 2 * d * k.element_size() + (2 * hkv * 4 if ks is not None else 0)
+    live_pages = sum(-(-n // page) for n in lengths)
+    nbytes = 2 * m * hq * d * q.element_size() + rows * row_bytes + 4 * (live_pages + m)
+    return 2 * hq * 2 * d * rows, nbytes
+
+
+def sdpa_paged_call(q, k, v, ks, vs, tables, lens, scale):
+    """The library yardstick of the paged decode: SDPA over each slot's K/V
+    gathered beforehand into a (M, Hkv, S, D) buffer (dequantized for an
+    int8 pool) with a length mask. The gather is not timed, so this is not
+    the same function: it is what attention costs once the pages are
+    contiguous. Timed here only; the port never calls it."""
+    from mlx_sharding_tpu_torch.ops.paged_attention import _gathered
+
+    s_max = int(lens.max())
+    kg = _gathered(k, ks, tables)[:, :s_max].to(q.dtype).transpose(1, 2).contiguous()
+    vg = _gathered(v, vs, tables)[:, :s_max].to(q.dtype).transpose(1, 2).contiguous()
+    mask = (torch.arange(s_max, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    qt = q[:, :, None, :]
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True)[:, :, 0]
+
+    return call
+
+
+def phase_paged_timing(seed: int) -> list:
+    """Device times of the ragged paged decode at the 8B shapes and the
+    mix's first decode step (eight slots, 256-token pages), bf16 and int8
+    pools, beside its bound, the plain version and the SDPA yardstick."""
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows = []
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        q, k, v, ks, vs, tables, lens = paged_case(
+            gen, PAGED_TIMING_LENGTHS, 32, 8, 128, PAGE, MAX_SEQ // PAGE, pool_dtype,
+            torch.bfloat16)
+        scale = 128 ** -0.5
+        kern = time_ms(lambda: pa.paged_attention(q, k, v, tables, lens, scale,
+                                                  k_scale=ks, v_scale=vs))
+        # the same kernel walking each (slot, KV head) in one block
+        split, pa.SPLIT_POSITIONS = pa.SPLIT_POSITIONS, 0
+        try:
+            whole = time_ms(lambda: pa.paged_attention(q, k, v, tables, lens, scale,
+                                                       k_scale=ks, v_scale=vs))
+        finally:
+            pa.SPLIT_POSITIONS = split
+        plain = time_ms(lambda: pa.paged_attention_reference(q, k, v, tables, lens, scale,
+                                                             k_scale=ks, v_scale=vs))
+        lib_fn = sdpa_paged_call(q, k, v, ks, vs, tables, lens, scale)
+        _, worst, rel_l2 = kernel_disagreement(
+            lib_fn(), pa.paged_attention_reference(q, k, v, tables, lens, scale,
+                                                   k_scale=ks, v_scale=vs))
+        lib = time_ms(lib_fn) if worst <= 1 and rel_l2 <= REL_L2_TOL else None
+        if lib is None:
+            log(f"[timing] paged_attention: the SDPA yardstick disagrees with the plain version "
+                f"(err/limit {worst:.3f}, relative L2 {rel_l2:.3e}); library_ms null")
+        flops, nbytes = paged_work(q, k, v, ks, tables, lens)
+        ops_ms, bytes_ms = flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        rows.append(dict(pool=str(pool_dtype)[6:], ms=kern, plain_ms=plain, library_ms=lib,
+                         bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms))
+        log(f"[timing] paged_attention M={SLOTS} Hq=32 Hkv=8 D=128 page={PAGE} "
+            f"{str(pool_dtype)[6:]} pool, lengths {list(PAGED_TIMING_LENGTHS)}: kernel "
+            f"{kern:.4f} ms (split {pa.SPLIT_POSITIONS}; one block per slot and KV head "
+            f"{whole:.4f} ms), plain {plain:.4f} ms, sdpa after a gather (gather not timed) "
+            f"{'null' if lib is None else f'{lib:.4f} ms'}, bound {max(ops_ms, bytes_ms):.4f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e6:.1f} MFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s")
+        del q, k, v, ks, vs
     return rows
 
 
@@ -627,15 +827,18 @@ def phase_main_path(seed: int):
 
         sampled = []
         for _ in range(2):
+            # logprobs carry the token ids: random weights sample ids past
+            # the 256 bytes, which decode to no text
             status, body, _, t_end = post(port, "/v1/completions", {
                 "prompt": mid_prompt, "max_tokens": 24, "temperature": 0.8, "top_p": 0.9,
-                "seed": 1234})
+                "seed": 1234, "logprobs": 1})
             check(status == 200 and body["usage"]["completion_tokens"] == 24,
                   f"sampled completion: {status} {body.get('usage')}")
-            sampled.append(body["choices"][0]["text"])
+            sampled.append(body["choices"][0]["logprobs"]["tokens"])
             expected_chunks += chunks(300)
         check(sampled[0] == sampled[1], "seeded sampled completions differ")
-        log(f"[main] /v1/completions seeded sample (T=0.8, top_p=0.9) twice: 200, equal texts")
+        log(f"[main] /v1/completions seeded sample (T=0.8, top_p=0.9) twice: 200, the same "
+            f"{len(sampled[0])} token ids")
 
         status, events, t_head, t_end = post(port, "/v1/completions", {
             "prompt": long_prompt, "max_tokens": 64, "stream": True, "logit_bias": force_a},
@@ -676,6 +879,178 @@ def phase_main_path(seed: int):
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main] torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB")
     return launches, stats, model
+
+
+def mix_prompt(i: int, n: int) -> str:
+    """Prompt ``i`` of the mix: ``n`` bytes, so ``n`` tokens."""
+    words = (f"request {i} asks the pool for pages; each slot decodes at its own length "
+             "while the others prefill. ")
+    return (words * (n // len(words) + 1))[:n]
+
+
+def first_step_logits(model, kv_dtype, prompts):
+    """The ragged path at the engine level: ``prompts`` prefilled into
+    their own slots of an engine over its own pool, each slot's first token
+    the argmax of its prefill logits, then one decode step of all slots.
+    Returns (the first tokens, the step's logits (M, V))."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+
+    m = len(prompts)
+    need = [-(-(len(p) + 1) // PAGE) for p in prompts]
+    engine = PipelineEngine(model, microbatches=m, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                            pool_pages=sum(need), page_size=PAGE, kv_dtype=kv_dtype,
+                            device=model.device)
+    cache, table = engine.init_cache_paged()
+    first = []
+    start = 0
+    for slot, prompt in enumerate(prompts):
+        table[slot, : need[slot]] = np.arange(start, start + need[slot])
+        start += need[slot]
+        for pos in range(0, len(prompt), CHUNK):
+            chunk = np.asarray(prompt[pos : pos + CHUNK], np.int64)
+            n_valid = chunk.size
+            logits = engine.prefill_slot(np.pad(chunk, (0, CHUNK - n_valid)), slot, cache,
+                                         n_valid, table)
+        first.append(int(logits.argmax(-1)))
+    plan = engine.decode_plan(cache, table, [True] * m, 1)
+    tokens = torch.tensor(first, dtype=torch.int64, device=model.device)[:, None]
+    return first, engine.ragged_logits(tokens, cache, plan, 0).float()
+
+
+def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) -> dict:
+    """Continuous batching over the paged pool at full width: the port's
+    server in front of a ``ContinuousBatcher`` of ``SLOTS`` slots over
+    ``POOL_PAGES`` pages of ``PAGE`` tokens, ``kv_dtype`` pool. Returns the
+    launches of the counted run per attention kernel and the numbers."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
+
+    cfg = model.config
+    tag = f"[batch-{kv_dtype}]"
+    gc.collect()  # the earlier phases' servers: their handler classes sit in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{tag} torch.cuda.memory_allocated at the start {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                            pool_pages=POOL_PAGES, page_size=PAGE, kv_dtype=kv_dtype,
+                            device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8)
+    log(f"{tag} engine: {SLOTS} slots, pool {POOL_PAGES} pages of {PAGE} tokens "
+        f"({batcher.cache.nbytes / 1e6:.1f} MB of {kv_dtype} K/V), {batcher.async_reason}")
+    tok = ByteTokenizer()
+    server = make_server(ModelProvider(batcher, tok, model_name="llama-3.1-8b-cb"), "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    force_a = {"65": 100.0}
+    # the seeded twins are not streamed: their logprobs carry the token ids
+    # (random weights sample ids past the 256 bytes, which decode to nothing)
+    seeded = {"temperature": 0.8, "top_p": 0.9, "seed": 4321, "logprobs": 1}
+    jobs = []
+    for i, (n, max_tokens) in enumerate(BATCH_MIX):
+        body = {"prompt": mix_prompt(i, n), "max_tokens": max_tokens}
+        body.update(seeded if i == len(BATCH_MIX) - 1 else {"logit_bias": force_a, "stream": True})
+        jobs.append(body)
+    results = [None] * len(jobs)
+    stats = {}
+    try:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"warm-up request failed: {status}")
+        pa.paged_attention.launches = fa.flash_attention.launches = 0
+        steps0, chunks0, waits0 = batcher.decode_steps, batcher.prefill_chunks, batcher.page_waits
+
+        status, alone, _, _ = post(port, "/v1/completions", jobs[-1])
+        check(status == 200, f"seeded request alone: status {status}: {alone}")
+
+        def send(i):
+            results[i] = post(port, "/v1/completions", jobs[i], stream="stream" in jobs[i])
+
+        decode_s0 = batcher.decode_seconds
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        decode_s = batcher.decode_seconds - decode_s0
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches}
+        steps = batcher.decode_steps - steps0
+        chunks = batcher.prefill_chunks - chunks0
+        waits = batcher.page_waits - waits0
+        high_water = batcher.pages_high_water
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.close()
+    ttfts = []
+    for i, ((n, max_tokens), res) in enumerate(zip(BATCH_MIX[:-1], results)):
+        check(res is not None, f"request {i} did not return")
+        status, events, t_head, t_end = res
+        check(status == 200 and events[-1] == "[DONE]", f"request {i}: status {status}")
+        text = stream_text(events, chat=False)
+        check(text == "A" * max_tokens, f"request {i}: {len(text)} bytes, want {max_tokens}")
+        ttfts.append(t_head)
+        log(f"{tag} request {i}: {n}-token prompt, {max_tokens} tokens, TTFT {t_head * 1e3:.1f} ms, "
+            f"done in {t_end:.3f}s")
+    check(results[-1] is not None, "the seeded request among others did not return")
+    status, twin, _, t_end = results[-1]
+    check(status == 200, f"seeded request among others: status {status}: {twin}")
+    ids = [r["choices"][0]["logprobs"]["tokens"] for r in (alone, twin)]
+    check(len(ids[0]) == BATCH_MIX[-1][1] and ids[0] == ids[1]
+          and alone["choices"][0]["text"] == twin["choices"][0]["text"],
+          "the seeded request gave other tokens among others than alone")
+    log(f"{tag} request {len(BATCH_MIX) - 1}: the seeded top-p twin (not streamed), done in "
+        f"{t_end:.3f}s: the same {len(ids[0])} token ids as alone")
+    want_chunks = sum(-(-n // CHUNK) for n, _ in BATCH_MIX) + -(-BATCH_MIX[-1][0] // CHUNK)
+    log(f"{tag} batcher: {chunks} prefill chunks (the requests need {want_chunks}), {steps} "
+        f"decode steps, {waits} requests waited for pages, pool high-water {high_water} of "
+        f"{POOL_PAGES} pages")
+    check(chunks == want_chunks, "prefill chunk count disagrees with the requests")
+    check(waits >= 1, "no request waited for pages: the pool is too large for the check")
+    layers = cfg.num_hidden_layers
+    for name, count in (("paged_attention", steps), ("flash_attention", chunks)):
+        log(f"{tag} {name} launches {launches[name]}, expected {layers} layers x {count} = "
+            f"{layers * count}")
+        check(launches[name] == layers * count, f"{name} launch count disagrees with the batcher")
+    decoded = sum(max_tokens - 1 for _, max_tokens in BATCH_MIX)
+    stats = {"decode_tok_s": decoded / decode_s, "mix_tok_s": sum(m for _, m in BATCH_MIX) / wall,
+             "ttft_ms": [t * 1e3 for t in ttfts], "pool_bytes": batcher.cache.nbytes}
+    log(f"{tag} aggregate decode {stats['decode_tok_s']:.2f} tok/s over {SLOTS} slots (tokens "
+        f"after each request's first / host time in decode blocks) against "
+        f"{single_stream_tok_s:.2f} tok/s for one stream (phase 4); the mix's "
+        f"{sum(m for _, m in BATCH_MIX)} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
+    del batcher, engine, server
+
+    # the engine level: each slot's first decode step against the
+    # single-stream model's first T=1 step on the same prompt and token
+    prompts = [tok.encode(mix_prompt(i, n)) for i, (n, _) in enumerate(BATCH_MIX[:SLOTS])]
+    first, got = first_step_logits(model, kv_dtype, prompts)
+    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    worst = 0.0
+    for slot, prompt in enumerate(prompts):
+        _, cache = gen.run_prefill(np.asarray([prompt], np.int64), model.make_cache(1, MAX_SEQ))
+        want, _ = model(torch.tensor([[first[slot]]], device=model.device), cache)
+        want = want[0, -1].float()
+        check(bool(torch.isfinite(got[slot]).all()), f"slot {slot}: logits not finite")
+        rel = ((got[slot] - want).norm() / want.norm()).item()
+        worst = max(worst, rel)
+        log(f"{tag} slot {slot} ({len(prompt)}-token prompt): first decode step logits vs the "
+            f"single-stream T=1 step: relative L2 {rel:.3e} (tol {LOGITS_RTOL}), same argmax "
+            f"{bool(got[slot].argmax() == want.argmax())}")
+        check(rel <= LOGITS_RTOL, f"slot {slot} disagrees with the single-stream path")
+    del got
+    stats["worst_logits_rel_l2"] = worst
+    stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB "
+        f"(16.06 GB of weights)")
+    return launches, stats
 
 
 def pack_llama(dense, config: dict, group_size=GROUP_SIZE, bits=BITS, param_dtype=torch.float16):
@@ -825,11 +1200,17 @@ def main(argv=None) -> int:
     build_kernels()
     max_err = phase_kernels(args.seed)
     quant_err = phase_quant_kernels(args.seed)
+    paged_err = phase_paged_kernels(args.seed)
     if args.kernels_only:
         return 0
     rows = phase_timing(args.seed)
     quant_rows = phase_quant_timing(args.seed)
-    launches, _, model = phase_main_path(args.seed)
+    paged_rows = phase_paged_timing(args.seed)
+    launches, single, model = phase_main_path(args.seed)
+    paged_launches = 0
+    for kv_dtype in ("bf16", "int8"):
+        batch_launches, _ = phase_batching(model, args.seed, kv_dtype, single["decode_tok_s"])
+        paged_launches += batch_launches["paged_attention"]
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     del model
 
@@ -854,6 +1235,24 @@ def main(argv=None) -> int:
     for kernel in ("quant_gemv", "quant_matmul"):
         record["kernels"].append(
             quant_record(quant_rows, kernel, quant_launches[kernel], quant_err[kernel]))
+    # the paged decode: means over the bf16 and int8 pools, which phase 6
+    # serves the same mix on
+    pmean = lambda key: (None if any(r[key] is None for r in paged_rows)  # noqa: E731
+                         else sum(r[key] for r in paged_rows) / len(paged_rows))
+    record["kernels"].append({
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "mlx_sharding_tpu/ops/paged_attention.py:153",
+        "launches": paged_launches,
+        "max_abs_err": paged_err,
+        "ms": pmean("ms"),
+        "plain_ms": pmean("plain_ms"),
+        "bound_ms": pmean("bound_ms"),
+        "bound_by": "operations" if pmean("ops_ms") >= pmean("bytes_ms") else "bytes",
+        "library_ms": pmean("library_ms"),
+        "library": "scaled_dot_product_attention after a gather (gather not timed)",
+    })
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,27 @@
-"""Preallocated dense KV cache (port of the dense subset of
-``mlx_sharding_tpu/cache.py``).
+"""Preallocated KV caches (port of ``mlx_sharding_tpu/cache.py``): the
+dense per-request cache and the paged pool that continuous batching shares
+across slots.
 
-Layout: keys and values stacked over the stage's local layers,
+Dense layout: keys and values stacked over the stage's local layers,
 ``k, v : (L, B, S, H_kv, D)``, plus ``offset``, the number of valid
 positions. Unlike the JAX cache, whose buffers are immutable and donated,
 :func:`write_layer_kv` updates K/V IN PLACE, and ``offset`` is a host
 ``int``: the generator always knows it, and a device scalar would force a
-sync to read it. The paged-pool helpers come with the paged slice.
+sync to read it.
+
+Paged layout (:class:`PagedKV`): one pool per K and V of shape
+``(L, P+1, page, H_kv, D)``, the JAX leaf ``(S, L, P+1, B, page, H, D)``
+with S = B = 1 dropped; page P is scratch. An int8 pool is a ``{"d": int8,
+"s": float32 (…, 1)}`` pair (:func:`quantize_kv_rows`). Slot offsets are
+host ints here too. Exporting and importing pool pages (spill, migration)
+and rewinding a slot's offset (async ticks) come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -70,3 +79,113 @@ def check_capacity(cache: KVCache, n_new: int) -> None:
 def reset(cache: KVCache) -> KVCache:
     """Invalidate without reallocating."""
     return dataclasses.replace(cache, offset=0)
+
+
+# ------------------------------------------------------------- paged pool
+def is_quantized_kv(buf) -> bool:
+    """True for an int8 KV buffer: ``{"d": int8 data, "s": float32
+    scales}`` with the scale's trailing dim 1 broadcasting over head_dim."""
+    return isinstance(buf, dict) and "d" in buf
+
+
+def kv_data(buf) -> torch.Tensor:
+    """The data leaf of a KV buffer: the int8 payload of a quantized pool,
+    the tensor itself otherwise."""
+    return buf["d"] if is_quantized_kv(buf) else buf
+
+
+def quantize_kv_rows(rows: torch.Tensor) -> dict:
+    """(…, H, D) float rows -> ``{"d": int8, "s": float32 (…, H, 1)}`` with
+    a per-row-per-head symmetric scale ``max|x| / 127`` (floor 1e-12),
+    rounded half to even and clipped to ±127. Per-row scales keep every
+    write a pure write: a decode tick writes one row into a page without
+    touching the page's other rows."""
+    x = rows.float()
+    s = (x.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    d = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return {"d": d, "s": s}
+
+
+def dequantize_kv(buf, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows`; a dense buffer passes through
+    cast to ``dtype``."""
+    if not is_quantized_kv(buf):
+        return buf.to(dtype)
+    return (buf["d"].float() * buf["s"]).to(dtype)
+
+
+@dataclasses.dataclass
+class PagedKV:
+    """The page pool of a continuous-batching engine. ``k``/``v`` are
+    (L, P+1, page, H_kv, D) tensors or int8 ``{"d", "s"}`` pairs, written
+    in place; ``offsets[m]`` is slot m's number of valid positions, a host
+    int. Position p of slot m lives at pool page ``table[m, p // page]``,
+    row ``p % page`` (:func:`init_page_table`)."""
+
+    k: object
+    v: object
+    offsets: list
+
+    @property
+    def nbytes(self) -> int:
+        leaves = [b for buf in (self.k, self.v)
+                  for b in (buf.values() if is_quantized_kv(buf) else (buf,))]
+        return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def init_cache_paged(num_layers: int, pool_pages: int, page_size: int, n_kv_heads: int,
+                     head_dim: int, slots: int, dtype: torch.dtype, device,
+                     quantized: bool = False) -> PagedKV:
+    """A zeroed pool of ``pool_pages`` pages plus the scratch page, in
+    ``dtype`` or, ``quantized``, as int8 codes with float32 scales (D + 4
+    bytes per row and head instead of 2D in bf16)."""
+    shape = (num_layers, pool_pages + 1, page_size, n_kv_heads, head_dim)
+
+    def pool():
+        if not quantized:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return {"d": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.zeros((*shape[:-1], 1), dtype=torch.float32, device=device)}
+
+    return PagedKV(k=pool(), v=pool(), offsets=[0] * slots)
+
+
+def init_page_table(slots: int, slot_pages: int, pool_pages: int) -> np.ndarray:
+    """The (M+1, slot_pages) int32 page table, host side: every entry
+    starts at the scratch page (id ``pool_pages``), and row M stays all
+    scratch for the ticks of inactive slots."""
+    return np.full((slots + 1, slot_pages), pool_pages, np.int32)
+
+
+def write_pool_rows(pool, page_ids: torch.Tensor, row_pos: torch.Tensor, rows: torch.Tensor):
+    """Write ``rows`` (N, H_kv, D) into one layer's pool (P+1, page, H_kv,
+    D), row n at ``[page_ids[n], row_pos[n]]``, in place; an int8 pool gets
+    the quantized rows. Duplicate targets (inactive slots all write the
+    scratch page's row 0) keep one of the rows."""
+    if is_quantized_kv(pool):
+        q = quantize_kv_rows(rows)
+        pool["d"][page_ids, row_pos] = q["d"]
+        pool["s"][page_ids, row_pos] = q["s"]
+    else:
+        pool[page_ids, row_pos] = rows.to(pool.dtype)
+
+
+def write_pool_span(pool, page_id: int, start: int, rows: torch.Tensor):
+    """Write ``rows`` (T, H_kv, D) into rows ``start .. start+T`` of one
+    pool page, in place (quantized for an int8 pool): a prefill chunk,
+    which never straddles a page."""
+    t = rows.shape[0]
+    if is_quantized_kv(pool):
+        q = quantize_kv_rows(rows)
+        pool["d"][page_id, start : start + t] = q["d"]
+        pool["s"][page_id, start : start + t] = q["s"]
+    else:
+        pool[page_id, start : start + t] = rows.to(pool.dtype)
+
+
+def layer_pool(buf, layer: int):
+    """One layer's (P+1, page, H_kv, D) pool out of the stacked one (an
+    int8 pair stays a pair), as views."""
+    if is_quantized_kv(buf):
+        return {"d": buf["d"][layer], "s": buf["s"][layer]}
+    return buf[layer]

@@ -59,10 +59,11 @@ def block_lp_outputs(tok, logprobs):
     return chosen, top_v, top_i
 
 
-def block_token_logprobs(outs, j) -> TokenLogprobs:
-    """Step j's summary from a pulled block ``(tokens, chosen, top_values,
+def block_token_logprobs(outs, j, row=0) -> TokenLogprobs:
+    """The summary of step j, batch row ``row`` (a continuous-batching
+    slot), from a pulled block ``(tokens, chosen, top_values,
     top_indices)``."""
-    return TokenLogprobs(float(outs[1][j, 0]), outs[3][j, 0], outs[2][j, 0])
+    return TokenLogprobs(float(outs[1][j, row]), outs[3][j, row], outs[2][j, row])
 
 
 def blocked_token_stream(dispatch, carry, remaining, block_size, want_logprobs):

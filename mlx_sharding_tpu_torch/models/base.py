@@ -118,6 +118,15 @@ class BaseModel(nn.Module):
             return layer(x)
         return F.linear(x, layer.weight, layer.bias)
 
+    def sp_layer(self, p, h, offset, attn_fn):
+        """One decoder layer with the attention op injected (JAX
+        ``BaseModel.sp_layer``): ``attn_fn(q, k_new, v_new) -> attn``. The
+        ragged paged decode passes one that writes the new rows into the
+        page pool and attends over the pool in place; ``offset`` is then a
+        (B,) tensor of per-row positions. Returns ``(h, k_new, v_new)``."""
+        q, k, v = self.layer_attn_inputs(p, h, offset)
+        return self.layer_finish(p, h, attn_fn(q, k, v)), k, v
+
     def fused_projection_groups(self) -> dict:
         """{fused name: (source names, ...)}: per-layer projections that share
         their input and may be concatenated along OUT once packed. The

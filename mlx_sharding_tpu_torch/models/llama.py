@@ -78,9 +78,10 @@ class LlamaModel(BaseModel):
         self.scale = cfg.head_dim ** -0.5
 
     # ------------------------------------------------------------------
-    def layer_attn_inputs(self, p: LlamaLayer, h, offset: int):
+    def layer_attn_inputs(self, p: LlamaLayer, h, offset):
         """Norm, QKV projections (with Qwen2-style biases when configured)
-        and RoPE at positions ``offset .. offset+T``."""
+        and RoPE at positions ``offset .. offset+T`` (``offset`` an int, or
+        a (B,) tensor of per-row positions)."""
         b, t, _ = h.shape
         d = self.config.head_dim
         cfg = self.config

@@ -56,13 +56,19 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
-def apply_rope(x: torch.Tensor, inv_freq: torch.Tensor, offset: int) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, inv_freq: torch.Tensor, offset) -> torch.Tensor:
     """Rotate ``x`` (B, T, H, D) for absolute positions ``offset + arange(T)``.
     fp32 trig, result in ``x``'s dtype. ``inv_freq`` is a float32 tensor on
-    ``x``'s device."""
-    positions = offset + torch.arange(x.shape[1], dtype=torch.float32, device=x.device)
-    angles = positions[:, None] * inv_freq  # (T, D/2)
-    angles = torch.cat([angles, angles], dim=-1)[:, None, :]  # (T, 1, D)
+    ``x``'s device. ``offset`` is an int, or a (B,) tensor of per-row
+    positions (the ragged paged decode, where every slot sits at its own
+    length)."""
+    steps = torch.arange(x.shape[1], dtype=torch.float32, device=x.device)
+    if isinstance(offset, torch.Tensor):
+        positions = offset.to(torch.float32)[:, None] + steps  # (B, T)
+    else:
+        positions = offset + steps  # (T,)
+    angles = positions[..., None] * inv_freq  # (…, T, D/2)
+    angles = torch.cat([angles, angles], dim=-1)[..., None, :]  # (…, T, 1, D)
     x32 = x.float()
     out = x32 * torch.cos(angles) + _rotate_half(x32) * torch.sin(angles)
     return out.to(x.dtype)

@@ -1,5 +1,5 @@
-"""Single-stream token sampling on the device (port of the single-stream
-part of ``mlx_sharding_tpu/sample.py``).
+"""Token sampling on the device (port of ``mlx_sharding_tpu/sample.py``):
+the single-stream sampler and the batched one of continuous batching.
 
 The same transforms in the same order: logit bias, the repetition penalty
 over a prompt-seeded window, temperature, the top-p nucleus ("kept iff the
@@ -8,6 +8,11 @@ traces every branch into one program with dynamic scalars; here the
 sampler settings are host floats and the branches are plain ``if``s. The
 draw uses an explicit ``torch.Generator``, so it matches the JAX stream in
 distribution only.
+
+The batched sampler (:class:`BatchedSamplerParams`) gives every slot its
+own row of settings and its own ``torch.Generator``: a sampled row draws
+from its slot's generator alone, with the single-stream functions, so a
+seeded request draws the same tokens alone and among others.
 """
 
 from __future__ import annotations
@@ -58,9 +63,10 @@ def apply_logit_bias(logits, indices, values):
     return logits.index_add(-1, indices, values.expand(*logits.shape[:-1], -1))
 
 
-def apply_repetition_penalty(logits, recent_tokens, penalty: float):
+def apply_repetition_penalty(logits, recent_tokens, penalty):
     """Penalize the tokens of ``recent_tokens`` (B, W), -1 = empty slot:
-    positive scores are divided by ``penalty``, negative ones multiplied."""
+    positive scores are divided by ``penalty`` (a float, or a (B, 1)
+    tensor of per-row penalties), negative ones multiplied."""
     b, vocab = logits.shape
     valid = recent_tokens >= 0
     scores = logits.gather(1, torch.where(valid, recent_tokens, 0))
@@ -127,3 +133,122 @@ def init_recent_tokens(batch: int, window: int, prompt=None, *, device) -> torch
         tail = np.asarray(prompt, np.int64)[:, -window:]
         recent[:, window - tail.shape[1]:] = torch.from_numpy(tail)
     return recent.to(device)
+
+
+# ------------------------------------------------------------------ batched
+#: per-slot logit-bias width of the continuous batcher: covers OpenAI's
+#: documented cap of 300 entries
+BIAS_WIDTH = 512
+
+
+@dataclasses.dataclass
+class BatchedSamplerParams:
+    """Per-row sampler settings, one row per continuous-batching slot:
+    device tensors for the transforms, host copies of the scalars for the
+    branches (which rows sample, whether any row is penalized)."""
+
+    temperature: list  # (M,) host floats
+    top_p: list  # (M,) host floats
+    repetition_penalty: torch.Tensor  # (M, 1) float32
+    penalties: list  # (M,) host floats
+    bias_indices: torch.Tensor  # (M, K) int64, padded with 0
+    bias_values: torch.Tensor  # (M, K) float32, padded with 0 (a no-op)
+
+
+def _bias_row(params: SamplerParams, width: int) -> tuple[np.ndarray, np.ndarray]:
+    idx, val = np.zeros(width, np.int64), np.zeros(width, np.float32)
+    if params.bias_indices is not None:
+        n = params.bias_indices.shape[0]
+        if n > width:
+            raise ValueError(f"logit_bias with {n} entries exceeds the scheduler's per-slot "
+                             f"bias width {width}")
+        idx[:n] = params.bias_indices.cpu().numpy()
+        val[:n] = params.bias_values.cpu().numpy()
+    return idx, val
+
+
+def stack_sampler_params(params_list: list, *, width: int = BIAS_WIDTH,
+                         device) -> BatchedSamplerParams:
+    """Per-request sampler params -> one batched set with a (M,) leading
+    dim, bias buffers padded to ``width``."""
+    rows = [_bias_row(p, width) for p in params_list]
+    pens = [p.repetition_penalty for p in params_list]
+    return BatchedSamplerParams(
+        temperature=[p.temperature for p in params_list],
+        top_p=[p.top_p for p in params_list],
+        repetition_penalty=torch.tensor(pens, dtype=torch.float32, device=device)[:, None],
+        penalties=pens,
+        bias_indices=torch.from_numpy(np.stack([r[0] for r in rows])).to(device),
+        bias_values=torch.from_numpy(np.stack([r[1] for r in rows])).to(device),
+    )
+
+
+def set_sampler_slot(batched: BatchedSamplerParams, slot: int, one: SamplerParams) -> None:
+    """Write one request's params into row ``slot``, in place (its bias
+    padded to the batched width; a wider one raises)."""
+    idx, val = _bias_row(one, batched.bias_indices.shape[1])
+    dev = batched.bias_indices.device
+    batched.temperature[slot] = one.temperature
+    batched.top_p[slot] = one.top_p
+    batched.penalties[slot] = one.repetition_penalty
+    batched.repetition_penalty[slot] = one.repetition_penalty
+    batched.bias_indices[slot] = torch.from_numpy(idx).to(dev)
+    batched.bias_values[slot] = torch.from_numpy(val).to(dev)
+
+
+def select_rows(batched: BatchedSamplerParams, rows: list) -> BatchedSamplerParams:
+    """The params of ``rows`` only (a slot's first sample reads its own)."""
+    index = torch.tensor(rows, dtype=torch.long, device=batched.bias_indices.device)
+    return BatchedSamplerParams(
+        temperature=[batched.temperature[r] for r in rows],
+        top_p=[batched.top_p[r] for r in rows],
+        repetition_penalty=batched.repetition_penalty[index],
+        penalties=[batched.penalties[r] for r in rows],
+        bias_indices=batched.bias_indices[index],
+        bias_values=batched.bias_values[index],
+    )
+
+
+def transform_logits_batched(logits, recent_tokens, params: BatchedSamplerParams):
+    """Per-row bias -> repetition penalty, in fp32: the batched
+    :func:`transform_logits`."""
+    logits = logits.float().scatter_add(1, params.bias_indices, params.bias_values)
+    if recent_tokens is not None and any(p != 1.0 for p in params.penalties):
+        # a penalty of 1 leaves a row as it is, exactly
+        logits = apply_repetition_penalty(logits, recent_tokens, params.repetition_penalty)
+    return logits
+
+
+def nucleus_logits_batched(lo, params: BatchedSamplerParams):
+    """Per-row temperature, then top-p: the batched :func:`nucleus_logits`."""
+    rows = []
+    for r, (t, p) in enumerate(zip(params.temperature, params.top_p)):
+        rows.append(top_p_filter(lo[r : r + 1] / max(t, 1e-6), p))
+    return torch.cat(rows)
+
+
+def sample_token_batched(generators: list, logits, params: BatchedSamplerParams,
+                         recent_tokens, active=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row sampling with per-row params and per-row generators: argmax
+    for a row at temperature 0, else a draw from that row's own nucleus with
+    that row's generator, as :func:`sample_token` draws for one request.
+    ``recent_tokens`` (M, W) is already masked to each row's window. Rows
+    that ``active`` marks False (idle slots, whose tokens are dropped) take
+    the argmax and leave their generator untouched. Returns (token (M,)
+    int64, logprobs (M, V) float32)."""
+    logits = transform_logits_batched(logits, recent_tokens, params)
+    logprobs = torch.log_softmax(logits, dim=-1)
+    token = torch.argmax(logits, dim=-1)
+    for r, t in enumerate(params.temperature):
+        if t > 0 and (active is None or active[r]):
+            lo = top_p_filter(logits[r : r + 1] / max(t, 1e-6), params.top_p[r])
+            token[r] = torch.multinomial(torch.softmax(lo, dim=-1), 1, generator=generators[r])[0, 0]
+    return token, logprobs
+
+
+def window_mask(window: int, sizes: list, device) -> torch.Tensor:
+    """(M, W) bool: the last ``sizes[m]`` entries of row m's window take
+    part in its penalty, so each slot keeps a solo run's context size."""
+    sizes_t = torch.tensor(sizes, dtype=torch.long)
+    mask = torch.arange(window)[None, :] >= (window - sizes_t)[:, None]
+    return mask.to(device)

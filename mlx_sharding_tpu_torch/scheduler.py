@@ -1,0 +1,506 @@
+"""Continuous batching over the paged KV pool (port of the sync,
+reserve-mode subset of ``mlx_sharding_tpu/scheduler.py::ContinuousBatcher``).
+
+- Every slot of a :class:`~mlx_sharding_tpu_torch.parallel.PipelineEngine`
+  holds an independent request with its own KV offset, sampler settings,
+  ``torch.Generator`` and repetition window.
+- One scheduler thread owns the engine and all the card's work; HTTP
+  threads only enqueue requests and read their token queues. Each tick
+  reaps cancelled slots, admits waiting requests into free slots (a
+  request reserves its whole prompt + max_tokens need in pages up front;
+  ``fifo`` holds the line behind a head that does not fit, ``first_fit``
+  lets later requests that fit pass it), runs prefill chunks, and runs one
+  decode block of ``decode_block`` steps over every decoding slot.
+- While anything decodes, one prefill chunk runs per tick, round-robin
+  over the admitting requests; with nothing decoding they all advance.
+- A decode block reads the card once: its tokens (and logprob summaries)
+  come back in one copy at the harvest.
+
+Determinism: a slot's generator is seeded from the request's seed, and its
+repetition window set, when its prefill completes (other slots' ticks run
+between its chunks), and a sampled row draws from its own generator alone,
+so a seeded request gives the same tokens alone and among others.
+
+Not yet ported, and refused at construction: async ticks, overcommit with
+preemption, prefix sharing, KV spill and prefetch, speculation, the queue
+bound, the prefix store; deadlines, tracing and metrics are not carried.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mlx_sharding_tpu_torch.generate import (
+    LOGPROB_TOPK,
+    TokenLogprobs,
+    block_lp_outputs,
+    block_token_logprobs,
+)
+from mlx_sharding_tpu_torch.sample import (
+    BIAS_WIDTH,
+    SamplerParams,
+    make_sampler_params,
+    sample_token_batched,
+    select_rows,
+    set_sampler_slot,
+    stack_sampler_params,
+    window_mask,
+)
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass(eq=False)  # identity semantics
+class _Request:
+    prompt: np.ndarray  # (T,) int64
+    sp: SamplerParams
+    seed: int
+    max_tokens: int
+    rep_context: int
+    want_logprobs: bool = False
+    out: queue.Queue = field(default_factory=queue.Queue)
+    cancelled: bool = False
+    slot: int = -1
+    produced: int = 0
+    prefill_pos: int = 0  # next prompt index to prefill; admission is chunked
+    waited_for_pages: bool = False
+
+
+@dataclass
+class _InflightBlock:
+    """A dispatched decode block: its stacked outputs on the card, and the
+    slots it ran for."""
+
+    outs: torch.Tensor  # (K, M, 1) tokens, or (K, M, 2 + 2·LOGPROB_TOPK) float64
+    live: list  # [(slot, req)] at dispatch
+    want_lp: bool
+
+
+class ContinuousBatcher:
+    """Drives a :class:`PipelineEngine` (``microbatches=M``, paged) as an
+    M-slot continuous-batching server backend. ``generate_step`` has the
+    contract of ``Generator.generate_step``; the server calls it without
+    its generation lock (``concurrent = True``)."""
+
+    concurrent = True
+
+    def __init__(self, engine, *, repetition_window: int = 64, decode_block: int = 8,
+                 policy: str = "fifo", prefix_cache: bool = False, overcommit: bool = False,
+                 draft_engine=None, spec_k: int = 4, draft: str = "auto",
+                 spec_window_max: Optional[int] = None, max_queue: Optional[int] = None,
+                 async_sched: str = "auto", spill_bytes: Optional[int] = None,
+                 spill_cold_after: Optional[int] = None, kv_prefetch: str = "auto",
+                 prefix_store=None):
+        if policy not in ("fifo", "first_fit"):
+            raise ValueError(f"unknown admission policy {policy!r}")
+        if async_sched not in ("on", "off", "auto"):
+            raise ValueError(f"async_sched must be 'on', 'off' or 'auto', got {async_sched!r}")
+        if draft not in ("auto", "off", "ngram", "engine"):
+            raise ValueError(f"draft must be 'auto', 'off', 'ngram' or 'engine', got {draft!r}")
+        if kv_prefetch not in ("on", "off", "auto"):
+            raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
+        unported = {
+            "async_sched='on' (async ticks on CUDA streams)": async_sched == "on",
+            "overcommit (admission on current need, preemption)": overcommit,
+            "prefix_cache (prefix sharing over the pool)": prefix_cache,
+            "draft_engine / draft / spec_k / spec_window_max (speculation)": (
+                draft_engine is not None or draft not in ("auto", "off") or spec_k != 4
+                or spec_window_max is not None),
+            "spill_bytes / spill_cold_after / kv_prefetch (KV spill)": (
+                spill_bytes is not None or spill_cold_after is not None or kv_prefetch == "on"),
+            "max_queue (the queue bound)": max_queue is not None,
+            "prefix_store (the fleet prefix store)": prefix_store is not None,
+        }
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(f"ContinuousBatcher {what} is not yet ported "
+                                          "(ROADMAP queue 1, item 3)")
+        self.async_sched = async_sched
+        self.async_reason = (
+            "sync ticks: async_sched='off'" if async_sched == "off" else
+            "sync ticks: auto resolved to sync — async ticks on CUDA streams are not yet "
+            "ported, and a sync tick is token-identical"
+        )
+        logger.info("%s", self.async_reason)
+        self.engine = engine
+        self.M = engine.microbatches
+        self.W = repetition_window
+        self.policy = policy
+        self.decode_block = max(1, decode_block)
+        self._waiting: list[_Request] = []
+        self._submit: queue.Queue = queue.Queue()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        self._start_lock = threading.Lock()
+
+        # the pool: a request reserves ceil((prompt + max_tokens) / page)
+        # pages at admission and returns them when it finishes
+        self.cache, self.table = engine.init_cache_paged()
+        self._free_pages = list(range(engine.pool_pages - 1, -1, -1))
+        self._pages_of: dict[int, list[int]] = {}
+        self.pages_high_water = 0
+
+        # per-slot sampler state on the card
+        dev = engine.device
+        self.sp = stack_sampler_params([make_sampler_params(device="cpu")] * self.M,
+                                       width=BIAS_WIDTH, device=dev)
+        # row m's penalty window: the last rep_context entries of its buffer
+        self.rep_mask = window_mask(self.W, [self.W] * self.M, dev)
+        self.recent = torch.full((self.M, self.W), -1, dtype=torch.int64, device=dev)
+        self.generators = [torch.Generator(device=dev) for _ in range(self.M)]
+        self.last_tok = torch.zeros((self.M, 1), dtype=torch.int64, device=dev)
+        self.active = [False] * self.M  # a slot decodes iff its prefill completed
+
+        self._slots: list[Optional[_Request]] = [None] * self.M
+        self._prefill_rr = 0  # round-robin cursor for admission fairness
+        # counters of the work the batcher ran (the smoke checks launch
+        # counts against them)
+        self.prefill_chunks = 0
+        self.decode_steps = 0
+        self.decode_seconds = 0.0  # host clock over dispatch + harvest of the blocks
+        self.page_waits = 0  # requests that found a free slot but not enough pages
+
+    # ------------------------------------------------------------- public
+    def generate_step(
+        self,
+        prompt_tokens,
+        *,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        repetition_penalty: Optional[float] = None,
+        repetition_context_size: int = 20,
+        logit_bias: Optional[dict[int, float]] = None,
+        seed: Optional[int] = None,
+        max_tokens: int = 256,
+        want_logprobs: bool = False,
+    ):
+        """Validate and enqueue at once (every rejection raises on the
+        calling thread, before any request state exists); returns the
+        token stream ``(token, TokenLogprobs or None)``."""
+        prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        total = prompt.size + max_tokens
+        if total > self.engine.max_seq:
+            raise ValueError(f"prompt ({prompt.size}) + max_tokens ({max_tokens}) exceeds KV "
+                             f"capacity {self.engine.max_seq}")
+        need = -(-total // self.engine.page_size)
+        if need > self.engine.pool_pages:
+            raise ValueError(f"request needs {need} pages, pool has {self.engine.pool_pages} — "
+                             "it could never be admitted")
+        width = self.sp.bias_indices.shape[1]
+        if logit_bias and len(logit_bias) > width:
+            raise ValueError(f"logit_bias with {len(logit_bias)} entries exceeds the "
+                             f"scheduler's per-slot bias width {width}")
+        if repetition_penalty is not None and repetition_context_size > self.W:
+            # silently shrinking the window would make concurrent output
+            # diverge from the serial path for the same request
+            raise ValueError(f"repetition_context_size {repetition_context_size} exceeds the "
+                             f"scheduler's window {self.W}")
+        req = _Request(
+            prompt=prompt,
+            sp=make_sampler_params(temperature, top_p, repetition_penalty, logit_bias,
+                                   device="cpu"),
+            seed=time.time_ns() & 0x7FFFFFFF if seed is None else int(seed),
+            max_tokens=max_tokens,
+            rep_context=min(repetition_context_size, self.W),
+            want_logprobs=want_logprobs,
+        )
+        self._ensure_running()
+        self._submit.put(req)
+        return self._consume(req)
+
+    def _consume(self, req: _Request):
+        try:
+            while True:
+                item = req.out.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            req.cancelled = True  # the scheduler reclaims the slot next tick
+
+    def close(self, timeout: float = 10.0):
+        """Stop the scheduler thread; every stream still open ends."""
+        with self._start_lock:
+            self._stop = True
+            t = self._thread
+        if t is not None:
+            if t.is_alive():
+                self._submit.put(None)  # wake the idle wait
+            t.join(timeout=timeout)
+            if t.is_alive():
+                logger.error("scheduler thread failed to exit within %.0fs", timeout)
+
+    # ------------------------------------------------------------ internals
+    def _ensure_running(self):
+        with self._start_lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._stop = False
+                self._thread = threading.Thread(target=self._loop, name="continuous-batcher",
+                                                daemon=True)
+                self._thread.start()
+
+    def _pages_needed(self, n_prompt: int, max_tokens: int) -> int:
+        return -(-(n_prompt + max_tokens) // self.engine.page_size)
+
+    def _need_pages(self, req: _Request) -> int:
+        """Reserve mode: the whole prompt + max_tokens need, up front."""
+        return self._pages_needed(req.prompt.size, max(1, req.max_tokens - req.produced))
+
+    def _fits(self, req: _Request) -> bool:
+        return self._need_pages(req) <= len(self._free_pages)
+
+    def _write_table_row(self, slot: int, pages: list):
+        """Publish a slot's pages in the host table (the next decode plan
+        uploads it); unmapped entries stay at the scratch page."""
+        row = np.full((self.engine.slot_pages,), self.engine.pool_pages, np.int32)
+        row[: len(pages)] = pages
+        self.table[slot] = row
+        in_use = self.engine.pool_pages - len(self._free_pages)
+        self.pages_high_water = max(self.pages_high_water, in_use)
+
+    def _release_pages(self, slot: int):
+        self._free_pages.extend(self._pages_of.pop(slot, []))
+
+    def _assign_slot(self, req: _Request, slot: int):
+        """Claim ``slot`` and its pages for ``req``: offset 0, the request's
+        sampler row and window size. Its generator and window contents are
+        set when its prefill completes."""
+        pages = [self._free_pages.pop() for _ in range(self._need_pages(req))]
+        self._pages_of[slot] = pages
+        self._write_table_row(slot, pages)
+        self.cache.offsets[slot] = 0
+        set_sampler_slot(self.sp, slot, req.sp)
+        self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
+        self._slots[slot] = req
+        req.slot = slot
+        req.prefill_pos = 0
+
+    def _admit_waiting(self):
+        """fifo: strict order, a head that does not fit holds the line.
+        first_fit: requests that fit pass the ones that do not (which keep
+        their place)."""
+        for req in [r for r in self._waiting if r.cancelled]:
+            self._waiting.remove(req)
+            req.out.put(None)
+        while None in self._slots and self._waiting:
+            pick = None
+            for i, req in enumerate(self._waiting):
+                if self._fits(req):
+                    pick = i
+                    break
+                if not req.waited_for_pages:
+                    req.waited_for_pages = True
+                    self.page_waits += 1
+                if self.policy == "fifo":
+                    return
+            if pick is None:
+                return
+            self._assign_slot(self._waiting.pop(pick), self._slots.index(None))
+
+    @staticmethod
+    def _chunk_at(prompt: np.ndarray, pos: int, c: int):
+        """One right-padded prefill chunk at ``pos``: (chunk (c,), n_valid)."""
+        chunk = prompt[pos : pos + c]
+        n_valid = chunk.size
+        if n_valid < c:
+            chunk = np.pad(chunk, (0, c - n_valid))
+        return chunk, n_valid
+
+    def _prefill_done(self, req: _Request) -> bool:
+        return req.prefill_pos >= req.prompt.size
+
+    def _first_sample(self, logits: torch.Tensor, slot: int):
+        """The first token of the request in ``slot`` from its prefill
+        logits, with the slot's own settings, window and generator."""
+        masked = torch.where(self.rep_mask[slot : slot + 1], self.recent[slot : slot + 1],
+                             torch.full_like(self.recent[slot : slot + 1], -1))
+        tok, logprobs = sample_token_batched([self.generators[slot]], logits.reshape(1, -1),
+                                             select_rows(self.sp, [slot]), masked)
+        self.recent[slot] = torch.cat([self.recent[slot, 1:], tok])
+        return tok, logprobs
+
+    def _prefill_one_chunk(self, req: _Request):
+        """One prefill chunk of a request being admitted; on its last chunk,
+        seed the slot's generator and window, sample the first token and
+        start the slot decoding."""
+        eng, slot = self.engine, req.slot
+        chunk, n_valid = self._chunk_at(req.prompt, req.prefill_pos, eng.prefill_chunk)
+        logits = eng.prefill_slot(chunk, slot, self.cache, n_valid, self.table)
+        self.prefill_chunks += 1
+        req.prefill_pos += n_valid
+        if not self._prefill_done(req):
+            return
+        # Seed the window and the generator only NOW: other slots' decode
+        # steps ran between this request's chunks and shifted every row of
+        # the window, so a row set at assignment would be mangled by now
+        row = np.full((self.W,), -1, np.int64)
+        tail = req.prompt[-req.rep_context:] if req.rep_context else req.prompt[:0]
+        if tail.size:
+            row[self.W - tail.size:] = tail
+        self.recent[slot] = torch.from_numpy(row).to(self.recent.device)
+        self.generators[slot].manual_seed(req.seed)
+        tok, logprobs = self._first_sample(logits, slot)
+        self.last_tok[slot] = tok
+        self.active[slot] = True
+        lp = None
+        if req.want_logprobs:
+            chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
+            lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
+        self._emit(req, int(tok[0]), lp)
+
+    def _emit(self, req: _Request, token: int, logprobs):
+        req.produced += 1
+        req.out.put((token, logprobs))
+        if req.produced >= req.max_tokens:
+            self._finish(req)
+
+    def _finish(self, req: _Request):
+        if req.slot >= 0:
+            self.active[req.slot] = False
+            self._release_pages(req.slot)
+            self._slots[req.slot] = None
+            req.slot = -1
+        req.out.put(None)
+
+    def _reap_cancelled(self):
+        for req in list(self._slots):
+            if req is not None and req.cancelled:
+                self._finish(req)
+
+    def _decode_block_prog(self, want_lp: bool) -> torch.Tensor:
+        """``decode_block`` steps enqueued back to back on the card, nothing
+        read back; returns their stacked outputs. The active set is frozen
+        for the block (a slot that finishes mid-block keeps computing; its
+        extra tokens land in its own pages or the scratch page and are
+        dropped at the harvest)."""
+        eng = self.engine
+        plan = eng.decode_plan(self.cache, self.table, self.active, self.decode_block)
+        tok, outs = self.last_tok, []
+        for j in range(self.decode_block):
+            tok, logprobs, self.recent = eng.decode_cb(
+                tok, self.cache, plan, j, recent=self.recent, generators=self.generators,
+                sp=self.sp, rep_mask=self.rep_mask,
+            )
+            if want_lp:
+                chosen, top_v, top_i = block_lp_outputs(tok[:, 0], logprobs)
+                outs.append(torch.cat([tok.double(), chosen[:, None].double(),
+                                       top_v.double(), top_i.double()], dim=1))
+            else:
+                outs.append(tok)
+        self.last_tok = tok
+        self.decode_steps += self.decode_block
+        return torch.stack(outs)
+
+    def _dispatch_block(self) -> Optional[_InflightBlock]:
+        live = [(slot, req) for slot, req in enumerate(self._slots)
+                if req is not None and self._prefill_done(req)]
+        if not live:
+            return None
+        want_lp = any(req.want_logprobs for _, req in live)
+        return _InflightBlock(outs=self._decode_block_prog(want_lp), live=live, want_lp=want_lp)
+
+    def _harvest(self, inf: Optional[_InflightBlock]):
+        """Pull a block's outputs to the host (the tick's one read of the
+        card) and emit them per slot; tokens of a slot that finished earlier
+        in the block are dropped."""
+        if inf is None:
+            return
+        outs = inf.outs.cpu().numpy()
+        toks = outs[..., 0].astype(np.int64)  # (K, M)
+        lp_outs = None
+        if inf.want_lp:
+            k = LOGPROB_TOPK
+            lp_outs = (toks, outs[..., 1], outs[..., 2 : 2 + k], outs[..., 2 + k :].astype(np.int64))
+        for j in range(toks.shape[0]):
+            for slot, req in inf.live:
+                if req.slot != slot:  # finished (max_tokens) earlier in the block
+                    continue
+                lp = None
+                if inf.want_lp and req.want_logprobs:
+                    lp = block_token_logprobs(lp_outs, j, slot)
+                self._emit(req, int(toks[j, slot]), lp)
+
+    def _drain_submissions(self, block: bool = False):
+        try:
+            while True:
+                req = self._submit.get(timeout=0.2) if block else self._submit.get_nowait()
+                block = False
+                if req is not None:
+                    self._waiting.append(req)
+        except queue.Empty:
+            pass
+
+    def _decoding(self) -> bool:
+        return any(r is not None and self._prefill_done(r) for r in self._slots)
+
+    def _tick(self):
+        """Reap, admit, prefill (one chunk while anything decodes), then one
+        decode block over every decoding slot."""
+        self._reap_cancelled()
+        self._drain_submissions()
+        self._admit_waiting()
+        prefilling = [r for r in self._slots if r is not None and not self._prefill_done(r)]
+        if prefilling:
+            if self._decoding():
+                self._prefill_rr += 1
+                self._prefill_one_chunk(prefilling[self._prefill_rr % len(prefilling)])
+            else:
+                for req in prefilling:
+                    self._prefill_one_chunk(req)
+        if self._decoding():
+            t0 = time.perf_counter()
+            self._harvest(self._dispatch_block())
+            self.decode_seconds += time.perf_counter() - t0
+        elif not any(self._slots):
+            # idle: wait (bounded) for the next request
+            self._drain_submissions(block=True)
+            self._admit_waiting()
+
+    def _end_all(self, item):
+        """End every stream, in a slot, waiting or still submitted, with
+        ``item``: the error of a failed tick, or None at shutdown."""
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._slots[slot] = None
+                req.slot = -1
+                req.out.put(item)
+        self.active = [False] * self.M
+        for req in self._waiting:
+            req.out.put(item)
+        self._waiting.clear()
+        while True:
+            try:
+                req = self._submit.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None:
+                req.out.put(item)
+
+    def _fail_all(self, exc: BaseException):
+        """A failed tick ends every stream with the error and resets the
+        pool wholesale: its contents are no longer trusted."""
+        logger.exception("scheduler tick failed", exc_info=exc)
+        self._end_all(exc)
+        self._pages_of.clear()
+        self._free_pages = list(range(self.engine.pool_pages - 1, -1, -1))
+
+    def _loop(self):
+        with torch.no_grad():
+            while not self._stop:
+                try:
+                    self._tick()
+                except Exception as exc:  # noqa: BLE001 — a dead scheduler would hang every consumer
+                    self._fail_all(exc)
+        self._end_all(None)  # graceful shutdown

@@ -5,15 +5,20 @@
 or SSE that holds back text that could still grow into a stop sequence),
 logprobs, ``logit_bias``, the JAX server's parameter validation, the plain
 chat prompt for tokenizers without a template, and ``GET /health``. One
-:class:`ModelProvider` holds one generator and its tokenizer; generation is
-serialized by a lock. Fleet, replica, trace, metrics and static-UI serving
-come with later slices.
+:class:`ModelProvider` holds one generator and its tokenizer. A single-stream
+``Generator`` is serialized by a lock; with ``--concurrent N --paged-pool P``
+the generator is a :class:`~mlx_sharding_tpu_torch.scheduler.ContinuousBatcher`
+(``concurrent = True``), which interleaves requests itself and is served
+without the lock. Fleet, replica, trace, metrics and static-UI serving come
+with later slices.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
+        [--concurrent 8 --paged-pool 64 [--kv-dtype int8]]
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import threading
@@ -74,13 +79,31 @@ class ModelProvider:
 
     @classmethod
     def from_checkpoint(cls, path: str, *, device=None, max_seq: int = 4096,
-                        prefill_chunk: int = 256, keep_quantized: bool = False
+                        prefill_chunk: int = 256, keep_quantized: bool = False,
+                        concurrent: int = 1, paged_pool: Optional[int] = None,
+                        page_size: Optional[int] = None, paged_attention: str = "auto",
+                        kv_dtype: Optional[str] = None, admission_policy: str = "fifo",
                         ) -> "ModelProvider":
-        from mlx_sharding_tpu_torch.generate import Generator
+        """A single-stream ``Generator``, or with ``concurrent > 1`` a
+        ``ContinuousBatcher`` of that many slots over a pool of
+        ``paged_pool`` KV pages (the JAX server's pp=1 paged engine)."""
+        from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
         from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
         model, _ = load_model(path, device=device, keep_quantized=keep_quantized)
-        generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk)
+        if concurrent <= 1:
+            generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk)
+        else:
+            from mlx_sharding_tpu_torch.parallel import PipelineEngine
+            from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+            engine = PipelineEngine(
+                model, microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
+                pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
+                kv_dtype=kv_dtype, device=device,
+            )
+            generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
+                                          policy=admission_policy)
         return cls(generator, load_tokenizer(path), model_name=path)
 
     def load(self, name: str):
@@ -292,7 +315,11 @@ class APIHandler(BaseHTTPRequestHandler):
         # the total-generation bound is checked between tokens; the ttft
         # bound needs a scheduler and is accepted but not enforced here
         timeout = params["request_timeout"]
-        with self.gen_lock:
+        # a continuous batcher interleaves requests itself; a single-stream
+        # generator is serialized by the lock
+        lock = (contextlib.nullcontext() if getattr(generator, "concurrent", False)
+                else self.gen_lock)
+        with lock:
             if params["stream"]:
                 self._stream(rid, obj + ".chunk", model_name, generator, tokenizer,
                              prompt_ids, stop_id_sequences, eos, chat, gen_kwargs, timeout)
@@ -505,7 +532,42 @@ def main(argv=None):
                         help="keep 4-bit checkpoint weights packed in HBM "
                         "(fused dequant-matmul) instead of dequantizing on "
                         "load — 4x decode weight bandwidth")
+    parser.add_argument("--concurrent", type=int, default=1,
+                        help="continuous-batching slots: serve up to N requests "
+                        "interleaved (N > 1 needs --paged-pool and replaces the "
+                        "generation lock)")
+    parser.add_argument("--paged-pool", type=int, default=None,
+                        help="with --concurrent: share a KV pool of N pages across "
+                        "slots (reservation admission)")
+    parser.add_argument("--page-size", type=int, default=None,
+                        help="KV page size in tokens (default: the prefill chunk); "
+                        "must be a chunk multiple")
+    parser.add_argument("--paged-attention", choices=("auto", "ragged"), default="auto",
+                        help="with --paged-pool: decode attention over the page pool; "
+                        "'ragged' attends in place through the slot page tables "
+                        "(the contiguous 'gather' view is not yet ported)")
+    parser.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
+                        help="with --paged-pool: KV-pool storage. 'int8' stores codes "
+                        "plus a per-row-per-head float32 scale; default keeps the "
+                        "model dtype")
+    parser.add_argument("--admission-policy", choices=("fifo", "first_fit"), default="fifo",
+                        help="with --paged-pool: waiting-line policy when a request "
+                        "does not fit the pool: strict order, or let smaller "
+                        "requests pass a blocked head")
     args = parser.parse_args(argv)
+    if args.concurrent > 1 and not args.paged_pool:
+        parser.error("--concurrent N (N > 1) without --paged-pool (dense slots) is not yet "
+                     "ported: pass --paged-pool")
+    if args.paged_pool and args.concurrent <= 1:
+        parser.error("--paged-pool requires --concurrent N (N > 1)")
+    if args.page_size and not args.paged_pool:
+        parser.error("--page-size requires --paged-pool")
+    if args.paged_attention != "auto" and not args.paged_pool:
+        parser.error("--paged-attention requires --paged-pool")
+    if args.kv_dtype and not args.paged_pool:
+        parser.error("--kv-dtype requires --paged-pool")
+    if args.admission_policy != "fifo" and not args.paged_pool:
+        parser.error("--admission-policy requires --paged-pool")
 
     from mlx_sharding_tpu_torch.device import resolve_device
 
@@ -516,7 +578,10 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     provider = ModelProvider.from_checkpoint(
         args.model, device=device, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
-        keep_quantized=args.keep_quantized,
+        keep_quantized=args.keep_quantized, concurrent=args.concurrent,
+        paged_pool=args.paged_pool, page_size=args.page_size,
+        paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
+        admission_policy=args.admission_policy,
     )
     server = make_server(provider, args.host, args.port)
     logger.info("serving on http://%s:%d", args.host, args.port)

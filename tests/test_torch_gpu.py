@@ -1,21 +1,26 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels against their
-plain versions, and the model's kernel paths (dense and packed 4-bit)
-against their CPU runs. This file
+plain versions, and the model's kernel paths (dense, packed 4-bit, and the
+continuous batcher over the paged pool) against their CPU runs. This file
 imports no JAX (the card's machine has none), so on the card it runs as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
 
 Without a card every test skips with its reason."""
 
+import threading
+
 import pytest
 import torch
 
-from chip_smoke import REL_L2_TOL, kernel_disagreement, pack_llama, quant_operands
+from chip_smoke import REL_L2_TOL, kernel_disagreement, pack_llama, paged_case, quant_operands
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import causal_attention
 from mlx_sharding_tpu_torch.ops import flash_attention as fa
+from mlx_sharding_tpu_torch.ops import paged_attention as pa
 from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+from mlx_sharding_tpu_torch.parallel import PipelineEngine
+from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
 pytestmark = pytest.mark.gpu
 
@@ -176,4 +181,87 @@ def test_tiny_packed_llama_on_the_card_matches_its_cpu_run(cuda):
             prompt[0].tolist(), max_tokens=24)]
         for m in (cpu_model, gpu_model)
     ]
+    assert streams[0] == streams[1]
+
+
+PAGED_CASES = [
+    # lengths, hq, hkv, d, page, pages per slot, pool dtype, q dtype
+    ((0, 1, 255, 256, 257, 600, 1000, 4096), 32, 8, 128, 256, 16, torch.bfloat16,
+     torch.bfloat16),
+    ((0, 1, 255, 256, 257, 600, 1000, 4096), 32, 8, 128, 256, 16, torch.int8, torch.bfloat16),
+    ((5, 8, 16, 0, 27, 32), 4, 4, 64, 8, 4, torch.float32, torch.float32),
+    ((127, 128, 129, 500, 0, 3), 8, 1, 64, 128, 4, torch.int8, torch.float32),
+    ((64, 65, 300, 0), 4, 2, 256, 64, 5, torch.bfloat16, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("lengths,hq,hkv,d,page,spg,pool_dtype,q_dtype", PAGED_CASES)
+def test_paged_kernel_matches_plain_version(cuda, lengths, hq, hkv, d, page, spg, pool_dtype,
+                                            q_dtype):
+    """The smoke run's limits; an empty slot gives zeros; a length that
+    ends on a page edge never reads the scratch page (which holds 30s)."""
+    g = torch.Generator(device=cuda).manual_seed(page + hq)
+    q, k, v, ks, vs, tables, lens = paged_case(g, lengths, hq, hkv, d, page, spg, pool_dtype,
+                                               q_dtype)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, k, v, tables, lens, d**-0.5, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1 and got.dtype == q_dtype
+    want = pa.paged_attention_reference(q, k, v, tables, lens, d**-0.5, k_scale=ks, v_scale=vs)
+    live = lens > 0
+    assert bool((got[~live] == 0).all())
+    _, worst, rel_l2 = kernel_disagreement(got[live], want[live])
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+def test_paged_wrapper_never_takes_the_plain_branch_on_the_card(cuda):
+    """What the kernel does not take raises on a CUDA tensor."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, _, _, tables, lens = paged_case(g, (3, 9), 4, 2, 64, 8, 2, torch.float32,
+                                             torch.float32)
+    before = pa.paged_attention.launches
+    with pytest.raises(ValueError, match="not yet ported to the card"):
+        pa.paged_attention(q, k, v, tables, lens, 0.125, logit_softcap=30.0)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_attention(q, k, v, tables.long(), lens, 0.125)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        pa.paged_attention(torch.cat([q, q[:, :2]], 1), k, v, tables, lens, 0.125)
+    assert pa.paged_attention.launches == before
+
+
+def test_tiny_batcher_on_the_card_matches_its_cpu_run(cuda):
+    """The same fp32 weights on both devices, three slots over a pool of
+    128-token pages: the same greedy streams, and a kernel launch per layer
+    and decode step."""
+    cfg = dict(vocab_size=300, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, head_dim=64)
+    cpu_model, _ = build_model(cfg, dtype=torch.float32)
+    cpu_model.init_params(torch.Generator().manual_seed(0), "cpu")
+    gpu_model, _ = build_model(cfg, dtype=torch.float32)
+    gpu_model.load_state_dict({k: v.to(cuda) for k, v in cpu_model.state_dict().items()},
+                              assign=True)
+    gen = torch.Generator().manual_seed(3)
+    jobs = [(torch.randint(0, 256, (n,), generator=gen).tolist(), m)
+            for n, m in ((50, 20), (128, 12), (200, 30), (129, 9))]
+    streams = []
+    for model in (cpu_model, gpu_model):
+        engine = PipelineEngine(model, microbatches=3, max_seq=512, prefill_chunk=128,
+                                pool_pages=6, device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=4)
+        before = pa.paged_attention.launches
+        results = [None] * len(jobs)
+
+        def work(i, batcher=batcher):
+            prompt, max_tokens = jobs[i]
+            results[i] = [t for t, _ in batcher.generate_step(prompt, max_tokens=max_tokens)]
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        batcher.close()
+        streams.append(results)
+        launches = pa.paged_attention.launches - before
+        assert launches == (0 if model is cpu_model else 2 * batcher.decode_steps)
     assert streams[0] == streams[1]

@@ -91,6 +91,6 @@ def test_cli_generates_on_cpu_from_the_tiny_checkpoint(tmp_path, capsys):
 def test_kernel_sources_ship_with_the_package():
     cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
     assert cfg["tool"]["setuptools"]["package-data"]["mlx_sharding_tpu_torch"] == ["csrc/*.cu"]
-    for source in ("flash_attention.cu", "quant_matmul.cu"):
+    for source in ("flash_attention.cu", "paged_attention.cu", "quant_matmul.cu"):
         assert (REPO / "mlx_sharding_tpu_torch" / "csrc" / source).is_file()
     assert "mlx_sharding_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
