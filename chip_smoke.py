@@ -8,8 +8,11 @@ final line:
 1. device: the card's name and power limit (nvidia-smi);
 2. kernels: build every kernel library of the main path from ``csrc/`` with
    nvcc (one nvcc per source, started together), print the ``-Xptxas -v``
-   lines, and hold each kernel against its plain PyTorch version on the card
-   at the main path's shapes (and a few more): flash attention, the two
+   lines and the flash variants' registers, shared bytes and resident
+   blocks per SM, and hold each kernel against its plain PyTorch version on
+   the card at the main path's shapes (and a few more): flash attention
+   (bf16 GQA groups 1-16, head dims 64-256, ragged T, offset 3840 with the
+   walk as planned, in chunks of 512 keys and whole; f32), the two
    packed-weight kernels at the five Llama-3.1-8B projection shapes, bit for
    bit on integer-valued operands and within limits on random bf16, and the
    ragged paged decode at the 8B shapes over uneven lengths, bf16 and int8
@@ -17,7 +20,9 @@ final line:
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
    kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
-   decode, SDPA over K/V gathered beforehand, the gather not timed);
+   decode, SDPA over K/V gathered beforehand, the gather not timed); the
+   flash kernel at chunk offsets 0, 256, 512, 1280 and 3840, with the
+   achieved TFLOP/s, its share of the bound and the walk split several ways;
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here; five requests (a 600-token completion
@@ -92,6 +97,13 @@ MAX_SEQ = 4096
 CHUNK = 256
 # chunk offsets of the main path's 600-token prompt
 MAIN_PATH_OFFSETS = (0, 256, 512)
+# the flash kernel's timing: those, the last chunk of phase 6's 1,500-token
+# prompt and the last chunk of the cache
+FLASH_TIMING_OFFSETS = MAIN_PATH_OFFSETS + (1280, 3840)
+# keys per block the timing also runs at each offset (0: the whole walk)
+FLASH_SPLIT_SWEEP = (0, 512, 1024, 2048)
+# (Dk, Dv) of the bf16 flash variants whose registers and occupancy are printed
+FLASH_DIMS = ((128, 128), (64, 64), (192, 128), (256, 256))
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -307,8 +319,12 @@ def build_kernels() -> None:
         for line in build_log.splitlines():
             if any(k in line for k in ("registers", "smem", "spill", "cached", "Compiling")):
                 log(f"[kernels]   ptxas: {line.strip()}")
-    log(f"[kernels] flash shared memory per block at D=128 bf16: "
-        f"{fa.shared_memory_bytes(torch.bfloat16, 128, 128)} bytes")
+    for dk, dv in FLASH_DIMS:
+        info = fa.kernel_info(dk, dv)
+        log(f"[kernels] flash bf16 Dk={dk} Dv={dv}: shared memory per block "
+            f"{info['shared_bytes']} bytes, {info['registers']} registers, "
+            f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local (spill) "
+            f"bytes per thread")
     for kernel, m in (("gemv", 1), ("gemv", 8), ("matmul", PREFILL_M)):
         log(f"[kernels] quant_{kernel} shared memory per block at M={m} bf16: "
             f"{qm.shared_memory_bytes(kernel, torch.bfloat16, BITS, m)} bytes")
@@ -463,38 +479,75 @@ def phase_kernels(seed: int) -> float:
         # ragged T (the wrapper takes any T; dispatch sends only 128-multiples)
         (1, 1, 256, 8, 2, 128, 128, 200, torch.bfloat16),
         (1, 100, 256, 8, 2, 256, 256, 17, torch.float32),
+        # bf16 GQA packing: groups 1, 2, 8 and 16 at D = 128
+        (1, 256, 1024, 8, 8, 128, 128, 300, torch.bfloat16),
+        (1, 256, 2048, 16, 8, 128, 128, 1000, torch.bfloat16),
+        (1, 256, 4096, 64, 8, 128, 128, 2000, torch.bfloat16),
+        (1, 128, 512, 16, 1, 128, 128, 100, torch.bfloat16),
+        # bf16 head dims (64, 64) and (256, 256)
+        (2, 256, 512, 8, 2, 64, 64, 100, torch.bfloat16),
+        (1, 256, 1024, 8, 2, 256, 256, 500, torch.bfloat16),
+        # bf16 ragged T against the packed rows: T = 1, and T = 100 (400
+        # rows: the last row tile is partial)
+        (1, 1, MAX_SEQ, 32, 8, 128, 128, 3000, torch.bfloat16),
+        (1, 100, 512, 32, 8, 128, 128, 37, torch.bfloat16),
     ]
+    # the main path's deepest chunk with the walk forced into chunks of 512
+    # keys and into one block per row tile (the planner's choice is above)
+    cases += [(1, CHUNK, MAX_SEQ, 32, 8, 128, 128, 3840, torch.bfloat16, split)
+              for split in (512, 0)]
     main_err = 0.0
-    for b, t, s, hq, hkv, dk, dv, off, dtype in cases:
+    default_split = fa.SPLIT_KEYS
+    for b, t, s, hq, hkv, dk, dv, off, dtype, *forced in cases:
         q, k, v = attention_inputs(gen, b, t, s, hq, hkv, dk, dv, dtype)
         scale = dk ** -0.5
-        got = fa.flash_attention(q, k, v, off, scale)
+        fa.SPLIT_KEYS = forced[0] if forced else default_split
+        try:
+            got = fa.flash_attention(q, k, v, off, scale)
+            torch.cuda.synchronize()
+        finally:
+            fa.SPLIT_KEYS = default_split
         ref = fa.flash_attention_reference(q, k, v, off, scale)
-        torch.cuda.synchronize()
         err, worst, rel_l2 = kernel_disagreement(got, ref)
+        walk = f"split {forced[0]}" if forced else "planned split"
         log(f"[kernels] flash_attention b={b} t={t} s={s} hq={hq} hkv={hkv} dk={dk} "
-            f"dv={dv} offset={off} {str(dtype)[6:]}: max_abs_err {err:.3e}, rms(ref) "
+            f"dv={dv} offset={off} {str(dtype)[6:]} ({walk}): max_abs_err {err:.3e}, rms(ref) "
             f"{ref.float().pow(2).mean().sqrt().item():.3e}, worst err/limit {worst:.3f} "
             f"(tol 1), relative L2 {rel_l2:.3e} (tol {REL_L2_TOL})")
         if not (worst <= 1 and rel_l2 <= REL_L2_TOL):
             raise AssertionError(f"flash_attention disagrees with its plain version: "
                                  f"err/limit {worst}, relative L2 {rel_l2}")
-        if (t, s, hq, hkv, dk) == (CHUNK, MAX_SEQ, 32, 8, 128):
+        if (t, s, hq, hkv, dk) == (CHUNK, MAX_SEQ, 32, 8, 128) and not forced:
             main_err = max(main_err, err)
     return main_err
 
 
-def phase_timing(seed: int) -> dict:
-    """Kernel, plain and SDPA times at the main path's shapes. Returns the
-    kernel record: per-launch means over the main path's chunk offsets."""
+def phase_timing(seed: int) -> list:
+    """Kernel, plain and SDPA times at the main path's shapes, at each of
+    ``FLASH_TIMING_OFFSETS``, the kernel with the planner's split and at
+    each keys-per-block of ``FLASH_SPLIT_SWEEP`` (0: the whole walk). Each
+    row prints the achieved TFLOP/s and the share of the bound. Returns
+    the rows; the kernel record takes per-launch means over the main
+    path's chunk offsets."""
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    info = fa.kernel_info(128, 128)
     rows = []
-    for off in (0, 256, 512, 3840):
+    default_split = fa.SPLIT_KEYS
+    for off in FLASH_TIMING_OFFSETS:
         q, k, v = attention_inputs(gen, 1, CHUNK, MAX_SEQ, 32, 8, 128, 128, torch.bfloat16)
         scale = 128 ** -0.5
+        planned = fa.plan_split(1, CHUNK, MAX_SEQ, 32, 8, off, sms)
         kern = time_ms(lambda: fa.flash_attention(q, k, v, off, scale))
+        sweep = {}
+        for split in FLASH_SPLIT_SWEEP:
+            fa.SPLIT_KEYS = split
+            try:
+                sweep[split] = time_ms(lambda: fa.flash_attention(q, k, v, off, scale))
+            finally:
+                fa.SPLIT_KEYS = default_split
         plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, off, scale))
         lib_fn = sdpa_call(q, k, v, off, scale)
         lib = time_ms(lib_fn)
@@ -502,12 +555,27 @@ def phase_timing(seed: int) -> dict:
         bms, ops_ms, bytes_ms = bound_ms(q, k, v, off)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
         flops, nbytes = attention_work(q, k, v, off)
-        rows.append(dict(offset=off, ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         ops_ms=ops_ms, bytes_ms=bytes_ms))
+        rows.append(dict(offset=off, ms=kern, whole_ms=sweep[0], plain_ms=plain, library_ms=lib,
+                         bound_ms=bms, ops_ms=ops_ms, bytes_ms=bytes_ms, split=planned,
+                         tflops=flops / kern / 1e9))
         log(f"[timing] flash_attention T={CHUNK} S={MAX_SEQ} Hq=32 Hkv=8 D=128 bf16 "
-            f"offset={off}: kernel {kern:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-            f"kernel vs sdpa max_abs_err {err:.3e}")
+            f"offset={off}: kernel {kern:.4f} ms (planned split {planned}: "
+            f"{fa.num_splits(CHUNK, MAX_SEQ, off, planned)} blocks along the walk), whole walk "
+            f"{sweep[0]:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms (kernel / sdpa "
+            f"{kern / lib:.2f}), bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {flops / kern / 1e9:.1f} TFLOP/s, {bms / kern:.1%} of the "
+            f"bound; {info['registers']} registers, {info['shared_bytes']} shared bytes, "
+            f"{info['blocks_per_sm']} blocks per SM; kernel vs sdpa max_abs_err {err:.3e}")
+        log(f"[timing]   keys per block at offset {off}: " + ", ".join(
+            f"{split or 'whole'} {ms:.4f} ms" for split, ms in sweep.items()))
+    main = [r for r in rows if r["offset"] in MAIN_PATH_OFFSETS]
+    kern_mean = sum(r["ms"] for r in main) / len(main)
+    lib_mean = sum(r["library_ms"] for r in main) / len(main)
+    deep = rows[-1]
+    log(f"[timing] flash_attention mean over offsets {'/'.join(map(str, MAIN_PATH_OFFSETS))}: "
+        f"kernel {kern_mean:.4f} ms, sdpa {lib_mean:.4f} ms (kernel / sdpa "
+        f"{kern_mean / lib_mean:.2f}); offset {deep['offset']}: {deep['ops_ms'] / deep['ms']:.1%} "
+        f"of the operations bound, kernel / sdpa {deep['ms'] / deep['library_ms']:.2f}")
     return rows
 
 

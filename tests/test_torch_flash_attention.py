@@ -153,3 +153,74 @@ def test_smoke_bf16_limit_follows_the_output_scale(offset):
         _, worst, _ = kernel_disagreement(
             fa.flash_attention_reference(q, k, v, shifted, 128**-0.5), ref)
         assert worst > 3
+
+
+# ------------------------------------------------ the split walk of the bf16 kernel
+SPLIT_T = (1, 100, 128, 256)
+SPLIT_OFFSETS = (0, 17, 256, 3840)
+SPLIT_S = (256, 4096)
+SPLIT_GRID = [(t, off, s) for t in SPLIT_T for off in SPLIT_OFFSETS for s in SPLIT_S]
+
+
+@pytest.mark.parametrize("t,offset,s", SPLIT_GRID)
+def test_split_plan_covers_each_row_tile_once(t, offset, s):
+    """At the main path's heads (Hq 32, Hkv 8) and the card's 132 SMs, for
+    the planner's split and forced ones: every row tile's chunks tile
+    [0, kv_end) exactly once, in order, none longer than the split; kv_end
+    is one past the tile's last position (clipped to S); and every chunk the
+    grid launches past a tile's causal end is one that returns at once."""
+    groups = 4
+    planned = fa.plan_split(1, t, s, 32, 8, offset, 132)
+    assert planned % fa.SPLIT_ALIGN == 0 and (planned == 0 or planned >= fa.MIN_SPLIT)
+    for split in sorted({planned, 0, 64, 256, 1024}):
+        launched = fa.num_splits(t, s, offset, split)
+        plan = fa.split_chunks(t, groups, s, offset, split)
+        assert len(plan) == fa.row_tiles(t, groups) == -(-t * groups // fa.BLOCK_ROWS)
+        for tile, chunks in enumerate(plan):
+            last_pos = (min((tile + 1) * fa.BLOCK_ROWS, t * groups) - 1) // groups
+            kv_end = min(s, offset + last_pos + 1)
+            assert fa.tile_kv_end(t, groups, s, offset, tile) == kv_end
+            assert chunks[0][0] == 0 and chunks[-1][1] == kv_end
+            for (a, b), (c, _) in zip(chunks, chunks[1:]):
+                assert b == c  # contiguous, no overlap, no gap
+            assert all(0 < b - a <= (split or s) for a, b in chunks)
+            # chunk c of the grid starts at c * split: the first len(chunks)
+            # start below kv_end, every later one at or past it
+            assert len(chunks) <= launched
+            step = split or s
+            assert all((c * step < kv_end) == (c < len(chunks)) for c in range(launched))
+
+
+def test_planner_splits_only_long_walks_on_an_unfilled_card():
+    """The main path's chunks (128 blocks on 132 SMs): the walk is split in
+    two at offset 3840 only; a grid that fills two blocks per SM, or a walk
+    whose chunks would fall under MIN_SPLIT, is never split."""
+    assert [fa.plan_split(1, 256, 4096, 32, 8, off, 132) for off in (0, 256, 512, 1280, 3840)] == [
+        0, 0, 0, 0, 2048]
+    assert fa.plan_split(2, 256, 4096, 32, 8, 3840, 132) == 0  # 256 blocks fill the card
+    assert fa.plan_split(1, 256, 4096, 16, 4, 3840, 132) == 1024  # 64 blocks: four chunks
+    assert fa.plan_split(1, 256, 4096, 4, 1, 3840, 132) == 0  # 16 chunks would be too short
+    assert fa.num_splits(256, 4096, 3840, 2048) == 2 and fa.num_splits(256, 4096, 3840, 0) == 1
+
+
+@pytest.mark.parametrize("t,offset,s", SPLIT_GRID)
+def test_split_and_merge_matches_reference_and_jax(t, offset, s):
+    """The kernel's walk in plain PyTorch (packed GQA rows, chunks of 64 and
+    1024 keys and the whole walk, log2 softmax, the merge) equals the plain
+    version within 1e-5 in f32, and the JAX Pallas kernel in interpret mode
+    within 2e-4 (the tolerance of the JAX kernel's own tests)."""
+    rng = np.random.default_rng(t + offset + s)
+    b, hq, hkv, d = 1, 4, 2, 64
+    q = rng.normal(size=(b, t, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+    scale = d**-0.5
+    tq, tk, tv = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    ref = fa.flash_attention_reference(tq, tk, tv, offset, scale)
+    want_jax = np.asarray(j_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offset), scale,
+        block_k=64, interpret=True))
+    for split in (0, 64, 1024):
+        got = fa.flash_attention_split_reference(tq, tk, tv, offset, scale, split)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_jax, rtol=2e-4, atol=2e-4)

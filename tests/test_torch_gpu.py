@@ -43,6 +43,10 @@ CASES = [
     (1, 128, 256, 8, 8, 192, 128, 64, torch.float32),
     (1, 100, 256, 8, 1, 256, 256, 17, torch.float32),
     (1, 100, 256, 8, 1, 256, 256, 17, torch.bfloat16),
+    # bf16 GQA packing: groups 1 and 8 (4 above), and Dk != Dv
+    (1, 256, 1024, 8, 8, 128, 128, 300, torch.bfloat16),
+    (1, 256, 4096, 64, 8, 128, 128, 2000, torch.bfloat16),
+    (1, 256, 512, 16, 16, 192, 128, 128, torch.bfloat16),
 ]
 
 
@@ -60,6 +64,25 @@ def test_kernel_matches_plain_version(cuda, b, t, s, hq, hkv, dk, dv, offset, dt
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     want = fa.flash_attention_reference(q, k, v, offset, dk**-0.5)
+    _, worst, rel_l2 = kernel_disagreement(got, want)
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@pytest.mark.parametrize("split", [None, 512, 0], ids=["planned", "512", "whole"])
+def test_split_walk_matches_plain_version(cuda, monkeypatch, split):
+    """The main path's deepest chunk (offset 3840) with the bf16 walk split
+    as the planner splits it, forced into chunks of 512 keys, and whole:
+    the smoke run's limits, and one launch counted per call."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 256, 32, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, 4096, 8, 128, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, 4096, 8, 128, generator=g, device=cuda).bfloat16()
+    monkeypatch.setattr(fa, "SPLIT_KEYS", split)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, 3840, 128**-0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_reference(q, k, v, 3840, 128**-0.5)
     _, worst, rel_l2 = kernel_disagreement(got, want)
     assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
 
