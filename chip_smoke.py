@@ -14,15 +14,18 @@ final line:
    (bf16 GQA groups 1-16, head dims 64-256, ragged T, offset 3840 with the
    walk as planned, in chunks of 512 keys and whole; f32), the two
    packed-weight kernels at the five Llama-3.1-8B projection shapes, bit for
-   bit on integer-valued operands and within limits on random bf16, and the
+   bit on integer-valued operands and within limits on random bf16, at 2, 4
+   and 8 bits, and the GEMV's walk over IN forced whole and split, and the
    ragged paged decode at the 8B shapes over uneven lengths, bf16 and int8
-   pools, and odd pages, groups and dtypes;
+   pools, and odd pages, groups (3, 7 and 24 among them) and dtypes;
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
    kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
    decode, SDPA over K/V gathered beforehand, the gather not timed); the
    flash kernel at chunk offsets 0, 256, 512, 1280 and 3840, with the
    achieved TFLOP/s, its share of the bound and the walk split several ways;
+   the GEMV's walk over IN split in two against whole at the narrow
+   projections of Llama-3.2-1B and Qwen2-1.5B, beside the planner's pick;
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here; five requests (a 600-token completion
@@ -325,9 +328,15 @@ def build_kernels() -> None:
             f"{info['shared_bytes']} bytes, {info['registers']} registers, "
             f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local (spill) "
             f"bytes per thread")
-    for kernel, m in (("gemv", 1), ("gemv", 8), ("matmul", PREFILL_M)):
-        log(f"[kernels] quant_{kernel} shared memory per block at M={m} bf16: "
-            f"{qm.shared_memory_bytes(kernel, torch.bfloat16, BITS, m)} bytes")
+    for bits in qm.BITS:
+        for m in (1, 8):
+            info = qm.gemv_info(bits, m, GROUP_SIZE, torch.float16)
+            log(f"[kernels] quant_gemv bf16 x, {bits} bits, M={m}, group {GROUP_SIZE}, fp16 "
+                f"scales: shared memory per block {info['shared_bytes']} bytes, "
+                f"{info['registers']} registers, {info['blocks_per_sm']} resident blocks per SM, "
+                f"{info['local_bytes']} local (spill) bytes per thread")
+        log(f"[kernels] quant_matmul shared memory per block at {bits} bits bf16: "
+            f"{qm.matmul_shared_bytes(bits)} bytes")
     for pool_dtype in (torch.bfloat16, torch.int8):
         log(f"[kernels] paged_attention shared memory per block at G=4 D=128 "
             f"{str(pool_dtype)[6:]} pool: {pa.shared_memory_bytes(pool_dtype, 4, 128, 128)} bytes")
@@ -340,6 +349,8 @@ def phase_quant_kernels(seed: int) -> dict:
     with fp16 scales; then small cases for the other bits, group sizes,
     dtypes and ragged edges. Returns the largest random-bf16 error at the
     main path's shapes, per kernel."""
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     main_err = {"quant_gemv": 0.0, "quant_matmul": 0.0}
     for name, out_dim, in_dim in QUANT_SHAPES:
@@ -359,6 +370,12 @@ def phase_quant_kernels(seed: int) -> dict:
         ("quant_matmul", 100, 200, 96, 32, 4, torch.bfloat16, torch.float16),
         ("quant_matmul", 70, 130, 512, 128, 8, torch.float32, torch.float32),
         ("quant_matmul", 9, 256, 256, 64, 8, torch.bfloat16, torch.bfloat16),
+        # 2-bit weights: a 16-byte load of words spans two groups of 32
+        ("quant_gemv", 1, 256, 512, 32, 2, torch.bfloat16, torch.float16),
+        ("quant_gemv", 7, 130, 8320, 64, 2, torch.bfloat16, torch.bfloat16),
+        ("quant_gemv", 4, 77, 96, 32, 2, torch.float32, torch.float32),
+        ("quant_matmul", 100, 200, 512, 32, 2, torch.bfloat16, torch.float16),
+        ("quant_matmul", 16, 96, 96, 32, 2, torch.float32, torch.float32),
     ]
     for kernel, m, out_dim, in_dim, gs, bits, xd, pd in small:
         for integer in (True, False):
@@ -367,6 +384,27 @@ def phase_quant_kernels(seed: int) -> dict:
             check_quant(kernel, x, q, s, b, gs, bits, integer,
                         f"M={m} OUT={out_dim} IN={in_dim} gs={gs} bits={bits} "
                         f"{str(xd)[6:]} x, {str(pd)[6:]} scales")
+    # the bf16 GEMV's walk over IN forced whole and into splits, at every
+    # bits and group size, and at the 8B o_proj and down_proj shapes; two
+    # runs of a split walk must give the same bits
+    default_split = qm.SPLIT_IN
+    forced = [(3, 130, 1152, gs, bits, split) for bits in qm.BITS for gs in qm.GROUP_SIZES
+              for split in (0, 384)]
+    forced += [(m, 4096, in_dim, GROUP_SIZE, BITS, split) for m in (1, 8)
+               for in_dim in (4096, 14336) for split in (0, 1024, 512)]
+    for m, out_dim, in_dim, gs, bits, split in forced:
+        qm.SPLIT_IN = split
+        try:
+            for integer in (True, False):
+                x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer,
+                                            group_size=gs, bits=bits)
+                check_quant("quant_gemv", x, q, s, b, gs, bits, integer,
+                            f"M={m} OUT={out_dim} IN={in_dim} gs={gs} bits={bits} bf16 x, "
+                            f"split {split}")
+            again = [qm.quant_gemv(x, q, s, b, gs, bits) for _ in range(2)]
+            check(torch.equal(*again), f"quant_gemv split {split}: two runs differ")
+        finally:
+            qm.SPLIT_IN = default_split
     return main_err
 
 
@@ -424,6 +462,13 @@ def phase_paged_kernels(seed: int) -> float:
         ((64, 65, 300, 0), 4, 2, 256, 64, 5, bf16, bf16),
         ((33, 200, 1), 16, 1, 128, 32, 8, torch.int8, bf16),
         ((9, 24, 0, 40), 16, 2, 64, 8, 6, f32, f32),
+        # groups the kernel pads: G = 7 (Qwen2-7B's 28 / 4 heads) and G = 3,
+        # and G = 24 in chunks of 16 heads
+        ((1, 255, 256, 700, 0, 1500), 28, 4, 128, PAGE, 8, bf16, bf16),
+        ((1, 255, 256, 700, 0, 1500), 28, 4, 128, PAGE, 8, torch.int8, bf16),
+        ((3, 64, 65, 0), 6, 2, 128, 16, 6, bf16, bf16),
+        ((1, 100, 257, 0), 24, 1, 128, 64, 6, bf16, bf16),
+        ((1, 100, 257, 0), 24, 1, 128, 64, 6, torch.int8, bf16),
     ]
     main_err = 0.0
     default_split = pa.SPLIT_POSITIONS
@@ -484,6 +529,9 @@ def phase_kernels(seed: int) -> float:
         (1, 256, 2048, 16, 8, 128, 128, 1000, torch.bfloat16),
         (1, 256, 4096, 64, 8, 128, 128, 2000, torch.bfloat16),
         (1, 128, 512, 16, 1, 128, 128, 100, torch.bfloat16),
+        # groups 6 (Qwen2-1.5B, 12 / 2 heads) and 7 (Qwen2-7B, 28 / 4 heads)
+        (1, 256, 1024, 12, 2, 128, 128, 300, torch.bfloat16),
+        (1, 256, 1024, 28, 4, 128, 128, 500, torch.bfloat16),
         # bf16 head dims (64, 64) and (256, 256)
         (2, 256, 512, 8, 2, 64, 64, 100, torch.bfloat16),
         (1, 256, 1024, 8, 2, 256, 256, 500, torch.bfloat16),
@@ -692,7 +740,7 @@ def quant_work(m, out_dim, in_dim, bits=BITS, group_size=GROUP_SIZE):
 
 def phase_quant_timing(seed: int) -> list:
     """Device times of both packed-weight kernels at the five Llama-3.1-8B
-    shapes (the GEMV at M = 1 and 8, the matmul at M = 256), beside their
+    shapes (the GEMV at M = 1, 2, 4 and 8, the matmul at M = 256), beside their
     bound, the plain version, F.linear on the dequantized bf16 weight (what
     the dequantize-on-load path spends) and torch._weight_int4pack_mm."""
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
@@ -704,7 +752,7 @@ def phase_quant_timing(seed: int) -> list:
         _, q, s, b = quant_operands(gen, 1, out_dim, in_dim, integer=False)
         dense = dequantize(q, s, b, GROUP_SIZE, BITS, torch.bfloat16)
         lib_weight, lib_why = int4pack_weight(q, s, b)
-        for m in (1, 8, PREFILL_M):
+        for m in (1, 2, 4, 8, PREFILL_M):
             kernel = "quant_gemv" if m <= qm.GEMV_MAX_M else "quant_matmul"
             fn = getattr(qm, kernel)
             x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
@@ -733,34 +781,88 @@ def phase_quant_timing(seed: int) -> list:
                              dense_ms=dense_ms, library_ms=lib, bound_ms=max(ops_ms, bytes_ms),
                              ops_ms=ops_ms, bytes_ms=bytes_ms))
             lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
+            walk = ""
+            if kernel == "quant_gemv":
+                split = qm.plan_gemv(out_dim, in_dim, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)
+                walk = f" (IN split {split or 'whole'})"
             log(f"[timing] {kernel} {name} M={m} OUT={out_dim} IN={in_dim} bf16, fp16 scales: "
-                f"kernel {kern:.4f} ms, plain {plain:.4f} ms, dense F.linear {dense_ms:.4f} ms, "
-                f"int4pack_mm {lib_txt}, bound {max(ops_ms, bytes_ms):.4f} ms "
+                f"kernel {kern:.4f} ms{walk}, plain {plain:.4f} ms, dense F.linear "
+                f"{dense_ms:.4f} ms, int4pack_mm {lib_txt}, bound {max(ops_ms, bytes_ms):.4f} ms "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e9:.3f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s")
+                f"{nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s, "
+                f"{max(ops_ms, bytes_ms) / kern:.1%} of the bound")
         del q, s, b, dense, lib_weight
+    return rows
+
+
+# projections whose row blocks leave half an H100's SMs idle, so that
+# plan_gemv weighs splitting their walk over IN: o_proj and down_proj of
+# Llama-3.2-1B (hidden 2048, MLP 8192) and Qwen2-1.5B (1536, 8960)
+SPLIT_SHAPES = (
+    ("llama-1b o_proj", 2048, 2048),
+    ("llama-1b down_proj", 2048, 8192),
+    ("qwen2-1.5b o_proj", 1536, 1536),
+    ("qwen2-1.5b down_proj", 1536, 8960),
+)
+
+
+def phase_gemv_split_timing(seed: int) -> list:
+    """The bf16 GEMV at ``SPLIT_SHAPES``, M = 1 and 8: the walk over IN
+    split in two against the whole walk, timed in the order split, whole,
+    split, whole, beside what ``plan_gemv`` picks."""
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    default_split = qm.SPLIT_IN
+    for name, out_dim, in_dim in SPLIT_SHAPES:
+        _, q, s, b = quant_operands(gen, 1, out_dim, in_dim, integer=False)
+        half = -(-in_dim // (2 * qm.SPLIT_ALIGN)) * qm.SPLIT_ALIGN
+        planned = qm.plan_gemv(out_dim, in_dim, sms)
+        for m in (1, 8):
+            x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
+            times = {}
+            try:
+                for split in (half, 0, half, 0):
+                    qm.SPLIT_IN = split
+                    times.setdefault(split, []).append(
+                        time_ms(lambda: qm.quant_gemv(x, q, s, b, GROUP_SIZE, BITS)))
+            finally:
+                qm.SPLIT_IN = default_split
+            rows.append(dict(name=name, m=m, split=half, planned=planned, split_ms=times[half],
+                             whole_ms=times[0]))
+            log(f"[timing] quant_gemv {name} M={m} OUT={out_dim} IN={in_dim}: split in two "
+                f"({half}) {' / '.join(f'{t:.4f}' for t in times[half])} ms, whole walk "
+                f"{' / '.join(f'{t:.4f}' for t in times[0])} ms; plan_gemv picks "
+                f"{planned or 'whole'}")
+        del q, s, b
     return rows
 
 
 def quant_record(rows, kernel, launches, max_err):
     """The kernels-line entry of a packed-weight kernel: per-launch means as
     the main path weighs them. The GEMV: a decode step's 129 launches at
-    M = 1 (32 of each layer shape and the head); the matmul: a prefill
+    M = 1 (32 of each layer shape and the head), and beside them the same
+    mean at M = 8 (``ms_m8``, ``library_ms_m8``); the matmul: a prefill
     chunk's four layer shapes at M = 256, equally."""
-    if kernel == "quant_gemv":
-        sel = [r for r in rows if r["kernel"] == kernel and r["m"] == 1]
-        weights = [1 if r["name"] == "lm_head" else 32 for r in sel]
-    else:
-        sel = [r for r in rows if r["kernel"] == kernel and r["name"] != "lm_head"]
-        weights = [1] * len(sel)
-    total = sum(weights)
 
-    def mean(key):
+    def mean(key, m=1):
+        if kernel == "quant_gemv":
+            sel = [r for r in rows if r["kernel"] == kernel and r["m"] == m]
+            weights = [1 if r["name"] == "lm_head" else 32 for r in sel]
+        else:
+            sel = [r for r in rows if r["kernel"] == kernel and r["name"] != "lm_head"]
+            weights = [1] * len(sel)
         vals = [r[key] for r in sel]
         if any(v is None for v in vals):
             return None
-        return sum(w * v for w, v in zip(weights, vals)) / total
+        return sum(w * v for w, v in zip(weights, vals)) / sum(weights)
 
+    extra = {}
+    if kernel == "quant_gemv":
+        extra = {"ms_m8": mean("ms", 8), "library_ms_m8": mean("library_ms", 8)}
     return {
         "name": kernel,
         "route": "cuda",
@@ -775,6 +877,7 @@ def quant_record(rows, kernel, launches, max_err):
         "bound_by": "operations" if mean("ops_ms") >= mean("bytes_ms") else "bytes",
         "library_ms": mean("library_ms"),
         "dense_ms": mean("dense_ms"),
+        **extra,
     }
 
 
@@ -1273,6 +1376,7 @@ def main(argv=None) -> int:
         return 0
     rows = phase_timing(args.seed)
     quant_rows = phase_quant_timing(args.seed)
+    phase_gemv_split_timing(args.seed)
     paged_rows = phase_paged_timing(args.seed)
     launches, single, model = phase_main_path(args.seed)
     paged_launches = 0

@@ -35,7 +35,13 @@
 //     slot's length return at once and are not read. With one split the
 //     walk writes the output itself.
 //
-// One block of 4 warps owns one (KV head, slot, split). Scores: TPK threads
+// Any GQA group G >= 1: G of 1, 2, 4, 8 or 16 runs on a build that knows it
+// at compile time; any other G runs on a padded build of the next size up
+// (4, 8 or 16), its padded heads zero on read and never written, and G > 16
+// in chunks of 16 heads, one block each, every chunk re-reading its KV
+// head's pages.
+//
+// One block of 4 warps owns one (KV head, head chunk, slot, split). Scores: TPK threads
 // share a key row, each taking every TPK-th 16-byte chunk of it against the
 // G query rows held in shared memory as fp32, then summing over the TPK
 // lanes with shuffles. P.V: thread t owns the column pair 2(t % (Dv/2)) for
@@ -65,6 +71,7 @@ struct Params {
   float* part_acc;     // (M, Hq, splits, Dv) fp32, when the walk is split
   float* part_ml;      // (M, Hq, splits, 2): running max and normaliser
   int Hq, Hkv, Dk, Dv, page, spg;
+  int G;               // query heads per KV head (Hq / Hkv), any G >= 1
   int split;           // positions per block of the walk
   float scale;
 };
@@ -172,14 +179,24 @@ struct Layout {
   __host__ __device__ int bytes() const { return rows + 2 * KEYS * 4; }
 };
 
-template <typename TQ, typename TKV, int G>
+// G is the group the kernel is built for (1, 2, 4, 8 or 16): a block owns
+// G query heads of one KV head. PAD builds serve a group p.G off those
+// sizes: the heads past p.G are zeros on read and are never written. The
+// exact builds (PAD false) know the group at compile time.
+template <typename TQ, typename TKV, int G, bool PAD>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Params p) {
   constexpr bool QUANT = sizeof(TKV) == 1;
   constexpr int KEYS = Tile<TKV>::KEYS;
   constexpr int TPK = THREADS / KEYS;
   constexpr int VEC = 16 / sizeof(TKV);
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x;
+  // a group wider than 16 runs on the 16-head instantiation in chunks of
+  // 16 heads along blockIdx.x; the narrower ones have one chunk
+  constexpr bool CHUNKED = PAD && G == 16;
+  const int group = PAD ? p.G : G;  // query heads per KV head
+  const int chunks = CHUNKED ? (group + G - 1) / G : 1;
+  const int h = CHUNKED ? blockIdx.x / chunks : blockIdx.x;  // KV head
+  const int g0 = CHUNKED ? blockIdx.x % chunks * G : 0;      // the chunk's first head
   const int m = blockIdx.y;
   const bool partial = gridDim.z > 1;
   // the table's reach bounds the walk: a longer length (a finished slot
@@ -207,8 +224,11 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Params p) {
   const TKV* kpool = static_cast<const TKV*>(p.k);
   const TKV* vpool = static_cast<const TKV*>(p.v);
 
-  const TQ* q = static_cast<const TQ*>(p.q) + ((size_t)m * p.Hq + (size_t)h * G) * Dk;
-  for (int i = tid; i < G * Dk; i += THREADS) sQ[i] = to_float(q[i]);
+  // the chunk's query heads; heads past the group are zeros
+  const TQ* q = static_cast<const TQ*>(p.q) + ((size_t)m * p.Hq + (size_t)h * group + g0) * Dk;
+  const int real = min(G, group - g0) * Dk;
+  for (int i = tid; i < G * Dk; i += THREADS)
+    sQ[i] = !PAD || i < real ? to_float(q[i]) : 0.0f;
 
   // the pool row (page id * page + row in page) * Hkv + h of each key of a
   // tile, -1 past the walk: one table read per key
@@ -384,10 +404,11 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Params p) {
     __syncthreads();
   }
   if (pv_thread && ks == 0) {
-    const size_t head0 = (size_t)m * p.Hq + (size_t)h * G;
+    const size_t head0 = (size_t)m * p.Hq + (size_t)h * group + g0;
     TQ* o = static_cast<TQ*>(p.o) + head0 * Dv;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
+      if (PAD && g0 + g >= group) break;  // a padded head: nothing to write
       float a0 = acc[g][0], a1 = acc[g][1];
       for (int s2 = 1; s2 < KS; ++s2) {
         a0 += sAcc[((s2 - 1) * G + g) * Dv + 2 * dp];
@@ -435,13 +456,26 @@ __global__ void __launch_bounds__(THREADS) paged_merge_kernel(Params p, int spli
   }
 }
 
-template <typename TQ, typename TKV, int G>
+// The instantiation's dynamic shared-memory limit, set to what the launch
+// asks for only when that differs from the last launch's (a model's head
+// dims do not change, so serving sets it once rather than per launch).
+template <typename TQ, typename TKV, int G, bool PAD>
+cudaError_t allow_shared(int smem) {
+  static int set = -1;
+  if (smem == set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_kernel<TQ, TKV, G, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) set = smem;
+  return err;
+}
+
+template <typename TQ, typename TKV, int G, bool PAD>
 cudaError_t launch_group(const Params& p, int M, int splits, cudaStream_t stream) {
   const int smem = Layout<TKV>(G, p.Dk, p.Dv).bytes();
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<TQ, TKV, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_shared<TQ, TKV, G, PAD>(smem);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<TQ, TKV, G><<<dim3(p.Hkv, M, splits), THREADS, smem, stream>>>(p);
+  const int chunks = (p.G + G - 1) / G;
+  paged_decode_kernel<TQ, TKV, G, PAD><<<dim3(p.Hkv * chunks, M, splits), THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   paged_merge_kernel<TQ><<<M * p.Hq, THREADS, 0, stream>>>(p, splits);
@@ -450,14 +484,18 @@ cudaError_t launch_group(const Params& p, int M, int splits, cudaStream_t stream
 
 template <typename TQ, typename TKV>
 cudaError_t launch(const Params& p, int M, int G, int splits, cudaStream_t stream) {
-  switch (G) {
-    case 1: return launch_group<TQ, TKV, 1>(p, M, splits, stream);
-    case 2: return launch_group<TQ, TKV, 2>(p, M, splits, stream);
-    case 4: return launch_group<TQ, TKV, 4>(p, M, splits, stream);
-    case 8: return launch_group<TQ, TKV, 8>(p, M, splits, stream);
-    case 16: return launch_group<TQ, TKV, 16>(p, M, splits, stream);
-    default: return cudaErrorInvalidValue;
+  switch (G) {  // the group sizes the kernel is built for
+    case 1: return launch_group<TQ, TKV, 1, false>(p, M, splits, stream);
+    case 2: return launch_group<TQ, TKV, 2, false>(p, M, splits, stream);
+    case 4: return launch_group<TQ, TKV, 4, false>(p, M, splits, stream);
+    case 8: return launch_group<TQ, TKV, 8, false>(p, M, splits, stream);
+    case 16: return launch_group<TQ, TKV, 16, false>(p, M, splits, stream);
   }
+  // any other group on the next size up, padded; wider than 16 in chunks of
+  // 16 heads
+  if (G < 4) return launch_group<TQ, TKV, 4, true>(p, M, splits, stream);
+  if (G < 8) return launch_group<TQ, TKV, 8, true>(p, M, splits, stream);
+  return launch_group<TQ, TKV, 16, true>(p, M, splits, stream);
 }
 
 }  // namespace
@@ -505,6 +543,7 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
   p.split = splits > 1 ? split : page * spg;
   p.scale = scale;
   const int G = Hq / Hkv;
+  p.G = G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch<float, float>(p, M, G, splits, s);
@@ -519,6 +558,7 @@ const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaErro
 
 // Dynamic shared memory one launch asks for, so the caller can report it.
 long long mst_paged_attention_shared_bytes(int kv_dtype, int G, int Dk, int Dv) {
+  G = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : G <= 8 ? 8 : 16;  // the instantiation that serves G
   if (kv_dtype == 0) return Layout<float>(G, Dk, Dv).bytes();
   if (kv_dtype == 1) return Layout<__nv_bfloat16>(G, Dk, Dv).bytes();
   return Layout<int8_t>(G, Dk, Dv).bytes();

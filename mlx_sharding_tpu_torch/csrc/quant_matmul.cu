@@ -1,4 +1,4 @@
-// Products with MLX grouped-affine 4- and 8-bit weights kept packed in
+// Products with MLX grouped-affine 2-, 4- and 8-bit weights kept packed in
 // device memory, written for Hopper (sm_90a). Both kernels compute
 //
 //   out[m, o] = sum_i x[m, i] * (code(q)[o, i] * s[o, i / gs] + b[o, i / gs])
@@ -7,29 +7,50 @@
 // 32-bit words holding 32/bits codes each, least-significant bits first (the
 // checkpoint's layout, read as unsigned words whatever their torch dtype);
 // scales and biases are (OUT, IN/gs) in fp32, bf16 or fp16; x is (M, IN) in
-// bf16 or fp32. Group sizes 32, 64 and 128; bits 4 and 8.
+// bf16 or fp32. Group sizes 32, 64 and 128; bits 2, 4 and 8.
 //
-// quant_gemv_kernel replaces the Pallas TPU kernel
+// quant_gemv_tc_kernel replaces the Pallas TPU kernel
 // mlx_sharding_tpu/ops/quant_matmul.py::quant_gemv_pipelined (_gemv_kernel),
-// the decode product for M <= 8. What bounds it on an H100: bytes. At M = 1
-// it does 2 operations per weight and reads 0.5625 bytes of it (a 4-bit code
-// plus an fp16 scale and bias per 64 codes), far below the 295 operations per
-// byte where the tensor cores become the limit. What the design does:
-//   - each warp owns 4 output rows and walks IN with 16-byte loads of
-//     words (32 codes a load at 4 bits), neighbouring lanes on neighbouring
-//     addresses; the next chunk's words are in flight while this chunk is
-//     unpacked, and 4 rows per warp give 4 loads per lane per step;
-//   - x is staged once per block (32 rows) in shared memory, in IN tiles of
-//     4096, each 16-byte chunk padded by 16 bytes so that the 8 lanes of a
-//     shared-load phase hit different banks; the x values a lane reads
-//     serve its 4 rows, so at M = 8 shared-memory traffic stays below the
-//     rate the weight stream needs;
-//   - a code becomes a float with one OR and one subtraction (2^23 + code,
-//     exactly) instead of an integer conversion, which runs at a quarter of
-//     the fp32 rate; the weight code * s + b stays in fp32;
-//   - the lanes' partial sums meet in a warp-shuffle reduction.
-// Not done yet: cp.async/TMA pipelining, and a split of IN across blocks for
-// the layers whose OUT gives fewer blocks than the card has SMs.
+// the decode product for M <= 8 with bf16 x. What bounds it on an H100:
+// bytes. At M = 1 to 8 it does 2M operations per weight and reads 0.5625
+// bytes of it (a 4-bit code plus an fp16 scale and bias per 64 codes), far
+// below the 295 operations per byte where the tensor cores become the
+// limit. What the design does:
+//   - the product runs on the tensor cores at every M (mma.sync m16n8k16:
+//     16 OUT rows of codes as A, x^T as B with M padded to 8 columns, fp32
+//     accumulators), so a code costs no FMA per row of x and x is not read
+//     again for every weight row. The mma's k order is free: a lane's four
+//     A slots are four codes it takes from one word (one lop3 into the
+//     mantissa of bf16 128.0 at 2 and 4 bits, exact; a prmt through fp32 at
+//     8 bits), and its B slots are x at the same IN indices;
+//   - the bias is folded per group, as the TPU kernel folds it:
+//     sum_k x_k (c_k s + b) = s sum_k x_k c_k + b sum_k x_k. Each group runs
+//     into zeroed fragments, its x sums come from an mma against ones, and
+//     the mma's 128 + c is taken out with the bias; integer-valued operands
+//     stay exact;
+//   - a block of 8 warps owns 32 rows: two warps along OUT, each 16 rows,
+//     and four along IN, each 128 bytes of every row of a stage, their sums
+//     added in a fixed order at the end. A stage is 512 contiguous bytes of
+//     each of the 32 rows (128 bytes of 64 rows streamed slower); a 3-stage
+//     ring of shared memory is filled by cp.async (16-byte, .cg) with the
+//     next two stages' words, x and scales/biases, in flight from the first
+//     cycle (no weight load waits for x);
+//   - group size is a template constant, so a warp's walk over a stage
+//     unrolls and its shared loads and mma chains overlap;
+//   - when the row blocks leave half the SMs idle and IN is long enough
+//     (ops/quant_matmul.py::plan_gemv: layers of 2048 rows or fewer whose
+//     IN is over 4096; no Llama-3.1-8B shape), the walk over IN is split
+//     across blocks on group boundaries; the
+//     splits' fp32 partials are added in split order by
+//     quant_gemv_reduce_kernel, with no atomics, so two runs give the same
+//     bits;
+//   - the shared-memory attribute is set once per instantiation.
+// What holds it back now: at M = 1 the extraction of codes, the mma and the
+// group folds take about as long as the loads, and the two overlap only in
+// part. Not done yet: wgmma/TMA, load-time autotuning of the geometry and
+// the split, and the launch latency that bounds the small shapes.
+// fp32 x (tests only) takes quant_gemv_fma_kernel, the first version's FMA
+// walk.
 //
 // quant_matmul_kernel replaces the Pallas TPU kernel
 // mlx_sharding_tpu/ops/quant_matmul.py::quant_matmul_pallas (_kernel), the
@@ -47,7 +68,9 @@
 //     accumulate), each warp a 32 x 32 tile; fp32 inputs (tests only) take
 //     an FMA loop over the same shared tiles, with the weight in fp32;
 //   - ragged M, OUT and IN edges are masked on load and store.
-// Not done yet: wgmma, TMA, a ring of shared stages and a persistent grid.
+// At 2 bits a weight load is 8 bytes (32 codes), so that it never spans two
+// groups. Not done yet: wgmma, TMA, a ring of shared stages and a
+// persistent grid.
 //
 // The TPU kernels split the codes into nibble planes, expand scales from
 // groups to words with an iota-built matmul and pre-permute x to word-major
@@ -132,99 +155,128 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-cudaError_t allow_shared(const void* kernel, size_t bytes) {
+// Sets a kernel's dynamic shared-memory limit once per instantiation (the
+// first launch), never per launch: the attribute call costs host time on a
+// path that launches 129 GEMVs a decode step.
+template <typename K>
+cudaError_t allow_shared_once(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// ------------------------------------------------------------ decode GEMV
-constexpr int GEMV_WARPS = 8;
-constexpr int GEMV_THREADS = GEMV_WARPS * 32;
-constexpr int GEMV_ROWS = 4;                              // rows per warp
-constexpr int GEMV_BLOCK_OUT = GEMV_WARPS * GEMV_ROWS;    // rows per block
-constexpr int GEMV_TILE_IN = 4096;                        // x elements staged per tile
-
-template <typename T, int BITS>
-struct GemvLayout {
-  static constexpr int PER_WORD = 32 / BITS;
-  static constexpr int CHUNK = 4 * PER_WORD;              // codes behind one 16-byte load
-  static constexpr int CHUNK_STRIDE = CHUNK + 16 / (int)sizeof(T);  // + 16 bytes of padding
-  static constexpr int ROW_STRIDE = GEMV_TILE_IN / CHUNK * CHUNK_STRIDE;
-};
-
-template <typename T, int BITS, int MT>
-size_t gemv_shared_bytes() {
-  return (size_t)MT * GemvLayout<T, BITS>::ROW_STRIDE * sizeof(T);
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T, int BITS, int MT>
-__global__ void __launch_bounds__(GEMV_THREADS) quant_gemv_kernel(Params p) {
-  using L = GemvLayout<T, BITS>;
+// ------------------------------------------------ decode GEMV, fp32 x (tests)
+// The first version's FMA kernel, kept for fp32 x only (no caller on the
+// main path): each warp owns 4 rows and walks IN with one load of words per
+// lane and row (16 bytes, or 8 at 2 bits so that a load never spans two
+// groups), x staged in shared memory in IN tiles of 4096.
+constexpr int FMA_WARPS = 8;
+constexpr int FMA_THREADS = FMA_WARPS * 32;
+constexpr int FMA_ROWS = 4;                            // rows per warp
+constexpr int FMA_BLOCK_OUT = FMA_WARPS * FMA_ROWS;    // rows per block
+constexpr int FMA_TILE_IN = 4096;                      // x elements staged per tile
+
+template <int BITS>
+struct FmaLayout {
+  static constexpr int PER_WORD = 32 / BITS;
+  static constexpr int LOAD_WORDS = BITS == 2 ? 2 : 4;
+  static constexpr int CHUNK = LOAD_WORDS * PER_WORD;  // codes behind one load
+  static constexpr int CHUNK_STRIDE = CHUNK + 4;       // + 16 bytes of padding
+  static constexpr int ROW_STRIDE = FMA_TILE_IN / CHUNK * CHUNK_STRIDE;
+};
+
+template <int BITS, int MT>
+constexpr size_t fma_shared_bytes() {
+  return (size_t)MT * FmaLayout<BITS>::ROW_STRIDE * sizeof(float);
+}
+
+template <int BITS, int MT>
+__global__ void __launch_bounds__(FMA_THREADS) quant_gemv_fma_kernel(Params p) {
+  using L = FmaLayout<BITS>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  const T* __restrict__ x = static_cast<const T*>(p.x);
+  float* xs = reinterpret_cast<float*>(smem);
+  const float* __restrict__ x = static_cast<const float*>(p.x);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * GEMV_BLOCK_OUT + warp * GEMV_ROWS;
+  const int row0 = blockIdx.x * FMA_BLOCK_OUT + warp * FMA_ROWS;
   const long long words_per_row = p.IN / L::PER_WORD;
   const long long groups = p.IN / p.group_size;
 
-  float acc[MT][GEMV_ROWS];
+  float acc[MT][FMA_ROWS];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) acc[m][r] = 0.f;
+    for (int r = 0; r < FMA_ROWS; ++r) acc[m][r] = 0.f;
 
-  uint4 w_next[GEMV_ROWS];
-  float s_next[GEMV_ROWS], b_next[GEMV_ROWS];
+  uint4 w_next[FMA_ROWS];
+  float s_next[FMA_ROWS], b_next[FMA_ROWS];
   auto fetch = [&](int kc) {  // the words, scale and bias of the chunk at IN index kc
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) {
+    for (int r = 0; r < FMA_ROWS; ++r) {
       const int row = row0 + r;
+      w_next[r] = make_uint4(0, 0, 0, 0);
+      s_next[r] = 0.f;
+      b_next[r] = 0.f;
       if (row < p.OUT) {
-        w_next[r] = __ldg(reinterpret_cast<const uint4*>(p.q + row * words_per_row + kc / L::PER_WORD));
+        const uint32_t* src = p.q + row * words_per_row + kc / L::PER_WORD;
+        if constexpr (L::LOAD_WORDS == 4) {
+          w_next[r] = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          const uint2 w2 = __ldg(reinterpret_cast<const uint2*>(src));
+          w_next[r] = make_uint4(w2.x, w2.y, 0, 0);
+        }
         s_next[r] = load_param(p.scales, p.param_code, row * groups + kc / p.group_size);
         b_next[r] = load_param(p.biases, p.param_code, row * groups + kc / p.group_size);
-      } else {
-        w_next[r] = make_uint4(0, 0, 0, 0);
-        s_next[r] = 0.f;
-        b_next[r] = 0.f;
       }
     }
   };
 
-  for (int k0 = 0; k0 < p.IN; k0 += GEMV_TILE_IN) {
-    const int kt = min(GEMV_TILE_IN, p.IN - k0);
+  for (int k0 = 0; k0 < p.IN; k0 += FMA_TILE_IN) {
+    const int kt = min(FMA_TILE_IN, p.IN - k0);
     // stage x[:, k0 : k0 + kt] in 16-byte vectors; rows past M are zeros
-    constexpr int VEC = 16 / sizeof(T);
-    const int vecs = kt / VEC;
-    for (int i = threadIdx.x; i < MT * vecs; i += GEMV_THREADS) {
-      const int m = i / vecs, e = (i % vecs) * VEC;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m < p.M) v = *reinterpret_cast<const uint4*>(x + (long long)m * p.IN + k0 + e);
-      *reinterpret_cast<uint4*>(xs + m * L::ROW_STRIDE + e / L::CHUNK * L::CHUNK_STRIDE +
-                                e % L::CHUNK) = v;
+    const int vecs = kt / 4;
+    for (int i = threadIdx.x; i < MT * vecs; i += FMA_THREADS) {
+      const int m = i / vecs, e = (i % vecs) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m < p.M) v = *reinterpret_cast<const float4*>(x + (long long)m * p.IN + k0 + e);
+      *reinterpret_cast<float4*>(xs + m * L::ROW_STRIDE + e / L::CHUNK * L::CHUNK_STRIDE +
+                                 e % L::CHUNK) = v;
     }
     __syncthreads();
     const int chunks = kt / L::CHUNK;
     if (lane < chunks) fetch(k0 + lane * L::CHUNK);
     for (int c = lane; c < chunks; c += 32) {
-      uint4 w[GEMV_ROWS];
-      float s[GEMV_ROWS], b[GEMV_ROWS];
+      uint4 w[FMA_ROWS];
+      float s[FMA_ROWS], b[FMA_ROWS];
 #pragma unroll
-      for (int r = 0; r < GEMV_ROWS; ++r) {
+      for (int r = 0; r < FMA_ROWS; ++r) {
         w[r] = w_next[r];
         s[r] = s_next[r];
         b[r] = b_next[r];
       }
       if (c + 32 < chunks) fetch(k0 + (c + 32) * L::CHUNK);  // in flight during the math below
-      const T* xc = xs + c * L::CHUNK_STRIDE;
+      const float* xc = xs + c * L::CHUNK_STRIDE;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < L::LOAD_WORDS; ++k) {
         float xv[MT][L::PER_WORD];
 #pragma unroll
         for (int m = 0; m < MT; ++m) load_f32(xc + m * L::ROW_STRIDE + k * L::PER_WORD, xv[m]);
 #pragma unroll
-        for (int r = 0; r < GEMV_ROWS; ++r) {
+        for (int r = 0; r < FMA_ROWS; ++r) {
           const uint32_t word = word_of(w[r], k);
 #pragma unroll
           for (int j = 0; j < L::PER_WORD; ++j) {
@@ -241,49 +293,402 @@ __global__ void __launch_bounds__(GEMV_THREADS) quant_gemv_kernel(Params p) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) {
+    for (int r = 0; r < FMA_ROWS; ++r) {
       float v = acc[m][r];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL_MASK, v, off);
       acc[m][r] = v;
     }
   if (lane == 0) {
-    T* out = static_cast<T*>(p.out);
+    float* out = static_cast<float*>(p.out);
 #pragma unroll
-    for (int r = 0; r < GEMV_ROWS; ++r) {
+    for (int r = 0; r < FMA_ROWS; ++r) {
       const int row = row0 + r;
       if (row >= p.OUT) continue;
 #pragma unroll
       for (int m = 0; m < MT; ++m)
-        if (m < p.M) out[(long long)m * p.OUT + row] = from_f32<T>(acc[m][r]);
+        if (m < p.M) out[(long long)m * p.OUT + row] = acc[m][r];
     }
   }
 }
 
-template <typename T, int BITS, int MT>
-cudaError_t launch_gemv(const Params& p, cudaStream_t stream) {
-  const size_t smem = gemv_shared_bytes<T, BITS, MT>();
-  cudaError_t err = allow_shared((const void*)quant_gemv_kernel<T, BITS, MT>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.OUT + GEMV_BLOCK_OUT - 1) / GEMV_BLOCK_OUT);
-  quant_gemv_kernel<T, BITS, MT><<<grid, GEMV_THREADS, smem, stream>>>(p);
+template <int BITS, int MT>
+cudaError_t launch_gemv_fma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = fma_shared_bytes<BITS, MT>();
+  static const cudaError_t attr = allow_shared_once(quant_gemv_fma_kernel<BITS, MT>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((p.OUT + FMA_BLOCK_OUT - 1) / FMA_BLOCK_OUT);
+  quant_gemv_fma_kernel<BITS, MT><<<grid, FMA_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int BITS>
-long long gemv_shared_bytes_for_m(int M) {
-  return (long long)(M <= 1   ? gemv_shared_bytes<T, BITS, 1>()
-                     : M <= 2 ? gemv_shared_bytes<T, BITS, 2>()
-                     : M <= 4 ? gemv_shared_bytes<T, BITS, 4>()
-                              : gemv_shared_bytes<T, BITS, 8>());
+// ------------------------------------------ decode GEMV, bf16 x (the path)
+// mma.sync m16n8k16 with the weights as A (16 OUT rows x 16 k) and x^T as B
+// (16 k x 8 columns, M padded to 8), accumulated in fp32. Lane (g, t) of a
+// warp (g = lane / 4, t = lane % 4) holds A's rows g and g + 8 at k slots
+// 2t, 2t+1, 2t+8, 2t+9 and B's column g at the same slots. The k order is
+// free if A and B agree, so a lane's slots are mapped onto codes it extracts
+// from one word of each row it holds, and its B values are read from x at
+// the same IN indices. Two mma k-steps take a "chunk" of 32 codes of a row,
+// which lies inside one group at any group size.
+constexpr int TC_WARPS_OUT = 2;  // warps along OUT, 16 rows each
+constexpr int TC_WARPS_K = 4;    // warps along a stage's IN range
+constexpr int TC_WARPS = TC_WARPS_OUT * TC_WARPS_K;
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int TC_ROWS = TC_WARPS_OUT * 16;  // OUT rows per block
+constexpr int TC_STAGES = 3;                // the cp.async ring
+constexpr int TC_WARP_BYTES = 128;          // weight bytes of a row one warp takes per stage
+constexpr int TC_ROW_BYTES = TC_WARP_BYTES * TC_WARPS_K;  // and the block
+constexpr int TC_CHUNK = 32;                // codes of a row per two mma steps
+constexpr uint32_t BF16_ONES = 0x3F803F80u;
+constexpr uint32_t BF16_128 = 0x43004300u;  // 128.0 in both halves
+
+template <int BITS>
+struct TcLayout {
+  static constexpr int TILE_K = TC_ROW_BYTES * 8 / BITS;   // codes of a row per stage
+  static constexpr int WARP_K = TC_WARP_BYTES * 8 / BITS;  // of them, one warp's
+  // padded rows: the words a warp reads at once fall in distinct banks
+  static constexpr int W_STRIDE = TC_ROW_BYTES + (BITS == 8 ? 32 : 16);
+  static constexpr int X_STRIDE = TILE_K * 2 + 64;
+  // bytes of one weight copy: 16, or 8 at 2 bits, whose rows and split
+  // boundaries are whole 16-byte words only when IN is a multiple of 64
+  static constexpr int PIECE = BITS == 2 ? 8 : 16;
+  // 2 and 4 bits: a code c enters the mma as 128 + c (exact in bf16); the
+  // offset is taken out with the bias. 8 bits: the code itself
+  static constexpr float OFFSET = BITS == 8 ? 0.f : 128.f;
+};
+
+// Byte offsets of one ring stage: the weights of TC_ROWS rows, x's MT rows,
+// then each row's scales and biases of the stage's groups, copied as the
+// 4-byte words that hold them (one word more for 2-byte types, whose first
+// entry may sit in the upper half of a word).
+template <int BITS, int MT>
+struct TcStage {
+  int pwords, x, s, b, bytes;
+  __host__ __device__ TcStage(int group_size, int param_size) {
+    using L = TcLayout<BITS>;
+    pwords = (L::TILE_K / group_size * param_size + 3) / 4 + (param_size < 4 ? 1 : 0);
+    x = TC_ROWS * L::W_STRIDE;
+    s = x + MT * L::X_STRIDE;
+    b = s + TC_ROWS * pwords * 4;
+    bytes = (b + TC_ROWS * pwords * 4 + 15) / 16 * 16;
+  }
+};
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <typename T, int BITS>
-cudaError_t gemv_for_m(const Params& p, cudaStream_t stream) {
-  if (p.M <= 1) return launch_gemv<T, BITS, 1>(p, stream);
-  if (p.M <= 2) return launch_gemv<T, BITS, 2>(p, stream);
-  if (p.M <= 4) return launch_gemv<T, BITS, 4>(p, stream);
-  return launch_gemv<T, BITS, 8>(p, stream);
+// Codes j and j + 4 (4 bits) or j and j + 8 (2 bits, shift = 2j) of a word
+// as the bf16 pair (128 + low, 128 + high): the mask puts each code in the
+// mantissa of 128.0, whose step is 1 (one lop3).
+__device__ __forceinline__ uint32_t pair4(uint32_t w, int j) {
+  return ((w >> (4 * j)) & 0x000F000Fu) | BF16_128;
+}
+__device__ __forceinline__ uint32_t pair2(uint32_t w, int shift) {
+  return ((w >> shift) & 0x00030003u) | BF16_128;
+}
+// Bytes 2j and 2j + 1 of a word as a bf16 pair: each byte into the mantissa
+// of 2^23 (one prmt), less 2^23, then both rounded to bf16, exactly (an
+// 8-bit code has 8 significant bits).
+__device__ __forceinline__ uint32_t pair8(uint32_t w, int j) {
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + 2 * j)) - 8388608.0f;
+  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541 + 2 * j)) - 8388608.0f;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float stage_param(const unsigned char* p, int code, int i) {
+  if (code == 0) return reinterpret_cast<const float*>(p)[i];
+  if (code == 1) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+  return __half2float(reinterpret_cast<const __half*>(p)[i]);
+}
+
+// One block owns TC_ROWS rows and the IN range [kb, kb + split) of
+// blockIdx.y. Warp (wo, wk) owns 16 of the rows and the wk-th WARP_K codes
+// of each stage; with TC_WARPS_K > 1 the warps' sums are added in wk order
+// at the end. With one split the block writes the output; with more, its
+// fp32 partial sums, which quant_gemv_reduce_kernel adds in split order.
+// Every thread's share of a stage's copies is fixed for the block and set
+// up once, and group sizes (32, 64, 128) enter as shifts: a runtime
+// division per copy costs more instruction slots than the math of the bytes it
+// moves.
+template <int BITS, int MT, int GS>
+__global__ void __launch_bounds__(TC_THREADS) quant_gemv_tc_kernel(Params p, int split,
+                                                                   float* part) {
+  using L = TcLayout<BITS>;
+  constexpr int CPG = GS / TC_CHUNK;            // chunks per group
+  constexpr int NCH = L::WARP_K / TC_CHUNK;     // chunks of a warp per stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int psize = p.param_code == 0 ? 4 : 2;
+  const TcStage<BITS, MT> S(GS, psize);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, t = lane % 4;
+  const int wo = warp % TC_WARPS_OUT, wk = warp / TC_WARPS_OUT;
+  const int row0 = blockIdx.x * TC_ROWS;
+  const int kb = blockIdx.y * split, ke = min(p.IN, kb + split);
+  const int ntiles = (ke - kb + L::TILE_K - 1) / L::TILE_K;
+  constexpr int gshift = GS == 32 ? 5 : GS == 64 ? 6 : 7;
+  const int groups = p.IN >> gshift;
+  const int epw_mask = psize == 2 ? 1 : 0;  // parameters per 4-byte word, less one
+
+  // weights: thread tid copies piece tid % PPR of rows tid / PPR + j ROWS_PER
+  constexpr int PPR = TC_ROW_BYTES / L::PIECE;  // pieces per row of a stage
+  constexpr int ROWS_PER = TC_THREADS / PPR;    // rows one pass of the block covers
+  constexpr int W_PASSES = TC_ROWS / ROWS_PER;
+  static_assert(TC_THREADS % PPR == 0 && TC_ROWS % ROWS_PER == 0, "whole passes");
+  const int wc = tid % PPR;
+  const char* w_src[W_PASSES];
+  bool w_live[W_PASSES];
+#pragma unroll
+  for (int j = 0; j < W_PASSES; ++j) {
+    const int row = row0 + tid / PPR + j * ROWS_PER;
+    w_live[j] = row < p.OUT;
+    w_src[j] = reinterpret_cast<const char*>(p.q) +
+               (long long)min(row, p.OUT - 1) * (p.IN / 8 * BITS) + wc * L::PIECE;
+  }
+  // scales (the first TC_ROWS of each 2 TC_ROWS threads) and biases (the
+  // second) of row tid % TC_ROWS, every TC_WARPS_K-th 4-byte word
+  constexpr int P_THREADS = 2 * TC_ROWS;
+  const bool is_scale = tid % P_THREADS < TC_ROWS;
+  const int prow = row0 + tid % TC_ROWS;
+  const bool p_live = prow < p.OUT;
+  const int p_first = min(prow, p.OUT - 1) * groups;  // the row's first entry
+  const char* p_src = static_cast<const char*>(is_scale ? p.scales : p.biases);
+  const int p_bytes = p.OUT * groups * psize;  // of the whole tensor
+  const int p_dst = (is_scale ? S.s : S.b) + (tid % TC_ROWS) * S.pwords * 4;
+  const int p_word0 = tid / P_THREADS;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+
+  // the copies of tile i (IN [kb + i TILE_K, ...)) into ring slot `slot`
+  auto load_tile = [&](int i, int slot) {
+    unsigned char* st = smem + slot * S.bytes;
+    const int k0 = kb + i * L::TILE_K;
+    const int klen = min(L::TILE_K, ke - k0);
+    const int rb = klen / 8 * BITS;  // weight bytes of the tile's row
+    const int off = k0 / 8 * BITS;
+    const bool piece_live = wc * L::PIECE < rb;
+#pragma unroll
+    for (int j = 0; j < W_PASSES; ++j) {
+      const bool live = w_live[j] && piece_live;
+      cp_async(st + (tid / PPR + j * ROWS_PER) * L::W_STRIDE + wc * L::PIECE,
+               w_src[j] + (live ? off : 0), L::PIECE, live ? L::PIECE : 0);
+    }
+    for (int v = tid; v * 8 < klen; v += TC_THREADS) {
+      for (int m = 0; m < p.M; ++m)
+        cp_async(st + S.x + m * L::X_STRIDE + v * 16, x + (long long)m * p.IN + k0 + v * 8, 16, 16);
+    }
+    const int e = p_first + (k0 >> gshift);      // the tile's first entry of the row
+    const int e_end = e + (klen >> gshift);
+    const int lead = e & ~epw_mask;              // the word that holds it
+    for (int c = p_word0; c < S.pwords; c += TC_WARPS_K) {
+      const int byte = (lead + c * (epw_mask + 1)) * psize;
+      const bool live = p_live && lead + c * (epw_mask + 1) < e_end;
+      cp_async(st + p_dst + c * 4, p_src + (live ? byte : 0), 4,
+               live ? min(4, p_bytes - byte) : 0);
+    }
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < ntiles) load_tile(i, i);
+    cp_async_commit();
+  }
+  const int r_lo = wo * 16 + gid, r_hi = r_lo + 8;  // this lane's rows in the block
+  const int e_lo = min(row0 + r_lo, p.OUT - 1) * groups;
+  const int e_hi = min(row0 + r_hi, p.OUT - 1) * groups;
+  const int kw = wk * L::WARP_K;                     // this warp's first code of a stage
+  const int g_w = kw >> gshift;                      // and its first group
+  const bool has_col = gid < p.M;                    // B column g is a row of x
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // tile it visible; every warp is done with the slot refilled below
+    if (it + TC_STAGES - 1 < ntiles) load_tile(it + TC_STAGES - 1, (it + TC_STAGES - 1) % TC_STAGES);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (it % TC_STAGES) * S.bytes;
+    const int k0 = kb + it * L::TILE_K;
+    const int chunks = max(0, min(L::WARP_K, ke - k0 - kw)) / TC_CHUNK;
+    const unsigned char* w_lo = st + r_lo * L::W_STRIDE + wk * TC_WARP_BYTES;
+    const unsigned char* w_hi = st + r_hi * L::W_STRIDE + wk * TC_WARP_BYTES;
+    const unsigned char* xr = st + S.x + gid * L::X_STRIDE + kw * 2;
+    // this lane's rows' parameters in the stage, at the tile's first group
+    const unsigned char* s_lo = st + S.s + r_lo * S.pwords * 4;
+    const unsigned char* s_hi = st + S.s + r_hi * S.pwords * 4;
+    const unsigned char* b_lo = st + S.b + r_lo * S.pwords * 4;
+    const unsigned char* b_hi = st + S.b + r_hi * S.pwords * 4;
+    const int lead_lo = ((e_lo + (k0 >> gshift)) & epw_mask) + g_w;
+    const int lead_hi = ((e_hi + (k0 >> gshift)) & epw_mask) + g_w;
+    float tmp[4], xsum[4];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (c >= chunks) break;  // the walk's last tile may be short
+      if (c % CPG == 0) {  // a new group: fresh fragments
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[e] = xsum[e] = 0.f;
+      }
+      uint32_t b[4] = {0u, 0u, 0u, 0u};  // B of the two steps; zero past M
+      if constexpr (BITS == 2) {
+        // the lane's codes 4h..4h+3 and 4h+8..4h+11 of word t / 2 (h = t % 2)
+        const uint32_t w_l = *reinterpret_cast<const uint32_t*>(w_lo + (2 * c + t / 2) * 4);
+        const uint32_t w_h = *reinterpret_cast<const uint32_t*>(w_hi + (2 * c + t / 2) * 4);
+        if (has_col) {
+          const int o = (c * TC_CHUNK + 16 * (t / 2) + 4 * (t % 2)) * 2;
+          const uint2 lo = *reinterpret_cast<const uint2*>(xr + o);
+          const uint2 hi = *reinterpret_cast<const uint2*>(xr + o + 16);
+          b[0] = __byte_perm(lo.x, hi.x, 0x5410);
+          b[1] = __byte_perm(lo.x, hi.x, 0x7632);
+          b[2] = __byte_perm(lo.y, hi.y, 0x5410);
+          b[3] = __byte_perm(lo.y, hi.y, 0x7632);
+        }
+        const int sb = 8 * (t % 2);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          mma_bf16(tmp, pair2(w_l, sb + 4 * s), pair2(w_h, sb + 4 * s), pair2(w_l, sb + 4 * s + 2),
+                   pair2(w_h, sb + 4 * s + 2), b[2 * s], b[2 * s + 1]);
+          mma_bf16(xsum, BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[2 * s], b[2 * s + 1]);
+        }
+      } else if constexpr (BITS == 4) {
+        // the lane's word 4c + t: codes 8t .. 8t+7 of the chunk
+        const uint32_t w_l = *reinterpret_cast<const uint32_t*>(w_lo + (4 * c + t) * 4);
+        const uint32_t w_h = *reinterpret_cast<const uint32_t*>(w_hi + (4 * c + t) * 4);
+        if (has_col) {
+          const uint4 v = *reinterpret_cast<const uint4*>(xr + (c * TC_CHUNK + 8 * t) * 2);
+          b[0] = __byte_perm(v.x, v.z, 0x5410);  // (x0, x4)
+          b[1] = __byte_perm(v.x, v.z, 0x7632);  // (x1, x5)
+          b[2] = __byte_perm(v.y, v.w, 0x5410);  // (x2, x6)
+          b[3] = __byte_perm(v.y, v.w, 0x7632);  // (x3, x7)
+        }
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          mma_bf16(tmp, pair4(w_l, 2 * s), pair4(w_h, 2 * s), pair4(w_l, 2 * s + 1),
+                   pair4(w_h, 2 * s + 1), b[2 * s], b[2 * s + 1]);
+          mma_bf16(xsum, BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[2 * s], b[2 * s + 1]);
+        }
+      } else {
+        // the lane's words 8c + 2t and 8c + 2t + 1: codes 8t .. 8t+7
+        const uint2 w_l = *reinterpret_cast<const uint2*>(w_lo + (8 * c + 2 * t) * 4);
+        const uint2 w_h = *reinterpret_cast<const uint2*>(w_hi + (8 * c + 2 * t) * 4);
+        if (has_col) {
+          const uint4 v = *reinterpret_cast<const uint4*>(xr + (c * TC_CHUNK + 8 * t) * 2);
+          b[0] = v.x;
+          b[1] = v.y;
+          b[2] = v.z;
+          b[3] = v.w;
+        }
+        mma_bf16(tmp, pair8(w_l.x, 0), pair8(w_h.x, 0), pair8(w_l.x, 1), pair8(w_h.x, 1), b[0], b[1]);
+        mma_bf16(xsum, BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[0], b[1]);
+        mma_bf16(tmp, pair8(w_l.y, 0), pair8(w_h.y, 0), pair8(w_l.y, 1), pair8(w_h.y, 1), b[2], b[3]);
+        mma_bf16(xsum, BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES, b[2], b[3]);
+      }
+      if ((c + 1) % CPG == 0) {
+        // the group is done: sum_k x_k (c_k s + b) = s sum_k x_k c_k + b sum_k x_k,
+        // with the mma's 128 + c taken out through the bias
+        const int g = c / CPG;
+        const float sl = stage_param(s_lo, p.param_code, lead_lo + g);
+        const float sh = stage_param(s_hi, p.param_code, lead_hi + g);
+        const float bl = fmaf(-L::OFFSET, sl, stage_param(b_lo, p.param_code, lead_lo + g));
+        const float bh = fmaf(-L::OFFSET, sh, stage_param(b_hi, p.param_code, lead_hi + g));
+        acc[0] = fmaf(bl, xsum[0], fmaf(sl, tmp[0], acc[0]));
+        acc[1] = fmaf(bl, xsum[1], fmaf(sl, tmp[1], acc[1]));
+        acc[2] = fmaf(bh, xsum[0], fmaf(sh, tmp[2], acc[2]));
+        acc[3] = fmaf(bh, xsum[1], fmaf(sh, tmp[3], acc[3]));
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (TC_WARPS_K > 1) {
+    // the k warps' sums of the same rows, added in wk order over the ring
+    __syncthreads();
+    float4* red = reinterpret_cast<float4*>(smem);
+    if (wk > 0) red[((wk - 1) * TC_WARPS_OUT + wo) * 32 + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    __syncthreads();
+    if (wk > 0) return;
+#pragma unroll
+    for (int j = 1; j < TC_WARPS_K; ++j) {
+      const float4 v = red[((j - 1) * TC_WARPS_OUT + wo) * 32 + lane];
+      acc[0] += v.x;
+      acc[1] += v.y;
+      acc[2] += v.z;
+      acc[3] += v.w;
+    }
+  }
+
+  // lane (g, t) holds rows g and g + 8 of its warp's 16, columns 2t and 2t + 1
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int m = 2 * t + (e & 1);
+    const int row = row0 + (e < 2 ? r_lo : r_hi);
+    if (m >= p.M || row >= p.OUT) continue;
+    if (gridDim.y == 1) {
+      static_cast<__nv_bfloat16*>(p.out)[(long long)m * p.OUT + row] = __float2bfloat16_rn(acc[e]);
+    } else {
+      part[((long long)blockIdx.y * p.M + m) * p.OUT + row] = acc[e];
+    }
+  }
+}
+
+// The splits' partial sums of each output, added in split order (so two
+// runs give the same bits) and rounded once to bf16.
+__global__ void __launch_bounds__(256) quant_gemv_reduce_kernel(const float* part, int splits,
+                                                                 int n, __nv_bfloat16* out) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += part[(long long)s * n + i];
+  out[i] = __float2bfloat16_rn(v);
+}
+
+template <int BITS, int MT>
+size_t tc_shared_bytes(int group_size, int param_size) {
+  return (size_t)TC_STAGES * TcStage<BITS, MT>(group_size, param_size).bytes;
+}
+
+// F(std::integral_constant<int, GS>) for the group size of the launch
+template <typename F>
+auto for_group(int group_size, const F& f) {
+  if (group_size == 32) return f(std::integral_constant<int, 32>{});
+  if (group_size == 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
+template <int BITS, int MT, int GS>
+cudaError_t launch_gemv_tc(const Params& p, int split, float* part, cudaStream_t stream) {
+  // the larger ring of the two scale widths
+  static const cudaError_t attr =
+      allow_shared_once(quant_gemv_tc_kernel<BITS, MT, GS>, tc_shared_bytes<BITS, MT>(GS, 4));
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = tc_shared_bytes<BITS, MT>(GS, p.param_code == 0 ? 4 : 2);
+  const int len = split > 0 ? split : p.IN;
+  const int splits = (p.IN + len - 1) / len;
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((p.OUT + TC_ROWS - 1) / TC_ROWS, splits);
+  quant_gemv_tc_kernel<BITS, MT, GS><<<grid, TC_THREADS, smem, stream>>>(p, len, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int n = p.M * p.OUT;
+  quant_gemv_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      part, splits, n, static_cast<__nv_bfloat16*>(p.out));
+  return cudaGetLastError();
+}
+
+// F(std::integral_constant<int, BITS>, std::integral_constant<int, MT>) for
+// the instantiation that serves (bits, M)
+template <typename F>
+auto for_bits_m(int bits, int M, const F& f) {
+  auto by_m = [&](auto b) {
+    if (M <= 1) return f(b, std::integral_constant<int, 1>{});
+    if (M <= 2) return f(b, std::integral_constant<int, 2>{});
+    if (M <= 4) return f(b, std::integral_constant<int, 4>{});
+    return f(b, std::integral_constant<int, 8>{});
+  };
+  if (bits == 2) return by_m(std::integral_constant<int, 2>{});
+  if (bits == 4) return by_m(std::integral_constant<int, 4>{});
+  return by_m(std::integral_constant<int, 8>{});
 }
 
 // ------------------------------------------------- prefill dequant-matmul
@@ -296,7 +701,11 @@ template <typename T, int BITS>
 struct MmLayout {
   static constexpr int LD = MM_BK + 16 / (int)sizeof(T);  // padded row of a shared tile
   static constexpr int PER_WORD = 32 / BITS;
-  static constexpr int CHUNK = 4 * PER_WORD;             // codes behind one 16-byte load
+  // words behind one weight load: 16 bytes, or 8 at 2 bits, so that a
+  // load's codes (32) never span two groups and the tile's 128 x 64 codes
+  // still give every thread one load
+  static constexpr int LOAD_WORDS = BITS == 2 ? 2 : 4;
+  static constexpr int CHUNK = LOAD_WORDS * PER_WORD;    // codes behind one load
   static constexpr int X_VEC = 16 / sizeof(T);
   static constexpr int X_LOADS = MM_BM * MM_BK / X_VEC / MM_THREADS;   // per thread
   static constexpr int W_LOADS = MM_BN * MM_BK / CHUNK / MM_THREADS;   // per thread
@@ -339,7 +748,13 @@ __global__ void __launch_bounds__(MM_THREADS) quant_matmul_kernel(Params p) {
       sr[i] = 0.f;
       br[i] = 0.f;
       if (row < p.OUT && k0 + kk < p.IN) {
-        wr[i] = __ldg(reinterpret_cast<const uint4*>(p.q + row * words_per_row + (k0 + kk) / L::PER_WORD));
+        const uint32_t* src = p.q + row * words_per_row + (k0 + kk) / L::PER_WORD;
+        if constexpr (L::LOAD_WORDS == 4) {
+          wr[i] = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          const uint2 w2 = __ldg(reinterpret_cast<const uint2*>(src));
+          wr[i] = make_uint4(w2.x, w2.y, 0, 0);
+        }
         sr[i] = load_param(p.scales, p.param_code, row * groups + (k0 + kk) / p.group_size);
         br[i] = load_param(p.biases, p.param_code, row * groups + (k0 + kk) / p.group_size);
       }
@@ -358,7 +773,7 @@ __global__ void __launch_bounds__(MM_THREADS) quant_matmul_kernel(Params p) {
       const int n = v / (MM_BK / L::CHUNK), kk = v % (MM_BK / L::CHUNK) * L::CHUNK;
       T* dst = ws + n * L::LD + kk;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < L::LOAD_WORDS; ++k) {
         const uint32_t word = word_of(wr[i], k);
 #pragma unroll
         for (int j = 0; j < L::PER_WORD; j += 2) {
@@ -461,9 +876,9 @@ __global__ void __launch_bounds__(MM_THREADS) quant_matmul_kernel(Params p) {
 
 template <typename T, int BITS>
 cudaError_t launch_matmul(const Params& p, cudaStream_t stream) {
-  const size_t smem = MmLayout<T, BITS>::SHARED_BYTES;
-  cudaError_t err = allow_shared((const void*)quant_matmul_kernel<T, BITS>, smem);
-  if (err != cudaSuccess) return err;
+  constexpr size_t smem = MmLayout<T, BITS>::SHARED_BYTES;
+  static const cudaError_t attr = allow_shared_once(quant_matmul_kernel<T, BITS>, smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((p.OUT + MM_BN - 1) / MM_BN, (p.M + MM_BM - 1) / MM_BM);
   quant_matmul_kernel<T, BITS><<<grid, MM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -490,30 +905,44 @@ Params make_params(const void* x, const void* q, const void* scales, const void*
 extern "C" {
 
 // x_code: 0 = float32, 1 = bfloat16; param_code: 0 = float32, 1 = bfloat16,
-// 2 = float16. The caller has checked shapes, alignment (16 bytes for x and
-// q, IN a multiple of group_size in {32, 64, 128}) and M <= 8. Returns the
-// cudaError_t of the launch (0 on success).
+// 2 = float16; bits 2, 4 or 8. The caller has checked shapes, alignment (16
+// bytes for x and q, 4 for scales and biases, IN a multiple of group_size in
+// {32, 64, 128}) and M <= 8. split: IN elements per block of the bf16
+// kernel's walk, a multiple of group_size, or 0 for the whole of IN; with
+// more than one split, part holds ceil(IN / split) * M * OUT floats. fp32 x
+// walks whole. Returns the cudaError_t of the launches (0 on success).
 int mst_quant_gemv(const void* x, const void* q, const void* scales, const void* biases, void* out,
                    int x_code, int param_code, int bits, int M, int IN, int OUT, int group_size,
-                   void* stream) {
+                   int split, void* part, void* stream) {
   const Params p = make_params(x, q, scales, biases, out, param_code, M, IN, OUT, group_size);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || M > 8) return (int)cudaErrorInvalidValue;
-  if (x_code == 0 && bits == 4) return (int)gemv_for_m<float, 4>(p, s);
-  if (x_code == 0 && bits == 8) return (int)gemv_for_m<float, 8>(p, s);
-  if (x_code == 1 && bits == 4) return (int)gemv_for_m<__nv_bfloat16, 4>(p, s);
-  if (x_code == 1 && bits == 8) return (int)gemv_for_m<__nv_bfloat16, 8>(p, s);
+  if (M < 1 || M > 8 || (bits != 2 && bits != 4 && bits != 8) || split < 0 ||
+      (split > 0 && split % group_size))
+    return (int)cudaErrorInvalidValue;
+  if (x_code == 0)
+    return (int)for_bits_m(bits, M, [&](auto b, auto m) {
+      return launch_gemv_fma<decltype(b)::value, decltype(m)::value>(p, s);
+    });
+  if (x_code == 1)
+    return (int)for_bits_m(bits, M, [&](auto b, auto m) {
+      return for_group(group_size, [&](auto g) {
+        return launch_gemv_tc<decltype(b)::value, decltype(m)::value, decltype(g)::value>(
+            p, split, static_cast<float*>(part), s);
+      });
+    });
   return (int)cudaErrorInvalidValue;
 }
 
-// The same contract for any M >= 1.
+// The same contract for any M >= 1, with no split.
 int mst_quant_matmul(const void* x, const void* q, const void* scales, const void* biases,
                      void* out, int x_code, int param_code, int bits, int M, int IN, int OUT,
                      int group_size, void* stream) {
   const Params p = make_params(x, q, scales, biases, out, param_code, M, IN, OUT, group_size);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_code == 0 && bits == 2) return (int)launch_matmul<float, 2>(p, s);
   if (x_code == 0 && bits == 4) return (int)launch_matmul<float, 4>(p, s);
   if (x_code == 0 && bits == 8) return (int)launch_matmul<float, 8>(p, s);
+  if (x_code == 1 && bits == 2) return (int)launch_matmul<__nv_bfloat16, 2>(p, s);
   if (x_code == 1 && bits == 4) return (int)launch_matmul<__nv_bfloat16, 4>(p, s);
   if (x_code == 1 && bits == 8) return (int)launch_matmul<__nv_bfloat16, 8>(p, s);
   return (int)cudaErrorInvalidValue;
@@ -521,16 +950,37 @@ int mst_quant_matmul(const void* x, const void* q, const void* scales, const voi
 
 const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Dynamic shared memory of one launch, so the caller can report it.
-long long mst_quant_shared_bytes(int kernel, int x_code, int bits, int M) {
-  if (kernel == 0) {  // gemv
-    if (x_code == 0) return bits == 4 ? gemv_shared_bytes_for_m<float, 4>(M)
-                                      : gemv_shared_bytes_for_m<float, 8>(M);
-    return bits == 4 ? gemv_shared_bytes_for_m<__nv_bfloat16, 4>(M)
-                     : gemv_shared_bytes_for_m<__nv_bfloat16, 8>(M);
-  }
-  if (x_code == 0) return bits == 4 ? MmLayout<float, 4>::SHARED_BYTES : MmLayout<float, 8>::SHARED_BYTES;
-  return bits == 4 ? MmLayout<__nv_bfloat16, 4>::SHARED_BYTES : MmLayout<__nv_bfloat16, 8>::SHARED_BYTES;
+// Dynamic shared memory of one bf16 matmul launch, so the caller can report it.
+long long mst_quant_matmul_shared_bytes(int bits) {
+  return bits == 2 ? MmLayout<__nv_bfloat16, 2>::SHARED_BYTES
+         : bits == 4 ? MmLayout<__nv_bfloat16, 4>::SHARED_BYTES
+                     : MmLayout<__nv_bfloat16, 8>::SHARED_BYTES;
+}
+
+// The bf16 GEMV instantiation that serves (bits, M) with these group size
+// and scale type: out = {shared bytes per block, registers per thread,
+// resident blocks per SM, local (spill) bytes per thread}, as the runtime
+// reports them on the current card.
+int mst_quant_gemv_info(int bits, int M, int group_size, int param_code, long long* out) {
+  return (int)for_bits_m(bits, M, [&](auto b, auto m) {
+    return for_group(group_size, [&](auto g) {
+    constexpr int B = decltype(b)::value, MT = decltype(m)::value, GS = decltype(g)::value;
+    const size_t smem = tc_shared_bytes<B, MT>(GS, param_code == 0 ? 4 : 2);
+    cudaError_t err = allow_shared_once(quant_gemv_tc_kernel<B, MT, GS>, tc_shared_bytes<B, MT>(GS, 4));
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, quant_gemv_tc_kernel<B, MT, GS>);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, quant_gemv_tc_kernel<B, MT, GS>,
+                                                        TC_THREADS, smem);
+    out[0] = (long long)smem;
+    out[1] = attr.numRegs;
+    out[2] = blocks;
+    out[3] = (long long)attr.localSizeBytes;
+    return err;
+    });
+  });
 }
 
 }  // extern "C"

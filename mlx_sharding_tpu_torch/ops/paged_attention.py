@@ -32,8 +32,6 @@ MAX_HEAD_DIM = 256
 #: positions of one slot's page walk per block on the card (a multiple of
 #: 64); 0 walks each (slot, KV head) in one block, with no merge pass
 SPLIT_POSITIONS = 256
-#: query heads per KV head that the kernel is built for
-GROUP_SIZES = (1, 2, 4, 8, 16)
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -204,9 +202,6 @@ def paged_attention(
             f"softcap={logit_softcap}, window={sliding_window}, values_from_k={values_from_k}); "
             "those options are not yet ported to the card"
         )
-    if hq // hkv not in GROUP_SIZES:
-        raise ValueError(f"the paged kernel takes {GROUP_SIZES} query heads per KV head, "
-                         f"got {hq // hkv}")
     if q.dtype not in _Q_CODES:
         raise ValueError(f"q must be one of {list(_Q_CODES)}, not {q.dtype}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:

@@ -1,5 +1,6 @@
-"""Products with packed 4- and 8-bit weights: the two CUDA kernels'
-wrappers, their plain version and their launch counters.
+"""Products with packed 2-, 4- and 8-bit weights: the two CUDA kernels'
+wrappers, their plain version, the plan of the GEMV's split IN walk and
+their launch counters.
 
 Port of the Pallas TPU kernels of ``mlx_sharding_tpu/ops/quant_matmul.py``:
 :func:`quant_gemv` replaces ``quant_gemv_pipelined`` (the decode product,
@@ -9,7 +10,10 @@ M <= ``GEMV_MAX_M``) and :func:`quant_matmul` replaces
 what its design does about that; the library is built with ``nvcc`` on first
 use (``cuda_library.py``). The JAX package's block pickers and TPU autotune
 size Mosaic VMEM blocks and are not carried over: the CUDA kernels choose
-their own launch geometry.
+their own launch geometry, and :func:`plan_gemv` splits the GEMV's walk over
+IN across blocks when its row blocks alone leave SMs idle (a second kernel
+adds the splits' fp32 partial sums in a fixed order; both launches are one
+call and one count).
 
 Both compute ``x @ dequant(q, scales, biases).T`` with fp32 accumulation,
 rounded once to x's dtype. On a CUDA tensor each wrapper launches its kernel
@@ -20,6 +24,8 @@ plain version. There is no other route and no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -29,24 +35,38 @@ from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 #: the product goes to the GEMV, above it to the tiled matmul
 GEMV_MAX_M = 8
 GROUP_SIZES = (32, 64, 128)
-BITS = (4, 8)
+BITS = (2, 4, 8)
+#: OUT rows of one block of the bf16 GEMV (``TC_ROWS`` in the source)
+GEMV_ROWS = 32
+#: IN elements per block of the bf16 GEMV's walk: None lets :func:`plan_gemv`
+#: choose from the shapes and the card's SM count; 0 walks all of IN in one
+#: block per row block, with no reduce pass; a multiple of the group size
+#: forces splits of that many. The checks set it.
+SPLIT_IN: Optional[int] = None
+#: the planner's splits are multiples of this (of every group size) and at
+#: least MIN_SPLIT long
+SPLIT_ALIGN = 128
+MIN_SPLIT = 4096
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PARAM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for name in ("mst_quant_gemv", "mst_quant_matmul"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, q, s, b
-            ctypes.c_void_p,  # out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # x code, scale/bias code, bits
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, IN, OUT, group size
-            ctypes.c_void_p,  # stream
-        ]
-    lib.mst_quant_shared_bytes.restype = ctypes.c_longlong
-    lib.mst_quant_shared_bytes.argtypes = [ctypes.c_int] * 4
+    common = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, q, s, b
+        ctypes.c_void_p,  # out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # x code, scale/bias code, bits
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # M, IN, OUT, group size
+    ]
+    lib.mst_quant_gemv.restype = ctypes.c_int
+    lib.mst_quant_gemv.argtypes = [*common, ctypes.c_int, ctypes.c_void_p,  # split, partials
+                                   ctypes.c_void_p]  # stream
+    lib.mst_quant_matmul.restype = ctypes.c_int
+    lib.mst_quant_matmul.argtypes = [*common, ctypes.c_void_p]
+    lib.mst_quant_matmul_shared_bytes.restype = ctypes.c_longlong
+    lib.mst_quant_matmul_shared_bytes.argtypes = [ctypes.c_int]
+    lib.mst_quant_gemv_info.restype = ctypes.c_int
+    lib.mst_quant_gemv_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
 
 
 _LIBRARY = CudaLibrary("quant_matmul.cu", _bind)
@@ -59,11 +79,48 @@ def build() -> str:
     return _LIBRARY.build()
 
 
-def shared_memory_bytes(kernel: str, dtype: torch.dtype, bits: int, m: int) -> int:
-    """Dynamic shared memory one launch of ``kernel`` ("gemv" or "matmul")
-    asks for."""
-    code = {"gemv": 0, "matmul": 1}[kernel]
-    return int(_LIBRARY.get().mst_quant_shared_bytes(code, _X_CODES[dtype], bits, m))
+def matmul_shared_bytes(bits: int) -> int:
+    """Dynamic shared memory one bf16 launch of the matmul asks for."""
+    return int(_LIBRARY.get().mst_quant_matmul_shared_bytes(bits))
+
+
+def gemv_info(bits: int, m: int, group_size: int, param_dtype: torch.dtype) -> dict:
+    """The bf16 GEMV's shared bytes per block, registers per thread,
+    resident blocks per SM and local (spill) bytes per thread, as the CUDA
+    runtime reports them on the current card."""
+    out = (ctypes.c_longlong * 4)()
+    _LIBRARY.check(_LIBRARY.get().mst_quant_gemv_info(bits, m, group_size,
+                                                      _PARAM_CODES[param_dtype], out), "gemv_info")
+    return dict(shared_bytes=out[0], registers=out[1], blocks_per_sm=out[2], local_bytes=out[3])
+
+
+def plan_gemv(out_dim: int, in_dim: int, sms: int) -> int:
+    """IN elements per block of the bf16 GEMV's walk, 0 for the whole of
+    IN. The weight bytes are the same at every M <= 8, so M does not enter.
+    IN is split only when the row blocks leave half the SMs or more without
+    one: then into as many splits as give each SM about one block, each a
+    multiple of ``SPLIT_ALIGN`` and at least ``MIN_SPLIT`` long. On an
+    NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``'s split timing), a
+    split in two of a 2048-row walk over IN 8192 wins by 10-15%, of one over
+    IN 2048 loses by 15-25% (the second launch and the partials cost more
+    than the shorter walk saves); every Llama-3.1-8B shape walks whole."""
+    chunks = sms // -(-out_dim // GEMV_ROWS)
+    if chunks < 2:
+        return 0
+    split = -(-in_dim // chunks)
+    split = max(-(-split // SPLIT_ALIGN) * SPLIT_ALIGN, MIN_SPLIT)
+    return split if split < in_dim else 0
+
+
+def split_ranges(in_dim: int, split: int) -> list:
+    """The (first, end) IN ranges of the blocks along the walk."""
+    step = split or in_dim
+    return [(k, min(k + step, in_dim)) for k in range(0, in_dim, step)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def quant_matmul_reference(x, q, scales, biases, group_size: int = 64, bits: int = 4):
@@ -73,6 +130,30 @@ def quant_matmul_reference(x, q, scales, biases, group_size: int = 64, bits: int
 
     w = dequantize(q, scales, biases, group_size, bits, torch.float32)
     return (x.float() @ w.T).to(x.dtype)
+
+
+def quant_gemv_split_reference(x, q, scales, biases, group_size: int, bits: int, split: int):
+    """The bf16 GEMV's walk in plain PyTorch, in fp32, for the tests: each
+    range of :func:`split_ranges` as one block, whose per-group sums
+    ``s * sum(x * code) + b * sum(x)`` (the bias folded as the kernel folds
+    it) add into an fp32 partial; the partials are then added in split
+    order and rounded once to x's dtype."""
+    from mlx_sharding_tpu_torch.ops.quant import dequantize
+
+    out_dim = q.shape[0]
+    groups = x.shape[1] // group_size
+    ones = torch.ones_like(scales, dtype=torch.float32)
+    codes = dequantize(q, ones, torch.zeros_like(ones), group_size, bits, torch.float32)
+    xf = x.float().reshape(x.shape[0], groups, group_size)
+    cg = codes.reshape(out_dim, groups, group_size)
+    xc = torch.einsum("mgk,ogk->mog", xf, cg)  # sum(x * code) per group
+    xs = xf.sum(-1)  # sum(x) per group
+    s, b = scales.float(), biases.float()
+    total = torch.zeros((x.shape[0], out_dim), dtype=torch.float32, device=x.device)
+    for k0, k1 in split_ranges(x.shape[1], split):
+        g = slice(k0 // group_size, k1 // group_size)
+        total = total + (xc[:, :, g] * s[None, :, g] + xs[:, None, g] * b[None, :, g]).sum(-1)
+    return total.to(x.dtype)
 
 
 def _check(x, q, scales, biases, group_size: int, bits: int) -> None:
@@ -111,16 +192,29 @@ def _launch(name: str, x, q, scales, biases, group_size: int, bits: int):
             raise ValueError(f"{name}: {arg} must be contiguous")
     if x.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError(f"{name}: x and q must start on 16-byte boundaries")
+    if scales.data_ptr() % 4 or biases.data_ptr() % 4:
+        raise ValueError(f"{name}: scales and biases must start on 4-byte boundaries")
     m, in_dim = x.shape
     out_dim = q.shape[0]
     out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
+    args = [x.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(), out.data_ptr(),
+            _X_CODES[x.dtype], _PARAM_CODES[scales.dtype], bits, m, in_dim, out_dim, group_size]
+    if name == "quant_gemv":
+        split, part = 0, None
+        if x.dtype == torch.bfloat16:  # the fp32 kernel always walks whole
+            split = SPLIT_IN
+            if split is None:
+                split = plan_gemv(out_dim, in_dim, _sm_count(x.device.index or 0))
+            if split < 0 or split % group_size:
+                raise ValueError(f"SPLIT_IN must be None, 0 or a multiple of the group size "
+                                 f"{group_size}; got {split}")
+            splits = len(split_ranges(in_dim, split))
+            if splits > 1:  # the splits' partial sums, added by the reduce kernel
+                part = torch.empty((splits, m, out_dim), dtype=torch.float32, device=x.device)
+        args += [split, None if part is None else part.data_ptr()]
     lib = _LIBRARY.get()
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"mst_{name}")(
-            x.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(), out.data_ptr(),
-            _X_CODES[x.dtype], _PARAM_CODES[scales.dtype], bits, m, in_dim, out_dim,
-            group_size, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        err = getattr(lib, f"mst_{name}")(*args, torch.cuda.current_stream(x.device).cuda_stream)
     _LIBRARY.check(err, name)
     return out
 
@@ -128,8 +222,9 @@ def _launch(name: str, x, q, scales, biases, group_size: int, bits: int):
 def quant_gemv(x, q, scales, biases, group_size: int = 64, bits: int = 4):
     """Decode-shape ``x @ dequant(q, scales, biases).T`` for M <= 8: x
     (M, IN), q (OUT, IN*bits/32), scales and biases (OUT, IN/group_size).
-    CUDA tensors launch the kernel (counted in ``quant_gemv.launches``);
-    CPU tensors take :func:`quant_matmul_reference`."""
+    CUDA tensors launch the kernel, with its reduce pass when the bf16 walk
+    over IN is split (counted once in ``quant_gemv.launches``); CPU tensors
+    take :func:`quant_matmul_reference`."""
     _check(x, q, scales, biases, group_size, bits)
     if x.shape[0] > GEMV_MAX_M:
         raise ValueError(f"quant_gemv takes M <= {GEMV_MAX_M}, got {x.shape[0]}")

@@ -141,6 +141,12 @@ QUANT_CASES = [
     ("quant_gemv", 3, 200, 512, 32, 8, torch.bfloat16, torch.bfloat16),
     ("quant_gemv", 8, 77, 96, 32, 4, torch.float32, torch.float32),
     ("quant_gemv", 5, 130, 8320, 128, 4, torch.bfloat16, torch.float16),
+    ("quant_gemv", 2, 77, 8320, 64, 2, torch.bfloat16, torch.float16),
+    ("quant_gemv", 6, 130, 96, 32, 2, torch.bfloat16, torch.bfloat16),
+    ("quant_gemv", 7, 77, 96, 32, 8, torch.bfloat16, torch.float32),
+    ("quant_gemv", 4, 130, 512, 64, 2, torch.float32, torch.float16),
+    ("quant_matmul", 40, 130, 96, 32, 2, torch.bfloat16, torch.float16),
+    ("quant_matmul", 33, 77, 512, 128, 2, torch.float32, torch.float32),
     ("quant_matmul", 256, 6144, 4096, 64, 4, torch.bfloat16, torch.float16),
     ("quant_matmul", 100, 200, 96, 32, 4, torch.bfloat16, torch.float16),
     ("quant_matmul", 70, 130, 512, 128, 8, torch.float32, torch.float32),
@@ -171,6 +177,42 @@ def test_quant_kernels_match_plain_version(cuda, kernel, m, out_dim, in_dim, gs,
         assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
 
 
+@pytest.mark.parametrize("split", [0, 384], ids=["whole", "split"])
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_gemv_at_every_m_bits_group_and_walk(cuda, monkeypatch, m, bits, gs, split):
+    """The bf16 GEMV at M = 1..8, ragged OUT, IN 1152 walked whole or in
+    three splits of 384: bit-exact on integer-valued operands, the smoke
+    run's limits on random ones, one launch counted per call."""
+    monkeypatch.setattr(qm, "SPLIT_IN", split)
+    g = torch.Generator(device=cuda).manual_seed(m * bits + gs)
+    for integer in (True, False):
+        x, q, s, b = quant_operands(g, m, 130, 1152, integer=integer, group_size=gs, bits=bits)
+        before = qm.quant_gemv.launches
+        got = qm.quant_gemv(x, q, s, b, gs, bits)
+        torch.cuda.synchronize()
+        assert qm.quant_gemv.launches == before + 1
+        want = qm.quant_matmul_reference(x, q, s, b, gs, bits)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            _, worst, rel_l2 = kernel_disagreement(got, want)
+            assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@pytest.mark.parametrize("split", [None, 0, 512], ids=["planned", "whole", "512"])
+def test_gemv_gives_the_same_bits_twice(cuda, monkeypatch, split):
+    """Random bf16 at o_proj's shape, walked as planned, whole and in splits
+    of 512: the IN warps' sums and the splits' partials are added in a fixed
+    order, so repeated runs give identical bits."""
+    monkeypatch.setattr(qm, "SPLIT_IN", split)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, q, s, b = quant_operands(g, 8, 4096, 4096, integer=False)
+    first = qm.quant_gemv(x, q, s, b)
+    assert all(torch.equal(first, qm.quant_gemv(x, q, s, b)) for _ in range(3))
+
+
 def test_quant_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x, q, s, b = quant_operands(torch.Generator(device=cuda).manual_seed(0), 2, 64, 128,
                                 integer=False)
@@ -179,6 +221,12 @@ def test_quant_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         qm.quant_matmul(torch.empty(2 * 128 + 1, dtype=x.dtype, device=cuda)[1:].view(2, 128),
                         q, s, b)
+    qm.SPLIT_IN = 96  # not a multiple of the group size, 64
+    try:
+        with pytest.raises(ValueError, match="SPLIT_IN"):
+            qm.quant_gemv(x, q, s, b)
+    finally:
+        qm.SPLIT_IN = None
 
 
 def test_tiny_packed_llama_on_the_card_matches_its_cpu_run(cuda):
@@ -247,9 +295,29 @@ def test_paged_wrapper_never_takes_the_plain_branch_on_the_card(cuda):
         pa.paged_attention(q, k, v, tables, lens, 0.125, logit_softcap=30.0)
     with pytest.raises(ValueError, match="int32"):
         pa.paged_attention(q, k, v, tables.long(), lens, 0.125)
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        pa.paged_attention(torch.cat([q, q[:, :2]], 1), k, v, tables, lens, 0.125)
     assert pa.paged_attention.launches == before
+
+
+@pytest.mark.parametrize("split", [64, 0], ids=["split", "whole"])
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv", [(6, 2), (10, 2), (12, 2), (28, 4), (24, 1)],
+                         ids=["g3", "g5", "g6", "g7", "g24"])
+def test_paged_kernel_takes_any_group(cuda, monkeypatch, hq, hkv, pool_dtype, split):
+    """Groups the kernel is not built for run on the next size up with the
+    extra heads masked (3 -> 4, 5-7 -> 8), and G = 24 in chunks of 16 heads:
+    the smoke run's limits against the plain version, the walk split into
+    64-position blocks and whole."""
+    g = torch.Generator(device=cuda).manual_seed(hq + hkv)
+    q, k, v, ks, vs, tables, lens = paged_case(g, (1, 33, 300, 0, 128, 64), hq, hkv, 128, 16,
+                                               20, pool_dtype, torch.bfloat16)
+    monkeypatch.setattr(pa, "SPLIT_POSITIONS", split)
+    got = pa.paged_attention(q, k, v, tables, lens, 128**-0.5, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(q, k, v, tables, lens, 128**-0.5, k_scale=ks, v_scale=vs)
+    live = lens > 0
+    assert bool((got[~live] == 0).all())
+    _, worst, rel_l2 = kernel_disagreement(got[live], want[live])
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
 
 
 def test_tiny_batcher_on_the_card_matches_its_cpu_run(cuda):

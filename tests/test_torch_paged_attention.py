@@ -1,7 +1,7 @@
 """The port's ragged paged decode attention and paged-pool helpers against
 the JAX package's on the same numpy inputs: the plain version against the
 Pallas kernel (interpret mode) and the XLA path over uneven lengths,
-page-boundary lengths, an empty slot and MHA/GQA/MQA layouts, for f32,
+page-boundary lengths, an empty slot and MHA/GQA/MQA layouts (groups 1-7), for f32,
 bf16 and int8 pools; ``quantize_kv_rows`` bit for bit. In f32 the
 tolerance is 2e-5, as the JAX package's own parity matrix states; bf16
 outputs may differ by the rounding of the fp32 sums to bf16 (two ulps)."""
@@ -24,7 +24,10 @@ SPG = 4  # pages per slot: 32 positions
 LENGTHS = [5, PAGE, 2 * PAGE, 0, 27, SPG * PAGE]
 F32_TOL = 2e-5
 BF16_TOL = 2.0**-7
-HEADS = pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
+# MHA, GQA at G = 2, MQA, and the groups the card's kernel pads (3, 6 = the
+# Qwen2-1.5B group, 7 = the Qwen2-7B group)
+HEADS = pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1), (6, 2), (12, 2), (7, 1)],
+                                ids=["mha", "gqa", "mqa", "g3", "g6", "g7"])
 PATHS = pytest.mark.parametrize("interpret", [False, True], ids=["xla", "kernel"])
 
 

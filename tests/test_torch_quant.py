@@ -14,7 +14,7 @@ from mlx_sharding_tpu.ops.quant_matmul import quant_gemv_pipelined, quant_matmul
 from mlx_sharding_tpu_torch.ops import quant as tq
 from mlx_sharding_tpu_torch.ops import quant_matmul as tqm
 
-CONFIGS = [(bits, gs) for bits in (4, 8) for gs in (32, 64, 128)]
+CONFIGS = [(bits, gs) for bits in (2, 4, 8) for gs in (32, 64, 128)]
 
 
 def _words(q):
@@ -84,6 +84,12 @@ PALLAS_CASES = [
     ("gemv", 1, 64, 4),
     ("gemv", 8, 128, 4),
     ("gemv", 4, 32, 8),
+    # 2 bits: one 16-byte load of words holds two groups of 32
+    ("matmul", 16, 32, 2),
+    ("matmul", 12, 128, 2),
+    ("gemv", 1, 32, 2),
+    ("gemv", 8, 64, 2),
+    ("gemv", 3, 128, 2),
 ]
 
 

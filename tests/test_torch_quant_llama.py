@@ -1,5 +1,5 @@
-"""The keep-quantized path of the port against the JAX package on a tiny
-MLX-4bit checkpoint written here (projections, embedding and head packed,
+"""The keep-quantized path of the port against the JAX package on tiny
+MLX 4-bit (and 2-bit) checkpoints written here (projections, embedding and head packed,
 the recipe of tests/test_quant_matmul.py): both loaders in both modes, the
 Generators' greedy streams, fusion, carrying packed trees across, and the
 CLI and the server with ``--keep-quantized --device cpu``."""
@@ -29,11 +29,11 @@ PROMPT = [3, 17, 42, 9, 77]
 PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 
 
-def write_mlx_4bit(path, *, group_size=64, tie=False, tensors_from=None, config=None):
-    """An MLX-style 4-bit checkpoint: decoder projections and the vocab pair
-    as {weight (uint32), scales, biases (fp16)} triples, norms dense f32.
-    ``tensors_from`` quantizes an existing dense state dict instead of
-    drawing one (the entry-point fixture)."""
+def write_mlx_4bit(path, *, group_size=64, bits=4, tie=False, tensors_from=None, config=None):
+    """An MLX-style 4-bit checkpoint (or ``bits``): decoder projections and
+    the vocab pair as {weight (uint32), scales, biases (fp16)} triples,
+    norms dense f32. ``tensors_from`` quantizes an existing dense state dict
+    instead of drawing one (the entry-point fixture)."""
     from safetensors.numpy import save_file
 
     cfg = config or dict(
@@ -42,7 +42,7 @@ def write_mlx_4bit(path, *, group_size=64, tie=False, tensors_from=None, config=
         max_position_embeddings=256, rms_norm_eps=1e-5, rope_theta=10000.0,
     )
     cfg = {**cfg, "tie_word_embeddings": tie,
-           "quantization": {"group_size": group_size, "bits": 4}}
+           "quantization": {"group_size": group_size, "bits": bits}}
     rng = np.random.default_rng(7)
     h, inter, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
     d = h // cfg["num_attention_heads"]
@@ -58,7 +58,7 @@ def write_mlx_4bit(path, *, group_size=64, tie=False, tensors_from=None, config=
     def quant(name, out_d, in_d):
         w = (tensors_from[name] if tensors_from is not None
              else (rng.normal(size=(out_d, in_d)) * 0.05).astype(np.float32))
-        q, s, b = j_quantize(w, group_size=group_size, bits=4)
+        q, s, b = j_quantize(w, group_size=group_size, bits=bits)
         tensors[name] = q
         tensors[name.replace(".weight", ".scales")] = s
         tensors[name.replace(".weight", ".biases")] = b
@@ -89,6 +89,7 @@ def ckpts(tmp_path_factory):
         "untied": write_mlx_4bit(root / "untied"),
         "tied": write_mlx_4bit(root / "tied", tie=True),
         "gs32": write_mlx_4bit(root / "gs32", group_size=32),
+        "bits2": write_mlx_4bit(root / "bits2", group_size=32, bits=2),
     }
 
 
@@ -114,7 +115,7 @@ def _streams(jm, params, tm, prompt=PROMPT, n=10):
 
 
 @pytest.mark.parametrize("keep_quantized", [True, False], ids=["packed", "dequantized"])
-@pytest.mark.parametrize("variant", ["untied", "tied", "gs32"])
+@pytest.mark.parametrize("variant", ["untied", "tied", "gs32", "bits2"])
 def test_load_matches_jax(ckpts, variant, keep_quantized):
     """Both loaders, f32: prefill logits within 1e-4 at every position, and
     10 greedy tokens identical through both Generators (which fuse the
@@ -269,10 +270,10 @@ def test_params_from_numpy_carries_packed_trees(variant, fuse):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def packed_tokenizer_ckpt(tmp_path_factory):
+@pytest.fixture(scope="module", params=[4, 2], ids=["4bit", "2bit"])
+def packed_tokenizer_ckpt(tmp_path_factory, request):
     """tests/make_tiny_checkpoint.py's checkpoint and tokenizer, its weights
-    rewritten as an MLX-4bit checkpoint."""
+    rewritten as an MLX 4-bit (or 2-bit) checkpoint."""
     from safetensors.numpy import load_file
 
     from tests.make_tiny_checkpoint import make_tiny_checkpoint
@@ -285,7 +286,8 @@ def packed_tokenizer_ckpt(tmp_path_factory):
                                   "num_hidden_layers", "num_attention_heads",
                                   "num_key_value_heads", "rms_norm_eps", "rope_theta",
                                   "max_position_embeddings")}
-    return write_mlx_4bit(path, tensors_from=dense, config={**cfg, "model_type": "llama"})
+    return write_mlx_4bit(path, tensors_from=dense, bits=request.param,
+                          config={**cfg, "model_type": "llama"})
 
 
 def test_cli_keep_quantized_on_cpu(packed_tokenizer_ckpt, capsys):
