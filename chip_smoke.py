@@ -17,7 +17,10 @@ final line:
    bit on integer-valued operands and within limits on random bf16, at 2, 4
    and 8 bits, and the GEMV's walk over IN forced whole and split, and the
    ragged paged decode at the 8B shapes over uneven lengths, bf16 and int8
-   pools, and odd pages, groups (3, 7 and 24 among them) and dtypes;
+   pools, and odd pages, groups (3, 7 and 24 among them), Dk != Dv and
+   dtypes, each with the walk planned, in blocks of 64 positions and whole;
+   then two runs bit-identical, one row merging 22 partials, and one call
+   captured in a CUDA graph holding one kernel and no memset;
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
    kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
@@ -26,6 +29,8 @@ final line:
    achieved TFLOP/s, its share of the bound and the walk split several ways;
    the GEMV's walk over IN split in two against whole at the narrow
    projections of Llama-3.2-1B and Qwen2-1.5B, beside the planner's pick;
+   the paged decode at the points of ``PAGED_SWEEP`` (the mix's first
+   decode step, 8 x 4096, 32 x 1024, 1 x 4096), planned and whole walks;
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here; five requests (a 600-token completion
@@ -152,6 +157,15 @@ BATCH_MIX = ((40, 64), (200, 48), (255, 32), (256, 32), (257, 96), (600, 64), (9
 PAGED_LENGTHS = (0, 1, 255, 256, 257, 600, 1000, 4096)
 # its timing: the first decode step of the mix's first eight requests
 PAGED_TIMING_LENGTHS = tuple(n + 1 for n, _ in BATCH_MIX[:SLOTS])
+# the timing sweep, each point with a bf16 and an int8 pool: the mix above;
+# every slot at max_seq; the same bytes over 32 slots of 1024; one long
+# stream (8 (slot, KV head) rows for the whole card)
+PAGED_SWEEP = (
+    ("mix", PAGED_TIMING_LENGTHS),
+    ("long", (MAX_SEQ,) * SLOTS),
+    ("wide", (1024,) * 32),
+    ("one", (MAX_SEQ,)),
+)
 
 
 def log(msg: str) -> None:
@@ -338,8 +352,11 @@ def build_kernels() -> None:
         log(f"[kernels] quant_matmul shared memory per block at {bits} bits bf16: "
             f"{qm.matmul_shared_bytes(bits)} bytes")
     for pool_dtype in (torch.bfloat16, torch.int8):
-        log(f"[kernels] paged_attention shared memory per block at G=4 D=128 "
-            f"{str(pool_dtype)[6:]} pool: {pa.shared_memory_bytes(pool_dtype, 4, 128, 128)} bytes")
+        info = pa.kernel_info(pool_dtype, 128, 128)
+        log(f"[kernels] paged_attention bf16 q, {str(pool_dtype)[6:]} pool, D=128: shared memory "
+            f"per block {info['shared_bytes']} bytes, {info['registers']} registers, "
+            f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local (spill) "
+            f"bytes per thread")
 
 
 def phase_quant_kernels(seed: int) -> dict:
@@ -408,13 +425,14 @@ def phase_quant_kernels(seed: int) -> dict:
     return main_err
 
 
-def paged_case(gen, lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype):
+def paged_case(gen, lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype, dv=None):
     """One layer's page pool on the card, as the engine lays it out: each
     slot's live pages are distinct pool pages in shuffled order, every table
     entry past them names the scratch page (the last), and the scratch page
     holds large values, so that reading it as a live row shows. An int8 pool
-    is quantized with the port's ``quantize_kv_rows``. Returns (q, k pool, v
-    pool, k scales, v scales, tables, lengths); scales are None unless int8."""
+    is quantized with the port's ``quantize_kv_rows``. V's head dim is ``dv``
+    (``d`` if None). Returns (q, k pool, v pool, k scales, v scales, tables,
+    lengths); scales are None unless int8."""
     from mlx_sharding_tpu_torch.cache import quantize_kv_rows
 
     dev = "cuda"
@@ -427,9 +445,8 @@ def paged_case(gen, lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype):
     for i, n in enumerate(need):
         tables[i, :n] = order[start : start + n]
         start += n
-    shape = (pages + 1, page, hkv, d)
-    k = torch.randn(shape, generator=gen, device=dev)
-    v = torch.randn(shape, generator=gen, device=dev)
+    k = torch.randn((pages + 1, page, hkv, d), generator=gen, device=dev)
+    v = torch.randn((pages + 1, page, hkv, dv or d), generator=gen, device=dev)
     k[pages] = 30.0
     v[pages] = 30.0
     q = torch.randn((m, hq, d), generator=gen, device=dev).to(q_dtype)
@@ -443,17 +460,51 @@ def paged_case(gen, lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def graph_nodes(fn) -> dict:
+    """The CUDA work one call of ``fn`` enqueues, by node type: ``fn`` is
+    run once on a side stream (so that per-stream buffers exist), then
+    captured into a CUDA graph whose nodes are counted through the CUDA
+    runtime. Returns {"kernel": n, "memset": n, "memcpy": n, "other": n}."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    rt = ctypes.CDLL("libcudart.so." + torch.version.cuda.split(".")[0])
+    count = ctypes.c_size_t(0)
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    assert rt.cudaGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # cudaGraphNodeType
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds[names.get(kind.value, "other")] += 1
+    del graph
+    return kinds
+
+
 def phase_paged_kernels(seed: int) -> float:
     """The ragged paged decode against its plain version: at the 8B shapes
     (M 8, Hq 32, Hkv 8, D 128, page 256, 16 pages a slot) with bf16 and int8
-    pools, then at odd pages, groups and dtypes. An empty slot must give
-    zeros. Returns the largest error at the 8B shapes."""
+    pools, then at odd pages, groups, head dims and dtypes, each with the
+    walk as planned, in blocks of 64 positions and whole. An empty slot must
+    give zeros. Then, at the 8B shapes: two runs give the same bits, one
+    long slot merges 64 partials, and one call is one kernel launch (no
+    merge kernel, no memset). Returns the largest error at the 8B shapes."""
     from mlx_sharding_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # (lengths, hq, hkv, d, page, pages per slot, pool dtype, q dtype)
+        # (lengths, hq, hkv, d, page, pages per slot, pool dtype, q dtype[, dv])
         (PAGED_LENGTHS, 32, 8, 128, PAGE, MAX_SEQ // PAGE, bf16, bf16),
         (PAGED_LENGTHS, 32, 8, 128, PAGE, MAX_SEQ // PAGE, torch.int8, bf16),
         ((5, 8, 16, 0, 27, 32), 4, 4, 64, 8, 4, f32, f32),
@@ -462,34 +513,35 @@ def phase_paged_kernels(seed: int) -> float:
         ((64, 65, 300, 0), 4, 2, 256, 64, 5, bf16, bf16),
         ((33, 200, 1), 16, 1, 128, 32, 8, torch.int8, bf16),
         ((9, 24, 0, 40), 16, 2, 64, 8, 6, f32, f32),
-        # groups the kernel pads: G = 7 (Qwen2-7B's 28 / 4 heads) and G = 3,
-        # and G = 24 in chunks of 16 heads
+        # groups padded in the mma's 16 rows: G = 7 (Qwen2-7B's 28 / 4
+        # heads) and G = 3, and G = 24 in chunks of 16 heads
         ((1, 255, 256, 700, 0, 1500), 28, 4, 128, PAGE, 8, bf16, bf16),
         ((1, 255, 256, 700, 0, 1500), 28, 4, 128, PAGE, 8, torch.int8, bf16),
         ((3, 64, 65, 0), 6, 2, 128, 16, 6, bf16, bf16),
         ((1, 100, 257, 0), 24, 1, 128, 64, 6, bf16, bf16),
         ((1, 100, 257, 0), 24, 1, 128, 64, 6, torch.int8, bf16),
+        # Dk != Dv (DeepSeek MLA's full mode, 192 / 128)
+        ((1, 77, 300, 0, 513), 16, 16, 192, 64, 12, bf16, bf16, 128),
+        ((1, 77, 300, 0, 513), 16, 16, 192, 64, 12, torch.int8, bf16, 128),
+        # pages that are not a multiple of 8 (the FMA kernel's)
+        ((5, 12, 0, 30), 8, 2, 64, 12, 3, bf16, bf16),
     ]
     main_err = 0.0
-    default_split = pa.SPLIT_POSITIONS
-    for lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype in cases:
+    for lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype, *dv in cases:
+        dv = dv[0] if dv else d
         q, k, v, ks, vs, tables, lens = paged_case(gen, lengths, hq, hkv, d, page, spg,
-                                                    pool_dtype, q_dtype)
+                                                    pool_dtype, q_dtype, dv)
         scale = d ** -0.5
         ref = pa.paged_attention_reference(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
         live = lens > 0
-        # the walk split as the path runs it, in many short splits, and whole
-        for split in (default_split, 64, 0):
-            pa.SPLIT_POSITIONS = split
-            try:
-                got = pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
-                torch.cuda.synchronize()
-            finally:
-                pa.SPLIT_POSITIONS = default_split
+        # the walk as planned, in many short splits, and whole
+        for split in (None, 64, 0):
+            got = paged_call(pa, q, k, v, ks, vs, tables, lens, scale, split)
             empty_zero = bool((got[~live] == 0).all())
             err, worst, rel_l2 = kernel_disagreement(got[live], ref[live])
-            label = (f"M={len(lengths)} Hq={hq} Hkv={hkv} D={d} page={page} spg={spg} "
-                     f"{str(pool_dtype)[6:]} pool, {str(q_dtype)[6:]} q, split {split}, "
+            walk = "planned split" if split is None else f"split {split}"
+            label = (f"M={len(lengths)} Hq={hq} Hkv={hkv} Dk={d} Dv={dv} page={page} spg={spg} "
+                     f"{str(pool_dtype)[6:]} pool, {str(q_dtype)[6:]} q, {walk}, "
                      f"lengths {list(lengths)}")
             log(f"[kernels] paged_attention {label}: max_abs_err {err:.3e}, rms(ref) "
                 f"{ref[live].float().pow(2).mean().sqrt().item():.3e}, worst err/limit "
@@ -497,9 +549,53 @@ def phase_paged_kernels(seed: int) -> float:
                 f"zero {empty_zero}")
             check(worst <= 1 and rel_l2 <= REL_L2_TOL and empty_zero,
                   f"paged_attention {label} disagrees with its plain version")
-            if (hq, hkv, d, page) == (32, 8, 128, PAGE) and split == default_split:
+            if (hq, hkv, d, page) == (32, 8, 128, PAGE) and split is None:
                 main_err = max(main_err, err)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for pool_dtype in (bf16, torch.int8):
+        name = str(pool_dtype)[6:]
+        q, k, v, ks, vs, tables, lens = paged_case(gen, PAGED_LENGTHS, 32, 8, 128, PAGE,
+                                                    MAX_SEQ // PAGE, pool_dtype, bf16)
+        scale = 128 ** -0.5
+        for split in (None, 64):
+            runs = [paged_call(pa, q, k, v, ks, vs, tables, lens, scale, split) for _ in range(2)]
+            same = torch.equal(*runs)
+            log(f"[kernels] paged_attention 8B shapes, {name} pool, "
+                f"{'planned split' if split is None else f'split {split}'}: two runs "
+                f"bit-identical {same}")
+            check(same, f"paged_attention {name} pool: two runs differ")
+        # one long slot alone: the planner's walk gives each row many splits
+        q1, k1, v1, ks1, vs1, t1, l1 = paged_case(gen, (MAX_SEQ,), 32, 8, 128, PAGE,
+                                                  MAX_SEQ // PAGE, pool_dtype, bf16)
+        planned = pa.plan_paged_split(1, 8, PAGE, MAX_SEQ // PAGE, sms)
+        partials = pa.num_splits(PAGE, MAX_SEQ // PAGE, planned)
+        got = paged_call(pa, q1, k1, v1, ks1, vs1, t1, l1, scale, None)
+        ref = pa.paged_attention_reference(q1, k1, v1, t1, l1, scale, k_scale=ks1, v_scale=vs1)
+        err, worst, rel_l2 = kernel_disagreement(got, ref)
+        log(f"[kernels] paged_attention one slot of {MAX_SEQ}, {name} pool: {planned} positions "
+            f"a split, one row merges {partials} partials: max_abs_err {err:.3e}, worst "
+            f"err/limit {worst:.3f}, relative L2 {rel_l2:.3e}")
+        check(partials >= 16 and worst <= 1 and rel_l2 <= REL_L2_TOL,
+              f"paged_attention {name} pool: the many-split merge disagrees")
+        nodes = graph_nodes(lambda: pa.paged_attention(q, k, v, tables, lens, scale,
+                                                       k_scale=ks, v_scale=vs))
+        log(f"[kernels] paged_attention 8B shapes, {name} pool: one call enqueues {nodes}")
+        check(nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0},
+              f"paged_attention {name} pool: one call is not one kernel launch")
     return main_err
+
+
+def paged_call(pa, q, k, v, ks, vs, tables, lens, scale, split):
+    """One synchronised call with ``SPLIT_POSITIONS`` set to ``split``."""
+    default = pa.SPLIT_POSITIONS
+    pa.SPLIT_POSITIONS = split
+    try:
+        out = pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+    finally:
+        pa.SPLIT_POSITIONS = default
+    return out
 
 
 # ---------------------------------------------------------------- phases
@@ -663,49 +759,67 @@ def sdpa_paged_call(q, k, v, ks, vs, tables, lens, scale):
 
 
 def phase_paged_timing(seed: int) -> list:
-    """Device times of the ragged paged decode at the 8B shapes and the
-    mix's first decode step (eight slots, 256-token pages), bf16 and int8
-    pools, beside its bound, the plain version and the SDPA yardstick."""
+    """Device times of the ragged paged decode at Llama-3.1-8B's attention
+    (Hq 32, Hkv 8, D 128, page 256, 16 pages a slot) at each point of
+    ``PAGED_SWEEP``, with a bf16 and an int8 pool: the kernel with the
+    planner's walk, the same kernel walking each row whole, the plain
+    version and the SDPA yardstick, beside the bound, the rate and the share
+    of the bound. Returns one row per point and pool; the kernel record
+    takes means over the "mix" point's two pools."""
     from mlx_sharding_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scale = 128 ** -0.5
     rows = []
-    for pool_dtype in (torch.bfloat16, torch.int8):
-        q, k, v, ks, vs, tables, lens = paged_case(
-            gen, PAGED_TIMING_LENGTHS, 32, 8, 128, PAGE, MAX_SEQ // PAGE, pool_dtype,
-            torch.bfloat16)
-        scale = 128 ** -0.5
-        kern = time_ms(lambda: pa.paged_attention(q, k, v, tables, lens, scale,
-                                                  k_scale=ks, v_scale=vs))
-        # the same kernel walking each (slot, KV head) in one block
-        split, pa.SPLIT_POSITIONS = pa.SPLIT_POSITIONS, 0
-        try:
-            whole = time_ms(lambda: pa.paged_attention(q, k, v, tables, lens, scale,
-                                                       k_scale=ks, v_scale=vs))
-        finally:
-            pa.SPLIT_POSITIONS = split
-        plain = time_ms(lambda: pa.paged_attention_reference(q, k, v, tables, lens, scale,
-                                                             k_scale=ks, v_scale=vs))
-        lib_fn = sdpa_paged_call(q, k, v, ks, vs, tables, lens, scale)
-        _, worst, rel_l2 = kernel_disagreement(
-            lib_fn(), pa.paged_attention_reference(q, k, v, tables, lens, scale,
-                                                   k_scale=ks, v_scale=vs))
-        lib = time_ms(lib_fn) if worst <= 1 and rel_l2 <= REL_L2_TOL else None
-        if lib is None:
-            log(f"[timing] paged_attention: the SDPA yardstick disagrees with the plain version "
-                f"(err/limit {worst:.3f}, relative L2 {rel_l2:.3e}); library_ms null")
-        flops, nbytes = paged_work(q, k, v, ks, tables, lens)
-        ops_ms, bytes_ms = flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-        rows.append(dict(pool=str(pool_dtype)[6:], ms=kern, plain_ms=plain, library_ms=lib,
-                         bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms))
-        log(f"[timing] paged_attention M={SLOTS} Hq=32 Hkv=8 D=128 page={PAGE} "
-            f"{str(pool_dtype)[6:]} pool, lengths {list(PAGED_TIMING_LENGTHS)}: kernel "
-            f"{kern:.4f} ms (split {pa.SPLIT_POSITIONS}; one block per slot and KV head "
-            f"{whole:.4f} ms), plain {plain:.4f} ms, sdpa after a gather (gather not timed) "
-            f"{'null' if lib is None else f'{lib:.4f} ms'}, bound {max(ops_ms, bytes_ms):.4f} ms "
-            f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e6:.1f} MFLOP, "
-            f"{nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s")
-        del q, k, v, ks, vs
+    for point, lengths in PAGED_SWEEP:
+        for pool_dtype in (torch.bfloat16, torch.int8):
+            name = str(pool_dtype)[6:]
+            q, k, v, ks, vs, tables, lens = paged_case(
+                gen, lengths, 32, 8, 128, PAGE, MAX_SEQ // PAGE, pool_dtype, torch.bfloat16)
+
+            def call(q=q, k=k, v=v, ks=ks, vs=vs, tables=tables, lens=lens):
+                return pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+
+            kern = time_ms(call)
+            default, pa.SPLIT_POSITIONS = pa.SPLIT_POSITIONS, 0
+            try:
+                whole = time_ms(call)
+            finally:
+                pa.SPLIT_POSITIONS = default
+            ref = pa.paged_attention_reference(q, k, v, tables, lens, scale, k_scale=ks,
+                                               v_scale=vs)
+            plain = time_ms(lambda: pa.paged_attention_reference(
+                q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs))
+            lib_fn = sdpa_paged_call(q, k, v, ks, vs, tables, lens, scale)
+            _, worst, rel_l2 = kernel_disagreement(lib_fn(), ref)
+            lib = time_ms(lib_fn) if worst <= 1 and rel_l2 <= REL_L2_TOL else None
+            if lib is None:
+                log(f"[timing] paged_attention {point}: the SDPA yardstick disagrees with the "
+                    f"plain version (err/limit {worst:.3f}, relative L2 {rel_l2:.3e}); "
+                    f"library_ms null")
+            _, worst, rel_l2 = kernel_disagreement(call(), ref)
+            check(worst <= 1 and rel_l2 <= REL_L2_TOL,
+                  f"paged_attention {point} {name} pool disagrees with its plain version")
+            flops, nbytes = paged_work(q, k, v, ks, tables, lens)
+            ops_ms, bytes_ms = flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+            bound = max(ops_ms, bytes_ms)
+            split = pa.plan_paged_split(len(lengths), 8, PAGE, MAX_SEQ // PAGE, sms)
+            info = pa.kernel_info(pool_dtype, 128, 128)
+            rows.append(dict(point=point, pool=name, ms=kern, whole_ms=whole, plain_ms=plain,
+                             library_ms=lib, bound_ms=bound, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                             split=split))
+            log(f"[timing] paged_attention {point}: M={len(lengths)} Hq=32 Hkv=8 D=128 "
+                f"page={PAGE} {name} pool, lengths {list(lengths)[:8]}"
+                f"{'...' if len(lengths) > 8 else ''}: kernel {kern:.4f} ms (planned split "
+                f"{split}: {pa.num_splits(PAGE, MAX_SEQ // PAGE, split)} items along a full "
+                f"walk), whole walk {whole:.4f} ms, plain {plain:.4f} ms, sdpa after a gather "
+                f"(gather not timed) {'null' if lib is None else f'{lib:.4f} ms'}, bound "
+                f"{bound:.4f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}; "
+                f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s, "
+                f"{bound / kern:.1%} of the bound; {info['registers']} registers, "
+                f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks per SM")
+            del q, k, v, ks, vs
     return rows
 
 
@@ -1407,10 +1521,11 @@ def main(argv=None) -> int:
     for kernel in ("quant_gemv", "quant_matmul"):
         record["kernels"].append(
             quant_record(quant_rows, kernel, quant_launches[kernel], quant_err[kernel]))
-    # the paged decode: means over the bf16 and int8 pools, which phase 6
-    # serves the same mix on
-    pmean = lambda key: (None if any(r[key] is None for r in paged_rows)  # noqa: E731
-                         else sum(r[key] for r in paged_rows) / len(paged_rows))
+    # the paged decode: means over the bf16 and int8 pools at the mix's
+    # first decode step, which phase 6 serves
+    mix_rows = [r for r in paged_rows if r["point"] == "mix"]
+    pmean = lambda key: (None if any(r[key] is None for r in mix_rows)  # noqa: E731
+                         else sum(r[key] for r in mix_rows) / len(mix_rows))
     record["kernels"].append({
         "name": "paged_attention",
         "route": "cuda",

@@ -12,7 +12,8 @@ import threading
 import pytest
 import torch
 
-from chip_smoke import REL_L2_TOL, kernel_disagreement, pack_llama, paged_case, quant_operands
+from chip_smoke import (REL_L2_TOL, graph_nodes, kernel_disagreement, pack_llama, paged_case,
+                        quant_operands)
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import causal_attention
@@ -256,24 +257,33 @@ def test_tiny_packed_llama_on_the_card_matches_its_cpu_run(cuda):
 
 
 PAGED_CASES = [
-    # lengths, hq, hkv, d, page, pages per slot, pool dtype, q dtype
+    # lengths, hq, hkv, d, page, pages per slot, pool dtype, q dtype[, dv]
     ((0, 1, 255, 256, 257, 600, 1000, 4096), 32, 8, 128, 256, 16, torch.bfloat16,
      torch.bfloat16),
     ((0, 1, 255, 256, 257, 600, 1000, 4096), 32, 8, 128, 256, 16, torch.int8, torch.bfloat16),
     ((5, 8, 16, 0, 27, 32), 4, 4, 64, 8, 4, torch.float32, torch.float32),
     ((127, 128, 129, 500, 0, 3), 8, 1, 64, 128, 4, torch.int8, torch.float32),
     ((64, 65, 300, 0), 4, 2, 256, 64, 5, torch.bfloat16, torch.bfloat16),
+    # Dk != Dv (DeepSeek MLA's full mode), and a page that is not a multiple of 8
+    ((1, 77, 300, 0, 513), 16, 16, 192, 64, 12, torch.bfloat16, torch.bfloat16, 128),
+    ((1, 77, 300, 0, 513), 16, 16, 192, 64, 12, torch.int8, torch.bfloat16, 128),
+    ((5, 12, 0, 30), 8, 2, 64, 12, 3, torch.bfloat16, torch.bfloat16),
 ]
+WALKS = pytest.mark.parametrize("split", [None, 64, 0], ids=["planned", "split64", "whole"])
 
 
-@pytest.mark.parametrize("lengths,hq,hkv,d,page,spg,pool_dtype,q_dtype", PAGED_CASES)
-def test_paged_kernel_matches_plain_version(cuda, lengths, hq, hkv, d, page, spg, pool_dtype,
-                                            q_dtype):
-    """The smoke run's limits; an empty slot gives zeros; a length that
-    ends on a page edge never reads the scratch page (which holds 30s)."""
+@WALKS
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain_version(cuda, monkeypatch, case, split):
+    """The smoke run's limits under the planned walk, blocks of 64 positions
+    and the whole walk; an empty slot gives zeros; a length that ends on a
+    page edge never reads the scratch page (which holds 30s); one call is
+    one count."""
+    lengths, hq, hkv, d, page, spg, pool_dtype, q_dtype, *dv = case
     g = torch.Generator(device=cuda).manual_seed(page + hq)
     q, k, v, ks, vs, tables, lens = paged_case(g, lengths, hq, hkv, d, page, spg, pool_dtype,
-                                               q_dtype)
+                                               q_dtype, *dv)
+    monkeypatch.setattr(pa, "SPLIT_POSITIONS", split)
     before = pa.paged_attention.launches
     got = pa.paged_attention(q, k, v, tables, lens, d**-0.5, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
@@ -283,6 +293,106 @@ def test_paged_kernel_matches_plain_version(cuda, lengths, hq, hkv, d, page, spg
     assert bool((got[~live] == 0).all())
     _, worst, rel_l2 = kernel_disagreement(got[live], want[live])
     assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+def _paged_8b(cuda, pool_dtype, lengths=(0, 1, 255, 256, 257, 600, 1000, 4096), seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return paged_case(g, lengths, 32, 8, 128, 256, 16, pool_dtype, torch.bfloat16)
+
+
+POOLS = pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+
+
+@POOLS
+@pytest.mark.parametrize("split", [None, 64], ids=["planned", "split64"])
+def test_paged_kernel_gives_the_same_bits_twice(cuda, monkeypatch, pool_dtype, split):
+    """The split partials are merged in split order: two runs are equal."""
+    q, k, v, ks, vs, tables, lens = _paged_8b(cuda, pool_dtype)
+    monkeypatch.setattr(pa, "SPLIT_POSITIONS", split)
+    runs = [pa.paged_attention(q, k, v, tables, lens, 128**-0.5, k_scale=ks, v_scale=vs)
+            for _ in range(2)]
+    assert torch.equal(*runs)
+
+
+@POOLS
+def test_paged_kernel_merges_many_splits(cuda, pool_dtype):
+    """One slot of 4096 positions alone: the planner's walk gives each of its
+    8 rows 16 or more partials, merged within the smoke's limits."""
+    q, k, v, ks, vs, tables, lens = _paged_8b(cuda, pool_dtype, (4096,))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = pa.plan_paged_split(1, 8, 256, 16, sms)
+    assert pa.num_splits(256, 16, split) >= 16
+    got = pa.paged_attention(q, k, v, tables, lens, 128**-0.5, k_scale=ks, v_scale=vs)
+    want = pa.paged_attention_reference(q, k, v, tables, lens, 128**-0.5, k_scale=ks, v_scale=vs)
+    _, worst, rel_l2 = kernel_disagreement(got, want)
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@POOLS
+def test_paged_call_is_one_kernel_launch(cuda, pool_dtype):
+    """One call enqueues one kernel: no merge kernel, no memset, no copy."""
+    q, k, v, ks, vs, tables, lens = _paged_8b(cuda, pool_dtype)
+    nodes = graph_nodes(lambda: pa.paged_attention(q, k, v, tables, lens, 128**-0.5,
+                                                   k_scale=ks, v_scale=vs))
+    assert nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0}
+
+
+@POOLS
+def test_paged_kernel_on_two_streams_at_once(cuda, pool_dtype):
+    """Two calls in flight on two streams (each with its own ticket counters
+    and partials) both give the right answer."""
+    cases = [_paged_8b(cuda, pool_dtype, seed=s) for s in (1, 2)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    outs = []
+    torch.cuda.synchronize()
+    for stream, (q, k, v, ks, vs, tables, lens) in zip(streams, cases):
+        with torch.cuda.stream(stream):
+            outs.append([pa.paged_attention(q, k, v, tables, lens, 128**-0.5, k_scale=ks,
+                                            v_scale=vs) for _ in range(3)])
+    torch.cuda.synchronize()
+    for out, (q, k, v, ks, vs, tables, lens) in zip(outs, cases):
+        want = pa.paged_attention_reference(q, k, v, tables, lens, 128**-0.5, k_scale=ks,
+                                            v_scale=vs)
+        for got in out:
+            _, worst, rel_l2 = kernel_disagreement(got, want)
+            assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@POOLS
+def test_paged_kernel_replays_in_a_cuda_graph(cuda, pool_dtype):
+    """A captured call replays correctly after the lengths, the page tables
+    and the pool contents change in place: the grid and the split come from
+    the shapes, and the kernel reads the rest on the card."""
+    q, k, v, ks, vs, tables, lens = _paged_8b(cuda, pool_dtype, seed=3)
+    q2, k2, v2, ks2, vs2, tables2, _ = _paged_8b(cuda, pool_dtype, seed=4)
+    lens2 = torch.tensor([4096, 0, 1, 700, 256, 255, 2000, 3], dtype=torch.int32, device=cuda)
+    tables2 = tables2.flip(0).contiguous()  # other pages for every slot
+    scale = 128**-0.5
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the counters of the capture stream exist before it
+        pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+    assert torch.equal(out, eager)
+    for dst, src in ((q, q2), (k, k2), (v, v2), (tables, tables2), (lens, lens2)):
+        dst.copy_(src)
+    if ks is not None:
+        ks.copy_(ks2)
+        vs.copy_(vs2)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+    assert torch.equal(out, eager)
+    want = pa.paged_attention_reference(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs)
+    live = lens > 0
+    _, worst, rel_l2 = kernel_disagreement(out[live], want[live])
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL and bool((out[~live] == 0).all())
 
 
 def test_paged_wrapper_never_takes_the_plain_branch_on_the_card(cuda):

@@ -2,7 +2,9 @@
 the JAX package's on the same numpy inputs: the plain version against the
 Pallas kernel (interpret mode) and the XLA path over uneven lengths,
 page-boundary lengths, an empty slot and MHA/GQA/MQA layouts (groups 1-7), for f32,
-bf16 and int8 pools; ``quantize_kv_rows`` bit for bit. In f32 the
+bf16 and int8 pools; ``quantize_kv_rows`` bit for bit; the card kernel's
+split walk (``plan_paged_split``'s picks, and the walk and its merge in
+plain PyTorch) against the plain version and the Pallas kernel. In f32 the
 tolerance is 2e-5, as the JAX package's own parity matrix states; bf16
 outputs may differ by the rounding of the fp32 sums to bf16 (two ulps)."""
 
@@ -218,3 +220,147 @@ def test_pool_writes():
             if quantized:
                 w = cache.dequantize_kv(cache.quantize_kv_rows(w))
             assert torch.equal(g, w)
+
+
+# ------------------------------------------------ the split walk of the card's kernel
+SMS = 132  # the H100's SMs, for the planner
+
+
+@pytest.mark.parametrize("m,hq,hkv,page,spg,want", [
+    (8, 32, 8, 256, 16, 512),  # the smoke's mix, and every slot at max_seq
+    (32, 32, 8, 256, 16, 512),  # 32 slots of 1024
+    (1, 32, 8, 256, 16, 192),  # one long stream: 8 rows need 17 splits each
+    (8, 28, 4, 256, 8, 448),  # Qwen2-7B's G = 7 in one chunk of 16 heads
+    (4, 24, 1, 64, 6, 64),  # G = 24: two chunks of 16 heads per KV head
+    (6, 4, 2, 8, 4, 0),  # tiny pages: the whole reach is under one split
+    (3, 4, 1, 16, 20, 64),  # a short walk the planner still splits
+])
+def test_planner_picks_the_longest_walk_that_gives_every_sm_an_item(m, hq, hkv, page, spg, want):
+    """``plan_paged_split`` reads shapes only: the longest multiple of 64 up to
+    ``MAX_SPLIT`` whose full-length walk gives each SM an item (0 when the
+    reach fits one split), at the smoke's and the sweep's shapes, padded and
+    chunked groups and tiny pages."""
+    chunks = hkv * pa.head_chunks(hq, hkv)
+    split = pa.plan_paged_split(m, chunks, page, spg, SMS)
+    assert split == want
+    reach = page * spg
+    assert split % pa.SPLIT_ALIGN == 0 and split <= pa.MAX_SPLIT
+    if split:
+        assert split < reach
+        blocks = m * chunks * pa.num_splits(page, spg, split)
+        # every SM gets an item, unless the walk is already at its shortest
+        # or longest
+        assert blocks >= SMS or split in (pa.SPLIT_ALIGN, pa.MAX_SPLIT)
+        # one step longer would leave SMs without an item
+        longer = split + pa.SPLIT_ALIGN
+        assert longer > pa.MAX_SPLIT or m * chunks * pa.num_splits(page, spg, longer) < SMS
+
+
+def test_head_chunks_and_split_counts():
+    """Groups of up to 16 heads run in one chunk; the forced values of
+    ``SPLIT_POSITIONS`` (N positions a block, 0 the whole walk) give the
+    blocks along the walk the kernel launches."""
+    assert [pa.head_chunks(hq, hkv) for hq, hkv in ((32, 8), (28, 4), (16, 1), (24, 1), (64, 2))] == [
+        1, 1, 1, 2, 2]
+    assert pa.num_splits(256, 16, 0) == 1
+    assert pa.num_splits(256, 16, 64) == 64
+    assert pa.num_splits(256, 16, 512) == 8
+    assert pa.num_splits(16, 20, 192) == 2  # 320 positions: a short last split
+    assert pa.SPLIT_POSITIONS is None  # planned unless a check forces it
+
+
+SPLIT_PAGE = 16
+SPLIT_SPG = 12  # 192 positions a slot
+# empty, one position, page edges, split edges (64, 128) and the full reach
+SPLIT_LENGTHS = [0, 1, 16, 64, 65, 127, 128, 192]
+
+
+def _split_case(rng, hq, hkv, d):
+    m = len(SPLIT_LENGTHS)
+    n_pages = m * SPLIT_SPG
+    k = rng.standard_normal((n_pages + 1, SPLIT_PAGE, hkv, d), np.float32)
+    v = rng.standard_normal((n_pages + 1, SPLIT_PAGE, hkv, d), np.float32)
+    k[n_pages] = v[n_pages] = 30.0  # the scratch page shows if it is read
+    # each slot's pages in a shuffled order, the scratch page past its length
+    order = rng.permutation(n_pages)
+    tables = np.full((m, SPLIT_SPG), n_pages, np.int32)
+    for i, n in enumerate(SPLIT_LENGTHS):
+        used = -(-n // SPLIT_PAGE)
+        tables[i, :used] = order[i * SPLIT_SPG: i * SPLIT_SPG + used]
+    q = rng.standard_normal((m, hq, d), np.float32)
+    return q, k, v, tables, np.asarray(SPLIT_LENGTHS, np.int32)
+
+
+SPLIT_HEADS = pytest.mark.parametrize("hq,hkv", [(8, 2), (6, 2), (4, 4)], ids=["g4", "g3", "mha"])
+SPLITS = (0, 64, 128)
+
+
+@SPLIT_HEADS
+def test_split_walk_matches_plain_version_and_jax_kernel_f32(hq, hkv):
+    """The kernel's walk in plain PyTorch (blocks of 64 and 128 positions and
+    whole, merged in split order) equals the plain version within 1e-5 in f32
+    (the sums run in another order) and the JAX Pallas kernel in interpret
+    mode within 2e-5 (the JAX package's own tolerance); the empty slot is
+    zeros."""
+    q, k, v, tables, lengths = _split_case(np.random.default_rng(hq + hkv), hq, hkv, 32)
+    want_jax = _jax(q, k, v, tables, lengths, 0.2, interpret=True)
+    tq, tk, tv, tt, tl = (to_torch(x) for x in (q, k, v, tables, lengths))
+    ref = pa.paged_attention_reference(tq, tk, tv, tt, tl, 0.2)
+    for split in SPLITS:
+        got = pa.paged_attention_split_reference(tq, tk, tv, tt, tl, 0.2, split)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_jax, atol=F32_TOL, rtol=F32_TOL)
+        assert not got[SPLIT_LENGTHS.index(0)].any()
+
+
+@SPLIT_HEADS
+def test_split_walk_matches_plain_version_and_jax_kernel_int8_pool(hq, hkv):
+    """Int8 codes times their row scales: the split walk against the plain
+    version (1e-5) and the JAX Pallas kernel in interpret mode (2e-5)."""
+    q, k, v, tables, lengths = _split_case(np.random.default_rng(7 + hq), hq, hkv, 32)
+    kq, vq = (jcache.quantize_kv_rows(jnp.asarray(x)) for x in (k, v))
+    kd, ks, vd, vs = (np.asarray(x) for x in (kq["d"], kq["s"], vq["d"], vq["s"]))
+    want_jax = _jax(q, kd, vd, tables, lengths, 0.2, interpret=True, k_scale=ks, v_scale=vs)
+    tq, tk, tv, tt, tl, tks, tvs = (to_torch(x) for x in (q, kd, vd, tables, lengths, ks, vs))
+    ref = pa.paged_attention_reference(tq, tk, tv, tt, tl, 0.2, k_scale=tks, v_scale=tvs)
+    for split in SPLITS:
+        got = pa.paged_attention_split_reference(tq, tk, tv, tt, tl, 0.2, split, k_scale=tks,
+                                                 v_scale=tvs)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want_jax, atol=F32_TOL, rtol=F32_TOL)
+        assert not got[SPLIT_LENGTHS.index(0)].any()
+
+
+@SPLIT_HEADS
+def test_split_walk_matches_plain_version_and_jax_bf16_pool(hq, hkv):
+    """bf16 q and pools: probs are rounded to bf16 before P V in the split
+    walk and the plain version alike, but each split rounds its own probs
+    (relative to its own max), so the outputs agree with the plain version
+    and the JAX Pallas kernel in interpret mode to the bf16 tolerance of
+    this file (2^-7, about two ulps)."""
+    import ml_dtypes
+
+    q, k, v, tables, lengths = (x.astype(ml_dtypes.bfloat16) if x.dtype == np.float32 else x
+                                for x in _split_case(np.random.default_rng(11 + hq), hq, hkv, 32))
+    want_jax = _jax(q, k, v, tables, lengths, 0.2, interpret=True)
+    tq, tk, tv, tt, tl = (to_torch(x) for x in (q, k, v, tables, lengths))
+    ref = pa.paged_attention_reference(tq, tk, tv, tt, tl, 0.2).float().numpy()
+    for split in SPLITS:
+        got = pa.paged_attention_split_reference(tq, tk, tv, tt, tl, 0.2, split)
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, ref, atol=BF16_TOL, rtol=BF16_TOL)
+        np.testing.assert_allclose(got, want_jax, atol=BF16_TOL, rtol=BF16_TOL)
+        assert not got[SPLIT_LENGTHS.index(0)].any()
+
+
+def test_split_walk_clips_lengths_to_the_reach():
+    """A length past the table's reach reads no further than the reach, in
+    the split walk as in the plain version."""
+    q, k, v, tables, lengths = _split_case(np.random.default_rng(3), 4, 2, 32)
+    lengths = lengths.copy()
+    lengths[-1] = SPLIT_PAGE * SPLIT_SPG + 50
+    tq, tk, tv, tt, tl = (to_torch(x) for x in (q, k, v, tables, lengths))
+    ref = pa.paged_attention_reference(tq, tk, tv, tt, tl.clamp_max(SPLIT_PAGE * SPLIT_SPG), 0.2)
+    got = pa.paged_attention_split_reference(tq, tk, tv, tt, tl, 0.2, 64)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
