@@ -13,9 +13,11 @@ final line:
    the card at the main path's shapes (and a few more): flash attention
    (bf16 GQA groups 1-16, head dims 64-256, ragged T, offset 3840 with the
    walk as planned, in chunks of 512 keys and whole; f32), the two
-   packed-weight kernels at the five Llama-3.1-8B projection shapes, bit for
-   bit on integer-valued operands and within limits on random bf16, at 2, 4
-   and 8 bits, and the GEMV's walk over IN forced whole and split, and the
+   packed-weight kernels at the five Llama-3.1-8B projection shapes (the
+   GEMV at M = 1 and 8, the matmul at M = 88 and 256), bit for bit on
+   integer-valued operands and within limits on random bf16, at 2, 4 and 8
+   bits, group sizes 32-128 and ragged M, OUT and IN, both walks over IN
+   planned, whole and forced into splits (two runs bit-identical), and the
    ragged paged decode at the 8B shapes over uneven lengths, bf16 and int8
    pools, and odd pages, groups (3, 7 and 24 among them), Dk != Dv and
    dtypes, each with the walk planned, in blocks of 64 positions and whole;
@@ -27,6 +29,7 @@ final line:
    decode, SDPA over K/V gathered beforehand, the gather not timed); the
    flash kernel at chunk offsets 0, 256, 512, 1280 and 3840, with the
    achieved TFLOP/s, its share of the bound and the walk split several ways;
+   the matmul at M = 88 and 256 with its token tile and split;
    the GEMV's walk over IN split in two against whole at the narrow
    projections of Llama-3.2-1B and Qwen2-1.5B, beside the planner's pick;
    the paged decode at the points of ``PAGED_SWEEP`` (the mix's first
@@ -36,14 +39,16 @@ final line:
    byte-level tokenizer defined here; five requests (a 600-token completion
    with logprobs, a streamed chat, a seeded top-p sample twice, a streamed
    600-token completion for TTFT and decode tok/s), flash launches checked
-   against 32 x the prompt chunks, and the kernel path checked against the
-   plain attention path of the same model;
+   against 32 x the prompt chunks, the kernel path checked against the
+   plain attention path of the same model, and the median of five
+   device-synchronised ``Generator.run_prefill`` calls of the 600-token
+   prompt after a warm-up;
 5. main path, 4-bit (``--keep-quantized``): the same weights packed on the
    card in MLX's layout (group 64, 4 bits, fp16 scales and biases), fused,
    served by the same server for two 600-token requests, every kernel's
-   launches checked against what the requests imply, and the last
-   position's logits checked against a dense model holding the dequantized
-   weights.
+   launches checked against what the requests imply, the last position's
+   logits checked against a dense model holding the dequantized weights,
+   and the packed prefill's median timed as in phase 4.
 6. continuous batching (run between 4 and 5, on phase 4's dense model):
    ``--concurrent 8 --paged-pool 16`` with 256-token pages, once with a
    bf16 pool and once with an int8 pool. A seeded top-p request alone, then
@@ -69,6 +74,7 @@ import http.client
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -143,6 +149,8 @@ QUANT_SHAPES = (
 )
 LAYER_SHAPES = 4  # the first four run once per layer, the head once per step
 PREFILL_M = CHUNK
+# the last chunk of the main path's 600-token prompt
+TAIL_M = 600 - 2 * CHUNK
 # continuous batching (phase 6): slots, page size, and a pool small enough
 # that the nine requests below (25 pages in all) cannot all hold pages at once
 SLOTS = 8
@@ -349,8 +357,14 @@ def build_kernels() -> None:
                 f"scales: shared memory per block {info['shared_bytes']} bytes, "
                 f"{info['registers']} registers, {info['blocks_per_sm']} resident blocks per SM, "
                 f"{info['local_bytes']} local (spill) bytes per thread")
-        log(f"[kernels] quant_matmul shared memory per block at {bits} bits bf16: "
-            f"{qm.matmul_shared_bytes(bits)} bytes")
+        for m in (TAIL_M, PREFILL_M):
+            tile, _ = qm.plan_matmul(m, 4096, 4096, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)
+            info = qm.matmul_info(bits, tile)
+            log(f"[kernels] quant_matmul bf16 x, {bits} bits, M={m} (token tile {tile}): shared "
+                f"memory per block {info['shared_bytes']} bytes, {info['registers']} registers, "
+                f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local "
+                f"(spill) bytes per thread")
     for pool_dtype in (torch.bfloat16, torch.int8):
         info = pa.kernel_info(pool_dtype, 128, 128)
         log(f"[kernels] paged_attention bf16 q, {str(pool_dtype)[6:]} pool, D=128: shared memory "
@@ -361,23 +375,49 @@ def build_kernels() -> None:
 
 def phase_quant_kernels(seed: int) -> dict:
     """Both packed-weight kernels against the plain version: at the five
-    Llama-3.1-8B shapes (the GEMV at M = 1 and 8, the matmul at M = 256),
-    bit for bit on integer-valued operands and within limits on random bf16
-    with fp16 scales; then small cases for the other bits, group sizes,
-    dtypes and ragged edges. Returns the largest random-bf16 error at the
-    main path's shapes, per kernel."""
+    Llama-3.1-8B shapes (the GEMV at M = 1 and 8, the matmul at M = 88 and
+    256), bit for bit on integer-valued operands and within limits on random
+    bf16 with fp16 scales; the matmul at the four layer shapes again with
+    its walk over IN whole and in splits of 512; then small cases for the
+    other bits, group sizes, dtypes and ragged edges. Returns the largest
+    random-bf16 error at the main path's shapes, per kernel."""
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     main_err = {"quant_gemv": 0.0, "quant_matmul": 0.0}
     for name, out_dim, in_dim in QUANT_SHAPES:
         for integer in (True, False):
-            for kernel, m in (("quant_gemv", 1), ("quant_gemv", 8), ("quant_matmul", PREFILL_M)):
+            for kernel, m in (("quant_gemv", 1), ("quant_gemv", 8), ("quant_matmul", TAIL_M),
+                              ("quant_matmul", PREFILL_M)):
                 x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer)
                 err = check_quant(kernel, x, q, s, b, GROUP_SIZE, BITS, integer,
                                   f"{name} M={m} OUT={out_dim} IN={in_dim} bf16")
                 if not integer:
                     main_err[kernel] = max(main_err[kernel], err)
+            del x, q, s, b
+    # the matmul's walk over IN forced whole and into splits of 512 at the
+    # layer shapes; two runs of the planned and the forced walks must give
+    # the same bits
+    default_split = qm.SPLIT_K
+    for name, out_dim, in_dim in QUANT_SHAPES[:LAYER_SHAPES]:
+        for m in (TAIL_M, PREFILL_M):
+            for split in (0, 512):
+                qm.SPLIT_K = split
+                try:
+                    for integer in (True, False):
+                        x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer)
+                        check_quant("quant_matmul", x, q, s, b, GROUP_SIZE, BITS, integer,
+                                    f"{name} M={m} OUT={out_dim} IN={in_dim} bf16, split {split}")
+                finally:
+                    qm.SPLIT_K = default_split
+            for split in (None, 512):
+                qm.SPLIT_K = split
+                try:
+                    again = [qm.quant_matmul(x, q, s, b, GROUP_SIZE, BITS) for _ in range(2)]
+                    check(torch.equal(*again), f"quant_matmul {name} M={m} split {split}: two "
+                          "runs differ")
+                finally:
+                    qm.SPLIT_K = default_split
             del x, q, s, b
     small = [
         # kernel, M, OUT, IN, group size, bits, x dtype, scale/bias dtype
@@ -393,6 +433,16 @@ def phase_quant_kernels(seed: int) -> dict:
         ("quant_gemv", 4, 77, 96, 32, 2, torch.float32, torch.float32),
         ("quant_matmul", 100, 200, 512, 32, 2, torch.bfloat16, torch.float16),
         ("quant_matmul", 16, 96, 96, 32, 2, torch.float32, torch.float32),
+        # the bf16 matmul at every bits and group size, ragged M, OUT and IN:
+        # 2-bit rows of IN 160 are 40 bytes, so their words come by cp.async;
+        # M = 300 takes two token tiles
+        ("quant_matmul", 37, 77, 160, 32, 2, torch.bfloat16, torch.bfloat16),
+        ("quant_matmul", 300, 130, 1088, 64, 2, torch.bfloat16, torch.float16),
+        ("quant_matmul", 129, 260, 1152, 128, 2, torch.bfloat16, torch.float32),
+        ("quant_matmul", 65, 200, 1184, 32, 4, torch.bfloat16, torch.float32),
+        ("quant_matmul", 250, 386, 2176, 128, 4, torch.bfloat16, torch.bfloat16),
+        ("quant_matmul", 33, 130, 224, 32, 8, torch.bfloat16, torch.float16),
+        ("quant_matmul", 200, 77, 1152, 64, 8, torch.bfloat16, torch.float32),
     ]
     for kernel, m, out_dim, in_dim, gs, bits, xd, pd in small:
         for integer in (True, False):
@@ -401,27 +451,33 @@ def phase_quant_kernels(seed: int) -> dict:
             check_quant(kernel, x, q, s, b, gs, bits, integer,
                         f"M={m} OUT={out_dim} IN={in_dim} gs={gs} bits={bits} "
                         f"{str(xd)[6:]} x, {str(pd)[6:]} scales")
-    # the bf16 GEMV's walk over IN forced whole and into splits, at every
-    # bits and group size, and at the 8B o_proj and down_proj shapes; two
-    # runs of a split walk must give the same bits
-    default_split = qm.SPLIT_IN
-    forced = [(3, 130, 1152, gs, bits, split) for bits in qm.BITS for gs in qm.GROUP_SIZES
-              for split in (0, 384)]
-    forced += [(m, 4096, in_dim, GROUP_SIZE, BITS, split) for m in (1, 8)
+    # the bf16 GEMV's and matmul's walks over IN forced whole and into
+    # splits, at every bits and group size (the matmul's split of 96 ends
+    # inside a stage), and the GEMV at the 8B o_proj and down_proj shapes;
+    # two runs of a split walk must give the same bits
+    default_split, default_k = qm.SPLIT_IN, qm.SPLIT_K
+    forced = [("quant_gemv", 3, 130, 1152, gs, bits, split) for bits in qm.BITS
+              for gs in qm.GROUP_SIZES for split in (0, 384)]
+    forced += [("quant_matmul", 70, 130, 1152, gs, bits, split) for bits in qm.BITS
+               for gs in qm.GROUP_SIZES for split in (0, 384, 96 if gs == 32 else 128)]
+    forced += [("quant_gemv", m, 4096, in_dim, GROUP_SIZE, BITS, split) for m in (1, 8)
                for in_dim in (4096, 14336) for split in (0, 1024, 512)]
-    for m, out_dim, in_dim, gs, bits, split in forced:
-        qm.SPLIT_IN = split
+    for kernel, m, out_dim, in_dim, gs, bits, split in forced:
+        if kernel == "quant_gemv":
+            qm.SPLIT_IN = split
+        else:
+            qm.SPLIT_K = split
         try:
             for integer in (True, False):
                 x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer,
                                             group_size=gs, bits=bits)
-                check_quant("quant_gemv", x, q, s, b, gs, bits, integer,
+                check_quant(kernel, x, q, s, b, gs, bits, integer,
                             f"M={m} OUT={out_dim} IN={in_dim} gs={gs} bits={bits} bf16 x, "
                             f"split {split}")
-            again = [qm.quant_gemv(x, q, s, b, gs, bits) for _ in range(2)]
-            check(torch.equal(*again), f"quant_gemv split {split}: two runs differ")
+            again = [getattr(qm, kernel)(x, q, s, b, gs, bits) for _ in range(2)]
+            check(torch.equal(*again), f"{kernel} split {split}: two runs differ")
         finally:
-            qm.SPLIT_IN = default_split
+            qm.SPLIT_IN, qm.SPLIT_K = default_split, default_k
     return main_err
 
 
@@ -854,7 +910,7 @@ def quant_work(m, out_dim, in_dim, bits=BITS, group_size=GROUP_SIZE):
 
 def phase_quant_timing(seed: int) -> list:
     """Device times of both packed-weight kernels at the five Llama-3.1-8B
-    shapes (the GEMV at M = 1, 2, 4 and 8, the matmul at M = 256), beside their
+    shapes (the GEMV at M = 1, 2, 4 and 8, the matmul at M = 88 and 256), beside their
     bound, the plain version, F.linear on the dequantized bf16 weight (what
     the dequantize-on-load path spends) and torch._weight_int4pack_mm."""
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
@@ -866,7 +922,7 @@ def phase_quant_timing(seed: int) -> list:
         _, q, s, b = quant_operands(gen, 1, out_dim, in_dim, integer=False)
         dense = dequantize(q, s, b, GROUP_SIZE, BITS, torch.bfloat16)
         lib_weight, lib_why = int4pack_weight(q, s, b)
-        for m in (1, 2, 4, 8, PREFILL_M):
+        for m in (1, 2, 4, 8, TAIL_M, PREFILL_M):
             kernel = "quant_gemv" if m <= qm.GEMV_MAX_M else "quant_matmul"
             fn = getattr(qm, kernel)
             x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
@@ -895,16 +951,18 @@ def phase_quant_timing(seed: int) -> list:
                              dense_ms=dense_ms, library_ms=lib, bound_ms=max(ops_ms, bytes_ms),
                              ops_ms=ops_ms, bytes_ms=bytes_ms))
             lib_txt = f"{lib:.4f} ms" if lib is not None else f"null ({why})"
-            walk = ""
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
             if kernel == "quant_gemv":
-                split = qm.plan_gemv(out_dim, in_dim, torch.cuda.get_device_properties(0)
-                                     .multi_processor_count)
-                walk = f" (IN split {split or 'whole'})"
+                walk = f" (IN split {qm.plan_gemv(out_dim, in_dim, sms) or 'whole'})"
+            else:
+                tile, split = qm.plan_matmul(m, out_dim, in_dim, sms)
+                walk = f" (token tile {tile}, IN split {split or 'whole'})"
             log(f"[timing] {kernel} {name} M={m} OUT={out_dim} IN={in_dim} bf16, fp16 scales: "
                 f"kernel {kern:.4f} ms{walk}, plain {plain:.4f} ms, dense F.linear "
                 f"{dense_ms:.4f} ms, int4pack_mm {lib_txt}, bound {max(ops_ms, bytes_ms):.4f} ms "
                 f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB), {nbytes / 1e6 / kern:.0f} GB/s, "
+                f"{flops / kern / 1e9:.0f} TFLOP/s, "
                 f"{max(ops_ms, bytes_ms) / kern:.1%} of the bound")
         del q, s, b, dense, lib_weight
     return rows
@@ -960,23 +1018,28 @@ def quant_record(rows, kernel, launches, max_err):
     the main path weighs them. The GEMV: a decode step's 129 launches at
     M = 1 (32 of each layer shape and the head), and beside them the same
     mean at M = 8 (``ms_m8``, ``library_ms_m8``); the matmul: a prefill
-    chunk's four layer shapes at M = 256, equally."""
+    chunk's four layer shapes at M = 256, equally, and beside them the same
+    mean at the 600-token prompt's last chunk, M = 88 (``ms_m88``,
+    ``dense_ms_m88``)."""
 
-    def mean(key, m=1):
+    def mean(key, m):
         if kernel == "quant_gemv":
             sel = [r for r in rows if r["kernel"] == kernel and r["m"] == m]
             weights = [1 if r["name"] == "lm_head" else 32 for r in sel]
         else:
-            sel = [r for r in rows if r["kernel"] == kernel and r["name"] != "lm_head"]
+            sel = [r for r in rows if r["kernel"] == kernel and r["m"] == m
+                   and r["name"] != "lm_head"]
             weights = [1] * len(sel)
         vals = [r[key] for r in sel]
         if any(v is None for v in vals):
             return None
         return sum(w * v for w, v in zip(weights, vals)) / sum(weights)
 
-    extra = {}
     if kernel == "quant_gemv":
-        extra = {"ms_m8": mean("ms", 8), "library_ms_m8": mean("library_ms", 8)}
+        m, extra = 1, {"ms_m8": mean("ms", 8), "library_ms_m8": mean("library_ms", 8)}
+    else:
+        m = PREFILL_M
+        extra = {"ms_m88": mean("ms", TAIL_M), "dense_ms_m88": mean("dense_ms", TAIL_M)}
     return {
         "name": kernel,
         "route": "cuda",
@@ -985,12 +1048,12 @@ def quant_record(rows, kernel, launches, max_err):
                      else "mlx_sharding_tpu/ops/quant_matmul.py:163"),
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": mean("ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": "operations" if mean("ops_ms") >= mean("bytes_ms") else "bytes",
-        "library_ms": mean("library_ms"),
-        "dense_ms": mean("dense_ms"),
+        "ms": mean("ms", m),
+        "plain_ms": mean("plain_ms", m),
+        "bound_ms": mean("bound_ms", m),
+        "bound_by": "operations" if mean("ops_ms", m) >= mean("bytes_ms", m) else "bytes",
+        "library_ms": mean("library_ms", m),
+        "dense_ms": mean("dense_ms", m),
         **extra,
     }
 
@@ -1161,9 +1224,34 @@ def phase_main_path(seed: int):
     log(f"[main] last-position logits, kernel path vs plain path over 32 layers: relative L2 "
         f"error {rel:.3e} (tol {LOGITS_RTOL}), same argmax {same_top}")
     check(rel <= LOGITS_RTOL, "kernel path disagrees with the plain path")
+    stats["prefill_ms"], runs = prefill_median_ms(model, prompt)
+    log(f"[main] Generator.run_prefill of the 600-token prompt, dense: median "
+        f"{stats['prefill_ms']:.2f} ms of {len(runs)} device-synchronised runs after a warm-up "
+        f"({' / '.join(f'{t:.2f}' for t in runs)})")
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main] torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB")
     return launches, stats, model
+
+
+def prefill_median_ms(model, prompt, runs=5):
+    """Median wall time, in ms, of ``Generator.run_prefill`` over the prompt
+    (device-synchronised before and after each call, a fresh cache made
+    outside the timed span), after one warm-up call; and the runs. Prefill
+    alone, without the server and the client: it moves less than one TTFT."""
+    from mlx_sharding_tpu_torch.generate import Generator
+
+    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    times = []
+    for i in range(runs + 1):
+        cache = model.make_cache(1, gen.max_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.run_prefill(prompt, cache)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        del cache
+    return statistics.median(times), times
 
 
 def mix_prompt(i: int, n: int) -> str:
@@ -1461,6 +1549,10 @@ def phase_main_path_4bit(dense, seed: int):
     for name, want_n in expected.items():
         log(f"[main-4bit] {name} launches {launches[name]}, expected {want_n}")
         check(launches[name] == want_n, f"{name} launch count disagrees with the requests")
+    stats["prefill_ms"], runs = prefill_median_ms(packed, prompt)
+    log(f"[main-4bit] Generator.run_prefill of the 600-token prompt, packed: median "
+        f"{stats['prefill_ms']:.2f} ms of {len(runs)} device-synchronised runs after a warm-up "
+        f"({' / '.join(f'{t:.2f}' for t in runs)})")
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main-4bit] torch.cuda.max_memory_allocated while serving packed "
         f"{stats['max_memory_allocated_gb']:.2f} GB")

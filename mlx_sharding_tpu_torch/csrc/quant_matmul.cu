@@ -52,25 +52,52 @@
 // fp32 x (tests only) takes quant_gemv_fma_kernel, the first version's FMA
 // walk.
 //
-// quant_matmul_kernel replaces the Pallas TPU kernel
+// quant_matmul_wgmma_kernel replaces the Pallas TPU kernel
 // mlx_sharding_tpu/ops/quant_matmul.py::quant_matmul_pallas (_kernel), the
-// product for M > 8 (prefill chunks). What bounds it on an H100: tensor-core
-// operations (at M = 256 and bf16 it does ~455 operations per byte it must
-// move). What the design does:
-//   - one block of 8 warps owns a 64 x 128 (M x OUT) output tile and loops
-//     over IN 64 at a time; the next tile's x and packed words are loaded
-//     into registers while the tensor cores work on this tile;
-//   - the weight tile is dequantized once into shared memory as bf16 (the
-//     same rounding as the dequantize-on-load path, which stores
-//     dequantize(..., bf16)); x is copied as it is; rows are padded by 16
-//     bytes so WMMA fragment loads do not conflict on banks;
-//   - products on the tensor cores through WMMA (mma.sync, bf16 in, fp32
-//     accumulate), each warp a 32 x 32 tile; fp32 inputs (tests only) take
-//     an FMA loop over the same shared tiles, with the weight in fp32;
-//   - ragged M, OUT and IN edges are masked on load and store.
-// At 2 bits a weight load is 8 bytes (32 codes), so that it never spans two
-// groups. Not done yet: wgmma, TMA, a ring of shared stages and a
-// persistent grid.
+// product for M > 8 (prefill chunks) with bf16 x. What bounds it on an
+// H100: tensor-core operations at M = 256 (2 M operations per weight
+// against 0.5625 bytes of it, ~900 per byte); at the 600-token prompt's
+// M = 88 tail both, since the ridge of 295 operations per byte sits at ~83
+// tokens for 0.5625 bytes per weight. What the design does:
+//   - the operands are swapped, out^T = W x^T, on wgmma m64nNk16: the
+//     weights are A, dequantized into registers (each lane's slots of a k16
+//     step are codes 2t, 2t+1, 2t+8, 2t+9 of rows g and g+8, taken from one
+//     word each with a shift), so they never pass through shared memory;
+//     the token tile of x is B, read by the tensor cores from shared memory
+//     with the 128-byte swizzle. The token count is wgmma's N: the kernel is
+//     built for tiles of 32, 64, ..., 256 tokens, so a tail of 88 tokens
+//     runs as N = 96 (ops/quant_matmul.py::plan_matmul picks the tile);
+//   - a block of two product warpgroups (64 OUT rows each) and one producer
+//     warp, 288 threads at up to 224 registers each (no setmaxnreg: the lone
+//     producer warp holds 11% of the register file). The producer fills a
+//     ring of 3 to 8 stages (as many as 192 KB hold) with TMA: x as a
+//     (64 IN, N tokens) box and the words as a (64 IN, 128 rows) box, each
+//     stage on its own mbarrier; boxes past M, OUT or IN arrive as zeros,
+//     so the ragged edges need no masks until the store. 2-bit rows that
+//     are not a multiple of 16 bytes (and splits that start inside one) are
+//     copied by the producer's lanes with 4-byte cp.async instead;
+//   - code * s + b is an fp32 FMA rounded once to bf16, as today's kernel
+//     and dequantize(..., bf16) round it (fp16 scales are not rounded to
+//     bf16 first); on integer-valued operands every product and sum is
+//     exact, so the kernel equals the plain version bit for bit. A lane's
+//     scales and biases come from global memory a stage ahead of their use;
+//   - the walk over IN is split across blocks when the OUT tiles alone
+//     leave SMs idle (plan_matmul, from the shapes alone); the splits' fp32
+//     partials are added in split order by quant_gemv_reduce_kernel, with
+//     no atomics, so two runs give the same bits. The accumulators go out
+//     transposed through shared memory in 16-byte runs of a token row.
+// What holds it back (PERF.md): the dequantization and the products do not
+// overlap. ptxas serializes the products whenever their A registers are
+// written inside the walk (C7513), whatever the buffering (two A buffers,
+// three products in flight, a copy into spare registers); at M = 256 the
+// products alone take ~2/3 of the kernel's time and the dequantization
+// ~1/3, and the kernel takes about their sum. Dequantizing into shared
+// memory instead (by the product warpgroups or by a warpgroup of its own)
+// and issuing both operands from there avoided the serialization and ran
+// slower. Not done yet: a persistent (stream-K) grid, TMA multicast of x
+// across a cluster, an fp32 scale/bias ring.
+// fp32 x (tests only) takes quant_matmul_fma_kernel, the first version's
+// FMA walk.
 //
 // The TPU kernels split the codes into nibble planes, expand scales from
 // groups to words with an iota-built matmul and pre-permute x to word-major
@@ -79,10 +106,11 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -144,15 +172,6 @@ __device__ __forceinline__ void load_f32(const float* p, float (&out)[N]) {
     const float4 v = reinterpret_cast<const float4*>(p)[i];
     out[4 * i] = v.x; out[4 * i + 1] = v.y; out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 // Sets a kernel's dynamic shared-memory limit once per instantiation (the
@@ -691,38 +710,38 @@ auto for_bits_m(int bits, int M, const F& f) {
   return by_m(std::integral_constant<int, 8>{});
 }
 
-// ------------------------------------------------- prefill dequant-matmul
+// ------------------------------------------- prefill dequant-matmul, fp32 x
+// Tests only (no caller on the main path): the first version's FMA walk. A
+// block of 256 threads owns a 64 x 128 (M x OUT) tile and loops over IN 64
+// at a time; the next step's x and words are loaded into registers while
+// this step's tiles, the weight dequantized in fp32, are multiplied from
+// shared memory.
 constexpr int MM_BM = 64;
 constexpr int MM_BN = 128;
 constexpr int MM_BK = 64;
-constexpr int MM_THREADS = 256;  // 8 warps: 2 along M x 4 along OUT, 32 x 32 each
+constexpr int MM_THREADS = 256;
 
-template <typename T, int BITS>
-struct MmLayout {
-  static constexpr int LD = MM_BK + 16 / (int)sizeof(T);  // padded row of a shared tile
+template <int BITS>
+struct FmaMmLayout {
+  static constexpr int LD = MM_BK + 4;  // padded row of a shared tile
   static constexpr int PER_WORD = 32 / BITS;
   // words behind one weight load: 16 bytes, or 8 at 2 bits, so that a
-  // load's codes (32) never span two groups and the tile's 128 x 64 codes
-  // still give every thread one load
+  // load's codes (32) never span two groups
   static constexpr int LOAD_WORDS = BITS == 2 ? 2 : 4;
-  static constexpr int CHUNK = LOAD_WORDS * PER_WORD;    // codes behind one load
-  static constexpr int X_VEC = 16 / sizeof(T);
-  static constexpr int X_LOADS = MM_BM * MM_BK / X_VEC / MM_THREADS;   // per thread
-  static constexpr int W_LOADS = MM_BN * MM_BK / CHUNK / MM_THREADS;   // per thread
-  static constexpr int LDC = MM_BN + 4;                  // fp32 epilogue tile
-  static constexpr size_t TILE_BYTES = (size_t)(MM_BM + MM_BN) * LD * sizeof(T);
-  static constexpr size_t C_BYTES = std::is_same<T, float>::value ? 0 : (size_t)MM_BM * LDC * 4;
-  static constexpr size_t SHARED_BYTES = TILE_BYTES > C_BYTES ? TILE_BYTES : C_BYTES;
+  static constexpr int CHUNK = LOAD_WORDS * PER_WORD;  // codes behind one load
+  static constexpr int X_LOADS = MM_BM * MM_BK / 4 / MM_THREADS;      // float4s per thread
+  static constexpr int W_LOADS = MM_BN * MM_BK / CHUNK / MM_THREADS;  // per thread
+  static constexpr size_t SHARED_BYTES = (size_t)(MM_BM + MM_BN) * LD * sizeof(float);
   static_assert(X_LOADS >= 1 && W_LOADS >= 1, "every thread loads whole vectors");
 };
 
-template <typename T, int BITS>
-__global__ void __launch_bounds__(MM_THREADS) quant_matmul_kernel(Params p) {
-  using L = MmLayout<T, BITS>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);   // [MM_BM][LD]
-  T* ws = xs + MM_BM * L::LD;            // [MM_BN][LD], dequantized
-  const T* __restrict__ x = static_cast<const T*>(p.x);
+template <int BITS>
+__global__ void __launch_bounds__(MM_THREADS) quant_matmul_fma_kernel(Params p) {
+  using L = FmaMmLayout<BITS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);  // [MM_BM][LD]
+  float* ws = xs + MM_BM * L::LD;               // [MM_BN][LD], dequantized
+  const float* __restrict__ x = static_cast<const float*>(p.x);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
   const long long words_per_row = p.IN / L::PER_WORD;
@@ -734,7 +753,7 @@ __global__ void __launch_bounds__(MM_THREADS) quant_matmul_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < L::X_LOADS; ++i) {
       const int v = tid + i * MM_THREADS;
-      const int m = v / (MM_BK / L::X_VEC), kk = v % (MM_BK / L::X_VEC) * L::X_VEC;
+      const int m = v / (MM_BK / 4), kk = v % (MM_BK / 4) * 4;
       xr[i] = make_uint4(0, 0, 0, 0);
       if (m0 + m < p.M && k0 + kk < p.IN)
         xr[i] = __ldg(reinterpret_cast<const uint4*>(x + (long long)(m0 + m) * p.IN + k0 + kk));
@@ -764,123 +783,580 @@ __global__ void __launch_bounds__(MM_THREADS) quant_matmul_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < L::X_LOADS; ++i) {
       const int v = tid + i * MM_THREADS;
-      const int m = v / (MM_BK / L::X_VEC), kk = v % (MM_BK / L::X_VEC) * L::X_VEC;
+      const int m = v / (MM_BK / 4), kk = v % (MM_BK / 4) * 4;
       *reinterpret_cast<uint4*>(xs + m * L::LD + kk) = xr[i];
     }
 #pragma unroll
     for (int i = 0; i < L::W_LOADS; ++i) {
       const int v = tid + i * MM_THREADS;
       const int n = v / (MM_BK / L::CHUNK), kk = v % (MM_BK / L::CHUNK) * L::CHUNK;
-      T* dst = ws + n * L::LD + kk;
+      float* dst = ws + n * L::LD + kk;
 #pragma unroll
       for (int k = 0; k < L::LOAD_WORDS; ++k) {
         const uint32_t word = word_of(wr[i], k);
 #pragma unroll
-        for (int j = 0; j < L::PER_WORD; j += 2) {
-          const float a = fmaf(code_at<BITS>(word, j), sr[i], br[i]);
-          const float b = fmaf(code_at<BITS>(word, j + 1), sr[i], br[i]);
-          if constexpr (std::is_same<T, float>::value) {
-            *reinterpret_cast<float2*>(dst + k * L::PER_WORD + j) = make_float2(a, b);
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(dst + k * L::PER_WORD + j) =
-                __floats2bfloat162_rn(a, b);
-          }
-        }
+        for (int j = 0; j < L::PER_WORD; ++j)
+          dst[k * L::PER_WORD + j] = fmaf(code_at<BITS>(word, j), sr[i], br[i]);
       }
     }
   };
 
-  if constexpr (std::is_same<T, float>::value) {
-    // FMA path: thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-    const int ty = tid / 16, tx = tid % 16;
-    float acc[4][8];
+  // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    fetch(0);
-    for (int k0 = 0; k0 < p.IN; k0 += MM_BK) {
-      stage();
-      __syncthreads();
-      if (k0 + MM_BK < p.IN) fetch(k0 + MM_BK);
-#pragma unroll 8
-      for (int k = 0; k < MM_BK; ++k) {
-        float a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[(ty + 16 * i) * L::LD + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = ws[(tx + 16 * j) * L::LD + k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    float* out = static_cast<float*>(p.out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-        if (m < p.M && n < p.OUT) out[(long long)m * p.OUT + n] = acc[i][j];
-      }
-  } else {
-    using namespace nvcuda;
-    const int warp = tid / 32;
-    const int wm = warp / 4 * 32, wn = warp % 4 * 32;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    fetch(0);
-    for (int k0 = 0; k0 < p.IN; k0 += MM_BK) {
-      stage();
-      __syncthreads();
-      if (k0 + MM_BK < p.IN) fetch(k0 + MM_BK);
-#pragma unroll
-      for (int kk = 0; kk < MM_BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], xs + (wm + 16 * i) * L::LD + kk, L::LD);
-        // the weight tile is (OUT, IN) row-major, i.e. W^T column-major
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], ws + (wn + 16 * j) * L::LD + kk, L::LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    // epilogue through shared fp32 (over the tiles, which are done), then
-    // rounded once to bf16 with the ragged edges masked
-    float* cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(cs + (wm + 16 * i) * L::LDC + wn + 16 * j, acc[i][j], L::LDC,
-                                wmma::mem_row_major);
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  fetch(0);
+  for (int k0 = 0; k0 < p.IN; k0 += MM_BK) {
+    stage();
     __syncthreads();
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-    for (int i = tid; i < MM_BM * MM_BN; i += MM_THREADS) {
-      const int m = i / MM_BN, n = i % MM_BN;
-      if (m0 + m < p.M && n0 + n < p.OUT)
-        out[(long long)(m0 + m) * p.OUT + n0 + n] = __float2bfloat16_rn(cs[m * L::LDC + n]);
+    if (k0 + MM_BK < p.IN) fetch(k0 + MM_BK);
+#pragma unroll 8
+    for (int k = 0; k < MM_BK; ++k) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xs[(ty + 16 * i) * L::LD + k];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = ws[(tx + 16 * j) * L::LD + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < p.M && n < p.OUT) out[(long long)m * p.OUT + n] = acc[i][j];
+    }
+}
+
+template <int BITS>
+cudaError_t launch_matmul_fma(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = FmaMmLayout<BITS>::SHARED_BYTES;
+  static const cudaError_t attr = allow_shared_once(quant_matmul_fma_kernel<BITS>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((p.OUT + MM_BN - 1) / MM_BN, (p.M + MM_BM - 1) / MM_BM);
+  quant_matmul_fma_kernel<BITS><<<grid, MM_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- prefill dequant-matmul, bf16 x
+// out^T = W x^T on wgmma m64nNk16 (see the header): a block owns WG_ROWS
+// OUT rows, N tokens and the IN range of blockIdx.z. Product warpgroup c
+// holds OUT rows [64 c, 64 c + 64) of the block as wgmma's A, dequantized
+// into registers from the stage's words; the token tile of x is B, read by
+// the tensor cores from the stage. One producer warp fills a ring of
+// stages with TMA: x as a (64 IN, N tokens) box with the 128-byte swizzle,
+// the words as a (64 IN, WG_ROWS rows) box.
+constexpr int WG_CONSUMERS = 2;                      // product warpgroups of 64 OUT rows
+constexpr int WG_ROWS = 64 * WG_CONSUMERS;           // OUT rows per block
+constexpr int WG_THREADS = 128 * WG_CONSUMERS + 32;  // and one producer warp
+constexpr int WG_BK = 64;                            // IN per stage: one 128-byte row of x
+constexpr int WG_MAX_STAGES = 8;
+constexpr int WG_RING_BYTES = 192 * 1024;  // what the ring may take of the 227 KB
+constexpr int WG_EPI_LD = WG_ROWS + 4;     // floats per token row of the epilogue tile
+
+template <int BITS, int N>
+struct WgLayout {
+  static constexpr int X_BYTES = N * WG_BK * 2;              // a multiple of 1024
+  static constexpr int ROW_BYTES = WG_BK * BITS / 8;         // a weight row's words per stage
+  static constexpr int STAGE = X_BYTES + WG_ROWS * ROW_BYTES;  // a multiple of 1024
+  static constexpr int STAGES =
+      WG_RING_BYTES / STAGE < WG_MAX_STAGES ? WG_RING_BYTES / STAGE : WG_MAX_STAGES;
+  static constexpr int EPI = N * WG_EPI_LD * 4;  // the fp32 epilogue tile, over the ring
+  static constexpr int BARS = STAGES * STAGE > EPI ? STAGES * STAGE : EPI;
+  static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;  // + the alignment of the base
+  static_assert(STAGES >= 3, "a ring of three stages at least");
+  static_assert(BYTES <= 232448, "one block's shared memory");
+};
+
+struct WgArgs {
+  const uint32_t* q;  // the words, for 4-byte copies when a row is not a multiple of 16 bytes
+  const void* scales;
+  const void* biases;
+  void* out;    // (M, OUT) bf16: a walk in one split
+  float* part;  // (splits, M, OUT) fp32 partial sums: a walk in more
+  int M, IN, OUT;
+  int gshift;      // log2 of the group size
+  int param_code;  // scales/biases: 0 = float32, 1 = bfloat16, 2 = float16
+  int split;       // IN elements per block along the walk
+  int words_tma;   // 1: the words come by TMA; 0: by cp.async
+};
+
+template <int N>
+struct Wgmma;  // d += a b: A (64 x 16 bf16) from registers, B (16 x N) from shared memory
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<160> {
+  static __device__ __forceinline__ void mma(float (&d)[80], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<224> {
+  static __device__ __forceinline__ void mma(float (&d)[112], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111}, "
+      "{%112, %113, %114, %115}, %116, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// The descriptor of a K-major B tile with the 128-byte swizzle at shared
+// address addr: rows of 128 bytes, 8-row atoms 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Codes at bits [0, BITS) and [BITS, 2 BITS) of v as the bf16 pair
+// (c0 s + b, c1 s + b): each an fp32 FMA rounded once to bf16, as
+// dequantize(..., bf16) rounds. 2^23 + c is exact in fp32, so the OR and
+// the subtraction give the code with no conversion instruction.
+template <int BITS>
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t v, float s, float b) {
+  constexpr uint32_t MASK = (1u << BITS) - 1;
+  const float c0 = __uint_as_float(0x4B000000u | (v & MASK)) - 8388608.0f;
+  const float c1 = __uint_as_float(0x4B000000u | ((v >> BITS) & MASK)) - 8388608.0f;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(fmaf(c0, s, b), fmaf(c1, s, b));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int BITS, int N>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    quant_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap wmap, const WgArgs p) {
+  using L = WgLayout<BITS, N>;
+  constexpr int PER_WORD = 32 / BITS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const unsigned bars = smem_u32(smem + L::BARS);  // full[s] at + 8 s, empty[s] at + 8 (STAGES + s)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * WG_ROWS, m0 = blockIdx.y * N;
+  const int kb = blockIdx.z * p.split, ke = min(p.IN, kb + p.split);
+  const int steps = (ke - kb + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      // full: the producer's expect_tx, and with copied words each producer
+      // lane's cp.async arrival; empty: one arrival per product warp
+      mbar_init(bars + 8 * s, p.words_tma ? 1 : 33);
+      mbar_init(bars + 8 * (L::STAGES + s), 4 * WG_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WG_CONSUMERS) {
+    // the producer: each stage's boxes as soon as its slot is free
+    const int words_per_row = p.IN / PER_WORD;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % L::STAGES;
+      if (it >= L::STAGES) mbar_wait(bars + 8 * (L::STAGES + s), (it / L::STAGES - 1) & 1);
+      const int k0 = kb + it * WG_BK;
+      unsigned char* st = smem + s * L::STAGE;
+      const unsigned full = bars + 8 * s;
+      if (lane == 0) {
+        mbar_expect_tx(full, L::X_BYTES + (p.words_tma ? WG_ROWS * L::ROW_BYTES : 0));
+        tma_load_2d(smem_u32(st), &xmap, k0, m0, full);
+        if (p.words_tma) tma_load_2d(smem_u32(st + L::X_BYTES), &wmap, k0 / PER_WORD, n0, full);
+      }
+      if (!p.words_tma) {
+        // rows or split starts that are not on 16 bytes (2 bits, IN or the
+        // split an odd multiple of 32): 4-byte copies, words past a row's
+        // end and rows past OUT as zeros
+        constexpr int RW = L::ROW_BYTES / 4;
+        for (int i = lane; i < WG_ROWS * RW; i += 32) {
+          const int r = n0 + i / RW, w = k0 / PER_WORD + i % RW;
+          const bool ok = r < p.OUT && w < words_per_row;
+          cp_async(st + L::X_BYTES + i * 4, p.q + (ok ? (long long)r * words_per_row + w : 0), 4,
+                   ok ? 4 : 0);
+        }
+        cp_async_mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // ---- the product warpgroups
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = warp / 4 * 64 + warp % 4 * 16 + g, r_hi = r_lo + 8;  // rows in the block
+  const int groups = p.IN >> p.gshift;
+  const long long e_lo = (long long)min(n0 + r_lo, p.OUT - 1) * groups;
+  const long long e_hi = (long long)min(n0 + r_hi, p.OUT - 1) * groups;
+  // the scales and biases of the lane's two rows for each 32-wide half of
+  // the stage at k0 (a k16 step never spans two groups)
+  auto params = [&](int k0, float (&s)[2][2], float (&b)[2][2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && p.gshift > 5) {  // a group of 64 or 128 holds the whole stage
+        s[1][0] = s[0][0];
+        s[1][1] = s[0][1];
+        b[1][0] = b[0][0];
+        b[1][1] = b[0][1];
+        break;
+      }
+      const int gi = min((k0 + 32 * h) >> p.gshift, groups - 1);
+      s[h][0] = load_param(p.scales, p.param_code, e_lo + gi);
+      s[h][1] = load_param(p.scales, p.param_code, e_hi + gi);
+      b[h][0] = load_param(p.biases, p.param_code, e_lo + gi);
+      b[h][1] = load_param(p.biases, p.param_code, e_hi + gi);
+    }
+  };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  uint32_t a[2][4];  // A of this k16 step and the last, which may still be in flight
+  float sc[2][2], bi[2][2], sc_next[2][2], bi_next[2][2];
+  params(kb, sc, bi);
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % L::STAGES;
+    const int k0 = kb + it * WG_BK;
+    const int kvalid = min(WG_BK, ke - k0);  // a multiple of 32
+    if (it + 1 < steps) params(k0 + WG_BK, sc_next, bi_next);  // in flight during the stage
+    mbar_wait(bars + 8 * s, (it / L::STAGES) & 1);
+    const unsigned char* st = smem + s * L::STAGE;
+    const uint32_t* w_lo = reinterpret_cast<const uint32_t*>(st + L::X_BYTES + r_lo * L::ROW_BYTES);
+    const uint32_t* w_hi = reinterpret_cast<const uint32_t*>(st + L::X_BYTES + r_hi * L::ROW_BYTES);
+    const unsigned x_addr = smem_u32(st);
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      if (kk * 16 >= kvalid) break;
+      // the lane's A slots: rows g and g + 8 at k = 16 kk + 2t + 8j + {0, 1}
+      // (j = 0, 1), two codes of one word each
+      uint32_t(&f)[4] = a[kk & 1];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kq = 16 * kk + 2 * t + 8 * j;
+        const int wi = kq / PER_WORD, sh = kq % PER_WORD * BITS;
+        f[2 * j] = dequant_pair<BITS>(w_lo[wi] >> sh, sc[kk / 2][0], bi[kk / 2][0]);
+        f[2 * j + 1] = dequant_pair<BITS>(w_hi[wi] >> sh, sc[kk / 2][1], bi[kk / 2][1]);
+      }
+      wgmma_fence();
+      Wgmma<N>::mma(acc, f, desc_sw128(x_addr + kk * 32));
+      wgmma_commit();
+      wgmma_wait<1>();  // the last step's product is done: its A may be rewritten
+      // (ptxas serializes the products here all the same; see the header)
+      // and every product of the previous stage is done: its slot may be refilled
+      if (kk == 0 && it > 0 && lane == 0) mbar_arrive(bars + 8 * (L::STAGES + (it - 1) % L::STAGES));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sc[h][r] = sc_next[h][r];
+        bi[h][r] = bi_next[h][r];
+      }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // epilogue: out^T's fragments transposed through shared memory (over the
+  // ring, free once every warpgroup's products are done), then written in
+  // 16-byte runs of a token row: rounded once to bf16, or as the split's
+  // fp32 partial sums
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG_CONSUMERS) : "memory");
+  float* epi = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    // fragment j: rows r_lo / r_hi, tokens 8j + 2t and 8j + 2t + 1
+    const int m = 8 * j + 2 * t;
+    epi[m * WG_EPI_LD + r_lo] = acc[4 * j];
+    epi[(m + 1) * WG_EPI_LD + r_lo] = acc[4 * j + 1];
+    epi[m * WG_EPI_LD + r_hi] = acc[4 * j + 2];
+    epi[(m + 1) * WG_EPI_LD + r_hi] = acc[4 * j + 3];
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG_CONSUMERS) : "memory");
+  const int rows = min(N, p.M - m0), cols = min(WG_ROWS, p.OUT - n0);
+  const bool vec = p.OUT % 4 == 0;  // every run of 4 lies inside its row, 8- or 16-byte aligned
+  const bool whole = gridDim.z == 1;
+  for (int i = threadIdx.x; i < rows * (WG_ROWS / 4); i += 128 * WG_CONSUMERS) {
+    const int m = i / (WG_ROWS / 4), c = i % (WG_ROWS / 4) * 4;
+    if (c >= cols) continue;
+    const float4 v = *reinterpret_cast<const float4*>(epi + m * WG_EPI_LD + c);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    const long long o = (long long)(m0 + m) * p.OUT + n0 + c;
+    if (whole) {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out) + o;
+      if (vec) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                    *reinterpret_cast<const uint32_t*>(&hi));
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < cols) dst[q] = __float2bfloat16_rn(e[q]);
+      }
+    } else {
+      float* dst = p.part + (long long)blockIdx.z * p.M * p.OUT + o;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < cols) dst[q] = e[q];
+      }
     }
   }
 }
 
-template <typename T, int BITS>
-cudaError_t launch_matmul(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = MmLayout<T, BITS>::SHARED_BYTES;
-  static const cudaError_t attr = allow_shared_once(quant_matmul_kernel<T, BITS>, smem);
+// F(std::integral_constant<int, N>) for a token tile the kernel is built
+// for, or cudaErrorInvalidValue
+template <typename F>
+cudaError_t for_tile(int n, const F& f) {
+  switch (n) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 160: return f(std::integral_constant<int, 160>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 224: return f(std::integral_constant<int, 224>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// F(std::integral_constant<int, BITS>)
+template <typename F>
+cudaError_t for_bits(int bits, const F& f) {
+  if (bits == 2) return f(std::integral_constant<int, 2>{});
+  if (bits == 4) return f(std::integral_constant<int, 4>{});
+  if (bits == 8) return f(std::integral_constant<int, 8>{});
+  return cudaErrorInvalidValue;
+}
+
+template <int BITS, int N>
+cudaError_t launch_matmul_wgmma(const Params& p, int split, float* part, cudaStream_t stream) {
+  using L = WgLayout<BITS, N>;
+  static const cudaError_t attr = allow_shared_once(quant_matmul_wgmma_kernel<BITS, N>, L::BYTES);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.OUT + MM_BN - 1) / MM_BN, (p.M + MM_BM - 1) / MM_BM);
-  quant_matmul_kernel<T, BITS><<<grid, MM_THREADS, smem, stream>>>(p);
+  const int len = split > 0 ? split : p.IN;
+  const int splits = (p.IN + len - 1) / len;
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap xm, wm;
+  cudaError_t err = tensor_map_2d(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, p.M, p.IN,
+                                  (long long)p.IN * 2, WG_BK, N, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const long long pitch = (long long)p.IN * BITS / 8;
+  const bool words_tma = pitch % 16 == 0 && (long long)len * BITS / 8 % 16 == 0;
+  wm = xm;  // unused when the words are copied
+  if (words_tma)
+    err = tensor_map_2d(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT32, p.q, p.OUT, p.IN * BITS / 32, pitch,
+                        L::ROW_BYTES / 4, WG_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  WgArgs a;
+  a.q = p.q;
+  a.scales = p.scales;
+  a.biases = p.biases;
+  a.out = p.out;
+  a.part = part;
+  a.M = p.M;
+  a.IN = p.IN;
+  a.OUT = p.OUT;
+  a.gshift = p.group_size == 32 ? 5 : p.group_size == 64 ? 6 : 7;
+  a.param_code = p.param_code;
+  a.split = len;
+  a.words_tma = words_tma ? 1 : 0;
+  const dim3 grid((p.OUT + WG_ROWS - 1) / WG_ROWS, (p.M + N - 1) / N, splits);
+  quant_matmul_wgmma_kernel<BITS, N><<<grid, WG_THREADS, L::BYTES, stream>>>(xm, wm, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int n = p.M * p.OUT;
+  quant_gemv_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      part, splits, n, static_cast<__nv_bfloat16*>(p.out));
   return cudaGetLastError();
 }
 
@@ -933,28 +1409,54 @@ int mst_quant_gemv(const void* x, const void* q, const void* scales, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// The same contract for any M >= 1, with no split.
+// The same contract for any M >= 1. bf16 x runs the wgmma kernel with a
+// token tile of `tile` rows (32, 64, ..., 256) and `split` IN elements per
+// block of the walk (a multiple of group_size, or 0 for all of IN); with
+// more than one split, part holds ceil(IN / split) * M * OUT floats. fp32 x
+// takes the FMA kernel, whole, and ignores both.
 int mst_quant_matmul(const void* x, const void* q, const void* scales, const void* biases,
                      void* out, int x_code, int param_code, int bits, int M, int IN, int OUT,
-                     int group_size, void* stream) {
+                     int group_size, int tile, int split, void* part, void* stream) {
   const Params p = make_params(x, q, scales, biases, out, param_code, M, IN, OUT, group_size);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_code == 0 && bits == 2) return (int)launch_matmul<float, 2>(p, s);
-  if (x_code == 0 && bits == 4) return (int)launch_matmul<float, 4>(p, s);
-  if (x_code == 0 && bits == 8) return (int)launch_matmul<float, 8>(p, s);
-  if (x_code == 1 && bits == 2) return (int)launch_matmul<__nv_bfloat16, 2>(p, s);
-  if (x_code == 1 && bits == 4) return (int)launch_matmul<__nv_bfloat16, 4>(p, s);
-  if (x_code == 1 && bits == 8) return (int)launch_matmul<__nv_bfloat16, 8>(p, s);
+  if (M < 1 || split < 0 || (split > 0 && split % group_size)) return (int)cudaErrorInvalidValue;
+  if (x_code == 0)
+    return (int)for_bits(bits, [&](auto b) { return launch_matmul_fma<decltype(b)::value>(p, s); });
+  if (x_code == 1)
+    return (int)for_bits(bits, [&](auto b) {
+      return for_tile(tile, [&](auto n) {
+        return launch_matmul_wgmma<decltype(b)::value, decltype(n)::value>(
+            p, split, static_cast<float*>(part), s);
+      });
+    });
   return (int)cudaErrorInvalidValue;
 }
 
 const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Dynamic shared memory of one bf16 matmul launch, so the caller can report it.
-long long mst_quant_matmul_shared_bytes(int bits) {
-  return bits == 2 ? MmLayout<__nv_bfloat16, 2>::SHARED_BYTES
-         : bits == 4 ? MmLayout<__nv_bfloat16, 4>::SHARED_BYTES
-                     : MmLayout<__nv_bfloat16, 8>::SHARED_BYTES;
+// The bf16 matmul's instantiation for (bits, tile): out = {shared bytes
+// per block, registers per thread, resident blocks per SM, local (spill)
+// bytes per thread}, as the runtime reports them on the current card.
+int mst_quant_matmul_info(int bits, int tile, long long* out) {
+  return (int)for_bits(bits, [&](auto b) {
+    return for_tile(tile, [&](auto n) {
+      constexpr int B = decltype(b)::value, N = decltype(n)::value;
+      const auto kernel = quant_matmul_wgmma_kernel<B, N>;
+      const int smem = WgLayout<B, N>::BYTES;
+      cudaError_t err = allow_shared_once(kernel, smem);
+      if (err != cudaSuccess) return err;
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kernel);
+      if (err != cudaSuccess) return err;
+      int blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, WG_THREADS, smem);
+      out[0] = smem;
+      out[1] = attr.numRegs;
+      out[2] = blocks;
+      out[3] = (long long)attr.localSizeBytes;
+      return err;
+    });
+  });
 }
 
 // The bf16 GEMV instantiation that serves (bits, M) with these group size

@@ -1,10 +1,12 @@
 """Build and load one of the port's CUDA kernel libraries.
 
-Each library is one ``csrc/*.cu`` file with a plain C interface. On first
-use it is compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` (keyed by a
-hash of the source and the flags, renamed into place atomically so that
-concurrent processes never load a half-written file) and loaded with
-``ctypes``. No PyTorch headers are included, so a build takes seconds.
+Each library is one ``csrc/*.cu`` file with a plain C interface, which may
+include headers of ``csrc/`` (``#include "name.cuh"``). On first use it is
+compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` (keyed by a hash of
+the source, every ``csrc/`` header it includes and the flags, renamed into
+place atomically so that concurrent processes never load a half-written
+file) and loaded with ``ctypes``. No PyTorch headers are included, so a
+build takes seconds.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +28,25 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list:
+    """The headers ``source`` includes with quotes, and theirs in turn,
+    found as nvcc finds them (beside the including file, then in
+    ``csrc/``), in a fixed order."""
+    found, todo = [], [source]
+    while todo:
+        current = todo.pop(0)
+        for name in _INCLUDE.findall(current.read_bytes()):
+            for folder in (current.parent, CSRC_DIR):
+                path = (folder / name.decode()).resolve()
+                if path.exists():
+                    if path not in found:
+                        found.append(path)
+                        todo.append(path)
+                    break
+    return found
 
 
 class CudaLibrary:
@@ -63,6 +85,15 @@ class CudaLibrary:
             msg = self._lib.mst_cuda_error_string(err).decode()
             raise RuntimeError(f"{what} launch failed: {msg}")
 
+    def key(self) -> str:
+        """The build key: a hash of the source, the headers it includes
+        from ``csrc/`` and the flags."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in local_headers(self.source):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return digest.hexdigest()[:16]
+
     def _build(self) -> Path:
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
@@ -70,15 +101,14 @@ class CudaLibrary:
                 f"nvcc not found: {self.source.name} is compiled on first use "
                 "and needs the CUDA toolkit"
             )
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
+        out = BUILD_DIR / f"{self.source.stem}_{self.key()}.so"
         if out.exists():
             self.build_log = f"cached: {out.name}"
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(self.source)],
             capture_output=True, text=True, check=False,
         )
         self.build_log = proc.stdout + proc.stderr

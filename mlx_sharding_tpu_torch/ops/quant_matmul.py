@@ -1,6 +1,7 @@
 """Products with packed 2-, 4- and 8-bit weights: the two CUDA kernels'
-wrappers, their plain version, the plan of the GEMV's split IN walk and
-their launch counters.
+wrappers, their plain version, the plans of their launches (the GEMV's split
+IN walk; the matmul's token tile and split IN walk) and their launch
+counters.
 
 Port of the Pallas TPU kernels of ``mlx_sharding_tpu/ops/quant_matmul.py``:
 :func:`quant_gemv` replaces ``quant_gemv_pipelined`` (the decode product,
@@ -10,10 +11,11 @@ M <= ``GEMV_MAX_M``) and :func:`quant_matmul` replaces
 what its design does about that; the library is built with ``nvcc`` on first
 use (``cuda_library.py``). The JAX package's block pickers and TPU autotune
 size Mosaic VMEM blocks and are not carried over: the CUDA kernels choose
-their own launch geometry, and :func:`plan_gemv` splits the GEMV's walk over
-IN across blocks when its row blocks alone leave SMs idle (a second kernel
-adds the splits' fp32 partial sums in a fixed order; both launches are one
-call and one count).
+their own launch geometry: :func:`plan_gemv` splits the GEMV's walk over IN
+across blocks when its row blocks alone leave SMs idle, and
+:func:`plan_matmul` picks the matmul's token tile and split of IN from the
+shapes (in both, a second kernel adds the splits' fp32 partial sums in a
+fixed order; both launches are one call and one count).
 
 Both compute ``x @ dequant(q, scales, biases).T`` with fp32 accumulation,
 rounded once to x's dtype. On a CUDA tensor each wrapper launches its kernel
@@ -47,6 +49,27 @@ SPLIT_IN: Optional[int] = None
 #: least MIN_SPLIT long
 SPLIT_ALIGN = 128
 MIN_SPLIT = 4096
+#: OUT rows of one block of the bf16 matmul (two warpgroups of 64:
+#: ``WG_ROWS`` in the source), IN elements per stage of its walk, and the
+#: token tiles it is built for (wgmma's N)
+MATMUL_ROWS = 128
+MATMUL_STEP = 64
+TOKEN_TILES = (32, 64, 96, 128, 160, 192, 224, 256)
+#: IN elements per block of the bf16 matmul's walk: None lets
+#: :func:`plan_matmul` choose; 0 walks all of IN in one block per tile; a
+#: multiple of the group size forces splits of that many. The checks set it.
+SPLIT_K: Optional[int] = None
+MAX_SPLITS = 8
+#: :func:`plan_matmul`'s model of the card, in microseconds: a stage of the
+#: walk takes STAGE_US + STAGE_US_PER_TOKEN * tile, a block FILL_US more
+#: (its ring's first copies and its epilogue), and a split walk's reduce
+#: pass REDUCE_US plus its partial sums' bytes, written and read, at
+#: PARTIAL_BYTES_PER_US
+STAGE_US = 0.1
+STAGE_US_PER_TOKEN = 0.45 / 256
+FILL_US = 1.0
+REDUCE_US = 2.0
+PARTIAL_BYTES_PER_US = 3e6
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PARAM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -62,9 +85,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mst_quant_gemv.argtypes = [*common, ctypes.c_int, ctypes.c_void_p,  # split, partials
                                    ctypes.c_void_p]  # stream
     lib.mst_quant_matmul.restype = ctypes.c_int
-    lib.mst_quant_matmul.argtypes = [*common, ctypes.c_void_p]
-    lib.mst_quant_matmul_shared_bytes.restype = ctypes.c_longlong
-    lib.mst_quant_matmul_shared_bytes.argtypes = [ctypes.c_int]
+    lib.mst_quant_matmul.argtypes = [*common, ctypes.c_int, ctypes.c_int,  # token tile, split
+                                     ctypes.c_void_p, ctypes.c_void_p]  # partials, stream
+    lib.mst_quant_matmul_info.restype = ctypes.c_int
+    lib.mst_quant_matmul_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_longlong)]
     lib.mst_quant_gemv_info.restype = ctypes.c_int
     lib.mst_quant_gemv_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
 
@@ -79,9 +104,14 @@ def build() -> str:
     return _LIBRARY.build()
 
 
-def matmul_shared_bytes(bits: int) -> int:
-    """Dynamic shared memory one bf16 launch of the matmul asks for."""
-    return int(_LIBRARY.get().mst_quant_matmul_shared_bytes(bits))
+def matmul_info(bits: int, tile: int) -> dict:
+    """The bf16 matmul's shared bytes per block, registers per thread,
+    resident blocks per SM and local (spill) bytes per thread at a token
+    tile of ``tile`` rows, as the CUDA runtime reports them on the current
+    card."""
+    out = (ctypes.c_longlong * 4)()
+    _LIBRARY.check(_LIBRARY.get().mst_quant_matmul_info(bits, tile, out), "matmul_info")
+    return dict(shared_bytes=out[0], registers=out[1], blocks_per_sm=out[2], local_bytes=out[3])
 
 
 def gemv_info(bits: int, m: int, group_size: int, param_dtype: torch.dtype) -> dict:
@@ -112,6 +142,38 @@ def plan_gemv(out_dim: int, in_dim: int, sms: int) -> int:
     return split if split < in_dim else 0
 
 
+def plan_matmul(m: int, out_dim: int, in_dim: int, sms: int) -> tuple:
+    """(token tile, IN elements per block of the walk or 0 for all of IN)
+    of the bf16 matmul, from the shapes alone. The tokens take as few tiles
+    of at most 256 as hold them, each tile the least multiple of 32 that
+    holds its share. IN is split into the number of splits (1 to
+    ``MAX_SPLITS``, each a multiple of ``SPLIT_ALIGN``) that the model of
+    the card above gives the least time: waves of blocks times a block's
+    walk, plus the reduce pass of a split walk; fewer splits on a tie. On
+    an NVIDIA H100 80GB HBM3 at 700 W (``scripts/quant_matmul_timing.py
+    --splits 0,512,1024,1408,2048,3584,7168``), its pick was the fastest
+    walk, within 2%, at each Llama-3.1-8B layer shape at M = 88 and 256:
+    QKV in two splits, o_proj and down_proj in four, gate+up whole."""
+    tiles_m = -(-m // TOKEN_TILES[-1])
+    tile = -(-m // tiles_m)
+    tile = -(-tile // TOKEN_TILES[0]) * TOKEN_TILES[0]
+    blocks = -(-out_dim // MATMUL_ROWS) * tiles_m
+    stage_us = STAGE_US + STAGE_US_PER_TOKEN * tile
+    best = None
+    for splits in range(1, MAX_SPLITS + 1):
+        split = 0 if splits == 1 else -(-in_dim // (splits * SPLIT_ALIGN)) * SPLIT_ALIGN
+        if splits > 1 and split >= in_dim:
+            continue
+        n = len(split_ranges(in_dim, split))
+        walk = FILL_US + -(-(split or in_dim) // MATMUL_STEP) * stage_us
+        cost = -(-blocks * n // sms) * walk
+        if n > 1:
+            cost += REDUCE_US + 2 * 4 * n * m * out_dim / PARTIAL_BYTES_PER_US
+        if best is None or cost < best[0]:
+            best = (cost, split)
+    return tile, best[1]
+
+
 def split_ranges(in_dim: int, split: int) -> list:
     """The (first, end) IN ranges of the blocks along the walk."""
     step = split or in_dim
@@ -130,6 +192,22 @@ def quant_matmul_reference(x, q, scales, biases, group_size: int = 64, bits: int
 
     w = dequantize(q, scales, biases, group_size, bits, torch.float32)
     return (x.float() @ w.T).to(x.dtype)
+
+
+def quant_matmul_split_reference(x, q, scales, biases, group_size: int, bits: int, split: int):
+    """The bf16 matmul's walk in plain PyTorch, for the tests: the weight
+    dequantized and rounded to x's dtype (as the kernel rounds it into its
+    A fragments), each range of :func:`split_ranges` multiplied into an fp32
+    partial, the partials added in split order and rounded once to x's
+    dtype."""
+    from mlx_sharding_tpu_torch.ops.quant import dequantize
+
+    w = dequantize(q, scales, biases, group_size, bits, x.dtype).float()
+    xf = x.float()
+    total = torch.zeros((x.shape[0], q.shape[0]), dtype=torch.float32, device=x.device)
+    for k0, k1 in split_ranges(x.shape[1], split):
+        total = total + xf[:, k0:k1] @ w[:, k0:k1].T
+    return total.to(x.dtype)
 
 
 def quant_gemv_split_reference(x, q, scales, biases, group_size: int, bits: int, split: int):
@@ -199,19 +277,27 @@ def _launch(name: str, x, q, scales, biases, group_size: int, bits: int):
     out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
     args = [x.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(), out.data_ptr(),
             _X_CODES[x.dtype], _PARAM_CODES[scales.dtype], bits, m, in_dim, out_dim, group_size]
-    if name == "quant_gemv":
-        split, part = 0, None
-        if x.dtype == torch.bfloat16:  # the fp32 kernel always walks whole
-            split = SPLIT_IN
+    sms = _sm_count(x.device.index or 0)
+    tile, split, part = 0, 0, None
+    if x.dtype == torch.bfloat16:  # the fp32 kernels always walk whole
+        if name == "quant_gemv":
+            knob, split = "SPLIT_IN", SPLIT_IN
             if split is None:
-                split = plan_gemv(out_dim, in_dim, _sm_count(x.device.index or 0))
-            if split < 0 or split % group_size:
-                raise ValueError(f"SPLIT_IN must be None, 0 or a multiple of the group size "
-                                 f"{group_size}; got {split}")
-            splits = len(split_ranges(in_dim, split))
-            if splits > 1:  # the splits' partial sums, added by the reduce kernel
-                part = torch.empty((splits, m, out_dim), dtype=torch.float32, device=x.device)
-        args += [split, None if part is None else part.data_ptr()]
+                split = plan_gemv(out_dim, in_dim, sms)
+        else:
+            knob, split = "SPLIT_K", SPLIT_K
+            tile, planned = plan_matmul(m, out_dim, in_dim, sms)
+            if split is None:
+                split = planned
+        if split < 0 or split % group_size:
+            raise ValueError(f"{knob} must be None, 0 or a multiple of the group size "
+                             f"{group_size}; got {split}")
+        splits = len(split_ranges(in_dim, split))
+        if splits > 1:  # the splits' partial sums, added by the reduce kernel
+            part = torch.empty((splits, m, out_dim), dtype=torch.float32, device=x.device)
+    if name == "quant_matmul":
+        args += [tile]
+    args += [split, None if part is None else part.data_ptr()]
     lib = _LIBRARY.get()
     with torch.cuda.device(x.device):
         err = getattr(lib, f"mst_{name}")(*args, torch.cuda.current_stream(x.device).cuda_stream)
@@ -237,7 +323,8 @@ def quant_gemv(x, q, scales, biases, group_size: int = 64, bits: int = 4):
 
 def quant_matmul(x, q, scales, biases, group_size: int = 64, bits: int = 4):
     """The same product for any M, tiled for the tensor cores (the
-    dispatch sends it M > 8). CUDA tensors launch the kernel (counted in
+    dispatch sends it M > 8). CUDA tensors launch the kernel, with its
+    reduce pass when the bf16 walk over IN is split (counted once in
     ``quant_matmul.launches``); CPU tensors take
     :func:`quant_matmul_reference`."""
     _check(x, q, scales, biases, group_size, bits)

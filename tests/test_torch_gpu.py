@@ -152,6 +152,17 @@ QUANT_CASES = [
     ("quant_matmul", 100, 200, 96, 32, 4, torch.bfloat16, torch.float16),
     ("quant_matmul", 70, 130, 512, 128, 8, torch.float32, torch.float32),
     ("quant_matmul", 9, 256, 256, 64, 8, torch.bfloat16, torch.bfloat16),
+    # the 600-token prompt's last chunk at QKV's shape (a token tile of 96),
+    # and the bf16 matmul's ragged edges at each bits value: 2-bit rows of
+    # IN 160 are 40 bytes (their words come by cp.async, not TMA); M = 300
+    # takes two token tiles
+    ("quant_matmul", 88, 6144, 4096, 64, 4, torch.bfloat16, torch.float16),
+    ("quant_matmul", 37, 77, 160, 32, 2, torch.bfloat16, torch.bfloat16),
+    ("quant_matmul", 300, 130, 1088, 64, 2, torch.bfloat16, torch.float16),
+    ("quant_matmul", 65, 200, 1184, 32, 4, torch.bfloat16, torch.float32),
+    ("quant_matmul", 250, 386, 2176, 128, 4, torch.bfloat16, torch.bfloat16),
+    ("quant_matmul", 33, 130, 224, 32, 8, torch.bfloat16, torch.float16),
+    ("quant_matmul", 200, 77, 1152, 64, 8, torch.bfloat16, torch.float32),
 ]
 
 
@@ -214,6 +225,83 @@ def test_gemv_gives_the_same_bits_twice(cuda, monkeypatch, split):
     assert all(torch.equal(first, qm.quant_gemv(x, q, s, b)) for _ in range(3))
 
 
+@pytest.mark.parametrize("split", [None, 0, 512], ids=["planned", "whole", "512"])
+@pytest.mark.parametrize("m,out_dim,in_dim,gs,bits", [
+    (88, 4096, 4096, 64, 4), (256, 4096, 14336, 64, 4), (70, 130, 1152, 32, 2),
+    (129, 200, 1152, 128, 8),
+])
+def test_matmul_walk_planned_whole_and_forced(cuda, monkeypatch, m, out_dim, in_dim, gs, bits,
+                                              split):
+    """The bf16 matmul with its walk over IN as planned, whole and in splits
+    of 512 (a reduce pass adds the partials): bit-exact on integer-valued
+    operands, the smoke run's limits on random ones, one launch counted."""
+    monkeypatch.setattr(qm, "SPLIT_K", split)
+    g = torch.Generator(device=cuda).manual_seed(m + bits + gs)
+    for integer in (True, False):
+        x, q, s, b = quant_operands(g, m, out_dim, in_dim, integer=integer, group_size=gs,
+                                    bits=bits)
+        before = qm.quant_matmul.launches
+        got = qm.quant_matmul(x, q, s, b, gs, bits)
+        torch.cuda.synchronize()
+        assert qm.quant_matmul.launches == before + 1
+        want = qm.quant_matmul_reference(x, q, s, b, gs, bits)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            _, worst, rel_l2 = kernel_disagreement(got, want)
+            assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_matmul_split_may_end_inside_a_stage(cuda, monkeypatch, bits):
+    """Splits of 96 with groups of 32: each split's last 64-wide stage is
+    half outside it (and, at 2 bits, starts off a 16-byte boundary, so its
+    words come by cp.async)."""
+    monkeypatch.setattr(qm, "SPLIT_K", 96)
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    x, q, s, b = quant_operands(g, 70, 130, 1152, integer=True, group_size=32, bits=bits)
+    assert torch.equal(qm.quant_matmul(x, q, s, b, 32, bits),
+                       qm.quant_matmul_reference(x, q, s, b, 32, bits))
+
+
+@pytest.mark.parametrize("split", [None, 512], ids=["planned", "512"])
+def test_matmul_gives_the_same_bits_twice(cuda, monkeypatch, split):
+    """Random bf16 at down_proj's shape: the splits' partials are added in
+    a fixed order, with no atomics, so repeated runs give identical bits."""
+    monkeypatch.setattr(qm, "SPLIT_K", split)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, q, s, b = quant_operands(g, 256, 4096, 14336, integer=False)
+    first = qm.quant_matmul(x, q, s, b)
+    assert all(torch.equal(first, qm.quant_matmul(x, q, s, b)) for _ in range(3))
+
+
+def test_matmul_call_is_capture_safe(cuda):
+    """One call at QKV's shape (a split walk: the matmul and its reduce
+    pass) captures into a CUDA graph with no memset or copy, and the graph
+    replays equal to the eager call after x changes in place."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, q, s, b = quant_operands(g, 256, 6144, 4096, integer=False)
+    x2 = torch.randn(x.shape, generator=g, device=cuda).to(x.dtype)
+    assert len(qm.split_ranges(4096, qm.plan_matmul(256, 6144, 4096, 132)[1])) > 1
+    nodes = graph_nodes(lambda: qm.quant_matmul(x, q, s, b))
+    assert nodes == {"kernel": 2, "memcpy": 0, "memset": 0, "other": 0}
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = qm.quant_matmul(x, q, s, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, qm.quant_matmul(x, q, s, b))
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = qm.quant_matmul(x, q, s, b)
+    assert torch.equal(out, eager)
+    _, worst, rel_l2 = kernel_disagreement(out, qm.quant_matmul_reference(x, q, s, b))
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL
+
+
 def test_quant_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x, q, s, b = quant_operands(torch.Generator(device=cuda).manual_seed(0), 2, 64, 128,
                                 integer=False)
@@ -228,6 +316,12 @@ def test_quant_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
             qm.quant_gemv(x, q, s, b)
     finally:
         qm.SPLIT_IN = None
+    qm.SPLIT_K = 96
+    try:
+        with pytest.raises(ValueError, match="SPLIT_K"):
+            qm.quant_matmul(torch.cat([x] * 8), q, s, b)
+    finally:
+        qm.SPLIT_K = None
 
 
 def test_tiny_packed_llama_on_the_card_matches_its_cpu_run(cuda):

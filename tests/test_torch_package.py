@@ -53,6 +53,18 @@ def test_no_source_file_names_jax():
                 assert "jax" not in stripped and "mlx_sharding_tpu." not in stripped, (path, line)
 
 
+def test_the_card_scripts_name_no_jax():
+    """chip_smoke.py and the timing scripts run on the card's machine, which
+    has no JAX."""
+    paths = [REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("*.py"))]
+    assert REPO / "scripts" / "quant_matmul_timing.py" in paths
+    for path in paths:
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            if stripped.startswith(("import ", "from ")):
+                assert "jax" not in stripped and "mlx_sharding_tpu." not in stripped, (path, line)
+
+
 @pytest.mark.parametrize("module", ["mlx_sharding_tpu_torch.cli.generate",
                                     "mlx_sharding_tpu_torch.server.openai_api"])
 def test_entry_points_refuse_to_start_without_a_card_unless_told(module, tmp_path):
@@ -90,7 +102,8 @@ def test_cli_generates_on_cpu_from_the_tiny_checkpoint(tmp_path, capsys):
 
 def test_kernel_sources_ship_with_the_package():
     cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
-    assert cfg["tool"]["setuptools"]["package-data"]["mlx_sharding_tpu_torch"] == ["csrc/*.cu"]
-    for source in ("flash_attention.cu", "paged_attention.cu", "quant_matmul.cu"):
+    assert cfg["tool"]["setuptools"]["package-data"]["mlx_sharding_tpu_torch"] == [
+        "csrc/*.cu", "csrc/*.cuh"]
+    for source in ("flash_attention.cu", "paged_attention.cu", "quant_matmul.cu", "tma.cuh"):
         assert (REPO / "mlx_sharding_tpu_torch" / "csrc" / source).is_file()
     assert "mlx_sharding_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
