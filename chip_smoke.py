@@ -36,27 +36,43 @@ final line:
    decode step, 8 x 4096, 32 x 1024, 1 x 4096), planned and whole walks;
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
-   byte-level tokenizer defined here; five requests (a 600-token completion
-   with logprobs, a streamed chat, a seeded top-p sample twice, a streamed
-   600-token completion for TTFT and decode tok/s), flash launches checked
-   against 32 x the prompt chunks, the kernel path checked against the
-   plain attention path of the same model, and the median of five
-   device-synchronised ``Generator.run_prefill`` calls of the 600-token
-   prompt after a warm-up;
+   byte-level tokenizer defined here. The Generator captures its CUDA
+   graphs first (16 chunk offsets, 4 decode blocks; their seconds and pool
+   bytes are printed); five requests (a 600-token completion with
+   logprobs, a streamed chat, a seeded top-p sample twice, a streamed
+   600-token completion for TTFT and decode tok/s) then run as replays:
+   flash launches checked against 32 x the prompt chunks, replays against
+   the requests' chunks and decode blocks, no capture and no eager forward;
+   the kernel path checked against the plain attention path of the same
+   model, and the median of five device-synchronised
+   ``Generator.run_prefill`` calls of the 600-token prompt after a warm-up;
+   the dense T=1 attention's device time over the whole capacity (what the
+   captured step runs) against the prefix alone, outputs within the bf16
+   limits. Then where the time goes, eager against graph, in the order eager,
+   graph, graph, eager in this process: the prefill median, a greedy
+   64-token stream's decode tok/s, and for one decode step and one
+   256-token prefill chunk the host ms, wall ms, device ms (torch.profiler)
+   and busy share, and the kernels by device time; the streams and a
+   seeded top-p sample token-identical both ways;
 5. main path, 4-bit (``--keep-quantized``): the same weights packed on the
    card in MLX's layout (group 64, 4 bits, fp16 scales and biases), fused,
-   served by the same server for two 600-token requests, every kernel's
-   launches checked against what the requests imply, the last position's
-   logits checked against a dense model holding the dequantized weights,
-   and the packed prefill's median timed as in phase 4.
+   its graphs captured, served by the same server for two 600-token
+   requests, every kernel's launches (replays included) checked against
+   what the requests imply, replays against their chunks and blocks, the
+   last position's logits checked against a dense model holding the
+   dequantized weights, the packed prefill's median, and where the time
+   goes, as in phase 4.
 6. continuous batching (run between 4 and 5, on phase 4's dense model):
    ``--concurrent 8 --paged-pool 16`` with 256-token pages, once with a
-   bf16 pool and once with an int8 pool. A seeded top-p request alone, then
-   nine requests at once (one of them its twin) through the port's server:
-   statuses, token counts, the twins' texts, a request that waited for
-   pages, and the launches of both attention kernels against the batcher's
-   own count of steps and chunks; then, at the engine level, every slot's
-   logits at its first decode step against the single-stream model's.
+   bf16 pool and once with an int8 pool, its decode blocks captured first.
+   A seeded top-p request alone, then nine requests at once (one of them
+   its twin) through the port's server: statuses, token counts, the twins'
+   texts, a request that waited for pages, the launches of both attention
+   kernels against the batcher's own count of steps and chunks, and its
+   replays against its blocks with no eager ragged forward; then six
+   requests through the decode graphs and through the eager steps,
+   token-identical; then, at the engine level, every slot's logits at its
+   first decode step against the single-stream model's.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -1112,7 +1128,7 @@ def phase_main_path(seed: int):
     """The port's server over Llama-3.1-8B at full width. Returns the flash
     launches of the counted run, the measured request numbers and the
     model."""
-    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
     from mlx_sharding_tpu_torch.models import build_model
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, convert_chat, make_server
@@ -1127,6 +1143,7 @@ def phase_main_path(seed: int):
         f"bf16 parameters drawn on the card in {time.perf_counter() - t0:.1f}s")
     tok = ByteTokenizer()
     gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    graph_line("[main]", gen.warm_up())
     server = make_server(ModelProvider(gen, tok, model_name="llama-3.1-8b"), "127.0.0.1", 0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1139,13 +1156,16 @@ def phase_main_path(seed: int):
     chat_len = len(tok.encode(convert_chat(messages)))
     force_a = {"65": 100.0}  # byte 'A': makes streamed token counts exact
     chunks = lambda n: -(-n // CHUNK)  # noqa: E731
+    blocks = lambda n: -(-(n - 1) // DEFAULT_DECODE_BLOCK)  # noqa: E731  (after the first token)
     stats = {}
     try:
         # warm-up outside the counted run: cuBLAS handles, the kernel library
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"warm-up request failed: {status}")
         fa.flash_attention.launches = 0
+        served = ServedRun(gen, model)
         expected_chunks = 0
+        expected_blocks = blocks(32) + blocks(24) + 2 * blocks(24) + blocks(64)
 
         status, body, _, t_end = post(port, "/v1/completions", {
             "prompt": long_prompt, "max_tokens": 32, "logprobs": 5})
@@ -1204,6 +1224,7 @@ def phase_main_path(seed: int):
         log(f"[main] flash_attention launches {launches}, expected {cfg.num_hidden_layers} "
             f"layers x {expected_chunks} chunks = {expected}")
         check(launches == expected, "flash launch count disagrees with the chunk count")
+        served.check("[main]", expected_chunks + expected_blocks)
     finally:
         server.shutdown()
         server.server_close()
@@ -1214,8 +1235,9 @@ def phase_main_path(seed: int):
     prompt = np.asarray([tok.encode(long_prompt)], np.int64)
     out = {}
     for chunk_len in (CHUNK, 192):
-        g = Generator(model, max_seq=MAX_SEQ, prefill_chunk=chunk_len)
-        out[chunk_len], _ = g.run_prefill(prompt, model.make_cache(1, g.max_seq))
+        g = Generator(model, max_seq=MAX_SEQ, prefill_chunk=chunk_len, cuda_graphs=False)
+        out[chunk_len] = g.run_prefill(prompt)
+        del g
     kern, plain = out[CHUNK].float(), out[192].float()
     check(kern.shape == (1, cfg.vocab_size) and bool(torch.isfinite(kern).all()),
           "prefill logits not finite or of the wrong shape")
@@ -1224,33 +1246,201 @@ def phase_main_path(seed: int):
     log(f"[main] last-position logits, kernel path vs plain path over 32 layers: relative L2 "
         f"error {rel:.3e} (tol {LOGITS_RTOL}), same argmax {same_top}")
     check(rel <= LOGITS_RTOL, "kernel path disagrees with the plain path")
-    stats["prefill_ms"], runs = prefill_median_ms(model, prompt)
-    log(f"[main] Generator.run_prefill of the 600-token prompt, dense: median "
+    stats["prefill_ms"], runs = prefill_median_ms(lambda: gen.run_prefill(prompt))
+    log(f"[main] Generator.run_prefill of the 600-token prompt, dense, graphs: median "
         f"{stats['prefill_ms']:.2f} ms of {len(runs)} device-synchronised runs after a warm-up "
         f"({' / '.join(f'{t:.2f}' for t in runs)})")
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[main] torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB")
+    log(f"[main] torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB "
+        f"(graph pool included)")
+    stats["steps"] = phase_step_timing(model, gen, "[main]", prompt)
+    del gen
+    stats["attention"] = full_capacity_attention_ms(seed, cfg.num_hidden_layers)
     return launches, stats, model
 
 
-def prefill_median_ms(model, prompt, runs=5):
-    """Median wall time, in ms, of ``Generator.run_prefill`` over the prompt
-    (device-synchronised before and after each call, a fresh cache made
-    outside the timed span), after one warm-up call; and the runs. Prefill
-    alone, without the server and the client: it moves less than one TTFT."""
-    from mlx_sharding_tpu_torch.generate import Generator
+def full_capacity_attention_ms(seed: int, layers: int) -> dict:
+    """The dense T=1 decode attention at Llama-3.1-8B's shapes, device ms of
+    one layer (``time_ms``: the L2 flushed, as a layer finds its K/V after
+    the other layers ran): over the whole 4096-position capacity, masked
+    from a device position (what a captured step runs), against the same
+    query over the 601-position prefix only (the host-offset plain path the
+    port's eager decode ran before), and the two outputs within the
+    kernels' bf16 limits of each other."""
+    from mlx_sharding_tpu_torch.ops.attention import masked_attention
+    from mlx_sharding_tpu_torch.ops.flash_attention import flash_attention_reference
 
-    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    q, k, v = attention_inputs(gen, 1, 1, MAX_SEQ, 32, 8, 128, 128, torch.bfloat16)
+    pos = torch.tensor([600], dtype=torch.int64, device="cuda")
+    scale = 128**-0.5
+    full = masked_attention(q, k, v, pos, scale)
+    prefix = flash_attention_reference(q, k, v, 600, scale, probs_dtype=torch.bfloat16)
+    _, worst, rel_l2 = kernel_disagreement(full, prefix)
+    check(worst <= 1 and rel_l2 <= REL_L2_TOL, "full-capacity attention disagrees with the prefix")
+    out = {"full_ms": time_ms(lambda: masked_attention(q, k, v, pos, scale)),
+           "prefix_ms": time_ms(lambda: flash_attention_reference(
+               q, k, v, 600, scale, probs_dtype=torch.bfloat16))}
+    log(f"[main] dense T=1 attention, one layer at position 600: over the whole capacity "
+        f"{out['full_ms']:.4f} ms, over the prefix {out['prefix_ms']:.4f} ms (device time, L2 "
+        f"flushed); {layers} layers: {layers * out['full_ms']:.3f} against "
+        f"{layers * out['prefix_ms']:.3f} ms a decode step; outputs agree (worst err/limit "
+        f"{worst:.3f}, relative L2 {rel_l2:.2e})")
+    return out
+
+
+class ServedRun:
+    """What a served run did to a generator's graphs (a Generator's or a
+    batcher's) and to the eager forwards of ``owner`` (the model, or the
+    engine for the batcher's ragged forwards): taken at construction and
+    checked by :meth:`check`."""
+
+    def __init__(self, generator, owner):
+        self.graphs, self.owner = generator.graphs, owner
+        self.replays, self.captures = self.graphs.replays, self.graphs.captures
+        self.forwards = owner.eager_forwards
+
+    def check(self, tag: str, want_replays: int) -> int:
+        replays = self.graphs.replays - self.replays
+        captures = self.graphs.captures - self.captures
+        forwards = self.owner.eager_forwards - self.forwards
+        log(f"{tag} served run: {replays} graph replays (the requests need {want_replays}), "
+            f"{captures} captures, {forwards} eager forwards on the card")
+        check(replays == want_replays, "graph replays disagree with the requests' steps")
+        check(captures == 0 and forwards == 0, "a served request ran a step eagerly")
+        return replays
+
+
+def graph_line(tag: str, captured: dict) -> None:
+    log(f"{tag} captured {captured['graphs']} CUDA graphs in {captured['seconds']:.2f}s; graph "
+        f"pool {captured['pool_bytes'] / 1e6:.1f} MB")
+
+
+def host_and_wall_ms(fn, calls: int, steps: int):
+    """(host ms, wall ms) per step of ``calls`` calls of ``fn``, each
+    ``steps`` steps: host, until the last call returns (what the host takes
+    to enqueue them); wall, until the card has run them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return host * 1e3 / (calls * steps), wall * 1e3 / (calls * steps)
+
+
+def kernel_ms(fn, calls: int) -> tuple:
+    """Device time by kernel name (ms, summed over the window) of ``calls``
+    calls of ``fn`` under ``torch.profiler`` (CPU and CUDA activities), and
+    the window's wall ms (profiled, so the host is slower than without)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return by_name, wall
+
+
+def step_numbers(fn, calls: int, steps: int, profiled: int) -> dict:
+    """One step's host ms and wall ms over ``calls`` calls of ``fn`` (each
+    ``steps`` steps), its device ms (the profiler's kernel time per step,
+    over ``profiled`` more calls), the device's busy share of the
+    unprofiled wall time, and the six kernels that take most of the device
+    time."""
+    fn()
+    host, wall = host_and_wall_ms(fn, calls, steps)
+    kernels, prof_wall = kernel_ms(fn, profiled)
+    device = sum(kernels.values()) / (profiled * steps)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"host_ms": host, "wall_ms": wall, "device_ms": device,
+            "busy": device / wall if device else None,
+            "profiled_busy": sum(kernels.values()) / prof_wall,
+            "kernels": [(name[:70], ms / (profiled * steps)) for name, ms in top]}
+
+
+def stream_tokens(gen, prompt: list, **kw) -> tuple:
+    """The tokens of one request through ``gen.generate_step``, and its
+    decode tok/s (tokens after the first over the time after the first)."""
+    toks, t_first = [], None
+    for t, _ in gen.generate_step(prompt, **kw):
+        if t_first is None:
+            t_first = time.perf_counter()
+        toks.append(t)
+    torch.cuda.synchronize()
+    return toks, (len(toks) - 1) / (time.perf_counter() - t_first)
+
+
+def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
+    """Where the time goes, eager against graph, in one process, in the
+    order eager, graph, graph, eager: ``gen`` (the served Generator, its
+    graphs captured) and a Generator of the same model that runs the same
+    steps eagerly. Each turn: the ``run_prefill`` median of the prompt, one
+    greedy 64-token stream (its decode tok/s), one decode step (blocks of
+    16 greedy steps) and one 256-token prefill chunk (at offset 256): host
+    ms, wall ms, the device's busy share and the kernels by device time.
+    The streams must be token-identical both ways, and a seeded top-p
+    sample too."""
+    from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
+                                                 Generator)
+
+    gens = {"graph": gen,
+            "eager": Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)}
+    ids = prompt[0].tolist()
+    seeded = dict(max_tokens=24, temperature=0.8, top_p=0.9, seed=1234)
+    rows, streams = [], {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        g = gens[mode]
+        row = {"mode": mode}
+        row["prefill_ms"], _ = prefill_median_ms(lambda g=g: g.run_prefill(prompt), runs=3)
+        toks, row["decode_tok_s"] = stream_tokens(g, ids, max_tokens=64)
+        sampled, _ = stream_tokens(g, ids[:300], **seeded)
+        streams.setdefault(mode, []).append((toks, sampled))
+        list(g.generate_step(ids, max_tokens=1))  # the state of a request at its first token
+        row["decode"] = step_numbers(
+            lambda g=g: g.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
+            calls=2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
+        row["prefill_chunk"] = step_numbers(lambda g=g: g.run_chunk(CHUNK), calls=4, steps=1,
+                                            profiled=2)
+        for what in ("decode", "prefill_chunk"):
+            r = row[what]
+            busy = "not measured" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
+            log(f"{tag} {mode} {what.replace('_', ' ')}: host {r['host_ms']:.3f} ms, wall "
+                f"{r['wall_ms']:.3f} ms, device {r['device_ms']:.3f} ms per step; device busy "
+                f"{busy} of the wall ({100 * r['profiled_busy']:.1f}% under the profiler); "
+                + ", ".join(f"{n} {ms:.3f}" for n, ms in r["kernels"]))
+        log(f"{tag} {mode}: run_prefill median {row['prefill_ms']:.2f} ms, greedy 64-token stream "
+            f"{row['decode_tok_s']:.2f} tok/s")
+        rows.append(row)
+    check(all(run == streams["eager"][0] for runs in streams.values() for run in runs),
+          "the graph path's streams differ from the eager steps'")
+    log(f"{tag} greedy 600-token-prompt 64-token streams and a seeded top-p 24-token sample: "
+        f"token-identical through graphs and eagerly on the card, twice each")
+    del gens["eager"]
+    return rows
+
+
+def prefill_median_ms(prefill, runs=5):
+    """Median wall time, in ms, of ``prefill()`` (one ``Generator.run_prefill``
+    of a prompt, device-synchronised before and after each call), after one
+    warm-up call; and the runs. Prefill alone, without the server and the
+    client: it moves less than one TTFT."""
     times = []
     for i in range(runs + 1):
-        cache = model.make_cache(1, gen.max_seq)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gen.run_prefill(prompt, cache)
+        prefill()
         torch.cuda.synchronize()
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
-        del cache
     return statistics.median(times), times
 
 
@@ -1314,6 +1504,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     batcher = ContinuousBatcher(engine, decode_block=8)
     log(f"{tag} engine: {SLOTS} slots, pool {POOL_PAGES} pages of {PAGE} tokens "
         f"({batcher.cache.nbytes / 1e6:.1f} MB of {kv_dtype} K/V), {batcher.async_reason}")
+    graph_line(tag, batcher.warm_up())
     tok = ByteTokenizer()
     server = make_server(ModelProvider(batcher, tok, model_name="llama-3.1-8b-cb"), "127.0.0.1", 0)
     port = server.server_address[1]
@@ -1335,6 +1526,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         check(status == 200, f"warm-up request failed: {status}")
         pa.paged_attention.launches = fa.flash_attention.launches = 0
         steps0, chunks0, waits0 = batcher.decode_steps, batcher.prefill_chunks, batcher.page_waits
+        served = ServedRun(batcher, engine)
 
         status, alone, _, _ = post(port, "/v1/completions", jobs[-1])
         check(status == 200, f"seeded request alone: status {status}: {alone}")
@@ -1357,6 +1549,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         chunks = batcher.prefill_chunks - chunks0
         waits = batcher.page_waits - waits0
         high_water = batcher.pages_high_water
+        served.check(tag, steps // batcher.decode_block)
     finally:
         server.shutdown()
         server.server_close()
@@ -1394,22 +1587,24 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         check(launches[name] == layers * count, f"{name} launch count disagrees with the batcher")
     decoded = sum(max_tokens - 1 for _, max_tokens in BATCH_MIX)
     stats = {"decode_tok_s": decoded / decode_s, "mix_tok_s": sum(m for _, m in BATCH_MIX) / wall,
-             "ttft_ms": [t * 1e3 for t in ttfts], "pool_bytes": batcher.cache.nbytes}
+             "ttft_ms": [t * 1e3 for t in ttfts], "pool_bytes": batcher.cache.nbytes,
+             "graph_pool_bytes": batcher.graphs.pool_bytes()}
     log(f"{tag} aggregate decode {stats['decode_tok_s']:.2f} tok/s over {SLOTS} slots (tokens "
         f"after each request's first / host time in decode blocks) against "
         f"{single_stream_tok_s:.2f} tok/s for one stream (phase 4); the mix's "
         f"{sum(m for _, m in BATCH_MIX)} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
     del batcher, engine, server
+    batcher_parity(model, kv_dtype, tag)
 
     # the engine level: each slot's first decode step against the
     # single-stream model's first T=1 step on the same prompt and token
     prompts = [tok.encode(mix_prompt(i, n)) for i, (n, _) in enumerate(BATCH_MIX[:SLOTS])]
     first, got = first_step_logits(model, kv_dtype, prompts)
-    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)
     worst = 0.0
     for slot, prompt in enumerate(prompts):
-        _, cache = gen.run_prefill(np.asarray([prompt], np.int64), model.make_cache(1, MAX_SEQ))
-        want, _ = model(torch.tensor([[first[slot]]], device=model.device), cache)
+        gen.run_prefill(np.asarray([prompt], np.int64))
+        want, _ = model(torch.tensor([[first[slot]]], device=model.device), gen.cache)
         want = want[0, -1].float()
         check(bool(torch.isfinite(got[slot]).all()), f"slot {slot}: logits not finite")
         rel = ((got[slot] - want).norm() / want.norm()).item()
@@ -1418,12 +1613,54 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
             f"single-stream T=1 step: relative L2 {rel:.3e} (tol {LOGITS_RTOL}), same argmax "
             f"{bool(got[slot].argmax() == want.argmax())}")
         check(rel <= LOGITS_RTOL, f"slot {slot} disagrees with the single-stream path")
-    del got
+    del got, gen
     stats["worst_logits_rel_l2"] = worst
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"{tag} torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB "
         f"(16.06 GB of weights)")
     return launches, stats
+
+
+def batcher_parity(model, kv_dtype: str, tag: str) -> None:
+    """The batcher's decode graphs against the same steps run eagerly on
+    the card: five greedy requests (prompts of 40-1000 tokens, 40 tokens
+    each) and a seeded top-p one, at once over 8 slots; every stream
+    token-identical both ways."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    jobs = [(tok.encode(mix_prompt(20 + i, n)), dict(max_tokens=40))
+            for i, n in enumerate((40, 300, 600, 257, 1000))]
+    jobs.append((tok.encode(mix_prompt(30, 300)),
+                 dict(max_tokens=40, temperature=0.8, top_p=0.9, seed=99)))
+    streams = {}
+    for graphs in (True, False):
+        engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                                pool_pages=POOL_PAGES, page_size=PAGE, kv_dtype=kv_dtype,
+                                device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=8, cuda_graphs=graphs)
+        batcher.warm_up()
+        results = [None] * len(jobs)
+
+        def work(i, batcher=batcher):
+            prompt, kw = jobs[i]
+            results[i] = [t for t, _ in batcher.generate_step(prompt, **kw)]
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        batcher.close()
+        check(all(r is not None and len(r) == 40 for r in results),
+              f"{tag} parity run ({'graphs' if graphs else 'eager'}): a request did not finish")
+        streams[graphs] = results
+        del batcher, engine
+    check(streams[True] == streams[False], f"{tag} the batcher's decode graphs and its eager "
+          "steps give other tokens")
+    log(f"{tag} five greedy requests and a seeded top-p one, 40 tokens each, at once: "
+        f"token-identical through the decode graphs and the eager steps on the card")
 
 
 def pack_llama(dense, config: dict, group_size=GROUP_SIZE, bits=BITS, param_dtype=torch.float16):
@@ -1456,7 +1693,7 @@ def phase_main_path_4bit(dense, seed: int):
     dequantized weights (the dense model itself, overwritten in place), then
     the dense weights freed and the packed, fused model served. Returns the
     launches of the counted run per kernel and the request numbers."""
-    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
     from mlx_sharding_tpu_torch.models.base import QuantizedLinear
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
@@ -1482,9 +1719,9 @@ def phase_main_path_4bit(dense, seed: int):
     gen = Generator(packed, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
     log(f"[main-4bit] fused {gen.fused_projections}")
     prompt = np.asarray([tok.encode(long_prompt)], np.int64)
-    got, _ = gen.run_prefill(prompt, packed.make_cache(1, gen.max_seq))
-    dgen = Generator(dense, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
-    want, _ = dgen.run_prefill(prompt, dense.make_cache(1, dgen.max_seq))
+    got = gen.run_prefill(prompt)
+    dgen = Generator(dense, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)
+    want = dgen.run_prefill(prompt)
     got, want = got.float(), want.float()
     check(got.shape == (1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
           "packed prefill logits not finite or of the wrong shape")
@@ -1498,6 +1735,7 @@ def phase_main_path_4bit(dense, seed: int):
     dense.to("meta")  # frees the dense weights: the packed model serves alone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    graph_line("[main-4bit]", gen.warm_up())
 
     server = make_server(ModelProvider(gen, tok, model_name="llama-3.1-8b-4bit"), "127.0.0.1", 0)
     port = server.server_address[1]
@@ -1509,6 +1747,7 @@ def phase_main_path_4bit(dense, seed: int):
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"warm-up request failed: {status}")
         fa.flash_attention.launches = qm.quant_gemv.launches = qm.quant_matmul.launches = 0
+        served = ServedRun(gen, packed)
         status, body, _, t_end = post(port, "/v1/completions", {
             "prompt": long_prompt, "max_tokens": 32, "logprobs": 5})
         check(status == 200, f"completion: status {status}: {body}")
@@ -1534,11 +1773,15 @@ def phase_main_path_4bit(dense, seed: int):
         launches = {"flash_attention": fa.flash_attention.launches,
                     "quant_gemv": qm.quant_gemv.launches,
                     "quant_matmul": qm.quant_matmul.launches}
+        # whole decode blocks of 16: 31 and 63 tokens after the first
+        block_counts = (-(-31 // DEFAULT_DECODE_BLOCK), -(-63 // DEFAULT_DECODE_BLOCK))
+        served.check("[main-4bit]", 2 * 3 + sum(block_counts))
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    layers, chunks, steps = cfg.num_hidden_layers, 2 * 3, 31 + 63
+    layers, chunks = cfg.num_hidden_layers, 2 * 3
+    steps = DEFAULT_DECODE_BLOCK * sum(block_counts)
     expected = {
         "flash_attention": layers * chunks,
         # fused QKV, o_proj, fused gate+up and down_proj per layer and chunk
@@ -1549,13 +1792,14 @@ def phase_main_path_4bit(dense, seed: int):
     for name, want_n in expected.items():
         log(f"[main-4bit] {name} launches {launches[name]}, expected {want_n}")
         check(launches[name] == want_n, f"{name} launch count disagrees with the requests")
-    stats["prefill_ms"], runs = prefill_median_ms(packed, prompt)
-    log(f"[main-4bit] Generator.run_prefill of the 600-token prompt, packed: median "
+    stats["prefill_ms"], runs = prefill_median_ms(lambda: gen.run_prefill(prompt))
+    log(f"[main-4bit] Generator.run_prefill of the 600-token prompt, packed, graphs: median "
         f"{stats['prefill_ms']:.2f} ms of {len(runs)} device-synchronised runs after a warm-up "
         f"({' / '.join(f'{t:.2f}' for t in runs)})")
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main-4bit] torch.cuda.max_memory_allocated while serving packed "
-        f"{stats['max_memory_allocated_gb']:.2f} GB")
+        f"{stats['max_memory_allocated_gb']:.2f} GB (graph pool included)")
+    stats["steps"] = phase_step_timing(packed, gen, "[main-4bit]", prompt)
     return launches, stats
 
 
@@ -1574,22 +1818,32 @@ def main(argv=None) -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
+    t0 = time.perf_counter()
+
+    def lap(what):
+        log(f"[time] {what} done {time.perf_counter() - t0:.1f}s into the run")
+
     build_kernels()
     max_err = phase_kernels(args.seed)
     quant_err = phase_quant_kernels(args.seed)
     paged_err = phase_paged_kernels(args.seed)
+    lap("kernel builds and checks")
     if args.kernels_only:
         return 0
     rows = phase_timing(args.seed)
     quant_rows = phase_quant_timing(args.seed)
     phase_gemv_split_timing(args.seed)
     paged_rows = phase_paged_timing(args.seed)
+    lap("kernel timing")
     launches, single, model = phase_main_path(args.seed)
+    lap("main path")
     paged_launches = 0
     for kv_dtype in ("bf16", "int8"):
         batch_launches, _ = phase_batching(model, args.seed, kv_dtype, single["decode_tok_s"])
         paged_launches += batch_launches["paged_attention"]
+        lap(f"continuous batching, {kv_dtype} pool")
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
+    lap("main path, 4-bit")
     del model
 
     # the kernel record: per-launch means over the main path's chunk offsets

@@ -6,8 +6,12 @@ Dense layout: keys and values stacked over the stage's local layers,
 ``k, v : (L, B, S, H_kv, D)``, plus ``offset``, the number of valid
 positions. Unlike the JAX cache, whose buffers are immutable and donated,
 :func:`write_layer_kv` updates K/V IN PLACE, and ``offset`` is a host
-``int``: the generator always knows it, and a device scalar would force a
-sync to read it.
+``int``: the generator always knows it, and reading a device scalar would
+force a sync. A cache that captured steps run over also carries ``pos``, the
+same position as a (1,) int64 device tensor (JAX's ``offset`` array): the
+forward reads it for the K/V write, RoPE and the T=1 attention mask, and the
+step that owns the cache moves it, so a replayed step reads a position that
+no host int baked into the graph.
 
 Paged layout (:class:`PagedKV`): one pool per K and V of shape
 ``(L, P+1, page, H_kv, D)``, the JAX leaf ``(S, L, P+1, B, page, H, D)``
@@ -20,6 +24,7 @@ and rewinding a slot's offset (async ticks) come with later slices.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +35,8 @@ class KVCache:
     k: torch.Tensor  # (L, B, S, H_kv, D)
     v: torch.Tensor  # (L, B, S, H_kv, D)
     offset: int = 0  # number of valid positions
+    # the position as a (1,) int64 tensor on the cache's device, or None
+    pos: Optional[torch.Tensor] = None
 
     @property
     def max_seq(self) -> int:
@@ -52,10 +59,25 @@ def init_cache(
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def write_layer_kv(k_buf, v_buf, k_new, v_new, offset: int):
+def write_layer_kv(k_buf, v_buf, k_new, v_new, offset):
     """Write ``k_new``/``v_new`` (B, T, H_kv, D) into one layer's buffers
-    (B, S, H_kv, D) at ``offset``, in place. Returns the buffers."""
+    (B, S, H_kv, D) at ``offset``, in place. Returns the buffers.
+
+    ``offset`` is a host int, checked against the capacity, or a (1,) device
+    tensor. A device position is clamped to ``S - T`` as JAX's
+    ``dynamic_update_slice`` clamps its start: a write past the capacity
+    lands on the last rows instead of raising or leaving the buffer. The
+    single-stream generator runs whole decode blocks, so the steps past a
+    request's last token may write there; their tokens are dropped, and no
+    valid row sits that far (the last token a request keeps is never
+    written)."""
     t = k_new.shape[1]
+    if isinstance(offset, torch.Tensor):
+        start = offset.clamp(0, k_buf.shape[1] - t)
+        rows = start + torch.arange(t, device=k_buf.device)
+        k_buf.index_copy_(1, rows, k_new.to(k_buf.dtype))
+        v_buf.index_copy_(1, rows, v_new.to(v_buf.dtype))
+        return k_buf, v_buf
     if offset + t > k_buf.shape[1]:
         raise ValueError(f"KV write of {t} rows at {offset} overflows capacity {k_buf.shape[1]}")
     k_buf[:, offset : offset + t] = k_new
@@ -64,6 +86,8 @@ def write_layer_kv(k_buf, v_buf, k_new, v_new, offset: int):
 
 
 def advance(cache: KVCache, n_tokens: int) -> KVCache:
+    """The host offset moved by ``n_tokens``; ``pos`` is left to the step
+    that owns it."""
     return dataclasses.replace(cache, offset=cache.offset + int(n_tokens))
 
 
@@ -77,7 +101,9 @@ def check_capacity(cache: KVCache, n_new: int) -> None:
 
 
 def reset(cache: KVCache) -> KVCache:
-    """Invalidate without reallocating."""
+    """Invalidate without reallocating (``pos`` is zeroed on the device)."""
+    if cache.pos is not None:
+        cache.pos.zero_()
     return dataclasses.replace(cache, offset=0)
 
 

@@ -4,7 +4,9 @@
     python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
         [--keep-quantized] [--device cpu]
 
-Streams the text and reports prompt/generation tok/s and TTFT on stderr.
+Streams the text and reports prompt/generation tok/s and TTFT on stderr. On
+a card the prefill chunks and decode blocks are captured as CUDA graphs at
+load (their count, capture seconds and pool bytes go to stderr).
 """
 
 from __future__ import annotations
@@ -44,6 +46,10 @@ def main(argv=None):
 
     model, _ = load_model(args.model, device=device, keep_quantized=args.keep_quantized)
     generator = Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+    captured = generator.warm_up()  # on a card: every chunk offset and decode block as a graph
+    if captured:
+        print(f"captured {captured['graphs']} CUDA graphs in {captured['seconds']:.2f}s, "
+              f"graph pool {captured['pool_bytes'] / 1e6:.1f} MB", file=sys.stderr)
     tokenizer = load_tokenizer(args.model)
     if getattr(tokenizer, "chat_template", None):
         prompt_ids = tokenizer.apply_chat_template(

@@ -6,6 +6,7 @@ machine without a card raises instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "(--device cpu on the command line) to run on the CPU"
         )
     return dev
+
+
+def upload(array: np.ndarray, device) -> torch.Tensor:
+    """One host-to-device copy that does not make the host wait for the
+    card: from pinned memory, asynchronously, on a CUDA device."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

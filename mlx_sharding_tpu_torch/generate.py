@@ -5,18 +5,29 @@
   is rounded up to a chunk multiple so every padded write fits. Pad rows are
   overwritten by later contiguous writes before any valid query attends
   them, so they need no mask beyond the causal rule.
-- Decode runs in blocks of ``DEFAULT_DECODE_BLOCK`` T=1 steps with
-  sampling on the device; the tokens (and the logprob summaries, when asked
-  for) come to the host once per block. Block i+1 is enqueued before block
-  i is read, so the host's read and its Python loop overlap the card's
-  work. The server's ``--decode-block`` flag comes with a later slice.
+- Decode runs in whole blocks of ``DEFAULT_DECODE_BLOCK`` T=1 steps with
+  sampling on the device, as JAX's ``blocked_token_stream`` does: the tokens
+  past the request's last are dropped. The tokens (and the logprob
+  summaries, when asked for) come to the host once per block. Block i+1 is
+  enqueued before block i is read, so the host's read and its Python loop
+  overlap the card's work.
+- On a CUDA device each prefill chunk and each decode block is one captured
+  CUDA graph (``graphs.py``), JAX's ``prefill_fn`` and ``decode_block_fn``
+  under ``jax.jit``: a chunk's graph per chunk offset (the flash kernel
+  bakes the offset into its launch), a block's per (block size, window,
+  sampler branch, logprobs). The graphs hold the addresses of the
+  Generator's buffers, so it owns one cache of ``max_seq`` and one of every
+  other carry, and resets them per request. On the CPU the same step
+  functions run eagerly.
 
-The prompt cache, the sequence-parallel paths and speculation come with
-later slices.
+The server's ``--decode-block`` flag, the prompt cache, the
+sequence-parallel paths and speculation come with later slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
@@ -24,10 +35,13 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.sample import (
     init_recent_tokens,
     make_sampler_params,
-    sample_token,
+    sample_token_batched,
+    set_sampler_slot,
+    stack_sampler_params,
     update_recent_tokens,
 )
 from mlx_sharding_tpu_torch.tokenizer_utils import (
@@ -66,21 +80,23 @@ def block_token_logprobs(outs, j, row=0) -> TokenLogprobs:
     return TokenLogprobs(float(outs[1][j, row]), outs[3][j, row], outs[2][j, row])
 
 
-def blocked_token_stream(dispatch, carry, remaining, block_size, want_logprobs):
-    """The blocked decode loop with one block of lookahead.
-    ``dispatch(carry, n) -> (block_outputs, carry)`` enqueues ``n`` steps;
-    the last block runs only the steps still needed."""
-    sizes = [min(block_size, remaining - i) for i in range(0, remaining, block_size)]
-    pending, carry = dispatch(carry, sizes[0])
-    pending = [pending]
-    for bi in range(len(sizes)):
-        if bi + 1 < len(sizes):
-            nxt, carry = dispatch(carry, sizes[bi + 1])
-            pending.append(nxt)
+def blocked_token_stream(dispatch, remaining, block_size, want_logprobs):
+    """The blocked decode loop with one block of lookahead: ``dispatch()``
+    enqueues one whole block of ``block_size`` steps and returns its stacked
+    outputs; the tokens past ``remaining`` are never yielded."""
+    n_blocks = -(-remaining // block_size)
+    pending = [dispatch()]
+    emitted = 0
+    for bi in range(n_blocks):
+        if bi + 1 < n_blocks:
+            pending.append(dispatch())
         outs = [o.cpu().numpy() for o in pending.pop(0)]
         for j in range(outs[0].shape[0]):
+            if emitted >= remaining:
+                return
             lp = block_token_logprobs(outs, j) if want_logprobs else None
             yield int(outs[0][j, 0]), lp
+            emitted += 1
 
 
 @dataclass
@@ -97,9 +113,12 @@ class StreamChunk:
 
 
 class Generator:
-    """Serves many requests, one at a time, with one model; each request
-    gets its own cache (in the model's dtype), repetition window and random
-    generator.
+    """Serves many requests, one at a time, with one model. It owns one
+    cache (in the model's dtype) of ``max_seq`` positions, one sampler row,
+    one random generator and a repetition window per window size, and
+    resets them per request: on a CUDA device its captured steps hold their
+    addresses. ``cuda_graphs=False`` runs the same steps eagerly on the card
+    (for checks and measurements against the graphs).
 
     At construction it fuses the model's packed projection groups (QKV,
     gate+up; ``models.base.apply_projection_fusion``) so that each group is
@@ -114,42 +133,124 @@ class Generator:
         *,
         max_seq: int = 4096,
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
+        cuda_graphs: bool = True,
     ):
+        from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
         from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
 
         self.model = model
         self.fused_projections = apply_projection_fusion(model)
-        self.device = model.device
+        self.device = dev = model.device
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
         self.prefill_chunk = prefill_chunk
+        model.place_constants(dev)
+        self.cache = dataclasses.replace(model.make_cache(1, self.max_seq),
+                                         pos=torch.zeros(1, dtype=torch.int64, device=dev))
+        self.sp = stack_sampler_params([make_sampler_params(device="cpu")], device=dev)
+        self.rng = torch.Generator(device=dev)
+        self._recent: dict[int, torch.Tensor] = {}  # window size -> (1, W) int64
+        self._tok = torch.zeros(1, dtype=torch.int64, device=dev)  # the last token
+        self._chunk = torch.zeros((1, prefill_chunk), dtype=torch.int64, device=dev)
+        self._last = torch.zeros(1, dtype=torch.int64, device=dev)  # its last valid row
+        self.graphs = (StepGraphs(dev, model_pool(model))
+                       if dev.type == "cuda" and cuda_graphs else None)
 
-    def run_prefill(self, prompt: np.ndarray, cache):
-        """Chunked prefill of ``prompt`` (1, T) into ``cache``. Returns the
-        logits (1, V) at the last valid position, and the cache."""
-        c = self.prefill_chunk
-        logits = None
-        for start in range(0, prompt.shape[1], c):
-            chunk = prompt[:, start : start + c]
-            n_valid = chunk.shape[1]
-            if n_valid < c:
-                chunk = np.pad(chunk, ((0, 0), (0, c - n_valid)))
-            tokens = torch.from_numpy(np.ascontiguousarray(chunk, np.int64)).to(self.device)
-            out, cache = self.model(tokens, cache, n_valid=n_valid, logits_at=n_valid - 1)
-            logits = out[:, 0]
-        return logits, cache
+    # -------------------------------------------------------------- steps
+    def _run(self, key, step, *, state, generators=()):
+        """One step: a replay of its graph on the card, the step itself
+        elsewhere (or with ``cuda_graphs=False``)."""
+        if self.graphs is None:
+            return step()
+        return self.graphs.run(key, step, state=state, generators=generators)
 
-    def _decode_block(self, carry, steps, sp, gen, want_logprobs):
-        """``steps`` decode steps enqueued back to back; nothing is read on
-        the host. Returns the stacked per-step outputs and the carry."""
-        tok, cache, recent = carry
-        outs = []
+    def _prefill_step(self, offset: int):
+        """One chunk at ``offset``: ``_chunk`` in, the logits (1, V) at row
+        ``_last`` out; the device position ends at ``offset + _last + 1``."""
+        pos = self.cache.pos
+        pos.fill_(offset)
+        out, _ = self.model(self._chunk, dataclasses.replace(self.cache, offset=offset),
+                            logits_at=self._last)
+        pos.add_(self._last + 1)
+        return out[:, 0]
+
+    def _decode_steps(self, steps: int, window: int, sampled: bool, want_logprobs: bool):
+        """``steps`` decode steps from ``_tok`` at the device position, each
+        sampled with the sampler row, ``rng`` and the window; the carries
+        are updated in place. Returns the stacked per-step outputs."""
+        recent = self._recent[window]
+        tok, outs = self._tok, []
         for _ in range(steps):
-            logits, cache = self.model(tok[:, None], cache)
-            tok, logprobs = sample_token(gen, logits[:, -1], sp, recent)
-            recent = update_recent_tokens(recent, tok)
+            logits, _ = self.model(tok[:, None], self.cache)
+            self.cache.pos.add_(1)
+            tok, logprobs = sample_token_batched(self.rng, logits[:, -1], self.sp, recent,
+                                                 sampled=sampled)
+            recent.copy_(update_recent_tokens(recent, tok))
             outs.append((tok, *block_lp_outputs(tok, logprobs)) if want_logprobs else (tok,))
-        return tuple(torch.stack(x) for x in zip(*outs)), (tok, cache, recent)
+        self._tok.copy_(tok)
+        return tuple(torch.stack(x) for x in zip(*outs))
 
+    def _window(self, size: int) -> torch.Tensor:
+        if size not in self._recent:
+            self._recent[size] = torch.full((1, size), -1, dtype=torch.int64,
+                                            device=self.device)
+        return self._recent[size]
+
+    def run_chunk(self, offset: int) -> torch.Tensor:
+        """One prefill chunk at ``offset`` from the chunk buffers (a replay
+        on the card); returns its logits (1, V), the static output."""
+        return self._run(("prefill", offset), functools.partial(self._prefill_step, offset),
+                         state=(self.cache.pos,))
+
+    def run_prefill(self, prompt: np.ndarray) -> torch.Tensor:
+        """Chunked prefill of ``prompt`` (1, T) into the Generator's cache
+        from position 0. Returns the logits (1, V) at the last valid
+        position; the cache's offset and device position end at T."""
+        c = self.prefill_chunk
+        n = prompt.shape[1]
+        padded = np.zeros((1, -(-n // c) * c), np.int64)
+        padded[:, :n] = prompt
+        tokens = upload(padded, self.device)
+        logits = None
+        for start in range(0, n, c):
+            n_valid = min(c, n - start)
+            self._chunk.copy_(tokens[:, start : start + c])
+            self._last.fill_(n_valid - 1)
+            logits = self.run_chunk(start)
+            self.cache = dataclasses.replace(self.cache, offset=start + n_valid)
+        return logits.clone()
+
+    def decode_block(self, steps: int, window: int, sampled: bool, want_logprobs: bool):
+        """Enqueue ``steps`` decode steps (one replay on the card) and
+        return their stacked outputs ``(tokens (K, 1)[, chosen, top
+        values, top indices])``, nothing read on the host."""
+        key = ("decode", steps, window, sampled, want_logprobs)
+        step = functools.partial(self._decode_steps, steps, window, sampled, want_logprobs)
+        outs = self._run(key, step, state=(self.cache.pos, self._tok, self._window(window)),
+                         generators=(self.rng,) if sampled else ())
+        self.cache = dataclasses.replace(self.cache, offset=self.cache.offset + steps)
+        return tuple(o.clone() for o in outs)
+
+    def warm_up(self) -> dict:
+        """Capture, before the first request, every prefill chunk's graph
+        (one per chunk offset) and the decode blocks of the default window
+        (greedy and sampled, with and without logprobs). Returns the graphs
+        captured, their capture seconds and the pool's bytes; without
+        graphs, nothing is captured and it returns ``{}``."""
+        if self.graphs is None:
+            return {}
+        c = self.prefill_chunk
+        self._chunk.zero_()
+        self._last.fill_(c - 1)
+        for start in range(0, self.max_seq, c):
+            self.run_chunk(start)
+        for sampled in (False, True):
+            for want_logprobs in (False, True):
+                self.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, sampled, want_logprobs)
+        torch.cuda.synchronize(self.device)
+        return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
+                "pool_bytes": self.graphs.pool_bytes()}
+
+    # -------------------------------------------------------------- requests
     def generate_step(
         self,
         prompt_tokens,
@@ -166,9 +267,7 @@ class Generator:
         """Yields ``(token, logprobs)`` per generated token; ``logprobs`` is
         a :class:`TokenLogprobs` when ``want_logprobs``, else None."""
         sp = make_sampler_params(temperature, top_p, repetition_penalty, logit_bias,
-                                 device=self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(time.time_ns() & 0x7FFFFFFF if seed is None else seed)
+                                 device="cpu")
         prompt = np.asarray(prompt_tokens, np.int64).reshape(1, -1)
         n_prompt = prompt.shape[1]
         if n_prompt == 0:
@@ -178,11 +277,18 @@ class Generator:
                 f"prompt ({n_prompt}) + max_tokens ({max_tokens}) exceeds KV "
                 f"capacity {self.max_seq}"
             )
-        recent = init_recent_tokens(1, repetition_context_size, prompt, device=self.device)
-        cache = self.model.make_cache(1, self.max_seq)
-        last_logits, cache = self.run_prefill(prompt, cache)
-        tok, logprobs = sample_token(gen, last_logits, sp, recent)
-        recent = update_recent_tokens(recent, tok)
+        set_sampler_slot(self.sp, 0, sp)
+        self.rng.manual_seed(time.time_ns() & 0x7FFFFFFF if seed is None else seed)
+        # at penalty 1 the window changes nothing: every request shares one
+        window = repetition_context_size if sp.repetition_penalty != 1.0 else REPETITION_WINDOW
+        recent = self._window(window)
+        recent.copy_(init_recent_tokens(1, window, prompt, device=self.device))
+        sampled = sp.temperature > 0
+        last_logits = self.run_prefill(prompt)
+        tok, logprobs = sample_token_batched(self.rng, last_logits, self.sp, recent,
+                                             sampled=sampled)
+        recent.copy_(update_recent_tokens(recent, tok))
+        self._tok.copy_(tok)
         first_lp = None
         if want_logprobs:
             chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
@@ -191,9 +297,10 @@ class Generator:
         remaining = max_tokens - 1
         if remaining <= 0:
             return
+        block = DEFAULT_DECODE_BLOCK
         yield from blocked_token_stream(
-            lambda carry, n: self._decode_block(carry, n, sp, gen, want_logprobs),
-            (tok, cache, recent), remaining, DEFAULT_DECODE_BLOCK, want_logprobs,
+            lambda: self.decode_block(block, window, sampled, want_logprobs),
+            remaining, block, want_logprobs,
         )
 
 

@@ -109,6 +109,8 @@ class BaseModel(nn.Module):
         # (the embedding's row dequantization) produce; the loader sets it
         # to the load dtype so that packed and dense loads agree
         self.compute_dtype = dtype
+        # forwards run eagerly on the card (a captured step's replays run none)
+        self.eager_forwards = 0
 
     @staticmethod
     def _linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
@@ -126,6 +128,9 @@ class BaseModel(nn.Module):
         (B,) tensor of per-row positions. Returns ``(h, k_new, v_new)``."""
         q, k, v = self.layer_attn_inputs(p, h, offset)
         return self.layer_finish(p, h, attn_fn(q, k, v)), k, v
+
+    def place_constants(self, device) -> None:
+        """Move constants made on the host (RoPE tables) to ``device``."""
 
     def fused_projection_groups(self) -> dict:
         """{fused name: (source names, ...)}: per-layer projections that share

@@ -16,6 +16,7 @@ from torch import nn
 
 from mlx_sharding_tpu_torch.cache import KVCache, advance, write_layer_kv
 from mlx_sharding_tpu_torch.config import LlamaConfig
+from mlx_sharding_tpu_torch.graphs import note_eager_forward
 from mlx_sharding_tpu_torch.models.base import BaseModel
 from mlx_sharding_tpu_torch.ops import apply_rope, causal_attention, rms_norm, rope_frequencies
 
@@ -77,6 +78,12 @@ class LlamaModel(BaseModel):
         )
         self.scale = cfg.head_dim ** -0.5
 
+    def place_constants(self, device) -> None:
+        """Move the RoPE frequencies to ``device``: a copy from the host,
+        which a captured step must not make, so the generators call this
+        before their first step."""
+        self.inv_freq = self.inv_freq.to(device)
+
     # ------------------------------------------------------------------
     def layer_attn_inputs(self, p: LlamaLayer, h, offset):
         """Norm, QKV projections (with Qwen2-style biases when configured)
@@ -95,7 +102,7 @@ class LlamaModel(BaseModel):
             q, k, v = (self._linear(r, proj) for proj in (p.q_proj, p.k_proj, p.v_proj))
         q, k, v = (y.reshape(b, t, -1, d) for y in (q, k, v))
         if self.inv_freq.device != h.device:
-            self.inv_freq = self.inv_freq.to(h.device)
+            self.place_constants(h.device)
         return apply_rope(q, self.inv_freq, offset), apply_rope(k, self.inv_freq, offset), v
 
     def layer_finish(self, p: LlamaLayer, h, attn):
@@ -110,10 +117,13 @@ class LlamaModel(BaseModel):
             gate, up = self._linear(r, p.gate_proj), self._linear(r, p.up_proj)
         return h + self._linear(F.silu(gate) * up, p.down_proj)
 
-    def _layer(self, p: LlamaLayer, h, k_buf, v_buf, offset: int):
-        q, k, v = self.layer_attn_inputs(p, h, offset)
-        k_buf, v_buf = write_layer_kv(k_buf, v_buf, k, v, offset)
-        attn = causal_attention(q, k_buf, v_buf, offset, self.scale)
+    def _layer(self, p: LlamaLayer, h, k_buf, v_buf, offset: int, pos):
+        """``offset`` is the host position (the flash kernel's); ``pos`` the
+        cache's device position, or None to read ``offset`` everywhere."""
+        where = offset if pos is None else pos
+        q, k, v = self.layer_attn_inputs(p, h, where)
+        k_buf, v_buf = write_layer_kv(k_buf, v_buf, k, v, where)
+        attn = causal_attention(q, k_buf, v_buf, offset, self.scale, position=pos)
         return self.layer_finish(p, h, attn)
 
     def fused_projection_groups(self) -> dict:
@@ -128,21 +138,27 @@ class LlamaModel(BaseModel):
         return rms_norm(h, self.final_norm, self.config.rms_norm_eps)
 
     def forward(self, x, cache: KVCache, n_valid: int | None = None,
-                logits_at: int | None = None):
+                logits_at: int | torch.Tensor | None = None):
         """Run the stage over ``x`` and write its K/V into ``cache`` in
         place. ``n_valid`` advances the offset by fewer positions than T for
         a right-padded prefill chunk: pad rows are overwritten by later
         contiguous writes before any valid query attends them.
         ``logits_at`` computes the head for that one position only (B, 1, V)
-        instead of all T. Returns ``(logits or hidden, advanced cache)``."""
+        instead of all T: an int, or a (1,) device tensor (a captured
+        chunk's last valid row). A cache with a device ``pos`` is written,
+        rotated and masked at that position, which the forward reads and
+        never moves. Returns ``(logits or hidden, advanced cache)``."""
         cfg = self.config
+        note_eager_forward(self, x)
         h = self.embed(x) if cfg.is_first_stage else x
         for i, layer in enumerate(self.layers):
-            h = self._layer(layer, h, cache.k[i], cache.v[i], cache.offset)
+            h = self._layer(layer, h, cache.k[i], cache.v[i], cache.offset, cache.pos)
         cache = advance(cache, x.shape[1] if n_valid is None else n_valid)
         if not cfg.is_last_stage:
             return h, cache
-        if logits_at is not None:
+        if isinstance(logits_at, torch.Tensor):
+            h = h.index_select(1, logits_at.reshape(1))
+        elif logits_at is not None:
             h = h[:, logits_at : logits_at + 1]
         return self.apply_head(h), cache
 

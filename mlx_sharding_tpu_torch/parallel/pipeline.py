@@ -15,11 +15,14 @@ One model on one device drives M slots that share a pool of KV pages:
   rows are written into their pool pages (quantized first for an int8
   pool) and ``paged_attention`` reads the pool in place; an inactive slot
   writes to the scratch page and attends at length 0. Per-slot sampling
-  follows.
+  follows. It touches no host state, so the batcher can capture a block of
+  them as one CUDA graph; :meth:`PipelineEngine.advance_offsets` moves the
+  host offsets after it.
 - :meth:`PipelineEngine.decode_plan` builds, on the host, every slot's
   page ids, row positions and lengths for all K steps of a decode block,
-  and uploads them in one copy: slot offsets are host ints, so nothing is
-  read back from the card inside a block.
+  and copies them in one upload into the engine's persistent plan buffer
+  for K, which a captured block reads: slot offsets are host ints, so
+  nothing is read back from the card inside a block.
 
 Pipeline, tensor and expert parallelism, the dense (unpaged) engine, the
 ``gather`` decode path and speculation are not yet ported: they raise.
@@ -44,7 +47,8 @@ from mlx_sharding_tpu_torch.cache import (
     write_pool_rows,
     write_pool_span,
 )
-from mlx_sharding_tpu_torch.device import resolve_device
+from mlx_sharding_tpu_torch.device import resolve_device, upload
+from mlx_sharding_tpu_torch.graphs import note_eager_forward
 from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
 from mlx_sharding_tpu_torch.ops.attention import causal_attention
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
@@ -53,15 +57,15 @@ from mlx_sharding_tpu_torch.sample import sample_token_batched, update_recent_to
 
 @dataclasses.dataclass
 class DecodePlan:
-    """The device-side inputs of a decode block's K steps, uploaded once:
-    row j of each (K, M) tensor is step j."""
+    """The device-side inputs of a decode block's K steps, uploaded once
+    into one persistent buffer per K: row j of each (K, M) tensor is step
+    j."""
 
     page_ids: torch.Tensor  # (K, M) int32: pool page of each slot's write position
     row_pos: torch.Tensor  # (K, M) int32: row of that position in its page
     lengths: torch.Tensor  # (K, M) int32: valid positions with the new one; 0 if inactive
     positions: torch.Tensor  # (K, M) int32: RoPE position of the new token
     tables: torch.Tensor  # (M, SPG) int32: slot table rows, all scratch if inactive
-    active: list  # (M,) host bools
 
 
 class PipelineEngine:
@@ -143,6 +147,10 @@ class PipelineEngine:
                 "use 'ragged' or 'auto'"
             )
         self.paged_attention = "ragged"
+        model.place_constants(self.device)
+        self._plans: dict[int, tuple] = {}  # K -> (buffer, DecodePlan over it)
+        # ragged forwards run eagerly on the card (warm-ups of captured blocks)
+        self.eager_forwards = 0
 
     # ------------------------------------------------------------------
     def init_cache_paged(self) -> tuple[PagedKV, np.ndarray]:
@@ -155,14 +163,6 @@ class PipelineEngine:
             quantized=self.kv_quant,
         )
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
-
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """One host-to-device copy, asynchronous from pinned memory on the
-        card."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
 
     def _slot_view(self, pool, page_ids: torch.Tensor) -> torch.Tensor:
         """The slot's pages ``page_ids`` gathered into a contiguous (1,
@@ -189,9 +189,9 @@ class PipelineEngine:
         if off + c > self.max_seq:
             raise ValueError(f"slot {slot}: prefill at {off} overflows capacity {self.max_seq}")
         n_pages = -(-(off + c) // page)
-        page_ids = self._upload(table[slot, :n_pages].astype(np.int64))
+        page_ids = upload(table[slot, :n_pages].astype(np.int64), self.device)
         write_page, start = int(table[slot, off // page]), off % page
-        x = self._upload(np.asarray(tokens, np.int64)[None])
+        x = upload(np.asarray(tokens, np.int64)[None], self.device)
         h = model.embed(x)
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
@@ -213,10 +213,13 @@ class PipelineEngine:
     def decode_plan(self, cache: PagedKV, table: np.ndarray, active: list,
                     steps: int) -> DecodePlan:
         """Every slot's write page, row and attention length for ``steps``
-        decode steps from its current offset, built on the host and uploaded
-        in one copy. An inactive slot routes to the table's scratch row M at
-        length 0. A position past the slot's mapped pages (a finished slot
-        decoding to the end of its block) writes to the scratch page."""
+        decode steps from its current offset, built on the host and copied
+        in one upload into the persistent plan of ``steps`` steps, which is
+        returned (the same tensors at every call, so a captured block reads
+        each new plan). An inactive slot routes to the table's scratch row M
+        at length 0. A position past the slot's mapped pages (a finished
+        slot decoding to the end of its block) writes to the scratch
+        page."""
         m, page, spg = self.microbatches, self.page_size, self.slot_pages
         act = np.asarray(active, bool)
         pos = np.asarray(cache.offsets, np.int64)[None, :] + np.arange(steps)[:, None]
@@ -226,19 +229,29 @@ class PipelineEngine:
         page_ids = rows[np.arange(m)[None, :], np.minimum(pidx, spg - 1)]
         page_ids = np.where(pidx < spg, page_ids, self.pool_pages)
         lengths = np.where(act[None, :], pos + 1, 0)
-        buf = self._upload(np.concatenate(
+        host = np.concatenate(
             [page_ids.ravel(), (pos % page).ravel(), lengths.ravel(), pos.ravel(), rows.ravel()]
-        ).astype(np.int32))
-        n = steps * m
-        per_step = [buf[i * n : (i + 1) * n].view(steps, m) for i in range(4)]
-        return DecodePlan(*per_step, tables=buf[4 * n :].view(m, spg), active=list(active))
+        ).astype(np.int32)
+        if steps not in self._plans:
+            buf = torch.empty(host.shape, dtype=torch.int32, device=self.device)
+            n = steps * m
+            per_step = [buf[i * n : (i + 1) * n].view(steps, m) for i in range(4)]
+            self._plans[steps] = (buf, DecodePlan(*per_step, tables=buf[4 * n :].view(m, spg)))
+        buf, plan = self._plans[steps]
+        src = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            buf.copy_(src)
+        return plan
 
     def ragged_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
                       j: int) -> torch.Tensor:
         """The ragged forward of step j of the plan for all M slots: the new
         K/V rows land in the pool, ``tokens`` (M, 1) give logits (M, V).
-        Offsets are not advanced (:meth:`decode_cb` does that)."""
+        Offsets are not advanced (:meth:`advance_offsets` does that)."""
         model = self.model
+        note_eager_forward(self, tokens)
         page_ids, row_pos = plan.page_ids[j], plan.row_pos[j]
         lengths, positions = plan.lengths[j], plan.positions[j]
         h = model.embed(tokens)  # (M, 1, hidden): the slot axis is the batch axis
@@ -261,18 +274,26 @@ class PipelineEngine:
         return model.apply_head(h)[:, 0]
 
     def decode_cb(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan, step: int, *,
-                  recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor):
+                  recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
+                  sampled: bool):
         """One continuous-batching decode step (step ``step`` of ``plan``):
         the ragged forward of all M slots, then per-slot sampling with each
         slot's settings, generator and repetition window (``rep_mask``
-        keeps the last ``rep_context`` entries of slot m's window). Offsets advance
-        on active slots only. Returns ``(tokens (M, 1), logprobs (M, V),
-        recent)``."""
+        keeps the last ``rep_context`` entries of slot m's window), and the
+        window updated in place. ``sampled``: some slot may sample (every
+        row then draws from its generator). Device work only: offsets are
+        the caller's (:meth:`advance_offsets`). Returns ``(tokens (M, 1),
+        logprobs (M, V))``."""
         logits = self.ragged_logits(tokens, cache, plan, step)
         masked = torch.where(rep_mask, recent, torch.full_like(recent, -1))
-        tok, logprobs = sample_token_batched(generators, logits, sp, masked, active=plan.active)
-        recent = update_recent_tokens(recent, tok)
-        for m, a in enumerate(plan.active):
+        tok, logprobs = sample_token_batched(generators, logits, sp, masked, sampled=sampled)
+        recent.copy_(update_recent_tokens(recent, tok))
+        return tok[:, None], logprobs
+
+    @staticmethod
+    def advance_offsets(cache: PagedKV, active: list, steps: int) -> None:
+        """The host side of ``steps`` decode steps: every active slot's
+        offset moves by ``steps``."""
+        for m, a in enumerate(active):
             if a:
-                cache.offsets[m] += 1
-        return tok[:, None], logprobs, recent
+                cache.offsets[m] += steps

@@ -3,16 +3,24 @@ the single-stream sampler and the batched one of continuous batching.
 
 The same transforms in the same order: logit bias, the repetition penalty
 over a prompt-seeded window, temperature, the top-p nucleus ("kept iff the
-mass before it < top_p"), then argmax at temperature 0 or a draw. JAX
-traces every branch into one program with dynamic scalars; here the
-sampler settings are host floats and the branches are plain ``if``s. The
-draw uses an explicit ``torch.Generator``, so it matches the JAX stream in
-distribution only.
+mass before it < top_p"), then argmax at temperature 0 or a draw.
 
-The batched sampler (:class:`BatchedSamplerParams`) gives every slot its
-own row of settings and its own ``torch.Generator``: a sampled row draws
-from its slot's generator alone, with the single-stream functions, so a
-seeded request draws the same tokens alone and among others.
+One program serves every setting, as in JAX: the batched sampler
+(:func:`sample_token_batched`) reads temperature, top-p, penalty and bias
+from device tensors (:class:`BatchedSamplerParams`, one row per request or
+slot), filters all rows at once as JAX's ``vmap`` does, draws every row
+with that row's own ``torch.Generator`` and picks ``where(temperature > 0,
+sampled, greedy)``. JAX's ``lax.cond`` on the temperature becomes one
+captured program per branch, chosen by a flag the host knows from the
+requests (``sampled``): a block with no sampled row never sorts the
+vocabulary, and a branch chosen on the card would need the host to read it
+back. The draw is the exponential race that ``torch.multinomial`` runs for
+one sample (:func:`draw`), without its host-side checks, so it can be
+captured; a captured draw reads the generator's seed and offset when the
+graph is replayed. The draws match the JAX stream in distribution only.
+
+:func:`sample_token` is the one-request form over host floats
+(:class:`SamplerParams`), on the same code.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from mlx_sharding_tpu_torch.device import upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,17 +87,23 @@ def apply_repetition_penalty(logits, recent_tokens, penalty):
     return ext[:, :vocab]
 
 
-def top_p_filter(logits, top_p: float):
+def top_p_filter(logits, top_p):
     """Mask logits outside the top-p nucleus: keep the smallest prefix of
-    the sorted distribution whose mass reaches ``top_p``."""
-    if top_p >= 1.0:
-        return logits
+    the sorted distribution whose mass reaches ``top_p``. ``top_p`` is a
+    float, or a (B,) tensor of per-row values; a row at ``top_p >= 1``
+    keeps everything (JAX's ``lax.cond``, which ``vmap`` makes a select)."""
+    if not isinstance(top_p, torch.Tensor):
+        if top_p >= 1.0:
+            return logits
+        top_p = torch.full(logits.shape[:-1], top_p, dtype=torch.float32, device=logits.device)
+    top_p = top_p[..., None]
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep_sorted = (cum - probs) < top_p  # kept iff mass before it < top_p
     min_kept = torch.where(keep_sorted, sorted_logits, float("inf")).amin(dim=-1, keepdim=True)
-    return torch.where(logits >= min_kept, logits, float("-inf"))
+    filtered = torch.where(logits >= min_kept, logits, float("-inf"))
+    return torch.where(top_p < 1.0, filtered, logits)
 
 
 def transform_logits(logits, recent_tokens, params: SamplerParams):
@@ -109,15 +125,28 @@ def sample_token(
     params: SamplerParams,
     recent_tokens: Optional[torch.Tensor] = None,  # (B, W) int64, -1 padded
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (token (B,) int64, logprobs (B, V) float32), on the device."""
-    logits = transform_logits(logits, recent_tokens, params)
-    logprobs = torch.log_softmax(logits, dim=-1)
-    if params.temperature > 0:
-        probs = torch.softmax(nucleus_logits(logits, params), dim=-1)
-        token = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    """Every row under one request's settings and ``generator``. Returns
+    (token (B,) int64, logprobs (B, V) float32), on the device."""
+    n_bias = 0 if params.bias_indices is None else params.bias_indices.shape[0]
+    rows = stack_sampler_params([params] * logits.shape[0], width=max(1, n_bias),
+                                device=logits.device)
+    return sample_token_batched(generator, logits, rows, recent_tokens,
+                                sampled=params.temperature > 0)
+
+
+def draw(probs: torch.Tensor, generators) -> torch.Tensor:
+    """One draw per row of ``probs`` (M, V): the argmax of ``probs / E``
+    with E ~ Exp(1), the race ``torch.multinomial`` runs for one sample
+    (same numbers from the same generator state), without its host checks.
+    ``generators``: one ``torch.Generator`` for every row, or a list of one
+    per row."""
+    race = torch.empty_like(probs)
+    if isinstance(generators, torch.Generator):
+        race.exponential_(1.0, generator=generators)
     else:
-        token = torch.argmax(logits, dim=-1)
-    return token, logprobs
+        for r, gen in enumerate(generators):
+            race[r].exponential_(1.0, generator=gen)
+    return torch.argmax(probs / race, dim=-1)
 
 
 def update_recent_tokens(recent, token):
@@ -132,7 +161,7 @@ def init_recent_tokens(batch: int, window: int, prompt=None, *, device) -> torch
     if prompt is not None:
         tail = np.asarray(prompt, np.int64)[:, -window:]
         recent[:, window - tail.shape[1]:] = torch.from_numpy(tail)
-    return recent.to(device)
+    return upload(recent.numpy(), device)
 
 
 # ------------------------------------------------------------------ batched
@@ -143,19 +172,19 @@ BIAS_WIDTH = 512
 
 @dataclasses.dataclass
 class BatchedSamplerParams:
-    """Per-row sampler settings, one row per continuous-batching slot:
-    device tensors for the transforms, host copies of the scalars for the
-    branches (which rows sample, whether any row is penalized)."""
+    """Per-row sampler settings on the device, one row per request or
+    continuous-batching slot: the batched JAX ``SamplerParams``."""
 
-    temperature: list  # (M,) host floats
-    top_p: list  # (M,) host floats
+    temperature: torch.Tensor  # (M,) float32
+    top_p: torch.Tensor  # (M,) float32
     repetition_penalty: torch.Tensor  # (M, 1) float32
-    penalties: list  # (M,) host floats
     bias_indices: torch.Tensor  # (M, K) int64, padded with 0
     bias_values: torch.Tensor  # (M, K) float32, padded with 0 (a no-op)
 
 
-def _bias_row(params: SamplerParams, width: int) -> tuple[np.ndarray, np.ndarray]:
+def _host_row(params: SamplerParams, width: int) -> tuple:
+    """One row's settings on the host: (temperature, top-p, penalty) as
+    float32, then the bias indices and values padded to ``width``."""
     idx, val = np.zeros(width, np.int64), np.zeros(width, np.float32)
     if params.bias_indices is not None:
         n = params.bias_indices.shape[0]
@@ -164,85 +193,82 @@ def _bias_row(params: SamplerParams, width: int) -> tuple[np.ndarray, np.ndarray
                              f"bias width {width}")
         idx[:n] = params.bias_indices.cpu().numpy()
         val[:n] = params.bias_values.cpu().numpy()
-    return idx, val
+    head = np.asarray([params.temperature, params.top_p, params.repetition_penalty], np.float32)
+    return head, idx, val
 
 
 def stack_sampler_params(params_list: list, *, width: int = BIAS_WIDTH,
                          device) -> BatchedSamplerParams:
     """Per-request sampler params -> one batched set with a (M,) leading
     dim, bias buffers padded to ``width``."""
-    rows = [_bias_row(p, width) for p in params_list]
-    pens = [p.repetition_penalty for p in params_list]
+    rows = [_host_row(p, width) for p in params_list]
+    head = upload(np.stack([r[0] for r in rows]), device)
     return BatchedSamplerParams(
-        temperature=[p.temperature for p in params_list],
-        top_p=[p.top_p for p in params_list],
-        repetition_penalty=torch.tensor(pens, dtype=torch.float32, device=device)[:, None],
-        penalties=pens,
-        bias_indices=torch.from_numpy(np.stack([r[0] for r in rows])).to(device),
-        bias_values=torch.from_numpy(np.stack([r[1] for r in rows])).to(device),
+        temperature=head[:, 0].clone(),
+        top_p=head[:, 1].clone(),
+        repetition_penalty=head[:, 2:3].clone(),
+        bias_indices=upload(np.stack([r[1] for r in rows]), device),
+        bias_values=upload(np.stack([r[2] for r in rows]), device),
     )
 
 
 def set_sampler_slot(batched: BatchedSamplerParams, slot: int, one: SamplerParams) -> None:
     """Write one request's params into row ``slot``, in place (its bias
-    padded to the batched width; a wider one raises)."""
-    idx, val = _bias_row(one, batched.bias_indices.shape[1])
+    padded to the batched width; a wider one raises). No host sync: the
+    row goes up from pinned memory."""
+    head, idx, val = _host_row(one, batched.bias_indices.shape[1])
     dev = batched.bias_indices.device
-    batched.temperature[slot] = one.temperature
-    batched.top_p[slot] = one.top_p
-    batched.penalties[slot] = one.repetition_penalty
-    batched.repetition_penalty[slot] = one.repetition_penalty
-    batched.bias_indices[slot] = torch.from_numpy(idx).to(dev)
-    batched.bias_values[slot] = torch.from_numpy(val).to(dev)
+    head = upload(head, dev)
+    batched.temperature[slot] = head[0]
+    batched.top_p[slot] = head[1]
+    batched.repetition_penalty[slot] = head[2]
+    batched.bias_indices[slot] = upload(idx, dev)
+    batched.bias_values[slot] = upload(val, dev)
 
 
 def select_rows(batched: BatchedSamplerParams, rows: list) -> BatchedSamplerParams:
     """The params of ``rows`` only (a slot's first sample reads its own)."""
-    index = torch.tensor(rows, dtype=torch.long, device=batched.bias_indices.device)
-    return BatchedSamplerParams(
-        temperature=[batched.temperature[r] for r in rows],
-        top_p=[batched.top_p[r] for r in rows],
-        repetition_penalty=batched.repetition_penalty[index],
-        penalties=[batched.penalties[r] for r in rows],
-        bias_indices=batched.bias_indices[index],
-        bias_values=batched.bias_values[index],
-    )
+    index = torch.tensor(rows, dtype=torch.long)
+    if batched.bias_indices.device.type == "cuda":
+        index = index.pin_memory().to(batched.bias_indices.device, non_blocking=True)
+    return BatchedSamplerParams(*(getattr(batched, f.name)[index]
+                                  for f in dataclasses.fields(BatchedSamplerParams)))
 
 
 def transform_logits_batched(logits, recent_tokens, params: BatchedSamplerParams):
     """Per-row bias -> repetition penalty, in fp32: the batched
-    :func:`transform_logits`."""
+    :func:`transform_logits`. The penalty applies to every row, as in JAX:
+    at 1 it leaves a row exactly as it is."""
     logits = logits.float().scatter_add(1, params.bias_indices, params.bias_values)
-    if recent_tokens is not None and any(p != 1.0 for p in params.penalties):
-        # a penalty of 1 leaves a row as it is, exactly
+    if recent_tokens is not None:
         logits = apply_repetition_penalty(logits, recent_tokens, params.repetition_penalty)
     return logits
 
 
 def nucleus_logits_batched(lo, params: BatchedSamplerParams):
-    """Per-row temperature, then top-p: the batched :func:`nucleus_logits`."""
-    rows = []
-    for r, (t, p) in enumerate(zip(params.temperature, params.top_p)):
-        rows.append(top_p_filter(lo[r : r + 1] / max(t, 1e-6), p))
-    return torch.cat(rows)
+    """Per-row temperature, then top-p, on all rows at once: the batched
+    :func:`nucleus_logits`."""
+    return top_p_filter(lo / params.temperature.clamp_min(1e-6)[:, None], params.top_p)
 
 
-def sample_token_batched(generators: list, logits, params: BatchedSamplerParams,
-                         recent_tokens, active=None) -> tuple[torch.Tensor, torch.Tensor]:
+def sample_token_batched(generators, logits, params: BatchedSamplerParams,
+                         recent_tokens, *, sampled: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row sampling with per-row params and per-row generators: argmax
-    for a row at temperature 0, else a draw from that row's own nucleus with
-    that row's generator, as :func:`sample_token` draws for one request.
-    ``recent_tokens`` (M, W) is already masked to each row's window. Rows
-    that ``active`` marks False (idle slots, whose tokens are dropped) take
-    the argmax and leave their generator untouched. Returns (token (M,)
+    for a row at temperature 0, else a draw from that row's nucleus with
+    that row's generator (``generators``: a list of one per row, or one for
+    all), as :func:`sample_token` draws for one request. ``recent_tokens``
+    (M, W) is already masked to each row's window. ``sampled`` is the
+    host's knowledge that some row may sample: False skips the nucleus and
+    the draw (every row takes the argmax, no generator moves); True draws
+    for every row, whatever its temperature, so a captured step moves each
+    generator by the same amount at every replay. Returns (token (M,)
     int64, logprobs (M, V) float32)."""
     logits = transform_logits_batched(logits, recent_tokens, params)
     logprobs = torch.log_softmax(logits, dim=-1)
     token = torch.argmax(logits, dim=-1)
-    for r, t in enumerate(params.temperature):
-        if t > 0 and (active is None or active[r]):
-            lo = top_p_filter(logits[r : r + 1] / max(t, 1e-6), params.top_p[r])
-            token[r] = torch.multinomial(torch.softmax(lo, dim=-1), 1, generator=generators[r])[0, 0]
+    if sampled:
+        picked = draw(torch.softmax(nucleus_logits_batched(logits, params), dim=-1), generators)
+        token = torch.where(params.temperature > 0, picked, token)
     return token, logprobs
 
 
@@ -251,4 +277,4 @@ def window_mask(window: int, sizes: list, device) -> torch.Tensor:
     part in its penalty, so each slot keeps a solo run's context size."""
     sizes_t = torch.tensor(sizes, dtype=torch.long)
     mask = torch.arange(window)[None, :] >= (window - sizes_t)[:, None]
-    return mask.to(device)
+    return upload(mask.numpy(), device)

@@ -14,7 +14,10 @@ reserve-mode subset of ``mlx_sharding_tpu/scheduler.py::ContinuousBatcher``).
 - While anything decodes, one prefill chunk runs per tick, round-robin
   over the admitting requests; with nothing decoding they all advance.
 - A decode block reads the card once: its tokens (and logprob summaries)
-  come back in one copy at the harvest.
+  come back in one copy at the harvest. On a CUDA device the block's K
+  steps (the ragged forward, the batched sampler and the window update)
+  are one captured CUDA graph per (K, logprobs, sampler branch), JAX's
+  ``decode_block_prog``; prefill chunks (``prefill_slot``) run eagerly.
 
 Determinism: a slot's generator is seeded from the request's seed, and its
 repetition window set, when its prefill completes (other slots' ticks run
@@ -28,6 +31,7 @@ bound, the prefix store; deadlines, tracing and metrics are not carried.
 
 from __future__ import annotations
 
+import functools
 import logging
 import queue
 import threading
@@ -44,6 +48,8 @@ from mlx_sharding_tpu_torch.generate import (
     block_lp_outputs,
     block_token_logprobs,
 )
+from mlx_sharding_tpu_torch.device import upload
+from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
 from mlx_sharding_tpu_torch.sample import (
     BIAS_WIDTH,
     SamplerParams,
@@ -88,7 +94,8 @@ class ContinuousBatcher:
     """Drives a :class:`PipelineEngine` (``microbatches=M``, paged) as an
     M-slot continuous-batching server backend. ``generate_step`` has the
     contract of ``Generator.generate_step``; the server calls it without
-    its generation lock (``concurrent = True``)."""
+    its generation lock (``concurrent = True``). ``cuda_graphs=False`` runs
+    the decode blocks eagerly on the card (for checks and measurements)."""
 
     concurrent = True
 
@@ -98,7 +105,7 @@ class ContinuousBatcher:
                  spec_window_max: Optional[int] = None, max_queue: Optional[int] = None,
                  async_sched: str = "auto", spill_bytes: Optional[int] = None,
                  spill_cold_after: Optional[int] = None, kv_prefetch: str = "auto",
-                 prefix_store=None):
+                 prefix_store=None, cuda_graphs: bool = True):
         if policy not in ("fifo", "first_fit"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if async_sched not in ("on", "off", "auto"):
@@ -158,6 +165,8 @@ class ContinuousBatcher:
         self.generators = [torch.Generator(device=dev) for _ in range(self.M)]
         self.last_tok = torch.zeros((self.M, 1), dtype=torch.int64, device=dev)
         self.active = [False] * self.M  # a slot decodes iff its prefill completed
+        self.graphs = (StepGraphs(dev, model_pool(engine.model))
+                       if dev.type == "cuda" and cuda_graphs else None)
 
         self._slots: list[Optional[_Request]] = [None] * self.M
         self._prefill_rr = 0  # round-robin cursor for admission fairness
@@ -229,6 +238,21 @@ class ContinuousBatcher:
                 yield item
         finally:
             req.cancelled = True  # the scheduler reclaims the slot next tick
+
+    def warm_up(self) -> dict:
+        """Capture the decode blocks (greedy and sampled, with and without
+        logprobs) before the first request, with every slot idle: their
+        warm-ups write only the scratch page. Returns the graphs captured,
+        their capture seconds and the pool's bytes; ``{}`` without graphs.
+        Call it before the scheduler thread starts."""
+        if self.graphs is None:
+            return {}
+        for sampled in (False, True):
+            for want_lp in (False, True):
+                self._run_block(want_lp, sampled)
+        torch.cuda.synchronize(self.engine.device)
+        return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
+                "pool_bytes": self.graphs.pool_bytes()}
 
     def close(self, timeout: float = 10.0):
         """Stop the scheduler thread; every stream still open ends."""
@@ -327,7 +351,8 @@ class ContinuousBatcher:
         masked = torch.where(self.rep_mask[slot : slot + 1], self.recent[slot : slot + 1],
                              torch.full_like(self.recent[slot : slot + 1], -1))
         tok, logprobs = sample_token_batched([self.generators[slot]], logits.reshape(1, -1),
-                                             select_rows(self.sp, [slot]), masked)
+                                             select_rows(self.sp, [slot]), masked,
+                                             sampled=self._slots[slot].sp.temperature > 0)
         self.recent[slot] = torch.cat([self.recent[slot, 1:], tok])
         return tok, logprobs
 
@@ -349,7 +374,7 @@ class ContinuousBatcher:
         tail = req.prompt[-req.rep_context:] if req.rep_context else req.prompt[:0]
         if tail.size:
             row[self.W - tail.size:] = tail
-        self.recent[slot] = torch.from_numpy(row).to(self.recent.device)
+        self.recent[slot] = upload(row, self.recent.device)
         self.generators[slot].manual_seed(req.seed)
         tok, logprobs = self._first_sample(logits, slot)
         self.last_tok[slot] = tok
@@ -379,19 +404,15 @@ class ContinuousBatcher:
             if req is not None and req.cancelled:
                 self._finish(req)
 
-    def _decode_block_prog(self, want_lp: bool) -> torch.Tensor:
-        """``decode_block`` steps enqueued back to back on the card, nothing
-        read back; returns their stacked outputs. The active set is frozen
-        for the block (a slot that finishes mid-block keeps computing; its
-        extra tokens land in its own pages or the scratch page and are
-        dropped at the harvest)."""
-        eng = self.engine
-        plan = eng.decode_plan(self.cache, self.table, self.active, self.decode_block)
-        tok, outs = self.last_tok, []
+    def _decode_steps(self, plan, want_lp: bool, sampled: bool) -> torch.Tensor:
+        """``decode_block`` steps over ``plan`` (the engine's persistent plan
+        of that many steps) from ``last_tok``, carries updated in place;
+        their stacked outputs. Device work only."""
+        eng, tok, outs = self.engine, self.last_tok, []
         for j in range(self.decode_block):
-            tok, logprobs, self.recent = eng.decode_cb(
+            tok, logprobs = eng.decode_cb(
                 tok, self.cache, plan, j, recent=self.recent, generators=self.generators,
-                sp=self.sp, rep_mask=self.rep_mask,
+                sp=self.sp, rep_mask=self.rep_mask, sampled=sampled,
             )
             if want_lp:
                 chosen, top_v, top_i = block_lp_outputs(tok[:, 0], logprobs)
@@ -399,9 +420,30 @@ class ContinuousBatcher:
                                        top_v.double(), top_i.double()], dim=1))
             else:
                 outs.append(tok)
-        self.last_tok = tok
-        self.decode_steps += self.decode_block
+        self.last_tok.copy_(tok)
         return torch.stack(outs)
+
+    def _run_block(self, want_lp: bool, sampled: bool) -> torch.Tensor:
+        """Plan and enqueue one block (a replay on the card); its stacked
+        outputs, nothing read back."""
+        k = self.decode_block
+        plan = self.engine.decode_plan(self.cache, self.table, self.active, k)
+        step = functools.partial(self._decode_steps, plan, want_lp, sampled)
+        if self.graphs is None:
+            return step()
+        return self.graphs.run(("decode", k, want_lp, sampled), step,
+                               state=(self.last_tok, self.recent),
+                               generators=self.generators if sampled else ()).clone()
+
+    def _decode_block_prog(self, want_lp: bool, sampled: bool) -> torch.Tensor:
+        """``decode_block`` steps over every slot, and their host side. The
+        active set is frozen for the block (a slot that finishes mid-block
+        keeps computing; its extra tokens land in its own pages or the
+        scratch page and are dropped at the harvest)."""
+        outs = self._run_block(want_lp, sampled)
+        self.engine.advance_offsets(self.cache, self.active, self.decode_block)
+        self.decode_steps += self.decode_block
+        return outs
 
     def _dispatch_block(self) -> Optional[_InflightBlock]:
         live = [(slot, req) for slot, req in enumerate(self._slots)
@@ -409,7 +451,9 @@ class ContinuousBatcher:
         if not live:
             return None
         want_lp = any(req.want_logprobs for _, req in live)
-        return _InflightBlock(outs=self._decode_block_prog(want_lp), live=live, want_lp=want_lp)
+        sampled = any(req.sp.temperature > 0 for _, req in live)
+        return _InflightBlock(outs=self._decode_block_prog(want_lp, sampled), live=live,
+                              want_lp=want_lp)
 
     def _harvest(self, inf: Optional[_InflightBlock]):
         """Pull a block's outputs to the host (the tick's one read of the

@@ -86,7 +86,8 @@ class ModelProvider:
                         ) -> "ModelProvider":
         """A single-stream ``Generator``, or with ``concurrent > 1`` a
         ``ContinuousBatcher`` of that many slots over a pool of
-        ``paged_pool`` KV pages (the JAX server's pp=1 paged engine)."""
+        ``paged_pool`` KV pages (the JAX server's pp=1 paged engine). On a
+        card its step graphs are captured here, before the first request."""
         from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
         from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
@@ -104,6 +105,10 @@ class ModelProvider:
             )
             generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
                                           policy=admission_policy)
+        captured = generator.warm_up()  # on a card: the step graphs, before any request
+        if captured:
+            logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
+                        captured["graphs"], captured["seconds"], captured["pool_bytes"] / 1e6)
         return cls(generator, load_tokenizer(path), model_name=path)
 
     def load(self, name: str):

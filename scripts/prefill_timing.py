@@ -12,7 +12,10 @@ weights from ``--seed``; the packed model holds the same weights packed as
 ``chip_smoke.pack_llama`` packs them (group 64, 4 bits, fp16 scales and
 biases). Each is timed by ``chip_smoke.prefill_median_ms``: the median of
 ``--runs`` device-synchronised ``Generator.run_prefill`` calls after one
-warm-up. To compare two trees, run the script once per tree in the order
+warm-up. A tree whose Generator owns its cache and captures CUDA graphs
+(``warm_up``) is timed through its graphs, captured first; an earlier
+tree's gets a fresh cache per call, made inside the timed span (a 0.5 GB
+memset). To compare two trees, run the script once per tree in the order
 earlier, this, this, earlier, in one call of the card.
 
 Prints one line per model and, as the last line of its standard output, a
@@ -34,6 +37,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
+
+
+def median_ms(model, prompt, runs):
+    """``chip_smoke.prefill_median_ms`` of the prompt through the imported
+    tree's Generator."""
+    from mlx_sharding_tpu_torch.generate import Generator
+
+    gen = Generator(model, max_seq=smoke.MAX_SEQ, prefill_chunk=smoke.CHUNK)
+    if hasattr(gen, "warm_up"):
+        gen.warm_up()
+        return smoke.prefill_median_ms(lambda: gen.run_prefill(prompt), runs)
+    return smoke.prefill_median_ms(
+        lambda: gen.run_prefill(prompt, model.make_cache(1, gen.max_seq)), runs)
 
 
 def main(argv=None) -> int:
@@ -65,13 +81,13 @@ def main(argv=None) -> int:
              "every chunk of the prompt runs through the flash kernel. ")
     prompt = np.asarray([list((words * 8)[:600].encode())], np.int64)
     result = {"tree": str(tree), "card": card}
-    result["dense_ms"], result["dense_runs"] = smoke.prefill_median_ms(model, prompt, args.runs)
+    result["dense_ms"], result["dense_runs"] = median_ms(model, prompt, args.runs)
     print(f"[prefill] dense: median {result['dense_ms']:.2f} ms "
           f"({' / '.join(f'{t:.2f}' for t in result['dense_runs'])})", flush=True)
     packed = smoke.pack_llama(model, smoke.LLAMA_31_8B)
     model.to("meta")
     torch.cuda.empty_cache()
-    result["packed_ms"], result["packed_runs"] = smoke.prefill_median_ms(packed, prompt, args.runs)
+    result["packed_ms"], result["packed_runs"] = median_ms(packed, prompt, args.runs)
     print(f"[prefill] packed 4-bit: median {result['packed_ms']:.2f} ms "
           f"({' / '.join(f'{t:.2f}' for t in result['packed_runs'])})", flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)

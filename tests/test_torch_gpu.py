@@ -543,6 +543,7 @@ def test_tiny_batcher_on_the_card_matches_its_cpu_run(cuda):
         engine = PipelineEngine(model, microbatches=3, max_seq=512, prefill_chunk=128,
                                 pool_pages=6, device=model.device)
         batcher = ContinuousBatcher(engine, decode_block=4)
+        batcher.warm_up()  # the decode graphs' captures launch outside the count
         before = pa.paged_attention.launches
         results = [None] * len(jobs)
 
@@ -560,3 +561,152 @@ def test_tiny_batcher_on_the_card_matches_its_cpu_run(cuda):
         launches = pa.paged_attention.launches - before
         assert launches == (0 if model is cpu_model else 2 * batcher.decode_steps)
     assert streams[0] == streams[1]
+
+
+def test_gemv_call_is_capture_safe(cuda, monkeypatch):
+    """One GEMV call, whole and with its walk over IN split (the GEMV and
+    its reduce pass), captures into a CUDA graph with no memset or copy, and
+    the graph replays equal to the eager call after x changes in place."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x, q, s, b = quant_operands(g, 1, 4096, 14336, integer=False)
+    x2 = torch.randn(x.shape, generator=g, device=cuda).to(x.dtype)
+    for split, kernels in ((0, 1), (1024, 2)):
+        monkeypatch.setattr(qm, "SPLIT_IN", split)
+        nodes = graph_nodes(lambda: qm.quant_gemv(x, q, s, b))
+        assert nodes == {"kernel": kernels, "memcpy": 0, "memset": 0, "other": 0}, split
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = qm.quant_gemv(x, q, s, b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, qm.quant_gemv(x, q, s, b))
+        saved = x.clone()
+        x.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, qm.quant_gemv(x, q, s, b))
+        x.copy_(saved)
+
+
+# ----------------------------------------------------- captured steps
+TINY_GQA = dict(vocab_size=320, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                num_attention_heads=4, num_key_value_heads=2, head_dim=64)
+
+
+def _tiny_model(cuda, packed=False):
+    model, _ = build_model(TINY_GQA, dtype=torch.float32)
+    model.init_params(torch.Generator().manual_seed(0), "cpu")
+    if packed:
+        model = pack_llama(model, TINY_GQA)
+    return model.to(cuda)
+
+
+def _stream(gen, prompt, **kw):
+    return [t for t, _ in gen.generate_step(prompt, **kw)]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_generator_graphs_match_the_eager_steps(cuda, packed):
+    """A 300-token prompt (three chunks, the last ragged), 40 tokens: the
+    graph path's greedy stream equals the same steps run eagerly on the
+    card, with and without a penalty and a bias; the replays count every
+    kernel launch the eager steps make."""
+    model = _tiny_model(cuda, packed)
+    prompt = torch.randint(0, 256, (300,), generator=torch.Generator().manual_seed(3)).tolist()
+    counters = (fa.flash_attention, qm.quant_gemv, qm.quant_matmul)
+    runs = {}
+    for graphs in (False, True):
+        gen = Generator(model, max_seq=512, prefill_chunk=128, cuda_graphs=graphs)
+        gen.warm_up()
+        before = [c.launches for c in counters]
+        forwards = model.eager_forwards
+        streams = [_stream(gen, prompt, max_tokens=40),
+                   _stream(gen, prompt, max_tokens=23, repetition_penalty=1.3,
+                           logit_bias={65: 1.5})]
+        runs[graphs] = streams, [c.launches - b for c, b in zip(counters, before)]
+        if graphs:
+            assert model.eager_forwards == forwards  # replays only
+            assert gen.graphs.replays > 0
+        else:
+            assert gen.graphs is None
+    assert runs[True][0] == runs[False][0]
+    # both run 3 + 3 chunks and whole blocks of 16: 48 + 32 steps for 39 + 22
+    # tokens after the first
+    eager, graphed = runs[False][1], runs[True][1]
+    assert eager == graphed
+    assert graphed[0] == 2 * 6  # flash: two layers x six chunks
+    if packed:  # the GEMV: four projections a layer and the head per step, the head per chunk
+        assert graphed[1] == (2 * 4 + 1) * (48 + 32) + 6
+        assert graphed[2] == 2 * 4 * 6  # the prefill matmul per chunk
+
+
+def test_generator_captures_once_per_key(cuda):
+    model = _tiny_model(cuda)
+    gen = Generator(model, max_seq=512, prefill_chunk=128)
+    info = gen.warm_up()
+    assert info["graphs"] == 4 + 4 and info["pool_bytes"] > 0  # 4 chunk offsets, 4 blocks
+    prompt = list(range(1, 200))
+    for kw in (dict(), dict(temperature=0.8, top_p=0.9, seed=1), dict(), dict(seed=2)):
+        _stream(gen, prompt, max_tokens=20, **kw)
+    assert gen.graphs.captures == 8
+    _stream(gen, prompt, max_tokens=20, repetition_penalty=1.2, repetition_context_size=7)
+    assert gen.graphs.captures == 9  # a new window is a new key
+
+
+def test_seeded_sample_is_the_same_through_graphs(cuda):
+    """A seeded top-p request gives the same tokens twice through the
+    graphs, others with another seed, and the same as the eager steps (the
+    captured draw reads the generator's state at each replay)."""
+    model = _tiny_model(cuda)
+    prompt = list(range(3, 150))
+    kw = dict(max_tokens=40, temperature=0.9, top_p=0.8)
+    gen = Generator(model, max_seq=512, prefill_chunk=128)
+    a = _stream(gen, prompt, seed=7, **kw)
+    assert a == _stream(gen, prompt, seed=7, **kw)
+    assert a != _stream(gen, prompt, seed=8, **kw)
+    eager = Generator(model, max_seq=512, prefill_chunk=128, cuda_graphs=False)
+    assert a == _stream(eager, prompt, seed=7, **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_batcher_graphs_match_the_eager_steps(cuda, kv_dtype):
+    """Three slots over a pool of 128-token pages, a bf16 model and pool or
+    an int8 pool: the same streams through the decode graphs as through the
+    eager steps, a seeded sampled request among them the same both ways,
+    and the paged kernel's launches equal to the replayed steps'."""
+    model, _ = build_model(TINY_GQA, dtype=torch.bfloat16)
+    model.init_params(torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator().manual_seed(3)
+    jobs = [(torch.randint(0, 256, (n,), generator=gen).tolist(), kw)
+            for n, kw in ((50, dict(max_tokens=20)), (128, dict(max_tokens=12)),
+                          (200, dict(max_tokens=30, temperature=0.8, top_p=0.9, seed=5)),
+                          (129, dict(max_tokens=9, logprobs=True)))]
+    streams = {}
+    for graphs in (False, True):
+        engine = PipelineEngine(model, microbatches=3, max_seq=512, prefill_chunk=128,
+                                pool_pages=6, kv_dtype=kv_dtype, device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=4, cuda_graphs=graphs)
+        batcher.warm_up()
+        before, forwards = pa.paged_attention.launches, engine.eager_forwards
+        results = [None] * len(jobs)
+
+        def work(i, batcher=batcher):
+            prompt, kw = jobs[i]
+            kw = dict(kw)
+            lp = kw.pop("logprobs", False)
+            results[i] = [t for t, _ in batcher.generate_step(prompt, want_logprobs=lp, **kw)]
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        batcher.close()
+        assert all(r is not None for r in results)
+        assert pa.paged_attention.launches - before == 2 * batcher.decode_steps
+        if graphs:
+            assert engine.eager_forwards == forwards and batcher.graphs.replays > 0
+        streams[graphs] = results
+    assert streams[True] == streams[False]
