@@ -63,15 +63,23 @@ final line:
    dequantized weights, the packed prefill's median, and where the time
    goes, as in phase 4.
 6. continuous batching (run between 4 and 5, on phase 4's dense model):
-   ``--concurrent 8 --paged-pool 16`` with 256-token pages, once with a
-   bf16 pool and once with an int8 pool, its decode blocks captured first.
-   A seeded top-p request alone, then nine requests at once (one of them
-   its twin) through the port's server: statuses, token counts, the twins'
-   texts, a request that waited for pages, the launches of both attention
-   kernels against the batcher's own count of steps and chunks, and its
-   replays against its blocks with no eager ragged forward; then six
-   requests through the decode graphs and through the eager steps,
-   token-identical; then, at the engine level, every slot's logits at its
+   ``--concurrent 8 --paged-pool 16`` with 256-token pages and async ticks,
+   once with a bf16 pool (reserve admission) and once with an int8 pool
+   (overcommit admission, each request of the mix asked for 256 more
+   tokens so that the pool preempts), its prefill graphs (one per chunk
+   offset) and decode graphs captured first. A seeded top-p request alone,
+   then nine requests (the seeded twin sent first, so that it is the
+   oldest) through the port's server: statuses, token counts, the twins'
+   token ids, a request that waited for pages, at least one preemption in
+   the overcommit run, the launches of both attention kernels against the
+   batcher's own count of steps and chunks, its replays against its blocks
+   and chunks with no capture and no eager forward, and its ticks (harvest
+   wait and host ms per tick, preemptions, the async reason); then six
+   requests served on this thread four ways: graphs and eager steps, async
+   and sync ticks token-identical; overcommit against reserve
+   token-identical for every request not preempted, and for a preempted
+   one up to its preemption (the tokens that still agree after its resume
+   are printed); then, at the engine level, every slot's logits at its
    first decode step against the single-stream model's.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
@@ -176,6 +184,19 @@ POOL_PAGES = 16
 # sent alone before the mix, the others are forced to one byte
 BATCH_MIX = ((40, 64), (200, 48), (255, 32), (256, 32), (257, 96), (600, 64), (900, 96),
              (1500, 64), (600, 64))
+# the overcommit run (int8 pool) asks each request of the mix for this many
+# more tokens: every one then decodes past the pages it was admitted with,
+# so growth outruns the pool and preempts (the mix's own 32-96 tokens rarely
+# cross a 256-token page, and an overcommit pool only preempts as it grows)
+OVERCOMMIT_EXTRA_TOKENS = 256
+# the parity runs (graphs / eager, sync / async, overcommit / reserve) over
+# the same pool: five greedy prompts and a seeded top-p one, 128 tokens
+# each; prompts close under a page edge grow while the pool is full, so the
+# overcommit run preempts (the seeded request, after 57 tokens). Their
+# engines stop at 1280 positions: 5 prefill graphs each, not 16
+PARITY_PROMPTS = (200, 230, 480, 700, 1000, 450)
+PARITY_TOKENS = 128
+PARITY_MAX_SEQ = 1280
 # the paged kernel's check at the 8B shapes: lengths at and around page
 # edges, an empty slot and a full 4096-position slot
 PAGED_LENGTHS = (0, 1, 255, 256, 257, 600, 1000, 4096)
@@ -1292,8 +1313,8 @@ def full_capacity_attention_ms(seed: int, layers: int) -> dict:
 class ServedRun:
     """What a served run did to a generator's graphs (a Generator's or a
     batcher's) and to the eager forwards of ``owner`` (the model, or the
-    engine for the batcher's ragged forwards): taken at construction and
-    checked by :meth:`check`."""
+    engine for the batcher's prefill chunks and ragged decode steps): taken
+    at construction and checked by :meth:`check`."""
 
     def __init__(self, generator, owner):
         self.graphs, self.owner = generator.graphs, owner
@@ -1480,10 +1501,19 @@ def first_step_logits(model, kv_dtype, prompts):
     return first, engine.ragged_logits(tokens, cache, plan, 0).float()
 
 
+def tick_line(tag: str, batcher) -> None:
+    t = batcher.tick_timing_stats()
+    log(f"{tag} ticks: {t['path']}, {t['ticks']} harvests, harvest blocked "
+        f"{t['device_blocked_ms_avg']:.3f} ms and host {t['host_ms_avg']:.3f} ms per tick "
+        f"(means); {batcher.preemptions} preemptions, {batcher.reprefill_tokens} tokens "
+        f"re-prefilled; {batcher.async_reason}")
+
+
 def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) -> dict:
     """Continuous batching over the paged pool at full width: the port's
     server in front of a ``ContinuousBatcher`` of ``SLOTS`` slots over
-    ``POOL_PAGES`` pages of ``PAGE`` tokens, ``kv_dtype`` pool. Returns the
+    ``POOL_PAGES`` pages of ``PAGE`` tokens, ``kv_dtype`` pool, async ticks;
+    the int8 pool's run admits on overcommit and preempts. Returns the
     launches of the counted run per attention kernel and the numbers."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
@@ -1493,6 +1523,9 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
 
     cfg = model.config
+    overcommit = kv_dtype == "int8"
+    mix = (tuple((n, m + OVERCOMMIT_EXTRA_TOKENS) for n, m in BATCH_MIX) if overcommit
+           else BATCH_MIX)
     tag = f"[batch-{kv_dtype}]"
     gc.collect()  # the earlier phases' servers: their handler classes sit in cycles
     torch.cuda.empty_cache()
@@ -1501,10 +1534,12 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
                             pool_pages=POOL_PAGES, page_size=PAGE, kv_dtype=kv_dtype,
                             device=model.device)
-    batcher = ContinuousBatcher(engine, decode_block=8)
+    batcher = ContinuousBatcher(engine, decode_block=8, overcommit=overcommit)
     log(f"{tag} engine: {SLOTS} slots, pool {POOL_PAGES} pages of {PAGE} tokens "
-        f"({batcher.cache.nbytes / 1e6:.1f} MB of {kv_dtype} K/V), {batcher.async_reason}")
-    graph_line(tag, batcher.warm_up())
+        f"({batcher.cache.nbytes / 1e6:.1f} MB of {kv_dtype} K/V), "
+        f"{'overcommit' if overcommit else 'reserve'} admission, {batcher.async_reason}")
+    captured = batcher.warm_up()
+    graph_line(tag, captured)
     tok = ByteTokenizer()
     server = make_server(ModelProvider(batcher, tok, model_name="llama-3.1-8b-cb"), "127.0.0.1", 0)
     port = server.server_address[1]
@@ -1515,9 +1550,9 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     # (random weights sample ids past the 256 bytes, which decode to nothing)
     seeded = {"temperature": 0.8, "top_p": 0.9, "seed": 4321, "logprobs": 1}
     jobs = []
-    for i, (n, max_tokens) in enumerate(BATCH_MIX):
+    for i, (n, max_tokens) in enumerate(mix):
         body = {"prompt": mix_prompt(i, n), "max_tokens": max_tokens}
-        body.update(seeded if i == len(BATCH_MIX) - 1 else {"logit_bias": force_a, "stream": True})
+        body.update(seeded if i == len(mix) - 1 else {"logit_bias": force_a, "stream": True})
         jobs.append(body)
     results = [None] * len(jobs)
     stats = {}
@@ -1530,14 +1565,19 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
 
         status, alone, _, _ = post(port, "/v1/completions", jobs[-1])
         check(status == 200, f"seeded request alone: status {status}: {alone}")
+        batcher.reset_tick_timing()
 
         def send(i):
             results[i] = post(port, "/v1/completions", jobs[i], stream="stream" in jobs[i])
 
         decode_s0 = batcher.decode_seconds
         t0 = time.perf_counter()
+        # the seeded twin goes first, so that it is the oldest request in
+        # the pool: overcommit preempts the newest, never the oldest
         threads = [threading.Thread(target=send, args=(i,)) for i in range(len(jobs))]
-        for t in threads:
+        threads[-1].start()
+        time.sleep(0.3)
+        for t in threads[:-1]:
             t.start()
         for t in threads:
             t.join(timeout=600)
@@ -1549,14 +1589,16 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         chunks = batcher.prefill_chunks - chunks0
         waits = batcher.page_waits - waits0
         high_water = batcher.pages_high_water
-        served.check(tag, steps // batcher.decode_block)
+        served.check(tag, steps // batcher.decode_block + chunks)
+        tick_line(tag, batcher)
+        ticks = batcher.tick_timing_stats()
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
         batcher.close()
     ttfts = []
-    for i, ((n, max_tokens), res) in enumerate(zip(BATCH_MIX[:-1], results)):
+    for i, ((n, max_tokens), res) in enumerate(zip(mix[:-1], results)):
         check(res is not None, f"request {i} did not return")
         status, events, t_head, t_end = res
         check(status == 200 and events[-1] == "[DONE]", f"request {i}: status {status}")
@@ -1569,30 +1611,38 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     status, twin, _, t_end = results[-1]
     check(status == 200, f"seeded request among others: status {status}: {twin}")
     ids = [r["choices"][0]["logprobs"]["tokens"] for r in (alone, twin)]
-    check(len(ids[0]) == BATCH_MIX[-1][1] and ids[0] == ids[1]
+    check(len(ids[0]) == mix[-1][1] and ids[0] == ids[1]
           and alone["choices"][0]["text"] == twin["choices"][0]["text"],
           "the seeded request gave other tokens among others than alone")
-    log(f"{tag} request {len(BATCH_MIX) - 1}: the seeded top-p twin (not streamed), done in "
-        f"{t_end:.3f}s: the same {len(ids[0])} token ids as alone")
-    want_chunks = sum(-(-n // CHUNK) for n, _ in BATCH_MIX) + -(-BATCH_MIX[-1][0] // CHUNK)
-    log(f"{tag} batcher: {chunks} prefill chunks (the requests need {want_chunks}), {steps} "
-        f"decode steps, {waits} requests waited for pages, pool high-water {high_water} of "
-        f"{POOL_PAGES} pages")
-    check(chunks == want_chunks, "prefill chunk count disagrees with the requests")
+    log(f"{tag} request {len(mix) - 1}: the seeded top-p twin (not streamed, sent first), done "
+        f"in {t_end:.3f}s: the same {len(ids[0])} token ids as alone")
+    want_chunks = sum(-(-n // CHUNK) for n, _ in mix) + -(-mix[-1][0] // CHUNK)
+    preemptions = batcher.preemptions
+    log(f"{tag} batcher: {chunks} prefill chunks (the requests need {want_chunks} without "
+        f"preemption), {steps} decode steps, {waits} requests waited for pages, pool high-water "
+        f"{high_water} of {POOL_PAGES} pages, {preemptions} preemptions")
+    if overcommit:
+        check(preemptions >= 1, "the overcommit run preempted nothing")
+        check(chunks >= want_chunks, "fewer prefill chunks than the requests need")
+    else:
+        check(preemptions == 0 and chunks == want_chunks,
+              "prefill chunk count disagrees with the requests")
     check(waits >= 1, "no request waited for pages: the pool is too large for the check")
     layers = cfg.num_hidden_layers
     for name, count in (("paged_attention", steps), ("flash_attention", chunks)):
         log(f"{tag} {name} launches {launches[name]}, expected {layers} layers x {count} = "
             f"{layers * count}")
         check(launches[name] == layers * count, f"{name} launch count disagrees with the batcher")
-    decoded = sum(max_tokens - 1 for _, max_tokens in BATCH_MIX)
-    stats = {"decode_tok_s": decoded / decode_s, "mix_tok_s": sum(m for _, m in BATCH_MIX) / wall,
+    decoded = sum(max_tokens - 1 for _, max_tokens in mix)
+    stats = {"decode_tok_s": decoded / decode_s, "mix_tok_s": sum(m for _, m in mix) / wall,
              "ttft_ms": [t * 1e3 for t in ttfts], "pool_bytes": batcher.cache.nbytes,
-             "graph_pool_bytes": batcher.graphs.pool_bytes()}
+             "graph_pool_bytes": captured["pool_bytes"], "capture_s": captured["seconds"],
+             "graphs": captured["graphs"], "preemptions": preemptions, "ticks": ticks,
+             "reprefill_tokens": batcher.reprefill_tokens}
     log(f"{tag} aggregate decode {stats['decode_tok_s']:.2f} tok/s over {SLOTS} slots (tokens "
         f"after each request's first / host time in decode blocks) against "
         f"{single_stream_tok_s:.2f} tok/s for one stream (phase 4); the mix's "
-        f"{sum(m for _, m in BATCH_MIX)} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
+        f"{sum(m for _, m in mix)} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
     del batcher, engine, server
     batcher_parity(model, kv_dtype, tag)
 
@@ -1621,46 +1671,91 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     return launches, stats
 
 
+def serve_on_this_thread(batcher, jobs, *, cancel_after=None, tick=None):
+    """Serve ``jobs`` ``[(prompt, kwargs)]`` by running the batcher's ticks
+    on the calling thread (no scheduler thread), every request submitted
+    before the first tick, so that a run's admissions and preemptions
+    depend on the jobs alone. ``cancel_after=(i, n)`` closes stream i after
+    its n-th token, as a client that walks away. ``tick``: what one
+    iteration calls, ``batcher.run_tick`` by default. Returns each stream's
+    ``(token, logprobs)`` items and the requests (their ``preempted_at``)."""
+    tick = tick or batcher.run_tick
+    batcher._ensure_running = lambda: None
+    streams = [batcher.generate_step(p, **kw) for p, kw in jobs]
+    reqs = list(batcher._submit.queue)
+    got = [[] for _ in jobs]
+    ended = [False] * len(jobs)
+    with torch.no_grad():
+        for _ in range(100000):
+            for i, (stream, req) in enumerate(zip(streams, reqs)):
+                while not ended[i] and not req.out.empty():
+                    if cancel_after == (i, len(got[i])):
+                        stream.close()  # marks the request cancelled
+                        ended[i] = True
+                        break
+                    try:
+                        got[i].append(next(stream))
+                    except StopIteration:
+                        ended[i] = True
+            if all(ended):
+                break
+            tick()
+    check(all(ended), "the batcher wedged")
+    return got, reqs
+
+
 def batcher_parity(model, kv_dtype: str, tag: str) -> None:
-    """The batcher's decode graphs against the same steps run eagerly on
-    the card: five greedy requests (prompts of 40-1000 tokens, 40 tokens
-    each) and a seeded top-p one, at once over 8 slots; every stream
-    token-identical both ways."""
+    """The batcher's paths against each other on the card, each run served
+    on this thread (the same admissions in every run), over ``POOL_PAGES``
+    pages: five greedy requests and a seeded top-p one (``PARITY_PROMPTS``,
+    ``PARITY_TOKENS`` each). The prefill and decode graphs against the same
+    steps run eagerly, and sync ticks against async ones: token-identical.
+    Overcommit against reserve: a request never preempted token-identical;
+    a preempted one identical up to its preemption, after which it resumes
+    from a re-prefill of its folded tokens, whose K/V the prefill path
+    computes in bf16 where the reserve run's came from decode steps (the
+    tokens that still agree are printed)."""
     from mlx_sharding_tpu_torch.parallel import PipelineEngine
     from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
     tok = ByteTokenizer()
-    jobs = [(tok.encode(mix_prompt(20 + i, n)), dict(max_tokens=40))
-            for i, n in enumerate((40, 300, 600, 257, 1000))]
-    jobs.append((tok.encode(mix_prompt(30, 300)),
-                 dict(max_tokens=40, temperature=0.8, top_p=0.9, seed=99)))
-    streams = {}
-    for graphs in (True, False):
-        engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
-                                pool_pages=POOL_PAGES, page_size=PAGE, kv_dtype=kv_dtype,
-                                device=model.device)
-        batcher = ContinuousBatcher(engine, decode_block=8, cuda_graphs=graphs)
+    jobs = [(tok.encode(mix_prompt(20 + i, n)), dict(max_tokens=PARITY_TOKENS))
+            for i, n in enumerate(PARITY_PROMPTS[:-1])]
+    jobs.append((tok.encode(mix_prompt(30, PARITY_PROMPTS[-1])),
+                 dict(max_tokens=PARITY_TOKENS, temperature=0.8, top_p=0.9, seed=99)))
+    runs = {}
+    for name, kw in (("graphs", {}), ("eager", dict(cuda_graphs=False)),
+                     ("sync", dict(async_sched="off")), ("overcommit", dict(overcommit=True))):
+        engine = PipelineEngine(model, microbatches=SLOTS, max_seq=PARITY_MAX_SEQ,
+                                prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                                kv_dtype=kv_dtype, device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=8, **kw)
         batcher.warm_up()
-        results = [None] * len(jobs)
-
-        def work(i, batcher=batcher):
-            prompt, kw = jobs[i]
-            results[i] = [t for t, _ in batcher.generate_step(prompt, **kw)]
-
-        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
+        items, reqs = serve_on_this_thread(batcher, jobs)
+        streams = [[t for t, _ in s] for s in items]
+        check(all(len(s) == PARITY_TOKENS for s in streams),
+              f"{tag} parity run ({name}): a request did not finish")
+        runs[name] = (streams, [r.preempted_at for r in reqs])
+        tick_line(f"{tag} parity run ({name})", batcher)
         batcher.close()
-        check(all(r is not None and len(r) == 40 for r in results),
-              f"{tag} parity run ({'graphs' if graphs else 'eager'}): a request did not finish")
-        streams[graphs] = results
         del batcher, engine
-    check(streams[True] == streams[False], f"{tag} the batcher's decode graphs and its eager "
-          "steps give other tokens")
-    log(f"{tag} five greedy requests and a seeded top-p one, 40 tokens each, at once: "
-        f"token-identical through the decode graphs and the eager steps on the card")
+    check(runs["graphs"][0] == runs["eager"][0], f"{tag} the batcher's prefill and decode graphs "
+          "and its eager steps give other tokens")
+    check(runs["sync"][0] == runs["graphs"][0], f"{tag} async and sync ticks give other tokens")
+    reserve, (oc, preempted) = runs["graphs"][0], runs["overcommit"]
+    check(any(preempted), f"{tag} the overcommit parity run preempted nothing")
+    for i, (want, got, at) in enumerate(zip(reserve, oc, preempted)):
+        same = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), len(want))
+        if at:
+            log(f"{tag} overcommit request {i}: preempted after {at} tokens, resumed; the first "
+                f"{same} of {len(want)} tokens equal the reserve run's")
+            check(same >= at[0], f"{tag} request {i} diverged before its preemption")
+        else:
+            check(same == len(want), f"{tag} request {i}, never preempted, diverged under "
+                  "overcommit")
+    log(f"{tag} five greedy requests and a seeded top-p one, {PARITY_TOKENS} tokens each: "
+        "token-identical through the graphs and the eager steps, through async and sync ticks, "
+        "and under overcommit for every request not preempted")
 
 
 def pack_llama(dense, config: dict, group_size=GROUP_SIZE, bits=BITS, param_dtype=torch.float16):

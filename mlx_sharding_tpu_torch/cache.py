@@ -17,8 +17,8 @@ Paged layout (:class:`PagedKV`): one pool per K and V of shape
 ``(L, P+1, page, H_kv, D)``, the JAX leaf ``(S, L, P+1, B, page, H, D)``
 with S = B = 1 dropped; page P is scratch. An int8 pool is a ``{"d": int8,
 "s": float32 (…, 1)}`` pair (:func:`quantize_kv_rows`). Slot offsets are
-host ints here too. Exporting and importing pool pages (spill, migration)
-and rewinding a slot's offset (async ticks) come with later slices.
+host ints here too (:func:`rewind_slot_offset` rolls one back). Exporting
+and importing pool pages (spill, migration) come with later slices.
 """
 
 from __future__ import annotations
@@ -196,17 +196,27 @@ def write_pool_rows(pool, page_ids: torch.Tensor, row_pos: torch.Tensor, rows: t
         pool[page_ids, row_pos] = rows.to(pool.dtype)
 
 
-def write_pool_span(pool, page_id: int, start: int, rows: torch.Tensor):
-    """Write ``rows`` (T, H_kv, D) into rows ``start .. start+T`` of one
-    pool page, in place (quantized for an int8 pool): a prefill chunk,
-    which never straddles a page."""
+def write_pool_span(pool, page_id: torch.Tensor, start: int, rows: torch.Tensor):
+    """Write ``rows`` (T, H_kv, D) into rows ``start .. start+T`` of the
+    pool page ``page_id``, a (1,) int64 tensor on the pool's device (a
+    captured chunk reads its write page on the device), in place (quantized
+    for an int8 pool): a prefill chunk, which never straddles a page."""
     t = rows.shape[0]
     if is_quantized_kv(pool):
         q = quantize_kv_rows(rows)
-        pool["d"][page_id, start : start + t] = q["d"]
-        pool["s"][page_id, start : start + t] = q["s"]
+        pool["d"][:, start : start + t].index_copy_(0, page_id, q["d"][None])
+        pool["s"][:, start : start + t].index_copy_(0, page_id, q["s"][None])
     else:
-        pool[page_id, start : start + t] = rows.to(pool.dtype)
+        pool[:, start : start + t].index_copy_(0, page_id, rows[None].to(pool.dtype))
+
+
+def rewind_slot_offset(cache: "PagedKV", slot: int, steps: int) -> None:
+    """Roll slot ``slot``'s host offset back by ``steps`` positions
+    (floored at 0), in place: an async batcher reclaiming a slot that
+    finished while a lookahead decode block was in flight (the block's
+    dispatch advanced the offset one block past the slot's end) keeps the
+    offset inside the pages it returns."""
+    cache.offsets[slot] = max(cache.offsets[slot] - steps, 0)
 
 
 def layer_pool(buf, layer: int):

@@ -9,7 +9,13 @@ One model on one device drives M slots that share a pool of KV pages:
   writes the chunk's K/V rows into the view unquantized, attends over it
   through ``causal_attention`` (the flash kernel on the card), and writes
   the chunk's rows into their page, quantized for an int8 pool. A chunk
-  never straddles a page (``page_size % prefill_chunk == 0``).
+  never straddles a page (``page_size % prefill_chunk == 0``). The host
+  fills the engine's persistent prefill inputs (the slot's page row, the
+  tokens, the last valid row) in one upload, and :meth:`prefill_step` reads
+  them on the device: at a fixed offset the step is one program whatever
+  the slot, its pages and ``n_valid``, so the batcher captures one CUDA
+  graph per chunk offset (the flash kernel bakes the offset and its split
+  plan into its launch).
 - :meth:`PipelineEngine.decode_cb` is one ragged T=1 step of all M slots
   (JAX ``_build_decode_cb`` over ``_build_smapped_ragged``): the M new K/V
   rows are written into their pool pages (quantized first for an int8
@@ -31,6 +37,7 @@ Pipeline, tensor and expert parallelism, the dense (unpaged) engine, the
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -149,7 +156,10 @@ class PipelineEngine:
         self.paged_attention = "ragged"
         model.place_constants(self.device)
         self._plans: dict[int, tuple] = {}  # K -> (buffer, DecodePlan over it)
-        # ragged forwards run eagerly on the card (warm-ups of captured blocks)
+        # (buffer, tokens (1, chunk), page row (SPG,), last valid row (1,))
+        self._prefill_buf: Optional[tuple] = None
+        # forwards (prefill chunks, ragged decode steps) run eagerly on the
+        # card: warm-ups of captured steps, or ``cuda_graphs=False``
         self.eager_forwards = 0
 
     # ------------------------------------------------------------------
@@ -175,24 +185,41 @@ class PipelineEngine:
             x = pool[page_ids]
         return x.reshape(1, -1, *x.shape[2:])
 
-    def prefill_slot(self, tokens, slot: int, cache: PagedKV, n_valid: int,
-                     table: np.ndarray) -> torch.Tensor:
-        """Prefill one right-padded chunk ``tokens`` (chunk,) of ``slot`` at
-        its offset, leaving every other slot untouched; advances the slot's
-        offset by ``n_valid``. Returns the logits (1, V) at the last valid
-        row."""
+    def prefill_inputs(self, tokens, slot: int, n_valid: int, table: np.ndarray) -> None:
+        """Copy one chunk's inputs into the engine's persistent prefill
+        buffer, in one upload: the chunk ``tokens`` (chunk,), the slot's
+        page row and ``n_valid - 1``, the row whose logits the step
+        returns. A captured :meth:`prefill_step` reads them at its replay
+        (the copy is ordered before it on the stream)."""
+        c = self.prefill_chunk
+        if len(tokens) != c or not 0 < n_valid <= c:
+            raise ValueError(f"a prefill chunk is {c} tokens; got {len(tokens)} tokens, "
+                             f"{n_valid} valid")
+        host = np.concatenate([np.asarray(tokens, np.int64), table[slot].astype(np.int64),
+                               np.asarray([n_valid - 1], np.int64)])
+        if self._prefill_buf is None:
+            buf = torch.empty(host.shape, dtype=torch.int64, device=self.device)
+            self._prefill_buf = (buf, buf[:c].view(1, c), buf[c:-1], buf[-1:])
+        src = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            self._prefill_buf[0].copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self._prefill_buf[0].copy_(src)
+
+    def prefill_step(self, cache: PagedKV, off: int) -> torch.Tensor:
+        """One prefill chunk at offset ``off`` from the persistent inputs
+        (:meth:`prefill_inputs`): the page view, the write page (indexed on
+        the device from the slot's row) and the last valid row are read on
+        the device, so the step has one program at each offset. Writes the
+        chunk's K/V rows into the pool and returns the logits (1, V) at the
+        last valid row. Device work only: the slot's offset is the
+        caller's."""
         model, c, page = self.model, self.prefill_chunk, self.page_size
-        off = cache.offsets[slot]
-        if off % c or len(tokens) != c or not 0 < n_valid <= c:
-            raise ValueError(f"a prefill chunk is {c} tokens at a chunk-aligned offset; got "
-                             f"{len(tokens)} tokens, {n_valid} valid, at {off}")
-        if off + c > self.max_seq:
-            raise ValueError(f"slot {slot}: prefill at {off} overflows capacity {self.max_seq}")
-        n_pages = -(-(off + c) // page)
-        page_ids = upload(table[slot, :n_pages].astype(np.int64), self.device)
-        write_page, start = int(table[slot, off // page]), off % page
-        x = upload(np.asarray(tokens, np.int64)[None], self.device)
-        h = model.embed(x)
+        _, tokens, row, last = self._prefill_buf
+        page_ids = row[: -(-(off + c) // page)]
+        write_page, start = row[off // page : off // page + 1], off % page
+        note_eager_forward(self, tokens)
+        h = model.embed(tokens)
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
@@ -207,8 +234,27 @@ class PipelineEngine:
                 return causal_attention(q, k_view, v_view, off, model.scale)
 
             h, _, _ = model.sp_layer(layer, h, off, attn_fn)
+        return model.apply_head(h.index_select(1, last))[:, 0]
+
+    def prefill_slot(self, tokens, slot: int, cache: PagedKV, n_valid: int,
+                     table: np.ndarray, graphs=None) -> torch.Tensor:
+        """Prefill one right-padded chunk ``tokens`` (chunk,) of ``slot`` at
+        its offset, leaving every other slot untouched; advances the slot's
+        offset by ``n_valid``. ``graphs`` (a ``StepGraphs``) replays the
+        step's graph for that offset, capturing it on first use; without
+        it the step runs eagerly. Returns the logits (1, V) at the last
+        valid row."""
+        off = cache.offsets[slot]
+        if off % self.prefill_chunk:
+            raise ValueError(f"slot {slot}: a prefill chunk starts at a chunk-aligned offset, "
+                             f"not {off}")
+        if off + self.prefill_chunk > self.max_seq:
+            raise ValueError(f"slot {slot}: prefill at {off} overflows capacity {self.max_seq}")
+        self.prefill_inputs(tokens, slot, n_valid, table)
+        step = functools.partial(self.prefill_step, cache, off)
+        logits = step() if graphs is None else graphs.run(("prefill", off), step).clone()
         cache.offsets[slot] = off + n_valid
-        return model.apply_head(h[:, n_valid - 1 : n_valid])[:, 0]
+        return logits
 
     def decode_plan(self, cache: PagedKV, table: np.ndarray, active: list,
                     steps: int) -> DecodePlan:

@@ -83,11 +83,13 @@ class ModelProvider:
                         concurrent: int = 1, paged_pool: Optional[int] = None,
                         page_size: Optional[int] = None, paged_attention: str = "auto",
                         kv_dtype: Optional[str] = None, admission_policy: str = "fifo",
+                        overcommit: bool = False, async_sched: str = "auto",
                         ) -> "ModelProvider":
         """A single-stream ``Generator``, or with ``concurrent > 1`` a
         ``ContinuousBatcher`` of that many slots over a pool of
-        ``paged_pool`` KV pages (the JAX server's pp=1 paged engine). On a
-        card its step graphs are captured here, before the first request."""
+        ``paged_pool`` KV pages (the JAX server's pp=1 paged engine), with
+        ``overcommit`` admission and ``async_sched`` ticks. On a card its
+        step graphs are captured here, before the first request."""
         from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
         from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
@@ -104,7 +106,8 @@ class ModelProvider:
                 kv_dtype=kv_dtype, device=device,
             )
             generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
-                                          policy=admission_policy)
+                                          policy=admission_policy, overcommit=overcommit,
+                                          async_sched=async_sched)
         captured = generator.warm_up()  # on a card: the step graphs, before any request
         if captured:
             logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
@@ -559,6 +562,18 @@ def main(argv=None):
                         help="with --paged-pool: waiting-line policy when a request "
                         "does not fit the pool: strict order, or let smaller "
                         "requests pass a blocked head")
+    parser.add_argument("--overcommit", action="store_true",
+                        help="with --paged-pool: admit on current page need (prompt + "
+                        "one decode block) and grow per block, preempting the "
+                        "newest-admitted request on pool exhaustion (token-exact "
+                        "resume) — higher slot occupancy than reserving every "
+                        "request's full prompt+max_tokens need")
+    parser.add_argument("--async-sched", choices=("on", "off", "auto"), default="auto",
+                        help="with --concurrent: async tick pipelining — dispatch decode "
+                        "block t+1 before harvesting block t, overlapping host-side "
+                        "emit/stop/admission work with device compute (token streams "
+                        "stay bit-identical to sync). 'auto' (default) enables it: "
+                        "the port has no draft engine and one host")
     args = parser.parse_args(argv)
     if args.concurrent > 1 and not args.paged_pool:
         parser.error("--concurrent N (N > 1) without --paged-pool (dense slots) is not yet "
@@ -573,6 +588,11 @@ def main(argv=None):
         parser.error("--kv-dtype requires --paged-pool")
     if args.admission_policy != "fifo" and not args.paged_pool:
         parser.error("--admission-policy requires --paged-pool")
+    if args.overcommit and not args.paged_pool:
+        parser.error("--overcommit requires --paged-pool")
+    if args.async_sched != "auto" and args.concurrent <= 1:
+        parser.error("--async-sched requires --concurrent N (N > 1): only the continuous "
+                     "batcher has a tick loop to pipeline")
 
     from mlx_sharding_tpu_torch.device import resolve_device
 
@@ -586,7 +606,8 @@ def main(argv=None):
         keep_quantized=args.keep_quantized, concurrent=args.concurrent,
         paged_pool=args.paged_pool, page_size=args.page_size,
         paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
-        admission_policy=args.admission_policy,
+        admission_policy=args.admission_policy, overcommit=args.overcommit,
+        async_sched=args.async_sched,
     )
     server = make_server(provider, args.host, args.port)
     logger.info("serving on http://%s:%d", args.host, args.port)

@@ -710,3 +710,60 @@ def test_batcher_graphs_match_the_eager_steps(cuda, kv_dtype):
             assert engine.eager_forwards == forwards and batcher.graphs.replays > 0
         streams[graphs] = results
     assert streams[True] == streams[False]
+
+
+def _drive_threads(batcher, jobs):
+    results = [None] * len(jobs)
+
+    def work(i):
+        prompt, kw = jobs[i]
+        results[i] = [t for t, _ in batcher.generate_step(prompt, **kw)]
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    batcher.close()
+    assert all(r is not None for r in results)
+    return results
+
+
+def test_batcher_prefill_graphs_async_and_overcommit_on_the_card(cuda):
+    """f32 weights, 128-token pages over a pool of 5: a greedy hog and a
+    seeded top-p request that both need 3 pages in the end. Through the
+    prefill and decode graphs (no eager forward after the warm-up, one
+    replay per chunk and block), async ticks give the streams of sync ones;
+    with overcommit the seeded request is preempted and resumes with its
+    generator's state restored into a generator the decode graphs
+    registered, and both streams equal the requests served alone."""
+    model = _tiny_model(cuda)
+    gen = torch.Generator().manual_seed(5)
+    hog = (torch.randint(0, 256, (130,), generator=gen).tolist(), dict(max_tokens=200))
+    seeded = (torch.randint(0, 256, (140,), generator=gen).tolist(),
+              dict(max_tokens=180, temperature=0.9, top_p=0.8, seed=9, repetition_penalty=1.2))
+
+    def batcher(pool, **kw):
+        engine = PipelineEngine(model, microbatches=2, max_seq=512, prefill_chunk=128,
+                                pool_pages=pool, device=model.device)
+        b = ContinuousBatcher(engine, decode_block=4, **kw)
+        info = b.warm_up()
+        assert info["graphs"] == 4 + 4  # 4 chunk offsets, 4 decode blocks
+        return b, engine
+
+    alone = []
+    for job in (hog, seeded):
+        b, _ = batcher(8)
+        alone += _drive_threads(b, [job])
+    runs = {}
+    for name, kw in (("sync", dict(async_sched="off")), ("async", dict(async_sched="on")),
+                     ("overcommit", dict(overcommit=True))):
+        b, engine = batcher(5 if name == "overcommit" else 8, **kw)
+        replays, forwards = b.graphs.replays, engine.eager_forwards
+        runs[name] = _drive_threads(b, [hog, seeded])
+        assert engine.eager_forwards == forwards and b.graphs.captures == 8
+        chunks = b.prefill_chunks
+        assert b.graphs.replays - replays == chunks + b.decode_steps // 4
+        if name == "overcommit":
+            assert b.preemptions >= 1 and b.reprefill_tokens > 0
+    assert runs["sync"] == runs["async"] == runs["overcommit"] == alone

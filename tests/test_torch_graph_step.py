@@ -11,11 +11,16 @@ with numpy:
 - that a decode step can be replayed: the (op, shapes) sequence of one
   step, recorded under a ``TorchDispatchMode`` at positions 5 and 300, is
   the same at both and holds no host read (``aten._local_scalar_dense``),
-  for the dense, the packed and the paged step.
+  for the dense, the packed and the paged step;
+- the batcher's prefill step (``PipelineEngine.prefill_slot``, which the
+  card captures once per chunk offset) against JAX's ``prefill_slot`` at
+  two slots, two page rows and several ``n_valid``, logits and the whole
+  pool after each chunk; and that at one offset it is the same program for
+  any slot, page row, write page and ``n_valid``, with no host read.
 
-Tolerance: fp32 attention within 1e-5 relative (the two packages sum the
-scores and products in another order); writes and sampler transforms are
-exact."""
+Tolerance: fp32 attention, logits and pool rows within 1e-5 relative (the
+two packages sum the scores and products in another order); the int8
+pool's codes bit-equal; writes and sampler transforms are exact."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,7 @@ from torch.utils._pytree import tree_flatten
 
 from chip_smoke import pack_llama
 from mlx_sharding_tpu import cache as jcache
+from mlx_sharding_tpu import scheduler as jscheduler
 from mlx_sharding_tpu import sample as jsample
 from mlx_sharding_tpu.ops.attention import causal_attention as j_causal_attention
 from mlx_sharding_tpu_torch import cache, sample
@@ -35,6 +41,7 @@ from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
 from mlx_sharding_tpu_torch.parallel import PipelineEngine
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+from tests.test_torch_scheduler import ENGINE, _engine, _jax_engine, models  # noqa: F401
 
 ATTN_RTOL = 1e-5
 CAPACITY = 64
@@ -240,3 +247,93 @@ def test_paged_decode_step_is_the_same_program_at_every_position(tiny_models, kv
         plan = engine.decode_plan(batcher.cache, batcher.table, batcher.active, 1)
         logs.append(_record(lambda: batcher._decode_steps(plan, True, True)))
     _assert_replayable(*logs)
+
+
+# ------------------------------------------------- the batcher's prefill step
+# (slot, its page row, chunk offset, n_valid): two slots, two rows, the
+# chunk's write page at row positions 0, 1 and 2, full and ragged chunks
+PREFILL_CASES = [(0, [3, 1, 4, 0], 0, 8), (2, [6, 9, 2, 5], 16, 5), (0, [3, 1, 4, 0], 8, 1),
+                 (2, [6, 9, 2, 5], 0, 3)]
+
+
+def _pool_leaves(kv, rng, shape):
+    """Random pool contents as numpy: f32 rows, or int8 codes and scales."""
+    if kv is None:
+        return {"": rng.standard_normal(shape).astype(np.float32)}
+    return {"d": rng.integers(-127, 128, size=shape).astype(np.int8),
+            "s": (rng.random((*shape[:-1], 1)) * 0.05 + 0.01).astype(np.float32)}
+
+
+def _to_jax(leaves):
+    # the JAX leaf is (S, L, P+1, B, page, H, D) with S = B = 1
+    out = {k: jnp.asarray(v[None, :, :, None]) for k, v in leaves.items()}
+    return out[""] if "" in out else out
+
+
+def _from_jax(tree):
+    tree = tree if isinstance(tree, dict) else {"": tree}
+    return {k: np.asarray(v)[0, :, :, 0] for k, v in tree.items()}
+
+
+def _from_port(pool):
+    pool = pool if isinstance(pool, dict) else {"": pool}
+    return {k: v.numpy() for k, v in pool.items()}
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32_pool", "int8_pool"])
+def test_prefill_slot_matches_jax(models, kv_dtype):
+    """Chunks of two slots over a pool of random earlier rows: the logits at
+    the last valid row and the whole pool after each chunk agree with the
+    JAX program (f32 within 1e-5; int8 codes bit-equal, scales within
+    1e-5), and each slot's offset moves by ``n_valid``."""
+    jeng, peng = _jax_engine(models, kv_dtype), _engine(models, kv_dtype)
+    jc, jtable = jeng.init_cache_paged()
+    pc, ptable = peng.init_cache_paged()
+    rng = np.random.default_rng(6)
+    shape = tuple(cache.kv_data(pc.k).shape)
+    pools = {name: _pool_leaves(kv_dtype, rng, shape) for name in ("k", "v")}
+    jc = jc._replace(k=_to_jax(pools["k"]), v=_to_jax(pools["v"]))
+    for name in ("k", "v"):
+        dst = getattr(pc, name)
+        for key, value in pools[name].items():
+            (dst[key] if key else dst).copy_(torch.from_numpy(value))
+    for slot, row, off, n_valid in PREFILL_CASES:
+        tokens = rng.integers(1, 300, size=ENGINE["prefill_chunk"])
+        ptable[slot, : len(row)] = row
+        jtable = jtable.at[slot, : len(row)].set(jnp.asarray(row, jnp.int32))
+        pc.offsets[slot] = off
+        jc = jc._replace(offset=jc.offset.at[slot].set(off))
+        want, jc = jeng.prefill_slot()(
+            jeng.layer_params, jeng.layer_masks, jeng.vocab_parts, jeng.shared_params,
+            jnp.asarray(tokens[None], jnp.int32), jnp.asarray(slot, jnp.int32), jc,
+            jnp.asarray(n_valid, jnp.int32), jtable)
+        got = peng.prefill_slot(tokens, slot, pc, n_valid, ptable)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ATTN_RTOL, atol=ATTN_RTOL)
+        assert pc.offsets[slot] == off + n_valid == int(jc.offset[slot])
+        for name in ("k", "v"):
+            p, j = _from_port(getattr(pc, name)), _from_jax(getattr(jc, name))
+            for key in p:
+                if key == "d":
+                    np.testing.assert_array_equal(p[key], j[key])
+                else:
+                    np.testing.assert_allclose(p[key], j[key], rtol=ATTN_RTOL, atol=ATTN_RTOL)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32-pool", "int8-pool"])
+def test_prefill_step_is_the_same_program_for_any_slot_and_page(tiny_models, kv_dtype):
+    """At chunk offset 128 (pages of 256: the write page is the row's first
+    entry, the view two pages), two slots with other page rows, tokens and
+    ``n_valid`` run the same (op, shapes) sequence, with no host read: the
+    step's inputs come from the engine's persistent buffer."""
+    engine = PipelineEngine(tiny_models[0], microbatches=2, max_seq=512, prefill_chunk=128,
+                            pool_pages=8, page_size=256, kv_dtype=kv_dtype, device="cpu")
+    pc, table = engine.init_cache_paged()
+    table[0, :2] = [3, 1]
+    table[1, :2] = [6, 2]
+    rng = np.random.default_rng(8)
+    logs = []
+    for slot, n_valid in ((0, 128), (1, 40)):
+        engine.prefill_inputs(rng.integers(0, 256, size=128), slot, n_valid, table)
+        logs.append(_record(lambda: engine.prefill_step(pc, 128)))
+    _assert_replayable(*logs)
+    assert any("index_copy" in op for op, _ in logs[0])  # the write at a device page

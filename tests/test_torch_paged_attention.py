@@ -213,7 +213,7 @@ def test_pool_writes():
         rows = torch.randn(2, 2, 16)
         cache.write_pool_rows(pool, torch.tensor([3, 1]), torch.tensor([7, 0]), rows)
         span = torch.randn(5, 2, 16)
-        cache.write_pool_span(pool, 2, 3, span)
+        cache.write_pool_span(pool, torch.tensor([2]), 3, span)
         got = cache.dequantize_kv(kv.k)[0]
         want = [(got[3, 7], rows[0]), (got[1, 0], rows[1]), (got[2, 3:8], span)]
         for g, w in want:

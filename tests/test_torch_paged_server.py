@@ -136,9 +136,54 @@ def test_concurrent_generator_is_served_without_the_lock(ckpt):
     (["--admission-policy", "first_fit"], "--admission-policy requires --paged-pool"),
     (["--concurrent", "2", "--paged-pool", "4", "--paged-attention", "gather"],
      "invalid choice: 'gather'"),
+    (["--overcommit"], "--overcommit requires --paged-pool"),
+    (["--async-sched", "off"], "--async-sched requires --concurrent N (N > 1)"),
+    (["--concurrent", "2", "--paged-pool", "4", "--async-sched", "sometimes"],
+     "invalid choice: 'sometimes'"),
 ])
 def test_flag_checks(argv, message, capsys):
     with pytest.raises(SystemExit) as info:
         tapi.main(["--model", "unused", "--device", "cpu", *argv])
     assert info.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,overcommit,is_async", [
+    (["--overcommit"], True, True),
+    (["--async-sched", "off"], False, False),
+    (["--overcommit", "--async-sched", "on"], True, True),
+], ids=["overcommit", "sync", "overcommit-async"])
+def test_batcher_flags_on_the_cpu(ckpt, monkeypatch, argv, overcommit, is_async):
+    """``--overcommit`` and ``--async-sched`` from the command line reach the
+    batcher the server builds with ``--device cpu``, and it answers
+    concurrent requests with what it answers one at a time."""
+    built = {}
+
+    class _NoServe:
+        def serve_forever(self):
+            pass
+
+    def keep_provider(provider, host, port):
+        built["p"] = provider
+        return _NoServe()
+
+    monkeypatch.setattr(tapi, "make_server", keep_provider)
+    tapi.main(["--model", str(ckpt), "--device", "cpu", "--concurrent", "2", "--paged-pool", "3",
+               *argv])
+    batcher = built["p"].generator
+    assert isinstance(batcher, ContinuousBatcher)
+    assert batcher.overcommit is overcommit and batcher._async is is_async
+    assert batcher.tick_timing_stats()["path"] == ("async" if is_async else "sync")
+    monkeypatch.undo()
+    srv = tapi.make_server(built["p"], "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = srv.server_address[1]
+        together = _answers(port, concurrently=True)
+        assert _answers(port, concurrently=False) == together
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        batcher.close()

@@ -226,19 +226,27 @@ def test_close_ends_every_stream(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(async_sched="on"), dict(overcommit=True), dict(prefix_cache=True),
+    # async ticks and overcommit are ported; their two cases now hold the
+    # cold-slot spill and a draft engine, which still raise
+    dict(spill_cold_after=4), dict(draft_engine=object()), dict(prefix_cache=True),
     dict(draft="ngram"), dict(spec_k=2), dict(spill_bytes=1 << 20), dict(kv_prefetch="on"),
     dict(max_queue=4), dict(prefix_store=object()),
 ])
 def test_unported_batcher_options_raise(models, kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Each refusal names the ROADMAP item that ports it."""
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP queue 1, slice"):
         ContinuousBatcher(_engine(models), **kw)
 
 
 def test_auto_async_resolves_to_sync_and_says_why(models):
+    """``auto`` resolves as the JAX rule does: with no draft engine and one
+    host it is async; ``off`` is sync. Each says why."""
     batcher = ContinuousBatcher(_engine(models))
-    assert batcher.async_sched == "auto" and "sync" in batcher.async_reason
-    assert "not yet ported" in batcher.async_reason
+    assert batcher.async_sched == "auto" and batcher._async
+    assert batcher.async_reason.startswith("async ticks: auto resolved to async")
+    off = ContinuousBatcher(_engine(models), async_sched="off")
+    assert not off._async and off.async_reason == "sync ticks: async_sched='off'"
+    assert off.tick_timing_stats()["path"] == "sync"
 
 
 @pytest.mark.parametrize("kw,match", [
