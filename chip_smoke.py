@@ -22,7 +22,12 @@ final line:
    pools, and odd pages, groups (3, 7 and 24 among them), Dk != Dv and
    dtypes, each with the walk planned, in blocks of 64 positions and whole;
    then two runs bit-identical, one row merging 22 partials, and one call
-   captured in a CUDA graph holding one kernel and no memset;
+   captured in a CUDA graph holding one kernel and no memset; and the flash
+   kernel's T=1 route (``flash_decode``: the paged kernel over the dense
+   cache seen as pages) at the 8B shapes at positions 0, 600 and 4095 with
+   one and two rows, and in f32: two runs bit-identical, one captured call
+   one kernel node, and a call captured at 600 and replayed at 4095 equal
+   to the call at 4095;
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
    kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
@@ -34,6 +39,10 @@ final line:
    projections of Llama-3.2-1B and Qwen2-1.5B, beside the planner's pick;
    the paged decode at the points of ``PAGED_SWEEP`` (the mix's first
    decode step, 8 x 4096, 32 x 1024, 1 x 4096), planned and whole walks;
+   the T=1 route at positions 600, 700 and 4095 against its plain version,
+   ``masked_attention`` over the whole capacity (the plain path the
+   captured decode step takes with the route off) and SDPA over the
+   prefix with ``enable_gqa``;
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here. The Generator captures its CUDA
@@ -41,8 +50,9 @@ final line:
    bytes are printed); five requests (a 600-token completion with
    logprobs, a streamed chat, a seeded top-p sample twice, a streamed
    600-token completion for TTFT and decode tok/s) then run as replays:
-   flash launches checked against 32 x the prompt chunks, replays against
-   the requests' chunks and decode blocks, no capture and no eager forward;
+   flash launches checked against 32 x the prompt chunks, the T=1 route's
+   against 32 x the decode steps, replays against the requests' chunks and
+   decode blocks, no capture and no eager forward;
    the kernel path checked against the plain attention path of the same
    model, and the median of five device-synchronised
    ``Generator.run_prefill`` calls of the 600-token prompt after a warm-up;
@@ -53,15 +63,19 @@ final line:
    64-token stream's decode tok/s, and for one decode step and one
    256-token prefill chunk the host ms, wall ms, device ms (torch.profiler)
    and busy share, and the kernels by device time; the streams and a
-   seeded top-p sample token-identical both ways;
+   seeded top-p sample token-identical both ways; then the two T=1 routes
+   (``MST_FLASH_DECODE`` 1 and 0, graphs captured under each) in the order
+   kernel, plain, plain, kernel: a greedy 64-token stream's tok/s and a
+   decode step's device ms, each route's launches checked, and one T=1
+   step's last-position logits on each route within the bf16 limits;
 5. main path, 4-bit (``--keep-quantized``): the same weights packed on the
    card in MLX's layout (group 64, 4 bits, fp16 scales and biases), fused,
    its graphs captured, served by the same server for two 600-token
    requests, every kernel's launches (replays included) checked against
    what the requests imply, replays against their chunks and blocks, the
    last position's logits checked against a dense model holding the
-   dequantized weights, the packed prefill's median, and where the time
-   goes, as in phase 4.
+   dequantized weights, the packed prefill's median, where the time goes
+   and the two T=1 routes, as in phase 4.
 6. continuous batching (run between 4 and 5, on phase 4's dense model):
    ``--concurrent 8 --paged-pool 16`` with 256-token pages and async ticks,
    once with a bf16 pool (reserve admission) and once with an int8 pool
@@ -79,8 +93,13 @@ final line:
    and sync ticks token-identical; overcommit against reserve
    token-identical for every request not preempted, and for a preempted
    one up to its preemption (the tokens that still agree after its resume
-   are printed); then, at the engine level, every slot's logits at its
-   first decode step against the single-stream model's.
+   are printed); a request with ``"ttft_timeout": 0.001`` answers 504 and
+   every page of the pool is free after it; prefix sharing on this thread:
+   four greedy requests sharing a 512-token prefix, the first alone, with
+   the cache off and on: token-identical, 3 hits, 1536 tokens reused and
+   3 x 2 x 32 fewer flash launches; then, at the engine level, every
+   slot's logits at its first decode step against the single-stream
+   model's.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -197,6 +216,14 @@ OVERCOMMIT_EXTRA_TOKENS = 256
 PARITY_PROMPTS = (200, 230, 480, 700, 1000, 450)
 PARITY_TOKENS = 128
 PARITY_MAX_SEQ = 1280
+# prefix sharing's parity run: four prompts of a shared 512-token prefix (two
+# pages) and their own 100 tokens
+PREFIX_TOKENS = 512
+PREFIX_SUFFIX = 100
+# the T=1 route's check at the 8B shapes (the first decode position, one
+# inside the main path's streams and the last), and its timing
+DECODE_POSITIONS = (0, 600, 4095)
+DECODE_TIMING_POSITIONS = (600, 700, 4095)
 # the paged kernel's check at the 8B shapes: lengths at and around page
 # edges, an empty slot and a full 4096-position slot
 PAGED_LENGTHS = (0, 1, 255, 256, 257, 600, 1000, 4096)
@@ -679,6 +706,131 @@ def phase_paged_kernels(seed: int) -> float:
     return main_err
 
 
+def decode_case(gen, b, position, s=MAX_SEQ, dtype=torch.bfloat16):
+    """The T=1 route's operands at Llama-3.1-8B's attention: q (B, 1, 32,
+    128), one layer of a dense (L, B, S, 8, 128) cache, the (1,) device
+    position and its lengths."""
+    from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+
+    q, k, v = attention_inputs(gen, b, 1, s, 32, 8, 128, 128, dtype)
+    pos = torch.tensor([position], dtype=torch.int64, device="cuda")
+    return q, k, v, pos, decode_lengths(pos, b, s)
+
+
+def phase_decode_kernels(seed: int) -> float:
+    """The T=1 route (the paged kernel over the dense cache seen as pages)
+    against its plain version at the 8B shapes, at ``DECODE_POSITIONS``
+    with one and two rows, and f32 at a short capacity; two runs
+    bit-identical; one call captured in a CUDA graph is one kernel node;
+    and a captured call replayed after its device position moved gives the
+    call at the new position, bit for bit. Returns the largest error at
+    the 8B shapes."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    scale = 128 ** -0.5
+    main_err = 0.0
+    cases = [(b, p, MAX_SEQ, torch.bfloat16) for p in DECODE_POSITIONS for b in (1, 2)]
+    cases += [(2, p, 256, torch.float32) for p in (0, 63, 64, 255)]
+    for b, position, s, dtype in cases:
+        q, k, v, pos, lengths = decode_case(gen, b, position, s, dtype)
+        got = fa.flash_decode(q, k, v, pos, scale, lengths=lengths)
+        ref = fa.flash_decode_reference(q, k, v, lengths, scale)
+        torch.cuda.synchronize()
+        err, worst, rel_l2 = kernel_disagreement(got, ref)
+        log(f"[kernels] flash_decode B={b} S={s} Hq=32 Hkv=8 D=128 {str(dtype)[6:]} position "
+            f"{position}: max_abs_err {err:.3e}, rms(ref) "
+            f"{ref.float().pow(2).mean().sqrt().item():.3e}, worst err/limit {worst:.3f} (tol 1), "
+            f"relative L2 {rel_l2:.3e} (tol {REL_L2_TOL})")
+        check(worst <= 1 and rel_l2 <= REL_L2_TOL,
+              f"flash_decode B={b} position {position} disagrees with its plain version")
+        if s == MAX_SEQ and b == 1:
+            main_err = max(main_err, err)
+    q, k, v, pos, lengths = decode_case(gen, 1, DECODE_POSITIONS[-1])
+    runs = [fa.flash_decode(q, k, v, pos, scale, lengths=lengths) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(*runs), "flash_decode: two runs differ")
+    nodes = graph_nodes(lambda: fa.flash_decode(q, k, v, pos, scale, lengths=lengths))
+    log(f"[kernels] flash_decode 8B shapes, position {DECODE_POSITIONS[-1]}: two runs "
+        f"bit-identical; one call enqueues {nodes}")
+    check(nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0},
+          "flash_decode: one call is not one kernel launch")
+    # the position is read on the device: a call captured at 600 and
+    # replayed at 4095 is the call at 4095
+    pos.fill_(DECODE_POSITIONS[1])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fa.flash_decode(q, k, v, pos, scale)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fa.flash_decode(q, k, v, pos, scale)
+    pos.fill_(DECODE_POSITIONS[-1])
+    graph.replay()
+    want = fa.flash_decode(q, k, v, pos, scale)
+    torch.cuda.synchronize()
+    log(f"[kernels] flash_decode captured at position {DECODE_POSITIONS[1]}, replayed at "
+        f"{DECODE_POSITIONS[-1]}: bit-identical to the call there {torch.equal(out, want)}")
+    check(torch.equal(out, want), "flash_decode: a replay does not read the device position")
+    del graph
+    return main_err
+
+
+def decode_work(q, k, v, position):
+    """FLOPs and bytes of the T=1 route at ``position``: q and the output
+    once, the prefix's K/V rows once, the table entries of its pages and
+    the lengths."""
+    from mlx_sharding_tpu_torch.ops.flash_attention import DECODE_PAGE
+
+    b, _, hq, dk = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    rows = min(k.shape[1], position + 1)
+    el = q.element_size()
+    nbytes = (el * b * hq * (dk + dv) + el * b * rows * hkv * (dk + dv)
+              + 4 * b * (-(-rows // DECODE_PAGE) + 1))
+    return 2 * b * hq * (dk + dv) * rows, nbytes
+
+
+def phase_decode_timing(seed: int) -> list:
+    """Device times of the T=1 route at Llama-3.1-8B's attention (B 1,
+    Hq 32, Hkv 8, D 128, bf16, capacity 4096) at ``DECODE_TIMING_POSITIONS``:
+    the kernel, its plain version, the plain path the captured step ran
+    before (``masked_attention`` over the whole capacity) and SDPA over the
+    prefix with ``enable_gqa``, beside the bound. Returns one row per
+    position; the kernel record takes the first."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops.attention import masked_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    scale = 128 ** -0.5
+    rows = []
+    for position in DECODE_TIMING_POSITIONS:
+        q, k, v, pos, lengths = decode_case(gen, 1, position)
+        kern = time_ms(lambda: fa.flash_decode(q, k, v, pos, scale, lengths=lengths))
+        plain = time_ms(lambda: fa.flash_decode_reference(q, k, v, lengths, scale))
+        masked = time_ms(lambda: masked_attention(q, k, v, pos, scale))
+        lib_fn = sdpa_call(q, k, v, position, scale)
+        lib = time_ms(lib_fn)
+        ref = fa.flash_decode_reference(q, k, v, lengths, scale)
+        for name, out in (("SDPA over the prefix", lib_fn()),
+                          ("masked_attention", masked_attention(q, k, v, pos, scale))):
+            _, worst, rel_l2 = kernel_disagreement(out, ref)
+            check(worst <= 1 and rel_l2 <= REL_L2_TOL, f"{name} disagrees with the plain version")
+        flops, nbytes = decode_work(q, k, v, position)
+        ops_ms, bytes_ms = flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        rows.append(dict(position=position, ms=kern, plain_ms=plain, masked_ms=masked,
+                         library_ms=lib, bound_ms=bound, ops_ms=ops_ms, bytes_ms=bytes_ms))
+        log(f"[timing] flash_decode B=1 S={MAX_SEQ} Hq=32 Hkv=8 D=128 bf16 position {position}: "
+            f"kernel {kern:.4f} ms, plain version {plain:.4f} ms, masked_attention over the "
+            f"capacity {masked:.4f} ms, sdpa over the prefix {lib:.4f} ms, bound {bound:.4f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {flops / 1e6:.2f} MFLOP, "
+            f"{nbytes / 1e6:.3f} MB), {nbytes / 1e6 / kern:.0f} GB/s, {bound / kern:.1%} of the "
+            f"bound; 32 layers: kernel {32 * kern:.3f} ms against masked {32 * masked:.3f} ms")
+    return rows
+
+
 def paged_call(pa, q, k, v, ks, vs, tables, lens, scale, split):
     """One synchronised call with ``SPLIT_POSITIONS`` set to ``split``."""
     default = pa.SPLIT_POSITIONS
@@ -1152,6 +1304,7 @@ def phase_main_path(seed: int):
     from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
     from mlx_sharding_tpu_torch.models import build_model
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
     from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, convert_chat, make_server
 
     torch.cuda.reset_peak_memory_stats()
@@ -1183,7 +1336,7 @@ def phase_main_path(seed: int):
         # warm-up outside the counted run: cuBLAS handles, the kernel library
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"warm-up request failed: {status}")
-        fa.flash_attention.launches = 0
+        fa.flash_attention.launches = fa.flash_decode.launches = 0
         served = ServedRun(gen, model)
         expected_chunks = 0
         expected_blocks = blocks(32) + blocks(24) + 2 * blocks(24) + blocks(64)
@@ -1240,11 +1393,20 @@ def phase_main_path(seed: int):
         log(f"[main] /v1/completions stream, 600-token prompt, 64 tokens: TTFT {t_head * 1e3:.1f} ms, "
             f"prefill {stats['prefill_tok_s']:.1f} tok/s, decode {stats['decode_tok_s']:.2f} tok/s "
             f"(host clock at the client, one request)")
-        launches = fa.flash_attention.launches
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "flash_decode": fa.flash_decode.launches}
         expected = cfg.num_hidden_layers * expected_chunks
-        log(f"[main] flash_attention launches {launches}, expected {cfg.num_hidden_layers} "
-            f"layers x {expected_chunks} chunks = {expected}")
-        check(launches == expected, "flash launch count disagrees with the chunk count")
+        log(f"[main] flash_attention launches {launches['flash_attention']}, expected "
+            f"{cfg.num_hidden_layers} layers x {expected_chunks} chunks = {expected}")
+        check(launches["flash_attention"] == expected,
+              "flash launch count disagrees with the chunk count")
+        route = flash_decode_on()
+        expected = cfg.num_hidden_layers * DEFAULT_DECODE_BLOCK * expected_blocks if route else 0
+        log(f"[main] T=1 route {'on' if route else 'off'} (MST_FLASH_DECODE); flash_decode "
+            f"launches {launches['flash_decode']}, expected {expected} ({cfg.num_hidden_layers} "
+            f"layers x {DEFAULT_DECODE_BLOCK * expected_blocks} decode steps)")
+        check(launches["flash_decode"] == expected,
+              "flash_decode launch count disagrees with the decode steps")
         served.check("[main]", expected_chunks + expected_blocks)
     finally:
         server.shutdown()
@@ -1275,39 +1437,95 @@ def phase_main_path(seed: int):
     log(f"[main] torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB "
         f"(graph pool included)")
     stats["steps"] = phase_step_timing(model, gen, "[main]", prompt)
+    stats["routes"] = phase_decode_routes(model, gen, "[main]", prompt)
     del gen
-    stats["attention"] = full_capacity_attention_ms(seed, cfg.num_hidden_layers)
     return launches, stats, model
 
 
-def full_capacity_attention_ms(seed: int, layers: int) -> dict:
-    """The dense T=1 decode attention at Llama-3.1-8B's shapes, device ms of
-    one layer (``time_ms``: the L2 flushed, as a layer finds its K/V after
-    the other layers ran): over the whole 4096-position capacity, masked
-    from a device position (what a captured step runs), against the same
-    query over the 601-position prefix only (the host-offset plain path the
-    port's eager decode ran before), and the two outputs within the
-    kernels' bf16 limits of each other."""
-    from mlx_sharding_tpu_torch.ops.attention import masked_attention
-    from mlx_sharding_tpu_torch.ops.flash_attention import flash_attention_reference
+class decode_route:
+    """Within the block, ``MST_FLASH_DECODE`` is "1" (``on``) or "0": the T=1
+    route the steps captured or run there take."""
 
-    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
-    q, k, v = attention_inputs(gen, 1, 1, MAX_SEQ, 32, 8, 128, 128, torch.bfloat16)
-    pos = torch.tensor([600], dtype=torch.int64, device="cuda")
-    scale = 128**-0.5
-    full = masked_attention(q, k, v, pos, scale)
-    prefix = flash_attention_reference(q, k, v, 600, scale, probs_dtype=torch.bfloat16)
-    _, worst, rel_l2 = kernel_disagreement(full, prefix)
-    check(worst <= 1 and rel_l2 <= REL_L2_TOL, "full-capacity attention disagrees with the prefix")
-    out = {"full_ms": time_ms(lambda: masked_attention(q, k, v, pos, scale)),
-           "prefix_ms": time_ms(lambda: flash_attention_reference(
-               q, k, v, 600, scale, probs_dtype=torch.bfloat16))}
-    log(f"[main] dense T=1 attention, one layer at position 600: over the whole capacity "
-        f"{out['full_ms']:.4f} ms, over the prefix {out['prefix_ms']:.4f} ms (device time, L2 "
-        f"flushed); {layers} layers: {layers * out['full_ms']:.3f} against "
-        f"{layers * out['prefix_ms']:.3f} ms a decode step; outputs agree (worst err/limit "
-        f"{worst:.3f}, relative L2 {rel_l2:.2e})")
-    return out
+    def __init__(self, on: bool):
+        self.value = "1" if on else "0"
+
+    def __enter__(self):
+        self.saved = os.environ.get("MST_FLASH_DECODE")
+        os.environ["MST_FLASH_DECODE"] = self.value
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("MST_FLASH_DECODE", None)
+        else:
+            os.environ["MST_FLASH_DECODE"] = self.saved
+
+
+def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
+    """The single-stream decode on each T=1 route, in one process, turns in
+    the order kernel, plain, plain, kernel: ``gen`` (the served Generator)
+    when the route is on by default, and a Generator of the same model
+    whose graphs are captured with the other route. Each turn: a greedy
+    64-token stream's decode tok/s and one decode step's device ms (blocks
+    of 16, ``step_numbers``), with the T=1 route's launches checked (32 a
+    step on the kernel route, none on the plain one). Then the last
+    position's logits of one T=1 step on each route, eagerly from the same
+    cache, within ``LOGITS_RTOL`` of each other."""
+    from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
+                                                 Generator)
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
+
+    layers = model.config.num_hidden_layers
+    default_on = flash_decode_on()
+    ids = prompt[0].tolist()
+    with decode_route(not default_on):
+        other = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+        stream_tokens(other, ids, max_tokens=64)  # captures the graphs the turns replay
+    gens = {default_on: gen, not default_on: other}
+    rows, streams = [], []
+    for on in (True, False, False, True):
+        g, name = gens[on], "kernel" if on else "plain"
+        with decode_route(on):
+            fa.flash_decode.launches = 0
+            toks, tok_s = stream_tokens(g, ids, max_tokens=64)
+            stream_launches = fa.flash_decode.launches
+            list(g.generate_step(ids, max_tokens=1))
+            fa.flash_decode.launches = 0
+            step = step_numbers(
+                lambda g=g: g.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
+                calls=2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
+            step_launches = fa.flash_decode.launches
+        streams.append(toks)
+        steps = 4 * DEFAULT_DECODE_BLOCK  # the stream's 63 tokens after the first; 4 blocks
+        want = (layers * steps, layers * steps) if on else (0, 0)
+        check((stream_launches, step_launches) == want,
+              f"{tag} {name} route: flash_decode launches {stream_launches}, {step_launches}, "
+              f"want {want}")
+        rows.append({"route": name, "decode_tok_s": tok_s, **step})
+        log(f"{tag} T=1 {name} route: greedy 64-token stream {tok_s:.2f} tok/s; decode step "
+            f"host {step['host_ms']:.3f} ms, wall {step['wall_ms']:.3f} ms, device "
+            f"{step['device_ms']:.3f} ms; flash_decode launches {stream_launches} (stream) and "
+            f"{step_launches} (4 blocks of {DEFAULT_DECODE_BLOCK}); "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in step["kernels"]))
+    same = [next((j for j, (a, b) in enumerate(zip(streams[0], s)) if a != b), len(s))
+            for s in streams[1:]]
+    log(f"{tag} T=1 routes: the streams agree with the first turn's for {same} of 64 tokens")
+    del gens[not default_on], other
+    eager = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)
+    first = eager.run_prefill(prompt).argmax(-1)
+    logits = {}
+    for on in (True, False):
+        with decode_route(on):
+            out, _ = model(first[:, None], eager.cache)
+        logits[on] = out[0, -1].float()
+    check(bool(torch.isfinite(logits[True]).all()), f"{tag} T=1 route logits not finite")
+    rel = ((logits[True] - logits[False]).norm() / logits[False].norm()).item()
+    log(f"{tag} last-position logits of a T=1 step at position {prompt.shape[1]}, kernel route "
+        f"vs plain route over {layers} layers: relative L2 {rel:.3e} (tol {LOGITS_RTOL}), same "
+        f"argmax {bool(logits[True].argmax() == logits[False].argmax())}")
+    check(rel <= LOGITS_RTOL, f"{tag} the T=1 kernel route disagrees with the plain route")
+    del eager
+    return rows
 
 
 class ServedRun:
@@ -1592,6 +1810,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         served.check(tag, steps // batcher.decode_block + chunks)
         tick_line(tag, batcher)
         ticks = batcher.tick_timing_stats()
+        deadline_check(port, batcher, tag)
     finally:
         server.shutdown()
         server.server_close()
@@ -1645,6 +1864,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         f"{sum(m for _, m in mix)} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
     del batcher, engine, server
     batcher_parity(model, kv_dtype, tag)
+    prefix_parity(model, kv_dtype, tag)
 
     # the engine level: each slot's first decode step against the
     # single-stream model's first T=1 step on the same prompt and token
@@ -1669,6 +1889,67 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     log(f"{tag} torch.cuda.max_memory_allocated {stats['max_memory_allocated_gb']:.2f} GB "
         f"(16.06 GB of weights)")
     return launches, stats
+
+
+def deadline_check(port, batcher, tag: str) -> None:
+    """Fault 4's request: ``"ttft_timeout": 0.001`` to the batcher's server
+    answers 504 with a timeout error, and once the scheduler has reaped it
+    every page of the pool is free."""
+    status, body, _, t_end = post(port, "/v1/completions", {
+        "prompt": mix_prompt(50, 300), "max_tokens": 16, "ttft_timeout": 0.001})
+    check(status == 504 and body["error"]["type"] == "timeout_error",
+          f"{tag} a ttft_timeout of 1 ms: status {status}: {body}")
+    deadline = time.monotonic() + 10
+    while batcher.page_stats()[1] and time.monotonic() < deadline:
+        time.sleep(0.05)
+    total, in_use, _ = batcher.page_stats()
+    stats = batcher.resilience_stats()
+    log(f"{tag} ttft_timeout 0.001: 504 in {t_end * 1e3:.1f} ms ({body['error']['message']}); "
+        f"then {in_use} of {total} pages in use; {stats}")
+    check(in_use == 0, f"{tag} the timed-out request's pages were not freed")
+    check(stats["timeouts"] + stats["shed_deadline"] >= 1, f"{tag} deadline counters {stats}")
+
+
+def prefix_parity(model, kv_dtype: str, tag: str) -> None:
+    """Prefix sharing on the card, served on this thread: four greedy
+    requests whose prompts share ``PREFIX_TOKENS`` (two 256-token pages),
+    the first served alone, then the other three, with the prefix cache
+    off and on. The streams must be token-identical, the cache must count
+    3 hits and 3 x 512 tokens reused, and skip 32 flash launches for each
+    of the 3 x 2 chunks it did not prefill."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    shared = tok.encode(mix_prompt(40, PREFIX_TOKENS))
+    jobs = [(shared + tok.encode(mix_prompt(41 + i, PREFIX_SUFFIX)), dict(max_tokens=64))
+            for i in range(4)]
+    runs = {}
+    for cache_on in (False, True):
+        engine = PipelineEngine(model, microbatches=SLOTS, max_seq=PARITY_MAX_SEQ,
+                                prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                                kv_dtype=kv_dtype, device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=8, prefix_cache=cache_on)
+        batcher.warm_up()
+        fa.flash_attention.launches = 0
+        first, _ = serve_on_this_thread(batcher, jobs[:1])
+        rest, _ = serve_on_this_thread(batcher, jobs[1:])
+        runs[cache_on] = ([[t for t, _ in s] for s in first + rest], fa.flash_attention.launches,
+                          batcher.prefill_chunks, batcher.prefix_stats())
+        batcher.close()
+        del batcher, engine
+    (off, off_flash, off_chunks, _), (on, on_flash, on_chunks, stats) = runs[False], runs[True]
+    layers = model.config.num_hidden_layers
+    log(f"{tag} prefix sharing: four {len(jobs[0][0])}-token prompts sharing {PREFIX_TOKENS} "
+        f"tokens, 64 tokens each: cache off {off_chunks} prefill chunks, {off_flash} flash "
+        f"launches; cache on {on_chunks} chunks, {on_flash} launches, prefix_stats (queries, "
+        f"hits, tokens reused, evictions, cached pages) {stats}; streams token-identical "
+        f"{on == off}")
+    check(on == off, f"{tag} prefix sharing changed a stream")
+    check(stats[:3] == (4, 3, 3 * PREFIX_TOKENS), f"{tag} prefix_stats {stats}")
+    check(off_flash - on_flash == 3 * (PREFIX_TOKENS // CHUNK) * layers,
+          f"{tag} prefix sharing skipped {off_flash - on_flash} flash launches")
 
 
 def serve_on_this_thread(batcher, jobs, *, cancel_after=None, tick=None):
@@ -1792,6 +2073,7 @@ def phase_main_path_4bit(dense, seed: int):
     from mlx_sharding_tpu_torch.models.base import QuantizedLinear
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
     from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
 
     cfg = dense.config
@@ -1842,6 +2124,7 @@ def phase_main_path_4bit(dense, seed: int):
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"warm-up request failed: {status}")
         fa.flash_attention.launches = qm.quant_gemv.launches = qm.quant_matmul.launches = 0
+        fa.flash_decode.launches = 0
         served = ServedRun(gen, packed)
         status, body, _, t_end = post(port, "/v1/completions", {
             "prompt": long_prompt, "max_tokens": 32, "logprobs": 5})
@@ -1866,6 +2149,7 @@ def phase_main_path_4bit(dense, seed: int):
             f"{t_head * 1e3:.1f} ms, prefill {stats['prefill_tok_s']:.1f} tok/s, decode "
             f"{stats['decode_tok_s']:.2f} tok/s (host clock at the client, one request)")
         launches = {"flash_attention": fa.flash_attention.launches,
+                    "flash_decode": fa.flash_decode.launches,
                     "quant_gemv": qm.quant_gemv.launches,
                     "quant_matmul": qm.quant_matmul.launches}
         # whole decode blocks of 16: 31 and 63 tokens after the first
@@ -1883,6 +2167,8 @@ def phase_main_path_4bit(dense, seed: int):
         "quant_matmul": LAYER_SHAPES * layers * chunks,
         # the same four and the head per decode step; the head once per chunk
         "quant_gemv": (LAYER_SHAPES * layers + 1) * steps + chunks,
+        # the T=1 route, once a layer per decode step when it is on
+        "flash_decode": layers * steps if flash_decode_on() else 0,
     }
     for name, want_n in expected.items():
         log(f"[main-4bit] {name} launches {launches[name]}, expected {want_n}")
@@ -1895,6 +2181,7 @@ def phase_main_path_4bit(dense, seed: int):
     log(f"[main-4bit] torch.cuda.max_memory_allocated while serving packed "
         f"{stats['max_memory_allocated_gb']:.2f} GB (graph pool included)")
     stats["steps"] = phase_step_timing(packed, gen, "[main-4bit]", prompt)
+    stats["routes"] = phase_decode_routes(packed, gen, "[main-4bit]", prompt)
     return launches, stats
 
 
@@ -1922,6 +2209,7 @@ def main(argv=None) -> int:
     max_err = phase_kernels(args.seed)
     quant_err = phase_quant_kernels(args.seed)
     paged_err = phase_paged_kernels(args.seed)
+    decode_err = phase_decode_kernels(args.seed)
     lap("kernel builds and checks")
     if args.kernels_only:
         return 0
@@ -1929,6 +2217,7 @@ def main(argv=None) -> int:
     quant_rows = phase_quant_timing(args.seed)
     phase_gemv_split_timing(args.seed)
     paged_rows = phase_paged_timing(args.seed)
+    decode_rows = phase_decode_timing(args.seed)
     lap("kernel timing")
     launches, single, model = phase_main_path(args.seed)
     lap("main path")
@@ -1951,7 +2240,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mlx_sharding_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
-        "launches": launches,
+        "launches": launches["flash_attention"],
         "max_abs_err": max_err,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -1980,6 +2269,23 @@ def main(argv=None) -> int:
         "bound_by": "operations" if pmean("ops_ms") >= pmean("bytes_ms") else "bytes",
         "library_ms": pmean("library_ms"),
         "library": "scaled_dot_product_attention after a gather (gather not timed)",
+    })
+    # the T=1 route at the main path's first decode position (600); its
+    # launches are phases 4 and 5's served runs
+    row = decode_rows[0]
+    record["kernels"].append({
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
+        "launches": launches["flash_decode"] + quant_launches["flash_decode"],
+        "max_abs_err": decode_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
+        "library_ms": row["library_ms"],
+        "position": row["position"],
     })
     print(json.dumps(record))
     print(card)

@@ -137,6 +137,7 @@ class Generator:
     ):
         from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
         from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
+        from mlx_sharding_tpu_torch.ops.flash_attention import decode_tables
 
         self.model = model
         self.fused_projections = apply_projection_fusion(model)
@@ -144,6 +145,9 @@ class Generator:
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
         self.prefill_chunk = prefill_chunk
         model.place_constants(dev)
+        # the T=1 route's page table over this cache: a host copy, which a
+        # captured step must not make
+        decode_tables(1, self.max_seq, dev)
         self.cache = dataclasses.replace(model.make_cache(1, self.max_seq),
                                          pos=torch.zeros(1, dtype=torch.int64, device=dev))
         self.sp = stack_sampler_params([make_sampler_params(device="cpu")], device=dev)

@@ -45,7 +45,8 @@ def counted_wrappers() -> tuple:
     from mlx_sharding_tpu_torch.ops import paged_attention as pa
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 
-    return (fa.flash_attention, pa.paged_attention, qm.quant_gemv, qm.quant_matmul)
+    return (fa.flash_attention, fa.flash_decode, pa.paged_attention, qm.quant_gemv,
+            qm.quant_matmul)
 
 
 def model_pool(model) -> tuple:

@@ -19,6 +19,8 @@ from mlx_sharding_tpu_torch.config import LlamaConfig
 from mlx_sharding_tpu_torch.graphs import note_eager_forward
 from mlx_sharding_tpu_torch.models.base import BaseModel
 from mlx_sharding_tpu_torch.ops import apply_rope, causal_attention, rms_norm, rope_frequencies
+from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
+from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
 
 
 class LlamaLayer(nn.Module):
@@ -117,13 +119,15 @@ class LlamaModel(BaseModel):
             gate, up = self._linear(r, p.gate_proj), self._linear(r, p.up_proj)
         return h + self._linear(F.silu(gate) * up, p.down_proj)
 
-    def _layer(self, p: LlamaLayer, h, k_buf, v_buf, offset: int, pos):
+    def _layer(self, p: LlamaLayer, h, k_buf, v_buf, offset: int, pos, lengths=None):
         """``offset`` is the host position (the flash kernel's); ``pos`` the
-        cache's device position, or None to read ``offset`` everywhere."""
+        cache's device position, or None to read ``offset`` everywhere;
+        ``lengths`` the T=1 route's, shared by the layers."""
         where = offset if pos is None else pos
         q, k, v = self.layer_attn_inputs(p, h, where)
         k_buf, v_buf = write_layer_kv(k_buf, v_buf, k, v, where)
-        attn = causal_attention(q, k_buf, v_buf, offset, self.scale, position=pos)
+        attn = causal_attention(q, k_buf, v_buf, offset, self.scale, position=pos,
+                                lengths=lengths)
         return self.layer_finish(p, h, attn)
 
     def fused_projection_groups(self) -> dict:
@@ -151,8 +155,12 @@ class LlamaModel(BaseModel):
         cfg = self.config
         note_eager_forward(self, x)
         h = self.embed(x) if cfg.is_first_stage else x
+        lengths = None
+        if x.shape[1] == 1 and cache.pos is not None and flash_decode_on():
+            # the T=1 route's lengths, once for every layer of the step
+            lengths = decode_lengths(cache.pos, x.shape[0], cache.max_seq)
         for i, layer in enumerate(self.layers):
-            h = self._layer(layer, h, cache.k[i], cache.v[i], cache.offset, cache.pos)
+            h = self._layer(layer, h, cache.k[i], cache.v[i], cache.offset, cache.pos, lengths)
         cache = advance(cache, x.shape[1] if n_valid is None else n_valid)
         if not cfg.is_last_stage:
             return h, cache

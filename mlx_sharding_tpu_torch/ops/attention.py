@@ -1,21 +1,28 @@
 """Causal attention over a fixed-capacity KV cache (port of
 ``mlx_sharding_tpu/ops/attention.py``).
 
-Prefill chunks that the flash kernel takes go to
-:func:`~mlx_sharding_tpu_torch.ops.flash_attention.flash_attention`; every
-other call, T=1 decode included, takes the plain grouped-GQA attention,
-which is the JAX package's own non-kernel path. Given the position as a
-device tensor, that path is :func:`masked_attention`: it attends over the
-whole capacity and masks from the position, as JAX's plain path does, so a
-captured decode step has one shape at every position. With a host offset
-it is ``flash_attention_reference`` with the probs rounded to v's dtype,
-which reads only the causal prefix.
+Calls that the flash kernel takes (:func:`flash_eligible`, JAX's
+``_flash_eligible``) go to it: prefill chunks to
+:func:`~mlx_sharding_tpu_torch.ops.flash_attention.flash_attention`, and
+T=1 decode steps, under ``MST_FLASH_DECODE``, to its T=1 route
+:func:`~mlx_sharding_tpu_torch.ops.flash_attention.flash_decode`.
+``MST_FLASH=0`` turns both off. Every other call takes the plain
+grouped-GQA attention, which is the JAX package's own non-kernel path.
+Given the position as a device tensor, that path is
+:func:`masked_attention`: it attends over the whole capacity and masks from
+the position, as JAX's plain path does, so a captured decode step has one
+shape at every position. With a host offset it is
+``flash_attention_reference`` with the probs rounded to v's dtype, which
+reads only the causal prefix.
 
-Dense single-stream T=1 attention is no kernel in either package.
+The T=1 route's default differs from JAX's, whose ``MST_FLASH_DECODE``
+defaults to off from TPU numbers: here it defaults to
+``FLASH_DECODE_DEFAULT``, chosen from the card's numbers (``PERF.md``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -25,20 +32,37 @@ from mlx_sharding_tpu_torch.ops.flash_attention import (
     MAX_HEAD_DIM,
     flash_attention,
     flash_attention_reference,
+    flash_decode,
 )
+
+#: ``MST_FLASH_DECODE`` when it is unset
+FLASH_DECODE_DEFAULT = "1"
+
+
+def flash_decode_on() -> bool:
+    """The T=1 route's switches: ``MST_FLASH`` (default on) and
+    ``MST_FLASH_DECODE`` (default ``FLASH_DECODE_DEFAULT``), read per call
+    as JAX reads them per trace."""
+    return (os.environ.get("MST_FLASH", "1") != "0"
+            and os.environ.get("MST_FLASH_DECODE", FLASH_DECODE_DEFAULT) == "1")
 
 
 def flash_eligible(q, k, v, logit_softcap=None, sliding_window=None) -> bool:
     """The dispatch rule of ``_flash_eligible`` (JAX ``ops/attention.py``):
-    standard causal GQA (no softcap or window; the JAX package's reserved
-    ``sinks`` argument has no caller and is not carried over), T and S
-    multiples of 128, head dims multiples of 64 that the kernel holds."""
+    ``MST_FLASH=0`` turns the kernel off; standard causal GQA (no softcap
+    or window; the JAX package's reserved ``sinks`` argument has no caller
+    and is not carried over), T a multiple of 128, or T = 1 with
+    ``MST_FLASH_DECODE=1`` (:func:`flash_decode_on`), S a multiple of 128,
+    head dims multiples of 64 that the kernels hold."""
+    if os.environ.get("MST_FLASH", "1") == "0":
+        return False
     if logit_softcap is not None or sliding_window is not None:
         return False
     t, dk = q.shape[1], q.shape[-1]
     s, dv = k.shape[1], v.shape[-1]
+    t_ok = (t >= 128 and t % 128 == 0) or (t == 1 and flash_decode_on())
     return (
-        t >= 128 and t % 128 == 0
+        t_ok
         and s % 128 == 0
         and dk % HEAD_DIM_ALIGN == 0 and dk <= MAX_HEAD_DIM
         and dv % HEAD_DIM_ALIGN == 0 and dv <= MAX_HEAD_DIM
@@ -53,6 +77,7 @@ def causal_attention(
     scale: float,
     *,
     position: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
     logit_softcap: Optional[float] = None,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
@@ -60,10 +85,16 @@ def causal_attention(
     sliding window) contribute nothing. Scores and softmax in fp32, probs
     cast to v's dtype, products accumulated in fp32, as in the JAX path.
     ``offset`` is a host int (the flash kernel bakes it into its launch);
-    ``position``, the same position as a (1,) device tensor, sends every
-    call the kernel does not take to :func:`masked_attention`."""
+    ``position``, the same position as a (1,) device tensor, sends a T=1
+    call to the T=1 route with ``lengths`` (:func:`decode_lengths` of it,
+    shared by a forward's layers), and every call the kernels do not take
+    to :func:`masked_attention`."""
     if flash_eligible(q, k, v, logit_softcap, sliding_window):
-        return flash_attention(q, k, v, offset, scale)
+        if q.shape[1] > 1:
+            return flash_attention(q, k, v, offset, scale)
+        if position is None:
+            position = torch.full((1,), int(offset), dtype=torch.int64, device=q.device)
+        return flash_decode(q, k, v, position, scale, lengths=lengths)
     if position is not None:
         return masked_attention(q, k, v, position, scale, logit_softcap=logit_softcap,
                                 sliding_window=sliding_window)

@@ -17,6 +17,18 @@ merges. Both launches are one call and one count.
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises; on a
 CPU tensor it computes :func:`flash_attention_reference`, the plain version
 of the same function. There is no other route and no fallback.
+
+The TPU kernel's T=1 route (JAX ``MST_FLASH_DECODE=1``: one decode query at
+the cache's offset, read on the device, over the full-capacity cache) is
+:func:`flash_decode`. On the card it is the ragged paged kernel
+(``csrc/paged_attention.cu``) over the dense cache seen as pages: a layer's
+contiguous (B, S, Hkv, D) buffer is viewed, without a copy, as B·S/page
+pages of ``DECODE_PAGE`` positions, row b's page table is the identity run
+of its own pages (made once per shape), and the lengths ``position + 1``
+are a device tensor (:func:`decode_lengths`, once per step for every
+layer). One call is one launch that reads only the prefix and needs no
+host read, so a captured decode step serves every position. On a CPU
+tensor it computes :func:`flash_decode_reference`.
 """
 
 from __future__ import annotations
@@ -26,8 +38,11 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from mlx_sharding_tpu_torch.device import upload
+from mlx_sharding_tpu_torch.ops import paged_attention as paged
 from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 
 NEG_INF = -1e30
@@ -46,6 +61,9 @@ SPLIT_ALIGN = 64
 #: occupancy of the D = 128 variant, which chip_smoke.py prints)
 MIN_SPLIT = 1024
 RESIDENT_BLOCKS = 2
+#: positions of one page of the dense cache's paged view (the T=1 route):
+#: the dispatch sends it capacities that are multiples of 128
+DECODE_PAGE = 128
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -285,3 +303,85 @@ def flash_attention(q, k, v, offset: int, scale: float) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+# ------------------------------------------------------------ the T=1 route
+_DECODE_TABLES: dict = {}
+
+
+def decode_tables(b: int, s: int, device) -> torch.Tensor:
+    """The (B, S/page) int32 page table of the dense cache's paged view: row
+    b is the identity run ``b·S/page ..`` of its own pages. Made once per
+    (device, B, S) and kept, so that a captured step may hold its address."""
+    key = (torch.device(device), b, s)
+    table = _DECODE_TABLES.get(key)
+    if table is None:
+        spg = s // DECODE_PAGE
+        table = upload(np.arange(b * spg, dtype=np.int32).reshape(b, spg), device)
+        _DECODE_TABLES[key] = table
+    return table
+
+
+def decode_lengths(position: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """(B,) int32 valid positions of the T=1 route, ``position + 1`` capped
+    at the capacity, from the (1,) device position: device work only."""
+    return (position.reshape(1) + 1).clamp(max=s).to(torch.int32).expand(b).contiguous()
+
+
+def _decode_operands(q, k, v):
+    """q as (B, Hq, Dk) and the cache as (B·S/page, page, Hkv, D) pools,
+    views of the caller's tensors."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"flash_decode takes one query position, q (B, 1, Hq, Dk); got "
+                         f"{tuple(q.shape)}")
+    b, _, hq, dk = q.shape
+    s = k.shape[1]
+    if s % DECODE_PAGE:
+        raise ValueError(f"flash_decode views the cache as pages of {DECODE_PAGE} positions; "
+                         f"capacity {s} is not a multiple")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_decode views the cache as pages without a copy: k and v must "
+                         "be contiguous (B, S, Hkv, D) buffers")
+
+    def pool(x):
+        return x.view(b * s // DECODE_PAGE, DECODE_PAGE, *x.shape[2:])
+
+    return q.reshape(b, hq, dk).contiguous(), pool(k), pool(v)
+
+
+def flash_decode_reference(q, k, v, lengths: torch.Tensor, scale: float) -> torch.Tensor:
+    """The plain version of :func:`flash_decode`: the paged decode's plain
+    version (``paged_attention_reference``) over the same paged view, the
+    same identity tables and the same lengths. Returns (B, 1, Hq, Dv)."""
+    qm, kp, vp = _decode_operands(q, k, v)
+    tables = decode_tables(q.shape[0], k.shape[1], q.device)
+    out = paged.paged_attention_reference(qm, kp, vp, tables, lengths, scale)
+    return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
+
+
+def flash_decode(q, k, v, position: torch.Tensor, scale: float, *,
+                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The T=1 decode route of the flash kernel: q (B, 1, Hq, Dk) at the
+    device position ``position`` (a (1,) tensor) attends to positions
+    ``0 .. position`` of the full-capacity cache k (B, S, Hkv, Dk), v (B, S,
+    Hkv, Dv). ``lengths`` is :func:`decode_lengths` of that position, which
+    a forward computes once for all its layers (made here if None). Returns
+    (B, 1, Hq, Dv) in q's dtype. CUDA tensors launch the paged kernel once
+    (counted in ``flash_decode.launches``); CPU tensors take
+    :func:`flash_decode_reference`."""
+    _check(q, k, v, 0)
+    if lengths is None:
+        lengths = decode_lengths(position, q.shape[0], k.shape[1])
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, k, v, lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu tensors, not {q.device}")
+    qm, kp, vp = _decode_operands(q, k, v)
+    tables = decode_tables(q.shape[0], k.shape[1], q.device)
+    paged._check(qm, kp, vp, tables, lengths, None, None)
+    out = paged.launch(qm, kp, vp, tables, lengths, scale)
+    flash_decode.launches += 1
+    return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
+
+
+flash_decode.launches = 0

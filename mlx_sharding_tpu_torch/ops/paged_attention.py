@@ -285,6 +285,17 @@ def paged_attention(
         return paged_attention_reference(q, k_pool, v_pool, tables, lengths, scale, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu tensors, not {q.device}")
+    out = launch(q, k_pool, v_pool, tables, lengths, scale, **kw)
+    paged_attention.launches += 1
+    return out
+
+
+def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=None,
+           sliding_window=None, values_from_k=None, k_scale=None, v_scale=None) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA operands (the
+    :func:`paged_attention` contract), counted by its caller: the paged
+    decode, or the dense T=1 route
+    (:func:`~mlx_sharding_tpu_torch.ops.flash_attention.flash_decode`)."""
     m, hq, dk = q.shape
     page, hkv, dv = k_pool.shape[1], k_pool.shape[2], v_pool.shape[-1]
     if not kernel_eligible(dk, dv, logit_softcap, sliding_window, values_from_k):
@@ -335,7 +346,6 @@ def paged_attention(
             stream.cuda_stream,
         )
     _LIBRARY.check(err, "paged_attention")
-    paged_attention.launches += 1
     return out
 
 

@@ -45,20 +45,37 @@ between its chunks), and a sampled row draws from its own generator alone,
 so a seeded request gives the same tokens alone, among others and across a
 preemption.
 
-Not yet ported, and refused at construction: prefix sharing, KV spill and
-prefetch, speculation, the queue bound, the prefix store; deadlines,
-tracing and metrics are not carried.
+Deadlines and the queue bound (``resilience.py``): ``generate_step`` takes
+``ttft_timeout``, ``request_timeout`` and ``stall_timeout``, stamped on the
+batcher's clock at submission; the consumer's waits are bounded by them
+and an expiry cancels the request (the next tick reclaims its slot and
+pages) and raises ``RequestTimeoutError``; a queued request whose TTFT
+budget has gone is shed at admission. With ``max_queue``, a submission
+that finds that many requests queued raises ``QueueFullError`` with a
+``Retry-After`` estimated from the recent completion rate.
+
+Prefix sharing (``prefix_cache``): every full page of a finished prefill
+is registered under a rolling blake2b key of the whole prompt prefix it
+closes; a later prompt that starts with a registered chain maps those pages
+(refcounted) and prefills only past them. Pages that only the index holds
+are evicted least recently used when admission or growth runs short. A
+preempted request drops its pages and looks its folded prompt up again.
+
+Not yet ported, and refused at construction: KV spill and prefetch,
+speculation, the prefix store; tracing and metrics are not carried.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import logging
 import queue
 import threading
 import time
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -72,6 +89,7 @@ from mlx_sharding_tpu_torch.generate import (
 )
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
+from mlx_sharding_tpu_torch.resilience import Deadlines, QueueFullError, RequestTimeoutError
 from mlx_sharding_tpu_torch.sample import (
     BIAS_WIDTH,
     SamplerParams,
@@ -84,6 +102,29 @@ from mlx_sharding_tpu_torch.sample import (
 )
 
 logger = logging.getLogger(__name__)
+
+# Retry-After clamps for 429 sheds: the estimate comes from the observed
+# completion rate, bounded so that a mis-sampled rate can neither tell
+# clients "come back now" nor park them for minutes
+RETRY_AFTER_FLOOR_S = 1.0
+RETRY_AFTER_CEIL_S = 30.0
+RETRY_AFTER_WINDOW_S = 30.0
+
+
+def estimate_retry_after(backlog: int, finish_times, now: float) -> float:
+    """When should a shed client retry (JAX ``estimate_retry_after``)?
+    ``backlog`` requests must finish before the queue has room;
+    ``finish_times`` are monotonic completion stamps. The drain rate is
+    completions in the window over the window's span, the estimate
+    ``backlog / rate`` clamped to the floor and the ceiling; with no
+    completion in the window the queue is not draining and the answer is
+    the ceiling."""
+    recent = [t for t in finish_times if now - t <= RETRY_AFTER_WINDOW_S]
+    if not recent:
+        return RETRY_AFTER_CEIL_S
+    span = max(now - min(recent), 1e-3)
+    rate = len(recent) / span
+    return min(RETRY_AFTER_CEIL_S, max(RETRY_AFTER_FLOOR_S, backlog / rate))
 
 
 @dataclass(eq=False)  # identity semantics
@@ -110,6 +151,11 @@ class _Request:
     resume_gen: Optional[torch.Tensor] = None
     resume_recent: Optional[torch.Tensor] = None
     preempted_at: list = field(default_factory=list)  # tokens produced at each preemption
+    deadlines: Optional[Deadlines] = None
+    # prefix sharing: the rolling keys of the prompt's full pages (memoized,
+    # reset when the prompt folds) and the chain _fits found for admission
+    pkeys: Optional[list] = None
+    chain: Optional[list] = None
 
 
 @dataclass
@@ -133,6 +179,9 @@ class ContinuousBatcher:
     and measurements)."""
 
     concurrent = True
+    # generate_step takes request_timeout / ttft_timeout / stall_timeout and
+    # enforces them; the server forwards deadlines only to such generators
+    supports_deadlines = True
 
     def __init__(self, engine, *, repetition_window: int = 64, decode_block: int = 8,
                  policy: str = "fifo", prefix_cache: bool = False, overcommit: bool = False,
@@ -140,7 +189,10 @@ class ContinuousBatcher:
                  spec_window_max: Optional[int] = None, max_queue: Optional[int] = None,
                  async_sched: str = "auto", spill_bytes: Optional[int] = None,
                  spill_cold_after: Optional[int] = None, kv_prefetch: str = "auto",
-                 prefix_store=None, cuda_graphs: bool = True):
+                 prefix_store=None, cuda_graphs: bool = True,
+                 clock: Callable[[], float] = time.monotonic):
+        if max_queue is not None and (not isinstance(max_queue, int) or max_queue < 1):
+            raise ValueError(f"max_queue must be a positive int, got {max_queue!r}")
         if policy not in ("fifo", "first_fit"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if async_sched not in ("on", "off", "auto"):
@@ -151,14 +203,12 @@ class ContinuousBatcher:
             raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
         # each names the ROADMAP queue 1 item that ports it
         unported = {
-            "prefix_cache (prefix sharing over the pool)": (prefix_cache, "slice 3, item 3"),
             "draft_engine / draft / spec_k / spec_window_max (speculation)": (
                 draft_engine is not None or draft not in ("auto", "off") or spec_k != 4
                 or spec_window_max is not None, "slice 4"),
             "spill_bytes / spill_cold_after / kv_prefetch (KV spill)": (
                 spill_bytes is not None or spill_cold_after is not None or kv_prefetch == "on",
                 "slice 3, item 4, after slice 7's kv_transfer.py"),
-            "max_queue (the queue bound)": (max_queue is not None, "slice 3, item 7"),
             "prefix_store (the fleet prefix store)": (prefix_store is not None, "slice 7"),
         }
         for what, (asked, item) in unported.items():
@@ -167,6 +217,9 @@ class ContinuousBatcher:
                                           f"(ROADMAP queue 1, {item})")
         if overcommit and getattr(engine, "pool_pages", None) is None:
             raise ValueError("overcommit admission requires a paged engine (pool_pages)")
+        if prefix_cache and getattr(engine, "pool_pages", None) is None:
+            raise ValueError("prefix_cache requires a paged engine (pool_pages): sharing "
+                             "is page-granular")
         # async ticks: "auto" resolves as the JAX rule does; with no draft
         # engine and one host, plain decode is a pure device-side chain
         self.async_sched = async_sched
@@ -194,6 +247,16 @@ class ContinuousBatcher:
         self._start_lock = threading.Lock()
         # the decode block dispatched and not yet harvested (async ticks)
         self._inflight: Optional[_InflightBlock] = None
+        # deadlines and admission control: every deadline and Retry-After
+        # reads this clock; the lock makes the queue bound's check-then-
+        # enqueue atomic across HTTP threads and the counters exact
+        self._clock = clock
+        self.max_queue = max_queue
+        self._admission_lock = threading.Lock()
+        self.timeouts = 0  # consumer-side deadline expiries
+        self.shed_queue_full = 0  # rejected at submission (429)
+        self.shed_deadline = 0  # shed while queued: the TTFT budget had gone
+        self._finish_times: deque = deque(maxlen=256)  # completion stamps
 
         # the pool: a request holds pages from admission until it finishes
         # (or is preempted)
@@ -201,6 +264,16 @@ class ContinuousBatcher:
         self._free_pages = list(range(engine.pool_pages - 1, -1, -1))
         self._pages_of: dict[int, list[int]] = {}
         self.pages_high_water = 0
+        # prefix sharing: a page's refcount is the slots mapping it plus 1
+        # if the index holds it; index-only pages are cached, not free, and
+        # evicted least recently used when admission or growth runs short
+        self.prefix_cache = bool(prefix_cache)
+        self._page_ref: dict[int, int] = {}
+        self._prefix_index: "OrderedDict[bytes, int]" = OrderedDict()
+        self.prefix_queries = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
+        self.prefix_evictions = 0
 
         # per-slot sampler state on the card
         dev = engine.device
@@ -243,10 +316,14 @@ class ContinuousBatcher:
         seed: Optional[int] = None,
         max_tokens: int = 256,
         want_logprobs: bool = False,
+        request_timeout: Optional[float] = None,
+        ttft_timeout: Optional[float] = None,
+        stall_timeout: Optional[float] = None,
     ):
         """Validate and enqueue at once (every rejection raises on the
-        calling thread, before any request state exists); returns the
-        token stream ``(token, TokenLogprobs or None)``."""
+        calling thread, before any request state exists; a full queue
+        raises ``QueueFullError``); returns the token stream ``(token,
+        TokenLogprobs or None)``, whose waits the deadlines bound."""
         prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -269,6 +346,11 @@ class ContinuousBatcher:
             # diverge from the serial path for the same request
             raise ValueError(f"repetition_context_size {repetition_context_size} exceeds the "
                              f"scheduler's window {self.W}")
+        deadlines = None
+        if any(v is not None for v in (ttft_timeout, request_timeout, stall_timeout)):
+            deadlines = Deadlines.start(ttft_timeout=ttft_timeout,
+                                        request_timeout=request_timeout,
+                                        stall_timeout=stall_timeout, clock=self._clock)
         req = _Request(
             prompt=prompt,
             sp=make_sampler_params(temperature, top_p, repetition_penalty, logit_bias,
@@ -277,19 +359,63 @@ class ContinuousBatcher:
             max_tokens=max_tokens,
             rep_context=min(repetition_context_size, self.W),
             want_logprobs=want_logprobs,
+            deadlines=deadlines,
         )
         self._ensure_running()
-        self._submit.put(req)
+        if self.max_queue is None:
+            self._submit.put(req)
+            return self._consume(req)
+        with self._admission_lock:
+            # exact across submitters; soft by at most the one request the
+            # scheduler thread is moving from the submit queue to the line
+            depth = self._submit.qsize() + len(self._waiting)
+            if depth >= self.max_queue:
+                self.shed_queue_full += 1
+                raise QueueFullError(depth, self.max_queue, retry_after_s=estimate_retry_after(
+                    max(1, depth - self.max_queue + 1), self._finish_times, self._clock()))
+            self._submit.put(req)
         return self._consume(req)
 
     def _consume(self, req: _Request):
+        """The request's token stream. Its waits are bounded by its
+        deadlines: the TTFT before the first token, the stall watchdog
+        between tokens (before the first too, when there is no TTFT
+        budget), and the total budget throughout, whichever expires first.
+        An expiry cancels the request (the next tick reclaims its slot and
+        pages) and raises ``RequestTimeoutError`` at once."""
+        dl = req.deadlines
+        first = True
         try:
             while True:
-                item = req.out.get()
+                kind, timeout = None, None
+                if dl is not None:
+                    now = self._clock()
+                    cands = []
+                    if first and dl.ttft_deadline is not None:
+                        cands.append(("ttft", dl.ttft_deadline - now))
+                    if dl.total_deadline is not None:
+                        cands.append(("total", dl.total_deadline - now))
+                    if dl.stall_timeout is not None and (not first or dl.ttft_deadline is None):
+                        cands.append(("stall", dl.stall_timeout))
+                    if cands:
+                        kind, timeout = min(cands, key=lambda t: t[1])
+                        timeout = max(0.0, timeout)
+                try:
+                    item = req.out.get() if timeout is None else req.out.get(timeout=timeout)
+                except queue.Empty:
+                    req.cancelled = True
+                    with self._admission_lock:
+                        self.timeouts += 1
+                    budget = (dl.stall_timeout if kind == "stall" else
+                              (dl.ttft_deadline if kind == "ttft" else dl.total_deadline)
+                              - dl.submitted_at)
+                    raise RequestTimeoutError(kind, self._clock() - dl.submitted_at,
+                                              budget) from None
                 if item is None:
                     return
                 if isinstance(item, BaseException):
                     raise item
+                first = False
                 yield item
         finally:
             req.cancelled = True  # the scheduler reclaims the slot next tick
@@ -339,9 +465,26 @@ class ContinuousBatcher:
         self._tick_count = 0
 
     def page_stats(self) -> tuple[int, int, int]:
-        """(pool pages, pages in use, high-water mark)."""
+        """(pool pages, pages in use, high-water mark); pages that only the
+        prefix index holds count as in use."""
         total = self.engine.pool_pages
         return total, total - len(self._free_pages), self.pages_high_water
+
+    def resilience_stats(self) -> dict:
+        """The deadline and shedding counters and the queue bound (JAX
+        ``resilience_stats``, the entries the port carries)."""
+        with self._admission_lock:
+            return {"timeouts": self.timeouts, "shed_queue_full": self.shed_queue_full,
+                    "shed_deadline": self.shed_deadline, "max_queue": self.max_queue,
+                    "preemptions": self.preemptions}
+
+    def prefix_stats(self) -> Optional[tuple[int, int, int, int, int]]:
+        """(queries, hits, tokens reused, evictions, cached pages); None
+        unless the prefix cache is on."""
+        if not self.prefix_cache:
+            return None
+        return (self.prefix_queries, self.prefix_hits, self.prefix_tokens_reused,
+                self.prefix_evictions, len(self._prefix_index))
 
     def close(self, timeout: float = 10.0):
         """Stop the scheduler thread; every stream still open ends."""
@@ -378,7 +521,83 @@ class ContinuousBatcher:
         return self._pages_needed(req.prompt.size, remaining)
 
     def _fits(self, req: _Request) -> bool:
-        return self._need_pages(req) <= len(self._free_pages)
+        """The request's pages fit the free and evictable pages, less the
+        registered chain it would map; the chain's own pages are not
+        eviction fodder. Only a fitting request hands its chain to
+        :meth:`_assign_slot` (the same admission pass)."""
+        chain = self._prefix_lookup(req)
+        ok = self._need_pages(req) - len(chain) <= len(self._free_pages) + self._evictable_pages(
+            exclude=[p for _, p in chain])
+        req.chain = chain if ok else None
+        return ok
+
+    # ------------------------------------------------------ prefix sharing
+    def _prefix_keys(self, req: _Request) -> list:
+        """One rolling key per full prompt page: blake2b over the tokens of
+        pages 0..i, chained, so the prompt is hashed once. Memoized on the
+        request."""
+        if req.pkeys is None:
+            page = self.engine.page_size
+            h = hashlib.blake2b(digest_size=16)
+            keys = []
+            for i in range(req.prompt.size // page):
+                h.update(req.prompt[i * page : (i + 1) * page].tobytes())
+                keys.append(h.digest())
+            req.pkeys = keys
+        return req.pkeys
+
+    def _prefix_lookup(self, req: _Request) -> list:
+        """The longest chain of registered pages [(key, page)] covering a
+        page-aligned prefix of the prompt, one token short of the whole
+        prompt at most: the last prompt token goes through prefill for the
+        logits of the first sample."""
+        if not self.prefix_cache:
+            return []
+        keys = self._prefix_keys(req)
+        chain = []
+        for i in range((req.prompt.size - 1) // self.engine.page_size):
+            p = self._prefix_index.get(keys[i])
+            if p is None:
+                break
+            chain.append((keys[i], p))
+        return chain
+
+    def _evictable_pages(self, exclude=()) -> int:
+        ex = set(exclude)
+        return sum(1 for p in self._prefix_index.values()
+                   if self._page_ref.get(p) == 1 and p not in ex)
+
+    def _evict_for(self, n_needed: int):
+        """Drop least recently used index entries whose page no slot maps
+        until the free list holds ``n_needed`` pages (or nothing is left)."""
+        while len(self._free_pages) < n_needed:
+            victim = next((k for k, p in self._prefix_index.items()
+                           if self._page_ref.get(p) == 1), None)
+            if victim is None:
+                return
+            p = self._prefix_index.pop(victim)
+            self._page_ref.pop(p, None)
+            self._free_pages.append(p)
+            self.prefix_evictions += 1
+
+    def _claim_fresh(self, n: int) -> list:
+        """``n`` pages off the free list, each referenced once."""
+        pages = [self._free_pages.pop() for _ in range(n)]
+        for p in pages:
+            self._page_ref[p] = 1
+        return pages
+
+    def _register_prefix(self, req: _Request):
+        """A finished prefill's full prompt pages join the index under
+        their keys (decode writes start past them, so they never change
+        while registered); a key already there is only touched."""
+        pages = self._pages_of.get(req.slot, [])
+        for i, key in enumerate(self._prefix_keys(req)):
+            if key in self._prefix_index:
+                self._prefix_index.move_to_end(key)
+                continue
+            self._prefix_index[key] = pages[i]
+            self._page_ref[pages[i]] = self._page_ref.get(pages[i], 0) + 1
 
     def _write_table_row(self, slot: int, pages: list):
         """Publish a slot's pages in the host table (the next decode plan
@@ -390,28 +609,68 @@ class ContinuousBatcher:
         self.pages_high_water = max(self.pages_high_water, in_use)
 
     def _release_pages(self, slot: int):
-        self._free_pages.extend(self._pages_of.pop(slot, []))
+        """Drop the slot's reference to each of its pages; a page nothing
+        else holds goes back to the free list."""
+        for p in self._pages_of.pop(slot, []):
+            r = self._page_ref.get(p, 1) - 1
+            if r <= 0:
+                self._page_ref.pop(p, None)
+                self._free_pages.append(p)
+            else:
+                self._page_ref[p] = r
 
     def _assign_slot(self, req: _Request, slot: int):
-        """Claim ``slot`` and its pages for ``req``: offset 0, the request's
-        sampler row and window size. Its generator and window contents are
-        set when its prefill completes."""
+        """Claim ``slot`` and its pages for ``req``: the registered chain
+        its prompt starts with (claimed before evicting, so that eviction
+        reclaims only other index-only pages) and fresh pages for the rest;
+        the offset and the prefill start past the reused prefix; the
+        request's sampler row and window size. Its generator and window
+        contents are set when its prefill completes."""
         req.admit_seq = self._admit_counter
         self._admit_counter += 1
-        pages = [self._free_pages.pop() for _ in range(self._need_pages(req))]
+        n = self._need_pages(req)
+        chain = req.chain if req.chain is not None else self._prefix_lookup(req)
+        req.chain = None
+        reused = len(chain) * self.engine.page_size
+        if self.prefix_cache:
+            self.prefix_queries += 1
+            if chain:
+                self.prefix_hits += 1
+                self.prefix_tokens_reused += reused
+            for key, _ in chain:
+                self._prefix_index.move_to_end(key)
+        shared = [p for _, p in chain]
+        for p in shared:
+            self._page_ref[p] += 1
+        self._evict_for(n - len(shared))
+        pages = shared + self._claim_fresh(n - len(shared))
         self._pages_of[slot] = pages
         self._write_table_row(slot, pages)
-        self.cache.offsets[slot] = 0
+        self.cache.offsets[slot] = reused
         set_sampler_slot(self.sp, slot, req.sp)
         self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
         self._slots[slot] = req
         req.slot = slot
-        req.prefill_pos = 0
+        req.prefill_pos = reused
 
     def _admit_waiting(self):
-        """fifo: strict order, a head that does not fit holds the line.
-        first_fit: requests that fit pass the ones that do not (which keep
-        their place)."""
+        """Shed queued requests whose TTFT budget has gone (their prefill
+        would be wasted), then admit. fifo: strict order, a head that does
+        not fit holds the line. first_fit: requests that fit pass the ones
+        that do not (which keep their place)."""
+        if self._waiting:
+            now = self._clock()
+            for req in [r for r in self._waiting
+                        if not r.cancelled and r.produced == 0 and r.deadlines is not None
+                        and r.deadlines.ttft_deadline is not None
+                        and now > r.deadlines.ttft_deadline]:
+                self._waiting.remove(req)
+                with self._admission_lock:
+                    self.shed_deadline += 1
+                req.cancelled = True
+                dl = req.deadlines
+                req.out.put(RequestTimeoutError("queue", now - dl.submitted_at,
+                                                dl.ttft_deadline - dl.submitted_at))
         for req in [r for r in self._waiting if r.cancelled]:
             self._waiting.remove(req)
             req.out.put(None)
@@ -466,6 +725,8 @@ class ContinuousBatcher:
         req.prefill_pos += n_valid
         if not self._prefill_done(req):
             return
+        if self.prefix_cache:
+            self._register_prefix(req)
         # Set the window and the generator only NOW: other slots' decode
         # steps ran between this request's chunks and shifted every row of
         # the window, so a row set at assignment would be mangled by now
@@ -519,6 +780,10 @@ class ContinuousBatcher:
                 # past the slot's end
                 rewind_slot_offset(self.cache, req.slot, self.decode_block)
             self._vacate(req)
+        # a completion stamp for the Retry-After estimate; reaped
+        # cancellations free queue room all the same
+        with self._admission_lock:
+            self._finish_times.append(self._clock())
         req.out.put(None)
 
     def _reap_cancelled(self):
@@ -534,6 +799,7 @@ class ContinuousBatcher:
             self.reprefill_tokens += req.prompt.size + len(req.history)
             req.prompt = np.concatenate([req.prompt, np.asarray(req.history, np.int64)])
             req.history = []
+            req.pkeys = None  # the prompt changed: its keys are stale
 
     def _suspend_slot(self, req: _Request):
         """Vacate ``req``'s slot, keeping what an exact resume needs. A
@@ -546,6 +812,7 @@ class ContinuousBatcher:
             req.resume_gen = self.generators[slot].get_state()
             req.resume_recent = self.recent[slot].clone()
             self._fold_history(req)
+        req.chain = None
         req.prefill_pos = 0
         self._vacate(req)
 
@@ -582,9 +849,10 @@ class ContinuousBatcher:
                 n_more = self._growth_want(req) - len(self._pages_of.get(slot, ()))
                 if n_more <= 0:
                     break
+                self._evict_for(n_more)
                 if len(self._free_pages) >= n_more:
                     pages = self._pages_of[slot]
-                    pages.extend(self._free_pages.pop() for _ in range(n_more))
+                    pages.extend(self._claim_fresh(n_more))
                     self._write_table_row(slot, pages)
                     break
                 victims = [r for r in self._slots if r is not None]
@@ -599,7 +867,8 @@ class ContinuousBatcher:
 
     def _growth_fits(self) -> bool:
         """True iff the next :meth:`_grow_for_decode` covers every decoding
-        slot from the free pages alone, so that it cannot preempt. The
+        slot from the free and evictable pages alone, so that it cannot
+        preempt. The
         emitted counts are one block stale under async ticks, which the
         doubled ``_grow_ahead`` covers."""
         if not self.overcommit:
@@ -607,7 +876,7 @@ class ContinuousBatcher:
         need = sum(max(0, self._growth_want(req) - len(self._pages_of.get(slot, ())))
                    for slot, req in enumerate(self._slots)
                    if req is not None and self._prefill_done(req))
-        return need <= len(self._free_pages)
+        return need <= len(self._free_pages) + self._evictable_pages()
 
     # -------------------------------------------------------------- decode
     def _decode_steps(self, plan, want_lp: bool, sampled: bool) -> torch.Tensor:
@@ -811,6 +1080,8 @@ class ContinuousBatcher:
         self._inflight = None
         self._end_all(exc)
         self._pages_of.clear()
+        self._page_ref.clear()
+        self._prefix_index.clear()
         self._free_pages = list(range(self.engine.pool_pages - 1, -1, -1))
 
     def run_tick(self):

@@ -9,11 +9,16 @@ chat prompt for tokenizers without a template, and ``GET /health``. One
 ``Generator`` is serialized by a lock; with ``--concurrent N --paged-pool P``
 the generator is a :class:`~mlx_sharding_tpu_torch.scheduler.ContinuousBatcher`
 (``concurrent = True``), which interleaves requests itself and is served
-without the lock. Fleet, replica, trace, metrics and static-UI serving come
+without the lock, with ``--prompt-cache`` shares prompt-prefix pages, with
+``--max-queue`` bounds its queue (429 with ``Retry-After``) and enforces the
+deadlines (``--request-timeout`` and ``--ttft-timeout``, or the body's
+fields; 504). A single-stream generator gets the total deadline as a check
+between tokens. Fleet, replica, trace, metrics and static-UI serving come
 with later slices.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
-        [--concurrent 8 --paged-pool 64 [--kv-dtype int8]]
+        [--concurrent 8 --paged-pool 64 [--kv-dtype int8] [--prompt-cache]
+         [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from mlx_sharding_tpu_torch.resilience import QueueFullError, RequestTimeoutError
 from mlx_sharding_tpu_torch.tokenizer_utils import (
     StreamingDetokenizer,
     sequence_overlap,
@@ -34,10 +40,6 @@ from mlx_sharding_tpu_torch.tokenizer_utils import (
 )
 
 logger = logging.getLogger(__name__)
-
-
-class RequestTimeoutError(Exception):
-    """Generation ran past the request's ``request_timeout``."""
 
 
 def _encode_plain(tokenizer, text: str) -> list[int]:
@@ -84,11 +86,13 @@ class ModelProvider:
                         page_size: Optional[int] = None, paged_attention: str = "auto",
                         kv_dtype: Optional[str] = None, admission_policy: str = "fifo",
                         overcommit: bool = False, async_sched: str = "auto",
+                        prompt_cache: bool = False, max_queue: Optional[int] = None,
                         ) -> "ModelProvider":
         """A single-stream ``Generator``, or with ``concurrent > 1`` a
         ``ContinuousBatcher`` of that many slots over a pool of
         ``paged_pool`` KV pages (the JAX server's pp=1 paged engine), with
-        ``overcommit`` admission and ``async_sched`` ticks. On a card its
+        ``overcommit`` admission, ``async_sched`` ticks, prefix sharing
+        (``prompt_cache``) and a queue bound (``max_queue``). On a card its
         step graphs are captured here, before the first request."""
         from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
         from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
@@ -107,7 +111,8 @@ class ModelProvider:
             )
             generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
                                           policy=admission_policy, overcommit=overcommit,
-                                          async_sched=async_sched)
+                                          async_sched=async_sched, prefix_cache=prompt_cache,
+                                          max_queue=max_queue)
         captured = generator.warm_up()  # on a card: the step graphs, before any request
         if captured:
             logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
@@ -128,6 +133,10 @@ class APIHandler(BaseHTTPRequestHandler):
 
     provider: ModelProvider = None
     gen_lock: threading.Lock = None
+    # server-wide deadline defaults (--request-timeout / --ttft-timeout);
+    # the body's fields override them
+    request_timeout: Optional[float] = None
+    ttft_timeout: Optional[float] = None
     protocol_version = "HTTP/1.1"
     # request bodies above this are rejected before being read
     MAX_BODY = 8 << 20
@@ -141,23 +150,27 @@ class APIHandler(BaseHTTPRequestHandler):
         self.send_header("Access-Control-Allow-Methods", "GET, POST, OPTIONS")
         self.send_header("Access-Control-Allow-Headers", "Content-Type, Authorization")
 
-    def _json(self, code: int, payload: dict):
+    def _json(self, code: int, payload: dict, extra_headers: Optional[dict] = None):
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, str(v))
         self._cors()
         self.end_headers()
         self.wfile.write(body)
 
-    def _error(self, code: int, message: str):
+    def _error(self, code: int, message: str, extra_headers: Optional[dict] = None):
         kind = (
             "invalid_request_error" if code == 400
             else "not_found_error" if code == 404
+            else "overloaded_error" if code == 429
             else "timeout_error" if code == 504
             else "server_error"
         )
-        self._json(code, {"error": {"message": message, "type": kind, "code": code}})
+        self._json(code, {"error": {"message": message, "type": kind, "code": code}},
+                   extra_headers=extra_headers)
 
     # ------------------------------------------------------------- routing
     def do_OPTIONS(self):
@@ -203,6 +216,10 @@ class APIHandler(BaseHTTPRequestHandler):
             handlers[route](body, params, generator, tokenizer)
         except (BrokenPipeError, ConnectionResetError):
             pass  # client went away
+        except QueueFullError as e:
+            # shed at submission, before any work: say when to come back
+            self._error(429, str(e),
+                        extra_headers={"Retry-After": str(max(1, round(e.retry_after_s)))})
         except RequestTimeoutError as e:
             self._error(504, str(e))
         except ValueError as e:  # bad request discovered late (e.g. KV capacity)
@@ -320,9 +337,23 @@ class APIHandler(BaseHTTPRequestHandler):
         if not params["stream"] and params["logprobs"] > 0:
             # streaming discards logprobs, so only this path computes them
             gen_kwargs["want_logprobs"] = True
-        # the total-generation bound is checked between tokens; the ttft
-        # bound needs a scheduler and is accepted but not enforced here
-        timeout = params["request_timeout"]
+        # the body's deadlines beat the server's; a generator that supports
+        # deadlines enforces them itself, anything else gets the total
+        # bound as a check between tokens
+        req_to = params["request_timeout"]
+        if req_to is None:
+            req_to = self.request_timeout
+        ttft_to = params["ttft_timeout"]
+        if ttft_to is None:
+            ttft_to = self.ttft_timeout
+        timeout = None
+        if getattr(generator, "supports_deadlines", False):
+            if req_to is not None:
+                gen_kwargs["request_timeout"] = req_to
+            if ttft_to is not None:
+                gen_kwargs["ttft_timeout"] = ttft_to
+        else:
+            timeout = req_to
         # a continuous batcher interleaves requests itself; a single-stream
         # generator is serialized by the lock
         lock = (contextlib.nullcontext() if getattr(generator, "concurrent", False)
@@ -489,9 +520,7 @@ class APIHandler(BaseHTTPRequestHandler):
             for item in it:
                 yield item
                 if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise RequestTimeoutError(
-                        f"generation exceeded request_timeout {timeout}s"
-                    )
+                    raise RequestTimeoutError("total", time.monotonic() - t0, timeout)
         finally:
             it.close()
 
@@ -517,11 +546,12 @@ class APIHandler(BaseHTTPRequestHandler):
         self._run(body, params, generator, tokenizer, list(tokenizer.encode(prompt)), chat=False)
 
 
-def make_server(provider: ModelProvider, host: str = "127.0.0.1",
-                port: int = 8080) -> ThreadingHTTPServer:
-    handler = type(
-        "BoundAPIHandler", (APIHandler,), {"provider": provider, "gen_lock": threading.Lock()}
-    )
+def make_server(provider: ModelProvider, host: str = "127.0.0.1", port: int = 8080,
+                request_timeout: Optional[float] = None,
+                ttft_timeout: Optional[float] = None) -> ThreadingHTTPServer:
+    handler = type("BoundAPIHandler", (APIHandler,), {
+        "provider": provider, "gen_lock": threading.Lock(),
+        "request_timeout": request_timeout, "ttft_timeout": ttft_timeout})
     return ThreadingHTTPServer((host, port), handler)
 
 
@@ -574,7 +604,33 @@ def main(argv=None):
                         "emit/stop/admission work with device compute (token streams "
                         "stay bit-identical to sync). 'auto' (default) enables it: "
                         "the port has no draft engine and one host")
+    parser.add_argument("--prompt-cache", action="store_true",
+                        help="with --concurrent --paged-pool: content-addressed sharing of "
+                        "prompt-prefix KV pages across requests (chat turns and system "
+                        "prompts are prefilled once)")
+    parser.add_argument("--request-timeout", type=float, default=None,
+                        help="total-generation deadline in seconds (submit to last token); "
+                        "expiry cancels the request, frees its slot and KV pages and returns "
+                        "HTTP 504 (or a final SSE error event). The body's "
+                        "'request_timeout' overrides it")
+    parser.add_argument("--ttft-timeout", type=float, default=None,
+                        help="time-to-first-token deadline in seconds (queue wait + "
+                        "prefill); also the default inter-token stall watchdog. Requests "
+                        "still queued past it are shed before prefill. The body's "
+                        "'ttft_timeout' overrides it")
+    parser.add_argument("--max-queue", type=int, default=None,
+                        help="with --concurrent: admission bound on queued requests; a full "
+                        "queue rejects with 429 + Retry-After instead of growing without "
+                        "limit under overload")
     args = parser.parse_args(argv)
+    if args.prompt_cache:
+        if args.concurrent > 1 and not args.paged_pool:
+            parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
+                         "sharing is page-granular)")
+        if args.concurrent <= 1:
+            parser.error("--prompt-cache on the single-stream generator path is not yet "
+                         "ported (ROADMAP queue 1, slice 6): use it with --concurrent N "
+                         "--paged-pool P")
     if args.concurrent > 1 and not args.paged_pool:
         parser.error("--concurrent N (N > 1) without --paged-pool (dense slots) is not yet "
                      "ported: pass --paged-pool")
@@ -593,6 +649,16 @@ def main(argv=None):
     if args.async_sched != "auto" and args.concurrent <= 1:
         parser.error("--async-sched requires --concurrent N (N > 1): only the continuous "
                      "batcher has a tick loop to pipeline")
+    if args.max_queue is not None:
+        if args.max_queue < 1:
+            parser.error("--max-queue must be a positive integer")
+        if args.concurrent <= 1:
+            parser.error("--max-queue requires --concurrent N (N > 1): only the continuous "
+                         "batcher has a submit queue to bound")
+    for flag, val in (("--request-timeout", args.request_timeout),
+                      ("--ttft-timeout", args.ttft_timeout)):
+        if val is not None and val <= 0:
+            parser.error(f"{flag} must be a positive number of seconds")
 
     from mlx_sharding_tpu_torch.device import resolve_device
 
@@ -607,9 +673,10 @@ def main(argv=None):
         paged_pool=args.paged_pool, page_size=args.page_size,
         paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
         admission_policy=args.admission_policy, overcommit=args.overcommit,
-        async_sched=args.async_sched,
+        async_sched=args.async_sched, prompt_cache=args.prompt_cache, max_queue=args.max_queue,
     )
-    server = make_server(provider, args.host, args.port)
+    server = make_server(provider, args.host, args.port, request_timeout=args.request_timeout,
+                         ttft_timeout=args.ttft_timeout)
     logger.info("serving on http://%s:%d", args.host, args.port)
     server.serve_forever()
 

@@ -62,9 +62,12 @@ def test_flash_matches_jax_kernel_and_xla(b, t, s, hq, hkv, dk, dv, offset):
     np.testing.assert_allclose(got, want_xla, rtol=2e-4, atol=2e-4)
 
 
-def test_dispatch_rule():
-    """_flash_eligible without the env switches, the TPU backend test and
-    the reserved sinks argument."""
+def test_dispatch_rule(monkeypatch):
+    """_flash_eligible without the TPU backend test and the reserved sinks
+    argument, the T=1 route switched off (its switches are held against
+    JAX in tests/test_torch_flash_decode.py)."""
+    monkeypatch.setenv("MST_FLASH_DECODE", "0")
+
     def shapes(t, s, dk, dv):
         return torch.zeros(1, t, 8, dk), torch.zeros(1, s, 8, dk), torch.zeros(1, s, 8, dv)
 

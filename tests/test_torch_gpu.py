@@ -111,6 +111,41 @@ def test_dispatch_launches_the_kernel_for_prefill_only(cuda):
     assert fa.flash_attention.launches == before + 1
 
 
+@pytest.mark.parametrize("b,s,position,dtype", [
+    (1, 4096, 0, torch.bfloat16), (1, 4096, 600, torch.bfloat16), (2, 4096, 4095, torch.bfloat16),
+    (2, 256, 63, torch.float32), (1, 512, 511, torch.float32), (2, 384, 200, torch.bfloat16),
+])
+def test_t1_route_matches_plain_version(cuda, b, s, position, dtype):
+    """The T=1 route (the paged kernel over the dense cache seen as pages)
+    against its plain version, one launch counted per call."""
+    g = torch.Generator(device=cuda).manual_seed(position + s)
+    q = torch.randn(b, 1, 32, 128, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(2, b, s, 8, 128, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(2, b, s, 8, 128, generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([position], device=cuda)
+    before = fa.flash_decode.launches
+    got = fa.flash_decode(q, kc[1], vc[1], pos, 128 ** -0.5)
+    assert fa.flash_decode.launches == before + 1
+    want = fa.flash_decode_reference(q, kc[1], vc[1], fa.decode_lengths(pos, b, s), 128 ** -0.5)
+    _, worst, rel_l2 = kernel_disagreement(got, want)
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+def test_dispatch_sends_t1_steps_to_the_route_when_on(cuda, monkeypatch):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k = torch.randn(1, 256, 2, 64, generator=g, device=cuda)
+    v = torch.randn(1, 256, 2, 64, generator=g, device=cuda)
+    q = torch.randn(1, 1, 4, 64, generator=g, device=cuda)
+    pos = torch.tensor([100], device=cuda)
+    for route, launched in (("1", 1), ("0", 0)):
+        monkeypatch.setenv("MST_FLASH_DECODE", route)
+        before = fa.flash_decode.launches
+        out = causal_attention(q, k, v, 100, 0.125, position=pos)
+        assert fa.flash_decode.launches == before + launched
+        torch.testing.assert_close(out, fa.flash_decode_reference(
+            q, k, v, fa.decode_lengths(pos, 1, 256), 0.125), atol=1e-4, rtol=1e-4)
+
+
 def test_tiny_llama_on_the_card_matches_its_cpu_run(cuda):
     """The same fp32 weights on both devices: prefill logits through the
     kernel within 1e-3, and the same 24 greedy tokens."""

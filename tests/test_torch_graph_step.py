@@ -233,6 +233,40 @@ def test_single_stream_decode_step_is_the_same_program_at_every_position(tiny_mo
     assert any("index_copy" in op for op, _ in logs[0])  # the write at the device position
 
 
+@pytest.mark.parametrize("route", ["1", "0"], ids=["flash_decode", "masked"])
+def test_decode_step_on_each_t1_route_is_the_same_program_at_every_position(
+        tiny_models, monkeypatch, route):
+    """``MST_FLASH_DECODE=1``: the dense step's attention is the T=1 route,
+    once a layer, with its lengths made once for the step; ``0``: the plain
+    masked attention. Either way the step is one program at positions 5 and
+    300, with no host read."""
+    from mlx_sharding_tpu_torch.ops import attention as attention_mod
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setenv("MST_FLASH_DECODE", route)
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw["lengths"])
+        return fa.flash_decode(*args, **kw)
+
+    monkeypatch.setattr(attention_mod, "flash_decode", spy)
+    gen = Generator(tiny_models[0], max_seq=512, prefill_chunk=128)
+    rng = np.random.default_rng(6)
+    logs = []
+    for n in (5, 300):
+        gen.run_prefill(rng.integers(0, 256, size=(1, n)))
+        gen._window(REPETITION_WINDOW)
+        calls.clear()
+        logs.append(_record(lambda: gen._decode_steps(1, REPETITION_WINDOW, False, False)))
+        layers = TINY["num_hidden_layers"]
+        assert len(calls) == (layers if route == "1" else 0)
+        assert all(c is calls[0] for c in calls)  # one lengths tensor for the step
+        if calls:
+            assert calls[0].tolist() == [n + 1]
+    _assert_replayable(*logs)
+
+
 @pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32-pool", "int8-pool"])
 def test_paged_decode_step_is_the_same_program_at_every_position(tiny_models, kv_dtype):
     engine = PipelineEngine(tiny_models[0], microbatches=2, max_seq=512, prefill_chunk=128,

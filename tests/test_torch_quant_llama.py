@@ -312,7 +312,8 @@ def test_server_keep_quantized_on_cpu(packed_tokenizer_ckpt, monkeypatch):
             pass
 
     real_make_server = tapi.make_server
-    monkeypatch.setattr(tapi, "make_server", lambda prov, host, port: built.append(prov) or NoServe())
+    monkeypatch.setattr(tapi, "make_server",
+                        lambda prov, host, port, **deadlines: built.append(prov) or NoServe())
     tapi.main(["--model", str(packed_tokenizer_ckpt), "--device", "cpu", "--max-seq", "256",
                "--prefill-chunk", "128", "--keep-quantized"])
     (provider,) = built

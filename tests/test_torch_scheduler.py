@@ -227,10 +227,12 @@ def test_close_ends_every_stream(models):
 
 @pytest.mark.parametrize("kw", [
     # async ticks and overcommit are ported; their two cases now hold the
-    # cold-slot spill and a draft engine, which still raise
-    dict(spill_cold_after=4), dict(draft_engine=object()), dict(prefix_cache=True),
+    # cold-slot spill and a draft engine, which still raise. Prefix sharing
+    # and the queue bound are ported too (tests/test_torch_prefix_cache.py,
+    # tests/test_torch_deadlines.py)
+    dict(spill_cold_after=4), dict(draft_engine=object()),
     dict(draft="ngram"), dict(spec_k=2), dict(spill_bytes=1 << 20), dict(kv_prefetch="on"),
-    dict(max_queue=4), dict(prefix_store=object()),
+    dict(prefix_store=object()),
 ])
 def test_unported_batcher_options_raise(models, kw):
     """Each refusal names the ROADMAP item that ports it."""
