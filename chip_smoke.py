@@ -16,7 +16,9 @@ final line:
    packed-weight kernels at the five Llama-3.1-8B projection shapes (the
    GEMV at M = 1 and 8, the matmul at M = 88 and 256), bit for bit on
    integer-valued operands and within limits on random bf16, at 2, 4 and 8
-   bits, group sizes 32-128 and ragged M, OUT and IN, both walks over IN
+   bits, group sizes 32-128 and ragged M, OUT and IN (and at the 8B shapes
+   the speculative verify's M: the GEMV at 2 and 4, the matmul at 16, 32
+   and 64), both walks over IN
    planned, whole and forced into splits (two runs bit-identical), and the
    ragged paged decode at the 8B shapes over uneven lengths, bf16 and int8
    pools, and odd pages, groups (3, 7 and 24 among them), Dk != Dv and
@@ -34,7 +36,8 @@ final line:
    decode, SDPA over K/V gathered beforehand, the gather not timed); the
    flash kernel at chunk offsets 0, 256, 512, 1280 and 3840, with the
    achieved TFLOP/s, its share of the bound and the walk split several ways;
-   the matmul at M = 88 and 256 with its token tile and split;
+   the matmul at M = 16, 32, 64, 88 and 256 with its token tile and
+   split, the GEMV at M = 1, 2, 4 and 8;
    the GEMV's walk over IN split in two against whole at the narrow
    projections of Llama-3.2-1B and Qwen2-1.5B, beside the planner's pick;
    the paged decode at the points of ``PAGED_SWEEP`` (the mix's first
@@ -67,7 +70,19 @@ final line:
    (``MST_FLASH_DECODE`` 1 and 0, graphs captured under each) in the order
    kernel, plain, plain, kernel: a greedy 64-token stream's tok/s and a
    decode step's device ms, each route's launches checked, and one T=1
-   step's last-position logits on each route within the bf16 limits;
+   step's last-position logits on each route within the bf16 limits.
+   Then speculation over a 600-token repeated passage, 128 tokens each
+   (``phase_speculation``): plain greedy, ``--draft ngram``, the model as
+   its own draft at K = 4 and the published Llama-3.2-1B config (random
+   bf16 weights from the seed) at K = 4, each generator's graphs captured
+   first and its counted request all replays: tok/s, rounds by K, tokens
+   a round, accept rate, launches checked against the rounds, and the
+   stream against plain greedy decode's (a divergence only where the plain
+   run's top-2 gap is under ``NEAR_TIE_GAP``); the n-gram run again with
+   its output forced to an 8-byte cycle (whole windows accepted, K up to
+   8); the verify's device ms at K = 2, 4, 8, split into
+   ``masked_attention``, the products and the small kernels, and each
+   draft's K steps' device ms;
 5. main path, 4-bit (``--keep-quantized``): the same weights packed on the
    card in MLX's layout (group 64, 4 bits, fp16 scales and biases), fused,
    its graphs captured, served by the same server for two 600-token
@@ -75,7 +90,9 @@ final line:
    what the requests imply, replays against their chunks and blocks, the
    last position's logits checked against a dense model holding the
    dequantized weights, the packed prefill's median, where the time goes
-   and the two T=1 routes, as in phase 4.
+   and the two T=1 routes, as in phase 4; the n-gram runs (natural and
+   forced) with the GEMV's launches at each verify width M = K, and the
+   packed verify's device ms and split.
 6. continuous batching (run between 4 and 5, on phase 4's dense model):
    ``--concurrent 8 --paged-pool 16`` with 256-token pages and async ticks,
    once with a bf16 pool (reserve admission) and once with an int8 pool
@@ -99,7 +116,18 @@ final line:
    the cache off and on: token-identical, 3 hits, 1536 tokens reused and
    3 x 2 x 32 fewer flash launches; then, at the engine level, every
    slot's logits at its first decode step against the single-stream
-   model's.
+   model's. Then the mix again under ``--draft ngram`` (its streamed
+   requests forced to the 8-byte cycle): bf16 pool with async and with
+   sync ticks, int8 pool with overcommit; the verify rounds replays too,
+   ``spec_stats()``, and (bf16, async) the batcher verify's device ms at K
+   = 2, 4, 8 split into the gather, ``masked_attention``, the products and
+   the small kernels.
+7. speculation in f32 (``phase_spec_f32``, between 6 and 5): Llama-3.1-8B
+   widths at 2 layers, 64 tokens: ``--draft ngram``, the self-draft, a
+   2-layer Llama-3.2-1B-shaped draft and the batcher's n-gram speculation
+   (sync and async ticks) token-identical to plain greedy decode, the
+   self-draft accepting every token; then the self-draft at full depth
+   (32 layers, f32) accepting every token.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -149,6 +177,29 @@ LLAMA_31_8B = {
     },
     "max_position_embeddings": 131072,
     "tie_word_embeddings": False,
+}
+# The published meta-llama/Llama-3.2-1B config.json: the draft model of the
+# draft-model speculation run (random bf16 weights from the seed)
+LLAMA_32_1B = {
+    "model_type": "llama",
+    "vocab_size": 128256,
+    "hidden_size": 2048,
+    "intermediate_size": 8192,
+    "num_hidden_layers": 16,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "head_dim": 64,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0,
+    "rope_scaling": {
+        "factor": 32.0,
+        "low_freq_factor": 1.0,
+        "high_freq_factor": 4.0,
+        "original_max_position_embeddings": 8192,
+        "rope_type": "llama3",
+    },
+    "max_position_embeddings": 131072,
+    "tie_word_embeddings": True,
 }
 MAX_SEQ = 4096
 CHUNK = 256
@@ -208,6 +259,12 @@ BATCH_MIX = ((40, 64), (200, 48), (255, 32), (256, 32), (257, 96), (600, 64), (9
 # so growth outruns the pool and preempts (the mix's own 32-96 tokens rarely
 # cross a 256-token page, and an overcommit pool only preempts as it grows)
 OVERCOMMIT_EXTRA_TOKENS = 256
+# one more request of every mix, unforced greedy and sent second (after the
+# seeded twin: the older, the later it is preempted), its tokens read from
+# the batcher: it crosses a page edge as it decodes, and under speculation
+# its tokens are held against its run with draft="off" on the same pool
+GREEDY_PROMPT = 240
+GREEDY_TOKENS = 96
 # the parity runs (graphs / eager, sync / async, overcommit / reserve) over
 # the same pool: five greedy prompts and a seeded top-p one, 128 tokens
 # each; prompts close under a page edge grow while the pool is full, so the
@@ -238,6 +295,31 @@ PAGED_SWEEP = (
     ("wide", (1024,) * 32),
     ("one", (MAX_SEQ,)),
 )
+
+
+# speculation (phases 4-6 and the f32 check): tokens per run, the draft
+# model's window, the verify widths timed, and the near-tie limit: at full
+# depth in bf16 a speculating stream may leave plain greedy decode only where
+# the plain run's top two log-probabilities lie within this many nats, and
+# only for a token within it of the plain run's best (the T=K verify and the
+# T=1 step sum in other orders, and their bf16 logits can reorder candidates
+# tied or a rounding step apart: 1/32 between 4 and 8, 1/16 between 8 and
+# 16). Each plain run prints the share of its positions at or under the
+# limit, and at a few other limits
+SPEC_TOKENS = 128
+SPEC_K = 4
+VERIFY_KS = (2, 4, 8)
+NEAR_TIE_GAP = 0.0625
+GAP_READINGS = (0.03125, 0.0625, 0.125, 0.25)
+# the f32 check: 8B widths at this depth, 64 tokens, every speculating path
+# token-identical to plain greedy; and the self-draft at full depth
+F32_LAYERS = 2
+F32_TOKENS = 64
+F32_MAX_SEQ = 1024
+# the packed GEMV's and matmul's extra M: the single-stream verify's K and
+# the batcher verify's 8 slots x K rows
+VERIFY_GEMV_M = (2, 4)
+VERIFY_MATMUL_M = (16, 32, 64)
 
 
 def log(msg: str) -> None:
@@ -439,8 +521,9 @@ def build_kernels() -> None:
 
 def phase_quant_kernels(seed: int) -> dict:
     """Both packed-weight kernels against the plain version: at the five
-    Llama-3.1-8B shapes (the GEMV at M = 1 and 8, the matmul at M = 88 and
-    256), bit for bit on integer-valued operands and within limits on random
+    Llama-3.1-8B shapes (the GEMV at M = 1 and 8, and 2 and 4 for the
+    single-stream verify; the matmul at M = 88 and 256, and 16, 32 and 64
+    for the batcher verify), bit for bit on integer-valued operands and within limits on random
     bf16 with fp16 scales; the matmul at the four layer shapes again with
     its walk over IN whole and in splits of 512; then small cases for the
     other bits, group sizes, dtypes and ragged edges. Returns the largest
@@ -452,7 +535,9 @@ def phase_quant_kernels(seed: int) -> dict:
     for name, out_dim, in_dim in QUANT_SHAPES:
         for integer in (True, False):
             for kernel, m in (("quant_gemv", 1), ("quant_gemv", 8), ("quant_matmul", TAIL_M),
-                              ("quant_matmul", PREFILL_M)):
+                              ("quant_matmul", PREFILL_M),
+                              *(("quant_gemv", m) for m in VERIFY_GEMV_M),
+                              *(("quant_matmul", m) for m in VERIFY_MATMUL_M)):
                 x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=integer)
                 err = check_quant(kernel, x, q, s, b, GROUP_SIZE, BITS, integer,
                                   f"{name} M={m} OUT={out_dim} IN={in_dim} bf16")
@@ -1099,7 +1184,8 @@ def quant_work(m, out_dim, in_dim, bits=BITS, group_size=GROUP_SIZE):
 
 def phase_quant_timing(seed: int) -> list:
     """Device times of both packed-weight kernels at the five Llama-3.1-8B
-    shapes (the GEMV at M = 1, 2, 4 and 8, the matmul at M = 88 and 256), beside their
+    shapes (the GEMV at M = 1, 2, 4 and 8, the matmul at M = 16, 32, 64, 88
+    and 256), beside their
     bound, the plain version, F.linear on the dequantized bf16 weight (what
     the dequantize-on-load path spends) and torch._weight_int4pack_mm."""
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
@@ -1111,7 +1197,7 @@ def phase_quant_timing(seed: int) -> list:
         _, q, s, b = quant_operands(gen, 1, out_dim, in_dim, integer=False)
         dense = dequantize(q, s, b, GROUP_SIZE, BITS, torch.bfloat16)
         lib_weight, lib_why = int4pack_weight(q, s, b)
-        for m in (1, 2, 4, 8, TAIL_M, PREFILL_M):
+        for m in (1, 2, 4, 8, *VERIFY_MATMUL_M, TAIL_M, PREFILL_M):
             kernel = "quant_gemv" if m <= qm.GEMV_MAX_M else "quant_matmul"
             fn = getattr(qm, kernel)
             x = torch.randn((m, in_dim), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1206,10 +1292,11 @@ def quant_record(rows, kernel, launches, max_err):
     """The kernels-line entry of a packed-weight kernel: per-launch means as
     the main path weighs them. The GEMV: a decode step's 129 launches at
     M = 1 (32 of each layer shape and the head), and beside them the same
-    mean at M = 8 (``ms_m8``, ``library_ms_m8``); the matmul: a prefill
-    chunk's four layer shapes at M = 256, equally, and beside them the same
-    mean at the 600-token prompt's last chunk, M = 88 (``ms_m88``,
-    ``dense_ms_m88``)."""
+    mean at M = 8 (``ms_m8``, ``library_ms_m8``) and at the single-stream
+    verify's M = 2 and 4; the matmul: a prefill chunk's four layer shapes at
+    M = 256, equally, and beside them the same mean at the 600-token
+    prompt's last chunk, M = 88 (``ms_m88``, ``dense_ms_m88``), and at the
+    batcher verify's M = 16, 32 and 64."""
 
     def mean(key, m):
         if kernel == "quant_gemv":
@@ -1225,10 +1312,12 @@ def quant_record(rows, kernel, launches, max_err):
         return sum(w * v for w, v in zip(weights, vals)) / sum(weights)
 
     if kernel == "quant_gemv":
-        m, extra = 1, {"ms_m8": mean("ms", 8), "library_ms_m8": mean("library_ms", 8)}
+        m, extra = 1, {"ms_m8": mean("ms", 8), "library_ms_m8": mean("library_ms", 8),
+                       **{f"ms_m{k}": mean("ms", k) for k in VERIFY_GEMV_M}}
     else:
         m = PREFILL_M
-        extra = {"ms_m88": mean("ms", TAIL_M), "dense_ms_m88": mean("dense_ms", TAIL_M)}
+        extra = {"ms_m88": mean("ms", TAIL_M), "dense_ms_m88": mean("dense_ms", TAIL_M),
+                 **{f"ms_m{k}": mean("ms", k) for k in VERIFY_MATMUL_M}}
     return {
         "name": kernel,
         "route": "cuda",
@@ -1438,6 +1527,7 @@ def phase_main_path(seed: int):
         f"(graph pool included)")
     stats["steps"] = phase_step_timing(model, gen, "[main]", prompt)
     stats["routes"] = phase_decode_routes(model, gen, "[main]", prompt)
+    stats["spec"] = phase_speculation(model, gen, "[spec]", seed)
     del gen
     return launches, stats, model
 
@@ -1714,7 +1804,8 @@ def first_step_logits(model, kv_dtype, prompts):
             logits = engine.prefill_slot(np.pad(chunk, (0, CHUNK - n_valid)), slot, cache,
                                          n_valid, table)
         first.append(int(logits.argmax(-1)))
-    plan = engine.decode_plan(cache, table, [True] * m, 1)
+    inputs = engine.device_inputs(("decode", 1), table, [True] * m, cache.offsets, True)
+    plan = engine.device_plan(inputs.offsets.long(), inputs, 1)
     tokens = torch.tensor(first, dtype=torch.int64, device=model.device)[:, None]
     return first, engine.ragged_logits(tokens, cache, plan, 0).float()
 
@@ -1727,12 +1818,24 @@ def tick_line(tag: str, batcher) -> None:
         f"re-prefilled; {batcher.async_reason}")
 
 
-def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) -> dict:
+def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
+                   draft: str = "off", async_sched: str = "auto", split: bool = False,
+                   reference=None) -> tuple:
     """Continuous batching over the paged pool at full width: the port's
     server in front of a ``ContinuousBatcher`` of ``SLOTS`` slots over
     ``POOL_PAGES`` pages of ``PAGE`` tokens, ``kv_dtype`` pool, async ticks;
-    the int8 pool's run admits on overcommit and preempts. Returns the
-    launches of the counted run per attention kernel and the numbers."""
+    the int8 pool's run admits on overcommit and preempts. With
+    ``draft="ngram"`` the batcher speculates (``async_sched`` ticks), its
+    verify rounds are replays too, and the run ends with its
+    ``spec_stats()`` (and, with ``split``, the verify's device ms and its
+    split) instead of the parity runs; its seeded twin is not held to its
+    run alone (a round's width, and so its draws, follow the other
+    slots), but its unforced greedy request is held to ``reference``, the
+    same request's tokens, near-ties and preemptions from the run with
+    draft="off" (``agreement``, up to the first preemption of either).
+    Returns the launches of the counted run per attention kernel and the
+    numbers (``stats["greedy"]``: that request's tokens, near-ties and
+    preemptions)."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops import paged_attention as pa
@@ -1744,7 +1847,8 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     overcommit = kv_dtype == "int8"
     mix = (tuple((n, m + OVERCOMMIT_EXTRA_TOKENS) for n, m in BATCH_MIX) if overcommit
            else BATCH_MIX)
-    tag = f"[batch-{kv_dtype}]"
+    tag = (f"[batch-{kv_dtype}{'-ngram' if draft != 'off' else ''}"
+           f"{'-sync' if async_sched == 'off' else ''}]")
     gc.collect()  # the earlier phases' servers: their handler classes sit in cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1752,7 +1856,8 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
                             pool_pages=POOL_PAGES, page_size=PAGE, kv_dtype=kv_dtype,
                             device=model.device)
-    batcher = ContinuousBatcher(engine, decode_block=8, overcommit=overcommit)
+    batcher = ContinuousBatcher(engine, decode_block=8, overcommit=overcommit, draft=draft,
+                                async_sched=async_sched)
     log(f"{tag} engine: {SLOTS} slots, pool {POOL_PAGES} pages of {PAGE} tokens "
         f"({batcher.cache.nbytes / 1e6:.1f} MB of {kv_dtype} K/V), "
         f"{'overcommit' if overcommit else 'reserve'} admission, {batcher.async_reason}")
@@ -1764,21 +1869,31 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     force_a = {"65": 100.0}
+    # under speculation the streamed requests are forced to ``CYCLE`` and
+    # their prompts end with it, so that their n-gram proposals match
+    force = {"logit_bias": force_a} if draft == "off" else {
+        **FORCE_CYCLE, "logit_bias": {str(k): v for k, v in FORCE_CYCLE["logit_bias"].items()}}
+    expected_text = (lambda n: "A" * n) if draft == "off" else forced_text
     # the seeded twins are not streamed: their logprobs carry the token ids
     # (random weights sample ids past the 256 bytes, which decode to nothing)
     seeded = {"temperature": 0.8, "top_p": 0.9, "seed": 4321, "logprobs": 1}
     jobs = []
     for i, (n, max_tokens) in enumerate(mix):
-        body = {"prompt": mix_prompt(i, n), "max_tokens": max_tokens}
-        body.update(seeded if i == len(mix) - 1 else {"logit_bias": force_a, "stream": True})
+        forced = draft != "off" and i < len(mix) - 1
+        body = {"prompt": mix_prompt(i, n - 16) + 2 * CYCLE if forced else mix_prompt(i, n),
+                "max_tokens": max_tokens}
+        body.update(seeded if i == len(mix) - 1 else {**force, "stream": True})
         jobs.append(body)
     results = [None] * len(jobs)
+    greedy_ids = tok.encode(mix_prompt(len(mix), GREEDY_PROMPT))
+    greedy_out = []
     stats = {}
     try:
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"warm-up request failed: {status}")
         pa.paged_attention.launches = fa.flash_attention.launches = 0
         steps0, chunks0, waits0 = batcher.decode_steps, batcher.prefill_chunks, batcher.page_waits
+        verify0 = batcher.verify_ticks
         served = ServedRun(batcher, engine)
 
         status, alone, _, _ = post(port, "/v1/completions", jobs[-1])
@@ -1795,7 +1910,14 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         threads = [threading.Thread(target=send, args=(i,)) for i in range(len(jobs))]
         threads[-1].start()
         time.sleep(0.3)
-        for t in threads[:-1]:
+        # the unforced greedy request, enqueued here (second oldest); with
+        # draft="off" it asks for logprobs, which a speculating batcher
+        # would answer with plain blocks
+        greedy_stream = batcher.generate_step(greedy_ids, max_tokens=GREEDY_TOKENS,
+                                              want_logprobs=draft == "off")
+        greedy_req = greedy_stream.gi_frame.f_locals["req"]
+        threads.append(threading.Thread(target=lambda: greedy_out.extend(greedy_stream)))
+        for t in threads[:-2] + threads[-1:]:
             t.start()
         for t in threads:
             t.join(timeout=600)
@@ -1807,7 +1929,8 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         chunks = batcher.prefill_chunks - chunks0
         waits = batcher.page_waits - waits0
         high_water = batcher.pages_high_water
-        served.check(tag, steps // batcher.decode_block + chunks)
+        verify_ticks = batcher.verify_ticks - verify0
+        served.check(tag, steps // batcher.decode_block + chunks + verify_ticks)
         tick_line(tag, batcher)
         ticks = batcher.tick_timing_stats()
         deadline_check(port, batcher, tag)
@@ -1822,7 +1945,8 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         status, events, t_head, t_end = res
         check(status == 200 and events[-1] == "[DONE]", f"request {i}: status {status}")
         text = stream_text(events, chat=False)
-        check(text == "A" * max_tokens, f"request {i}: {len(text)} bytes, want {max_tokens}")
+        check(text == expected_text(max_tokens),
+              f"request {i}: {len(text)} bytes, want {max_tokens} of the forced text")
         ttfts.append(t_head)
         log(f"{tag} request {i}: {n}-token prompt, {max_tokens} tokens, TTFT {t_head * 1e3:.1f} ms, "
             f"done in {t_end:.3f}s")
@@ -1830,16 +1954,44 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     status, twin, _, t_end = results[-1]
     check(status == 200, f"seeded request among others: status {status}: {twin}")
     ids = [r["choices"][0]["logprobs"]["tokens"] for r in (alone, twin)]
-    check(len(ids[0]) == mix[-1][1] and ids[0] == ids[1]
-          and alone["choices"][0]["text"] == twin["choices"][0]["text"],
-          "the seeded request gave other tokens among others than alone")
+    check(len(ids[0]) == len(ids[1]) == mix[-1][1], "the seeded request's token count")
+    if draft == "off":
+        check(ids[0] == ids[1] and alone["choices"][0]["text"] == twin["choices"][0]["text"],
+              "the seeded request gave other tokens among others than alone")
     log(f"{tag} request {len(mix) - 1}: the seeded top-p twin (not streamed, sent first), done "
-        f"in {t_end:.3f}s: the same {len(ids[0])} token ids as alone")
-    want_chunks = sum(-(-n // CHUNK) for n, _ in mix) + -(-mix[-1][0] // CHUNK)
+        f"in {t_end:.3f}s: {'the same' if ids[0] == ids[1] else 'other'} {len(ids[0])} token "
+        f"ids as alone")
+    check(len(greedy_out) == GREEDY_TOKENS, f"{tag} the unforced greedy request gave "
+          f"{len(greedy_out)} tokens, want {GREEDY_TOKENS}")
+    greedy = [t for t, _ in greedy_out]
+    if draft == "off":
+        ties = near_ties(tag, "the unforced greedy request", [lp for _, lp in greedy_out])
+        stats["greedy"] = (greedy, ties, list(greedy_req.preempted_at))
+    else:
+        want, ties, want_at = reference
+        at = [a[0] for a in (want_at, greedy_req.preempted_at) if a]
+        n = min(at, default=GREEDY_TOKENS)
+        same = agreement(tag, "the unforced greedy request against its draft=off run",
+                         greedy[:n], want[:n], ties)
+        log(f"{tag} the unforced greedy request: {same} of its first {n} tokens equal its "
+            f"draft=off run's (preempted after {want_at} tokens there, after "
+            f"{greedy_req.preempted_at} here; the tokens after a preemption are not compared)")
+        stats["greedy_agree"] = (same, n)
+    want_chunks = (sum(-(-n // CHUNK) for n, _ in mix) + -(-mix[-1][0] // CHUNK)
+                   + -(-GREEDY_PROMPT // CHUNK))
     preemptions = batcher.preemptions
     log(f"{tag} batcher: {chunks} prefill chunks (the requests need {want_chunks} without "
         f"preemption), {steps} decode steps, {waits} requests waited for pages, pool high-water "
         f"{high_water} of {POOL_PAGES} pages, {preemptions} preemptions")
+    if draft == "off":
+        # what planning a block on the device costs the card: the plan of
+        # its steps from the slot offsets, captured and replayed alone
+        inputs = engine.device_inputs(("decode", batcher.decode_block), batcher.table,
+                                      [True] * SLOTS, batcher.cache.offsets, True)
+        stats["plan_ms"] = graph_ms(lambda: engine.device_plan(inputs.offsets.long(), inputs,
+                                                               batcher.decode_block))
+        log(f"{tag} a decode block's plan on the device ({batcher.decode_block} steps of "
+            f"{SLOTS} slots): {stats['plan_ms']:.4f} ms of device time")
     if overcommit:
         check(preemptions >= 1, "the overcommit run preempted nothing")
         check(chunks >= want_chunks, "fewer prefill chunks than the requests need")
@@ -1852,8 +2004,9 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
         log(f"{tag} {name} launches {launches[name]}, expected {layers} layers x {count} = "
             f"{layers * count}")
         check(launches[name] == layers * count, f"{name} launch count disagrees with the batcher")
-    decoded = sum(max_tokens - 1 for _, max_tokens in mix)
-    stats = {"decode_tok_s": decoded / decode_s, "mix_tok_s": sum(m for _, m in mix) / wall,
+    decoded = sum(max_tokens - 1 for _, max_tokens in mix) + GREEDY_TOKENS - 1
+    mixed = sum(m for _, m in mix) + GREEDY_TOKENS
+    stats = {**stats, "decode_tok_s": decoded / decode_s, "mix_tok_s": mixed / wall,
              "ttft_ms": [t * 1e3 for t in ttfts], "pool_bytes": batcher.cache.nbytes,
              "graph_pool_bytes": captured["pool_bytes"], "capture_s": captured["seconds"],
              "graphs": captured["graphs"], "preemptions": preemptions, "ticks": ticks,
@@ -1861,7 +2014,18 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float) 
     log(f"{tag} aggregate decode {stats['decode_tok_s']:.2f} tok/s over {SLOTS} slots (tokens "
         f"after each request's first / host time in decode blocks) against "
         f"{single_stream_tok_s:.2f} tok/s for one stream (phase 4); the mix's "
-        f"{sum(m for _, m in mix)} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
+        f"{mixed} tokens in {wall:.3f}s = {stats['mix_tok_s']:.2f} tok/s")
+    if draft != "off":
+        spec = batcher.spec_stats()
+        check(spec["rounds"] > 0 and spec["accepted_tokens"] > 0,
+              f"{tag} the batcher speculated nothing: {spec}")
+        log(f"{tag} {verify_ticks} verify rounds and {steps // batcher.decode_block} decode "
+            f"blocks; spec_stats {spec}")
+        stats["spec"] = spec
+        if split:
+            stats["verify"] = batch_verify_numbers(tag, batcher)
+        del batcher, engine, server
+        return launches, stats
     del batcher, engine, server
     batcher_parity(model, kv_dtype, tag)
     prefix_parity(model, kv_dtype, tag)
@@ -2182,7 +2346,483 @@ def phase_main_path_4bit(dense, seed: int):
         f"{stats['max_memory_allocated_gb']:.2f} GB (graph pool included)")
     stats["steps"] = phase_step_timing(packed, gen, "[main-4bit]", prompt)
     stats["routes"] = phase_decode_routes(packed, gen, "[main-4bit]", prompt)
+    stats["spec"] = phase_speculation_packed(packed, gen, "[spec-4bit]")
     return launches, stats
+
+
+# ------------------------------------------------------------ speculation
+def repeated_passage(n: int = 600) -> str:
+    """The speculation runs' prompt: ``n`` bytes of one repeated passage."""
+    words = ("pipeline stages pass activations over rings while the cache grows; "
+             "every chunk of the prompt runs through the flash kernel. ")
+    return (words * (n // len(words) + 1))[:n]
+
+
+# The forced runs' output: the eight bytes of CYCLE over and over. A bias
+# of 100 - i on byte i and a penalty of 2 over the last 7 tokens leave one
+# biased byte unpenalized at each step, the one that left the window, and
+# it wins; the prompt ends with the cycle twice, so that the window starts
+# from it. Prompt lookup then proposes the next 8 bytes, which the verify
+# accepts whole (a single forced byte would not do: its most recent match
+# is the stream's own tail, which continues for one token).
+CYCLE = "ABCDEFGH"
+FORCE_CYCLE = {"logit_bias": {ord(c): 100.0 - i for i, c in enumerate(CYCLE)},
+               "repetition_penalty": 2.0, "repetition_context_size": len(CYCLE) - 1}
+
+
+def forced_passage(n: int = 600) -> str:
+    """The forced runs' prompt: ``n`` bytes of the repeated passage that end
+    with ``CYCLE`` twice."""
+    return repeated_passage(n - 2 * len(CYCLE)) + 2 * CYCLE
+
+
+def forced_text(n: int) -> str:
+    return (CYCLE * (n // len(CYCLE) + 1))[:n]
+
+
+def near_ties(tag: str, name: str, lps: list) -> list:
+    """Each position's top-2 log-probability gap and near-tied tokens (those
+    of its top log-probabilities within ``NEAR_TIE_GAP`` of the best) from
+    a plain run's ``TokenLogprobs``; prints the share of positions at or
+    under ``NEAR_TIE_GAP`` and at ``GAP_READINGS``."""
+    ties = [(float(lp.top_values[0] - lp.top_values[1]),
+             [int(i) for i, v in zip(lp.top_indices, lp.top_values)
+              if lp.top_values[0] - v <= NEAR_TIE_GAP]) for lp in lps]
+    gaps = np.asarray([g for g, _ in ties])
+    log(f"{tag} {name}: top-2 gaps of its {gaps.size} positions: share at or under "
+        + ", ".join(f"{x:g} nats {np.mean(gaps <= x):.3f}" for x in GAP_READINGS)
+        + f" (the limit is {NEAR_TIE_GAP}); smallest {np.sort(gaps)[:4].round(4).tolist()}, "
+        f"median {np.median(gaps):.4f}")
+    return ties
+
+
+def plain_reference(tag: str, gen, ids: list, max_tokens: int, **kw) -> tuple:
+    """Plain greedy decode of ``ids`` through the Generator ``gen``: its
+    tokens, its decode tok/s, and the top-2 gap and near-tied tokens at
+    every position (``near_ties`` of a logprobs run of the same steps,
+    which must give the same tokens)."""
+    toks, tok_s = stream_tokens(gen, ids, max_tokens=max_tokens, **kw)
+    lps = list(gen.generate_step(ids, max_tokens=max_tokens, want_logprobs=True, **kw))
+    check([t for t, _ in lps] == toks, "plain greedy: the logprobs run gave other tokens")
+    return toks, tok_s, near_ties(tag, "plain greedy", [lp for _, lp in lps])
+
+
+def agreement(tag: str, name: str, got: list, want: list, ties) -> int:
+    """How many leading tokens of ``got`` equal plain greedy's ``want``;
+    with ``ties`` (the plain run's top-2 gaps and near-tied tokens) a
+    divergence must sit at a near-tie (``NEAR_TIE_GAP``) and take one of
+    its near-tied tokens, without them there must be none."""
+    same = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), len(want))
+    check(len(got) == len(want), f"{tag} {name}: {len(got)} tokens, want {len(want)}")
+    if same < len(want):
+        check(ties is not None, f"{tag} {name}: leaves plain greedy decode at token {same}")
+        gap, near = ties[same]
+        log(f"{tag} {name}: the first {same} of {len(want)} tokens equal plain greedy decode's; "
+            f"at token {same} the plain run's top-2 gap is {gap:.4f} nats (limit "
+            f"{NEAR_TIE_GAP}); it took {got[same]} where plain took {want[same]}, the plain "
+            f"run's tokens within the limit of its best being {near}")
+        check(gap <= NEAR_TIE_GAP and got[same] in near,
+              f"{tag} {name}: diverges from plain greedy decode away from a near-tie")
+    return same
+
+
+def reset_spec_counters(gen) -> None:
+    gen.rounds = gen.accepted_tokens = gen.draft_tokens = gen.tail_steps = 0
+    gen.round_tokens = 0
+    gen.rounds_by_k = {}
+
+
+def replay_ms(graphs, key) -> float:
+    """Device ms of one replay of the captured step ``key``."""
+    entry = graphs._graphs[key]
+    return time_ms(entry.graph.replay, iters=10, warmup=2)
+
+
+def graph_ms(fn) -> float:
+    """Device ms of ``fn`` captured as one CUDA graph and replayed, so that
+    its many launches time the card, not the host enqueueing them (the
+    wrappers' launch counts that the capture bumps are put back)."""
+    from mlx_sharding_tpu_torch.graphs import counted_wrappers
+
+    before = [w.launches for w in counted_wrappers()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up: libraries and workspaces come to exist here
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for w, b in zip(counted_wrappers(), before):
+        w.launches = b
+    ms = time_ms(graph.replay, iters=10, warmup=2)
+    del graph
+    return ms
+
+
+def layer_products(model):
+    """Every projection module of the model's layers, with its IN."""
+    from mlx_sharding_tpu_torch.models.base import QuantizedLinear
+
+    out = []
+    for layer in model.layers:
+        for mod in layer.children():
+            if isinstance(mod, torch.nn.Linear):
+                out.append((mod, mod.in_features))
+            elif isinstance(mod, QuantizedLinear):
+                out.append((mod, mod.q.shape[1] * 32 // mod.bits))
+    return out
+
+
+def products_ms(model, rows: int) -> float:
+    """Device ms of one T=K forward's products: every layer projection and
+    the head at ``rows`` rows (M x K), the kernels the step runs."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    mods = layer_products(model)
+    dt = model.compute_dtype
+    xs = {d: torch.randn((rows, d), generator=gen, device="cuda").to(dt)
+          for d in {d for _, d in mods} | {model.config.hidden_size}}
+    h = xs[model.config.hidden_size][:, None]
+
+    def products():
+        for mod, d in mods:
+            model._linear(xs[d], mod)
+        model.apply_head(h)
+
+    return graph_ms(products)
+
+
+def attention_ms(model, q_rows: int, k, v, position) -> float:
+    """Device ms of one T=K forward's ``masked_attention``: every layer, q
+    of ``q_rows`` positions over the full-capacity K/V ``k``, ``v``."""
+    from mlx_sharding_tpu_torch.ops.attention import masked_attention
+
+    cfg = model.config
+    b = k.shape[0]
+    q = torch.randn((b, q_rows, cfg.num_attention_heads, cfg.head_dim), device="cuda").to(k.dtype)
+    scale = cfg.head_dim ** -0.5
+
+    def attention():
+        for _ in range(cfg.num_hidden_layers):
+            masked_attention(q, k, v, position, scale)
+
+    return graph_ms(attention)
+
+
+def split_line(tag: str, what: str, total: float, parts: dict) -> dict:
+    rest = total - sum(parts.values())
+    parts = {**parts, "small kernels": rest}
+    log(f"{tag} {what}: {total:.3f} ms of device time a round; by part, each captured and "
+        f"replayed alone at the round's shapes: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + " (small kernels: the round less the other parts)")
+    return {"total_ms": total, **parts}
+
+
+def single_verify_numbers(tag: str, ng, model) -> dict:
+    """The n-gram generator's verify at K = 2, 4, 8 after a request: the
+    device ms of one replay, and its split into masked_attention, the
+    products and the small kernels (a single stream gathers nothing)."""
+    from mlx_sharding_tpu_torch.device import upload_into
+    from mlx_sharding_tpu_torch.generate import REPETITION_WINDOW
+
+    t = ng.target
+    out = {}
+    for k in VERIFY_KS:
+        upload_into(ng._inputs, np.asarray([k] + [65] * k, np.int64))
+        ng._verify(k, REPETITION_WINDOW, False)
+        total = replay_ms(t.graphs, ("verify", k, False, REPETITION_WINDOW))
+        parts = {"masked_attention": attention_ms(model, k, t.cache.k[0], t.cache.v[0],
+                                                  t.cache.pos),
+                 "products": products_ms(model, k)}
+        out[k] = split_line(tag, f"single-stream verify, K = {k}", total, parts)
+    return out
+
+
+def spec_run(tag: str, name: str, gen, models: list, ids: list, want: list, ties,
+             counters: dict, **kw) -> dict:
+    """One counted greedy request of ``SPEC_TOKENS`` tokens through a
+    speculating generator whose graphs are captured: every step a replay
+    (no capture, no eager forward of ``models``), the stream against plain
+    greedy decode's (``agreement``), and its numbers: decode tok/s, rounds,
+    tokens a round, accept rate and each kernel's launches."""
+    graphs = [g.graphs for g in (gen.target, gen.draft) if g is not None]
+    captures = sum(g.captures for g in graphs)
+    forwards = [m.eager_forwards for m in models]
+    reset_spec_counters(gen)
+    for c in counters.values():
+        c.launches = 0
+    toks, tok_s = stream_tokens(gen, ids, max_tokens=SPEC_TOKENS, **kw)
+    launches = {n: c.launches for n, c in counters.items()}
+    check(sum(g.captures for g in graphs) == captures
+          and [m.eager_forwards for m in models] == forwards,
+          f"{tag} {name}: a round ran eagerly")
+    same = agreement(tag, name, toks, want, ties)
+    st = gen.spec_stats()
+    row = {"name": name, "decode_tok_s": tok_s, "rounds": gen.rounds,
+           "rounds_by_k": dict(sorted(gen.rounds_by_k.items())), "tail_steps": gen.tail_steps,
+           "tokens_per_round": gen.round_tokens / max(1, gen.rounds),
+           "accept_rate": st["accept_rate"], "agree": same, "launches": launches}
+    log(f"{tag} {name}: {SPEC_TOKENS} tokens at {tok_s:.2f} tok/s decode; {gen.rounds} verify "
+        f"rounds (by K: {row['rounds_by_k']}), {row['tokens_per_round']:.2f} tokens a round, "
+        f"accept rate {st['accept_rate']:.3f} ({gen.accepted_tokens} of {gen.draft_tokens} "
+        f"draft tokens), {gen.tail_steps} tail decode steps; launches {launches}; "
+        f"{same} of {SPEC_TOKENS} tokens equal plain greedy decode's")
+    return row
+
+
+def forced_ngram_run(tag: str, ng, gen, models: list, counters: dict) -> dict:
+    """The n-gram generator ``ng`` on ``forced_passage`` with
+    ``FORCE_CYCLE``: proposals match from the first round, the window
+    climbs to 8 and the verify accepts whole windows (speculation's upper
+    bound); against plain greedy decode of the same request through
+    ``gen``. Its window of 7 is a new graph key for both: a first request
+    of each captures them, untimed and uncounted."""
+    ids = ByteTokenizer().encode(forced_passage())
+    stream_tokens(gen, ids, max_tokens=SPEC_TOKENS, **FORCE_CYCLE)
+    want, tok_s, _ = plain_reference(tag + " forced cycle", gen, ids, SPEC_TOKENS,
+                                     **FORCE_CYCLE)
+    check(bytes(want).decode() == forced_text(SPEC_TOKENS), f"{tag} the forced output "
+          f"is not the cycle: {bytes(t for t in want if t < 256)[:40]!r}")
+    log(f"{tag} plain greedy, forced cycle: {SPEC_TOKENS} tokens at {tok_s:.2f} tok/s decode")
+    stream_tokens(ng, ids, max_tokens=SPEC_TOKENS, **FORCE_CYCLE)
+    row = spec_run(tag, "--draft ngram, forced cycle", ng, models, ids, want, None, counters,
+                   **FORCE_CYCLE)
+    check(row["rounds_by_k"].get(8, 0) > 0, f"{tag} the forced run never reached K = 8")
+    row["plain_tok_s"] = tok_s
+    return row
+
+
+def phase_speculation(model, gen, tag: str, seed: int) -> dict:
+    """Speculative decoding at full depth in bf16 on the repeated passage
+    (600 tokens, ``SPEC_TOKENS`` each): plain greedy through the served
+    Generator ``gen``, ``--draft ngram``, the model as its own draft at K =
+    4, and the published Llama-3.2-1B config at K = 4 with random bf16
+    weights from the seed, each over a target Generator of its own. Each
+    speculating generator captures its graphs first; its counted run is
+    replays only, its launches are checked
+    against its rounds, and its stream against plain greedy decode's (a
+    divergence only at a near-tie). Then the n-gram verify's device ms at K
+    = 2, 4 and 8 and its split, and each draft's K steps' device ms. The
+    n-gram generator also runs ``forced_ngram_run``."""
+    from mlx_sharding_tpu_torch.generate import REPETITION_WINDOW
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator, SpeculativeGenerator
+
+    ids = ByteTokenizer().encode(repeated_passage())
+    chunks = -(-len(ids) // CHUNK)
+    layers = model.config.num_hidden_layers
+    want, plain_tok_s, ties = plain_reference(tag, gen, ids, SPEC_TOKENS)
+    log(f"{tag} plain greedy: {SPEC_TOKENS} tokens at {plain_tok_s:.2f} tok/s decode")
+    counters = {"flash_attention": fa.flash_attention, "flash_decode": fa.flash_decode}
+    stats = {"plain_tok_s": plain_tok_s, "runs": []}
+
+    ng = NgramSpeculativeGenerator(model)
+    graph_line(f"{tag} ngram", ng.warm_up())
+    row = spec_run(tag, "--draft ngram", ng, [model], ids, want, ties, counters)
+    expect = {"flash_attention": layers * chunks,
+              "flash_decode": layers * (row["rounds_by_k"].get(1, 0) + row["tail_steps"])}
+    check(row["launches"] == expect, f"{tag} ngram launches {row['launches']}, want {expect}")
+    stats["runs"].append(row)
+    row = forced_ngram_run(tag, ng, gen, [model], counters)
+    expect = {"flash_attention": layers * chunks,
+              "flash_decode": layers * (row["rounds_by_k"].get(1, 0) + row["tail_steps"])}
+    check(row["launches"] == expect, f"{tag} forced launches {row['launches']}, want {expect}")
+    stats["runs"].append(row)
+    stats["verify"] = single_verify_numbers(tag, ng, model)
+    del ng
+
+    t0 = time.perf_counter()
+    draft, _ = build_model(LLAMA_32_1B, dtype=torch.bfloat16)
+    draft.init_params(torch.Generator(device="cuda").manual_seed(seed + 3), "cuda")
+    torch.cuda.synchronize()
+    log(f"{tag} Llama-3.2-1B draft: {sum(p.numel() for p in draft.parameters()) / 1e9:.3f} B "
+        f"bf16 parameters drawn on the card in {time.perf_counter() - t0:.1f}s")
+    stats["draft_ms"] = {}
+    for name, dmodel in (("self-draft K=4", model), ("llama-3.2-1b draft K=4", draft)):
+        sg = SpeculativeGenerator(model, dmodel, spec_k=SPEC_K)
+        graph_line(f"{tag} {name}", sg.warm_up())
+        models = [model] if dmodel is model else [model, dmodel]
+        row = spec_run(tag, name, sg, models, ids, want, ties, counters)
+        dl = dmodel.config.num_hidden_layers
+        expect = {"flash_attention": (layers + dl) * chunks,
+                  "flash_decode": layers * row["tail_steps"] + dl * SPEC_K * row["rounds"]}
+        check(row["launches"] == expect, f"{tag} {name} launches {row['launches']}, want {expect}")
+        stats["runs"].append(row)
+        stats["draft_ms"][name] = replay_ms(sg.draft.graphs,
+                                            ("draft", SPEC_K, False, REPETITION_WINDOW))
+        stats[name + " verify_ms"] = replay_ms(
+            sg.target.graphs, ("verify", SPEC_K, False, REPETITION_WINDOW))
+        log(f"{tag} {name}: the draft's {SPEC_K} steps {stats['draft_ms'][name]:.3f} ms of device "
+            f"time a round, the verify {stats[name + ' verify_ms']:.3f} ms")
+        del sg
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_speculation_packed(packed, gen, tag: str) -> dict:
+    """``--draft ngram`` over the packed model: the counted runs as in
+    ``phase_speculation`` (the repeated passage and the forced run), with
+    the GEMV's launches at each verify width M = K (4 layer products a layer
+    and the head; the forced run reaches M = 2, 4 and 8) and the matmul's
+    counted."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+    ids = ByteTokenizer().encode(repeated_passage())
+    chunks = -(-len(ids) // CHUNK)
+    layers = packed.config.num_hidden_layers
+    want, plain_tok_s, ties = plain_reference(tag, gen, ids, SPEC_TOKENS)
+    log(f"{tag} plain greedy: {SPEC_TOKENS} tokens at {plain_tok_s:.2f} tok/s decode")
+    counters = {"flash_attention": fa.flash_attention, "flash_decode": fa.flash_decode,
+                "quant_gemv": qm.quant_gemv, "quant_matmul": qm.quant_matmul}
+    ng = NgramSpeculativeGenerator(packed)
+    graph_line(f"{tag} ngram", ng.warm_up())
+    row = spec_run(tag, "--draft ngram", ng, [packed], ids, want, ties, counters)
+    per_step = LAYER_SHAPES * layers + 1
+    row["plain_tok_s"] = plain_tok_s
+    forced = forced_ngram_run(tag, ng, gen, [packed], counters)
+    for r in (row, forced):
+        rounds = r["rounds_by_k"]
+        expect = {"flash_attention": layers * chunks,
+                  "flash_decode": layers * (rounds.get(1, 0) + r["tail_steps"]),
+                  "quant_gemv": per_step * (sum(rounds.values()) + r["tail_steps"]) + chunks,
+                  "quant_matmul": LAYER_SHAPES * layers * chunks}
+        check(r["launches"] == expect, f"{tag} {r['name']} launches {r['launches']}, want {expect}")
+        r["gemv_launches_by_m"] = {k: per_step * n for k, n in rounds.items()}
+        log(f"{tag} {r['name']}: quant_gemv launches at the verify's M = K: "
+            + ", ".join(f"M={k}: {n}" for k, n in r["gemv_launches_by_m"].items())
+            + f"; at M = 1 in the tail: {per_step * r['tail_steps']}")
+    check(all(forced["gemv_launches_by_m"].get(k, 0) > 0 for k in (2, 4, 8)),
+          f"{tag} the forced run launched the GEMV at M = 2, 4 and 8: "
+          f"{forced['gemv_launches_by_m']}")
+    stats = {"runs": [row, forced], "verify": single_verify_numbers(tag, ng, packed)}
+    del ng
+    return stats
+
+
+def batch_verify_numbers(tag: str, batcher) -> dict:
+    """The batcher's verify at K = 2, 4, 8 (every slot in the graph): the
+    device ms of one replay, and its split into the gather of every slot's
+    pages, masked_attention, the products and the small kernels."""
+    from mlx_sharding_tpu_torch.cache import layer_pool
+
+    eng, m = batcher.engine, batcher.M
+    model = eng.model
+    out = {}
+    for k in VERIFY_KS:
+        inputs = eng.device_inputs(("split", k), batcher.table, batcher.active,
+                                   batcher.cache.offsets, True)
+        plan = eng.device_plan(inputs.offsets.long(), inputs, k)
+        total = replay_ms(batcher.graphs, ("verify", k, False))
+        pools = [(layer_pool(batcher.cache.k, i), layer_pool(batcher.cache.v, i))
+                 for i in range(model.config.num_hidden_layers)]
+        def gather():
+            for kp, vp in pools:
+                eng._slot_view(kp, plan.tables)
+                eng._slot_view(vp, plan.tables)
+
+        gather = graph_ms(gather)
+        view_k, view_v = eng._slot_view(pools[0][0], plan.tables), eng._slot_view(pools[0][1],
+                                                                                   plan.tables)
+        parts = {"gather": gather,
+                 "masked_attention": attention_ms(model, k, view_k, view_v, plan.positions[0]),
+                 "products": products_ms(model, m * k)}
+        del view_k, view_v
+        out[k] = split_line(tag, f"batcher verify of {m} slots, K = {k}", total, parts)
+    return out
+
+
+def phase_spec_f32(seed: int) -> dict:
+    """The speculating paths in f32 at the 8B widths and ``F32_LAYERS``
+    layers, ``F32_TOKENS`` tokens of the repeated passage: ``--draft
+    ngram``, the self-draft and a ``F32_LAYERS``-layer Llama-3.2-1B-shaped
+    draft at K = 4, and the batcher's n-gram speculation (sync and async
+    ticks, two requests) are token-identical to plain greedy decode, and the self-draft
+    accepts every token; then the self-draft at full depth in f32 (32 GB of
+    weights) accepts every token of plain greedy decode's stream."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+    from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator, SpeculativeGenerator
+
+    tag = "[spec-f32]"
+    tok = ByteTokenizer()
+    ids = tok.encode(repeated_passage())
+    other = tok.encode(mix_prompt(7, 300))
+    common = dict(max_seq=F32_MAX_SEQ, prefill_chunk=CHUNK)
+
+    def build(config, layers, s):
+        m, _ = build_model({**config, "num_hidden_layers": layers}, dtype=torch.float32)
+        return m.init_params(torch.Generator(device="cuda").manual_seed(s), "cuda")
+
+    model = build(LLAMA_31_8B, F32_LAYERS, seed + 7)
+    draft = build(LLAMA_32_1B, F32_LAYERS, seed + 8)
+    plain = Generator(model, **common)
+    want = {p: [t for t, _ in plain.generate_step(ids if p == "a" else other,
+                                                  max_tokens=F32_TOKENS)] for p in "ab"}
+    stats = {}
+    for name, gen in (("--draft ngram", NgramSpeculativeGenerator(model, **common)),
+                      ("self-draft K=4", SpeculativeGenerator(model, model, spec_k=SPEC_K,
+                                                              **common)),
+                      ("2-layer 1B-shaped draft K=4", SpeculativeGenerator(
+                          model, draft, spec_k=SPEC_K, **common))):
+        got = [t for t, _ in gen.generate_step(ids, max_tokens=F32_TOKENS)]
+        agreement(tag, name, got, want["a"], None)
+        stats[name] = (gen.rounds, gen.accepted_tokens, gen.draft_tokens)
+        log(f"{tag} {name}: {F32_TOKENS} tokens token-identical to plain greedy decode; "
+            f"{gen.rounds} rounds, {gen.accepted_tokens} of {gen.draft_tokens} draft tokens "
+            f"accepted")
+        check(gen.rounds > 0, f"{tag} {name}: no verify round ran")
+        if name.startswith("self"):
+            check(gen.accepted_tokens == SPEC_K * gen.rounds,
+                  f"{tag} the self-draft rejected a token")
+        del gen
+    for sched in ("off", "on"):
+        engine = PipelineEngine(model, microbatches=2, max_seq=F32_MAX_SEQ, prefill_chunk=CHUNK,
+                                pool_pages=8, page_size=PAGE, device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=8, draft="ngram", async_sched=sched)
+        items, _ = serve_on_this_thread(batcher, [(ids, dict(max_tokens=F32_TOKENS)),
+                                                  (other, dict(max_tokens=F32_TOKENS))])
+        name = f"batcher ngram ({'async' if batcher._async else 'sync'} ticks)"
+        for s_, p in zip(items, "ab"):
+            agreement(tag, name, [t for t, _ in s_], want[p], None)
+        st = batcher.spec_stats()
+        check(st["rounds"] > 0, f"{tag} {name} ran no verify round")
+        log(f"{tag} {name}, two requests: token-identical to plain greedy decode; spec_stats "
+            f"{st}")
+        stats[name] = st
+        batcher.close()
+        del batcher, engine
+    del plain, model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    full, _ = build_model(LLAMA_31_8B, dtype=torch.float32)
+    full.init_params(torch.Generator(device="cuda").manual_seed(seed + 9), "cuda")
+    plain = Generator(full, **common)
+    want = [t for t, _ in plain.generate_step(ids, max_tokens=F32_TOKENS)]
+    sg = SpeculativeGenerator(full, full, spec_k=SPEC_K, **common)
+    got = [t for t, _ in sg.generate_step(ids, max_tokens=F32_TOKENS)]
+    agreement(tag, "self-draft K=4, 32 layers", got, want, None)
+    check(sg.rounds > 0 and sg.accepted_tokens == SPEC_K * sg.rounds,
+          f"{tag} the full-depth self-draft rejected a token: {sg.accepted_tokens} of "
+          f"{SPEC_K * sg.rounds}")
+    log(f"{tag} self-draft K=4 at full depth (32 layers, f32): {F32_TOKENS} tokens "
+        f"token-identical to plain greedy decode, {sg.accepted_tokens} of {sg.draft_tokens} "
+        f"draft tokens accepted in {sg.rounds} rounds ({time.perf_counter() - t0:.1f}s with the "
+        f"weights drawn)")
+    stats["full_depth_self_draft"] = (sg.rounds, sg.accepted_tokens)
+    del sg, plain, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
 
 
 # ------------------------------------------------------------------ main
@@ -2222,10 +2862,20 @@ def main(argv=None) -> int:
     launches, single, model = phase_main_path(args.seed)
     lap("main path")
     paged_launches = 0
-    for kv_dtype in ("bf16", "int8"):
-        batch_launches, _ = phase_batching(model, args.seed, kv_dtype, single["decode_tok_s"])
+    greedy = {}  # each pool's unforced greedy request with draft="off"
+    for kv_dtype, draft, sched in (("bf16", "off", "auto"), ("bf16", "ngram", "auto"),
+                                   ("bf16", "ngram", "off"), ("int8", "off", "auto"),
+                                   ("int8", "ngram", "auto")):
+        batch_launches, batch = phase_batching(
+            model, args.seed, kv_dtype, single["decode_tok_s"], draft=draft, async_sched=sched,
+            split=(kv_dtype, draft, sched) == ("bf16", "ngram", "auto"),
+            reference=greedy.get(kv_dtype))
+        if draft == "off":
+            greedy[kv_dtype] = batch["greedy"]
         paged_launches += batch_launches["paged_attention"]
-        lap(f"continuous batching, {kv_dtype} pool")
+        lap(f"continuous batching, {kv_dtype} pool, draft {draft}, async_sched {sched}")
+    phase_spec_f32(args.seed)
+    lap("speculation in f32")
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model

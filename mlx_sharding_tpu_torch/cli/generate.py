@@ -2,11 +2,13 @@
 ``mlx_sharding_tpu/cli/generate.py``).
 
     python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
-        [--keep-quantized] [--device cpu]
+        [--keep-quantized] [--device cpu] \
+        [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
 
-Streams the text and reports prompt/generation tok/s and TTFT on stderr. On
-a card the prefill chunks and decode blocks are captured as CUDA graphs at
-load (their count, capture seconds and pool bytes go to stderr).
+Streams the text and reports prompt/generation tok/s and TTFT on stderr
+(and, when speculating, the rounds and the accept rate). On a card the
+prefill chunks, decode blocks and speculative rounds are captured as CUDA
+graphs at load (their count, capture seconds and pool bytes go to stderr).
 """
 
 from __future__ import annotations
@@ -32,7 +34,41 @@ def main(argv=None):
                         help="keep 4-bit decoder weights packed in HBM "
                         "(fused dequant-matmul) instead of dequantizing at "
                         "load")
+    parser.add_argument("--draft-model", default=None,
+                        help="speculative decoding: a small draft model "
+                        "proposes --spec-k tokens per round, the target "
+                        "verifies them in one forward — greedy streams are "
+                        "token-exact; sampled requests use rejection "
+                        "sampling (distribution-exact)")
+    parser.add_argument("--spec-k", type=int, default=4,
+                        help="speculation window (with --draft-model)")
+    parser.add_argument("--draft",
+                        choices=("auto", "off", "ngram", "engine"),
+                        default="auto",
+                        help="draft source for speculative decoding: "
+                        "'engine' is the two-model path (--draft-model), "
+                        "'ngram' drafts by prompt-lookup — n-gram matches "
+                        "against the prompt+history propose the window, no "
+                        "second checkpoint and no draft KV; 'auto' picks "
+                        "'engine' when --draft-model is given, else 'off'")
+    parser.add_argument("--spec-window-max", type=int, default=None,
+                        help="adaptive speculation ceiling (>= 2): per-round "
+                        "acceptance (EWMA) resizes the window in {0,2,4,8} "
+                        "up to this cap and disables drafting when it never "
+                        "pays; with --draft ngram defaults to 8")
     args = parser.parse_args(argv)
+    if args.draft == "engine" and not args.draft_model:
+        parser.error("--draft engine requires --draft-model")
+    if args.draft in ("off", "ngram") and args.draft_model:
+        parser.error(f"--draft {args.draft} conflicts with --draft-model "
+                     "(drop one: 'engine' is the two-model path)")
+    if args.spec_window_max is not None:
+        if args.spec_window_max < 2:
+            parser.error("--spec-window-max must be >= 2 (a 1-token window "
+                         "is plain decode; use --draft off)")
+        if args.draft not in ("ngram", "engine") and not args.draft_model:
+            parser.error("--spec-window-max needs a draft source "
+                         "(--draft ngram or --draft-model)")
 
     from mlx_sharding_tpu_torch.device import resolve_device
 
@@ -45,8 +81,21 @@ def main(argv=None):
     from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
     model, _ = load_model(args.model, device=device, keep_quantized=args.keep_quantized)
-    generator = Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
-    captured = generator.warm_up()  # on a card: every chunk offset and decode block as a graph
+    if args.draft == "ngram":
+        from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+        generator = NgramSpeculativeGenerator(model, spec_window_max=args.spec_window_max or 8,
+                                              max_seq=args.max_seq,
+                                              prefill_chunk=args.prefill_chunk)
+    elif args.draft_model:
+        from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+
+        draft_model, _ = load_model(args.draft_model, device=device)
+        generator = SpeculativeGenerator(model, draft_model, spec_k=args.spec_k,
+                                         max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+    else:
+        generator = Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+    captured = generator.warm_up()  # on a card: every step as a graph
     if captured:
         print(f"captured {captured['graphs']} CUDA graphs in {captured['seconds']:.2f}s, "
               f"graph pool {captured['pool_bytes'] / 1e6:.1f} MB", file=sys.stderr)
@@ -78,6 +127,11 @@ def main(argv=None):
     print(f"Generation: {stats.generation_tokens} tokens, "
           f"{stats.generation_tps:.3f} tokens-per-sec", file=sys.stderr)
     print(f"TTFT: {stats.ttft * 1000:.1f} ms", file=sys.stderr)
+    if hasattr(generator, "spec_stats"):
+        spec = generator.spec_stats()
+        print(f"Speculation ({spec['mode']}): {spec['rounds']} rounds, "
+              f"{spec['accepted_tokens']} of {spec['draft_tokens']} draft tokens accepted "
+              f"({spec['accept_rate']:.3f})", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -28,3 +28,16 @@ def upload(array: np.ndarray, device) -> torch.Tensor:
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def upload_into(dst: torch.Tensor, array: np.ndarray) -> None:
+    """Copy ``array`` into the front of the persistent buffer ``dst`` in one
+    upload that does not make the host wait: from pinned memory,
+    asynchronously, on a CUDA device (a captured step that reads ``dst`` is
+    enqueued after the copy on the same stream)."""
+    src = torch.from_numpy(np.ascontiguousarray(array))
+    view = dst[: src.numel()].view(src.shape)
+    if dst.device.type == "cuda":
+        view.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        view.copy_(src)

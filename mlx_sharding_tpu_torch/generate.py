@@ -20,8 +20,9 @@
   other carry, and resets them per request. On the CPU the same step
   functions run eagerly.
 
-The server's ``--decode-block`` flag, the prompt cache, the
-sequence-parallel paths and speculation come with later slices.
+Speculative decoding over a Generator lives in ``speculative.py``. The
+server's ``--decode-block`` flag, the prompt cache and the
+sequence-parallel paths come with later slices.
 """
 
 from __future__ import annotations
@@ -234,12 +235,13 @@ class Generator:
         self.cache = dataclasses.replace(self.cache, offset=self.cache.offset + steps)
         return tuple(o.clone() for o in outs)
 
-    def warm_up(self) -> dict:
+    def warm_up(self, decode_blocks: bool = True) -> dict:
         """Capture, before the first request, every prefill chunk's graph
-        (one per chunk offset) and the decode blocks of the default window
-        (greedy and sampled, with and without logprobs). Returns the graphs
-        captured, their capture seconds and the pool's bytes; without
-        graphs, nothing is captured and it returns ``{}``."""
+        (one per chunk offset) and, with ``decode_blocks``, the decode
+        blocks of the default window (greedy and sampled, with and without
+        logprobs). Returns the graphs captured, their capture seconds and
+        the pool's bytes; without graphs, nothing is captured and it
+        returns ``{}``."""
         if self.graphs is None:
             return {}
         c = self.prefill_chunk
@@ -247,7 +249,7 @@ class Generator:
         self._last.fill_(c - 1)
         for start in range(0, self.max_seq, c):
             self.run_chunk(start)
-        for sampled in (False, True):
+        for sampled in (False, True) if decode_blocks else ():
             for want_logprobs in (False, True):
                 self.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, sampled, want_logprobs)
         torch.cuda.synchronize(self.device)
@@ -255,7 +257,7 @@ class Generator:
                 "pool_bytes": self.graphs.pool_bytes()}
 
     # -------------------------------------------------------------- requests
-    def generate_step(
+    def begin(
         self,
         prompt_tokens,
         *,
@@ -267,9 +269,12 @@ class Generator:
         seed: Optional[int] = None,
         max_tokens: int = 256,
         want_logprobs: bool = False,
-    ) -> Iterator[tuple[int, Optional[TokenLogprobs]]]:
-        """Yields ``(token, logprobs)`` per generated token; ``logprobs`` is
-        a :class:`TokenLogprobs` when ``want_logprobs``, else None."""
+    ) -> tuple:
+        """Start a request: check it, set the sampler row, the generator
+        and the window, prefill the prompt and sample the first token,
+        which becomes the next step's input. Returns ``(token, logprobs,
+        window, sampled)``; the decode blocks (or a speculative round)
+        continue from the carries it leaves."""
         sp = make_sampler_params(temperature, top_p, repetition_penalty, logit_bias,
                                  device="cpu")
         prompt = np.asarray(prompt_tokens, np.int64).reshape(1, -1)
@@ -297,15 +302,34 @@ class Generator:
         if want_logprobs:
             chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
             first_lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
-        yield int(tok[0]), first_lp
-        remaining = max_tokens - 1
-        if remaining <= 0:
-            return
+        return int(tok[0]), first_lp, window, sampled
+
+    def decode_stream(self, remaining: int, window: int, sampled: bool,
+                      want_logprobs: bool) -> Iterator[tuple[int, Optional[TokenLogprobs]]]:
+        """The next ``remaining`` tokens in whole decode blocks from the
+        carries (``blocked_token_stream``)."""
         block = DEFAULT_DECODE_BLOCK
         yield from blocked_token_stream(
             lambda: self.decode_block(block, window, sampled, want_logprobs),
             remaining, block, want_logprobs,
         )
+
+    def generate_step(
+        self,
+        prompt_tokens,
+        *,
+        max_tokens: int = 256,
+        want_logprobs: bool = False,
+        **sampler_kwargs,
+    ) -> Iterator[tuple[int, Optional[TokenLogprobs]]]:
+        """Yields ``(token, logprobs)`` per generated token; ``logprobs`` is
+        a :class:`TokenLogprobs` when ``want_logprobs``, else None. The
+        sampler keywords are :meth:`begin`'s."""
+        tok, first_lp, window, sampled = self.begin(
+            prompt_tokens, max_tokens=max_tokens, want_logprobs=want_logprobs, **sampler_kwargs)
+        yield tok, first_lp
+        if max_tokens > 1:
+            yield from self.decode_stream(max_tokens - 1, window, sampled, want_logprobs)
 
 
 def stream_generate(

@@ -119,11 +119,12 @@ def masked_attention(q, k, v, position: torch.Tensor, scale: float, *,
                      logit_softcap: Optional[float] = None,
                      sliding_window: Optional[int] = None) -> torch.Tensor:
     """JAX's plain path (``mlx_sharding_tpu/ops/attention.py``) over the
-    whole capacity: query i sits at ``position + i`` (``position`` a (1,)
-    device tensor) and sees the keys at or before it; every key is read and
-    the rest are masked, so the shapes do not depend on the position. Scores
-    and softmax in fp32, probs rounded to v's dtype, the product accumulated
-    in fp32. Returns (B, T, Hq, Dv) in q's dtype."""
+    whole capacity: query i of row b sits at ``position[b] + i``
+    (``position`` a (1,) device tensor shared by the rows, or (B,), one per
+    row: the batcher's T=K verify) and sees the keys at or before it; every
+    key is read and the rest are masked, so the shapes do not depend on the
+    position. Scores and softmax in fp32, probs rounded to v's dtype, the
+    product accumulated in fp32. Returns (B, T, Hq, Dv) in q's dtype."""
     b, t, hq, dk = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
@@ -134,7 +135,8 @@ def masked_attention(q, k, v, position: torch.Tensor, scale: float, *,
         scores = _product_f32(qg[i], k[i].permute(1, 2, 0)) * scale  # (Hkv, G*T, S)
         if logit_softcap is not None:
             scores = logit_softcap * torch.tanh(scores / logit_softcap)
-        q_pos = position + torch.arange(t, device=q.device)  # (T,)
+        row_pos = position[i : i + 1] if position.numel() > 1 else position
+        q_pos = row_pos + torch.arange(t, device=q.device)  # (T,)
         k_pos = torch.arange(s, device=q.device)
         allowed = k_pos[None, :] <= q_pos[:, None]  # (T, S)
         if sliding_window is not None:

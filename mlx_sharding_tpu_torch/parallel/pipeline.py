@@ -24,14 +24,30 @@ One model on one device drives M slots that share a pool of KV pages:
   follows. It touches no host state, so the batcher can capture a block of
   them as one CUDA graph; :meth:`PipelineEngine.advance_offsets` moves the
   host offsets after it.
-- :meth:`PipelineEngine.decode_plan` builds, on the host, every slot's
-  page ids, row positions and lengths for all K steps of a decode block,
-  and copies them in one upload into the engine's persistent plan buffer
-  for K, which a captured block reads: slot offsets are host ints, so
-  nothing is read back from the card inside a block.
+- :meth:`PipelineEngine.spec_verify` (``spec_verify_ngram_cb(K)``) is one
+  T=K forward of all M slots over ``[t0, d1..d_{K-1}]`` with per-slot
+  acceptance (JAX ``_spec_verify_fn``). Its attention takes the gather
+  path, as JAX's verify always does: each slot's pages are gathered into a
+  contiguous view over its whole table row (dequantized for an int8 pool),
+  the K new rows are written into the view and, through
+  ``write_pool_rows``, into the pool (they may straddle a page; quantized
+  for an int8 pool), and ``masked_attention`` attends at each slot's
+  position. The view spans the capacity, so one step serves every
+  position.
+- Every decode block and verify is planned on the device:
+  :meth:`PipelineEngine.device_inputs` uploads, in one copy into a
+  persistent buffer that a captured step reads, each slot's table row, the
+  active mask, the host's offsets and whether to take them, and a verify's
+  drafts and window caps (:class:`DeviceInputs`); :meth:`device_plan`
+  builds the step's page ids, rows and lengths (:class:`DecodePlan`) from
+  the slot offsets on the device. The host's offsets are taken whenever
+  they are exact; a speculative round in flight moves the device's by
+  counts the host has not read yet, so nothing is read back from the card
+  inside a step.
 
 Pipeline, tensor and expert parallelism, the dense (unpaged) engine, the
-``gather`` decode path and speculation are not yet ported: they raise.
+``gather`` decode path and the draft engine's proposals are not yet
+ported: they raise.
 """
 
 from __future__ import annotations
@@ -54,12 +70,13 @@ from mlx_sharding_tpu_torch.cache import (
     write_pool_rows,
     write_pool_span,
 )
-from mlx_sharding_tpu_torch.device import resolve_device, upload
+from mlx_sharding_tpu_torch.device import resolve_device, upload_into
 from mlx_sharding_tpu_torch.graphs import note_eager_forward
 from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
-from mlx_sharding_tpu_torch.ops.attention import causal_attention
+from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
 from mlx_sharding_tpu_torch.sample import sample_token_batched, update_recent_tokens
+from mlx_sharding_tpu_torch.speculative import verify_round
 
 
 @dataclasses.dataclass
@@ -73,6 +90,19 @@ class DecodePlan:
     lengths: torch.Tensor  # (K, M) int32: valid positions with the new one; 0 if inactive
     positions: torch.Tensor  # (K, M) int32: RoPE position of the new token
     tables: torch.Tensor  # (M, SPG) int32: slot table rows, all scratch if inactive
+
+
+@dataclasses.dataclass
+class DeviceInputs:
+    """What a step planned on the device reads, uploaded in one copy into a
+    persistent int32 buffer (:meth:`PipelineEngine.device_inputs`)."""
+
+    rows: torch.Tensor  # (M, SPG): each slot's table row, scratch if inactive
+    active: torch.Tensor  # (M,): 1 for a decoding slot
+    reset: torch.Tensor  # (1,): 1 = the host's offsets are exact, take them
+    offsets: torch.Tensor  # (M,): the host's slot offsets
+    drafts: Optional[torch.Tensor]  # (K, M): a verify's proposals
+    wcap: Optional[torch.Tensor]  # (M,): a verify's window caps
 
 
 class PipelineEngine:
@@ -155,7 +185,8 @@ class PipelineEngine:
             )
         self.paged_attention = "ragged"
         model.place_constants(self.device)
-        self._plans: dict[int, tuple] = {}  # K -> (buffer, DecodePlan over it)
+        # persistent step inputs: a step's key -> (buffer, DeviceInputs over it)
+        self._plans: dict = {}
         # (buffer, tokens (1, chunk), page row (SPG,), last valid row (1,))
         self._prefill_buf: Optional[tuple] = None
         # forwards (prefill chunks, ragged decode steps) run eagerly on the
@@ -175,15 +206,17 @@ class PipelineEngine:
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
 
     def _slot_view(self, pool, page_ids: torch.Tensor) -> torch.Tensor:
-        """The slot's pages ``page_ids`` gathered into a contiguous (1,
+        """The slot's pages ``page_ids`` (n,) gathered into a contiguous (1,
         n·page, H_kv, D) copy in the model's dtype (an int8 pool is
-        dequantized after the gather)."""
+        dequantized after the gather); (M, n) table rows give (M, n·page,
+        H_kv, D), one row per slot."""
         if is_quantized_kv(pool):
             x = dequantize_kv({"d": pool["d"][page_ids], "s": pool["s"][page_ids]},
                               self.cache_dtype)
         else:
             x = pool[page_ids]
-        return x.reshape(1, -1, *x.shape[2:])
+        lead = page_ids.shape[:-1] if page_ids.dim() > 1 else (1,)
+        return x.reshape(*lead, -1, *x.shape[-2:])
 
     def prefill_inputs(self, tokens, slot: int, n_valid: int, table: np.ndarray) -> None:
         """Copy one chunk's inputs into the engine's persistent prefill
@@ -200,11 +233,7 @@ class PipelineEngine:
         if self._prefill_buf is None:
             buf = torch.empty(host.shape, dtype=torch.int64, device=self.device)
             self._prefill_buf = (buf, buf[:c].view(1, c), buf[c:-1], buf[-1:])
-        src = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            self._prefill_buf[0].copy_(src.pin_memory(), non_blocking=True)
-        else:
-            self._prefill_buf[0].copy_(src)
+        upload_into(self._prefill_buf[0], host)
 
     def prefill_step(self, cache: PagedKV, off: int) -> torch.Tensor:
         """One prefill chunk at offset ``off`` from the persistent inputs
@@ -256,40 +285,53 @@ class PipelineEngine:
         cache.offsets[slot] = off + n_valid
         return logits
 
-    def decode_plan(self, cache: PagedKV, table: np.ndarray, active: list,
-                    steps: int) -> DecodePlan:
-        """Every slot's write page, row and attention length for ``steps``
-        decode steps from its current offset, built on the host and copied
-        in one upload into the persistent plan of ``steps`` steps, which is
-        returned (the same tensors at every call, so a captured block reads
-        each new plan). An inactive slot routes to the table's scratch row M
-        at length 0. A position past the slot's mapped pages (a finished
-        slot decoding to the end of its block) writes to the scratch
-        page."""
-        m, page, spg = self.microbatches, self.page_size, self.slot_pages
+    def device_inputs(self, key, table: np.ndarray, active: list, offsets: list, reset: bool,
+                      drafts: Optional[np.ndarray] = None,
+                      wcaps: Optional[np.ndarray] = None) -> DeviceInputs:
+        """Upload a device-planned step's inputs in one copy into the
+        persistent buffer of ``key`` (the same tensors at every call, so a
+        captured step reads each upload): each slot's table row (row M, all
+        scratch, for an inactive slot), the active mask, ``reset`` and the
+        host's ``offsets``, and a verify's (K, M) ``drafts`` and (M,)
+        ``wcaps``."""
+        m, spg = self.microbatches, self.slot_pages
         act = np.asarray(active, bool)
-        pos = np.asarray(cache.offsets, np.int64)[None, :] + np.arange(steps)[:, None]
-        pos = np.where(act[None, :], pos, 0)  # (K, M)
-        rows = np.where(act[:, None], table[:m], table[m][None, :])  # (M, SPG)
+        parts = [np.where(act[:, None], table[:m], table[m][None, :]).ravel(), act,
+                 [int(reset)], offsets]
+        if drafts is not None:
+            parts += [np.asarray(drafts).ravel(), wcaps]
+        host = np.concatenate([np.asarray(p, np.int64).ravel() for p in parts]).astype(np.int32)
+        if key not in self._plans:
+            buf = torch.empty(host.size, dtype=torch.int32, device=self.device)
+            k = 0 if drafts is None else len(drafts)
+            views, at = [], 0
+            for n in (m * spg, m, 1, m, k * m, m if k else 0):
+                views.append(buf[at : at + n])
+                at += n
+            rows, act_v, reset_v, off_v, d_v, w_v = views
+            self._plans[key] = (buf, DeviceInputs(rows.view(m, spg), act_v, reset_v, off_v,
+                                                  d_v.view(k, m) if k else None,
+                                                  w_v if k else None))
+        buf, inputs = self._plans[key]
+        upload_into(buf, host)
+        return inputs
+
+    def device_plan(self, offsets: torch.Tensor, inputs: DeviceInputs, steps: int) -> DecodePlan:
+        """Every slot's write page, row and attention length for ``steps``
+        positions from its (M,) ``offsets`` on the device: device work only.
+        An inactive slot routes to the table's scratch row M at length 0. A
+        position past the slot's mapped pages (a finished slot decoding to
+        the end of its block) writes to the scratch page."""
+        page, spg = self.page_size, self.slot_pages
+        active = inputs.active.bool()
+        j = torch.arange(steps, device=offsets.device)[:, None]
+        pos = torch.where(active[None, :], offsets[None, :] + j, 0)  # (K, M)
         pidx = pos // page
-        page_ids = rows[np.arange(m)[None, :], np.minimum(pidx, spg - 1)]
-        page_ids = np.where(pidx < spg, page_ids, self.pool_pages)
-        lengths = np.where(act[None, :], pos + 1, 0)
-        host = np.concatenate(
-            [page_ids.ravel(), (pos % page).ravel(), lengths.ravel(), pos.ravel(), rows.ravel()]
-        ).astype(np.int32)
-        if steps not in self._plans:
-            buf = torch.empty(host.shape, dtype=torch.int32, device=self.device)
-            n = steps * m
-            per_step = [buf[i * n : (i + 1) * n].view(steps, m) for i in range(4)]
-            self._plans[steps] = (buf, DecodePlan(*per_step, tables=buf[4 * n :].view(m, spg)))
-        buf, plan = self._plans[steps]
-        src = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            buf.copy_(src.pin_memory(), non_blocking=True)
-        else:
-            buf.copy_(src)
-        return plan
+        page_ids = inputs.rows.t().gather(0, pidx.clamp(max=spg - 1))
+        page_ids = torch.where(pidx < spg, page_ids, self.pool_pages)
+        lengths = torch.where(active[None, :], pos + 1, 0)
+        return DecodePlan(page_ids.to(torch.int32), (pos % page).to(torch.int32),
+                          lengths.to(torch.int32), pos.to(torch.int32), inputs.rows)
 
     def ragged_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
                       j: int) -> torch.Tensor:
@@ -335,6 +377,80 @@ class PipelineEngine:
         tok, logprobs = sample_token_batched(generators, logits, sp, masked, sampled=sampled)
         recent.copy_(update_recent_tokens(recent, tok))
         return tok[:, None], logprobs
+
+    def verify_logits(self, x: torch.Tensor, cache: PagedKV, plan: DecodePlan) -> torch.Tensor:
+        """The T=K forward of all M slots: ``x`` (M, K) at the plan's K
+        positions. Per layer, each slot's pages are gathered into a view
+        over its whole table row, the K new K/V rows are written into the
+        view (unquantized) and into their pool pages (quantized for an int8
+        pool), and ``masked_attention`` attends at each slot's position.
+        Returns the logits (M, K, V); an inactive slot's are zeros' logits.
+        Offsets are not advanced."""
+        model = self.model
+        note_eager_forward(self, x)
+        m, k = x.shape
+        start = plan.positions[0]  # (M,)
+        cap = self.slot_pages * self.page_size
+        rows = plan.positions.t().long().clamp(max=cap - 1)  # (M, K) rows of the view
+        slots = torch.arange(m, device=x.device)[:, None]
+        page_ids, row_pos = plan.page_ids.t().reshape(-1), plan.row_pos.t().reshape(-1)
+        h = model.embed(x)  # (M, K, hidden)
+        for i, layer in enumerate(model.layers):
+            kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
+
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp):
+                k_view, v_view = self._slot_view(kp, plan.tables), self._slot_view(vp, plan.tables)
+                k_view[slots, rows] = k_new.to(k_view.dtype)
+                v_view[slots, rows] = v_new.to(v_view.dtype)
+                write_pool_rows(kp, page_ids, row_pos, k_new.reshape(m * k, *k_new.shape[2:]))
+                write_pool_rows(vp, page_ids, row_pos, v_new.reshape(m * k, *v_new.shape[2:]))
+                return masked_attention(q, k_view, v_view, start, model.scale)
+
+            h, _, _ = model.sp_layer(layer, h, start, attn_fn)
+        active = plan.lengths[0] > 0
+        h = torch.where(active[:, None, None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+        return model.apply_head(h)
+
+    def spec_verify(self, k: int, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
+                    drafts: torch.Tensor, wcap: torch.Tensor, *, qlps=None,
+                    recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
+                    sampled: bool):
+        """One speculative verify of all M slots (JAX ``_spec_verify_fn``):
+        the T=K forward over ``[t0, d1..d_{K-1}]`` (:meth:`verify_logits`),
+        then greedy acceptance per slot, or rejection sampling with each
+        slot's generator for sampled slots (``sampled``: some slot may
+        sample), the cap ``m = min(m, wcap - 1)`` before anything commits,
+        and the replay of only the emitted tokens into the window (in
+        place). ``qlps`` (K, M, V): the draft's distributions, one-hot on
+        the drafts when None. An inactive slot emits nothing. Device work
+        only: offsets are the caller's. Returns ``(gs (K, M), count (M,),
+        next tokens (M, 1))``."""
+        if drafts.shape[0] != k:
+            raise ValueError(f"a verify of {k} positions takes {k} drafts a slot, got "
+                             f"{drafts.shape[0]}")
+        active = plan.lengths[0] > 0
+        d = drafts.long()
+        logits = self.verify_logits(torch.cat([tokens, d[:-1].t()], dim=1), cache, plan)
+        gs, count, nxt, rec = verify_round(logits, d, recent, sp, generators, sampled=sampled,
+                                           q_logprobs=qlps, wcap=wcap, active=active,
+                                           rep_mask=rep_mask)
+        recent.copy_(rec)
+        return gs, count, torch.where(active, nxt, tokens[:, 0])[:, None]
+
+    def spec_verify_ngram_cb(self, k: int):
+        """The verify of K positions for deterministic (n-gram) proposals:
+        q is one-hot on the drafts, built on the device."""
+        return functools.partial(self.spec_verify, k, qlps=None)
+
+    def spec_propose_cb(self, k: int):
+        raise NotImplementedError(
+            "the draft engine's proposals are not yet ported: they need the dense "
+            "continuous-batching engine (ROADMAP queue 1, slice 3 item 6, then slice 4)")
+
+    def spec_replay_cb(self, k: int):
+        raise NotImplementedError(
+            "the draft engine's replay is not yet ported: it needs the dense "
+            "continuous-batching engine (ROADMAP queue 1, slice 3 item 6, then slice 4)")
 
     @staticmethod
     def advance_offsets(cache: PagedKV, active: list, steps: int) -> None:

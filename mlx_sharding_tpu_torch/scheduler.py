@@ -61,8 +61,29 @@ closes; a later prompt that starts with a registered chain maps those pages
 are evicted least recently used when admission or growth runs short. A
 preempted request drops its pages and looks its folded prompt up again.
 
-Not yet ported, and refused at construction: KV spill and prefetch,
-speculation, the prefix store; tracing and metrics are not carried.
+N-gram speculation (``draft="ngram"``): a tick whose decoding slots all
+have window-max rows of headroom and want no logprobs runs one speculative
+round instead of a decode block. Each slot's prompt + history proposes up
+to its adaptive window (``AcceptanceTracker``) by prompt lookup
+(``NgramDraftProposer``), and one T=K verify of all M slots
+(``PipelineEngine.spec_verify_ngram_cb``, one CUDA graph per (K, sampler
+branch)) emits each slot's accepted prefix and correction token; a slot
+whose window is 0 rides along with a cap of 1 and emits its correction
+token only. Every verify and decode block plans its positions on the
+device from the slot offsets held there (``_dev_off``, moved by each
+round's counts and each block's steps); the drafts, the caps, the table
+rows and the host's offsets (taken whenever no round is in flight, so the
+host stays the authority) go up in one upload, the host reads ``(count,
+gs)`` once, and each slot's host offset follows its count at the harvest.
+A tick with no speculating slot runs the plain decode block. Async ticks
+under speculation (``auto`` resolves to them, as in JAX) dispatch round
+t+1 before harvesting round t: its proposals extend each slot's history
+with round t's drafts (a wrong guess costs acceptance, never exactness),
+and its positions come from the device, since the host's offsets lag a
+round in flight.
+
+Not yet ported, and refused at construction: KV spill and prefetch, the
+draft engine, the prefix store; tracing and metrics are not carried.
 """
 
 from __future__ import annotations
@@ -90,6 +111,7 @@ from mlx_sharding_tpu_torch.generate import (
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
 from mlx_sharding_tpu_torch.resilience import Deadlines, QueueFullError, RequestTimeoutError
+from mlx_sharding_tpu_torch.speculative import AcceptanceTracker, NgramDraftProposer
 from mlx_sharding_tpu_torch.sample import (
     BIAS_WIDTH,
     SamplerParams,
@@ -170,6 +192,21 @@ class _InflightBlock:
     want_lp: bool
 
 
+@dataclass
+class _InflightSpec:
+    """A dispatched speculative round: its ``(count, gs)`` on their way to
+    the host ((K + 1, M) int64: row 0 the counts, then the tokens), the
+    event that says they landed, the slots it ran for, and each slot's
+    policy window, cap and proposals."""
+
+    outs: torch.Tensor
+    event: Optional[torch.cuda.Event]
+    live: list
+    wins: dict
+    wcaps: np.ndarray
+    guess: dict  # slot -> the drafts it proposed, the next round's history guess
+
+
 class ContinuousBatcher:
     """Drives a :class:`PipelineEngine` (``microbatches=M``, paged) as an
     M-slot continuous-batching server backend. ``generate_step`` has the
@@ -186,7 +223,9 @@ class ContinuousBatcher:
     def __init__(self, engine, *, repetition_window: int = 64, decode_block: int = 8,
                  policy: str = "fifo", prefix_cache: bool = False, overcommit: bool = False,
                  draft_engine=None, spec_k: int = 4, draft: str = "auto",
-                 spec_window_max: Optional[int] = None, max_queue: Optional[int] = None,
+                 spec_window_max: Optional[int] = None,
+                 spec_clock: Optional[Callable[[], float]] = None,
+                 max_queue: Optional[int] = None,
                  async_sched: str = "auto", spill_bytes: Optional[int] = None,
                  spill_cold_after: Optional[int] = None, kv_prefetch: str = "auto",
                  prefix_store=None, cuda_graphs: bool = True,
@@ -199,13 +238,30 @@ class ContinuousBatcher:
             raise ValueError(f"async_sched must be 'on', 'off' or 'auto', got {async_sched!r}")
         if draft not in ("auto", "off", "ngram", "engine"):
             raise ValueError(f"draft must be 'auto', 'off', 'ngram' or 'engine', got {draft!r}")
+        # the draft MODE: 'auto' is engine iff a draft engine was handed in
+        spec_mode = draft
+        if spec_mode == "auto":
+            spec_mode = "engine" if draft_engine is not None else "off"
+        if spec_mode == "engine" and draft_engine is None:
+            raise ValueError("draft='engine' needs a draft engine (--draft-model)")
+        if spec_mode != "engine" and draft_engine is not None:
+            raise ValueError(f"a draft engine was given but draft={draft!r} — drop the draft "
+                             "engine or select draft='engine'/'auto'")
+        if spec_window_max is not None:
+            if (isinstance(spec_window_max, bool) or not isinstance(spec_window_max, int)
+                    or spec_window_max < 2):
+                raise ValueError(f"spec_window_max must be an int >= 2, got "
+                                 f"{spec_window_max!r}")
+            if spec_mode == "off":
+                raise ValueError("spec_window_max needs a draft mode — select --draft ngram or "
+                                 "--draft engine")
         if kv_prefetch not in ("on", "off", "auto"):
             raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
         # each names the ROADMAP queue 1 item that ports it
         unported = {
-            "draft_engine / draft / spec_k / spec_window_max (speculation)": (
-                draft_engine is not None or draft not in ("auto", "off") or spec_k != 4
-                or spec_window_max is not None, "slice 4"),
+            "draft_engine (speculation with a draft model)": (
+                draft_engine is not None,
+                "slice 3 item 6, the dense engine a draft engine runs on, then slice 4"),
             "spill_bytes / spill_cold_after / kv_prefetch (KV spill)": (
                 spill_bytes is not None or spill_cold_after is not None or kv_prefetch == "on",
                 "slice 3, item 4, after slice 7's kv_transfer.py"),
@@ -221,12 +277,16 @@ class ContinuousBatcher:
             raise ValueError("prefix_cache requires a paged engine (pool_pages): sharing "
                              "is page-granular")
         # async ticks: "auto" resolves as the JAX rule does; with no draft
-        # engine and one host, plain decode is a pure device-side chain
+        # engine and one host, plain decode and n-gram rounds are pure
+        # device-side chains
         self.async_sched = async_sched
         self._async = async_sched != "off"
         self.async_reason = (
             "async ticks: async_sched='on'" if async_sched == "on" else
             "sync ticks: async_sched='off'" if async_sched == "off" else
+            "async ticks: auto resolved to async — n-gram drafts are host-built (no draft "
+            "engine, no draft KV), so the speculative round chains pure device-side like a "
+            "plain decode block" if spec_mode == "ngram" else
             "async ticks: auto resolved to async — plain single-host decode is a pure "
             "device-side chain"
         )
@@ -237,16 +297,36 @@ class ContinuousBatcher:
         self.policy = policy
         self.overcommit = overcommit
         self.decode_block = max(1, decode_block)
+        # speculation: n-gram windows adapt per slot along the ladder up to
+        # spec_window_max (8 by default); spec_k belongs to a draft engine
+        self._spec_mode = spec_mode
+        self.spec_k = spec_k
+        if spec_mode == "ngram":
+            self.spec_tracker: Optional[AcceptanceTracker] = AcceptanceTracker(
+                self.M, w_max=spec_window_max or 8,
+                clock=clock if spec_clock is None else spec_clock)
+            self._w_max = self.spec_tracker.rungs[-1]
+            self._ngram: Optional[NgramDraftProposer] = NgramDraftProposer()
+        else:
+            self.spec_tracker, self._w_max, self._ngram = None, 0, None
         # overcommit growth covers the furthest write ahead of the host's
-        # emitted counts: one block, two when a block runs ahead of them
-        self._grow_ahead = (2 if self._async else 1) * self.decode_block
+        # emitted counts: a decode block or a T=K verify, twice that when a
+        # block runs ahead of them
+        self._grow_ahead = (2 if self._async else 1) * max(self.decode_block, self._w_max)
+        self.rounds = 0  # verify rounds x slots
+        self.accepted_tokens = 0  # tokens emitted by speculating slots
+        self.draft_tokens = 0  # proposal tokens offered to verifies
+        self.verify_ticks = 0  # ticks that ran a speculative round
+        # the slot offsets on the device, which every decode block and
+        # verify plans from and moves (the host's are taken whenever exact)
+        self._dev_off = torch.zeros(self.M, dtype=torch.int64, device=engine.device)
         self._waiting: list[_Request] = []
         self._submit: queue.Queue = queue.Queue()
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self._start_lock = threading.Lock()
         # the decode block dispatched and not yet harvested (async ticks)
-        self._inflight: Optional[_InflightBlock] = None
+        self._inflight = None  # an _InflightBlock or an _InflightSpec
         # deadlines and admission control: every deadline and Retry-After
         # reads this clock; the lock makes the queue bound's check-then-
         # enqueue atomic across HTTP threads and the counters exact
@@ -422,9 +502,11 @@ class ContinuousBatcher:
 
     def warm_up(self) -> dict:
         """Capture, before the first request and with every slot idle, the
-        prefill chunk of every offset below ``max_seq`` and the decode
-        blocks (greedy and sampled, with and without logprobs), into the
-        model's graph pool: their warm-ups write only the scratch page.
+        prefill chunk of every offset below ``max_seq``, the decode blocks
+        (greedy and sampled, with and without logprobs) and, under n-gram
+        speculation, the verify of every window of the ladder (greedy and
+        sampled), into the model's graph pool: their warm-ups write only
+        the scratch page.
         Returns the graphs captured, their capture seconds and the pool's
         bytes; ``{}`` without graphs. Call it before the scheduler thread
         starts."""
@@ -437,6 +519,9 @@ class ContinuousBatcher:
         for sampled in (False, True):
             for want_lp in (False, True):
                 self._run_block(want_lp, sampled)
+            for k in self.spec_tracker.rungs if self.spec_tracker is not None else ():
+                self._run_verify(k, np.zeros((k, self.M), np.int32),
+                                 np.ones(self.M, np.int32), sampled, exact=True)
         torch.cuda.synchronize(eng.device)
         return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
                 "pool_bytes": self.graphs.pool_bytes()}
@@ -485,6 +570,28 @@ class ContinuousBatcher:
             return None
         return (self.prefix_queries, self.prefix_hits, self.prefix_tokens_reused,
                 self.prefix_evictions, len(self._prefix_index))
+
+    def spec_stats(self) -> Optional[dict]:
+        """Speculation counters (JAX ``spec_stats``); None when the batcher
+        never speculates."""
+        if self._spec_mode == "off":
+            return None
+        out = {
+            "mode": self._spec_mode,
+            "window_max": self._w_max,
+            "rounds": self.rounds,
+            "draft_tokens": self.draft_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "accept_rate": self.accepted_tokens / max(1, self.draft_tokens),
+            # JAX's draft-engine fallback replays and spec.draft faults:
+            # neither happens without a draft engine and the fault harness
+            "fallback_ticks": 0,
+            "replayed_tokens": 0,
+            "draft_faults": 0,
+        }
+        if self.spec_tracker is not None:
+            out.update(self.spec_tracker.stats())
+        return out
 
     def close(self, timeout: float = 10.0):
         """Stop the scheduler thread; every stream still open ends."""
@@ -649,6 +756,10 @@ class ContinuousBatcher:
         self.cache.offsets[slot] = reused
         set_sampler_slot(self.sp, slot, req.sp)
         self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
+        if self.spec_tracker is not None:
+            # new stream in the slot: window back to the probe rung, no
+            # carried-over acceptance history from the previous occupant
+            self.spec_tracker.reset(slot)
         self._slots[slot] = req
         req.slot = slot
         req.prefill_pos = reused
@@ -775,7 +886,8 @@ class ContinuousBatcher:
     def _finish(self, req: _Request):
         if req.slot >= 0:
             inf = self._inflight
-            if inf is not None and any(s == req.slot and r is req for s, r in inf.live):
+            if isinstance(inf, _InflightBlock) and any(s == req.slot and r is req
+                                                       for s, r in inf.live):
                 # the lookahead block's dispatch moved the offset one block
                 # past the slot's end
                 rewind_slot_offset(self.cache, req.slot, self.decode_block)
@@ -878,11 +990,178 @@ class ContinuousBatcher:
                    if req is not None and self._prefill_done(req))
         return need <= len(self._free_pages) + self._evictable_pages()
 
+    # --------------------------------------------------------- speculation
+    def _spec_ok(self) -> bool:
+        """A tick can take the speculative round iff no decoding slot wants
+        logprob summaries (the verify does not compute them) and every
+        decoding slot has window-max rows of KV headroom: the verify writes
+        up to that many positions, and a write past the capacity would
+        fail on the card. Ticks that fail the check run a plain decode
+        block."""
+        k = (2 if self._async else 1) * self._w_max
+        for req in self._slots:
+            if req is None or not self._prefill_done(req):
+                continue
+            if req.want_logprobs:
+                return False
+            # history counts tokens since the last prompt fold, so prompt +
+            # history is the slot's true KV frontier even after a resume
+            if req.prompt.size + max(0, len(req.history) - 1) + k > self.engine.max_seq:
+                return False
+        return True
+
+    def _spec_plan(self, live):
+        """``(K, wins)``: the round's width (the widest live window) and
+        each live slot's window from its controller, or None when no slot
+        speculates (the tick runs a plain block)."""
+        wins = self.spec_tracker.effective_windows([slot for slot, _ in live])
+        k = max(wins.values(), default=0)
+        if k < 2:
+            return None
+        return k, wins
+
+    def _device_plan(self, inputs, steps: int):
+        """The plan of ``steps`` positions from the slot offsets: the
+        host's when ``inputs.reset`` says they are exact, else the device's
+        own. Returns the plan and the offsets it starts from."""
+        off = torch.where(inputs.reset.bool(), inputs.offsets.long(), self._dev_off)
+        return self.engine.device_plan(off, inputs, steps), off
+
+    def _verify_step(self, k: int, inputs, sampled: bool) -> torch.Tensor:
+        """One verify of every slot from ``last_tok``, planned on the
+        device, carries and the device offsets (by each slot's count)
+        updated in place; its ``(count, gs)`` as one (K + 1, M) tensor.
+        Device work only."""
+        plan, off = self._device_plan(inputs, k)
+        gs, count, nxt = self.engine.spec_verify_ngram_cb(k)(
+            self.last_tok, self.cache, plan, inputs.drafts, inputs.wcap, recent=self.recent,
+            generators=self.generators, sp=self.sp, rep_mask=self.rep_mask, sampled=sampled)
+        self.last_tok.copy_(nxt)
+        self._dev_off.copy_(off + count)
+        return torch.cat([count[None], gs])
+
+    def _run_verify(self, k: int, drafts: np.ndarray, wcaps: np.ndarray, sampled: bool, *,
+                    exact: bool) -> torch.Tensor:
+        """Upload the round's inputs in one copy (``exact``: no speculative
+        round is in flight, so the host's offsets are exact) and enqueue the
+        verify (a replay of the graph of (K, sampler branch) on the card);
+        its static output, nothing read back."""
+        inputs = self.engine.device_inputs(("verify", k), self.table, self.active,
+                                           self.cache.offsets, exact, drafts, wcaps)
+        step = functools.partial(self._verify_step, k, inputs, sampled)
+        if self.graphs is None:
+            return step()
+        return self.graphs.run(("verify", k, sampled), step,
+                               state=(self.last_tok, self.recent, self._dev_off),
+                               generators=self.generators if sampled else ())
+
+    def _dispatch_spec(self, prev=None) -> Optional[_InflightSpec]:
+        """Grow the pool under overcommit, then enqueue one speculative round
+        for every decoding slot: n-gram proposals up to each slot's window
+        and one T=K verify with per-slot caps. A slot whose window is 0
+        rides along with a cap of 1 and emits its correction token only.
+        ``prev``: the work in flight (async ticks), not yet harvested: the
+        host's history lags it, so a round in flight lends its drafts as the
+        history's guess, and the offsets come from the device. Returns the
+        round's handle without waiting, or None when no slot speculates
+        (the caller runs a plain block)."""
+        if self.overcommit:
+            self._grow_for_decode()
+        live = [(slot, req) for slot, req in enumerate(self._slots)
+                if req is not None and self._prefill_done(req)]
+        if not live:
+            return None
+        plan = self._spec_plan(live)
+        if plan is None:
+            return None
+        k, wins = plan
+        t0 = time.perf_counter()
+        prev_guess = prev.guess if isinstance(prev, _InflightSpec) else {}
+        wcaps = np.ones((self.M,), np.int32)
+        drafts = np.zeros((k, self.M), np.int32)
+        guess = {}
+        for slot, req in live:
+            w = wins.get(slot, 0)
+            if w < 2:
+                continue
+            toks = np.concatenate([req.prompt, np.asarray(req.history, np.int64),
+                                   prev_guess.get(slot, np.zeros(0, np.int64))])
+            d, n_valid = self._ngram.propose(toks, w)
+            drafts[:w, slot] = d
+            wcaps[slot] = min(w, max(1, n_valid))
+            guess[slot] = d[: wcaps[slot]]
+        sampled = any(req.sp.temperature > 0 for _, req in live)
+        outs = self._run_verify(k, drafts, wcaps, sampled,
+                               exact=not isinstance(prev, _InflightSpec))
+        event = None
+        if outs.is_cuda:
+            host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
+            host.copy_(outs, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            outs = host
+        self.verify_ticks += 1
+        self.decode_seconds += time.perf_counter() - t0
+        return _InflightSpec(outs=outs, event=event, live=live, wins=wins, wcaps=wcaps,
+                             guess=guess)
+
+    def _harvest_spec(self, inf: Optional[_InflightSpec]):
+        """Wait for a round's ``(count, gs)`` (its one read), move each
+        slot's host offset by its count, emit each slot's accepted prefix
+        and correction token, and train each speculating slot's window on
+        the verify's verdict."""
+        if inf is None:
+            return
+        t0 = time.perf_counter()
+        if inf.event is not None:
+            inf.event.synchronize()
+        blocked = time.perf_counter() - t0
+        self.tick_device_blocked_ms_last = blocked * 1000.0
+        self._tick_blocked_s_total += blocked
+        self._tick_count += 1
+        outs = inf.outs.numpy()
+        counts, gs = outs[0], outs[1:]
+        self.rounds += len(inf.live)
+        for slot, req in inf.live:
+            if req.slot == slot:
+                self.cache.offsets[slot] += int(counts[slot])
+        for slot, req in inf.live:
+            emitted = 0
+            for j in range(int(counts[slot])):
+                if req.slot != slot:
+                    break  # finished (max_tokens) earlier in this round
+                self._emit(req, int(gs[j, slot]), None)
+                emitted += 1
+            w = inf.wins.get(slot, 0)
+            if w >= 2:
+                # count what reached the consumer; a disabled slot's
+                # correction token is plain decode, not an acceptance
+                self.accepted_tokens += emitted
+                self.draft_tokens += int(inf.wcaps[slot])
+                if req.slot == slot:
+                    # train on the verify's verdict, not the truncated emission
+                    self.spec_tracker.observe(slot, w, int(counts[slot]))
+        self.decode_seconds += time.perf_counter() - t0
+
+    def _spec_tick(self) -> bool:
+        """Make this tick a speculative round if it can; False means the
+        caller runs a plain decode block (speculation off, gated by
+        :meth:`_spec_ok`, or no slot speculates this round)."""
+        if self._spec_mode == "off" or not self._spec_ok():
+            return False
+        inf = self._dispatch_spec()
+        if inf is None:
+            return False
+        self._harvest_spec(inf)
+        return True
+
     # -------------------------------------------------------------- decode
-    def _decode_steps(self, plan, want_lp: bool, sampled: bool) -> torch.Tensor:
-        """``decode_block`` steps over ``plan`` (the engine's persistent plan
-        of that many steps) from ``last_tok``, carries updated in place;
-        their stacked outputs. Device work only."""
+    def _decode_steps(self, inputs, want_lp: bool, sampled: bool) -> torch.Tensor:
+        """``decode_block`` steps from ``last_tok`` over a plan made on the
+        device from the slot offsets (:meth:`_device_plan`), carries and the
+        device offsets (by the block's steps for every active slot) updated
+        in place; their stacked outputs. Device work only."""
+        plan, off = self._device_plan(inputs, self.decode_block)
         eng, tok, outs = self.engine, self.last_tok, []
         for j in range(self.decode_block):
             tok, logprobs = eng.decode_cb(
@@ -896,34 +1175,39 @@ class ContinuousBatcher:
             else:
                 outs.append(tok)
         self.last_tok.copy_(tok)
+        self._dev_off.copy_(off + self.decode_block * inputs.active)
         return torch.stack(outs)
 
-    def _run_block(self, want_lp: bool, sampled: bool) -> torch.Tensor:
-        """Plan and enqueue one block (a replay on the card); its stacked
-        outputs (on the card, the graph's static outputs, which its next
-        replay overwrites), nothing read back.
+    def _run_block(self, want_lp: bool, sampled: bool, exact: bool = True) -> torch.Tensor:
+        """Upload the block's inputs and enqueue it (a replay on the card);
+        its stacked outputs (on the card, the graph's static outputs, which
+        its next replay overwrites), nothing read back. ``exact``: the
+        host's offsets are exact (no speculative round is in flight), so
+        the block takes them.
 
-        The plan goes into the persistent buffer that the block in flight
-        (async ticks) also reads: its upload is enqueued after that block's
-        replay on the same stream, so it cannot land before the block has
-        run. Keep every block, plan upload and prefill on one stream."""
+        The inputs go into the persistent buffer that the block in flight
+        (async ticks) also reads: their upload is enqueued after that
+        block's replay on the same stream, so it cannot land before the
+        block has run. Keep every block, upload and prefill on one
+        stream."""
         k = self.decode_block
-        plan = self.engine.decode_plan(self.cache, self.table, self.active, k)
-        step = functools.partial(self._decode_steps, plan, want_lp, sampled)
+        inputs = self.engine.device_inputs(("decode", k), self.table, self.active,
+                                           self.cache.offsets, exact)
+        step = functools.partial(self._decode_steps, inputs, want_lp, sampled)
         if self.graphs is None:
             return step()
         return self.graphs.run(("decode", k, want_lp, sampled), step,
-                               state=(self.last_tok, self.recent),
+                               state=(self.last_tok, self.recent, self._dev_off),
                                generators=self.generators if sampled else ())
 
-    def _dispatch_block(self) -> Optional[_InflightBlock]:
+    def _dispatch_block(self, prev=None) -> Optional[_InflightBlock]:
         """Grow the pool under overcommit, enqueue one decode block over
         every decoding slot, advance their host offsets, and start the copy
         of its outputs to pinned host memory with an event after it:
         nothing waits for the card here. The active set is frozen for the
         block (a slot that finishes mid-block keeps computing; its extra
         tokens land in its own pages or the scratch page and are dropped at
-        the harvest)."""
+        the harvest). ``prev``: the work in flight (async ticks)."""
         if self.overcommit:
             self._grow_for_decode()
         live = [(slot, req) for slot, req in enumerate(self._slots)
@@ -933,7 +1217,7 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         want_lp = any(req.want_logprobs for _, req in live)
         sampled = any(req.sp.temperature > 0 for _, req in live)
-        outs = self._run_block(want_lp, sampled)
+        outs = self._run_block(want_lp, sampled, exact=not isinstance(prev, _InflightSpec))
         event = None
         if outs.is_cuda:
             # copied before the next replay overwrites the static outputs
@@ -977,11 +1261,19 @@ class ContinuousBatcher:
                 self._emit(req, int(toks[j, slot]), lp)
         self.decode_seconds += time.perf_counter() - t0
 
+    def _harvest_any(self, inf):
+        """Harvest whichever work ``inf`` is: a decode block or, under
+        speculation, a round."""
+        if isinstance(inf, _InflightSpec):
+            self._harvest_spec(inf)
+        else:
+            self._harvest(inf)
+
     def _quiesce(self):
-        """Harvest the block in flight, if any, so that every consequence of
+        """Harvest the work in flight, if any, so that every consequence of
         it (tokens, finishes, freed pages, the carries) has landed."""
         inf, self._inflight = self._inflight, None
-        self._harvest(inf)
+        self._harvest_any(inf)
 
     # --------------------------------------------------------------- ticks
     def _drain_submissions(self, block: bool = False):
@@ -1020,22 +1312,24 @@ class ContinuousBatcher:
         self._admit_waiting()
 
     def _tick(self):
-        """Sync tick: reap, admit, prefill, then one decode block over every
-        decoding slot, dispatched and harvested."""
+        """Sync tick: reap, admit, prefill, then one speculative round
+        (:meth:`_spec_tick`) or one decode block over every decoding slot,
+        dispatched and harvested."""
         self._reap_cancelled()
         self._drain_submissions()
         self._admit_and_prefill()
         if self._decoding():
-            self._harvest(self._dispatch_block())
+            if not self._spec_tick():
+                self._harvest(self._dispatch_block())
         elif not any(self._slots):
             self._idle_wait()
 
     def _tick_async(self):
-        """Async tick: dispatch decode block t+1 before harvesting block t,
-        so the harvest waits only on a block that ran while the host did
-        the rest of its tick. Admission prefill (it samples on the host and
-        rewrites slot state), growth that could preempt (it reads sampler
-        state) and idling quiesce first."""
+        """Async tick: dispatch decode block (or speculative round) t+1
+        before harvesting block t, so the harvest waits only on work that
+        ran while the host did the rest of its tick. Admission prefill (it
+        samples on the host and rewrites slot state), growth that could
+        preempt (it reads sampler state) and idling quiesce first."""
         self._reap_cancelled()
         self._drain_submissions()
         if (self._waiting and None in self._slots) or self._prefilling():
@@ -1045,8 +1339,11 @@ class ContinuousBatcher:
             if not self._growth_fits():
                 self._quiesce()
             prev, self._inflight = self._inflight, None
-            self._inflight = self._dispatch_block()
-            self._harvest(prev)
+            nxt = None
+            if self._spec_mode == "ngram" and self._spec_ok():
+                nxt = self._dispatch_spec(prev)
+            self._inflight = nxt if nxt is not None else self._dispatch_block(prev)
+            self._harvest_any(prev)
         else:
             self._quiesce()  # a lookahead block of slots that have finished
             if not any(self._slots):

@@ -13,12 +13,15 @@ without the lock, with ``--prompt-cache`` shares prompt-prefix pages, with
 ``--max-queue`` bounds its queue (429 with ``Retry-After``) and enforces the
 deadlines (``--request-timeout`` and ``--ttft-timeout``, or the body's
 fields; 504). A single-stream generator gets the total deadline as a check
-between tokens. Fleet, replica, trace, metrics and static-UI serving come
-with later slices.
+between tokens. ``--draft ngram`` speculates by prompt lookup (single
+stream, or in the batcher's slots with ``--concurrent``), ``--draft-model``
+with a draft model (single stream). Fleet, replica, trace, metrics and
+static-UI serving come with later slices.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
         [--concurrent 8 --paged-pool 64 [--kv-dtype int8] [--prompt-cache]
          [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
+        [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ from mlx_sharding_tpu_torch.tokenizer_utils import (
 )
 
 logger = logging.getLogger(__name__)
+
+DRAFT_MODEL_BATCHED = ("--concurrent with --draft-model (a draft engine in the batcher's slots) "
+                       "is not yet ported (ROADMAP queue 1, slice 3 item 6): serve it on the "
+                       "single stream, or speculate in the slots with --draft ngram")
 
 
 def _encode_plain(tokenizer, text: str) -> list[int]:
@@ -87,18 +94,37 @@ class ModelProvider:
                         kv_dtype: Optional[str] = None, admission_policy: str = "fifo",
                         overcommit: bool = False, async_sched: str = "auto",
                         prompt_cache: bool = False, max_queue: Optional[int] = None,
+                        draft: str = "auto", draft_model: Optional[str] = None,
+                        spec_k: int = 4, spec_window_max: Optional[int] = None,
                         ) -> "ModelProvider":
         """A single-stream ``Generator``, or with ``concurrent > 1`` a
         ``ContinuousBatcher`` of that many slots over a pool of
         ``paged_pool`` KV pages (the JAX server's pp=1 paged engine), with
         ``overcommit`` admission, ``async_sched`` ticks, prefix sharing
-        (``prompt_cache``) and a queue bound (``max_queue``). On a card its
-        step graphs are captured here, before the first request."""
+        (``prompt_cache``) and a queue bound (``max_queue``). ``draft="ngram"``
+        speculates by prompt lookup (``NgramSpeculativeGenerator``, or the
+        batcher's n-gram mode), ``draft_model`` (a checkpoint directory)
+        with a draft model on the single stream (``SpeculativeGenerator``).
+        On a card its step graphs are captured here, before the first
+        request."""
         from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
         from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
+        if draft_model and concurrent > 1:
+            raise NotImplementedError(DRAFT_MODEL_BATCHED)
         model, _ = load_model(path, device=device, keep_quantized=keep_quantized)
-        if concurrent <= 1:
+        if concurrent <= 1 and draft == "ngram":
+            from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+            generator = NgramSpeculativeGenerator(model, spec_window_max=spec_window_max or 8,
+                                                  max_seq=max_seq, prefill_chunk=prefill_chunk)
+        elif concurrent <= 1 and draft_model:
+            from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+
+            dmodel, _ = load_model(draft_model, device=device)
+            generator = SpeculativeGenerator(model, dmodel, spec_k=spec_k, max_seq=max_seq,
+                                             prefill_chunk=prefill_chunk)
+        elif concurrent <= 1:
             generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk)
         else:
             from mlx_sharding_tpu_torch.parallel import PipelineEngine
@@ -112,7 +138,9 @@ class ModelProvider:
             generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
                                           policy=admission_policy, overcommit=overcommit,
                                           async_sched=async_sched, prefix_cache=prompt_cache,
-                                          max_queue=max_queue)
+                                          max_queue=max_queue,
+                                          draft="ngram" if draft == "ngram" else "off",
+                                          spec_window_max=spec_window_max)
         captured = generator.warm_up()  # on a card: the step graphs, before any request
         if captured:
             logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
@@ -602,8 +630,9 @@ def main(argv=None):
                         help="with --concurrent: async tick pipelining — dispatch decode "
                         "block t+1 before harvesting block t, overlapping host-side "
                         "emit/stop/admission work with device compute (token streams "
-                        "stay bit-identical to sync). 'auto' (default) enables it: "
-                        "the port has no draft engine and one host")
+                        "stay bit-identical to sync). 'auto' (default) enables it: with "
+                        "no draft engine, plain decode and --draft ngram rounds are pure "
+                        "device-side chains")
     parser.add_argument("--prompt-cache", action="store_true",
                         help="with --concurrent --paged-pool: content-addressed sharing of "
                         "prompt-prefix KV pages across requests (chat turns and system "
@@ -622,7 +651,45 @@ def main(argv=None):
                         help="with --concurrent: admission bound on queued requests; a full "
                         "queue rejects with 429 + Retry-After instead of growing without "
                         "limit under overload")
+    parser.add_argument("--draft-model", default=None,
+                        help="speculative decoding: a small draft model "
+                             "proposes --spec-k tokens per round (greedy "
+                             "token-exact, sampled distribution-exact). "
+                             "Single-stream generator path only.")
+    parser.add_argument("--spec-k", type=int, default=4,
+                        help="speculation window (with --draft-model)")
+    parser.add_argument("--draft", choices=("auto", "off", "ngram", "engine"),
+                        default="auto",
+                        help="speculative proposal source. 'ngram' drafts "
+                             "by prompt-lookup against the stream's own "
+                             "prompt+history — no second checkpoint, no "
+                             "draft KV, free to enable on every decode "
+                             "host; 'engine' uses --draft-model; 'auto' "
+                             "(default) keeps the legacy contract: engine "
+                             "iff --draft-model, else off")
+    parser.add_argument("--spec-window-max", type=int, default=None,
+                        help="per-slot ADAPTIVE speculation windows, "
+                             "resized each round on an acceptance EWMA "
+                             "over the ladder {0,2,4,8} capped here "
+                             "(losing slots disable and re-probe). Always "
+                             "on for --draft ngram (default cap 8); the "
+                             "draft-model path keeps fixed --spec-k rounds")
     args = parser.parse_args(argv)
+    if args.draft == "engine" and not args.draft_model:
+        parser.error("--draft engine needs --draft-model")
+    if args.draft_model and args.draft in ("off", "ngram"):
+        parser.error(f"--draft {args.draft} conflicts with --draft-model: "
+                     "drop one (--draft-model implies the engine proposer)")
+    if args.spec_window_max is not None:
+        if args.spec_window_max < 2:
+            parser.error("--spec-window-max must be >= 2")
+        if args.draft == "off" or (
+            args.draft == "auto" and not args.draft_model
+        ):
+            parser.error("--spec-window-max needs a speculating server: "
+                         "--draft ngram or --draft-model")
+    if args.draft_model and args.concurrent > 1:
+        parser.error(DRAFT_MODEL_BATCHED)
     if args.prompt_cache:
         if args.concurrent > 1 and not args.paged_pool:
             parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
@@ -674,6 +741,8 @@ def main(argv=None):
         paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
         admission_policy=args.admission_policy, overcommit=args.overcommit,
         async_sched=args.async_sched, prompt_cache=args.prompt_cache, max_queue=args.max_queue,
+        draft=args.draft, draft_model=args.draft_model, spec_k=args.spec_k,
+        spec_window_max=args.spec_window_max,
     )
     server = make_server(provider, args.host, args.port, request_timeout=args.request_timeout,
                          ttft_timeout=args.ttft_timeout)

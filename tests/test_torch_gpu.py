@@ -12,8 +12,8 @@ import threading
 import pytest
 import torch
 
-from chip_smoke import (REL_L2_TOL, graph_nodes, kernel_disagreement, pack_llama, paged_case,
-                        quant_operands)
+from chip_smoke import (FORCE_CYCLE, REL_L2_TOL, forced_passage, graph_nodes,
+                        kernel_disagreement, pack_llama, paged_case, quant_operands)
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import causal_attention
@@ -802,3 +802,82 @@ def test_batcher_prefill_graphs_async_and_overcommit_on_the_card(cuda):
         if name == "overcommit":
             assert b.preemptions >= 1 and b.reprefill_tokens > 0
     assert runs["sync"] == runs["async"] == runs["overcommit"] == alone
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_speculating_generators_on_the_card(cuda, packed):
+    """f32 weights, a 150-token prompt and one forced to the smoke's 8-byte
+    cycle, 48 tokens: the n-gram generator and the self-draft generator
+    give plain greedy decode's streams through their graphs and eagerly,
+    and interleaved, each over its own target; the self-draft accepts every token of the
+    unforced prompt (its draft proposes without the bias), the n-gram
+    generator whole windows of the cycle; after the warm-up the rounds are
+    replays only."""
+    from mlx_sharding_tpu_torch.speculative import (NgramSpeculativeGenerator,
+                                                    SpeculativeGenerator)
+
+    model = _tiny_model(cuda, packed)
+    prompt = (list(range(5, 35)) * 5)[:150]
+    # the forced 8-byte cycle: n-gram proposals match and are accepted whole
+    forced = list(forced_passage(200).encode())
+    plain = Generator(model, max_seq=512, prefill_chunk=128)
+    want = _stream(plain, prompt, max_tokens=48)
+    want_forced = _stream(plain, forced, max_tokens=48, **FORCE_CYCLE)
+    # two generators of one model, each over its own target, interleaved
+    pair = (NgramSpeculativeGenerator(model, max_seq=512, prefill_chunk=128),
+            SpeculativeGenerator(model, model, spec_k=4, max_seq=512, prefill_chunk=128))
+    for gen in pair + pair:
+        assert _stream(gen, prompt, max_tokens=48) == want
+    assert pair[1].accepted_tokens == 4 * pair[1].rounds > 0
+    for graphs in (False, True):
+        for gen in (NgramSpeculativeGenerator(model, max_seq=512, prefill_chunk=128,
+                                              cuda_graphs=graphs),
+                    SpeculativeGenerator(model, model, spec_k=4, max_seq=512, prefill_chunk=128,
+                                         cuda_graphs=graphs)):
+            gen.warm_up()
+            _stream(gen, forced, max_tokens=48, **FORCE_CYCLE)  # captures its window's keys
+            forwards = model.eager_forwards
+            before = (gen.rounds, gen.accepted_tokens)
+            assert _stream(gen, prompt, max_tokens=48) == want
+            rounds, accepted = gen.rounds - before[0], gen.accepted_tokens - before[1]
+            assert rounds > 0
+            if isinstance(gen, SpeculativeGenerator):
+                assert accepted == 4 * rounds  # a perfect draft
+            before = (gen.rounds, gen.round_tokens)
+            assert _stream(gen, forced, max_tokens=48, **FORCE_CYCLE) == want_forced
+            if isinstance(gen, NgramSpeculativeGenerator):  # whole windows of the cycle
+                assert gen.round_tokens - before[1] > 2 * (gen.rounds - before[0])
+            if graphs:
+                assert model.eager_forwards == forwards
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_batcher_ngram_on_the_card(cuda, kv_dtype):
+    """f32 weights, three slots over 128-token pages: n-gram speculation
+    through the verify graphs and the same steps eagerly give the same
+    greedy streams, and so does speculation off on the f32 pool; the
+    verify rounds replay only."""
+    model = _tiny_model(cuda)
+    gen = torch.Generator().manual_seed(4)
+    jobs = [((list(range(7, 27)) * 4)[:80], dict(max_tokens=30)),
+            (torch.randint(0, 256, (130,), generator=gen).tolist(), dict(max_tokens=20)),
+            ((list(range(40, 50)) * 20)[:200], dict(max_tokens=25))]
+    streams = {}
+    for name, kw in (("graphs", dict(draft="ngram")), ("eager", dict(draft="ngram",
+                                                                      cuda_graphs=False)),
+                     ("off", dict())):
+        engine = PipelineEngine(model, microbatches=3, max_seq=512, prefill_chunk=128,
+                                pool_pages=8, kv_dtype=None if kv_dtype == "f32" else "int8",
+                                device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=4, **kw)
+        batcher.warm_up()
+        forwards = engine.eager_forwards
+        streams[name] = _drive_threads(batcher, jobs)
+        if name != "off":
+            assert batcher.spec_stats()["accepted_tokens"] > 0 and batcher.verify_ticks > 0
+        if name == "graphs":
+            replays_before = batcher.graphs.replays
+            assert engine.eager_forwards == forwards and replays_before > 0
+    assert streams["graphs"] == streams["eager"]
+    if kv_dtype == "f32":  # an int8 verify attends its own rows unquantized
+        assert streams["graphs"] == streams["off"]

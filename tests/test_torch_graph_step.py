@@ -278,8 +278,9 @@ def test_paged_decode_step_is_the_same_program_at_every_position(tiny_models, kv
     logs = []
     for n in (5, 300):
         batcher.cache.offsets = [n, n]
-        plan = engine.decode_plan(batcher.cache, batcher.table, batcher.active, 1)
-        logs.append(_record(lambda: batcher._decode_steps(plan, True, True)))
+        inputs = engine.device_inputs(("decode", 1), batcher.table, batcher.active,
+                                      batcher.cache.offsets, True)
+        logs.append(_record(lambda: batcher._decode_steps(inputs, True, True)))
     _assert_replayable(*logs)
 
 
@@ -371,3 +372,74 @@ def test_prefill_step_is_the_same_program_for_any_slot_and_page(tiny_models, kv_
         logs.append(_record(lambda: engine.prefill_step(pc, 128)))
     _assert_replayable(*logs)
     assert any("index_copy" in op for op, _ in logs[0])  # the write at a device page
+
+
+# ------------------------------------------------------ speculative rounds
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kind", ["dense", "packed"])
+def test_single_stream_verify_step_is_the_same_program_at_every_position(tiny_models, kind,
+                                                                         sampled):
+    """The n-gram generator's T=4 verify (window cap 3) at positions 5 and
+    300: one (op, shapes) sequence with no host read; the device position
+    moves by the count, 1 to 3."""
+    from mlx_sharding_tpu_torch.device import upload_into
+    from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+    gen = NgramSpeculativeGenerator(tiny_models[0] if kind == "dense" else tiny_models[1],
+                                    max_seq=512, prefill_chunk=128)
+    t = gen.target
+    rng = np.random.default_rng(5)
+    logs = []
+    for n in (5, 300):
+        t.run_prefill(rng.integers(0, 256, size=(1, n)))
+        t._window(REPETITION_WINDOW)
+        upload_into(gen._inputs, np.asarray([3, 7, 8, 9, 10], np.int64))
+        logs.append(_record(lambda: gen._verify_step(4, REPETITION_WINDOW, sampled)))
+        assert n + 1 <= int(t.cache.pos) <= n + 3
+    _assert_replayable(*logs)
+    assert any("index_copy" in op for op, _ in logs[0])  # the K rows at the device position
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_draft_steps_are_the_same_program_at_every_position(tiny_models, sampled):
+    """The draft model's K = 4 steps (a self-draft) at positions 5 and 300:
+    one sequence, no host read; the draft's position moves by 4."""
+    from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+
+    gen = SpeculativeGenerator(tiny_models[0], tiny_models[0], spec_k=4, max_seq=512,
+                               prefill_chunk=128)
+    gen._qlps = torch.zeros((4, 1, TINY["vocab_size"]))
+    d = gen.draft
+    rng = np.random.default_rng(6)
+    logs = []
+    for n in (5, 300):
+        d.run_prefill(rng.integers(0, 256, size=(1, n)))
+        gen.target._window(REPETITION_WINDOW)
+        logs.append(_record(lambda: gen._draft_step(4, REPETITION_WINDOW, sampled)))
+        assert int(d.cache.pos) == n + 4
+    _assert_replayable(*logs)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["f32-pool", "int8-pool"])
+def test_paged_verify_step_is_the_same_program_at_every_position(tiny_models, kv_dtype):
+    """The batcher's T=4 verify of two slots at offsets 5, 126 (its rows
+    straddle a page) and 300: one sequence, no host read (the table rows,
+    offsets, drafts and caps come from the engine's persistent buffer, the
+    plan is made on the device)."""
+    engine = PipelineEngine(tiny_models[0], microbatches=2, max_seq=512, prefill_chunk=128,
+                            pool_pages=8, kv_dtype=kv_dtype, device="cpu")
+    batcher = ContinuousBatcher(engine, decode_block=1, draft="ngram")
+    batcher.table[0, :4] = np.arange(4)
+    batcher.table[1, :4] = np.arange(4, 8)
+    batcher.active = [True, True]
+    drafts = np.asarray([[3, 4], [5, 6], [7, 8], [9, 10]], np.int32)
+    logs = []
+    for n in (5, 126, 300):
+        batcher.cache.offsets = [n, n + 1]
+        inputs = engine.device_inputs(("verify", 4), batcher.table, batcher.active,
+                                      batcher.cache.offsets, True, drafts,
+                                      np.asarray([4, 2], np.int32))
+        logs.append(_record(lambda: batcher._verify_step(4, inputs, True)))
+        assert n + 1 <= int(batcher._dev_off[0]) <= n + 4  # moved by the count
+    for log in logs[1:]:
+        _assert_replayable(logs[0], log)

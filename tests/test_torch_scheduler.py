@@ -229,9 +229,10 @@ def test_close_ends_every_stream(models):
     # async ticks and overcommit are ported; their two cases now hold the
     # cold-slot spill and a draft engine, which still raise. Prefix sharing
     # and the queue bound are ported too (tests/test_torch_prefix_cache.py,
-    # tests/test_torch_deadlines.py)
+    # tests/test_torch_deadlines.py), and so are n-gram speculation and a
+    # spec_k without a draft engine (tests/test_torch_spec_batcher.py)
     dict(spill_cold_after=4), dict(draft_engine=object()),
-    dict(draft="ngram"), dict(spec_k=2), dict(spill_bytes=1 << 20), dict(kv_prefetch="on"),
+    dict(spill_bytes=1 << 20), dict(kv_prefetch="on"),
     dict(prefix_store=object()),
 ])
 def test_unported_batcher_options_raise(models, kw):
