@@ -29,7 +29,14 @@ final line:
    cache seen as pages) at the 8B shapes at positions 0, 600 and 4095 with
    one and two rows, and in f32: two runs bit-identical, one captured call
    one kernel node, and a call captured at 600 and replayed at 4095 equal
-   to the call at 4095;
+   to the call at 4095; then the model families' variants
+   (``phase_family_kernels``): kernel 1 and its T=1 route at Gemma-2-9B's
+   shapes with softcap 50 and windows 4096, 1000 and 100, chunk offsets 0,
+   3840 and 4352 and positions below, at and past the window (and f32);
+   kernel 2 with the same options over bf16 and int8 pools at lengths
+   below, at and past each window and 0 (and the FMA kernel); the
+   routed-expert GEMV at Mixtral's shapes, N = 1, 8 and 16, K = 2, every
+   pair on one expert too, bit for bit on integer operands;
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
    kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
@@ -45,7 +52,8 @@ final line:
    the T=1 route at positions 600, 700 and 4095 against its plain version,
    ``masked_attention`` over the whole capacity (the plain path the
    captured decode step takes with the route off) and SDPA over the
-   prefix with ``enable_gqa``;
+   prefix with ``enable_gqa``; the families' variants at their served
+   shapes (``phase_family_timing``);
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here. The Generator captures its CUDA
@@ -61,8 +69,8 @@ final line:
    ``Generator.run_prefill`` calls of the 600-token prompt after a warm-up;
    the dense T=1 attention's device time over the whole capacity (what the
    captured step runs) against the prefix alone, outputs within the bf16
-   limits. Then where the time goes, eager against graph, in the order eager,
-   graph, graph, eager in this process: the prefill median, a greedy
+   limits. Then where the time goes, eager against graph, in the order graph,
+   eager, graph in this process (one eager turn): the prefill median, a greedy
    64-token stream's decode tok/s, and for one decode step and one
    256-token prefill chunk the host ms, wall ms, device ms (torch.profiler)
    and busy share, and the kernels by device time; the streams and a
@@ -128,6 +136,20 @@ final line:
    (sync and async ticks) token-identical to plain greedy decode, the
    self-draft accepting every token; then the self-draft at full depth
    (32 layers, f32) accepting every token.
+8. the model families (``phase_families``, after 5, the Llama model
+   freed): the published Qwen3-8B and Gemma-2-9B (bf16) and Mixtral-8x7B
+   (packed on the card at 4 bits, group 64, router dense) configs at full
+   width and depth, random weights from ``--seed``, one at a time: the
+   Generator's graphs behind the server (a 600-token prompt, Gemma-2's
+   4,400 tokens past its window, 64 forced tokens: TTFT, decode tok/s,
+   every route's launches against the chunks and steps, no eager forward,
+   a decode step's device ms); the paged batcher (4 slots, async ticks,
+   four streamed requests and the Generator's greedy prompt, whose stream
+   may leave the Generator's only at a near-tie); then f32 at 2 layers of
+   the same widths: the Generator and the batcher token-identical for 32
+   tokens, the prefill's last-position logits against a forward whose
+   kernel entry points this process swaps for their plain versions.
+   A ``[time]`` lap per family.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -273,6 +295,9 @@ GREEDY_TOKENS = 96
 PARITY_PROMPTS = (200, 230, 480, 700, 1000, 450)
 PARITY_TOKENS = 128
 PARITY_MAX_SEQ = 1280
+# the eager pass of those runs: the first three greedy requests, 48 tokens
+PARITY_EAGER_JOBS = 3
+PARITY_EAGER_TOKENS = 48
 # prefix sharing's parity run: four prompts of a shared 512-token prefix (two
 # pages) and their own 100 tokens
 PREFIX_TOKENS = 512
@@ -490,10 +515,10 @@ def build_kernels() -> None:
         for line in build_log.splitlines():
             if any(k in line for k in ("registers", "smem", "spill", "cached", "Compiling")):
                 log(f"[kernels]   ptxas: {line.strip()}")
-    for dk, dv in FLASH_DIMS:
-        info = fa.kernel_info(dk, dv)
-        log(f"[kernels] flash bf16 Dk={dk} Dv={dv}: shared memory per block "
-            f"{info['shared_bytes']} bytes, {info['registers']} registers, "
+    for (dk, dv), options in [*((d, False) for d in FLASH_DIMS), ((256, 256), True)]:
+        info = fa.kernel_info(dk, dv, options)
+        log(f"[kernels] flash bf16 Dk={dk} Dv={dv}{' with softcap and window' if options else ''}: "
+            f"shared memory per block {info['shared_bytes']} bytes, {info['registers']} registers, "
             f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local (spill) "
             f"bytes per thread")
     for bits in qm.BITS:
@@ -1710,7 +1735,7 @@ def stream_tokens(gen, prompt: list, **kw) -> tuple:
 
 def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
     """Where the time goes, eager against graph, in one process, in the
-    order eager, graph, graph, eager: ``gen`` (the served Generator, its
+    order graph, eager, graph (one eager turn): ``gen`` (the served Generator, its
     graphs captured) and a Generator of the same model that runs the same
     steps eagerly. Each turn: the ``run_prefill`` median of the prompt, one
     greedy 64-token stream (its decode tok/s), one decode step (blocks of
@@ -1726,7 +1751,7 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
     ids = prompt[0].tolist()
     seeded = dict(max_tokens=24, temperature=0.8, top_p=0.9, seed=1234)
     rows, streams = [], {}
-    for mode in ("eager", "graph", "graph", "eager"):
+    for mode in ("graph", "eager", "graph"):
         g = gens[mode]
         row = {"mode": mode}
         row["prefill_ms"], _ = prefill_median_ms(lambda g=g: g.run_prefill(prompt), runs=3)
@@ -2176,16 +2201,23 @@ def batcher_parity(model, kv_dtype: str, tag: str) -> None:
                                 kv_dtype=kv_dtype, device=model.device)
         batcher = ContinuousBatcher(engine, decode_block=8, **kw)
         batcher.warm_up()
-        items, reqs = serve_on_this_thread(batcher, jobs)
+        # the eager pass serves the first PARITY_EAGER_JOBS greedy requests
+        # for PARITY_EAGER_TOKENS tokens: a slot's tokens do not depend on
+        # the others', and the step shapes are the M slots' whatever runs
+        eager = name == "eager"
+        run_jobs = ([(p, dict(max_tokens=PARITY_EAGER_TOKENS)) for p, _ in jobs[:PARITY_EAGER_JOBS]]
+                    if eager else jobs)
+        items, reqs = serve_on_this_thread(batcher, run_jobs)
         streams = [[t for t, _ in s] for s in items]
-        check(all(len(s) == PARITY_TOKENS for s in streams),
+        check(all(len(s) == kw_["max_tokens"] for s, (_, kw_) in zip(streams, run_jobs)),
               f"{tag} parity run ({name}): a request did not finish")
         runs[name] = (streams, [r.preempted_at for r in reqs])
         tick_line(f"{tag} parity run ({name})", batcher)
         batcher.close()
         del batcher, engine
-    check(runs["graphs"][0] == runs["eager"][0], f"{tag} the batcher's prefill and decode graphs "
-          "and its eager steps give other tokens")
+    check([s[:PARITY_EAGER_TOKENS] for s in runs["graphs"][0][:PARITY_EAGER_JOBS]]
+          == runs["eager"][0], f"{tag} the batcher's prefill and decode graphs and its eager "
+          "steps give other tokens")
     check(runs["sync"][0] == runs["graphs"][0], f"{tag} async and sync ticks give other tokens")
     reserve, (oc, preempted) = runs["graphs"][0], runs["overcommit"]
     check(any(preempted), f"{tag} the overcommit parity run preempted nothing")
@@ -2199,8 +2231,9 @@ def batcher_parity(model, kv_dtype: str, tag: str) -> None:
             check(same == len(want), f"{tag} request {i}, never preempted, diverged under "
                   "overcommit")
     log(f"{tag} five greedy requests and a seeded top-p one, {PARITY_TOKENS} tokens each: "
-        "token-identical through the graphs and the eager steps, through async and sync ticks, "
-        "and under overcommit for every request not preempted")
+        f"token-identical through async and sync ticks, and under overcommit for every request "
+        f"not preempted; the first {PARITY_EAGER_JOBS} for {PARITY_EAGER_TOKENS} tokens through "
+        "the graphs and the eager steps")
 
 
 def pack_llama(dense, config: dict, group_size=GROUP_SIZE, bits=BITS, param_dtype=torch.float16):
@@ -2826,6 +2859,786 @@ def phase_spec_f32(seed: int) -> dict:
 
 
 # ------------------------------------------------------------------ main
+
+# ------------------------------------------------ the families' kernel paths
+# Gemma-2-9B's attention (google/gemma-2-9b config.json): 16 query heads over
+# 8 KV heads of 256, window 4096 on even layers, attention softcap 50
+GEMMA_HEADS = (16, 8, 256)
+GEMMA_WINDOW = 4096
+GEMMA_CAP = 50.0
+GEMMA_MAX_SEQ = 8192
+# kernel 1's checks: windows and chunk offsets (a chunk before the window
+# cuts, one that straddles it, one past it); the T=1 route's positions
+FLASH_WINDOWS = (4096, 1000, 100)
+FLASH_OFFSETS = (0, 3840, 4352)
+FAMILY_DECODE_POSITIONS = (0, 100, 4095, 4096, 4400, 8191)
+# kernel 2's: lengths below, at and past each window, and 0
+FAMILY_PAGED_LENGTHS = (0, 1, 100, 101, 999, 1000, 1001, 4095, 4096, 4097, 6000, 8192)
+# Mixtral-8x7B's experts (mistralai/Mixtral-8x7B-v0.1): 8 experts, top 2,
+# gate/up (14336 x 4096) and down (4096 x 14336)
+MIXTRAL_EXPERTS = 8
+MIXTRAL_TOP_K = 2
+EXPERT_SHAPES = (("gate/up", 14336, 4096), ("down", 4096, 14336))
+EXPERT_TOKENS = (1, 8, 16)
+# q is scaled so that scores spread over a few units and a cap of 50 (or
+# 5) bends them
+SCORE_SPREAD = 4.0
+
+
+def windowed_attention_work(q, k, v, offset, window):
+    """FLOPs and bytes of a causal prefill chunk with a sliding window: row
+    i sees min(offset + i + 1, window) keys; the K/V rows of [first, end)
+    are read once (first: the first row's window start)."""
+    b, t, hq, dk = q.shape
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    keys = sum(min(s, offset + i + 1) - max(0, offset + i + 1 - window if window else 0)
+               for i in range(t))
+    first = max(0, offset + 1 - window) if window else 0
+    rows = min(s, offset + t) - first
+    el = q.element_size()
+    return (2 * b * hq * (dk + dv) * keys,
+            el * (b * t * hq * (dk + dv) + b * rows * hkv * (dk + dv)))
+
+
+def family_check(label, got, ref, live=None) -> float:
+    """One kernel call against its plain version; returns max |error|."""
+    torch.cuda.synchronize()
+    if live is not None:
+        empty_zero = bool((got[~live] == 0).all())
+        check(empty_zero, f"{label}: an empty slot is not zeros")
+        got, ref = got[live], ref[live]
+    err, worst, rel_l2 = kernel_disagreement(got, ref)
+    log(f"[kernels] {label}: max_abs_err {err:.3e}, rms(ref) "
+        f"{ref.float().pow(2).mean().sqrt().item():.3e}, worst err/limit {worst:.3f} (tol 1), "
+        f"relative L2 {rel_l2:.3e} (tol {REL_L2_TOL})")
+    check(worst <= 1 and rel_l2 <= REL_L2_TOL, f"{label} disagrees with its plain version")
+    return err
+
+
+def expert_stack(gen, experts, out_dim, in_dim, integer, param_dtype=torch.float16):
+    """A packed (E, OUT, IN/8) 4-bit stack on the card, drawn expert by
+    expert (``quant_operands``' recipe: random codes with scale 1 and bias
+    -8, or a random N(0, 1/IN) weight packed)."""
+    parts = [quant_operands(gen, 1, out_dim, in_dim, integer=integer,
+                            param_dtype=param_dtype)[1:] for _ in range(experts)]
+    return tuple(torch.stack([p[i] for p in parts]) for i in range(3))
+
+
+def expert_inputs(gen, n, in_dim, integer, per_pair=False, one_expert=None):
+    """x (N, IN) or (N, K, IN), bf16, and the (N, K) int32 routed ids:
+    random distinct experts per token, or every pair on ``one_expert``."""
+    shape = (n, MIXTRAL_TOP_K, in_dim) if per_pair else (n, in_dim)
+    if integer:
+        x = torch.randint(-4, 4, shape, generator=gen, device="cuda").to(torch.bfloat16)
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    if one_expert is not None:
+        idx = torch.full((n, MIXTRAL_TOP_K), one_expert, dtype=torch.int32, device="cuda")
+    else:
+        idx = torch.stack([torch.randperm(MIXTRAL_EXPERTS, generator=gen, device="cuda")
+                           [:MIXTRAL_TOP_K] for _ in range(n)]).to(torch.int32)
+    return x, idx
+
+
+def phase_family_kernels(seed: int) -> dict:
+    """The kernels' paths of Qwen3, Gemma-2 and Mixtral against their plain
+    versions on the card. Kernel 1 at Gemma-2-9B's shapes (Hq 16, Hkv 8,
+    D 256, T 256 over an 8192-row cache): softcap 50 with windows 4096, 1000
+    and 100 at chunk offsets 0, 3840 and 4352, the walk as planned, in
+    chunks of 512 keys and whole; a cap of 5 and a window of 1; the f32
+    kernel. The T=1 route at positions below, at and past the window. Kernel
+    2 at the same heads over 256-row pages, bf16 and int8 pools, lengths
+    below, at and past each window and 0, the walk as planned, in 64s and
+    whole; the FMA kernel (f32). ``quant_gemv_experts`` at Mixtral's
+    gate/up and down shapes, N = 1, 8 and 16, K = 2, routed ids random and
+    every pair on one expert, bit for bit on integer-valued operands and
+    within limits on random bf16. Returns the largest error of each."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    hq, hkv, d = GEMMA_HEADS
+    scale = 256 ** -0.5
+    errs = {"flash": 0.0, "decode": 0.0, "paged": 0.0, "experts": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    q, k, v = attention_inputs(gen, 1, CHUNK, GEMMA_MAX_SEQ, hq, hkv, d, d, bf16)
+    q = q * SCORE_SPREAD
+    cases = [(off, w, GEMMA_CAP, None) for w in FLASH_WINDOWS for off in FLASH_OFFSETS]
+    cases += [(4352, None, GEMMA_CAP, None), (4352, 1000, GEMMA_CAP, 512),
+              (4352, 1000, GEMMA_CAP, 0), (3840, 4096, GEMMA_CAP, 1024), (3840, 1, 5.0, None),
+              (4352, 100, 5.0, 0)]
+    default = fa.SPLIT_KEYS
+    try:
+        for off, window, cap, split in cases:
+            fa.SPLIT_KEYS = split
+            got = fa.flash_attention(q, k, v, off, scale, logit_softcap=cap,
+                                     sliding_window=window)
+            ref = fa.flash_attention_reference(q, k, v, off, scale, logit_softcap=cap,
+                                               sliding_window=window)
+            walk = "planned" if split is None else f"split {split}"
+            errs["flash"] = max(errs["flash"], family_check(
+                f"flash_attention Gemma-2 shapes T={CHUNK} offset {off} softcap {cap} window "
+                f"{window} bf16, walk {walk}", got, ref))
+    finally:
+        fa.SPLIT_KEYS = default
+    qf, kf, vf = attention_inputs(gen, 2, 128, 512, 4, 2, 64, 64, f32)
+    for off, window in ((0, 50), (256, 100), (384, 1)):
+        got = fa.flash_attention(qf * SCORE_SPREAD, kf, vf, off, 0.125, logit_softcap=5.0,
+                                 sliding_window=window)
+        ref = fa.flash_attention_reference(qf * SCORE_SPREAD, kf, vf, off, 0.125,
+                                           logit_softcap=5.0, sliding_window=window)
+        family_check(f"flash_attention f32 B=2 T=128 Hq=4 Hkv=2 D=64 offset {off} softcap 5 "
+                     f"window {window}", got, ref)
+
+    # the T=1 route over the dense cache's paged view
+    qd = (torch.randn((1, 1, hq, d), generator=gen, device="cuda") * SCORE_SPREAD).to(bf16)
+    for position in FAMILY_DECODE_POSITIONS:
+        pos = torch.tensor([position], dtype=torch.int64, device="cuda")
+        lengths = decode_lengths(pos, 1, GEMMA_MAX_SEQ)
+        for window in (GEMMA_WINDOW, None):
+            got = fa.flash_decode(qd, k, v, pos, scale, lengths=lengths,
+                                  logit_softcap=GEMMA_CAP, sliding_window=window)
+            ref = fa.flash_decode_reference(qd, k, v, lengths, scale, logit_softcap=GEMMA_CAP,
+                                            sliding_window=window)
+            errs["decode"] = max(errs["decode"], family_check(
+                f"flash_decode Gemma-2 shapes S={GEMMA_MAX_SEQ} position {position} softcap "
+                f"{GEMMA_CAP} window {window}", got, ref))
+    del q, k, v, qd
+
+    # kernel 2 over the pool
+    for pool_dtype in (bf16, torch.int8):
+        qp, kp, vp, ks, vs, tables, lens = paged_case(
+            gen, FAMILY_PAGED_LENGTHS, hq, hkv, d, PAGE, GEMMA_MAX_SEQ // PAGE, pool_dtype, bf16)
+        qp = qp * SCORE_SPREAD
+        live = lens > 0
+        for window in FLASH_WINDOWS:
+            ref = pa.paged_attention_reference(qp, kp, vp, tables, lens, scale,
+                                               logit_softcap=GEMMA_CAP, sliding_window=window,
+                                               k_scale=ks, v_scale=vs)
+            for split in (None, 64, 0):
+                default = pa.SPLIT_POSITIONS
+                pa.SPLIT_POSITIONS = split
+                try:
+                    got = pa.paged_attention(qp, kp, vp, tables, lens, scale,
+                                             logit_softcap=GEMMA_CAP, sliding_window=window,
+                                             k_scale=ks, v_scale=vs)
+                finally:
+                    pa.SPLIT_POSITIONS = default
+                walk = "planned" if split is None else f"split {split}"
+                errs["paged"] = max(errs["paged"], family_check(
+                    f"paged_attention Gemma-2 shapes M={len(FAMILY_PAGED_LENGTHS)} "
+                    f"{str(pool_dtype)[6:]} pool softcap {GEMMA_CAP} window {window}, walk {walk}",
+                    got, ref, live))
+        del qp, kp, vp, ks, vs
+    qp, kp, vp, ks, vs, tables, lens = paged_case(gen, (0, 5, 70, 130, 200), 4, 2, 64, 16, 16,
+                                                  f32, f32)
+    got = pa.paged_attention(qp * SCORE_SPREAD, kp, vp, tables, lens, 0.125, logit_softcap=5.0,
+                             sliding_window=64)
+    ref = pa.paged_attention_reference(qp * SCORE_SPREAD, kp, vp, tables, lens, 0.125,
+                                       logit_softcap=5.0, sliding_window=64)
+    family_check("paged_attention FMA kernel (f32) M=5 page 16 softcap 5 window 64", got, ref,
+                 lens > 0)
+
+    # the routed-expert GEMV
+    for name, out_dim, in_dim in EXPERT_SHAPES:
+        per_pair = name == "down"
+        for integer in (True, False):
+            stack = expert_stack(gen, MIXTRAL_EXPERTS, out_dim, in_dim, integer)
+            for n in EXPERT_TOKENS:
+                for one in (None, 5):
+                    x, idx = expert_inputs(gen, n, in_dim, integer, per_pair, one)
+                    got = qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS)
+                    ref = qm.quant_gemv_experts_reference(x, idx, *stack, GROUP_SIZE, BITS)
+                    label = (f"quant_gemv_experts {name} OUT={out_dim} IN={in_dim} N={n} "
+                             f"K={MIXTRAL_TOP_K} {'every pair on expert 5' if one else 'routed'}")
+                    if integer:
+                        torch.cuda.synchronize()
+                        same = torch.equal(got, ref)
+                        log(f"[kernels] {label} integer-valued: bit-exact {same}")
+                        check(same, f"{label} differs from its plain version on exact operands")
+                    else:
+                        errs["experts"] = max(errs["experts"], family_check(label, got, ref))
+            del stack
+    runs = []
+    stack = expert_stack(gen, MIXTRAL_EXPERTS, 4096, 14336, False)
+    x, idx = expert_inputs(gen, 4, 14336, False, per_pair=True)
+    runs = [qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS) for _ in range(2)]
+    nodes = graph_nodes(lambda: qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS))
+    torch.cuda.synchronize()
+    log(f"[kernels] quant_gemv_experts: two runs bit-identical {torch.equal(*runs)}; one call "
+        f"enqueues {nodes}")
+    check(torch.equal(*runs), "quant_gemv_experts: two runs differ")
+    check(nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0},
+          "quant_gemv_experts: one call is not one kernel launch")
+    return errs
+
+
+
+def sdpa_window_call(q, k, v, offset, scale, window):
+    """SDPA over the keys a chunk's rows see with a sliding window (the
+    rows of [first, end), the band mask), ``enable_gqa``: a floor only, as
+    SDPA takes no logit softcap, so it is not the same function. Timed
+    here only; the port never calls it."""
+    t = q.shape[1]
+    first = max(0, offset + 1 - window) if window else 0
+    end = min(k.shape[1], offset + t)
+    q_pos = offset + torch.arange(t, device=q.device)[:, None]
+    keys = torch.arange(first, end, device=q.device)[None, :]
+    mask = (keys <= q_pos) & ((keys > q_pos - window) if window else True)
+    qt, kt, vt = q.transpose(1, 2), k[:, first:end].transpose(1, 2), v[:, first:end].transpose(1, 2)
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True).transpose(1, 2)
+
+    return call
+
+
+def timing_row(label, kern, plain, flops, nbytes, dtype, library=None, floor=None, **extra):
+    """One variant's times beside its bound; logs the line."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    lib = "null (no PyTorch call computes it)" if library is None else f"{library:.4f} ms"
+    flo = "" if floor is None else f", SDPA without the softcap (a floor, not the function) {floor:.4f} ms"
+    log(f"[timing] {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms, library {lib}{flo}, "
+        f"bound {bound:.4f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}; "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), {bound / kern:.1%} of the bound")
+    return dict(ms=kern, plain_ms=plain, library_ms=library, floor_ms=floor, bound_ms=bound,
+                ops_ms=ops_ms, bytes_ms=bytes_ms, **extra)
+
+
+def phase_family_timing(seed: int) -> dict:
+    """Device times of the new variants at the shapes the families' served
+    runs give them, beside bound, plain version and library call: kernel 1
+    at Gemma-2-9B's shapes, the 4,400-token prompt's last chunk (offset
+    4352) with softcap 50 and window 4096 (even layers) and without the
+    window (odd); the T=1 route at position 4400, both ways; kernel 2 over
+    the Gemma-2 batcher's four slots (bf16 and int8 pools), both ways; the
+    routed-expert GEMV at Mixtral's shapes, N = 1 (the Generator), 4 (the
+    batcher's slots) and 16 (the gather path's largest), K = 2, with
+    ``_weight_int4pack_mm`` on one expert, times K, as its library call."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    hq, hkv, d = GEMMA_HEADS
+    scale = d ** -0.5
+    bf16 = torch.bfloat16
+    rows = {"flash": [], "decode": [], "paged": [], "experts": []}
+    q, k, v = attention_inputs(gen, 1, CHUNK, GEMMA_MAX_SEQ, hq, hkv, d, d, bf16)
+    off = GEMMA_PROMPT // CHUNK * CHUNK
+    for window in (GEMMA_WINDOW, None):
+        opts = dict(logit_softcap=GEMMA_CAP, sliding_window=window)
+        kern = time_ms(lambda: fa.flash_attention(q, k, v, off, scale, **opts))
+        plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, off, scale, **opts))
+        floor = time_ms(sdpa_window_call(q, k, v, off, scale, window))
+        flops, nbytes = windowed_attention_work(q, k, v, off, window)
+        rows["flash"].append(timing_row(
+            f"flash_attention Gemma-2 shapes T={CHUNK} offset {off} softcap {GEMMA_CAP} window "
+            f"{window} bf16 (walk split {fa.plan_split(1, CHUNK, GEMMA_MAX_SEQ, hq, hkv, off, 132, window) or 'whole'})",
+            kern, plain, flops, nbytes, bf16, floor=floor, window=window))
+    qd = torch.randn((1, 1, hq, d), generator=gen, device="cuda").to(bf16)
+    position = GEMMA_PROMPT
+    pos = torch.tensor([position], dtype=torch.int64, device="cuda")
+    lengths = decode_lengths(pos, 1, GEMMA_MAX_SEQ)
+    for window in (GEMMA_WINDOW, None):
+        opts = dict(logit_softcap=GEMMA_CAP, sliding_window=window)
+        kern = time_ms(lambda: fa.flash_decode(qd, k, v, pos, scale, lengths=lengths, **opts))
+        plain = time_ms(lambda: fa.flash_decode_reference(qd, k, v, lengths, scale, **opts))
+        floor = time_ms(sdpa_window_call(qd, k, v, position, scale, window))
+        flops, nbytes = windowed_attention_work(qd, k, v, position, window)
+        rows["decode"].append(timing_row(
+            f"flash_decode Gemma-2 shapes S={GEMMA_MAX_SEQ} position {position} softcap "
+            f"{GEMMA_CAP} window {window}", kern, plain, flops, nbytes, bf16, floor=floor,
+            window=window))
+    del q, k, v
+    lens_host = tuple(n + 1 for n in GEMMA_BATCH_PROMPTS)
+    for pool_dtype in (bf16, torch.int8):
+        qp, kp, vp, ks, vs, tables, lens = paged_case(
+            gen, lens_host, hq, hkv, d, PAGE, GEMMA_MAX_SEQ // PAGE, pool_dtype, bf16)
+        for window in (GEMMA_WINDOW, None):
+            opts = dict(logit_softcap=GEMMA_CAP, sliding_window=window, k_scale=ks, v_scale=vs)
+            kern = time_ms(lambda: pa.paged_attention(qp, kp, vp, tables, lens, scale, **opts))
+            plain = time_ms(lambda: pa.paged_attention_reference(qp, kp, vp, tables, lens, scale,
+                                                                 **opts))
+            seen = torch.clamp(lens, max=window) if window else lens
+            flops, nbytes = paged_work(qp, kp, vp, ks, tables, seen)
+            rows["paged"].append(timing_row(
+                f"paged_attention Gemma-2 shapes M={len(lens_host)} lengths {list(lens_host)} "
+                f"{str(pool_dtype)[6:]} pool softcap {GEMMA_CAP} window {window}",
+                kern, plain, flops, nbytes, bf16, window=window, pool=str(pool_dtype)[6:]))
+        del qp, kp, vp, ks, vs
+    for name, out_dim, in_dim in EXPERT_SHAPES:
+        per_pair = name == "down"
+        stack = expert_stack(gen, MIXTRAL_EXPERTS, out_dim, in_dim, False)
+        lib_weight, why = int4pack_weight(*(t[0] for t in stack))
+        for n in (1, 4, 16):
+            x, idx = expert_inputs(gen, n, in_dim, False, per_pair)
+            kern = time_ms(lambda: qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS))
+            plain = time_ms(lambda: qm.quant_gemv_experts_reference(x, idx, *stack, GROUP_SIZE,
+                                                                    BITS), iters=5)
+            lib = None
+            if lib_weight is not None:
+                x2 = x.reshape(-1, in_dim)[:n]
+                lib = MIXTRAL_TOP_K * time_ms(lambda: torch._weight_int4pack_mm(
+                    x2, lib_weight[0], GROUP_SIZE, lib_weight[1]))
+            # the bytes this run's routing needs: each routed expert's
+            # packed rows once, x and the output once
+            experts = len(set(idx.flatten().tolist()))
+            _, w_bytes = quant_work(0, out_dim, in_dim)
+            nbytes = experts * w_bytes + x.numel() * 2 + n * MIXTRAL_TOP_K * out_dim * 2
+            flops = 2 * n * MIXTRAL_TOP_K * out_dim * in_dim
+            rows["experts"].append(timing_row(
+                f"quant_gemv_experts {name} OUT={out_dim} IN={in_dim} N={n} K={MIXTRAL_TOP_K} "
+                f"({experts} experts routed; int4pack_mm on one expert x K: "
+                f"{'timed' if lib is not None else why})", kern, plain, flops, nbytes, bf16,
+                library=lib, shape=name, n=n))
+        del stack, lib_weight
+    return rows
+
+
+
+# ------------------------------------------------------- the model families
+# The published config.json of Qwen/Qwen3-8B, google/gemma-2-9b and
+# mistralai/Mixtral-8x7B-v0.1, at full width; Mixtral packed in the layout
+# of mlx-community/Mixtral-8x7B-Instruct-v0.1-4bit (4 bits, group 64, the
+# router dense): its bf16 weights (~93 GB) do not fit the card.
+QWEN3_8B = {
+    "model_type": "qwen3", "vocab_size": 151936, "hidden_size": 4096,
+    "intermediate_size": 12288, "num_hidden_layers": 36, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+    "max_position_embeddings": 40960, "attention_bias": False, "tie_word_embeddings": False,
+}
+GEMMA2_9B = {
+    "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 3584,
+    "intermediate_size": 14336, "num_hidden_layers": 42, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "max_position_embeddings": 8192, "query_pre_attn_scalar": 256, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "tie_word_embeddings": True,
+}
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "rms_norm_eps": 1e-5, "rope_theta": 1000000.0,
+    "max_position_embeddings": 32768, "num_local_experts": 8, "num_experts_per_tok": 2,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "quantization": {"group_size": GROUP_SIZE, "bits": BITS},
+}
+# (key, config, name); each family's single-stream prompt and capacity, and
+# the batcher's four prompts: Gemma-2's past its window (4096), so that the
+# even layers' window excludes positions in the late prefill chunks and in
+# every decode step
+FAMILY_RUNS = (("qwen3", QWEN3_8B, "Qwen3-8B"), ("gemma2", GEMMA2_9B, "Gemma-2-9B"),
+               ("mixtral", MIXTRAL_8X7B, "Mixtral-8x7B 4-bit"))
+GEMMA_PROMPT = 4400
+FAMILY_PROMPTS = {"qwen3": 600, "gemma2": GEMMA_PROMPT, "mixtral": 600}
+FAMILY_MAX_SEQ = {"qwen3": 1024, "gemma2": GEMMA_MAX_SEQ, "mixtral": 1024}
+FAMILY_TOKENS = 64
+GEMMA_BATCH_PROMPTS = (GEMMA_PROMPT, 600, 1000, 2000)
+FAMILY_BATCH_PROMPTS = {"qwen3": (600, 300, 200, 100), "gemma2": GEMMA_BATCH_PROMPTS,
+                        "mixtral": (600, 300, 200, 100)}
+FAMILY_SLOTS = 4
+# the f32 parity: 2 layers of the same widths, 32 greedy tokens; the
+# kernel path's last-position logits against the plain versions' (fp32
+# summation order only)
+PARITY_LAYERS = 2
+PARITY_FAMILY_TOKENS = 32
+F32_LOGITS_RTOL = 1e-4
+
+
+def packed_mixtral(config: dict, seed: int, dtype=torch.bfloat16):
+    """A Mixtral model whose projections, expert stacks and vocab pair are
+    drawn packed on the card, layer by layer (no dense copy ever exists):
+    random 4-bit codes with fp16 scales of a 1/sqrt(IN) weight (the
+    embedding's of 0.02) and biases that centre the codes, dense bf16 norms
+    and router. ``load_weights`` takes them as a ``keep_quantized`` load."""
+    from mlx_sharding_tpu_torch.models import build_model
+
+    model, cfg = build_model(config, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, inter, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_local_experts
+    hq, kv = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    code_std = math.sqrt((16 ** 2 - 1) / 12)  # of a code uniform on 0..15
+
+    def packed(*shape, std=None):
+        *lead, out_dim, in_dim = shape
+        words = torch.randint(-2 ** 31, 2 ** 31, (*lead, out_dim, in_dim // 8), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        base = (std or in_dim ** -0.5) / code_std
+        s = (base * (0.5 + torch.rand((*lead, out_dim, in_dim // GROUP_SIZE), generator=gen,
+                                      device="cuda"))).to(torch.float16)
+        return {"q": words, "scales": s, "biases": (-7.5 * s.float()).to(torch.float16)}
+
+    def dense(*shape, value=None):
+        if value is not None:
+            return torch.full(shape, value, device="cuda", dtype=dtype)
+        return (torch.randn(shape, generator=gen, device="cuda") * shape[-1] ** -0.5).to(dtype)
+
+    sd = {"embed_tokens.weight": packed(cfg.vocab_size, h, std=0.02),
+          "final_norm": dense(h, value=1.0), "lm_head.weight": packed(cfg.vocab_size, h)}
+    for i in range(cfg.num_local_layers):
+        p = f"layers.{i}."
+        sd.update({p + "input_norm": dense(h, value=1.0), p + "post_norm": dense(h, value=1.0),
+                   p + "q_proj.weight": packed(hq, h), p + "k_proj.weight": packed(kv, h),
+                   p + "v_proj.weight": packed(kv, h), p + "o_proj.weight": packed(h, hq),
+                   p + "router.weight": dense(e, h), p + "w_gate.weight": packed(e, inter, h),
+                   p + "w_up.weight": packed(e, inter, h), p + "w_down.weight": packed(e, h, inter)})
+    model.load_weights(sd, "cuda", dtype)
+    return model, cfg
+
+
+def family_model(key: str, config: dict, seed: int, dtype=torch.bfloat16, layers=None):
+    """The family's model at full width (``layers`` cuts its depth), random
+    weights from ``seed`` drawn on the card; Mixtral packed."""
+    from mlx_sharding_tpu_torch.models import build_model
+
+    if layers is not None:
+        config = {**config, "num_hidden_layers": layers}
+    if key == "mixtral":
+        return packed_mixtral(config, seed, dtype)
+    model, cfg = build_model(config, dtype=dtype)
+    model.init_params(torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    return model, cfg
+
+
+def family_pages(prompts, tokens: int) -> int:
+    """Pages a batcher's pool needs to hold every request at once."""
+    return sum(-(-(n + tokens) // PAGE) for n in prompts) + 1
+
+
+class kernel_counts:
+    """The launch counters of every kernel entry point (those a graph replay
+    bumps): zeroed by :meth:`reset`, read by :meth:`read`."""
+
+    def __init__(self):
+        from mlx_sharding_tpu_torch.graphs import counted_wrappers
+
+        self.fns = {fn.__name__: fn for fn in counted_wrappers()}
+
+    def reset(self) -> None:
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+
+class plain_entry_points:
+    """Within the block, every kernel entry point the models' forwards call
+    is swapped, in this process only, for its plain version: the reference
+    forward of the f32 parity run. No entry point of the package has a
+    switch for this."""
+
+    def __enter__(self):
+        from mlx_sharding_tpu_torch.ops import attention as attention_mod
+        from mlx_sharding_tpu_torch.ops import flash_attention as fa
+        from mlx_sharding_tpu_torch.ops import moe as moe_mod
+        from mlx_sharding_tpu_torch.ops import quant as quant_mod
+        from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
+        def decode(q, k, v, position, scale, *, lengths=None, **opts):
+            if lengths is None:
+                lengths = fa.decode_lengths(position, q.shape[0], k.shape[1])
+            return fa.flash_decode_reference(q, k, v, lengths, scale, **opts)
+
+        self.swaps = [(attention_mod, "flash_attention", fa.flash_attention_reference),
+                      (attention_mod, "flash_decode", decode),
+                      (quant_mod, "quant_gemv", qm.quant_matmul_reference),
+                      (quant_mod, "quant_matmul", qm.quant_matmul_reference),
+                      (moe_mod, "quant_gemv_experts", qm.quant_gemv_experts_reference)]
+        self.saved = [getattr(mod, name) for mod, name, _ in self.swaps]
+        for mod, name, fn in self.swaps:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.swaps, self.saved):
+            setattr(mod, name, fn)
+
+
+def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
+    """The Generator through its graphs behind the port's server: one
+    streamed request of the family's prompt and ``FAMILY_TOKENS`` forced
+    tokens (TTFT, decode tok/s), every route's launches checked against the
+    chunks and steps, no eager forward; one decode step's device ms; then
+    plain greedy decode of the prompt (tokens and near-ties) for the
+    batcher's comparison."""
+    from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
+                                                 Generator)
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
+
+    tok = ByteTokenizer()
+    n = FAMILY_PROMPTS[key]
+    gen = Generator(model, max_seq=FAMILY_MAX_SEQ[key], prefill_chunk=CHUNK)
+    graph_line(tag, gen.warm_up())
+    server = make_server(ModelProvider(gen, tok, model_name=key), "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    layers, chunks = cfg.num_hidden_layers, -(-n // CHUNK)
+    steps = DEFAULT_DECODE_BLOCK * -(-(FAMILY_TOKENS - 1) // DEFAULT_DECODE_BLOCK)
+    try:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"{tag} warm-up request failed: {status}")
+        counts.reset()
+        served = ServedRun(gen, model)
+        status, events, t_head, t_end = post(port, "/v1/completions", {
+            "prompt": mix_prompt(0, n), "max_tokens": FAMILY_TOKENS, "stream": True,
+            "logit_bias": {"65": 100.0}}, stream=True)
+        check(status == 200 and stream_text(events, chat=False) == "A" * FAMILY_TOKENS,
+              f"{tag} streamed completion: status {status}")
+        launches = counts.read()
+        served.check(tag, chunks + steps // DEFAULT_DECODE_BLOCK)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    stats = {"ttft_s": t_head, "decode_tok_s": (FAMILY_TOKENS - 1) / (t_end - t_head)}
+    log(f"{tag} /v1/completions stream, {n}-token prompt, {FAMILY_TOKENS} tokens: TTFT "
+        f"{t_head * 1e3:.1f} ms, decode {stats['decode_tok_s']:.2f} tok/s (host clock at the "
+        f"client); launches {launches}")
+    want = {"flash_attention": layers * chunks, "flash_decode": layers * steps,
+            "paged_attention": 0}
+    if key == "mixtral":
+        experts = cfg.num_local_experts
+        want.update(quant_matmul=chunks * layers * (2 + 3 * experts),
+                    quant_gemv=chunks + steps * (2 * layers + 1),
+                    quant_gemv_experts=steps * 3 * layers)
+    else:
+        want.update(quant_matmul=0, quant_gemv=0, quant_gemv_experts=0)
+    log(f"{tag} launches expected from {chunks} chunks and {steps} decode steps of {layers} "
+        f"layers: {want}")
+    check(launches == want, f"{tag} a route's launches disagree with the chunks and steps")
+    list(gen.generate_step(tok.encode(mix_prompt(0, n)), max_tokens=1))
+    step = step_numbers(lambda: gen.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False,
+                                                 False), calls=2, steps=DEFAULT_DECODE_BLOCK,
+                        profiled=1)
+    stats["step"] = step
+    busy = "not measured" if step["busy"] is None else f"{100 * step['busy']:.1f}%"
+    log(f"{tag} graph decode step: host {step['host_ms']:.3f} ms, wall {step['wall_ms']:.3f} ms, "
+        f"device {step['device_ms']:.3f} ms; device busy {busy} of the wall; "
+        + ", ".join(f"{nm} {ms:.3f}" for nm, ms in step["kernels"]))
+    ids = tok.encode(mix_prompt(1, n))
+    toks, tok_s, ties = plain_reference(tag, gen, ids, FAMILY_TOKENS)
+    stats.update(greedy=(ids, toks, ties), launches=launches)
+    del gen
+    return stats
+
+
+def family_batch(tag: str, key: str, model, cfg, counts, greedy) -> dict:
+    """The paged batcher: ``--concurrent 4 --paged-pool P --page-size 256``
+    with async ticks behind the port's server, four streamed forced
+    requests and the Generator's greedy prompt beside them; TTFTs, the
+    mix's tok/s, the launches against the batcher's own chunks and steps,
+    no eager forward; the greedy stream against the Generator's (a
+    divergence only at a near-tie)."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
+
+    prompts = FAMILY_BATCH_PROMPTS[key]
+    ids, want, ties = greedy
+    pages = family_pages((*prompts, len(ids)), FAMILY_TOKENS)
+    engine = PipelineEngine(model, microbatches=FAMILY_SLOTS, max_seq=FAMILY_MAX_SEQ[key],
+                            prefill_chunk=CHUNK, pool_pages=pages, page_size=PAGE,
+                            device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, draft="off")
+    log(f"{tag} batcher: {FAMILY_SLOTS} slots, pool {pages} pages of {PAGE} tokens "
+        f"({batcher.cache.nbytes / 1e6:.1f} MB of K/V), {batcher.async_reason}")
+    graph_line(tag, batcher.warm_up())
+    tok = ByteTokenizer()
+    server = make_server(ModelProvider(batcher, tok, model_name=key), "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    results = [None] * len(prompts)
+    greedy_out = []
+    try:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"{tag} warm-up request failed: {status}")
+        counts.reset()
+        steps0, chunks0 = batcher.decode_steps, batcher.prefill_chunks
+        served = ServedRun(batcher, engine)
+
+        def send(i):
+            results[i] = post(port, "/v1/completions", {
+                "prompt": mix_prompt(10 + i, prompts[i]), "max_tokens": FAMILY_TOKENS,
+                "stream": True, "logit_bias": {"65": 100.0}}, stream=True)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        stream = batcher.generate_step(ids, max_tokens=FAMILY_TOKENS)
+        threads.append(threading.Thread(target=lambda: greedy_out.extend(stream)))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        steps = batcher.decode_steps - steps0
+        chunks = batcher.prefill_chunks - chunks0
+        served.check(tag, steps // batcher.decode_block + chunks)
+        tick_line(tag, batcher)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.close()
+    ttfts = []
+    for i, res in enumerate(results):
+        check(res is not None, f"{tag} request {i} did not return")
+        status, events, t_head, t_end = res
+        check(status == 200 and stream_text(events, chat=False) == "A" * FAMILY_TOKENS,
+              f"{tag} request {i}: status {status}")
+        ttfts.append(t_head)
+    tokens = FAMILY_TOKENS * (len(prompts) + 1)
+    log(f"{tag} four streamed requests of {list(prompts)}-token prompts and the greedy one, "
+        f"{FAMILY_TOKENS} tokens each: TTFTs "
+        + ", ".join(f"{t * 1e3:.1f}" for t in ttfts)
+        + f" ms; {tokens} tokens in {wall:.3f}s, {tokens / wall:.1f} tok/s for the mix")
+    layers = cfg.num_hidden_layers
+    log(f"{tag} batcher: {chunks} prefill chunks, {steps} decode steps; launches {launches}")
+    check(launches["paged_attention"] == layers * steps,
+          f"{tag} paged launches disagree with {layers} layers x {steps} decode steps")
+    check(launches["flash_attention"] == layers * chunks,
+          f"{tag} flash launches disagree with {layers} layers x {chunks} prefill chunks")
+    if key == "mixtral":
+        check(launches["quant_gemv_experts"] == 3 * layers * steps,
+              f"{tag} routed-expert launches disagree with 3 x {layers} layers x {steps} steps")
+    got = [t for t, _ in greedy_out]
+    same = agreement(tag, "the batcher's greedy stream against the Generator's", got, want, ties)
+    log(f"{tag} greedy: the first {same} of {len(want)} tokens equal the Generator's")
+    return {"ttfts": ttfts, "tok_s": tokens / wall, "launches": launches}
+
+
+def family_parity(tag: str, key: str, config: dict, seed: int) -> None:
+    """f32 at ``PARITY_LAYERS`` layers of the same widths (Mixtral packed):
+    ``PARITY_FAMILY_TOKENS`` greedy tokens through the Generator's graphs
+    and through the paged batcher, token-identical; the last-position
+    logits of one prefill against the forward whose kernel entry points are
+    swapped for their plain versions."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    model, cfg = family_model(key, config, seed + 1, torch.float32, layers=PARITY_LAYERS)
+    n = FAMILY_PROMPTS[key]
+    ids = ByteTokenizer().encode(mix_prompt(2, n))
+    max_seq = FAMILY_MAX_SEQ[key]
+    gen = Generator(model, max_seq=max_seq, prefill_chunk=CHUNK)
+    graph_line(tag, gen.warm_up(decode_blocks=False))
+    kern = gen.run_prefill(np.asarray([ids], np.int64)).float()
+    want = [t for t, _ in gen.generate_step(ids, max_tokens=PARITY_FAMILY_TOKENS)]
+    del gen
+    with plain_entry_points():
+        plain_gen = Generator(model, max_seq=max_seq, prefill_chunk=CHUNK, cuda_graphs=False)
+        plain = plain_gen.run_prefill(np.asarray([ids], np.int64)).float()
+        del plain_gen
+    rel = ((kern - plain).norm() / plain.norm()).item()
+    log(f"{tag} f32 {PARITY_LAYERS} layers, {n}-token prompt: last-position logits, kernels "
+        f"against plain versions: relative L2 {rel:.3e} (tol {F32_LOGITS_RTOL}), same argmax "
+        f"{bool((kern.argmax(-1) == plain.argmax(-1)).all())}")
+    check(bool(torch.isfinite(kern).all()) and kern.shape == (1, cfg.vocab_size),
+          f"{tag} f32 logits not finite or of the wrong shape")
+    check(rel <= F32_LOGITS_RTOL, f"{tag} the kernel path disagrees with the plain versions")
+    engine = PipelineEngine(model, microbatches=FAMILY_SLOTS, max_seq=max_seq,
+                            prefill_chunk=CHUNK, pool_pages=family_pages([n], PARITY_FAMILY_TOKENS),
+                            page_size=PAGE, device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, draft="off")
+    batcher.warm_up()
+    items, _ = serve_on_this_thread(batcher, [(ids, dict(max_tokens=PARITY_FAMILY_TOKENS))])
+    batcher.close()
+    got = [t for t, _ in items[0]]
+    log(f"{tag} f32 {PARITY_LAYERS} layers: {PARITY_FAMILY_TOKENS} greedy tokens through the "
+        f"Generator's graphs and through the paged batcher: token-identical {got == want}")
+    check(got == want, f"{tag} the batcher's f32 greedy stream differs from the Generator's")
+    del batcher, engine, model
+
+
+def phase_families(seed: int, lap) -> dict:
+    """Qwen3-8B, Gemma-2-9B and Mixtral-8x7B (4-bit) at full width, one at a
+    time, each freed before the next: served through the Generator's graphs
+    and through the paged batcher, then the f32 parity at 2 layers.
+    Returns each family's numbers."""
+    counts = kernel_counts()
+    out = {}
+    for key, config, name in FAMILY_RUNS:
+        tag = f"[{key}]"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, cfg = family_model(key, config, seed)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in (*model.parameters(), *model.buffers()))
+        log(f"{tag} {name} full width, {cfg.num_hidden_layers} layers, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of weights drawn on the card in "
+            f"{time.perf_counter() - t0:.1f}s ({n_params / 1e9:.3f} B stored elements)")
+        stats = family_serve(tag, key, model, cfg, counts)
+        stats["batch"] = family_batch(tag, key, model, cfg, counts, stats.pop("greedy"))
+        log(f"{tag} torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_parity(tag, key, config, seed)
+        out[key] = stats
+        lap(f"{name}")
+    return out
+
+
+def family_records(rows: dict, errs: dict, families: dict) -> list:
+    """The kernels-line entries of the families' variants: kernel 1 and its
+    T=1 route with Gemma-2's softcap and window (its even layers' launches
+    and times; the odd layers' softcap-only times beside them), kernel 2
+    likewise over the batcher's slots (bf16 pool), and the routed-expert
+    GEMV at N = 1 (a decode step's mean: gate and up, then down). Their
+    launches are the families' served runs'."""
+    gemma, mixtral = families["gemma2"], families["mixtral"]
+
+    def entry(name, source, replaces, launches, err, row, **extra):
+        return {"name": name, "route": "cuda", "source": f"mlx_sharding_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
+                "library_ms": row["library_ms"], **extra}
+
+    def pick(kind, **want):
+        return next(r for r in rows[kind] if all(r[k] == v for k, v in want.items()))
+
+    flash, flash_odd = pick("flash", window=GEMMA_WINDOW), pick("flash", window=None)
+    dec, dec_odd = pick("decode", window=GEMMA_WINDOW), pick("decode", window=None)
+    paged = pick("paged", window=GEMMA_WINDOW, pool="bfloat16")
+    paged_odd = pick("paged", window=None, pool="bfloat16")
+    n1 = [r for r in rows["experts"] if r["n"] == 1]
+    weights = [2 if r["shape"] == "gate/up" else 1 for r in n1]
+    expert_row = {key: (None if any(r[key] is None for r in n1)
+                        else sum(w * r[key] for w, r in zip(weights, n1)) / sum(weights))
+                  for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")}
+    return [
+        entry("flash_attention_softcap_window", "flash_attention.cu",
+              "mlx_sharding_tpu/ops/flash_attention.py:127",
+              gemma["launches"]["flash_attention"] + gemma["batch"]["launches"]["flash_attention"],
+              errs["flash"], flash, floor_ms=flash["floor_ms"], ms_no_window=flash_odd["ms"]),
+        entry("flash_decode_softcap_window", "paged_attention.cu",
+              "mlx_sharding_tpu/ops/flash_attention.py:127", gemma["launches"]["flash_decode"],
+              errs["decode"], dec, floor_ms=dec["floor_ms"], ms_no_window=dec_odd["ms"]),
+        entry("paged_attention_softcap_window", "paged_attention.cu",
+              "mlx_sharding_tpu/ops/paged_attention.py:153",
+              gemma["batch"]["launches"]["paged_attention"], errs["paged"], paged,
+              ms_no_window=paged_odd["ms"]),
+        entry("quant_gemv_experts", "quant_matmul.cu", "mlx_sharding_tpu/ops/quant_matmul.py:382",
+              mixtral["launches"]["quant_gemv_experts"]
+              + mixtral["batch"]["launches"]["quant_gemv_experts"], errs["experts"], expert_row,
+              library="_weight_int4pack_mm on one expert, times K"),
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2850,6 +3663,7 @@ def main(argv=None) -> int:
     quant_err = phase_quant_kernels(args.seed)
     paged_err = phase_paged_kernels(args.seed)
     decode_err = phase_decode_kernels(args.seed)
+    family_err = phase_family_kernels(args.seed)
     lap("kernel builds and checks")
     if args.kernels_only:
         return 0
@@ -2858,6 +3672,7 @@ def main(argv=None) -> int:
     phase_gemv_split_timing(args.seed)
     paged_rows = phase_paged_timing(args.seed)
     decode_rows = phase_decode_timing(args.seed)
+    family_rows = phase_family_timing(args.seed)
     lap("kernel timing")
     launches, single, model = phase_main_path(args.seed)
     lap("main path")
@@ -2879,6 +3694,7 @@ def main(argv=None) -> int:
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model
+    families = phase_families(args.seed, lap)
 
     # the kernel record: per-launch means over the main path's chunk offsets
     main_rows = [r for r in rows if r["offset"] in MAIN_PATH_OFFSETS]
@@ -2937,6 +3753,7 @@ def main(argv=None) -> int:
         "library_ms": row["library_ms"],
         "position": row["position"],
     })
+    record["kernels"] += family_records(family_rows, family_err, families)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
 The tests run both packages on the same numbers with this: take the JAX
 parameter tree to numpy with ``jax.tree.map(np.asarray, params)`` and hand
 it to :func:`params_from_numpy`. JAX stores dense weights as ``(in, out)``
-for ``x @ W``, the embedding as ``(V, H)`` and the untied LM head as
-``(H, V)``; the port keeps PyTorch's ``(out, in)``. Packed ``{q, scales,
-biases}`` leaves (a ``keep_quantized`` load, fused or not) keep MLX's
-``(out, in)`` layout in both packages and are not transposed.
+for ``x @ W`` (expert stacks as ``(E, in, out)``), the embedding as
+``(V, H)`` and the untied LM head as ``(H, V)``; the port keeps PyTorch's
+``(out, in)``. Packed ``{q, scales, biases}`` leaves (a ``keep_quantized``
+load, fused or not, expert stacks included) keep MLX's ``(out, in)`` layout
+in both packages and are not transposed. Gemma-2's stacked ``layer_idx``
+becomes each layer's ``layer_idx``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,18 @@ _LAYER_NAMES = {
     "q_bias": ("q_proj.bias", False),
     "k_bias": ("k_proj.bias", False),
     "v_bias": ("v_proj.bias", False),
+    # Qwen3
+    "q_norm": ("q_norm", False),
+    "k_norm": ("k_norm", False),
+    # Gemma-2
+    "post_attn_norm": ("post_attn_norm", False),
+    "pre_ffw_norm": ("pre_ffw_norm", False),
+    "post_ffw_norm": ("post_ffw_norm", False),
+    # Mixtral: (in, out) router, (E, in, out) expert stacks
+    "router": ("router.weight", True),
+    "w_gate": ("w_gate.weight", True),
+    "w_up": ("w_up.weight", True),
+    "w_down": ("w_down.weight", True),
 }
 
 
@@ -52,8 +66,9 @@ def _packed(tree: dict, i=None) -> dict:
 
 def params_from_numpy(config, tree: dict, device=None):
     """``config`` (a config dataclass of either package, or a config.json
-    dict) and a numpy parameter tree of the JAX Llama model -> the port's
-    ``LlamaModel`` holding the same numbers, on ``device`` (default cuda)."""
+    dict) and a numpy parameter tree of the JAX model (Llama, Qwen3,
+    Gemma-2 or Mixtral) -> the port's model holding the same numbers, on
+    ``device`` (default cuda)."""
     dev = resolve_device(device)
     cfg_dict = config if isinstance(config, dict) else config.to_dict()
     layers = tree["layers"]
@@ -62,6 +77,10 @@ def params_from_numpy(config, tree: dict, device=None):
     fused_qkv = "qkv_proj" in layers
     sd = {}
     for name, stack in layers.items():
+        if name == "layer_idx":
+            for i, layer in enumerate(model.layers):
+                layer.layer_idx = int(np.asarray(stack)[i])
+            continue
         for i in range(cfg.num_local_layers):
             if is_quantized(stack):  # packed (out, in) words: the name is the module
                 sd[f"layers.{i}.{name}.weight"] = _packed(stack, i)
@@ -70,7 +89,7 @@ def params_from_numpy(config, tree: dict, device=None):
                 continue  # concatenated onto the fused module below
             ours, transpose = _LAYER_NAMES[name]
             w = np.asarray(stack[i])
-            sd[f"layers.{i}.{ours}"] = to_torch(w.T if transpose else w)
+            sd[f"layers.{i}.{ours}"] = to_torch(np.swapaxes(w, -1, -2) if transpose else w)
         if fused_qkv and name == "q_bias":
             for i in range(cfg.num_local_layers):
                 sd[f"layers.{i}.qkv_proj.bias"] = to_torch(np.concatenate(

@@ -9,6 +9,19 @@
 // accumulator) recurrence in fp32, so no (T, S) score matrix ever reaches
 // device memory. Masked scores are -1e30, as in the TPU kernel.
 //
+// Gemma-2's two options (JAX's plain path, mlx_sharding_tpu/ops/attention.py
+// causal_attention, which its Pallas kernel does not take) are computed in
+// JAX's order: the scores are scaled, then softcapped, cap * tanh(s / cap),
+// in fp32 with the accurate tanhf (tanh.approx errs by ~2^-11, up to ~0.025
+// on a score at cap 50, as much as the near-tie gaps seen in served
+// streams), then masked to keys k with q_pos - window < k <= q_pos. A row
+// tile's walk starts at the first key any of its rows sees, so key tiles
+// wholly before every row's window are skipped, not masked, and a split
+// walk is cut from that start (no empty or wasted split). The bf16 kernel
+// is built twice: with the options (OPT) and without, so that a call
+// without them runs the code it ran before they existed (the options'
+// per-score branch and mask cost it ~30% at D = 128).
+//
 // What bounds it on an H100 at the main path's shapes (Llama-3.1-8B: T =
 // 256, Hq = 32, Hkv = 8, D = 128, bf16, a 4096-row cache): a chunk at
 // offsets 0-512 moves ~6 MB and does 0.5-2 GFLOP, so the bound is ~2 us of
@@ -88,6 +101,8 @@ struct Params {
   long long o_sb, o_st, o_sh;
   int offset;
   float scale;
+  float softcap;  // cap * tanh(s / cap) on the scaled scores; 0: none
+  int window;     // keys k > q_pos - window only; 0: none
   int split;   // keys per block of the walk (>= S when the walk is whole)
   int splits;  // blocks along the walk
 };
@@ -173,13 +188,30 @@ struct Bf16Layout {
 
 // Packed rows of one (batch, KV head): row R is query position R / G and
 // head kvh * G + R % G. Returns the causal end (exclusive) of row tile `tile`.
-__device__ __forceinline__ int tile_kv_end(const Params& p, int G, int tile) {
-  const int rows_valid = min(ROWS, p.T * G - tile * ROWS);
-  return min(p.S, p.offset + (tile * ROWS + rows_valid - 1) / G + 1);
+__host__ __device__ __forceinline__ int tile_kv_end(const Params& p, int G, int tile) {
+  const int rows_left = p.T * G - tile * ROWS;
+  const int rows_valid = rows_left < ROWS ? rows_left : ROWS;
+  const int end = p.offset + (tile * ROWS + rows_valid - 1) / G + 1;
+  return end < p.S ? end : p.S;
 }
 
-// grid (splits, row tiles, batch * Hkv); blocks with the longest walks first
-template <int DK, int DV>
+// The first key row tile `tile` reads: 0, or with a window the first key of
+// its first row's window (later rows' windows start later)
+__host__ __device__ __forceinline__ int tile_kv_begin(const Params& p, int G, int tile) {
+  const int first = p.offset + tile * ROWS / G - p.window + 1;
+  return p.window > 0 && first > 0 ? first : 0;
+}
+
+// The scores of one tile in log2 units: scaled (and softcapped in natural
+// units first, when the call has a cap)
+__device__ __forceinline__ float score_log2(float s, const Params& p, float scale_log2) {
+  if (p.softcap > 0.0f) return p.softcap * tanhf(s * p.scale / p.softcap) * LOG2E;
+  return s * scale_log2;
+}
+
+// grid (splits, row tiles, batch * Hkv); blocks with the longest walks first.
+// OPT: the call has a softcap or a window (else both are ignored).
+template <int DK, int DV, bool OPT>
 __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
   using L = Bf16Layout<DK, DV>;
   constexpr int BN = L::BN, LDK = L::LDK, LDV = L::LDV;
@@ -197,7 +229,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
   const int r0 = tile * ROWS;
   const int rows_valid = min(ROWS, rows_total - r0);
   const int kv_end = tile_kv_end(p, G, tile);
-  const int kb = chunk * p.split;
+  // chunks are cut from the tile's first key (0 without a window)
+  const int kb = (OPT ? tile_kv_begin(p, G, tile) : 0) + chunk * p.split;
   if (kb >= kv_end) return;  // the chunk starts past this tile's causal end
   const int ke = min(kb + p.split, kv_end);
   const int n_tiles = (ke - kb + BN - 1) / BN;
@@ -239,7 +272,10 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
   const int wr = r0 + warp * WARP_ROWS;  // the warp's first packed row
   // positions of this lane's rows g and g + 8
   const int pos[2] = {p.offset + (wr + g) / G, p.offset + (wr + g + 8) / G};
+  // and the last key outside each one's window (-1: none)
+  const int lo[2] = {p.window > 0 ? pos[0] - p.window : -1, p.window > 0 ? pos[1] - p.window : -1};
   const int warp_first_pos = p.offset + wr / G;
+  const int warp_last_pos = p.offset + (wr + WARP_ROWS - 1) / G;
   const float scale_log2 = p.scale * LOG2E;
 
   // ldmatrix row addresses of this lane. A (Q): matrices (rows 0-7, 8-15) x
@@ -301,16 +337,17 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
     // online softmax in log2 units; this lane holds rows g and g + 8,
     // columns 8 j + 2 t4 + {0, 1}
     const int k0 = kb + it * BN;
-    const bool masked = k0 + BN > ke || k0 + BN - 1 > warp_first_pos;
+    const bool masked = k0 + BN > ke || k0 + BN - 1 > warp_first_pos ||
+                        (OPT && p.window > 0 && k0 <= warp_last_pos - p.window);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
+        float x = OPT ? score_log2(s[j][e], p, scale_log2) : s[j][e] * scale_log2;
         if (masked) {
           const int key = k0 + 8 * j + 2 * t4 + (e & 1);
-          if (key >= ke || key > pos[e >> 1]) x = NEG_INF;
+          if (key >= ke || key > pos[e >> 1] || (OPT && key <= lo[e >> 1])) x = NEG_INF;
         }
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -322,7 +359,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL_MASK, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL_MASK, mx[h], 2));
       const float mn = fmaxf(m[h], mx[h]);
-      // a row with no key yet (a chunk before its position) keeps p = 0
+      // a row with no key yet (a chunk before its position, or a tile
+      // before its window) keeps p = 0
       mu[h] = mn == NEG_INF ? 0.0f : mn;
       corr[h] = exp2_approx(m[h] - mu[h]);
       m[h] = mn;
@@ -422,8 +460,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
 // Merge the chunks of a few rows of one (row tile, batch, KV head), one
 // row per Dv / 4 threads: rescale each chunk's accumulator and normaliser to
 // the common max, add, divide. Only the chunks below the tile's causal end
-// were written; chunk 0 holds key 0, which every row sees, so the common
-// max is finite. grid (row tiles x blocks per tile, batch * Hkv).
+// were written; every row sees its own key, so the common max is finite, and
+// a chunk that holds none of a row's keys (max -1e30, sum 0) weighs 0.
+// grid (row tiles x blocks per tile, batch * Hkv).
 __host__ __device__ constexpr int merge_rows_per_block(int Dv) { return THREADS / (Dv / 4); }
 
 __global__ void __launch_bounds__(THREADS) flash_merge_kernel(Params p) {
@@ -439,7 +478,7 @@ __global__ void __launch_bounds__(THREADS) flash_merge_kernel(Params p) {
   if (threadIdx.x >= rows_per_block * per_row || r >= min(ROWS, rows_total - r0)) return;
   const int b = blockIdx.y / p.Hkv;
   const int kvh = blockIdx.y % p.Hkv;
-  const int n = (tile_kv_end(p, G, tile) + p.split - 1) / p.split;
+  const int n = (tile_kv_end(p, G, tile) - tile_kv_begin(p, G, tile) + p.split - 1) / p.split;
   const int c = (threadIdx.x % per_row) * 4;
   const size_t first = ((size_t)blockIdx.y * n_row_tiles + tile) * p.splits * ROWS + r;
   float mx = NEG_INF;
@@ -464,9 +503,9 @@ __global__ void __launch_bounds__(THREADS) flash_merge_kernel(Params p) {
   *reinterpret_cast<uint2*>(out + (R / G) * p.o_st + (kvh * G + R % G) * p.o_sh + c) = packed;
 }
 
-template <int DK, int DV>
+template <int DK, int DV, bool OPT>
 cudaError_t prepare_bf16() {
-  return cudaFuncSetAttribute(flash_bf16_kernel<DK, DV>,
+  return cudaFuncSetAttribute(flash_bf16_kernel<DK, DV, OPT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               Bf16Layout<DK, DV>::BYTES);
 }
@@ -477,11 +516,15 @@ struct LaunchBf16 {
   cudaStream_t stream;
   template <int DK, int DV>
   cudaError_t run() const {
-    cudaError_t err = prepare_bf16<DK, DV>();
+    const bool opt = p.softcap > 0.0f || p.window > 0;
+    cudaError_t err = opt ? prepare_bf16<DK, DV, true>() : prepare_bf16<DK, DV, false>();
     if (err != cudaSuccess) return err;
     const int row_tiles = (p.T * (p.Hq / p.Hkv) + ROWS - 1) / ROWS;
     const dim3 grid(p.splits, row_tiles, B * p.Hkv);
-    flash_bf16_kernel<DK, DV><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
+    if (opt)
+      flash_bf16_kernel<DK, DV, true><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
+    else
+      flash_bf16_kernel<DK, DV, false><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess || p.splits == 1) return err;
     const int per_tile = (ROWS + merge_rows_per_block(DV) - 1) / merge_rows_per_block(DV);
@@ -491,19 +534,21 @@ struct LaunchBf16 {
 };
 
 // Shared bytes, registers per thread, resident blocks per SM and local
-// bytes per thread of a variant.
+// bytes per thread of a variant (with the options or without).
 struct InfoBf16 {
   long long* out;
+  bool opt;
   template <int DK, int DV>
   cudaError_t run() const {
-    cudaError_t err = prepare_bf16<DK, DV>();
+    const auto kernel = opt ? flash_bf16_kernel<DK, DV, true> : flash_bf16_kernel<DK, DV, false>;
+    cudaError_t err = opt ? prepare_bf16<DK, DV, true>() : prepare_bf16<DK, DV, false>();
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, flash_bf16_kernel<DK, DV>);
+    err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_bf16_kernel<DK, DV>,
-                                                        THREADS, Bf16Layout<DK, DV>::BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS,
+                                                        Bf16Layout<DK, DV>::BYTES);
     out[0] = Bf16Layout<DK, DV>::BYTES;
     out[1] = attr.numRegs;
     out[2] = blocks;
@@ -600,15 +645,17 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int q_valid = min(ROWS, p.T - q0);
-  // The causal bound: no key past the tile's last query position is read.
+  // The causal bound: no key past the tile's last query position is read,
+  // and with a window none before its first query's window.
   const int kv_end = min(p.S, p.offset + q0 + q_valid);
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int kv_begin = p.window > 0 ? max(0, p.offset + q0 - p.window + 1) : 0;
+  const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + q0 * p.q_st + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   auto copy_kv = [&](int tile, int stage) {
-    const int k0 = tile * BK;
+    const int k0 = kv_begin + tile * BK;
     const int k_valid = min(BK, kv_end - k0);
     float* sK = sKV + stage * stage_elems;
     copy_tile_async(sK, ldk, k + k0 * p.k_ss, p.k_ss, BK, k_valid, Dk);
@@ -645,7 +692,7 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
     __syncthreads();  // this tile (and, first time, Q and the zeroed O) visible
     const float* sK = sKV + stage * stage_elems;
     const float* sV = sK + BK * ldk;
-    const int k0 = it * BK;
+    const int k0 = kv_begin + it * BK;
     const int k_valid = min(BK, kv_end - k0);
 
     scores_f32(sQ, sK, sS, Dk, ldk, lds, warp, lane);
@@ -655,8 +702,10 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
     float x[WARP_ROWS], mx[WARP_ROWS];
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) {
-      const float s = sSw[r * lds + lane] * p.scale;
-      x[r] = (lane < k_valid && k0 + lane <= q_pos0 + r) ? s : NEG_INF;
+      float s = sSw[r * lds + lane] * p.scale;
+      if (p.softcap > 0.0f) s = p.softcap * tanhf(s / p.softcap);
+      const int key = k0 + lane, qp = q_pos0 + r;
+      x[r] = (lane < k_valid && key <= qp && (p.window <= 0 || key > qp - p.window)) ? s : NEG_INF;
       mx[r] = x[r];
     }
 #pragma unroll
@@ -670,10 +719,12 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) {
       const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
+      // a row with no key yet (a tile before its window) keeps p = 0
+      const float mu = m_new == NEG_INF ? 0.0f : m_new;
+      corr[r] = expf(m[r] - mu);
       rescale |= m_new != m[r];
       m[r] = m_new;
-      const float pr = expf(x[r] - m_new);
+      const float pr = expf(x[r] - mu);
       sPw[r * ldp + lane] = pr;
       sum[r] = pr;
     }
@@ -742,11 +793,20 @@ cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
                                      : launch_f32_stages<1>(p, B, stream);
 }
 
-// Blocks along the causal walk for `split` keys per block (0: one block);
-// ops/flash_attention.py::num_splits sizes the partials the same way.
-int num_splits(int T, int S, int offset, int split) {
-  const int kv_len = S < offset + T ? S : offset + T;
-  return split > 0 ? (kv_len + split - 1) / split : 1;
+// Blocks along the longest row tile's walk for `split` keys per block (0:
+// one block); ops/flash_attention.py::num_splits sizes the partials the
+// same way.
+int num_splits(const Params& p, int split) {
+  if (split <= 0) return 1;
+  const int G = p.Hq / p.Hkv;
+  const int tiles = (p.T * G + ROWS - 1) / ROWS;
+  int n = 1;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int len = tile_kv_end(p, G, tile) - tile_kv_begin(p, G, tile);
+    const int chunks = (len + split - 1) / split;
+    if (chunks > n) n = chunks;
+  }
+  return n;
 }
 
 }  // namespace
@@ -754,7 +814,8 @@ int num_splits(int T, int S, int offset, int split) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, in the
-// order q (b, t, h), k (b, s, h), v (b, s, h), o (b, t, h). split (bf16
+// order q (b, t, h), k (b, s, h), v (b, s, h), o (b, t, h). softcap: the
+// logit cap (0: none); window: the sliding window (0: none). split (bf16
 // only; the fp32 kernel walks whole): keys per block of the walk, a multiple
 // of 64, or 0 for the whole walk in one block. With more than one split,
 // part_o and part_ml hold B * Hkv * row tiles * splits * 64 rows of Dv and
@@ -763,9 +824,9 @@ extern "C" {
 int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* part_o,
                             void* part_ml, int dtype, int B, int T, int S, int Hq, int Hkv,
                             int Dk, int Dv, const long long* strides, int offset, float scale,
-                            int split, void* stream) {
+                            float softcap, int window, int split, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || offset < 0 || split < 0 ||
-      split % 64)
+      split % 64 || softcap < 0.0f || window < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -794,6 +855,8 @@ int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
   p.o_sh = strides[11];
   p.offset = offset;
   p.scale = scale;
+  p.softcap = softcap;
+  p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     p.split = S;
@@ -801,7 +864,7 @@ int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
     return (int)launch_f32(p, B, s);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  p.splits = num_splits(T, S, offset, split);
+  p.splits = num_splits(p, split);
   p.split = p.splits > 1 ? split : S;
   if (p.splits > 1 && (part_o == nullptr || part_ml == nullptr)) return (int)cudaErrorInvalidValue;
   return (int)for_dims(Dk, Dv, LaunchBf16{p, B, s});
@@ -809,11 +872,12 @@ int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
 
 const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The bf16 variant for (Dk, Dv): out[0..3] = shared bytes per block,
-// registers per thread, resident blocks per SM, local (spill) bytes per
-// thread. Returns the cudaError_t of the queries.
-int mst_flash_attention_kernel_info(int Dk, int Dv, long long* out) {
-  return (int)for_dims(Dk, Dv, InfoBf16{out});
+// The bf16 variant for (Dk, Dv), with the softcap and window (options = 1)
+// or without: out[0..3] = shared bytes per block, registers per thread,
+// resident blocks per SM, local (spill) bytes per thread. Returns the
+// cudaError_t of the queries.
+int mst_flash_attention_kernel_info(int Dk, int Dv, int options, long long* out) {
+  return (int)for_dims(Dk, Dv, InfoBf16{out, options != 0});
 }
 
 }  // extern "C"

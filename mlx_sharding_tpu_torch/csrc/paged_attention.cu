@@ -12,6 +12,17 @@
 // fp32 per-row-per-head scale. Lengths past the table's reach are clipped
 // to it, and no page past ceil(length / page) is touched.
 //
+// Gemma-2's options, as the JAX package's plain path computes them
+// (mlx_sharding_tpu/ops/paged_attention.py::_paged_attention_xla, which its
+// Pallas kernel does not take): the scaled scores are softcapped, cap *
+// tanh(s / cap), in fp32 with the accurate tanhf, and a sliding window keeps
+// the keys after (length - 1) - window. The walk of a slot starts at its
+// window's first key rounded down to a 64-row tile (so every tile, page run
+// and TMA box stays aligned as before), the keys below it masked: the pages
+// before the window are never read, and the split plan cuts the walk from
+// there. The tensor-core kernel is built with the options (OPT) and
+// without, so that a call without them runs the code it ran before.
+//
 // What bounds it on an H100: bytes. A decode step reads every live K/V row
 // of the layer once and does 4·G·D operations per row and head, ~4 per byte
 // at G = 4. Eight slots at ~500 positions read ~17 MB, ~5 us at 3.35 TB/s.
@@ -96,7 +107,19 @@ struct Params {
   int splits;  // blocks along the walk (gridDim.z)
   int box_rows;  // TC kernel: rows of one TMA box (divides the page and 64)
   float scale;
+  float softcap;  // cap * tanh(s / cap) on the scaled scores; 0: none
+  int window;     // keys after (length - 1) - window only; 0: none
 };
+
+// The first key a slot of length len (not clipped) sees: 0, or with a
+// window the window's first
+__device__ __forceinline__ int walk_lo(const Params& p, int len) {
+  return p.window > 0 && len > p.window ? len - p.window : 0;
+}
+
+// A score in log2 units (scale * log2(e) folded in) softcapped as cap *
+// tanh(s / cap) in natural units: capl = cap * log2(e)
+__device__ __forceinline__ float cap_log2(float x, float capl) { return capl * tanhf(x / capl); }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -337,10 +360,13 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
   const int m = blockIdx.y, z = blockIdx.z;
   // the table's reach bounds the walk: a longer length (a finished slot
   // still decoding to the end of its block) reads no further
-  const int len = min(max(p.lengths[m], 0), p.spg * p.page);
-  const int n = (len + p.split - 1) / p.split;  // blocks with work for slot m
+  const int raw = max(p.lengths[m], 0);
+  const int len = min(raw, p.spg * p.page);
+  // the walk starts at the window's first key, rounded down to 64
+  const int lo = walk_lo(p, raw), start = lo & ~63;
+  const int n = (max(len - start, 0) + p.split - 1) / p.split;  // blocks with work for slot m
   if (z >= max(n, 1)) return;
-  const int begin = z * p.split;
+  const int begin = start + z * p.split;
   const int end = min(len, begin + p.split);
   const int n_tiles = (max(end - begin, 0) + KEYS - 1) / KEYS;
 
@@ -371,7 +397,7 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
     for (int r = tid; r < KEYS; r += THREADS) {
       const int pos = begin + tile * KEYS + r;
       sRow[stage * KEYS + r] =
-          pos < end ? (table[pos / p.page] * p.page + pos % p.page) * p.Hkv + h : -1;
+          pos < end && pos >= lo ? (table[pos / p.page] * p.page + pos % p.page) * p.Hkv + h : -1;
     }
   };
   // thread t copies 16-byte chunk t % chunks of rows t / chunks, then every
@@ -423,6 +449,7 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
     cp_async_commit();
   }
   const int key = tid / TPK, part = tid % TPK;
+  const float capl = p.softcap * LOG2E;
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < n_tiles) {
@@ -439,7 +466,7 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
     const unsigned char* sV = sK + KEYS * L.ldk;
     const float* scl = sScale + stage * 2 * KEYS;
     const int k_valid = min(KEYS, end - (begin + it * KEYS));
-    const bool valid = key < k_valid;
+    const bool valid = key < k_valid && begin + it * KEYS + key >= lo;
 
     // scores of this thread's key row for the G heads
     float s[G];
@@ -465,7 +492,7 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
     float mx[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      s[g] = valid ? s[g] * kscale : NEG_INF;
+      s[g] = valid ? (capl > 0.0f ? cap_log2(s[g] * kscale, capl) : s[g] * kscale) : NEG_INF;
       mx[g] = s[g];
     }
 #pragma unroll
@@ -611,8 +638,8 @@ struct TcLayout {
     wml = qf + dk / 16 * 32 * 16;          // [CONSUMERS][GMAX][m, l]
     flag = wml + CONSUMERS * GMAX * 2 * 4;  // the ticket's verdict
     red = flag + 16;                       // [CONSUMERS] floats
-    pre = red + CONSUMERS * 4;             // [slots + 1] ints: items before each slot,
-    bars = pre + (2 * slots + 1) * 4;      // then [slots] lengths; full[stages], empty[stages]
+    pre = red + CONSUMERS * 4;             // [slots + 1] ints: items before each slot, then
+    bars = pre + (3 * slots + 1) * 4;      // [slots] lengths and first keys; full[stages], empty[stages]
     bars = (bars + 7) / 8 * 8;
     total = bars + 2 * stages * 8;
   }
@@ -687,11 +714,11 @@ __device__ __forceinline__ unsigned swz(int r, int c) {
 // One work item: a (slot, KV head, head chunk) row's split, or the whole
 // row of an empty slot (which writes zeros).
 struct Item {
-  int m, cb, h, g0, nh, n, z, begin, end, n_tiles;
+  int m, cb, h, g0, nh, n, z, begin, end, n_tiles, lo;
 };
 
 // Items run slot by slot, row by row, split fastest; sPre[m] counts the
-// items before slot m and sLen its clipped length.
+// items before slot m, sLen its clipped length and sLen[M + m] its first key.
 __device__ __forceinline__ Item decode_item(const Params& p, const int* sPre, const int* sLen,
                                             int M, int item) {
   const int rows_per_slot = p.Hkv * p.chunks;
@@ -710,8 +737,10 @@ __device__ __forceinline__ Item decode_item(const Params& p, const int* sPre, co
   it.g0 = it.cb % p.chunks * GMAX;
   it.nh = min(GMAX, p.G - it.g0);  // heads of the item
   const int len = sLen[lo];
-  it.n = (len + p.split - 1) / p.split;  // splits with work for the row
-  it.begin = it.z * p.split;
+  it.lo = sLen[M + lo];  // the walk starts at it, rounded down to 64
+  const int start = it.lo & ~63;
+  it.n = (max(len - start, 0) + p.split - 1) / p.split;  // splits with work for the row
+  it.begin = start + it.z * p.split;
   it.end = min(len, it.begin + p.split);
   it.n_tiles = (max(it.end - it.begin, 0) + TILE - 1) / TILE;
   return it;
@@ -723,7 +752,7 @@ __device__ __forceinline__ Item decode_item(const Params& p, const int* sPre, co
 // by the ring's tiles, so the next item's copies are in flight
 // during this item's merge. The grid comes from the shapes alone. DV is
 // the value head dim.
-template <typename TKV, int DV>
+template <typename TKV, int DV, bool OPT>
 __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     paged_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const Params p, int M) {
@@ -738,14 +767,16 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
   const int reach = p.spg * p.page;
   const int Dk = p.Dk;
 
-  // items before each slot: a slot of length len has max(ceil(len / split),
-  // 1) items per row
+  // items before each slot: a slot whose walk spans n positions has
+  // max(ceil(n / split), 1) items per row
   int* sPre = reinterpret_cast<int*>(smem + L.pre);
-  int* sLen = sPre + M + 1;  // the lengths clipped to the table's reach
+  int* sLen = sPre + M + 1;  // the lengths clipped to the table's reach, then the first keys
   for (int i = threadIdx.x; i < M; i += TC_THREADS) {
-    const int len = min(max(p.lengths[i], 0), reach);
+    const int raw = max(p.lengths[i], 0);
+    const int len = min(raw, reach), lo = walk_lo(p, raw);
     sLen[i] = len;
-    sPre[i + 1] = rows_per_slot * max((len + p.split - 1) / p.split, 1);
+    sLen[M + i] = lo;
+    sPre[i + 1] = rows_per_slot * max((max(len - (lo & ~63), 0) + p.split - 1) / p.split, 1);
   }
   const int stages = L.stages;
   const unsigned bars = smem_u32(smem + L.bars);  // full[s] at bars + 8 s, empty[s] at + 8 (stages + s)
@@ -937,6 +968,7 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     consumer_sync();
 
     const float score_scale = p.scale * LOG2E / qs;
+    const float capl = p.softcap * LOG2E;
     float o[DV / 8][4];
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
@@ -1025,8 +1057,11 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
         for (int j = 0; j < 2; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const bool ok = 8 * j + 2 * t4 + (e & 1) < valid;
-            const float x = ok ? sc[j][e] * (QUANT ? ks[j][e & 1] : score_scale) : NEG_INF;
+            const int col = 8 * j + 2 * t4 + (e & 1);
+            const bool ok = col < valid && (!OPT || key0 + col >= it.lo);
+            float x = sc[j][e] * (QUANT ? ks[j][e & 1] : score_scale);
+            if (OPT && capl > 0.0f) x = cap_log2(x, capl);
+            x = ok ? x : NEG_INF;
             sc[j][e] = x;
             mx[e >> 1] = fmaxf(mx[e >> 1], x);
             if (QUANT && ok) vmax = fmaxf(vmax, vs[j][e & 1]);
@@ -1072,7 +1107,8 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
             pr[e] = (e < 2 || hi) ? exp2_approx(sc[j][e] - mu[e >> 1]) : 0.0f;
             sum[e >> 1] += pr[e];
             if constexpr (QUANT) {
-              const bool ok = 8 * j + 2 * t4 + (e & 1) < valid;
+              const int col = 8 * j + 2 * t4 + (e & 1);
+              const bool ok = col < valid && (!OPT || key0 + col >= it.lo);
               pr[e] = ok ? pr[e] * (vs[j][e & 1] * vinv) : 0.0f;
             }
           }
@@ -1235,17 +1271,17 @@ cudaError_t launch_fma(const Params& p, int M, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TKV, int DV>
+template <typename TKV, int DV, bool OPT>
 cudaError_t tc_prepare(int dk, int heads, int slots, int* smem_out) {
   static int set = 48 * 1024;
   const int smem = TcLayout<TKV>(dk, DV, heads, slots).bytes();
   *smem_out = smem;
-  return allow_shared(paged_tc_kernel<TKV, DV>, smem, set);
+  return allow_shared(paged_tc_kernel<TKV, DV, OPT>, smem, set);
 }
 
 // Blocks of the persistent grid: as many as the card holds at once (the
 // occupancy of this build at this shared size), found once per size
-template <typename TKV, int DV>
+template <typename TKV, int DV, bool OPT>
 cudaError_t tc_resident(int smem, int* blocks) {
   static int known_smem = -1, known = 0;
   if (smem != known_smem) {
@@ -1253,7 +1289,7 @@ cudaError_t tc_resident(int smem, int* blocks) {
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_tc_kernel<TKV, DV>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_tc_kernel<TKV, DV, OPT>,
                                                           TC_THREADS, smem);
     if (err != cudaSuccess) return err;
     known = sms * per_sm;
@@ -1263,28 +1299,28 @@ cudaError_t tc_resident(int smem, int* blocks) {
   return cudaSuccess;
 }
 
-template <typename TKV, int DV>
+template <typename TKV, int DV, bool OPT>
 cudaError_t launch_tc(const Params& p, const CUtensorMap& km, const CUtensorMap& vm, int M,
                       cudaStream_t stream) {
   int smem = 0, resident = 0;
-  cudaError_t err = tc_prepare<TKV, DV>(p.Dk, p.G < GMAX ? p.G : GMAX, M, &smem);
-  if (err == cudaSuccess) err = tc_resident<TKV, DV>(smem, &resident);
+  cudaError_t err = tc_prepare<TKV, DV, OPT>(p.Dk, p.G < GMAX ? p.G : GMAX, M, &smem);
+  if (err == cudaSuccess) err = tc_resident<TKV, DV, OPT>(smem, &resident);
   if (err != cudaSuccess) return err;
   if (resident <= 0) return cudaErrorInvalidConfiguration;
   const long long items = (long long)M * p.Hkv * p.chunks * p.splits;  // at most
   const int blocks = (int)(items < resident ? items : resident);
-  paged_tc_kernel<TKV, DV><<<blocks, TC_THREADS, smem, stream>>>(km, vm, p, M);
+  paged_tc_kernel<TKV, DV, OPT><<<blocks, TC_THREADS, smem, stream>>>(km, vm, p, M);
   return cudaGetLastError();
 }
 
-template <typename TKV>
+template <typename TKV, bool OPT>
 cudaError_t launch_tc_dv(const Params& p, const CUtensorMap& km, const CUtensorMap& vm, int M,
                          cudaStream_t stream) {
   switch (p.Dv) {
-    case 64: return launch_tc<TKV, 64>(p, km, vm, M, stream);
-    case 128: return launch_tc<TKV, 128>(p, km, vm, M, stream);
-    case 192: return launch_tc<TKV, 192>(p, km, vm, M, stream);
-    case 256: return launch_tc<TKV, 256>(p, km, vm, M, stream);
+    case 64: return launch_tc<TKV, 64, OPT>(p, km, vm, M, stream);
+    case 128: return launch_tc<TKV, 128, OPT>(p, km, vm, M, stream);
+    case 192: return launch_tc<TKV, 192, OPT>(p, km, vm, M, stream);
+    case 256: return launch_tc<TKV, 256, OPT>(p, km, vm, M, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1292,13 +1328,13 @@ cudaError_t launch_tc_dv(const Params& p, const CUtensorMap& km, const CUtensorM
 template <typename TKV, int DV>
 cudaError_t tc_info(int dk, int slots, long long* out) {
   int smem = 0;
-  cudaError_t err = tc_prepare<TKV, DV>(dk, 4, slots, &smem);
+  cudaError_t err = tc_prepare<TKV, DV, false>(dk, 4, slots, &smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, paged_tc_kernel<TKV, DV>);
+  err = cudaFuncGetAttributes(&a, paged_tc_kernel<TKV, DV, false>);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, paged_tc_kernel<TKV, DV>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, paged_tc_kernel<TKV, DV, false>,
                                                       TC_THREADS, smem);
   out[0] = smem;
   out[1] = a.numRegs;
@@ -1339,7 +1375,8 @@ int num_splits(int page, int spg, int split) {
 extern "C" {
 
 // q_dtype: 0 = float32, 1 = bfloat16. kv_dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8 (then k_scale and v_scale are given). pool_pages: P+1. split:
+// 2 = int8 (then k_scale and v_scale are given). softcap: the logit cap (0:
+// none); window: the sliding window (0: none). pool_pages: P+1. split:
 // positions per block of the page walk, a multiple of 64, or 0 for one
 // block per (slot, KV head, head chunk). With splits = ceil(page * spg /
 // split) > 1, part_acc and part_ml hold M * Hq * splits * Dv and * 2
@@ -1351,9 +1388,10 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
                         const void* v_scale, const void* tables, const void* lengths, void* o,
                         void* part_acc, void* part_ml, void* counters, int q_dtype, int kv_dtype,
                         int M, int Hq, int Hkv, int Dk, int Dv, int pool_pages, int page, int spg,
-                        int split, float scale, void* stream) {
+                        int split, float scale, float softcap, int window, void* stream) {
   if (Hkv <= 0 || Hq % Hkv || Dk % 64 || Dv % 64 || Dk > 256 || Dv > 256 || page <= 0 ||
-      spg <= 0 || M <= 0 || pool_pages <= 0 || split < 0 || split % 64)
+      spg <= 0 || M <= 0 || pool_pages <= 0 || split < 0 || split % 64 || softcap < 0.0f ||
+      window < 0)
     return (int)cudaErrorInvalidValue;
   const int splits = num_splits(page, spg, split);
   if (splits > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr))
@@ -1383,6 +1421,8 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
   p.split = splits > 1 ? split : page * spg;
   p.box_rows = gcd_int(page, 64);
   p.scale = scale;
+  p.softcap = softcap;
+  p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2) && p.box_rows >= 8) {
     const bool int8 = kv_dtype == 2;
@@ -1391,8 +1431,11 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
     cudaError_t err = pool_map(&km, k, int8, rows, Hkv * Dk, p.box_rows);
     if (err == cudaSuccess) err = pool_map(&vm, v, int8, rows, Hkv * Dv, p.box_rows);
     if (err != cudaSuccess) return (int)err;
-    return int8 ? (int)launch_tc_dv<int8_t>(p, km, vm, M, s)
-                : (int)launch_tc_dv<__nv_bfloat16>(p, km, vm, M, s);
+    const bool opt = softcap > 0.0f || window > 0;
+    if (int8) return opt ? (int)launch_tc_dv<int8_t, true>(p, km, vm, M, s)
+                         : (int)launch_tc_dv<int8_t, false>(p, km, vm, M, s);
+    return opt ? (int)launch_tc_dv<__nv_bfloat16, true>(p, km, vm, M, s)
+               : (int)launch_tc_dv<__nv_bfloat16, false>(p, km, vm, M, s);
   }
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch_fma<float, float>(p, M, s);
   if (q_dtype == 0 && kv_dtype == 2) return (int)launch_fma<float, int8_t>(p, M, s);

@@ -52,6 +52,19 @@
 // fp32 x (tests only) takes quant_gemv_fma_kernel, the first version's FMA
 // walk.
 //
+// Routed experts (Mixtral's decode, mlx_sharding_tpu/ops/moe.py
+// _apply_gather_packed, which gathers the top-k experts' packed leaves and
+// dequantizes the gathered slices): the same two GEMV kernels instantiated
+// with ROUTED, one block column per (token, k) pair (gridDim.y), each
+// reading its pair's expert id on the device and walking that expert's
+// packed rows of the (E, OUT, IN*bits/32) stack exactly as the plain GEMV
+// walks one weight, at M = 1 (x row = the pair's token, or the pair itself
+// for the down projection's per-pair inputs). No host read of the ids, so a
+// CUDA graph holds the launch. Bound by bytes: each pair reads its expert's
+// packed rows once (two pairs on one expert read them twice; grouping the
+// pairs by expert is later work). Ids outside [0, E) are clamped, as JAX's
+// gather clamps them.
+//
 // quant_matmul_wgmma_kernel replaces the Pallas TPU kernel
 // mlx_sharding_tpu/ops/quant_matmul.py::quant_matmul_pallas (_kernel), the
 // product for M > 8 (prefill chunks) with bf16 x. What bounds it on an
@@ -125,6 +138,30 @@ struct Params {
   int M, IN, OUT, group_size;
   int param_code;  // scales/biases: 0 = float32, 1 = bfloat16, 2 = float16
 };
+
+// The routed-expert GEMV's extra operands: the (pairs,) expert ids, the
+// pairs per x row (K for the gate and up projections, 1 for down, whose
+// input rows are the pairs') and the experts in the stack
+struct Routed {
+  const int* ids;
+  int x_div;
+  int experts;
+};
+
+// Point p at pair `pair`'s operands: its expert's slices of the stacks, its
+// x row and its output row (M = 1). X is x's element type.
+template <int BITS, typename X>
+__device__ __forceinline__ void route(Params& p, const Routed& r, int pair) {
+  const int e = min(max(r.ids[pair], 0), r.experts - 1);
+  const long long rows = (long long)e * p.OUT;
+  const int psize = p.param_code == 0 ? 4 : 2;
+  const long long groups = p.IN / p.group_size;
+  p.q += rows * (p.IN / 32 * BITS);
+  p.scales = static_cast<const char*>(p.scales) + rows * groups * psize;
+  p.biases = static_cast<const char*>(p.biases) + rows * groups * psize;
+  p.x = static_cast<const X*>(p.x) + (long long)(pair / r.x_div) * p.IN;
+  p.out = static_cast<X*>(p.out) + (long long)pair * p.OUT;
+}
 
 __device__ __forceinline__ float load_param(const void* p, int code, long long i) {
   if (code == 0) return static_cast<const float*>(p)[i];
@@ -224,8 +261,9 @@ constexpr size_t fma_shared_bytes() {
   return (size_t)MT * FmaLayout<BITS>::ROW_STRIDE * sizeof(float);
 }
 
-template <int BITS, int MT>
-__global__ void __launch_bounds__(FMA_THREADS) quant_gemv_fma_kernel(Params p) {
+template <int BITS, int MT, bool ROUTED = false>
+__global__ void __launch_bounds__(FMA_THREADS) quant_gemv_fma_kernel(Params p, Routed routed) {
+  if constexpr (ROUTED) route<BITS, float>(p, routed, blockIdx.y);
   using L = FmaLayout<BITS>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);
@@ -331,13 +369,15 @@ __global__ void __launch_bounds__(FMA_THREADS) quant_gemv_fma_kernel(Params p) {
   }
 }
 
-template <int BITS, int MT>
-cudaError_t launch_gemv_fma(const Params& p, cudaStream_t stream) {
+template <int BITS, int MT, bool ROUTED = false>
+cudaError_t launch_gemv_fma(const Params& p, cudaStream_t stream, const Routed& routed = {},
+                            int pairs = 1) {
   constexpr size_t smem = fma_shared_bytes<BITS, MT>();
-  static const cudaError_t attr = allow_shared_once(quant_gemv_fma_kernel<BITS, MT>, smem);
+  static const cudaError_t attr =
+      allow_shared_once(quant_gemv_fma_kernel<BITS, MT, ROUTED>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.OUT + FMA_BLOCK_OUT - 1) / FMA_BLOCK_OUT);
-  quant_gemv_fma_kernel<BITS, MT><<<grid, FMA_THREADS, smem, stream>>>(p);
+  const dim3 grid((p.OUT + FMA_BLOCK_OUT - 1) / FMA_BLOCK_OUT, pairs);
+  quant_gemv_fma_kernel<BITS, MT, ROUTED><<<grid, FMA_THREADS, smem, stream>>>(p, routed);
   return cudaGetLastError();
 }
 
@@ -436,9 +476,11 @@ __device__ __forceinline__ float stage_param(const unsigned char* p, int code, i
 // up once, and group sizes (32, 64, 128) enter as shifts: a runtime
 // division per copy costs more instruction slots than the math of the bytes it
 // moves.
-template <int BITS, int MT, int GS>
+template <int BITS, int MT, int GS, bool ROUTED = false>
 __global__ void __launch_bounds__(TC_THREADS) quant_gemv_tc_kernel(Params p, int split,
-                                                                   float* part) {
+                                                                   float* part, Routed routed) {
+  // routed: blockIdx.y is the (token, k) pair, and the walk is whole
+  if constexpr (ROUTED) route<BITS, __nv_bfloat16>(p, routed, blockIdx.y);
   using L = TcLayout<BITS>;
   constexpr int CPG = GS / TC_CHUNK;            // chunks per group
   constexpr int NCH = L::WARP_K / TC_CHUNK;     // chunks of a warp per stage
@@ -449,7 +491,7 @@ __global__ void __launch_bounds__(TC_THREADS) quant_gemv_tc_kernel(Params p, int
   const int gid = lane / 4, t = lane % 4;
   const int wo = warp % TC_WARPS_OUT, wk = warp / TC_WARPS_OUT;
   const int row0 = blockIdx.x * TC_ROWS;
-  const int kb = blockIdx.y * split, ke = min(p.IN, kb + split);
+  const int kb = ROUTED ? 0 : blockIdx.y * split, ke = min(p.IN, kb + split);
   const int ntiles = (ke - kb + L::TILE_K - 1) / L::TILE_K;
   constexpr int gshift = GS == 32 ? 5 : GS == 64 ? 6 : 7;
   const int groups = p.IN >> gshift;
@@ -643,7 +685,7 @@ __global__ void __launch_bounds__(TC_THREADS) quant_gemv_tc_kernel(Params p, int
     const int m = 2 * t + (e & 1);
     const int row = row0 + (e < 2 ? r_lo : r_hi);
     if (m >= p.M || row >= p.OUT) continue;
-    if (gridDim.y == 1) {
+    if (ROUTED || gridDim.y == 1) {
       static_cast<__nv_bfloat16*>(p.out)[(long long)m * p.OUT + row] = __float2bfloat16_rn(acc[e]);
     } else {
       part[((long long)blockIdx.y * p.M + m) * p.OUT + row] = acc[e];
@@ -675,18 +717,20 @@ auto for_group(int group_size, const F& f) {
   return f(std::integral_constant<int, 128>{});
 }
 
-template <int BITS, int MT, int GS>
-cudaError_t launch_gemv_tc(const Params& p, int split, float* part, cudaStream_t stream) {
+template <int BITS, int MT, int GS, bool ROUTED = false>
+cudaError_t launch_gemv_tc(const Params& p, int split, float* part, cudaStream_t stream,
+                           const Routed& routed = {}, int pairs = 1) {
   // the larger ring of the two scale widths
-  static const cudaError_t attr =
-      allow_shared_once(quant_gemv_tc_kernel<BITS, MT, GS>, tc_shared_bytes<BITS, MT>(GS, 4));
+  static const cudaError_t attr = allow_shared_once(quant_gemv_tc_kernel<BITS, MT, GS, ROUTED>,
+                                                    tc_shared_bytes<BITS, MT>(GS, 4));
   if (attr != cudaSuccess) return attr;
   const size_t smem = tc_shared_bytes<BITS, MT>(GS, p.param_code == 0 ? 4 : 2);
-  const int len = split > 0 ? split : p.IN;
+  const int len = split > 0 && !ROUTED ? split : p.IN;
   const int splits = (p.IN + len - 1) / len;
   if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
-  const dim3 grid((p.OUT + TC_ROWS - 1) / TC_ROWS, splits);
-  quant_gemv_tc_kernel<BITS, MT, GS><<<grid, TC_THREADS, smem, stream>>>(p, len, part);
+  const dim3 grid((p.OUT + TC_ROWS - 1) / TC_ROWS, ROUTED ? pairs : splits);
+  quant_gemv_tc_kernel<BITS, MT, GS, ROUTED><<<grid, TC_THREADS, smem, stream>>>(p, len, part,
+                                                                                 routed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int n = p.M * p.OUT;
@@ -1404,6 +1448,35 @@ int mst_quant_gemv(const void* x, const void* q, const void* scales, const void*
       return for_group(group_size, [&](auto g) {
         return launch_gemv_tc<decltype(b)::value, decltype(m)::value, decltype(g)::value>(
             p, split, static_cast<float*>(part), s);
+      });
+    });
+  return (int)cudaErrorInvalidValue;
+}
+
+// The routed-expert GEMV: out (pairs, OUT) = x[pair / x_div] @
+// dequant(stack[ids[pair]]).T for each of `pairs` (token, k) pairs, q
+// (E, OUT, IN*bits/32), scales and biases (E, OUT, IN/group_size). bf16 x
+// runs the tensor-core GEMV, fp32 x the FMA one, both whole over IN.
+// Returns the cudaError_t of the launch (0 on success).
+int mst_quant_gemv_experts(const void* x, const void* q, const void* scales, const void* biases,
+                           void* out, const void* ids, int x_code, int param_code, int bits,
+                           int pairs, int x_div, int experts, int IN, int OUT, int group_size,
+                           void* stream) {
+  const Params p = make_params(x, q, scales, biases, out, param_code, 1, IN, OUT, group_size);
+  const Routed r{static_cast<const int*>(ids), x_div, experts};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs < 1 || pairs > 65535 || x_div < 1 || experts < 1 ||
+      (bits != 2 && bits != 4 && bits != 8))
+    return (int)cudaErrorInvalidValue;
+  if (x_code == 0)
+    return (int)for_bits_m(bits, 1, [&](auto b, auto) {
+      return launch_gemv_fma<decltype(b)::value, 1, true>(p, s, r, pairs);
+    });
+  if (x_code == 1)
+    return (int)for_bits_m(bits, 1, [&](auto b, auto) {
+      return for_group(group_size, [&](auto g) {
+        return launch_gemv_tc<decltype(b)::value, 1, decltype(g)::value, true>(p, 0, nullptr, s,
+                                                                              r, pairs);
       });
     });
   return (int)cudaErrorInvalidValue;

@@ -46,7 +46,7 @@ def counted_wrappers() -> tuple:
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 
     return (fa.flash_attention, fa.flash_decode, pa.paged_attention, qm.quant_gemv,
-            qm.quant_matmul)
+            qm.quant_matmul, qm.quant_gemv_experts)
 
 
 def model_pool(model) -> tuple:

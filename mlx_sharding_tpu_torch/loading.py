@@ -91,15 +91,19 @@ def load_raw_weights(model_path: Path) -> dict[str, torch.Tensor]:
 
 
 def dequantize_weights(weights: dict, quantization: dict, dtype=torch.bfloat16,
-                       keep_packed_layers: bool = False) -> dict:
+                       keep_packed_layers: bool = False,
+                       keep_dense_re: Optional[str] = None) -> dict:
     """Process every MLX ``{weight, scales, biases}`` triple: a weight is
     quantized iff its ``.scales`` sibling exists. By default it becomes a
     dense ``dtype`` weight. With ``keep_packed_layers``, decoder-layer
     projections and the vocab pair (``embed_tokens``, ``lm_head``) stay
     packed as ``{q, scales, biases}`` for the quant kernels, scales and
-    biases in the checkpoint's dtype; anything else still dequantizes."""
+    biases in the checkpoint's dtype, except the names ``keep_dense_re``
+    matches (``model.packed_keep_dense_re``: a MoE router); anything else
+    still dequantizes."""
     group_size = int(quantization.get("group_size", 64))
     bits = int(quantization.get("bits", 4))
+    dense_re = re.compile(keep_dense_re) if keep_dense_re else None
     out = {}
     for name, value in weights.items():
         base, _, leaf = name.rpartition(".")
@@ -109,7 +113,7 @@ def dequantize_weights(weights: dict, quantization: dict, dtype=torch.bfloat16,
             scales, biases = weights[f"{base}.scales"], weights[f"{base}.biases"]
             if keep_packed_layers and (
                 LAYER_RE.search(name) or "embed_tokens" in name or "lm_head" in name
-            ):
+            ) and not (dense_re and dense_re.search(name)):
                 out[name] = {"q": value, "scales": scales, "biases": biases}
                 continue
             value = dequantize(value, scales, biases, group_size, bits, dtype)
@@ -163,7 +167,8 @@ def load_model(path: str, start_layer: Optional[int] = None, end_layer: Optional
     weights = load_raw_weights(model_path)
     if config.quantization is not None:
         weights = dequantize_weights(weights, config.quantization, dtype,
-                                     keep_packed_layers=keep_quantized)
+                                     keep_packed_layers=keep_quantized,
+                                     keep_dense_re=model.packed_keep_dense_re())
     weights = filter_stage_weights(weights, config)
     model.load_weights(model.map_weights(weights), dev, dtype)
     return model, config

@@ -1,24 +1,34 @@
-"""Model construction (port of ``mlx_sharding_tpu/models/__init__.py``).
-
-Only the Llama family (Llama, Mistral, Qwen2) is ported; every other
-architecture raises and names the ROADMAP item that brings it.
+"""Model construction (port of ``mlx_sharding_tpu/models/__init__.py``): a
+registry keyed like JAX's by the remapped ``model_type``. DeepSeek-V2 is
+not yet ported and raises, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 
 from mlx_sharding_tpu_torch.config import config_from_dict
-from mlx_sharding_tpu_torch.models.llama import LlamaModel
+
+# model_type -> (module, class)
+MODEL_REGISTRY: dict[str, tuple[str, str]] = {
+    "llama": ("mlx_sharding_tpu_torch.models.llama", "LlamaModel"),
+    "qwen3": ("mlx_sharding_tpu_torch.models.qwen3", "Qwen3Model"),
+    "gemma2": ("mlx_sharding_tpu_torch.models.gemma2", "Gemma2Model"),
+    "mixtral": ("mlx_sharding_tpu_torch.models.mixtral", "MixtralModel"),
+}
 
 
 def build_model(config_dict: dict, dtype=torch.bfloat16):
     """config.json dict -> (model on the ``meta`` device, config). Give it
     weights with ``model.init_params`` or ``load_state_dict(assign=True)``."""
     cfg = config_from_dict(config_dict)
-    if cfg.model_type != "llama":
+    if cfg.model_type == "deepseek_v2":
         raise NotImplementedError(
-            f"model type {cfg.model_type!r} is not yet ported to PyTorch: see "
-            "ROADMAP.md queue 1, item 5 (the other model families)"
+            "model type 'deepseek_v2' is not yet ported to PyTorch: see ROADMAP.md queue 1, "
+            "slice 5, DeepSeek-V2 (MLA, YaRN and grouped-limited gating)"
         )
-    return LlamaModel(cfg, dtype=dtype), cfg
+    module_name, class_name = MODEL_REGISTRY[cfg.model_type]
+    cls = getattr(importlib.import_module(module_name), class_name)
+    return cls(cfg, dtype=dtype), cfg

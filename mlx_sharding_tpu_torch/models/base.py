@@ -28,7 +28,9 @@ class QuantizedLinear(nn.Module):
     """A projection kept packed: buffers ``q`` (OUT, IN*bits/32) int32 (the
     checkpoint's 32-bit words), ``scales`` and ``biases`` (OUT,
     IN/group_size) in the checkpoint's dtype, and an optional dense
-    ``bias`` (OUT,) (Qwen2's QKV biases stay dense in MLX checkpoints)."""
+    ``bias`` (OUT,) (Qwen2's QKV biases stay dense in MLX checkpoints). A
+    stack of experts' projections carries leading dims, (E, OUT, ...), and
+    is read by ``ops.moe``, not called."""
 
     def __init__(self, q, scales, biases, group_size: int = 64, bits: int = 4, bias=None):
         super().__init__()
@@ -41,15 +43,16 @@ class QuantizedLinear(nn.Module):
 
     @classmethod
     def empty(cls, out_dim: int, in_dim: int, group_size: int, bits: int, *,
-              bias_dtype, param_dtype) -> "QuantizedLinear":
+              bias_dtype, param_dtype, lead: tuple = ()) -> "QuantizedLinear":
         """A module of the right shapes on the ``meta`` device, to be given
-        its tensors by ``load_state_dict(..., assign=True)``."""
+        its tensors by ``load_state_dict(..., assign=True)``; ``lead``: the
+        leading dims of a stack (experts)."""
         kw = dict(device="meta")
         groups = in_dim // group_size
         return cls(
-            torch.empty(out_dim, in_dim * bits // 32, dtype=torch.int32, **kw),
-            torch.empty(out_dim, groups, dtype=param_dtype, **kw),
-            torch.empty(out_dim, groups, dtype=param_dtype, **kw),
+            torch.empty(*lead, out_dim, in_dim * bits // 32, dtype=torch.int32, **kw),
+            torch.empty(*lead, out_dim, groups, dtype=param_dtype, **kw),
+            torch.empty(*lead, out_dim, groups, dtype=param_dtype, **kw),
             group_size, bits,
             None if bias_dtype is None else torch.empty(out_dim, dtype=bias_dtype, **kw),
         )
@@ -97,7 +100,10 @@ def apply_projection_fusion(model) -> list[str]:
 class BaseModel(nn.Module):
     """Common surface: ``forward(x, cache) -> (logits or hidden, cache)``
     where ``x`` is token ids (B, T) on the first stage or hidden states
-    (B, T, H) downstream."""
+    (B, T, H) downstream. The families override the hooks of the JAX
+    ``BaseModel``: ``embed_transform``, ``head_input``, ``head_transform``,
+    ``head_is_tied``, ``packed_keep_dense_re`` and, for the attention's
+    options, ``attn_options``."""
 
     #: projections may stay packed (``loading.load_model(keep_quantized=True)``)
     supports_packed = False
@@ -122,12 +128,26 @@ class BaseModel(nn.Module):
 
     def sp_layer(self, p, h, offset, attn_fn):
         """One decoder layer with the attention op injected (JAX
-        ``BaseModel.sp_layer``): ``attn_fn(q, k_new, v_new) -> attn``. The
-        ragged paged decode passes one that writes the new rows into the
-        page pool and attends over the pool in place; ``offset`` is then a
-        (B,) tensor of per-row positions. Returns ``(h, k_new, v_new)``."""
+        ``BaseModel.sp_layer``): ``attn_fn(q, k_new, v_new, **opts) ->
+        attn``, ``opts`` the layer's :meth:`attn_options` (a logit softcap,
+        a sliding window). The ragged paged decode passes one that writes
+        the new rows into the page pool and attends over the pool in place;
+        ``offset`` is then a (B,) tensor of per-row positions. Returns
+        ``(h, k_new, v_new)``."""
         q, k, v = self.layer_attn_inputs(p, h, offset)
-        return self.layer_finish(p, h, attn_fn(q, k, v)), k, v
+        return self.layer_finish(p, h, attn_fn(q, k, v, **self.attn_options(p))), k, v
+
+    def attn_options(self, p) -> dict:
+        """The attention options of layer ``p``: ``logit_softcap`` and
+        ``sliding_window`` as host numbers (a layer's launch is fixed, so a
+        CUDA graph holds it). None: standard causal attention."""
+        return {}
+
+    def packed_keep_dense_re(self):
+        """Regex over HF weight names that stay dense under
+        ``keep_quantized`` (a MoE router, consumed by the routing's own
+        product)."""
+        return None
 
     def place_constants(self, device) -> None:
         """Move constants made on the host (RoPE tables) to ``device``."""
@@ -155,8 +175,9 @@ class BaseModel(nn.Module):
             parent, _, name = path.rpartition(".")
             words, bias = value["q"], sd.get(f"{path}.bias")
             setattr(self.get_submodule(parent) if parent else self, name, QuantizedLinear.empty(
-                words.shape[0], words.shape[1] * 32 // bits, group_size, bits,
+                words.shape[-2], words.shape[-1] * 32 // bits, group_size, bits,
                 bias_dtype=None if bias is None else dtype, param_dtype=value["scales"].dtype,
+                lead=tuple(words.shape[:-2]),
             ))
             flat[f"{path}.q"] = words.to(device)
             flat[f"{path}.scales"] = value["scales"].to(device)
@@ -188,7 +209,7 @@ class BaseModel(nn.Module):
         return init_cache(cfg.num_local_layers, batch, max_seq, cfg.num_key_value_heads,
                           cfg.head_dim, self.dtype, self.device)
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_tokens_rows(self, tokens: torch.Tensor) -> torch.Tensor:
         table = self.embed_tokens
         if isinstance(table, QuantizedLinear):
             # gather the looked-up rows' words, scales and biases and
@@ -197,16 +218,31 @@ class BaseModel(nn.Module):
                               table.group_size, table.bits, self.compute_dtype)
         return F.embedding(tokens, table.weight)
 
+    def embed_transform(self, h: torch.Tensor) -> torch.Tensor:
+        """Post-lookup transform (Gemma-2 scales by sqrt(hidden))."""
+        return h
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed_transform(self.embed_tokens_rows(tokens))
+
     def head_input(self, h):
         """Transform before the vocab projection (the final norm)."""
         raise NotImplementedError
 
+    def head_transform(self, logits: torch.Tensor) -> torch.Tensor:
+        """Elementwise transform after the vocab projection (Gemma-2's final
+        softcap)."""
+        return logits
+
+    def head_is_tied(self) -> bool:
+        """True when logits project through the embedding table."""
+        return bool(self.config.tie_word_embeddings)
+
     def apply_head(self, h: torch.Tensor) -> torch.Tensor:
         """Logits through the LM head, or the embedding when it is tied. A
         packed table is already (V, H), the head's packed orientation."""
-        tied = self.config.tie_word_embeddings
-        head = self.embed_tokens if tied else self.lm_head
+        head = self.embed_tokens if self.head_is_tied() else self.lm_head
         h = self.head_input(h)
         if isinstance(head, QuantizedLinear):
-            return head(h)
-        return F.linear(h, head.weight)
+            return self.head_transform(head(h))
+        return self.head_transform(F.linear(h, head.weight))

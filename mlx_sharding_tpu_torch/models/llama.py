@@ -1,5 +1,7 @@
 """Llama-family decoder (port of ``mlx_sharding_tpu/models/llama.py``); it
-also serves Mistral and Qwen2 (QKV biases) through ``MODEL_REMAPPING``.
+also serves Mistral and Qwen2 (QKV biases) through ``MODEL_REMAPPING``, and
+is the base of the Qwen3, Gemma-2 and Mixtral modules, which override its
+layer hooks.
 
 Pipeline-stage aware like the JAX model: the embedding only on the first
 stage, the final norm and head only on the last; ``[start_layer,
@@ -24,17 +26,28 @@ from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
 
 
 class LlamaLayer(nn.Module):
+    """One decoder layer's weights on the ``meta`` device: the attention,
+    and the norms and the MLP, which the families' layers override."""
+
     def __init__(self, cfg: LlamaConfig, dtype):
         super().__init__()
         hd, d = cfg.hidden_size, cfg.head_dim
-        hq, hkv, inter = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
+        hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        bias = getattr(cfg, "attention_bias", False)
         kw = dict(device="meta", dtype=dtype)
         self.input_norm = nn.Parameter(torch.empty(hd, **kw))
-        self.post_norm = nn.Parameter(torch.empty(hd, **kw))
-        self.q_proj = nn.Linear(hd, hq * d, bias=cfg.attention_bias, **kw)
-        self.k_proj = nn.Linear(hd, hkv * d, bias=cfg.attention_bias, **kw)
-        self.v_proj = nn.Linear(hd, hkv * d, bias=cfg.attention_bias, **kw)
+        self.init_norms(cfg, kw)
+        self.q_proj = nn.Linear(hd, hq * d, bias=bias, **kw)
+        self.k_proj = nn.Linear(hd, hkv * d, bias=bias, **kw)
+        self.v_proj = nn.Linear(hd, hkv * d, bias=bias, **kw)
         self.o_proj = nn.Linear(hq * d, hd, bias=False, **kw)
+        self.init_mlp(cfg, kw)
+
+    def init_norms(self, cfg, kw) -> None:
+        self.post_norm = nn.Parameter(torch.empty(cfg.hidden_size, **kw))
+
+    def init_mlp(self, cfg, kw) -> None:
+        hd, inter = cfg.hidden_size, cfg.intermediate_size
         self.gate_proj = nn.Linear(hd, inter, bias=False, **kw)
         self.up_proj = nn.Linear(hd, inter, bias=False, **kw)
         self.down_proj = nn.Linear(inter, hd, bias=False, **kw)
@@ -43,6 +56,10 @@ class LlamaLayer(nn.Module):
 class LlamaModel(BaseModel):
     # projections may stay packed (loading.load_model(keep_quantized=True))
     supports_packed = True
+    #: the module of one decoder layer
+    LAYER = LlamaLayer
+    #: RMSNorm's weight offset (Gemma-2 scales by 1 + w)
+    NORM_OFFSET = 0.0
     # HF per-layer weight names -> this module's names
     HF_LAYER_MAP = {
         "input_layernorm.weight": "input_norm",
@@ -64,7 +81,7 @@ class LlamaModel(BaseModel):
     def __init__(self, config: LlamaConfig, dtype=torch.bfloat16):
         super().__init__(config, dtype)
         cfg = config
-        self.layers = nn.ModuleList(LlamaLayer(cfg, dtype) for _ in range(cfg.num_local_layers))
+        self.layers = nn.ModuleList(self.LAYER(cfg, dtype) for _ in range(cfg.num_local_layers))
         kw = dict(device="meta", dtype=dtype)
         if cfg.needs_embed:
             self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
@@ -94,7 +111,7 @@ class LlamaModel(BaseModel):
         b, t, _ = h.shape
         d = self.config.head_dim
         cfg = self.config
-        r = rms_norm(h, p.input_norm, cfg.rms_norm_eps)
+        r = rms_norm(h, p.input_norm, cfg.rms_norm_eps, offset=self.NORM_OFFSET)
         if hasattr(p, "qkv_proj"):
             # fused packed projection (Generator applies the fusion): one
             # launch; the split sizes come from the config
@@ -103,9 +120,15 @@ class LlamaModel(BaseModel):
         else:
             q, k, v = (self._linear(r, proj) for proj in (p.q_proj, p.k_proj, p.v_proj))
         q, k, v = (y.reshape(b, t, -1, d) for y in (q, k, v))
+        q, k = self.head_norms(p, q, k)
         if self.inv_freq.device != h.device:
             self.place_constants(h.device)
         return apply_rope(q, self.inv_freq, offset), apply_rope(k, self.inv_freq, offset), v
+
+    def head_norms(self, p, q, k):
+        """Per-head transform of q and k (B, T, heads, D) before RoPE
+        (Qwen3's RMSNorms); none in Llama."""
+        return q, k
 
     def layer_finish(self, p: LlamaLayer, h, attn):
         """Output projection and the SwiGLU MLP, each with its residual."""
@@ -127,7 +150,7 @@ class LlamaModel(BaseModel):
         q, k, v = self.layer_attn_inputs(p, h, where)
         k_buf, v_buf = write_layer_kv(k_buf, v_buf, k, v, where)
         attn = causal_attention(q, k_buf, v_buf, offset, self.scale, position=pos,
-                                lengths=lengths)
+                                lengths=lengths, **self.attn_options(p))
         return self.layer_finish(p, h, attn)
 
     def fused_projection_groups(self) -> dict:
@@ -178,7 +201,7 @@ class LlamaModel(BaseModel):
         (out, in) orientation; ``load_weights`` places them."""
         cfg = self.config
         names = dict(self.HF_LAYER_MAP)
-        if cfg.attention_bias:
+        if getattr(cfg, "attention_bias", False):
             names.update(self.HF_BIAS_MAP)
         sd = {}
         for i in range(cfg.start_layer, cfg.end_layer):
@@ -199,18 +222,19 @@ class LlamaModel(BaseModel):
 
     def init_params(self, generator: torch.Generator, device) -> "LlamaModel":
         """Random weights drawn on ``device`` from ``generator`` (tests and
-        benchmarks only), with the JAX model's recipe: unit norms, normal
-        projections scaled by 1/sqrt(in), a 0.02-scaled embedding."""
+        benchmarks only), with the JAX model's recipe: unit norms (zeros
+        under a norm offset of 1), normal projections scaled by 1/sqrt(in)
+        (expert stacks too), a 0.02-scaled embedding."""
         self.to_empty(device=device)
         for name, w in self.named_parameters():
             if "norm" in name:
-                w.fill_(1.0)
+                w.fill_(1.0 - self.NORM_OFFSET)
             elif name.endswith(".bias"):
                 w.zero_()
             elif name == "embed_tokens.weight":
                 w.normal_(0.0, 0.02, generator=generator)
-            else:  # (out, in) projections, the LM head included
-                w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator)
+            else:  # (..., out, in) projections, the LM head included
+                w.normal_(0.0, 1.0 / math.sqrt(w.shape[-1]), generator=generator)
         return self
 
 

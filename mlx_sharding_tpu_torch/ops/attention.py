@@ -49,14 +49,17 @@ def flash_decode_on() -> bool:
 
 def flash_eligible(q, k, v, logit_softcap=None, sliding_window=None) -> bool:
     """The dispatch rule of ``_flash_eligible`` (JAX ``ops/attention.py``):
-    ``MST_FLASH=0`` turns the kernel off; standard causal GQA (no softcap
-    or window; the JAX package's reserved ``sinks`` argument has no caller
-    and is not carried over), T a multiple of 128, or T = 1 with
-    ``MST_FLASH_DECODE=1`` (:func:`flash_decode_on`), S a multiple of 128,
-    head dims multiples of 64 that the kernels hold."""
+    ``MST_FLASH=0`` turns the kernel off; causal GQA, T a multiple of 128,
+    or T = 1 with ``MST_FLASH_DECODE=1`` (:func:`flash_decode_on`), S a
+    multiple of 128, head dims multiples of 64 that the kernels hold.
+
+    Unlike JAX's rule it takes a logit softcap and a sliding window (the
+    options are not part of the rule): JAX refuses them only because its
+    Pallas kernels lack them and sends such calls to its plain XLA path;
+    both kernels here compute them, and the function is the same. The JAX
+    package's reserved ``sinks`` argument has no caller and is not carried
+    over."""
     if os.environ.get("MST_FLASH", "1") == "0":
-        return False
-    if logit_softcap is not None or sliding_window is not None:
         return False
     t, dk = q.shape[1], q.shape[-1]
     s, dv = k.shape[1], v.shape[-1]
@@ -89,12 +92,16 @@ def causal_attention(
     call to the T=1 route with ``lengths`` (:func:`decode_lengths` of it,
     shared by a forward's layers), and every call the kernels do not take
     to :func:`masked_attention`."""
+    # the options the call has (none for standard causal attention)
+    options = {name: value for name, value in (("logit_softcap", logit_softcap),
+                                               ("sliding_window", sliding_window))
+               if value is not None}
     if flash_eligible(q, k, v, logit_softcap, sliding_window):
         if q.shape[1] > 1:
-            return flash_attention(q, k, v, offset, scale)
+            return flash_attention(q, k, v, offset, scale, **options)
         if position is None:
             position = torch.full((1,), int(offset), dtype=torch.int64, device=q.device)
-        return flash_decode(q, k, v, position, scale, lengths=lengths)
+        return flash_decode(q, k, v, position, scale, lengths=lengths, **options)
     if position is not None:
         return masked_attention(q, k, v, position, scale, logit_softcap=logit_softcap,
                                 sliding_window=sliding_window)

@@ -14,6 +14,13 @@ fill the card, the walk over each row tile's causal prefix is split into
 chunks of keys (:func:`plan_split`), whose partial results a second kernel
 merges. Both launches are one call and one count.
 
+Gemma-2's logit softcap and sliding window are options of the kernel and of
+its T=1 route, computed as the JAX package's plain path computes them:
+scaled scores, then ``cap * tanh(s / cap)``, then the mask ``q_pos - window
+< k_pos <= q_pos``. With a window a row tile's walk starts at its first
+row's window (:func:`tile_kv_range`): key tiles before it are skipped, and
+the split plan cuts the walk from there.
+
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises; on a
 CPU tensor it computes :func:`flash_attention_reference`, the plain version
 of the same function. There is no other route and no fallback.
@@ -76,12 +83,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Hq, Hkv, Dk, Dv
         ctypes.POINTER(ctypes.c_longlong),  # 12 strides
         ctypes.c_int, ctypes.c_float,  # offset, scale
+        ctypes.c_float, ctypes.c_int,  # logit softcap (0: none), sliding window (0: none)
         ctypes.c_int,  # split
         ctypes.c_void_p,  # stream
     ]
     lib.mst_flash_attention_kernel_info.restype = ctypes.c_int
     lib.mst_flash_attention_kernel_info.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
 
 
 _LIBRARY = CudaLibrary("flash_attention.cu", _bind)
@@ -94,12 +102,14 @@ def build() -> str:
     return _LIBRARY.build()
 
 
-def kernel_info(dk: int, dv: int) -> dict:
+def kernel_info(dk: int, dv: int, options: bool = False) -> dict:
     """The bf16 variant's shared bytes per block, registers per thread,
     resident blocks per SM and local (spill) bytes per thread, as the CUDA
-    runtime reports them on the current card."""
+    runtime reports them on the current card; ``options``: the build that
+    takes a softcap and a window."""
     out = (ctypes.c_longlong * 4)()
-    _LIBRARY.check(_LIBRARY.get().mst_flash_attention_kernel_info(dk, dv, out), "kernel_info")
+    _LIBRARY.check(_LIBRARY.get().mst_flash_attention_kernel_info(dk, dv, int(options), out),
+                   "kernel_info")
     return dict(shared_bytes=out[0], registers=out[1], blocks_per_sm=out[2], local_bytes=out[3])
 
 
@@ -115,19 +125,38 @@ def tile_kv_end(t: int, groups: int, s: int, offset: int, tile: int) -> int:
     return min(s, offset + last_row // groups + 1)
 
 
-def num_splits(t: int, s: int, offset: int, split: int) -> int:
-    """Blocks along the walk for ``split`` keys per block (0: one)."""
-    return -(-min(s, offset + t) // split) if split else 1
+def tile_kv_range(t: int, groups: int, s: int, offset: int, tile: int,
+                  window: Optional[int] = None) -> tuple:
+    """The keys ``[first, end)`` row tile ``tile`` reads: from 0, or with a
+    sliding window from its first row's window (later rows' windows start
+    later), to its causal end."""
+    first = max(0, offset + tile * BLOCK_ROWS // groups - window + 1) if window else 0
+    return first, tile_kv_end(t, groups, s, offset, tile)
 
 
-def plan_split(b: int, t: int, s: int, hq: int, hkv: int, offset: int, sms: int) -> int:
+def longest_walk(t: int, groups: int, s: int, offset: int, window: Optional[int] = None) -> int:
+    """Keys of the longest row tile's walk."""
+    return max(e - f for f, e in (tile_kv_range(t, groups, s, offset, i, window)
+                                  for i in range(row_tiles(t, groups))))
+
+
+def num_splits(t: int, s: int, offset: int, split: int, groups: int = 1,
+               window: Optional[int] = None) -> int:
+    """Blocks along the longest row tile's walk for ``split`` keys per block
+    (0: one); ``groups`` (Hq / Hkv) matters only with a window."""
+    return -(-longest_walk(t, groups, s, offset, window) // split) if split else 1
+
+
+def plan_split(b: int, t: int, s: int, hq: int, hkv: int, offset: int, sms: int,
+               window: Optional[int] = None) -> int:
     """Keys per block of the bf16 walk, 0 for the whole walk. The walk is
     split only when the (row tile, KV head, batch) blocks leave room for
     two or more times as many in one wave of ``RESIDENT_BLOCKS`` per SM:
     then into as many chunks as that wave holds, if each keeps at least
     ``MIN_SPLIT`` keys (a shorter walk pays more for its partials and the
-    merge than the extra blocks give back)."""
-    kv_len = min(s, offset + t)
+    merge than the extra blocks give back). The walk is the longest row
+    tile's, which a sliding window shortens."""
+    kv_len = longest_walk(t, hq // hkv, s, offset, window)
     chunks = RESIDENT_BLOCKS * sms // (b * hkv * row_tiles(t, hq // hkv))
     if chunks < 2:
         return 0
@@ -136,18 +165,19 @@ def plan_split(b: int, t: int, s: int, hq: int, hkv: int, offset: int, sms: int)
     return split if MIN_SPLIT <= split < kv_len else 0
 
 
-def split_chunks(t: int, groups: int, s: int, offset: int, split: int) -> list:
+def split_chunks(t: int, groups: int, s: int, offset: int, split: int,
+                 window: Optional[int] = None) -> list:
     """For each row tile, the (first, end) key ranges of the blocks that do
-    work, as the kernel walks them: chunk c of ``split`` keys is launched for
-    every tile and returns at once where it starts at or past the tile's
-    causal end."""
+    work, as the kernel walks them: chunk c of ``split`` keys from the
+    tile's first key is launched for every tile and returns at once where
+    it starts at or past the tile's causal end."""
     plan = []
+    n = num_splits(t, s, offset, split, groups, window)
     for tile in range(row_tiles(t, groups)):
-        kv_end = tile_kv_end(t, groups, s, offset, tile)
+        first, kv_end = tile_kv_range(t, groups, s, offset, tile, window)
         step = split or s
         plan.append([(kb, min(kb + step, kv_end))
-                     for kb in (c * step for c in range(num_splits(t, s, offset, split)))
-                     if kb < kv_end])
+                     for kb in (first + c * step for c in range(n)) if kb < kv_end])
     return plan
 
 
@@ -165,10 +195,10 @@ def flash_attention_reference(
     """The plain version: softmax over the causal prefix in fp32, the same
     function the kernel computes (and the TPU kernel before it).
 
-    It is also the plain grouped-GQA path of ``causal_attention``, which
-    adds what the kernel does not take (a logit softcap, a sliding window)
-    and rounds the probs to ``probs_dtype`` (v's dtype) before the product,
-    as the JAX package's plain path does."""
+    It is also the plain grouped-GQA path of ``causal_attention`` for the
+    chunks the kernel does not take (T not a multiple of 128), which rounds
+    the probs to ``probs_dtype`` (v's dtype) before the product, as the JAX
+    package's plain path does."""
     b, t, hq, dk = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     # keys at or past offset + T are masked for every query: leave them out
@@ -189,11 +219,14 @@ def flash_attention_reference(
     return out.reshape(b, t, hq, dv).to(q.dtype)
 
 
-def flash_attention_split_reference(q, k, v, offset: int, scale: float, split: int) -> torch.Tensor:
+def flash_attention_split_reference(q, k, v, offset: int, scale: float, split: int, *,
+                                    logit_softcap: Optional[float] = None,
+                                    sliding_window: Optional[int] = None) -> torch.Tensor:
     """The bf16 kernel's walk in plain PyTorch, in fp32, for the tests: the
     packed row tiles, each chunk of :func:`split_chunks` as one block that
     keeps its running max (log2 units), normaliser and accumulator, then the
-    merge that rescales the chunks to their common max."""
+    merge that rescales the chunks to their common max. A chunk that holds
+    none of a row's keys keeps max -1e30 and sum 0, and weighs nothing."""
     b, t, hq, dk = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
@@ -202,13 +235,19 @@ def flash_attention_split_reference(q, k, v, offset: int, scale: float, split: i
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # (B, Hkv, S, D)
     pos = offset + torch.arange(t * g, device=q.device) // g
     out = torch.empty((b, hkv, t * g, dv), dtype=torch.float32, device=q.device)
-    for tile, chunks in enumerate(split_chunks(t, g, s, offset, split)):
+    for tile, chunks in enumerate(split_chunks(t, g, s, offset, split, sliding_window)):
         r = slice(tile * BLOCK_ROWS, min((tile + 1) * BLOCK_ROWS, t * g))
         parts = []
         for kb, ke in chunks:
-            sc = qp[:, :, r] @ kf[:, :, kb:ke].transpose(-1, -2) * (scale * math.log2(math.e))
+            sc = qp[:, :, r] @ kf[:, :, kb:ke].transpose(-1, -2) * scale
+            if logit_softcap is not None:
+                sc = logit_softcap * torch.tanh(sc / logit_softcap)
+            sc = sc * math.log2(math.e)
             keys = torch.arange(kb, ke, device=q.device)
-            sc = sc.masked_fill(keys[None, :] > pos[r, None], NEG_INF)
+            out_of_reach = keys[None, :] > pos[r, None]
+            if sliding_window is not None:
+                out_of_reach |= keys[None, :] <= pos[r, None] - sliding_window
+            sc = sc.masked_fill(out_of_reach, NEG_INF)
             m = sc.amax(-1)
             m_use = torch.where(m == NEG_INF, torch.zeros_like(m), m)
             p = torch.exp2(sc - m_use[..., None])
@@ -247,18 +286,24 @@ def _check(q, k, v, offset: int) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
-def flash_attention(q, k, v, offset: int, scale: float) -> torch.Tensor:
+def flash_attention(q, k, v, offset: int, scale: float, *,
+                    logit_softcap: Optional[float] = None,
+                    sliding_window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention of a prefill chunk over the full-capacity cache.
 
     q (B, T, Hq, Dk), k (B, S, Hkv, Dk), v (B, S, Hkv, Dv); query row i sits
     at absolute position ``offset + i`` (a host int) and sees keys at or
-    before it. Returns (B, T, Hq, Dv) in q's dtype. CUDA tensors launch the
-    kernel, with its merge pass when the bf16 walk is split (counted once in
+    before it (and, with ``sliding_window``, after ``offset + i -
+    sliding_window``); ``logit_softcap`` caps the scaled scores. Returns
+    (B, T, Hq, Dv) in q's dtype. CUDA tensors launch the kernel, with its
+    merge pass when the bf16 walk is split (counted once in
     ``flash_attention.launches``); CPU tensors take
     :func:`flash_attention_reference`."""
     _check(q, k, v, offset)
+    cap, window = paged.kernel_options(logit_softcap, sliding_window)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, offset, scale)
+        return flash_attention_reference(q, k, v, offset, scale, logit_softcap=logit_softcap,
+                                         sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     vec = 16 // q.element_size()
@@ -279,10 +324,11 @@ def flash_attention(q, k, v, offset: int, scale: float) -> torch.Tensor:
     if q.dtype == torch.bfloat16:  # the fp32 kernel always walks whole
         split = SPLIT_KEYS
         if split is None:
-            split = plan_split(b, t, s, hq, hkv, offset, _sm_count(q.device.index or 0))
+            split = plan_split(b, t, s, hq, hkv, offset, _sm_count(q.device.index or 0),
+                               sliding_window)
         if split < 0 or split % SPLIT_ALIGN:
             raise ValueError(f"SPLIT_KEYS must be None, 0 or a multiple of {SPLIT_ALIGN}")
-        splits = num_splits(t, s, offset, split)
+        splits = num_splits(t, s, offset, split, hq // hkv, sliding_window)
         if splits > 1:  # scratch of the split walk, merged by the second kernel
             n = b * hkv * row_tiles(t, hq // hkv) * splits * BLOCK_ROWS
             part_o = torch.empty((n, dv), dtype=torch.float32, device=q.device)
@@ -294,7 +340,7 @@ def flash_attention(q, k, v, offset: int, scale: float) -> torch.Tensor:
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             _DTYPE_CODES[q.dtype], b, t, s, hq, hkv, q.shape[-1], dv,
-            strides, offset, float(scale), split,
+            strides, offset, float(scale), cap, window, split,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _LIBRARY.check(err, "flash_attention")
@@ -349,37 +395,48 @@ def _decode_operands(q, k, v):
     return q.reshape(b, hq, dk).contiguous(), pool(k), pool(v)
 
 
-def flash_decode_reference(q, k, v, lengths: torch.Tensor, scale: float) -> torch.Tensor:
+def flash_decode_reference(q, k, v, lengths: torch.Tensor, scale: float, *,
+                           logit_softcap: Optional[float] = None,
+                           sliding_window: Optional[int] = None) -> torch.Tensor:
     """The plain version of :func:`flash_decode`: the paged decode's plain
     version (``paged_attention_reference``) over the same paged view, the
     same identity tables and the same lengths. Returns (B, 1, Hq, Dv)."""
     qm, kp, vp = _decode_operands(q, k, v)
     tables = decode_tables(q.shape[0], k.shape[1], q.device)
-    out = paged.paged_attention_reference(qm, kp, vp, tables, lengths, scale)
+    out = paged.paged_attention_reference(qm, kp, vp, tables, lengths, scale,
+                                          logit_softcap=logit_softcap,
+                                          sliding_window=sliding_window)
     return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
 
 
 def flash_decode(q, k, v, position: torch.Tensor, scale: float, *,
-                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 lengths: Optional[torch.Tensor] = None,
+                 logit_softcap: Optional[float] = None,
+                 sliding_window: Optional[int] = None) -> torch.Tensor:
     """The T=1 decode route of the flash kernel: q (B, 1, Hq, Dk) at the
     device position ``position`` (a (1,) tensor) attends to positions
     ``0 .. position`` of the full-capacity cache k (B, S, Hkv, Dk), v (B, S,
-    Hkv, Dv). ``lengths`` is :func:`decode_lengths` of that position, which
-    a forward computes once for all its layers (made here if None). Returns
-    (B, 1, Hq, Dv) in q's dtype. CUDA tensors launch the paged kernel once
+    Hkv, Dv) (with ``sliding_window``, those after ``position -
+    sliding_window``; ``logit_softcap`` caps the scaled scores).
+    ``lengths`` is :func:`decode_lengths` of that position, which a forward
+    computes once for all its layers (made here if None). Returns (B, 1,
+    Hq, Dv) in q's dtype. CUDA tensors launch the paged kernel once
     (counted in ``flash_decode.launches``); CPU tensors take
     :func:`flash_decode_reference`."""
     _check(q, k, v, 0)
+    paged.kernel_options(logit_softcap, sliding_window)
     if lengths is None:
         lengths = decode_lengths(position, q.shape[0], k.shape[1])
     if q.device.type == "cpu":
-        return flash_decode_reference(q, k, v, lengths, scale)
+        return flash_decode_reference(q, k, v, lengths, scale, logit_softcap=logit_softcap,
+                                      sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu tensors, not {q.device}")
     qm, kp, vp = _decode_operands(q, k, v)
     tables = decode_tables(q.shape[0], k.shape[1], q.device)
     paged._check(qm, kp, vp, tables, lengths, None, None)
-    out = paged.launch(qm, kp, vp, tables, lengths, scale)
+    out = paged.launch(qm, kp, vp, tables, lengths, scale, logit_softcap=logit_softcap,
+                       sliding_window=sliding_window)
     flash_decode.launches += 1
     return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
 

@@ -18,6 +18,12 @@ launches the kernel or raises; on a CPU tensor it computes
 :func:`paged_attention_reference`, the plain version (the JAX package's
 ``_paged_attention_xla``). The JAX op's ``MST_PAGED_KERNEL`` switch selects
 a fallback and is not carried over.
+
+Gemma-2's logit softcap and sliding window are options of the kernel (the
+JAX package sends them to ``_paged_attention_xla``, outside its Pallas
+kernel; the function is the same): a window's walk starts at the window's
+first page, and the split plan cuts the walk the window leaves.
+``values_from_k`` (MLA) waits for the DeepSeek-V2 slice.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pool pages, page size, pages per slot
         ctypes.c_int,  # split
         ctypes.c_float,  # scale
+        ctypes.c_float, ctypes.c_int,  # logit softcap (0: none), sliding window (0: none)
         ctypes.c_void_p,  # stream
     ]
     lib.mst_paged_attention_kernel_info.restype = ctypes.c_int
@@ -98,14 +105,18 @@ def head_chunks(hq: int, hkv: int) -> int:
     return -(-(hq // hkv) // HEADS_PER_BLOCK)
 
 
-def plan_paged_split(m: int, hkv_chunks: int, page: int, spg: int, sms: int) -> int:
+def plan_paged_split(m: int, hkv_chunks: int, page: int, spg: int, sms: int,
+                     window: Optional[int] = None) -> int:
     """Positions per work item of the page walk, 0 for the whole walk. From
     the shapes alone (never ``lengths``: no host sync, so a CUDA graph can
     hold the call): the longest multiple of ``SPLIT_ALIGN`` up to
     ``MAX_SPLIT`` for which a full-length walk of the ``m * hkv_chunks``
     (slot, KV head, head chunk) rows gives each of the card's ``sms`` SMs an
-    item."""
+    item. A sliding window bounds the walk to the window and the tile its
+    first key falls in."""
     reach = page * spg
+    if window:
+        reach = min(reach, window + SPLIT_ALIGN)
     per_row = -(-sms // (m * hkv_chunks))  # splits a row needs
     # the longest split that still cuts the reach into per_row pieces
     longest = (reach - 1) // (per_row - 1) if per_row > 1 else MAX_SPLIT
@@ -123,12 +134,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def kernel_options(logit_softcap=None, sliding_window=None) -> tuple:
+    """The kernels' encoding of Gemma-2's two options, (cap, window), 0 for
+    none (kernels 1 and 2 share it); raises on a cap that is not positive or
+    a window under 1."""
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be positive or None, got {logit_softcap}")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1 or None, got {sliding_window}")
+    return float(logit_softcap or 0.0), int(sliding_window or 0)
+
+
 def kernel_eligible(dk: int, dv: int, logit_softcap=None, sliding_window=None,
                     values_from_k=None) -> bool:
-    """The kernel's domain (``kernel_eligible``, JAX op :46): standard GQA
-    with no softcap, window or latent-as-values, head dims that are
-    multiples of 64 up to 256."""
-    if logit_softcap is not None or sliding_window is not None or values_from_k is not None:
+    """The kernel's domain: GQA with or without a logit softcap and a
+    sliding window, head dims that are multiples of 64 up to 256. JAX's
+    ``kernel_eligible`` (op :46) also refuses the softcap and the window,
+    because its Pallas kernel lacks them; this kernel takes them and
+    computes the same function. ``values_from_k`` (MLA latent-as-values) is
+    refused: it comes with the DeepSeek-V2 slice."""
+    if values_from_k is not None:
         return False
     return all(d % HEAD_DIM_ALIGN == 0 and 0 < d <= MAX_HEAD_DIM for d in (dk, dv))
 
@@ -184,15 +209,26 @@ def paged_attention_reference(
     return out.reshape(m, hq, -1).to(q.dtype)
 
 
+def walk_start(length: int, window: Optional[int]) -> tuple:
+    """(first key seen, first key walked) of a slot of ``length``: with a
+    window, the window's first key, and that key rounded down to the
+    kernel's 64-row tile (the keys between are read and masked)."""
+    lo = max(0, length - window) if window else 0
+    return lo, lo // SPLIT_ALIGN * SPLIT_ALIGN
+
+
 def paged_attention_split_reference(q, k_pool, v_pool, tables, lengths, scale: float,
-                                    split: int, *, k_scale=None, v_scale=None) -> torch.Tensor:
+                                    split: int, *, logit_softcap: Optional[float] = None,
+                                    sliding_window: Optional[int] = None,
+                                    k_scale=None, v_scale=None) -> torch.Tensor:
     """The card's walk in plain PyTorch, in fp32, for the tests: each slot's
-    positions ``[0, min(lengths[m], reach))`` cut into blocks of ``split``
-    (0: one block), each keeping its running max (log2 units, scale *
-    log2(e) folded in), normaliser and accumulator, then the merge the last
-    block does: the partials rescaled to their common max and added in split
-    order. Probs are rounded to a bf16 pool's dtype before P V, as the
-    kernel and the plain version round them."""
+    positions ``[start, min(lengths[m], reach))`` (:func:`walk_start`, 0
+    without a window) cut into blocks of ``split`` (0: one block), each
+    keeping its running max (log2 units, scale * log2(e) folded in),
+    normaliser and accumulator, then the merge the last block does: the
+    partials rescaled to their common max and added in split order. Probs
+    are rounded to a bf16 pool's dtype before P V, as the kernel and the
+    plain version round them."""
     m, hq, dk = q.shape
     hkv = k_pool.shape[2]
     g = hq // hkv
@@ -202,15 +238,21 @@ def paged_attention_split_reference(q, k_pool, v_pool, tables, lengths, scale: f
     reach = k.shape[1]
     step = split or reach
     out = torch.zeros((m, hq, v.shape[-1]), dtype=torch.float32, device=q.device)
-    for i, n in enumerate(lengths.tolist()):
-        n = min(max(n, 0), reach)
+    for i, raw in enumerate(lengths.tolist()):
+        n = min(max(raw, 0), reach)
+        lo, start = walk_start(max(raw, 0), sliding_window)
         qi = q[i].float().reshape(hkv, g, dk)
         parts = []
-        for b in range(0, n, step):
+        for b in range(start, n, step):
             e = min(n, b + step)
-            sc = torch.einsum("hgd,shd->hgs", qi, k[i, b:e]) * (scale * math.log2(math.e))
+            sc = torch.einsum("hgd,shd->hgs", qi, k[i, b:e]) * scale
+            if logit_softcap is not None:
+                sc = logit_softcap * torch.tanh(sc / logit_softcap)
+            sc = sc * math.log2(math.e)
+            sc = sc.masked_fill(torch.arange(b, e, device=q.device) < lo, NEG_INF)
             mx = sc.amax(-1)
-            pr = torch.exp2(sc - mx[..., None])
+            # a block with none of the row's keys keeps p = 0
+            pr = torch.exp2(sc - torch.where(mx == NEG_INF, 0.0, mx)[..., None])
             acc = torch.einsum("hgs,shd->hgd", pr.to(p_dtype).float(), v[i, b:e])
             parts.append((mx, pr.sum(-1), acc))
         if not parts:
@@ -301,10 +343,11 @@ def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=No
     if not kernel_eligible(dk, dv, logit_softcap, sliding_window, values_from_k):
         raise ValueError(
             f"the paged kernel takes head dims that are multiples of {HEAD_DIM_ALIGN} up to "
-            f"{MAX_HEAD_DIM} and no softcap, window or values_from_k (got Dk={dk}, Dv={dv}, "
-            f"softcap={logit_softcap}, window={sliding_window}, values_from_k={values_from_k}); "
-            "those options are not yet ported to the card"
+            f"{MAX_HEAD_DIM} and no values_from_k (got Dk={dk}, Dv={dv}, "
+            f"values_from_k={values_from_k}); values_from_k (MLA) comes with the DeepSeek-V2 "
+            "slice (ROADMAP queue 1, slice 5)"
         )
+    cap, window = kernel_options(logit_softcap, sliding_window)
     if q.dtype not in _Q_CODES:
         raise ValueError(f"q must be one of {list(_Q_CODES)}, not {q.dtype}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
@@ -324,7 +367,8 @@ def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=No
     chunks = hkv * head_chunks(hq, hkv)
     split = SPLIT_POSITIONS
     if split is None:
-        split = plan_paged_split(m, chunks, page, spg, _sm_count(q.device.index or 0))
+        split = plan_paged_split(m, chunks, page, spg, _sm_count(q.device.index or 0),
+                                 sliding_window)
     splits = num_splits(page, spg, split)
     stream = torch.cuda.current_stream(q.device)
     part_acc = part_ml = counters = None
@@ -343,7 +387,7 @@ def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=No
             None if counters is None else counters.data_ptr(),
             _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype],
             m, hq, hkv, dk, dv, k_pool.shape[0], page, spg, split, float(scale),
-            stream.cuda_stream,
+            cap, window, stream.cuda_stream,
         )
     _LIBRARY.check(err, "paged_attention")
     return out

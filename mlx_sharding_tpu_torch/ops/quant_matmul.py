@@ -17,7 +17,12 @@ across blocks when its row blocks alone leave SMs idle, and
 shapes (in both, a second kernel adds the splits' fp32 partial sums in a
 fixed order; both launches are one call and one count).
 
-Both compute ``x @ dequant(q, scales, biases).T`` with fp32 accumulation,
+:func:`quant_gemv_experts` is the GEMV kernel's routed-expert entry
+(Mixtral's decode, ``mlx_sharding_tpu/ops/moe.py::_apply_gather_packed``):
+each (token, k) pair's product with its expert's slice of a packed (E,
+OUT, IN*bits/32) stack, the expert ids read on the device.
+
+All compute ``x @ dequant(q, scales, biases).T`` with fp32 accumulation,
 rounded once to x's dtype. On a CUDA tensor each wrapper launches its kernel
 or raises; on a CPU tensor it computes :func:`quant_matmul_reference`, the
 plain version. There is no other route and no fallback.
@@ -90,6 +95,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mst_quant_matmul_info.restype = ctypes.c_int
     lib.mst_quant_matmul_info.argtypes = [ctypes.c_int, ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_longlong)]
+    lib.mst_quant_gemv_experts.restype = ctypes.c_int
+    lib.mst_quant_gemv_experts.argtypes = [
+        *common[:5], ctypes.c_void_p,  # x, q, s, b, out, expert ids
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # x code, scale/bias code, bits
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # pairs, pairs per x row, experts
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # IN, OUT, group size
+        ctypes.c_void_p,  # stream
+    ]
     lib.mst_quant_gemv_info.restype = ctypes.c_int
     lib.mst_quant_gemv_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
 
@@ -337,3 +350,80 @@ def quant_matmul(x, q, scales, biases, group_size: int = 64, bits: int = 4):
 
 quant_gemv.launches = 0
 quant_matmul.launches = 0
+
+
+# ------------------------------------------------------ routed experts
+def quant_gemv_experts_reference(x, idx, q, scales, biases, group_size: int = 64,
+                                 bits: int = 4) -> torch.Tensor:
+    """The plain version of :func:`quant_gemv_experts`, the formula of JAX's
+    ``_apply_gather_packed`` for one projection: gather the routed experts'
+    packed leaves, dequantize the gathered slices to x's dtype, contract
+    IN with fp32 accumulation, round once to x's dtype."""
+    from mlx_sharding_tpu_torch.ops.quant import dequantize
+
+    ids = idx.long()
+    w = dequantize(q[ids], scales[ids], biases[ids], group_size, bits, x.dtype)  # (N, K, OUT, IN)
+    xs = x.float() if x.dim() == 3 else x.float()[:, None].expand(-1, ids.shape[1], -1)
+    return torch.einsum("nki,nkoi->nko", xs, w.float()).to(x.dtype)
+
+
+def _check_experts(x, idx, q, scales, biases, group_size: int, bits: int) -> None:
+    if idx.dim() != 2 or q.dim() != 3 or x.dim() not in (2, 3):
+        raise ValueError(f"want x (N, IN) or (N, K, IN), idx (N, K) and q (E, OUT, "
+                         f"IN*bits/32); got {tuple(x.shape)}, {tuple(idx.shape)}, "
+                         f"{tuple(q.shape)}")
+    n, k = idx.shape
+    if x.shape[0] != n or (x.dim() == 3 and x.shape[1] != k):
+        raise ValueError(f"x {tuple(x.shape)} does not match idx {tuple(idx.shape)}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"expert ids must be int32, not {idx.dtype}")
+    e = q.shape[0]
+    if scales.shape[0] != e or biases.shape[0] != e:
+        raise ValueError("q, scales and biases must stack the same experts")
+    _check(x.reshape(-1, x.shape[-1])[:1], q[0], scales[0], biases[0], group_size, bits)
+    if idx.device != x.device or q.device != x.device:
+        raise ValueError("x, idx and the stacks must be on one device")
+
+
+def quant_gemv_experts(x, idx, q, scales, biases, group_size: int = 64,
+                       bits: int = 4) -> torch.Tensor:
+    """Routed-expert decode products: for each token n and each of its K
+    routed experts ``idx[n, k]``, ``x_row @ dequant(q[e], scales[e],
+    biases[e]).T``, where x_row is ``x[n]`` for x (N, IN) (the gate and up
+    projections) or ``x[n, k]`` for x (N, K, IN) (the down projection's
+    per-pair inputs). q (E, OUT, IN*bits/32), scales and biases (E, OUT,
+    IN/group_size); idx (N, K) int32. Returns (N, K, OUT) in x's dtype.
+    CUDA tensors launch the GEMV kernel's routed entry once, the ids read on
+    the device (counted in ``quant_gemv_experts.launches``); CPU tensors
+    take :func:`quant_gemv_experts_reference`."""
+    _check_experts(x, idx, q, scales, biases, group_size, bits)
+    if x.device.type == "cpu":
+        return quant_gemv_experts_reference(x, idx, q, scales, biases, group_size, bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_gemv_experts runs on cuda or cpu tensors, not {x.device}")
+    n, k = idx.shape
+    e, out_dim, _ = q.shape
+    in_dim = x.shape[-1]
+    for arg, t in (("x", x), ("idx", idx), ("q", q), ("scales", scales), ("biases", biases)):
+        if not t.is_contiguous():
+            raise ValueError(f"quant_gemv_experts: {arg} must be contiguous")
+    if x.data_ptr() % 16 or q.data_ptr() % 16 or q[0].numel() * 4 % 16:
+        raise ValueError("quant_gemv_experts: x and every expert's words must start on "
+                         "16-byte boundaries")
+    if scales.data_ptr() % 4 or biases.data_ptr() % 4 or scales[0].numel() * scales.element_size() % 4:
+        raise ValueError("quant_gemv_experts: every expert's scales and biases must start on "
+                         "4-byte boundaries")
+    out = torch.empty((n, k, out_dim), dtype=x.dtype, device=x.device)
+    lib = _LIBRARY.get()
+    with torch.cuda.device(x.device):
+        err = lib.mst_quant_gemv_experts(
+            x.data_ptr(), q.data_ptr(), scales.data_ptr(), biases.data_ptr(), out.data_ptr(),
+            idx.data_ptr(), _X_CODES[x.dtype], _PARAM_CODES[scales.dtype], bits, n * k,
+            1 if x.dim() == 3 else k, e, in_dim, out_dim, group_size,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _LIBRARY.check(err, "quant_gemv_experts")
+    quant_gemv_experts.launches += 1
+    return out
+
+
+quant_gemv_experts.launches = 0

@@ -252,15 +252,16 @@ class PipelineEngine:
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp):
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, **opts):
                 # the chunk's own rows are attended as computed (unquantized);
-                # the pool keeps them quantized for an int8 pool
+                # the pool keeps them quantized for an int8 pool. ``opts``:
+                # the layer's softcap and window (the model's attn_options)
                 k_view, v_view = self._slot_view(kp, page_ids), self._slot_view(vp, page_ids)
                 k_view[:, off : off + c] = k_new
                 v_view[:, off : off + c] = v_new
                 write_pool_span(kp, write_page, start, k_new[0])
                 write_pool_span(vp, write_page, start, v_new[0])
-                return causal_attention(q, k_view, v_view, off, model.scale)
+                return causal_attention(q, k_view, v_view, off, model.scale, **opts)
 
             h, _, _ = model.sp_layer(layer, h, off, attn_fn)
         return model.apply_head(h.index_select(1, last))[:, 0]
@@ -346,13 +347,14 @@ class PipelineEngine:
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp):
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, **opts):
                 write_pool_rows(kp, page_ids, row_pos, k_new[:, 0])
                 write_pool_rows(vp, page_ids, row_pos, v_new[:, 0])
                 quant = is_quantized_kv(kp)
                 out = paged_attention(
                     q[:, 0], kv_data(kp), kv_data(vp), plan.tables, lengths, model.scale,
                     k_scale=kp["s"] if quant else None, v_scale=vp["s"] if quant else None,
+                    **opts,
                 )
                 return out[:, None]  # (M, T=1, Hq, Dv)
 
@@ -398,13 +400,13 @@ class PipelineEngine:
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp):
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, **opts):
                 k_view, v_view = self._slot_view(kp, plan.tables), self._slot_view(vp, plan.tables)
                 k_view[slots, rows] = k_new.to(k_view.dtype)
                 v_view[slots, rows] = v_new.to(v_view.dtype)
                 write_pool_rows(kp, page_ids, row_pos, k_new.reshape(m * k, *k_new.shape[2:]))
                 write_pool_rows(vp, page_ids, row_pos, v_new.reshape(m * k, *v_new.shape[2:]))
-                return masked_attention(q, k_view, v_view, start, model.scale)
+                return masked_attention(q, k_view, v_view, start, model.scale, **opts)
 
             h, _, _ = model.sp_layer(layer, h, start, attn_fn)
         active = plan.lengths[0] > 0

@@ -79,10 +79,10 @@ ABLATIONS = {
 }
 
 
-def load_wrapper(tree: Path, source: Path, name: str):
-    """The wrapper module of ``tree`` as module ``name``, its library built
-    from ``source``."""
-    spec = importlib.util.spec_from_file_location(name, tree / WRAPPER)
+def load_wrapper(tree: Path, source: Path, name: str, wrapper: str = WRAPPER):
+    """The wrapper module ``wrapper`` of ``tree`` as module ``name``, its
+    library built from ``source``."""
+    spec = importlib.util.spec_from_file_location(name, tree / wrapper)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod._LIBRARY.source = source

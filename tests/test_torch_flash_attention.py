@@ -65,7 +65,8 @@ def test_flash_matches_jax_kernel_and_xla(b, t, s, hq, hkv, dk, dv, offset):
 def test_dispatch_rule(monkeypatch):
     """_flash_eligible without the TPU backend test and the reserved sinks
     argument, the T=1 route switched off (its switches are held against
-    JAX in tests/test_torch_flash_decode.py)."""
+    JAX in tests/test_torch_flash_decode.py). A softcap and a window do not
+    refuse the kernel, which computes them (JAX's refuses them)."""
     monkeypatch.setenv("MST_FLASH_DECODE", "0")
 
     def shapes(t, s, dk, dv):
@@ -73,8 +74,8 @@ def test_dispatch_rule(monkeypatch):
 
     assert flash_eligible(*shapes(128, 256, 192, 128))
     assert flash_eligible(*shapes(256, 4096, 128, 128))
-    assert not flash_eligible(*shapes(128, 256, 128, 128), logit_softcap=30.0)
-    assert not flash_eligible(*shapes(128, 256, 128, 128), sliding_window=4096)
+    assert flash_eligible(*shapes(128, 256, 128, 128), logit_softcap=30.0)
+    assert flash_eligible(*shapes(128, 256, 128, 128), sliding_window=4096)
     assert not flash_eligible(*shapes(1, 256, 128, 128))  # T=1 decode
     assert not flash_eligible(*shapes(100, 256, 128, 128))  # ragged T
     assert not flash_eligible(*shapes(128, 200, 128, 128))  # ragged S

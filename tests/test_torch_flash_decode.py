@@ -57,8 +57,9 @@ def test_dispatch_rule_matches_jax(monkeypatch, flash, decode):
         want = j_flash_eligible(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, None, None)
         got = flash_eligible(*(torch.from_numpy(x) for x in (q, k, v)))
         assert got == want, (t, s, dk, dv)
+        # the options do not enter the rule: the kernels compute them
         for extra in (dict(logit_softcap=30.0), dict(sliding_window=64)):
-            assert not flash_eligible(*(torch.from_numpy(x) for x in (q, k, v)), **extra)
+            assert flash_eligible(*(torch.from_numpy(x) for x in (q, k, v)), **extra) == want
 
 
 def test_default_switch_is_the_measured_one(monkeypatch):

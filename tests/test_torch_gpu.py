@@ -530,8 +530,8 @@ def test_paged_wrapper_never_takes_the_plain_branch_on_the_card(cuda):
     q, k, v, _, _, tables, lens = paged_case(g, (3, 9), 4, 2, 64, 8, 2, torch.float32,
                                              torch.float32)
     before = pa.paged_attention.launches
-    with pytest.raises(ValueError, match="not yet ported to the card"):
-        pa.paged_attention(q, k, v, tables, lens, 0.125, logit_softcap=30.0)
+    with pytest.raises(ValueError, match="values_from_k"):
+        pa.paged_attention(q, k, v, tables, lens, 0.125, values_from_k=32)
     with pytest.raises(ValueError, match="int32"):
         pa.paged_attention(q, k, v, tables.long(), lens, 0.125)
     assert pa.paged_attention.launches == before
@@ -881,3 +881,94 @@ def test_batcher_ngram_on_the_card(cuda, kv_dtype):
     assert streams["graphs"] == streams["eager"]
     if kv_dtype == "f32":  # an int8 verify attends its own rows unquantized
         assert streams["graphs"] == streams["off"]
+
+
+# ------------------------------------------------------ the model families
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset,window,cap", [(0, 100, 50.0), (384, 100, 5.0), (640, 1, 5.0),
+                                               (640, None, 50.0)])
+def test_flash_softcap_and_window_match_plain_version(cuda, dtype, offset, window, cap):
+    """Gemma-2's heads (16 over 8, D 256): the window cuts inside the
+    chunk, before it, and to one key; the smoke run's limits."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = (torch.randn(1, 128, 16, 256, generator=g, device=cuda) * 4).to(dtype)
+    k = torch.randn(1, 1024, 8, 256, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, 1024, 8, 256, generator=g, device=cuda).to(dtype)
+    opts = dict(logit_softcap=cap, sliding_window=window)
+    got = fa.flash_attention(q, k, v, offset, 0.0625, **opts)
+    want = fa.flash_attention_reference(q, k, v, offset, 0.0625, **opts)
+    _, worst, rel_l2 = kernel_disagreement(got, want)
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@pytest.mark.parametrize("pool,q_dtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.int8, torch.bfloat16),
+                                          (torch.float32, torch.float32)])
+def test_paged_softcap_and_window_match_plain_version(cuda, pool, q_dtype):
+    """Lengths below, at and past a window of 300, and 0; the walk planned,
+    in 64s and whole; an empty slot gives zeros."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v, ks, vs, tables, lens = paged_case(g, (0, 1, 299, 300, 301, 700, 1024), 16, 8, 256,
+                                               128, 8, pool, q_dtype)
+    opts = dict(logit_softcap=50.0, sliding_window=300, k_scale=ks, v_scale=vs)
+    want = pa.paged_attention_reference(q, k, v, tables, lens, 0.0625, **opts)
+    live = lens > 0
+    for split in (None, 64, 0):
+        monkey = pa.SPLIT_POSITIONS
+        pa.SPLIT_POSITIONS = split
+        try:
+            got = pa.paged_attention(q, k, v, tables, lens, 0.0625, **opts)
+            torch.cuda.synchronize()
+        finally:
+            pa.SPLIT_POSITIONS = monkey
+        assert bool((got[~live] == 0).all())
+        _, worst, rel_l2 = kernel_disagreement(got[live], want[live])
+        assert worst <= 1 and rel_l2 <= REL_L2_TOL, (split, worst, rel_l2)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("per_pair", [False, True], ids=["token-rows", "pair-rows"])
+def test_quant_gemv_experts_matches_plain_version(cuda, x_dtype, per_pair):
+    """Integer-valued operands over 6 experts: bit-equal to the plain
+    version, the ids read on the card; one launch counted per call."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    parts = [quant_operands(g, 1, 192, 256, integer=True)[1:] for _ in range(6)]
+    q, s, b = (torch.stack([p[i] for p in parts]) for i in range(3))
+    shape = (5, 2, 256) if per_pair else (5, 256)
+    x = torch.randint(-4, 4, shape, generator=g, device=cuda).to(x_dtype)
+    idx = torch.randint(0, 6, (5, 2), generator=g, device=cuda).to(torch.int32)
+    before = qm.quant_gemv_experts.launches
+    got = qm.quant_gemv_experts(x, idx, q, s, b, 64, 4)
+    torch.cuda.synchronize()
+    assert qm.quant_gemv_experts.launches == before + 1
+    assert torch.equal(got, qm.quant_gemv_experts_reference(x, idx, q, s, b, 64, 4))
+
+
+FAMILY_TINY = {
+    "gemma2": dict(model_type="gemma2", vocab_size=512, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                   head_dim=128, query_pre_attn_scalar=128, sliding_window=96,
+                   attn_logit_softcapping=5.0, final_logit_softcapping=10.0),
+    "mixtral": dict(model_type="mixtral", vocab_size=512, hidden_size=256,
+                    intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, num_local_experts=4, num_experts_per_tok=2),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_TINY))
+def test_family_generator_and_batcher_match_the_cpu(cuda, family):
+    """f32 weights: a 300-token prompt (past Gemma-2's window of 96), 24
+    greedy tokens through the card's Generator graphs and its batcher
+    equal the CPU run's (the plain versions)."""
+    model, _ = build_model(FAMILY_TINY[family], dtype=torch.float32)
+    model.init_params(torch.Generator().manual_seed(3), "cpu")
+    prompt = torch.randint(0, 512, (300,), generator=torch.Generator().manual_seed(4)).tolist()
+    want = _stream(Generator(model, max_seq=512, prefill_chunk=128), prompt, max_tokens=24)
+    card = model.to(cuda)
+    assert _stream(Generator(card, max_seq=512, prefill_chunk=128), prompt,
+                   max_tokens=24) == want
+    engine = PipelineEngine(card, microbatches=2, max_seq=512, prefill_chunk=128, pool_pages=6,
+                            device=card.device)
+    batcher = ContinuousBatcher(engine, decode_block=4)
+    batcher.warm_up()
+    assert _drive_threads(batcher, [(prompt, dict(max_tokens=24))]) == [want]

@@ -160,7 +160,7 @@ def test_init_params_is_seeded_and_materialized():
     assert torch.equal(a.final_norm, torch.ones(128))
 
 
-@pytest.mark.parametrize("model_type", ["qwen3", "gemma2", "deepseek_v2", "mixtral"])
+@pytest.mark.parametrize("model_type", ["deepseek_v2"])
 def test_unported_model_types_name_the_roadmap_item(model_type):
     with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP.md"):
         build_model({**TINY, "model_type": model_type})

@@ -28,6 +28,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     no ``mlx_sharding_tpu`` module gets loaded on the way."""
     modules = _all_modules()
     assert "mlx_sharding_tpu_torch.server.openai_api" in modules
+    for family in ("models.qwen3", "models.gemma2", "models.mixtral", "ops.moe"):
+        assert f"mlx_sharding_tpu_torch.{family}" in modules
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -140,13 +140,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     (256, 128, {}, True),
     (96, 96, {}, False),
     (320, 320, {}, False),
-    (128, 128, {"logit_softcap": 30.0}, False),
-    (128, 128, {"sliding_window": 4}, False),
+    (128, 128, {"logit_softcap": 30.0}, True),
+    (128, 128, {"sliding_window": 4}, True),
+    (256, 256, {"logit_softcap": 50.0, "sliding_window": 4096}, True),
     (128, 128, {"values_from_k": 64}, False),
 ])
 def test_kernel_eligible(dk, dv, option, eligible):
     """JAX ``kernel_eligible`` on the TPU, with the head-dim cap the CUDA
-    kernel's shared memory sets."""
+    kernel's shared memory sets; the softcap and the window, which JAX's
+    Pallas kernel lacks, are the CUDA kernel's options."""
     assert pa.kernel_eligible(dk, dv, **option) is eligible
 
 
