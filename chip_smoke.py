@@ -36,7 +36,13 @@ final line:
    kernel 2 with the same options over bf16 and int8 pools at lengths
    below, at and past each window and 0 (and the FMA kernel); the
    routed-expert GEMV at Mixtral's shapes, N = 1, 8 and 16, K = 2, every
-   pair on one expert too, bit for bit on integer operands;
+   pair on one expert too, bit for bit on integer operands; then
+   DeepSeek-V2's routes (``phase_mla_kernels``): kernel 1's MLA build (Dk
+   576, v a view of k's first 512 columns, one KV head) at the Lite's group
+   of 16 and V2's of 128 (walks planned, in 512s and whole) and in f32, the
+   T=1 route and kernel 2 with ``values_from_k`` over bf16, int8 and f32
+   (FMA) pools, and kernels 3 and 4 at the packed Lite's shapes (IN 10944,
+   1408 and 2816; OUT 576, 3072 and 102400; the routed GEMV at E 64, K 6);
 3. timing: each kernel, its plain version and the one PyTorch library call
    that computes the same function, with CUDA events (and, for the packed
    kernels, ``F.linear`` on the dequantized bf16 weight; for the paged
@@ -53,7 +59,8 @@ final line:
    ``masked_attention`` over the whole capacity (the plain path the
    captured decode step takes with the route off) and SDPA over the
    prefix with ``enable_gqa``; the families' variants at their served
-   shapes (``phase_family_timing``);
+   shapes (``phase_family_timing``), and DeepSeek-V2's routes at the Lite's
+   and V2's shapes (``phase_mla_timing``);
 4. main path: Llama-3.1-8B at full width (bf16 weights drawn on the card
    from ``--seed``) behind the port's OpenAI server in a thread, with a
    byte-level tokenizer defined here. The Generator captures its CUDA
@@ -129,7 +136,9 @@ final line:
    sync ticks, int8 pool with overcommit; the verify rounds replays too,
    ``spec_stats()``, and (bf16, async) the batcher verify's device ms at K
    = 2, 4, 8 split into the gather, ``masked_attention``, the products and
-   the small kernels.
+   the small kernels. The parity runs (graphs, eager, sync, overcommit;
+   the prefix cache off and on) run on the model's first
+   ``BATCH_PARITY_LAYERS`` layers (its tensors shared).
 7. speculation in f32 (``phase_spec_f32``, between 6 and 5): Llama-3.1-8B
    widths at 2 layers, 64 tokens: ``--draft ngram``, the self-draft, a
    2-layer Llama-3.2-1B-shaped draft and the batcher's n-gram speculation
@@ -150,6 +159,18 @@ final line:
    tokens, the prefill's last-position logits against a forward whose
    kernel entry points this process swaps for their plain versions.
    A ``[time]`` lap per family.
+9. DeepSeek-V2 (``phase_deepseek``, after 8): the published
+   deepseek-ai/DeepSeek-Coder-V2-Lite-Instruct config at full width and
+   depth (27 layers, 64 experts top 6 beside 2 shared, YaRN 40), the
+   compressed MLA cache, random weights from ``--seed``: bf16 (31.5 GB),
+   then packed on the card in the layout of
+   mlx-community/DeepSeek-Coder-V2-Lite-Instruct-4bit (9.1 GB), each served
+   as phase 8 serves a family (Generator's graphs behind the server, then
+   the 4-slot paged batcher; every route's launches against the chunks and
+   steps, a decode step's device ms against the weight bytes it reads);
+   then f32 at 2 layers (one dense, one MoE): the Generator and the
+   batcher token-identical, the kernels against their plain versions, the
+   compressed cache's logits against the full cache's within 1e-4.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -162,6 +183,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
+import dataclasses
 import gc
 import http.client
 import json
@@ -298,6 +321,10 @@ PARITY_MAX_SEQ = 1280
 # the eager pass of those runs: the first three greedy requests, 48 tokens
 PARITY_EAGER_JOBS = 3
 PARITY_EAGER_TOKENS = 48
+# the parity runs hold the batcher's paths to each other (graphs, eager,
+# sync, overcommit; the prefix cache off and on), which the depth does not
+# change: they run on the model's first layers, its tensors shared
+BATCH_PARITY_LAYERS = 8
 # prefix sharing's parity run: four prompts of a shared 512-token prefix (two
 # pages) and their own 100 tokens
 PREFIX_TOKENS = 512
@@ -515,9 +542,11 @@ def build_kernels() -> None:
         for line in build_log.splitlines():
             if any(k in line for k in ("registers", "smem", "spill", "cached", "Compiling")):
                 log(f"[kernels]   ptxas: {line.strip()}")
-    for (dk, dv), options in [*((d, False) for d in FLASH_DIMS), ((256, 256), True)]:
+    for (dk, dv), options in [*((d, False) for d in FLASH_DIMS), ((256, 256), True),
+                              (fa.MLA_HEAD_DIMS, False)]:
         info = fa.kernel_info(dk, dv, options)
-        log(f"[kernels] flash bf16 Dk={dk} Dv={dv}{' with softcap and window' if options else ''}: "
+        log(f"[kernels] flash bf16 Dk={dk} Dv={dv}{' with softcap and window' if options else ''}"
+            f"{' (MLA: v from k, 4 blocks of 128 value columns)' if dk == 576 else ''}: "
             f"shared memory per block {info['shared_bytes']} bytes, {info['registers']} registers, "
             f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local (spill) "
             f"bytes per thread")
@@ -537,11 +566,13 @@ def build_kernels() -> None:
                 f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local "
                 f"(spill) bytes per thread")
     for pool_dtype in (torch.bfloat16, torch.int8):
-        info = pa.kernel_info(pool_dtype, 128, 128)
-        log(f"[kernels] paged_attention bf16 q, {str(pool_dtype)[6:]} pool, D=128: shared memory "
-            f"per block {info['shared_bytes']} bytes, {info['registers']} registers, "
-            f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local (spill) "
-            f"bytes per thread")
+        for mla in (False, True):
+            info = pa.kernel_info(pool_dtype, 128, 128, mla=mla)
+            what = "values_from_k, Dk 576, Dv 512 in items of 128" if mla else "D=128"
+            log(f"[kernels] paged_attention bf16 q, {str(pool_dtype)[6:]} pool, {what}: shared "
+                f"memory per block {info['shared_bytes']} bytes, {info['registers']} registers, "
+                f"{info['blocks_per_sm']} resident blocks per SM, {info['local_bytes']} local "
+                f"(spill) bytes per thread")
 
 
 def phase_quant_kernels(seed: int) -> dict:
@@ -1805,6 +1836,18 @@ def mix_prompt(i: int, n: int) -> str:
     return (words * (n // len(words) + 1))[:n]
 
 
+def first_layers(model, layers: int):
+    """``model`` cut to its first ``layers`` decoder layers, sharing every
+    tensor with it (the embedding, the final norm and the head too): no
+    weight is copied."""
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules)  # nn.Module's children, not shared with the model
+    cut._modules["layers"] = torch.nn.ModuleList(list(model.layers)[:layers])
+    cut.config = dataclasses.replace(model.config, num_hidden_layers=layers, end_layer=layers)
+    cut.__dict__.pop("_graph_pool", None)  # its captured steps get a pool of their own
+    return cut
+
+
 def first_step_logits(model, kv_dtype, prompts):
     """The ragged path at the engine level: ``prompts`` prefilled into
     their own slots of an engine over its own pool, each slot's first token
@@ -2052,8 +2095,10 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
         del batcher, engine, server
         return launches, stats
     del batcher, engine, server
-    batcher_parity(model, kv_dtype, tag)
-    prefix_parity(model, kv_dtype, tag)
+    parity_model = first_layers(model, BATCH_PARITY_LAYERS)
+    batcher_parity(parity_model, kv_dtype, tag)
+    prefix_parity(parity_model, kv_dtype, tag)
+    del parity_model
 
     # the engine level: each slot's first decode step against the
     # single-stream model's first T=1 step on the same prompt and token
@@ -3237,12 +3282,17 @@ MIXTRAL_8X7B = {
 FAMILY_RUNS = (("qwen3", QWEN3_8B, "Qwen3-8B"), ("gemma2", GEMMA2_9B, "Gemma-2-9B"),
                ("mixtral", MIXTRAL_8X7B, "Mixtral-8x7B 4-bit"))
 GEMMA_PROMPT = 4400
-FAMILY_PROMPTS = {"qwen3": 600, "gemma2": GEMMA_PROMPT, "mixtral": 600}
-FAMILY_MAX_SEQ = {"qwen3": 1024, "gemma2": GEMMA_MAX_SEQ, "mixtral": 1024}
+FAMILY_PROMPTS = {"qwen3": 600, "gemma2": GEMMA_PROMPT, "mixtral": 600, "deepseek_v2": 600}
+# the served capacity: what the prompt and its tokens need, in whole chunks
+# (each chunk offset is one prefill graph to capture: DeepSeek-V2's hold
+# ~13k kernels each, the experts' scan, ~2 s of capture apiece). Gemma-2's
+# 4,400-token prompt and 64 tokens fit 4,608 (18 chunks); its kernel checks
+# run at GEMMA_MAX_SEQ.
+FAMILY_MAX_SEQ = {"qwen3": 1024, "gemma2": 18 * CHUNK, "mixtral": 1024, "deepseek_v2": 1024}
 FAMILY_TOKENS = 64
 GEMMA_BATCH_PROMPTS = (GEMMA_PROMPT, 600, 1000, 2000)
 FAMILY_BATCH_PROMPTS = {"qwen3": (600, 300, 200, 100), "gemma2": GEMMA_BATCH_PROMPTS,
-                        "mixtral": (600, 300, 200, 100)}
+                        "mixtral": (600, 300, 200, 100), "deepseek_v2": (600, 300, 200, 100)}
 FAMILY_SLOTS = 4
 # the f32 parity: 2 layers of the same widths, 32 greedy tokens; the
 # kernel path's last-position logits against the plain versions' (fp32
@@ -3250,6 +3300,8 @@ FAMILY_SLOTS = 4
 PARITY_LAYERS = 2
 PARITY_FAMILY_TOKENS = 32
 F32_LOGITS_RTOL = 1e-4
+# DeepSeek-V2's two cache layouts in f32 (tests/test_mla_compressed.py's)
+MLA_MODES_TOL = 1e-4
 
 
 def packed_mixtral(config: dict, seed: int, dtype=torch.bfloat16):
@@ -3293,18 +3345,118 @@ def packed_mixtral(config: dict, seed: int, dtype=torch.bfloat16):
     return model, cfg
 
 
+def packed_deepseek(config: dict, seed: int, dtype=torch.bfloat16):
+    """A DeepSeek-V2 model packed on the card as ``packed_mixtral`` packs
+    Mixtral: its projections, expert stacks, shared experts and vocab pair
+    at 4 bits, the norms, the router and (compressed mode) ``kv_b_proj``
+    dense, as a ``keep_quantized`` load of the MLX checkpoint keeps them."""
+    from mlx_sharding_tpu_torch.models import build_model
+
+    model, cfg = build_model(config, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, heads = cfg.hidden_size, cfg.num_attention_heads
+    nope, rope_d, v_d, rank = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
+                               cfg.kv_lora_rank)
+    e, mi = cfg.n_routed_experts, cfg.moe_intermediate_size
+    si = mi * cfg.n_shared_experts
+    code_std = math.sqrt((16 ** 2 - 1) / 12)  # of a code uniform on 0..15
+
+    def packed(*shape, std=None):
+        *lead, out_dim, in_dim = shape
+        words = torch.randint(-2 ** 31, 2 ** 31, (*lead, out_dim, in_dim // 8), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        base = (std or in_dim ** -0.5) / code_std
+        s = (base * (0.5 + torch.rand((*lead, out_dim, in_dim // GROUP_SIZE), generator=gen,
+                                      device="cuda"))).to(torch.float16)
+        return {"q": words, "scales": s, "biases": (-7.5 * s.float()).to(torch.float16)}
+
+    def dense(*shape, value=None):
+        if value is not None:
+            return torch.full(shape, value, device="cuda", dtype=dtype)
+        return (torch.randn(shape, generator=gen, device="cuda") * shape[-1] ** -0.5).to(dtype)
+
+    kv_b = dense if model.compressed else packed
+    sd = {"embed_tokens.weight": packed(cfg.vocab_size, h, std=0.02),
+          "final_norm": dense(h, value=1.0), "lm_head.weight": packed(cfg.vocab_size, h)}
+    for i, layer in enumerate(model.layers):
+        p = f"layers.{i}."
+        sd.update({p + "input_norm": dense(h, value=1.0), p + "post_norm": dense(h, value=1.0),
+                   p + "kv_a_norm": dense(rank, value=1.0),
+                   p + "q_proj.weight": packed(heads * (nope + rope_d), h),
+                   p + "kv_a_proj.weight": packed(rank + rope_d, h),
+                   p + "kv_b_proj.weight": kv_b(heads * (nope + v_d), rank),
+                   p + "o_proj.weight": packed(h, heads * v_d)})
+        if layer.moe:
+            sd.update({p + "router.weight": dense(e, h), p + "w_gate.weight": packed(e, mi, h),
+                       p + "w_up.weight": packed(e, mi, h), p + "w_down.weight": packed(e, h, mi),
+                       p + "shared_gate.weight": packed(si, h),
+                       p + "shared_up.weight": packed(si, h),
+                       p + "shared_down.weight": packed(h, si)})
+        else:
+            inter = cfg.intermediate_size
+            sd.update({p + "gate_proj.weight": packed(inter, h), p + "up_proj.weight": packed(inter, h),
+                       p + "down_proj.weight": packed(h, inter)})
+    model.load_weights(sd, "cuda", dtype)
+    return model, cfg
+
+
 def family_model(key: str, config: dict, seed: int, dtype=torch.bfloat16, layers=None):
     """The family's model at full width (``layers`` cuts its depth), random
-    weights from ``seed`` drawn on the card; Mixtral packed."""
+    weights from ``seed`` drawn on the card; Mixtral packed, DeepSeek-V2
+    packed when its config has ``quantization``."""
     from mlx_sharding_tpu_torch.models import build_model
 
     if layers is not None:
         config = {**config, "num_hidden_layers": layers}
     if key == "mixtral":
         return packed_mixtral(config, seed, dtype)
+    if config.get("quantization"):
+        return packed_deepseek(config, seed, dtype)
     model, cfg = build_model(config, dtype=dtype)
     model.init_params(torch.Generator(device="cuda").manual_seed(seed), "cuda")
     return model, cfg
+
+
+def served_quant_launches(model, chunks: int, steps: int) -> dict:
+    """The packed kernels' launches that ``chunks`` prefill chunks and
+    ``steps`` decode steps imply, from the model's modules as fused: a
+    chunk runs every packed projection of a layer through the matmul once
+    and every packed expert stack once per expert (the scan), the head on
+    its one row through the GEMV; a decode step runs each packed projection
+    and the head through the GEMV and each stack through the routed GEMV.
+    A dense model launches none."""
+    from mlx_sharding_tpu_torch.models.base import QuantizedLinear
+
+    proj = stacks = experts = 0
+    for layer in model.layers:
+        for m in layer.children():
+            if isinstance(m, QuantizedLinear):
+                if m.q.dim() == 3:
+                    stacks += 1
+                    experts += m.q.shape[0]
+                else:
+                    proj += 1
+    head = model.embed_tokens if model.head_is_tied() else model.lm_head
+    heads = int(isinstance(head, QuantizedLinear))
+    return {"quant_matmul": chunks * (proj + experts), "quant_gemv": (chunks + steps) * heads
+            + steps * proj, "quant_gemv_experts": steps * stacks}
+
+
+def step_weight_bytes(model) -> int:
+    """The weight bytes one decode step of one stream reads: every
+    parameter and buffer once, the embedding table but its one row (unless
+    it is the head), and of each expert stack the ``num_experts_per_tok``
+    experts a token routes to."""
+    top_k = getattr(model.config, "num_experts_per_tok", None)
+    total = 0
+    for name, t in (*model.named_parameters(), *model.named_buffers()):
+        n = t.numel() * t.element_size()
+        if name.startswith("embed_tokens") and not model.head_is_tied():
+            n //= t.shape[0]
+        elif any(f".{s}." in name for s in ("w_gate", "w_up", "w_down")):
+            n = n * top_k // t.shape[0]
+        total += n
+    return total
 
 
 def family_pages(prompts, tokens: int) -> int:
@@ -3404,14 +3556,7 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
         f"{t_head * 1e3:.1f} ms, decode {stats['decode_tok_s']:.2f} tok/s (host clock at the "
         f"client); launches {launches}")
     want = {"flash_attention": layers * chunks, "flash_decode": layers * steps,
-            "paged_attention": 0}
-    if key == "mixtral":
-        experts = cfg.num_local_experts
-        want.update(quant_matmul=chunks * layers * (2 + 3 * experts),
-                    quant_gemv=chunks + steps * (2 * layers + 1),
-                    quant_gemv_experts=steps * 3 * layers)
-    else:
-        want.update(quant_matmul=0, quant_gemv=0, quant_gemv_experts=0)
+            "paged_attention": 0, **served_quant_launches(model, chunks, steps)}
     log(f"{tag} launches expected from {chunks} chunks and {steps} decode steps of {layers} "
         f"layers: {want}")
     check(launches == want, f"{tag} a route's launches disagree with the chunks and steps")
@@ -3421,8 +3566,11 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
                         profiled=1)
     stats["step"] = step
     busy = "not measured" if step["busy"] is None else f"{100 * step['busy']:.1f}%"
+    w_bytes = step_weight_bytes(model)
     log(f"{tag} graph decode step: host {step['host_ms']:.3f} ms, wall {step['wall_ms']:.3f} ms, "
-        f"device {step['device_ms']:.3f} ms; device busy {busy} of the wall; "
+        f"device {step['device_ms']:.3f} ms; device busy {busy} of the wall; weight bytes a "
+        f"step reads {w_bytes / 1e9:.3f} GB, {w_bytes / PEAK_BYTES * 1e3:.3f} ms at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s ({step['device_ms'] / (w_bytes / PEAK_BYTES * 1e3):.2f}x); "
         + ", ".join(f"{nm} {ms:.3f}" for nm, ms in step["kernels"]))
     ids = tok.encode(mix_prompt(1, n))
     toks, tok_s, ties = plain_reference(tag, gen, ids, FAMILY_TOKENS)
@@ -3508,9 +3656,10 @@ def family_batch(tag: str, key: str, model, cfg, counts, greedy) -> dict:
           f"{tag} paged launches disagree with {layers} layers x {steps} decode steps")
     check(launches["flash_attention"] == layers * chunks,
           f"{tag} flash launches disagree with {layers} layers x {chunks} prefill chunks")
-    if key == "mixtral":
-        check(launches["quant_gemv_experts"] == 3 * layers * steps,
-              f"{tag} routed-expert launches disagree with 3 x {layers} layers x {steps} steps")
+    experts = served_quant_launches(model, chunks, steps)["quant_gemv_experts"]
+    check(launches["quant_gemv_experts"] == experts,
+          f"{tag} routed-expert launches {launches['quant_gemv_experts']} disagree with the "
+          f"{experts} that {steps} steps imply")
     got = [t for t, _ in greedy_out]
     same = agreement(tag, "the batcher's greedy stream against the Generator's", got, want, ties)
     log(f"{tag} greedy: the first {same} of {len(want)} tokens equal the Generator's")
@@ -3547,6 +3696,8 @@ def family_parity(tag: str, key: str, config: dict, seed: int) -> None:
     check(bool(torch.isfinite(kern).all()) and kern.shape == (1, cfg.vocab_size),
           f"{tag} f32 logits not finite or of the wrong shape")
     check(rel <= F32_LOGITS_RTOL, f"{tag} the kernel path disagrees with the plain versions")
+    if key == "deepseek_v2":
+        mla_modes_parity(tag, config, seed, ids, kern)
     engine = PipelineEngine(model, microbatches=FAMILY_SLOTS, max_seq=max_seq,
                             prefill_chunk=CHUNK, pool_pages=family_pages([n], PARITY_FAMILY_TOKENS),
                             page_size=PAGE, device=model.device)
@@ -3561,14 +3712,35 @@ def family_parity(tag: str, key: str, config: dict, seed: int) -> None:
     del batcher, engine, model
 
 
-def phase_families(seed: int, lap) -> dict:
-    """Qwen3-8B, Gemma-2-9B and Mixtral-8x7B (4-bit) at full width, one at a
-    time, each freed before the next: served through the Generator's graphs
-    and through the paged batcher, then the f32 parity at 2 layers.
-    Returns each family's numbers."""
+def mla_modes_parity(tag: str, config: dict, seed: int, ids: list, compressed) -> None:
+    """The same f32 weights with ``mla_cache_mode="full"`` (per-head K of
+    192 and V of 128; kernel 1 at 192 / 128, the T=1 route without
+    values_from_k): its last-position logits within ``MLA_MODES_TOL`` of the
+    compressed cache's (``compressed``), as JAX's test holds them."""
+    from mlx_sharding_tpu_torch.generate import Generator
+
+    model, _ = family_model("deepseek_v2", {**config, "mla_cache_mode": "full"}, seed + 1,
+                            torch.float32, layers=PARITY_LAYERS)
+    gen = Generator(model, max_seq=FAMILY_MAX_SEQ["deepseek_v2"], prefill_chunk=CHUNK)
+    graph_line(tag, gen.warm_up(decode_blocks=False))
+    full = gen.run_prefill(np.asarray([ids], np.int64)).float()
+    diff = (compressed - full).abs()
+    worst = (diff / (MLA_MODES_TOL + MLA_MODES_TOL * full.abs())).max().item()
+    log(f"{tag} f32 {PARITY_LAYERS} layers: last-position logits, compressed cache against full: "
+        f"max |diff| {diff.max().item():.3e}, worst |diff| / (atol + rtol |full|) {worst:.3f} "
+        f"(tol 1 at rtol = atol = {MLA_MODES_TOL})")
+    check(worst <= 1, f"{tag} the compressed cache's logits disagree with the full cache's")
+    del gen, model
+
+
+def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True) -> dict:
+    """Qwen3-8B, Gemma-2-9B and Mixtral-8x7B (4-bit) at full width (or
+    ``runs``), one at a time, each freed before the next: served through the
+    Generator's graphs and through the paged batcher, then, with
+    ``parity``, the f32 parity at 2 layers. Returns each run's numbers."""
     counts = kernel_counts()
     out = {}
-    for key, config, name in FAMILY_RUNS:
+    for key, config, name in runs:
         tag = f"[{key}]"
         gc.collect()
         torch.cuda.empty_cache()
@@ -3586,10 +3758,13 @@ def phase_families(seed: int, lap) -> dict:
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        family_parity(tag, key, config, seed)
-        out[key] = stats
+        if parity:
+            family_parity(tag, key, config, seed)
+        out[name] = stats
         lap(f"{name}")
     return out
+
+
 
 
 def family_records(rows: dict, errs: dict, families: dict) -> list:
@@ -3599,7 +3774,7 @@ def family_records(rows: dict, errs: dict, families: dict) -> list:
     likewise over the batcher's slots (bf16 pool), and the routed-expert
     GEMV at N = 1 (a decode step's mean: gate and up, then down). Their
     launches are the families' served runs'."""
-    gemma, mixtral = families["gemma2"], families["mixtral"]
+    gemma, mixtral = families["Gemma-2-9B"], families["Mixtral-8x7B 4-bit"]
 
     def entry(name, source, replaces, launches, err, row, **extra):
         return {"name": name, "route": "cuda", "source": f"mlx_sharding_tpu_torch/csrc/{source}",
@@ -3639,6 +3814,369 @@ def family_records(rows: dict, errs: dict, families: dict) -> list:
     ]
 
 
+# ------------------------------------------------------------- DeepSeek-V2
+# The published config.json of deepseek-ai/DeepSeek-Coder-V2-Lite-Instruct
+# (the repo's headline model, bench.py's DSV2_LITE), at full width and
+# depth; packed in the layout of
+# mlx-community/DeepSeek-Coder-V2-Lite-Instruct-4bit (group 64, 4 bits, the
+# router and kv_b dense) by adding ``quantization``. DeepSeek-V2's own
+# head count (deepseek-ai/DeepSeek-V2: 128 heads, q-LoRA 1536) sets the
+# kernels' GQA group of 128 in the kernel checks.
+DSV2_LITE = {
+    "model_type": "deepseek_v2", "vocab_size": 102400, "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "kv_lora_rank": 512,
+    "q_lora_rank": None, "qk_rope_head_dim": 64, "qk_nope_head_dim": 128, "v_head_dim": 128,
+    "n_routed_experts": 64, "n_shared_experts": 2, "num_experts_per_tok": 6,
+    "first_k_dense_replace": 1, "norm_topk_prob": False, "routed_scaling_factor": 1.0,
+    "topk_method": "greedy", "rope_theta": 10000.0,
+    "rope_scaling": {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096,
+                     "beta_fast": 32, "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707},
+    "max_position_embeddings": 163840, "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
+}
+DSV2_HEADS = 128  # deepseek-ai/DeepSeek-V2's num_attention_heads
+MLA_DK, MLA_DV = 576, 512  # kv_lora_rank + qk_rope_head_dim, kv_lora_rank
+MLA_OFFSETS = (0, 256, 512)  # the 600-token prompt's chunks
+MLA_DECODE_POSITION = 600
+MLA_BATCH_LENGTHS = (601, 301, 201, 101)  # the batcher's four prompts' first decode step
+# the packed Lite's projection shapes (name, OUT, IN): q, kv_a, o, layer 0's
+# gate/up and down, the experts' and the shared experts' gate/up and down,
+# the head
+DSV2_QUANT_SHAPES = (("q_proj", 3072, 2048), ("kv_a_proj", 576, 2048), ("o_proj", 2048, 2048),
+                     ("dense gate/up", 10944, 2048), ("dense down", 2048, 10944),
+                     ("expert gate/up", 1408, 2048), ("expert down", 2048, 1408),
+                     ("shared gate/up", 2816, 2048), ("shared down", 2048, 2816),
+                     ("lm_head", 102400, 2048))
+DSV2_EXPERT_SHAPES = (("gate/up", 1408, 2048), ("down", 2048, 1408))
+
+
+def mla_scale() -> float:
+    """The Lite model's softmax scale (YaRN's mscale_all_dim included)."""
+    from mlx_sharding_tpu_torch.models import build_model
+
+    return build_model(DSV2_LITE)[0].scale
+
+
+def mla_cache(gen, b, s, dtype):
+    """One layer of a two-layer compressed cache (B, S, 1, 576) and its
+    values, a view of its first 512 columns (what the model passes)."""
+    kc = torch.randn((2, b, s, 1, MLA_DK), generator=gen, device="cuda").to(dtype)
+    return kc[1], kc[1][..., :MLA_DV]
+
+
+def mla_attention_work(q, k, offset):
+    """FLOPs and bytes of a causal MLA chunk: each row's keys as in
+    ``attention_work``; the K rows of the causal prefix read once (the
+    values are their first columns), q and the output once."""
+    b, t, hq, dk = q.shape
+    s = k.shape[1]
+    keys = sum(min(s, offset + i + 1) for i in range(t))
+    el = q.element_size()
+    kv_len = min(s, offset + t)
+    return (2 * b * hq * (dk + MLA_DV) * keys,
+            el * (b * t * hq * (dk + MLA_DV) + b * kv_len * dk))
+
+
+def mla_paged_work(q, k, ks, tables, lens):
+    """FLOPs and bytes of the paged decode with ``values_from_k``: each
+    slot's live K rows once (the values are their first columns; an int8
+    pool's scale with them), q, the output, the live table entries and the
+    lengths once."""
+    m, hq, dk = q.shape
+    page = k.shape[1]
+    lengths = lens.tolist()
+    rows = sum(lengths)
+    row_bytes = dk * k.element_size() + (4 if ks is not None else 0)
+    live_pages = sum(-(-n // page) for n in lengths)
+    nbytes = m * hq * (dk + MLA_DV) * q.element_size() + rows * row_bytes + 4 * (live_pages + m)
+    return 2 * hq * (dk + MLA_DV) * rows, nbytes
+
+
+def mla_paged_case(gen, lengths, hq, page, spg, pool_dtype, q_dtype):
+    """``paged_case`` with MLA's compressed pool: one latent head of 576,
+    a dummy V pool of width 1."""
+    return paged_case(gen, lengths, hq, 1, MLA_DK, page, spg, pool_dtype, q_dtype, dv=1)
+
+
+def phase_mla_kernels(seed: int) -> dict:
+    """DeepSeek-V2's routes against their plain versions on the card. Kernel
+    1's MLA build (Dk 576, v a view of k's first 512 columns, one KV head)
+    at the Lite's group of 16 (chunk offsets 0, 256 and 3840; at 3840 the
+    walk planned, in chunks of 512 keys and whole) and V2's group of 128
+    (offsets 0 and 3840), and its f32 build; the T=1 route's
+    ``values_from_k`` at positions 0, 600 and 4095 (both groups, and f32);
+    kernel 2's ``values_from_k`` over bf16 and int8 pools of 256-row pages
+    (lengths 0 to 4096, the walk planned, in 64s and whole; V2's group; the
+    FMA kernel in f32), two runs bit-identical, one captured call one kernel
+    node, and a softcap refused with it. Then kernels 3 and 4 at the packed
+    Lite's shapes (M = 1, 4, 88, 256; the routed GEMV at E 64, K 6), bit for
+    bit on integer-valued operands and within limits on random bf16.
+    Returns the largest error of each route."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+    from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    scale = mla_scale()
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {"flash": 0.0, "decode": 0.0, "paged": 0.0}
+    k, v = mla_cache(gen, 1, MAX_SEQ, bf16)
+    default = fa.SPLIT_KEYS
+    try:
+        for hq, cases in ((16, ((0, None), (256, None), (3840, None), (3840, 512), (3840, 0))),
+                          (DSV2_HEADS, ((0, None), (3840, None)))):
+            q = torch.randn((1, CHUNK, hq, MLA_DK), generator=gen, device="cuda").to(bf16)
+            for off, split in cases:
+                fa.SPLIT_KEYS = split
+                got = fa.flash_attention(q, k, v, off, scale)
+                ref = fa.flash_attention_reference(q, k, v, off, scale)
+                walk = "planned" if split is None else f"split {split}"
+                errs["flash"] = max(errs["flash"], family_check(
+                    f"flash_attention MLA Dk {MLA_DK} Dv {MLA_DV} (v from k) Hq={hq} Hkv=1 "
+                    f"T={CHUNK} offset {off} bf16, walk {walk}", got, ref))
+    finally:
+        fa.SPLIT_KEYS = default
+    kf, vf = mla_cache(gen, 1, 512, f32)
+    qf = torch.randn((1, 128, 16, MLA_DK), generator=gen, device="cuda")
+    for off in (0, 256):
+        family_check(f"flash_attention MLA f32 Hq=16 T=128 S=512 offset {off}",
+                     fa.flash_attention(qf, kf, vf, off, scale),
+                     fa.flash_attention_reference(qf, kf, vf, off, scale))
+    for hq in (16, DSV2_HEADS):
+        qd = torch.randn((1, 1, hq, MLA_DK), generator=gen, device="cuda").to(bf16)
+        for position in DECODE_POSITIONS:
+            pos = torch.tensor([position], dtype=torch.int64, device="cuda")
+            lengths = decode_lengths(pos, 1, MAX_SEQ)
+            errs["decode"] = max(errs["decode"], family_check(
+                f"flash_decode MLA (values_from_k {MLA_DV}) Hq={hq} position {position}",
+                fa.flash_decode(qd, k, v, pos, scale, lengths=lengths),
+                fa.flash_decode_reference(qd, k, v, lengths, scale)))
+    pos = torch.tensor([300], dtype=torch.int64, device="cuda")
+    qd = torch.randn((1, 1, 16, MLA_DK), generator=gen, device="cuda")
+    family_check("flash_decode MLA f32 (FMA kernel) position 300",
+                 fa.flash_decode(qd, kf, vf, pos, scale),
+                 fa.flash_decode_reference(qd, kf, vf, decode_lengths(pos, 1, 512), scale))
+    del k, v, q, kf, vf, qf
+
+    for pool_dtype in (bf16, torch.int8):
+        for hq, lengths, splits in ((16, PAGED_LENGTHS, (None, 64, 0)),
+                                    (DSV2_HEADS, MLA_BATCH_LENGTHS, (None, 0))):
+            qp, kp, vp, ks, vs, tables, lens = mla_paged_case(gen, lengths, hq, PAGE,
+                                                             MAX_SEQ // PAGE, pool_dtype, bf16)
+            ref = pa.paged_attention_reference(qp, kp, vp, tables, lens, scale,
+                                               values_from_k=MLA_DV, k_scale=ks, v_scale=vs)
+            for split in splits:
+                default = pa.SPLIT_POSITIONS
+                pa.SPLIT_POSITIONS = split
+                try:
+                    got = pa.paged_attention(qp, kp, vp, tables, lens, scale,
+                                             values_from_k=MLA_DV, k_scale=ks, v_scale=vs)
+                finally:
+                    pa.SPLIT_POSITIONS = default
+                walk = "planned" if split is None else f"split {split}"
+                errs["paged"] = max(errs["paged"], family_check(
+                    f"paged_attention values_from_k {MLA_DV} Dk {MLA_DK} Hq={hq} "
+                    f"M={len(lengths)} {str(pool_dtype)[6:]} pool, walk {walk}", got, ref,
+                    lens > 0))
+            if hq == 16 and pool_dtype == bf16:
+                call = lambda: pa.paged_attention(qp, kp, vp, tables, lens, scale,  # noqa: E731
+                                                  values_from_k=MLA_DV)
+                runs = [call() for _ in range(2)]
+                nodes = graph_nodes(call)
+                torch.cuda.synchronize()
+                log(f"[kernels] paged_attention values_from_k: two runs bit-identical "
+                    f"{torch.equal(*runs)}; one call enqueues {nodes}")
+                check(torch.equal(*runs), "paged_attention values_from_k: two runs differ")
+                check(nodes == {"kernel": 1, "memcpy": 0, "memset": 0, "other": 0},
+                      "paged_attention values_from_k: one call is not one kernel launch")
+                try:
+                    pa.paged_attention(qp, kp, vp, tables, lens, scale, values_from_k=MLA_DV,
+                                       logit_softcap=30.0)
+                    refused = False
+                except ValueError:
+                    refused = True
+                log(f"[kernels] paged_attention values_from_k with a softcap refused: {refused}")
+                check(refused, "paged_attention took values_from_k with a softcap")
+            del qp, kp, vp, ks, vs
+    qp, kp, vp, ks, vs, tables, lens = mla_paged_case(gen, (0, 5, 70, 130, 200), 16, 16, 16,
+                                                      f32, f32)
+    family_check("paged_attention values_from_k FMA kernel (f32) M=5 page 16",
+                 pa.paged_attention(qp, kp, vp, tables, lens, scale, values_from_k=MLA_DV),
+                 pa.paged_attention_reference(qp, kp, vp, tables, lens, scale,
+                                              values_from_k=MLA_DV), lens > 0)
+
+    # kernels 3 and 4 at the packed Lite's shapes
+    for name, out_dim, in_dim in DSV2_QUANT_SHAPES:
+        for integer in (True, False):
+            x, q, s, b = quant_operands(gen, PREFILL_M, out_dim, in_dim, integer=integer)
+            for kernel, m in (("quant_gemv", 1), ("quant_gemv", 4), ("quant_matmul", 88),
+                              ("quant_matmul", PREFILL_M)):
+                if name == "lm_head" and m == PREFILL_M:
+                    continue  # the head runs on one row of a chunk
+                check_quant(kernel, x[:m], q, s, b, GROUP_SIZE, BITS, integer,
+                            f"DeepSeek-V2-Lite {name} OUT={out_dim} IN={in_dim} M={m}")
+            del x, q, s, b
+    for name, out_dim, in_dim in DSV2_EXPERT_SHAPES:
+        per_pair = name == "down"
+        for integer in (True, False):
+            stack = expert_stack(gen, DSV2_LITE["n_routed_experts"], out_dim, in_dim, integer)
+            for n in (1, 4):
+                shape = (n, 6, in_dim) if per_pair else (n, in_dim)
+                x = (torch.randint(-4, 4, shape, generator=gen, device="cuda") if integer
+                     else torch.randn(shape, generator=gen, device="cuda")).to(bf16)
+                idx = torch.stack([torch.randperm(64, generator=gen, device="cuda")[:6]
+                                   for _ in range(n)]).to(torch.int32)
+                got = qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS)
+                ref = qm.quant_gemv_experts_reference(x, idx, *stack, GROUP_SIZE, BITS)
+                label = f"quant_gemv_experts DeepSeek-V2-Lite {name} OUT={out_dim} IN={in_dim} N={n} K=6"
+                if integer:
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, ref)
+                    log(f"[kernels] {label} integer-valued: bit-exact {same}")
+                    check(same, f"{label} differs from its plain version on exact operands")
+                else:
+                    family_check(label, got, ref)
+            del stack
+    return errs
+
+
+def sdpa_mla_paged_call(q, k, ks, tables, lens, scale):
+    """``sdpa_paged_call`` with the values the K rows' first 512 columns
+    (gathered, and dequantized, beforehand; not timed)."""
+    from mlx_sharding_tpu_torch.ops.paged_attention import _gathered
+
+    s_max = int(lens.max())
+    kg = _gathered(k, ks, tables)[:, :s_max].to(q.dtype).transpose(1, 2).contiguous()
+    vg = kg[..., :MLA_DV]
+    mask = (torch.arange(s_max, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    qt = q[:, :, None, :]
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True)[:, :, 0]
+
+    return call
+
+
+def phase_mla_timing(seed: int) -> dict:
+    """Device times of DeepSeek-V2's routes beside bound, plain version and
+    SDPA (v the view of k): kernel 1's MLA build at the Lite's shapes over
+    the 600-token prompt's chunk offsets 0, 256, 512 and at 3840, and at
+    V2's group of 128 (offsets 0 and 512); the T=1 route at position 600
+    (both groups); kernel 2's ``values_from_k`` over the batcher's four
+    slots (bf16 and int8 pools; V2's group, bf16)."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    scale = mla_scale()
+    bf16 = torch.bfloat16
+    rows = {"flash": [], "decode": [], "paged": []}
+    k, v = mla_cache(gen, 1, MAX_SEQ, bf16)
+    for hq, offsets in ((16, (*MLA_OFFSETS, 3840)), (DSV2_HEADS, (0, 512))):
+        q = torch.randn((1, CHUNK, hq, MLA_DK), generator=gen, device="cuda").to(bf16)
+        for off in offsets:
+            kern = time_ms(lambda: fa.flash_attention(q, k, v, off, scale))
+            plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, off, scale), iters=5)
+            lib = time_ms(sdpa_call(q, k, v, off, scale))
+            flops, nbytes = mla_attention_work(q, k, off)
+            rows["flash"].append(timing_row(
+                f"flash_attention MLA Hq={hq} T={CHUNK} offset {off} bf16", kern, plain, flops,
+                nbytes, bf16, library=lib, hq=hq, offset=off))
+        del q
+    pos = torch.tensor([MLA_DECODE_POSITION], dtype=torch.int64, device="cuda")
+    lengths = decode_lengths(pos, 1, MAX_SEQ)
+    for hq in (16, DSV2_HEADS):
+        qd = torch.randn((1, 1, hq, MLA_DK), generator=gen, device="cuda").to(bf16)
+        kern = time_ms(lambda: fa.flash_decode(qd, k, v, pos, scale, lengths=lengths))
+        plain = time_ms(lambda: fa.flash_decode_reference(qd, k, v, lengths, scale))
+        lib = time_ms(sdpa_call(qd, k, v, MLA_DECODE_POSITION, scale))
+        flops, nbytes = mla_attention_work(qd, k, MLA_DECODE_POSITION)
+        rows["decode"].append(timing_row(
+            f"flash_decode MLA Hq={hq} position {MLA_DECODE_POSITION}", kern, plain, flops,
+            nbytes, bf16, library=lib, hq=hq))
+    del k, v
+    for hq, pool_dtype in ((16, bf16), (16, torch.int8), (DSV2_HEADS, bf16)):
+        qp, kp, vp, ks, vs, tables, lens = mla_paged_case(gen, MLA_BATCH_LENGTHS, hq, PAGE,
+                                                          MAX_SEQ // PAGE, pool_dtype, bf16)
+        opts = dict(values_from_k=MLA_DV, k_scale=ks, v_scale=vs)
+        kern = time_ms(lambda: pa.paged_attention(qp, kp, vp, tables, lens, scale, **opts))
+        plain = time_ms(lambda: pa.paged_attention_reference(qp, kp, vp, tables, lens, scale,
+                                                             **opts))
+        lib = time_ms(sdpa_mla_paged_call(qp, kp, ks, tables, lens, scale))
+        flops, nbytes = mla_paged_work(qp, kp, ks, tables, lens)
+        rows["paged"].append(timing_row(
+            f"paged_attention values_from_k Hq={hq} M={len(MLA_BATCH_LENGTHS)} lengths "
+            f"{list(MLA_BATCH_LENGTHS)} {str(pool_dtype)[6:]} pool", kern, plain, flops, nbytes,
+            bf16, library=lib, hq=hq, pool=str(pool_dtype)[6:]))
+        del qp, kp, vp, ks, vs
+    return rows
+
+
+def mla_records(rows: dict, errs: dict, served: dict) -> list:
+    """The kernels-line entries of DeepSeek-V2's routes at the Lite's
+    shapes: kernel 1's MLA build (mean over the 600-token prompt's chunk
+    offsets 0, 256, 512), the T=1 route's values_from_k at position 600, and
+    kernel 2's values_from_k over the batcher's four slots (mean over the
+    bf16 and int8 pools); their launches are phase 9's served runs', dense
+    and packed."""
+    runs = list(served.values())
+
+    def launched(name, batch=True):
+        return sum(r["launches"][name] + (r["batch"]["launches"][name] if batch else 0)
+                   for r in runs)
+
+    def mean(picked):
+        return {key: (None if any(r[key] is None for r in picked)
+                      else sum(r[key] for r in picked) / len(picked))
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms", "bytes_ms")}
+
+    def entry(name, source, replaces, launches, err, row, **extra):
+        return {"name": name, "route": "cuda", "source": f"mlx_sharding_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
+                "library_ms": row["library_ms"], **extra}
+
+    flash = mean([r for r in rows["flash"] if r["hq"] == 16 and r["offset"] in MLA_OFFSETS])
+    decode = mean([r for r in rows["decode"] if r["hq"] == 16])
+    paged = mean([r for r in rows["paged"] if r["hq"] == 16])
+    return [
+        entry("flash_attention_mla", "flash_attention.cu",
+              "mlx_sharding_tpu/ops/flash_attention.py:127", launched("flash_attention"),
+              errs["flash"], flash, library="scaled_dot_product_attention, v a view of k"),
+        entry("flash_decode_mla", "paged_attention.cu",
+              "mlx_sharding_tpu/ops/flash_attention.py:127", launched("flash_decode", False),
+              errs["decode"], decode, position=MLA_DECODE_POSITION),
+        entry("paged_attention_values_from_k", "paged_attention.cu",
+              "mlx_sharding_tpu/ops/paged_attention.py:153", launched("paged_attention"),
+              errs["paged"], paged,
+              library="scaled_dot_product_attention after a gather (gather not timed)"),
+    ]
+
+
+# phase 9: the Lite served dense then packed; then its f32 parity (2 layers,
+# the Generator against the batcher, the kernels against their plain
+# versions, the compressed cache against the full one)
+DSV2_RUNS = (("deepseek_v2", DSV2_LITE, "DeepSeek-Coder-V2-Lite bf16"),
+             ("deepseek_v2", {**DSV2_LITE, "quantization": {"group_size": GROUP_SIZE, "bits": BITS}},
+              "DeepSeek-Coder-V2-Lite 4-bit"))
+
+
+def phase_deepseek(seed: int, lap) -> dict:
+    """Phase 9: DeepSeek-Coder-V2-Lite at full width and depth, compressed
+    MLA cache, bf16 and packed, through the Generator's graphs behind the
+    server and the paged batcher; then f32 at 2 layers."""
+    out = phase_families(seed, lap, runs=DSV2_RUNS, parity=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_parity("[deepseek_v2]", "deepseek_v2", DSV2_LITE, seed)
+    lap("DeepSeek-V2 f32 parity")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3655,8 +4193,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     t0 = time.perf_counter()
 
+    ends = [0.0]
+
     def lap(what):
-        log(f"[time] {what} done {time.perf_counter() - t0:.1f}s into the run")
+        end = time.perf_counter() - t0
+        log(f"[time] {what} done {end:.1f}s into the run ({end - ends[-1]:.1f}s for it)")
+        ends.append(end)
 
     build_kernels()
     max_err = phase_kernels(args.seed)
@@ -3664,6 +4206,7 @@ def main(argv=None) -> int:
     paged_err = phase_paged_kernels(args.seed)
     decode_err = phase_decode_kernels(args.seed)
     family_err = phase_family_kernels(args.seed)
+    mla_err = phase_mla_kernels(args.seed)
     lap("kernel builds and checks")
     if args.kernels_only:
         return 0
@@ -3673,6 +4216,7 @@ def main(argv=None) -> int:
     paged_rows = phase_paged_timing(args.seed)
     decode_rows = phase_decode_timing(args.seed)
     family_rows = phase_family_timing(args.seed)
+    mla_rows = phase_mla_timing(args.seed)
     lap("kernel timing")
     launches, single, model = phase_main_path(args.seed)
     lap("main path")
@@ -3695,6 +4239,7 @@ def main(argv=None) -> int:
     lap("main path, 4-bit")
     del model
     families = phase_families(args.seed, lap)
+    deepseek = phase_deepseek(args.seed, lap)
 
     # the kernel record: per-launch means over the main path's chunk offsets
     main_rows = [r for r in rows if r["offset"] in MAIN_PATH_OFFSETS]
@@ -3754,6 +4299,7 @@ def main(argv=None) -> int:
         "position": row["position"],
     })
     record["kernels"] += family_records(family_rows, family_err, families)
+    record["kernels"] += mla_records(mla_rows, mla_err, deepseek)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -48,15 +48,24 @@ def init_cache(
     batch: int,
     max_seq: int,
     n_kv_heads: int,
-    head_dim: int,
+    head_dim,
     dtype: torch.dtype,
     device: torch.device | str,
 ) -> KVCache:
-    """Allocate an empty cache. (The MLA layouts' separate K and V head
-    dims come with the DeepSeek slice.)"""
-    shape = (num_layers, batch, max_seq, n_kv_heads, head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    """Allocate an empty cache. ``head_dim`` is one int, or a ``(k_dim,
+    v_dim)`` pair for per-tensor head dims (DeepSeek-V2's MLA: 192 / 128 per
+    head in full mode, one latent head of 576 and a dummy V of width 1 in
+    compressed mode)."""
+    k_dim, v_dim = kv_dims(head_dim)
+    shape = (num_layers, batch, max_seq, n_kv_heads)
+    return KVCache(k=torch.zeros((*shape, k_dim), dtype=dtype, device=device),
+                   v=torch.zeros((*shape, v_dim), dtype=dtype, device=device))
+
+
+def kv_dims(head_dim) -> tuple:
+    """``(k_dim, v_dim)`` of a model's ``cache_head_dim()``: an int serves
+    both."""
+    return tuple(head_dim) if isinstance(head_dim, (tuple, list)) else (head_dim, head_dim)
 
 
 def write_layer_kv(k_buf, v_buf, k_new, v_new, offset):
@@ -160,20 +169,22 @@ class PagedKV:
 
 
 def init_cache_paged(num_layers: int, pool_pages: int, page_size: int, n_kv_heads: int,
-                     head_dim: int, slots: int, dtype: torch.dtype, device,
+                     head_dim, slots: int, dtype: torch.dtype, device,
                      quantized: bool = False) -> PagedKV:
     """A zeroed pool of ``pool_pages`` pages plus the scratch page, in
     ``dtype`` or, ``quantized``, as int8 codes with float32 scales (D + 4
-    bytes per row and head instead of 2D in bf16)."""
-    shape = (num_layers, pool_pages + 1, page_size, n_kv_heads, head_dim)
+    bytes per row and head instead of 2D in bf16). ``head_dim``: an int or
+    a ``(k_dim, v_dim)`` pair, as :func:`init_cache` takes it."""
+    lead = (num_layers, pool_pages + 1, page_size, n_kv_heads)
 
-    def pool():
+    def pool(dim):
         if not quantized:
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return {"d": torch.zeros(shape, dtype=torch.int8, device=device),
-                "s": torch.zeros((*shape[:-1], 1), dtype=torch.float32, device=device)}
+            return torch.zeros((*lead, dim), dtype=dtype, device=device)
+        return {"d": torch.zeros((*lead, dim), dtype=torch.int8, device=device),
+                "s": torch.zeros((*lead, 1), dtype=torch.float32, device=device)}
 
-    return PagedKV(k=pool(), v=pool(), offsets=[0] * slots)
+    k_dim, v_dim = kv_dims(head_dim)
+    return PagedKV(k=pool(k_dim), v=pool(v_dim), offsets=[0] * slots)
 
 
 def init_page_table(slots: int, slot_pages: int, pool_pages: int) -> np.ndarray:

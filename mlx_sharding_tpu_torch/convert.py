@@ -8,7 +8,9 @@ for ``x @ W`` (expert stacks as ``(E, in, out)``), the embedding as
 ``(out, in)``. Packed ``{q, scales, biases}`` leaves (a ``keep_quantized``
 load, fused or not, expert stacks included) keep MLX's ``(out, in)`` layout
 in both packages and are not transposed. Gemma-2's stacked ``layer_idx``
-becomes each layer's ``layer_idx``.
+becomes each layer's ``layer_idx``. DeepSeek-V2's layer groups (``{"dense":
+..., "moe": ...}``, each stacked over its own layers) land on the layers in
+order, the dense group first.
 """
 
 from __future__ import annotations
@@ -46,7 +48,19 @@ _LAYER_NAMES = {
     "w_gate": ("w_gate.weight", True),
     "w_up": ("w_up.weight", True),
     "w_down": ("w_down.weight", True),
+    # DeepSeek-V2: MLA, (in, out) router, shared experts
+    "q_a_proj": ("q_a_proj.weight", True),
+    "q_a_norm": ("q_a_norm", False),
+    "q_b_proj": ("q_b_proj.weight", True),
+    "kv_a_proj": ("kv_a_proj.weight", True),
+    "kv_a_norm": ("kv_a_norm", False),
+    "kv_b_proj": ("kv_b_proj.weight", True),
+    "shared_gate": ("shared_gate.weight", True),
+    "shared_up": ("shared_up.weight", True),
+    "shared_down": ("shared_down.weight", True),
 }
+# DeepSeek-V2's layer groups, in layer order
+_GROUPS = ("dense", "moe")
 
 
 def to_torch(a: np.ndarray) -> torch.Tensor:
@@ -67,33 +81,39 @@ def _packed(tree: dict, i=None) -> dict:
 def params_from_numpy(config, tree: dict, device=None):
     """``config`` (a config dataclass of either package, or a config.json
     dict) and a numpy parameter tree of the JAX model (Llama, Qwen3,
-    Gemma-2 or Mixtral) -> the port's model holding the same numbers, on
+    Gemma-2, Mixtral or DeepSeek-V2) -> the port's model holding the same numbers, on
     ``device`` (default cuda)."""
     dev = resolve_device(device)
     cfg_dict = config if isinstance(config, dict) else config.to_dict()
     layers = tree["layers"]
-    dtype = to_torch(np.asarray(layers["input_norm"][:1])).dtype
+    groups = [layers[g] for g in _GROUPS if g in layers] if "input_norm" not in layers else [layers]
+    dtype = to_torch(np.asarray(groups[0]["input_norm"][:1])).dtype
     model, cfg = build_model(cfg_dict, dtype=dtype)
-    fused_qkv = "qkv_proj" in layers
     sd = {}
-    for name, stack in layers.items():
-        if name == "layer_idx":
-            for i, layer in enumerate(model.layers):
-                layer.layer_idx = int(np.asarray(stack)[i])
-            continue
-        for i in range(cfg.num_local_layers):
-            if is_quantized(stack):  # packed (out, in) words: the name is the module
-                sd[f"layers.{i}.{name}.weight"] = _packed(stack, i)
+    first = 0  # the group's first layer
+    for group in groups:
+        count = len(group["input_norm"])
+        fused_qkv = "qkv_proj" in group
+        for name, stack in group.items():
+            if name == "layer_idx":
+                for i in range(count):
+                    model.layers[first + i].layer_idx = int(np.asarray(stack)[i])
                 continue
-            if fused_qkv and name.endswith("_bias"):
-                continue  # concatenated onto the fused module below
-            ours, transpose = _LAYER_NAMES[name]
-            w = np.asarray(stack[i])
-            sd[f"layers.{i}.{ours}"] = to_torch(np.swapaxes(w, -1, -2) if transpose else w)
-        if fused_qkv and name == "q_bias":
-            for i in range(cfg.num_local_layers):
-                sd[f"layers.{i}.qkv_proj.bias"] = to_torch(np.concatenate(
-                    [np.asarray(layers[b][i]) for b in ("q_bias", "k_bias", "v_bias")]))
+            for i in range(count):
+                at = f"layers.{first + i}"
+                if is_quantized(stack):  # packed (out, in) words: the name is the module
+                    sd[f"{at}.{name}.weight"] = _packed(stack, i)
+                    continue
+                if fused_qkv and name.endswith("_bias"):
+                    continue  # concatenated onto the fused module below
+                ours, transpose = _LAYER_NAMES[name]
+                w = np.asarray(stack[i])
+                sd[f"{at}.{ours}"] = to_torch(np.swapaxes(w, -1, -2) if transpose else w)
+            if fused_qkv and name == "q_bias":
+                for i in range(count):
+                    sd[f"layers.{first + i}.qkv_proj.bias"] = to_torch(np.concatenate(
+                        [np.asarray(group[b][i]) for b in ("q_bias", "k_bias", "v_bias")]))
+        first += count
     if cfg.needs_embed:
         embed = tree["embed"]["weight"]
         sd["embed_tokens.weight"] = _packed(embed) if is_quantized(embed) else to_torch(embed)

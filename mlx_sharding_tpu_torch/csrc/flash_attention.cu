@@ -60,13 +60,27 @@
 //     once (ex2.approx), and each thread keeps partial row sums that are
 //     reduced across the row's four lanes once, after the walk.
 // Templated on Dk and Dv (multiples of 64 up to 256), so the fragment loops
-// unroll; Dk + Dv > 256 takes 32-key tiles to stay off spills. Not done yet,
+// unroll; Dk + Dv > 256 takes 32-key tiles to stay off spills.
+//
+// DeepSeek-V2's compressed MLA layout (Dk = rank + rope = 576, Dv = rank =
+// 512, one KV head, GQA groups of 16 to 128) has its own build, VS = 4: V is
+// the first 512 columns of each K row (the caller passes v as a strided view
+// of k), so no V tile is copied and P V reads its fragments from the K tile
+// in shared memory. A 16 x 512 fp32 accumulator would need 256 registers a
+// thread before S and P, so the output columns are split over VS blocks:
+// each block owns 128 of them, computes the whole S = Q K^T over Dk = 576
+// (4x the QK^T operations of one block, the price of staying in registers)
+// and its slice of P V. Q (64 x 576) and two 32-key K stages take 149,504
+// bytes, one block an SM. Reading each K tile once for both products, with O
+// in shared memory, is the next step for speed. Not done yet,
 // the next step for speed: wgmma with TMA-fed tiles, for when the rate
 // of mma.sync instructions is what limits the deep chunks.
 //
 // The fp32 variant, which only the tests and checks run, is the first
 // version's kernel kept as it was: one block per (batch, query head, 64
 // query rows), the scores and the accumulator in shared memory, plain FMA.
+// Its MLA build (VK) reads Q from device memory and V from the K tile, one
+// stage: Q, K, V and O of 576 / 512 in fp32 would not fit in 227 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,13 +101,13 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 using bf16 = __nv_bfloat16;
 
 struct Params {
-  const void* q;
+  const void* q;  // (B, T, Hq, Dk)
   const void* k;
   const void* v;
   void* o;
   float* part_o;   // split partials: accumulators, (.., ROWS, Dv)
   float* part_ml;  // and running max (log2 units) and normaliser, (.., ROWS, 2)
-  int T, S, Hq, Hkv, Dk, Dv;
+  int T, S, Hq, Hkv, Dk, Dv;  // Dv: the whole value width (VS slices of a build's DV)
   // element strides of the batch, sequence and head dims (last dim is dense)
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -174,13 +188,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // The shared layout of one (Dk, Dv) variant: Q (ROWS rows), then two K/V
-// stages of BN keys; every row padded by 8 elements (16 bytes).
-template <int DK, int DV>
+// stages of BN keys; every row padded by 8 elements (16 bytes). VK: V is read
+// from the K tile, so a stage holds K alone.
+template <int DK, int DV, bool VK = false>
 struct Bf16Layout {
   static constexpr int BN = DK + DV > 256 ? 32 : 64;
   static constexpr int LDK = DK + 8;
   static constexpr int LDV = DV + 8;
-  static constexpr int STAGE = BN * (LDK + LDV);
+  static constexpr int STAGE = BN * (LDK + (VK ? 0 : LDV));
   static constexpr int BYTES = (ROWS * LDK + 2 * STAGE) * (int)sizeof(bf16);
   static_assert(ROWS * LDK + 2 * STAGE >= ROWS * (DV + 8),
                 "shared memory must hold the output tile");
@@ -209,12 +224,17 @@ __device__ __forceinline__ float score_log2(float s, const Params& p, float scal
   return s * scale_log2;
 }
 
-// grid (splits, row tiles, batch * Hkv); blocks with the longest walks first.
-// OPT: the call has a softcap or a window (else both are ignored).
-template <int DK, int DV, bool OPT>
+// grid (splits, row tiles, batch * Hkv * VS); blocks with the longest walks
+// first. OPT: the call has a softcap or a window (else both are ignored). VS
+// > 1: V is K's first VS * DV columns, and the block computes the output
+// columns [slice * DV, (slice + 1) * DV).
+template <int DK, int DV, bool OPT, int VS = 1>
 __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
-  using L = Bf16Layout<DK, DV>;
-  constexpr int BN = L::BN, LDK = L::LDK, LDV = L::LDV;
+  constexpr bool VK = VS > 1;
+  constexpr int DVF = DV * VS;  // the whole value width
+  using L = Bf16Layout<DK, DV, VK>;
+  constexpr int BN = L::BN, LDK = L::LDK;
+  constexpr int LDV = VK ? LDK : L::LDV;  // V's row stride in shared memory
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sKV = sQ + ROWS * LDK;  // stage s at s * STAGE: K, then V
@@ -224,8 +244,10 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
   const int n_row_tiles = (rows_total + ROWS - 1) / ROWS;
   const int tile = n_row_tiles - 1 - blockIdx.y;
   const int chunk = blockIdx.x;
-  const int b = blockIdx.z / p.Hkv;
-  const int kvh = blockIdx.z % p.Hkv;
+  const int bh = blockIdx.z / VS;     // batch * Hkv + KV head
+  const int slice = blockIdx.z % VS;  // the block's output columns
+  const int b = bh / p.Hkv;
+  const int kvh = bh % p.Hkv;
   const int r0 = tile * ROWS;
   const int rows_valid = min(ROWS, rows_total - r0);
   const int kv_end = tile_kv_end(p, G, tile);
@@ -264,7 +286,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
     const int valid = min(BN, ke - k0);
     bf16* sK = sKV + stage * L::STAGE;
     copy_tile_async(sK, LDK, k + k0 * p.k_ss, p.k_ss, BN, valid, DK);
-    copy_tile_async(sK + BN * LDK, LDV, v + k0 * p.v_ss, p.v_ss, BN, valid, DV);
+    if (!VK) copy_tile_async(sK + BN * LDK, LDV, v + k0 * p.v_ss, p.v_ss, BN, valid, DV);
   };
   copy_kv(0, 0);
   cp_async_commit();
@@ -307,7 +329,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
     }
     const bf16* sK = sKV + stage * L::STAGE;
     const unsigned k_base = smem_addr(sK + k_off);
-    const unsigned v_base = smem_addr(sK + BN * LDK + v_off);
+    // V: its own tile, or the slice's columns of the K tile
+    const unsigned v_base = smem_addr(VK ? sK + slice * DV + v_off : sK + BN * LDK + v_off);
 
     // S = Q K^T, 16 rows x BN keys per warp; the fragments of step kk + 1
     // are loaded before the products of step kk
@@ -427,7 +450,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
     }
     __syncwarp();  // a warp stores only its own rows
     constexpr int VPR = DV / 8;
-    bf16* out = static_cast<bf16*>(p.o) + b * p.o_sb;
+    bf16* out = static_cast<bf16*>(p.o) + b * p.o_sb + slice * DV;
     for (int i = lane; i < WARP_ROWS * VPR; i += 32) {
       const int r = warp * WARP_ROWS + i / VPR;
       const int c = (i % VPR) * 8;
@@ -438,18 +461,18 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
       }
     }
   } else {
-    const size_t base = ((size_t)(blockIdx.z * n_row_tiles + tile) * p.splits + chunk) * ROWS;
+    const size_t base = ((size_t)(bh * n_row_tiles + tile) * p.splits + chunk) * ROWS;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = warp * WARP_ROWS + g + 8 * h;
       if (row >= rows_valid) continue;
-      float* dst = p.part_o + (base + row) * DV;
+      float* dst = p.part_o + (base + row) * DVF + slice * DV;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j) {
         *reinterpret_cast<float2*>(dst + 8 * j + 2 * t4) =
             make_float2(o[j][2 * h], o[j][2 * h + 1]);
       }
-      if (t4 == 0) {
+      if (t4 == 0 && slice == 0) {  // every slice holds the same max and sum
         p.part_ml[2 * (base + row)] = m[h];
         p.part_ml[2 * (base + row) + 1] = l[h];
       }
@@ -503,11 +526,17 @@ __global__ void __launch_bounds__(THREADS) flash_merge_kernel(Params p) {
   *reinterpret_cast<uint2*>(out + (R / G) * p.o_st + (kvh * G + R % G) * p.o_sh + c) = packed;
 }
 
-template <int DK, int DV, bool OPT>
+template <int DK, int DV, bool OPT, int VS = 1>
 cudaError_t prepare_bf16() {
-  return cudaFuncSetAttribute(flash_bf16_kernel<DK, DV, OPT>,
+  return cudaFuncSetAttribute(flash_bf16_kernel<DK, DV, OPT, VS>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Bf16Layout<DK, DV>::BYTES);
+                              Bf16Layout<DK, DV, (VS > 1)>::BYTES);
+}
+
+cudaError_t launch_merge(const Params& p, int B, int row_tiles, cudaStream_t stream) {
+  const int per_tile = (ROWS + merge_rows_per_block(p.Dv) - 1) / merge_rows_per_block(p.Dv);
+  flash_merge_kernel<<<dim3(row_tiles * per_tile, B * p.Hkv), THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 struct LaunchBf16 {
@@ -527,11 +556,25 @@ struct LaunchBf16 {
       flash_bf16_kernel<DK, DV, false><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess || p.splits == 1) return err;
-    const int per_tile = (ROWS + merge_rows_per_block(DV) - 1) / merge_rows_per_block(DV);
-    flash_merge_kernel<<<dim3(row_tiles * per_tile, B * p.Hkv), THREADS, 0, stream>>>(p);
-    return cudaGetLastError();
+    return launch_merge(p, B, row_tiles, stream);
   }
 };
+
+// The MLA build (values from K, Dk 576, Dv 512 in VS = 4 slices of 128)
+constexpr int MLA_DK = 576, MLA_DV = 512, MLA_VS = 4;
+
+cudaError_t launch_mla(const Params& p, int B, cudaStream_t stream) {
+  constexpr int DV = MLA_DV / MLA_VS;
+  using L = Bf16Layout<MLA_DK, DV, true>;
+  cudaError_t err = prepare_bf16<MLA_DK, DV, false, MLA_VS>();
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (p.T * (p.Hq / p.Hkv) + ROWS - 1) / ROWS;
+  const dim3 grid(p.splits, row_tiles, B * p.Hkv * MLA_VS);
+  flash_bf16_kernel<MLA_DK, DV, false, MLA_VS><<<grid, THREADS, L::BYTES, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  return launch_merge(p, B, row_tiles, stream);
+}
 
 // Shared bytes, registers per thread, resident blocks per SM and local
 // bytes per thread of a variant (with the options or without).
@@ -585,14 +628,17 @@ cudaError_t for_dims(int Dk, int Dv, const F& f) {
 constexpr int F32_BK = 32;  // keys per tile: keeps D = 256 inside 227 KB
 constexpr int F32_PAD = 4;  // every shared row padded by 16 bytes
 
-// S[this warp's rows, 0:BK] = Q K^T; lane j owns key column j.
-__device__ void scores_f32(const float* sQ, const float* sK, float* sS, int Dk, int ld, int lds,
-                           int warp, int lane) {
+// S[this warp's rows, 0:BK] = Q K^T; lane j owns key column j. Q's row r
+// is at Q + min(r, q_rows - 1) * ldq (shared memory, or device memory in the
+// MLA build, where rows past the chunk must not be read).
+__device__ void scores_f32(const float* Q, long long ldq, int q_rows, const float* sK,
+                           float* sS, int Dk, int ld, int lds, int warp, int lane) {
   for (int r = 0; r < WARP_ROWS; ++r) {
     const int row = warp * WARP_ROWS + r;
+    const float* qr = Q + min(row, q_rows - 1) * ldq;
     for (int j = lane; j < F32_BK; j += 32) {
       float s = 0.0f;
-      for (int d = 0; d < Dk; ++d) s = fmaf(sQ[row * ld + d], sK[j * ld + d], s);
+      for (int d = 0; d < Dk; ++d) s = fmaf(qr[d], sK[j * ld + d], s);
       sS[row * lds + j] = s;
     }
   }
@@ -612,28 +658,29 @@ __device__ void accumulate_f32(const float* sP, int ldp, const float* sV, int ld
 }
 
 // Shared memory of one fp32 block: Q, STAGES K/V tile pairs, P, S and O,
-// all with padded rows.
-template <int STAGES>
+// all with padded rows (VK: no Q, and K tiles alone).
+template <int STAGES, bool VK = false>
 size_t f32_shared_bytes(int Dk, int Dv) {
   constexpr int P = F32_PAD;
-  return (size_t)(ROWS * (Dk + P) + STAGES * F32_BK * (Dk + P + Dv + P) +
+  return (size_t)((VK ? 0 : ROWS * (Dk + P)) + STAGES * F32_BK * (Dk + P + (VK ? 0 : Dv + P)) +
                   ROWS * (F32_BK + P) + ROWS * (F32_BK + P) +
                   ROWS * (Dv + P)) *
          sizeof(float);
 }
 
-// One block of 4 warps per (batch, query head, 64-row query tile).
-template <int STAGES>
+// One block of 4 warps per (batch, query head, 64-row query tile). VK: V is
+// K's first Dv columns (read from the K tile) and Q is read in place.
+template <int STAGES, bool VK = false>
 __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
   constexpr int BK = F32_BK;
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dk = p.Dk, Dv = p.Dv;
-  const int ldk = Dk + F32_PAD, ldv = Dv + F32_PAD;
+  const int ldk = Dk + F32_PAD, ldv = VK ? ldk : Dv + F32_PAD;
   constexpr int ldp = BK + F32_PAD, lds = BK + F32_PAD;
   const int ldo = Dv + F32_PAD;
-  const int stage_elems = BK * (ldk + ldv);
+  const int stage_elems = BK * (ldk + (VK ? 0 : ldv));
   float* sQ = reinterpret_cast<float*>(smem);
-  float* sKV = sQ + ROWS * ldk;
+  float* sKV = sQ + (VK ? 0 : ROWS * ldk);
   float* sP = sKV + STAGES * stage_elems;
   float* sS = sP + ROWS * ldp;
   float* sO = sS + ROWS * lds;
@@ -659,10 +706,10 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
     const int k_valid = min(BK, kv_end - k0);
     float* sK = sKV + stage * stage_elems;
     copy_tile_async(sK, ldk, k + k0 * p.k_ss, p.k_ss, BK, k_valid, Dk);
-    copy_tile_async(sK + BK * ldk, ldv, v + k0 * p.v_ss, p.v_ss, BK, k_valid, Dv);
+    if (!VK) copy_tile_async(sK + BK * ldk, ldv, v + k0 * p.v_ss, p.v_ss, BK, k_valid, Dv);
   };
 
-  copy_tile_async(sQ, ldk, q, p.q_st, ROWS, q_valid, Dk);
+  if (!VK) copy_tile_async(sQ, ldk, q, p.q_st, ROWS, q_valid, Dk);
   copy_kv(0, 0);
   cp_async_commit();
   for (int i = threadIdx.x; i < ROWS * ldo; i += THREADS) sO[i] = 0.0f;
@@ -691,11 +738,12 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
     }
     __syncthreads();  // this tile (and, first time, Q and the zeroed O) visible
     const float* sK = sKV + stage * stage_elems;
-    const float* sV = sK + BK * ldk;
+    const float* sV = VK ? sK : sK + BK * ldk;
     const int k0 = kv_begin + it * BK;
     const int k_valid = min(BK, kv_end - k0);
 
-    scores_f32(sQ, sK, sS, Dk, ldk, lds, warp, lane);
+    if (VK) scores_f32(q, p.q_st, q_valid, sK, sS, Dk, ldk, lds, warp, lane);
+    else scores_f32(sQ, ldk, ROWS, sK, sS, Dk, ldk, lds, warp, lane);
     __syncwarp();
 
     // online softmax over the warp's 16 rows at once; lane owns column lane
@@ -777,18 +825,20 @@ int f32_stages(int Dk, int Dv) {
   return f32_shared_bytes<2>(Dk, Dv) <= (size_t)max_shared_per_block() ? 2 : 1;
 }
 
-template <int STAGES>
+template <int STAGES, bool VK = false>
 cudaError_t launch_f32_stages(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = f32_shared_bytes<STAGES>(p.Dk, p.Dv);
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<STAGES>,
+  const size_t smem = f32_shared_bytes<STAGES, VK>(p.Dk, p.Dv);
+  if (smem > (size_t)max_shared_per_block()) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<STAGES, VK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T + ROWS - 1) / ROWS, p.Hq, B);
-  flash_f32_kernel<STAGES><<<grid, THREADS, smem, stream>>>(p);
+  flash_f32_kernel<STAGES, VK><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, int B, bool vk, cudaStream_t stream) {
+  if (vk) return launch_f32_stages<1, true>(p, B, stream);
   return f32_stages(p.Dk, p.Dv) == 2 ? launch_f32_stages<2>(p, B, stream)
                                      : launch_f32_stages<1>(p, B, stream);
 }
@@ -820,13 +870,19 @@ extern "C" {
 // of 64, or 0 for the whole walk in one block. With more than one split,
 // part_o and part_ml hold B * Hkv * row tiles * splits * 64 rows of Dv and
 // 2 floats (row tiles of 64 packed (query position, group head) rows).
-// Returns the cudaError_t of the launches (0 on success); the caller checks it.
+// values_from_k: v is k's first Dv columns (a view with k's strides): the
+// MLA builds, which take no softcap or window; in bf16 only at Dk 576 / Dv
+// 512. Returns the cudaError_t of the launches (0 on success); the caller
+// checks it.
 int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* part_o,
                             void* part_ml, int dtype, int B, int T, int S, int Hq, int Hkv,
                             int Dk, int Dv, const long long* strides, int offset, float scale,
-                            float softcap, int window, int split, void* stream) {
+                            float softcap, int window, int split, int values_from_k,
+                            void* stream) {
+  const bool vk = values_from_k != 0;
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || offset < 0 || split < 0 ||
-      split % 64 || softcap < 0.0f || window < 0)
+      split % 64 || softcap < 0.0f || window < 0 ||
+      (vk && (v != k || Dv > Dk || softcap > 0.0f || window > 0)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -861,12 +917,13 @@ int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
   if (dtype == 0) {
     p.split = S;
     p.splits = 1;
-    return (int)launch_f32(p, B, s);
+    return (int)launch_f32(p, B, vk, s);
   }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || (vk && (Dk != MLA_DK || Dv != MLA_DV))) return (int)cudaErrorInvalidValue;
   p.splits = num_splits(p, split);
   p.split = p.splits > 1 ? split : S;
   if (p.splits > 1 && (part_o == nullptr || part_ml == nullptr)) return (int)cudaErrorInvalidValue;
+  if (vk) return (int)launch_mla(p, B, s);
   return (int)for_dims(Dk, Dv, LaunchBf16{p, B, s});
 }
 
@@ -878,6 +935,25 @@ const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaErro
 // cudaError_t of the queries.
 int mst_flash_attention_kernel_info(int Dk, int Dv, int options, long long* out) {
   return (int)for_dims(Dk, Dv, InfoBf16{out, options != 0});
+}
+
+// The same of the MLA build (Dk 576, Dv 512 read from K).
+int mst_flash_attention_mla_info(long long* out) {
+  constexpr int DV = MLA_DV / MLA_VS;
+  const auto kernel = flash_bf16_kernel<MLA_DK, DV, false, MLA_VS>;
+  constexpr int bytes = Bf16Layout<MLA_DK, DV, true>::BYTES;
+  cudaError_t err = prepare_bf16<MLA_DK, DV, false, MLA_VS>();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, bytes);
+  out[0] = bytes;
+  out[1] = attr.numRegs;
+  out[2] = blocks;
+  out[3] = (long long)attr.localSizeBytes;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -69,6 +69,19 @@
 //     reference scale that keeps P in [0, 1].
 // What still holds it back (PERF.md): per item, the wait for its first tile
 // and the merge of the warps and of the splits; and per launch, the setup.
+//
+// DeepSeek-V2's compressed MLA layout (values_from_k: V is the first Dv =
+// 512 columns of each K row of 576, one KV head, groups of 16 to 128 heads)
+// reads no V pool: P V takes its fragments from the K tile. At 16 rows an
+// item, a 512-column fp32 accumulator would take 256 registers a thread, so
+// Dv is cut into slices of 128 and each slice is an item of its own (the
+// tensor-core build VS = 4; the FMA kernel the same at run time): the four
+// items of a (row, split) are adjacent, so their K tiles come from L2 after
+// the first. Each computes the whole S = Q K^T over Dk = 576 (4x the
+// operations of one item) and its slice of P V; the partials, tickets and
+// merges are per slice. At V2's group of 128 a T=1 step does ~240
+// operations per byte of K, near the card's ridge, hence mma.sync here and
+// not the FMA kernel. Softcap and window do not combine with it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,6 +97,9 @@ constexpr int THREADS = 128;  // the FMA kernel's block; the TC kernel's consume
 constexpr int WARPS = THREADS / 32;
 constexpr int GMAX = 16;  // query heads per block: the mma's 16 rows
 constexpr int MAX_HEAD_DIM = 256;
+constexpr int MLA_DK = 576;     // the MLA build's largest Dk (rank + rope)
+constexpr int MLA_DV = 512;     // and its Dv (rank), read from K
+constexpr int VSLICE = 128;     // value columns of one item above 256
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -96,11 +112,13 @@ struct Params {
   const float* v_scale;
   const int* tables;     // (M, SPG)
   const int* lengths;    // (M,)
-  void* o;               // (M, Hq, Dv)
-  float* part_acc;       // (M, Hq, splits, Dv) fp32, when the walk is split
-  float* part_ml;        // (M, Hq, splits, 2): running max (log2 units), normaliser
-  int* counters;         // (M, Hkv * chunks) tickets, zero between launches
-  int Hq, Hkv, Dk, Dv, page, spg;
+  void* o;               // (M, Hq, Dv * vslices)
+  float* part_acc;       // (M, Hq, vslices, splits, Dv) fp32, when the walk is split
+  float* part_ml;        // (M, Hq, vslices, splits, 2): running max (log2 units), normaliser
+  int* counters;         // (M, Hkv * chunks * vslices) tickets, zero between launches
+  int Hq, Hkv, Dk, Dv, page, spg;  // Dv: the value columns of one item
+  int vslices;  // items along the value columns (values_from_k above 256: Dv = 128)
+  int vk;       // values_from_k: V is K's first Dv * vslices columns, v == k
   int G;       // query heads per KV head (Hq / Hkv)
   int chunks;  // blocks of GMAX heads per KV head
   int split;   // positions per block of the walk
@@ -164,13 +182,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // Dv > 128), and reads chunks of splits with every load of a chunk in
 // flight at once, rescaling its running sums to each chunk's larger max.
 // Run by the 128 consumer threads; MAXDV bounds Dv.
+// Value slice vs of vsl: the partials of head g are rows ((m Hq + head0 +
+// g) vsl + vs) splits + s, and its output columns vs Dv .. of a row of vsl Dv.
 template <typename TQ, int MAXDV>
 __device__ void merge_splits(const Params& p, int m, int row, int head0, int nh, int n,
-                             int* sFlag) {
+                             int* sFlag, int vs, int vsl) {
   const int tid = threadIdx.x;
   const int Dv = p.Dv;
-  TQ* out = static_cast<TQ*>(p.o) + ((size_t)m * p.Hq + head0) * Dv;
-  const size_t row0 = ((size_t)m * p.Hq + head0) * p.splits;
+  TQ* out = static_cast<TQ*>(p.o) + ((size_t)m * p.Hq + head0) * Dv * vsl + vs * Dv;
   consumer_sync();  // every partial written before the release below
   int* counter = p.counters + row;
   if (tid == 0) {
@@ -190,7 +209,8 @@ __device__ void merge_splits(const Params& p, int m, int row, int head0, int nh,
   const float4* acc4 = reinterpret_cast<const float4*>(p.part_acc);
   const float2* ml2 = reinterpret_cast<const float2*>(p.part_ml);
   for (int g = warp; g < nh; g += WARPS) {
-    const size_t hrow = row0 + (size_t)g * p.splits;  // split s is row hrow + s
+    // split s is row hrow + s
+    const size_t hrow = (((size_t)m * p.Hq + head0 + g) * vsl + vs) * p.splits;
     float4 a[PJ];
 #pragma unroll
     for (int j = 0; j < PJ; ++j) a[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -244,7 +264,7 @@ __device__ void merge_splits(const Params& p, int m, int row, int head0, int nh,
     for (int j = 0; j < PJ; ++j) {
       const int piece = lane + 32 * j;
       if (piece < pieces) {
-        TQ* dst = out + g * Dv + 4 * piece;
+        TQ* dst = out + (size_t)g * Dv * vsl + 4 * piece;
         dst[0] = from_float<TQ>(a[j].x * inv);
         dst[1] = from_float<TQ>(a[j].y * inv);
         dst[2] = from_float<TQ>(a[j].z * inv);
@@ -326,10 +346,11 @@ struct Layout {
   // max, normaliser and the ticket flag
   int acc, ml, flag, total;
 
-  __host__ __device__ Layout(int Dk, int Dv) {
+  // vk: V is read from the K tile (a stage holds K alone)
+  __host__ __device__ Layout(int Dk, int Dv, bool vk = false) {
     ldk = Dk * (int)sizeof(TKV) + 16 * TPK;
-    ldv = Dv * (int)sizeof(TKV) + 16 * TPK;
-    stage = KEYS * (ldk + ldv);
+    ldv = vk ? ldk : Dv * (int)sizeof(TKV) + 16 * TPK;
+    stage = KEYS * (ldk + (vk ? 0 : ldv));
     scales = 2 * stage;                 // [stage][k|v][KEYS] floats
     q = scales + 2 * 2 * KEYS * 4;      // [GMAX][Dk] floats
     p = q + GMAX * Dk * 4;              // [GMAX][KEYS] floats
@@ -353,7 +374,8 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
   constexpr int TPK = THREADS / KEYS;
   constexpr int VEC = 16 / sizeof(TKV);
   extern __shared__ __align__(16) unsigned char smem[];
-  const int cb = blockIdx.x;  // KV head * chunks + chunk
+  const int cbv = blockIdx.x;  // (KV head * chunks + chunk) * vslices + value slice
+  const int cb = cbv / p.vslices, vs = cbv % p.vslices;
   const int h = cb / p.chunks;
   const int g0 = cb % p.chunks * G;  // the chunk's first head of the group
   const int nh = min(G, p.G - g0);
@@ -370,7 +392,7 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
   const int end = min(len, begin + p.split);
   const int n_tiles = (max(end - begin, 0) + KEYS - 1) / KEYS;
 
-  const Layout<TKV> L(p.Dk, p.Dv);
+  const Layout<TKV> L(p.Dk, p.Dv, p.vk);
   float* sScale = reinterpret_cast<float*>(smem + L.scales);
   float* sQ = reinterpret_cast<float*>(smem + L.q);
   float* sP = reinterpret_cast<float*>(smem + L.p);
@@ -413,7 +435,11 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
       const int row = rows[r];
       cp_async16(dK + r * L.ldk + kc * 16, kpool + (size_t)max(row, 0) * Dk + kc * VEC, row >= 0);
     }
-    for (int r = vr; vr < vstep && r < KEYS; r += vstep) {
+    for (int i = tid; kstep == 0 && i < KEYS * kvec; i += THREADS) {  // rows wider than the block
+      const int r = i / kvec, c = i % kvec, row = rows[r];
+      cp_async16(dK + r * L.ldk + c * 16, kpool + (size_t)max(row, 0) * Dk + c * VEC, row >= 0);
+    }
+    for (int r = vr; !p.vk && vr < vstep && r < KEYS; r += vstep) {
       const int row = rows[r];
       cp_async16(dV + r * L.ldv + vc * 16, vpool + (size_t)max(row, 0) * Dv + vc * VEC, row >= 0);
     }
@@ -463,7 +489,8 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
     }
     __syncthreads();  // this tile (and, the first time, sQ) visible
     const unsigned char* sK = smem + stage * L.stage;
-    const unsigned char* sV = sK + KEYS * L.ldk;
+    // V: its own tile, or the slice's columns of the K tile
+    const unsigned char* sV = p.vk ? sK + vs * Dv * (int)sizeof(TKV) : sK + KEYS * L.ldk;
     const float* scl = sScale + stage * 2 * KEYS;
     const int k_valid = min(KEYS, end - (begin + it * KEYS));
     const bool valid = key < k_valid && begin + it * KEYS + key >= lo;
@@ -589,21 +616,23 @@ __global__ void __launch_bounds__(THREADS) paged_fma_kernel(Params p) {
   __syncthreads();
   // one split: O / l (length 0: l and the accumulator are 0, so zeros);
   // else this split's partial, and the merge if it is the row's last
-  TQ* out = static_cast<TQ*>(p.o) + ((size_t)m * p.Hq + head0) * Dv;
-  const size_t row0 = ((size_t)m * p.Hq + head0) * p.splits;
+  const int vsl = p.vslices;
+  TQ* out = static_cast<TQ*>(p.o) + ((size_t)m * p.Hq + head0) * Dv * vsl + vs * Dv;
+  // head g's partial rows: ((m Hq + head0 + g) vslices + vs) splits + split
+  auto prow = [&](int g) { return (((size_t)m * p.Hq + head0 + g) * vsl + vs) * p.splits; };
   for (int i = tid; i < nh * Dv; i += THREADS) {
     const int g = i / Dv;
-    if (n <= 1) out[i] = from_float<TQ>(sAcc[i] / fmaxf(sL[g], 1e-30f));
-    else p.part_acc[(row0 + (size_t)g * p.splits + z) * Dv + i - g * Dv] = sAcc[i];
+    if (n <= 1) out[(size_t)g * Dv * vsl + i - g * Dv] = from_float<TQ>(sAcc[i] / fmaxf(sL[g], 1e-30f));
+    else p.part_acc[(prow(g) + z) * Dv + i - g * Dv] = sAcc[i];
   }
   if (n > 1) {
     if (tid < nh) {
-      float* ml = p.part_ml + 2 * (row0 + (size_t)tid * p.splits + z);
+      float* ml = p.part_ml + 2 * (prow(tid) + z);
       ml[0] = sM[tid];
       ml[1] = sL[tid];
     }
-    merge_splits<TQ, MAX_HEAD_DIM>(p, m, m * gridDim.x + cb, head0, nh, n,
-                                   reinterpret_cast<int*>(smem + L.flag));
+    merge_splits<TQ, MAX_HEAD_DIM>(p, m, m * gridDim.x + cbv, head0, nh, n,
+                                   reinterpret_cast<int*>(smem + L.flag), vs, vsl);
   }
 }
 
@@ -626,10 +655,11 @@ struct TcLayout {
   int ldo, stage, stages;
   int so, scales, qf, wml, flag, red, pre, bars, total;
 
-  // heads: query heads of a block (min(G, GMAX)); slots: M
-  __host__ __device__ TcLayout(int dk, int dv, int heads, int slots) {
+  // heads: query heads of a block (min(G, GMAX)); slots: M; vk: V is read
+  // from the K boxes (a stage holds K alone)
+  __host__ __device__ TcLayout(int dk, int dv, int heads, int slots, bool vk = false) {
     ldo = dv + 8;  // padded rows: a warp's stores spread over the banks
-    stage = (dk + dv) / BOX_COLS * BOX;
+    stage = (dk + (vk ? 0 : dv)) / BOX_COLS * BOX;
     stages = RING_BYTES / stage;  // a ring of tiles: more of them when rows are narrow
     stages = stages < 2 ? 2 : stages > MAX_STAGES ? MAX_STAGES : stages;
     so = stages * stage;                   // each warp's O rows [CONSUMERS][heads][ldo]
@@ -714,11 +744,13 @@ __device__ __forceinline__ unsigned swz(int r, int c) {
 // One work item: a (slot, KV head, head chunk) row's split, or the whole
 // row of an empty slot (which writes zeros).
 struct Item {
-  int m, cb, h, g0, nh, n, z, begin, end, n_tiles, lo;
+  int m, cb, h, g0, nh, n, z, vs, begin, end, n_tiles, lo;
 };
 
-// Items run slot by slot, row by row, split fastest; sPre[m] counts the
-// items before slot m, sLen its clipped length and sLen[M + m] its first key.
+// Items run slot by slot, row by row, split, then value slice (VS of them)
+// fastest; sPre[m] counts the items before slot m, sLen its clipped length
+// and sLen[M + m] its first key.
+template <int VS = 1>
 __device__ __forceinline__ Item decode_item(const Params& p, const int* sPre, const int* sLen,
                                             int M, int item) {
   const int rows_per_slot = p.Hkv * p.chunks;
@@ -732,7 +764,8 @@ __device__ __forceinline__ Item decode_item(const Params& p, const int* sPre, co
   it.m = lo;
   const int per_row = (sPre[lo + 1] - sPre[lo]) / rows_per_slot;
   it.cb = (item - sPre[lo]) / per_row;  // KV head * chunks + chunk
-  it.z = (item - sPre[lo]) % per_row;   // the split
+  it.z = (item - sPre[lo]) % per_row / VS;  // the split
+  it.vs = (item - sPre[lo]) % VS;           // the value slice
   it.h = it.cb / p.chunks;
   it.g0 = it.cb % p.chunks * GMAX;
   it.nh = min(GMAX, p.G - it.g0);  // heads of the item
@@ -751,17 +784,19 @@ __device__ __forceinline__ Item decode_item(const Params& p, const int* sPre, co
 // items blockIdx.x, + gridDim.x, ...; the producer runs ahead of the math
 // by the ring's tiles, so the next item's copies are in flight
 // during this item's merge. The grid comes from the shapes alone. DV is
-// the value head dim.
-template <typename TKV, int DV, bool OPT>
+// the value head dim (of one item); VS > 1: values_from_k, V is K's first VS
+// * DV columns, read from the K boxes, item slice vs computing columns vs DV ..
+template <typename TKV, int DV, bool OPT, int VS = 1>
 __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     paged_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, const Params p, int M) {
   constexpr bool QUANT = sizeof(TKV) == 1;
+  constexpr bool VK = VS > 1;
   using L_t = TcLayout<TKV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const L_t L(p.Dk, DV, min(p.G, GMAX), M);
+  const L_t L(p.Dk, DV, min(p.G, GMAX), M, VK);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rows_per_slot = p.Hkv * p.chunks;
   const int reach = p.spg * p.page;
@@ -776,7 +811,7 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     const int len = min(raw, reach), lo = walk_lo(p, raw);
     sLen[i] = len;
     sLen[M + i] = lo;
-    sPre[i + 1] = rows_per_slot * max((max(len - (lo & ~63), 0) + p.split - 1) / p.split, 1);
+    sPre[i + 1] = rows_per_slot * max((max(len - (lo & ~63), 0) + p.split - 1) / p.split, 1) * VS;
   }
   const int stages = L.stages;
   const unsigned bars = smem_u32(smem + L.bars);  // full[s] at bars + 8 s, empty[s] at + 8 (stages + s)
@@ -813,10 +848,10 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     // trip (lanes 0-15 the first tile's pages, 16-31 the second's), then
     // the copies, as soon as the tile's stage is free
     const int R = p.box_rows;
-    const int kboxes = Dk / BOX_COLS, boxes = kboxes + DV / BOX_COLS;
+    const int kboxes = Dk / BOX_COLS, boxes = kboxes + (VK ? 0 : DV / BOX_COLS);
     int T = 0;  // tiles issued by this block
     for (int item = blockIdx.x; item < total; item += gridDim.x) {
-      const Item it = decode_item(p, sPre, sLen, M, item);
+      const Item it = decode_item<VS>(p, sPre, sLen, M, item);
       const int* table = p.tables + (size_t)it.m * p.spg;
       int entry = 0;
       for (int t = 0; t < it.n_tiles; ++t, ++T) {
@@ -831,7 +866,7 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
         }
         if (T >= stages) mbar_wait(bars + 8 * (stages + s), (T / stages - 1) & 1);
         const int rows = min(TILE, (it.end - t0 + R - 1) / R * R);  // whole boxes of one page run
-        if (lane == 0) mbar_expect_tx(bars + 8 * s, rows * (Dk + DV) * (int)sizeof(TKV));
+        if (lane == 0) mbar_expect_tx(bars + 8 * s, rows * (Dk + (VK ? 0 : DV)) * (int)sizeof(TKV));
         __syncwarp();
         const unsigned dst0 = smem_u32(smem + s * L.stage);
         const int first = t0 / p.page;
@@ -881,7 +916,7 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
 
   // Q of an item: each thread loads its 16-byte pieces of the heads' rows
   // at once (one round trip), the next item's during this item's merge
-  constexpr int QV = GMAX * MAX_HEAD_DIM / 8 / THREADS;  // pieces per thread at most
+  constexpr int QV = GMAX * (VK ? MLA_DK : MAX_HEAD_DIM) / 8 / THREADS;  // pieces per thread at most
   uint4 qv[QV];
   auto load_q = [&](const Item& it) {
     const uint4* q = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.q) +
@@ -893,9 +928,9 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     }
   };
   int T = 0;  // tiles consumed by this block
-  if (blockIdx.x < total) load_q(decode_item(p, sPre, sLen, M, blockIdx.x));
+  if (blockIdx.x < total) load_q(decode_item<VS>(p, sPre, sLen, M, blockIdx.x));
   for (int item = blockIdx.x; item < total; item += gridDim.x) {
-    const Item it = decode_item(p, sPre, sLen, M, item);
+    const Item it = decode_item<VS>(p, sPre, sLen, M, item);
     const int nh = it.nh;
     const bool hi = nh > 8;  // rows 8-15 hold heads
     const int n_vec = nh * Dk / 8;
@@ -987,7 +1022,8 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
       if (valid > 0) {
         mbar_wait(bars + 8 * s, (T / stages) & 1);
         const unsigned kbase = smem_u32(smem + s * L.stage);
-        const unsigned vbase = kbase + Dk / BOX_COLS * L_t::BOX;
+        // V: its own boxes, or the slice's boxes of K
+        const unsigned vbase = kbase + (VK ? it.vs * DV : Dk) / BOX_COLS * L_t::BOX;
         const int r0 = 16 * warp;  // the warp's rows of the tile
 
         // S = Q K^T: 16 heads x 16 keys, n tiles of keys 0-7 and 8-15
@@ -1167,7 +1203,7 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
       __syncwarp();
       if (lane == 0) mbar_arrive(bars + 8 * (stages + s));  // the stage may be refilled
     }
-    if (item + gridDim.x < total) load_q(decode_item(p, sPre, sLen, M, item + gridDim.x));
+    if (item + gridDim.x < total) load_q(decode_item<VS>(p, sPre, sLen, M, item + gridDim.x));
 
     // each warp's rows to shared memory, in natural column order, O counted
     // in V's units
@@ -1207,8 +1243,12 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
     // warp's row is exp2(its max - the largest); one split writes O / l,
     // else the split's partial, and the merge if it is the row's last
     const int head0 = it.h * p.G + it.g0;
-    const size_t row0 = ((size_t)it.m * p.Hq + head0) * p.splits;
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + ((size_t)it.m * p.Hq + head0) * DV;
+    // head row's partial rows: ((m Hq + head0 + row) VS + vs) splits + split
+    auto prow = [&](int row) {
+      return (((size_t)it.m * p.Hq + head0 + row) * VS + it.vs) * p.splits;
+    };
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) +
+                         ((size_t)it.m * p.Hq + head0) * DV * VS + it.vs * DV;
     auto warp_weights = [&](int row, float (&w)[CONSUMERS]) {
       float mx = NEG_INF;
 #pragma unroll
@@ -1228,8 +1268,8 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
         l = fmaf(w[k], sWml[(k * GMAX + row) * 2 + 1], l);
       }
       // length 0: l and the accumulator are 0, so the row is zeros
-      if (it.n <= 1) out[i] = __float2bfloat16(a / fmaxf(l, 1e-30f));
-      else p.part_acc[(row0 + (size_t)row * p.splits + it.z) * DV + i - row * DV] = a;
+      if (it.n <= 1) out[(size_t)row * DV * VS + i - row * DV] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+      else p.part_acc[(prow(row) + it.z) * DV + i - row * DV] = a;
     }
     if (it.n > 1) {
       if (tid < nh) {
@@ -1238,12 +1278,12 @@ __global__ void __launch_bounds__(TC_THREADS, DV > 128 ? 1 : 2)
         float l = 0.0f;
 #pragma unroll
         for (int k = 0; k < CONSUMERS; ++k) l = fmaf(w[k], sWml[(k * GMAX + tid) * 2 + 1], l);
-        float* ml = p.part_ml + 2 * (row0 + (size_t)tid * p.splits + it.z);
+        float* ml = p.part_ml + 2 * (prow(tid) + it.z);
         ml[0] = mx;
         ml[1] = l;
       }
-      merge_splits<__nv_bfloat16, DV>(p, it.m, it.m * rows_per_slot + it.cb, head0, nh, it.n,
-                                      reinterpret_cast<int*>(smem + L.flag));
+      merge_splits<__nv_bfloat16, DV>(p, it.m, (it.m * rows_per_slot + it.cb) * VS + it.vs, head0,
+                                      nh, it.n, reinterpret_cast<int*>(smem + L.flag), it.vs, VS);
     }
   }
 }
@@ -1264,24 +1304,25 @@ cudaError_t allow_shared(K kernel, int smem, int& set) {
 template <typename TQ, typename TKV>
 cudaError_t launch_fma(const Params& p, int M, cudaStream_t stream) {
   static int set = 48 * 1024;
-  const int smem = Layout<TKV>(p.Dk, p.Dv).bytes();
+  const int smem = Layout<TKV>(p.Dk, p.Dv, p.vk).bytes();
   cudaError_t err = allow_shared(paged_fma_kernel<TQ, TKV>, smem, set);
   if (err != cudaSuccess) return err;
-  paged_fma_kernel<TQ, TKV><<<dim3(p.Hkv * p.chunks, M, p.splits), THREADS, smem, stream>>>(p);
+  paged_fma_kernel<TQ, TKV>
+      <<<dim3(p.Hkv * p.chunks * p.vslices, M, p.splits), THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TKV, int DV, bool OPT>
+template <typename TKV, int DV, bool OPT, int VS = 1>
 cudaError_t tc_prepare(int dk, int heads, int slots, int* smem_out) {
   static int set = 48 * 1024;
-  const int smem = TcLayout<TKV>(dk, DV, heads, slots).bytes();
+  const int smem = TcLayout<TKV>(dk, DV, heads, slots, VS > 1).bytes();
   *smem_out = smem;
-  return allow_shared(paged_tc_kernel<TKV, DV, OPT>, smem, set);
+  return allow_shared(paged_tc_kernel<TKV, DV, OPT, VS>, smem, set);
 }
 
 // Blocks of the persistent grid: as many as the card holds at once (the
 // occupancy of this build at this shared size), found once per size
-template <typename TKV, int DV, bool OPT>
+template <typename TKV, int DV, bool OPT, int VS = 1>
 cudaError_t tc_resident(int smem, int* blocks) {
   static int known_smem = -1, known = 0;
   if (smem != known_smem) {
@@ -1289,8 +1330,8 @@ cudaError_t tc_resident(int smem, int* blocks) {
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_tc_kernel<TKV, DV, OPT>,
-                                                          TC_THREADS, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, paged_tc_kernel<TKV, DV, OPT, VS>, TC_THREADS, smem);
     if (err != cudaSuccess) return err;
     known = sms * per_sm;
     known_smem = smem;
@@ -1299,18 +1340,25 @@ cudaError_t tc_resident(int smem, int* blocks) {
   return cudaSuccess;
 }
 
-template <typename TKV, int DV, bool OPT>
+template <typename TKV, int DV, bool OPT, int VS = 1>
 cudaError_t launch_tc(const Params& p, const CUtensorMap& km, const CUtensorMap& vm, int M,
                       cudaStream_t stream) {
   int smem = 0, resident = 0;
-  cudaError_t err = tc_prepare<TKV, DV, OPT>(p.Dk, p.G < GMAX ? p.G : GMAX, M, &smem);
-  if (err == cudaSuccess) err = tc_resident<TKV, DV, OPT>(smem, &resident);
+  cudaError_t err = tc_prepare<TKV, DV, OPT, VS>(p.Dk, p.G < GMAX ? p.G : GMAX, M, &smem);
+  if (err == cudaSuccess) err = tc_resident<TKV, DV, OPT, VS>(smem, &resident);
   if (err != cudaSuccess) return err;
   if (resident <= 0) return cudaErrorInvalidConfiguration;
-  const long long items = (long long)M * p.Hkv * p.chunks * p.splits;  // at most
+  const long long items = (long long)M * p.Hkv * p.chunks * p.splits * VS;  // at most
   const int blocks = (int)(items < resident ? items : resident);
-  paged_tc_kernel<TKV, DV, OPT><<<blocks, TC_THREADS, smem, stream>>>(km, vm, p, M);
+  paged_tc_kernel<TKV, DV, OPT, VS><<<blocks, TC_THREADS, smem, stream>>>(km, vm, p, M);
   return cudaGetLastError();
+}
+
+// The MLA builds: values_from_k, Dk up to 576, Dv 512 in four items of 128
+template <typename TKV>
+cudaError_t launch_tc_mla(const Params& p, const CUtensorMap& km, int M, cudaStream_t stream) {
+  if (p.Dv != VSLICE || p.vslices != MLA_DV / VSLICE || p.Dk > MLA_DK) return cudaErrorInvalidValue;
+  return launch_tc<TKV, VSLICE, false, MLA_DV / VSLICE>(p, km, km, M, stream);
 }
 
 template <typename TKV, bool OPT>
@@ -1325,16 +1373,16 @@ cudaError_t launch_tc_dv(const Params& p, const CUtensorMap& km, const CUtensorM
   return cudaErrorInvalidValue;
 }
 
-template <typename TKV, int DV>
-cudaError_t tc_info(int dk, int slots, long long* out) {
+template <typename TKV, int DV, int VS = 1>
+cudaError_t tc_info(int dk, int slots, int heads, long long* out) {
   int smem = 0;
-  cudaError_t err = tc_prepare<TKV, DV, false>(dk, 4, slots, &smem);
+  cudaError_t err = tc_prepare<TKV, DV, false, VS>(dk, heads, slots, &smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, paged_tc_kernel<TKV, DV, false>);
+  err = cudaFuncGetAttributes(&a, paged_tc_kernel<TKV, DV, false, VS>);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, paged_tc_kernel<TKV, DV, false>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, paged_tc_kernel<TKV, DV, false, VS>,
                                                       TC_THREADS, smem);
   out[0] = smem;
   out[1] = a.numRegs;
@@ -1346,10 +1394,10 @@ cudaError_t tc_info(int dk, int slots, long long* out) {
 template <typename TKV>
 cudaError_t tc_info_dv(int dk, int dv, int slots, long long* out) {
   switch (dv) {
-    case 64: return tc_info<TKV, 64>(dk, slots, out);
-    case 128: return tc_info<TKV, 128>(dk, slots, out);
-    case 192: return tc_info<TKV, 192>(dk, slots, out);
-    case 256: return tc_info<TKV, 256>(dk, slots, out);
+    case 64: return tc_info<TKV, 64>(dk, slots, 4, out);
+    case 128: return tc_info<TKV, 128>(dk, slots, 4, out);
+    case 192: return tc_info<TKV, 192>(dk, slots, 4, out);
+    case 256: return tc_info<TKV, 256>(dk, slots, 4, out);
   }
   return cudaErrorInvalidValue;
 }
@@ -1382,17 +1430,28 @@ extern "C" {
 // split) > 1, part_acc and part_ml hold M * Hq * splits * Dv and * 2
 // floats, and counters M * Hkv * ceil(G / 16) ints that are zero (the
 // launch leaves them zero). bf16 q over a bf16 or int8 pool with pages of
-// a multiple of 8 rows runs the tensor-core kernel, the rest the FMA one. Every tensor is contiguous. Returns the
-// cudaError_t of the launch (0 on success); the caller checks it.
+// a multiple of 8 rows runs the tensor-core kernel, the rest the FMA one. Every tensor is contiguous.
+// values_from_k (MLA): Dv of V is K's first columns; v and v_scale are k
+// and k_scale; no softcap or window. Above 256 columns the value columns
+// run in items of 128: part_acc and part_ml then hold Dv / 128 times the
+// rows (M * Hq * Dv / 128 * splits), counters M * Hkv * ceil(G / 16) *
+// Dv / 128; the tensor-core kernel takes it at Dk <= 576 and Dv = 512.
+// Returns the cudaError_t of the launch (0 on success); the caller checks it.
 int mst_paged_attention(const void* q, const void* k, const void* v, const void* k_scale,
                         const void* v_scale, const void* tables, const void* lengths, void* o,
                         void* part_acc, void* part_ml, void* counters, int q_dtype, int kv_dtype,
                         int M, int Hq, int Hkv, int Dk, int Dv, int pool_pages, int page, int spg,
-                        int split, float scale, float softcap, int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || Dk % 64 || Dv % 64 || Dk > 256 || Dv > 256 || page <= 0 ||
+                        int split, float scale, float softcap, int window, int values_from_k,
+                        void* stream) {
+  const bool vk = values_from_k != 0;
+  const int max_dk = vk ? MLA_DK : MAX_HEAD_DIM, max_dv = vk ? MLA_DV : MAX_HEAD_DIM;
+  if (Hkv <= 0 || Hq % Hkv || Dk % 64 || Dv % 64 || Dk > max_dk || Dv > max_dv || page <= 0 ||
       spg <= 0 || M <= 0 || pool_pages <= 0 || split < 0 || split % 64 || softcap < 0.0f ||
-      window < 0)
+      window < 0 ||
+      (vk && (v != k || v_scale != k_scale || Dv > Dk || softcap > 0.0f || window > 0)))
     return (int)cudaErrorInvalidValue;
+  const int vslices = Dv > MAX_HEAD_DIM ? Dv / VSLICE : 1;
+  if (Dv % vslices) return (int)cudaErrorInvalidValue;
   const int splits = num_splits(page, spg, split);
   if (splits > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1412,7 +1471,9 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.Dk = Dk;
-  p.Dv = Dv;
+  p.Dv = Dv / vslices;
+  p.vslices = vslices;
+  p.vk = vk;
   p.page = page;
   p.spg = spg;
   p.G = Hq / Hkv;
@@ -1429,7 +1490,10 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
     const long long rows = (long long)pool_pages * page;
     CUtensorMap km, vm;
     cudaError_t err = pool_map(&km, k, int8, rows, Hkv * Dk, p.box_rows);
-    if (err == cudaSuccess) err = pool_map(&vm, v, int8, rows, Hkv * Dv, p.box_rows);
+    if (err != cudaSuccess) return (int)err;
+    if (vk) return int8 ? (int)launch_tc_mla<int8_t>(p, km, M, s)
+                        : (int)launch_tc_mla<__nv_bfloat16>(p, km, M, s);
+    err = pool_map(&vm, v, int8, rows, Hkv * Dv, p.box_rows);
     if (err != cudaSuccess) return (int)err;
     const bool opt = softcap > 0.0f || window > 0;
     if (int8) return opt ? (int)launch_tc_dv<int8_t, true>(p, km, vm, M, s)
@@ -1453,6 +1517,14 @@ const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaErro
 int mst_paged_attention_kernel_info(int kv_dtype, int Dk, int Dv, int M, long long* out) {
   if (kv_dtype == 1) return (int)tc_info_dv<__nv_bfloat16>(Dk, Dv, M, out);
   if (kv_dtype == 2) return (int)tc_info_dv<int8_t>(Dk, Dv, M, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same of the MLA build (values_from_k at Dk 576, Dv 512), 16 heads a
+// block.
+int mst_paged_attention_mla_info(int kv_dtype, int M, long long* out) {
+  if (kv_dtype == 1) return (int)tc_info<__nv_bfloat16, VSLICE, MLA_DV / VSLICE>(MLA_DK, M, 16, out);
+  if (kv_dtype == 2) return (int)tc_info<int8_t, VSLICE, MLA_DV / VSLICE>(MLA_DK, M, 16, out);
   return (int)cudaErrorInvalidValue;
 }
 

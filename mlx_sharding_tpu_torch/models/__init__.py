@@ -1,6 +1,5 @@
 """Model construction (port of ``mlx_sharding_tpu/models/__init__.py``): a
-registry keyed like JAX's by the remapped ``model_type``. DeepSeek-V2 is
-not yet ported and raises, naming the ROADMAP item that brings it.
+registry keyed like JAX's by the remapped ``model_type``.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ MODEL_REGISTRY: dict[str, tuple[str, str]] = {
     "qwen3": ("mlx_sharding_tpu_torch.models.qwen3", "Qwen3Model"),
     "gemma2": ("mlx_sharding_tpu_torch.models.gemma2", "Gemma2Model"),
     "mixtral": ("mlx_sharding_tpu_torch.models.mixtral", "MixtralModel"),
+    "deepseek_v2": ("mlx_sharding_tpu_torch.models.deepseek_v2", "DeepseekV2Model"),
 }
 
 
@@ -24,11 +24,6 @@ def build_model(config_dict: dict, dtype=torch.bfloat16):
     """config.json dict -> (model on the ``meta`` device, config). Give it
     weights with ``model.init_params`` or ``load_state_dict(assign=True)``."""
     cfg = config_from_dict(config_dict)
-    if cfg.model_type == "deepseek_v2":
-        raise NotImplementedError(
-            "model type 'deepseek_v2' is not yet ported to PyTorch: see ROADMAP.md queue 1, "
-            "slice 5, DeepSeek-V2 (MLA, YaRN and grouped-limited gating)"
-        )
     module_name, class_name = MODEL_REGISTRY[cfg.model_type]
     cls = getattr(importlib.import_module(module_name), class_name)
     return cls(cfg, dtype=dtype), cfg

@@ -202,12 +202,22 @@ class BaseModel(nn.Module):
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
 
+    def cache_head_dim(self):
+        """The cache's head dim: an int, or a ``(k_dim, v_dim)`` pair
+        (DeepSeek-V2's MLA layouts)."""
+        return self.config.head_dim
+
+    def cache_num_heads(self) -> int:
+        """KV heads the cache stores (one latent head for MLA's compressed
+        layout)."""
+        return self.config.num_key_value_heads
+
     def make_cache(self, batch: int, max_seq: int) -> KVCache:
         """An empty cache for the stage's layers, in the model's dtype and on
-        its device."""
-        cfg = self.config
-        return init_cache(cfg.num_local_layers, batch, max_seq, cfg.num_key_value_heads,
-                          cfg.head_dim, self.dtype, self.device)
+        its device, sized by :meth:`cache_head_dim` and
+        :meth:`cache_num_heads`."""
+        return init_cache(self.config.num_local_layers, batch, max_seq, self.cache_num_heads(),
+                          self.cache_head_dim(), self.dtype, self.device)
 
     def embed_tokens_rows(self, tokens: torch.Tensor) -> torch.Tensor:
         table = self.embed_tokens

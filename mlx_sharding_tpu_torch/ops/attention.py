@@ -29,7 +29,6 @@ import torch
 
 from mlx_sharding_tpu_torch.ops.flash_attention import (
     HEAD_DIM_ALIGN,
-    MAX_HEAD_DIM,
     flash_attention,
     flash_attention_reference,
     flash_decode,
@@ -51,7 +50,9 @@ def flash_eligible(q, k, v, logit_softcap=None, sliding_window=None) -> bool:
     """The dispatch rule of ``_flash_eligible`` (JAX ``ops/attention.py``):
     ``MST_FLASH=0`` turns the kernel off; causal GQA, T a multiple of 128,
     or T = 1 with ``MST_FLASH_DECODE=1`` (:func:`flash_decode_on`), S a
-    multiple of 128, head dims multiples of 64 that the kernels hold.
+    multiple of 128, head dims multiples of 64 (DeepSeek-V2's MLA shapes
+    included: 192 / 128 in full mode, 576 / 512 compressed, with v a view
+    of k's first columns).
 
     Unlike JAX's rule it takes a logit softcap and a sliding window (the
     options are not part of the rule): JAX refuses them only because its
@@ -67,8 +68,8 @@ def flash_eligible(q, k, v, logit_softcap=None, sliding_window=None) -> bool:
     return (
         t_ok
         and s % 128 == 0
-        and dk % HEAD_DIM_ALIGN == 0 and dk <= MAX_HEAD_DIM
-        and dv % HEAD_DIM_ALIGN == 0 and dv <= MAX_HEAD_DIM
+        and dk % HEAD_DIM_ALIGN == 0
+        and dv % HEAD_DIM_ALIGN == 0
     )
 
 

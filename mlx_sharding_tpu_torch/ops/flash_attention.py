@@ -21,6 +21,11 @@ scaled scores, then ``cap * tanh(s / cap)``, then the mask ``q_pos - window
 row's window (:func:`tile_kv_range`): key tiles before it are skipped, and
 the split plan cuts the walk from there.
 
+DeepSeek-V2's compressed MLA layout passes ``v`` as a view of ``k``'s first
+columns (``k[..., :rank]``): the kernel's MLA build (Dk 576, Dv 512, any
+GQA group) reads the values from the K rows it has already copied, and the
+T=1 route sends such a call to the paged kernel's ``values_from_k``.
+
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises; on a
 CPU tensor it computes :func:`flash_attention_reference`, the plain version
 of the same function. There is no other route and no fallback.
@@ -54,7 +59,11 @@ from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 
 NEG_INF = -1e30
 HEAD_DIM_ALIGN = 64
-MAX_HEAD_DIM = 256
+#: the bf16 kernel's builds: Dk and Dv each one of these, or MLA's (Dk, Dv)
+#: with V read from K, whose value columns run in ``MLA_VALUE_SLICES`` blocks
+BF16_HEAD_DIMS = (64, 128, 192, 256)
+MLA_HEAD_DIMS = (576, 512)
+MLA_VALUE_SLICES = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: packed (query position, group head) rows of one bf16 block
 BLOCK_ROWS = 64
@@ -85,11 +94,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_float,  # offset, scale
         ctypes.c_float, ctypes.c_int,  # logit softcap (0: none), sliding window (0: none)
         ctypes.c_int,  # split
+        ctypes.c_int,  # values_from_k: v is k's first Dv columns
         ctypes.c_void_p,  # stream
     ]
     lib.mst_flash_attention_kernel_info.restype = ctypes.c_int
     lib.mst_flash_attention_kernel_info.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.mst_flash_attention_mla_info.restype = ctypes.c_int
+    lib.mst_flash_attention_mla_info.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
 
 
 _LIBRARY = CudaLibrary("flash_attention.cu", _bind)
@@ -106,10 +118,12 @@ def kernel_info(dk: int, dv: int, options: bool = False) -> dict:
     """The bf16 variant's shared bytes per block, registers per thread,
     resident blocks per SM and local (spill) bytes per thread, as the CUDA
     runtime reports them on the current card; ``options``: the build that
-    takes a softcap and a window."""
+    takes a softcap and a window; (576, 512): the MLA build."""
     out = (ctypes.c_longlong * 4)()
-    _LIBRARY.check(_LIBRARY.get().mst_flash_attention_kernel_info(dk, dv, int(options), out),
-                   "kernel_info")
+    lib = _LIBRARY.get()
+    err = (lib.mst_flash_attention_mla_info(out) if (dk, dv) == MLA_HEAD_DIMS else
+           lib.mst_flash_attention_kernel_info(dk, dv, int(options), out))
+    _LIBRARY.check(err, "kernel_info")
     return dict(shared_bytes=out[0], registers=out[1], blocks_per_sm=out[2], local_bytes=out[3])
 
 
@@ -148,16 +162,17 @@ def num_splits(t: int, s: int, offset: int, split: int, groups: int = 1,
 
 
 def plan_split(b: int, t: int, s: int, hq: int, hkv: int, offset: int, sms: int,
-               window: Optional[int] = None) -> int:
+               window: Optional[int] = None, value_slices: int = 1) -> int:
     """Keys per block of the bf16 walk, 0 for the whole walk. The walk is
     split only when the (row tile, KV head, batch) blocks leave room for
     two or more times as many in one wave of ``RESIDENT_BLOCKS`` per SM:
     then into as many chunks as that wave holds, if each keeps at least
     ``MIN_SPLIT`` keys (a shorter walk pays more for its partials and the
     merge than the extra blocks give back). The walk is the longest row
-    tile's, which a sliding window shortens."""
+    tile's, which a sliding window shortens; ``value_slices``: the blocks
+    that share a row tile's walk along its value columns (the MLA build)."""
     kv_len = longest_walk(t, hq // hkv, s, offset, window)
-    chunks = RESIDENT_BLOCKS * sms // (b * hkv * row_tiles(t, hq // hkv))
+    chunks = RESIDENT_BLOCKS * sms // (b * hkv * row_tiles(t, hq // hkv) * value_slices)
     if chunks < 2:
         return 0
     split = -(-kv_len // chunks)
@@ -260,6 +275,13 @@ def flash_attention_split_reference(q, k, v, offset: int, scale: float, split: i
     return out.reshape(b, hkv, t, g, dv).permute(0, 2, 1, 3, 4).reshape(b, t, hq, dv).to(q.dtype)
 
 
+def values_from_k(k, v) -> bool:
+    """True when ``v`` is a view of ``k``'s first columns (MLA's compressed
+    layout: ``k[..., :rank]``)."""
+    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+            and v.shape[:-1] == k.shape[:-1] and v.shape[-1] < k.shape[-1])
+
+
 def _check(q, k, v, offset: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, T, Hq, Dk), (B, S, Hkv, Dk), (B, S, Hkv, Dv)")
@@ -272,12 +294,9 @@ def _check(q, k, v, offset: int) -> None:
         raise ValueError(f"{hq} query heads do not group over {k.shape[2]} KV heads")
     dv = v.shape[-1]
     for name, d in (("Dk", dk), ("Dv", dv)):
-        if d % HEAD_DIM_ALIGN or not 0 < d <= MAX_HEAD_DIM:
-            raise ValueError(
-                f"{name}={d}: the flash kernel takes head dims that are multiples of "
-                f"{HEAD_DIM_ALIGN} up to {MAX_HEAD_DIM}; the MLA compressed layout "
-                "(Dk=576) waits for the DeepSeek slice"
-            )
+        if d % HEAD_DIM_ALIGN or d <= 0:
+            raise ValueError(f"{name}={d}: the flash kernel takes head dims that are multiples "
+                             f"of {HEAD_DIM_ALIGN}")
     if t < 1 or offset < 0:
         raise ValueError(f"need T >= 1 and offset >= 0, got T={t} offset={offset}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
@@ -306,6 +325,15 @@ def flash_attention(q, k, v, offset: int, scale: float, *,
                                          sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    vk = values_from_k(k, v)
+    dims = (q.shape[-1], v.shape[-1])
+    if q.dtype == torch.bfloat16 and not (
+            (vk and dims == MLA_HEAD_DIMS and cap == 0.0 and window == 0)
+            or (not vk and set(dims) <= set(BF16_HEAD_DIMS))):
+        raise ValueError(
+            f"the bf16 flash kernel is built for head dims (Dk, Dv) in {BF16_HEAD_DIMS}, or "
+            f"{MLA_HEAD_DIMS} with v a view of k's first columns and no softcap or window; "
+            f"got {dims}{' (v from k)' if vk else ''}")
     vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:3]) or x.data_ptr() % 16:
@@ -325,7 +353,7 @@ def flash_attention(q, k, v, offset: int, scale: float, *,
         split = SPLIT_KEYS
         if split is None:
             split = plan_split(b, t, s, hq, hkv, offset, _sm_count(q.device.index or 0),
-                               sliding_window)
+                               sliding_window, MLA_VALUE_SLICES if vk else 1)
         if split < 0 or split % SPLIT_ALIGN:
             raise ValueError(f"SPLIT_KEYS must be None, 0 or a multiple of {SPLIT_ALIGN}")
         splits = num_splits(t, s, offset, split, hq // hkv, sliding_window)
@@ -340,7 +368,7 @@ def flash_attention(q, k, v, offset: int, scale: float, *,
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             _DTYPE_CODES[q.dtype], b, t, s, hq, hkv, q.shape[-1], dv,
-            strides, offset, float(scale), cap, window, split,
+            strides, offset, float(scale), cap, window, split, int(vk),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _LIBRARY.check(err, "flash_attention")
@@ -375,8 +403,10 @@ def decode_lengths(position: torch.Tensor, b: int, s: int) -> torch.Tensor:
 
 
 def _decode_operands(q, k, v):
-    """q as (B, Hq, Dk) and the cache as (B·S/page, page, Hkv, D) pools,
-    views of the caller's tensors."""
+    """q as (B, Hq, Dk), the cache as (B·S/page, page, Hkv, D) pools, views
+    of the caller's tensors, and the paged kernel's ``values_from_k``: for v
+    a view of k's first columns (MLA), the V pool is the K pool and the
+    values its first Dv columns (else None)."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"flash_decode takes one query position, q (B, 1, Hq, Dk); got "
                          f"{tuple(q.shape)}")
@@ -385,14 +415,18 @@ def _decode_operands(q, k, v):
     if s % DECODE_PAGE:
         raise ValueError(f"flash_decode views the cache as pages of {DECODE_PAGE} positions; "
                          f"capacity {s} is not a multiple")
-    if not (k.is_contiguous() and v.is_contiguous()):
+    vk = values_from_k(k, v)
+    if not (k.is_contiguous() and (vk or v.is_contiguous())):
         raise ValueError("flash_decode views the cache as pages without a copy: k and v must "
-                         "be contiguous (B, S, Hkv, D) buffers")
+                         "be contiguous (B, S, Hkv, D) buffers, or v a view of k's first "
+                         "columns")
 
     def pool(x):
         return x.view(b * s // DECODE_PAGE, DECODE_PAGE, *x.shape[2:])
 
-    return q.reshape(b, hq, dk).contiguous(), pool(k), pool(v)
+    kp = pool(k)
+    return (q.reshape(b, hq, dk).contiguous(), kp, kp if vk else pool(v),
+            v.shape[-1] if vk else None)
 
 
 def flash_decode_reference(q, k, v, lengths: torch.Tensor, scale: float, *,
@@ -401,11 +435,11 @@ def flash_decode_reference(q, k, v, lengths: torch.Tensor, scale: float, *,
     """The plain version of :func:`flash_decode`: the paged decode's plain
     version (``paged_attention_reference``) over the same paged view, the
     same identity tables and the same lengths. Returns (B, 1, Hq, Dv)."""
-    qm, kp, vp = _decode_operands(q, k, v)
+    qm, kp, vp, vfk = _decode_operands(q, k, v)
     tables = decode_tables(q.shape[0], k.shape[1], q.device)
     out = paged.paged_attention_reference(qm, kp, vp, tables, lengths, scale,
                                           logit_softcap=logit_softcap,
-                                          sliding_window=sliding_window)
+                                          sliding_window=sliding_window, values_from_k=vfk)
     return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
 
 
@@ -432,11 +466,11 @@ def flash_decode(q, k, v, position: torch.Tensor, scale: float, *,
                                       sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu tensors, not {q.device}")
-    qm, kp, vp = _decode_operands(q, k, v)
+    qm, kp, vp, vfk = _decode_operands(q, k, v)
     tables = decode_tables(q.shape[0], k.shape[1], q.device)
-    paged._check(qm, kp, vp, tables, lengths, None, None)
+    paged._check(qm, kp, vp, tables, lengths, None, None, vfk)
     out = paged.launch(qm, kp, vp, tables, lengths, scale, logit_softcap=logit_softcap,
-                       sliding_window=sliding_window)
+                       sliding_window=sliding_window, values_from_k=vfk)
     flash_decode.launches += 1
     return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
 

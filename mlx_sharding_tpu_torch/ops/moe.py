@@ -1,11 +1,12 @@
-"""Mixture-of-experts dispatch (port of ``mlx_sharding_tpu/ops/moe.py``,
-Mixtral's part; ``deepseek_routing`` comes with the DeepSeek-V2 slice).
+"""Mixture-of-experts dispatch (port of ``mlx_sharding_tpu/ops/moe.py``).
 
-Routing: a softmax over every expert's logit, the top k, the kept mass
-renormalised. The router's product runs in the activations' dtype and is
-cast to fp32 after, as in JAX; ties between experts go to the lower index,
-as ``jax.lax.top_k`` breaks them (a stable descending sort: ``torch.topk``
-promises no order among ties).
+Routing: Mixtral's softmax over every expert's logit, the top k, the kept
+mass renormalised (the router's product in the activations' dtype, cast to
+fp32 after, as in JAX); or DeepSeek-V2's gate (:func:`deepseek_routing`:
+the product in fp32, greedy or group-limited top k, scaled). Ties between
+experts (and groups) go to the lower index, as ``jax.lax.top_k`` breaks
+them (a stable descending sort: ``torch.topk`` promises no order among
+ties).
 
 Experts apply by JAX's switch on the token count:
 
@@ -47,6 +48,30 @@ def mixtral_routing(x: torch.Tensor, router: torch.Tensor, k: int) -> tuple:
     probs = torch.softmax(F.linear(x, router).float(), dim=-1)
     topv, topi = top_k_lower_first(probs, k)
     return topv / topv.sum(dim=-1, keepdim=True), topi.to(torch.int32)
+
+
+def deepseek_routing(x: torch.Tensor, router: torch.Tensor, k: int, *, norm_topk_prob: bool,
+                     routed_scaling_factor: float, topk_method: str = "greedy",
+                     n_group: int = 1, topk_group: int = 1) -> tuple:
+    """DeepSeek-V2's gate: x (N, H), router (E, H) -> (weights (N, K) f32,
+    expert ids (N, K) int32). Softmax scores in fp32, then ``greedy`` top k
+    (V2-Lite) or ``group_limited_greedy`` (V2: only the ``topk_group``
+    groups of ``E / n_group`` experts with the highest per-group max score
+    stay, then the top k among them), the kept mass renormalised when
+    ``norm_topk_prob``, times ``routed_scaling_factor``."""
+    scores = torch.softmax(F.linear(x.float(), router.float()), dim=-1)
+    if topk_method == "group_limited_greedy":
+        n, e = scores.shape
+        group_scores = scores.reshape(n, n_group, e // n_group).amax(dim=-1)
+        _, group_idx = top_k_lower_first(group_scores, topk_group)
+        group_mask = torch.zeros_like(group_scores).scatter_(1, group_idx, 1.0)
+        scores = scores * group_mask.repeat_interleave(e // n_group, dim=-1)
+    elif topk_method != "greedy":
+        raise ValueError(f"unknown topk_method {topk_method!r}")
+    topv, topi = top_k_lower_first(scores, k)
+    if norm_topk_prob:
+        topv = topv / (topv.sum(dim=-1, keepdim=True) + 1e-20)
+    return topv * routed_scaling_factor, topi.to(torch.int32)
 
 
 def apply_experts(x, weights, idx, w_gate, w_up, w_down, group_size: int = 64,
@@ -93,10 +118,12 @@ def _apply_scan(x, weights, idx, w_gate, w_up, w_down, gs=64, bits=4):
     def expert(w, e):
         return {leaf: t[e] for leaf, t in w.items()} if packed else w[e]
 
+    # (N, E): each token's routing mass on each expert, once for the scan
+    mass = ((idx[..., None] == torch.arange(experts, device=idx.device)) * weights[..., None]
+            ).sum(dim=1)
     acc = torch.zeros_like(x)
     for e in range(experts):
-        coef = ((idx == e) * weights).sum(dim=-1)  # (N,) routing mass on expert e
         g, u = linear(x, expert(w_gate, e), gs, bits), linear(x, expert(w_up, e), gs, bits)
         y = linear(F.silu(g) * u, expert(w_down, e), gs, bits)
-        acc = acc + coef[:, None].to(y.dtype) * y
+        acc = acc + mass[:, e : e + 1].to(y.dtype) * y
     return acc

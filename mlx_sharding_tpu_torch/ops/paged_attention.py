@@ -23,7 +23,14 @@ Gemma-2's logit softcap and sliding window are options of the kernel (the
 JAX package sends them to ``_paged_attention_xla``, outside its Pallas
 kernel; the function is the same): a window's walk starts at the window's
 first page, and the split plan cuts the walk the window leaves.
-``values_from_k`` (MLA) waits for the DeepSeek-V2 slice.
+
+DeepSeek-V2's ``values_from_k`` (MLA's compressed layout: the values are
+the first ``values_from_k`` columns of the K rows, and the V pool is a
+dummy that is never read) is a build of the kernel (Dk up to 576, Dv 512,
+in items of ``VALUE_SLICE`` value columns) and, for f32 q, of the FMA
+kernel; its plain version is ``_paged_attention_xla``'s: V is ``k[...,
+:values_from_k]`` of the gathered (for an int8 pool, dequantized) K rows,
+K's scale serving V. It takes no softcap or window.
 """
 
 from __future__ import annotations
@@ -41,6 +48,11 @@ from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 NEG_INF = -1e30
 HEAD_DIM_ALIGN = 64
 MAX_HEAD_DIM = 256
+#: values_from_k (MLA): the largest Dk and the Dv of the kernel's build, and
+#: the value columns of one work item above ``MAX_HEAD_DIM``
+MLA_MAX_DK = 576
+MLA_DV = 512
+VALUE_SLICE = 128
 #: positions of one slot's page walk per block on the card: None lets
 #: :func:`plan_paged_split` choose from the shapes and the card's SM count;
 #: 0 walks each (slot, KV head, head chunk) in one block; a multiple of
@@ -72,11 +84,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int,  # split
         ctypes.c_float,  # scale
         ctypes.c_float, ctypes.c_int,  # logit softcap (0: none), sliding window (0: none)
+        ctypes.c_int,  # values_from_k (0: none)
         ctypes.c_void_p,  # stream
     ]
     lib.mst_paged_attention_kernel_info.restype = ctypes.c_int
     lib.mst_paged_attention_kernel_info.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.mst_paged_attention_mla_info.restype = ctypes.c_int
+    lib.mst_paged_attention_mla_info.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
 
 
 _LIBRARY = CudaLibrary("paged_attention.cu", _bind)
@@ -89,14 +105,17 @@ def build() -> str:
     return _LIBRARY.build()
 
 
-def kernel_info(pool_dtype: torch.dtype, dk: int, dv: int) -> dict:
+def kernel_info(pool_dtype: torch.dtype, dk: int, dv: int, mla: bool = False) -> dict:
     """The bf16-q kernel over a ``pool_dtype`` (bf16 or int8) pool, for 8
     slots (its shared bytes grow by 8 per slot): shared bytes per block,
     registers per thread, resident blocks per SM and local (spill) bytes per
-    thread, as the CUDA runtime reports them."""
+    thread, as the CUDA runtime reports them; ``mla``: the values_from_k
+    build (Dk 576, Dv 512; ``dk`` and ``dv`` are not read)."""
     out = (ctypes.c_longlong * 4)()
-    _LIBRARY.check(_LIBRARY.get().mst_paged_attention_kernel_info(_KV_CODES[pool_dtype], dk, dv,
-                                                                  8, out), "kernel_info")
+    lib = _LIBRARY.get()
+    err = (lib.mst_paged_attention_mla_info(_KV_CODES[pool_dtype], 8, out) if mla else
+           lib.mst_paged_attention_kernel_info(_KV_CODES[pool_dtype], dk, dv, 8, out))
+    _LIBRARY.check(err, "kernel_info")
     return dict(shared_bytes=out[0], registers=out[1], blocks_per_sm=out[2], local_bytes=out[3])
 
 
@@ -148,18 +167,26 @@ def kernel_options(logit_softcap=None, sliding_window=None) -> tuple:
 def kernel_eligible(dk: int, dv: int, logit_softcap=None, sliding_window=None,
                     values_from_k=None) -> bool:
     """The kernel's domain: GQA with or without a logit softcap and a
-    sliding window, head dims that are multiples of 64 up to 256. JAX's
-    ``kernel_eligible`` (op :46) also refuses the softcap and the window,
-    because its Pallas kernel lacks them; this kernel takes them and
-    computes the same function. ``values_from_k`` (MLA latent-as-values) is
-    refused: it comes with the DeepSeek-V2 slice."""
+    sliding window, head dims that are multiples of 64 up to 256; or
+    ``values_from_k`` (MLA, ``dv`` ignored): a Dk that is a multiple of 64
+    up to 576, Dv 512, no softcap and no window. JAX's ``kernel_eligible``
+    (op :46) refuses the softcap, the window and ``values_from_k``, because
+    its Pallas kernel lacks them, and computes them in XLA; this kernel
+    computes the same function."""
     if values_from_k is not None:
-        return False
+        return (dk % HEAD_DIM_ALIGN == 0 and values_from_k == MLA_DV <= dk <= MLA_MAX_DK
+                and logit_softcap is None and sliding_window is None)
     return all(d % HEAD_DIM_ALIGN == 0 and 0 < d <= MAX_HEAD_DIM for d in (dk, dv))
 
 
+def value_slices(dv: int) -> int:
+    """Work items along the value columns: ``dv / VALUE_SLICE`` above
+    ``MAX_HEAD_DIM`` (MLA's 512), else one."""
+    return dv // VALUE_SLICE if dv > MAX_HEAD_DIM else 1
+
+
 def _gathered(pool, scale, tables):
-    """A slot-contiguous (M, SPG*page, Hkv, D) view of each slot's own
+    """A slot-contiguous (M, SPG*page, Hkv, D) copy of each slot's own
     table row; an int8 pool is dequantized after the gather."""
     m, spg = tables.shape
     x = pool[tables.long()]  # (M, SPG, page, Hkv, D)
@@ -180,17 +207,13 @@ def paged_attention_reference(
     """The plain version, with ``_paged_attention_xla``'s semantics: gather
     only the slot's own row, scores in fp32, mask ``k_pos < lengths`` (and
     the window), zero an all-masked row, round the probs to v's dtype (f32
-    for an int8 pool), accumulate in fp32."""
-    if values_from_k is not None:
-        raise NotImplementedError(
-            "paged_attention(values_from_k=...) (MLA latent-as-values) is not yet ported: "
-            "it comes with the DeepSeek slice"
-        )
+    for an int8 pool), accumulate in fp32. ``values_from_k``: V is the
+    gathered K's first columns (``v_pool`` and ``v_scale`` unread)."""
     m, hq, dk = q.shape
     hkv = k_pool.shape[2]
     g = hq // hkv
     k = _gathered(k_pool, k_scale, tables)
-    v = _gathered(v_pool, v_scale, tables)
+    v = k[..., :values_from_k] if values_from_k is not None else _gathered(v_pool, v_scale, tables)
     qg = q.reshape(m, hkv, g, dk).float()
     scores = torch.einsum("mhgd,mshd->mhgs", qg, k.float()) * scale
     if logit_softcap is not None:
@@ -267,10 +290,12 @@ def paged_attention_split_reference(q, k_pool, v_pool, tables, lengths, scale: f
     return out.to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, tables, lengths, k_scale, v_scale) -> None:
+def _check(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, values_from_k=None) -> None:
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.dim() != 4:
         raise ValueError("q must be (M, Hq, Dk) and the pools (P+1, page, Hkv, D)")
     m, hq, dk = q.shape
+    if values_from_k is not None and not 0 < values_from_k <= dk:
+        raise ValueError(f"values_from_k={values_from_k} must be in 1..Dk={dk}")
     if k_pool.shape[:3] != v_pool.shape[:3] or k_pool.shape[-1] != dk:
         raise ValueError(f"mismatched shapes q {tuple(q.shape)} k_pool {tuple(k_pool.shape)} "
                          f"v_pool {tuple(v_pool.shape)}")
@@ -317,10 +342,12 @@ def paged_attention(
     ``lengths[m] == 0`` (an inactive slot) gives zeros. The new token's K/V
     must already be in the pool. With ``k_scale``/``v_scale`` the pools are
     int8 codes, multiplied by their per-row-per-head scale as they are read.
-    CUDA tensors launch the kernel once, its split walk merged inside the
-    launch (counted in ``paged_attention.launches``); CPU tensors take
+    ``values_from_k`` (MLA): the values are the K rows' first columns, and
+    ``v_pool``/``v_scale`` (the dummy pool) are not read. CUDA tensors
+    launch the kernel once, its split walk merged inside the launch
+    (counted in ``paged_attention.launches``); CPU tensors take
     :func:`paged_attention_reference`."""
-    _check(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
+    _check(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, values_from_k)
     kw = dict(logit_softcap=logit_softcap, sliding_window=sliding_window,
               values_from_k=values_from_k, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
@@ -339,14 +366,17 @@ def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=No
     decode, or the dense T=1 route
     (:func:`~mlx_sharding_tpu_torch.ops.flash_attention.flash_decode`)."""
     m, hq, dk = q.shape
-    page, hkv, dv = k_pool.shape[1], k_pool.shape[2], v_pool.shape[-1]
+    page, hkv = k_pool.shape[1], k_pool.shape[2]
+    dv = v_pool.shape[-1] if values_from_k is None else values_from_k
     if not kernel_eligible(dk, dv, logit_softcap, sliding_window, values_from_k):
         raise ValueError(
             f"the paged kernel takes head dims that are multiples of {HEAD_DIM_ALIGN} up to "
-            f"{MAX_HEAD_DIM} and no values_from_k (got Dk={dk}, Dv={dv}, "
-            f"values_from_k={values_from_k}); values_from_k (MLA) comes with the DeepSeek-V2 "
-            "slice (ROADMAP queue 1, slice 5)"
+            f"{MAX_HEAD_DIM}, or values_from_k={MLA_DV} at a Dk up to {MLA_MAX_DK} without a "
+            f"softcap or window (got Dk={dk}, Dv={dv}, values_from_k={values_from_k}, "
+            f"logit_softcap={logit_softcap}, sliding_window={sliding_window})"
         )
+    if values_from_k is not None:  # the kernel reads V (and its scale) from K
+        v_pool, v_scale = k_pool, k_scale
     cap, window = kernel_options(logit_softcap, sliding_window)
     if q.dtype not in _Q_CODES:
         raise ValueError(f"q must be one of {list(_Q_CODES)}, not {q.dtype}")
@@ -365,17 +395,19 @@ def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=No
     lib = _LIBRARY.get()
     spg = tables.shape[1]
     chunks = hkv * head_chunks(hq, hkv)
+    vslices = value_slices(dv)
     split = SPLIT_POSITIONS
     if split is None:
-        split = plan_paged_split(m, chunks, page, spg, _sm_count(q.device.index or 0),
-                                 sliding_window)
+        split = plan_paged_split(m, chunks * vslices, page, spg,
+                                 _sm_count(q.device.index or 0), sliding_window)
     splits = num_splits(page, spg, split)
     stream = torch.cuda.current_stream(q.device)
     part_acc = part_ml = counters = None
     if splits > 1:  # the split walk's partials, merged by the last block of each row
-        part_acc = torch.empty((m, hq, splits, dv), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((m, hq, splits, 2), dtype=torch.float32, device=q.device)
-        counters = _counters(q.device, stream, m * chunks)
+        part_acc = torch.empty((m, hq, vslices, splits, dv // vslices), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((m, hq, vslices, splits, 2), dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, m * chunks * vslices)
     with torch.cuda.device(q.device):
         err = lib.mst_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -387,7 +419,7 @@ def launch(q, k_pool, v_pool, tables, lengths, scale: float, *, logit_softcap=No
             None if counters is None else counters.data_ptr(),
             _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype],
             m, hq, hkv, dk, dv, k_pool.shape[0], page, spg, split, float(scale),
-            cap, window, stream.cuda_stream,
+            cap, window, values_from_k or 0, stream.cuda_stream,
         )
     _LIBRARY.check(err, "paged_attention")
     return out

@@ -197,11 +197,11 @@ class PipelineEngine:
     def init_cache_paged(self) -> tuple[PagedKV, np.ndarray]:
         """The shared page pool (last page scratch) and the host page table
         (M+1, slot_pages), row M all scratch."""
-        cfg = self.model.config
+        model = self.model
         cache = init_cache_paged(
-            cfg.num_local_layers, self.pool_pages, self.page_size, cfg.num_key_value_heads,
-            cfg.head_dim, self.microbatches, self.cache_dtype, self.device,
-            quantized=self.kv_quant,
+            model.config.num_local_layers, self.pool_pages, self.page_size,
+            model.cache_num_heads(), model.cache_head_dim(), self.microbatches,
+            self.cache_dtype, self.device, quantized=self.kv_quant,
         )
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
 
@@ -252,15 +252,21 @@ class PipelineEngine:
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, **opts):
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
                 # the chunk's own rows are attended as computed (unquantized);
                 # the pool keeps them quantized for an int8 pool. ``opts``:
-                # the layer's softcap and window (the model's attn_options)
-                k_view, v_view = self._slot_view(kp, page_ids), self._slot_view(vp, page_ids)
+                # the layer's softcap and window (the model's attn_options);
+                # ``values_from_k`` (MLA): the values are the keys' first
+                # columns, so only K rows are written
+                k_view = self._slot_view(kp, page_ids)
                 k_view[:, off : off + c] = k_new
-                v_view[:, off : off + c] = v_new
                 write_pool_span(kp, write_page, start, k_new[0])
-                write_pool_span(vp, write_page, start, v_new[0])
+                if values_from_k is not None:
+                    v_view = k_view[..., :values_from_k]
+                else:
+                    v_view = self._slot_view(vp, page_ids)
+                    v_view[:, off : off + c] = v_new
+                    write_pool_span(vp, write_page, start, v_new[0])
                 return causal_attention(q, k_view, v_view, off, model.scale, **opts)
 
             h, _, _ = model.sp_layer(layer, h, off, attn_fn)
@@ -347,14 +353,15 @@ class PipelineEngine:
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, **opts):
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
                 write_pool_rows(kp, page_ids, row_pos, k_new[:, 0])
-                write_pool_rows(vp, page_ids, row_pos, v_new[:, 0])
+                if values_from_k is None:  # MLA reads its values from the K rows
+                    write_pool_rows(vp, page_ids, row_pos, v_new[:, 0])
                 quant = is_quantized_kv(kp)
                 out = paged_attention(
                     q[:, 0], kv_data(kp), kv_data(vp), plan.tables, lengths, model.scale,
                     k_scale=kp["s"] if quant else None, v_scale=vp["s"] if quant else None,
-                    **opts,
+                    values_from_k=values_from_k, **opts,
                 )
                 return out[:, None]  # (M, T=1, Hq, Dv)
 
@@ -400,12 +407,16 @@ class PipelineEngine:
         for i, layer in enumerate(model.layers):
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, **opts):
-                k_view, v_view = self._slot_view(kp, plan.tables), self._slot_view(vp, plan.tables)
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
+                k_view = self._slot_view(kp, plan.tables)
                 k_view[slots, rows] = k_new.to(k_view.dtype)
-                v_view[slots, rows] = v_new.to(v_view.dtype)
                 write_pool_rows(kp, page_ids, row_pos, k_new.reshape(m * k, *k_new.shape[2:]))
-                write_pool_rows(vp, page_ids, row_pos, v_new.reshape(m * k, *v_new.shape[2:]))
+                if values_from_k is not None:
+                    v_view = k_view[..., :values_from_k]
+                else:
+                    v_view = self._slot_view(vp, plan.tables)
+                    v_view[slots, rows] = v_new.to(v_view.dtype)
+                    write_pool_rows(vp, page_ids, row_pos, v_new.reshape(m * k, *v_new.shape[2:]))
                 return masked_attention(q, k_view, v_view, start, model.scale, **opts)
 
             h, _, _ = model.sp_layer(layer, h, start, attn_fn)

@@ -1,6 +1,7 @@
-"""The model families beside Llama (Qwen3, Gemma-2, Mixtral): the shared
-harness of ``tests/test_torch_qwen3.py``, ``test_torch_gemma2.py`` and
-``test_torch_mixtral.py``, and the registry's own checks.
+"""The model families beside Llama (Qwen3, Gemma-2, Mixtral, DeepSeek-V2):
+the shared harness of ``tests/test_torch_qwen3.py``, ``test_torch_gemma2.py``,
+``test_torch_mixtral.py`` and ``test_torch_deepseek_v2.py``, and the
+registry's own checks.
 
 A family's JAX model draws its parameters with ``init_params`` (optionally
 packed to MLX 4-bit by the JAX packer) and ``convert.params_from_numpy``
@@ -48,11 +49,29 @@ FAMILIES = {
                    final_logit_softcapping=5.0, rms_norm_eps=1e-6),
     "mixtral": dict(COMMON, model_type="mixtral", intermediate_size=128, num_hidden_layers=2,
                     num_local_experts=4, num_experts_per_tok=2, rope_theta=1e6),
+    # MLA (rank 16, rope 8, nope 16, v 12), a dense first layer, then 8
+    # routed experts (top 3) beside 2 shared, YaRN past 64 positions
+    "deepseek_v2": dict(
+        model_type="deepseek_v2", vocab_size=300, hidden_size=64, intermediate_size=128,
+        moe_intermediate_size=32, num_hidden_layers=3, num_attention_heads=4,
+        num_key_value_heads=4, kv_lora_rank=16, qk_rope_head_dim=8, qk_nope_head_dim=16,
+        v_head_dim=12, n_routed_experts=8, n_shared_experts=2, num_experts_per_tok=3,
+        first_k_dense_replace=1, max_position_embeddings=256, rms_norm_eps=1e-6,
+        rope_scaling={"type": "yarn", "factor": 40, "original_max_position_embeddings": 64,
+                      "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+                      "mscale_all_dim": 0.707}),
 }
+# a packed DeepSeek-V2 widens what a 64-wide group must divide: every
+# projection's IN (o_proj's heads x v, the experts' intermediate, kv_b's
+# rank, q_b's q-LoRA rank)
+DEEPSEEK_PACKABLE = dict(v_head_dim=16, moe_intermediate_size=64, kv_lora_rank=64)
 QUANT = {"group_size": 64, "bits": 4}
 # per-layer projections of the JAX trees, packed as (out, in) triples; the
-# Mixtral router stays dense, as packed_keep_dense_re keeps it
-PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+# Mixtral router stays dense, as packed_keep_dense_re keeps it (and the
+# DeepSeek-V2 router, and its kv_b in compressed mode)
+PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+        "q_a_proj", "q_b_proj", "kv_a_proj", "kv_b_proj", "shared_gate", "shared_up",
+        "shared_down")
 EXPERTS = ("w_gate", "w_up", "w_down")
 # f32 logits of the two packages: summation order only
 F32_TOL = 1e-4
@@ -74,12 +93,17 @@ def jax_pair(family: str, dtype=jnp.float32, seed: int = 0, packed: bool = False
     JAX packer when ``packed``."""
     cfg_dict = {**FAMILIES[family], **overrides}
     if packed:
+        if family == "deepseek_v2":
+            cfg_dict.update({**DEEPSEEK_PACKABLE, **overrides})
+            if cfg_dict.get("q_lora_rank"):
+                cfg_dict["q_lora_rank"] = 64
         cfg_dict["quantization"] = QUANT
     jm, cfg = j_build_model(cfg_dict)
     params = jm.init_params(jax.random.PRNGKey(seed), dtype)
     if packed:
         jm.compute_dtype = dtype  # as j_load_model sets it
-        params = pack_tree(params)
+        compressed = getattr(cfg, "mla_cache_mode", None) == "compressed"
+        params = pack_tree(params, dense=("kv_b_proj",) if compressed else ())
     return cfg, jm, params
 
 
@@ -92,15 +116,27 @@ def _stack(items):
     return jax.tree.map(lambda *xs: jnp.stack(xs), *items)
 
 
-def pack_tree(params: dict) -> dict:
-    layers = dict(params["layers"])
+def _pack_layers(layers: dict, dense=()) -> dict:
+    layers = dict(layers)
     for name in PROJ:
-        if name in layers:  # (L, in, out) -> L packed (out, in) triples
+        if name in layers and name not in dense:  # (L, in, out) -> L packed (out, in) triples
             layers[name] = _stack([_pack(np.asarray(w).T) for w in layers[name]])
     for name in EXPERTS:
         if name in layers:  # (L, E, in, out) -> (L, E) packed triples
             layers[name] = _stack([_stack([_pack(np.asarray(we).T) for we in w])
                                    for w in layers[name]])
+    return layers
+
+
+def pack_tree(params: dict, dense=()) -> dict:
+    """Pack a JAX tree as a ``keep_quantized`` load would; ``dense``: the
+    projections that stay dense (DeepSeek-V2's kv_b in compressed mode).
+    DeepSeek-V2's layer groups are packed group by group."""
+    layers = params["layers"]
+    if "input_norm" in layers:
+        layers = _pack_layers(layers, dense)
+    else:
+        layers = {g: _pack_layers(group, dense) for g, group in layers.items()}
     out = {**params, "layers": layers, "embed": {"weight": _pack(params["embed"]["weight"])}}
     if "lm_head" in params:
         out["lm_head"] = {"weight": _pack(np.asarray(params["lm_head"]["weight"]).T)}
@@ -174,18 +210,19 @@ def _concurrent(batcher, jobs):
     return results
 
 
-def batcher_streams(jm, params, tm, jobs=None):
+def batcher_streams(jm, params, tm, jobs=None, **engine):
     """Greedy streams of ``jobs`` through the JAX batcher (ragged engine on
-    ``pipeline_mesh(1)``) and the port's, f32 pools."""
+    ``pipeline_mesh(1)``) and the port's, f32 pools (``engine``: more engine
+    arguments for both, ``kv_dtype="int8"``)."""
     jobs = jobs or batch_jobs()
     jb = jscheduler.ContinuousBatcher(JPipelineEngine(
         jm, params, pipeline_mesh(1), cache_dtype=jnp.float32, paged_attention="ragged",
-        **ENGINE), decode_block=3)
+        **ENGINE, **engine), decode_block=3)
     try:
         want = _concurrent(jb, jobs)
     finally:
         jb.close()
-    tb = ContinuousBatcher(PipelineEngine(tm, device="cpu", **ENGINE), decode_block=3)
+    tb = ContinuousBatcher(PipelineEngine(tm, device="cpu", **ENGINE, **engine), decode_block=3)
     try:
         got = _concurrent(tb, jobs)
     finally:
@@ -198,7 +235,7 @@ def hf_tensors(cfg: dict, seed: int = 7) -> dict:
     """HF-named float32 tensors of a tiny ``cfg`` model, (out, in)."""
     rng = np.random.default_rng(seed)
     h, inter, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
-    d = cfg["head_dim"]
+    d = cfg.get("head_dim", 0)  # DeepSeek-V2's MLA dims are its own
     hq, kv = cfg["num_attention_heads"] * d, cfg["num_key_value_heads"] * d
     family = cfg["model_type"]
     t = {}
@@ -214,6 +251,9 @@ def hf_tensors(cfg: dict, seed: int = 7) -> dict:
     norm("model.norm.weight", h)
     if family != "gemma2" and not cfg.get("tie_word_embeddings"):
         w("lm_head.weight", v, h)
+    if family == "deepseek_v2":
+        _deepseek_layers(cfg, w, norm)
+        return t
     for i in range(cfg["num_hidden_layers"]):
         p = f"model.layers.{i}"
         norm(f"{p}.input_layernorm.weight", h)
@@ -241,6 +281,44 @@ def hf_tensors(cfg: dict, seed: int = 7) -> dict:
     return t
 
 
+def _deepseek_layers(cfg: dict, w, norm) -> None:
+    """DeepSeek-V2's HF layer tensors: MLA (``kv_a_proj_with_mqa``,
+    ``kv_a_layernorm``, ``kv_b_proj``; q-LoRA's ``q_a``/``q_b`` when set),
+    a dense SwiGLU below ``first_k_dense_replace``, then the router
+    (``mlp.gate``), per-expert and shared-expert projections."""
+    h, heads = cfg["hidden_size"], cfg["num_attention_heads"]
+    nope, rope_d, v_d = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"], cfg["v_head_dim"]
+    rank, mi = cfg["kv_lora_rank"], cfg["moe_intermediate_size"]
+    si = mi * cfg["n_shared_experts"]
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        norm(f"{p}.input_layernorm.weight", h)
+        norm(f"{p}.post_attention_layernorm.weight", h)
+        if cfg.get("q_lora_rank"):
+            w(f"{p}.self_attn.q_a_proj.weight", cfg["q_lora_rank"], h)
+            norm(f"{p}.self_attn.q_a_layernorm.weight", cfg["q_lora_rank"])
+            w(f"{p}.self_attn.q_b_proj.weight", heads * (nope + rope_d), cfg["q_lora_rank"])
+        else:
+            w(f"{p}.self_attn.q_proj.weight", heads * (nope + rope_d), h)
+        w(f"{p}.self_attn.kv_a_proj_with_mqa.weight", rank + rope_d, h)
+        norm(f"{p}.self_attn.kv_a_layernorm.weight", rank)
+        w(f"{p}.self_attn.kv_b_proj.weight", heads * (nope + v_d), rank)
+        w(f"{p}.self_attn.o_proj.weight", h, heads * v_d)
+        if i < cfg["first_k_dense_replace"]:
+            w(f"{p}.mlp.gate_proj.weight", cfg["intermediate_size"], h)
+            w(f"{p}.mlp.up_proj.weight", cfg["intermediate_size"], h)
+            w(f"{p}.mlp.down_proj.weight", h, cfg["intermediate_size"])
+            continue
+        w(f"{p}.mlp.gate.weight", cfg["n_routed_experts"], h)
+        for e in range(cfg["n_routed_experts"]):
+            w(f"{p}.mlp.experts.{e}.gate_proj.weight", mi, h)
+            w(f"{p}.mlp.experts.{e}.up_proj.weight", mi, h)
+            w(f"{p}.mlp.experts.{e}.down_proj.weight", h, mi)
+        w(f"{p}.mlp.shared_experts.gate_proj.weight", si, h)
+        w(f"{p}.mlp.shared_experts.up_proj.weight", si, h)
+        w(f"{p}.mlp.shared_experts.down_proj.weight", h, si)
+
+
 def _packable(name: str) -> bool:
     return name.endswith(".weight") and "norm" not in name and "layernorm" not in name
 
@@ -266,7 +344,7 @@ def write_checkpoint(path, cfg: dict, tensors: dict, quantized: bool = False):
     return path
 
 
-def tokenizer_checkpoint(root, family: str, quantized: bool = False):
+def tokenizer_checkpoint(root, family: str, quantized: bool = False, **overrides):
     """``tests/make_tiny_checkpoint.py``'s tokenizer beside a tiny
     ``family`` checkpoint of its vocabulary (EOS id 0)."""
     from tests.make_tiny_checkpoint import make_tiny_checkpoint
@@ -274,7 +352,9 @@ def tokenizer_checkpoint(root, family: str, quantized: bool = False):
     path = make_tiny_checkpoint(root)
     vocab = json.loads((path / "config.json").read_text())["vocab_size"]
     (path / "model.safetensors").unlink()
-    cfg = {**FAMILIES[family], "vocab_size": vocab, "eos_token_id": 0}
+    cfg = {**FAMILIES[family], "vocab_size": vocab, "eos_token_id": 0, **overrides}
+    if quantized and family == "deepseek_v2":
+        cfg.update(DEEPSEEK_PACKABLE)
     return write_checkpoint(path, cfg, hf_tensors(cfg), quantized)
 
 
@@ -337,17 +417,24 @@ def serve_cli_and_server(path, monkeypatch, capsys, extra=()):
 
 # ------------------------------------------------------- the registry
 def test_registry_keys_match_jax():
-    """The port's registry holds JAX's families but DeepSeek-V2."""
+    """The port's registry holds every JAX family, DeepSeek-V2 included."""
     from mlx_sharding_tpu.models import MODEL_REGISTRY as J_REGISTRY
 
-    assert set(MODEL_REGISTRY) == set(J_REGISTRY) - {"deepseek_v2"}
+    assert set(MODEL_REGISTRY) == set(J_REGISTRY)
 
 
 def test_deepseek_v2_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, slice 5, DeepSeek-V2"):
-        build_model({"model_type": "deepseek_v2", "vocab_size": 64, "hidden_size": 64,
-                     "intermediate_size": 128, "num_hidden_layers": 2,
-                     "num_attention_heads": 4, "num_key_value_heads": 4})
+    """DeepSeek-V2 no longer raises: ``build_model`` builds its module, a
+    dense first layer and MoE layers after it, and its caches take JAX's
+    per-tensor head dims."""
+    tm, cfg = build_model({"model_type": "deepseek_v2", "vocab_size": 64, "hidden_size": 64,
+                           "intermediate_size": 128, "num_hidden_layers": 2,
+                           "num_attention_heads": 4, "num_key_value_heads": 4,
+                           "kv_lora_rank": 16, "qk_rope_head_dim": 8, "qk_nope_head_dim": 16,
+                           "v_head_dim": 12, "n_routed_experts": 4, "moe_intermediate_size": 32})
+    assert type(tm).__name__ == "DeepseekV2Model"
+    assert [layer.moe for layer in tm.layers] == [False, True]
+    assert (tm.cache_head_dim(), tm.cache_num_heads()) == ((24, 1), 1)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

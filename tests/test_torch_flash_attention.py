@@ -33,14 +33,15 @@ GRID = [
 
 
 def _kernel_takes(dk, dv):
-    return all(d % fa.HEAD_DIM_ALIGN == 0 and d <= fa.MAX_HEAD_DIM for d in (dk, dv))
+    return all(d % fa.HEAD_DIM_ALIGN == 0 for d in (dk, dv))
 
 
 @pytest.mark.parametrize("b,t,s,hq,hkv,dk,dv,offset", GRID)
 def test_flash_matches_jax_kernel_and_xla(b, t, s, hq, hkv, dk, dv, offset):
     """atol/rtol 2e-4 in f32, the tolerance of the JAX kernel's own tests.
-    Head dims the CUDA kernel does not take (32, 576) make the wrapper
-    raise; its plain version is still held against JAX there."""
+    Head dims that are not multiples of 64 (32) make the wrapper raise; its
+    plain version is still held against JAX there. MLA's 576 / 512 is
+    taken (JAX's rule), here with a V of its own."""
     rng = np.random.default_rng(0)
     q = rng.normal(size=(b, t, hq, dk)).astype(np.float32)
     k = rng.normal(size=(b, s, hkv, dk)).astype(np.float32)
@@ -80,7 +81,7 @@ def test_dispatch_rule(monkeypatch):
     assert not flash_eligible(*shapes(100, 256, 128, 128))  # ragged T
     assert not flash_eligible(*shapes(128, 200, 128, 128))  # ragged S
     assert not flash_eligible(*shapes(128, 256, 32, 32))  # head dim not 64-aligned
-    assert not flash_eligible(*shapes(128, 256, 576, 512))  # MLA compressed
+    assert flash_eligible(*shapes(128, 256, 576, 512))  # MLA compressed, as JAX's rule
 
 
 @pytest.mark.parametrize("t,want_calls", [(128, 1), (256, 1), (1, 0), (64, 0)])
@@ -134,9 +135,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_mla_compressed_head_dim_waits_for_deepseek_slice():
-    q, k, v = torch.zeros(1, 128, 16, 576), torch.zeros(1, 128, 1, 576), torch.zeros(1, 128, 1, 512)
-    with pytest.raises(ValueError, match="576.*DeepSeek"):
-        fa.flash_attention(q, k, v, 0, 0.1)
+    """The MLA compressed layout (Dk 576, v a view of k's first 512
+    columns, one KV head, a group of 16) is the kernel's: on the CPU the
+    wrapper computes the plain version, which equals JAX's Pallas kernel
+    (interpret mode) given the same values as a V of their own; on a
+    non-view V the bf16 wrapper names the builds it has."""
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(1, 128, 16, 576)).astype(np.float32)
+    k = rng.normal(size=(1, 256, 1, 576)).astype(np.float32)
+    scale = 192 ** -0.5
+    tk = torch.from_numpy(k)
+    assert fa.values_from_k(tk, tk[..., :512])
+    assert not fa.values_from_k(tk, tk[..., :512].clone())
+    got = fa.flash_attention(torch.from_numpy(q), tk, tk[..., :512], 64, scale).numpy()
+    want = np.asarray(j_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(k[..., :512]), jnp.asarray(64), scale,
+                                        block_q=64, block_k=64, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dk,dv", [(dk, dv) for dk in range(64, 640, 64)
+                                   for dv in range(64, 640, 64)][::7] + [(576, 512), (192, 128)])
+@pytest.mark.parametrize("t,s", [(128, 256), (1, 256), (100, 256), (128, 200)])
+def test_dispatch_rule_equals_jax_for_every_64_multiple(monkeypatch, dk, dv, t, s):
+    """``flash_eligible`` is JAX's ``_flash_eligible`` (its TPU backend test
+    answered yes) for head-dim pairs that are multiples of 64, MLA's 576 /
+    512 among them: no cap that JAX lacks."""
+    from mlx_sharding_tpu.ops import attention as j_attention
+
+    monkeypatch.setenv("MST_FLASH_DECODE", "1")
+    monkeypatch.setattr(j_attention.jax, "default_backend", lambda: "tpu")
+    q, k, v = torch.zeros(1, t, 4, dk), torch.zeros(1, s, 1, dk), torch.zeros(1, s, 1, dv)
+    want = j_attention._flash_eligible(jnp.zeros(q.shape), jnp.zeros(k.shape),
+                                       jnp.zeros(v.shape), None, None, None)
+    assert flash_eligible(q, k, v) == want
 
 
 @pytest.mark.parametrize("offset", [0, 256, 3840])

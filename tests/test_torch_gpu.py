@@ -69,6 +69,36 @@ def test_kernel_matches_plain_version(cuda, b, t, s, hq, hkv, dk, dv, offset, dt
     assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
 
 
+@pytest.mark.parametrize("dtype,hq,offset", [(torch.bfloat16, 16, 0), (torch.bfloat16, 128, 300),
+                                             (torch.float32, 16, 100)])
+def test_mla_build_matches_plain_version(cuda, dtype, hq, offset):
+    """Kernel 1's MLA build: Dk 576 with v a view of k's first 512 columns
+    (DeepSeek-V2's compressed cache, one KV head), groups of 16 and 128, and
+    the f32 build; the T=1 route over the same cache (kernel 2's
+    values_from_k). The smoke run's limits, one launch a call; a V of its
+    own at 576 / 512 is refused in bf16."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(1, 128, hq, 576, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(2, 1, 512, 1, 576, generator=g, device=cuda).to(dtype)
+    k, v = kc[1], kc[1][..., :512]
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, offset, 192 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _, worst, rel_l2 = kernel_disagreement(got, fa.flash_attention_reference(q, k, v, offset,
+                                                                             192 ** -0.5))
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+    pos = torch.tensor([offset + 5], device=cuda)
+    got = fa.flash_decode(q[:, :1], k, v, pos, 192 ** -0.5)
+    lengths = fa.decode_lengths(pos, 1, 512)
+    _, worst, rel_l2 = kernel_disagreement(
+        got, fa.flash_decode_reference(q[:, :1], k, v, lengths, 192 ** -0.5))
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="built for head dims"):
+            fa.flash_attention(q, k, v.clone(), offset, 192 ** -0.5)
+
+
 @pytest.mark.parametrize("split", [None, 512, 0], ids=["planned", "512", "whole"])
 def test_split_walk_matches_plain_version(cuda, monkeypatch, split):
     """The main path's deepest chunk (offset 3840) with the bf16 walk split
@@ -524,16 +554,42 @@ def test_paged_kernel_replays_in_a_cuda_graph(cuda, pool_dtype):
     assert worst <= 1 and rel_l2 <= REL_L2_TOL and bool((out[~live] == 0).all())
 
 
-def test_paged_wrapper_never_takes_the_plain_branch_on_the_card(cuda):
-    """What the kernel does not take raises on a CUDA tensor."""
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.int8, torch.float32],
+                         ids=["bf16", "int8", "f32"])
+def test_paged_wrapper_never_takes_the_plain_branch_on_the_card(cuda, pool_dtype):
+    """``values_from_k`` (MLA's compressed pool: one latent head of 576, V
+    its first 512 columns, a dummy V pool of width 1) launches the kernel
+    (f32 q: the FMA kernel) and agrees with the plain version within the
+    smoke run's limits, the walk planned and whole; what the kernel does not
+    take (values_from_k at another width, or with a softcap; int64 tables)
+    raises on a CUDA tensor and launches nothing."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    q, k, v, _, _, tables, lens = paged_case(g, (3, 9), 4, 2, 64, 8, 2, torch.float32,
-                                             torch.float32)
+    q_dtype = torch.float32 if pool_dtype == torch.float32 else torch.bfloat16
+    q, k, v, ks, vs, tables, lens = paged_case(g, (0, 1, 255, 256, 600), 16, 1, 576, 256, 4,
+                                               pool_dtype, q_dtype, dv=1)
+    scale = 192 ** -0.5
+    want = pa.paged_attention_reference(q, k, v, tables, lens, scale, values_from_k=512,
+                                        k_scale=ks, v_scale=vs)
+    for split in (None, 0):
+        monkeypatch = pytest.MonkeyPatch()
+        monkeypatch.setattr(pa, "SPLIT_POSITIONS", split)
+        before = pa.paged_attention.launches
+        got = pa.paged_attention(q, k, v, tables, lens, scale, values_from_k=512, k_scale=ks,
+                                 v_scale=vs)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert pa.paged_attention.launches == before + 1
+        live = lens > 0
+        assert got.shape == (5, 16, 512) and bool((got[~live] == 0).all())
+        _, worst, rel_l2 = kernel_disagreement(got[live], want[live])
+        assert worst <= 1 and rel_l2 <= REL_L2_TOL, (split, worst, rel_l2)
     before = pa.paged_attention.launches
-    with pytest.raises(ValueError, match="values_from_k"):
-        pa.paged_attention(q, k, v, tables, lens, 0.125, values_from_k=32)
+    for kw in (dict(values_from_k=256), dict(values_from_k=512, logit_softcap=30.0)):
+        with pytest.raises(ValueError, match="values_from_k"):
+            pa.paged_attention(q, k, v, tables, lens, scale, k_scale=ks, v_scale=vs, **kw)
     with pytest.raises(ValueError, match="int32"):
-        pa.paged_attention(q, k, v, tables.long(), lens, 0.125)
+        pa.paged_attention(q, k, v, tables.long(), lens, scale, values_from_k=512, k_scale=ks,
+                           v_scale=vs)
     assert pa.paged_attention.launches == before
 
 

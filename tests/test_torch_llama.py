@@ -162,8 +162,10 @@ def test_init_params_is_seeded_and_materialized():
 
 @pytest.mark.parametrize("model_type", ["deepseek_v2"])
 def test_unported_model_types_name_the_roadmap_item(model_type):
-    with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP.md"):
-        build_model({**TINY, "model_type": model_type})
+    """Every model type of the JAX registry is ported: DeepSeek-V2, the
+    last, builds from the same dict (its MLA defaults fill the rest)."""
+    model, cfg = build_model({**TINY, "model_type": model_type})
+    assert cfg.model_type == model_type and type(model).__name__ == "DeepseekV2Model"
 
 
 @pytest.fixture(scope="module")

@@ -120,9 +120,12 @@ def test_softcap_and_window_match_jax(option):
 
 
 def test_values_from_k_is_not_yet_ported():
+    """``values_from_k`` is ported: the plain version reads the values from
+    the K rows' first columns and equals JAX's (``_paged_attention_xla``)."""
     q, k, v, tables, lengths = _case(np.random.default_rng(4), [3], 2, 2, 16, 16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _port(q, k, v, tables, lengths, 0.25, values_from_k=8)
+    want = _jax(q, k, v, tables, lengths, 0.25, values_from_k=8)
+    got = _port(q, k, v, tables, lengths, 0.25, values_from_k=8)
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -144,6 +147,9 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     (128, 128, {"sliding_window": 4}, True),
     (256, 256, {"logit_softcap": 50.0, "sliding_window": 4096}, True),
     (128, 128, {"values_from_k": 64}, False),
+    (576, 1, {"values_from_k": 512}, True),
+    (576, 512, {"values_from_k": 512, "logit_softcap": 30.0}, False),
+    (576, 1, {"values_from_k": 512, "sliding_window": 64}, False),
 ])
 def test_kernel_eligible(dk, dv, option, eligible):
     """JAX ``kernel_eligible`` on the TPU, with the head-dim cap the CUDA
@@ -366,3 +372,29 @@ def test_split_walk_clips_lengths_to_the_reach():
     ref = pa.paged_attention_reference(tq, tk, tv, tt, tl.clamp_max(SPLIT_PAGE * SPLIT_SPG), 0.2)
     got = pa.paged_attention_split_reference(tq, tk, tv, tt, tl, 0.2, 64)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_values_from_k_matches_jax_on_mla_shapes(pool):
+    """DeepSeek-V2's compressed pool: one latent head of 576 (rank 512 +
+    rope 64) whose first 512 columns are the values, a dummy V pool of
+    width 1 that is never read, a group of 16 query heads. Against JAX's
+    ``paged_attention(values_from_k=512)`` (its XLA path); an int8 pool's K
+    scale serves V."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(7)
+    q, k, _, tables, lengths = _case(rng, LENGTHS, 16, 1, 576, 1)
+    v = np.zeros(k.shape[:3] + (1,), np.float32)
+    kw, tol = {}, F32_TOL
+    if pool == "bf16":
+        q, k, v = (x.astype(ml_dtypes.bfloat16) for x in (q, k, v))
+        tol = BF16_TOL
+    elif pool == "int8":
+        kq, vq = (jcache.quantize_kv_rows(jnp.asarray(x)) for x in (k, v))
+        k, v = np.asarray(kq["d"]), np.asarray(vq["d"])
+        kw = dict(k_scale=np.asarray(kq["s"]), v_scale=np.asarray(vq["s"]))
+    want = _jax(q, k, v, tables, lengths, 192 ** -0.5, values_from_k=512, **kw)
+    got = _port(q, k, v, tables, lengths, 192 ** -0.5, values_from_k=512, **kw)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    assert got.shape == (len(LENGTHS), 16, 512) and not got[LENGTHS.index(0)].any()
