@@ -78,10 +78,11 @@ final line:
    captured step runs) against the prefix alone, outputs within the bf16
    limits. Then where the time goes, eager against graph, in the order graph,
    eager, graph in this process (one eager turn): the prefill median, a greedy
-   64-token stream's decode tok/s, and for one decode step and one
-   256-token prefill chunk the host ms, wall ms, device ms (torch.profiler)
-   and busy share, and the kernels by device time; the streams and a
-   seeded top-p sample token-identical both ways; then the two T=1 routes
+   64-token stream's decode tok/s (16 tokens eagerly), and for one decode
+   step and one 256-token prefill chunk the host ms, wall ms, device ms
+   (torch.profiler) and busy share, and the kernels by device time; the
+   streams' first 16 tokens and a seeded top-p sample token-identical both
+   ways; then the two T=1 routes
    (``MST_FLASH_DECODE`` 1 and 0, graphs captured under each) in the order
    kernel, plain, plain, kernel: a greedy 64-token stream's tok/s and a
    decode step's device ms, each route's launches checked, and one T=1
@@ -171,6 +172,31 @@ final line:
    then f32 at 2 layers (one dense, one MoE): the Generator and the
    batcher token-identical, the kernels against their plain versions, the
    compressed cache's logits against the full cache's within 1e-4.
+10. the dense-slot batcher, the gather path and the draft engine
+   (``phase_dense_batching``, between 7 and 5, on phase 4's dense model):
+   phase 6's mix through the port's server with ``--concurrent 8`` and no
+   pool (dense slot caches, async ticks), with ``--paged-pool 16
+   --paged-attention gather``, and with ``--concurrent 8 --draft-model``
+   (the model's first 8 layers, tensors shared; K = 4; sync ticks; the
+   seeded twin asks for logprobs, so while it is live the ticks fall back
+   to plain blocks replayed into the draft): every chunk, block, round and
+   replay a graph replay with no capture and no eager forward, kernel 1's
+   launches against 32 x the chunks (and the draft's 8 x its chunks), the
+   T=1 route's against 32 x the decode steps (and 8 x the draft's steps),
+   TTFTs, the mix's tok/s, harvest wait and host ms per tick, and for the
+   draft engine tokens a round, the accept rate and the fallback ticks;
+   kernel 1 with a device ``kv_index`` on one slot of 9 slot caches and the
+   T=1 route at per-slot lengths (one slot idle) against their plain
+   versions at the 8B shapes; then in f32 at 2 layers the dense, paged and
+   gather batchers token-identical to the Generator, the draft engine to
+   plain greedy decode, and the new call sites' logits against the plain
+   versions'.
+
+Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
+layers, the eager turn of phases 4-5's step timing an
+``EAGER_STREAM_TOKENS``-token stream, and the Generators of phases 8-9
+capture only the decode block they serve (greedy, no logprobs; the warm-up
+request captures it), the prefill graphs at load.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -195,6 +221,8 @@ import subprocess
 import sys
 import threading
 import time
+import types
+from typing import Optional
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -324,7 +352,12 @@ PARITY_EAGER_TOKENS = 48
 # the parity runs hold the batcher's paths to each other (graphs, eager,
 # sync, overcommit; the prefix cache off and on), which the depth does not
 # change: they run on the model's first layers, its tensors shared
-BATCH_PARITY_LAYERS = 8
+BATCH_PARITY_LAYERS = 4
+# phases 4-5's eager turn (``phase_step_timing``): its greedy stream, held
+# to the graph turns' first tokens, and its seeded sample (an eager step
+# costs ~80-100 ms of host)
+EAGER_STREAM_TOKENS = 16
+EAGER_SAMPLE_TOKENS = 12
 # prefix sharing's parity run: four prompts of a shared 512-token prefix (two
 # pages) and their own 100 tokens
 PREFIX_TOKENS = 512
@@ -540,7 +573,8 @@ def build_kernels() -> None:
     for mod, build_log, secs in built:
         log(f"[kernels] built {mod.SOURCE.name} in {secs:.1f}s")
         for line in build_log.splitlines():
-            if any(k in line for k in ("registers", "smem", "spill", "cached", "Compiling")):
+            if any(k in line for k in ("registers", "smem", "spill", "cached", "Compiling",
+                                       "part ")):
                 log(f"[kernels]   ptxas: {line.strip()}")
     for (dk, dv), options in [*((d, False) for d in FLASH_DIMS), ((256, 256), True),
                               (fa.MLA_HEAD_DIMS, False)]:
@@ -1769,30 +1803,33 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
     order graph, eager, graph (one eager turn): ``gen`` (the served Generator, its
     graphs captured) and a Generator of the same model that runs the same
     steps eagerly. Each turn: the ``run_prefill`` median of the prompt, one
-    greedy 64-token stream (its decode tok/s), one decode step (blocks of
-    16 greedy steps) and one 256-token prefill chunk (at offset 256): host
-    ms, wall ms, the device's busy share and the kernels by device time.
-    The streams must be token-identical both ways, and a seeded top-p
-    sample too."""
+    greedy 64-token stream (``EAGER_STREAM_TOKENS`` on the eager turn; its
+    decode tok/s), one decode step (blocks of 16 greedy steps) and one
+    256-token prefill chunk (at offset 256): host ms, wall ms, the device's
+    busy share and the kernels by device time. The streams' first
+    ``EAGER_STREAM_TOKENS`` tokens must be token-identical both ways, and a
+    seeded top-p sample too."""
     from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
                                                  Generator)
 
     gens = {"graph": gen,
             "eager": Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)}
     ids = prompt[0].tolist()
-    seeded = dict(max_tokens=24, temperature=0.8, top_p=0.9, seed=1234)
+    seeded = dict(temperature=0.8, top_p=0.9, seed=1234)
     rows, streams = [], {}
     for mode in ("graph", "eager", "graph"):
         g = gens[mode]
+        eager = mode == "eager"
         row = {"mode": mode}
         row["prefill_ms"], _ = prefill_median_ms(lambda g=g: g.run_prefill(prompt), runs=3)
-        toks, row["decode_tok_s"] = stream_tokens(g, ids, max_tokens=64)
-        sampled, _ = stream_tokens(g, ids[:300], **seeded)
-        streams.setdefault(mode, []).append((toks, sampled))
+        toks, row["decode_tok_s"] = stream_tokens(
+            g, ids, max_tokens=EAGER_STREAM_TOKENS if eager else 64)
+        sampled, _ = stream_tokens(g, ids[:300], max_tokens=EAGER_SAMPLE_TOKENS, **seeded)
+        streams.setdefault(mode, []).append((toks[:EAGER_STREAM_TOKENS], sampled))
         list(g.generate_step(ids, max_tokens=1))  # the state of a request at its first token
         row["decode"] = step_numbers(
             lambda g=g: g.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
-            calls=2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
+            calls=1 if eager else 2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
         row["prefill_chunk"] = step_numbers(lambda g=g: g.run_chunk(CHUNK), calls=4, steps=1,
                                             profiled=2)
         for what in ("decode", "prefill_chunk"):
@@ -1802,13 +1839,14 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
                 f"{r['wall_ms']:.3f} ms, device {r['device_ms']:.3f} ms per step; device busy "
                 f"{busy} of the wall ({100 * r['profiled_busy']:.1f}% under the profiler); "
                 + ", ".join(f"{n} {ms:.3f}" for n, ms in r["kernels"]))
-        log(f"{tag} {mode}: run_prefill median {row['prefill_ms']:.2f} ms, greedy 64-token stream "
-            f"{row['decode_tok_s']:.2f} tok/s")
+        log(f"{tag} {mode}: run_prefill median {row['prefill_ms']:.2f} ms, greedy "
+            f"{EAGER_STREAM_TOKENS if eager else 64}-token stream {row['decode_tok_s']:.2f} tok/s")
         rows.append(row)
     check(all(run == streams["eager"][0] for runs in streams.values() for run in runs),
           "the graph path's streams differ from the eager steps'")
-    log(f"{tag} greedy 600-token-prompt 64-token streams and a seeded top-p 24-token sample: "
-        f"token-identical through graphs and eagerly on the card, twice each")
+    log(f"{tag} greedy 600-token-prompt streams (their first {EAGER_STREAM_TOKENS} tokens) and "
+        f"a seeded top-p {EAGER_SAMPLE_TOKENS}-token sample: token-identical through graphs and "
+        f"eagerly on the card, twice each")
     del gens["eager"]
     return rows
 
@@ -1875,7 +1913,7 @@ def first_step_logits(model, kv_dtype, prompts):
     inputs = engine.device_inputs(("decode", 1), table, [True] * m, cache.offsets, True)
     plan = engine.device_plan(inputs.offsets.long(), inputs, 1)
     tokens = torch.tensor(first, dtype=torch.int64, device=model.device)[:, None]
-    return first, engine.ragged_logits(tokens, cache, plan, 0).float()
+    return first, engine.decode_logits(tokens, cache, plan, 0).float()
 
 
 def tick_line(tag: str, batcher) -> None:
@@ -1888,22 +1926,30 @@ def tick_line(tag: str, batcher) -> None:
 
 def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
                    draft: str = "off", async_sched: str = "auto", split: bool = False,
-                   reference=None) -> tuple:
-    """Continuous batching over the paged pool at full width: the port's
-    server in front of a ``ContinuousBatcher`` of ``SLOTS`` slots over
-    ``POOL_PAGES`` pages of ``PAGE`` tokens, ``kv_dtype`` pool, async ticks;
-    the int8 pool's run admits on overcommit and preempts. With
-    ``draft="ngram"`` the batcher speculates (``async_sched`` ticks), its
-    verify rounds are replays too, and the run ends with its
-    ``spec_stats()`` (and, with ``split``, the verify's device ms and its
-    split) instead of the parity runs; its seeded twin is not held to its
-    run alone (a round's width, and so its draws, follow the other
-    slots), but its unforced greedy request is held to ``reference``, the
-    same request's tokens, near-ties and preemptions from the run with
-    draft="off" (``agreement``, up to the first preemption of either).
-    Returns the launches of the counted run per attention kernel and the
-    numbers (``stats["greedy"]``: that request's tokens, near-ties and
-    preemptions)."""
+                   reference=None, pool: Optional[int] = POOL_PAGES,
+                   paged_attention: str = "auto", draft_model=None,
+                   parity: bool = True) -> tuple:
+    """Continuous batching at full width: the port's server in front of a
+    ``ContinuousBatcher`` of ``SLOTS`` slots over ``pool`` pages of
+    ``PAGE`` tokens (``kv_dtype`` pool, decode attention ``paged_attention``)
+    or, with ``pool`` None, over dense slot caches; async ticks; the int8
+    pool's run admits on overcommit and preempts. With ``draft="ngram"``
+    the batcher speculates (``async_sched`` ticks), its verify rounds are
+    replays too, and the run ends with its ``spec_stats()`` (and, with
+    ``split``, the verify's device ms and its split) instead of the parity
+    runs; its seeded twin is not held to its run alone (a round's width,
+    and so its draws, follow the other slots), but its unforced greedy
+    request is held to ``reference``, the same request's tokens, near-ties
+    and preemptions from the run with draft="off" (``agreement``, up to
+    the first preemption of either). ``draft_model``: speculation with a
+    draft engine of that model (``SPEC_K`` tokens a round; sync ticks as
+    ``auto`` resolves them), its prefill chunks, proposals and replays
+    replays of its own graphs too; its seeded twin asks for logprobs, so
+    while it is live the ticks fall back to plain blocks replayed into the
+    draft. ``parity``: the parity runs and the first step's logits after a
+    run with draft="off". Returns the launches of the counted run per
+    attention kernel and the numbers (``stats["greedy"]``: that request's
+    tokens, near-ties and preemptions)."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops import paged_attention as pa
@@ -1913,22 +1959,36 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
 
     cfg = model.config
     overcommit = kv_dtype == "int8"
+    if draft_model is not None:
+        draft = "engine"
     mix = (tuple((n, m + OVERCOMMIT_EXTRA_TOKENS) for n, m in BATCH_MIX) if overcommit
            else BATCH_MIX)
-    tag = (f"[batch-{kv_dtype}{'-ngram' if draft != 'off' else ''}"
+    layout = (f"{kv_dtype}{'-gather' if paged_attention == 'gather' else ''}" if pool
+              else "dense")
+    tag = (f"[batch-{layout}{'-' + draft if draft != 'off' else ''}"
            f"{'-sync' if async_sched == 'off' else ''}]")
     gc.collect()  # the earlier phases' servers: their handler classes sit in cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"{tag} torch.cuda.memory_allocated at the start {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
-                            pool_pages=POOL_PAGES, page_size=PAGE, kv_dtype=kv_dtype,
-                            device=model.device)
+                            pool_pages=pool, page_size=PAGE if pool else None,
+                            paged_attention=paged_attention,
+                            kv_dtype=kv_dtype if pool else None, device=model.device)
+    draft_engine = None
+    if draft_model is not None:
+        draft_engine = PipelineEngine(draft_model, microbatches=SLOTS, max_seq=MAX_SEQ,
+                                      prefill_chunk=CHUNK, device=model.device)
     batcher = ContinuousBatcher(engine, decode_block=8, overcommit=overcommit, draft=draft,
-                                async_sched=async_sched)
-    log(f"{tag} engine: {SLOTS} slots, pool {POOL_PAGES} pages of {PAGE} tokens "
-        f"({batcher.cache.nbytes / 1e6:.1f} MB of {kv_dtype} K/V), "
-        f"{'overcommit' if overcommit else 'reserve'} admission, {batcher.async_reason}")
+                                async_sched=async_sched, draft_engine=draft_engine,
+                                spec_k=SPEC_K)
+    kv = (f"pool {pool} pages of {PAGE} tokens, {engine.decode_path} decode attention" if pool
+          else f"dense slot caches of {MAX_SEQ} positions")
+    log(f"{tag} engine: {SLOTS} slots, {kv} ({batcher.cache.nbytes / 1e6:.1f} MB of "
+        f"{kv_dtype if pool else 'bf16'} K/V), {'overcommit' if overcommit else 'reserve'} "
+        f"admission, {batcher.async_reason}"
+        + (f"; draft engine of {draft_model.config.num_hidden_layers} layers, "
+           f"{batcher.dcache.nbytes / 1e6:.1f} MB of K/V, K = {SPEC_K}" if draft_engine else ""))
     captured = batcher.warm_up()
     graph_line(tag, captured)
     tok = ByteTokenizer()
@@ -1937,17 +1997,18 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     force_a = {"65": 100.0}
-    # under speculation the streamed requests are forced to ``CYCLE`` and
-    # their prompts end with it, so that their n-gram proposals match
-    force = {"logit_bias": force_a} if draft == "off" else {
+    # under n-gram speculation the streamed requests are forced to ``CYCLE``
+    # and their prompts end with it, so that their n-gram proposals match
+    cycle = draft == "ngram"
+    force = {"logit_bias": force_a} if not cycle else {
         **FORCE_CYCLE, "logit_bias": {str(k): v for k, v in FORCE_CYCLE["logit_bias"].items()}}
-    expected_text = (lambda n: "A" * n) if draft == "off" else forced_text
+    expected_text = (lambda n: "A" * n) if not cycle else forced_text
     # the seeded twins are not streamed: their logprobs carry the token ids
     # (random weights sample ids past the 256 bytes, which decode to nothing)
     seeded = {"temperature": 0.8, "top_p": 0.9, "seed": 4321, "logprobs": 1}
     jobs = []
     for i, (n, max_tokens) in enumerate(mix):
-        forced = draft != "off" and i < len(mix) - 1
+        forced = cycle and i < len(mix) - 1
         body = {"prompt": mix_prompt(i, n - 16) + 2 * CYCLE if forced else mix_prompt(i, n),
                 "max_tokens": max_tokens}
         body.update(seeded if i == len(mix) - 1 else {**force, "stream": True})
@@ -1959,10 +2020,13 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
     try:
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"warm-up request failed: {status}")
-        pa.paged_attention.launches = fa.flash_attention.launches = 0
+        pa.paged_attention.launches = fa.flash_attention.launches = fa.flash_decode.launches = 0
         steps0, chunks0, waits0 = batcher.decode_steps, batcher.prefill_chunks, batcher.page_waits
-        verify0 = batcher.verify_ticks
+        verify0, dchunks0 = batcher.verify_ticks, batcher.draft_prefill_chunks
+        fallback0 = batcher.fallback_ticks
         served = ServedRun(batcher, engine)
+        if draft_engine is not None:
+            served_draft = ServedRun(types.SimpleNamespace(graphs=batcher.dgraphs), draft_engine)
 
         status, alone, _, _ = post(port, "/v1/completions", jobs[-1])
         check(status == 200, f"seeded request alone: status {status}: {alone}")
@@ -1992,13 +2056,20 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
         wall = time.perf_counter() - t0
         decode_s = batcher.decode_seconds - decode_s0
         launches = {"paged_attention": pa.paged_attention.launches,
-                    "flash_attention": fa.flash_attention.launches}
+                    "flash_attention": fa.flash_attention.launches,
+                    "flash_decode": fa.flash_decode.launches}
         steps = batcher.decode_steps - steps0
         chunks = batcher.prefill_chunks - chunks0
         waits = batcher.page_waits - waits0
         high_water = batcher.pages_high_water
         verify_ticks = batcher.verify_ticks - verify0
+        draft_chunks = batcher.draft_prefill_chunks - dchunks0
+        fallbacks = batcher.fallback_ticks - fallback0
         served.check(tag, steps // batcher.decode_block + chunks + verify_ticks)
+        if draft_engine is not None:
+            # the draft's chunks, its proposals (one a round) and its
+            # replays of the plain blocks
+            served_draft.check(tag + " draft", draft_chunks + verify_ticks + fallbacks)
         tick_line(tag, batcher)
         ticks = batcher.tick_timing_stats()
         deadline_check(port, batcher, tag)
@@ -2023,7 +2094,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
     check(status == 200, f"seeded request among others: status {status}: {twin}")
     ids = [r["choices"][0]["logprobs"]["tokens"] for r in (alone, twin)]
     check(len(ids[0]) == len(ids[1]) == mix[-1][1], "the seeded request's token count")
-    if draft == "off":
+    if draft != "ngram":  # with a draft engine its logprobs make every tick plain
         check(ids[0] == ids[1] and alone["choices"][0]["text"] == twin["choices"][0]["text"],
               "the seeded request gave other tokens among others than alone")
     log(f"{tag} request {len(mix) - 1}: the seeded top-p twin (not streamed, sent first), done "
@@ -2050,7 +2121,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
     preemptions = batcher.preemptions
     log(f"{tag} batcher: {chunks} prefill chunks (the requests need {want_chunks} without "
         f"preemption), {steps} decode steps, {waits} requests waited for pages, pool high-water "
-        f"{high_water} of {POOL_PAGES} pages, {preemptions} preemptions")
+        f"{high_water} of {pool} pages, {preemptions} preemptions")
     if draft == "off":
         # what planning a block on the device costs the card: the plan of
         # its steps from the slot offsets, captured and replayed alone
@@ -2066,12 +2137,26 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
     else:
         check(preemptions == 0 and chunks == want_chunks,
               "prefill chunk count disagrees with the requests")
-    check(waits >= 1, "no request waited for pages: the pool is too large for the check")
+    if pool:
+        check(waits >= 1, "no request waited for pages: the pool is too large for the check")
     layers = cfg.num_hidden_layers
-    for name, count in (("paged_attention", steps), ("flash_attention", chunks)):
-        log(f"{tag} {name} launches {launches[name]}, expected {layers} layers x {count} = "
-            f"{layers * count}")
-        check(launches[name] == layers * count, f"{name} launch count disagrees with the batcher")
+    # the T=1 attention: kernel 2 over the pool (ragged), or kernel 1's T=1
+    # route over contiguous caches (dense slots, the gather path's views);
+    # a draft engine's K steps a round and its replays take the route too
+    ragged = engine.decode_path == "ragged"
+    want_launches = {"paged_attention": (layers * steps if ragged else 0, f"{layers} x {steps}"),
+                     "flash_attention": (layers * chunks, f"{layers} x {chunks}"),
+                     "flash_decode": (0 if ragged else layers * steps, f"{layers} x {steps}")}
+    if draft_engine is not None:
+        dl = draft_model.config.num_hidden_layers
+        draft_steps = SPEC_K * verify_ticks + batcher.decode_block * fallbacks
+        want_launches["flash_attention"] = (
+            layers * chunks + dl * draft_chunks, f"{layers} x {chunks} + {dl} x {draft_chunks}")
+        want_launches["flash_decode"] = (
+            layers * steps + dl * draft_steps, f"{layers} x {steps} + {dl} x {draft_steps}")
+    for name, (want, how) in want_launches.items():
+        log(f"{tag} {name} launches {launches[name]}, expected {how} = {want}")
+        check(launches[name] == want, f"{name} launch count disagrees with the batcher")
     decoded = sum(max_tokens - 1 for _, max_tokens in mix) + GREEDY_TOKENS - 1
     mixed = sum(m for _, m in mix) + GREEDY_TOKENS
     stats = {**stats, "decode_tok_s": decoded / decode_s, "mix_tok_s": mixed / wall,
@@ -2090,11 +2175,22 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
         log(f"{tag} {verify_ticks} verify rounds and {steps // batcher.decode_block} decode "
             f"blocks; spec_stats {spec}")
         stats["spec"] = spec
+        if draft_engine is not None:
+            check(fallbacks >= 1 and spec["fallback_ticks"] == batcher.fallback_ticks,
+                  f"{tag} no tick fell back to a plain block: {spec}")
+            stats["tokens_per_round"] = spec["accepted_tokens"] / spec["rounds"]
+            log(f"{tag} draft engine: {stats['mix_tok_s']:.2f} tok/s over the mix, "
+                f"{stats['tokens_per_round']:.3f} tokens a slot and round, accept rate "
+                f"{spec['accept_rate']:.3f}, {spec['fallback_ticks']} fallback ticks "
+                f"({spec['replayed_tokens']} tokens replayed into the draft), draft prefill "
+                f"chunks {draft_chunks}")
         if split:
             stats["verify"] = batch_verify_numbers(tag, batcher)
-        del batcher, engine, server
+        del batcher, engine, server, draft_engine
         return launches, stats
     del batcher, engine, server
+    if not parity:
+        return launches, stats
     parity_model = first_layers(model, BATCH_PARITY_LAYERS)
     batcher_parity(parity_model, kv_dtype, tag)
     prefix_parity(parity_model, kv_dtype, tag)
@@ -2128,19 +2224,26 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
 def deadline_check(port, batcher, tag: str) -> None:
     """Fault 4's request: ``"ttft_timeout": 0.001`` to the batcher's server
     answers 504 with a timeout error, and once the scheduler has reaped it
-    every page of the pool is free."""
+    every page of the pool (every slot, over dense slot caches) is free."""
     status, body, _, t_end = post(port, "/v1/completions", {
         "prompt": mix_prompt(50, 300), "max_tokens": 16, "ttft_timeout": 0.001})
     check(status == 504 and body["error"]["type"] == "timeout_error",
           f"{tag} a ttft_timeout of 1 ms: status {status}: {body}")
+
+    def held():  # (what is held, of how many, what)
+        pages = batcher.page_stats()
+        if pages is None:
+            return sum(r is not None for r in batcher._slots), batcher.M, "slots"
+        return pages[1], pages[0], "pages"
+
     deadline = time.monotonic() + 10
-    while batcher.page_stats()[1] and time.monotonic() < deadline:
+    while held()[0] and time.monotonic() < deadline:
         time.sleep(0.05)
-    total, in_use, _ = batcher.page_stats()
+    in_use, total, what = held()
     stats = batcher.resilience_stats()
     log(f"{tag} ttft_timeout 0.001: 504 in {t_end * 1e3:.1f} ms ({body['error']['message']}); "
-        f"then {in_use} of {total} pages in use; {stats}")
-    check(in_use == 0, f"{tag} the timed-out request's pages were not freed")
+        f"then {in_use} of {total} {what} in use; {stats}")
+    check(in_use == 0, f"{tag} the timed-out request's {what} were not freed")
     check(stats["timeouts"] + stats["shed_deadline"] >= 1, f"{tag} deadline counters {stats}")
 
 
@@ -2903,6 +3006,199 @@ def phase_spec_f32(seed: int) -> dict:
     return stats
 
 
+# ------------------------------------------- phase 10: dense slots, gather, draft
+#: the draft engine of phase 10: the target cut to its first layers (tensors
+#: shared, ``first_layers``), as a same-family small draft is served
+DRAFT_LAYERS = 8
+#: the f32 check's slots and prompts (tokens) at the 8B widths, F32_LAYERS
+DENSE_F32_PROMPTS = (600, 250, 40)
+
+
+def phase_slot_kernels(seed: int) -> dict:
+    """The kernels at phase 10's new call sites against their plain versions
+    at the 8B shapes (bf16; ``kernel_disagreement``'s limits): kernel 1 on
+    one slot of ``SLOTS + 1`` dense slot caches through a device
+    ``kv_index`` (slots 0 and ``SLOTS`` - 1 at the mix's chunk offsets; the
+    bits of the same call on the slot's row alone), and the T=1 route over
+    ``SLOTS`` caches at their own positions (``slot_lengths``: the mix's
+    first decode step, one slot idle, whose rows are zeros). Returns each
+    route's largest error."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    scale = 128 ** -0.5
+    errs = {"flash_attention": 0.0, "flash_decode": 0.0}
+    q, k, v = attention_inputs(gen, SLOTS + 1, CHUNK, MAX_SEQ, 32, 8, 128, 128, torch.bfloat16)
+    q = q[:1]
+    for slot, offset in ((0, 0), (SLOTS - 1, 512), (SLOTS - 1, 3840)):
+        index = torch.tensor([slot], device="cuda")
+        got = fa.flash_attention(q, k, v, offset, scale, kv_index=index)
+        alone = fa.flash_attention(q, k[slot : slot + 1], v[slot : slot + 1], offset, scale)
+        ref = fa.flash_attention_reference(q, k[slot : slot + 1], v[slot : slot + 1], offset,
+                                           scale)
+        torch.cuda.synchronize()
+        err, worst, rel_l2 = kernel_disagreement(got, ref)
+        log(f"[kernels] flash_attention kv_index: slot {slot} of {SLOTS + 1} slot caches, offset "
+            f"{offset}: max_abs_err {err:.3e}, worst err/limit {worst:.3f} (tol 1), relative L2 "
+            f"{rel_l2:.3e}; the bits of the call on the slot's row alone {torch.equal(got, alone)}")
+        check(worst <= 1 and rel_l2 <= REL_L2_TOL and torch.equal(got, alone),
+              f"flash_attention kv_index slot {slot} offset {offset} disagrees")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    q = torch.randn((SLOTS, 1, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = k[:SLOTS].contiguous(), v[:SLOTS].contiguous()
+    positions = torch.tensor([n for n, _ in BATCH_MIX[:SLOTS]], device="cuda")
+    active = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    active[3] = False
+    lengths = fa.slot_lengths(positions, active, MAX_SEQ)
+    got = fa.flash_decode(q, k, v, positions, scale, lengths=lengths)
+    ref = fa.flash_decode_reference(q, k, v, lengths, scale)
+    torch.cuda.synchronize()
+    err, worst, rel_l2 = kernel_disagreement(got, ref)
+    log(f"[kernels] flash_decode over {SLOTS} slot caches at per-slot lengths "
+        f"{lengths.tolist()}: max_abs_err {err:.3e}, worst err/limit {worst:.3f} (tol 1), "
+        f"relative L2 {rel_l2:.3e}; the idle slot's rows zero {not got[3].any().item()}")
+    check(worst <= 1 and rel_l2 <= REL_L2_TOL and not got[3].any().item(),
+          "flash_decode at per-slot lengths disagrees with its plain version")
+    errs["flash_decode"] = err
+    return errs
+
+
+def phase_dense_f32(seed: int) -> dict:
+    """Phase 10's exactness in f32 at the 8B widths and ``F32_LAYERS``
+    layers, ``F32_TOKENS`` greedy tokens of ``DENSE_F32_PROMPTS``, every
+    batcher through its graphs on this thread: the dense-slot batcher, the
+    paged batcher (ragged) and the gather path each token-identical to the
+    Generator; the draft engine (the target's first layer, K = ``SPEC_K``)
+    token-identical to plain greedy decode, with a logprobs request beside
+    it so that ticks fall back and replay into the draft. Then the new call
+    sites' kernels against their plain versions in one forward each: the
+    dense prefill chunk of a slot (kernel 1 with ``kv_index``) and one T=1
+    step of the dense and gather engines (the T=1 route at per-slot
+    lengths), their logits within ``F32_LOGITS_RTOL`` of the same steps
+    with the kernel entry points swapped for their plain versions."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tag = "[dense-f32]"
+    tok = ByteTokenizer()
+    prompts = [tok.encode(mix_prompt(60 + i, n)) for i, n in enumerate(DENSE_F32_PROMPTS)]
+    model, _ = build_model({**LLAMA_31_8B, "num_hidden_layers": F32_LAYERS}, dtype=torch.float32)
+    model.init_params(torch.Generator(device="cuda").manual_seed(seed + 11), "cuda")
+    plain = Generator(model, max_seq=F32_MAX_SEQ, prefill_chunk=CHUNK)
+    want = [[t for t, _ in plain.generate_step(p, max_tokens=F32_TOKENS)] for p in prompts]
+    del plain
+    m = len(prompts)
+    geometry = dict(microbatches=m, max_seq=F32_MAX_SEQ, prefill_chunk=CHUNK, device=model.device)
+    pages = sum(-(-(len(p) + F32_TOKENS) // PAGE) for p in prompts)
+    jobs = [(p, dict(max_tokens=F32_TOKENS)) for p in prompts]
+    engines = {"dense": PipelineEngine(model, **geometry),
+               "ragged": PipelineEngine(model, pool_pages=pages, page_size=PAGE, **geometry),
+               "gather": PipelineEngine(model, pool_pages=pages, page_size=PAGE,
+                                        paged_attention="gather", **geometry)}
+    streams = {}
+    for name, engine in engines.items():
+        batcher = ContinuousBatcher(engine, decode_block=8)
+        batcher.warm_up()
+        items, _ = serve_on_this_thread(batcher, jobs)
+        streams[name] = [[t for t, _ in s_] for s_ in items]
+        batcher.close()
+        same = streams[name] == want
+        log(f"{tag} {name} batcher ({engine.decode_path} T=1 attention), {m} requests of "
+            f"{F32_TOKENS} tokens: token-identical to the Generator {same}")
+        check(same, f"{tag} the {name} batcher's greedy streams differ from the Generator's")
+    draft = first_layers(model, 1)
+    batcher = ContinuousBatcher(engines["dense"], decode_block=8, spec_k=SPEC_K,
+                                draft_engine=PipelineEngine(draft, **geometry))
+    batcher.warm_up()
+    items, _ = serve_on_this_thread(batcher, jobs + [(prompts[2], dict(max_tokens=16,
+                                                                        want_logprobs=True))])
+    got = [[t for t, _ in s_] for s_ in items]
+    spec = batcher.spec_stats()
+    batcher.close()
+    log(f"{tag} draft engine (the first layer, K = {SPEC_K}) beside a logprobs request: "
+        f"token-identical to plain greedy decode {got[:m] == want}; spec_stats {spec}")
+    check(got[:m] == want and got[m] == want[2][:16],
+          f"{tag} the draft engine's greedy streams differ from plain greedy decode's")
+    check(spec["rounds"] > 0 and spec["fallback_ticks"] > 0,
+          f"{tag} the draft engine ran no round or no fallback tick: {spec}")
+    del draft, batcher
+
+    # the new call sites against their plain versions
+    def forwards():
+        out = {}
+        for name in ("dense", "gather"):
+            engine = engines[name]
+            if name == "dense":
+                cache, table = engine.init_cache(), np.arange(m + 1, dtype=np.int32)[:, None]
+            else:
+                cache, table = engine.init_cache_paged()
+                first = 0
+                for slot, p in enumerate(prompts):  # the pages of the prompt and one step
+                    n = -(-(len(p) + 1) // PAGE)
+                    table[slot, :n] = np.arange(first, first + n)
+                    first += n
+            for slot, p in enumerate(prompts):
+                for pos in range(0, len(p), CHUNK):
+                    chunk = np.asarray(p[pos : pos + CHUNK], np.int64)
+                    logits = engine.prefill_slot(np.pad(chunk, (0, CHUNK - chunk.size)), slot,
+                                                 cache, chunk.size, table)
+                out[name, "prefill", slot] = logits.float()
+            active = [True, False, True]
+            inputs = engine.device_inputs(("f32", name), table, active, cache.offsets, True)
+            plan = engine.device_plan(inputs.offsets.long(), inputs, 1)
+            tokens = torch.tensor([[65], [66], [67]], device=model.device)
+            out[name, "decode"] = engine.decode_logits(tokens, cache, plan, 0).float()[[0, 2]]
+        return out
+
+    kern = forwards()
+    with plain_entry_points():
+        ref = forwards()
+    worst = 0.0
+    for key, value in kern.items():
+        rel = ((value - ref[key]).norm() / ref[key].norm()).item()
+        worst = max(worst, rel)
+        check(bool(torch.isfinite(value).all()) and rel <= F32_LOGITS_RTOL,
+              f"{tag} {key}: kernels against plain versions, relative L2 {rel:.3e}")
+    log(f"{tag} the dense prefill chunks (kernel 1, kv_index) and one T=1 step of the dense and "
+        f"gather engines (the T=1 route at per-slot lengths, one slot idle): logits against the "
+        f"plain versions' within relative L2 {worst:.3e} (tol {F32_LOGITS_RTOL})")
+    del engines, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"worst_rel_l2": worst, "spec": spec}
+
+
+def phase_dense_batching(model, seed: int, single_stream_tok_s: float, lap) -> tuple:
+    """Phase 10: the mix of phase 6 served through the port's server by the
+    dense-slot batcher (``--concurrent 8``, no pool, async ticks), by the
+    gather path (``--paged-pool 16 --paged-attention gather``) and by the
+    dense batcher with a draft engine (the model's first ``DRAFT_LAYERS``
+    layers, tensors shared; ``SPEC_K`` tokens a round; sync ticks), each
+    as ``phase_batching`` serves a run (replays only, launches against the
+    batcher's chunks, steps, rounds and replays); then the new call sites'
+    kernels at the 8B shapes (``phase_slot_kernels``) and the f32 check
+    (``phase_dense_f32``). Returns the served runs' launches of kernel 1 and
+    its T=1 route, and the numbers."""
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    stats = {}
+    runs = (("dense", dict(pool=None)), ("gather", dict(paged_attention="gather")),
+            ("draft engine", dict(pool=None, draft_model=first_layers(model, DRAFT_LAYERS))))
+    for name, kw in runs:
+        if name == "draft engine":
+            kw["reference"] = stats["dense"]["greedy"]
+        got, stats[name] = phase_batching(model, seed, "bf16", single_stream_tok_s,
+                                          parity=False, **kw)
+        for key in launches:
+            launches[key] += got[key]
+        lap(f"phase 10, {name}")
+    stats["kernels"] = phase_slot_kernels(seed)
+    stats["f32"] = phase_dense_f32(seed)
+    lap("phase 10, kernels at the new call sites and the f32 check")
+    return launches, stats
+
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------ the families' kernel paths
@@ -3494,12 +3790,17 @@ class plain_entry_points:
         from mlx_sharding_tpu_torch.ops import quant as quant_mod
         from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 
+        def prefill(q, k, v, offset, scale, *, kv_index=None, **opts):
+            if kv_index is not None:
+                k, v = fa.select_kv_rows(k, v, kv_index)
+            return fa.flash_attention_reference(q, k, v, offset, scale, **opts)
+
         def decode(q, k, v, position, scale, *, lengths=None, **opts):
             if lengths is None:
                 lengths = fa.decode_lengths(position, q.shape[0], k.shape[1])
             return fa.flash_decode_reference(q, k, v, lengths, scale, **opts)
 
-        self.swaps = [(attention_mod, "flash_attention", fa.flash_attention_reference),
+        self.swaps = [(attention_mod, "flash_attention", prefill),
                       (attention_mod, "flash_decode", decode),
                       (quant_mod, "quant_gemv", qm.quant_matmul_reference),
                       (quant_mod, "quant_matmul", qm.quant_matmul_reference),
@@ -3528,7 +3829,9 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
     tok = ByteTokenizer()
     n = FAMILY_PROMPTS[key]
     gen = Generator(model, max_seq=FAMILY_MAX_SEQ[key], prefill_chunk=CHUNK)
-    graph_line(tag, gen.warm_up())
+    # the prefill graphs at load; the one decode block served (greedy, no
+    # logprobs) at the warm-up request
+    graph_line(tag, gen.warm_up(decode_blocks=False))
     server = make_server(ModelProvider(gen, tok, model_name=key), "127.0.0.1", 0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -4235,6 +4538,7 @@ def main(argv=None) -> int:
         lap(f"continuous batching, {kv_dtype} pool, draft {draft}, async_sched {sched}")
     phase_spec_f32(args.seed)
     lap("speculation in f32")
+    dense_launches, dense = phase_dense_batching(model, args.seed, single["decode_tok_s"], lap)
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model
@@ -4251,8 +4555,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mlx_sharding_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
-        "launches": launches["flash_attention"],
-        "max_abs_err": max_err,
+        "launches": launches["flash_attention"] + dense_launches["flash_attention"],
+        "max_abs_err": max(max_err, dense["kernels"]["flash_attention"]),
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
@@ -4289,8 +4593,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
-        "launches": launches["flash_decode"] + quant_launches["flash_decode"],
-        "max_abs_err": decode_err,
+        "launches": (launches["flash_decode"] + quant_launches["flash_decode"]
+                     + dense_launches["flash_decode"]),
+        "max_abs_err": max(decode_err, dense["kernels"]["flash_decode"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],

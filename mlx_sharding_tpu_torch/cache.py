@@ -19,6 +19,12 @@ with S = B = 1 dropped; page P is scratch. An int8 pool is a ``{"d": int8,
 "s": float32 (…, 1)}`` pair (:func:`quantize_kv_rows`). Slot offsets are
 host ints here too (:func:`rewind_slot_offset` rolls one back). Exporting
 and importing pool pages (spill, migration) come with later slices.
+
+Dense slot caches (:func:`init_cache_slots`, JAX ``PipelineEngine.init_cache``):
+M+1 caches of the full capacity, slot M the scratch that every inactive
+slot writes into, with per-slot host offsets. They are the pool layout with
+one page of ``max_seq`` rows per slot, ``(L, M+1, max_seq, H_kv, D)``, and
+:func:`slot_table` is their page table: slot m's one page is page m.
 """
 
 from __future__ import annotations
@@ -192,6 +198,22 @@ def init_page_table(slots: int, slot_pages: int, pool_pages: int) -> np.ndarray:
     starts at the scratch page (id ``pool_pages``), and row M stays all
     scratch for the ticks of inactive slots."""
     return np.full((slots + 1, slot_pages), pool_pages, np.int32)
+
+
+def init_cache_slots(num_layers: int, slots: int, max_seq: int, n_kv_heads: int, head_dim,
+                     dtype: torch.dtype, device) -> PagedKV:
+    """``slots`` dense caches of ``max_seq`` positions plus the scratch slot
+    (JAX ``init_cache``: the leaf ``(S, L, M+1, B, seq, H, D)`` with S = B =
+    1 dropped), zeroed, each slot's offset 0. ``head_dim``: an int or a
+    ``(k_dim, v_dim)`` pair, as :func:`init_cache` takes it."""
+    return init_cache_paged(num_layers, slots, max_seq, n_kv_heads, head_dim, slots, dtype,
+                            device)
+
+
+def slot_table(slots: int) -> np.ndarray:
+    """The (M+1, 1) int32 page table of the dense slot caches: row m maps
+    slot m's one page, m, and row M the scratch slot."""
+    return np.arange(slots + 1, dtype=np.int32)[:, None]
 
 
 def write_pool_rows(pool, page_ids: torch.Tensor, row_pos: torch.Tensor, rows: torch.Tensor):

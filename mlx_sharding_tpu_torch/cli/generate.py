@@ -3,7 +3,12 @@
 
     python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
         [--keep-quantized] [--device cpu] \
-        [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
+        [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]] \
+        [--paged-attention auto|ragged|gather]
+
+The CLI runs one stream, which ``--paged-attention`` leaves as it is, as in
+the JAX CLI; the batcher's paths are the server's (``--concurrent N
+[--paged-pool P]``).
 
 Streams the text and reports prompt/generation tok/s and TTFT on stderr
 (and, when speculating, the rounds and the accept rate). On a card the
@@ -56,6 +61,14 @@ def main(argv=None):
                         "acceptance (EWMA) resizes the window in {0,2,4,8} "
                         "up to this cap and disables drafting when it never "
                         "pays; with --draft ngram defaults to 8")
+    parser.add_argument("--paged-attention",
+                        choices=("auto", "ragged", "gather"), default="auto",
+                        help="decode-attention path for paged pipeline "
+                        "engines: 'ragged' attends over the KV page pool in "
+                        "place (needs a pool — the engine validates), "
+                        "'gather' keeps the contiguous per-slot view, 'auto' "
+                        "picks ragged where supported; forwarded to the "
+                        "engine, a no-op on dense single-stream runs")
     args = parser.parse_args(argv)
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine requires --draft-model")

@@ -76,6 +76,12 @@
 // the next step for speed: wgmma with TMA-fed tiles, for when the rate
 // of mma.sync instructions is what limits the deep chunks.
 //
+// The dense continuous-batching engine keeps M + 1 slot caches in one
+// (M + 1, S, Hkv, D) buffer and prefills one slot at a time. Its captured
+// chunk must serve every slot, so the slot reaches the kernel as a device
+// value: kv_batch, when set, holds for each query batch row the batch row
+// of K and V it reads (one 8-byte load a block); null reads row b, as before.
+//
 // The fp32 variant, which only the tests and checks run, is the first
 // version's kernel kept as it was: one block per (batch, query head, 64
 // query rows), the scores and the accumulator in shared memory, plain FMA.
@@ -113,6 +119,8 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_st, o_sh;
+  // the K/V batch row of each query batch row, on the device; null: the same row
+  const long long* kv_batch;
   int offset;
   float scale;
   float softcap;  // cap * tanh(s / cap) on the scaled scores; 0: none
@@ -262,9 +270,10 @@ __global__ void __launch_bounds__(THREADS, 2) flash_bf16_kernel(Params p) {
   const int g = lane >> 2;  // the fragment row (and row + 8) this lane holds
   const int t4 = lane & 3;  // its column pair within an 8-column tile
 
+  const long long kvb = p.kv_batch ? p.kv_batch[b] : b;
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + kvb * p.k_sb + kvh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + kvb * p.v_sb + kvh * p.v_sh;
 
   // Q: packed rows gathered from their (position, head); each row is DK
   // contiguous elements, copied as 16-byte vectors
@@ -698,9 +707,10 @@ __global__ void __launch_bounds__(THREADS) flash_f32_kernel(Params p) {
   const int kv_begin = p.window > 0 ? max(0, p.offset + q0 - p.window + 1) : 0;
   const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
 
+  const long long kvb = p.kv_batch ? p.kv_batch[b] : b;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + q0 * p.q_st + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const float* k = static_cast<const float*>(p.k) + kvb * p.k_sb + kvh * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + kvb * p.v_sb + kvh * p.v_sh;
   auto copy_kv = [&](int tile, int stage) {
     const int k0 = kv_begin + tile * BK;
     const int k_valid = min(BK, kv_end - k0);
@@ -872,13 +882,15 @@ extern "C" {
 // 2 floats (row tiles of 64 packed (query position, group head) rows).
 // values_from_k: v is k's first Dv columns (a view with k's strides): the
 // MLA builds, which take no softcap or window; in bf16 only at Dk 576 / Dv
-// 512. Returns the cudaError_t of the launches (0 on success); the caller
-// checks it.
+// 512. kv_batch: null, or B int64 on the device, the batch row of k and v
+// that query batch row b reads (k and v then hold any number of rows).
+// Returns the cudaError_t of the launches (0 on success); the caller checks
+// it.
 int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* part_o,
                             void* part_ml, int dtype, int B, int T, int S, int Hq, int Hkv,
                             int Dk, int Dv, const long long* strides, int offset, float scale,
                             float softcap, int window, int split, int values_from_k,
-                            void* stream) {
+                            const void* kv_batch, void* stream) {
   const bool vk = values_from_k != 0;
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || offset < 0 || split < 0 ||
       split % 64 || softcap < 0.0f || window < 0 ||
@@ -909,6 +921,7 @@ int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
   p.o_sb = strides[9];
   p.o_st = strides[10];
   p.o_sh = strides[11];
+  p.kv_batch = static_cast<const long long*>(kv_batch);
   p.offset = offset;
   p.scale = scale;
   p.softcap = softcap;

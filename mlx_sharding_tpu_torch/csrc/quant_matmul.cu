@@ -739,21 +739,6 @@ cudaError_t launch_gemv_tc(const Params& p, int split, float* part, cudaStream_t
   return cudaGetLastError();
 }
 
-// F(std::integral_constant<int, BITS>, std::integral_constant<int, MT>) for
-// the instantiation that serves (bits, M)
-template <typename F>
-auto for_bits_m(int bits, int M, const F& f) {
-  auto by_m = [&](auto b) {
-    if (M <= 1) return f(b, std::integral_constant<int, 1>{});
-    if (M <= 2) return f(b, std::integral_constant<int, 2>{});
-    if (M <= 4) return f(b, std::integral_constant<int, 4>{});
-    return f(b, std::integral_constant<int, 8>{});
-  };
-  if (bits == 2) return by_m(std::integral_constant<int, 2>{});
-  if (bits == 4) return by_m(std::integral_constant<int, 4>{});
-  return by_m(std::integral_constant<int, 8>{});
-}
-
 // ------------------------------------------- prefill dequant-matmul, fp32 x
 // Tests only (no caller on the main path): the first version's FMA walk. A
 // block of 256 threads owns a 64 x 128 (M x OUT) tile and loops over IN 64
@@ -1422,7 +1407,131 @@ Params make_params(const void* x, const void* q, const void* scales, const void*
 
 }  // namespace
 
+// The library is built as four translation units, compiled in parallel and
+// linked into one (ops/quant_matmul.py names the parts): MST_PART_GEMV2,
+// MST_PART_GEMV4 and MST_PART_GEMV8 each hold the GEMV instantiations of one
+// bit width, MST_PART_MATMUL the matmul and the entry points, which pass a
+// GEMV call to its width's part. Without any of the macros this file holds
+// everything.
+#if defined(MST_PART_GEMV2) || defined(MST_PART_GEMV4) || defined(MST_PART_GEMV8) || \
+    defined(MST_PART_MATMUL)
+#define MST_SPLIT 1
+#endif
+
+namespace {
+
+// F(std::integral_constant<int, MT>) for the instantiation that serves M
+template <typename F>
+auto for_m(int M, const F& f) {
+  if (M <= 1) return f(std::integral_constant<int, 1>{});
+  if (M <= 2) return f(std::integral_constant<int, 2>{});
+  if (M <= 4) return f(std::integral_constant<int, 4>{});
+  return f(std::integral_constant<int, 8>{});
+}
+
+template <int BITS>
+int gemv(const void* x, const void* q, const void* scales, const void* biases, void* out,
+         int x_code, int param_code, int M, int IN, int OUT, int group_size, int split,
+         void* part, void* stream) {
+  const Params p = make_params(x, q, scales, biases, out, param_code, M, IN, OUT, group_size);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_code == 0)
+    return (int)for_m(M, [&](auto m) { return launch_gemv_fma<BITS, decltype(m)::value>(p, s); });
+  if (x_code == 1)
+    return (int)for_m(M, [&](auto m) {
+      return for_group(group_size, [&](auto g) {
+        return launch_gemv_tc<BITS, decltype(m)::value, decltype(g)::value>(
+            p, split, static_cast<float*>(part), s);
+      });
+    });
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int BITS>
+int gemv_experts(const void* x, const void* q, const void* scales, const void* biases,
+                 void* out, const void* ids, int x_code, int param_code, int pairs, int x_div,
+                 int experts, int IN, int OUT, int group_size, void* stream) {
+  const Params p = make_params(x, q, scales, biases, out, param_code, 1, IN, OUT, group_size);
+  const Routed r{static_cast<const int*>(ids), x_div, experts};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_code == 0) return (int)launch_gemv_fma<BITS, 1, true>(p, s, r, pairs);
+  if (x_code == 1)
+    return (int)for_group(group_size, [&](auto g) {
+      return launch_gemv_tc<BITS, 1, decltype(g)::value, true>(p, 0, nullptr, s, r, pairs);
+    });
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int BITS>
+int gemv_info(int M, int group_size, int param_code, long long* out) {
+  return (int)for_m(M, [&](auto m) {
+    return for_group(group_size, [&](auto g) {
+      constexpr int MT = decltype(m)::value, GS = decltype(g)::value;
+      const auto kernel = quant_gemv_tc_kernel<BITS, MT, GS>;
+      const size_t smem = tc_shared_bytes<BITS, MT>(GS, param_code == 0 ? 4 : 2);
+      cudaError_t err = allow_shared_once(kernel, tc_shared_bytes<BITS, MT>(GS, 4));
+      if (err != cudaSuccess) return err;
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kernel);
+      if (err != cudaSuccess) return err;
+      int blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TC_THREADS, smem);
+      out[0] = (long long)smem;
+      out[1] = attr.numRegs;
+      out[2] = blocks;
+      out[3] = (long long)attr.localSizeBytes;
+      return err;
+    });
+  });
+}
+
+}  // namespace
+
+// One bit width's GEMV entry points, in its part
+#define MST_GEMV_WIDTH(B)                                                                     \
+  int mst_quant_gemv_b##B(const void* x, const void* q, const void* scales,                 \
+                          const void* biases, void* out, int x_code, int param_code, int M, \
+                          int IN, int OUT, int group_size, int split, void* part,           \
+                          void* stream) {                                                   \
+    return gemv<B>(x, q, scales, biases, out, x_code, param_code, M, IN, OUT, group_size,   \
+                   split, part, stream);                                                    \
+  }                                                                                         \
+  int mst_quant_gemv_experts_b##B(const void* x, const void* q, const void* scales,         \
+                                  const void* biases, void* out, const void* ids,           \
+                                  int x_code, int param_code, int pairs, int x_div,         \
+                                  int experts, int IN, int OUT, int group_size,             \
+                                  void* stream) {                                           \
+    return gemv_experts<B>(x, q, scales, biases, out, ids, x_code, param_code, pairs, x_div, \
+                           experts, IN, OUT, group_size, stream);                           \
+  }                                                                                         \
+  int mst_quant_gemv_info_b##B(int M, int group_size, int param_code, long long* out) {     \
+    return gemv_info<B>(M, group_size, param_code, out);                                    \
+  }
+
+#define MST_GEMV_DECLARE(B)                                                                   \
+  int mst_quant_gemv_b##B(const void*, const void*, const void*, const void*, void*, int,   \
+                          int, int, int, int, int, int, void*, void*);                      \
+  int mst_quant_gemv_experts_b##B(const void*, const void*, const void*, const void*, void*, \
+                                  const void*, int, int, int, int, int, int, int, int,      \
+                                  void*);                                                   \
+  int mst_quant_gemv_info_b##B(int, int, int, long long*);
+
 extern "C" {
+
+#if !defined(MST_SPLIT) || defined(MST_PART_GEMV2)
+MST_GEMV_WIDTH(2)
+#endif
+#if !defined(MST_SPLIT) || defined(MST_PART_GEMV4)
+MST_GEMV_WIDTH(4)
+#endif
+#if !defined(MST_SPLIT) || defined(MST_PART_GEMV8)
+MST_GEMV_WIDTH(8)
+#endif
+
+#if !defined(MST_SPLIT) || defined(MST_PART_MATMUL)
+MST_GEMV_DECLARE(2)
+MST_GEMV_DECLARE(4)
+MST_GEMV_DECLARE(8)
 
 // x_code: 0 = float32, 1 = bfloat16; param_code: 0 = float32, 1 = bfloat16,
 // 2 = float16; bits 2, 4 or 8. The caller has checked shapes, alignment (16
@@ -1434,23 +1543,13 @@ extern "C" {
 int mst_quant_gemv(const void* x, const void* q, const void* scales, const void* biases, void* out,
                    int x_code, int param_code, int bits, int M, int IN, int OUT, int group_size,
                    int split, void* part, void* stream) {
-  const Params p = make_params(x, q, scales, biases, out, param_code, M, IN, OUT, group_size);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || M > 8 || (bits != 2 && bits != 4 && bits != 8) || split < 0 ||
       (split > 0 && split % group_size))
     return (int)cudaErrorInvalidValue;
-  if (x_code == 0)
-    return (int)for_bits_m(bits, M, [&](auto b, auto m) {
-      return launch_gemv_fma<decltype(b)::value, decltype(m)::value>(p, s);
-    });
-  if (x_code == 1)
-    return (int)for_bits_m(bits, M, [&](auto b, auto m) {
-      return for_group(group_size, [&](auto g) {
-        return launch_gemv_tc<decltype(b)::value, decltype(m)::value, decltype(g)::value>(
-            p, split, static_cast<float*>(part), s);
-      });
-    });
-  return (int)cudaErrorInvalidValue;
+  const auto by_width = bits == 2 ? mst_quant_gemv_b2 : bits == 4 ? mst_quant_gemv_b4
+                                                                  : mst_quant_gemv_b8;
+  return by_width(x, q, scales, biases, out, x_code, param_code, M, IN, OUT, group_size, split,
+                  part, stream);
 }
 
 // The routed-expert GEMV: out (pairs, OUT) = x[pair / x_div] @
@@ -1462,24 +1561,23 @@ int mst_quant_gemv_experts(const void* x, const void* q, const void* scales, con
                            void* out, const void* ids, int x_code, int param_code, int bits,
                            int pairs, int x_div, int experts, int IN, int OUT, int group_size,
                            void* stream) {
-  const Params p = make_params(x, q, scales, biases, out, param_code, 1, IN, OUT, group_size);
-  const Routed r{static_cast<const int*>(ids), x_div, experts};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pairs < 1 || pairs > 65535 || x_div < 1 || experts < 1 ||
       (bits != 2 && bits != 4 && bits != 8))
     return (int)cudaErrorInvalidValue;
-  if (x_code == 0)
-    return (int)for_bits_m(bits, 1, [&](auto b, auto) {
-      return launch_gemv_fma<decltype(b)::value, 1, true>(p, s, r, pairs);
-    });
-  if (x_code == 1)
-    return (int)for_bits_m(bits, 1, [&](auto b, auto) {
-      return for_group(group_size, [&](auto g) {
-        return launch_gemv_tc<decltype(b)::value, 1, decltype(g)::value, true>(p, 0, nullptr, s,
-                                                                              r, pairs);
-      });
-    });
-  return (int)cudaErrorInvalidValue;
+  const auto by_width = bits == 2 ? mst_quant_gemv_experts_b2
+                        : bits == 4 ? mst_quant_gemv_experts_b4 : mst_quant_gemv_experts_b8;
+  return by_width(x, q, scales, biases, out, ids, x_code, param_code, pairs, x_div, experts, IN,
+                  OUT, group_size, stream);
+}
+
+// The bf16 GEMV instantiation that serves (bits, M) with these group size
+// and scale type: out = {shared bytes per block, registers per thread,
+// resident blocks per SM, local (spill) bytes per thread}, as the runtime
+// reports them on the current card.
+int mst_quant_gemv_info(int bits, int M, int group_size, int param_code, long long* out) {
+  const auto by_width = bits == 2 ? mst_quant_gemv_info_b2 : bits == 4 ? mst_quant_gemv_info_b4
+                                                                       : mst_quant_gemv_info_b8;
+  return by_width(M, group_size, param_code, out);
 }
 
 // The same contract for any M >= 1. bf16 x runs the wgmma kernel with a
@@ -1531,31 +1629,6 @@ int mst_quant_matmul_info(int bits, int tile, long long* out) {
     });
   });
 }
-
-// The bf16 GEMV instantiation that serves (bits, M) with these group size
-// and scale type: out = {shared bytes per block, registers per thread,
-// resident blocks per SM, local (spill) bytes per thread}, as the runtime
-// reports them on the current card.
-int mst_quant_gemv_info(int bits, int M, int group_size, int param_code, long long* out) {
-  return (int)for_bits_m(bits, M, [&](auto b, auto m) {
-    return for_group(group_size, [&](auto g) {
-    constexpr int B = decltype(b)::value, MT = decltype(m)::value, GS = decltype(g)::value;
-    const size_t smem = tc_shared_bytes<B, MT>(GS, param_code == 0 ? 4 : 2);
-    cudaError_t err = allow_shared_once(quant_gemv_tc_kernel<B, MT, GS>, tc_shared_bytes<B, MT>(GS, 4));
-    if (err != cudaSuccess) return err;
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, quant_gemv_tc_kernel<B, MT, GS>);
-    if (err != cudaSuccess) return err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, quant_gemv_tc_kernel<B, MT, GS>,
-                                                        TC_THREADS, smem);
-    out[0] = (long long)smem;
-    out[1] = attr.numRegs;
-    out[2] = blocks;
-    out[3] = (long long)attr.localSizeBytes;
-    return err;
-    });
-  });
-}
+#endif  // MST_PART_MATMUL
 
 }  // extern "C"

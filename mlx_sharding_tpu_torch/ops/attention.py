@@ -32,6 +32,7 @@ from mlx_sharding_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
     flash_decode,
+    select_kv_rows,
 )
 
 #: ``MST_FLASH_DECODE`` when it is unset
@@ -84,6 +85,7 @@ def causal_attention(
     lengths: Optional[torch.Tensor] = None,
     logit_softcap: Optional[float] = None,
     sliding_window: Optional[int] = None,
+    kv_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns (B, T, Hq, Dv). Keys past a query's position (or outside the
     sliding window) contribute nothing. Scores and softmax in fp32, probs
@@ -92,11 +94,18 @@ def causal_attention(
     ``position``, the same position as a (1,) device tensor, sends a T=1
     call to the T=1 route with ``lengths`` (:func:`decode_lengths` of it,
     shared by a forward's layers), and every call the kernels do not take
-    to :func:`masked_attention`."""
+    to :func:`masked_attention`. ``kv_index`` ((B,) int64 on the device):
+    query row b attends row ``kv_index[b]`` of k and v (the dense batcher's
+    slot caches), read in place by the flash kernel and copied out for the
+    other paths."""
     # the options the call has (none for standard causal attention)
     options = {name: value for name, value in (("logit_softcap", logit_softcap),
                                                ("sliding_window", sliding_window))
                if value is not None}
+    if kv_index is not None:
+        if q.shape[1] > 1 and flash_eligible(q, k, v, logit_softcap, sliding_window):
+            return flash_attention(q, k, v, offset, scale, kv_index=kv_index, **options)
+        k, v = select_kv_rows(k, v, kv_index)
     if flash_eligible(q, k, v, logit_softcap, sliding_window):
         if q.shape[1] > 1:
             return flash_attention(q, k, v, offset, scale, **options)

@@ -6,11 +6,15 @@ compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` (keyed by a hash of
 the source, every ``csrc/`` header it includes and the flags, renamed into
 place atomically so that concurrent processes never load a half-written
 file) and loaded with ``ctypes``. No PyTorch headers are included, so a
-build takes seconds.
+build takes seconds. A library whose one source would take long may name
+``parts``: macros that each select a share of its entry points; each part
+is compiled on its own, all at once, and the objects linked into the one
+library.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -18,6 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable
 
@@ -55,8 +60,9 @@ class CudaLibrary:
     ``bind(lib)`` sets the ``argtypes``/``restype`` of the library's C
     functions: every pointer and the stream as ``c_void_p``."""
 
-    def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None], parts: tuple = ()):
         self.source = CSRC_DIR / source
+        self.parts = tuple(parts)
         self._bind = bind
         self._lock = threading.Lock()
         self._lib = None
@@ -91,7 +97,7 @@ class CudaLibrary:
         digest = hashlib.sha256(self.source.read_bytes())
         for header in local_headers(self.source):
             digest.update(header.name.encode() + b"\0" + header.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join((*NVCC_FLAGS, *self.parts)).encode())
         return digest.hexdigest()[:16]
 
     def _build(self) -> Path:
@@ -107,12 +113,33 @@ class CudaLibrary:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(self.source)],
-            capture_output=True, text=True, check=False,
-        )
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {self.source.name}:\n{self.build_log}")
+        include = ("-I", str(CSRC_DIR))
+        if not self.parts:
+            self.build_log = self._run([nvcc, *NVCC_FLAGS, *include, "-o", str(tmp),
+                                        str(self.source)])
+        else:
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            objects = [tmp.with_suffix(f".{part}.o") for part in self.parts]
+
+            def compile_part(part, obj):
+                t0 = time.perf_counter()
+                log = self._run([nvcc, *compile_flags, *include, f"-D{part}", "-c", "-o",
+                                 str(obj), str(self.source)])
+                return f"part {part} compiled in {time.perf_counter() - t0:.1f}s\n{log}"
+
+            with concurrent.futures.ThreadPoolExecutor(len(self.parts)) as pool:
+                self.build_log = "".join(pool.map(compile_part, self.parts, objects))
+            self.build_log += self._run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                         *map(str, objects)])
+            for obj in objects:
+                obj.unlink()
         os.replace(tmp, out)
         return out
+
+    def _run(self, cmd: list) -> str:
+        """Run one nvcc command; its log, or raise with it."""
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {self.source.name}:\n{log}")
+        return log

@@ -26,6 +26,12 @@ columns (``k[..., :rank]``): the kernel's MLA build (Dk 576, Dv 512, any
 GQA group) reads the values from the K rows it has already copied, and the
 T=1 route sends such a call to the paged kernel's ``values_from_k``.
 
+``kv_index`` (a (B,) int64 device tensor) makes query batch row b read the
+batch row ``kv_index[b]`` of k and v, which may hold any number of rows: the
+dense continuous-batching engine prefills one slot of its (M+1, S, Hkv, D)
+slot caches, and the slot is a device value, so one captured chunk serves
+every slot. Without it the kernel reads row b, as before.
+
 On a CUDA tensor :func:`flash_attention` launches the kernel or raises; on a
 CPU tensor it computes :func:`flash_attention_reference`, the plain version
 of the same function. There is no other route and no fallback.
@@ -95,6 +101,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.c_int,  # logit softcap (0: none), sliding window (0: none)
         ctypes.c_int,  # split
         ctypes.c_int,  # values_from_k: v is k's first Dv columns
+        ctypes.c_void_p,  # kv_batch: the K/V batch row of each query row (null: the same)
         ctypes.c_void_p,  # stream
     ]
     lib.mst_flash_attention_kernel_info.restype = ctypes.c_int
@@ -282,10 +289,23 @@ def values_from_k(k, v) -> bool:
             and v.shape[:-1] == k.shape[:-1] and v.shape[-1] < k.shape[-1])
 
 
-def _check(q, k, v, offset: int) -> None:
+def select_kv_rows(k, v, kv_index: torch.Tensor) -> tuple:
+    """The rows ``kv_index`` of k and v, copied (the plain version's
+    operands); v stays a view of the selected k's first columns when it was
+    one of k's (MLA)."""
+    ks = k.index_select(0, kv_index)
+    return ks, (ks[..., : v.shape[-1]] if values_from_k(k, v) else v.index_select(0, kv_index))
+
+
+def _check(q, k, v, offset: int, kv_index=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, T, Hq, Dk), (B, S, Hkv, Dk), (B, S, Hkv, Dv)")
     b, t, hq, dk = q.shape
+    if kv_index is not None:
+        if (kv_index.shape != (b,) or kv_index.dtype != torch.int64
+                or kv_index.device != q.device):
+            raise ValueError(f"kv_index must be a ({b},) int64 tensor on {q.device}")
+        b = k.shape[0]  # any number of K/V rows
     if k.shape[0] != b or v.shape[0] != b or k.shape[1] != v.shape[1] or k.shape[2] != v.shape[2]:
         raise ValueError(f"mismatched shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if k.shape[-1] != dk:
@@ -307,20 +327,25 @@ def _check(q, k, v, offset: int) -> None:
 
 def flash_attention(q, k, v, offset: int, scale: float, *,
                     logit_softcap: Optional[float] = None,
-                    sliding_window: Optional[int] = None) -> torch.Tensor:
+                    sliding_window: Optional[int] = None,
+                    kv_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal GQA attention of a prefill chunk over the full-capacity cache.
 
     q (B, T, Hq, Dk), k (B, S, Hkv, Dk), v (B, S, Hkv, Dv); query row i sits
     at absolute position ``offset + i`` (a host int) and sees keys at or
     before it (and, with ``sliding_window``, after ``offset + i -
     sliding_window``); ``logit_softcap`` caps the scaled scores. Returns
-    (B, T, Hq, Dv) in q's dtype. CUDA tensors launch the kernel, with its
-    merge pass when the bf16 walk is split (counted once in
+    (B, T, Hq, Dv) in q's dtype. ``kv_index`` (B,) int64 on q's device:
+    query row b reads row ``kv_index[b]`` of k and v, which then hold any
+    number of rows. CUDA tensors launch the kernel, with its merge pass
+    when the bf16 walk is split (counted once in
     ``flash_attention.launches``); CPU tensors take
-    :func:`flash_attention_reference`."""
-    _check(q, k, v, offset)
+    :func:`flash_attention_reference` (over the selected rows)."""
+    _check(q, k, v, offset, kv_index)
     cap, window = paged.kernel_options(logit_softcap, sliding_window)
     if q.device.type == "cpu":
+        if kv_index is not None:
+            k, v = select_kv_rows(k, v, kv_index)
         return flash_attention_reference(q, k, v, offset, scale, logit_softcap=logit_softcap,
                                          sliding_window=sliding_window)
     if q.device.type != "cuda":
@@ -341,6 +366,8 @@ def flash_attention(q, k, v, offset: int, scale: float, *,
                 f"{name} must have a dense last dim, 16-byte aligned rows and "
                 f"strides that are multiples of {vec} elements; got {x.stride()}"
             )
+    if kv_index is not None and not kv_index.is_contiguous():
+        raise ValueError("kv_index must be contiguous")
     b, t, hq, _ = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     offset = int(offset)
@@ -369,6 +396,7 @@ def flash_attention(q, k, v, offset: int, scale: float, *,
             None if part_ml is None else part_ml.data_ptr(),
             _DTYPE_CODES[q.dtype], b, t, s, hq, hkv, q.shape[-1], dv,
             strides, offset, float(scale), cap, window, split, int(vk),
+            None if kv_index is None else kv_index.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _LIBRARY.check(err, "flash_attention")
@@ -400,6 +428,14 @@ def decode_lengths(position: torch.Tensor, b: int, s: int) -> torch.Tensor:
     """(B,) int32 valid positions of the T=1 route, ``position + 1`` capped
     at the capacity, from the (1,) device position: device work only."""
     return (position.reshape(1) + 1).clamp(max=s).to(torch.int32).expand(b).contiguous()
+
+
+def slot_lengths(positions: torch.Tensor, active: torch.Tensor, s: int) -> torch.Tensor:
+    """(M,) int32 valid positions of the T=1 route for M rows each at its
+    own device position (the continuous batcher's slots): ``positions +
+    1`` capped at the capacity, and 0 for a row that is not ``active`` (the
+    kernel then returns zeros for it). Device work only."""
+    return torch.where(active, (positions + 1).clamp(max=s), 0).to(torch.int32)
 
 
 def _decode_operands(q, k, v):

@@ -107,7 +107,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mst_quant_gemv_info.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
 
 
-_LIBRARY = CudaLibrary("quant_matmul.cu", _bind)
+# the GEMVs of each bit width and the matmul are compiled as four parts at
+# once: one nvcc of the whole file was the longest build
+_LIBRARY = CudaLibrary("quant_matmul.cu", _bind, parts=(
+    "MST_PART_GEMV2", "MST_PART_GEMV4", "MST_PART_GEMV8", "MST_PART_MATMUL"))
 SOURCE = _LIBRARY.source
 
 

@@ -1,53 +1,71 @@
-"""The continuous-batching engine over the paged KV pool (port of the pp=1
-paged subset of ``mlx_sharding_tpu/parallel/pipeline.py::PipelineEngine``).
-
-One model on one device drives M slots that share a pool of KV pages:
+"""The continuous-batching engine (port of the pp=1 subset of
+``mlx_sharding_tpu/parallel/pipeline.py::PipelineEngine``): M slots of one
+model on one device, each with its own KV offset, over a shared pool of KV
+pages (``pool_pages``) or over M+1 dense slot caches (no pool, JAX
+``init_cache``; slot M is the scratch every inactive slot writes into).
+The dense caches are laid out as a pool whose pages are whole slots
+(``cache.init_cache_slots``, table ``cache.slot_table``), so both engines
+plan their steps alike.
 
 - :meth:`PipelineEngine.prefill_slot` runs one prefill chunk of one slot
-  (JAX ``_build_prefill_slot``). It gathers the slot's pages below
+  (JAX ``_build_prefill_slot``). Paged: it gathers the slot's pages below
   ``offset + chunk`` into a contiguous view (dequantized for an int8 pool),
   writes the chunk's K/V rows into the view unquantized, attends over it
   through ``causal_attention`` (the flash kernel on the card), and writes
   the chunk's rows into their page, quantized for an int8 pool. A chunk
-  never straddles a page (``page_size % prefill_chunk == 0``). The host
-  fills the engine's persistent prefill inputs (the slot's page row, the
-  tokens, the last valid row) in one upload, and :meth:`prefill_step` reads
-  them on the device: at a fixed offset the step is one program whatever
-  the slot, its pages and ``n_valid``, so the batcher captures one CUDA
-  graph per chunk offset (the flash kernel bakes the offset and its split
-  plan into its launch).
-- :meth:`PipelineEngine.decode_cb` is one ragged T=1 step of all M slots
-  (JAX ``_build_decode_cb`` over ``_build_smapped_ragged``): the M new K/V
-  rows are written into their pool pages (quantized first for an int8
-  pool) and ``paged_attention`` reads the pool in place; an inactive slot
-  writes to the scratch page and attends at length 0. Per-slot sampling
-  follows. It touches no host state, so the batcher can capture a block of
-  them as one CUDA graph; :meth:`PipelineEngine.advance_offsets` moves the
-  host offsets after it.
-- :meth:`PipelineEngine.spec_verify` (``spec_verify_ngram_cb(K)``) is one
-  T=K forward of all M slots over ``[t0, d1..d_{K-1}]`` with per-slot
-  acceptance (JAX ``_spec_verify_fn``). Its attention takes the gather
-  path, as JAX's verify always does: each slot's pages are gathered into a
-  contiguous view over its whole table row (dequantized for an int8 pool),
-  the K new rows are written into the view and, through
+  never straddles a page (``page_size % prefill_chunk == 0``). Dense: the
+  rows go into the slot's cache and the flash kernel attends it in place,
+  the slot a device index into the (M+1, S, Hkv, D) caches
+  (``kv_index``). The host fills the engine's persistent prefill inputs
+  (the slot's page row, the tokens, the last valid row) in one upload, and
+  :meth:`prefill_step` reads them on the device: at a fixed offset the step
+  is one program whatever the slot, its pages and ``n_valid``, so the
+  batcher captures one CUDA graph per chunk offset (the flash kernel bakes
+  the offset and its split plan into its launch).
+- :meth:`PipelineEngine.decode_cb` is one T=1 step of all M slots (JAX
+  ``_build_decode_cb``), then per-slot sampling. Its attention takes one
+  of three paths (:attr:`decode_path`): ``ragged`` (a paged engine's
+  default) writes the M new K/V rows into their pool pages (quantized
+  first for an int8 pool) and ``paged_attention`` reads the pool in place;
+  ``gather`` (JAX ``_paged_read`` / ``_paged_writeback``) gathers each
+  slot's pages into a contiguous view (dequantized after the gather for an
+  int8 pool), writes the new row into it, attends the view through the
+  T=1 route and writes the touched page back (quantized for an int8 pool);
+  ``dense`` writes the rows into the slot caches and attends them through
+  the T=1 route in place. The T=1 route is ``flash_decode``: kernel 2's
+  CUDA kernel over the contiguous caches seen as 128-position pages, with
+  per-slot lengths made on the device (``slot_lengths``). An inactive slot
+  writes to the scratch and attends at length 0. A step touches no host
+  state, so the batcher captures a block of them as one CUDA graph;
+  :meth:`PipelineEngine.advance_offsets` moves the host offsets after it.
+- :meth:`PipelineEngine.spec_verify` (``spec_verify_cb`` /
+  ``spec_verify_ngram_cb``) is one T=K forward of all M slots over ``[t0,
+  d1..d_{K-1}]`` with per-slot acceptance (JAX ``_spec_verify_fn``, every
+  position's logits kept). Its attention is ``masked_attention``, as JAX's
+  verify is always its plain path. Paged: each slot's pages are gathered
+  into a contiguous view over its whole table row (dequantized for an int8
+  pool), the K new rows are written into the view and, through
   ``write_pool_rows``, into the pool (they may straddle a page; quantized
-  for an int8 pool), and ``masked_attention`` attends at each slot's
-  position. The view spans the capacity, so one step serves every
+  for an int8 pool). Dense: the rows go into the slot caches, which are
+  attended in place. The view spans the capacity, so one step serves every
   position.
-- Every decode block and verify is planned on the device:
-  :meth:`PipelineEngine.device_inputs` uploads, in one copy into a
-  persistent buffer that a captured step reads, each slot's table row, the
-  active mask, the host's offsets and whether to take them, and a verify's
-  drafts and window caps (:class:`DeviceInputs`); :meth:`device_plan`
-  builds the step's page ids, rows and lengths (:class:`DecodePlan`) from
-  the slot offsets on the device. The host's offsets are taken whenever
-  they are exact; a speculative round in flight moves the device's by
-  counts the host has not read yet, so nothing is read back from the card
-  inside a step.
+- A dense engine is also the draft engine of speculation in the batcher
+  (JAX ``spec_propose_cb`` / ``spec_replay_cb``): :meth:`spec_propose` runs
+  K T=1 steps of every slot and returns the proposals (argmax for a greedy
+  slot; for a sampled one a draw from its transformed distribution, with
+  that distribution's log-probs), and :meth:`spec_replay` feeds the tokens
+  of a plain decode block through the draft's caches.
+- Every step is planned on the device: :meth:`PipelineEngine.
+  device_inputs` uploads, in one copy into a persistent buffer that a
+  captured step reads, each slot's table row, the active mask, the host's
+  offsets and whether to take them, and a verify's drafts and window caps
+  (:class:`DeviceInputs`); :meth:`device_plan` builds the step's pages,
+  rows and lengths (:class:`DecodePlan`) from the slot offsets on the
+  device. The host's offsets are taken whenever they are exact; a
+  speculative round in flight moves the device's by counts the host has
+  not read yet, so nothing is read back from the card inside a step.
 
-Pipeline, tensor and expert parallelism, the dense (unpaged) engine, the
-``gather`` decode path and the draft engine's proposals are not yet
-ported: they raise.
+Pipeline, tensor and expert parallelism are not yet ported: they raise.
 """
 
 from __future__ import annotations
@@ -63,7 +81,9 @@ from mlx_sharding_tpu_torch.cache import (
     PagedKV,
     dequantize_kv,
     init_cache_paged,
+    init_cache_slots,
     init_page_table,
+    quantize_kv_rows,
     is_quantized_kv,
     kv_data,
     layer_pool,
@@ -74,9 +94,10 @@ from mlx_sharding_tpu_torch.device import resolve_device, upload_into
 from mlx_sharding_tpu_torch.graphs import note_eager_forward
 from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
 from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
+from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
-from mlx_sharding_tpu_torch.sample import sample_token_batched, update_recent_tokens
-from mlx_sharding_tpu_torch.speculative import verify_round
+from mlx_sharding_tpu_torch.sample import draw, sample_token_batched, update_recent_tokens
+from mlx_sharding_tpu_torch.speculative import dist_logits, verify_round
 
 
 @dataclasses.dataclass
@@ -85,7 +106,9 @@ class DecodePlan:
     into one persistent buffer per K: row j of each (K, M) tensor is step
     j."""
 
-    page_ids: torch.Tensor  # (K, M) int32: pool page of each slot's write position
+    # (K, M) int32: pool page of each slot's write position (a dense
+    # engine's: the slot, or the scratch slot M)
+    page_ids: torch.Tensor
     row_pos: torch.Tensor  # (K, M) int32: row of that position in its page
     lengths: torch.Tensor  # (K, M) int32: valid positions with the new one; 0 if inactive
     positions: torch.Tensor  # (K, M) int32: RoPE position of the new token
@@ -106,9 +129,10 @@ class DeviceInputs:
 
 
 class PipelineEngine:
-    """M continuous-batching slots of one model over one shared KV page
-    pool, on one device (the JAX engine at pp = tp = ep = 1, batch 1 per
-    slot, ``pool_pages`` set).
+    """M continuous-batching slots of one model on one device (the JAX
+    engine at pp = tp = ep = 1, batch 1 per slot), over a shared KV page
+    pool (``pool_pages`` set) or M+1 dense slot caches (``pool_pages``
+    None).
 
     At construction the model's packed projection groups are fused in
     place, as ``Generator`` does (``models.base.apply_projection_fusion``);
@@ -139,11 +163,6 @@ class PipelineEngine:
         cfg = model.config
         if not (cfg.is_first_stage and cfg.is_last_stage):
             raise ValueError("PipelineEngine wants the full model config")
-        if pool_pages is None:
-            raise NotImplementedError(
-                "the dense continuous-batching engine (no pool_pages) is not yet ported: "
-                "pass --paged-pool"
-            )
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
@@ -157,46 +176,75 @@ class PipelineEngine:
 
         # Paged KV: slots address up to max_seq/page_size pages out of a
         # shared pool of ``pool_pages`` physical pages; the batcher reserves
-        # pages at admission
+        # pages at admission. Dense: each slot owns a max_seq cache
+        self.paged = pool_pages is not None
         self.page_size = page_size or prefill_chunk
         self.pool_pages = pool_pages
-        if self.page_size % prefill_chunk:
-            raise ValueError(
-                f"page_size {self.page_size} must be a multiple of the prefill chunk "
-                f"{prefill_chunk} (chunk writes must stay inside one page)"
-            )
-        if self.max_seq % self.page_size:
-            raise ValueError(f"page_size {self.page_size} must divide max_seq {self.max_seq}")
+        if self.paged:
+            if self.page_size % prefill_chunk:
+                raise ValueError(
+                    f"page_size {self.page_size} must be a multiple of the prefill chunk "
+                    f"{prefill_chunk} (chunk writes must stay inside one page)"
+                )
+            if self.max_seq % self.page_size:
+                raise ValueError(f"page_size {self.page_size} must divide max_seq "
+                                 f"{self.max_seq}")
         self.slot_pages = self.max_seq // self.page_size  # table width
+        # the geometry the device plans a step in: pool pages, or for the
+        # dense caches one page of max_seq rows per slot, slot M the scratch
+        self._plan_page = self.page_size if self.paged else self.max_seq
+        self._plan_pages = self.slot_pages if self.paged else 1
+        self._scratch = pool_pages if self.paged else microbatches
 
-        if kv_dtype is None:
-            # a checkpoint may pin it (config.kv_cache_dtype)
+        if kv_dtype is None and self.paged:
+            # a checkpoint may pin it (config.kv_cache_dtype); a dense engine
+            # ignores the pin, as JAX's does
             kv_dtype = getattr(cfg, "kv_cache_dtype", None)
         if kv_dtype not in (None, "bf16", "bfloat16", "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r}: want int8 or bf16")
         self.kv_quant = kv_dtype == "int8"
+        if self.kv_quant and not self.paged:
+            raise ValueError("kv_dtype='int8' requires a paged engine (pool_pages)")
 
         if paged_attention not in ("auto", "ragged", "gather"):
             raise ValueError(f"paged_attention={paged_attention!r}: want auto|ragged|gather")
-        if paged_attention == "gather":
-            raise NotImplementedError(
-                "paged_attention='gather' (the contiguous per-slot view) is not yet ported: "
-                "use 'ragged' or 'auto'"
+        if paged_attention == "ragged" and not self.paged:
+            raise ValueError(
+                "paged_attention='ragged' needs a paged (pool_pages) pp=1 engine with tp=ep=1, "
+                "batch=1, and a model with supports_sp"
             )
-        self.paged_attention = "ragged"
+        # JAX's attribute: "ragged" or "gather" (a dense engine's is "gather")
+        self.paged_attention = ("ragged" if paged_attention in ("auto", "ragged") and self.paged
+                                else "gather")
+        #: the T=1 step's attention: "ragged", "gather" or "dense"
+        self.decode_path = self.paged_attention if self.paged else "dense"
         model.place_constants(self.device)
         # persistent step inputs: a step's key -> (buffer, DeviceInputs over it)
         self._plans: dict = {}
         # (buffer, tokens (1, chunk), page row (SPG,), last valid row (1,))
         self._prefill_buf: Optional[tuple] = None
-        # forwards (prefill chunks, ragged decode steps) run eagerly on the
-        # card: warm-ups of captured steps, or ``cuda_graphs=False``
+        # forwards (prefill chunks, decode steps) run eagerly on the card:
+        # warm-ups of captured steps, or ``cuda_graphs=False``
         self.eager_forwards = 0
 
     # ------------------------------------------------------------------
+    def init_cache(self) -> PagedKV:
+        """The dense slot caches (JAX ``init_cache``): M+1 of ``max_seq``
+        positions, slot M the scratch, K and V as wide as the model's cache
+        heads (``cache_head_dim``: DeepSeek-V2's compressed MLA cache
+        included), offsets 0. Their page table is ``cache.slot_table``."""
+        if self.paged:
+            raise ValueError("a paged engine's cache is its pool: init_cache_paged")
+        model = self.model
+        return init_cache_slots(model.config.num_local_layers, self.microbatches, self.max_seq,
+                                model.cache_num_heads(), model.cache_head_dim(), self.cache_dtype,
+                                self.device)
+
     def init_cache_paged(self) -> tuple[PagedKV, np.ndarray]:
         """The shared page pool (last page scratch) and the host page table
         (M+1, slot_pages), row M all scratch."""
+        if not self.paged:
+            raise ValueError("engine built without pool_pages")
         model = self.model
         cache = init_cache_paged(
             model.config.num_local_layers, self.pool_pages, self.page_size,
@@ -218,6 +266,22 @@ class PipelineEngine:
         lead = page_ids.shape[:-1] if page_ids.dim() > 1 else (1,)
         return x.reshape(*lead, -1, *x.shape[-2:])
 
+    def _write_back(self, pool, view: torch.Tensor, page_ids: torch.Tensor,
+                    rows: torch.Tensor) -> None:
+        """JAX ``_paged_writeback`` of one T=1 step: the page of each slot's
+        (M,) view that holds row ``rows[m]`` goes back to pool page
+        ``page_ids[m]``, whole (quantized row by row for an int8 pool: a
+        row read back from the pool requantizes to its own codes)."""
+        m = view.shape[0]
+        pages = view.view(m, self.slot_pages, self.page_size, *view.shape[2:])
+        dirty = pages[torch.arange(m, device=view.device), rows // self.page_size]
+        if is_quantized_kv(pool):
+            q = quantize_kv_rows(dirty)
+            pool["d"][page_ids] = q["d"]
+            pool["s"][page_ids] = q["s"]
+        else:
+            pool[page_ids] = dirty.to(pool.dtype)
+
     def prefill_inputs(self, tokens, slot: int, n_valid: int, table: np.ndarray) -> None:
         """Copy one chunk's inputs into the engine's persistent prefill
         buffer, in one upload: the chunk ``tokens`` (chunk,), the slot's
@@ -238,12 +302,12 @@ class PipelineEngine:
     def prefill_step(self, cache: PagedKV, off: int) -> torch.Tensor:
         """One prefill chunk at offset ``off`` from the persistent inputs
         (:meth:`prefill_inputs`): the page view, the write page (indexed on
-        the device from the slot's row) and the last valid row are read on
-        the device, so the step has one program at each offset. Writes the
-        chunk's K/V rows into the pool and returns the logits (1, V) at the
-        last valid row. Device work only: the slot's offset is the
-        caller's."""
-        model, c, page = self.model, self.prefill_chunk, self.page_size
+        the device from the slot's row; a dense engine's is the slot) and
+        the last valid row are read on the device, so the step has one
+        program at each offset. Writes the chunk's K/V rows into the pool
+        and returns the logits (1, V) at the last valid row. Device work
+        only: the slot's offset is the caller's."""
+        model, c, page = self.model, self.prefill_chunk, self._plan_page
         _, tokens, row, last = self._prefill_buf
         page_ids = row[: -(-(off + c) // page)]
         write_page, start = row[off // page : off // page + 1], off % page
@@ -258,6 +322,17 @@ class PipelineEngine:
                 # the layer's softcap and window (the model's attn_options);
                 # ``values_from_k`` (MLA): the values are the keys' first
                 # columns, so only K rows are written
+                if not self.paged:
+                    # the slot's cache is one page: written, then attended in
+                    # place by the flash kernel, the slot a device index
+                    write_pool_span(kp, write_page, start, k_new[0])
+                    if values_from_k is not None:
+                        v_all = kp[..., :values_from_k]
+                    else:
+                        write_pool_span(vp, write_page, start, v_new[0])
+                        v_all = vp
+                    return causal_attention(q, kp, v_all, off, model.scale, kv_index=write_page,
+                                            **opts)
                 k_view = self._slot_view(kp, page_ids)
                 k_view[:, off : off + c] = k_new
                 write_pool_span(kp, write_page, start, k_new[0])
@@ -299,9 +374,9 @@ class PipelineEngine:
         persistent buffer of ``key`` (the same tensors at every call, so a
         captured step reads each upload): each slot's table row (row M, all
         scratch, for an inactive slot), the active mask, ``reset`` and the
-        host's ``offsets``, and a verify's (K, M) ``drafts`` and (M,)
-        ``wcaps``."""
-        m, spg = self.microbatches, self.slot_pages
+        host's ``offsets``, and a verify's (K, M) ``drafts`` (a draft
+        replay's tokens) and (M,) ``wcaps``."""
+        m, spg = self.microbatches, self._plan_pages
         act = np.asarray(active, bool)
         parts = [np.where(act[:, None], table[:m], table[m][None, :]).ravel(), act,
                  [int(reset)], offsets]
@@ -329,78 +404,131 @@ class PipelineEngine:
         An inactive slot routes to the table's scratch row M at length 0. A
         position past the slot's mapped pages (a finished slot decoding to
         the end of its block) writes to the scratch page."""
-        page, spg = self.page_size, self.slot_pages
+        page, spg = self._plan_page, self._plan_pages
         active = inputs.active.bool()
         j = torch.arange(steps, device=offsets.device)[:, None]
         pos = torch.where(active[None, :], offsets[None, :] + j, 0)  # (K, M)
         pidx = pos // page
         page_ids = inputs.rows.t().gather(0, pidx.clamp(max=spg - 1))
-        page_ids = torch.where(pidx < spg, page_ids, self.pool_pages)
+        page_ids = torch.where(pidx < spg, page_ids, self._scratch)
         lengths = torch.where(active[None, :], pos + 1, 0)
         return DecodePlan(page_ids.to(torch.int32), (pos % page).to(torch.int32),
                           lengths.to(torch.int32), pos.to(torch.int32), inputs.rows)
 
-    def ragged_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
+    # ------------------------------------------------------------ T=1 steps
+    def _attend_ragged(self, kp, vp, plan, j, lengths, q, k_new, v_new, values_from_k=None,
+                       **opts):
+        """The ragged path: the new rows into their pool pages, then the
+        paged kernel over the pool in place."""
+        write_pool_rows(kp, plan.page_ids[j], plan.row_pos[j], k_new[:, 0])
+        if values_from_k is None:  # MLA reads its values from the K rows
+            write_pool_rows(vp, plan.page_ids[j], plan.row_pos[j], v_new[:, 0])
+        quant = is_quantized_kv(kp)
+        out = paged_attention(
+            q[:, 0], kv_data(kp), kv_data(vp), plan.tables, lengths, self.model.scale,
+            k_scale=kp["s"] if quant else None, v_scale=vp["s"] if quant else None,
+            values_from_k=values_from_k, **opts,
+        )
+        return out[:, None]  # (M, T=1, Hq, Dv)
+
+    def _attend_gather(self, kp, vp, plan, j, lengths, q, k_new, v_new, values_from_k=None,
+                       **opts):
+        """The gather path (JAX ``_paged_read`` / ``_paged_writeback``):
+        each slot's pages gathered into a contiguous view (dequantized after
+        the gather for an int8 pool), the new row written into it, the T=1
+        route over the view, and the touched page written back (a position
+        past the mapped pages goes to the scratch page)."""
+        m, cap = q.shape[0], self.max_seq
+        slots = torch.arange(m, device=q.device)
+        positions = plan.positions[j]
+        rows = positions.long().clamp(max=cap - 1)
+        k_view = self._slot_view(kp, plan.tables)  # (M, cap, H_kv, Dk)
+        k_view[slots, rows] = k_new[:, 0].to(k_view.dtype)
+        self._write_back(kp, k_view, plan.page_ids[j], rows)
+        if values_from_k is not None:
+            v_view = k_view[..., :values_from_k]
+        else:
+            v_view = self._slot_view(vp, plan.tables)
+            v_view[slots, rows] = v_new[:, 0].to(v_view.dtype)
+            self._write_back(vp, v_view, plan.page_ids[j], rows)
+        return causal_attention(q, k_view, v_view, 0, self.model.scale, position=positions,
+                                lengths=lengths, **opts)
+
+    def _attend_dense(self, kp, vp, plan, j, lengths, q, k_new, v_new, values_from_k=None,
+                      **opts):
+        """The dense path: the new rows into the slot caches (an inactive
+        slot's into the scratch slot), then the T=1 route over the first M
+        caches in place."""
+        m = q.shape[0]
+        write_pool_rows(kp, plan.page_ids[j], plan.row_pos[j], k_new[:, 0])
+        k = kp[:m]
+        if values_from_k is not None:
+            v = k[..., :values_from_k]
+        else:
+            write_pool_rows(vp, plan.page_ids[j], plan.row_pos[j], v_new[:, 0])
+            v = vp[:m]
+        return causal_attention(q, k, v, 0, self.model.scale, position=plan.positions[j],
+                                lengths=lengths, **opts)
+
+    def decode_hidden(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
                       j: int) -> torch.Tensor:
-        """The ragged forward of step j of the plan for all M slots: the new
-        K/V rows land in the pool, ``tokens`` (M, 1) give logits (M, V).
-        Offsets are not advanced (:meth:`advance_offsets` does that)."""
+        """The T=1 forward of step j of the plan for all M slots through the
+        last layer, on :attr:`decode_path`: the new K/V rows land in the
+        cache, ``tokens`` (M, 1) give hidden states (M, 1, hidden), an
+        inactive slot's zeros. Offsets are not advanced."""
         model = self.model
         note_eager_forward(self, tokens)
-        page_ids, row_pos = plan.page_ids[j], plan.row_pos[j]
         lengths, positions = plan.lengths[j], plan.positions[j]
+        if self.decode_path != "ragged":
+            # the T=1 route's per-slot lengths, capped at the capacity
+            lengths = slot_lengths(positions, lengths > 0, self.max_seq)
+        attend = {"ragged": self._attend_ragged, "gather": self._attend_gather,
+                  "dense": self._attend_dense}[self.decode_path]
         h = model.embed(tokens)  # (M, 1, hidden): the slot axis is the batch axis
         for i, layer in enumerate(model.layers):
-            kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
-
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
-                write_pool_rows(kp, page_ids, row_pos, k_new[:, 0])
-                if values_from_k is None:  # MLA reads its values from the K rows
-                    write_pool_rows(vp, page_ids, row_pos, v_new[:, 0])
-                quant = is_quantized_kv(kp)
-                out = paged_attention(
-                    q[:, 0], kv_data(kp), kv_data(vp), plan.tables, lengths, model.scale,
-                    k_scale=kp["s"] if quant else None, v_scale=vp["s"] if quant else None,
-                    values_from_k=values_from_k, **opts,
-                )
-                return out[:, None]  # (M, T=1, Hq, Dv)
-
+            attn_fn = functools.partial(attend, layer_pool(cache.k, i), layer_pool(cache.v, i),
+                                        plan, j, lengths)
             h, _, _ = model.sp_layer(layer, h, positions, attn_fn)
-        h = torch.where((lengths > 0)[:, None, None], h, torch.zeros((), dtype=h.dtype,
-                                                                     device=h.device))
-        return model.apply_head(h)[:, 0]
+        return torch.where((lengths > 0)[:, None, None], h,
+                           torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def decode_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
+                      j: int) -> torch.Tensor:
+        """:meth:`decode_hidden` through the head: logits (M, V)."""
+        return self.model.apply_head(self.decode_hidden(tokens, cache, plan, j))[:, 0]
 
     def decode_cb(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan, step: int, *,
                   recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
                   sampled: bool):
         """One continuous-batching decode step (step ``step`` of ``plan``):
-        the ragged forward of all M slots, then per-slot sampling with each
+        the T=1 forward of all M slots, then per-slot sampling with each
         slot's settings, generator and repetition window (``rep_mask``
         keeps the last ``rep_context`` entries of slot m's window), and the
         window updated in place. ``sampled``: some slot may sample (every
         row then draws from its generator). Device work only: offsets are
         the caller's (:meth:`advance_offsets`). Returns ``(tokens (M, 1),
         logprobs (M, V))``."""
-        logits = self.ragged_logits(tokens, cache, plan, step)
+        logits = self.decode_logits(tokens, cache, plan, step)
         masked = torch.where(rep_mask, recent, torch.full_like(recent, -1))
         tok, logprobs = sample_token_batched(generators, logits, sp, masked, sampled=sampled)
         recent.copy_(update_recent_tokens(recent, tok))
         return tok[:, None], logprobs
 
+    # ----------------------------------------------------------- speculation
     def verify_logits(self, x: torch.Tensor, cache: PagedKV, plan: DecodePlan) -> torch.Tensor:
         """The T=K forward of all M slots: ``x`` (M, K) at the plan's K
-        positions. Per layer, each slot's pages are gathered into a view
-        over its whole table row, the K new K/V rows are written into the
-        view (unquantized) and into their pool pages (quantized for an int8
-        pool), and ``masked_attention`` attends at each slot's position.
-        Returns the logits (M, K, V); an inactive slot's are zeros' logits.
-        Offsets are not advanced."""
+        positions. Per layer the K new K/V rows go into their pages (pool
+        pages, quantized for an int8 pool, or slot caches) and
+        ``masked_attention`` attends at each slot's position: a paged
+        engine over each slot's pages gathered into a view over its whole
+        table row (the new rows written into it unquantized), a dense one
+        over the slot caches in place. Returns the logits (M, K, V); an
+        inactive slot's are zeros' logits. Offsets are not advanced."""
         model = self.model
         note_eager_forward(self, x)
         m, k = x.shape
         start = plan.positions[0]  # (M,)
-        cap = self.slot_pages * self.page_size
-        rows = plan.positions.t().long().clamp(max=cap - 1)  # (M, K) rows of the view
+        rows = plan.positions.t().long().clamp(max=self.max_seq - 1)  # (M, K) rows of the view
         slots = torch.arange(m, device=x.device)[:, None]
         page_ids, row_pos = plan.page_ids.t().reshape(-1), plan.row_pos.t().reshape(-1)
         h = model.embed(x)  # (M, K, hidden)
@@ -408,15 +536,21 @@ class PipelineEngine:
             kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
 
             def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
+                write_pool_rows(kp, page_ids, row_pos, k_new.reshape(m * k, *k_new.shape[2:]))
+                if values_from_k is None:
+                    write_pool_rows(vp, page_ids, row_pos,
+                                    v_new.reshape(m * k, *v_new.shape[2:]))
+                if not self.paged:
+                    k_view = kp[:m]
+                    v_view = k_view[..., :values_from_k] if values_from_k is not None else vp[:m]
+                    return masked_attention(q, k_view, v_view, start, model.scale, **opts)
                 k_view = self._slot_view(kp, plan.tables)
                 k_view[slots, rows] = k_new.to(k_view.dtype)
-                write_pool_rows(kp, page_ids, row_pos, k_new.reshape(m * k, *k_new.shape[2:]))
                 if values_from_k is not None:
                     v_view = k_view[..., :values_from_k]
                 else:
                     v_view = self._slot_view(vp, plan.tables)
                     v_view[slots, rows] = v_new.to(v_view.dtype)
-                    write_pool_rows(vp, page_ids, row_pos, v_new.reshape(m * k, *v_new.shape[2:]))
                 return masked_attention(q, k_view, v_view, start, model.scale, **opts)
 
             h, _, _ = model.sp_layer(layer, h, start, attn_fn)
@@ -450,20 +584,65 @@ class PipelineEngine:
         recent.copy_(rec)
         return gs, count, torch.where(active, nxt, tokens[:, 0])[:, None]
 
+    def spec_verify_cb(self, k: int):
+        """The verify of K positions for a draft engine's proposals, whose
+        distributions ``qlps`` (K, M, V) the caller passes."""
+        return functools.partial(self.spec_verify, k)
+
     def spec_verify_ngram_cb(self, k: int):
         """The verify of K positions for deterministic (n-gram) proposals:
         q is one-hot on the drafts, built on the device."""
         return functools.partial(self.spec_verify, k, qlps=None)
 
+    def _check_draft(self) -> None:
+        """JAX's check when a draft program is built."""
+        if self.paged:
+            raise ValueError("the draft engine must be dense (no pool_pages)")
+
+    def spec_propose(self, k: int, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan, *,
+                     recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
+                     sampled: bool):
+        """K draft proposals for every slot (JAX ``spec_propose_cb``), on
+        this dense draft engine: K T=1 steps from ``tokens`` (M, 1), the
+        target's next inputs, over the plan's K positions. A greedy slot
+        proposes the argmax of the raw logits; with ``sampled`` (some slot
+        samples) every slot also draws from its transformed distribution
+        (``dist_logits`` under the target's settings ``sp`` and a local copy
+        of the window ``recent``, evolved with its own proposals) with its
+        generator, a sampled slot takes the draw, and the distributions'
+        log-probs are kept. Device work only: offsets are the caller's.
+        Returns ``(drafts (K, M) int64, qlps (K, M, V) float32 or None)``."""
+        rec, tok, drafts, qlps = recent, tokens, [], []
+        for j in range(k):
+            logits = self.decode_logits(tok, cache, plan, j)
+            nxt = torch.argmax(logits, dim=-1)
+            if sampled:
+                f = dist_logits(logits, torch.where(rep_mask, rec, torch.full_like(rec, -1)), sp)
+                qlps.append(torch.log_softmax(f, dim=-1))
+                nxt = torch.where(sp.temperature > 0, draw(torch.softmax(f, dim=-1), generators),
+                                  nxt)
+            rec = update_recent_tokens(rec, nxt)
+            drafts.append(nxt)
+            tok = nxt[:, None]
+        return torch.stack(drafts), torch.stack(qlps) if sampled else None
+
     def spec_propose_cb(self, k: int):
-        raise NotImplementedError(
-            "the draft engine's proposals are not yet ported: they need the dense "
-            "continuous-batching engine (ROADMAP queue 1, slice 3 item 6, then slice 4)")
+        """:meth:`spec_propose` of K steps."""
+        self._check_draft()
+        return functools.partial(self.spec_propose, k)
+
+    def spec_replay(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan) -> None:
+        """Feed ``tokens`` (K, M), the chain a plain decode block of the
+        target consumed, through this dense draft engine's caches at the
+        plan's K positions without sampling (JAX ``spec_replay_cb``): the
+        draft's caches then hold what the target's do. Device work only."""
+        for j in range(tokens.shape[0]):
+            self.decode_hidden(tokens[j].long()[:, None], cache, plan, j)
 
     def spec_replay_cb(self, k: int):
-        raise NotImplementedError(
-            "the draft engine's replay is not yet ported: it needs the dense "
-            "continuous-batching engine (ROADMAP queue 1, slice 3 item 6, then slice 4)")
+        """:meth:`spec_replay` of K tokens a slot."""
+        self._check_draft()
+        return self.spec_replay
 
     @staticmethod
     def advance_offsets(cache: PagedKV, active: list, steps: int) -> None:

@@ -1,5 +1,7 @@
-"""Continuous batching over the paged KV pool (port of the single-host,
-non-speculative subset of ``mlx_sharding_tpu/scheduler.py::ContinuousBatcher``).
+"""Continuous batching (port of the single-host subset of
+``mlx_sharding_tpu/scheduler.py::ContinuousBatcher``), over a paged KV pool
+or over dense slot caches (an engine without ``pool_pages``: admission by a
+free slot alone, no page accounting, as JAX's dense batcher).
 
 - Every slot of a :class:`~mlx_sharding_tpu_torch.parallel.PipelineEngine`
   holds an independent request with its own KV offset, sampler settings,
@@ -82,8 +84,23 @@ with round t's drafts (a wrong guess costs acceptance, never exactness),
 and its positions come from the device, since the host's offsets lag a
 round in flight.
 
-Not yet ported, and refused at construction: KV spill and prefetch, the
-draft engine, the prefix store; tracing and metrics are not carried.
+Speculation with a draft engine (``draft_engine``, a dense
+``PipelineEngine`` of a small model with the target's slots, chunk and
+vocabulary): each slot's prompt is prefilled into the draft's cache too
+(``draft_pos``, chunk for chunk beside the target's), and a round is two
+captured graphs, the draft's K proposal steps (``spec_propose_cb``, one
+graph per (K, sampler branch)) and the target's T=K verify with the
+draft's distributions; the draft's device offsets move by K and rewind by
+``count - K`` on the device, and its host offsets follow the counts the
+harvest reads. Rounds are ``spec_k`` wide (or adapt per slot with
+``spec_window_max``). A tick that cannot speculate (a slot wants logprobs
+or is near the capacity) runs a plain block and then feeds the chain it
+consumed, ``[prev_tok, block[:-1]]``, through the draft's caches
+(``spec_replay_cb``, counted in ``fallback_ticks``). A draft engine forces
+sync ticks: each round's proposals depend on the last round's counts.
+
+Not yet ported, and refused at construction: KV spill and prefetch and the
+prefix store; tracing and metrics are not carried.
 """
 
 from __future__ import annotations
@@ -101,7 +118,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mlx_sharding_tpu_torch.cache import rewind_slot_offset
+from mlx_sharding_tpu_torch.cache import rewind_slot_offset, slot_table
 from mlx_sharding_tpu_torch.generate import (
     LOGPROB_TOPK,
     TokenLogprobs,
@@ -174,6 +191,9 @@ class _Request:
     resume_recent: Optional[torch.Tensor] = None
     preempted_at: list = field(default_factory=list)  # tokens produced at each preemption
     deadlines: Optional[Deadlines] = None
+    draft_pos: int = 0  # next prompt index the draft engine prefills
+    # the target's logits at its last prompt chunk, while the draft catches up
+    last_logits: Optional[torch.Tensor] = None
     # prefix sharing: the rolling keys of the prompt's full pages (memoized,
     # reset when the prompt folds) and the chain _fits found for admission
     pkeys: Optional[list] = None
@@ -190,6 +210,8 @@ class _InflightBlock:
     event: Optional[torch.cuda.Event]
     live: list  # [(slot, req)] at dispatch
     want_lp: bool
+    # with a draft engine: the block's first input tokens (M, 1), on the host
+    prev_tok: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -208,8 +230,8 @@ class _InflightSpec:
 
 
 class ContinuousBatcher:
-    """Drives a :class:`PipelineEngine` (``microbatches=M``, paged) as an
-    M-slot continuous-batching server backend. ``generate_step`` has the
+    """Drives a :class:`PipelineEngine` (``microbatches=M``, paged or
+    dense) as an M-slot continuous-batching server backend. ``generate_step`` has the
     contract of ``Generator.generate_step``; the server calls it without
     its generation lock (``concurrent = True``). ``cuda_graphs=False`` runs
     the prefill chunks and decode blocks eagerly on the card (for checks
@@ -255,13 +277,33 @@ class ContinuousBatcher:
             if spec_mode == "off":
                 raise ValueError("spec_window_max needs a draft mode — select --draft ngram or "
                                  "--draft engine")
+        if draft_engine is not None:
+            # the draft engine mirrors the target's slot structure (same M,
+            # same chunking) with its own dense KV cache
+            tv = getattr(engine.model.config, "vocab_size", None)
+            dv = getattr(draft_engine.model.config, "vocab_size", None)
+            if tv != dv:
+                # draft token ids index the target's embedding and logprob rows
+                raise ValueError(f"draft vocab ({dv}) must match target vocab ({tv}) — "
+                                 "speculation exchanges raw token ids between the models")
+            if getattr(draft_engine, "paged", False):
+                raise ValueError("the draft engine must be dense (no pool_pages)")
+            if draft_engine.microbatches != engine.microbatches:
+                raise ValueError("draft engine must match the target's slots")
+            if draft_engine.prefill_chunk != engine.prefill_chunk:
+                raise ValueError("draft engine must match the target's prefill chunk")
+            if draft_engine.max_seq < engine.max_seq:
+                raise ValueError("draft engine max_seq must cover the target's")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        paged = getattr(engine, "pool_pages", None) is not None
+        if prefix_store is not None and not paged:
+            raise ValueError("the prefix store requires a paged engine (pool_pages): prefix "
+                             "reuse is page-granular")
         if kv_prefetch not in ("on", "off", "auto"):
             raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
         # each names the ROADMAP queue 1 item that ports it
         unported = {
-            "draft_engine (speculation with a draft model)": (
-                draft_engine is not None,
-                "slice 3 item 6, the dense engine a draft engine runs on, then slice 4"),
             "spill_bytes / spill_cold_after / kv_prefetch (KV spill)": (
                 spill_bytes is not None or spill_cold_after is not None or kv_prefetch == "on",
                 "slice 3, item 4, after slice 7's kv_transfer.py"),
@@ -271,19 +313,26 @@ class ContinuousBatcher:
             if asked:
                 raise NotImplementedError(f"ContinuousBatcher {what} is not yet ported "
                                           f"(ROADMAP queue 1, {item})")
-        if overcommit and getattr(engine, "pool_pages", None) is None:
+        if overcommit and not paged:
             raise ValueError("overcommit admission requires a paged engine (pool_pages)")
-        if prefix_cache and getattr(engine, "pool_pages", None) is None:
+        if prefix_cache and not paged:
             raise ValueError("prefix_cache requires a paged engine (pool_pages): sharing "
                              "is page-granular")
+        if async_sched == "on" and draft_engine is not None:
+            # the next round's proposals depend on this round's accept counts
+            raise ValueError("async_sched='on' is incompatible with a draft engine; use 'auto' "
+                             "(resolves to sync when speculating)")
         # async ticks: "auto" resolves as the JAX rule does; with no draft
         # engine and one host, plain decode and n-gram rounds are pure
         # device-side chains
         self.async_sched = async_sched
-        self._async = async_sched != "off"
+        self._async = async_sched == "on" or (async_sched == "auto" and draft_engine is None)
         self.async_reason = (
             "async ticks: async_sched='on'" if async_sched == "on" else
             "sync ticks: async_sched='off'" if async_sched == "off" else
+            "sync ticks: auto resolved to sync — the draft engine's speculative rounds harvest "
+            "per-round accept counts that the next round's proposals depend on, so there is no "
+            "device-side chain to run ahead on" if draft_engine is not None else
             "async ticks: auto resolved to async — n-gram drafts are host-built (no draft "
             "engine, no draft KV), so the speculative round chains pure device-side like a "
             "plain decode block" if spec_mode == "ngram" else
@@ -292,31 +341,42 @@ class ContinuousBatcher:
         )
         logger.info("%s", self.async_reason)
         self.engine = engine
+        self.paged = paged
         self.M = engine.microbatches
         self.W = repetition_window
         self.policy = policy
         self.overcommit = overcommit
         self.decode_block = max(1, decode_block)
-        # speculation: n-gram windows adapt per slot along the ladder up to
-        # spec_window_max (8 by default); spec_k belongs to a draft engine
+        # speculation: windows adapt per slot along the ladder up to
+        # spec_window_max (8 by default) for n-gram drafts always, for a
+        # draft engine only when spec_window_max is given (else every round
+        # is spec_k wide)
         self._spec_mode = spec_mode
         self.spec_k = spec_k
-        if spec_mode == "ngram":
+        if spec_mode == "ngram" or (spec_mode == "engine" and spec_window_max is not None):
             self.spec_tracker: Optional[AcceptanceTracker] = AcceptanceTracker(
                 self.M, w_max=spec_window_max or 8,
                 clock=clock if spec_clock is None else spec_clock)
             self._w_max = self.spec_tracker.rungs[-1]
-            self._ngram: Optional[NgramDraftProposer] = NgramDraftProposer()
         else:
-            self.spec_tracker, self._w_max, self._ngram = None, 0, None
+            self.spec_tracker = None
+            self._w_max = spec_k if spec_mode == "engine" else 0
+        self._ngram = NgramDraftProposer() if spec_mode == "ngram" else None
         # overcommit growth covers the furthest write ahead of the host's
         # emitted counts: a decode block or a T=K verify, twice that when a
         # block runs ahead of them
-        self._grow_ahead = (2 if self._async else 1) * max(self.decode_block, self._w_max)
+        reach = max(self.decode_block, self._w_max)
+        if spec_mode == "engine":
+            reach = max(reach, spec_k)
+        self._grow_ahead = (2 if self._async else 1) * reach
         self.rounds = 0  # verify rounds x slots
         self.accepted_tokens = 0  # tokens emitted by speculating slots
         self.draft_tokens = 0  # proposal tokens offered to verifies
         self.verify_ticks = 0  # ticks that ran a speculative round
+        # ticks that fell back to a plain block with a draft engine, and the
+        # tokens replayed through the draft to keep its caches in step
+        self.fallback_ticks = 0
+        self.replayed_tokens = 0
         # the slot offsets on the device, which every decode block and
         # verify plans from and moves (the host's are taken whenever exact)
         self._dev_off = torch.zeros(self.M, dtype=torch.int64, device=engine.device)
@@ -339,9 +399,13 @@ class ContinuousBatcher:
         self._finish_times: deque = deque(maxlen=256)  # completion stamps
 
         # the pool: a request holds pages from admission until it finishes
-        # (or is preempted)
-        self.cache, self.table = engine.init_cache_paged()
-        self._free_pages = list(range(engine.pool_pages - 1, -1, -1))
+        # (or is preempted); dense slot caches need no page accounting
+        if paged:
+            self.cache, self.table = engine.init_cache_paged()
+            self._free_pages = list(range(engine.pool_pages - 1, -1, -1))
+        else:
+            self.cache, self.table = engine.init_cache(), slot_table(self.M)
+            self._free_pages = []
         self._pages_of: dict[int, list[int]] = {}
         self.pages_high_water = 0
         # prefix sharing: a page's refcount is the slots mapping it plus 1
@@ -367,6 +431,15 @@ class ContinuousBatcher:
         self.active = [False] * self.M  # a slot decodes iff its prefill completed
         self.graphs = (StepGraphs(dev, model_pool(engine.model))
                        if dev.type == "cuda" and cuda_graphs else None)
+        # the draft engine's own caches, offsets (host and device), sampling
+        # generators and graphs
+        self.draft = draft_engine
+        if draft_engine is not None:
+            self.dcache, self.dtable = draft_engine.init_cache(), slot_table(self.M)
+            self._ddev_off = torch.zeros(self.M, dtype=torch.int64, device=dev)
+            self.dgenerators = [torch.Generator(device=dev) for _ in range(self.M)]
+            self.dgraphs = (StepGraphs(dev, model_pool(draft_engine.model))
+                            if self.graphs is not None else None)
 
         self._slots: list[Optional[_Request]] = [None] * self.M
         self._prefill_rr = 0  # round-robin cursor for admission fairness
@@ -374,6 +447,7 @@ class ContinuousBatcher:
         # counters of the work the batcher ran (the smoke checks launch
         # counts against them)
         self.prefill_chunks = 0
+        self.draft_prefill_chunks = 0
         self.decode_steps = 0
         # host clock inside the blocks' dispatches and harvests (a quiesce's
         # harvest included)
@@ -414,7 +488,7 @@ class ContinuousBatcher:
         # the request's whole need must fit the pool alone: an overcommitted
         # request that is the only one left can then always grow to its end
         need = -(-total // self.engine.page_size)
-        if need > self.engine.pool_pages:
+        if self.paged and need > self.engine.pool_pages:
             raise ValueError(f"request needs {need} pages, pool has {self.engine.pool_pages} — "
                              "it could never be admitted")
         width = self.sp.bias_indices.shape[1]
@@ -503,28 +577,42 @@ class ContinuousBatcher:
     def warm_up(self) -> dict:
         """Capture, before the first request and with every slot idle, the
         prefill chunk of every offset below ``max_seq``, the decode blocks
-        (greedy and sampled, with and without logprobs) and, under n-gram
-        speculation, the verify of every window of the ladder (greedy and
-        sampled), into the model's graph pool: their warm-ups write only
-        the scratch page.
-        Returns the graphs captured, their capture seconds and the pool's
-        bytes; ``{}`` without graphs. Call it before the scheduler thread
-        starts."""
+        (greedy and sampled, with and without logprobs) and, under
+        speculation, the round of every window (greedy and sampled): the
+        n-gram verify, or the draft engine's proposals and the verify, with
+        the draft's prefill chunks and its replay of a block. Their warm-ups
+        write only the scratch page (or slot). Returns the graphs captured,
+        their capture seconds and the pools' bytes (both models' with a
+        draft engine); ``{}`` without graphs. Call it before the scheduler
+        thread starts."""
         if self.graphs is None:
             return {}
-        eng, c = self.engine, self.engine.prefill_chunk
-        eng.prefill_inputs(np.zeros(c, np.int64), self.M, c, self.table)  # row M: scratch
-        for off in range(0, eng.max_seq, c):
-            self.graphs.run(("prefill", off), functools.partial(eng.prefill_step, self.cache, off))
+        engines = [(self.engine, self.cache, self.table, self.graphs)]
+        if self.draft is not None:
+            engines.append((self.draft, self.dcache, self.dtable, self.dgraphs))
+        for eng, cache, table, graphs in engines:
+            c = eng.prefill_chunk
+            eng.prefill_inputs(np.zeros(c, np.int64), self.M, c, table)  # row M: scratch
+            for off in range(0, eng.max_seq, c):
+                graphs.run(("prefill", off), functools.partial(eng.prefill_step, cache, off))
+        windows = (self.spec_tracker.rungs if self.spec_tracker is not None else
+                   (self.spec_k,) if self.draft is not None else ())
         for sampled in (False, True):
             for want_lp in (False, True):
                 self._run_block(want_lp, sampled)
-            for k in self.spec_tracker.rungs if self.spec_tracker is not None else ():
-                self._run_verify(k, np.zeros((k, self.M), np.int32),
-                                 np.ones(self.M, np.int32), sampled, exact=True)
-        torch.cuda.synchronize(eng.device)
-        return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
-                "pool_bytes": self.graphs.pool_bytes()}
+            for k in windows:
+                if self.draft is not None:
+                    self._run_round(k, np.ones(self.M, np.int32), sampled)
+                else:
+                    self._run_verify(k, np.zeros((k, self.M), np.int32),
+                                     np.ones(self.M, np.int32), sampled, exact=True)
+        if self.draft is not None:
+            self._run_replay(np.zeros((self.decode_block, self.M), np.int64))
+        torch.cuda.synchronize(self.engine.device)
+        graphs = [g for _, _, _, g in engines]
+        return {"graphs": sum(g.captures for g in graphs),
+                "seconds": sum(g.capture_seconds for g in graphs),
+                "pool_bytes": sum(g.pool_bytes() for g in graphs)}
 
     def tick_timing_stats(self) -> dict:
         """Per-tick timing (JAX ``tick_timing_stats``): ``device_blocked_ms``
@@ -549,9 +637,11 @@ class ContinuousBatcher:
         self._tick_blocked_s_total = 0.0
         self._tick_count = 0
 
-    def page_stats(self) -> tuple[int, int, int]:
+    def page_stats(self) -> Optional[tuple[int, int, int]]:
         """(pool pages, pages in use, high-water mark); pages that only the
-        prefix index holds count as in use."""
+        prefix index holds count as in use. None on dense slot caches."""
+        if not self.paged:
+            return None
         total = self.engine.pool_pages
         return total, total - len(self._free_pages), self.pages_high_water
 
@@ -583,10 +673,9 @@ class ContinuousBatcher:
             "draft_tokens": self.draft_tokens,
             "accepted_tokens": self.accepted_tokens,
             "accept_rate": self.accepted_tokens / max(1, self.draft_tokens),
-            # JAX's draft-engine fallback replays and spec.draft faults:
-            # neither happens without a draft engine and the fault harness
-            "fallback_ticks": 0,
-            "replayed_tokens": 0,
+            "fallback_ticks": self.fallback_ticks,
+            "replayed_tokens": self.replayed_tokens,
+            # JAX's spec.draft faults: the port has no fault harness
             "draft_faults": 0,
         }
         if self.spec_tracker is not None:
@@ -632,6 +721,9 @@ class ContinuousBatcher:
         registered chain it would map; the chain's own pages are not
         eviction fodder. Only a fitting request hands its chain to
         :meth:`_assign_slot` (the same admission pass)."""
+        if not self.paged:
+            req.chain = None
+            return True  # dense slots: a free slot is the whole need
         chain = self._prefix_lookup(req)
         ok = self._need_pages(req) - len(chain) <= len(self._free_pages) + self._evictable_pages(
             exclude=[p for _, p in chain])
@@ -735,25 +827,31 @@ class ContinuousBatcher:
         contents are set when its prefill completes."""
         req.admit_seq = self._admit_counter
         self._admit_counter += 1
-        n = self._need_pages(req)
-        chain = req.chain if req.chain is not None else self._prefix_lookup(req)
-        req.chain = None
-        reused = len(chain) * self.engine.page_size
-        if self.prefix_cache:
-            self.prefix_queries += 1
-            if chain:
-                self.prefix_hits += 1
-                self.prefix_tokens_reused += reused
-            for key, _ in chain:
-                self._prefix_index.move_to_end(key)
-        shared = [p for _, p in chain]
-        for p in shared:
-            self._page_ref[p] += 1
-        self._evict_for(n - len(shared))
-        pages = shared + self._claim_fresh(n - len(shared))
-        self._pages_of[slot] = pages
-        self._write_table_row(slot, pages)
+        reused = 0
+        if self.paged:
+            n = self._need_pages(req)
+            chain = req.chain if req.chain is not None else self._prefix_lookup(req)
+            req.chain = None
+            reused = len(chain) * self.engine.page_size
+            if self.prefix_cache:
+                self.prefix_queries += 1
+                if chain:
+                    self.prefix_hits += 1
+                    self.prefix_tokens_reused += reused
+                for key, _ in chain:
+                    self._prefix_index.move_to_end(key)
+            shared = [p for _, p in chain]
+            for p in shared:
+                self._page_ref[p] += 1
+            self._evict_for(n - len(shared))
+            pages = shared + self._claim_fresh(n - len(shared))
+            self._pages_of[slot] = pages
+            self._write_table_row(slot, pages)
         self.cache.offsets[slot] = reused
+        if self.draft is not None:
+            # the draft mirrors the slot from position 0 (no page sharing)
+            self.dcache.offsets[slot] = 0
+            req.draft_pos = 0
         set_sampler_slot(self.sp, slot, req.sp)
         self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
         if self.spec_tracker is not None:
@@ -810,7 +908,11 @@ class ContinuousBatcher:
         return chunk, n_valid
 
     def _prefill_done(self, req: _Request) -> bool:
-        return req.prefill_pos >= req.prompt.size
+        """Admission prefill is complete on the target (which may start past
+        a reused prefix) and, with a draft engine, on the draft (which
+        always starts from 0)."""
+        return req.prefill_pos >= req.prompt.size and (
+            self.draft is None or req.draft_pos >= req.prompt.size)
 
     def _first_sample(self, logits: torch.Tensor, slot: int):
         """The first token of the request in ``slot`` from its prefill
@@ -825,17 +927,28 @@ class ContinuousBatcher:
 
     def _prefill_one_chunk(self, req: _Request):
         """One prefill chunk of a request being admitted (a replay of the
-        chunk offset's graph on the card); on its last chunk, set the
-        slot's generator and window, sample the first token and start the
-        slot decoding."""
-        eng, slot = self.engine, req.slot
-        chunk, n_valid = self._chunk_at(req.prompt, req.prefill_pos, eng.prefill_chunk)
-        logits = eng.prefill_slot(chunk, slot, self.cache, n_valid, self.table,
-                                  graphs=self.graphs)
-        self.prefill_chunks += 1
-        req.prefill_pos += n_valid
+        chunk offset's graph on the card), on the target and, with a draft
+        engine, on the draft, each at its own position; when both are done,
+        set the slot's generator and window, sample the first token from the
+        target's last logits and start the slot decoding."""
+        eng, slot, c = self.engine, req.slot, self.engine.prefill_chunk
+        if req.prefill_pos < req.prompt.size:
+            chunk, n_valid = self._chunk_at(req.prompt, req.prefill_pos, c)
+            logits = eng.prefill_slot(chunk, slot, self.cache, n_valid, self.table,
+                                      graphs=self.graphs)
+            self.prefill_chunks += 1
+            req.prefill_pos += n_valid
+            if req.prefill_pos >= req.prompt.size:
+                req.last_logits = logits
+        if self.draft is not None and req.draft_pos < req.prompt.size:
+            chunk, n_valid = self._chunk_at(req.prompt, req.draft_pos, c)
+            self.draft.prefill_slot(chunk, slot, self.dcache, n_valid, self.dtable,
+                                    graphs=self.dgraphs)
+            self.draft_prefill_chunks += 1
+            req.draft_pos += n_valid
         if not self._prefill_done(req):
             return
+        logits, req.last_logits = req.last_logits, None
         if self.prefix_cache:
             self._register_prefix(req)
         # Set the window and the generator only NOW: other slots' decode
@@ -855,6 +968,9 @@ class ContinuousBatcher:
                 row[self.W - tail.size:] = tail
             self.recent[slot] = upload(row, self.recent.device)
             self.generators[slot].manual_seed(req.seed)
+        if self.draft is not None:
+            # the draft's sampled proposals draw from a stream of their own
+            self.dgenerators[slot].manual_seed((req.seed + 1) & 0x7FFFFFFF)
         tok, logprobs = self._first_sample(logits, slot)
         self.last_tok[slot] = tok
         self.active[slot] = True
@@ -879,15 +995,16 @@ class ContinuousBatcher:
         prefill, which quiesces first) is enqueued after it on the stream."""
         slot = req.slot
         self.active[slot] = False
-        self._release_pages(slot)
+        if self.paged:
+            self._release_pages(slot)
         self._slots[slot] = None
         req.slot = -1
 
     def _finish(self, req: _Request):
         if req.slot >= 0:
             inf = self._inflight
-            if isinstance(inf, _InflightBlock) and any(s == req.slot and r is req
-                                                       for s, r in inf.live):
+            if self.paged and isinstance(inf, _InflightBlock) and any(
+                    s == req.slot and r is req for s, r in inf.live):
                 # the lookahead block's dispatch moved the offset one block
                 # past the slot's end
                 rewind_slot_offset(self.cache, req.slot, self.decode_block)
@@ -925,7 +1042,8 @@ class ContinuousBatcher:
             req.resume_recent = self.recent[slot].clone()
             self._fold_history(req)
         req.chain = None
-        req.prefill_pos = 0
+        req.prefill_pos = req.draft_pos = 0
+        req.last_logits = None
         self._vacate(req)
 
     def _preempt(self, req: _Request):
@@ -1012,8 +1130,11 @@ class ContinuousBatcher:
 
     def _spec_plan(self, live):
         """``(K, wins)``: the round's width (the widest live window) and
-        each live slot's window from its controller, or None when no slot
+        each live slot's window from its controller (``spec_k`` for every
+        slot of a draft engine without one), or None when no slot
         speculates (the tick runs a plain block)."""
+        if self.spec_tracker is None:
+            return self.spec_k, {slot: self.spec_k for slot, _ in live}
         wins = self.spec_tracker.effective_windows([slot for slot, _ in live])
         k = max(wins.values(), default=0)
         if k < 2:
@@ -1055,6 +1176,81 @@ class ContinuousBatcher:
                                state=(self.last_tok, self.recent, self._dev_off),
                                generators=self.generators if sampled else ())
 
+    def _propose_step(self, k: int, inputs, sampled: bool):
+        """The draft engine's K proposal steps for every slot from
+        ``last_tok`` (the target's next inputs), planned on the device from
+        the draft's offsets, which then move by K for every active slot; the
+        drafts (K, M) and, ``sampled``, their distributions (K, M, V), else
+        None. Device work only."""
+        d = self.draft
+        off = torch.where(inputs.reset.bool(), inputs.offsets.long(), self._ddev_off)
+        drafts, qlps = d.spec_propose_cb(k)(
+            self.last_tok, self.dcache, d.device_plan(off, inputs, k), recent=self.recent,
+            generators=self.dgenerators, sp=self.sp, rep_mask=self.rep_mask, sampled=sampled)
+        self._ddev_off.copy_(off + k * inputs.active)
+        return drafts, qlps
+
+    def _round_step(self, k: int, proposals, inputs, sampled: bool) -> torch.Tensor:
+        """The target's verify of the draft engine's ``proposals`` (the
+        propose graph's outputs), then the draft's rewind on the device: it
+        consumed K rows a slot and keeps the ``count`` the target accepted.
+        Its ``(count, gs)`` as one (K + 1, M) tensor. Device work only."""
+        plan, off = self._device_plan(inputs, k)
+        drafts, qlps = proposals
+        gs, count, nxt = self.engine.spec_verify_cb(k)(
+            self.last_tok, self.cache, plan, drafts, inputs.wcap, qlps=qlps, recent=self.recent,
+            generators=self.generators, sp=self.sp, rep_mask=self.rep_mask, sampled=sampled)
+        self.last_tok.copy_(nxt)
+        self._dev_off.copy_(off + count)
+        self._ddev_off.add_(torch.where(inputs.active.bool(), count - k, 0))
+        return torch.cat([count[None], gs])
+
+    def _run_round(self, k: int, wcaps: np.ndarray, sampled: bool) -> torch.Tensor:
+        """Enqueue one draft-engine round: the draft's K steps (a replay of
+        its graph of (K, sampler branch)) and the target's verify with the
+        draft's distributions (one graph per (K, sampler branch)), each from
+        its host offsets, exact under the sync ticks a draft engine runs.
+        Its static ``(count, gs)``, nothing read back."""
+        d = self.draft
+        dinputs = d.device_inputs(("propose", k), self.dtable, self.active, self.dcache.offsets,
+                                  True)
+        step = functools.partial(self._propose_step, k, dinputs, sampled)
+        proposals = step() if self.dgraphs is None else self.dgraphs.run(
+            ("propose", k, sampled), step, state=(self._ddev_off,),
+            generators=self.dgenerators if sampled else ())
+        inputs = self.engine.device_inputs(("verify", k), self.table, self.active,
+                                           self.cache.offsets, True, np.zeros((k, self.M)),
+                                           wcaps)
+        step = functools.partial(self._round_step, k, proposals, inputs, sampled)
+        if self.graphs is None:
+            return step()
+        return self.graphs.run(("verify", k, sampled), step,
+                               state=(self.last_tok, self.recent, self._dev_off, self._ddev_off),
+                               generators=self.generators if sampled else ())
+
+    def _replay_step(self, inputs) -> None:
+        """The draft engine's replay of a plain block's chain (the inputs'
+        drafts), planned from its offsets, which then move by the block.
+        Device work only."""
+        d, k = self.draft, self.decode_block
+        off = torch.where(inputs.reset.bool(), inputs.offsets.long(), self._ddev_off)
+        d.spec_replay_cb(k)(inputs.drafts, self.dcache, d.device_plan(off, inputs, k))
+        self._ddev_off.copy_(off + k * inputs.active)
+
+    def _run_replay(self, chain: np.ndarray) -> None:
+        """Feed ``chain`` (K, M), the tokens a plain block consumed, through
+        the draft's caches (a replay of its graph on the card) and move the
+        draft's host offsets with them."""
+        inputs = self.draft.device_inputs(("replay", self.decode_block), self.dtable,
+                                          self.active, self.dcache.offsets, True, chain,
+                                          np.ones(self.M))
+        step = functools.partial(self._replay_step, inputs)
+        if self.dgraphs is None:
+            step()
+        else:
+            self.dgraphs.run(("replay", self.decode_block), step, state=(self._ddev_off,))
+        self.draft.advance_offsets(self.dcache, self.active, self.decode_block)
+
     def _dispatch_spec(self, prev=None) -> Optional[_InflightSpec]:
         """Grow the pool under overcommit, then enqueue one speculative round
         for every decoding slot: n-gram proposals up to each slot's window
@@ -1076,10 +1272,16 @@ class ContinuousBatcher:
             return None
         k, wins = plan
         t0 = time.perf_counter()
-        prev_guess = prev.guess if isinstance(prev, _InflightSpec) else {}
+        sampled = any(req.sp.temperature > 0 for _, req in live)
         wcaps = np.ones((self.M,), np.int32)
-        drafts = np.zeros((k, self.M), np.int32)
         guess = {}
+        if self.draft is not None:
+            for slot, _ in live:
+                wcaps[slot] = max(1, wins.get(slot, 0))
+            outs = self._run_round(k, wcaps, sampled)
+            return self._inflight_spec(outs, t0, live, wins, wcaps, guess)
+        prev_guess = prev.guess if isinstance(prev, _InflightSpec) else {}
+        drafts = np.zeros((k, self.M), np.int32)
         for slot, req in live:
             w = wins.get(slot, 0)
             if w < 2:
@@ -1090,9 +1292,13 @@ class ContinuousBatcher:
             drafts[:w, slot] = d
             wcaps[slot] = min(w, max(1, n_valid))
             guess[slot] = d[: wcaps[slot]]
-        sampled = any(req.sp.temperature > 0 for _, req in live)
         outs = self._run_verify(k, drafts, wcaps, sampled,
                                exact=not isinstance(prev, _InflightSpec))
+        return self._inflight_spec(outs, t0, live, wins, wcaps, guess)
+
+    def _inflight_spec(self, outs, t0: float, live, wins, wcaps, guess) -> _InflightSpec:
+        """Start the copy of a dispatched round's ``(count, gs)`` to pinned
+        host memory with an event after it; the round's handle."""
         event = None
         if outs.is_cuda:
             host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
@@ -1125,6 +1331,9 @@ class ContinuousBatcher:
         for slot, req in inf.live:
             if req.slot == slot:
                 self.cache.offsets[slot] += int(counts[slot])
+                if self.draft is not None:
+                    # the draft took K rows and kept the accepted ones
+                    self.dcache.offsets[slot] += int(counts[slot])
         for slot, req in inf.live:
             emitted = 0
             for j in range(int(counts[slot])):
@@ -1138,7 +1347,7 @@ class ContinuousBatcher:
                 # correction token is plain decode, not an acceptance
                 self.accepted_tokens += emitted
                 self.draft_tokens += int(inf.wcaps[slot])
-                if req.slot == slot:
+                if self.spec_tracker is not None and req.slot == slot:
                     # train on the verify's verdict, not the truncated emission
                     self.spec_tracker.observe(slot, w, int(counts[slot]))
         self.decode_seconds += time.perf_counter() - t0
@@ -1217,6 +1426,13 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         want_lp = any(req.want_logprobs for _, req in live)
         sampled = any(req.sp.temperature > 0 for _, req in live)
+        prev_tok = None
+        if self.draft is not None:
+            # the block's first inputs: a draft engine replays the chain the
+            # block consumes (copied before the block overwrites them)
+            prev_tok = torch.empty(self.last_tok.shape, dtype=self.last_tok.dtype,
+                                   pin_memory=self.last_tok.is_cuda)
+            prev_tok.copy_(self.last_tok, non_blocking=True)
         outs = self._run_block(want_lp, sampled, exact=not isinstance(prev, _InflightSpec))
         event = None
         if outs.is_cuda:
@@ -1229,7 +1445,8 @@ class ContinuousBatcher:
         self.engine.advance_offsets(self.cache, self.active, self.decode_block)
         self.decode_steps += self.decode_block
         self.decode_seconds += time.perf_counter() - t0
-        return _InflightBlock(outs=outs, event=event, live=live, want_lp=want_lp)
+        return _InflightBlock(outs=outs, event=event, live=live, want_lp=want_lp,
+                              prev_tok=prev_tok)
 
     def _harvest(self, inf: Optional[_InflightBlock]):
         """Wait for a block's outputs to land on the host (its event only:
@@ -1251,6 +1468,15 @@ class ContinuousBatcher:
         if inf.want_lp:
             k = LOGPROB_TOPK
             lp_outs = (toks, outs[..., 1], outs[..., 2 : 2 + k], outs[..., 2 + k :].astype(np.int64))
+        if self.draft is not None and inf.live:
+            # a tick that fell back to a plain block: the target took K
+            # positions, so the draft takes the chain they consumed (step j
+            # consumed toks[j - 1], step 0 prev_tok), or its later proposals
+            # attend to stale rows and acceptance collapses
+            chain = np.concatenate([inf.prev_tok.numpy().reshape(1, -1), toks[:-1]])
+            self._run_replay(chain)
+            self.fallback_ticks += 1
+            self.replayed_tokens += self.decode_block * len(inf.live)
         for j in range(toks.shape[0]):
             for slot, req in inf.live:
                 if req.slot != slot:  # finished (or preempted) earlier
@@ -1376,10 +1602,11 @@ class ContinuousBatcher:
         logger.exception("scheduler tick failed", exc_info=exc)
         self._inflight = None
         self._end_all(exc)
-        self._pages_of.clear()
-        self._page_ref.clear()
-        self._prefix_index.clear()
-        self._free_pages = list(range(self.engine.pool_pages - 1, -1, -1))
+        if self.paged:
+            self._pages_of.clear()
+            self._page_ref.clear()
+            self._prefix_index.clear()
+            self._free_pages = list(range(self.engine.pool_pages - 1, -1, -1))
 
     def run_tick(self):
         """One tick (async or sync as resolved), timed: a tick that

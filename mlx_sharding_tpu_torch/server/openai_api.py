@@ -6,21 +6,23 @@ or SSE that holds back text that could still grow into a stop sequence),
 logprobs, ``logit_bias``, the JAX server's parameter validation, the plain
 chat prompt for tokenizers without a template, and ``GET /health``. One
 :class:`ModelProvider` holds one generator and its tokenizer. A single-stream
-``Generator`` is serialized by a lock; with ``--concurrent N --paged-pool P``
-the generator is a :class:`~mlx_sharding_tpu_torch.scheduler.ContinuousBatcher`
-(``concurrent = True``), which interleaves requests itself and is served
-without the lock, with ``--prompt-cache`` shares prompt-prefix pages, with
-``--max-queue`` bounds its queue (429 with ``Retry-After``) and enforces the
-deadlines (``--request-timeout`` and ``--ttft-timeout``, or the body's
-fields; 504). A single-stream generator gets the total deadline as a check
-between tokens. ``--draft ngram`` speculates by prompt lookup (single
-stream, or in the batcher's slots with ``--concurrent``), ``--draft-model``
-with a draft model (single stream). Fleet, replica, trace, metrics and
-static-UI serving come with later slices.
+``Generator`` is serialized by a lock; with ``--concurrent N`` the generator
+is a :class:`~mlx_sharding_tpu_torch.scheduler.ContinuousBatcher`
+(``concurrent = True``) over dense slot caches, or with ``--paged-pool P``
+over a shared page pool (``--paged-attention ragged|gather``), which
+interleaves requests itself and is served without the lock, with
+``--prompt-cache`` shares prompt-prefix pages, with ``--max-queue`` bounds
+its queue (429 with ``Retry-After``) and enforces the deadlines
+(``--request-timeout`` and ``--ttft-timeout``, or the body's fields; 504). A
+single-stream generator gets the total deadline as a check between tokens.
+``--draft ngram`` speculates by prompt lookup and ``--draft-model`` with a
+draft model, on the single stream or in the batcher's slots with
+``--concurrent``. Fleet, replica, trace, metrics and static-UI serving come
+with later slices.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
-        [--concurrent 8 --paged-pool 64 [--kv-dtype int8] [--prompt-cache]
-         [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
+        [--concurrent 8 [--paged-pool 64 [--paged-attention gather] [--kv-dtype int8]
+         [--prompt-cache]] [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
 """
 
@@ -43,11 +45,6 @@ from mlx_sharding_tpu_torch.tokenizer_utils import (
 )
 
 logger = logging.getLogger(__name__)
-
-DRAFT_MODEL_BATCHED = ("--concurrent with --draft-model (a draft engine in the batcher's slots) "
-                       "is not yet ported (ROADMAP queue 1, slice 3 item 6): serve it on the "
-                       "single stream, or speculate in the slots with --draft ngram")
-
 
 def _encode_plain(tokenizer, text: str) -> list[int]:
     """Encode without special tokens (stop sequences must match raw ids)."""
@@ -98,20 +95,19 @@ class ModelProvider:
                         spec_k: int = 4, spec_window_max: Optional[int] = None,
                         ) -> "ModelProvider":
         """A single-stream ``Generator``, or with ``concurrent > 1`` a
-        ``ContinuousBatcher`` of that many slots over a pool of
-        ``paged_pool`` KV pages (the JAX server's pp=1 paged engine), with
-        ``overcommit`` admission, ``async_sched`` ticks, prefix sharing
-        (``prompt_cache``) and a queue bound (``max_queue``). ``draft="ngram"``
-        speculates by prompt lookup (``NgramSpeculativeGenerator``, or the
-        batcher's n-gram mode), ``draft_model`` (a checkpoint directory)
-        with a draft model on the single stream (``SpeculativeGenerator``).
-        On a card its step graphs are captured here, before the first
-        request."""
+        ``ContinuousBatcher`` of that many slots over dense slot caches, or
+        over a pool of ``paged_pool`` KV pages (the JAX server's pp=1
+        engines), with ``overcommit`` admission, ``async_sched`` ticks,
+        prefix sharing (``prompt_cache``) and a queue bound (``max_queue``).
+        ``draft="ngram"`` speculates by prompt lookup
+        (``NgramSpeculativeGenerator``, or the batcher's n-gram mode),
+        ``draft_model`` (a checkpoint directory) with a draft model
+        (``SpeculativeGenerator``, or a dense draft engine beside the
+        batcher's, with the same slots, capacity and chunk). On a card its
+        step graphs are captured here, before the first request."""
         from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
         from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
 
-        if draft_model and concurrent > 1:
-            raise NotImplementedError(DRAFT_MODEL_BATCHED)
         model, _ = load_model(path, device=device, keep_quantized=keep_quantized)
         if concurrent <= 1 and draft == "ngram":
             from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
@@ -135,11 +131,16 @@ class ModelProvider:
                 pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
                 kv_dtype=kv_dtype, device=device,
             )
+            draft_engine = None
+            if draft_model:
+                dmodel, _ = load_model(draft_model, device=device)
+                draft_engine = PipelineEngine(dmodel, microbatches=concurrent, max_seq=max_seq,
+                                              prefill_chunk=prefill_chunk, device=device)
             generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
                                           policy=admission_policy, overcommit=overcommit,
                                           async_sched=async_sched, prefix_cache=prompt_cache,
-                                          max_queue=max_queue,
-                                          draft="ngram" if draft == "ngram" else "off",
+                                          max_queue=max_queue, draft_engine=draft_engine,
+                                          spec_k=spec_k, draft=draft,
                                           spec_window_max=spec_window_max)
         captured = generator.warm_up()  # on a card: the step graphs, before any request
         if captured:
@@ -599,19 +600,25 @@ def main(argv=None):
                         "(fused dequant-matmul) instead of dequantizing on "
                         "load — 4x decode weight bandwidth")
     parser.add_argument("--concurrent", type=int, default=1,
-                        help="continuous-batching slots: serve up to N requests "
-                        "interleaved (N > 1 needs --paged-pool and replaces the "
-                        "generation lock)")
+                        help="continuous-batching slots: serve up to N "
+                        "requests interleaved in one fused engine (N>1 "
+                        "replaces the per-request generation lock)")
     parser.add_argument("--paged-pool", type=int, default=None,
-                        help="with --concurrent: share a KV pool of N pages across "
-                        "slots (reservation admission)")
+                        help="with --concurrent: share a KV pool of N pages "
+                             "across slots (reservation admission) instead "
+                             "of dense per-slot max-seq allocations")
     parser.add_argument("--page-size", type=int, default=None,
                         help="KV page size in tokens (default: the prefill chunk); "
                         "must be a chunk multiple")
-    parser.add_argument("--paged-attention", choices=("auto", "ragged"), default="auto",
-                        help="with --paged-pool: decode attention over the page pool; "
-                        "'ragged' attends in place through the slot page tables "
-                        "(the contiguous 'gather' view is not yet ported)")
+    parser.add_argument("--paged-attention",
+                        choices=("auto", "ragged", "gather"), default="auto",
+                        help="with --paged-pool: decode-attention path over "
+                             "the page pool. 'ragged' attends in place via "
+                             "the slot page tables (no per-tick gather/"
+                             "scatter of the cache), 'gather' keeps the "
+                             "contiguous per-slot view, 'auto' (default) "
+                             "picks ragged where the engine supports it "
+                             "(pp=1, tp=ep=1)")
     parser.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
                         help="with --paged-pool: KV-pool storage. 'int8' stores codes "
                         "plus a per-row-per-head float32 scale; default keeps the "
@@ -630,9 +637,10 @@ def main(argv=None):
                         help="with --concurrent: async tick pipelining — dispatch decode "
                         "block t+1 before harvesting block t, overlapping host-side "
                         "emit/stop/admission work with device compute (token streams "
-                        "stay bit-identical to sync). 'auto' (default) enables it: with "
-                        "no draft engine, plain decode and --draft ngram rounds are pure "
-                        "device-side chains")
+                        "stay bit-identical to sync). 'auto' (default) enables it for "
+                        "plain decode and --draft ngram (pure device-side chains) and "
+                        "falls back to sync with --draft-model; 'off' forces the "
+                        "sequential tick")
     parser.add_argument("--prompt-cache", action="store_true",
                         help="with --concurrent --paged-pool: content-addressed sharing of "
                         "prompt-prefix KV pages across requests (chat turns and system "
@@ -654,8 +662,10 @@ def main(argv=None):
     parser.add_argument("--draft-model", default=None,
                         help="speculative decoding: a small draft model "
                              "proposes --spec-k tokens per round (greedy "
-                             "token-exact, sampled distribution-exact). "
-                             "Single-stream generator path only.")
+                             "token-exact, sampled distribution-exact): "
+                             "on the single-stream generator, or with "
+                             "--concurrent N as a dense draft engine beside "
+                             "the batcher's slots")
     parser.add_argument("--spec-k", type=int, default=4,
                         help="speculation window (with --draft-model)")
     parser.add_argument("--draft", choices=("auto", "off", "ngram", "engine"),
@@ -672,8 +682,9 @@ def main(argv=None):
                              "resized each round on an acceptance EWMA "
                              "over the ladder {0,2,4,8} capped here "
                              "(losing slots disable and re-probe). Always "
-                             "on for --draft ngram (default cap 8); the "
-                             "draft-model path keeps fixed --spec-k rounds")
+                             "on for --draft ngram (default cap 8); opt-in "
+                             "for --draft engine (without it the engine "
+                             "path keeps fixed --spec-k rounds)")
     args = parser.parse_args(argv)
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine needs --draft-model")
@@ -688,8 +699,6 @@ def main(argv=None):
         ):
             parser.error("--spec-window-max needs a speculating server: "
                          "--draft ngram or --draft-model")
-    if args.draft_model and args.concurrent > 1:
-        parser.error(DRAFT_MODEL_BATCHED)
     if args.prompt_cache:
         if args.concurrent > 1 and not args.paged_pool:
             parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
@@ -698,9 +707,6 @@ def main(argv=None):
             parser.error("--prompt-cache on the single-stream generator path is not yet "
                          "ported (ROADMAP queue 1, slice 6): use it with --concurrent N "
                          "--paged-pool P")
-    if args.concurrent > 1 and not args.paged_pool:
-        parser.error("--concurrent N (N > 1) without --paged-pool (dense slots) is not yet "
-                     "ported: pass --paged-pool")
     if args.paged_pool and args.concurrent <= 1:
         parser.error("--paged-pool requires --concurrent N (N > 1)")
     if args.page_size and not args.paged_pool:
@@ -716,6 +722,10 @@ def main(argv=None):
     if args.async_sched != "auto" and args.concurrent <= 1:
         parser.error("--async-sched requires --concurrent N (N > 1): only the continuous "
                      "batcher has a tick loop to pipeline")
+    if args.async_sched == "on" and args.draft_model:
+        parser.error("--async-sched on is incompatible with --draft-model "
+                     "(speculative rounds harvest per-round accept counts); "
+                     "use 'auto'")
     if args.max_queue is not None:
         if args.max_queue < 1:
             parser.error("--max-queue must be a positive integer")

@@ -12,7 +12,7 @@ import threading
 import pytest
 import torch
 
-from chip_smoke import (FORCE_CYCLE, REL_L2_TOL, forced_passage, graph_nodes,
+from chip_smoke import (FORCE_CYCLE, REL_L2_TOL, first_layers, forced_passage, graph_nodes,
                         kernel_disagreement, pack_llama, paged_case, quant_operands)
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
@@ -1028,3 +1028,99 @@ def test_family_generator_and_batcher_match_the_cpu(cuda, family):
     batcher = ContinuousBatcher(engine, decode_block=4)
     batcher.warm_up()
     assert _drive_threads(batcher, [(prompt, dict(max_tokens=24))]) == [want]
+
+
+# ------------------------------------- the dense-slot batcher, gather, draft
+@pytest.mark.parametrize("dtype,dk,dv", [(torch.bfloat16, 128, 128), (torch.float32, 64, 64),
+                                         (torch.bfloat16, 576, 512)],
+                         ids=["bf16", "f32", "bf16-mla"])
+def test_flash_kv_index_reads_the_slot_row(cuda, dtype, dk, dv):
+    """Kernel 1 with ``kv_index``: a chunk of one slot read from (M+1, S,
+    Hkv, D) slot caches through a device index gives the bits of the same
+    call on that slot's row alone, and agrees with the plain version; for
+    MLA v is a view of k's first 512 columns."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    hq, hkv = (16, 1) if dk == 576 else (8, 2)
+    q = torch.randn(1, 128, hq, dk, generator=g, device=cuda).to(dtype)
+    k = torch.randn(4, 1024, hkv, dk, generator=g, device=cuda).to(dtype)
+    v = k[..., :dv] if dk == 576 else torch.randn(4, 1024, hkv, dv, generator=g,
+                                                   device=cuda).to(dtype)
+    for slot, offset in ((0, 0), (2, 384), (3, 896)):
+        index = torch.tensor([slot], device=cuda)
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, offset, dk ** -0.5, kv_index=index)
+        assert fa.flash_attention.launches == before + 1
+        ks = k[slot : slot + 1]
+        alone = fa.flash_attention(q, ks, ks[..., :dv] if dk == 576 else v[slot : slot + 1],
+                                   offset, dk ** -0.5)
+        assert torch.equal(got, alone)
+        want = fa.flash_attention_reference(q, ks, ks[..., :dv] if dk == 576
+                                            else v[slot : slot + 1], offset, dk ** -0.5)
+        _, worst, rel_l2 = kernel_disagreement(got, want)
+        assert worst <= 1 and rel_l2 <= REL_L2_TOL, (slot, worst, rel_l2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_t1_route_takes_per_slot_lengths(cuda, dtype):
+    """The T=1 route over M slot caches at their own positions
+    (``slot_lengths``): an idle slot (length 0) gives zeros, a slot past
+    the capacity reads it whole, and the rest agree with the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(4, 1, 32, 128, generator=g, device=cuda).to(dtype)
+    k = torch.randn(4, 512, 8, 128, generator=g, device=cuda).to(dtype)
+    v = torch.randn(4, 512, 8, 128, generator=g, device=cuda).to(dtype)
+    positions = torch.tensor([0, 300, 7, 600], device=cuda)
+    active = torch.tensor([True, True, False, True], device=cuda)
+    lengths = fa.slot_lengths(positions, active, 512)
+    assert lengths.tolist() == [1, 301, 0, 512]
+    got = fa.flash_decode(q, k, v, positions, 128 ** -0.5, lengths=lengths)
+    want = fa.flash_decode_reference(q, k, v, lengths, 128 ** -0.5)
+    assert not got[2].any()
+    _, worst, rel_l2 = kernel_disagreement(got, want)
+    assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+def test_dense_gather_and_draft_batchers_on_the_card_match_the_cpu(cuda):
+    """f32 weights, three slots: the dense-slot batcher and the gather path
+    through their graphs give the CPU's greedy streams, one T=1 route launch
+    a layer and step and one flash launch a layer and chunk; the draft
+    engine (the target's first layer) gives plain greedy's streams through
+    its graphs and eagerly, with no eager forward after the warm-up."""
+    cfg = dict(TINY_GQA)
+    cpu_model, _ = build_model(cfg, dtype=torch.float32)
+    cpu_model.init_params(torch.Generator().manual_seed(0), "cpu")
+    gpu_model = _tiny_model(cuda)
+    gen = torch.Generator().manual_seed(5)
+    jobs = [(torch.randint(0, 256, (n,), generator=gen).tolist(), dict(max_tokens=m))
+            for n, m in ((50, 20), (128, 12), (200, 30), (129, 9))]
+    geometry = dict(microbatches=3, max_seq=512, prefill_chunk=128)
+    streams = {}
+    for name, kw in (("dense", {}), ("gather", dict(pool_pages=8, paged_attention="gather"))):
+        for model in (cpu_model, gpu_model):
+            engine = PipelineEngine(model, device=model.device, **geometry, **kw)
+            batcher = ContinuousBatcher(engine, decode_block=4)
+            batcher.warm_up()
+            before = (fa.flash_decode.launches, fa.flash_attention.launches,
+                      engine.eager_forwards)
+            streams[name, model.device.type] = _drive_threads(batcher, jobs)
+            if model is gpu_model:
+                layers = cfg["num_hidden_layers"]
+                assert fa.flash_decode.launches - before[0] == layers * batcher.decode_steps
+                assert fa.flash_attention.launches - before[1] == layers * batcher.prefill_chunks
+                assert engine.eager_forwards == before[2]
+        assert streams[name, "cpu"] == streams[name, "cuda"], name
+    assert streams["dense", "cuda"] == streams["gather", "cuda"]
+    draft = first_layers(gpu_model, 1)
+    for graphs in (True, False):
+        batcher = ContinuousBatcher(PipelineEngine(gpu_model, device=gpu_model.device, **geometry),
+                                    decode_block=4, spec_k=3, cuda_graphs=graphs,
+                                    draft_engine=PipelineEngine(draft, device=gpu_model.device,
+                                                                **geometry))
+        batcher.warm_up()
+        forwards = batcher.draft.eager_forwards
+        got = _drive_threads(batcher, jobs)
+        assert got == streams["dense", "cuda"], graphs
+        assert batcher.spec_stats()["rounds"] > 0
+        if graphs:
+            assert batcher.draft.eager_forwards == forwards

@@ -138,14 +138,11 @@ def test_concurrent_generator_is_served_without_the_lock(ckpt):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--concurrent", "2"], "not yet ported: pass --paged-pool"),
     (["--paged-pool", "10"], "--paged-pool requires --concurrent N (N > 1)"),
     (["--page-size", "256"], "--page-size requires --paged-pool"),
     (["--paged-attention", "ragged"], "--paged-attention requires --paged-pool"),
     (["--kv-dtype", "int8"], "--kv-dtype requires --paged-pool"),
     (["--admission-policy", "first_fit"], "--admission-policy requires --paged-pool"),
-    (["--concurrent", "2", "--paged-pool", "4", "--paged-attention", "gather"],
-     "invalid choice: 'gather'"),
     (["--overcommit"], "--overcommit requires --paged-pool"),
     (["--async-sched", "off"], "--async-sched requires --concurrent N (N > 1)"),
     (["--concurrent", "2", "--paged-pool", "4", "--async-sched", "sometimes"],
@@ -164,6 +161,36 @@ def test_flag_checks(argv, message, capsys):
         tapi.main(["--model", "unused", "--device", "cpu", *argv])
     assert info.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,path", [
+    (["--concurrent", "2"], "dense"),
+    (["--concurrent", "2", "--paged-pool", "4", "--paged-attention", "gather"], "gather"),
+], ids=["dense", "gather"])
+def test_dense_and_gather_flags_reach_the_engine(ckpt, monkeypatch, argv, path):
+    """``--concurrent N`` without a pool serves from dense slot caches, and
+    ``--paged-attention gather`` takes the contiguous-view path; either
+    batcher answers a request."""
+    built = {}
+
+    class _NoServe:
+        def serve_forever(self):
+            pass
+
+    def keep_provider(provider, host, port, **deadlines):
+        built["p"] = provider
+        return _NoServe()
+
+    monkeypatch.setattr(tapi, "make_server", keep_provider)
+    tapi.main(["--model", str(ckpt), "--device", "cpu", *argv])
+    batcher = built["p"].generator
+    try:
+        assert isinstance(batcher, ContinuousBatcher)
+        assert batcher.engine.decode_path == path and batcher.paged is (path != "dense")
+        out = list(batcher.generate_step(list(range(3, 12)), max_tokens=4))
+        assert 0 < len(out) <= 4
+    finally:
+        batcher.close()
 
 
 @pytest.mark.parametrize("argv,overcommit,is_async", [

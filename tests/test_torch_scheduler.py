@@ -226,12 +226,13 @@ def test_close_ends_every_stream(models):
 
 
 @pytest.mark.parametrize("kw", [
-    # async ticks and overcommit are ported; their two cases now hold the
-    # cold-slot spill and a draft engine, which still raise. Prefix sharing
-    # and the queue bound are ported too (tests/test_torch_prefix_cache.py,
+    # async ticks and overcommit are ported; their two cases held the
+    # cold-slot spill and a draft engine, which is ported too
+    # (test_a_dense_draft_engine_is_taken, tests/test_torch_draft_engine_batcher.py).
+    # Prefix sharing and the queue bound are ported (tests/test_torch_prefix_cache.py,
     # tests/test_torch_deadlines.py), and so are n-gram speculation and a
     # spec_k without a draft engine (tests/test_torch_spec_batcher.py)
-    dict(spill_cold_after=4), dict(draft_engine=object()),
+    dict(spill_cold_after=4),
     dict(spill_bytes=1 << 20), dict(kv_prefetch="on"),
     dict(prefix_store=object()),
 ])
@@ -239,6 +240,17 @@ def test_unported_batcher_options_raise(models, kw):
     """Each refusal names the ROADMAP item that ports it."""
     with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP queue 1, slice"):
         ContinuousBatcher(_engine(models), **kw)
+
+
+def test_a_dense_draft_engine_is_taken(models):
+    """A draft engine (a dense engine of the same slots and chunk) is taken
+    beside the paged target: engine-mode speculation, fixed ``spec_k``
+    rounds, sync ticks, its own slot caches."""
+    draft = PipelineEngine(models[2], microbatches=3, max_seq=64, prefill_chunk=8, device="cpu")
+    batcher = ContinuousBatcher(_engine(models), draft_engine=draft, spec_k=3)
+    assert batcher.draft is draft and batcher._spec_mode == "engine" and not batcher._async
+    assert batcher.spec_stats()["window_max"] == 3 and batcher.spec_tracker is None
+    assert batcher.dcache.k.shape[1] == 4  # three slots and the scratch slot
 
 
 def test_auto_async_resolves_to_sync_and_says_why(models):
@@ -253,14 +265,26 @@ def test_auto_async_resolves_to_sync_and_says_why(models):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pool_pages=None), "pass --paged-pool"),
     (dict(stages=2), "not yet ported"),
     (dict(tp=2), "not yet ported"),
-    (dict(paged_attention="gather"), "not yet ported"),
 ])
 def test_unported_engines_raise(models, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _engine(models, **kw)
+
+
+@pytest.mark.parametrize("kw,path", [(dict(pool_pages=None), "dense"),
+                                     (dict(paged_attention="gather"), "gather")])
+def test_dense_and_gather_engines_build_as_jax_resolves_them(models, kw, path):
+    """No pool gives the dense slot engine, ``gather`` the contiguous-view
+    path of the paged one: both build, with JAX's ``paged`` and
+    ``paged_attention``."""
+    jm, params, _ = models
+    jeng = JPipelineEngine(jm, params, pipeline_mesh(1), cache_dtype=jnp.float32,
+                           **{**ENGINE, **kw})
+    eng = _engine(models, **kw)
+    assert (eng.paged, eng.paged_attention) == (jeng.paged, jeng.paged_attention)
+    assert eng.decode_path == path
 
 
 @pytest.mark.parametrize("kw", [dict(page_size=12), dict(page_size=16, max_seq=40),

@@ -29,6 +29,7 @@ from chip_smoke import serve_on_this_thread
 from mlx_sharding_tpu import scheduler as jscheduler
 from mlx_sharding_tpu.parallel.mesh import pipeline_mesh
 from mlx_sharding_tpu.parallel.pipeline import PipelineEngine as JPipelineEngine
+from mlx_sharding_tpu_torch.parallel import PipelineEngine
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 from tests.test_torch_scheduler import ENGINE, _engine, _jobs, models  # noqa: F401
 
@@ -241,7 +242,7 @@ def test_ngram_always_runs_the_tracker(models):
 def test_async_reasons(models):
     """``auto`` resolves as JAX's does, with its reasons: plain decode and
     n-gram speculation are async; ``on`` and ``off`` are taken as asked; a
-    draft engine is refused as not yet ported."""
+    draft engine resolves ``auto`` to sync and refuses ``on``, as JAX's."""
     jeng = _jax_engine(models)
     for kw in (dict(), dict(draft="ngram"), dict(draft="ngram", async_sched="off"),
                dict(draft="ngram", async_sched="on")):
@@ -251,8 +252,17 @@ def test_async_reasons(models):
         jb.close()
     ngram = _port(models, draft="ngram", async_sched="auto")
     assert ngram._async and ngram._grow_ahead == 16
-    assert "slice 3 item 6" in _error(NotImplementedError,
-                                      lambda: _port(models, draft_engine=object()))
+    jm, params, tm = models
+    dense = dict(microbatches=3, max_seq=64, prefill_chunk=8)
+    jdraft = JPipelineEngine(jm, params, pipeline_mesh(1), cache_dtype=jnp.float32, **dense)
+    tdraft = PipelineEngine(tm, device="cpu", **dense)
+    jb = jscheduler.ContinuousBatcher(jeng, draft_engine=jdraft)
+    port = ContinuousBatcher(_engine(models), draft_engine=tdraft)
+    assert (port._async, port.async_reason) == (jb._async, jb.async_reason) and not port._async
+    want = _error(ValueError, lambda: jscheduler.ContinuousBatcher(jeng, draft_engine=jdraft,
+                                                                   async_sched="on"))
+    assert _error(ValueError, lambda: ContinuousBatcher(_engine(models), draft_engine=tdraft,
+                                                        async_sched="on")) == want
 
 
 def _host_plan(eng, offsets, table, active, steps):

@@ -1,8 +1,7 @@
 """The speculation flags of the port's CLI and server (``--draft``,
 ``--draft-model``, ``--spec-k``, ``--spec-window-max``) on the CPU: each
 check the JAX parsers make (for the flags both packages have) fails with
-the JAX parser's message, the port's refusals name the ROADMAP item, and on
-a tiny checkpoint (``tests/make_tiny_checkpoint.py``) the CLI's greedy
+the JAX parser's message, and on a tiny checkpoint (``tests/make_tiny_checkpoint.py``) the CLI's greedy
 text with ``--draft ngram`` and with the checkpoint as its own
 ``--draft-model`` equals its plain text, and the server builds the
 speculating generator or batcher the flags ask for, which answers what the
@@ -60,20 +59,52 @@ def test_server_checks_match_jax(argv, capsys):
     assert _parser_error(tapi.main, [*argv, "--device", "cpu"], capsys) == want
 
 
-@pytest.mark.parametrize("argv,message", [
-    (["--concurrent", "2", "--paged-pool", "4", "--draft-model", "draft"],
-     "not yet ported (ROADMAP queue 1, slice 3 item 6)"),
-    (["--concurrent", "2", "--paged-pool", "4", "--draft-model", "draft", "--draft", "engine"],
-     "not yet ported (ROADMAP queue 1, slice 3 item 6)"),
-])
-def test_server_refusals_name_the_roadmap_item(argv, message, capsys):
-    assert message in _parser_error(tapi.main, [*argv, "--device", "cpu"], capsys)
+@pytest.mark.parametrize("argv", [
+    ["--concurrent", "2", "--paged-pool", "4"],
+    ["--concurrent", "2", "--draft", "engine"],
+], ids=["paged", "dense_engine"])
+def test_server_builds_a_batched_draft_engine(ckpt, monkeypatch, argv):
+    """``--concurrent N --draft-model DIR`` gives the batcher a dense draft
+    engine with its slots, capacity and chunk, fixed ``--spec-k`` rounds and
+    sync ticks (JAX's ``auto`` resolution with a draft engine)."""
+    built = {}
+
+    class _NoServe:
+        def serve_forever(self):
+            pass
+
+    def keep_provider(provider, host, port, **deadlines):
+        built["p"] = provider
+        return _NoServe()
+
+    monkeypatch.setattr(tapi, "make_server", keep_provider)
+    tapi.main(["--model", str(ckpt), "--device", "cpu", "--draft-model", str(ckpt),
+               "--spec-k", "3", *argv])
+    batcher = built["p"].generator
+    assert isinstance(batcher, ContinuousBatcher) and batcher.draft is not None
+    assert not batcher.draft.paged and batcher.draft.microbatches == 2
+    assert batcher.paged is ("--paged-pool" in argv) and not batcher._async
+    st = batcher.spec_stats()
+    assert (st["mode"], st["window_max"], batcher.spec_tracker) == ("engine", 3, None)
 
 
-def test_batched_draft_model_is_refused_by_the_provider(ckpt):
-    with pytest.raises(NotImplementedError, match=r"slice 3 item 6"):
-        tapi.ModelProvider.from_checkpoint(str(ckpt), device="cpu", concurrent=2, paged_pool=4,
-                                           draft_model=str(ckpt))
+def test_batched_draft_model_answers_what_the_plain_batcher_answers(ckpt):
+    """The checkpoint as its own draft in the batcher's slots: greedy
+    answers equal the plain batcher's, and every proposal is accepted."""
+    texts = []
+    for draft_model in (None, str(ckpt)):
+        provider = tapi.ModelProvider.from_checkpoint(str(ckpt), device="cpu", concurrent=2,
+                                                      paged_pool=4, draft_model=draft_model)
+        batcher = provider.generator
+        try:
+            texts.append([[t for t, _ in batcher.generate_step(list(p), max_tokens=12)]
+                          for p in ([5, 9, 2, 7], [11, 3, 3])])
+        finally:
+            batcher.close()
+        if draft_model:
+            st = batcher.spec_stats()
+            assert st["rounds"] > 0 and st["accepted_tokens"] > st["rounds"]
+    assert texts[0] == texts[1]
 
 
 def _cli_text(ckpt, capsys, *extra):
