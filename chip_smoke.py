@@ -139,7 +139,9 @@ final line:
    = 2, 4, 8 split into the gather, ``masked_attention``, the products and
    the small kernels. The parity runs (graphs, eager, sync, overcommit;
    the prefix cache off and on) run on the model's first
-   ``BATCH_PARITY_LAYERS`` layers (its tensors shared).
+   ``BATCH_PARITY_LAYERS`` layers (its tensors shared). Every served run
+   (phases 6 and 10) ends with the server's ``/health`` before and after
+   the batcher's ``close()``: 200 ``ok``, then 503 ``draining``.
 7. speculation in f32 (``phase_spec_f32``, between 6 and 5): Llama-3.1-8B
    widths at 2 layers, 64 tokens: ``--draft ngram``, the self-draft, a
    2-layer Llama-3.2-1B-shaped draft and the batcher's n-gram speculation
@@ -191,6 +193,28 @@ final line:
    gather batchers token-identical to the Generator, the draft engine to
    plain greedy decode, and the new call sites' logits against the plain
    versions'.
+11. the server's single-host surfaces (``phase_surfaces``, between 10 and
+   5, on phase 4's dense model): a ``prompt_cache=True`` Generator
+   (capacity ``SURFACE_MAX_SEQ``) behind the server serves a three-turn
+   chat, each turn re-sending the history (forced replies): each turn's
+   TTFT, ``last_prefix_hit`` and prefill chunks, which start at the chunk
+   boundary at or below the hit; the hit turn unforced against a cold run
+   of the same prompt (the first token where the bf16 streams part); no
+   graph captured after ``warm_up`` and no eager forward; kernel 1's and
+   the T=1 route's launches against the chunks and steps; ``/metrics``
+   counters against the requests served; ``GET /`` the port's
+   ``index.html``. Kernel 1 at chunk starts 300 and 1000 (a full chunk)
+   over a cache whose later rows hold garbage, against its plain version
+   and bit-identical to the same call with those rows zero. A traced
+   batcher (``--trace on --trace-profile``, 2 slots): one streamed
+   request's spans from ``/admin/trace/<id>``, their ``decode_tick`` sum
+   against its wall time, and under ``--profile-dir`` the
+   ``mst.decode_block`` ranges in its ``torch.profiler`` trace against the
+   blocks it dispatched. Hot-swap: two 2-layer checkpoints of the 8B
+   config written to a temporary directory, a request naming the second
+   swaps it in and one naming the first swaps it back (each load's
+   seconds and ``torch.cuda.memory_allocated``). Then in f32 at 2 layers
+   the hit request's greedy stream against a cold Generator's.
 
 Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
 layers, the eager turn of phases 4-5's step timing an
@@ -212,13 +236,16 @@ import concurrent.futures
 import copy
 import dataclasses
 import gc
+import glob
 import http.client
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -1672,7 +1699,7 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
             list(g.generate_step(ids, max_tokens=1))
             fa.flash_decode.launches = 0
             step = step_numbers(
-                lambda g=g: g.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
+                lambda g=g: g.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
                 calls=2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
             step_launches = fa.flash_decode.launches
         streams.append(toks)
@@ -1828,7 +1855,7 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
         streams.setdefault(mode, []).append((toks[:EAGER_STREAM_TOKENS], sampled))
         list(g.generate_step(ids, max_tokens=1))  # the state of a request at its first token
         row["decode"] = step_numbers(
-            lambda g=g: g.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
+            lambda g=g: g.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
             calls=1 if eager else 2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
         row["prefill_chunk"] = step_numbers(lambda g=g: g.run_chunk(CHUNK), calls=4, steps=1,
                                             profiled=2)
@@ -2073,6 +2100,13 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
         tick_line(tag, batcher)
         ticks = batcher.tick_timing_stats()
         deadline_check(port, batcher, tag)
+        health = [get(port, "/health")]
+        batcher.close()
+        health.append(get(port, "/health"))
+        log(f"{tag} /health before close(): {health[0][0]} {health[0][1].decode()}; after: "
+            f"{health[1][0]} {health[1][1].decode()}")
+        check([(status, json.loads(body)["status"]) for status, body, _ in health]
+              == [(200, "ok"), (503, "draining")], "the batcher's /health around close()")
     finally:
         server.shutdown()
         server.server_close()
@@ -3199,6 +3233,471 @@ def phase_dense_batching(model, seed: int, single_stream_tok_s: float, lap) -> t
     return launches, stats
 
 
+# ---------------------------------------- phase 11: the server's surfaces
+# the prompt cache's Generator (8 prefill graphs, decode blocks of 8 as the
+# server's --decode-block 8 makes them), its chat (a first user message of
+# this many bytes, then two follow-ups, each turn's reply forced to this
+# many 'A's), and the unforced hit and cold runs' tokens
+SURFACE_MAX_SEQ = 2048
+SURFACE_DECODE_BLOCK = 8
+CHAT_FIRST = 1200
+CHAT_REPLY = 32
+CHAT_FOLLOW_UPS = ("Now say it again, shorter.", "Once more, and slower.")
+HIT_TOKENS = 48
+# kernel 1 at chunk starts off the chunk grid, over a cache whose rows past
+# the chunk hold garbage of this scale
+UNALIGNED_OFFSETS = (300, 1000)
+STALE_SCALE = 64.0
+# the traced batcher: 2 slots over the pages of 2 requests of this capacity;
+# the traced request, and the shorter profiled one (its trace holds every
+# kernel of its graphs' replays)
+TRACE_MAX_SEQ = 1024
+TRACE_PROMPT = 600
+TRACE_TOKENS = 64
+PROFILE_PROMPT = 200
+PROFILE_TOKENS = 17
+# the hot-swap checkpoints: the 8B config cut to this depth
+SWAP_LAYERS = 2
+SWAP_MAX_SEQ = 512
+
+
+def get(port, path):
+    """One GET: (status, body bytes, content type)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data, resp.getheader("Content-Type")
+
+
+def metric_values(text: str) -> dict:
+    """The samples of a ``/metrics`` scrape, keyed by name and labels."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            key, value = ln.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+class served:
+    """The port's server over ``provider`` on a thread for a ``with``
+    block, which gets its port."""
+
+    def __init__(self, provider, **kw):
+        from mlx_sharding_tpu_torch.server.openai_api import make_server
+
+        self.server = make_server(provider, "127.0.0.1", 0, **kw)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self.server.server_address[1]
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+
+
+def chat_turns(port, gen, messages, force, prompt_len) -> tuple:
+    """The three-turn chat through the prompt-cache server, each turn
+    re-sending the history with the last turn's forced reply: per turn its
+    TTFT, ``last_prefix_hit`` and prefill chunks (from the chunk boundary
+    at or below the hit). Returns the rows and the messages so far."""
+    rows = []
+    for turn in range(1 + len(CHAT_FOLLOW_UPS)):
+        if turn:
+            messages = messages + [{"role": "assistant", "content": "A" * CHAT_REPLY},
+                                   {"role": "user", "content": CHAT_FOLLOW_UPS[turn - 1]}]
+        status, events, t_head, t_end = post(port, "/v1/chat/completions", {
+            "messages": messages, "max_tokens": CHAT_REPLY, "stream": True,
+            "logit_bias": force}, stream=True)
+        check(status == 200 and stream_text(events, chat=True) == "A" * CHAT_REPLY,
+              f"chat turn {turn + 1}: status {status}")
+        n, hit = prompt_len(messages), gen.last_prefix_hit
+        chunks = -(-(n - hit // CHUNK * CHUNK) // CHUNK)
+        rows.append({"turn": turn + 1, "prompt": n, "hit": hit, "chunks": chunks,
+                     "ttft_ms": t_head * 1e3})
+        log(f"[surfaces] chat turn {turn + 1}: {n}-token prompt, last_prefix_hit {hit}, "
+            f"{chunks} prefill chunks from position {hit // CHUNK * CHUNK}, TTFT "
+            f"{t_head * 1e3:.1f} ms, {CHAT_REPLY} forced tokens in {t_end:.3f}s")
+    check(rows[0]["hit"] == 0 and all(r["hit"] >= p["prompt"] for p, r in zip(rows, rows[1:])),
+          "a chat turn did not reuse the previous turn's prompt")
+    return rows, messages
+
+
+def surface_prompt_cache(model) -> tuple:
+    """The prompt-cache Generator behind the server: the chat, the hit turn
+    against a cold run of the same prompt (unforced greedy, bf16: the first
+    token where they part), no graph captured after ``warm_up`` and no
+    eager forward, every replay and launch against the requests' chunks and
+    blocks; then ``/metrics`` against the requests served, and the static
+    UI. Returns the numbers and the served launches."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
+    from mlx_sharding_tpu_torch.server.openai_api import STATIC_DIR, ModelProvider, convert_chat
+
+    tag = "[surfaces]"
+    tok = ByteTokenizer()
+    gen = Generator(model, max_seq=SURFACE_MAX_SEQ, prefill_chunk=CHUNK, prompt_cache=True,
+                    decode_block=SURFACE_DECODE_BLOCK)
+    graph_line(tag, gen.warm_up())
+    provider = ModelProvider(gen, tok, model_name="llama-3.1-8b-chat")
+    words = ("pipeline stages pass activations over rings while the cache grows; "
+             "every chunk of the prompt runs through the flash kernel. ")
+    messages = [{"role": "user", "content": (words * 20)[:CHAT_FIRST]}]
+    prompt_len = lambda msgs: len(tok.encode(convert_chat(msgs)))  # noqa: E731
+    blocks = lambda n: -(-(n - 1) // SURFACE_DECODE_BLOCK)  # noqa: E731
+    stats = {}
+    with served(provider) as port:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"warm-up request failed: {status}")
+        fa.flash_attention.launches = fa.flash_decode.launches = 0
+        run = ServedRun(gen, model)
+        turns, messages = chat_turns(port, gen, messages, {"65": 100.0}, prompt_len)
+        chunks = sum(r["chunks"] for r in turns)
+        steps = len(turns) * blocks(CHAT_REPLY)
+        # the hit turn unforced, then the same prompt cold (a request of
+        # another first byte between them empties the match)
+        messages = messages + [{"role": "assistant", "content": "A" * CHAT_REPLY},
+                               {"role": "user", "content": "And a last word?"}]
+        ids, hits = {}, {}
+        for name, first in (("hit", None), ("cold", "x")):
+            if first is not None:
+                status, _, _, _ = post(port, "/v1/completions", {"prompt": first,
+                                                                  "max_tokens": 2})
+                check(status == 200, f"the reset request: {status}")
+                chunks, steps = chunks + 1, steps + blocks(2)
+            status, body, _, t_end = post(port, "/v1/chat/completions", {
+                "messages": messages, "max_tokens": HIT_TOKENS, "logprobs": 1})
+            check(status == 200, f"the {name} run: status {status}: {body}")
+            ids[name] = body["choices"][0]["logprobs"]["tokens"]
+            hits[name] = gen.last_prefix_hit
+            n = prompt_len(messages)
+            chunks += -(-(n - hits[name] // CHUNK * CHUNK) // CHUNK)
+            steps += blocks(HIT_TOKENS)
+            log(f"{tag} the {name} run: {n}-token prompt, last_prefix_hit {hits[name]}, "
+                f"{HIT_TOKENS} greedy tokens in {t_end:.3f}s")
+        check(hits["hit"] >= turns[-1]["prompt"] and hits["cold"] == 0,
+              f"hit / cold prefix hits {hits}")
+        part = next((i for i, (a, b) in enumerate(zip(ids["hit"], ids["cold"])) if a != b), None)
+        check(len(ids["hit"]) == len(ids["cold"]) == HIT_TOKENS, "hit / cold token counts")
+        log(f"{tag} the hit turn against the cold run of the same prompt (bf16, greedy): "
+            + ("token-identical for all {} tokens".format(HIT_TOKENS) if part is None else
+               f"the first {part} tokens equal, then they part (a recomputed row's bf16 "
+               "rounding)"))
+        stats["first_divergence"] = part
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "flash_decode": fa.flash_decode.launches}
+        layers = model.config.num_hidden_layers
+        log(f"{tag} flash_attention launches {launches['flash_attention']}, expected {layers} x "
+            f"{chunks} chunks = {layers * chunks}")
+        check(launches["flash_attention"] == layers * chunks,
+              "flash launches disagree with the prefill chunks from the hits")
+        want = layers * SURFACE_DECODE_BLOCK * steps if flash_decode_on() else 0
+        log(f"{tag} flash_decode launches {launches['flash_decode']}, expected {want}")
+        check(launches["flash_decode"] == want, "flash_decode launches disagree with the steps")
+        run.check(tag, chunks + steps)  # replays only: no capture after warm_up
+        # /metrics against the requests served (the warm-up among them)
+        status, text, ctype = get(port, "/metrics")
+        values = metric_values(text.decode())
+        served_prompts = ([len(tok.encode("warm up")), *(r["prompt"] for r in turns), 1,
+                           2 * prompt_len(messages)])
+        want = {"mst_requests_total": 2 + len(turns) + 2,
+                "mst_prompt_tokens_total": sum(served_prompts),
+                "mst_generation_tokens_total": 2 + len(turns) * CHAT_REPLY + 2 + 2 * HIT_TOKENS,
+                "mst_requests_failed_total": 0}
+        got = {k: int(values[k]) for k in want}
+        log(f"{tag} /metrics ({ctype}): {got}; mst_ttft_seconds_count "
+            f"{int(values['mst_ttft_seconds_count'])}, sum {values['mst_ttft_seconds_sum']:.3f} s")
+        check(status == 200 and got == want, f"/metrics counters {got}, want {want}")
+        status, body, ctype = get(port, "/")
+        check(status == 200 and ctype == "text/html"
+              and body == (STATIC_DIR / "index.html").read_bytes(), "GET / is not index.html")
+        log(f"{tag} GET /: 200 {ctype}, the port's index.html ({len(body)} bytes)")
+    stats["turns"] = turns
+    del gen, provider
+    return stats, launches
+
+
+def unaligned_flash_check(seed: int) -> float:
+    """Kernel 1 at chunk starts off the chunk grid (``UNALIGNED_OFFSETS``,
+    a full chunk) at the 8B shapes, over a cache whose rows past the chunk
+    hold garbage (``STALE_SCALE`` x normal): within ``kernel_disagreement``'s
+    limits of its plain version, and bit-identical to the same call with
+    those rows zero (they are never read). Returns the largest error."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    q, k, v = attention_inputs(gen, 1, CHUNK, MAX_SEQ, 32, 8, 128, 128, torch.bfloat16)
+    scale = 128 ** -0.5
+    worst_err = 0.0
+    for offset in UNALIGNED_OFFSETS:
+        end = offset + CHUNK
+        for t in (k, v):
+            t[:, end:] = (torch.randn(t[:, end:].shape, generator=gen, device="cuda")
+                          * STALE_SCALE).to(t.dtype)
+        got = fa.flash_attention(q, k, v, offset, scale)
+        ref = fa.flash_attention_reference(q, k, v, offset, scale)
+        k[:, end:] = 0
+        v[:, end:] = 0
+        clean = fa.flash_attention(q, k, v, offset, scale)
+        torch.cuda.synchronize()
+        err, worst, rel_l2 = kernel_disagreement(got, ref)
+        same = torch.equal(got, clean)
+        log(f"[kernels] flash_attention at the unaligned chunk start {offset} (T {CHUNK}), rows "
+            f"past {end} stale: max_abs_err {err:.3e}, worst err/limit {worst:.3f} (tol 1), "
+            f"relative L2 {rel_l2:.3e}; bit-identical with those rows zero {same}")
+        check(worst <= 1 and rel_l2 <= REL_L2_TOL and same,
+              f"flash_attention at offset {offset} over stale rows disagrees")
+        worst_err = max(worst_err, err)
+    return worst_err
+
+
+def surface_tracing(model) -> tuple:
+    """A traced batcher (``--trace on --trace-profile``; 2 slots, a pool of
+    ``PAGE``-token pages) behind the server: one streamed request's spans
+    from ``/admin/trace/<id>`` and their ``decode_tick`` sum against its
+    wall time, its replays and launches against its chunks and steps, the
+    batcher's ``/metrics`` and ``/health``; then the same request under
+    ``--profile-dir``: the ``mst.decode_block`` ranges of the
+    ``torch.profiler`` trace against the blocks dispatched (a shorter
+    request: the trace holds every kernel its graphs replay). Returns the
+    numbers and the traced request's launches."""
+    from mlx_sharding_tpu_torch import tracing
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider
+
+    tag = "[trace]"
+    tracing.configure("on", profile=True)
+    engine = PipelineEngine(model, microbatches=2, max_seq=TRACE_MAX_SEQ, prefill_chunk=CHUNK,
+                            pool_pages=2 * TRACE_MAX_SEQ // PAGE, page_size=PAGE,
+                            device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8)
+    stats = {}
+    try:
+        graph_line(tag, batcher.warm_up())
+        provider = ModelProvider(batcher, ByteTokenizer(), model_name="llama-3.1-8b-traced")
+        body = {"prompt": mix_prompt(0, TRACE_PROMPT), "max_tokens": TRACE_TOKENS,
+                "stream": True, "logit_bias": {"65": 100.0}}
+        with served(provider) as port:
+            status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up",
+                                                             "max_tokens": 2})
+            check(status == 200, f"warm-up request failed: {status}")
+            pa.paged_attention.launches = fa.flash_attention.launches = 0
+            fa.flash_decode.launches = 0
+            run = ServedRun(batcher, engine)
+            steps0, chunks0 = batcher.decode_steps, batcher.prefill_chunks
+            status, events, t_head, t_end = post(port, "/v1/completions", body, stream=True)
+            check(status == 200 and stream_text(events, chat=False) == "A" * TRACE_TOKENS,
+                  f"traced request: status {status}")
+            rid = events[0]["id"]
+            launches = {"paged_attention": pa.paged_attention.launches,
+                        "flash_attention": fa.flash_attention.launches,
+                        "flash_decode": fa.flash_decode.launches}
+            steps = batcher.decode_steps - steps0
+            chunks = batcher.prefill_chunks - chunks0
+            run.check(tag, chunks + steps // batcher.decode_block)
+            layers = model.config.num_hidden_layers
+            want = {"paged_attention": layers * steps, "flash_attention": layers * chunks,
+                    "flash_decode": 0}
+            log(f"{tag} launches {launches}, expected {want} ({layers} layers x {chunks} chunks "
+                f"and {steps} decode steps)")
+            check(launches == want, "launches disagree with the batcher's chunks and steps")
+            status, data, _ = get(port, f"/admin/trace/{rid}")
+            check(status == 200, f"/admin/trace/{rid}: {status}")
+            spans = [e for e in json.loads(data)["traceEvents"] if e["ph"] == "X"]
+            names = [e["name"] for e in spans]
+            runs = []
+            for name in names:
+                if runs and runs[-1][0] == name:
+                    runs[-1][1] += 1
+                else:
+                    runs.append([name, 1])
+            tick_ms = sum(e["dur"] for e in spans if e["name"] == "decode_tick") / 1e3
+            marks = [e["name"] for e in json.loads(data)["traceEvents"] if e["ph"] == "i"]
+            log(f"{tag} /admin/trace/{rid}: spans "
+                + ", ".join(f"{n} x{c}" if c > 1 else n for n, c in runs)
+                + f"; marks {marks}; decode_tick spans sum {tick_ms:.1f} ms of the request's "
+                f"{t_end * 1e3:.1f} ms wall (TTFT {t_head * 1e3:.1f} ms)")
+            check({"queue_wait", "prefill", "decode_tick", "sse_write"} == set(names)
+                  and marks == ["submit", "first_token", "finish"], "the request's timeline")
+            stats.update(spans=runs, decode_tick_ms=tick_ms, wall_ms=t_end * 1e3)
+            status, text, _ = get(port, "/metrics")
+            values = metric_values(text.decode())
+            keys = ("mst_batch_slots", "mst_scheduler_thread_live", "mst_itl_seconds_count",
+                    "mst_queue_wait_seconds_count", "mst_kv_bytes_read_total",
+                    'mst_decode_hbm_bytes_per_token{kind="weights"}',
+                    'mst_tick_device_blocked_ms{path="async"}')
+            log(f"{tag} /metrics: " + ", ".join(f"{k} {values[k]:g}" for k in keys))
+            check(values["mst_requests_total"] == 2 and values["mst_scheduler_thread_live"] == 1,
+                  "the batcher's /metrics")
+        prof_dir = tempfile.mkdtemp(prefix="mst-profile-")
+        with served(provider, profile_dir=prof_dir) as port:
+            steps0 = batcher.decode_steps
+            status, events, _, t_end = post(port, "/v1/completions", {
+                **body, "prompt": mix_prompt(1, PROFILE_PROMPT), "max_tokens": PROFILE_TOKENS},
+                stream=True)
+            check(status == 200, f"profiled request: status {status}")
+            blocks = (batcher.decode_steps - steps0) // batcher.decode_block
+        (path,) = glob.glob(os.path.join(prof_dir, "trace-*.json"))
+        with open(path) as f:
+            trace_events = json.load(f)["traceEvents"]
+        ranges = sum(1 for e in trace_events
+                     if e.get("name") == "mst.decode_block" and e.get("cat") == "user_annotation")
+        kernels = sum(1 for e in trace_events if e.get("cat") == "kernel")
+        log(f"{tag} --profile-dir --trace-profile: the request's torch.profiler trace "
+            f"({os.path.getsize(path) / 1e6:.1f} MB, {kernels} kernels) holds {ranges} "
+            f"mst.decode_block ranges for the {blocks} decode blocks it dispatched "
+            f"({t_end:.3f}s under the profiler)")
+        check(ranges == blocks > 0, "mst.decode_block ranges disagree with the blocks")
+        stats["profile_ranges"] = ranges
+        shutil.rmtree(prof_dir)
+    finally:
+        tracing.configure("off")
+        batcher.close()
+    return stats, launches
+
+
+def write_llama_checkpoint(model, config: dict, path: str) -> None:
+    """``model``'s weights under their Hugging Face names, with ``config``,
+    as a checkpoint directory that the port's loader reads."""
+    from mlx_sharding_tpu_torch.loading import write_safetensors
+
+    os.makedirs(path)
+    layer_names = {ours: hf for hf, ours in type(model).HF_LAYER_MAP.items()}
+    other = {"embed_tokens.weight": "model.embed_tokens.weight", "final_norm": "model.norm.weight",
+             "lm_head.weight": "lm_head.weight"}
+    tensors = {}
+    for name, t in model.state_dict().items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            tensors[f"model.layers.{i}.{layer_names[rest]}"] = t
+        else:
+            tensors[other[name]] = t
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+
+
+def surface_hot_swap(seed: int) -> dict:
+    """Model hot-swap by request name: two ``SWAP_LAYERS``-layer checkpoints
+    of the 8B config (other seeds) written to a temporary directory; a
+    provider loads the first as from its ``--model``, a request naming the
+    second swaps it in, one naming the first swaps it back and answers as
+    before. Each load's seconds and ``torch.cuda.memory_allocated`` after it:
+    the replaced generator is released."""
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider
+
+    tag = "[swap]"
+    config = {**LLAMA_31_8B, "num_hidden_layers": SWAP_LAYERS}
+    tmp = tempfile.mkdtemp(prefix="mst-swap-")
+    stats = {"loads": []}
+    try:
+        t0 = time.perf_counter()
+        paths = []
+        for i in range(2):
+            m, _ = build_model(config, dtype=torch.bfloat16)
+            m.init_params(torch.Generator(device="cuda").manual_seed(seed + 41 + i), "cuda")
+            paths.append(os.path.join(tmp, f"llama-3.1-8b-{SWAP_LAYERS}-layers-{i}"))
+            write_llama_checkpoint(m, config, paths[-1])
+            del m
+        size = os.path.getsize(os.path.join(paths[0], "model.safetensors"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        log(f"{tag} two {SWAP_LAYERS}-layer checkpoints of the 8B config written "
+            f"({size / 1e9:.2f} GB each) in {time.perf_counter() - t0:.1f}s; "
+            f"memory_allocated before loading {base / 1e9:.2f} GB")
+        provider = ModelProvider.from_checkpoint(
+            paths[0], trust_remote_paths=True, tokenizer_loader=lambda _: ByteTokenizer(),
+            device="cuda", max_seq=SWAP_MAX_SEQ, prefill_chunk=CHUNK)
+
+        def loaded(what):
+            gc.collect()
+            mem = torch.cuda.memory_allocated()
+            stats["loads"].append((what, provider.load_seconds, mem))
+            log(f"{tag} {what}: loaded in {provider.load_seconds:.2f}s (weights, generator, "
+                f"graphs); memory_allocated {mem / 1e9:.2f} GB ({(mem - base) / 1e9:.2f} GB "
+                "over the rest of the run)")
+
+        loaded(f"load of {os.path.basename(paths[0])} (--model)")
+        answers = []
+        with served(provider) as port:
+            for i, name in enumerate((paths[0], paths[1], paths[0])):
+                status, body, _, t_end = post(port, "/v1/completions", {
+                    "prompt": "swap the model", "max_tokens": 8, "logprobs": 1, "model": name})
+                check(status == 200, f"request naming {name}: {status}: {body}")
+                answers.append(body["choices"][0]["logprobs"]["tokens"])
+                if i:
+                    loaded(f"swap to {os.path.basename(name)} by a request ({t_end:.2f}s "
+                           "with its answer)")
+        check(answers[0] == answers[2], "the swap back answers otherwise")
+        check(answers[0] != answers[1], "both checkpoints answer alike: no swap happened")
+        mems = [m for _, _, m in stats["loads"]]
+        check(max(mems) - min(mems) <= 0.05 * (max(mems) - base),
+              "memory grew across swaps: a replaced generator was kept")
+        del provider
+    finally:
+        shutil.rmtree(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def prompt_cache_f32(seed: int) -> dict:
+    """The prompt cache in f32 at the 8B widths and ``F32_LAYERS`` layers: a
+    first request, then one that re-sends it with its reply and more; the
+    hit request's greedy stream token-identical to a cold Generator's."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.models import build_model
+
+    tok = ByteTokenizer()
+    model, _ = build_model({**LLAMA_31_8B, "num_hidden_layers": F32_LAYERS},
+                           dtype=torch.float32)
+    model.init_params(torch.Generator(device="cuda").manual_seed(seed + 51), "cuda")
+    cached = Generator(model, max_seq=F32_MAX_SEQ, prefill_chunk=CHUNK, prompt_cache=True)
+    cached.warm_up()
+    cold = Generator(model, max_seq=F32_MAX_SEQ, prefill_chunk=CHUNK)
+    first = tok.encode(mix_prompt(3, 500))
+    reply = [t for t, _ in cached.generate_step(first, max_tokens=F32_TOKENS)]
+    prompt = first + reply + tok.encode(" and then?")
+    got = [t for t, _ in cached.generate_step(prompt, max_tokens=F32_TOKENS)]
+    want = [t for t, _ in cold.generate_step(prompt, max_tokens=F32_TOKENS)]
+    hit = cached.last_prefix_hit
+    log(f"[surfaces-f32] {F32_LAYERS} layers at the 8B widths: the hit request "
+        f"({len(prompt)}-token prompt, last_prefix_hit {hit}, prefill from {hit // CHUNK * CHUNK}) "
+        f"{'token-identical to' if got == want else 'differs from'} a cold Generator over "
+        f"{F32_TOKENS} greedy tokens")
+    check(hit >= len(first) and got == want, "the f32 hit stream differs from the cold one")
+    return {"hit": hit, "prompt": len(prompt)}
+
+
+def phase_surfaces(model, seed: int, lap) -> tuple:
+    """Phase 11: the server's single-host surfaces on phase 4's model
+    (``surface_prompt_cache``, ``unaligned_flash_check``,
+    ``surface_tracing``, ``surface_hot_swap``, ``prompt_cache_f32``).
+    Returns the served runs' launches per kernel, and the numbers."""
+    stats, launches = surface_prompt_cache(model)
+    lap("phase 11, the prompt cache, /metrics and the static UI")
+    stats["unaligned_err"] = unaligned_flash_check(seed)
+    stats["trace"], traced = surface_tracing(model)
+    for key, n in traced.items():
+        launches[key] = launches.get(key, 0) + n
+    lap("phase 11, kernel 1 at unaligned starts, tracing and profiling")
+    stats["swap"] = surface_hot_swap(seed)
+    stats["f32"] = prompt_cache_f32(seed)
+    lap("phase 11, hot-swap and the f32 check")
+    return launches, stats
+
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------ the families' kernel paths
@@ -3864,7 +4363,7 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
         f"layers: {want}")
     check(launches == want, f"{tag} a route's launches disagree with the chunks and steps")
     list(gen.generate_step(tok.encode(mix_prompt(0, n)), max_tokens=1))
-    step = step_numbers(lambda: gen.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False,
+    step = step_numbers(lambda: gen.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False,
                                                  False), calls=2, steps=DEFAULT_DECODE_BLOCK,
                         profiled=1)
     stats["step"] = step
@@ -4539,6 +5038,7 @@ def main(argv=None) -> int:
     phase_spec_f32(args.seed)
     lap("speculation in f32")
     dense_launches, dense = phase_dense_batching(model, args.seed, single["decode_tok_s"], lap)
+    surface_launches, surfaces = phase_surfaces(model, args.seed, lap)
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model
@@ -4555,8 +5055,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mlx_sharding_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
-        "launches": launches["flash_attention"] + dense_launches["flash_attention"],
-        "max_abs_err": max(max_err, dense["kernels"]["flash_attention"]),
+        "launches": (launches["flash_attention"] + dense_launches["flash_attention"]
+                     + surface_launches["flash_attention"]),
+        "max_abs_err": max(max_err, dense["kernels"]["flash_attention"],
+                           surfaces["unaligned_err"]),
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
@@ -4576,7 +5078,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/paged_attention.py:153",
-        "launches": paged_launches,
+        "launches": paged_launches + surface_launches["paged_attention"],
         "max_abs_err": paged_err,
         "ms": pmean("ms"),
         "plain_ms": pmean("plain_ms"),
@@ -4594,7 +5096,7 @@ def main(argv=None) -> int:
         "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_decode"] + quant_launches["flash_decode"]
-                     + dense_launches["flash_decode"]),
+                     + dense_launches["flash_decode"] + surface_launches["flash_decode"]),
         "max_abs_err": max(decode_err, dense["kernels"]["flash_decode"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],

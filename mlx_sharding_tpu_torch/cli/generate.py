@@ -4,11 +4,14 @@
     python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
         [--keep-quantized] [--device cpu] \
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]] \
-        [--paged-attention auto|ragged|gather]
+        [--paged-attention auto|ragged|gather] [--async-sched auto] [--kv-dtype bf16] \
+        [--no-chat-template]
 
-The CLI runs one stream, which ``--paged-attention`` leaves as it is, as in
-the JAX CLI; the batcher's paths are the server's (``--concurrent N
-[--paged-pool P]``).
+The CLI runs one stream, which ``--paged-attention``, ``--async-sched`` and
+``--kv-dtype bf16`` leave as it is, as in the JAX CLI (they mirror the
+server's flags; ``--kv-dtype int8`` is refused: it needs a paged pool); the
+batcher's paths are the server's (``--concurrent N [--paged-pool P]``).
+``--no-chat-template`` encodes the prompt as it is.
 
 Streams the text and reports prompt/generation tok/s and TTFT on stderr
 (and, when speculating, the rounds and the accept rate). On a card the
@@ -69,6 +72,23 @@ def main(argv=None):
                         "'gather' keeps the contiguous per-slot view, 'auto' "
                         "picks ragged where supported; forwarded to the "
                         "engine, a no-op on dense single-stream runs")
+    parser.add_argument("--async-sched",
+                        choices=("on", "off", "auto"), default="auto",
+                        help="tick pipelining for the continuous batcher: "
+                        "dispatch decode block t+1 before harvesting block "
+                        "t's tokens so host scheduling overlaps device "
+                        "compute ('auto' enables it for plain decode, "
+                        "disables it when a draft engine is attached); "
+                        "accepted here for flag parity with the server — "
+                        "the single-stream CLI path always harvests "
+                        "synchronously, so this is a no-op")
+    parser.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
+                        help="KV-pool storage dtype; accepted for flag "
+                        "parity with the server. 'int8' needs a paged pool "
+                        "(server --concurrent/--paged-pool) — the "
+                        "single-stream CLI allocates dense caches, so only "
+                        "'bf16' is valid here")
+    parser.add_argument("--no-chat-template", action="store_true")
     args = parser.parse_args(argv)
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine requires --draft-model")
@@ -82,6 +102,9 @@ def main(argv=None):
         if args.draft not in ("ngram", "engine") and not args.draft_model:
             parser.error("--spec-window-max needs a draft source "
                          "(--draft ngram or --draft-model)")
+    if args.kv_dtype == "int8":
+        parser.error("--kv-dtype int8 requires a paged KV pool; serve with "
+                     "--concurrent N --paged-pool P instead")
 
     from mlx_sharding_tpu_torch.device import resolve_device
 
@@ -113,7 +136,7 @@ def main(argv=None):
         print(f"captured {captured['graphs']} CUDA graphs in {captured['seconds']:.2f}s, "
               f"graph pool {captured['pool_bytes'] / 1e6:.1f} MB", file=sys.stderr)
     tokenizer = load_tokenizer(args.model)
-    if getattr(tokenizer, "chat_template", None):
+    if getattr(tokenizer, "chat_template", None) and not args.no_chat_template:
         prompt_ids = tokenizer.apply_chat_template(
             [{"role": "user", "content": args.prompt}], tokenize=True, add_generation_prompt=True
         )

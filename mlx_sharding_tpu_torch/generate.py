@@ -19,10 +19,21 @@
   Generator's buffers, so it owns one cache of ``max_seq`` and one of every
   other carry, and resets them per request. On the CPU the same step
   functions run eagerly.
+- The prompt cache (``prompt_cache=True``, JAX's chat-turn path): a request
+  reuses the previous request's KV rows for the longest common token
+  prefix (``last_prefix_hit``, JAX's number: capped one token short of the
+  prompt, aligned down where the padded last chunk would cross
+  ``max_seq``). The prefill then starts at the chunk boundary at or below
+  the hit and recomputes the few rows between from the same tokens: a
+  chunk's graph is keyed by its offset, so a start at any other position
+  would capture a new graph while serving. Rows past the offset are stale
+  and never attended. The tokens kept for the next request are exactly
+  those whose rows are known to be written: the prompt, the first token
+  and the tokens of every decode block the host pulled, less the last
+  (the lookahead block's rows hold tokens the host never saw).
 
 Speculative decoding over a Generator lives in ``speculative.py``. The
-server's ``--decode-block`` flag, the prompt cache and the
-sequence-parallel paths come with later slices.
+sequence-parallel paths come with a later slice.
 """
 
 from __future__ import annotations
@@ -81,10 +92,12 @@ def block_token_logprobs(outs, j, row=0) -> TokenLogprobs:
     return TokenLogprobs(float(outs[1][j, row]), outs[3][j, row], outs[2][j, row])
 
 
-def blocked_token_stream(dispatch, remaining, block_size, want_logprobs):
+def blocked_token_stream(dispatch, remaining, block_size, want_logprobs, sink=None):
     """The blocked decode loop with one block of lookahead: ``dispatch()``
     enqueues one whole block of ``block_size`` steps and returns its stacked
-    outputs; the tokens past ``remaining`` are never yielded."""
+    outputs; the tokens past ``remaining`` are never yielded. ``sink``
+    (optional) gets each pulled block's tokens, those past ``remaining``
+    included, so a prompt cache can name every row the blocks wrote."""
     n_blocks = -(-remaining // block_size)
     pending = [dispatch()]
     emitted = 0
@@ -92,6 +105,8 @@ def blocked_token_stream(dispatch, remaining, block_size, want_logprobs):
         if bi + 1 < n_blocks:
             pending.append(dispatch())
         outs = [o.cpu().numpy() for o in pending.pop(0)]
+        if sink is not None:
+            sink(int(t) for t in outs[0][:, 0])
         for j in range(outs[0].shape[0]):
             if emitted >= remaining:
                 return
@@ -126,7 +141,12 @@ class Generator:
     one kernel launch. Unlike the JAX ``Generator``, which fuses a shallow
     copy of its params, this fuses the caller's model IN PLACE, so the
     packed weights are held once; ``fused_projections`` names what was
-    fused (nothing for a dense model, or one fused before)."""
+    fused (nothing for a dense model, or one fused before).
+
+    ``decode_block``: the decode steps of one block (the server's
+    ``--decode-block``; ``warm_up`` captures that size). ``prompt_cache``:
+    reuse the previous request's rows for the longest common token prefix
+    (the module's docstring); ``last_prefix_hit`` is the last request's."""
 
     def __init__(
         self,
@@ -135,7 +155,11 @@ class Generator:
         max_seq: int = 4096,
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
         cuda_graphs: bool = True,
+        decode_block: int = DEFAULT_DECODE_BLOCK,
+        prompt_cache: bool = False,
     ):
+        if decode_block < 1:
+            raise ValueError(f"decode_block must be >= 1, got {decode_block}")
         from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
         from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
         from mlx_sharding_tpu_torch.ops.flash_attention import decode_tables
@@ -145,6 +169,10 @@ class Generator:
         self.device = dev = model.device
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
         self.prefill_chunk = prefill_chunk
+        self.decode_block = decode_block
+        self._prompt_cache = bool(prompt_cache)
+        self._pc_tokens: Optional[np.ndarray] = None  # the rows the cache holds, by token
+        self.last_prefix_hit = 0
         model.place_constants(dev)
         # the T=1 route's page table over this cache: a host copy, which a
         # captured step must not make
@@ -206,25 +234,28 @@ class Generator:
         return self._run(("prefill", offset), functools.partial(self._prefill_step, offset),
                          state=(self.cache.pos,))
 
-    def run_prefill(self, prompt: np.ndarray) -> torch.Tensor:
+    def run_prefill(self, prompt: np.ndarray, start: int = 0) -> torch.Tensor:
         """Chunked prefill of ``prompt`` (1, T) into the Generator's cache
-        from position 0. Returns the logits (1, V) at the last valid
-        position; the cache's offset and device position end at T."""
+        from position ``start`` (a chunk multiple; the rows before it are
+        kept). Returns the logits (1, V) at the last valid position; the
+        cache's offset and device position end at T."""
         c = self.prefill_chunk
+        if start % c:
+            raise ValueError(f"prefill start {start} is not a multiple of the chunk {c}")
         n = prompt.shape[1]
         padded = np.zeros((1, -(-n // c) * c), np.int64)
         padded[:, :n] = prompt
         tokens = upload(padded, self.device)
         logits = None
-        for start in range(0, n, c):
-            n_valid = min(c, n - start)
-            self._chunk.copy_(tokens[:, start : start + c])
+        for pos in range(start, n, c):
+            n_valid = min(c, n - pos)
+            self._chunk.copy_(tokens[:, pos : pos + c])
             self._last.fill_(n_valid - 1)
-            logits = self.run_chunk(start)
-            self.cache = dataclasses.replace(self.cache, offset=start + n_valid)
+            logits = self.run_chunk(pos)
+            self.cache = dataclasses.replace(self.cache, offset=pos + n_valid)
         return logits.clone()
 
-    def decode_block(self, steps: int, window: int, sampled: bool, want_logprobs: bool):
+    def run_block(self, steps: int, window: int, sampled: bool, want_logprobs: bool):
         """Enqueue ``steps`` decode steps (one replay on the card) and
         return their stacked outputs ``(tokens (K, 1)[, chosen, top
         values, top indices])``, nothing read on the host."""
@@ -251,7 +282,7 @@ class Generator:
             self.run_chunk(start)
         for sampled in (False, True) if decode_blocks else ():
             for want_logprobs in (False, True):
-                self.decode_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, sampled, want_logprobs)
+                self.run_block(self.decode_block, REPETITION_WINDOW, sampled, want_logprobs)
         torch.cuda.synchronize(self.device)
         return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
                 "pool_bytes": self.graphs.pool_bytes()}
@@ -293,7 +324,12 @@ class Generator:
         recent = self._window(window)
         recent.copy_(init_recent_tokens(1, window, prompt, device=self.device))
         sampled = sp.temperature > 0
-        last_logits = self.run_prefill(prompt)
+        start = 0
+        if self._prompt_cache:
+            self.last_prefix_hit = self._prefix_hit(prompt[0])
+            start = self.last_prefix_hit // self.prefill_chunk * self.prefill_chunk
+            self._pc_tokens = None  # the rows are about to change
+        last_logits = self.run_prefill(prompt, start)
         tok, logprobs = sample_token_batched(self.rng, last_logits, self.sp, recent,
                                              sampled=sampled)
         recent.copy_(update_recent_tokens(recent, tok))
@@ -304,14 +340,32 @@ class Generator:
             first_lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
         return int(tok[0]), first_lp, window, sampled
 
-    def decode_stream(self, remaining: int, window: int, sampled: bool,
-                      want_logprobs: bool) -> Iterator[tuple[int, Optional[TokenLogprobs]]]:
+    def _prefix_hit(self, prompt: np.ndarray) -> int:
+        """JAX's prompt-cache hit for ``prompt`` (T,): the longest common
+        prefix with the cached rows' tokens, capped at T - 1 (one token must
+        prefill for the logits), aligned down to a chunk boundary where the
+        padded suffix would cross ``max_seq``."""
+        known = self._pc_tokens
+        if known is None:
+            return 0
+        n = prompt.size
+        limit = min(known.size, n - 1)
+        eq = known[:limit] == prompt[:limit]
+        hit = limit if eq.all() else int(eq.argmin())
+        c = self.prefill_chunk
+        if hit and hit + -(-(n - hit) // c) * c > self.max_seq:
+            hit = hit // c * c
+        return hit
+
+    def decode_stream(self, remaining: int, window: int, sampled: bool, want_logprobs: bool,
+                      sink=None) -> Iterator[tuple[int, Optional[TokenLogprobs]]]:
         """The next ``remaining`` tokens in whole decode blocks from the
-        carries (``blocked_token_stream``)."""
-        block = DEFAULT_DECODE_BLOCK
+        carries (``blocked_token_stream``; ``sink`` gets every pulled
+        block's tokens)."""
+        block = self.decode_block
         yield from blocked_token_stream(
-            lambda: self.decode_block(block, window, sampled, want_logprobs),
-            remaining, block, want_logprobs,
+            lambda: self.run_block(block, window, sampled, want_logprobs),
+            remaining, block, want_logprobs, sink,
         )
 
     def generate_step(
@@ -327,9 +381,19 @@ class Generator:
         sampler keywords are :meth:`begin`'s."""
         tok, first_lp, window, sampled = self.begin(
             prompt_tokens, max_tokens=max_tokens, want_logprobs=want_logprobs, **sampler_kwargs)
-        yield tok, first_lp
-        if max_tokens > 1:
-            yield from self.decode_stream(max_tokens - 1, window, sampled, want_logprobs)
+        fed = [tok]  # the first token, then every pulled block's tokens
+        try:
+            yield tok, first_lp
+            if max_tokens > 1:
+                yield from self.decode_stream(max_tokens - 1, window, sampled, want_logprobs,
+                                              sink=fed.extend if self._prompt_cache else None)
+        finally:
+            if self._prompt_cache:
+                # the last token of the last pulled block was never fed, and
+                # a lookahead block's rows hold tokens the host never saw
+                self._pc_tokens = np.concatenate(
+                    [np.asarray(prompt_tokens, np.int64).reshape(-1),
+                     np.asarray(fed[:-1], np.int64)])
 
 
 def stream_generate(

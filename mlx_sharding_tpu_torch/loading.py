@@ -80,6 +80,28 @@ def read_safetensors(path: Path) -> dict[str, torch.Tensor]:
     return out
 
 
+def write_safetensors(path: Path, tensors: dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` as one ``.safetensors`` file that
+    :func:`read_safetensors` reads back (the same layout: 8-byte header
+    length, a JSON header, the raw little-endian data; ``int32`` as
+    ``I32``)."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items() if k != "U32"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
 def load_raw_weights(model_path: Path) -> dict[str, torch.Tensor]:
     files = sorted(model_path.glob("*.safetensors"))
     if not files:

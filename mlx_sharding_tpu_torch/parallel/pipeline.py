@@ -168,6 +168,12 @@ class PipelineEngine:
             raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
         self.model = model
         apply_projection_fusion(model)
+        # the weight bytes a decode step streams (JAX ``weight_bytes``, the
+        # batcher's bytes-a-token gauge): every tensor of the model once
+        sizes = {}
+        for t in model.state_dict().values():
+            sizes.setdefault(t.data_ptr(), t.numel() * t.element_size())
+        self.weight_stream_bytes = sum(sizes.values())
         self.microbatches = microbatches
         # chunk-multiple capacity: padded prefill writes stay in bounds
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk

@@ -99,8 +99,23 @@ consumed, ``[prev_tok, block[:-1]]``, through the draft's caches
 (``spec_replay_cb``, counted in ``fallback_ticks``). A draft engine forces
 sync ticks: each round's proposals depend on the last round's counts.
 
+Observability (JAX's, single host): ``health()`` and
+``scheduler_thread_live()`` (``close()`` marks the thread wedged when its
+join times out), and the ``/metrics`` read-outs ``stats``,
+``page_stats``, ``kv_read_stats``, ``hbm_bytes_per_token_stats``,
+``latency_stats`` (inter-token and queue-wait histograms),
+``tick_timing_stats``, ``spec_stats``, ``resilience_stats`` and
+``prefix_stats``. Each runs on the scrape's thread and reads host counters
+(under the batcher's locks where JAX takes them); none reads the card.
+Request tracing (``tracing.py``): ``generate_step(_trace=...)`` binds a
+timeline that gets ``queue_wait``, ``prefill``, ``decode_tick`` (or
+``spec_round``) spans and ``submit``, ``first_token``, ``preempt`` and
+``finish`` marks; with tracing off each site is one ``is None`` branch.
+Under ``--trace-profile`` each dispatched decode block runs inside an
+``mst.decode_block`` profiler range.
+
 Not yet ported, and refused at construction: KV spill and prefetch and the
-prefix store; tracing and metrics are not carried.
+prefix store.
 """
 
 from __future__ import annotations
@@ -118,6 +133,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from mlx_sharding_tpu_torch import tracing
 from mlx_sharding_tpu_torch.cache import rewind_slot_offset, slot_table
 from mlx_sharding_tpu_torch.generate import (
     LOGPROB_TOPK,
@@ -138,6 +154,11 @@ from mlx_sharding_tpu_torch.sample import (
     set_sampler_slot,
     stack_sampler_params,
     window_mask,
+)
+from mlx_sharding_tpu_torch.utils.observability import (
+    ITL_BUCKETS_S,
+    LATENCY_BUCKETS_S,
+    Histogram,
 )
 
 logger = logging.getLogger(__name__)
@@ -198,6 +219,13 @@ class _Request:
     # reset when the prompt folds) and the chain _fits found for admission
     pkeys: Optional[list] = None
     chain: Optional[list] = None
+    # tracing: the bound timeline (None when off or not sampled; a
+    # server-owned one is retired by the server), and the perf_counter
+    # stamps of the queue-wait and inter-token histograms
+    trace: Optional[object] = None
+    trace_own: bool = False
+    t_submit: float = 0.0
+    t_last_emit: float = 0.0
 
 
 @dataclass
@@ -241,6 +269,9 @@ class ContinuousBatcher:
     # generate_step takes request_timeout / ttft_timeout / stall_timeout and
     # enforces them; the server forwards deadlines only to such generators
     supports_deadlines = True
+    # generate_step takes _trace (a tracing.RequestTrace) and stamps its
+    # spans; the server begins a timeline only for such generators
+    supports_trace = True
 
     def __init__(self, engine, *, repetition_window: int = 64, decode_block: int = 8,
                  policy: str = "fifo", prefix_cache: bool = False, overcommit: bool = False,
@@ -397,6 +428,16 @@ class ContinuousBatcher:
         self.shed_queue_full = 0  # rejected at submission (429)
         self.shed_deadline = 0  # shed while queued: the TTFT budget had gone
         self._finish_times: deque = deque(maxlen=256)  # completion stamps
+        # close() sets it when the scheduler thread outlives its join: the
+        # health turns degraded and the thread-live gauge drops to 0
+        self.thread_wedged = False
+        # always-on latency histograms: inter-token gaps at the emit path,
+        # the queue wait at slot assignment (host stamps only)
+        self._h_itl = Histogram(ITL_BUCKETS_S, "ContinuousBatcher._h_itl")
+        self._h_queue_wait = Histogram(LATENCY_BUCKETS_S, "ContinuousBatcher._h_queue_wait")
+        # --trace-profile, resolved once (the server configures tracing
+        # before it builds the batcher)
+        self._trace_profile = tracing.profile_enabled()
 
         # the pool: a request holds pages from admission until it finishes
         # (or is preempted); dense slot caches need no page accounting
@@ -408,6 +449,18 @@ class ContinuousBatcher:
             self._free_pages = []
         self._pages_of: dict[int, list[int]] = {}
         self.pages_high_water = 0
+        # the analytic KV-read accounting of a paged pool (JAX
+        # _account_kv_read): K+V bytes of one position over every layer,
+        # and the weight bytes one decode step streams
+        self.kv_path = engine.paged_attention
+        self.kv_bytes_read_last_tick = 0
+        self.kv_bytes_read_total = 0
+        self.weight_bytes_per_token_last = 0.0
+        self.kv_bytes_per_token_last = 0.0
+        self._kv_row_bytes = sum(
+            t.shape[0] * t.shape[-2] * t.shape[-1] * t.element_size()
+            for buf in (self.cache.k, self.cache.v)
+            for t in (buf.values() if isinstance(buf, dict) else (buf,)))
         # prefix sharing: a page's refcount is the slots mapping it plus 1
         # if the index holds it; index-only pages are cached, not free, and
         # evicted least recently used when admission or growth runs short
@@ -473,11 +526,14 @@ class ContinuousBatcher:
         request_timeout: Optional[float] = None,
         ttft_timeout: Optional[float] = None,
         stall_timeout: Optional[float] = None,
+        _trace=None,
     ):
         """Validate and enqueue at once (every rejection raises on the
         calling thread, before any request state exists; a full queue
         raises ``QueueFullError``); returns the token stream ``(token,
-        TokenLogprobs or None)``, whose waits the deadlines bound."""
+        TokenLogprobs or None)``, whose waits the deadlines bound.
+        ``_trace``: the server's timeline for the request; without one the
+        request begins its own on the process tracer (None when off)."""
         prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -515,6 +571,15 @@ class ContinuousBatcher:
             want_logprobs=want_logprobs,
             deadlines=deadlines,
         )
+        tr = _trace
+        if tr is None:
+            tr = tracing.begin()
+            req.trace_own = tr is not None
+        req.trace = tr
+        req.t_submit = time.perf_counter()
+        if tr is not None:
+            tr.note(prompt_tokens=int(prompt.size), max_tokens=int(max_tokens))
+            tr.point("submit")
         self._ensure_running()
         if self.max_queue is None:
             self._submit.put(req)
@@ -525,6 +590,10 @@ class ContinuousBatcher:
             depth = self._submit.qsize() + len(self._waiting)
             if depth >= self.max_queue:
                 self.shed_queue_full += 1
+                if tr is not None:
+                    tr.point("shed", depth=depth, bound=self.max_queue)
+                    if req.trace_own:
+                        tracing.finish(tr)
                 raise QueueFullError(depth, self.max_queue, retry_after_s=estimate_retry_after(
                     max(1, depth - self.max_queue + 1), self._finish_times, self._clock()))
             self._submit.put(req)
@@ -646,12 +715,69 @@ class ContinuousBatcher:
         return total, total - len(self._free_pages), self.pages_high_water
 
     def resilience_stats(self) -> dict:
-        """The deadline and shedding counters and the queue bound (JAX
-        ``resilience_stats``, the entries the port carries)."""
+        """The deadline and shedding counters, the queue bound and the
+        thread's liveness (JAX ``resilience_stats``, the entries the port
+        carries)."""
+        live = self.scheduler_thread_live()  # its own lock, taken before ours
         with self._admission_lock:
             return {"timeouts": self.timeouts, "shed_queue_full": self.shed_queue_full,
                     "shed_deadline": self.shed_deadline, "max_queue": self.max_queue,
-                    "preemptions": self.preemptions}
+                    "scheduler_thread_live": live, "preemptions": self.preemptions}
+
+    def stats(self) -> tuple[int, int, int]:
+        """(slots, active slots, queued requests). ``_slots`` belongs to the
+        scheduler thread: this is a racy snapshot by design (a gauge)."""
+        with self._admission_lock:
+            queued = self._submit.qsize() + len(self._waiting)
+        return self.M, sum(1 for r in self._slots if r is not None), queued
+
+    def _live_locked(self) -> bool:
+        """``scheduler_thread_live``'s body; the caller holds ``_start_lock``."""
+        if self.thread_wedged:
+            return False
+        t = self._thread
+        return t is None or t.is_alive() or self._stop
+
+    def scheduler_thread_live(self) -> bool:
+        """True while the scheduler thread is healthy: running, cleanly
+        stopped, or not yet started; False once ``close()`` saw its join
+        time out (a tick wedged)."""
+        with self._start_lock:
+            return self._live_locked()
+
+    def health(self) -> dict:
+        """``/health``'s view: ``status`` ok, draining (closed) or degraded
+        (a wedged thread); ``serving`` decides 200 against 503."""
+        with self._start_lock:
+            live = self._live_locked()
+            draining = self._stop
+        if not live:
+            # a wedged thread beats draining: the operator must see the leak
+            return {"status": "degraded", "serving": False, "scheduler_thread_live": False}
+        if draining:
+            return {"status": "draining", "serving": False, "scheduler_thread_live": live}
+        return {"status": "ok", "serving": True, "scheduler_thread_live": live}
+
+    def kv_read_stats(self) -> Optional[tuple[str, int, int]]:
+        """(attention path, KV bytes read by the last decode tick, total);
+        None on dense slot caches. Analytic: ragged counts the page-rounded
+        rows each live slot occupies, gather the whole view of every slot."""
+        if not self.paged:
+            return None
+        return self.kv_path, self.kv_bytes_read_last_tick, self.kv_bytes_read_total
+
+    def hbm_bytes_per_token_stats(self) -> Optional[dict]:
+        """{"weights", "kv"}: the bytes a decoded token streamed on the last
+        decode tick (the same analytic model); None on dense slot caches."""
+        if not self.paged:
+            return None
+        return {"weights": self.weight_bytes_per_token_last,
+                "kv": self.kv_bytes_per_token_last}
+
+    def latency_stats(self) -> dict:
+        """The inter-token and queue-wait histograms as
+        ``Histogram.to_dict`` snapshots."""
+        return {"itl": self._h_itl.to_dict(), "queue_wait": self._h_queue_wait.to_dict()}
 
     def prefix_stats(self) -> Optional[tuple[int, int, int, int, int]]:
         """(queries, hits, tokens reused, evictions, cached pages); None
@@ -692,7 +818,14 @@ class ContinuousBatcher:
                 self._submit.put(None)  # wake the idle wait
             t.join(timeout=timeout)
             if t.is_alive():
-                logger.error("scheduler thread failed to exit within %.0fs", timeout)
+                # a wedged tick: the daemon thread cannot be reclaimed, so
+                # record the leak (/health degraded, the live gauge 0) and
+                # keep the victims' timelines past the ring
+                with self._start_lock:
+                    self.thread_wedged = True
+                tracing.auto_snapshot("wedge:scheduler")
+                logger.error("scheduler thread failed to exit within %.0fs — a tick is wedged; "
+                             "the thread is abandoned and /health reports degraded", timeout)
 
     # ------------------------------------------------------------ internals
     def _ensure_running(self):
@@ -825,6 +958,14 @@ class ContinuousBatcher:
         the offset and the prefill start past the reused prefix; the
         request's sampler row and window size. Its generator and window
         contents are set when its prefill completes."""
+        # the queue wait ends here: submission (or re-queue after a
+        # preemption) to slot assignment
+        now = time.perf_counter()
+        if req.t_submit:
+            self._h_queue_wait.observe(max(0.0, now - req.t_submit))
+        tr = req.trace
+        if tr is not None:
+            tr.add("queue_wait", req.t_submit or now, now, slot=slot)
         req.admit_seq = self._admit_counter
         self._admit_counter += 1
         reused = 0
@@ -932,6 +1073,8 @@ class ContinuousBatcher:
         set the slot's generator and window, sample the first token from the
         target's last logits and start the slot decoding."""
         eng, slot, c = self.engine, req.slot, self.engine.prefill_chunk
+        tr = req.trace
+        t0 = time.perf_counter() if tr is not None else 0.0
         if req.prefill_pos < req.prompt.size:
             chunk, n_valid = self._chunk_at(req.prompt, req.prefill_pos, c)
             logits = eng.prefill_slot(chunk, slot, self.cache, n_valid, self.table,
@@ -946,6 +1089,9 @@ class ContinuousBatcher:
                                     graphs=self.dgraphs)
             self.draft_prefill_chunks += 1
             req.draft_pos += n_valid
+        if tr is not None:
+            tr.add("prefill", t0, time.perf_counter(), slot=req.slot, pos=req.prefill_pos,
+                   chunk=c)
         if not self._prefill_done(req):
             return
         logits, req.last_logits = req.last_logits, None
@@ -981,6 +1127,14 @@ class ContinuousBatcher:
         self._emit(req, int(tok[0]), lp)
 
     def _emit(self, req: _Request, token: int, logprobs):
+        now = time.perf_counter()
+        if req.produced == 0:
+            tr = req.trace
+            if tr is not None:
+                tr.point("first_token", slot=req.slot)
+        elif req.t_last_emit:
+            self._h_itl.observe(now - req.t_last_emit)
+        req.t_last_emit = now
         req.produced += 1
         req.history.append(token)
         req.out.put((token, logprobs))
@@ -1013,6 +1167,13 @@ class ContinuousBatcher:
         # cancellations free queue room all the same
         with self._admission_lock:
             self._finish_times.append(self._clock())
+        tr = req.trace
+        if tr is not None:
+            tr.point("finish", produced=req.produced)
+            if req.trace_own:
+                # a server-owned timeline is retired by the server after
+                # its last write
+                tracing.finish(tr)
         req.out.put(None)
 
     def _reap_cancelled(self):
@@ -1052,7 +1213,12 @@ class ContinuousBatcher:
         repeated inserts at 0 keep the victims in admission order."""
         self.preemptions += 1
         req.preempted_at.append(req.produced)
+        tr = req.trace
+        if tr is not None:
+            tr.point("preempt", slot=req.slot)
         self._suspend_slot(req)
+        # back on the line: the queue-wait clock restarts
+        req.t_submit = time.perf_counter()
         self._waiting.insert(0, req)
 
     def _growth_want(self, req: _Request) -> int:
@@ -1272,6 +1438,9 @@ class ContinuousBatcher:
             return None
         k, wins = plan
         t0 = time.perf_counter()
+        # the T=K verify reads each slot's gathered view, whatever the
+        # decode tick's path (JAX's accounting)
+        self._account_kv_read(live, 1, path="gather")
         sampled = any(req.sp.temperature > 0 for _, req in live)
         wcaps = np.ones((self.M,), np.int32)
         guess = {}
@@ -1328,6 +1497,10 @@ class ContinuousBatcher:
         outs = inf.outs.numpy()
         counts, gs = outs[0], outs[1:]
         self.rounds += len(inf.live)
+        for _, r in inf.live:
+            rtr = r.trace
+            if rtr is not None:
+                rtr.add("spec_round", t0, t0 + blocked, slot=r.slot, window=gs.shape[0])
         for slot, req in inf.live:
             if req.slot == slot:
                 self.cache.offsets[slot] += int(counts[slot])
@@ -1433,7 +1606,15 @@ class ContinuousBatcher:
             prev_tok = torch.empty(self.last_tok.shape, dtype=self.last_tok.dtype,
                                    pin_memory=self.last_tok.is_cuda)
             prev_tok.copy_(self.last_tok, non_blocking=True)
-        outs = self._run_block(want_lp, sampled, exact=not isinstance(prev, _InflightSpec))
+        # analytic gauge; under async ticks the lengths are a block stale
+        self._account_kv_read(live, self.decode_block)
+        exact = not isinstance(prev, _InflightSpec)
+        if self._trace_profile:
+            # --trace-profile: the block's launches inside one profiler range
+            with tracing.profile_span("mst.decode_block"):
+                outs = self._run_block(want_lp, sampled, exact=exact)
+        else:
+            outs = self._run_block(want_lp, sampled, exact=exact)
         event = None
         if outs.is_cuda:
             # copied before the next replay overwrites the static outputs
@@ -1447,6 +1628,26 @@ class ContinuousBatcher:
         self.decode_seconds += time.perf_counter() - t0
         return _InflightBlock(outs=outs, event=event, live=live, want_lp=want_lp,
                               prev_tok=prev_tok)
+
+    def _account_kv_read(self, live, steps: int, path: Optional[str] = None):
+        """The analytic KV bytes a dispatch reads (JAX ``_account_kv_read``):
+        ragged, each live slot's page-rounded rows; gather, every slot's
+        whole view; and the weight and KV bytes a decoded token streams.
+        Host arithmetic only."""
+        if not self.paged or not live:
+            return
+        page = self.engine.page_size
+        if (path or self.kv_path) == "ragged":
+            rows = sum(-(-(req.prompt.size + max(0, req.produced - 1) + 1) // page) * page
+                       for _, req in live)
+        else:
+            rows = len(live) * self.engine.slot_pages * page
+        b = rows * self._kv_row_bytes * steps
+        self.kv_bytes_read_last_tick = b
+        self.kv_bytes_read_total += b
+        # weights stream once a step whatever the slots; KV does not amortize
+        self.kv_bytes_per_token_last = b / (len(live) * steps)
+        self.weight_bytes_per_token_last = self.engine.weight_stream_bytes / len(live)
 
     def _harvest(self, inf: Optional[_InflightBlock]):
         """Wait for a block's outputs to land on the host (its event only:
@@ -1462,6 +1663,11 @@ class ContinuousBatcher:
         self.tick_device_blocked_ms_last = blocked * 1000.0
         self._tick_blocked_s_total += blocked
         self._tick_count += 1
+        # each traced request's span reuses the harvest's own stamps
+        for _, r in inf.live:
+            rtr = r.trace
+            if rtr is not None:
+                rtr.add("decode_tick", t0, t0 + blocked, slot=r.slot, block=self.decode_block)
         outs = inf.outs.numpy()
         toks = outs[..., 0].astype(np.int64)  # (K, M)
         lp_outs = None
@@ -1600,6 +1806,8 @@ class ContinuousBatcher:
         pool wholesale: its contents are no longer trusted. The block in
         flight is dropped unread."""
         logger.exception("scheduler tick failed", exc_info=exc)
+        # an incident: keep the streams' timelines past the ring
+        tracing.auto_snapshot("scheduler_fail")
         self._inflight = None
         self._end_all(exc)
         if self.paged:

@@ -1,50 +1,79 @@
-"""OpenAI-compatible HTTP server (port of the single-``Generator`` path of
+"""OpenAI-compatible HTTP server (port of the single-host path of
 ``mlx_sharding_tpu/server/openai_api.py``).
 
 ``POST /v1/completions`` and ``POST /v1/chat/completions`` (non-streamed,
 or SSE that holds back text that could still grow into a stop sequence),
 logprobs, ``logit_bias``, the JAX server's parameter validation, the plain
-chat prompt for tokenizers without a template, and ``GET /health``. One
-:class:`ModelProvider` holds one generator and its tokenizer. A single-stream
-``Generator`` is serialized by a lock; with ``--concurrent N`` the generator
-is a :class:`~mlx_sharding_tpu_torch.scheduler.ContinuousBatcher`
-(``concurrent = True``) over dense slot caches, or with ``--paged-pool P``
-over a shared page pool (``--paged-attention ragged|gather``), which
-interleaves requests itself and is served without the lock, with
-``--prompt-cache`` shares prompt-prefix pages, with ``--max-queue`` bounds
-its queue (429 with ``Retry-After``) and enforces the deadlines
-(``--request-timeout`` and ``--ttft-timeout``, or the body's fields; 504). A
-single-stream generator gets the total deadline as a check between tokens.
-``--draft ngram`` speculates by prompt lookup and ``--draft-model`` with a
-draft model, on the single stream or in the batcher's slots with
-``--concurrent``. Fleet, replica, trace, metrics and static-UI serving come
-with later slices.
+chat prompt for tokenizers without a template (``--chat-template``
+overrides the checkpoint's), ``--api-key`` on the POST routes. ``GET
+/health`` (the generator's ``health()``: 503 when it is not serving),
+``GET /metrics`` (Prometheus text, ``utils/observability.py``), ``GET
+/admin/trace`` and ``/admin/trace/{dump|<request id>}`` (``--trace``,
+``tracing.py``), and the static web UI (``/`` is ``index.html``).
+
+One :class:`ModelProvider` holds one generator and its tokenizer; a request
+that names another checkpoint (a path inside the working directory) swaps
+the model: the new generator is built as the first was, and once it has
+loaded the old one is closed and its graphs, pools and caches released (a
+failed load leaves the old one serving). A single-stream ``Generator``
+(with ``--prompt-cache``, reusing the previous request's prompt prefix) is
+serialized by a lock; with ``--concurrent N`` the generator is a
+:class:`~mlx_sharding_tpu_torch.scheduler.ContinuousBatcher` over dense
+slot caches, or with ``--paged-pool P`` over a shared page pool
+(``--paged-attention ragged|gather``), which interleaves requests itself
+and is served without the lock, with ``--prompt-cache`` shares
+prompt-prefix pages, with ``--max-queue`` bounds its queue (429 with
+``Retry-After``) and enforces the deadlines (``--request-timeout`` and
+``--ttft-timeout``, or the body's fields; 504). A single-stream generator
+gets the total deadline as a check between tokens. ``--draft ngram``
+speculates by prompt lookup and ``--draft-model`` with a draft model, on
+the single stream or in the batcher's slots with ``--concurrent``.
+``--profile-dir`` records a ``torch.profiler`` trace of each request.
+Fleet and replica serving come with a later slice.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
+        [--prompt-cache] [--decode-block 16] [--api-key KEY] [--chat-template @FILE]
         [--concurrent 8 [--paged-pool 64 [--paged-attention gather] [--kv-dtype int8]
          [--prompt-cache]] [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
+        [--trace off|sample|on [--trace-buffer N] [--trace-sample N] [--trace-profile]]
+        [--profile-dir DIR] [--log-level INFO]
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import hmac
 import json
 import logging
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import Optional
 
+from mlx_sharding_tpu_torch import tracing
 from mlx_sharding_tpu_torch.resilience import QueueFullError, RequestTimeoutError
 from mlx_sharding_tpu_torch.tokenizer_utils import (
     StreamingDetokenizer,
     sequence_overlap,
     stopping_criteria,
 )
+from mlx_sharding_tpu_torch.utils.locks import make_lock
+from mlx_sharding_tpu_torch.utils.observability import ServingMetrics, profile_trace
 
 logger = logging.getLogger(__name__)
+
+STATIC_DIR = Path(__file__).parent / "static"
+CONTENT_TYPES = {
+    ".html": "text/html",
+    ".js": "application/javascript",
+    ".css": "text/css",
+    ".json": "application/json",
+}
+
 
 def _encode_plain(tokenizer, text: str) -> list[int]:
     """Encode without special tokens (stop sequences must match raw ids)."""
@@ -75,85 +104,182 @@ def convert_chat(messages: list, role_mapping: Optional[dict] = None) -> str:
     return prompt.rstrip()
 
 
-class ModelProvider:
-    """One generator and its tokenizer, served under ``model_name``."""
+def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chunk: int = 256,
+                    keep_quantized: bool = False, decode_block: int = 16,
+                    concurrent: int = 1, paged_pool: Optional[int] = None,
+                    page_size: Optional[int] = None, paged_attention: str = "auto",
+                    kv_dtype: Optional[str] = None, admission_policy: str = "fifo",
+                    overcommit: bool = False, async_sched: str = "auto",
+                    prompt_cache: bool = False, max_queue: Optional[int] = None,
+                    draft: str = "auto", draft_model: Optional[str] = None,
+                    spec_k: int = 4, spec_window_max: Optional[int] = None):
+    """The generator the server runs for the checkpoint at ``path``: a
+    single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
+    reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
+    slots over dense slot caches, or over a pool of ``paged_pool`` KV pages
+    (the JAX server's pp=1 engines), with ``overcommit`` admission,
+    ``async_sched`` ticks, prefix sharing (``prompt_cache``) and a queue
+    bound (``max_queue``); its decode blocks are ``min(8, decode_block)``
+    steps, as JAX's. ``draft="ngram"`` speculates by prompt lookup
+    (``NgramSpeculativeGenerator``, or the batcher's n-gram mode),
+    ``draft_model`` (a checkpoint directory) with a draft model
+    (``SpeculativeGenerator``, or a dense draft engine beside the
+    batcher's, with the same slots, capacity and chunk). On a card its step
+    graphs are captured here, before the first request."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.loading import load_model
 
-    def __init__(self, generator, tokenizer, *, model_name: str = "default_model"):
-        self.generator = generator
-        self.tokenizer = tokenizer
+    model, _ = load_model(path, device=device, keep_quantized=keep_quantized)
+    if concurrent <= 1 and draft == "ngram":
+        from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+        generator = NgramSpeculativeGenerator(model, spec_window_max=spec_window_max or 8,
+                                              max_seq=max_seq, prefill_chunk=prefill_chunk,
+                                              decode_block=decode_block)
+    elif concurrent <= 1 and draft_model:
+        from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+
+        dmodel, _ = load_model(draft_model, device=device)
+        generator = SpeculativeGenerator(model, dmodel, spec_k=spec_k, max_seq=max_seq,
+                                         prefill_chunk=prefill_chunk, decode_block=decode_block)
+    elif concurrent <= 1:
+        generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
+                              decode_block=decode_block, prompt_cache=prompt_cache)
+    else:
+        from mlx_sharding_tpu_torch.parallel import PipelineEngine
+        from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+        engine = PipelineEngine(
+            model, microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
+            pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
+            kv_dtype=kv_dtype, device=device,
+        )
+        draft_engine = None
+        if draft_model:
+            dmodel, _ = load_model(draft_model, device=device)
+            draft_engine = PipelineEngine(dmodel, microbatches=concurrent, max_seq=max_seq,
+                                          prefill_chunk=prefill_chunk, device=device)
+        generator = ContinuousBatcher(engine, decode_block=min(8, decode_block),
+                                      policy=admission_policy, overcommit=overcommit,
+                                      async_sched=async_sched, prefix_cache=prompt_cache,
+                                      max_queue=max_queue, draft_engine=draft_engine,
+                                      spec_k=spec_k, draft=draft,
+                                      spec_window_max=spec_window_max)
+    captured = generator.warm_up()  # on a card: the step graphs, before any request
+    if captured:
+        logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
+                    captured["graphs"], captured["seconds"], captured["pool_bytes"] / 1e6)
+    return generator
+
+
+class ModelProvider:
+    """One generator and its tokenizer, served under ``model_name``.
+
+    Built by :meth:`from_checkpoint`, it keeps its load arguments and swaps
+    the model when a request names another checkpoint (JAX's hot-swap):
+    paths must stay inside the working directory unless
+    ``trust_remote_paths``; loads are serialized by ``_load_lock``; the new
+    generator is built by :func:`build_generator` with the same arguments,
+    and only once it has loaded is the old one closed (a batcher's thread
+    stopped) and dropped, after any single-stream request in flight on it
+    (``gen_lock``), so that its graphs, pools and caches are freed. Built
+    around a generator (``ModelProvider(generator, tokenizer)``), it serves
+    that one only. ``tokenizer_loader`` (a path -> tokenizer callable)
+    defaults to the checkpoint's tokenizer through ``transformers``;
+    ``chat_template`` overrides the tokenizer's."""
+
+    def __init__(self, generator=None, tokenizer=None, *, model_name: str = "default_model",
+                 load_args: Optional[dict] = None, trust_remote_paths: bool = False,
+                 chat_template: Optional[str] = None, tokenizer_loader=None):
         self.model_name = model_name
+        self.load_args = load_args
+        self.trust_remote_paths = trust_remote_paths
+        self.chat_template = chat_template
+        self.tokenizer_loader = tokenizer_loader
+        # a single-stream generator serves one request at a time under this
+        # lock; a swap closes it under the lock too
+        self.gen_lock = make_lock("APIHandler.gen_lock")
+        # swaps are serialized: two requests naming different models would
+        # otherwise race the generator and double-load onto the card
+        self._load_lock = make_lock("ModelProvider._load_lock")
+        self._key: Optional[str] = None
+        self.generator = None
+        self.tokenizer = None
+        self.load_seconds = 0.0  # the last load's: checkpoint, generator, graphs, tokenizer
+        if generator is not None:
+            self._set(model_name, generator, tokenizer)
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, device=None, max_seq: int = 4096,
-                        prefill_chunk: int = 256, keep_quantized: bool = False,
-                        concurrent: int = 1, paged_pool: Optional[int] = None,
-                        page_size: Optional[int] = None, paged_attention: str = "auto",
-                        kv_dtype: Optional[str] = None, admission_policy: str = "fifo",
-                        overcommit: bool = False, async_sched: str = "auto",
-                        prompt_cache: bool = False, max_queue: Optional[int] = None,
-                        draft: str = "auto", draft_model: Optional[str] = None,
-                        spec_k: int = 4, spec_window_max: Optional[int] = None,
-                        ) -> "ModelProvider":
-        """A single-stream ``Generator``, or with ``concurrent > 1`` a
-        ``ContinuousBatcher`` of that many slots over dense slot caches, or
-        over a pool of ``paged_pool`` KV pages (the JAX server's pp=1
-        engines), with ``overcommit`` admission, ``async_sched`` ticks,
-        prefix sharing (``prompt_cache``) and a queue bound (``max_queue``).
-        ``draft="ngram"`` speculates by prompt lookup
-        (``NgramSpeculativeGenerator``, or the batcher's n-gram mode),
-        ``draft_model`` (a checkpoint directory) with a draft model
-        (``SpeculativeGenerator``, or a dense draft engine beside the
-        batcher's, with the same slots, capacity and chunk). On a card its
-        step graphs are captured here, before the first request."""
-        from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
-        from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
+    def from_checkpoint(cls, path: str, *, trust_remote_paths: bool = False,
+                        chat_template: Optional[str] = None, tokenizer_loader=None,
+                        **load_args) -> "ModelProvider":
+        """A provider serving the checkpoint at ``path``, its generator
+        built by :func:`build_generator` with ``load_args`` (kept for
+        swaps)."""
+        provider = cls(model_name=path, load_args=load_args,
+                       trust_remote_paths=trust_remote_paths, chat_template=chat_template,
+                       tokenizer_loader=tokenizer_loader)
+        provider.load("default_model")
+        return provider
 
-        model, _ = load_model(path, device=device, keep_quantized=keep_quantized)
-        if concurrent <= 1 and draft == "ngram":
-            from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
-
-            generator = NgramSpeculativeGenerator(model, spec_window_max=spec_window_max or 8,
-                                                  max_seq=max_seq, prefill_chunk=prefill_chunk)
-        elif concurrent <= 1 and draft_model:
-            from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
-
-            dmodel, _ = load_model(draft_model, device=device)
-            generator = SpeculativeGenerator(model, dmodel, spec_k=spec_k, max_seq=max_seq,
-                                             prefill_chunk=prefill_chunk)
-        elif concurrent <= 1:
-            generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk)
-        else:
-            from mlx_sharding_tpu_torch.parallel import PipelineEngine
-            from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
-
-            engine = PipelineEngine(
-                model, microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
-                pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
-                kv_dtype=kv_dtype, device=device,
-            )
-            draft_engine = None
-            if draft_model:
-                dmodel, _ = load_model(draft_model, device=device)
-                draft_engine = PipelineEngine(dmodel, microbatches=concurrent, max_seq=max_seq,
-                                              prefill_chunk=prefill_chunk, device=device)
-            generator = ContinuousBatcher(engine, decode_block=min(8, DEFAULT_DECODE_BLOCK),
-                                          policy=admission_policy, overcommit=overcommit,
-                                          async_sched=async_sched, prefix_cache=prompt_cache,
-                                          max_queue=max_queue, draft_engine=draft_engine,
-                                          spec_k=spec_k, draft=draft,
-                                          spec_window_max=spec_window_max)
-        captured = generator.warm_up()  # on a card: the step graphs, before any request
-        if captured:
-            logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
-                        captured["graphs"], captured["seconds"], captured["pool_bytes"] / 1e6)
-        return cls(generator, load_tokenizer(path), model_name=path)
-
-    def load(self, name: str):
-        """The generator and tokenizer for a request naming ``name``."""
-        if name not in ("default_model", self.model_name):
+    def _validate(self, name: str) -> str:
+        if name == "default_model":
+            return self.model_name
+        if self.load_args is None:
+            # a provider around a built generator cannot load another
+            if name == self.model_name:
+                return name
             raise ValueError(f"model {name!r} is not served here; this server serves "
                              f"{self.model_name!r}")
-        return self.generator, self.tokenizer
+        # a containment check: a plain prefix test would let a sibling like
+        # /srv/repo-evil pass for the working directory /srv/repo
+        if not self.trust_remote_paths and not Path(name).resolve().is_relative_to(
+                Path.cwd().resolve()):
+            raise ValueError(f"model path {name!r} escapes the working directory")
+        return name
+
+    def load(self, name: str):
+        """The generator and tokenizer for a request naming ``name``,
+        loading that checkpoint first if another one is served."""
+        target = self._validate(name)
+        with self._load_lock:
+            if self._key == target:
+                return self.generator, self.tokenizer
+            logger.info("loading model %s", target)
+            t0 = time.perf_counter()
+            generator = build_generator(target, **self.load_args)
+            loader = self.tokenizer_loader
+            if loader is None:
+                from mlx_sharding_tpu_torch.loading import load_tokenizer as loader
+            tokenizer = loader(target)
+            self.load_seconds = time.perf_counter() - t0
+            self._set(target, generator, tokenizer)
+            logger.info("loaded model %s in %.2f s", target, self.load_seconds)
+            return self.generator, self.tokenizer
+
+    def _set(self, key, generator, tokenizer):
+        if self.chat_template:
+            # the operator's template wins over the checkpoint's
+            tokenizer.chat_template = self.chat_template
+        old = self.generator
+        self._key = key
+        self.generator = generator
+        self.tokenizer = tokenizer
+        if old is None:
+            return
+        if getattr(old, "concurrent", False):
+            old.close()  # stop the replaced batcher's scheduler thread
+        else:
+            with self.gen_lock:  # after a request in flight on it
+                if hasattr(old, "close"):
+                    old.close()
+        del old
+        # the old generator's graphs, pools and caches are garbage now
+        gc.collect()
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
 
 
 class APIHandler(BaseHTTPRequestHandler):
@@ -162,6 +288,9 @@ class APIHandler(BaseHTTPRequestHandler):
 
     provider: ModelProvider = None
     gen_lock: threading.Lock = None
+    metrics: ServingMetrics = None
+    profile_dir: Optional[str] = None
+    api_key: Optional[str] = None
     # server-wide deadline defaults (--request-timeout / --ttft-timeout);
     # the body's fields override them
     request_timeout: Optional[float] = None
@@ -184,7 +313,10 @@ class APIHandler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
-        for k, v in (extra_headers or {}).items():
+        # the headers gathered while handling (the request id) ride along
+        headers = dict(getattr(self, "_resp_headers", None) or {})
+        headers.update(extra_headers or {})
+        for k, v in headers.items():
             self.send_header(k, str(v))
         self._cors()
         self.end_headers()
@@ -195,11 +327,20 @@ class APIHandler(BaseHTTPRequestHandler):
             "invalid_request_error" if code == 400
             else "not_found_error" if code == 404
             else "overloaded_error" if code == 429
+            else "service_unavailable_error" if code == 503
             else "timeout_error" if code == 504
             else "server_error"
         )
         self._json(code, {"error": {"message": message, "type": kind, "code": code}},
                    extra_headers=extra_headers)
+
+    def _bytes(self, content_type: str, body: bytes):
+        self.send_response(200)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self._cors()
+        self.end_headers()
+        self.wfile.write(body)
 
     # ------------------------------------------------------------- routing
     def do_OPTIONS(self):
@@ -208,12 +349,44 @@ class APIHandler(BaseHTTPRequestHandler):
         self.end_headers()
 
     def do_GET(self):
-        if self.path.split("?")[0] == "/health":
-            return self._json(200, {"status": "ok"})
-        return self._error(404, f"not found: {self.path}")
+        path = self.path.split("?")[0]
+        if path in ("/", "/index.html"):
+            path = "/index.html"
+        elif path == "/health":
+            # the generator's own view (a batcher: ok, draining, degraded);
+            # ``serving`` decides 200 against 503
+            gen = self.provider.generator
+            payload, serving = {"status": "ok"}, True
+            if hasattr(gen, "health"):
+                payload = dict(gen.health())
+                serving = bool(payload.pop("serving", True))
+            return self._json(200 if serving else 503, payload)
+        elif path == "/admin/trace" or path.startswith("/admin/trace/"):
+            # the flight recorder: /admin/trace/dump is the whole ring (and
+            # the incident snapshots) as one chrome://tracing document,
+            # /admin/trace/<request id> one request's timeline
+            tracer = tracing.get_tracer()
+            if tracer is None or not tracer.enabled:
+                return self._error(404, "tracing is off — start the server with "
+                                        "--trace sample|on")
+            rest = path[len("/admin/trace"):].strip("/")
+            if rest in ("", "dump"):
+                return self._json(200, tracer.export_dump())
+            payload = tracer.export_request(rest)
+            if payload is None:
+                return self._error(404, f"no trace recorded for {rest!r}")
+            return self._json(200, payload)
+        elif path == "/metrics":
+            return self._bytes("text/plain; version=0.0.4", self.metrics.render().encode())
+        target = (STATIC_DIR / path.lstrip("/")).resolve()
+        if not target.is_relative_to(STATIC_DIR.resolve()) or not target.is_file():
+            return self._error(404, f"not found: {self.path}")
+        self._bytes(CONTENT_TYPES.get(target.suffix, "application/octet-stream"),
+                    target.read_bytes())
 
     def do_POST(self):
         route = self.path.split("?")[0]
+        self._resp_headers: dict = {}  # per request (a handler serves many)
         handlers = {
             "/v1/completions": self._handle_text_completion,
             "/v1/chat/completions": self._handle_chat_completion,
@@ -226,22 +399,35 @@ class APIHandler(BaseHTTPRequestHandler):
             self.close_connection = True  # can't safely drain; don't reuse
             return self._error(413, "invalid or oversized request body")
         try:
-            # always drain before any reply, or keep-alive desyncs
+            # always drain before any reply (401 and 404 included), or
+            # keep-alive desyncs
             raw = self.rfile.read(length)
         except OSError:
             return self._error(400, "unreadable request body")
         if route not in handlers:
             return self._error(404, f"unknown route {route}")
+        if self.api_key:
+            # the web UI sends Authorization: Bearer <key>; only the POST
+            # routes are gated (static files, /health and /metrics stay
+            # open). Bytes compare: compare_digest refuses non-ASCII str,
+            # and the header is the client's
+            auth = self.headers.get("Authorization", "").encode("utf-8", "surrogateescape")
+            if not hmac.compare_digest(auth, f"Bearer {self.api_key}".encode()):
+                return self._json(401, {"error": {"message": "invalid or missing API key",
+                                                  "type": "authentication_error",
+                                                  "code": 401}})
         try:
             body = json.loads(raw or b"{}")
         except json.JSONDecodeError:
             return self._error(400, "invalid JSON body")
         try:
             params = self._validate_params(body)
-            generator, tokenizer = self.provider.load(body.get("model", "default_model"))
         except ValueError as e:
             return self._error(400, str(e))
         try:
+            # a swap that fails to load answers here and leaves the old
+            # model serving
+            generator, tokenizer = self.provider.load(body.get("model", "default_model"))
             handlers[route](body, params, generator, tokenizer)
         except (BrokenPipeError, ConnectionResetError):
             pass  # client went away
@@ -350,6 +536,8 @@ class APIHandler(BaseHTTPRequestHandler):
     # ----------------------------------------------------------- execution
     def _run(self, body, params, generator, tokenizer, prompt_ids, chat: bool):
         rid = self._response_id()
+        # the key of /admin/trace/<id>, on every response, traced or not
+        self._resp_headers["X-MST-Request-Id"] = rid
         model_name = body.get("model", "default_model")
         stop_id_sequences = [_encode_plain(tokenizer, s) for s in params["stop_words"]]
         eos = getattr(tokenizer, "eos_token_id", None)
@@ -387,13 +575,24 @@ class APIHandler(BaseHTTPRequestHandler):
         # generator is serialized by the lock
         lock = (contextlib.nullcontext() if getattr(generator, "concurrent", False)
                 else self.gen_lock)
-        with lock:
-            if params["stream"]:
-                self._stream(rid, obj + ".chunk", model_name, generator, tokenizer,
-                             prompt_ids, stop_id_sequences, eos, chat, gen_kwargs, timeout)
-            else:
-                self._complete(rid, obj, model_name, generator, tokenizer, prompt_ids,
-                               stop_id_sequences, eos, params["logprobs"], gen_kwargs, timeout)
+        # request tracing: a timeline under the client's request id, handed
+        # down to the generator, which stamps its spans; the server retires
+        # it into the flight recorder when the response has ended
+        trace = tracing.begin(rid) if getattr(generator, "supports_trace", False) else None
+        if trace is not None:
+            gen_kwargs["_trace"] = trace
+        try:
+            with lock:
+                if params["stream"]:
+                    self._stream(rid, obj + ".chunk", model_name, generator, tokenizer,
+                                 prompt_ids, stop_id_sequences, eos, chat, gen_kwargs, timeout,
+                                 trace=trace)
+                else:
+                    self._complete(rid, obj, model_name, generator, tokenizer, prompt_ids,
+                                   stop_id_sequences, eos, params["logprobs"], gen_kwargs,
+                                   timeout)
+        finally:
+            tracing.finish(trace)
 
     def _complete(self, rid, obj, model_name, generator, tokenizer, prompt_ids,
                   stop_id_sequences, eos, want_logprobs, gen_kwargs, timeout):
@@ -449,9 +648,9 @@ class APIHandler(BaseHTTPRequestHandler):
         ))
 
     def _stream(self, rid, obj, model_name, generator, tokenizer, prompt_ids,
-                stop_id_sequences, eos, chat, gen_kwargs, timeout):
+                stop_id_sequences, eos, chat, gen_kwargs, timeout, trace=None):
         """SSE; text whose token tail could still grow into a stop sequence
-        is held back."""
+        is held back. Each write is an ``sse_write`` span when traced."""
         t_start = time.perf_counter()
         it = self._generate(generator, prompt_ids, gen_kwargs, timeout)
         # prime the first token before committing to a 200, so a request
@@ -470,12 +669,21 @@ class APIHandler(BaseHTTPRequestHandler):
         self.send_header("Cache-Control", "no-cache")
         # SSE has no Content-Length: the stream ends with the connection
         self.send_header("Connection", "close")
+        for k, v in (getattr(self, "_resp_headers", None) or {}).items():
+            self.send_header(k, str(v))
         self._cors()
         self.end_headers()
 
         def emit(payload: dict):
-            self.wfile.write(f"data: {json.dumps(payload)}\n\n".encode())
-            self.wfile.flush()
+            buf = f"data: {json.dumps(payload)}\n\n".encode()
+            if trace is not None:
+                t0 = time.perf_counter()
+                self.wfile.write(buf)
+                self.wfile.flush()
+                trace.add("sse_write", t0, time.perf_counter(), bytes=len(buf))
+            else:
+                self.wfile.write(buf)
+                self.wfile.flush()
 
         def chunk(text):
             return self._make_response(
@@ -543,25 +751,32 @@ class APIHandler(BaseHTTPRequestHandler):
         self.close_connection = True
 
     def _generate(self, generator, prompt_ids, gen_kwargs, timeout=None):
-        it = generator.generate_step(prompt_ids, **gen_kwargs)
-        t0 = time.monotonic()
-        try:
-            for item in it:
-                yield item
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise RequestTimeoutError("total", time.monotonic() - t0, timeout)
-        finally:
-            it.close()
+        """The generator's stream, inside a ``torch.profiler`` capture when
+        ``--profile-dir`` is set; ``timeout`` bounds the total between
+        tokens for a generator without deadlines of its own."""
+        with profile_trace(self.profile_dir):
+            it = generator.generate_step(prompt_ids, **gen_kwargs)
+            if timeout is None:
+                yield from it
+                return
+            t0 = time.monotonic()
+            try:
+                for item in it:
+                    yield item
+                    if time.monotonic() - t0 > timeout:
+                        raise RequestTimeoutError("total", time.monotonic() - t0, timeout)
+            finally:
+                it.close()
 
     def _record(self, n_prompt, n_gen, t_start, t_first):
         end = time.perf_counter()
         ttft = (t_first - t_start) if t_first else 0.0
         decode_time = (end - t_first) if t_first else 0.0
-        logger.info(
-            "request: %d prompt tokens, %d generated, TTFT %.1f ms, decode %.1f tok/s",
-            n_prompt, n_gen, ttft * 1e3,
-            max(n_gen - 1, 0) / decode_time if decode_time > 0 else 0.0,
-        )
+        decode_tps = max(n_gen - 1, 0) / decode_time if decode_time > 0 else 0.0
+        self.metrics.record_request(prompt_tokens=n_prompt, generation_tokens=n_gen,
+                                    ttft_s=ttft, decode_tps=decode_tps)
+        logger.info("request: %d prompt tokens, %d generated, TTFT %.1f ms, decode %.1f tok/s",
+                    n_prompt, n_gen, ttft * 1e3, decode_tps)
 
     # ------------------------------------------------------------ handlers
     def _handle_chat_completion(self, body, params, generator, tokenizer):
@@ -576,10 +791,19 @@ class APIHandler(BaseHTTPRequestHandler):
 
 
 def make_server(provider: ModelProvider, host: str = "127.0.0.1", port: int = 8080,
+                profile_dir: Optional[str] = None, api_key: Optional[str] = None,
                 request_timeout: Optional[float] = None,
                 ttft_timeout: Optional[float] = None) -> ThreadingHTTPServer:
+    """A threading HTTP server over ``provider`` (JAX's signature); its
+    ``/metrics`` read the provider's live generator at each scrape."""
+    gen = lambda: provider.generator  # noqa: E731  (a swap must never leave a stale one)
+    metrics = ServingMetrics(
+        batcher_fn=lambda: gen() if getattr(gen(), "concurrent", False) else None,
+        spec_fn=lambda: gen() if hasattr(gen(), "accepted_tokens") else None,
+    )
     handler = type("BoundAPIHandler", (APIHandler,), {
-        "provider": provider, "gen_lock": threading.Lock(),
+        "provider": provider, "gen_lock": provider.gen_lock, "metrics": metrics,
+        "profile_dir": profile_dir, "api_key": api_key,
         "request_timeout": request_timeout, "ttft_timeout": ttft_timeout})
     return ThreadingHTTPServer((host, port), handler)
 
@@ -633,6 +857,17 @@ def main(argv=None):
                         "newest-admitted request on pool exhaustion (token-exact "
                         "resume) — higher slot occupancy than reserving every "
                         "request's full prompt+max_tokens need")
+    parser.add_argument("--prompt-cache", action="store_true",
+                        help="reuse KV for shared prompt prefixes (chat turns "
+                             "re-send their whole history: TTFT becomes "
+                             "O(new tokens)). Single-chip generator path, or "
+                             "with --concurrent --paged-pool: content-"
+                             "addressed page sharing across interleaved "
+                             "requests")
+    parser.add_argument("--decode-block", type=int, default=16,
+                        help="decode steps fused per program launch (token "
+                             "pulls amortize over this many tokens; set 1 "
+                             "for strict per-token streaming on a local chip)")
     parser.add_argument("--async-sched", choices=("on", "off", "auto"), default="auto",
                         help="with --concurrent: async tick pipelining — dispatch decode "
                         "block t+1 before harvesting block t, overlapping host-side "
@@ -641,10 +876,6 @@ def main(argv=None):
                         "plain decode and --draft ngram (pure device-side chains) and "
                         "falls back to sync with --draft-model; 'off' forces the "
                         "sequential tick")
-    parser.add_argument("--prompt-cache", action="store_true",
-                        help="with --concurrent --paged-pool: content-addressed sharing of "
-                        "prompt-prefix KV pages across requests (chat turns and system "
-                        "prompts are prefilled once)")
     parser.add_argument("--request-timeout", type=float, default=None,
                         help="total-generation deadline in seconds (submit to last token); "
                         "expiry cancels the request, frees its slot and KV pages and returns "
@@ -659,6 +890,38 @@ def main(argv=None):
                         help="with --concurrent: admission bound on queued requests; a full "
                         "queue rejects with 429 + Retry-After instead of growing without "
                         "limit under overload")
+    parser.add_argument("--api-key", default=None,
+                        help="require 'Authorization: Bearer <key>' on the "
+                             "/v1/* endpoints (the web UI's API key setting)")
+    parser.add_argument("--log-level", default="INFO")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace (Chrome trace JSON) per request "
+                        "here")
+    parser.add_argument("--trace", choices=("off", "sample", "on"), default="off",
+                        help="request-lifecycle tracing: record per-request "
+                             "span timelines (queue wait, prefill, decode "
+                             "ticks, SSE writes) into a bounded flight-"
+                             "recorder ring, exported as chrome://tracing "
+                             "JSON via GET /admin/trace/{request_id} and "
+                             "/admin/trace/dump. 'sample' traces every "
+                             "--trace-sample-th request; 'on' traces all; "
+                             "'off' (default) leaves None-check no-ops on "
+                             "the hot paths")
+    parser.add_argument("--trace-buffer", type=int, default=256,
+                        help="flight-recorder capacity: completed request "
+                             "timelines kept in the ring (oldest evicted); "
+                             "incident snapshots (a wedged or failed "
+                             "scheduler) preserve theirs separately")
+    parser.add_argument("--trace-sample", type=int, default=8,
+                        help="with --trace sample: trace every Nth request")
+    parser.add_argument("--trace-profile", action="store_true",
+                        help="with --trace: wrap each dispatched decode block "
+                             "in a torch.profiler range (mst.decode_block) "
+                             "so host spans line up with the card's kernels "
+                             "under --profile-dir")
+    parser.add_argument("--chat-template", default=None,
+                        help="jinja chat template (inline, or @/path/to/file) "
+                        "overriding the tokenizer's")
     parser.add_argument("--draft-model", default=None,
                         help="speculative decoding: a small draft model "
                              "proposes --spec-k tokens per round (greedy "
@@ -686,6 +949,12 @@ def main(argv=None):
                              "for --draft engine (without it the engine "
                              "path keeps fixed --spec-k rounds)")
     args = parser.parse_args(argv)
+    if args.trace_buffer < 1:
+        parser.error("--trace-buffer must be >= 1")
+    if args.trace_sample < 1:
+        parser.error("--trace-sample must be >= 1")
+    if args.trace_profile and args.trace == "off":
+        parser.error("--trace-profile requires --trace sample|on")
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine needs --draft-model")
     if args.draft_model and args.draft in ("off", "ngram"):
@@ -700,13 +969,20 @@ def main(argv=None):
             parser.error("--spec-window-max needs a speculating server: "
                          "--draft ngram or --draft-model")
     if args.prompt_cache:
-        if args.concurrent > 1 and not args.paged_pool:
-            parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
-                         "sharing is page-granular)")
-        if args.concurrent <= 1:
-            parser.error("--prompt-cache on the single-stream generator path is not yet "
-                         "ported (ROADMAP queue 1, slice 6): use it with --concurrent N "
-                         "--paged-pool P")
+        # concurrent serving needs the paged pool; otherwise the flag means
+        # the single-stream full-model generator (JAX's rule; the port's
+        # other single-host exclusions, layer ranges and fleet flags, come
+        # with their slices)
+        if args.concurrent > 1:
+            if not args.paged_pool:
+                parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
+                             "sharing is page-granular)")
+        elif args.draft_model:
+            parser.error("--prompt-cache applies to the single-chip "
+                         "full-model generator path or to --concurrent "
+                         "--paged-pool serving (no --coordinator/--tp/--ep/"
+                         "stage, layer-range, --draft-model, or fleet "
+                         "flags)")
     if args.paged_pool and args.concurrent <= 1:
         parser.error("--paged-pool requires --concurrent N (N > 1)")
     if args.page_size and not args.paged_pool:
@@ -743,10 +1019,18 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         parser.error(str(e))
-    logging.basicConfig(level=logging.INFO)
+    logging.basicConfig(level=args.log_level.upper())
+    # before the provider builds any batcher: a batcher resolves the
+    # profile bridge once, at construction
+    tracing.configure(args.trace, buffer=args.trace_buffer, sample_n=args.trace_sample,
+                      profile=args.trace_profile)
+    chat_template = args.chat_template
+    if chat_template and chat_template.startswith("@"):
+        chat_template = Path(chat_template[1:]).read_text()
     provider = ModelProvider.from_checkpoint(
-        args.model, device=device, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
-        keep_quantized=args.keep_quantized, concurrent=args.concurrent,
+        args.model, chat_template=chat_template, device=device, max_seq=args.max_seq,
+        prefill_chunk=args.prefill_chunk, keep_quantized=args.keep_quantized,
+        decode_block=max(1, args.decode_block), concurrent=args.concurrent,
         paged_pool=args.paged_pool, page_size=args.page_size,
         paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
         admission_policy=args.admission_policy, overcommit=args.overcommit,
@@ -754,7 +1038,8 @@ def main(argv=None):
         draft=args.draft, draft_model=args.draft_model, spec_k=args.spec_k,
         spec_window_max=args.spec_window_max,
     )
-    server = make_server(provider, args.host, args.port, request_timeout=args.request_timeout,
+    server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
+                         api_key=args.api_key, request_timeout=args.request_timeout,
                          ttft_timeout=args.ttft_timeout)
     logger.info("serving on http://%s:%d", args.host, args.port)
     server.serve_forever()

@@ -422,7 +422,7 @@ class _SpeculativeBase:
     def _tail(self, remaining: int, window: int, sampled: bool):
         """The rest of the request in plain decode blocks (the tail, or the
         capacity edge)."""
-        block = DEFAULT_DECODE_BLOCK
+        block = self.target.decode_block
         self.tail_steps += -(-remaining // block) * block
         yield from self.target.decode_stream(remaining, window, sampled, False)
 
@@ -489,6 +489,7 @@ class NgramSpeculativeGenerator(_SpeculativeBase):
         max_ngram: int = 3,
         clock: Callable[[], float] = time.monotonic,
         cuda_graphs: bool = True,
+        decode_block: int = DEFAULT_DECODE_BLOCK,
     ):
         if spec_window_max < 2:
             raise ValueError(
@@ -496,7 +497,7 @@ class NgramSpeculativeGenerator(_SpeculativeBase):
             )
         _check_full(model)
         self.target = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
-                                cuda_graphs=cuda_graphs)
+                                cuda_graphs=cuda_graphs, decode_block=decode_block)
         self.max_seq = self.target.max_seq
         self.proposer = NgramDraftProposer(max_ngram=max_ngram)
         self.tracker = AcceptanceTracker(1, w_max=spec_window_max, clock=clock)
@@ -591,6 +592,7 @@ class SpeculativeGenerator(_SpeculativeBase):
         max_seq: int = 4096,
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
         cuda_graphs: bool = True,
+        decode_block: int = DEFAULT_DECODE_BLOCK,
     ):
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
@@ -609,7 +611,7 @@ class SpeculativeGenerator(_SpeculativeBase):
                              f"{model.device}")
         self.spec_k = spec_k
         self.target = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
-                                cuda_graphs=cuda_graphs)
+                                cuda_graphs=cuda_graphs, decode_block=decode_block)
         self.draft = Generator(draft_model, max_seq=self.target.max_seq,
                                prefill_chunk=self.target.prefill_chunk, cuda_graphs=cuda_graphs)
         self.max_seq = self.target.max_seq

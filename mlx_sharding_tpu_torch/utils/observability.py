@@ -1,0 +1,432 @@
+"""Profiling and metrics (copied from ``mlx_sharding_tpu/utils/
+observability.py``, with the profiler on ``torch.profiler``).
+
+- :func:`profile_trace` records a ``torch.profiler`` trace (host ops of
+  every thread and, on a card, its kernels) around a generation call and
+  writes it as Chrome trace JSON under ``--profile-dir``;
+- :class:`ServingMetrics` is the lock-guarded counter set the server
+  exposes at ``/metrics``: request counts, token totals, TTFT and
+  decode-rate summaries, and the batcher's read-outs.
+
+The families whose sources come with later slices are left out, as the
+source module leaves out a family whose source is None: KV spill and
+prefetch, replicas and the fleet, the prefix store, the weight store, the
+pod, KV sharing and compression, disaggregated handoff, brownout, the fault
+harness and the resource ledger's anomalies (``ROADMAP.md`` lists each
+under its slice), and ``Histogram.merge_dicts``, which only the replica
+sets' aggregation calls (slice 8).
+"""
+
+from __future__ import annotations
+
+import bisect
+import contextlib
+import os
+import random
+import threading
+import time
+from dataclasses import dataclass, field
+
+from mlx_sharding_tpu_torch.utils.locks import make_lock
+
+# Shared bucket bounds (the source module's): they straddle the CPU test
+# rig's millisecond ticks and serving on a card; +Inf is the last slot.
+LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+ITL_BUCKETS_S = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                 0.25, 0.5, 1.0)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None):
+    """A ``torch.profiler`` capture of the host ops of every thread (the
+    batcher's scheduler thread included) and, with a card, its kernels,
+    written to ``log_dir`` as ``trace-<ns>.json`` (Chrome trace JSON); a
+    no-op when ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities,
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace-{time.time_ns()}.json"))
+
+
+class _Reservoir:
+    """Bounded uniform sample for percentile summaries."""
+
+    def __init__(self, capacity: int = 512, seed: int = 0):
+        self.capacity = capacity
+        self.values: list[float] = []
+        self.count = 0
+        self._rng = random.Random(seed)
+
+    def add(self, value: float):
+        self.count += 1
+        if len(self.values) < self.capacity:
+            self.values.append(value)
+        else:
+            j = self._rng.randrange(self.count)
+            if j < self.capacity:
+                self.values[j] = value
+
+    def percentile(self, p: float) -> float:
+        if not self.values:
+            return 0.0
+        s = sorted(self.values)
+        idx = min(len(s) - 1, max(0, round(p / 100 * (len(s) - 1))))
+        return s[idx]
+
+
+class Histogram:
+    """Cumulative bucketed histogram, the Prometheus ``_bucket{le=}`` /
+    ``_sum`` / ``_count`` shape. Bucket counts merge exactly (elementwise
+    addition), which is why the latency families live here rather than in
+    :class:`_Reservoir`."""
+
+    __slots__ = ("_bounds", "_counts", "_sum", "_count", "_lock")
+
+    def __init__(self, bounds, lock_name: str = "Histogram._lock"):
+        self._bounds = tuple(float(b) for b in bounds)
+        self._counts = [0] * (len(self._bounds) + 1)  # last slot = +Inf
+        self._sum = 0.0
+        self._count = 0
+        self._lock = make_lock(lock_name)
+
+    def observe(self, value: float):
+        v = float(value)
+        with self._lock:
+            # the smallest le bucket holding v; past every bound, +Inf
+            self._counts[bisect.bisect_left(self._bounds, v)] += 1
+            self._sum += v
+            self._count += 1
+
+    def to_dict(self) -> dict:
+        """A serializable snapshot (what ``latency_stats()`` returns)."""
+        with self._lock:
+            return {
+                "bounds": list(self._bounds),
+                "counts": list(self._counts),
+                "sum": self._sum,
+                "count": self._count,
+            }
+
+    @staticmethod
+    def render_into(lines: list, family: str, snap: dict | None, help_text: str = ""):
+        """Append one family's exposition block from a :meth:`to_dict`
+        snapshot (nothing when the snapshot is absent)."""
+        if not snap or "counts" not in snap:
+            return
+        if help_text:
+            lines.append(f"# HELP {family} {help_text}")
+        lines.append(f"# TYPE {family} histogram")
+        acc = 0
+        for bound, n in zip(snap["bounds"], snap["counts"]):
+            acc += n
+            lines.append(f'{family}_bucket{{le="{bound:g}"}} {acc}')
+        acc += snap["counts"][-1]
+        lines.append(f'{family}_bucket{{le="+Inf"}} {acc}')
+        lines.append(f"{family}_sum {snap['sum']:.6f}")
+        lines.append(f"{family}_count {snap['count']}")
+
+
+def _render_spec_family(lines: list, spec: dict):
+    """The speculation gauges from a ``spec_stats()`` dict: whether this
+    generator drafts, how wide, and whether it pays."""
+    lines += [
+        "# TYPE mst_spec_enabled gauge",
+        f'mst_spec_enabled{{mode="{spec["mode"]}"}} 1',
+        "# TYPE mst_spec_window gauge",
+        f"mst_spec_window {spec.get('window_max', 0)}",
+        "# TYPE mst_spec_accept_rate gauge",
+        f"mst_spec_accept_rate {spec.get('accept_rate', 0.0):.4f}",
+        "# TYPE mst_spec_draft_tokens_total counter",
+        f"mst_spec_draft_tokens_total {spec.get('draft_tokens', 0)}",
+        "# TYPE mst_spec_accepted_tokens_total counter",
+        f"mst_spec_accepted_tokens_total {spec.get('accepted_tokens', 0)}",
+        "# TYPE mst_spec_rounds_total counter",
+        f"mst_spec_rounds_total {spec.get('rounds', 0)}",
+        "# TYPE mst_spec_fallback_ticks_total counter",
+        f"mst_spec_fallback_ticks_total {spec.get('fallback_ticks', 0)}",
+        "# TYPE mst_spec_draft_faults_total counter",
+        f"mst_spec_draft_faults_total {spec.get('draft_faults', 0)}",
+    ]
+    if "disabled_slots" in spec:
+        # per-slot adaptive control only (a tracker behind it)
+        lines += [
+            "# TYPE mst_spec_disabled_slots gauge",
+            f"mst_spec_disabled_slots {spec['disabled_slots']}",
+            "# TYPE mst_spec_shed_events_total counter",
+            f"mst_spec_shed_events_total {spec['shed_events']}",
+        ]
+
+
+def _render_batcher(lines: list, b) -> bool:
+    """The families a continuous batcher feeds, each from a read-out that
+    takes host counters under the batcher's locks and never reads the card.
+    Returns whether the speculation family was rendered."""
+    slots, active, queued = b.stats()
+    lines += [
+        "# TYPE mst_batch_slots gauge",
+        f"mst_batch_slots {slots}",
+        "# TYPE mst_batch_slots_active gauge",
+        f"mst_batch_slots_active {active}",
+        "# TYPE mst_batch_queue_depth gauge",
+        f"mst_batch_queue_depth {queued}",
+    ]
+    pages = b.page_stats()
+    if pages is not None:
+        total, in_use, high = pages
+        lines += [
+            "# TYPE mst_kv_pool_pages gauge",
+            f"mst_kv_pool_pages {total}",
+            "# TYPE mst_kv_pool_pages_in_use gauge",
+            f"mst_kv_pool_pages_in_use {in_use}",
+            "# TYPE mst_kv_pool_pages_high_water gauge",
+            f"mst_kv_pool_pages_high_water {high}",
+        ]
+        if b.overcommit:
+            lines += [
+                "# TYPE mst_preemptions_total counter",
+                f"mst_preemptions_total {b.preemptions}",
+            ]
+    kv = b.kv_read_stats()
+    if kv is not None:
+        path, last_tick, total_bytes = kv
+        lines += [
+            # 1 = ragged in-place paged attention, 0 = the gather path
+            "# TYPE mst_paged_attention_ragged gauge",
+            f"mst_paged_attention_ragged {int(path == 'ragged')}",
+            "# TYPE mst_kv_bytes_read_last_tick gauge",
+            f"mst_kv_bytes_read_last_tick {last_tick}",
+            "# TYPE mst_kv_bytes_read_total counter",
+            f"mst_kv_bytes_read_total {total_bytes}",
+        ]
+    hbm = b.hbm_bytes_per_token_stats()
+    if hbm is not None:
+        lines += [
+            "# TYPE mst_decode_hbm_bytes_per_token gauge",
+            f'mst_decode_hbm_bytes_per_token{{kind="weights"}} {hbm["weights"]:.1f}',
+            f'mst_decode_hbm_bytes_per_token{{kind="kv"}} {hbm["kv"]:.1f}',
+        ]
+    lat = b.latency_stats()
+    # inter-token gaps from the emit path, queue wait from submit to slot
+    Histogram.render_into(lines, "mst_itl_seconds", lat.get("itl"))
+    Histogram.render_into(lines, "mst_queue_wait_seconds", lat.get("queue_wait"))
+    tick = b.tick_timing_stats()
+    path = tick["path"]
+    lines += [
+        "# TYPE mst_sched_async gauge",
+        f"mst_sched_async {int(path == 'async')}",
+        "# TYPE mst_tick_host_ms gauge",
+        f'mst_tick_host_ms{{path="{path}"}} {tick["host_ms_last"]:.3f}',
+        "# TYPE mst_tick_device_blocked_ms gauge",
+        f'mst_tick_device_blocked_ms{{path="{path}"}} {tick["device_blocked_ms_last"]:.3f}',
+        # the resume path's import stall: the spill tier (slice 3 item 4)
+        # has no import yet, so it reads 0
+        f'mst_tick_device_blocked_ms{{path="kv_import"}} '
+        f"{tick.get('kv_import_ms_last', 0.0):.3f}",
+    ]
+    spec = b.spec_stats()
+    if spec is not None:
+        _render_spec_family(lines, spec)
+    res = b.resilience_stats()
+    lines += [
+        "# TYPE mst_requests_timeout_total counter",
+        f"mst_requests_timeout_total {res['timeouts']}",
+        # shed = rejected before any work: the queue bound at submission
+        # (429), or the TTFT deadline while queued
+        "# TYPE mst_requests_shed_total counter",
+        f'mst_requests_shed_total{{reason="queue_full"}} {res["shed_queue_full"]}',
+        f'mst_requests_shed_total{{reason="deadline"}} {res["shed_deadline"]}',
+        "# TYPE mst_scheduler_thread_live gauge",
+        f"mst_scheduler_thread_live {int(bool(res['scheduler_thread_live']))}",
+    ]
+    if res.get("max_queue") is not None:
+        lines += [
+            "# TYPE mst_max_queue gauge",
+            f"mst_max_queue {res['max_queue']}",
+        ]
+    prefix = b.prefix_stats()
+    if prefix is not None:
+        queries, hits, reused, evictions, cached = prefix
+        lines += [
+            "# TYPE mst_prefix_cache_queries_total counter",
+            f"mst_prefix_cache_queries_total {queries}",
+            "# TYPE mst_prefix_cache_hits_total counter",
+            f"mst_prefix_cache_hits_total {hits}",
+            "# TYPE mst_prefix_cache_tokens_reused_total counter",
+            f"mst_prefix_cache_tokens_reused_total {reused}",
+            "# TYPE mst_prefix_cache_evictions_total counter",
+            f"mst_prefix_cache_evictions_total {evictions}",
+            "# TYPE mst_prefix_cache_pages gauge",
+            f"mst_prefix_cache_pages {cached}",
+        ]
+    return spec is not None
+
+
+@dataclass
+class ServingMetrics:
+    # taken BEFORE any batcher lock: render() calls the batcher's locked
+    # read-outs while holding it
+    lock: threading.Lock = field(default_factory=lambda: make_lock("ServingMetrics.lock"))
+    requests_total: int = 0
+    requests_failed: int = 0
+    prompt_tokens_total: int = 0
+    generation_tokens_total: int = 0
+    ttft_s: _Reservoir = field(default_factory=_Reservoir)
+    decode_tps: _Reservoir = field(default_factory=_Reservoir)
+    ttft_hist: Histogram = field(
+        default_factory=lambda: Histogram(LATENCY_BUCKETS_S, "ServingMetrics.ttft_hist"))
+    # zero-argument callables returning the live ContinuousBatcher, or the
+    # live speculating single-stream generator (or None): callables, so a
+    # model hot-swap never leaves a stale reference
+    batcher_fn: object = None
+    spec_fn: object = None
+
+    def record_request(self, *, prompt_tokens: int, generation_tokens: int, ttft_s: float,
+                       decode_tps: float, failed: bool = False):
+        with self.lock:
+            self.requests_total += 1
+            if failed:
+                self.requests_failed += 1
+            self.prompt_tokens_total += prompt_tokens
+            self.generation_tokens_total += generation_tokens
+            if ttft_s > 0:
+                self.ttft_s.add(ttft_s)
+                self.ttft_hist.observe(ttft_s)
+            if decode_tps > 0:
+                self.decode_tps.add(decode_tps)
+
+    def render(self) -> str:
+        """Prometheus text exposition."""
+        with self.lock:
+            lines = [
+                "# TYPE mst_requests_total counter",
+                f"mst_requests_total {self.requests_total}",
+                "# TYPE mst_requests_failed_total counter",
+                f"mst_requests_failed_total {self.requests_failed}",
+                "# TYPE mst_prompt_tokens_total counter",
+                f"mst_prompt_tokens_total {self.prompt_tokens_total}",
+                "# TYPE mst_generation_tokens_total counter",
+                f"mst_generation_tokens_total {self.generation_tokens_total}",
+                "# TYPE mst_decode_tokens_per_second summary",
+                f'mst_decode_tokens_per_second{{quantile="0.5"}} '
+                f"{self.decode_tps.percentile(50):.3f}",
+                f'mst_decode_tokens_per_second{{quantile="0.95"}} '
+                f"{self.decode_tps.percentile(95):.3f}",
+            ]
+            Histogram.render_into(lines, "mst_ttft_seconds", self.ttft_hist.to_dict())
+            # a batcher read-out can die mid-scrape (the batcher closing
+            # under a hot-swap): drop its whole section rather than answer
+            # 500 or a half-rendered family
+            mark = len(lines)
+            spec_rendered = False
+            try:
+                b = self.batcher_fn() if self.batcher_fn is not None else None
+                if b is not None:
+                    spec_rendered = _render_batcher(lines, b)
+            except Exception:  # noqa: BLE001 — scrapes must never 500
+                del lines[mark:]
+            spec = self.spec_fn() if self.spec_fn is not None and not spec_rendered else None
+            if spec is not None and hasattr(spec, "spec_stats"):
+                # a single-stream speculating generator, hosted without a
+                # batcher: the same family under the same contract
+                smark = len(lines)
+                try:
+                    st = spec.spec_stats()
+                    if st is not None:
+                        _render_spec_family(lines, st)
+                except Exception:  # noqa: BLE001 — scrapes must never 500
+                    del lines[smark:]
+            elif spec is not None:
+                rounds = max(1, spec.rounds)
+                lines += [
+                    "# TYPE mst_spec_rounds_total counter",
+                    f"mst_spec_rounds_total {spec.rounds}",
+                    "# TYPE mst_spec_tokens_accepted_total counter",
+                    f"mst_spec_tokens_accepted_total {spec.accepted_tokens}",
+                    "# TYPE mst_spec_acceptance_rate gauge",
+                    f"mst_spec_acceptance_rate {spec.accepted_tokens / rounds:.4f}",
+                    "# TYPE mst_spec_fallback_ticks_total counter",
+                    f"mst_spec_fallback_ticks_total {getattr(spec, 'fallback_ticks', 0)}",
+                    "# TYPE mst_spec_tokens_replayed_total counter",
+                    f"mst_spec_tokens_replayed_total {getattr(spec, 'replayed_tokens', 0)}",
+                ]
+        return "\n".join(_finalize(lines)) + "\n"
+
+
+# HELP strings of the families whose meaning is not readable off the name;
+# every other family gets one made from its name
+_HELP = {
+    "mst_requests_total": "Requests served (including failures).",
+    "mst_requests_failed_total": "Requests that ended in an error.",
+    "mst_ttft_seconds": "Time to first token, seconds (histogram).",
+    "mst_itl_seconds": "Inter-token latency from the scheduler emit path, seconds.",
+    "mst_queue_wait_seconds": "Admission queue wait, submit to slot assignment, seconds.",
+    "mst_decode_tokens_per_second": "Per-request decode rate summary.",
+    "mst_tick_host_ms": "Host-side scheduler work per tick, ms.",
+    "mst_tick_device_blocked_ms": "Per-tick wall time blocked on the device, ms.",
+}
+
+
+def _help_text(family: str) -> str:
+    return _HELP.get(family, family.removeprefix("mst_").replace("_", " ") + ".")
+
+
+def _infer_type(family: str) -> str:
+    return "counter" if family.endswith("_total") else "gauge"
+
+
+def _family_of(sample: str, histograms: set) -> str:
+    name = sample.split("{", 1)[0].split(" ", 1)[0]
+    for suffix in ("_bucket", "_sum", "_count"):
+        if name.endswith(suffix) and name[: -len(suffix)] in histograms:
+            return name[: -len(suffix)]
+    return name
+
+
+def _finalize(lines: list) -> list:
+    """Every family gets a ``# HELP`` ahead of its ``# TYPE``, and a sample
+    whose family declared no ``# TYPE`` gets both in front of it."""
+    typed = set()
+    histograms = set()
+    for ln in lines:
+        if ln.startswith("# TYPE "):
+            parts = ln.split()
+            typed.add(parts[2])
+            if parts[3] == "histogram":
+                histograms.add(parts[2])
+    out: list = []
+    helped: set = set()
+    for ln in lines:
+        if ln.startswith("# HELP "):
+            helped.add(ln.split()[2])
+            out.append(ln)
+            continue
+        if ln.startswith("# TYPE "):
+            fam = ln.split()[2]
+            if fam not in helped:
+                out.append(f"# HELP {fam} {_help_text(fam)}")
+                helped.add(fam)
+            out.append(ln)
+            continue
+        if not ln or ln.startswith("#"):
+            out.append(ln)
+            continue
+        fam = _family_of(ln, histograms)
+        if fam not in typed:
+            out.append(f"# HELP {fam} {_help_text(fam)}")
+            out.append(f"# TYPE {fam} {_infer_type(fam)}")
+            helped.add(fam)
+            typed.add(fam)
+        out.append(ln)
+    return out

@@ -49,6 +49,17 @@ HEADS = [(4, 2, 64), (4, 4, 128), (16, 8, 256)]
 CAP = 2.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tiny steps run on one torch thread in this module: under
+    the test run's several workers, a thread pool per small op contends for
+    the cores and multiplies the wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(rng, b, t, s, hq, hkv, d):
     return (rng.standard_normal((b, t, hq, d)).astype(np.float32) * 2,
             rng.standard_normal((b, s, hkv, d)).astype(np.float32),

@@ -12,7 +12,6 @@ from mlx_sharding_tpu.config import LlamaConfig
 from mlx_sharding_tpu.generate import Generator as JGenerator
 from mlx_sharding_tpu.generate import stream_generate as j_stream_generate
 from mlx_sharding_tpu.models.llama import LlamaModel as JLlamaModel
-from mlx_sharding_tpu_torch import generate
 from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.generate import Generator, stream_generate
 from tests.test_tokenizer_utils import ByteTokenizer
@@ -73,7 +72,7 @@ def test_logprobs_match(pair):
 @pytest.mark.parametrize("decode_block", [1, 5, 16])
 def test_decode_block_size_does_not_change_the_stream(pair, decode_block, monkeypatch):
     jg, tg = pair
-    monkeypatch.setattr(generate, "DEFAULT_DECODE_BLOCK", decode_block)
+    monkeypatch.setattr(tg, "decode_block", decode_block)
     assert _tokens(tg, _prompt(), max_tokens=23) == _tokens(jg, _prompt(), max_tokens=23)
 
 

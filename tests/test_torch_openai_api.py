@@ -215,7 +215,11 @@ def test_health_routes_and_bad_bodies(servers):
     _, tport = servers
     status, _, body = _request(tport, "GET", "/health")
     assert status == 200 and json.loads(body) == {"status": "ok"}
-    assert _request(tport, "GET", "/index.html")[0] == 404
+    # the static UI: index.html is served, a missing file is 404
+    status, ctype, body = _request(tport, "GET", "/index.html")
+    assert status == 200 and ctype == "text/html"
+    assert body == (tapi.STATIC_DIR / "index.html").read_bytes()
+    assert _request(tport, "GET", "/missing.html")[0] == 404
     assert _request(tport, "POST", "/v1/unknown", {"prompt": "x"})[0] == 404
     assert _request(tport, "POST", "/v1/completions", raw="{not json")[0] == 400
     status, _, body = _request(tport, "POST", "/v1/completions",

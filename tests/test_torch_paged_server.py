@@ -150,7 +150,8 @@ def test_concurrent_generator_is_served_without_the_lock(ckpt):
     (["--max-queue", "4"], "--max-queue requires --concurrent N (N > 1)"),
     (["--concurrent", "2", "--paged-pool", "4", "--max-queue", "0"],
      "--max-queue must be a positive integer"),
-    (["--prompt-cache"], "not yet ported (ROADMAP queue 1, slice 6)"),
+    (["--prompt-cache", "--draft-model", "d"],
+     "--prompt-cache applies to the single-chip full-model generator path"),
     (["--concurrent", "2", "--prompt-cache"],
      "--prompt-cache with --concurrent requires --paged-pool (prefix sharing is page-granular)"),
     (["--ttft-timeout", "0"], "--ttft-timeout must be a positive number of seconds"),

@@ -52,6 +52,17 @@ OC_JOBS = [(REPEAT, dict(max_tokens=36)), ([3, 17, 42, 5], dict(max_tokens=40)),
            ([9, 1, 9, 1, 9, 1, 9], dict(max_tokens=38))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tiny steps run on one torch thread in this module: under
+    the test run's several workers, a thread pool per small op contends for
+    the cores and multiplies the wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class FakeClock:
     def __init__(self):
         self.n = itertools.count()

@@ -42,6 +42,17 @@ PROMPTS = [[5, 6, 7, 5, 6, 7, 5, 6], [3, 17, 42, 9], [9, 1, 9, 1, 9, 1, 9, 1, 9]
 PENALTY = dict(repetition_penalty=1.3, logit_bias={7: 2.0, 9: -1.5})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tiny steps run on one torch thread in this module: under
+    the test run's several workers, a thread pool per small op contends for
+    the cores and multiplies the wall time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class FakeClock:
     """Advances by ``step`` at every read: a disabled window re-probes after
     a fixed number of rounds, the same in both packages."""
