@@ -2323,23 +2323,46 @@ def prefix_parity(model, kv_dtype: str, tag: str) -> None:
           f"{tag} prefix sharing skipped {off_flash - on_flash} flash launches")
 
 
-def serve_on_this_thread(batcher, jobs, *, cancel_after=None, tick=None):
+def serve_on_this_thread(batcher, jobs, *, cancel_after=None, tick=None, start_after=None,
+                         hold=None):
     """Serve ``jobs`` ``[(prompt, kwargs)]`` by running the batcher's ticks
     on the calling thread (no scheduler thread), every request submitted
     before the first tick, so that a run's admissions and preemptions
     depend on the jobs alone. ``cancel_after=(i, n)`` closes stream i after
-    its n-th token, as a client that walks away. ``tick``: what one
-    iteration calls, ``batcher.run_tick`` by default. Returns each stream's
-    ``(token, logprobs)`` items and the requests (their ``preempted_at``)."""
+    its n-th token, as a client that walks away. ``start_after={i: (j,
+    n)}`` submits job i only once stream j has n tokens (or has ended).
+    ``hold=(i, n, ticks)`` stops reading stream i after its n-th token for
+    that many ticks, as a client that stops reading and comes back.
+    ``tick``: what one iteration calls, ``batcher.run_tick`` by default.
+    Returns each stream's ``(token, logprobs)`` items and the requests
+    (their ``preempted_at``)."""
     tick = tick or batcher.run_tick
     batcher._ensure_running = lambda: None
-    streams = [batcher.generate_step(p, **kw) for p, kw in jobs]
-    reqs = list(batcher._submit.queue)
+    start_after = start_after or {}
+    streams, reqs = [None] * len(jobs), [None] * len(jobs)
+
+    def submit(i):
+        streams[i] = batcher.generate_step(jobs[i][0], **jobs[i][1])
+        reqs[i] = batcher._submit.queue[-1]
+
+    for i in range(len(jobs)):
+        if i not in start_after:
+            submit(i)
     got = [[] for _ in jobs]
     ended = [False] * len(jobs)
+    held = 0
     with torch.no_grad():
         for _ in range(100000):
             for i, (stream, req) in enumerate(zip(streams, reqs)):
+                if stream is None:
+                    j, n = start_after[i]
+                    if len(got[j]) < n and not ended[j]:
+                        continue
+                    submit(i)
+                    stream, req = streams[i], reqs[i]
+                if hold is not None and i == hold[0] and len(got[i]) >= hold[1] \
+                        and held < hold[2]:
+                    continue
                 while not ended[i] and not req.out.empty():
                     if cancel_after == (i, len(got[i])):
                         stream.close()  # marks the request cancelled
@@ -2351,6 +2374,8 @@ def serve_on_this_thread(batcher, jobs, *, cancel_after=None, tick=None):
                         ended[i] = True
             if all(ended):
                 break
+            if hold is not None and len(got[hold[0]]) >= hold[1]:
+                held += 1
             tick()
     check(all(ended), "the batcher wedged")
     return got, reqs
@@ -3698,6 +3723,388 @@ def phase_surfaces(model, seed: int, lap) -> tuple:
     return launches, stats
 
 
+# ------------------------------------------------------------- KV movement
+KV_POOL = 12  # pages of the round trips' pools (and the scratch)
+KV_EXPORT = (1, 5, 7, 9)  # the pages exported ...
+KV_IMPORT = (0, 2, 3, 11)  # ... and the pages they are imported into
+KV_LENGTHS = (1024, 700, 513, 1)  # kernel 2's slots over the 4 pages
+SPILL_LAYERS = 8  # the int8 spill runs' and the cold slot's depth cut (full width)
+SPILL_TOKENS = 96  # each parity prompt's tokens in the spill runs
+SPILL_BYTES = 4 << 30
+COLD_AFTER = 4
+COLD_JOB = (600, 64)  # its prompt and tokens; its reader stops after 8 for 10 ticks
+STORE_SLOTS = 4
+STORE_PREFIX = 1024  # the shared system prompt: four 256-token pages
+STORE_SUFFIX = 100
+STORE_TOKENS = 32
+STORE_BYTES = 160 << 20  # holds one 4-page block of the 8B (128 MiB), not two
+
+
+def fill_pool(cache, gen, kv_dtype) -> None:
+    """Random K/V in every page of a pool (an MLA pool's dummy V stays
+    zero); an int8 pool quantized with the port's ``quantize_kv_rows``."""
+    from mlx_sharding_tpu_torch.cache import quantize_kv_rows
+
+    for name in ("k", "v"):
+        buf = getattr(cache, name)
+        data = buf["d"] if kv_dtype == "int8" else buf
+        if name == "v" and data.shape[-1] == 1:
+            continue  # the compressed MLA cache's dummy values
+        rows = torch.randn(data.shape, generator=gen, device="cuda")
+        if kv_dtype == "int8":
+            q = quantize_kv_rows(rows)
+            buf["d"].copy_(q["d"])
+            buf["s"].copy_(q["s"])
+        else:
+            buf.copy_(rows)
+        del rows
+
+
+def kv_roundtrip(tag: str, gen, layers: int, heads: int, dims, kv_dtype: str, hq: int,
+                 scale: float, codec=None, values_from_k=None) -> dict:
+    """One page-block round trip at full width: export ``KV_EXPORT`` (the
+    gather), flush it to pinned host memory (compressed by ``codec``),
+    stage it back (the prefetch), import it into ``KV_IMPORT`` (the
+    scatter); the imported pages bit-identical to the originals, and
+    kernel 2 over them bit-identical to kernel 2 over the originals. Each
+    copy timed on its own: a first block warms the pinned and device
+    allocations, the second is timed."""
+    from mlx_sharding_tpu_torch import kv_transfer as kvt
+    from mlx_sharding_tpu_torch.cache import export_pool_pages, import_pool_pages
+    from mlx_sharding_tpu_torch.cache import init_cache_paged, is_quantized_kv, layer_pool
+    from mlx_sharding_tpu_torch.kv_compress import tree_leaves
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+
+    cache = init_cache_paged(layers, KV_POOL, PAGE, heads, dims, len(KV_LENGTHS),
+                             torch.bfloat16, "cuda", quantized=kv_dtype == "int8")
+    fill_pool(cache, gen, kv_dtype)
+    src = torch.tensor(KV_EXPORT, device="cuda")
+    dst = torch.tensor(KV_IMPORT, device="cuda")
+    gather_ms = time_ms(lambda: export_pool_pages(cache, src))
+
+    def export():
+        return kvt.export_block(cache, KV_EXPORT, page_size=PAGE, n_tokens=len(KV_EXPORT) * PAGE,
+                                prompt=[0], history=[1], produced=1, resume_gen=None,
+                                resume_recent=None, codec=codec)
+
+    export().to_host().prefetch()  # the warm-up block
+    block = export()
+    raw = block.nbytes
+    # the copies alone, device time on the current stream: the exported
+    # pages into pinned host tensors, and back
+    dev_leaves = tree_leaves((block.k_pages, block.v_pages))
+    host_leaves = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev_leaves]
+    d2h_ms = time_ms(lambda: [h.copy_(t, non_blocking=True)
+                              for h, t in zip(host_leaves, dev_leaves)], iters=5)
+    h2d_ms = time_ms(lambda: [t.copy_(h, non_blocking=True)
+                              for h, t in zip(host_leaves, dev_leaves)], iters=5)
+    del host_leaves, dev_leaves
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block.to_host()  # the copy, the compression, the checksum
+    flush_s = time.perf_counter() - t0
+    wire = block.nbytes
+    t0 = time.perf_counter()
+    block.prefetch(codec=codec)
+    block._staged_event.synchronize()
+    stage_s = time.perf_counter() - t0
+    k_pages, v_pages, _ = block.payload()
+    scatter_ms = time_ms(lambda: import_pool_pages(cache, k_pages, v_pages, dst))
+    torch.cuda.synchronize()
+    for leaf in tree_leaves((cache.k, cache.v)):
+        leaf[:, dst] = 0  # the import must write every byte back
+    kvt.import_block(cache, block, KV_IMPORT, codec=codec)
+    torch.cuda.synchronize()
+    same = all(torch.equal(leaf[:, src], leaf[:, dst]) for leaf in tree_leaves((cache.k, cache.v)))
+    # kernel 2 over the originals and over the imported pages, per layer
+    # 0 and the last: four slots of lengths KV_LENGTHS over the four pages
+    m = len(KV_LENGTHS)
+    lengths = torch.tensor(KV_LENGTHS, dtype=torch.int32, device="cuda")
+    dk = tree_leaves(cache.k)[0].shape[-1]
+    q = torch.randn((m, hq, dk), generator=gen, device="cuda").to(torch.bfloat16)
+    equal_out = True
+    for layer in (0, layers - 1):
+        kl, vl = layer_pool(cache.k, layer), layer_pool(cache.v, layer)
+        quant = is_quantized_kv(kl)
+        outs = []
+        for pages in (KV_EXPORT, KV_IMPORT):
+            tables = torch.tensor([pages] * m, dtype=torch.int32, device="cuda")
+            outs.append(pa.paged_attention(
+                q, kl["d"] if quant else kl, vl["d"] if quant else vl, tables, lengths, scale,
+                values_from_k=values_from_k, k_scale=kl["s"] if quant else None,
+                v_scale=vl["s"] if quant else None))
+        torch.cuda.synchronize()
+        equal_out &= torch.equal(*outs) and bool(torch.isfinite(outs[0]).all())
+    pages = len(KV_EXPORT)
+    out = {"bytes_per_page": raw / pages, "wire_bytes_per_page": wire / pages,
+           "gather_ms": gather_ms, "scatter_ms": scatter_ms, "d2h_ms": d2h_ms,
+           "h2d_ms": h2d_ms, "d2h_gb_s": raw / d2h_ms / 1e6, "h2d_gb_s": raw / h2d_ms / 1e6,
+           "flush_ms": flush_s * 1e3, "stage_ms": stage_s * 1e3, "kind": block.compress_kind}
+    log(f"{tag} {kv_dtype} pool, {layers} layers x {heads} KV heads x {dims}: "
+        f"{out['bytes_per_page']:.0f} bytes a page ({out['wire_bytes_per_page']:.0f} on the "
+        f"wire{', ' + block.compress_kind + ' codec' if block.compress_kind else ''}); "
+        f"{pages} pages: gather {gather_ms:.4f} ms, device-to-host copy into pinned memory "
+        f"{d2h_ms:.3f} ms ({out['d2h_gb_s']:.2f} GB/s), host-to-device copy "
+        f"{h2d_ms:.3f} ms ({out['h2d_gb_s']:.2f} GB/s), scatter {scatter_ms:.4f} ms (device "
+        f"time, L2 flushed); to_host (copy, codec, checksum) {out['flush_ms']:.3f} ms and the "
+        f"prefetch's stage {out['stage_ms']:.3f} ms of wall time; {card_line()}")
+    log(f"{tag} imported pages bit-identical to the exported ones: {same}; kernel 2 "
+        f"(values_from_k {values_from_k}) over them bit-identical to over the originals "
+        f"(layers 0 and {layers - 1}, lengths {KV_LENGTHS}): {equal_out}")
+    check(same, f"{tag} the imported pages differ from the exported ones")
+    check(equal_out, f"{tag} kernel 2 over the imported pages differs")
+    del cache, block, k_pages, v_pages
+    return out
+
+
+def first_divergence(got: list, want: list):
+    """The index of the first token where two streams part, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def spill_runs(model, kv_dtype: str, tag: str) -> dict:
+    """Phase 6's parity mix (``PARITY_PROMPTS``, ``SPILL_TOKENS`` each, five
+    greedy and a seeded one) served on this thread over ``POOL_PAGES`` pages
+    four ways: reserve admission (no preemption), overcommit that discards
+    and re-prefills (bf16 only), and overcommit that spills with prefetch on
+    and off (bf16; on only for int8). Each preempted stream's first
+    divergence from its reserve run, the spill counters, and the resume's
+    host wait per import with prefetch on and off."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    jobs = [(tok.encode(mix_prompt(60 + i, n)), dict(max_tokens=SPILL_TOKENS))
+            for i, n in enumerate(PARITY_PROMPTS[:-1])]
+    jobs.append((tok.encode(mix_prompt(70, PARITY_PROMPTS[-1])),
+                 dict(max_tokens=SPILL_TOKENS, temperature=0.8, top_p=0.9, seed=77)))
+    ways = [("reserve", {})]
+    if kv_dtype == "bf16":
+        ways.append(("discard", dict(overcommit=True)))
+    ways.append(("spill", dict(overcommit=True, spill_bytes=SPILL_BYTES, kv_prefetch="on")))
+    if kv_dtype == "bf16":
+        ways.append(("spill-demand", dict(overcommit=True, spill_bytes=SPILL_BYTES,
+                                          kv_prefetch="off")))
+    runs, out = {}, {}
+    for name, kw in ways:
+        engine = PipelineEngine(model, microbatches=SLOTS, max_seq=PARITY_MAX_SEQ,
+                                prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                                kv_dtype=kv_dtype, device=model.device)
+        batcher = ContinuousBatcher(engine, decode_block=8, **kw)
+        if batcher.spill is not None:
+            # the flush at the preemption, on this thread: every resume then
+            # finds its block on the host (a request that waits longer than
+            # a flush, ~0.3 s here, does), so that prefetch on and off
+            # compare a stage against a demand copy
+            batcher.spill._flush_async = False
+        batcher.warm_up()
+        items, reqs = serve_on_this_thread(batcher, jobs)
+        runs[name] = [[t for t, _ in s] for s in items]
+        s = batcher.spill_stats()
+        t = batcher.tick_timing_stats()
+        imports = s["spill_hits"]
+        blocked = t["kv_import_s_total"] * 1e3 / imports if imports else 0.0
+        preempted = [i for i, r in enumerate(reqs) if r.preempted_at]
+        div = {i: first_divergence(runs[name][i], runs["reserve"][i]) for i in preempted}
+        log(f"{tag} {name}: {s['preemptions']} preemptions (streams {preempted}, at tokens "
+            f"{[reqs[i].preempted_at for i in preempted]}), {s['spills']} spills, "
+            f"{s['spill_hits']} spill hits, {s['spill_fallbacks']} fallbacks, "
+            f"{s['reprefill_tokens']} tokens re-prefilled; prefetches {s['prefetches']}, "
+            f"staged imports {s['prefetch_hits']}, demand imports {s['demand_imports']}; the "
+            f"resume's host wait in import_block {blocked:.3f} ms an import "
+            f"({imports} imports); first divergence from the reserve run per preempted "
+            f"stream {div} (None: equal)")
+        out[name] = {"stats": s, "blocked_ms": blocked, "divergence": div,
+                     "streams_equal": runs[name] == runs["reserve"]}
+        batcher.close()
+        del batcher, engine
+        if name != "reserve":
+            check(s["preemptions"] >= 1, f"{tag} {name}: nothing was preempted")
+        if name.startswith("spill"):
+            check(s["spills"] >= 1 and s["spill_hits"] == s["spills"]
+                  and s["spill_fallbacks"] == 0 and s["reprefill_tokens"] == 0,
+                  f"{tag} {name}: {s}")
+            # greedy streams resumed from their own K/V are the uninterrupted
+            # ones, bf16 and int8 alike (the seeded one draws as alone too)
+            check(runs[name] == runs["reserve"], f"{tag} {name}: a resumed stream differs "
+                  f"from its reserve run: {div}")
+    if kv_dtype == "bf16":
+        on, off = out["spill"]["stats"], out["spill-demand"]["stats"]
+        check(on["prefetch_hits"] >= 1 and off["demand_imports"] >= 1,
+              f"{tag} prefetch on {on}, off {off}")
+    return out
+
+
+def cold_spill_run(model, tag: str) -> dict:
+    """One stream whose reader stops after 8 tokens for 10 ticks, with
+    ``--spill-cold-after 4``: its slot spills and parks, wakes when the
+    reader comes back, and the stream equals the same request unheld."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    job = (tok.encode(mix_prompt(80, COLD_JOB[0])), dict(max_tokens=COLD_JOB[1]))
+    engine = PipelineEngine(model, microbatches=2, max_seq=PARITY_MAX_SEQ, prefill_chunk=CHUNK,
+                            pool_pages=POOL_PAGES, page_size=PAGE, device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, spill_bytes=SPILL_BYTES,
+                                spill_cold_after=COLD_AFTER)
+    batcher.warm_up()
+    plain = [t for t, _ in serve_on_this_thread(batcher, [job])[0][0]]
+    held = [t for t, _ in serve_on_this_thread(batcher, [job], hold=(0, 8, 10))[0][0]]
+    s = batcher.spill_stats()
+    log(f"{tag} cold slot: reader stops after 8 tokens for 10 ticks, spill_cold_after "
+        f"{COLD_AFTER}: {s['cold_spills']} cold spills, {s['cold_wakes']} wakes, "
+        f"{s['spill_hits']} imports ({s['prefetch_hits']} staged); the resumed stream equals "
+        f"the unheld one: {held == plain}")
+    check(s["cold_spills"] >= 1 and s["cold_wakes"] == s["cold_spills"] and held == plain,
+          f"{tag} cold-slot spill: {s}")
+    batcher.close()
+    return {"cold_spills": s["cold_spills"], "wakes": s["cold_wakes"]}
+
+
+def store_runs(model, tag: str, seed: int) -> dict:
+    """The prefix store at full depth: requests sharing a 1,024-token system
+    prompt, one at a time (but two at once), through a ``STORE_SLOTS``-slot
+    batcher whose host tier holds one demoted prefix. A cold request
+    registers the prefix, its finish demotes it; the same request again
+    imports it (host hit) and equals the cold stream; two more lease it
+    (host hit, then a device hit while the first decodes); another prefix
+    evicts it from the tier; the first request once more runs cold and
+    equals itself. Each request's TTFT, the hits by kind; then kernel 1 at
+    the chunk after the hit (offset 1024) over the imported pages' rows
+    against its plain version."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.prefix_store import PrefixStore
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    system = tok.encode(mix_prompt(90, STORE_PREFIX))
+    other = tok.encode(mix_prompt(91, STORE_PREFIX))
+    ask = lambda i: tok.encode(mix_prompt(92 + i, STORE_SUFFIX))  # noqa: E731
+    store = PrefixStore(host_bytes=STORE_BYTES)
+    engine = PipelineEngine(model, microbatches=STORE_SLOTS, max_seq=PARITY_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, prefix_store=store)
+    batcher.warm_up()
+    ttfts, streams = [], []
+
+    def start(prompt, tokens=STORE_TOKENS):
+        t0 = time.perf_counter()
+        stream = batcher.generate_step(prompt, max_tokens=tokens)
+        first = next(stream)[0]
+        ttfts.append((time.perf_counter() - t0) * 1e3)
+        return first, stream
+
+    def settle():
+        # the demotion's copy to the host runs on the tier's flusher
+        deadline = time.monotonic() + 10
+        while store._host.stats()["blocks_host"] < store._host.stats()["blocks"] \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+
+    def one(prompt, tokens=STORE_TOKENS):
+        first, stream = start(prompt, tokens)
+        streams.append([first] + [t for t, _ in stream])
+        settle()
+
+    try:
+        one(system + ask(0))  # cold: registers, then demotes
+        one(system + ask(0))  # host hit: imported, equals the cold stream
+        first, long_stream = start(system + ask(1), tokens=4 * STORE_TOKENS)  # host hit
+        one(system + ask(2))  # device hit: leases the pages the first still holds
+        streams.append([first] + [t for t, _ in long_stream])
+        settle()
+        one(other + ask(3))  # another prefix: its demotion evicts the first
+        one(system + ask(0))  # cold again
+        s = store.stats()
+    finally:
+        batcher.close()
+    log(f"{tag} prefix store ({STORE_PREFIX}-token system prompt, host tier "
+        f"{STORE_BYTES >> 20} MiB: one 4-page block): TTFT by request "
+        f"{[round(t, 1) for t in ttfts]} ms (cold, host hit, host hit, device hit, other "
+        f"prefix cold, cold after eviction); hits device {s['hits_device']}, host "
+        f"{s['hits_host']}, misses {s['misses']}; demotions {s['demotions']}, evictions by "
+        f"budget {s['evictions_budget']}; imports staged {s['imports_staged']}, demand "
+        f"{s['imports_demand']}; tokens reused {s['tokens_reused']}; the host hit's stream "
+        f"equals the cold one: {streams[1] == streams[0]}; the cold run after eviction too: "
+        f"{streams[5] == streams[0]}; {card_line()}")
+    check(streams[1] == streams[0] and streams[5] == streams[0],
+          f"{tag} a store hit's stream differs from the cold run's")
+    check(s["hits_host"] >= 2 and s["hits_device"] >= 1 and s["demotions"] >= 2
+          and s["evictions_budget"] >= 1, f"{tag} store stats {s}")
+    # kernel 1 at the chunk after a hit: its keys 0..1023 are the imported
+    # rows of layer 0 (the pages of the last demoted block, staged)
+    digest = store.digests_for(system + ask(0))[-1]
+    block = store.host_block(digest)
+    block.prefetch(device="cuda")
+    k_pages, v_pages, event = block.payload()
+    event.synchronize()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    cfg = model.config
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // hq
+    s_len = STORE_PREFIX + CHUNK
+    k = torch.randn((1, s_len, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((1, s_len, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k[0, :STORE_PREFIX] = k_pages[0].reshape(STORE_PREFIX, hkv, d)
+    v[0, :STORE_PREFIX] = v_pages[0].reshape(STORE_PREFIX, hkv, d)
+    q = torch.randn((1, CHUNK, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = d ** -0.5
+    err = family_check(f"flash_attention after a store hit, offset {STORE_PREFIX}, keys from "
+                       f"the imported pages", fa.flash_attention(q, k, v, STORE_PREFIX, scale),
+                       fa.flash_attention_reference(q, k, v, STORE_PREFIX, scale))
+    store.close()
+    return {**s, "ttft_ms": ttfts, "flash_err": err}
+
+
+def phase_kv_movement(model, seed: int, lap) -> dict:
+    """Phase 12: KV movement on phase 4's model. Page-block round trips at
+    full width (bf16 and int8 pools of the 8B, and DeepSeek-Coder-V2-Lite's
+    compressed MLA pool through the latent codec); the spill tier under
+    overcommit against reserve admission (bf16 at full depth, with the
+    discard path and prefetch off beside it; int8 cut to ``SPILL_LAYERS``
+    layers); a cold slot's spill and wake (cut); the prefix store at full
+    depth."""
+    from mlx_sharding_tpu_torch.kv_compress import build_codec
+    from mlx_sharding_tpu_torch.models import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 120)
+    cfg = model.config
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // hq
+    stats = {"roundtrip": {}}
+    for kv_dtype in ("bf16", "int8"):
+        stats["roundtrip"][kv_dtype] = kv_roundtrip("[kv-move]", gen, cfg.num_hidden_layers,
+                                                    hkv, d, kv_dtype, hq, d ** -0.5)
+    lite, lite_cfg = build_model(DSV2_LITE)  # on the meta device: its geometry alone
+    codec = build_codec(lite, paged=True, kv_quant=False, num_stages=1,
+                        pool_layers=lite_cfg.num_hidden_layers)
+    check(codec is not None and codec.mode == "latent", "the Lite's pool got no latent codec")
+    stats["roundtrip"]["mla"] = kv_roundtrip(
+        "[kv-move]", gen, lite_cfg.num_hidden_layers, lite.cache_num_heads(),
+        lite.cache_head_dim(), "bf16", lite_cfg.num_attention_heads, lite.scale, codec=codec,
+        values_from_k=MLA_DV)
+    del lite
+    lap("phase 12, page-block round trips")
+    # bf16 at full depth (the discard path parts from the reserve run at
+    # full depth; cut, it may not); int8 and the cold slot cut to
+    # SPILL_LAYERS
+    stats["spill_bf16"] = spill_runs(model, "bf16", "[kv-spill-bf16]")
+    cut = first_layers(model, SPILL_LAYERS)
+    stats["spill_int8"] = spill_runs(cut, "int8", f"[kv-spill-int8-{SPILL_LAYERS}L]")
+    stats["cold"] = cold_spill_run(cut, f"[kv-cold-{SPILL_LAYERS}L]")
+    del cut
+    lap("phase 12, spill, prefetch and cold slots")
+    stats["store"] = store_runs(model, "[kv-store]", seed)
+    lap("phase 12, the prefix store")
+    return stats
+
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------ the families' kernel paths
@@ -5039,6 +5446,7 @@ def main(argv=None) -> int:
     lap("speculation in f32")
     dense_launches, dense = phase_dense_batching(model, args.seed, single["decode_tok_s"], lap)
     surface_launches, surfaces = phase_surfaces(model, args.seed, lap)
+    phase_kv_movement(model, args.seed, lap)
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model

@@ -17,8 +17,10 @@ Paged layout (:class:`PagedKV`): one pool per K and V of shape
 ``(L, P+1, page, H_kv, D)``, the JAX leaf ``(S, L, P+1, B, page, H, D)``
 with S = B = 1 dropped; page P is scratch. An int8 pool is a ``{"d": int8,
 "s": float32 (…, 1)}`` pair (:func:`quantize_kv_rows`). Slot offsets are
-host ints here too (:func:`rewind_slot_offset` rolls one back). Exporting
-and importing pool pages (spill, migration) come with later slices.
+host ints here too (:func:`rewind_slot_offset` rolls one back).
+:func:`export_pool_pages` gathers pages out of a pool (a new tensor per
+leaf, scales with codes) and :func:`import_pool_pages` scatters them back
+in place, so the addresses captured step graphs hold stay valid.
 
 Dense slot caches (:func:`init_cache_slots`, JAX ``PipelineEngine.init_cache``):
 M+1 caches of the full capacity, slot M the scratch that every inactive
@@ -241,6 +243,43 @@ def write_pool_span(pool, page_id: torch.Tensor, start: int, rows: torch.Tensor)
         pool["s"][:, start : start + t].index_copy_(0, page_id, q["s"][None])
     else:
         pool[:, start : start + t].index_copy_(0, page_id, rows[None].to(pool.dtype))
+
+
+def _map_pool(fn, buf, *others):
+    """``fn`` over a pool's leaves: the tensor, or each of an int8 pool's
+    ``{"d", "s"}`` leaves with the matching leaves of ``others``."""
+    if is_quantized_kv(buf):
+        return {key: fn(buf[key], *(o[key] for o in others)) for key in buf}
+    return fn(buf, *others)
+
+
+def export_pool_pages(cache: "PagedKV", page_ids: torch.Tensor):
+    """Gather pool pages ``page_ids`` (an int64 vector on the pool's
+    device) out of a paged cache's K and V (JAX ``export_pool_pages``):
+    one ``index_select`` along the pool axis (1 here, 2 in JAX's
+    ``(S, L, P+1, B, page, H, D)``) per leaf, an int8 pool's scales with
+    its codes. Returns ``(k_pages, v_pages)`` shaped like the pool leaves
+    with the pool axis narrowed to ``len(page_ids)``, in new tensors that
+    later writes to the pool leave alone. Enqueued on the current stream,
+    nothing read back."""
+    take = lambda leaf: leaf.index_select(1, page_ids)  # noqa: E731
+    return _map_pool(take, cache.k), _map_pool(take, cache.v)
+
+
+def import_pool_pages(cache: "PagedKV", k_pages, v_pages, page_ids: torch.Tensor) -> "PagedKV":
+    """Scatter exported page payloads into pool pages ``page_ids`` of
+    ``cache``, the inverse of :func:`export_pool_pages` (JAX
+    ``import_pool_pages``). The pool is written IN PLACE (``index_copy_``):
+    its tensors are never rebound, since the captured prefill and decode
+    graphs hold their addresses. Payload leaves must already sit on the
+    pool's device; they are cast to the pool's dtype. Returns ``cache``."""
+
+    def put(pool, blk):
+        pool.index_copy_(1, page_ids, blk.to(pool.dtype))
+
+    _map_pool(put, cache.k, k_pages)
+    _map_pool(put, cache.v, v_pages)
+    return cache
 
 
 def rewind_slot_offset(cache: "PagedKV", slot: int, steps: int) -> None:

@@ -152,6 +152,7 @@ class PipelineEngine:
         page_size: Optional[int] = None,
         paged_attention: str = "auto",
         kv_dtype: Optional[str] = None,
+        kv_compress_map=None,
         device=None,
     ):
         for name, n in (("pipeline stages", stages), ("tp", tp), ("ep", ep)):
@@ -224,6 +225,20 @@ class PipelineEngine:
                                 else "gather")
         #: the T=1 step's attention: "ragged", "gather" or "dense"
         self.decode_path = self.paged_attention if self.paged else "dense"
+        # compressed-latent KV transport (kv_compress.py, JAX's wiring): an
+        # MLA-native pool gets the exact latent codec, a calibrated map
+        # (``kv_compress_map``) opts a bf16 GQA pool into lowrank; every
+        # exported page block carries the codec. The KV share map (slice
+        # 7b) is not ported, so the share hash is None.
+        from mlx_sharding_tpu_torch.kv_compress import build_codec
+
+        self.kv_share_hash = None
+        self.kv_codec = build_codec(model, paged=self.paged, kv_quant=self.kv_quant,
+                                    num_stages=stages, pool_layers=cfg.num_local_layers,
+                                    share_hash=self.kv_share_hash,
+                                    compress_map=kv_compress_map)
+        self.kv_compress_hash = (self.kv_codec.compress_hash if self.kv_codec is not None
+                                 else None)
         model.place_constants(self.device)
         # persistent step inputs: a step's key -> (buffer, DeviceInputs over it)
         self._plans: dict = {}
@@ -232,6 +247,11 @@ class PipelineEngine:
         # forwards (prefill chunks, decode steps) run eagerly on the card:
         # warm-ups of captured steps, or ``cuda_graphs=False``
         self.eager_forwards = 0
+
+    def kv_compress_stats(self) -> Optional[dict]:
+        """The ``mst_kv_compress_*`` read-out: the codec's counters, None
+        when no codec is active."""
+        return self.kv_codec.stats() if self.kv_codec is not None else None
 
     # ------------------------------------------------------------------
     def init_cache(self) -> PagedKV:

@@ -19,8 +19,8 @@ free slot alone, no page accounting, as JAX's dense batcher).
   request is preempted: its emitted tokens fold into its prompt, its
   sampler state (generator state, window row) is stashed, and it goes back
   to the head of the waiting line, to be re-prefilled and continue exactly
-  where it stopped (the JAX package's discard path; the spill tier comes
-  with KV movement).
+  where it stopped (the discard path), or, with a spill tier, to import its
+  exported pages and continue from them.
 - While anything decodes, one prefill chunk runs per tick, round-robin
   over the admitting requests; with nothing decoding they all advance.
 - A decode block reads the card once: right after its dispatch its outputs
@@ -114,8 +114,24 @@ timeline that gets ``queue_wait``, ``prefill``, ``decode_tick`` (or
 Under ``--trace-profile`` each dispatched decode block runs inside an
 ``mst.decode_block`` profiler range.
 
-Not yet ported, and refused at construction: KV spill and prefetch and the
-prefix store.
+KV movement (``kv_transfer.py``, JAX's spill tier): with ``spill_bytes``
+a preempted request's page chain is exported (a gather on the tick's
+stream) into a host-memory LRU tier whose flusher thread copies it out;
+its resume imports the pages into fresh pool pages and restores its
+generator state, window and last token, instead of re-prefilling. With
+``spill_cold_after`` a decoding slot whose consumer stopped reading for
+that many ticks is spilled the same way and parked off the waiting line
+until the consumer catches up. ``kv_prefetch`` stages a spilled block on
+the card (a side stream, from pinned memory) while its request waits, so
+the import's scatter waits on an event instead of the host waiting for
+the copy. A failed export, import or prefetch is counted, logged, and the
+request re-prefills. Prefix store (``prefix_store``, one
+``prefix_store.PrefixStore`` per server): admissions lease the pages of a
+registered prompt prefix copy-on-write (device tier) or import its demoted
+block (host tier) and prefill only the rest; a finished prefill registers
+its prefix under its chained chunk digests, and the entry's last release
+exports it to the host tier. The drain and handoff movers come with slice
+8.
 """
 
 from __future__ import annotations
@@ -135,6 +151,7 @@ import torch
 
 from mlx_sharding_tpu_torch import tracing
 from mlx_sharding_tpu_torch.cache import rewind_slot_offset, slot_table
+from mlx_sharding_tpu_torch.kv_transfer import KVSpillTier, export_block, import_block
 from mlx_sharding_tpu_torch.generate import (
     LOGPROB_TOPK,
     TokenLogprobs,
@@ -219,6 +236,17 @@ class _Request:
     # reset when the prompt folds) and the chain _fits found for admission
     pkeys: Optional[list] = None
     chain: Optional[list] = None
+    # the prefix store: the prompt's chained chunk digests (memoized, reset
+    # when the prompt folds), the ("device" | "host", cover) plan _fits
+    # found, and the PrefixLease the slot holds on shared pages
+    sdigests: Optional[list] = None
+    splan: Optional[tuple] = None
+    lease: Optional[object] = None
+    # KV movement: a block of this request waits in the spill tier; the
+    # cold-slot scan's consumed count and the ticks it has not moved
+    spilled: bool = False
+    consumed_seen: int = 0
+    cold_ticks: int = 0
     # tracing: the bound timeline (None when off or not sampled; a
     # server-owned one is retired by the server), and the perf_counter
     # stamps of the queue-wait and inter-token histograms
@@ -328,27 +356,48 @@ class ContinuousBatcher:
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         paged = getattr(engine, "pool_pages", None) is not None
-        if prefix_store is not None and not paged:
-            raise ValueError("the prefix store requires a paged engine (pool_pages): prefix "
-                             "reuse is page-granular")
-        if kv_prefetch not in ("on", "off", "auto"):
-            raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
-        # each names the ROADMAP queue 1 item that ports it
-        unported = {
-            "spill_bytes / spill_cold_after / kv_prefetch (KV spill)": (
-                spill_bytes is not None or spill_cold_after is not None or kv_prefetch == "on",
-                "slice 3, item 4, after slice 7's kv_transfer.py"),
-            "prefix_store (the fleet prefix store)": (prefix_store is not None, "slice 7"),
-        }
-        for what, (asked, item) in unported.items():
-            if asked:
-                raise NotImplementedError(f"ContinuousBatcher {what} is not yet ported "
-                                          f"(ROADMAP queue 1, {item})")
-        if overcommit and not paged:
-            raise ValueError("overcommit admission requires a paged engine (pool_pages)")
         if prefix_cache and not paged:
             raise ValueError("prefix_cache requires a paged engine (pool_pages): sharing "
                              "is page-granular")
+        if prefix_store is not None:
+            if not paged:
+                raise ValueError("the prefix store requires a paged engine (pool_pages): "
+                                 "prefix reuse is page-granular")
+            if prefix_cache:
+                raise ValueError("prefix_cache and prefix_store are mutually exclusive — the "
+                                 "fleet-wide store subsumes the slot-local prefix cache "
+                                 "(--prompt-cache); drop --prompt-cache")
+            if draft_engine is not None:
+                raise ValueError("the prefix store is incompatible with a draft engine: the "
+                                 "draft's dense KV has no shareable pages, so a store hit "
+                                 "would leave it attending to unprefilled state")
+        if overcommit and not paged:
+            raise ValueError("overcommit admission requires a paged engine (pool_pages)")
+        if spill_bytes is not None:
+            if isinstance(spill_bytes, bool) or not isinstance(spill_bytes, int) \
+                    or spill_bytes <= 0:
+                raise ValueError(f"spill_bytes must be a positive byte count, got "
+                                 f"{spill_bytes!r}")
+            if not paged:
+                raise ValueError("KV spill (--spill-bytes) requires a paged engine "
+                                 "(pool_pages): spilling moves pool pages")
+            if draft_engine is not None:
+                # the draft's dense KV has no page chain to export
+                raise ValueError("KV spill is incompatible with a draft engine — "
+                                 "speculative slots re-prefill on preemption")
+        if spill_cold_after is not None:
+            if isinstance(spill_cold_after, bool) or not isinstance(spill_cold_after, int) \
+                    or spill_cold_after < 1:
+                raise ValueError(f"spill_cold_after must be an int >= 1 (ticks), got "
+                                 f"{spill_cold_after!r}")
+            if spill_bytes is None:
+                raise ValueError("spill_cold_after needs a spill tier to spill into — "
+                                 "set spill_bytes (--spill-bytes)")
+        if kv_prefetch not in ("on", "off", "auto"):
+            raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
+        if kv_prefetch == "on" and spill_bytes is None:
+            raise ValueError("kv_prefetch='on' needs a spill tier to prefetch from — "
+                             "set spill_bytes (--spill-bytes)")
         if async_sched == "on" and draft_engine is not None:
             # the next round's proposals depend on this round's accept counts
             raise ValueError("async_sched='on' is incompatible with a draft engine; use 'auto' "
@@ -507,7 +556,40 @@ class ContinuousBatcher:
         self.decode_seconds = 0.0
         self.page_waits = 0  # requests that found a free slot but not enough pages
         self.preemptions = 0
-        self.reprefill_tokens = 0  # prompt + history tokens of preempted requests
+        self.reprefill_tokens = 0  # prompt + history tokens of discard paths
+
+        # KV movement (kv_transfer.py): preempted (and cold) requests' page
+        # blocks in a host-memory LRU tier; every counter below is written
+        # under _admission_lock
+        self._share_hash = getattr(engine, "kv_share_hash", None)
+        self._kv_codec = getattr(engine, "kv_codec", None)
+        self._compress_hash = getattr(engine, "kv_compress_hash", None)
+        self.spill_bytes = spill_bytes
+        self.spill = KVSpillTier(spill_bytes) if spill_bytes else None
+        self.spills = 0  # blocks exported to the tier at preemption or cold spill
+        self.spill_hits = 0  # resumes served by a block import
+        self.spill_fallbacks = 0  # export, import or budget failures: re-prefills
+        # drained and migrated requests (the drain's movers come with slice 8)
+        self.migrations_out = 0
+        self.migrations_in = 0
+        self.spill_cold_after = spill_cold_after
+        self.kv_prefetch = kv_prefetch
+        self._prefetch_on = kv_prefetch == "on" or (kv_prefetch == "auto"
+                                                    and self.spill is not None)
+        self._parked: list[_Request] = []  # cold-spilled, off the waiting line
+        self.cold_spills = 0
+        self.cold_wakes = 0
+        self.prefetches = 0  # host-to-device stages enqueued
+        self.prefetch_hits = 0  # imports that took a staged block
+        self.demand_imports = 0  # imports that copied the host payload themselves
+        self.prefetch_faults = 0  # cache.prefetch faults: the demand path
+        # the fleet prefix store (prefix_store.py), shared by the server's
+        # batchers; device entries hold this pool's pages
+        self.prefix_store = prefix_store
+        if prefix_store is not None:
+            prefix_store.bind_page_size(engine.page_size)
+            prefix_store.bind_share_hash(self._share_hash)
+            prefix_store.bind_compress_hash(self._compress_hash)
         self.reset_tick_timing()
 
     # ------------------------------------------------------------- public
@@ -695,6 +777,11 @@ class ContinuousBatcher:
             "host_ms_avg": 1000.0 * self._tick_host_s_total / n,
             "device_blocked_ms_avg": 1000.0 * self._tick_blocked_s_total / n,
             "ticks": self._tick_count,
+            # the resume's import: the host's wait inside import_block, ~0
+            # when a prefetch staged the pages, the whole host-to-device
+            # copy on a demand import
+            "kv_import_ms_last": self.tick_kv_import_ms_last,
+            "kv_import_s_total": self._tick_kv_import_s_total,
         }
 
     def reset_tick_timing(self):
@@ -705,6 +792,8 @@ class ContinuousBatcher:
         self._tick_host_s_total = 0.0
         self._tick_blocked_s_total = 0.0
         self._tick_count = 0
+        self.tick_kv_import_ms_last = 0.0
+        self._tick_kv_import_s_total = 0.0
 
     def page_stats(self) -> Optional[tuple[int, int, int]]:
         """(pool pages, pages in use, high-water mark); pages that only the
@@ -722,7 +811,11 @@ class ContinuousBatcher:
         with self._admission_lock:
             return {"timeouts": self.timeouts, "shed_queue_full": self.shed_queue_full,
                     "shed_deadline": self.shed_deadline, "max_queue": self.max_queue,
-                    "scheduler_thread_live": live, "preemptions": self.preemptions}
+                    "scheduler_thread_live": live, "preemptions": self.preemptions,
+                    "spills": self.spills, "spill_hits": self.spill_hits,
+                    "spill_fallbacks": self.spill_fallbacks,
+                    "migrations_out": self.migrations_out,
+                    "migrations_in": self.migrations_in}
 
     def stats(self) -> tuple[int, int, int]:
         """(slots, active slots, queued requests). ``_slots`` belongs to the
@@ -744,6 +837,43 @@ class ContinuousBatcher:
         time out (a tick wedged)."""
         with self._start_lock:
             return self._live_locked()
+
+    def spill_stats(self) -> Optional[dict]:
+        """KV spill, migration and prefetch counters and the tier's
+        occupancy (JAX ``spill_stats``, the ``mst_kv_spill_*``,
+        ``mst_kv_migration_*`` and ``mst_kv_prefetch_*`` families); None on
+        dense slot caches. The tier's stats are read before the admission
+        lock is taken, so the two locks never nest."""
+        if not self.paged:
+            return None
+        spill = self.spill
+        tier = spill.stats() if spill is not None else {}
+        with self._admission_lock:
+            out = {
+                "enabled": spill is not None,
+                "spills": self.spills,
+                "spill_hits": self.spill_hits,
+                "spill_fallbacks": self.spill_fallbacks,
+                "migrations_out": self.migrations_out,
+                "migrations_in": self.migrations_in,
+                "reprefill_tokens": self.reprefill_tokens,
+                "preemptions": self.preemptions,
+                "cold_spills": self.cold_spills,
+                "cold_wakes": self.cold_wakes,
+                "parked": len(self._parked),
+                "prefetch_enabled": self._prefetch_on,
+                "prefetches": self.prefetches,
+                "prefetch_hits": self.prefetch_hits,
+                "demand_imports": self.demand_imports,
+                "prefetch_faults": self.prefetch_faults,
+            }
+        for key in ("budget_bytes", "bytes_in_use", "blocks", "blocks_host", "evictions",
+                    "rejects", "rejects_oversize", "rejects_closed"):
+            out[key] = tier.get(key, 0)
+        out["tier_hits"] = tier.get("hits", 0)
+        out["tier_misses"] = tier.get("misses", 0)
+        out["hit_rate"] = tier.get("hit_rate", 0.0)
+        return out
 
     def health(self) -> dict:
         """``/health``'s view: ``status`` ok, draining (closed) or degraded
@@ -826,6 +956,12 @@ class ContinuousBatcher:
                 tracing.auto_snapshot("wedge:scheduler")
                 logger.error("scheduler thread failed to exit within %.0fs — a tick is wedged; "
                              "the thread is abandoned and /health reports degraded", timeout)
+        if self.spill is not None:
+            self.spill.close()
+        if self.prefix_store is not None:
+            # the pool behind this engine's device entries goes with it; the
+            # host tier's blocks stay (they hold their own bytes)
+            self.prefix_store.drop_owner(self)
 
     # ------------------------------------------------------------ internals
     def _ensure_running(self):
@@ -839,12 +975,19 @@ class ContinuousBatcher:
     def _pages_needed(self, n_prompt: int, max_tokens: int) -> int:
         return -(-(n_prompt + max_tokens) // self.engine.page_size)
 
-    def _need_pages(self, req: _Request) -> int:
+    def _need_pages(self, req: _Request, block=None) -> int:
         """Pages to map at admission: reserve mode claims the whole prompt +
         max_tokens need up front; overcommit only the current need, the
         prompt plus ``_grow_ahead`` tokens (capped by what is left to emit),
-        and grows per block in :meth:`_grow_for_decode`."""
+        and grows per block in :meth:`_grow_for_decode`. A request resuming
+        from a block (``block``, or its entry in the spill tier) sizes from
+        the block's KV rows: at least its pages, plus the same headroom."""
         remaining = max(1, req.max_tokens - req.produced)
+        if block is None and req.spilled and self.spill is not None:
+            block = self.spill.peek(req)
+        if block is not None:
+            ahead = min(self._grow_ahead, remaining) if self.overcommit else remaining
+            return max(block.n_pages, -(-(block.n_tokens + ahead) // self.engine.page_size))
         if self.overcommit:
             return self._pages_needed(req.prompt.size, min(self._grow_ahead, remaining))
         return self._pages_needed(req.prompt.size, remaining)
@@ -857,8 +1000,34 @@ class ContinuousBatcher:
         if not self.paged:
             req.chain = None
             return True  # dense slots: a free slot is the whole need
+        if req.spilled and (self.spill is None or not self.spill.contains(req)):
+            # the tier evicted the block since the spill: the discard path,
+            # so the pages below are sized for the folded prompt
+            req.spilled = False
+            self._fold_history(req)
+            with self._admission_lock:
+                self.spill_fallbacks += 1
+            logger.warning("spilled KV block evicted before its resume; re-prefilling")
+        need = self._need_pages(req)
+        if req.spilled:
+            # the resume path: refresh the block so budget pressure evicts a
+            # colder one; its import takes fresh pages, no chain
+            self.spill.touch(req)
+            req.chain = None
+            return need <= len(self._free_pages) + self._evictable_pages()
+        if self.prefix_store is not None:
+            # the store's longest-prefix match instead of the slot-local
+            # chain: a device hit discounts the pages it leases, a host hit
+            # nothing (its import scatters into fresh pages)
+            req.splan = None
+            plan = self._store_lookup(req)
+            discount = plan[1] if plan is not None and plan[0] == "device" else 0
+            ok = need - discount <= len(self._free_pages) + self._evictable_pages()
+            if ok and plan is not None:
+                req.splan = plan
+            return ok
         chain = self._prefix_lookup(req)
-        ok = self._need_pages(req) - len(chain) <= len(self._free_pages) + self._evictable_pages(
+        ok = need - len(chain) <= len(self._free_pages) + self._evictable_pages(
             exclude=[p for _, p in chain])
         req.chain = chain if ok else None
         return ok
@@ -940,16 +1109,207 @@ class ContinuousBatcher:
         in_use = self.engine.pool_pages - len(self._free_pages)
         self.pages_high_water = max(self.pages_high_water, in_use)
 
-    def _release_pages(self, slot: int):
-        """Drop the slot's reference to each of its pages; a page nothing
-        else holds goes back to the free list."""
-        for p in self._pages_of.pop(slot, []):
+    def _unref_pages(self, pages):
+        """Drop one reference to each page; a page nothing else holds goes
+        back to the free list."""
+        for p in pages:
             r = self._page_ref.get(p, 1) - 1
             if r <= 0:
                 self._page_ref.pop(p, None)
                 self._free_pages.append(p)
             else:
                 self._page_ref[p] = r
+
+    def _release_pages(self, slot: int):
+        """Drop the slot's reference to each of its pages."""
+        self._unref_pages(self._pages_of.pop(slot, []))
+
+    # -------------------------------------------------------- prefix store
+    def _store_digests(self, req: _Request) -> list:
+        """The prompt's chained chunk digests for the store (memoized; reset
+        when the prompt folds)."""
+        if req.sdigests is None:
+            req.sdigests = self.prefix_store.digests_for(req.prompt)
+        return req.sdigests
+
+    def _store_lookup(self, req: _Request) -> Optional[tuple]:
+        """The store's longest-prefix match for ``req``, safe to poll; a
+        ``cache.prefix_lookup`` fault is counted and reads as no hit (plain
+        prefill)."""
+        digests = self._store_digests(req)
+        if not digests:
+            return None
+        try:
+            with tracing.bind(req.trace):  # the store's prefix_lookup span
+                return self.prefix_store.lookup(self, digests)
+        except Exception as e:  # noqa: BLE001 — a sick store degrades to plain prefill
+            # counted; polled each tick while the request waits, so not a warning
+            self.prefix_store.count_lookup_fault()
+            logger.debug("prefix-store lookup failed (plain prefill): %s", e)
+            return None
+
+    def _store_admit(self, req: _Request, plan: tuple, n: int) -> Optional[tuple]:
+        """The admission half of a store hit: ``(pages, reused tokens)`` for
+        the slot, or None for plain prefill (the plan went stale).
+
+        Device plan: lease the entry's pages copy-on-write (the slot's own
+        reference on each, beside the entry's) and take fresh pages for the
+        rest; prefill and decode write past the prefix. Host plan: take the
+        whole need fresh, import the tier's block into the prefix pages
+        (staged by a prefetch, or the counted demand import), and register
+        them as a device entry. A failed import keeps the pages and
+        prefills from token 0: the stream is exact either way."""
+        store = self.prefix_store
+        kind, cover = plan
+        digests = self._store_digests(req)
+        if len(digests) < cover:
+            return None  # the prompt changed since the plan
+        if kind == "device":
+            lease = store.acquire(self, digests, cover)
+            if lease is None:
+                store.count_lookup("miss", digests)
+                return None  # demoted since _fits: plain prefill
+            store.count_lookup("device")
+            for p in lease.pages:
+                self._page_ref[p] += 1
+            tail: list = []
+            try:
+                self._evict_for(n - cover)
+                for _ in range(n - cover):
+                    tail.append(self._free_pages.pop())
+            except BaseException:
+                # the headroom _fits saw is gone: give back the pages, the
+                # slot's claims and the lease, or the entry never demotes
+                self._free_pages.extend(tail)
+                for p in lease.pages:
+                    self._page_ref[p] -= 1
+                lease.release()
+                raise
+            for p in tail:
+                self._page_ref[p] = 1
+            req.lease = lease
+            return list(lease.pages) + tail, lease.n_tokens
+        block = store.host_block(digests[cover - 1])
+        if block is None:
+            store.count_lookup("miss", digests)
+            return None  # evicted since _fits: plain prefill
+        store.count_lookup("host")
+        self._evict_for(n)
+        pages = self._claim_fresh(n)
+        page = self.engine.page_size
+        try:
+            staged = block.is_prefetched
+            t0 = time.perf_counter()
+            with tracing.bind(req.trace):
+                import_block(self.cache, block, pages[:cover], share_hash=self._share_hash,
+                             codec=self._kv_codec)
+            dt = time.perf_counter() - t0
+            self.tick_kv_import_ms_last = dt * 1e3
+            self._tick_kv_import_s_total += dt
+            tr = req.trace
+            if tr is not None:
+                tr.add("handoff_import", t0, t0 + dt, kind="prefix_store", pages=cover,
+                       staged=staged)
+            store.count_import(staged=staged, n_tokens=cover * page)
+            with self._admission_lock:
+                if staged:
+                    self.prefetch_hits += 1
+                else:
+                    self.demand_imports += 1
+        except Exception as e:  # noqa: BLE001 — the pages are the slot's: prefill them all
+            store.count_import_fault()
+            logger.warning("prefix-store block import failed (re-prefill): %s", e)
+            return pages, 0
+        block.drop_prefetch()  # the staged copies served their one import
+        lease = store.register(self, digests[:cover], pages[:cover],
+                               req.prompt[: cover * page], cover * page * self._kv_row_bytes,
+                               force=True)
+        if lease is not None:
+            for p in lease.pages:
+                self._page_ref[p] += 1  # the promoted entry's own claim
+            req.lease = lease
+        return pages, cover * page
+
+    def _store_insert(self, req: _Request):
+        """Register a finished prefill's page-aligned prefix in the store
+        (its insertion policy decides): bookkeeping only, no device work.
+        The request holds the entry's first lease."""
+        store = self.prefix_store
+        digests = self._store_digests(req)
+        if not digests:
+            return
+        k = len(digests)
+        pages = self._pages_of.get(req.slot, [])[:k]
+        if len(pages) < k:
+            return
+        page = self.engine.page_size
+        lease = store.register(self, digests, pages, req.prompt[: k * page],
+                               k * page * self._kv_row_bytes)
+        if lease is None:
+            return
+        for p in lease.pages:
+            self._page_ref[p] += 1  # the entry's own claim on each page
+        req.lease = lease
+
+    def _drop_prefix_lease(self, req: _Request):
+        """Release ``req``'s lease once; on the entry's last release its
+        pages are exported to the host tier and go back to the pool."""
+        lease, req.lease = req.lease, None
+        if lease is None:
+            return
+        entry = lease.release()
+        if entry is not None:
+            self._demote_prefix_entry(entry)
+
+    def _demote_prefix_entry(self, entry):
+        """Last-release demotion: export the entry's pages as a pure-prefix
+        block (the gather enqueued on the tick's stream; the tier's flusher
+        copies it out) under its full-chain digest, then return the pages.
+        Skipped when the host tier already holds the digest; a failure
+        drops the prefix (re-prefilled on its next use)."""
+        store = self.prefix_store
+        digest = entry.digests[-1]
+        try:
+            if not store.host_contains(digest):
+                block = export_block(
+                    self.cache, entry.pages, page_size=self.engine.page_size,
+                    n_tokens=len(entry.pages) * self.engine.page_size, prompt=entry.tokens,
+                    history=[], produced=0, resume_gen=None, resume_recent=None,
+                    share_hash=self._share_hash, codec=self._kv_codec)
+                store.host_put(digest, block)
+        except Exception as e:  # noqa: BLE001 — the prefix is dropped, never the stream
+            store.count_demote_drop()
+            logger.warning("prefix demotion export failed (prefix dropped): %s", e)
+        self._unref_pages(entry.pages)
+
+    def _prefetch_store_waiting(self):
+        """Stage the host-tier prefix blocks of requests near the head of
+        the waiting line (at most two a tick), so their admission's import
+        waits on an event instead of copying."""
+        store = self.prefix_store
+        if store is None or not self._waiting:
+            return
+        budget = 2
+        for req in self._waiting[:4]:
+            if budget == 0:
+                break
+            if req.cancelled or req.spilled:
+                continue
+            plan = self._store_lookup(req)
+            if plan is None or plan[0] != "host":
+                continue
+            block = store.host_block(self._store_digests(req)[plan[1] - 1])
+            if block is None or not block.is_host or block.is_prefetched:
+                continue
+            budget -= 1
+            try:
+                block.prefetch(device=self.engine.device, codec=self._kv_codec)
+                with self._admission_lock:
+                    self.prefetches += 1
+            except Exception as e:  # noqa: BLE001 — the demand import still serves it
+                with self._admission_lock:
+                    self.prefetch_faults += 1
+                logger.warning("prefix block prefetch failed (demand import): %s", e)
 
     def _assign_slot(self, req: _Request, slot: int):
         """Claim ``slot`` and its pages for ``req``: the registered chain
@@ -968,9 +1328,31 @@ class ContinuousBatcher:
             tr.add("queue_wait", req.t_submit or now, now, slot=slot)
         req.admit_seq = self._admit_counter
         self._admit_counter += 1
+        block = self._take_block(req)
+        if block is not None and self._import_block(req, slot, block):
+            return
         reused = 0
         if self.paged:
             n = self._need_pages(req)
+            if self.prefix_store is not None:
+                # one admission is one token of the store's insert budget
+                self.prefix_store.note_admission()
+                splan, req.splan = req.splan, None
+                got = self._store_admit(req, splan, n) if splan else None
+                if got is None and splan is None:
+                    self.prefix_store.count_lookup("miss", self._store_digests(req) or None)
+                if got is not None:
+                    # prefill only past the leased (or imported) prefix; as
+                    # in JAX, the slot's speculation window is not reset here
+                    pages, reused = got
+                    self._pages_of[slot] = pages
+                    self._write_table_row(slot, pages)
+                    self.cache.offsets[slot] = reused
+                    self._write_sampler_row(req, slot)
+                    self._slots[slot] = req
+                    req.slot = slot
+                    req.prefill_pos = reused
+                    return
             chain = req.chain if req.chain is not None else self._prefix_lookup(req)
             req.chain = None
             reused = len(chain) * self.engine.page_size
@@ -993,8 +1375,7 @@ class ContinuousBatcher:
             # the draft mirrors the slot from position 0 (no page sharing)
             self.dcache.offsets[slot] = 0
             req.draft_pos = 0
-        set_sampler_slot(self.sp, slot, req.sp)
-        self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
+        self._write_sampler_row(req, slot)
         if self.spec_tracker is not None:
             # new stream in the slot: window back to the probe rung, no
             # carried-over acceptance history from the previous occupant
@@ -1002,6 +1383,96 @@ class ContinuousBatcher:
         self._slots[slot] = req
         req.slot = slot
         req.prefill_pos = reused
+
+    def _write_sampler_row(self, req: _Request, slot: int):
+        """The request's sampler settings and window size in the slot's
+        rows."""
+        set_sampler_slot(self.sp, slot, req.sp)
+        self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
+
+    def _take_block(self, req: _Request):
+        """The request's block in the spill tier, if it was spilled; one the
+        tier evicted since the spill degrades to the discard path here
+        (fold and re-prefill, still exact from the stashed sampler state)."""
+        if not req.spilled:
+            return None
+        req.spilled = False
+        block = self.spill.take(req) if self.spill is not None else None
+        if block is None:
+            self._fold_history(req)
+            with self._admission_lock:
+                self.spill_fallbacks += 1
+            logger.warning("spilled KV block evicted before its resume; re-prefilling")
+        return block
+
+    def _import_block(self, req: _Request, slot: int, block) -> bool:
+        """Admission by import: take the request's pages, scatter the
+        block's pages into them (on the tick's stream, before any later
+        step reads them), and restore what the block carries, offset,
+        generator state, window and last token, so the next decode step
+        emits what the uninterrupted run would. Any failure (``cache.import``,
+        a corrupt block, the pool short) gives back what was taken, folds
+        the history and returns False: the caller re-prefills, and nothing
+        reached the consumer."""
+        if not self.paged or self.draft is not None:
+            self._fold_history(req)
+            return False
+        page = self.engine.page_size
+        pages: list = []
+        try:
+            if block.page_size != page:
+                raise ValueError(f"block page_size {block.page_size} != pool page {page}")
+            data_pages = block.n_pages
+            need = max(self._need_pages(req, block=block), data_pages)
+            self._evict_for(need)
+            if len(self._free_pages) < need:
+                raise RuntimeError(f"target pool exhausted mid-import: need {need} pages, "
+                                   f"{len(self._free_pages)} free")
+            pages = self._claim_fresh(need)
+            # read before the import consumes the stage: a flushed block with
+            # a stage is a prefetch hit, without one a demand import; a block
+            # not yet flushed is neither
+            was_host, was_staged = block.is_host, block.is_prefetched
+            t0 = time.perf_counter()
+            with tracing.bind(req.trace):
+                import_block(self.cache, block, pages[:data_pages],
+                             share_hash=self._share_hash, codec=self._kv_codec)
+            dt = time.perf_counter() - t0
+            self.tick_kv_import_ms_last = dt * 1e3
+            self._tick_kv_import_s_total += dt
+            tr = req.trace
+            if tr is not None:
+                tr.add("handoff_import", t0, t0 + dt, pages=data_pages, staged=was_staged)
+            if was_host:
+                with self._admission_lock:
+                    if was_staged:
+                        self.prefetch_hits += 1
+                    else:
+                        self.demand_imports += 1
+        except Exception as e:  # noqa: BLE001 — every failure is the re-prefill fallback
+            logger.warning("KV block import failed (re-prefilling): %s", e)
+            self._unref_pages(pages)
+            self._fold_history(req)
+            with self._admission_lock:
+                self.spill_fallbacks += 1
+            return False
+        self._pages_of[slot] = pages
+        self._write_table_row(slot, pages)
+        self.cache.offsets[slot] = block.n_tokens  # the next step writes row n_tokens
+        self._write_sampler_row(req, slot)
+        dev = self.recent.device
+        self.recent[slot].copy_(block.resume_recent.to(dev, non_blocking=True))
+        self.generators[slot].set_state(block.resume_gen)
+        self.last_tok[slot, 0] = block.last_tok
+        self.active[slot] = True
+        req.resume_gen = req.resume_recent = None
+        req.history = [int(t) for t in block.history]
+        self._slots[slot] = req
+        req.slot = slot
+        req.prefill_pos = req.draft_pos = req.prompt.size
+        with self._admission_lock:
+            self.spill_hits += 1
+        return True
 
     def _admit_waiting(self):
         """Shed queued requests whose TTFT budget has gone (their prefill
@@ -1023,6 +1494,7 @@ class ContinuousBatcher:
                                                 dl.ttft_deadline - dl.submitted_at))
         for req in [r for r in self._waiting if r.cancelled]:
             self._waiting.remove(req)
+            self._drop_spill(req)  # its block leaves the tier with the stream
             req.out.put(None)
         while None in self._slots and self._waiting:
             pick = None
@@ -1097,6 +1569,9 @@ class ContinuousBatcher:
         logits, req.last_logits = req.last_logits, None
         if self.prefix_cache:
             self._register_prefix(req)
+        elif self.prefix_store is not None and req.lease is None:
+            # a slot admitted through the store holds its lease already
+            self._store_insert(req)
         # Set the window and the generator only NOW: other slots' decode
         # steps ran between this request's chunks and shifted every row of
         # the window, so a row set at assignment would be mangled by now
@@ -1151,6 +1626,10 @@ class ContinuousBatcher:
         self.active[slot] = False
         if self.paged:
             self._release_pages(slot)
+            # the lease is the store entry's lifetime: its last release
+            # exports the prefix (a gather enqueued after every block that
+            # could still write a page the slot held)
+            self._drop_prefix_lease(req)
         self._slots[slot] = None
         req.slot = -1
 
@@ -1184,34 +1663,87 @@ class ContinuousBatcher:
     # ---------------------------------------------------------- overcommit
     def _fold_history(self, req: _Request):
         """The discard path: the emitted tokens join the prompt, so the
-        resume re-prefills them (the slot's KV is gone)."""
+        resume re-prefills them (the slot's KV is gone). Any block the
+        request had is given up."""
+        req.spilled = False
         if req.history:
-            self.reprefill_tokens += req.prompt.size + len(req.history)
+            with self._admission_lock:
+                self.reprefill_tokens += req.prompt.size + len(req.history)
             req.prompt = np.concatenate([req.prompt, np.asarray(req.history, np.int64)])
             req.history = []
             req.pkeys = None  # the prompt changed: its keys are stale
+            req.sdigests = None  # and so are its store digests
+        req.splan = None  # any admission plan predates the fold
+
+    def _spill_block(self, req: _Request) -> bool:
+        """Export ``req``'s page chain into the spill tier: a gather enqueued
+        on the tick's stream (after every block that wrote those pages),
+        the copy to the host left to the tier's flusher thread. False on
+        any failure (no tier, the budget, ``cache.export``): the caller
+        takes the discard path."""
+        if self.spill is None or not req.history:
+            return False
+        page = self.engine.page_size
+        # valid rows: the last emitted token's K/V is not written yet (it is
+        # last_tok, the next step's input)
+        n_tokens = req.prompt.size + max(0, len(req.history) - 1)
+        n_pages = -(-max(1, n_tokens) // page)
+        pages = self._pages_of.get(req.slot, [])[:n_pages]
+        ok = False
+        try:
+            if len(pages) != n_pages:
+                raise RuntimeError(f"slot holds {len(pages)} of its {n_pages} pages")
+            block = export_block(
+                self.cache, pages, page_size=page, n_tokens=n_tokens, prompt=req.prompt,
+                history=req.history, produced=req.produced, resume_gen=req.resume_gen,
+                resume_recent=req.resume_recent, share_hash=self._share_hash,
+                codec=self._kv_codec)
+            ok = self.spill.put(req, block)
+            if not ok:
+                logger.warning("the spill tier refused slot %d's block (budget); "
+                               "re-prefilling", req.slot)
+        except Exception as e:  # noqa: BLE001 — the discard path still serves it
+            logger.warning("KV spill export failed for slot %d (re-prefilling): %s", req.slot, e)
+        req.spilled = ok
+        with self._admission_lock:
+            if ok:
+                self.spills += 1
+            else:
+                self.spill_fallbacks += 1
+        return ok
 
     def _suspend_slot(self, req: _Request):
         """Vacate ``req``'s slot, keeping what an exact resume needs. A
         request that decodes stashes its generator's state and its window
         row (a device copy; this runs only quiesced, so the row holds
-        exactly the emitted tokens) and folds its tokens into its prompt;
-        mid-prefill there is nothing to keep and its prefill restarts."""
+        exactly the emitted tokens) and exports its pages to the spill tier
+        when there is one, or else folds its tokens into its prompt;
+        mid-prefill there is nothing to keep and its prefill restarts.
+        Preemption and cold-slot spill share it; the caller decides where
+        the request goes."""
         slot = req.slot
+        tr = req.trace
+        t0 = time.perf_counter() if tr is not None else 0.0
         if self._prefill_done(req):
             req.resume_gen = self.generators[slot].get_state()
             req.resume_recent = self.recent[slot].clone()
-            self._fold_history(req)
+            with tracing.bind(tr):  # the export's kv_export span
+                if not self._spill_block(req):
+                    self._fold_history(req)
         req.chain = None
+        req.splan = None
         req.prefill_pos = req.draft_pos = 0
         req.last_logits = None
         self._vacate(req)
+        if tr is not None:
+            tr.add("spill", t0, time.perf_counter(), slot=slot, spilled=req.spilled)
 
     def _preempt(self, req: _Request):
         """Evict an admitted request to the head of the waiting line (pool
         exhaustion under overcommit). Preemption goes newest first, so
         repeated inserts at 0 keep the victims in admission order."""
-        self.preemptions += 1
+        with self._admission_lock:
+            self.preemptions += 1
         req.preempted_at.append(req.produced)
         tr = req.trace
         if tr is not None:
@@ -1220,6 +1752,122 @@ class ContinuousBatcher:
         # back on the line: the queue-wait clock restarts
         req.t_submit = time.perf_counter()
         self._waiting.insert(0, req)
+
+    # ------------------------------------------------------ KV residency
+    def _cold_candidates(self) -> list:
+        """Decoding slots whose consumer stopped reading: ``produced -
+        out.qsize()`` is what it consumed, and a slot with a backlog whose
+        count has not moved for ``spill_cold_after`` scans is cold. Host
+        bookkeeping only."""
+        if self.spill_cold_after is None or self.spill is None:
+            return []
+        cold = []
+        for req in self._slots:
+            if req is None or req.cancelled:
+                continue
+            if not self._prefill_done(req) or not req.history:
+                continue
+            backlog = req.out.qsize()
+            consumed = req.produced - backlog
+            if backlog > 0 and consumed == req.consumed_seen:
+                req.cold_ticks += 1
+            else:
+                req.cold_ticks = 0
+            req.consumed_seen = consumed
+            if req.cold_ticks >= self.spill_cold_after:
+                cold.append(req)
+        return cold
+
+    def _spill_cold(self, cold: list):
+        """Suspend cold slots and park them off the waiting line: they hold
+        no pages and do not count against admission until their consumer
+        catches up (:meth:`_wake_parked`). The async caller quiesces
+        first."""
+        for req in cold:
+            if req.slot < 0:
+                # the quiesce's harvest finished it after the scan
+                continue
+            with self._admission_lock:
+                self.cold_spills += 1
+            tr = req.trace
+            if tr is not None:
+                tr.point("cold_spill", slot=req.slot)
+            self._suspend_slot(req)
+            req.cold_ticks = 0
+            self._parked.append(req)
+
+    def _wake_parked(self):
+        """Re-queue, at the head of the waiting line, the parked requests
+        whose consumer caught up (backlog drained), starting their block's
+        prefetch; reap the cancelled ones."""
+        if not self._parked:
+            return
+        keep, woken = [], []
+        for req in self._parked:
+            if req.cancelled:
+                self._drop_spill(req)
+                req.out.put(None)
+                continue
+            (woken if req.out.qsize() == 0 else keep).append(req)
+        self._parked = keep
+        if not woken:
+            return
+        now = time.perf_counter()
+        for req in woken:
+            req.cold_ticks = 0
+            req.t_submit = now  # back on the line: the queue wait restarts
+            tr = req.trace
+            if tr is not None:
+                tr.point("wake")
+            self._prefetch_block(req)
+            with self._admission_lock:
+                self.cold_wakes += 1
+        self._waiting[:0] = woken
+
+    def _prefetch_block(self, req: _Request):
+        """Stage ``req``'s spilled block on the card ahead of its import
+        (:meth:`KVPageBlock.prefetch`: a copy on a side stream, nothing
+        waited on). A block not yet flushed needs none. A
+        ``cache.prefetch`` fault is counted: the import takes the demand
+        path."""
+        if not self._prefetch_on or self.spill is None or not req.spilled:
+            return
+        block = self.spill.peek(req)
+        if block is None:
+            return
+        self.spill.touch(req)  # about to be imported: keep it from the LRU
+        if not block.is_host or block.is_prefetched:
+            return
+        try:
+            tr = req.trace
+            t0 = time.perf_counter() if tr is not None else 0.0
+            block.prefetch(device=self.engine.device, codec=self._kv_codec)
+            if tr is not None:
+                tr.add("prefetch", t0, time.perf_counter(), pages=block.n_pages)
+            with self._admission_lock:
+                self.prefetches += 1
+        except Exception as e:  # noqa: BLE001 — the demand import still serves it
+            with self._admission_lock:
+                self.prefetch_faults += 1
+            logger.warning("KV prefetch failed (demand import): %s", e)
+
+    def _prefetch_waiting(self):
+        """Stage the blocks of spilled requests near the head of the waiting
+        line (at most two a tick), then the prefix store's host blocks."""
+        if self._prefetch_on and self.spill is not None:
+            budget = 2
+            for req in self._waiting[:4]:
+                if budget == 0:
+                    break
+                if req.spilled and not req.cancelled:
+                    self._prefetch_block(req)
+                    budget -= 1
+        self._prefetch_store_waiting()
+
+    def _drop_spill(self, req: _Request):
+        req.spilled = False
+        if self.spill is not None:
+            self.spill.drop(req)
 
     def _growth_want(self, req: _Request) -> int:
         """Pages ``req`` needs mapped before the next block: its next write
@@ -1739,16 +2387,31 @@ class ContinuousBatcher:
                     self._prefill_one_chunk(req)
 
     def _idle_wait(self):
-        """Nothing to run: wait (bounded) for the next request."""
+        """Nothing to run: wait (bounded, so parked requests still get their
+        wake poll) for the next request."""
         self._drain_submissions(block=True)
+        self._wake_parked()
         self._admit_waiting()
 
+    def _residency(self):
+        """The KV residency passes of a tick: spill the cold slots (the async
+        caller quiesces first: suspension reads sampler state and rewrites
+        page tables), wake the parked requests whose consumer caught up,
+        and stage the blocks of requests about to be admitted."""
+        cold = self._cold_candidates()
+        if cold:
+            self._quiesce()
+            self._spill_cold(cold)
+        self._wake_parked()
+        self._prefetch_waiting()
+
     def _tick(self):
-        """Sync tick: reap, admit, prefill, then one speculative round
-        (:meth:`_spec_tick`) or one decode block over every decoding slot,
-        dispatched and harvested."""
+        """Sync tick: reap, the residency passes, admit, prefill, then one
+        speculative round (:meth:`_spec_tick`) or one decode block over
+        every decoding slot, dispatched and harvested."""
         self._reap_cancelled()
         self._drain_submissions()
+        self._residency()
         self._admit_and_prefill()
         if self._decoding():
             if not self._spec_tick():
@@ -1764,6 +2427,7 @@ class ContinuousBatcher:
         preempt (it reads sampler state) and idling quiesce first."""
         self._reap_cancelled()
         self._drain_submissions()
+        self._residency()
         if (self._waiting and None in self._slots) or self._prefilling():
             self._quiesce()
         self._admit_and_prefill()
@@ -1782,17 +2446,23 @@ class ContinuousBatcher:
                 self._idle_wait()
 
     def _end_all(self, item):
-        """End every stream, in a slot, waiting or still submitted, with
-        ``item``: the error of a failed tick, or None at shutdown."""
+        """End every stream, in a slot, waiting, parked or still submitted,
+        with ``item``: the error of a failed tick, or None at shutdown. A
+        slot's prefix lease is released without a demotion (its pool is
+        reset or going away with the batcher)."""
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._slots[slot] = None
                 req.slot = -1
+                lease, req.lease = req.lease, None
+                if lease is not None:
+                    lease.release()
                 req.out.put(item)
         self.active = [False] * self.M
-        for req in self._waiting:
+        for req in self._waiting + self._parked:
             req.out.put(item)
         self._waiting.clear()
+        self._parked.clear()
         while True:
             try:
                 req = self._submit.get_nowait()
@@ -1809,7 +2479,13 @@ class ContinuousBatcher:
         # an incident: keep the streams' timelines past the ring
         tracing.auto_snapshot("scheduler_fail")
         self._inflight = None
+        if self.prefix_store is not None:
+            # the entries of this pool point at pages the reset frees: the
+            # slots' leases become orphans whose release is a no-op
+            self.prefix_store.drop_owner(self)
         self._end_all(exc)
+        if self.spill is not None:
+            self.spill.clear()  # the spilled requests' streams just ended
         if self.paged:
             self._pages_of.clear()
             self._page_ref.clear()

@@ -112,7 +112,12 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     overcommit: bool = False, async_sched: str = "auto",
                     prompt_cache: bool = False, max_queue: Optional[int] = None,
                     draft: str = "auto", draft_model: Optional[str] = None,
-                    spec_k: int = 4, spec_window_max: Optional[int] = None):
+                    spec_k: int = 4, spec_window_max: Optional[int] = None,
+                    spill_bytes: Optional[int] = None, spill_cold_after: Optional[int] = None,
+                    kv_prefetch: str = "auto", prefix_store: bool = False,
+                    prefix_store_bytes: Optional[int] = None, prefix_insert_min_hits: int = 1,
+                    kv_compress_map: Optional[str] = None,
+                    kv_compress_rank: Optional[int] = None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -124,8 +129,13 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     (``NgramSpeculativeGenerator``, or the batcher's n-gram mode),
     ``draft_model`` (a checkpoint directory) with a draft model
     (``SpeculativeGenerator``, or a dense draft engine beside the
-    batcher's, with the same slots, capacity and chunk). On a card its step
-    graphs are captured here, before the first request."""
+    batcher's, with the same slots, capacity and chunk). KV movement:
+    ``spill_bytes``, ``spill_cold_after`` and ``kv_prefetch`` (the spill
+    tier), ``prefix_store`` (one ``PrefixStore`` for this load, of
+    ``prefix_store_bytes`` host bytes, the batcher's ``prefix_store``) and
+    ``kv_compress_map`` (a calibrated low-rank map's path, truncated to
+    ``kv_compress_rank``). On a card its step graphs are captured here,
+    before the first request."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.loading import load_model
 
@@ -146,14 +156,24 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
                               decode_block=decode_block, prompt_cache=prompt_cache)
     else:
+        from mlx_sharding_tpu_torch.kv_compress import load_compress_map
         from mlx_sharding_tpu_torch.parallel import PipelineEngine
         from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
         engine = PipelineEngine(
             model, microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
             pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
-            kv_dtype=kv_dtype, device=device,
+            kv_dtype=kv_dtype, kv_compress_map=load_compress_map(kv_compress_map,
+                                                                 kv_compress_rank),
+            device=device,
         )
+        store = None
+        if prefix_store and paged_pool:
+            from mlx_sharding_tpu_torch.prefix_store import PrefixStore
+
+            # one store per load: a swap closes it with its batcher
+            store = PrefixStore(host_bytes=prefix_store_bytes or (256 << 20),
+                                insert_min_hits=prefix_insert_min_hits)
         draft_engine = None
         if draft_model:
             dmodel, _ = load_model(draft_model, device=device)
@@ -164,7 +184,9 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                                       async_sched=async_sched, prefix_cache=prompt_cache,
                                       max_queue=max_queue, draft_engine=draft_engine,
                                       spec_k=spec_k, draft=draft,
-                                      spec_window_max=spec_window_max)
+                                      spec_window_max=spec_window_max, spill_bytes=spill_bytes,
+                                      spill_cold_after=spill_cold_after,
+                                      kv_prefetch=kv_prefetch, prefix_store=store)
     captured = generator.warm_up()  # on a card: the step graphs, before any request
     if captured:
         logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
@@ -269,6 +291,9 @@ class ModelProvider:
             return
         if getattr(old, "concurrent", False):
             old.close()  # stop the replaced batcher's scheduler thread
+            store = getattr(old, "prefix_store", None)
+            if store is not None:
+                store.close()  # its host tier goes with its load
         else:
             with self.gen_lock:  # after a request in flight on it
                 if hasattr(old, "close"):
@@ -280,6 +305,18 @@ class ModelProvider:
 
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+
+
+    @property
+    def prefix_store_obj(self):
+        """The live batcher's prefix store (JAX's attribute), or None."""
+        return getattr(self.generator, "prefix_store", None)
+
+    def kv_compress_stats(self) -> Optional[dict]:
+        """The live engine codec's counters (``mst_kv_compress_*``, the
+        ``kv_compress`` block of ``/health``), None without a codec."""
+        fn = getattr(getattr(self.generator, "engine", None), "kv_compress_stats", None)
+        return fn() if fn is not None else None
 
 
 class APIHandler(BaseHTTPRequestHandler):
@@ -360,6 +397,17 @@ class APIHandler(BaseHTTPRequestHandler):
             if hasattr(gen, "health"):
                 payload = dict(gen.health())
                 serving = bool(payload.pop("serving", True))
+            # the prefix store's residency, hits and insertion counters, and
+            # the KV codec's: the blocks operators size the host tiers by
+            store = self.provider.prefix_store_obj
+            for key, read in (("prefix_store", store.stats if store is not None else None),
+                              ("kv_compress", self.provider.kv_compress_stats)):
+                try:
+                    block = read() if read is not None else None
+                except Exception:  # noqa: BLE001 — health renders without the block
+                    block = None
+                if block is not None:
+                    payload[key] = block
             return self._json(200 if serving else 503, payload)
         elif path == "/admin/trace" or path.startswith("/admin/trace/"):
             # the flight recorder: /admin/trace/dump is the whole ring (and
@@ -800,6 +848,8 @@ def make_server(provider: ModelProvider, host: str = "127.0.0.1", port: int = 80
     metrics = ServingMetrics(
         batcher_fn=lambda: gen() if getattr(gen(), "concurrent", False) else None,
         spec_fn=lambda: gen() if hasattr(gen(), "accepted_tokens") else None,
+        prefix_store_fn=lambda: provider.prefix_store_obj,
+        kv_compress_fn=provider.kv_compress_stats,
     )
     handler = type("BoundAPIHandler", (APIHandler,), {
         "provider": provider, "gen_lock": provider.gen_lock, "metrics": metrics,
@@ -857,6 +907,52 @@ def main(argv=None):
                         "newest-admitted request on pool exhaustion (token-exact "
                         "resume) — higher slot occupancy than reserving every "
                         "request's full prompt+max_tokens need")
+    parser.add_argument("--kv-compress-map", default=None, metavar="PATH",
+                        help="with --paged-pool: compressed-latent KV transport "
+                             "(kv_compress.py) — path to a calibrated low-rank artifact. "
+                             "Exported KV page blocks (spill, prefix demotion) ship rank-r "
+                             "latent coefficients instead of full per-head pages; "
+                             "bounded-error, opt-in. MLA-native models (DeepSeek-V2's "
+                             "compressed cache mode) compress exactly WITHOUT this flag. "
+                             "Requires float/bf16 pools (not --kv-dtype int8)")
+    parser.add_argument("--kv-compress-rank", type=int, default=None, metavar="R",
+                        help="with --kv-compress-map: truncate the artifact's nested SVD "
+                             "basis to rank R (a cheaper operating point than the "
+                             "calibrated rank; more reconstruction error)")
+    parser.add_argument("--spill-bytes", type=int, default=None,
+                        help="with --overcommit or --spill-cold-after: host-memory budget "
+                             "(bytes) for spilled KV page blocks. Preemption/cold-spill "
+                             "exports the victim's pages to host memory and resume "
+                             "re-imports them — one page scatter instead of a full "
+                             "re-prefill; LRU-evicted past the budget, falling back to "
+                             "re-prefill")
+    parser.add_argument("--spill-cold-after", type=int, default=None,
+                        help="with --spill-bytes: proactively spill a decode slot whose "
+                             "consumer stopped pulling tokens for N scheduler ticks (idle "
+                             "streaming session) — its pool pages free up for admission "
+                             "and the session resumes token-exactly when the consumer "
+                             "catches up")
+    parser.add_argument("--kv-prefetch", choices=("on", "off", "auto"), default="auto",
+                        help="stage spilled KV blocks host→device BEFORE the resume tick "
+                             "(a side stream, overlapped with decode), demoting the demand "
+                             "import to a counted fallback; auto = on whenever "
+                             "--spill-bytes is set (default)")
+    parser.add_argument("--prefix-store", action="store_true",
+                        help="content-addressed prefix KV store (with --concurrent "
+                             "--paged-pool): completed prefills register their "
+                             "page-aligned prompt prefix under chained chunk digests; "
+                             "later requests sharing the prefix lease the pages "
+                             "copy-on-write or import them from the host tier (after "
+                             "demotion) and prefill only the uncovered tail. Subsumes "
+                             "--prompt-cache (the two are mutually exclusive)")
+    parser.add_argument("--prefix-store-bytes", type=int, default=None,
+                        help="with --prefix-store: host-memory budget (bytes) for the "
+                             "demoted-prefix tier (default 256 MiB); LRU-evicted past the "
+                             "budget, falling back to plain prefill")
+    parser.add_argument("--prefix-insert-min-hits", type=int, default=1,
+                        help="with --prefix-store: a prefix must MISS this many times "
+                             "before a completed prefill inserts it (damps one-shot "
+                             "prompts; default 1)")
     parser.add_argument("--prompt-cache", action="store_true",
                         help="reuse KV for shared prompt prefixes (chat turns "
                              "re-send their whole history: TTFT becomes "
@@ -968,6 +1064,27 @@ def main(argv=None):
         ):
             parser.error("--spec-window-max needs a speculating server: "
                          "--draft ngram or --draft-model")
+    # the store subsumes --prompt-cache: both would put two owners over the
+    # same pool pages (JAX's rules and messages)
+    if args.prefix_store:
+        if args.prompt_cache:
+            parser.error(
+                "--prompt-cache is subsumed by --prefix-store: the fleet-"
+                "wide store covers the slot-local prefix cache's reuse and "
+                "adds cross-replica sharing and a host tier — drop "
+                "--prompt-cache (see README: migrating from --prompt-cache)")
+        if args.concurrent <= 1 or not args.paged_pool:
+            parser.error("--prefix-store requires --concurrent N (N > 1) "
+                         "with --paged-pool (prefix reuse is page-granular)")
+        if args.draft_model:
+            parser.error("--prefix-store is incompatible with --draft-model "
+                         "(the draft cache cannot alias shared prefix pages)")
+    elif args.prefix_store_bytes is not None or args.prefix_insert_min_hits != 1:
+        parser.error("--prefix-store-bytes/--prefix-insert-min-hits require --prefix-store")
+    if args.prefix_store_bytes is not None and args.prefix_store_bytes < 1:
+        parser.error("--prefix-store-bytes must be a positive byte count")
+    if args.prefix_insert_min_hits < 1:
+        parser.error("--prefix-insert-min-hits must be >= 1")
     if args.prompt_cache:
         # concurrent serving needs the paged pool; otherwise the flag means
         # the single-stream full-model generator (JAX's rule; the port's
@@ -991,10 +1108,45 @@ def main(argv=None):
         parser.error("--paged-attention requires --paged-pool")
     if args.kv_dtype and not args.paged_pool:
         parser.error("--kv-dtype requires --paged-pool")
+    if args.kv_compress_map:
+        if not args.paged_pool:
+            parser.error("--kv-compress-map requires --paged-pool "
+                         "(compression rides the paged KV transport path)")
+        if args.kv_dtype == "int8":
+            parser.error("--kv-compress-map is incompatible with "
+                         "--kv-dtype int8: dequantize->project->requantize "
+                         "compounds quantization error past the artifact's "
+                         "calibrated bound")
+    if args.kv_compress_rank is not None and not args.kv_compress_map:
+        parser.error("--kv-compress-rank requires --kv-compress-map")
     if args.admission_policy != "fifo" and not args.paged_pool:
         parser.error("--admission-policy requires --paged-pool")
     if args.overcommit and not args.paged_pool:
         parser.error("--overcommit requires --paged-pool")
+    if args.spill_bytes is not None:
+        if args.spill_bytes < 1:
+            parser.error("--spill-bytes must be a positive byte count")
+        if not args.overcommit and args.spill_cold_after is None:
+            parser.error("--spill-bytes requires --overcommit or "
+                         "--spill-cold-after: the spill tier holds "
+                         "preempted or cold-spilled requests' KV page "
+                         "blocks")
+        if args.draft_model:
+            parser.error("--spill-bytes is incompatible with --draft-model "
+                         "(speculative slots re-prefill on preemption)")
+    if args.spill_cold_after is not None:
+        if args.spill_cold_after < 1:
+            parser.error("--spill-cold-after must be >= 1 (scheduler ticks)")
+        if args.spill_bytes is None:
+            parser.error("--spill-cold-after needs a spill tier to spill "
+                         "into: set --spill-bytes")
+        if args.concurrent <= 1:
+            parser.error("--spill-cold-after requires --concurrent N "
+                         "(N > 1): cold-slot residency is a continuous-"
+                         "batching policy")
+    if args.kv_prefetch == "on" and args.spill_bytes is None:
+        parser.error("--kv-prefetch on needs a spill tier to prefetch "
+                     "from: set --spill-bytes")
     if args.async_sched != "auto" and args.concurrent <= 1:
         parser.error("--async-sched requires --concurrent N (N > 1): only the continuous "
                      "batcher has a tick loop to pipeline")
@@ -1036,7 +1188,11 @@ def main(argv=None):
         admission_policy=args.admission_policy, overcommit=args.overcommit,
         async_sched=args.async_sched, prompt_cache=args.prompt_cache, max_queue=args.max_queue,
         draft=args.draft, draft_model=args.draft_model, spec_k=args.spec_k,
-        spec_window_max=args.spec_window_max,
+        spec_window_max=args.spec_window_max, spill_bytes=args.spill_bytes,
+        spill_cold_after=args.spill_cold_after, kv_prefetch=args.kv_prefetch,
+        prefix_store=args.prefix_store, prefix_store_bytes=args.prefix_store_bytes,
+        prefix_insert_min_hits=args.prefix_insert_min_hits,
+        kv_compress_map=args.kv_compress_map, kv_compress_rank=args.kv_compress_rank,
     )
     server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
                          api_key=args.api_key, request_timeout=args.request_timeout,

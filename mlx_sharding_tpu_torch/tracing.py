@@ -27,13 +27,13 @@ microseconds from the tracer's epoch, so every trace of a dump shares one
 timeline.
 
 Left out with the slices that need them: the chaos-campaign stamp of a
-snapshot (the simulator, slice 11), the lock-order ledger's notes on
-``bind`` (the static-analysis tooling, slice 11), and ``RequestTrace.timed``
-(its callers, the prefix store and the KV transfer, slice 7).
+snapshot (the simulator, slice 11) and the lock-order ledger's notes on
+``bind`` (the static-analysis tooling, slice 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -100,6 +100,16 @@ class RequestTrace:
                 self._dropped += 1
                 return
             self._marks.append((name, t, args or None))
+
+    @contextlib.contextmanager
+    def timed(self, name: str, **args):
+        """Span context manager for sites off the tick's hot path (the
+        prefix store's lookup, the KV transfer's export and import)."""
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            self.add(name, t0, time.perf_counter(), **args)
 
     def note(self, **meta):
         """Attach request metadata (prompt tokens, max tokens)."""

@@ -9,12 +9,13 @@ observability.py``, with the profiler on ``torch.profiler``).
   decode-rate summaries, and the batcher's read-outs.
 
 The families whose sources come with later slices are left out, as the
-source module leaves out a family whose source is None: KV spill and
-prefetch, replicas and the fleet, the prefix store, the weight store, the
-pod, KV sharing and compression, disaggregated handoff, brownout, the fault
-harness and the resource ledger's anomalies (``ROADMAP.md`` lists each
-under its slice), and ``Histogram.merge_dicts``, which only the replica
-sets' aggregation calls (slice 8).
+source module leaves out a family whose source is None: replicas and the
+fleet, the weight store, the pod, KV sharing, disaggregated handoff,
+brownout, the fault harness and the resource ledger's anomalies
+(``ROADMAP.md`` lists each under its slice), and ``Histogram.merge_dicts``,
+which only the replica sets' aggregation calls (slice 8). KV spill,
+migration and prefetch (a paged batcher's ``spill_stats``), the prefix
+store and KV compression are rendered as the source renders them.
 """
 
 from __future__ import annotations
@@ -169,6 +170,123 @@ def _render_spec_family(lines: list, spec: dict):
         ]
 
 
+def _render_spill_family(lines: list, spill: dict):
+    """KV spill, migration and prefetch: how often pressure moved page
+    blocks instead of discarding them, the host bytes the tier holds, and
+    the resumes' staged-against-demand split."""
+    lines += [
+        "# TYPE mst_kv_spill_enabled gauge",
+        f"mst_kv_spill_enabled {int(bool(spill['enabled']))}",
+        "# TYPE mst_kv_spill_total counter",
+        f"mst_kv_spill_total {spill['spills']}",
+        "# TYPE mst_kv_spill_hits_total counter",
+        f"mst_kv_spill_hits_total {spill['spill_hits']}",
+        "# TYPE mst_kv_spill_fallbacks_total counter",
+        f"mst_kv_spill_fallbacks_total {spill['spill_fallbacks']}",
+        "# TYPE mst_kv_spill_evictions_total counter",
+        f"mst_kv_spill_evictions_total {spill['evictions']}",
+        "# TYPE mst_kv_spill_bytes gauge",
+        f"mst_kv_spill_bytes {spill['bytes_in_use']}",
+        "# TYPE mst_kv_spill_budget_bytes gauge",
+        f"mst_kv_spill_budget_bytes {spill['budget_bytes']}",
+        "# TYPE mst_kv_migration_out_total counter",
+        f"mst_kv_migration_out_total {spill['migrations_out']}",
+        "# TYPE mst_kv_migration_in_total counter",
+        f"mst_kv_migration_in_total {spill['migrations_in']}",
+        "# TYPE mst_kv_reprefill_tokens_total counter",
+        f"mst_kv_reprefill_tokens_total {spill['reprefill_tokens']}",
+        "# TYPE mst_kv_spill_cold_total counter",
+        f"mst_kv_spill_cold_total {spill['cold_spills']}",
+        "# TYPE mst_kv_spill_wakes_total counter",
+        f"mst_kv_spill_wakes_total {spill['cold_wakes']}",
+        "# TYPE mst_kv_spill_parked gauge",
+        f"mst_kv_spill_parked {spill['parked']}",
+        "# TYPE mst_kv_spill_hit_rate gauge",
+        f"mst_kv_spill_hit_rate {spill['hit_rate']:.4f}",
+        "# TYPE mst_kv_spill_rejects_total counter",
+        f'mst_kv_spill_rejects_total{{reason="oversize"}} {spill["rejects_oversize"]}',
+        f'mst_kv_spill_rejects_total{{reason="closed"}} {spill["rejects_closed"]}',
+        "# TYPE mst_kv_prefetch_enabled gauge",
+        f"mst_kv_prefetch_enabled {int(bool(spill['prefetch_enabled']))}",
+        "# TYPE mst_kv_prefetch_total counter",
+        f"mst_kv_prefetch_total {spill['prefetches']}",
+        "# TYPE mst_kv_prefetch_hits_total counter",
+        f"mst_kv_prefetch_hits_total {spill['prefetch_hits']}",
+        "# TYPE mst_kv_prefetch_demand_total counter",
+        f"mst_kv_prefetch_demand_total {spill['demand_imports']}",
+        "# TYPE mst_kv_prefetch_faults_total counter",
+        f"mst_kv_prefetch_faults_total {spill['prefetch_faults']}",
+    ]
+
+
+def _prefix_store_lines(ps: dict) -> list:
+    """The fleet prefix store: residency by tier, lookup quality, COW
+    forks, insertion damping, and evictions by reason."""
+    return [
+        "# TYPE mst_prefix_store_blocks gauge",
+        f'mst_prefix_store_blocks{{tier="device"}} {ps["device_blocks"]}',
+        f'mst_prefix_store_blocks{{tier="host"}} {ps["host_blocks"]}',
+        "# TYPE mst_prefix_store_bytes gauge",
+        f'mst_prefix_store_bytes{{tier="device"}} {ps["device_bytes"]}',
+        f'mst_prefix_store_bytes{{tier="host"}} {ps["host_bytes"]}',
+        "# TYPE mst_prefix_store_budget_bytes gauge",
+        f"mst_prefix_store_budget_bytes {ps['host_budget_bytes']}",
+        "# TYPE mst_prefix_store_hits_total counter",
+        f'mst_prefix_store_hits_total{{tier="device"}} {ps["hits_device"]}',
+        f'mst_prefix_store_hits_total{{tier="host"}} {ps["hits_host"]}',
+        "# TYPE mst_prefix_store_misses_total counter",
+        f"mst_prefix_store_misses_total {ps['misses']}",
+        "# TYPE mst_prefix_store_hit_rate gauge",
+        f"mst_prefix_store_hit_rate {ps['hit_rate']:.4f}",
+        "# TYPE mst_prefix_store_tokens_reused_total counter",
+        f"mst_prefix_store_tokens_reused_total {ps['tokens_reused']}",
+        "# TYPE mst_prefix_store_cow_forks_total counter",
+        f"mst_prefix_store_cow_forks_total {ps['cow_forks']}",
+        "# TYPE mst_prefix_store_inserts_total counter",
+        f"mst_prefix_store_inserts_total {ps['inserts']}",
+        "# TYPE mst_prefix_store_inserts_damped_total counter",
+        f"mst_prefix_store_inserts_damped_total {ps['inserts_damped']}",
+        "# TYPE mst_prefix_store_inserts_paused gauge",
+        f"mst_prefix_store_inserts_paused {int(bool(ps['inserts_paused']))}",
+        "# TYPE mst_prefix_store_demotions_total counter",
+        f"mst_prefix_store_demotions_total {ps['demotions']}",
+        "# TYPE mst_prefix_store_demote_drops_total counter",
+        f"mst_prefix_store_demote_drops_total {ps['demote_drops']}",
+        "# TYPE mst_prefix_store_evictions_total counter",
+        f'mst_prefix_store_evictions_total{{reason="budget"}} {ps["evictions_budget"]}',
+        f'mst_prefix_store_evictions_total{{reason="oversize"}} {ps["evictions_oversize"]}',
+        f'mst_prefix_store_evictions_total{{reason="reset"}} {ps["evictions_reset"]}',
+        "# TYPE mst_prefix_store_imports_total counter",
+        f'mst_prefix_store_imports_total{{kind="staged"}} {ps["imports_staged"]}',
+        f'mst_prefix_store_imports_total{{kind="demand"}} {ps["imports_demand"]}',
+        "# TYPE mst_prefix_store_faults_total counter",
+        f'mst_prefix_store_faults_total{{kind="lookup"}} {ps["lookup_faults"]}',
+        f'mst_prefix_store_faults_total{{kind="import"}} {ps["import_faults"]}',
+    ]
+
+
+def _kv_compress_lines(comp: dict) -> list:
+    """Compressed-latent KV transport: blocks and bytes moved compressed
+    against raw, and the counted degradations."""
+    mode = str(comp.get("mode", "latent"))
+    return [
+        "# TYPE mst_kv_compress_enabled gauge",
+        f'mst_kv_compress_enabled{{mode="{mode}"}} 1',
+        "# TYPE mst_kv_compress_blocks_total counter",
+        f'mst_kv_compress_blocks_total{{op="compress"}} {comp.get("blocks_compressed", 0)}',
+        f'mst_kv_compress_blocks_total{{op="reconstruct"}} '
+        f'{comp.get("blocks_reconstructed", 0)}',
+        "# TYPE mst_kv_compress_faults_total counter",
+        f'mst_kv_compress_faults_total{{op="encode"}} {comp.get("compress_faults", 0)}',
+        f'mst_kv_compress_faults_total{{op="decode"}} {comp.get("reconstruct_faults", 0)}',
+        "# TYPE mst_kv_compress_bytes_total counter",
+        f'mst_kv_compress_bytes_total{{kind="raw"}} {comp.get("bytes_raw_total", 0)}',
+        f'mst_kv_compress_bytes_total{{kind="wire"}} {comp.get("bytes_wire_total", 0)}',
+        "# TYPE mst_kv_compress_bytes_saved gauge",
+        f"mst_kv_compress_bytes_saved {comp.get('bytes_saved_total', 0)}",
+    ]
+
+
 def _render_batcher(lines: list, b) -> bool:
     """The families a continuous batcher feeds, each from a read-out that
     takes host counters under the batcher's locks and never reads the card.
@@ -198,6 +316,9 @@ def _render_batcher(lines: list, b) -> bool:
                 "# TYPE mst_preemptions_total counter",
                 f"mst_preemptions_total {b.preemptions}",
             ]
+    spill = b.spill_stats()
+    if spill is not None:
+        _render_spill_family(lines, spill)
     kv = b.kv_read_stats()
     if kv is not None:
         path, last_tick, total_bytes = kv
@@ -230,8 +351,8 @@ def _render_batcher(lines: list, b) -> bool:
         f'mst_tick_host_ms{{path="{path}"}} {tick["host_ms_last"]:.3f}',
         "# TYPE mst_tick_device_blocked_ms gauge",
         f'mst_tick_device_blocked_ms{{path="{path}"}} {tick["device_blocked_ms_last"]:.3f}',
-        # the resume path's import stall: the spill tier (slice 3 item 4)
-        # has no import yet, so it reads 0
+        # the resume's import: ~0 when a prefetch staged the pages, the
+        # whole host-to-device copy on a demand import
         f'mst_tick_device_blocked_ms{{path="kv_import"}} '
         f"{tick.get('kv_import_ms_last', 0.0):.3f}",
     ]
@@ -291,6 +412,10 @@ class ServingMetrics:
     # model hot-swap never leaves a stale reference
     batcher_fn: object = None
     spec_fn: object = None
+    # the live prefix_store.PrefixStore, and the KV compression summary
+    # (``ModelProvider.kv_compress_stats``), each None when absent
+    prefix_store_fn: object = None
+    kv_compress_fn: object = None
 
     def record_request(self, *, prompt_tokens: int, generation_tokens: int, ttft_s: float,
                        decode_tps: float, failed: bool = False):
@@ -361,6 +486,15 @@ class ServingMetrics:
                     "# TYPE mst_spec_tokens_replayed_total counter",
                     f"mst_spec_tokens_replayed_total {getattr(spec, 'replayed_tokens', 0)}",
                 ]
+            sections = ((self.prefix_store_fn, lambda store: _prefix_store_lines(store.stats())),
+                        (self.kv_compress_fn, _kv_compress_lines))
+            for fn, render in sections:
+                try:
+                    source = fn() if fn is not None else None
+                    if source is not None:
+                        lines += render(source)
+                except Exception:  # noqa: BLE001 — scrapes must never 500
+                    pass
         return "\n".join(_finalize(lines)) + "\n"
 
 

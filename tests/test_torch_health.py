@@ -41,9 +41,10 @@ TINY = dict(vocab_size=300, hidden_size=32, intermediate_size=64, num_hidden_lay
             num_attention_heads=4, num_key_value_heads=2)
 ENGINE = dict(microbatches=1, max_seq=64, prefill_chunk=8)
 # the JAX server's /health blocks of later slices (the weight store's is
-# always there); the port renders the single-host part only
-LATER_SLICE_KEYS = {"weight_store", "prefix_store", "pod", "kv_share", "kv_compress",
-                    "multihost"}
+# always there); the port renders the single-host part only (the
+# prefix_store and kv_compress blocks with their sources,
+# tests/test_torch_kv_server.py)
+LATER_SLICE_KEYS = {"weight_store", "pod", "kv_share", "multihost"}
 
 
 @pytest.fixture(scope="module", autouse=True)

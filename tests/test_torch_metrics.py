@@ -37,20 +37,18 @@ TINY = dict(vocab_size=300, hidden_size=32, intermediate_size=64, num_hidden_lay
 ENGINE = dict(microbatches=2, max_seq=64, prefill_chunk=8, pool_pages=10, page_size=8)
 #: the JAX families whose sources come with later slices (ROADMAP.md files
 #: each under its slice): the fault harness and the resource ledger
-#: (slices 8 and 11), the weight store (slice 7), and a paged batcher's
-#: ``spill_stats`` (KV spill, migration and prefetch, slice 3 item 4, with
-#: the re-prefill counter it carries); the rest (replicas, prefix store,
-#: pod, KV sharing and compression, handoff, brownout) appear only when
-#: their source exists, in neither server here
+#: (slices 8 and 11) and the weight store (slice 8); the rest (replicas,
+#: pod, KV sharing, handoff, brownout) appear only when their source
+#: exists, in neither server here. A paged batcher's ``spill_stats`` (KV
+#: spill, migration and prefetch, and the re-prefill counter) renders in
+#: both.
 LATER_SLICE_FAMILIES = {"mst_faults_malformed_total", "mst_faults_armed",
                         "mst_ledger_anomalies_total", "mst_weight_store_trees",
-                        "mst_weight_store_refs", "mst_weight_store_bytes",
-                        "mst_kv_reprefill_tokens_total"}
-LATER_SLICE_PREFIXES = ("mst_kv_spill_", "mst_kv_migration_", "mst_kv_prefetch_")
+                        "mst_weight_store_refs", "mst_weight_store_bytes"}
 
 
 def _later_slice(family: str) -> bool:
-    return family in LATER_SLICE_FAMILIES or family.startswith(LATER_SLICE_PREFIXES)
+    return family in LATER_SLICE_FAMILIES
 # a chat turn re-sends its history (prefix hits), then a long request that
 # the overcommitted pool of 10 pages must grow for
 REQUESTS = [

@@ -226,20 +226,35 @@ def test_close_ends_every_stream(models):
 
 
 @pytest.mark.parametrize("kw", [
-    # async ticks and overcommit are ported; their two cases held the
-    # cold-slot spill and a draft engine, which is ported too
-    # (test_a_dense_draft_engine_is_taken, tests/test_torch_draft_engine_batcher.py).
-    # Prefix sharing and the queue bound are ported (tests/test_torch_prefix_cache.py,
-    # tests/test_torch_deadlines.py), and so are n-gram speculation and a
-    # spec_k without a draft engine (tests/test_torch_spec_batcher.py)
+    # every option this test once saw refused as not yet ported is ported:
+    # the spill tier, cold-slot spill and prefetch, and the prefix store
+    # (tests/test_torch_kv_residency.py, tests/test_torch_prefix_store.py);
+    # async ticks, overcommit, a draft engine, prefix sharing, the queue
+    # bound and n-gram speculation before them
     dict(spill_cold_after=4),
     dict(spill_bytes=1 << 20), dict(kv_prefetch="on"),
-    dict(prefix_store=object()),
+    dict(prefix_store="store"),
 ])
 def test_unported_batcher_options_raise(models, kw):
-    """Each refusal names the ROADMAP item that ports it."""
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP queue 1, slice"):
-        ContinuousBatcher(_engine(models), **kw)
+    """Each option is taken, or refused with the JAX batcher's message where
+    what it needs is missing (a cold threshold or prefetch without a spill
+    tier)."""
+    if "spill_cold_after" in kw or "kv_prefetch" in kw:
+        with pytest.raises(ValueError) as want:
+            jscheduler.ContinuousBatcher(_jax_engine(models), **kw)
+        with pytest.raises(ValueError, match="spill tier") as got:
+            ContinuousBatcher(_engine(models), **kw)
+        assert str(got.value) == str(want.value)
+        return
+    if "prefix_store" in kw:
+        from mlx_sharding_tpu_torch.prefix_store import PrefixStore
+
+        batcher = ContinuousBatcher(_engine(models), prefix_store=PrefixStore())
+        assert batcher.prefix_store.page_size == ENGINE["page_size"]
+    else:
+        batcher = ContinuousBatcher(_engine(models), **kw)
+        assert batcher.spill.budget_bytes == kw["spill_bytes"]
+    batcher.close()
 
 
 def test_a_dense_draft_engine_is_taken(models):
