@@ -87,11 +87,12 @@ final line:
    kernel, plain, plain, kernel: a greedy 64-token stream's tok/s and a
    decode step's device ms, each route's launches checked, and one T=1
    step's last-position logits on each route within the bf16 limits.
-   Then speculation over a 600-token repeated passage, 128 tokens each
+   Then speculation over a 600-token repeated passage, 64 tokens each
    (``phase_speculation``): plain greedy, ``--draft ngram``, the model as
    its own draft at K = 4 and the published Llama-3.2-1B config (random
-   bf16 weights from the seed) at K = 4, each generator's graphs captured
-   first and its counted request all replays: tok/s, rounds by K, tokens
+   bf16 weights from the seed) at K = 4, each verifying on the served
+   Generator (its prefill and decode graphs reused), each generator's
+   other graphs captured first and its counted request all replays: tok/s, rounds by K, tokens
    a round, accept rate, launches checked against the rounds, and the
    stream against plain greedy decode's (a divergence only where the plain
    run's top-2 gap is under ``NEAR_TIE_GAP``); the n-gram run again with
@@ -215,12 +216,45 @@ final line:
    swaps it in and one naming the first swaps it back (each load's
    seconds and ``torch.cuda.memory_allocated``). Then in f32 at 2 layers
    the hit request's greedy stream against a cold Generator's.
+12. KV movement (``phase_kv_movement``, after 11): page-block round trips,
+   the spill tier against reserve admission and the discard path, a cold
+   slot, the prefix store.
+13. layer-wise KV sharing and replicas (``phase_share_and_replicas``, after
+   12, on phase 4's model and phase 6's geometry): a share map calibrated
+   by ``cli/kv_share_calibrate.calibrate_model`` (8 pairs: 32 layers in 24
+   groups; random weights, so it measures the mechanism, not quality); the
+   pool's bytes unshared, under the identity map and under the map
+   (``torch.cuda.memory_allocated`` and ``kv_share_stats()``); phase 6's
+   greedy request under the identity map bit-identical to the unshared
+   engine's; kernel 2 over a group buffer and kernel 1's chunk over a view
+   gathered from it (bf16 and int8) against their plain versions; one
+   captured decode block under the map (bf16 and int8) checked bitwise
+   against a snapshot of the pool: nothing changed but the rows the owners
+   wrote, each row a non-owner wrote holding its owner's bytes again, and
+   the replay equal to the eager block; a block exported under the map
+   imported bit-identically under it and refused by an unshared pool. Then
+   ``--concurrent 8 --paged-pool 16 --replicas 2`` through
+   ``build_generator`` behind the server: card memory after the load (one
+   copy of the weights) and the weight store's trees and refs; phase 6's
+   streamed requests at once (tok/s against phase 6's single batcher,
+   TTFTs, routes per replica; replica 0 captures two prefill graphs again
+   while replica 1 replays, and no dispatch fails); ``replica.dispatch``
+   armed on replica 1 (its breaker opens, replica 0 serves every request,
+   a probe closes it again); four long greedy streams, then the same four
+   with ``POST /admin/drain`` of replica 0 while they decode: each
+   migrates with its block, every stream equals its undrained run, the
+   drain's seconds and block bytes, the refs back to 1 and card memory
+   lower after it.
 
 Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
 layers, the eager turn of phases 4-5's step timing an
 ``EAGER_STREAM_TOKENS``-token stream, and the Generators of phases 8-9
 capture only the decode block they serve (greedy, no logprobs; the warm-up
-request captures it), the prefill graphs at load.
+request captures it), the prefill graphs at load. DeepSeek-V2 is served at
+a capacity of 768 (its prompt and tokens need 3 chunks: each of its
+prefill graphs takes seconds to capture), and phases 4-5's speculating
+generators verify on the served Generator, whose prefill and decode graphs
+are captured already.
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -418,7 +452,7 @@ PAGED_SWEEP = (
 # tied or a rounding step apart: 1/32 between 4 and 8, 1/16 between 8 and
 # 16). Each plain run prints the share of its positions at or under the
 # limit, and at a few other limits
-SPEC_TOKENS = 128
+SPEC_TOKENS = 64
 SPEC_K = 4
 VERIFY_KS = (2, 4, 8)
 NEAR_TIE_GAP = 0.0625
@@ -2771,7 +2805,7 @@ def single_verify_numbers(tag: str, ng, model) -> dict:
     for k in VERIFY_KS:
         upload_into(ng._inputs, np.asarray([k] + [65] * k, np.int64))
         ng._verify(k, REPETITION_WINDOW, False)
-        total = replay_ms(t.graphs, ("verify", k, False, REPETITION_WINDOW))
+        total = replay_ms(t.graphs, ("verify", ng._key, k, False, REPETITION_WINDOW))
         parts = {"masked_attention": attention_ms(model, k, t.cache.k[0], t.cache.v[0],
                                                   t.cache.pos),
                  "products": products_ms(model, k)}
@@ -2858,8 +2892,10 @@ def phase_speculation(model, gen, tag: str, seed: int) -> dict:
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fa.flash_decode}
     stats = {"plain_tok_s": plain_tok_s, "runs": []}
 
-    ng = NgramSpeculativeGenerator(model)
-    graph_line(f"{tag} ngram", ng.warm_up())
+    # each speculating generator verifies on the served Generator, whose
+    # prefill and decode graphs are captured already
+    ng = NgramSpeculativeGenerator(model, target=gen)
+    graph_line(f"{tag} ngram", ng.warm_up(prefill_upto=len(ids)))
     row = spec_run(tag, "--draft ngram", ng, [model], ids, want, ties, counters)
     expect = {"flash_attention": layers * chunks,
               "flash_decode": layers * (row["rounds_by_k"].get(1, 0) + row["tail_steps"])}
@@ -2881,8 +2917,9 @@ def phase_speculation(model, gen, tag: str, seed: int) -> dict:
         f"bf16 parameters drawn on the card in {time.perf_counter() - t0:.1f}s")
     stats["draft_ms"] = {}
     for name, dmodel in (("self-draft K=4", model), ("llama-3.2-1b draft K=4", draft)):
-        sg = SpeculativeGenerator(model, dmodel, spec_k=SPEC_K)
-        graph_line(f"{tag} {name}", sg.warm_up())
+        sg = SpeculativeGenerator(model, dmodel, spec_k=SPEC_K, target=gen)
+        # the prompts' chunks alone: every run here prefills a 600-token prompt
+        graph_line(f"{tag} {name}", sg.warm_up(prefill_upto=len(ids)))
         models = [model] if dmodel is model else [model, dmodel]
         row = spec_run(tag, name, sg, models, ids, want, ties, counters)
         dl = dmodel.config.num_hidden_layers
@@ -2893,7 +2930,7 @@ def phase_speculation(model, gen, tag: str, seed: int) -> dict:
         stats["draft_ms"][name] = replay_ms(sg.draft.graphs,
                                             ("draft", SPEC_K, False, REPETITION_WINDOW))
         stats[name + " verify_ms"] = replay_ms(
-            sg.target.graphs, ("verify", SPEC_K, False, REPETITION_WINDOW))
+            sg.target.graphs, ("verify", sg._key, SPEC_K, False, REPETITION_WINDOW))
         log(f"{tag} {name}: the draft's {SPEC_K} steps {stats['draft_ms'][name]:.3f} ms of device "
             f"time a round, the verify {stats[name + ' verify_ms']:.3f} ms")
         del sg
@@ -2920,8 +2957,8 @@ def phase_speculation_packed(packed, gen, tag: str) -> dict:
     log(f"{tag} plain greedy: {SPEC_TOKENS} tokens at {plain_tok_s:.2f} tok/s decode")
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fa.flash_decode,
                 "quant_gemv": qm.quant_gemv, "quant_matmul": qm.quant_matmul}
-    ng = NgramSpeculativeGenerator(packed)
-    graph_line(f"{tag} ngram", ng.warm_up())
+    ng = NgramSpeculativeGenerator(packed, target=gen)
+    graph_line(f"{tag} ngram", ng.warm_up(prefill_upto=len(ids)))
     row = spec_run(tag, "--draft ngram", ng, [packed], ids, want, ties, counters)
     per_step = LAYER_SHAPES * layers + 1
     row["plain_tok_s"] = plain_tok_s
@@ -4105,6 +4142,594 @@ def phase_kv_movement(model, seed: int, lap) -> dict:
     return stats
 
 
+# ----------------------------------------------------------------- phase 13
+SHARE_NUM = 8  # layer pairs merged by the calibration: 32 layers -> 24 groups
+SHARE_MAX_GROUP = 2
+SHARE_CALIB = (300, 200, 100)  # the calibration prompts' tokens
+SHARE_PARITY_TOKENS = 24  # phase 6's greedy request under the identity map, eagerly
+SHARE_BLOCK_JOBS = ((200, 64), (150, 64), (100, 64))  # decoding when the block is checked
+REPLICAS = 2
+DRAIN_STREAMS = 4
+DRAIN_PROMPT = 300
+DRAIN_TOKENS = 160  # each long greedy stream's tokens
+DRAIN_AFTER = 16  # the drain is posted once every stream has this many
+BREAKER_FAILS = 3  # the ReplicaSet's default breaker threshold
+PROBE_S = 1.0  # the breaker's probe interval in this phase (5 s by default)
+
+
+def share_pool_bytes(model, share) -> dict:
+    """The pool of phase 6's geometry unshared, under the identity map and
+    under ``share``: its bytes from ``torch.cuda.memory_allocated`` around
+    the allocation, the pool's own count, and ``kv_share_stats()``."""
+    from mlx_sharding_tpu_torch.kv_share import KVShareMap
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+
+    out = {}
+    layers = model.config.num_hidden_layers
+    for name, m in (("unshared", None), ("identity", KVShareMap.identity(layers)),
+                    ("map", share)):
+        eng = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                             pool_pages=POOL_PAGES, page_size=PAGE, kv_share_map=m,
+                             device=model.device)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        cache, _ = eng.init_cache_paged()
+        torch.cuda.synchronize()
+        out[name] = {"allocated": torch.cuda.memory_allocated() - before, "nbytes": cache.nbytes,
+                     "stats": eng.kv_share_stats()}
+        del cache, eng
+        log(f"[share] pool of {POOL_PAGES} + 1 pages of {PAGE} tokens, {name}: "
+            f"{out[name]['allocated']} bytes allocated ({out[name]['nbytes']} in the pool's "
+            f"tensors); kv_share_stats {out[name]['stats']}")
+    ratio = out["map"]["nbytes"] / out["unshared"]["nbytes"]
+    want = share.num_groups / layers
+    log(f"[share] pool bytes under the map / unshared = {ratio:.4f} (groups / layers = "
+        f"{share.num_groups}/{layers} = {want:.4f}); bytes saved by the map "
+        f"{out['map']['stats']['bytes_saved']}")
+    check(out["identity"]["nbytes"] == out["unshared"]["nbytes"]
+          and out["identity"]["allocated"] == out["unshared"]["allocated"],
+          "the identity map's pool differs from the unshared one")
+    check(abs(ratio - want) < 1e-9 and out["map"]["allocated"] < out["unshared"]["allocated"],
+          "the pool under the map is not groups / layers of the unshared one")
+    check(out["map"]["stats"]["bytes_saved"]
+          == out["unshared"]["nbytes"] - out["map"]["nbytes"], "kv_share_stats' bytes_saved")
+    return out
+
+
+def share_identity_parity(model, identity) -> int:
+    """Phase 6's greedy request and the mix's first prompt, eagerly through
+    an unshared batcher and one under the identity map: their streams
+    bit-identical."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    jobs = [(tok.encode(mix_prompt(len(BATCH_MIX), GREEDY_PROMPT)),
+             {"max_tokens": SHARE_PARITY_TOKENS}),
+            (tok.encode(mix_prompt(0, BATCH_MIX[0][0])), {"max_tokens": SHARE_PARITY_TOKENS})]
+    streams = []
+    for m in (None, identity):
+        eng = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                             pool_pages=POOL_PAGES, page_size=PAGE, kv_share_map=m,
+                             device=model.device)
+        batcher = ContinuousBatcher(eng, decode_block=8, cuda_graphs=False, async_sched="off")
+        items, _ = serve_on_this_thread(batcher, jobs)
+        streams.append([[t for t, _ in s] for s in items])
+        batcher.close()
+        del batcher, eng
+    same = streams[0] == streams[1]
+    log(f"[share] identity map: phase 6's greedy request and a 40-token prompt, "
+        f"{SHARE_PARITY_TOKENS} tokens each, eagerly: bit-identical to the unshared engine's "
+        f"{same}")
+    check(same, "the identity map's streams differ from the unshared engine's")
+    return len(jobs) * SHARE_PARITY_TOKENS
+
+
+def share_kernel_checks(gen, share, model) -> dict:
+    """Kernels 1 and 2 over a share-group pool of phase 6's geometry (bf16
+    and int8): kernel 2 over the group buffer of a non-owner layer at the
+    mix's first decode step, kernel 1's chunk at offset 256 over a view
+    gathered from that buffer, each held to its plain version."""
+    from mlx_sharding_tpu_torch.cache import init_cache_paged, kv_data, layer_pool
+    from mlx_sharding_tpu_torch.ops.flash_attention import flash_attention, \
+        flash_attention_reference
+    from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention, \
+        paged_attention_reference
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+
+    cfg = model.config
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    d = cfg.hidden_size // hq
+    layer = share.owner_mask.index(False)  # the first non-owner layer
+    g = share.group_of[layer]
+    errs = {}
+    for kv_dtype in ("bf16", "int8"):
+        cache = init_cache_paged(share.num_groups, POOL_PAGES, PAGE, hkv, d, SLOTS,
+                                 torch.bfloat16, "cuda", quantized=kv_dtype == "int8")
+        fill_pool(cache, gen, kv_dtype)
+        kp, vp = layer_pool(cache.k, g), layer_pool(cache.v, g)
+        quant = kv_dtype == "int8"
+        lengths = PAGED_TIMING_LENGTHS
+        spg = MAX_SEQ // PAGE
+        tables = torch.full((SLOTS, spg), POOL_PAGES, dtype=torch.int32)
+        order = torch.randperm(POOL_PAGES, generator=torch.Generator().manual_seed(13))
+        at = 0
+        for i, n in enumerate(lengths):
+            need = -(-n // PAGE)
+            # the mix overflows the pool: later slots reuse earlier pages
+            tables[i, :need] = order[[(at + j) % POOL_PAGES for j in range(need)]]
+            at += need
+        tables = tables.cuda()
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q = torch.randn((SLOTS, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        scales = dict(k_scale=kp["s"] if quant else None, v_scale=vp["s"] if quant else None)
+        got = paged_attention(q, kv_data(kp), kv_data(vp), tables, lens, d ** -0.5, **scales)
+        ref = paged_attention_reference(q, kv_data(kp), kv_data(vp), tables, lens, d ** -0.5,
+                                        **scales)
+        err, ratio, rel = kernel_disagreement(got, ref)
+        log(f"[share] kernel 2 over group {g}'s buffer (layer {layer}, a non-owner), "
+            f"{kv_dtype} pool, the mix's first step: max |err| {err:.3e}, worst err/limit "
+            f"{ratio:.3f}, relative L2 {rel:.3e}")
+        check(ratio <= 1 and rel <= REL_L2_TOL, f"kernel 2 over the group pool ({kv_dtype})")
+        errs[f"paged_{kv_dtype}"] = err
+        eng = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                             pool_pages=POOL_PAGES, page_size=PAGE, kv_share_map=share,
+                             kv_dtype=kv_dtype, device=model.device)
+        off = CHUNK
+        pages = tables[5, : -(-(off + CHUNK) // PAGE)].long()
+        k_view, v_view = eng._slot_view(kp, pages), eng._slot_view(vp, pages)
+        qc = torch.randn((1, CHUNK, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        got = flash_attention(qc, k_view, v_view, off, d ** -0.5)
+        ref = flash_attention_reference(qc, k_view, v_view, off, d ** -0.5)
+        err, ratio, rel = kernel_disagreement(got, ref)
+        log(f"[share] kernel 1 at offset {off} over a view gathered from group {g}'s "
+            f"{kv_dtype} buffer: max |err| {err:.3e}, worst err/limit {ratio:.3f}, relative L2 "
+            f"{rel:.3e}")
+        check(ratio <= 1 and rel <= REL_L2_TOL, f"kernel 1 over a group view ({kv_dtype})")
+        errs[f"flash_{kv_dtype}"] = err
+        del cache, eng
+    return errs
+
+
+def _pool_leaves(cache) -> list:
+    return [t for buf in (cache.k, cache.v)
+            for t in (buf.values() if isinstance(buf, dict) else (buf,))]
+
+
+def share_block_check(model, share, kv_dtype: str) -> dict:
+    """One captured decode block under the map, checked bitwise against a
+    snapshot of the pool taken before it: three requests decoding, the
+    block's graph captured, the pool and the carries put back, the block
+    replayed; then the same block run eagerly from the snapshot with every
+    pool write recorded. Outside the rows the block wrote (the scratch page
+    aside) the pool equals the snapshot; each written row holds what its
+    group's owner (the group's first writer of that row) wrote, so every
+    row a non-owner wrote holds its owner's bytes again; the replay equals
+    the eager run. Returns the batcher (its pool is the export check's)."""
+    from mlx_sharding_tpu_torch.cache import read_pool_rows
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.parallel import pipeline as pipeline_mod
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tag = f"[share-{kv_dtype}]"
+    eng = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                         pool_pages=POOL_PAGES, page_size=PAGE, kv_share_map=share,
+                         kv_dtype=kv_dtype, device=model.device)
+    b = ContinuousBatcher(eng, decode_block=8, async_sched="off")
+    b._ensure_running = lambda: None
+    tok = ByteTokenizer()
+    for i, (n, m) in enumerate(SHARE_BLOCK_JOBS):
+        b.generate_step(tok.encode(mix_prompt(i, n)), max_tokens=m)
+    with torch.no_grad():
+        while not (b._decoding() and not b._prefilling() and not b._waiting
+                   and b._submit.empty()):
+            b.run_tick()
+        carries = (b.last_tok, b.recent, b._dev_off)
+
+        def snapshot():
+            return ([t.clone() for t in _pool_leaves(b.cache)], [c.clone() for c in carries],
+                    [g.get_state() for g in b.generators])
+
+        def restore(snap):
+            for t, s in zip(_pool_leaves(b.cache), snap[0]):
+                t.copy_(s)
+            for c, s in zip(carries, snap[1]):
+                c.copy_(s)
+            for g, s in zip(b.generators, snap[2]):
+                g.set_state(s)
+
+        s0 = snapshot()
+        b._run_block(False, False)  # captures the block's graph (and replays it)
+        restore(s0)
+        b._run_block(False, False)  # the captured block, replayed from the snapshot
+        torch.cuda.synchronize()
+        s1g = [t.clone() for t in _pool_leaves(b.cache)]
+        restore(s0)
+        records = []
+        write = pipeline_mod.write_pool_rows
+
+        def recording(pool, page_ids, row_pos, rows):
+            write(pool, page_ids, row_pos, rows)
+            leaf = pool["d"] if isinstance(pool, dict) else pool
+            records.append((leaf.data_ptr(), page_ids.clone(), row_pos.clone(),
+                            read_pool_rows(pool, page_ids, row_pos)))
+
+        graphs, b.graphs = b.graphs, None
+        pipeline_mod.write_pool_rows = recording
+        try:
+            b._run_block(False, False)  # the same block, eagerly
+        finally:
+            pipeline_mod.write_pool_rows = write
+            b.graphs = graphs
+        torch.cuda.synchronize()
+        s1e = [t.clone() for t in _pool_leaves(b.cache)]
+    # the expected pool: the snapshot with each written row set to its
+    # group's first write of it (the owner's; the scratch page aside)
+    scratch = POOL_PAGES
+    leaves = _pool_leaves(b.cache)
+    data = [lf for lf in leaves if lf.dtype != torch.float32] if kv_dtype == "int8" else leaves
+    expected = [t.clone() for t in s0[0]]
+    seen, nonowner_rows = set(), 0
+    for ptr, pages, rows, vals in records:
+        for i, leaf in enumerate(data):
+            stride = leaf[0].numel() * leaf.element_size()
+            g = (ptr - leaf.data_ptr()) // stride
+            if 0 <= g < leaf.shape[0] and (ptr - leaf.data_ptr()) % stride == 0:
+                break
+        else:
+            raise AssertionError(f"{tag} a write outside the pool")
+        for j, (p, r) in enumerate(zip(pages.tolist(), rows.tolist())):
+            if p == scratch:
+                continue
+            key = (i, g, p, r)
+            if key in seen:
+                nonowner_rows += 1
+                continue
+            seen.add(key)
+            if kv_dtype == "int8":
+                expected[2 * i][g, p, r] = vals["d"][j]
+                expected[2 * i + 1][g, p, r] = vals["s"][j]
+            else:
+                expected[i][g, p, r] = vals[j]
+    written = {(g, p, r) for _, g, p, r in seen}
+
+    def differs(a, b_):
+        out = set()
+        for x, y in zip(a, b_):
+            diff = (x != y).reshape(x.shape[0], x.shape[1], x.shape[2], -1).any(-1)
+            diff[:, scratch] = False
+            out |= {tuple(ix) for ix in diff.nonzero().tolist()}
+        return out
+
+    changed = differs(s1g, s0[0])
+    check(changed <= written, f"{tag} the block changed pool rows it did not write: "
+          f"{sorted(changed - written)[:4]}")
+    bad_eager = differs(s1e, expected)
+    bad_graph = differs(s1g, s1e)
+    log(f"{tag} one captured decode block of 8 steps, 3 slots decoding, under the map "
+        f"({share.num_groups} groups of {share.num_layers} layers): {len(written)} (group, "
+        f"page, row) rows written by the owners, {nonowner_rows} rows written by non-owner "
+        f"layers and put back, {len(changed)} rows changed against the snapshot; rows not "
+        f"holding the owner's bytes after the eager block: {len(bad_eager)}; rows where the "
+        f"replay differs from the eager block: {len(bad_graph)}")
+    check(nonowner_rows > 0, f"{tag} no non-owner layer wrote a row")
+    check(not bad_eager, f"{tag} rows a non-owner wrote do not hold the owner's bytes")
+    check(not bad_graph, f"{tag} the captured block differs from the eager one")
+    return b
+
+
+def share_block_transfer(b, share, model) -> None:
+    """A block exported under the map imports bit-identically into another
+    pool under the same map, and an unshared pool refuses it."""
+    from mlx_sharding_tpu_torch.kv_transfer import export_block, import_block
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+
+    slot = next(s for s, r in enumerate(b._slots) if r is not None)
+    req = b._slots[slot]
+    n_tokens = req.prompt.size + len(req.history) - 1
+    pages = b._pages_of[slot][: -(-n_tokens // PAGE)]
+    block = export_block(b.cache, pages, page_size=PAGE, n_tokens=n_tokens, prompt=req.prompt,
+                         history=req.history, produced=req.produced,
+                         resume_gen=b.generators[slot].get_state(),
+                         resume_recent=b.recent[slot].cpu(), share_hash=b._share_hash,
+                         codec=b._kv_codec)
+    block.to_host()
+    twin = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                          pool_pages=POOL_PAGES, page_size=PAGE, kv_share_map=share,
+                          device=model.device)
+    cache, _ = twin.init_cache_paged()
+    dst = list(range(POOL_PAGES - len(pages), POOL_PAGES))
+    import_block(cache, block, dst, share_hash=twin.kv_share_hash, codec=twin.kv_codec)
+    src_i = torch.tensor(pages, device=model.device)
+    dst_i = torch.tensor(dst, device=model.device)
+    same = all(torch.equal(a.index_select(1, src_i), c.index_select(1, dst_i))
+               for a, c in zip(_pool_leaves(b.cache), _pool_leaves(cache)))
+    plain = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
+                           pool_pages=POOL_PAGES, page_size=PAGE, device=model.device)
+    refused = None
+    try:
+        import_block(plain.init_cache_paged()[0], block, dst, share_hash=None,
+                     codec=plain.kv_codec)
+    except Exception as e:  # noqa: BLE001 — the refusal under test
+        refused = f"{type(e).__name__}: {e}"
+    log(f"[share] a block of {len(pages)} pages ({block.nbytes} bytes) exported under the map: "
+        f"imported into a pool under the same map bit-identical {same}; an unshared pool "
+        f"refused it: {refused}")
+    check(same, "the block under the map did not import bit-identically")
+    check(refused is not None, "an unshared pool imported a block of a shared layout")
+    del cache, twin, plain
+
+
+def replica_mix(port, rs) -> dict:
+    """Phase 6's mix of streamed forced requests through the replica set's
+    server, all at once: each request's TTFT, the mix's tok/s and the
+    routes per replica."""
+    served0 = list(rs.served)
+    jobs = [{"prompt": mix_prompt(i, n), "max_tokens": m, "stream": True,
+             "logit_bias": {"65": 100.0}} for i, (n, m) in enumerate(BATCH_MIX[:SLOTS])]
+    results = [None] * len(jobs)
+
+    def send(i):
+        results[i] = post(port, "/v1/completions", jobs[i], stream=True)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    tokens = 0
+    ttfts = []
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"[replicas] mix request {i}: {r and r[0]}")
+        check(stream_text(r[1], chat=False) == "A" * jobs[i]["max_tokens"],
+              f"[replicas] mix request {i}'s text")
+        tokens += jobs[i]["max_tokens"]
+        ttfts.append(r[2] * 1e3)
+    routes = [a - b for a, b in zip(rs.served, served0)]
+    return {"tok_s": tokens / wall, "ttft_ms": ttfts, "routes": routes, "tokens": tokens,
+            "wall": wall}
+
+
+def drain_streams(rs, ids: list, port=None, drain: Optional[int] = None) -> dict:
+    """``DRAIN_STREAMS`` long greedy streams through the replica set, each
+    consumed on a thread; with ``drain``, ``POST /admin/drain`` of that
+    replica once every stream has ``DRAIN_AFTER`` tokens."""
+    got = [[] for _ in ids]
+    errors = []
+
+    def consume(i):
+        try:
+            for t, _ in rs.generate_step(ids[i], max_tokens=DRAIN_TOKENS):
+                got[i].append(t)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(ids))]
+    for t in threads:
+        t.start()
+        time.sleep(0.05)  # least-loaded routing alternates the replicas
+    out = {}
+    if drain is not None:
+        t_wait = time.perf_counter()
+        while min(len(g) for g in got) < DRAIN_AFTER and time.perf_counter() - t_wait < 120:
+            time.sleep(0.005)
+        out["tokens_at_drain"] = [len(g) for g in got]
+        t0 = time.perf_counter()
+        status, body, _, _ = post(port, "/admin/drain", {"replica": drain, "deadline": 60})
+        out["drain_s"] = time.perf_counter() - t0
+        out["drain"] = (status, body)
+    for t in threads:
+        t.join(timeout=600)
+    check(not errors, f"[replicas] streams failed: {errors}")
+    out["streams"] = got
+    return out
+
+
+def phase_share_and_replicas(model, seed: int, single_batch_tok_s: float, lap) -> tuple:
+    """Phase 13 on phase 4's model and phase 6's geometry: layer-wise KV
+    sharing (a map calibrated with the port's ``calibrate_model``, its pool
+    bytes, the identity map's parity, kernels 1 and 2 over the group pool,
+    one captured decode block's pool bitwise, a block's export and import)
+    and two replicas on the card behind the server (one copy of the
+    weights, phase 6's mix, the breaker, a drain with migration). Returns
+    the launches of the replica set's served runs and the numbers."""
+    from mlx_sharding_tpu_torch.cli.kv_share_calibrate import calibrate_model
+    from mlx_sharding_tpu_torch.kv_share import KVShareMap
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, build_generator, \
+        make_server
+    from mlx_sharding_tpu_torch.testing import faults
+    from mlx_sharding_tpu_torch.weights import weight_store
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 130)
+    tok = ByteTokenizer()
+    layers = model.config.num_hidden_layers
+    stats = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    share = calibrate_model(model, [tok.encode(mix_prompt(i, n)) for i, n in
+                                    enumerate(SHARE_CALIB)],
+                            num_share=SHARE_NUM, max_group=SHARE_MAX_GROUP)
+    log(f"[share] calibrated with calibrate_model over {len(SHARE_CALIB)} prompts "
+        f"({sum(SHARE_CALIB)} tokens) in {time.perf_counter() - t0:.2f}s: {layers} layers -> "
+        f"{share.num_groups} groups, pairs {share.meta['calibration']['pairs']}, share_hash "
+        f"{share.share_hash} (random weights: the map exercises the mechanism, not quality)")
+    check(share.num_groups == layers - SHARE_NUM, "the calibrated map's group count")
+    stats["pool"] = share_pool_bytes(model, share)
+    share_identity_parity(model, KVShareMap.identity(layers))
+    stats["kernel_errs"] = share_kernel_checks(gen, share, model)
+    lap("phase 13, the share map, its pool and kernels")
+    for kv_dtype in ("bf16", "int8"):
+        b = share_block_check(model, share, kv_dtype)
+        if kv_dtype == "bf16":
+            share_block_transfer(b, share, model)
+        b.close()
+        del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 13, a captured block under the map and its export")
+
+    # two replicas on the card behind the server
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rs = build_generator("llama-3.1-8b-random", model=model, device=model.device,
+                         max_seq=MAX_SEQ, prefill_chunk=CHUNK, concurrent=SLOTS,
+                         paged_pool=POOL_PAGES, page_size=PAGE, decode_block=8,
+                         replicas=REPLICAS)
+    rs.probe_interval = PROBE_S
+    torch.cuda.synchronize()
+    after_load = torch.cuda.memory_allocated()
+    store = weight_store().stats()
+    w_bytes = sum(e["bytes"] for e in store["entries"])
+    log(f"[replicas] --concurrent {SLOTS} --paged-pool {POOL_PAGES} --replicas {REPLICAS}: "
+        f"torch.cuda.memory_allocated {before / 1e9:.3f} GB before (the model's weights "
+        f"{w_bytes / 1e9:.3f} GB among it), {after_load / 1e9:.3f} GB after the replicas' pools "
+        f"and graphs (+{(after_load - before) / 1e9:.3f} GB, less than one more copy of the "
+        f"weights); weight store: {store['trees']} tree, {store['refs']} refs, "
+        f"{store['bytes']} bytes; shared {rs.shared_weights_active}")
+    check(store["trees"] == 1 and store["refs"] == REPLICAS, "the weight store's trees and refs")
+    check(after_load - before < w_bytes, "the replicas hold a second copy of the weights")
+    server = make_server(ModelProvider(rs, tok, model_name="llama-3.1-8b-replicas"),
+                         "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    launches = {}
+    try:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"[replicas] warm-up request: {status}")
+        # a capture on replica 0 while replica 1 replays: replica 0 has
+        # to capture its first prefill chunks again during the mix
+        rep0, rep1 = rs.replicas
+        for off in (0, CHUNK):
+            rep0.graphs._graphs.pop(("prefill", off))
+        caps0 = rep0.graphs.captures
+        fails0 = sum(rs.failures)
+        pa.paged_attention.launches = fa.flash_attention.launches = 0
+        mix = replica_mix(port, rs)
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches}
+        recaptured = rep0.graphs.captures - caps0
+        log(f"[replicas] phase 6's {SLOTS} streamed forced requests at once: {mix['tokens']} "
+            f"tokens in {mix['wall']:.3f}s = {mix['tok_s']:.2f} tok/s (phase 6's single batcher: "
+            f"{single_batch_tok_s:.2f}); TTFTs "
+            + ", ".join(f"{t:.1f}" for t in mix["ttft_ms"])
+            + f" ms; routes per replica {mix['routes']}; replica 0 captured {recaptured} "
+            f"prefill graphs while replica 1 served; launches {launches}; replays by replica "
+            f"{[r.graphs.replays for r in rs.replicas]}")
+        check(recaptured == 2, "replica 0 did not capture its chunks during the mix")
+        check(sum(rs.failures) == fails0, f"a replica failed a dispatch during the mix: "
+              f"{rs.failures}")
+        check(all(n > 0 for n in mix["routes"]), "a replica served no request of the mix")
+        check(launches["paged_attention"] > 0 and launches["flash_attention"] > 0,
+              "the replicas' served mix launched no attention kernel")
+        stats["mix"] = mix
+        # the breaker: replica 1 fails its dispatches while replica 0 is busy
+        holder = threading.Thread(target=lambda: list(rs.generate_step(
+            tok.encode(mix_prompt(20, 400)), max_tokens=200)))
+        holder.start()
+        time.sleep(0.5)
+        faults.arm("replica.dispatch", exc=RuntimeError("injected dispatch failure"),
+                   match={"replica": 1})
+        served0 = list(rs.served)
+        breaker_ok = 0
+        try:
+            for i in range(BREAKER_FAILS + 2):
+                status, body, _, _ = post(port, "/v1/completions",
+                                          {"prompt": mix_prompt(30 + i, 64), "max_tokens": 4})
+                breaker_ok += status == 200
+        finally:
+            faults.disarm("replica.dispatch")
+        health = rs.health()
+        routes = [a - b for a, b in zip(rs.served, served0)]
+        log(f"[replicas] replica.dispatch armed on replica 1: {breaker_ok} of "
+            f"{BREAKER_FAILS + 2} requests answered 200; dispatches per replica {routes}; "
+            f"replica 1's breaker {health['replicas'][1]['breaker']} after "
+            f"{health['replicas'][1]['consecutive_failures']} failures; /health "
+            f"{health['status']}, serving {health['serving']}")
+        check(breaker_ok == BREAKER_FAILS + 2, "a request failed while replica 0 served")
+        check(health["replicas"][1]["breaker"] == "open", "replica 1's breaker did not open")
+        holder.join(timeout=600)
+        time.sleep(PROBE_S)
+        # replica 1 recovers: the half-open probe closes its breaker
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "probe", "max_tokens": 2})
+        check(status == 200 and rs.health()["replicas"][1]["breaker"] == "closed",
+              "replica 1's breaker did not close after the probe")
+        lap("phase 13, two replicas: load, the mix and the breaker")
+
+        # the drain: four long greedy streams, run once undrained, then
+        # again with replica 0 drained while they decode
+        ids = [tok.encode(mix_prompt(40 + i, DRAIN_PROMPT)) for i in range(DRAIN_STREAMS)]
+        want = drain_streams(rs, ids)["streams"]
+        exported = []
+        export = rep0._export_resume_state
+
+        def recorded(req, slot):
+            state = export(req, slot)
+            exported.append(state.block.nbytes if state.block is not None else None)
+            return state
+
+        rep0._export_resume_state = recorded
+        # what replica 0 holds on the card: its pool and its graphs' pool
+        pool_id, graph_bytes = tuple(rep0.graphs.pool), rep0.graphs.pool_bytes()
+        kv_bytes = rep0.cache.nbytes
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        res_before = torch.cuda.memory_reserved()
+        drained = drain_streams(rs, ids, port=port, drain=0)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        res_after = torch.cuda.memory_reserved()
+        graph_left = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg["segment_pool_id"]) == pool_id)
+        status, body = drained["drain"]
+        rs1 = rep1.spill_stats()
+        same = drained["streams"] == want
+        store = weight_store().stats()
+        log(f"[replicas] drain of replica 0 with {DRAIN_STREAMS} greedy {DRAIN_TOKENS}-token "
+            f"streams decoding (tokens each at the drain {drained['tokens_at_drain']}): POST "
+            f"/admin/drain {status} {body} in {drained['drain_s']:.3f}s; blocks exported "
+            f"{exported} bytes; replica 1 imported {rs1['spill_hits']} blocks, "
+            f"migrations in {rs1['migrations_in']}; every stream equal to its undrained run "
+            f"{same}, lengths {[len(s) for s in drained['streams']]}")
+        log(f"[replicas] after the drain: weight store {store['trees']} tree, {store['refs']} "
+            f"refs; replica 0 held a pool of {kv_bytes} bytes and a graph pool of "
+            f"{graph_bytes} bytes, {graph_left} left of it; torch.cuda.memory_allocated "
+            f"{mem_before / 1e9:.3f} -> {mem_after / 1e9:.3f} GB, reserved "
+            f"{res_before / 1e9:.3f} -> {res_after / 1e9:.3f} GB (replica 1 decoded on "
+            f"meanwhile); /health {rs.health()['status']}")
+        check(status == 200 and body["closed"] and body["migrated"] >= 1,
+              "the drain did not migrate and close replica 0")
+        check(all(n is not None for n in exported) and len(exported) == body["migrated"],
+              "a migrated stream left without its block")
+        check(same and all(len(s) == DRAIN_TOKENS for s in drained["streams"]),
+              "a drained stream differs from its undrained run or was cut")
+        check(store["refs"] == 1 and store["trees"] == 1, "the drain did not release its ref")
+        check(mem_before - mem_after >= kv_bytes and graph_left == 0,
+              "the retired replica's pool or graph memory stayed on the card")
+        stats["drain"] = {"seconds": drained["drain_s"], "blocks": exported,
+                          "memory": (mem_before, mem_after), "reserved": (res_before, res_after),
+                          "freed": (kv_bytes, graph_bytes, graph_left)}
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches}
+    finally:
+        faults.disarm()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        rs.close()
+    del rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(weight_store().stats()["refs"] == 0, "the replicas' close left a weight ref")
+    lap("phase 13, the drain")
+    return launches, stats
+
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------ the families' kernel paths
@@ -4490,7 +5115,8 @@ FAMILY_PROMPTS = {"qwen3": 600, "gemma2": GEMMA_PROMPT, "mixtral": 600, "deepsee
 # ~13k kernels each, the experts' scan, ~2 s of capture apiece). Gemma-2's
 # 4,400-token prompt and 64 tokens fit 4,608 (18 chunks); its kernel checks
 # run at GEMMA_MAX_SEQ.
-FAMILY_MAX_SEQ = {"qwen3": 1024, "gemma2": 18 * CHUNK, "mixtral": 1024, "deepseek_v2": 1024}
+FAMILY_MAX_SEQ = {"qwen3": 1024, "gemma2": 18 * CHUNK, "mixtral": 1024,
+                  "deepseek_v2": 3 * CHUNK}
 FAMILY_TOKENS = 64
 GEMMA_BATCH_PROMPTS = (GEMMA_PROMPT, 600, 1000, 2000)
 FAMILY_BATCH_PROMPTS = {"qwen3": (600, 300, 200, 100), "gemma2": GEMMA_BATCH_PROMPTS,
@@ -5440,6 +6066,8 @@ def main(argv=None) -> int:
             reference=greedy.get(kv_dtype))
         if draft == "off":
             greedy[kv_dtype] = batch["greedy"]
+        if (kv_dtype, draft, sched) == ("bf16", "off", "auto"):
+            single_batch_tok_s = batch["mix_tok_s"]
         paged_launches += batch_launches["paged_attention"]
         lap(f"continuous batching, {kv_dtype} pool, draft {draft}, async_sched {sched}")
     phase_spec_f32(args.seed)
@@ -5447,6 +6075,7 @@ def main(argv=None) -> int:
     dense_launches, dense = phase_dense_batching(model, args.seed, single["decode_tok_s"], lap)
     surface_launches, surfaces = phase_surfaces(model, args.seed, lap)
     phase_kv_movement(model, args.seed, lap)
+    share_launches, _ = phase_share_and_replicas(model, args.seed, single_batch_tok_s, lap)
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model
@@ -5464,7 +6093,7 @@ def main(argv=None) -> int:
         "source": "mlx_sharding_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_attention"] + dense_launches["flash_attention"]
-                     + surface_launches["flash_attention"]),
+                     + surface_launches["flash_attention"] + share_launches["flash_attention"]),
         "max_abs_err": max(max_err, dense["kernels"]["flash_attention"],
                            surfaces["unaligned_err"]),
         "ms": mean("ms"),
@@ -5486,7 +6115,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/paged_attention.py:153",
-        "launches": paged_launches + surface_launches["paged_attention"],
+        "launches": (paged_launches + surface_launches["paged_attention"]
+                     + share_launches["paged_attention"]),
         "max_abs_err": paged_err,
         "ms": pmean("ms"),
         "plain_ms": pmean("plain_ms"),

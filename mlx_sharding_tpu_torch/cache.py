@@ -231,6 +231,24 @@ def write_pool_rows(pool, page_ids: torch.Tensor, row_pos: torch.Tensor, rows: t
         pool[page_ids, row_pos] = rows.to(pool.dtype)
 
 
+def read_pool_rows(pool, page_ids: torch.Tensor, row_pos: torch.Tensor):
+    """Copies of the rows at ``[page_ids[n], row_pos[n]]`` of one layer's
+    pool, as stored (an int8 pool's codes and scales): what
+    :func:`restore_pool_rows` puts back."""
+    return _map_pool(lambda leaf: leaf[page_ids, row_pos], pool)
+
+
+def restore_pool_rows(pool, page_ids: torch.Tensor, row_pos: torch.Tensor, saved) -> None:
+    """Write rows that :func:`read_pool_rows` took back in place, as they
+    were (no requantization). Duplicate targets carry equal rows, read
+    before any write."""
+
+    def put(leaf, old):
+        leaf[page_ids, row_pos] = old
+
+    _map_pool(put, pool, saved)
+
+
 def write_pool_span(pool, page_id: torch.Tensor, start: int, rows: torch.Tensor):
     """Write ``rows`` (T, H_kv, D) into rows ``start .. start+T`` of the
     pool page ``page_id``, a (1,) int64 tensor on the pool's device (a

@@ -157,6 +157,8 @@ class Generator:
         cuda_graphs: bool = True,
         decode_block: int = DEFAULT_DECODE_BLOCK,
         prompt_cache: bool = False,
+        graph_pool=None,
+        weights=None,
     ):
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
@@ -185,8 +187,26 @@ class Generator:
         self._tok = torch.zeros(1, dtype=torch.int64, device=dev)  # the last token
         self._chunk = torch.zeros((1, prefill_chunk), dtype=torch.int64, device=dev)
         self._last = torch.zeros(1, dtype=torch.int64, device=dev)  # its last valid row
-        self.graphs = (StepGraphs(dev, model_pool(model))
+        # the model's shared graph pool, or ``graph_pool`` (a replica's own:
+        # replicas serve on their own threads)
+        self.graphs = (StepGraphs(dev, graph_pool if graph_pool is not None
+                                  else model_pool(model))
                        if dev.type == "cuda" and cuda_graphs else None)
+        # ``weights``: the ``weights.ResidentWeights`` this generator aliases
+        # with other replicas (its lease's release hangs on ``on_close``)
+        self.weights_shared = weights is not None
+        self._close_hooks: list = []
+
+    def on_close(self, cb) -> None:
+        """Register a teardown callback, run once from :meth:`close` (a
+        shared-weight lease's release)."""
+        self._close_hooks.append(cb)
+
+    def close(self) -> None:
+        """Run the teardown callbacks, once."""
+        hooks, self._close_hooks = self._close_hooks, []
+        for cb in hooks:
+            cb()
 
     # -------------------------------------------------------------- steps
     def _run(self, key, step, *, state, generators=()):
@@ -266,19 +286,20 @@ class Generator:
         self.cache = dataclasses.replace(self.cache, offset=self.cache.offset + steps)
         return tuple(o.clone() for o in outs)
 
-    def warm_up(self, decode_blocks: bool = True) -> dict:
+    def warm_up(self, decode_blocks: bool = True, prefill_upto: Optional[int] = None) -> dict:
         """Capture, before the first request, every prefill chunk's graph
-        (one per chunk offset) and, with ``decode_blocks``, the decode
-        blocks of the default window (greedy and sampled, with and without
-        logprobs). Returns the graphs captured, their capture seconds and
-        the pool's bytes; without graphs, nothing is captured and it
-        returns ``{}``."""
+        (one per chunk offset; with ``prefill_upto``, only the chunks of a
+        prompt of that many tokens, the rest on first use) and, with
+        ``decode_blocks``, the decode blocks of the default window (greedy
+        and sampled, with and without logprobs). Returns the graphs
+        captured, their capture seconds and the pool's bytes; without
+        graphs, nothing is captured and it returns ``{}``."""
         if self.graphs is None:
             return {}
         c = self.prefill_chunk
         self._chunk.zero_()
         self._last.fill_(c - 1)
-        for start in range(0, self.max_seq, c):
+        for start in range(0, min(self.max_seq, prefill_upto or self.max_seq), c):
             self.run_chunk(start)
         for sampled in (False, True) if decode_blocks else ():
             for want_logprobs in (False, True):

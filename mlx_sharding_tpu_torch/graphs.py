@@ -16,7 +16,9 @@ so the host no longer issues every operation of every step.
   clones what it keeps.
 - The first ``run`` of a key warms the step up on a side stream, eagerly
   and under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside
-  the step, an ``.item()``, a ``.cpu()``, ``nonzero``, raises there), puts
+  the step, an ``.item()``, a ``.cpu()``, ``nonzero``, raises there) unless
+  another batcher is open (:func:`open_worker`): the mode is the process's,
+  and the other batcher's scheduler thread syncs on its harvests; it puts
   back the carries and generator states the warm-up moved, and captures the
   step on that stream into the memory pool shared by the model's graphs.
   The warm-up's K/V writes are left: the replay writes the same rows.
@@ -24,19 +26,59 @@ so the host no longer issues every operation of every step.
   replay draws fresh numbers from the generator's state at that time, and a
   reseed between replays takes effect.
 - The kernels' launch counters (``flash_attention.launches`` and the
-  others) are bumped by Python when a wrapper is called, which a replay
-  does not do: a capture records what its step counted, takes it back (the
-  capture launched nothing), and every replay adds it.
+  others) are bumped by Python when a wrapper is called
+  (:func:`count_launch`), which a replay does not do: while a thread
+  captures, its wrappers' counts go to the capture's own tally (the capture
+  launches nothing), and every replay adds the tally to the counters and to
+  its ``StepGraphs.launches``. Other threads keep counting meanwhile: the
+  replicas of a ``--replicas`` server replay and capture from their own
+  scheduler threads on one card, each batcher with its own graphs, stream
+  and memory pool.
 - A capture or replay that fails raises. There is no eager fallback.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+from collections import Counter
 from typing import Callable
 
 import torch
+
+# the launch counters are bumped from every scheduler thread
+_LAUNCH_LOCK = threading.Lock()
+# per thread: the tally of the capture it is running, or None
+_CAPTURE = threading.local()
+# batchers open on the card, each serving from a scheduler thread of its own
+_WORKERS = 0
+
+
+def open_worker() -> None:
+    """A batcher opened on the card (its scheduler thread may sync on the
+    card at any time); :func:`close_worker` when it closes."""
+    global _WORKERS
+    with _LAUNCH_LOCK:
+        _WORKERS += 1
+
+
+def close_worker() -> None:
+    global _WORKERS
+    with _LAUNCH_LOCK:
+        _WORKERS -= 1
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: into the tally of the
+    capture this thread is running (a capture launches nothing), or into
+    ``wrapper.launches``."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[wrapper] += 1
+        return
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def counted_wrappers() -> tuple:
@@ -51,8 +93,11 @@ def counted_wrappers() -> tuple:
 
 def model_pool(model) -> tuple:
     """The graph memory pool of ``model``'s captured steps, made on first
-    use: every generator over one model shares it (their replays are
-    ordered on one stream, so one graph's temporaries may reuse another's)."""
+    use: the single-stream generators over one model share it (their replays
+    are ordered on one stream, so one graph's temporaries may reuse
+    another's). A batcher's graphs take a pool of their own
+    (``torch.cuda.graph_pool_handle()``): batchers over one model run on
+    their own threads, and a retired one must give its pool back."""
     pool = getattr(model, "_graph_pool", None)
     if pool is None:
         pool = torch.cuda.graph_pool_handle()
@@ -77,8 +122,9 @@ class _Captured:
 
 class StepGraphs:
     """The captured steps of one generator, keyed by what fixes their
-    shapes and branches, in the memory pool ``pool`` (``model_pool``).
-    ``captures``, ``replays`` and ``capture_seconds`` count what it did."""
+    shapes and branches, in the memory pool ``pool``. ``captures``,
+    ``replays`` and ``capture_seconds`` count what it did, ``launches``
+    (wrapper name -> count) the kernel launches its replays made."""
 
     def __init__(self, device, pool):
         self.device = torch.device(device)
@@ -88,6 +134,7 @@ class StepGraphs:
         self.captures = 0
         self.replays = 0
         self.capture_seconds = 0.0
+        self.launches: Counter = Counter()
 
     def run(self, key, step: Callable[[], object], *, state=(), generators=()):
         """Replay the graph of ``key``, capturing ``step`` first if the key
@@ -99,8 +146,11 @@ class StepGraphs:
             entry = self._capture(step, state, generators)
             self._graphs[key] = entry
         entry.graph.replay()
+        with _LAUNCH_LOCK:
+            for wrapper, n in entry.launches:
+                wrapper.launches += n
         for wrapper, n in entry.launches:
-            wrapper.launches += n
+            self.launches[wrapper.__name__] += n
         self.replays += 1
         return entry.outputs
 
@@ -110,9 +160,12 @@ class StepGraphs:
         saved = [t.clone() for t in state]
         rng = [g.get_state() for g in generators]
         self.stream.wait_stream(current)
+        with _LAUNCH_LOCK:
+            alone = _WORKERS <= 1
         with torch.cuda.stream(self.stream):
             mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
+            if alone:  # the debug mode is the process's: no other batcher's syncs raise
+                torch.cuda.set_sync_debug_mode("error")
             try:
                 step()  # the warm-up: per-stream buffers and libraries come to exist here
             finally:
@@ -125,17 +178,15 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        wrappers = counted_wrappers()
-        before = [w.launches for w in wrappers]
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            outputs = step()
-        launches = []
-        for w, b in zip(wrappers, before):
-            n = w.launches - b
-            w.launches = b  # the capture recorded the launches and ran none
-            if n:
-                launches.append((w, n))
+        _CAPTURE.tally = Counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                outputs = step()
+            # the capture recorded the launches and ran none
+            launches = list(_CAPTURE.tally.items())
+        finally:
+            _CAPTURE.tally = None
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return _Captured(graph, outputs, launches)

@@ -30,8 +30,8 @@ pool running another; the import fails closed and the consumer's counted
 re-prefill runs. Fault site ``cache.compress``: an encode fault leaves the
 block raw (counted), a decode fault lands on the importer's re-prefill.
 
-The calibrate CLI (``cli/kv_compress_calibrate.py`` in JAX) comes with
-slice 7b; :func:`calibrate_compress_map` takes numpy buffers.
+The calibrate CLI is ``cli/kv_compress_calibrate.py``;
+:func:`calibrate_compress_map` takes numpy buffers.
 """
 
 from __future__ import annotations

@@ -45,9 +45,11 @@ sites ``cache.export``, ``cache.import``, ``cache.prefetch``, a corrupt
 checksum, the budget) is counted by the caller, logged, and the request
 re-prefills from its folded history; the stream stays exact.
 
-Left for slice 8: the drain and disagg handoff movers (``ResumeState``,
-``migrate_out``); for slice 9 the pod federation's blobs. The KV share map
-(slice 7b) is carried as ``share_hash``, None until then.
+A block carries the pool's KV share map hash (``share_hash``, None for an
+unshared pool or the identity map); an import into a pool of another
+layout is refused. The batcher's drain (``migrate_out``) moves blocks
+between replicas on the host. Left for later slices: the disagg handoff
+movers and the pod federation's blobs.
 """
 
 from __future__ import annotations

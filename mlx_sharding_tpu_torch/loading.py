@@ -42,6 +42,26 @@ def get_model_path(path: str) -> Path:
     return p
 
 
+def checkpoint_signature(path: str, *, keep_quantized: bool = False) -> str:
+    """Stable content identity of a checkpoint for ``weights.WeightKey``
+    (JAX ``loading.checkpoint_signature``): the resolved path plus the
+    quantization config and whether the load keeps packed triples
+    resident. Two replicas may alias one resident model only when this
+    string matches — same files, same dequant decisions, same layout."""
+    model_path = get_model_path(path)
+    quant = None
+    cfg = model_path / "config.json"
+    if cfg.exists():
+        with open(cfg) as f:
+            quant = json.load(f).get("quantization")
+    if quant:
+        qsig = f"gs{int(quant.get('group_size', 64))}b{int(quant.get('bits', 4))}"
+        packed = "packed" if keep_quantized else "dense"
+    else:
+        qsig, packed = "dense", "dense"
+    return f"{model_path.resolve()}::{qsig}::{packed}"
+
+
 def load_config(model_path: Path, start_layer: Optional[int] = None,
                 end_layer: Optional[int] = None) -> dict:
     with open(model_path / "config.json") as f:

@@ -61,6 +61,7 @@ import torch
 
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.ops import paged_attention as paged
+from mlx_sharding_tpu_torch.graphs import count_launch
 from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 
 NEG_INF = -1e30
@@ -400,7 +401,7 @@ def flash_attention(q, k, v, offset: int, scale: float, *,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _LIBRARY.check(err, "flash_attention")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 
@@ -507,7 +508,7 @@ def flash_decode(q, k, v, position: torch.Tensor, scale: float, *,
     paged._check(qm, kp, vp, tables, lengths, None, None, vfk)
     out = paged.launch(qm, kp, vp, tables, lengths, scale, logit_softcap=logit_softcap,
                        sliding_window=sliding_window, values_from_k=vfk)
-    flash_decode.launches += 1
+    count_launch(flash_decode)
     return out.reshape(q.shape[0], 1, q.shape[2], v.shape[-1])
 
 

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from mlx_sharding_tpu_torch.graphs import count_launch
 from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 
 NEG_INF = -1e30
@@ -355,7 +356,7 @@ def paged_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu tensors, not {q.device}")
     out = launch(q, k_pool, v_pool, tables, lengths, scale, **kw)
-    paged_attention.launches += 1
+    count_launch(paged_attention)
     return out
 
 

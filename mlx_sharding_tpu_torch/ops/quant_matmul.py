@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from mlx_sharding_tpu_torch.graphs import count_launch
 from mlx_sharding_tpu_torch.ops.cuda_library import CudaLibrary
 
 #: decode bound (``mlx_sharding_tpu/ops/quant_matmul.py:241``): up to this M
@@ -333,7 +334,7 @@ def quant_gemv(x, q, scales, biases, group_size: int = 64, bits: int = 4):
     if x.device.type == "cpu":
         return quant_matmul_reference(x, q, scales, biases, group_size, bits)
     out = _launch("quant_gemv", x, q, scales, biases, group_size, bits)
-    quant_gemv.launches += 1
+    count_launch(quant_gemv)
     return out
 
 
@@ -347,7 +348,7 @@ def quant_matmul(x, q, scales, biases, group_size: int = 64, bits: int = 4):
     if x.device.type == "cpu":
         return quant_matmul_reference(x, q, scales, biases, group_size, bits)
     out = _launch("quant_matmul", x, q, scales, biases, group_size, bits)
-    quant_matmul.launches += 1
+    count_launch(quant_matmul)
     return out
 
 
@@ -425,7 +426,7 @@ def quant_gemv_experts(x, idx, q, scales, biases, group_size: int = 64,
             1 if x.dim() == 3 else k, e, in_dim, out_dim, group_size,
             torch.cuda.current_stream(x.device).cuda_stream)
     _LIBRARY.check(err, "quant_gemv_experts")
-    quant_gemv_experts.launches += 1
+    count_launch(quant_gemv_experts)
     return out
 
 

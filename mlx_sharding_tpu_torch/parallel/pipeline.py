@@ -65,6 +65,22 @@ plan their steps alike.
   speculative round in flight moves the device's by counts the host has
   not read yet, so nothing is read back from the card inside a step.
 
+- Layer-wise KV sharing (``kv_share_map``, a paged engine; JAX's
+  ``_scan_layers_shared``): the pool holds one buffer per share group, layer
+  i reads and writes group ``group_of[i]``'s (:attr:`PipelineEngine.
+  pool_layer`), and only a group's owner, its lowest layer, keeps its rows
+  there (:attr:`PipelineEngine.owner_layer`, fixed per engine, so a
+  captured step has no branch on the card). A non-owner's prefill chunk
+  and verify rows go into its gathered view only; on the gather path it
+  writes no page back; on the ragged path it writes its rows into the pool
+  for the paged kernel, which must read them in place, and then puts the
+  owner's rows back (read before its write). The identity map keeps the
+  unshared layout and code path.
+- Shared weights (``weights``, a ``weights.ResidentWeights``): replicas run
+  against one model module; everything an engine changes per step lives on
+  the engine, and :meth:`PipelineEngine.close` runs its ``on_close`` hooks
+  (a store lease's release) once.
+
 Pipeline, tensor and expert parallelism are not yet ported: they raise.
 """
 
@@ -87,6 +103,8 @@ from mlx_sharding_tpu_torch.cache import (
     is_quantized_kv,
     kv_data,
     layer_pool,
+    read_pool_rows,
+    restore_pool_rows,
     write_pool_rows,
     write_pool_span,
 )
@@ -98,6 +116,7 @@ from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
 from mlx_sharding_tpu_torch.sample import draw, sample_token_batched, update_recent_tokens
 from mlx_sharding_tpu_torch.speculative import dist_logits, verify_round
+from mlx_sharding_tpu_torch.weights import model_weight_bytes
 
 
 @dataclasses.dataclass
@@ -152,7 +171,9 @@ class PipelineEngine:
         page_size: Optional[int] = None,
         paged_attention: str = "auto",
         kv_dtype: Optional[str] = None,
+        kv_share_map=None,
         kv_compress_map=None,
+        weights=None,
         device=None,
     ):
         for name, n in (("pipeline stages", stages), ("tp", tp), ("ep", ep)):
@@ -167,14 +188,26 @@ class PipelineEngine:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
+        # Weight residency (JAX ``weights=``): a ``weights.WeightStore``
+        # lease's resident model, which other engines (replicas) run
+        # against too. The caller owns the lease and hangs its release on
+        # ``on_close()``. Everything an engine changes lives on the engine.
+        if weights is not None:
+            if weights.model is not model:
+                raise ValueError("resident weights hold another model than this engine's")
+            if torch.device(weights.device) != self.device:
+                raise ValueError(
+                    "resident weights were placed on a different device grid than this "
+                    "engine's mesh — aliased construction needs identical placement (same "
+                    "devices, same axis layout)")
+        self.weights_shared = weights is not None
+        self.resident = weights
         self.model = model
-        apply_projection_fusion(model)
+        apply_projection_fusion(model)  # idempotent: a fused group is left as it is
         # the weight bytes a decode step streams (JAX ``weight_bytes``, the
         # batcher's bytes-a-token gauge): every tensor of the model once
-        sizes = {}
-        for t in model.state_dict().values():
-            sizes.setdefault(t.data_ptr(), t.numel() * t.element_size())
-        self.weight_stream_bytes = sum(sizes.values())
+        self.weight_stream_bytes = (weights.weight_bytes if weights is not None
+                                    else model_weight_bytes(model))
         self.microbatches = microbatches
         # chunk-multiple capacity: padded prefill writes stay in bounds
         self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
@@ -225,16 +258,34 @@ class PipelineEngine:
                                 else "gather")
         #: the T=1 step's attention: "ragged", "gather" or "dense"
         self.decode_path = self.paged_attention if self.paged else "dense"
+        # Layer-wise KV sharing (kv_share.KVShareMap, JAX's checks): the
+        # pool holds one buffer per share group, layer i reads and writes
+        # group ``group_of[i]``'s, and only a group's owner (its lowest
+        # layer) keeps its rows there. The identity map keeps the unshared
+        # layout and code path (and hashes to None).
+        if kv_share_map is not None:
+            if not self.paged:
+                raise ValueError("kv_share_map requires a paged engine (pool_pages)")
+            kv_share_map.validate_for(cfg.num_local_layers)
+        self.kv_share = kv_share_map
+        self.kv_share_hash = kv_share_map.share_hash if kv_share_map is not None else None
+        self._share_active = kv_share_map is not None and not kv_share_map.is_identity
+        n_layers = cfg.num_local_layers
+        #: per layer: its buffer in the pool, and whether its rows persist
+        self.pool_layer = (kv_share_map.group_of if self._share_active
+                           else tuple(range(n_layers)))
+        self.owner_layer = (kv_share_map.owner_mask if self._share_active
+                            else (True,) * n_layers)
+        self.kv_share_bytes_saved = 0  # filled by init_cache_paged
         # compressed-latent KV transport (kv_compress.py, JAX's wiring): an
         # MLA-native pool gets the exact latent codec, a calibrated map
         # (``kv_compress_map``) opts a bf16 GQA pool into lowrank; every
-        # exported page block carries the codec. The KV share map (slice
-        # 7b) is not ported, so the share hash is None.
+        # exported page block carries the codec and the share hash.
         from mlx_sharding_tpu_torch.kv_compress import build_codec
 
-        self.kv_share_hash = None
+        pool_layers = kv_share_map.num_groups if self._share_active else n_layers
         self.kv_codec = build_codec(model, paged=self.paged, kv_quant=self.kv_quant,
-                                    num_stages=stages, pool_layers=cfg.num_local_layers,
+                                    num_stages=stages, pool_layers=pool_layers,
                                     share_hash=self.kv_share_hash,
                                     compress_map=kv_compress_map)
         self.kv_compress_hash = (self.kv_codec.compress_hash if self.kv_codec is not None
@@ -247,6 +298,39 @@ class PipelineEngine:
         # forwards (prefill chunks, decode steps) run eagerly on the card:
         # warm-ups of captured steps, or ``cuda_graphs=False``
         self.eager_forwards = 0
+        # what the engine holds beyond its own tensors (a shared-weight
+        # lease's release): close() runs each hook once
+        self._close_hooks: list = []
+
+    def on_close(self, cb) -> None:
+        """Register a teardown callback, run once from :meth:`close`. The
+        shared-weights spawn hangs the store lease's release here, so a
+        drain, a retirement or a hot-swap (each ends in ``close()``) drops
+        the ref, and the last engine's drop frees the store's tree."""
+        self._close_hooks.append(cb)
+
+    def close(self) -> None:
+        """Release what the engine holds beyond its own tensors, and its
+        persistent step inputs. Idempotent: each hook runs once."""
+        hooks, self._close_hooks = self._close_hooks, []
+        self._plans.clear()
+        self._prefill_buf = None
+        for cb in hooks:
+            cb()
+
+    def kv_share_stats(self) -> dict:
+        """The ``mst_kv_share_*`` read-out (JAX's): whether a non-identity
+        map is on, the groups and layers, the pool bytes it saves and its
+        hash."""
+        m = self.kv_share
+        layers = self.model.config.num_local_layers
+        return {
+            "enabled": bool(self._share_active),
+            "groups": m.num_groups if m is not None else layers,
+            "layers": layers,
+            "bytes_saved": int(self.kv_share_bytes_saved),
+            "share_hash": self.kv_share_hash,
+        }
 
     def kv_compress_stats(self) -> Optional[dict]:
         """The ``mst_kv_compress_*`` read-out: the codec's counters, None
@@ -268,15 +352,22 @@ class PipelineEngine:
 
     def init_cache_paged(self) -> tuple[PagedKV, np.ndarray]:
         """The shared page pool (last page scratch) and the host page table
-        (M+1, slot_pages), row M all scratch."""
+        (M+1, slot_pages), row M all scratch. Under a share map the pool's
+        layer axis is the group count G."""
         if not self.paged:
             raise ValueError("engine built without pool_pages")
         model = self.model
+        n_layers = model.config.num_local_layers
+        n_pool = self.kv_share.num_groups if self._share_active else n_layers
         cache = init_cache_paged(
-            model.config.num_local_layers, self.pool_pages, self.page_size,
+            n_pool, self.pool_pages, self.page_size,
             model.cache_num_heads(), model.cache_head_dim(), self.microbatches,
             self.cache_dtype, self.device, quantized=self.kv_quant,
         )
+        if self._share_active:
+            # the allocation that did not happen: an unshared pool would be
+            # L/G times these leaves
+            self.kv_share_bytes_saved = int(cache.nbytes * (n_layers - n_pool) / n_pool)
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
 
     def _slot_view(self, pool, page_ids: torch.Tensor) -> torch.Tensor:
@@ -340,14 +431,18 @@ class PipelineEngine:
         note_eager_forward(self, tokens)
         h = model.embed(tokens)
         for i, layer in enumerate(model.layers):
-            kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
+            g, owner = self.pool_layer[i], self.owner_layer[i]
+            kp, vp = layer_pool(cache.k, g), layer_pool(cache.v, g)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, owner=owner, values_from_k=None, **opts):
                 # the chunk's own rows are attended as computed (unquantized);
                 # the pool keeps them quantized for an int8 pool. ``opts``:
                 # the layer's softcap and window (the model's attn_options);
                 # ``values_from_k`` (MLA): the values are the keys' first
-                # columns, so only K rows are written
+                # columns, so only K rows are written. A share group's
+                # non-owner writes its chunk into its view only: it attends
+                # over the owner's rows and its own chunk, which the pool
+                # never keeps (JAX's ``_paged_writeback`` keeps owner rows)
                 if not self.paged:
                     # the slot's cache is one page: written, then attended in
                     # place by the flash kernel, the slot a device index
@@ -361,13 +456,15 @@ class PipelineEngine:
                                             **opts)
                 k_view = self._slot_view(kp, page_ids)
                 k_view[:, off : off + c] = k_new
-                write_pool_span(kp, write_page, start, k_new[0])
+                if owner:
+                    write_pool_span(kp, write_page, start, k_new[0])
                 if values_from_k is not None:
                     v_view = k_view[..., :values_from_k]
                 else:
                     v_view = self._slot_view(vp, page_ids)
                     v_view[:, off : off + c] = v_new
-                    write_pool_span(vp, write_page, start, v_new[0])
+                    if owner:
+                        write_pool_span(vp, write_page, start, v_new[0])
                 return causal_attention(q, k_view, v_view, off, model.scale, **opts)
 
             h, _, _ = model.sp_layer(layer, h, off, attn_fn)
@@ -442,46 +539,58 @@ class PipelineEngine:
                           lengths.to(torch.int32), pos.to(torch.int32), inputs.rows)
 
     # ------------------------------------------------------------ T=1 steps
-    def _attend_ragged(self, kp, vp, plan, j, lengths, q, k_new, v_new, values_from_k=None,
-                       **opts):
+    def _attend_ragged(self, kp, vp, plan, j, lengths, owner, q, k_new, v_new,
+                       values_from_k=None, **opts):
         """The ragged path: the new rows into their pool pages, then the
-        paged kernel over the pool in place."""
-        write_pool_rows(kp, plan.page_ids[j], plan.row_pos[j], k_new[:, 0])
-        if values_from_k is None:  # MLA reads its values from the K rows
-            write_pool_rows(vp, plan.page_ids[j], plan.row_pos[j], v_new[:, 0])
+        paged kernel over the pool in place. A share group's non-owner
+        attends with its own rows in place of the owner's at the new
+        positions, then puts the owner's rows back (JAX keeps the owner's
+        buffer: ``_scan_layers_shared``), so the pool ends the step as its
+        owner left it."""
+        pages, rows = plan.page_ids[j], plan.row_pos[j]
+        pools = (kp,) if values_from_k is not None else (kp, vp)  # MLA: values from K rows
+        saved = None if owner else [read_pool_rows(p, pages, rows) for p in pools]
+        for pool, new in zip(pools, (k_new, v_new)):
+            write_pool_rows(pool, pages, rows, new[:, 0])
         quant = is_quantized_kv(kp)
         out = paged_attention(
             q[:, 0], kv_data(kp), kv_data(vp), plan.tables, lengths, self.model.scale,
             k_scale=kp["s"] if quant else None, v_scale=vp["s"] if quant else None,
             values_from_k=values_from_k, **opts,
         )
+        if saved is not None:
+            for pool, old in zip(pools, saved):
+                restore_pool_rows(pool, pages, rows, old)
         return out[:, None]  # (M, T=1, Hq, Dv)
 
-    def _attend_gather(self, kp, vp, plan, j, lengths, q, k_new, v_new, values_from_k=None,
-                       **opts):
+    def _attend_gather(self, kp, vp, plan, j, lengths, owner, q, k_new, v_new,
+                       values_from_k=None, **opts):
         """The gather path (JAX ``_paged_read`` / ``_paged_writeback``):
         each slot's pages gathered into a contiguous view (dequantized after
         the gather for an int8 pool), the new row written into it, the T=1
         route over the view, and the touched page written back (a position
-        past the mapped pages goes to the scratch page)."""
+        past the mapped pages goes to the scratch page); a share group's
+        non-owner writes nothing back."""
         m, cap = q.shape[0], self.max_seq
         slots = torch.arange(m, device=q.device)
         positions = plan.positions[j]
         rows = positions.long().clamp(max=cap - 1)
         k_view = self._slot_view(kp, plan.tables)  # (M, cap, H_kv, Dk)
         k_view[slots, rows] = k_new[:, 0].to(k_view.dtype)
-        self._write_back(kp, k_view, plan.page_ids[j], rows)
+        if owner:
+            self._write_back(kp, k_view, plan.page_ids[j], rows)
         if values_from_k is not None:
             v_view = k_view[..., :values_from_k]
         else:
             v_view = self._slot_view(vp, plan.tables)
             v_view[slots, rows] = v_new[:, 0].to(v_view.dtype)
-            self._write_back(vp, v_view, plan.page_ids[j], rows)
+            if owner:
+                self._write_back(vp, v_view, plan.page_ids[j], rows)
         return causal_attention(q, k_view, v_view, 0, self.model.scale, position=positions,
                                 lengths=lengths, **opts)
 
-    def _attend_dense(self, kp, vp, plan, j, lengths, q, k_new, v_new, values_from_k=None,
-                      **opts):
+    def _attend_dense(self, kp, vp, plan, j, lengths, owner, q, k_new, v_new,
+                      values_from_k=None, **opts):
         """The dense path: the new rows into the slot caches (an inactive
         slot's into the scratch slot), then the T=1 route over the first M
         caches in place."""
@@ -512,8 +621,9 @@ class PipelineEngine:
                   "dense": self._attend_dense}[self.decode_path]
         h = model.embed(tokens)  # (M, 1, hidden): the slot axis is the batch axis
         for i, layer in enumerate(model.layers):
-            attn_fn = functools.partial(attend, layer_pool(cache.k, i), layer_pool(cache.v, i),
-                                        plan, j, lengths)
+            g = self.pool_layer[i]
+            attn_fn = functools.partial(attend, layer_pool(cache.k, g), layer_pool(cache.v, g),
+                                        plan, j, lengths, self.owner_layer[i])
             h, _, _ = model.sp_layer(layer, h, positions, attn_fn)
         return torch.where((lengths > 0)[:, None, None], h,
                            torch.zeros((), dtype=h.dtype, device=h.device))
@@ -559,11 +669,16 @@ class PipelineEngine:
         page_ids, row_pos = plan.page_ids.t().reshape(-1), plan.row_pos.t().reshape(-1)
         h = model.embed(x)  # (M, K, hidden)
         for i, layer in enumerate(model.layers):
-            kp, vp = layer_pool(cache.k, i), layer_pool(cache.v, i)
+            g, owner = self.pool_layer[i], self.owner_layer[i]
+            kp, vp = layer_pool(cache.k, g), layer_pool(cache.v, g)
 
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, values_from_k=None, **opts):
-                write_pool_rows(kp, page_ids, row_pos, k_new.reshape(m * k, *k_new.shape[2:]))
-                if values_from_k is None:
+            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, owner=owner, values_from_k=None, **opts):
+                # a share group's non-owner writes its rows into its view
+                # only (JAX's gather body keeps owner rows)
+                if owner:
+                    write_pool_rows(kp, page_ids, row_pos,
+                                    k_new.reshape(m * k, *k_new.shape[2:]))
+                if owner and values_from_k is None:
                     write_pool_rows(vp, page_ids, row_pos,
                                     v_new.reshape(m * k, *v_new.shape[2:]))
                 if not self.paged:

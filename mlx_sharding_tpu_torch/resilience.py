@@ -5,6 +5,13 @@ error types and the deadline bookkeeping, standard library only.
   generation, or the inter-token stall watchdog) expired; HTTP 504.
 - :class:`QueueFullError`: admission control rejected the request because
   the submit queue is at ``--max-queue``; HTTP 429 + ``Retry-After``.
+- :class:`ReplicasUnavailableError`: every replica is circuit-broken;
+  HTTP 503. :class:`ReplicaDrainingError`: a draining replica refuses new
+  work (a ``QueueFullError``, so the dispatcher retries elsewhere).
+- :class:`ResumeState`, :class:`RequestMigratedError`: a stream ended on one
+  replica so that it continues on another (drain), with what the target
+  needs to resume it exactly; :class:`HandoffReadyError`: a prefill-only
+  stream's handoff (its coordinator comes with the disaggregated slice).
 
 Deadline semantics (enforced by ``ContinuousBatcher``):
 
@@ -20,8 +27,9 @@ Expiry cancels the request through the ``cancelled`` path, so the
 scheduler reclaims its slot and KV pages on its next tick; the waiting
 thread is released at once with the structured error.
 
-The replica, drain and migration types of the source module come with the
-fleet slice, which is their only user.
+``ResumeState.resume_keys`` carries the source slot's sampler state: in the
+JAX package its PRNG key row, here its ``torch.Generator`` state (the
+batcher's ``resume_gen``), with the repetition window in ``resume_recent``.
 """
 
 from __future__ import annotations
@@ -63,6 +71,79 @@ class QueueFullError(RuntimeError):
             f"server overloaded: {depth} requests already queued "
             f"(--max-queue {max_queue}); retry after {retry_after_s:.0f}s"
         )
+
+
+class ReplicasUnavailableError(RuntimeError):
+    """Every replica is circuit-broken (or excluded by failed retries) —
+    there is nowhere to route the request. Maps to HTTP 503; when the
+    dispatcher knows the earliest half-open retry ETA (the soonest any
+    breaker re-admits a probe), ``retry_after_s`` carries it so the server
+    can emit ``Retry-After`` instead of leaving the client to guess."""
+
+    def __init__(self, message: str = "no replica available",
+                 retry_after_s: Optional[float] = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class ReplicaDrainingError(QueueFullError):
+    """The replica is draining (``ReplicaSet.drain`` / ``migrate_out``) and
+    rejects new work. Subtype of :class:`QueueFullError` so the dispatcher's
+    saturation handling applies unchanged: retry on another replica, no
+    breaker strike, 429 + ``Retry-After`` if nothing else is available."""
+
+    def __init__(self, retry_after_s: float = 1.0):
+        self.depth = 0
+        self.max_queue = 0
+        self.retry_after_s = retry_after_s
+        RuntimeError.__init__(
+            self, "replica is draining and not accepting new requests"
+        )
+
+
+@dataclass
+class ResumeState:
+    """Everything needed to continue a partially-generated request on a
+    different engine, captured when its stream is migrated off a replica.
+
+    ``prompt`` and the sampler fields hold what the producing batcher
+    recorded (the prompt as numpy, the generator state and the window as
+    CPU tensors); ``block`` is an optional host-materialized
+    ``kv_transfer.KVPageBlock`` whose pages the target can import instead of
+    re-prefilling. When ``block`` is ``None`` the target folds ``history``
+    back into the prompt and re-prefills — slower, but token-exact
+    (``resume_keys`` / ``resume_recent`` carry the sampler state and the
+    repetition window across the fold when the source captured them)."""
+
+    prompt: object                 # original prompt token ids (pre-fold)
+    history: list                  # tokens emitted since the last fold
+    produced: int = 0              # tokens already delivered to the client
+    block: object = None           # optional KVPageBlock (host-resident)
+    resume_keys: object = None     # the slot's torch.Generator state
+    resume_recent: object = None   # repetition-penalty recent-token window
+
+
+class RequestMigratedError(RuntimeError):
+    """A replica ended this stream mid-flight so it can resume elsewhere
+    (graceful drain). Carries the :class:`ResumeState`; the dispatcher
+    re-places it and the client never observes the hop."""
+
+    def __init__(self, state: ResumeState, reason: str = "replica draining"):
+        self.state = state
+        super().__init__(f"request migrated: {reason}")
+
+
+class HandoffReadyError(RuntimeError):
+    """A prefill-only stream completed its phase: the first token was
+    delivered and the request's :class:`ResumeState` (KV page block +
+    sampler rows) is ready to move to a decode replica. NOT a failure —
+    the disaggregation coordinator catches it to run the handoff, and the
+    dispatcher treats it as a successful prefill-replica exit (no breaker
+    strike, no in-pool re-placement)."""
+
+    def __init__(self, state: ResumeState):
+        self.state = state
+        super().__init__("prefill complete: ready for decode handoff")
 
 
 @dataclass

@@ -130,8 +130,18 @@ request re-prefills. Prefix store (``prefix_store``, one
 registered prompt prefix copy-on-write (device tier) or import its demoted
 block (host tier) and prefill only the rest; a finished prefill registers
 its prefix under its chained chunk digests, and the entry's last release
-exports it to the host tier. The drain and handoff movers come with slice
-8.
+exports it to the host tier.
+
+Migration (JAX's drain movers): ``migrate_out`` makes the scheduler thread
+quiesce and end every stream with a ``RequestMigratedError`` whose
+``ResumeState`` carries the request's prompt, history, sampler state
+(generator state and window) and its page chain exported into a host
+block (or its spilled block); the replica set re-places it through
+``generate_step(_resume=...)`` on another batcher, which imports the block
+at admission (or, without one, folds the history and re-prefills), so a
+greedy or seeded stream continues exactly. A draining batcher refuses new
+work with ``ReplicaDrainingError``. The disaggregated handoff movers come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -159,8 +169,15 @@ from mlx_sharding_tpu_torch.generate import (
     block_token_logprobs,
 )
 from mlx_sharding_tpu_torch.device import upload
-from mlx_sharding_tpu_torch.graphs import StepGraphs, model_pool
-from mlx_sharding_tpu_torch.resilience import Deadlines, QueueFullError, RequestTimeoutError
+from mlx_sharding_tpu_torch.graphs import StepGraphs, close_worker, open_worker
+from mlx_sharding_tpu_torch.resilience import (
+    Deadlines,
+    QueueFullError,
+    ReplicaDrainingError,
+    RequestMigratedError,
+    RequestTimeoutError,
+    ResumeState,
+)
 from mlx_sharding_tpu_torch.speculative import AcceptanceTracker, NgramDraftProposer
 from mlx_sharding_tpu_torch.sample import (
     BIAS_WIDTH,
@@ -242,9 +259,11 @@ class _Request:
     sdigests: Optional[list] = None
     splan: Optional[tuple] = None
     lease: Optional[object] = None
-    # KV movement: a block of this request waits in the spill tier; the
-    # cold-slot scan's consumed count and the ticks it has not moved
+    # KV movement: a block of this request waits in the spill tier, or
+    # (``block``) a block handed in with a migrated request; the cold-slot
+    # scan's consumed count and the ticks it has not moved
     spilled: bool = False
+    block: Optional[object] = None
     consumed_seen: int = 0
     cold_ticks: int = 0
     # tracing: the bound timeline (None when off or not sampled; a
@@ -300,6 +319,9 @@ class ContinuousBatcher:
     # generate_step takes _trace (a tracing.RequestTrace) and stamps its
     # spans; the server begins a timeline only for such generators
     supports_trace = True
+    # generate_step takes _resume (a ResumeState): the dispatcher re-places
+    # migrated streams only onto batchers that advertise it
+    supports_resume = True
 
     def __init__(self, engine, *, repetition_window: int = 64, decode_block: int = 8,
                  policy: str = "fifo", prefix_cache: bool = False, overcommit: bool = False,
@@ -531,8 +553,14 @@ class ContinuousBatcher:
         self.generators = [torch.Generator(device=dev) for _ in range(self.M)]
         self.last_tok = torch.zeros((self.M, 1), dtype=torch.int64, device=dev)
         self.active = [False] * self.M  # a slot decodes iff its prefill completed
-        self.graphs = (StepGraphs(dev, model_pool(engine.model))
+        # the batcher's graphs in a memory pool of their own: batchers over
+        # one model (replicas) capture on their own threads, and a retired
+        # one gives its pool back (release_memory)
+        self.graphs = (StepGraphs(dev, torch.cuda.graph_pool_handle())
                        if dev.type == "cuda" and cuda_graphs else None)
+        self._worker = self.graphs is not None
+        if self._worker:
+            open_worker()  # a capture's sync check must spare this thread's syncs
         # the draft engine's own caches, offsets (host and device), sampling
         # generators and graphs
         self.draft = draft_engine
@@ -540,7 +568,7 @@ class ContinuousBatcher:
             self.dcache, self.dtable = draft_engine.init_cache(), slot_table(self.M)
             self._ddev_off = torch.zeros(self.M, dtype=torch.int64, device=dev)
             self.dgenerators = [torch.Generator(device=dev) for _ in range(self.M)]
-            self.dgraphs = (StepGraphs(dev, model_pool(draft_engine.model))
+            self.dgraphs = (StepGraphs(dev, torch.cuda.graph_pool_handle())
                             if self.graphs is not None else None)
 
         self._slots: list[Optional[_Request]] = [None] * self.M
@@ -569,9 +597,13 @@ class ContinuousBatcher:
         self.spills = 0  # blocks exported to the tier at preemption or cold spill
         self.spill_hits = 0  # resumes served by a block import
         self.spill_fallbacks = 0  # export, import or budget failures: re-prefills
-        # drained and migrated requests (the drain's movers come with slice 8)
+        # drained and migrated requests: exported by migrate_out, resumed
+        # through generate_step(_resume=...)
         self.migrations_out = 0
         self.migrations_in = 0
+        # the drain flag: migrate_out sets it (under _start_lock) and it
+        # stays set, so the batcher is retired
+        self._migrate_requested = False
         self.spill_cold_after = spill_cold_after
         self.kv_prefetch = kv_prefetch
         self._prefetch_on = kv_prefetch == "on" or (kv_prefetch == "auto"
@@ -608,18 +640,52 @@ class ContinuousBatcher:
         request_timeout: Optional[float] = None,
         ttft_timeout: Optional[float] = None,
         stall_timeout: Optional[float] = None,
+        _resume: Optional[ResumeState] = None,
         _trace=None,
     ):
         """Validate and enqueue at once (every rejection raises on the
         calling thread, before any request state exists; a full queue
-        raises ``QueueFullError``); returns the token stream ``(token,
+        raises ``QueueFullError``, a draining batcher
+        ``ReplicaDrainingError``); returns the token stream ``(token,
         TokenLogprobs or None)``, whose waits the deadlines bound.
-        ``_trace``: the server's timeline for the request; without one the
-        request begins its own on the process tracer (None when off)."""
+        ``_resume``: a stream migrated off another batcher continues here
+        (JAX's re-placement): its block is imported at admission, or
+        without one its history folds into the prompt and re-prefills, its
+        sampler state restored either way. ``_trace``: the server's
+        timeline for the request; without one the request begins its own
+        on the process tracer (None when off)."""
+        with self._start_lock:
+            draining = self._migrate_requested
+        if draining:
+            # retired: the dispatcher re-places on another replica
+            raise ReplicaDrainingError()
         prompt = np.asarray(prompt_tokens, np.int64).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
-        total = prompt.size + max_tokens
+        produced0, hist, block = 0, [], None
+        resume_gen = resume_recent = None
+        if _resume is not None:
+            produced0 = int(_resume.produced)
+            if produced0 >= max_tokens:
+                raise ValueError(f"resumed request already produced {produced0} of "
+                                 f"{max_tokens} tokens")
+            hist = [int(t) for t in (_resume.history or [])]
+            if len(hist) > produced0:
+                # history is the tokens emitted since the last fold: a suffix
+                # of what the client saw, never longer than it
+                raise ValueError(f"resume state inconsistent: produced={produced0} but "
+                                 f"history carries {len(hist)} tokens")
+            block = _resume.block
+            if block is not None and (not self.paged or self.draft is not None):
+                block = None  # no pool to import into: fold instead
+            # the sampler state travels even beside a block: a failed import
+            # folds and re-prefills, and must continue the exported draws
+            resume_gen, resume_recent = _resume.resume_keys, _resume.resume_recent
+            if block is None and hist:
+                prompt = np.concatenate([prompt, np.asarray(hist, np.int64)])
+                hist = []
+        budget = max_tokens - produced0
+        total = (block.n_tokens if block is not None else prompt.size) + budget
         if total > self.engine.max_seq:
             raise ValueError(f"prompt ({prompt.size}) + max_tokens ({max_tokens}) exceeds KV "
                              f"capacity {self.engine.max_seq}")
@@ -653,6 +719,14 @@ class ContinuousBatcher:
             want_logprobs=want_logprobs,
             deadlines=deadlines,
         )
+        if _resume is not None:
+            req.produced, req.history, req.block = produced0, hist, block
+            if resume_gen is not None:
+                req.resume_gen = torch.as_tensor(resume_gen)
+            if resume_recent is not None:
+                req.resume_recent = torch.as_tensor(resume_recent)
+            with self._admission_lock:
+                self.migrations_in += 1
         tr = _trace
         if tr is None:
             tr = tracing.begin()
@@ -660,7 +734,8 @@ class ContinuousBatcher:
         req.trace = tr
         req.t_submit = time.perf_counter()
         if tr is not None:
-            tr.note(prompt_tokens=int(prompt.size), max_tokens=int(max_tokens))
+            tr.note(prompt_tokens=int(prompt.size), max_tokens=int(max_tokens),
+                    resumed=_resume is not None)
             tr.point("submit")
         self._ensure_running()
         if self.max_queue is None:
@@ -880,7 +955,7 @@ class ContinuousBatcher:
         (a wedged thread); ``serving`` decides 200 against 503."""
         with self._start_lock:
             live = self._live_locked()
-            draining = self._stop
+            draining = self._stop or self._migrate_requested
         if not live:
             # a wedged thread beats draining: the operator must see the leak
             return {"status": "degraded", "serving": False, "scheduler_thread_live": False}
@@ -962,6 +1037,37 @@ class ContinuousBatcher:
             # the pool behind this engine's device entries goes with it; the
             # host tier's blocks stay (they hold their own bytes)
             self.prefix_store.drop_owner(self)
+        if self._worker:
+            self._worker = False
+            close_worker()
+        # what the engines hold beyond their tensors: a shared-weight lease
+        # drops its ref here (drain, retirement and hot-swap all end here)
+        self.engine.close()
+        if self.draft is not None:
+            self.draft.close()
+
+    @property
+    def weights_shared(self) -> bool:
+        """Whether the engine aliases a shared resident model (the
+        ``mst_replica_weights_shared`` gauge reads it through the replica
+        set)."""
+        return bool(getattr(self.engine, "weights_shared", False))
+
+    def release_memory(self) -> None:
+        """Drop a closed batcher's card memory: its KV pool, its step graphs
+        and their memory pool (the draft engine's too). A retired replica
+        stays in its replica set's list, so without this each drain would
+        leak what it held; the caller then empties the allocator's cache.
+        Refuses while the scheduler thread lives (a wedged tick may still
+        touch the pool)."""
+        with self._start_lock:
+            t = self._thread
+        if t is not None and t.is_alive():
+            raise RuntimeError("release_memory needs a closed batcher whose thread has exited")
+        self.graphs = self.dgraphs = None
+        self.cache = None
+        if self.draft is not None:
+            self.dcache = None
 
     # ------------------------------------------------------------ internals
     def _ensure_running(self):
@@ -983,6 +1089,8 @@ class ContinuousBatcher:
         from a block (``block``, or its entry in the spill tier) sizes from
         the block's KV rows: at least its pages, plus the same headroom."""
         remaining = max(1, req.max_tokens - req.produced)
+        if block is None:
+            block = req.block
         if block is None and req.spilled and self.spill is not None:
             block = self.spill.peek(req)
         if block is not None:
@@ -1009,10 +1117,11 @@ class ContinuousBatcher:
                 self.spill_fallbacks += 1
             logger.warning("spilled KV block evicted before its resume; re-prefilling")
         need = self._need_pages(req)
-        if req.spilled:
-            # the resume path: refresh the block so budget pressure evicts a
-            # colder one; its import takes fresh pages, no chain
-            self.spill.touch(req)
+        if req.block is not None or req.spilled:
+            # the resume path: refresh a spilled block so budget pressure
+            # evicts a colder one; an import takes fresh pages, no chain
+            if req.spilled:
+                self.spill.touch(req)
             req.chain = None
             return need <= len(self._free_pages) + self._evictable_pages()
         if self.prefix_store is not None:
@@ -1293,7 +1402,7 @@ class ContinuousBatcher:
         for req in self._waiting[:4]:
             if budget == 0:
                 break
-            if req.cancelled or req.spilled:
+            if req.cancelled or req.spilled or req.block is not None:
                 continue
             plan = self._store_lookup(req)
             if plan is None or plan[0] != "host":
@@ -1391,9 +1500,13 @@ class ContinuousBatcher:
         self.rep_mask[slot] = window_mask(self.W, [req.rep_context], self.rep_mask.device)[0]
 
     def _take_block(self, req: _Request):
-        """The request's block in the spill tier, if it was spilled; one the
+        """The request's pending block: one handed in with a migrated
+        request, or its block in the spill tier if it was spilled; one the
         tier evicted since the spill degrades to the discard path here
         (fold and re-prefill, still exact from the stashed sampler state)."""
+        if req.block is not None:
+            block, req.block = req.block, None
+            return block
         if not req.spilled:
             return None
         req.spilled = False
@@ -1666,6 +1779,7 @@ class ContinuousBatcher:
         resume re-prefills them (the slot's KV is gone). Any block the
         request had is given up."""
         req.spilled = False
+        req.block = None
         if req.history:
             with self._admission_lock:
                 self.reprefill_tokens += req.prompt.size + len(req.history)
@@ -1868,6 +1982,160 @@ class ContinuousBatcher:
         req.spilled = False
         if self.spill is not None:
             self.spill.drop(req)
+
+    # ------------------------------------------------------------ migration
+    def stage_resume(self, state) -> bool:
+        """Stage an incoming resume block on the card before its request is
+        submitted (``generate_step(..., _resume=state)``): the copy runs on a
+        side stream while the tick's work goes on, and the admission's
+        import waits on its event. True when a stage was enqueued; a failure
+        is counted and leaves the demand import."""
+        block = getattr(state, "block", None)
+        if block is None or not getattr(block, "is_host", False) or block.is_prefetched:
+            return False
+        try:
+            block.prefetch(device=self.engine.device, codec=self._kv_codec)
+            with self._admission_lock:
+                self.prefetches += 1
+            return True
+        except Exception as e:  # noqa: BLE001 — the demand import still serves it
+            with self._admission_lock:
+                self.prefetch_faults += 1
+            logger.warning("resume block prefetch failed (demand import): %s", e)
+            return False
+
+    def migrate_out(self, deadline: float = 30.0) -> int:
+        """Evacuate every request (a replica drain): the scheduler thread
+        quiesces at its next tick and ends each stream with a
+        ``RequestMigratedError`` carrying a :class:`ResumeState`, with the
+        request's pages exported into a host block when the export works,
+        or its prompt and history for an exact re-prefill elsewhere. New
+        submissions raise ``ReplicaDrainingError`` from now on; the flag is
+        permanent (retirement), so the caller closes the batcher after.
+        Returns the requests migrated before ``deadline`` (seconds on the
+        batcher's clock)."""
+        with self._admission_lock:
+            base = self.migrations_out
+        with self._start_lock:
+            self._migrate_requested = True
+            t = self._thread
+        if t is None or not t.is_alive():
+            # never started or already stopped: nothing admitted to migrate
+            return 0
+        self._submit.put(None)  # wake the idle wait
+        t0 = self._clock()
+        while self._clock() - t0 < deadline:
+            if not t.is_alive():
+                break
+            with self._admission_lock:
+                queued = self._submit.qsize() + len(self._waiting)
+            if queued == 0 and not any(r is not None for r in self._slots):
+                break
+            time.sleep(0.01)
+        with self._admission_lock:
+            return self.migrations_out - base
+
+    def _migrate_all_out(self):
+        """The scheduler thread's half of :meth:`migrate_out`, quiesced (no
+        block in flight), so each slot's generator state and window hold
+        exactly its emitted tokens: every admitted request's state is
+        exported and its slot freed, then every waiting or parked one's
+        (its spilled block, if any, travels). A teardown, not a tick: the
+        copies to the host here are synchronous."""
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            if req.cancelled:
+                self._vacate(req)
+                self._drop_spill(req)
+                req.out.put(None)
+                continue
+            tr = req.trace
+            t0 = time.perf_counter()
+            with tracing.bind(tr):
+                state = self._export_resume_state(req, slot)
+            if tr is not None:
+                tr.add("migration", t0, time.perf_counter(), slot=slot,
+                       block=state.block is not None)
+            self._vacate(req)
+            req.out.put(RequestMigratedError(state))
+            with self._admission_lock:
+                self.migrations_out += 1
+        self._drain_submissions()
+        for req in self._waiting + self._parked:
+            if req.cancelled:
+                self._drop_spill(req)
+                req.out.put(None)
+                continue
+            tr = req.trace
+            t0 = time.perf_counter()
+            with tracing.bind(tr):
+                state = self._export_resume_state(req, -1)
+            if tr is not None:
+                tr.add("migration", t0, time.perf_counter(), queued=True)
+            req.out.put(RequestMigratedError(state))
+            with self._admission_lock:
+                self.migrations_out += 1
+        self._waiting.clear()
+        self._parked.clear()
+
+    def _export_resume_state(self, req: _Request, slot: int) -> ResumeState:
+        """A request's portable :class:`ResumeState`. A decoding request in
+        ``slot`` gets its generator state and window captured and its page
+        chain exported; a waiting one that was spilled hands over its tier
+        block. The block is moved to the host (any stage on this card
+        dropped first), since it must outlive the engine. Any failure
+        (a ``cache.export`` fault, the pages short, the copy) is counted
+        and degrades to a blockless state: the target folds the history
+        and re-prefills, exact all the same, since the sampler state
+        travels."""
+        if slot >= 0 and self._prefill_done(req):
+            req.resume_gen = self.generators[slot].get_state()
+            req.resume_recent = self.recent[slot].cpu()
+        block, req.block = req.block, None  # one a previous migration brought
+        if block is None and req.spilled:
+            req.spilled = False
+            block = self.spill.take(req) if self.spill is not None else None
+        if (block is None and slot >= 0 and self.paged and self.draft is None
+                and self._prefill_done(req) and req.history):
+            page = self.engine.page_size
+            # the last emitted token's K/V is not written yet: it is the
+            # next step's input
+            n_tokens = req.prompt.size + max(0, len(req.history) - 1)
+            n_pages = -(-max(1, n_tokens) // page)
+            pages = self._pages_of.get(slot, [])[:n_pages]
+            try:
+                if len(pages) != n_pages:
+                    raise RuntimeError(f"slot holds {len(pages)} of its {n_pages} pages")
+                block = export_block(
+                    self.cache, pages, page_size=page, n_tokens=n_tokens, prompt=req.prompt,
+                    history=req.history, produced=req.produced, resume_gen=req.resume_gen,
+                    resume_recent=req.resume_recent, share_hash=self._share_hash,
+                    codec=self._kv_codec)
+            except Exception as e:  # noqa: BLE001 — the blockless state still resumes
+                block = None
+                with self._admission_lock:
+                    self.spill_fallbacks += 1
+                logger.warning("drain export failed for slot %d (re-prefill there): %s",
+                               slot, e)
+        if block is not None:
+            try:
+                block.drop_prefetch()  # a stage holds this card's memory
+                block.to_host()
+            except Exception as e:  # noqa: BLE001 — the blockless state still resumes
+                block = None
+                with self._admission_lock:
+                    self.spill_fallbacks += 1
+                logger.warning("drain host copy failed for slot %d (re-prefill there): %s",
+                               slot, e)
+        return ResumeState(
+            prompt=np.asarray(req.prompt, np.int64),
+            history=[int(t) for t in req.history],
+            produced=req.produced,
+            block=block,
+            resume_keys=req.resume_gen,
+            resume_recent=req.resume_recent,
+        )
 
     def _growth_want(self, req: _Request) -> int:
         """Pages ``req`` needs mapped before the next block: its next write
@@ -2409,6 +2677,10 @@ class ContinuousBatcher:
         """Sync tick: reap, the residency passes, admit, prefill, then one
         speculative round (:meth:`_spec_tick`) or one decode block over
         every decoding slot, dispatched and harvested."""
+        if self._migrate_requested:
+            self._migrate_all_out()
+            self._drain_submissions(block=True)
+            return
         self._reap_cancelled()
         self._drain_submissions()
         self._residency()
@@ -2424,7 +2696,15 @@ class ContinuousBatcher:
         before harvesting block t, so the harvest waits only on work that
         ran while the host did the rest of its tick. Admission prefill (it
         samples on the host and rewrites slot state), growth that could
-        preempt (it reads sampler state) and idling quiesce first."""
+        preempt (it reads sampler state), idling and a drain quiesce
+        first."""
+        if self._migrate_requested:
+            # a drain: the block in flight lands, then every stream ends with
+            # its ResumeState; the idle wait keeps the loop from spinning
+            self._quiesce()
+            self._migrate_all_out()
+            self._drain_submissions(block=True)
+            return
         self._reap_cancelled()
         self._drain_submissions()
         self._residency()

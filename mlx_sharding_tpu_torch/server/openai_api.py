@@ -29,7 +29,14 @@ gets the total deadline as a check between tokens. ``--draft ngram``
 speculates by prompt lookup and ``--draft-model`` with a draft model, on
 the single stream or in the batcher's slots with ``--concurrent``.
 ``--profile-dir`` records a ``torch.profiler`` trace of each request.
-Fleet and replica serving come with a later slice.
+``--kv-share-map`` serves a paged pool under a layer-wise KV share map.
+``--replicas N`` serves N engines behind one
+:class:`~mlx_sharding_tpu_torch.replicas.ReplicaSet` (least-loaded routing,
+session stickiness, prefix affinity, circuit breakers); on one card they
+alias one resident copy of the weights (``--shared-weights``, the
+``weights.WeightStore``), and ``POST /admin/drain`` retires one, its streams
+migrating to the others. The autoscaler, brownout and disaggregated serving
+come with a later slice.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
         [--prompt-cache] [--decode-block 16] [--api-key KEY] [--chat-template @FILE]
@@ -37,6 +44,7 @@ Fleet and replica serving come with a later slice.
          [--prompt-cache]] [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
         [--trace off|sample|on [--trace-buffer N] [--trace-sample N] [--trace-profile]]
+        [--kv-share-map MAP.json] [--replicas N [--shared-weights on|off|auto]]
         [--profile-dir DIR] [--log-level INFO]
 """
 
@@ -55,7 +63,11 @@ from pathlib import Path
 from typing import Optional
 
 from mlx_sharding_tpu_torch import tracing
-from mlx_sharding_tpu_torch.resilience import QueueFullError, RequestTimeoutError
+from mlx_sharding_tpu_torch.resilience import (
+    QueueFullError,
+    ReplicasUnavailableError,
+    RequestTimeoutError,
+)
 from mlx_sharding_tpu_torch.tokenizer_utils import (
     StreamingDetokenizer,
     sequence_overlap,
@@ -104,6 +116,25 @@ def convert_chat(messages: list, role_mapping: Optional[dict] = None) -> str:
     return prompt.rstrip()
 
 
+def shared_weights_on(mode: str, want: int, per: int = 1, n_devices: int = 1) -> bool:
+    """Resolve ``--shared-weights`` (JAX ``_shared_weights_on``): ``on``
+    forces, ``off`` refuses; ``auto`` shares whenever there are replicas to
+    share between, and is forced on when ``want`` private slices of ``per``
+    devices do not fit the grid. The port's engines run on one device, so
+    the grid is one device and ``auto`` always shares."""
+    mode = (mode or "auto").lower()
+    if mode == "off":
+        return False
+    if mode == "on":
+        return True
+    if want <= 1:
+        return False
+    if want * per > n_devices:
+        logger.info("shared-weights auto: forced ON — %d private slices of %d devices exceed "
+                    "the %d-device grid", want, per, n_devices)
+    return True
+
+
 def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chunk: int = 256,
                     keep_quantized: bool = False, decode_block: int = 16,
                     concurrent: int = 1, paged_pool: Optional[int] = None,
@@ -117,7 +148,9 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     kv_prefetch: str = "auto", prefix_store: bool = False,
                     prefix_store_bytes: Optional[int] = None, prefix_insert_min_hits: int = 1,
                     kv_compress_map: Optional[str] = None,
-                    kv_compress_rank: Optional[int] = None):
+                    kv_compress_rank: Optional[int] = None,
+                    kv_share_map: Optional[str] = None, replicas: int = 1,
+                    shared_weights: str = "auto", model=None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -132,66 +165,190 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     batcher's, with the same slots, capacity and chunk). KV movement:
     ``spill_bytes``, ``spill_cold_after`` and ``kv_prefetch`` (the spill
     tier), ``prefix_store`` (one ``PrefixStore`` for this load, of
-    ``prefix_store_bytes`` host bytes, the batcher's ``prefix_store``) and
-    ``kv_compress_map`` (a calibrated low-rank map's path, truncated to
-    ``kv_compress_rank``). On a card its step graphs are captured here,
-    before the first request."""
-    from mlx_sharding_tpu_torch.generate import Generator
+    ``prefix_store_bytes`` host bytes, shared by every replica's batcher)
+    and ``kv_compress_map`` (a calibrated low-rank map's path, truncated to
+    ``kv_compress_rank``); ``kv_share_map`` (a share-map artifact's path)
+    lays a paged pool out by share group. ``replicas > 1``: a
+    ``ReplicaSet`` of that many such generators; with ``shared_weights``
+    resolved on (``auto`` on one device) they alias one resident model
+    through the process's ``WeightStore``, each with its own pool, graphs
+    and graph memory pool, and a drained replica's card memory is given back
+    at its retirement. ``model``: an already loaded model to serve, which
+    ``path`` then only names. On a card each generator's step graphs are
+    captured here, before the first request."""
+    from mlx_sharding_tpu_torch.kv_compress import load_compress_map
+    from mlx_sharding_tpu_torch.kv_share import load_share_map
     from mlx_sharding_tpu_torch.loading import load_model
 
-    model, _ = load_model(path, device=device, keep_quantized=keep_quantized)
-    if concurrent <= 1 and draft == "ngram":
-        from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+    def load():
+        if model is not None:
+            return model
+        return load_model(path, device=device, keep_quantized=keep_quantized)[0]
 
-        generator = NgramSpeculativeGenerator(model, spec_window_max=spec_window_max or 8,
-                                              max_seq=max_seq, prefill_chunk=prefill_chunk,
-                                              decode_block=decode_block)
-    elif concurrent <= 1 and draft_model:
-        from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+    store = None
+    if prefix_store and paged_pool and concurrent > 1:
+        from mlx_sharding_tpu_torch.prefix_store import PrefixStore
 
-        dmodel, _ = load_model(draft_model, device=device)
-        generator = SpeculativeGenerator(model, dmodel, spec_k=spec_k, max_seq=max_seq,
-                                         prefill_chunk=prefill_chunk, decode_block=decode_block)
-    elif concurrent <= 1:
-        generator = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
-                              decode_block=decode_block, prompt_cache=prompt_cache)
-    else:
-        from mlx_sharding_tpu_torch.kv_compress import load_compress_map
+        # one store for the load (every replica's batcher binds to it): a
+        # swap closes it with its generator
+        store = PrefixStore(host_bytes=prefix_store_bytes or (256 << 20),
+                            insert_min_hits=prefix_insert_min_hits)
+    pooled = bool(paged_pool) and concurrent > 1
+    share_map = load_share_map(kv_share_map) if pooled else None
+    compress_map = load_compress_map(kv_compress_map, kv_compress_rank) if pooled else None
+
+    def make(model, weights=None, draft_engine=None, graph_pool=None):
+        from mlx_sharding_tpu_torch.generate import Generator
+
+        if concurrent <= 1 and draft == "ngram":
+            from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+            return NgramSpeculativeGenerator(model, spec_window_max=spec_window_max or 8,
+                                             max_seq=max_seq, prefill_chunk=prefill_chunk,
+                                             decode_block=decode_block)
+        if concurrent <= 1 and draft_model:
+            from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+
+            dmodel, _ = load_model(draft_model, device=device)
+            return SpeculativeGenerator(model, dmodel, spec_k=spec_k, max_seq=max_seq,
+                                        prefill_chunk=prefill_chunk, decode_block=decode_block)
+        if concurrent <= 1:
+            return Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
+                             decode_block=decode_block, prompt_cache=prompt_cache,
+                             graph_pool=graph_pool, weights=weights)
         from mlx_sharding_tpu_torch.parallel import PipelineEngine
         from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
         engine = PipelineEngine(
             model, microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
             pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
-            kv_dtype=kv_dtype, kv_compress_map=load_compress_map(kv_compress_map,
-                                                                 kv_compress_rank),
-            device=device,
+            kv_dtype=kv_dtype, kv_share_map=share_map, kv_compress_map=compress_map,
+            weights=weights, device=device,
         )
-        store = None
-        if prefix_store and paged_pool:
-            from mlx_sharding_tpu_torch.prefix_store import PrefixStore
+        return ContinuousBatcher(engine, decode_block=min(8, decode_block),
+                                 policy=admission_policy, overcommit=overcommit,
+                                 async_sched=async_sched, prefix_cache=prompt_cache,
+                                 max_queue=max_queue, draft_engine=draft_engine,
+                                 spec_k=spec_k, draft=draft,
+                                 spec_window_max=spec_window_max, spill_bytes=spill_bytes,
+                                 spill_cold_after=spill_cold_after,
+                                 kv_prefetch=kv_prefetch, prefix_store=store)
 
-            # one store per load: a swap closes it with its batcher
-            store = PrefixStore(host_bytes=prefix_store_bytes or (256 << 20),
-                                insert_min_hits=prefix_insert_min_hits)
+    def dense_draft_engine(dmodel, weights=None):
+        from mlx_sharding_tpu_torch.parallel import PipelineEngine
+
+        return PipelineEngine(dmodel, microbatches=concurrent, max_seq=max_seq,
+                              prefill_chunk=prefill_chunk, weights=weights, device=device)
+
+    if replicas <= 1:
         draft_engine = None
-        if draft_model:
-            dmodel, _ = load_model(draft_model, device=device)
-            draft_engine = PipelineEngine(dmodel, microbatches=concurrent, max_seq=max_seq,
-                                          prefill_chunk=prefill_chunk, device=device)
-        generator = ContinuousBatcher(engine, decode_block=min(8, decode_block),
-                                      policy=admission_policy, overcommit=overcommit,
-                                      async_sched=async_sched, prefix_cache=prompt_cache,
-                                      max_queue=max_queue, draft_engine=draft_engine,
-                                      spec_k=spec_k, draft=draft,
-                                      spec_window_max=spec_window_max, spill_bytes=spill_bytes,
-                                      spill_cold_after=spill_cold_after,
-                                      kv_prefetch=kv_prefetch, prefix_store=store)
+        if draft_model and concurrent > 1:
+            draft_engine = dense_draft_engine(load_model(draft_model, device=device)[0])
+        generator = make(load(), draft_engine=draft_engine)
+        _warm_up(generator)
+        return generator
+    from mlx_sharding_tpu_torch.loading import checkpoint_signature
+
+    signature = (checkpoint_signature(path, keep_quantized=keep_quantized) if model is None
+                 else f"{path}::loaded")
+    return _replica_set(signature, device=device, keep_quantized=keep_quantized, load=load,
+                        make=make, dense_draft_engine=dense_draft_engine,
+                        draft_model=draft_model if concurrent > 1 else None,
+                        replicas=replicas, shared_weights=shared_weights, prefix_store=store)
+
+
+def _warm_up(generator) -> None:
     captured = generator.warm_up()  # on a card: the step graphs, before any request
     if captured:
         logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
                     captured["graphs"], captured["seconds"], captured["pool_bytes"] / 1e6)
-    return generator
+
+
+def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_engine,
+                 draft_model, replicas, shared_weights, prefix_store):
+    """``replicas`` generators behind one ``ReplicaSet`` (JAX's ``--replicas``
+    spawn): with shared weights each aliases the store's resident model (a
+    lease released when its engine closes, so the last retirement frees the
+    tree); otherwise the grid must hold a private copy per replica, which
+    one device does not."""
+    import torch
+
+    from mlx_sharding_tpu_torch.device import resolve_device
+    from mlx_sharding_tpu_torch.loading import checkpoint_signature, load_model
+    from mlx_sharding_tpu_torch.replicas import ReplicaSet
+    from mlx_sharding_tpu_torch.weights import (
+        ResidentWeights,
+        WeightKey,
+        aliased_spawn,
+        model_weight_bytes,
+        weight_store,
+    )
+
+    per, n_devices = 1, 1  # the port's engines run on one device
+    shared = shared_weights_on(shared_weights, replicas, per, n_devices)
+    if not shared and replicas * per > n_devices:
+        raise ValueError(f"{replicas} replicas x {per} devices each needs {replicas * per} "
+                         f"devices, have {n_devices}")
+    dev = resolve_device(device)
+    store = weight_store()
+
+    def resident(build_model):
+        def build():
+            model = build_model()
+            return ResidentWeights(model=model, device=dev, weight_bytes=model_weight_bytes(model))
+        return build
+
+    def key_of(checkpoint, quant):
+        return WeightKey(checkpoint=checkpoint, stage_bounds=("auto", 1),
+                         dtype="bfloat16",  # load_model's
+                         quant=quant, placement=str(dev))
+
+    key = key_of(signature, "tp1:ep1")
+    draft_key = (key_of(checkpoint_signature(draft_model, keep_quantized=keep_quantized), "draft")
+                 if draft_model else None)
+
+    def spawn():
+        def make_one(lease):
+            draft_engine = None
+            if draft_key is not None:
+                def make_draft(dlease):
+                    deng = dense_draft_engine(dlease.weights.model, weights=dlease.weights)
+                    deng.on_close(dlease.release)
+                    return deng
+
+                draft_engine = aliased_spawn(
+                    store, draft_key,
+                    resident(lambda: load_model(draft_model, device=device)[0]), make_draft)
+            pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+            try:
+                gen = make(lease.weights.model, weights=lease.weights,
+                           draft_engine=draft_engine, graph_pool=pool)
+            except BaseException:
+                if draft_engine is not None:
+                    draft_engine.close()
+                raise
+            owner = getattr(gen, "engine", gen)
+            owner.on_close(lease.release)
+            _warm_up(gen)
+            return gen
+
+        return aliased_spawn(store, key, resident(load), make_one)
+
+    reps = ReplicaSet([spawn() for _ in range(replicas)], prefix_store=prefix_store)
+
+    def release_retired(rep):
+        # a drained replica stays in the set's list: give its pool, graphs
+        # and graph memory pool back to the card
+        release = getattr(rep, "release_memory", None)
+        if release is not None:
+            release()
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+    reps.on_retire = release_retired
+    reps.shared_weights_active = shared
+    return reps
 
 
 class ModelProvider:
@@ -228,6 +385,15 @@ class ModelProvider:
         self.generator = None
         self.tokenizer = None
         self.load_seconds = 0.0  # the last load's: checkpoint, generator, graphs, tokenizer
+        # the share-map artifact every engine binds (the ``mst_kv_share_*``
+        # families and the ``kv_share`` block of /health render only with it)
+        share_path = (load_args or {}).get("kv_share_map")
+        if share_path and (load_args or {}).get("paged_pool"):
+            from mlx_sharding_tpu_torch.kv_share import load_share_map
+
+            self.kv_share_map = load_share_map(share_path)
+        else:
+            self.kv_share_map = None
         if generator is not None:
             self._set(model_name, generator, tokenizer)
 
@@ -308,6 +474,28 @@ class ModelProvider:
 
 
     @property
+    def shared_weights_active(self) -> bool:
+        """Whether the live generator's replicas alias one resident model."""
+        return bool(getattr(self.generator, "shared_weights_active", False))
+
+    def kv_share_stats(self) -> Optional[dict]:
+        """The layer-wise KV sharing summary (JAX's): the configured map's
+        geometry and the live engine's measured pool-bytes saving; None
+        without a share map."""
+        m = self.kv_share_map
+        if m is None:
+            return None
+        out = {"enabled": not m.is_identity, "groups": m.num_groups, "layers": m.num_layers,
+               "share_hash": m.share_hash, "bytes_saved": 0}
+        try:
+            fn = getattr(getattr(self.generator, "engine", None), "kv_share_stats", None)
+            if fn is not None:
+                out["bytes_saved"] = int(fn().get("bytes_saved", 0))
+        except Exception:  # noqa: BLE001 — the geometry still renders
+            pass
+        return out
+
+    @property
     def prefix_store_obj(self):
         """The live batcher's prefix store (JAX's attribute), or None."""
         return getattr(self.generator, "prefix_store", None)
@@ -335,6 +523,8 @@ class APIHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     # request bodies above this are rejected before being read
     MAX_BODY = 8 << 20
+    # operator routes: key-gated, no sampler parameters, no model swap
+    ADMIN_ROUTES = ("/admin/drain",)
 
     # ------------------------------------------------------------- helpers
     def log_message(self, fmt, *args):
@@ -397,10 +587,25 @@ class APIHandler(BaseHTTPRequestHandler):
             if hasattr(gen, "health"):
                 payload = dict(gen.health())
                 serving = bool(payload.pop("serving", True))
-            # the prefix store's residency, hits and insertion counters, and
-            # the KV codec's: the blocks operators size the host tiers by
+            # resident weight trees (weights.WeightStore): trees, the engine
+            # refs aliasing them and their bytes — the N×W → ~W number
+            try:
+                from mlx_sharding_tpu_torch.weights import weight_store
+
+                st = weight_store().stats()
+                payload["weight_store"] = {
+                    "shared_weights": self.provider.shared_weights_active,
+                    "trees": st["trees"], "refs": st["refs"], "bytes": st["bytes"]}
+            except Exception:  # noqa: BLE001 — health renders without the block
+                pass
+            # the prefix store's residency, hits and insertion counters, the
+            # KV share map's, and the KV codec's: the blocks operators size
+            # the pool and the host tiers by
             store = self.provider.prefix_store_obj
+            share = (self.provider.kv_share_stats
+                     if getattr(self.provider, "kv_share_map", None) is not None else None)
             for key, read in (("prefix_store", store.stats if store is not None else None),
+                              ("kv_share", share),
                               ("kv_compress", self.provider.kv_compress_stats)):
                 try:
                     block = read() if read is not None else None
@@ -452,7 +657,7 @@ class APIHandler(BaseHTTPRequestHandler):
             raw = self.rfile.read(length)
         except OSError:
             return self._error(400, "unreadable request body")
-        if route not in handlers:
+        if route not in handlers and route not in self.ADMIN_ROUTES:
             return self._error(404, f"unknown route {route}")
         if self.api_key:
             # the web UI sends Authorization: Bearer <key>; only the POST
@@ -468,6 +673,8 @@ class APIHandler(BaseHTTPRequestHandler):
             body = json.loads(raw or b"{}")
         except json.JSONDecodeError:
             return self._error(400, "invalid JSON body")
+        if route == "/admin/drain":
+            return self._handle_drain(body)
         try:
             params = self._validate_params(body)
         except ValueError as e:
@@ -485,11 +692,46 @@ class APIHandler(BaseHTTPRequestHandler):
                         extra_headers={"Retry-After": str(max(1, round(e.retry_after_s)))})
         except RequestTimeoutError as e:
             self._error(504, str(e))
+        except ReplicasUnavailableError as e:
+            # every replica circuit-broken: the earliest half-open probe's
+            # ETA says when a retry could be admitted
+            ra = getattr(e, "retry_after_s", None)
+            hdrs = ({"Retry-After": str(max(1, round(ra)))}
+                    if isinstance(ra, (int, float)) and not isinstance(ra, bool) else None)
+            self._error(503, str(e), extra_headers=hdrs)
         except ValueError as e:  # bad request discovered late (e.g. KV capacity)
             self._error(400, str(e))
         except Exception as e:  # a structured error, not a dropped connection
             logger.exception("request failed")
             self._error(500, f"{type(e).__name__}: {e}")
+
+    def _handle_drain(self, body: dict):
+        """POST /admin/drain ``{"replica": i, "deadline": s}`` (JAX's):
+        retire one replica gracefully. Its requests migrate to the others
+        (their streams go on) and /health reports ``draining`` meanwhile.
+        400 without a replica set; a failure mid-migration leaves the
+        replica quarantined (500, retryable) with nothing dropped."""
+        drain = getattr(self.provider.generator, "drain", None)
+        if drain is None:
+            return self._error(400, "drain requires --replicas serving (a ReplicaSet generator)")
+        if "replica" not in body:
+            return self._error(400, "missing 'replica' index")
+        try:
+            replica = int(body["replica"])
+            deadline = float(body.get("deadline", 30.0))
+            if deadline <= 0:
+                raise ValueError
+        except (TypeError, ValueError):
+            return self._error(400, "'replica' must be an integer and 'deadline' a positive "
+                                    "number of seconds")
+        try:
+            result = drain(replica, deadline=deadline)
+        except ValueError as e:
+            return self._error(400, str(e))
+        except Exception as e:  # noqa: BLE001 — quarantined, retryable
+            logger.exception("replica drain failed")
+            return self._error(500, f"{type(e).__name__}: {e}")
+        return self._json(200, result)
 
     # ---------------------------------------------------------- validation
     def _validate_params(self, body: dict) -> dict:
@@ -602,6 +844,11 @@ class APIHandler(BaseHTTPRequestHandler):
         if not params["stream"] and params["logprobs"] > 0:
             # streaming discards logprobs, so only this path computes them
             gen_kwargs["want_logprobs"] = True
+        # session stickiness: a session_id (or OpenAI's ``user``) keeps a
+        # conversation on the replica that holds its prefix
+        sess = body.get("session_id") or body.get("user")
+        if isinstance(sess, str) and sess and getattr(generator, "supports_sessions", False):
+            gen_kwargs["_session"] = sess
         # the body's deadlines beat the server's; a generator that supports
         # deadlines enforces them itself, anything else gets the total
         # bound as a check between tokens
@@ -850,6 +1097,8 @@ def make_server(provider: ModelProvider, host: str = "127.0.0.1", port: int = 80
         spec_fn=lambda: gen() if hasattr(gen(), "accepted_tokens") else None,
         prefix_store_fn=lambda: provider.prefix_store_obj,
         kv_compress_fn=provider.kv_compress_stats,
+        kv_share_fn=lambda: (provider.kv_share_stats()
+                             if getattr(provider, "kv_share_map", None) is not None else None),
     )
     handler = type("BoundAPIHandler", (APIHandler,), {
         "provider": provider, "gen_lock": provider.gen_lock, "metrics": metrics,
@@ -907,6 +1156,17 @@ def main(argv=None):
                         "newest-admitted request on pool exhaustion (token-exact "
                         "resume) — higher slot occupancy than reserving every "
                         "request's full prompt+max_tokens need")
+    parser.add_argument("--kv-share-map", default=None, metavar="PATH",
+                        help="with --paged-pool: layer-wise KV sharing "
+                             "(KVSharer) — path to a calibrated share-map "
+                             "artifact from cli/kv_share_calibrate.py. "
+                             "Pools allocate one physical (k,v) buffer per "
+                             "share GROUP (~25-50%% fewer KV bytes at the "
+                             "calibrated sharing ratio); exported blocks "
+                             "carry the map's hash so mismatched layouts "
+                             "fail closed at import. Composes with "
+                             "--kv-dtype int8, --spill-bytes and "
+                             "--prefix-store")
     parser.add_argument("--kv-compress-map", default=None, metavar="PATH",
                         help="with --paged-pool: compressed-latent KV transport "
                              "(kv_compress.py) — path to a calibrated low-rank artifact. "
@@ -1044,6 +1304,25 @@ def main(argv=None):
                              "on for --draft ngram (default cap 8); opt-in "
                              "for --draft engine (without it the engine "
                              "path keeps fixed --spec-k rounds)")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="data-parallel serving: N independent engine "
+                             "replicas, each on its own devices (stages x tp "
+                             "x ep each), least-loaded request routing — "
+                             "aggregate throughput scales with N")
+    parser.add_argument("--shared-weights", choices=("on", "off", "auto"),
+                        default="auto",
+                        help="cross-replica shared weights: place ONE "
+                             "resident packed param tree per host and have "
+                             "every replica (and both disagg pools) alias "
+                             "it — fleet weight bytes ~W instead of N*W, "
+                             "and an autoscaler spawn costs slot/cache "
+                             "setup instead of a checkpoint re-upload. "
+                             "Replicas co-locate on one model-parallel "
+                             "slice (capacity is then bounded by KV "
+                             "memory, not weight copies). auto: on when "
+                             "--replicas > 1 or --disagg on a single-host "
+                             "fused-engine config; off: always private "
+                             "per-replica copies")
     args = parser.parse_args(argv)
     if args.trace_buffer < 1:
         parser.error("--trace-buffer must be >= 1")
@@ -1094,12 +1373,20 @@ def main(argv=None):
             if not args.paged_pool:
                 parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
                              "sharing is page-granular)")
-        elif args.draft_model:
+        elif args.draft_model or args.replicas > 1:
             parser.error("--prompt-cache applies to the single-chip "
                          "full-model generator path or to --concurrent "
                          "--paged-pool serving (no --coordinator/--tp/--ep/"
                          "stage, layer-range, --draft-model, or fleet "
                          "flags)")
+    if args.replicas > 1 and (
+        (args.draft_model and args.concurrent <= 1)
+        or (args.draft == "ngram" and args.concurrent <= 1)
+    ):
+        parser.error("--replicas requires the fused full-model engine path "
+                     "(no --coordinator/--engine chained/layer-range flags "
+                     "unless --pod; --draft-model/--draft ngram only with "
+                     "--concurrent)")
     if args.paged_pool and args.concurrent <= 1:
         parser.error("--paged-pool requires --concurrent N (N > 1)")
     if args.page_size and not args.paged_pool:
@@ -1108,6 +1395,9 @@ def main(argv=None):
         parser.error("--paged-attention requires --paged-pool")
     if args.kv_dtype and not args.paged_pool:
         parser.error("--kv-dtype requires --paged-pool")
+    if args.kv_share_map and not args.paged_pool:
+        parser.error("--kv-share-map requires --paged-pool (sharing "
+                     "deduplicates the paged KV pool's layer axis)")
     if args.kv_compress_map:
         if not args.paged_pool:
             parser.error("--kv-compress-map requires --paged-pool "
@@ -1154,6 +1444,10 @@ def main(argv=None):
         parser.error("--async-sched on is incompatible with --draft-model "
                      "(speculative rounds harvest per-round accept counts); "
                      "use 'auto'")
+    if args.shared_weights == "on" and args.replicas <= 1:
+        parser.error("--shared-weights on requires --replicas N "
+                     "(N > 1) or --disagg: with one engine there is "
+                     "nothing to alias")
     if args.max_queue is not None:
         if args.max_queue < 1:
             parser.error("--max-queue must be a positive integer")
@@ -1193,6 +1487,8 @@ def main(argv=None):
         prefix_store=args.prefix_store, prefix_store_bytes=args.prefix_store_bytes,
         prefix_insert_min_hits=args.prefix_insert_min_hits,
         kv_compress_map=args.kv_compress_map, kv_compress_rank=args.kv_compress_rank,
+        kv_share_map=args.kv_share_map, replicas=args.replicas,
+        shared_weights=args.shared_weights,
     )
     server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
                          api_key=args.api_key, request_timeout=args.request_timeout,

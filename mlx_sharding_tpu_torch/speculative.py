@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import time
 from typing import Callable, Iterator, Optional, Sequence
 
@@ -62,6 +63,9 @@ from mlx_sharding_tpu_torch.sample import (
 # nonzero rungs are the candidate speculation windows. Powers of two keep
 # the number of distinct verify-program compilations at 3.
 SPEC_WINDOW_LADDER = (0, 2, 4, 8)
+# each speculating generator's verify graphs are keyed by its own number:
+# generators over one target Generator (``target=``) share its graphs
+_GENERATOR_KEYS = itertools.count()
 
 
 def dist_logits(logits, recent, sp):
@@ -382,6 +386,18 @@ def _captured(*gens: Generator) -> dict:
             "pool_bytes": sum(g.pool_bytes() for g in pools.values())}
 
 
+def _target(model, target: Optional[Generator], **kw) -> Generator:
+    """The Generator a speculating generator verifies on: its own over
+    ``model``, or ``target``, an existing one over ``model`` whose captured
+    prefill chunks and decode blocks it reuses (that Generator must not
+    serve meanwhile: the rounds move its cache)."""
+    if target is None:
+        return Generator(model, **kw)
+    if target.model is not model:
+        raise ValueError("the target Generator runs another model")
+    return target
+
+
 def _check_full(model) -> None:
     if not (model.config.is_first_stage and model.config.is_last_stage):
         raise ValueError(
@@ -405,6 +421,7 @@ class _SpeculativeBase:
     def _init_rounds(self, k_max: int) -> None:
         """The rounds' buffers (for windows up to ``k_max``) and counters."""
         dev = self.target.device
+        self._key = next(_GENERATOR_KEYS)
         self._inputs = torch.zeros(1 + k_max, dtype=torch.int64, device=dev)
         self._qlps: Optional[torch.Tensor] = None  # (K_max, 1, V) of a sampling draft
         # acceptance telemetry: verify rounds, tokens emitted by speculating
@@ -452,7 +469,7 @@ class _SpeculativeBase:
         state = (t.cache.pos, t._tok, t._window(window))
         if self.draft is not None:
             state += (self.draft.cache.pos,)
-        out = t._run(("verify", k, sampled, window),
+        out = t._run(("verify", self._key, k, sampled, window),
                      functools.partial(self._verify_step, k, window, sampled),
                      state=state, generators=(t.rng,) if sampled else ())
         vals = out.cpu().numpy()[:, 0]  # the round's one read: (count, gs)
@@ -490,25 +507,27 @@ class NgramSpeculativeGenerator(_SpeculativeBase):
         clock: Callable[[], float] = time.monotonic,
         cuda_graphs: bool = True,
         decode_block: int = DEFAULT_DECODE_BLOCK,
+        target: Optional[Generator] = None,
     ):
         if spec_window_max < 2:
             raise ValueError(
                 f"spec_window_max must be >= 2, got {spec_window_max}"
             )
         _check_full(model)
-        self.target = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
-                                cuda_graphs=cuda_graphs, decode_block=decode_block)
+        self.target = _target(model, target, max_seq=max_seq, prefill_chunk=prefill_chunk,
+                              cuda_graphs=cuda_graphs, decode_block=decode_block)
         self.max_seq = self.target.max_seq
         self.proposer = NgramDraftProposer(max_ngram=max_ngram)
         self.tracker = AcceptanceTracker(1, w_max=spec_window_max, clock=clock)
         self.spec_window_max = spec_window_max
         self._init_rounds(self.tracker.rungs[-1])
 
-    def warm_up(self) -> dict:
-        """The target's graphs (``Generator.warm_up``), then the verify of
-        every window of the ladder and K = 1, greedy and sampled, at the
-        default window. ``{}`` without graphs."""
-        if not self.target.warm_up():
+    def warm_up(self, prefill_upto: Optional[int] = None) -> dict:
+        """The target's graphs (``Generator.warm_up``, its prefill chunks up
+        to ``prefill_upto`` tokens), then the verify of every window of the
+        ladder and K = 1, greedy and sampled, at the default window. ``{}``
+        without graphs."""
+        if not self.target.warm_up(prefill_upto=prefill_upto):
             return {}
         self.target.cache.pos.zero_()  # the verify's rows stay inside the capacity
         for k in (1, *self.tracker.rungs):
@@ -593,6 +612,7 @@ class SpeculativeGenerator(_SpeculativeBase):
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
         cuda_graphs: bool = True,
         decode_block: int = DEFAULT_DECODE_BLOCK,
+        target: Optional[Generator] = None,
     ):
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
@@ -610,8 +630,8 @@ class SpeculativeGenerator(_SpeculativeBase):
             raise ValueError(f"the draft model is on {draft_model.device}, the target on "
                              f"{model.device}")
         self.spec_k = spec_k
-        self.target = Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
-                                cuda_graphs=cuda_graphs, decode_block=decode_block)
+        self.target = _target(model, target, max_seq=max_seq, prefill_chunk=prefill_chunk,
+                              cuda_graphs=cuda_graphs, decode_block=decode_block)
         self.draft = Generator(draft_model, max_seq=self.target.max_seq,
                                prefill_chunk=self.target.prefill_chunk, cuda_graphs=cuda_graphs)
         self.max_seq = self.target.max_seq
@@ -650,13 +670,14 @@ class SpeculativeGenerator(_SpeculativeBase):
                functools.partial(self._draft_step, k, window, sampled),
                state=(d.cache.pos,), generators=(d.rng,) if sampled else ())
 
-    def warm_up(self) -> dict:
-        """Both Generators' prefill chunks, the target's decode blocks, the
-        draft steps and the verify at ``spec_k``, greedy and sampled, at
-        the default window. ``{}`` without graphs."""
-        if not self.target.warm_up():
+    def warm_up(self, prefill_upto: Optional[int] = None) -> dict:
+        """Both Generators' prefill chunks (up to ``prefill_upto`` tokens),
+        the target's decode blocks, the draft steps and the verify at
+        ``spec_k``, greedy and sampled, at the default window. ``{}``
+        without graphs."""
+        if not self.target.warm_up(prefill_upto=prefill_upto):
             return {}
-        self.draft.warm_up(decode_blocks=False)
+        self.draft.warm_up(decode_blocks=False, prefill_upto=prefill_upto)
         self.target.cache.pos.zero_()  # the rows stay inside the capacity
         self.draft.cache.pos.zero_()
         if self._qlps is None:

@@ -372,7 +372,7 @@ def auto_snapshot(reason: str):
 
 def record_fault(site: str):
     """Stamp the bound request's timeline with a fault that fired at
-    ``site``, then snapshot (the fault harness comes with slice 8)."""
+    ``site``, then snapshot."""
     tr = current()
     if tr is not None:
         tr.point(f"fault:{site}", site=site)

@@ -9,13 +9,13 @@ observability.py``, with the profiler on ``torch.profiler``).
   decode-rate summaries, and the batcher's read-outs.
 
 The families whose sources come with later slices are left out, as the
-source module leaves out a family whose source is None: replicas and the
-fleet, the weight store, the pod, KV sharing, disaggregated handoff,
-brownout, the fault harness and the resource ledger's anomalies
-(``ROADMAP.md`` lists each under its slice), and ``Histogram.merge_dicts``,
-which only the replica sets' aggregation calls (slice 8). KV spill,
-migration and prefetch (a paged batcher's ``spill_stats``), the prefix
-store and KV compression are rendered as the source renders them.
+source module leaves out a family whose source is None: the pod,
+disaggregated handoff, brownout and the resource ledger's anomalies
+(``ROADMAP.md`` lists each under its slice). A replica set's families
+(replicas, the fleet, routing), the weight store, the fault harness, KV
+sharing, KV spill, migration and prefetch (a paged batcher's
+``spill_stats``), the prefix store and KV compression are rendered as the
+source renders them.
 """
 
 from __future__ import annotations
@@ -121,6 +121,24 @@ class Histogram:
             }
 
     @staticmethod
+    def merge_dicts(dicts) -> dict | None:
+        """Elementwise merge of :meth:`to_dict` snapshots. Snapshots with
+        mismatched bounds are skipped (a mixed-version fleet must degrade,
+        not crash a scrape)."""
+        out = None
+        for d in dicts:
+            if not d or "counts" not in d:
+                continue
+            if out is None:
+                out = {"bounds": list(d["bounds"]), "counts": list(d["counts"]),
+                       "sum": float(d["sum"]), "count": int(d["count"])}
+            elif list(d["bounds"]) == out["bounds"]:
+                out["counts"] = [a + b for a, b in zip(out["counts"], d["counts"])]
+                out["sum"] += float(d["sum"])
+                out["count"] += int(d["count"])
+        return out
+
+    @staticmethod
     def render_into(lines: list, family: str, snap: dict | None, help_text: str = ""):
         """Append one family's exposition block from a :meth:`to_dict`
         snapshot (nothing when the snapshot is absent)."""
@@ -195,28 +213,36 @@ def _render_spill_family(lines: list, spill: dict):
         f"mst_kv_migration_in_total {spill['migrations_in']}",
         "# TYPE mst_kv_reprefill_tokens_total counter",
         f"mst_kv_reprefill_tokens_total {spill['reprefill_tokens']}",
+        # a replica set's aggregate lacks the residency keys (JAX's .get)
         "# TYPE mst_kv_spill_cold_total counter",
-        f"mst_kv_spill_cold_total {spill['cold_spills']}",
+        f"mst_kv_spill_cold_total {spill.get('cold_spills', 0)}",
         "# TYPE mst_kv_spill_wakes_total counter",
-        f"mst_kv_spill_wakes_total {spill['cold_wakes']}",
+        f"mst_kv_spill_wakes_total {spill.get('cold_wakes', 0)}",
         "# TYPE mst_kv_spill_parked gauge",
-        f"mst_kv_spill_parked {spill['parked']}",
+        f"mst_kv_spill_parked {spill.get('parked', 0)}",
         "# TYPE mst_kv_spill_hit_rate gauge",
-        f"mst_kv_spill_hit_rate {spill['hit_rate']:.4f}",
+        f"mst_kv_spill_hit_rate {spill.get('hit_rate', 0.0):.4f}",
         "# TYPE mst_kv_spill_rejects_total counter",
-        f'mst_kv_spill_rejects_total{{reason="oversize"}} {spill["rejects_oversize"]}',
-        f'mst_kv_spill_rejects_total{{reason="closed"}} {spill["rejects_closed"]}',
+        f'mst_kv_spill_rejects_total{{reason="oversize"}} {spill.get("rejects_oversize", 0)}',
+        f'mst_kv_spill_rejects_total{{reason="closed"}} {spill.get("rejects_closed", 0)}',
         "# TYPE mst_kv_prefetch_enabled gauge",
-        f"mst_kv_prefetch_enabled {int(bool(spill['prefetch_enabled']))}",
+        f"mst_kv_prefetch_enabled {int(bool(spill.get('prefetch_enabled', False)))}",
         "# TYPE mst_kv_prefetch_total counter",
-        f"mst_kv_prefetch_total {spill['prefetches']}",
+        f"mst_kv_prefetch_total {spill.get('prefetches', 0)}",
         "# TYPE mst_kv_prefetch_hits_total counter",
-        f"mst_kv_prefetch_hits_total {spill['prefetch_hits']}",
+        f"mst_kv_prefetch_hits_total {spill.get('prefetch_hits', 0)}",
         "# TYPE mst_kv_prefetch_demand_total counter",
-        f"mst_kv_prefetch_demand_total {spill['demand_imports']}",
+        f"mst_kv_prefetch_demand_total {spill.get('demand_imports', 0)}",
         "# TYPE mst_kv_prefetch_faults_total counter",
-        f"mst_kv_prefetch_faults_total {spill['prefetch_faults']}",
+        f"mst_kv_prefetch_faults_total {spill.get('prefetch_faults', 0)}",
     ]
+    if "migrated_streams" in spill:
+        # a replica set's: streams re-placed across replicas by a drain or
+        # a crash
+        lines += [
+            "# TYPE mst_kv_migration_streams_total counter",
+            f"mst_kv_migration_streams_total {spill['migrated_streams']}",
+        ]
 
 
 def _prefix_store_lines(ps: dict) -> list:
@@ -287,10 +313,16 @@ def _kv_compress_lines(comp: dict) -> list:
     ]
 
 
+def _none():
+    return None
+
+
 def _render_batcher(lines: list, b) -> bool:
-    """The families a continuous batcher feeds, each from a read-out that
-    takes host counters under the batcher's locks and never reads the card.
-    Returns whether the speculation family was rendered."""
+    """The families a continuous batcher (or a replica set over batchers)
+    feeds, each from a read-out that takes host counters under the
+    batcher's locks and never reads the card; a read-out the source lacks
+    leaves its family out, as in JAX. Returns whether the speculation
+    family was rendered."""
     slots, active, queued = b.stats()
     lines += [
         "# TYPE mst_batch_slots gauge",
@@ -300,7 +332,7 @@ def _render_batcher(lines: list, b) -> bool:
         "# TYPE mst_batch_queue_depth gauge",
         f"mst_batch_queue_depth {queued}",
     ]
-    pages = b.page_stats()
+    pages = getattr(b, "page_stats", _none)()
     if pages is not None:
         total, in_use, high = pages
         lines += [
@@ -311,15 +343,15 @@ def _render_batcher(lines: list, b) -> bool:
             "# TYPE mst_kv_pool_pages_high_water gauge",
             f"mst_kv_pool_pages_high_water {high}",
         ]
-        if b.overcommit:
+        if getattr(b, "overcommit", False):
             lines += [
                 "# TYPE mst_preemptions_total counter",
                 f"mst_preemptions_total {b.preemptions}",
             ]
-    spill = b.spill_stats()
+    spill = getattr(b, "spill_stats", _none)()
     if spill is not None:
         _render_spill_family(lines, spill)
-    kv = b.kv_read_stats()
+    kv = getattr(b, "kv_read_stats", _none)()
     if kv is not None:
         path, last_tick, total_bytes = kv
         lines += [
@@ -331,52 +363,56 @@ def _render_batcher(lines: list, b) -> bool:
             "# TYPE mst_kv_bytes_read_total counter",
             f"mst_kv_bytes_read_total {total_bytes}",
         ]
-    hbm = b.hbm_bytes_per_token_stats()
+    hbm = getattr(b, "hbm_bytes_per_token_stats", _none)()
     if hbm is not None:
         lines += [
             "# TYPE mst_decode_hbm_bytes_per_token gauge",
             f'mst_decode_hbm_bytes_per_token{{kind="weights"}} {hbm["weights"]:.1f}',
             f'mst_decode_hbm_bytes_per_token{{kind="kv"}} {hbm["kv"]:.1f}',
         ]
-    lat = b.latency_stats()
-    # inter-token gaps from the emit path, queue wait from submit to slot
-    Histogram.render_into(lines, "mst_itl_seconds", lat.get("itl"))
-    Histogram.render_into(lines, "mst_queue_wait_seconds", lat.get("queue_wait"))
-    tick = b.tick_timing_stats()
-    path = tick["path"]
-    lines += [
-        "# TYPE mst_sched_async gauge",
-        f"mst_sched_async {int(path == 'async')}",
-        "# TYPE mst_tick_host_ms gauge",
-        f'mst_tick_host_ms{{path="{path}"}} {tick["host_ms_last"]:.3f}',
-        "# TYPE mst_tick_device_blocked_ms gauge",
-        f'mst_tick_device_blocked_ms{{path="{path}"}} {tick["device_blocked_ms_last"]:.3f}',
-        # the resume's import: ~0 when a prefetch staged the pages, the
-        # whole host-to-device copy on a demand import
-        f'mst_tick_device_blocked_ms{{path="kv_import"}} '
-        f"{tick.get('kv_import_ms_last', 0.0):.3f}",
-    ]
-    spec = b.spec_stats()
+    lat = getattr(b, "latency_stats", _none)()
+    if lat is not None:
+        # inter-token gaps from the emit path, queue wait from submit to slot
+        Histogram.render_into(lines, "mst_itl_seconds", lat.get("itl"))
+        Histogram.render_into(lines, "mst_queue_wait_seconds", lat.get("queue_wait"))
+    tick = getattr(b, "tick_timing_stats", _none)()
+    if tick is not None:
+        path = tick["path"]
+        lines += [
+            "# TYPE mst_sched_async gauge",
+            f"mst_sched_async {int(path == 'async')}",
+            "# TYPE mst_tick_host_ms gauge",
+            f'mst_tick_host_ms{{path="{path}"}} {tick["host_ms_last"]:.3f}',
+            "# TYPE mst_tick_device_blocked_ms gauge",
+            f'mst_tick_device_blocked_ms{{path="{path}"}} {tick["device_blocked_ms_last"]:.3f}',
+            # the resume's import: ~0 when a prefetch staged the pages, the
+            # whole host-to-device copy on a demand import
+            f'mst_tick_device_blocked_ms{{path="kv_import"}} '
+            f"{tick.get('kv_import_ms_last', 0.0):.3f}",
+        ]
+    spec = getattr(b, "spec_stats", _none)()
     if spec is not None:
         _render_spec_family(lines, spec)
-    res = b.resilience_stats()
-    lines += [
-        "# TYPE mst_requests_timeout_total counter",
-        f"mst_requests_timeout_total {res['timeouts']}",
-        # shed = rejected before any work: the queue bound at submission
-        # (429), or the TTFT deadline while queued
-        "# TYPE mst_requests_shed_total counter",
-        f'mst_requests_shed_total{{reason="queue_full"}} {res["shed_queue_full"]}',
-        f'mst_requests_shed_total{{reason="deadline"}} {res["shed_deadline"]}',
-        "# TYPE mst_scheduler_thread_live gauge",
-        f"mst_scheduler_thread_live {int(bool(res['scheduler_thread_live']))}",
-    ]
-    if res.get("max_queue") is not None:
+    res = getattr(b, "resilience_stats", _none)()
+    if res is not None:
         lines += [
-            "# TYPE mst_max_queue gauge",
-            f"mst_max_queue {res['max_queue']}",
+            "# TYPE mst_requests_timeout_total counter",
+            f"mst_requests_timeout_total {res['timeouts']}",
+            # shed = rejected before any work: the queue bound at submission
+            # (429), or the TTFT deadline while queued
+            "# TYPE mst_requests_shed_total counter",
+            f'mst_requests_shed_total{{reason="queue_full"}} {res["shed_queue_full"]}',
+            f'mst_requests_shed_total{{reason="deadline"}} {res["shed_deadline"]}',
+            "# TYPE mst_scheduler_thread_live gauge",
+            f"mst_scheduler_thread_live {int(bool(res['scheduler_thread_live']))}",
         ]
-    prefix = b.prefix_stats()
+        if res.get("max_queue") is not None:
+            lines += [
+                "# TYPE mst_max_queue gauge",
+                f"mst_max_queue {res['max_queue']}",
+            ]
+    _render_fleet(lines, b)
+    prefix = getattr(b, "prefix_stats", _none)()
     if prefix is not None:
         queries, hits, reused, evictions, cached = prefix
         lines += [
@@ -392,6 +428,108 @@ def _render_batcher(lines: list, b) -> bool:
             f"mst_prefix_cache_pages {cached}",
         ]
     return spec is not None
+
+
+def _render_fleet(lines: list, b) -> None:
+    """A replica set's families (``replicas.ReplicaSet``): live replicas and
+    their breakers from ``health()``, per-replica routing load, the fleet's
+    size, autoscale events and routing hits."""
+    health = getattr(b, "health", _none)()
+    if health is not None and "replicas_total" in health:
+        lines += [
+            "# TYPE mst_replicas_total gauge",
+            f"mst_replicas_total {health['replicas_total']}",
+            "# TYPE mst_replicas_live gauge",
+            f"mst_replicas_live {health['replicas_live']}",
+            "# TYPE mst_replica_breaker_open gauge",
+        ]
+        lines += [f'mst_replica_breaker_open{{replica="{rep["replica"]}"}} '
+                  f"{int(rep['breaker'] != 'closed')}" for rep in health["replicas"]]
+        lines.append("# TYPE mst_replica_failures_total counter")
+        lines += [f'mst_replica_failures_total{{replica="{rep["replica"]}"}} {rep["failures"]}'
+                  for rep in health["replicas"]]
+    per_rep = getattr(b, "replica_stats", _none)()
+    if per_rep is not None:
+        # a role label keeps a disaggregated pool's replicas apart; a
+        # monolithic set is unlabeled (breaker_state: 0 closed, 1 half-open,
+        # 2 open; weights_shared: 1 = it aliases the store's tree)
+        def label(rep):
+            role = rep.get("role")
+            return (f'replica="{rep["replica"]}",role="{role}"' if role
+                    else f'replica="{rep["replica"]}"')
+
+        for fam, key in (("inflight", "inflight"), ("queue_depth", "queue_depth"),
+                         ("breaker_state", "breaker_state"),
+                         ("weights_shared", "weights_shared")):
+            lines.append(f"# TYPE mst_replica_{fam} gauge")
+            lines += [f"mst_replica_{fam}{{{label(rep)}}} {int(rep[key])}" for rep in per_rep]
+    fleet = getattr(b, "fleet_stats", _none)()
+    if fleet is not None:
+        lines += [
+            "# TYPE mst_fleet_size gauge",
+            f"mst_fleet_size {fleet['size']}",
+        ]
+        lines += [f'mst_fleet_size{{role="{pool["role"]}"}} {pool["size"]}'
+                  for pool in fleet.get("pools", []) if pool.get("role")]
+        lines.append("# TYPE mst_autoscale_events_total counter")
+        events = fleet.get("autoscale_events", {})
+        lines += [f'mst_autoscale_events_total{{kind="{kind}"}} {events[kind]}'
+                  for kind in sorted(events)]
+        if "sticky_hits" in fleet:
+            lines += [
+                "# TYPE mst_route_sticky_hits_total counter",
+                f"mst_route_sticky_hits_total {fleet['sticky_hits']}",
+                "# TYPE mst_route_affinity_hits_total counter",
+                f"mst_route_affinity_hits_total {fleet['affinity_hits']}",
+            ]
+        if "store_hits" in fleet:
+            lines += [
+                "# TYPE mst_route_store_hits_total counter",
+                f"mst_route_store_hits_total {fleet['store_hits']}",
+            ]
+
+
+def _faults_lines() -> list:
+    """The fault harness: a site left armed shows on every scrape, as do
+    specs dropped at parse time (the disarmed steady state is an explicit
+    zero)."""
+    from mlx_sharding_tpu_torch.testing import faults
+
+    lines = [
+        "# TYPE mst_faults_malformed_total counter",
+        f"mst_faults_malformed_total {faults.malformed_total()}",
+        "# TYPE mst_faults_armed gauge",
+    ]
+    armed = faults.armed_sites()
+    lines += ([f'mst_faults_armed{{site="{site}"}} {n}' for site, n in sorted(armed.items())]
+              if armed else ["mst_faults_armed 0"])
+    return lines
+
+
+def _weight_store_lines(store: dict) -> list:
+    """Shared weights: resident trees, the engine refs aliasing them, and
+    their bytes (always rendered; zeros mean every engine owns its own)."""
+    return [
+        "# TYPE mst_weight_store_trees gauge",
+        f"mst_weight_store_trees {store['trees']}",
+        "# TYPE mst_weight_store_refs gauge",
+        f"mst_weight_store_refs {store['refs']}",
+        "# TYPE mst_weight_store_bytes gauge",
+        f"mst_weight_store_bytes {store['bytes']}",
+    ]
+
+
+def _kv_share_lines(share: dict) -> list:
+    """Layer-wise KV sharing: whether a non-identity map is on, its group
+    count and the pool bytes it saves."""
+    return [
+        "# TYPE mst_kv_share_enabled gauge",
+        f"mst_kv_share_enabled {int(bool(share.get('enabled')))}",
+        "# TYPE mst_kv_share_groups gauge",
+        f"mst_kv_share_groups {share.get('groups', 0)}",
+        "# TYPE mst_kv_share_bytes_saved gauge",
+        f"mst_kv_share_bytes_saved {share.get('bytes_saved', 0)}",
+    ]
 
 
 @dataclass
@@ -416,6 +554,11 @@ class ServingMetrics:
     # (``ModelProvider.kv_compress_stats``), each None when absent
     prefix_store_fn: object = None
     kv_compress_fn: object = None
+    # the host's weights.WeightStore (the module's singleton when None), and
+    # the KV sharing summary (``ModelProvider.kv_share_stats``, None without
+    # a share map)
+    weight_store_fn: object = None
+    kv_share_fn: object = None
 
     def record_request(self, *, prompt_tokens: int, generation_tokens: int, ttft_s: float,
                        decode_tps: float, failed: bool = False):
@@ -450,6 +593,11 @@ class ServingMetrics:
                 f"{self.decode_tps.percentile(95):.3f}",
             ]
             Histogram.render_into(lines, "mst_ttft_seconds", self.ttft_hist.to_dict())
+            fmark = len(lines)
+            try:
+                lines += _faults_lines()
+            except Exception:  # noqa: BLE001 — scrapes must never 500
+                del lines[fmark:]
             # a batcher read-out can die mid-scrape (the batcher closing
             # under a hot-swap): drop its whole section rather than answer
             # 500 or a half-rendered family
@@ -486,7 +634,10 @@ class ServingMetrics:
                     "# TYPE mst_spec_tokens_replayed_total counter",
                     f"mst_spec_tokens_replayed_total {getattr(spec, 'replayed_tokens', 0)}",
                 ]
-            sections = ((self.prefix_store_fn, lambda store: _prefix_store_lines(store.stats())),
+            sections = ((self.weight_store_fn or _host_weight_store,
+                         lambda store: _weight_store_lines(store.stats())),
+                        (self.prefix_store_fn, lambda store: _prefix_store_lines(store.stats())),
+                        (self.kv_share_fn, _kv_share_lines),
                         (self.kv_compress_fn, _kv_compress_lines))
             for fn, render in sections:
                 try:
@@ -496,6 +647,12 @@ class ServingMetrics:
                 except Exception:  # noqa: BLE001 — scrapes must never 500
                     pass
         return "\n".join(_finalize(lines)) + "\n"
+
+
+def _host_weight_store():
+    from mlx_sharding_tpu_torch.weights import weight_store
+
+    return weight_store()
 
 
 # HELP strings of the families whose meaning is not readable off the name;
@@ -509,6 +666,8 @@ _HELP = {
     "mst_decode_tokens_per_second": "Per-request decode rate summary.",
     "mst_tick_host_ms": "Host-side scheduler work per tick, ms.",
     "mst_tick_device_blocked_ms": "Per-tick wall time blocked on the device, ms.",
+    "mst_faults_armed": "Currently armed fault-injection sites (should be 0 in prod).",
+    "mst_faults_malformed_total": "MST_FAULTS entries dropped as malformed at parse time.",
 }
 
 

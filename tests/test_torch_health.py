@@ -40,11 +40,12 @@ from tests.test_torch_metrics import _jax_provider
 TINY = dict(vocab_size=300, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2)
 ENGINE = dict(microbatches=1, max_seq=64, prefill_chunk=8)
-# the JAX server's /health blocks of later slices (the weight store's is
-# always there); the port renders the single-host part only (the
-# prefix_store and kv_compress blocks with their sources,
-# tests/test_torch_kv_server.py)
-LATER_SLICE_KEYS = {"weight_store", "pod", "kv_share", "multihost"}
+# the JAX server's /health blocks of later slices; the port renders the
+# rest (the prefix_store and kv_compress blocks with their sources,
+# tests/test_torch_kv_server.py; kv_share with a share map and the replica
+# set's, tests/test_torch_fleet_server.py). The weight store's block is
+# always there, its numbers each process's own store's.
+LATER_SLICE_KEYS = {"pod", "multihost"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -108,6 +109,8 @@ def _health_both(ports):
     """(status, payload) of each server, the JAX payload without the
     blocks of later slices."""
     (js, jp), (ts, tp) = (_get(p, "/health") for p in ports)
+    jw, tw = jp.pop("weight_store"), tp.pop("weight_store")
+    assert tw.keys() == jw.keys() and tw["shared_weights"] == jw["shared_weights"] is False
     return (js, {k: v for k, v in jp.items() if k not in LATER_SLICE_KEYS}), (ts, tp)
 
 

@@ -30,6 +30,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "mlx_sharding_tpu_torch.server.openai_api" in modules
     for family in ("models.qwen3", "models.gemma2", "models.mixtral", "ops.moe"):
         assert f"mlx_sharding_tpu_torch.{family}" in modules
+    for module in ("kv_share", "weights", "replicas", "resilience", "utils.clock",
+                   "cli.kv_share_calibrate", "cli.kv_compress_calibrate"):
+        assert f"mlx_sharding_tpu_torch.{module}" in modules
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -78,6 +81,24 @@ def test_entry_points_refuse_to_start_without_a_card_unless_told(module, tmp_pat
     )
     assert proc.returncode == 2
     assert "CUDA is not available" in proc.stderr and "--device cpu" in proc.stderr
+
+
+@pytest.mark.parametrize("module, args", [
+    ("kv_share_calibrate", ["--num-share", "1"]),
+    ("kv_compress_calibrate", ["--rank", "4"]),
+])
+def test_calibrate_clis_refuse_to_start_without_a_card_unless_told(module, args, tmp_path,
+                                                                    capsys):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the entry points would start on it")
+    cli = importlib.import_module(f"mlx_sharding_tpu_torch.cli.{module}")
+    with pytest.raises(SystemExit) as info:
+        cli.main(["--model", str(tmp_path), "--output", str(tmp_path / "out"), *args])
+    assert info.value.code == 2
+    err = capsys.readouterr().err
+    assert "CUDA is not available" in err and "--device cpu" in err
 
 
 def test_resolve_device():
