@@ -245,12 +245,37 @@ final line:
    migrates with its block, every stream equals its undrained run, the
    drain's seconds and block bytes, the refs back to 1 and card memory
    lower after it.
+14. disaggregated serving and the fleet controller (``phase_disagg``,
+   after 13, on phase 4's model and phase 6's geometry): ``--concurrent 8
+   --paged-pool 16 --disagg --autoscale --autoscale-interval 0.5
+   --autoscale-cooldown 0`` through ``build_generator`` behind the server,
+   one prefill and one decode replica over one copy of the weights (card
+   memory, the weight store's trees and refs); with the controllers
+   stopped through ``POST /admin/autoscaler``, phase 6's streamed mix
+   (tok/s against phase 6's batcher and phase 13's replicas, TTFTs, every
+   request handed off with its block: handoffs, bytes, the handoff's ms
+   p50/p99, ``handoffs_out`` and ``migrations_in``, kernels 1 and 2
+   launched); phase 6's unforced greedy request equal to its run there,
+   again with ``disagg.handoff`` armed (served in place, equal) and with
+   ``cache.export`` armed (blockless, its full length); a prefill storm
+   (long prompts at max_tokens 1-2 for longer than the 5 s sustain) with
+   the controllers running: the prefill pool's spawns one replica
+   (``last_spawn_s``, the memory it added, 3 refs) and the decode pool's
+   none; ``drain_one()`` on the prefill controller gives the spawn's pool
+   and graph pool back; the decode pool's ladder at levels 1, 2 and 3
+   (its replica's level, not the prefill replica's), a request capped to
+   96 tokens with both headers, ``mst_brownout_level`` and the
+   ``brownout_level_*`` events in ``/metrics``.
 
 Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
 layers, the eager turn of phases 4-5's step timing an
 ``EAGER_STREAM_TOKENS``-token stream, and the Generators of phases 8-9
 capture only the decode block they serve (greedy, no logprobs; the warm-up
-request captures it), the prefill graphs at load. DeepSeek-V2 is served at
+request captures it), the prefill graphs at load. Their batchers, phase
+11's traced batcher and phase 12's store batcher capture only that decode
+block too (``GREEDY_ONLY``), phases 6 and 10's no sampled block without
+logprobs (``MIX_BLOCKS``), and phases 4-5's speculating generators only
+their greedy rounds. DeepSeek-V2 is served at
 a capacity of 768 (its prompt and tokens need 3 chunks: each of its
 prefill graphs takes seconds to capture), and phases 4-5's speculating
 generators verify on the served Generator, whose prefill and decode graphs
@@ -272,6 +297,7 @@ import dataclasses
 import gc
 import glob
 import http.client
+import itertools
 import json
 import math
 import os
@@ -2050,7 +2076,7 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
         f"admission, {batcher.async_reason}"
         + (f"; draft engine of {draft_model.config.num_hidden_layers} layers, "
            f"{batcher.dcache.nbytes / 1e6:.1f} MB of K/V, K = {SPEC_K}" if draft_engine else ""))
-    captured = batcher.warm_up()
+    captured = batcher.warm_up(**MIX_BLOCKS)
     graph_line(tag, captured)
     tok = ByteTokenizer()
     server = make_server(ModelProvider(batcher, tok, model_name="llama-3.1-8b-cb"), "127.0.0.1", 0)
@@ -2355,6 +2381,15 @@ def prefix_parity(model, kv_dtype: str, tag: str) -> None:
     check(stats[:3] == (4, 3, 3 * PREFIX_TOKENS), f"{tag} prefix_stats {stats}")
     check(off_flash - on_flash == 3 * (PREFIX_TOKENS // CHUNK) * layers,
           f"{tag} prefix sharing skipped {off_flash - on_flash} flash launches")
+
+
+# the decode blocks a batcher captures at load, (sampled, logprobs) kinds:
+# one that serves only greedy requests without logprobs needs that block
+# alone, and phase 6's mixes, whose only sampled request asks for logprobs,
+# never run a sampled block without them (each block is an eager 8-step
+# warm-up of about a second)
+GREEDY_ONLY = {"blocks": ((False, False),)}
+MIX_BLOCKS = {"blocks": ((False, False), (False, True), (True, True))}
 
 
 def serve_on_this_thread(batcher, jobs, *, cancel_after=None, tick=None, start_after=None,
@@ -2670,14 +2705,18 @@ def near_ties(tag: str, name: str, lps: list) -> list:
     return ties
 
 
-def plain_reference(tag: str, gen, ids: list, max_tokens: int, **kw) -> tuple:
+def plain_reference(tag: str, gen, ids: list, max_tokens: int, timed: bool = True,
+                    **kw) -> tuple:
     """Plain greedy decode of ``ids`` through the Generator ``gen``: its
-    tokens, its decode tok/s, and the top-2 gap and near-tied tokens at
-    every position (``near_ties`` of a logprobs run of the same steps,
-    which must give the same tokens)."""
-    toks, tok_s = stream_tokens(gen, ids, max_tokens=max_tokens, **kw)
+    tokens, its decode tok/s (None unless ``timed``: a run without
+    logprobs), and the top-2 gap and near-tied tokens at every position
+    (``near_ties`` of a logprobs run of the same steps, which must give the
+    same tokens)."""
     lps = list(gen.generate_step(ids, max_tokens=max_tokens, want_logprobs=True, **kw))
-    check([t for t, _ in lps] == toks, "plain greedy: the logprobs run gave other tokens")
+    toks, tok_s = [t for t, _ in lps], None
+    if timed:
+        timed_toks, tok_s = stream_tokens(gen, ids, max_tokens=max_tokens, **kw)
+        check(timed_toks == toks, "plain greedy: the logprobs run gave other tokens")
     return toks, tok_s, near_ties(tag, "plain greedy", [lp for _, lp in lps])
 
 
@@ -2895,7 +2934,7 @@ def phase_speculation(model, gen, tag: str, seed: int) -> dict:
     # each speculating generator verifies on the served Generator, whose
     # prefill and decode graphs are captured already
     ng = NgramSpeculativeGenerator(model, target=gen)
-    graph_line(f"{tag} ngram", ng.warm_up(prefill_upto=len(ids)))
+    graph_line(f"{tag} ngram", ng.warm_up(prefill_upto=len(ids), sampled=(False,)))
     row = spec_run(tag, "--draft ngram", ng, [model], ids, want, ties, counters)
     expect = {"flash_attention": layers * chunks,
               "flash_decode": layers * (row["rounds_by_k"].get(1, 0) + row["tail_steps"])}
@@ -2919,7 +2958,7 @@ def phase_speculation(model, gen, tag: str, seed: int) -> dict:
     for name, dmodel in (("self-draft K=4", model), ("llama-3.2-1b draft K=4", draft)):
         sg = SpeculativeGenerator(model, dmodel, spec_k=SPEC_K, target=gen)
         # the prompts' chunks alone: every run here prefills a 600-token prompt
-        graph_line(f"{tag} {name}", sg.warm_up(prefill_upto=len(ids)))
+        graph_line(f"{tag} {name}", sg.warm_up(prefill_upto=len(ids), sampled=(False,)))
         models = [model] if dmodel is model else [model, dmodel]
         row = spec_run(tag, name, sg, models, ids, want, ties, counters)
         dl = dmodel.config.num_hidden_layers
@@ -2958,7 +2997,7 @@ def phase_speculation_packed(packed, gen, tag: str) -> dict:
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fa.flash_decode,
                 "quant_gemv": qm.quant_gemv, "quant_matmul": qm.quant_matmul}
     ng = NgramSpeculativeGenerator(packed, target=gen)
-    graph_line(f"{tag} ngram", ng.warm_up(prefill_upto=len(ids)))
+    graph_line(f"{tag} ngram", ng.warm_up(prefill_upto=len(ids), sampled=(False,)))
     row = spec_run(tag, "--draft ngram", ng, [packed], ids, want, ties, counters)
     per_step = LAYER_SHAPES * layers + 1
     row["plain_tok_s"] = plain_tok_s
@@ -3544,7 +3583,7 @@ def surface_tracing(model) -> tuple:
     batcher = ContinuousBatcher(engine, decode_block=8)
     stats = {}
     try:
-        graph_line(tag, batcher.warm_up())
+        graph_line(tag, batcher.warm_up(**GREEDY_ONLY))
         provider = ModelProvider(batcher, ByteTokenizer(), model_name="llama-3.1-8b-traced")
         body = {"prompt": mix_prompt(0, TRACE_PROMPT), "max_tokens": TRACE_TOKENS,
                 "stream": True, "logit_bias": {"65": 100.0}}
@@ -4027,7 +4066,7 @@ def store_runs(model, tag: str, seed: int) -> dict:
                             prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
                             device=model.device)
     batcher = ContinuousBatcher(engine, decode_block=8, prefix_store=store)
-    batcher.warm_up()
+    batcher.warm_up(**GREEDY_ONLY)
     ttfts, streams = [], []
 
     def start(prompt, tokens=STORE_TOKENS):
@@ -4461,10 +4500,17 @@ def share_block_transfer(b, share, model) -> None:
 
 
 def replica_mix(port, rs) -> dict:
-    """Phase 6's mix of streamed forced requests through the replica set's
-    server, all at once: each request's TTFT, the mix's tok/s and the
-    routes per replica."""
+    """Phase 6's mix through the replica set's server (:func:`served_mix`)
+    and its routes per replica."""
     served0 = list(rs.served)
+    out = served_mix(port, "[replicas]")
+    out["routes"] = [a - b for a, b in zip(rs.served, served0)]
+    return out
+
+
+def served_mix(port, tag: str) -> dict:
+    """Phase 6's mix of streamed forced requests through a server, all at
+    once: each request's TTFT and the mix's tok/s."""
     jobs = [{"prompt": mix_prompt(i, n), "max_tokens": m, "stream": True,
              "logit_bias": {"65": 100.0}} for i, (n, m) in enumerate(BATCH_MIX[:SLOTS])]
     results = [None] * len(jobs)
@@ -4482,14 +4528,12 @@ def replica_mix(port, rs) -> dict:
     tokens = 0
     ttfts = []
     for i, r in enumerate(results):
-        check(r is not None and r[0] == 200, f"[replicas] mix request {i}: {r and r[0]}")
+        check(r is not None and r[0] == 200, f"{tag} mix request {i}: {r and r[0]}")
         check(stream_text(r[1], chat=False) == "A" * jobs[i]["max_tokens"],
-              f"[replicas] mix request {i}'s text")
+              f"{tag} mix request {i}'s text")
         tokens += jobs[i]["max_tokens"]
         ttfts.append(r[2] * 1e3)
-    routes = [a - b for a, b in zip(rs.served, served0)]
-    return {"tok_s": tokens / wall, "ttft_ms": ttfts, "routes": routes, "tokens": tokens,
-            "wall": wall}
+    return {"tok_s": tokens / wall, "ttft_ms": ttfts, "tokens": tokens, "wall": wall}
 
 
 def drain_streams(rs, ids: list, port=None, drain: Optional[int] = None) -> dict:
@@ -4727,6 +4771,286 @@ def phase_share_and_replicas(model, seed: int, single_batch_tok_s: float, lap) -
     torch.cuda.empty_cache()
     check(weight_store().stats()["refs"] == 0, "the replicas' close left a weight ref")
     lap("phase 13, the drain")
+    return launches, stats
+
+
+# ------------------------------------------- phase 14: disaggregated serving
+AUTOSCALE_INTERVAL = 0.5  # the controllers' tick (the default sustain is 5 s)
+STORM_CLIENTS = 12  # clients posting long prompts back to back
+STORM_PROMPT = 2000  # tokens: 8 chunks, 8 of the 16 pages a request
+STORM_S = 7.5  # longer than the scale-up sustain window (5 s) and two ticks
+BROWNOUT_STEPS = ((0.9, 1), (1.3, 2), (2.0, 3))  # (pressure observed, level)
+BROWNOUT_ASK = 200  # max_tokens of the request the top rung caps (to 96)
+
+
+def post_headers(port, body) -> tuple:
+    """``POST /v1/completions``: (status, body, the X-MST-* headers)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/completions", json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    headers = {k: v for k, v in resp.getheaders() if k.startswith("X-MST-") and "Id" not in k}
+    conn.close()
+    return resp.status, data, headers
+
+
+def autoscalers(port, enabled: bool) -> dict:
+    status, body, _, _ = post(port, "/admin/autoscaler", {"enabled": enabled})
+    check(status == 200 and [p["running"] for p in body["pools"]] == [enabled] * 2,
+          f"[disagg] POST /admin/autoscaler {{enabled: {enabled}}}: {status} {body}")
+    return body
+
+
+def prefill_storm(port, co, ctrl) -> dict:
+    """``STORM_CLIENTS`` clients post ``STORM_PROMPT``-token prompts back to
+    back for ``STORM_S`` seconds at max_tokens 1 (one client at 2, so a few
+    streams hand off): the prefill pool's pressure stays over the scale-up
+    threshold past the sustain window. Waits for the prefill controller's
+    spawn to finish; returns what the clients saw."""
+    stop = threading.Event()
+    answered, failed = [0], []
+
+    def client(i):
+        n = 0
+        while not stop.is_set():
+            body = {"prompt": mix_prompt(200 + 100 * i + n, STORM_PROMPT),
+                    "max_tokens": 2 if i == 0 else 1}
+            status, out, _, _ = post(port, "/v1/completions", body)
+            n += 1
+            if status == 200 and out["usage"]["completion_tokens"] == body["max_tokens"]:
+                answered[0] += 1
+            else:
+                failed.append((status, out))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(STORM_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(STORM_S)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    storm_s = time.perf_counter() - t0
+    deadline = time.perf_counter() + 120
+    while ctrl.state()["spawns"] + ctrl.state()["spawn_failures"] < 1 \
+            and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    check(not failed, f"[disagg] storm requests failed: {failed[:3]}")
+    return {"answered": answered[0], "seconds": storm_s, "size": len(co.prefill.replicas)}
+
+
+def phase_disagg(model, seed: int, single_batch_tok_s: float, replicas_tok_s: float,
+                 greedy_ref, lap) -> tuple:
+    """Phase 14 on phase 4's model and phase 6's geometry: ``--concurrent 8
+    --paged-pool 16 --disagg --autoscale`` through ``build_generator``
+    behind the server, one prefill and one decode replica over one copy of
+    the weights. Phase 6's streamed mix (tok/s against phase 6's batcher
+    and phase 13's replicas, TTFTs, handoffs, their bytes and ms); phase
+    6's unforced greedy request equal to its run there; the ladder
+    (``disagg.handoff`` serves in place, ``cache.export`` hands off
+    blockless); a prefill storm that spawns a prefill replica and no decode
+    replica, then ``drain_one()`` giving its memory back; the decode pool's
+    brownout ladder at levels 1-3 capping a request with both headers and
+    rendered in /metrics. Returns the mix's launches of kernels 1 and 2 and
+    the numbers."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops import paged_attention as pa
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, build_generator, \
+        make_server
+    from mlx_sharding_tpu_torch.testing import faults
+    from mlx_sharding_tpu_torch.weights import weight_store
+
+    del seed  # the weights are phase 4's; nothing here draws
+    tok = ByteTokenizer()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    co = build_generator("llama-3.1-8b-random", model=model, device=model.device,
+                         max_seq=MAX_SEQ, prefill_chunk=CHUNK, concurrent=SLOTS,
+                         paged_pool=POOL_PAGES, page_size=PAGE, decode_block=8, disagg=True,
+                         autoscale=True, autoscale_interval=AUTOSCALE_INTERVAL,
+                         autoscale_cooldown=0.0)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after_load = torch.cuda.memory_allocated()
+    store = weight_store().stats()
+    w_bytes = sum(e["bytes"] for e in store["entries"])
+    log(f"[disagg] --concurrent {SLOTS} --paged-pool {POOL_PAGES} --disagg --autoscale "
+        f"--autoscale-interval {AUTOSCALE_INTERVAL} --autoscale-cooldown 0: loaded in "
+        f"{load_s:.2f}s; torch.cuda.memory_allocated {before / 1e9:.3f} GB before (the model's "
+        f"weights {w_bytes / 1e9:.3f} GB among it), {after_load / 1e9:.3f} GB after both pools "
+        f"and their graphs (+{(after_load - before) / 1e9:.3f} GB); weight store: "
+        f"{store['trees']} tree, {store['refs']} refs")
+    check(store["trees"] == 1 and store["refs"] == 2, "the weight store's trees and refs")
+    check(after_load - before < w_bytes, "the pools hold a second copy of the weights")
+    provider = ModelProvider(co, tok, model_name="llama-3.1-8b-disagg")
+    pctrl, dctrl = provider.fleet
+    server = make_server(provider, "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    prefill, decode = co.prefill.replicas[0], co.decode.replicas[0]
+    spawned = None
+    stats = {"load_s": load_s, "memory": (before, after_load)}
+    try:
+        status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
+        check(status == 200, f"[disagg] warm-up request: {status}")
+        # the mix and the ladder are measured with the controllers' loops
+        # stopped (a 96-token mix would lift the decode pool's ladder)
+        autoscalers(port, False)
+        h0, out0, in0 = co.handoff_stats(), prefill.handoffs_out, decode.migrations_in
+        pa.paged_attention.launches = fa.flash_attention.launches = 0
+        mix = served_mix(port, "[disagg]")
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches}
+        h = co.handoff_stats()
+        n_hand = h["handoffs"] - h0["handoffs"]
+        log(f"[disagg] phase 6's {SLOTS} streamed forced requests at once: {mix['tokens']} "
+            f"tokens in {mix['wall']:.3f}s = {mix['tok_s']:.2f} tok/s (phase 6's single batcher "
+            f"{single_batch_tok_s:.2f}, phase 13's two replicas {replicas_tok_s:.2f}); TTFTs "
+            + ", ".join(f"{t:.1f}" for t in mix["ttft_ms"])
+            + f" ms; {n_hand} handoffs, {h['bytes_total'] - h0['bytes_total']} bytes, handoff "
+            f"ms p50 {h['ms_p50']:.3f} p99 {h['ms_p99']:.3f} (control + device-to-host copy); "
+            f"handoffs_out on the prefill replica {prefill.handoffs_out - out0}, migrations_in on "
+            f"the decode replica {decode.migrations_in - in0}; launches {launches}")
+        check(n_hand == SLOTS and prefill.handoffs_out - out0 == SLOTS
+              and decode.migrations_in - in0 == SLOTS and not h["fallbacks"],
+              "a mix request was not handed off with its block")
+        check(launches["paged_attention"] > 0 and launches["flash_attention"] > 0,
+              "the disagg mix launched no attention kernel")
+        stats.update(mix=mix, handoff=h)
+        lap("phase 14, load and the mix")
+
+        # phase 6's unforced greedy request, clean and down the ladder
+        ids = tok.encode(mix_prompt(len(BATCH_MIX), GREEDY_PROMPT))
+        want = greedy_ref[0]
+        runs = {}
+        for case, site in (("clean", None), ("handoff_fault", "disagg.handoff"),
+                           ("export_fault", "cache.export")):
+            h0, fb0 = co.handoff_stats(), prefill.spill_fallbacks
+            if site is not None:
+                faults.arm(site, exc=faults.FaultError, times=1)
+            got = [t for t, _ in co.generate_step(ids, max_tokens=GREEDY_TOKENS,
+                                                  want_logprobs=True)]
+            faults.disarm()
+            h = co.handoff_stats()
+            runs[case] = {"tokens": got, "handoffs": h["handoffs"] - h0["handoffs"],
+                          "bytes": h["bytes_total"] - h0["bytes_total"],
+                          "fallbacks": {k: v - h0["fallbacks"].get(k, 0)
+                                        for k, v in h["fallbacks"].items()
+                                        if v != h0["fallbacks"].get(k, 0)},
+                          "export_failures": prefill.spill_fallbacks - fb0}
+            r = runs[case]
+            same = sum(1 for _ in itertools.takewhile(lambda ab: ab[0] == ab[1],
+                                                      zip(got, want)))
+            log(f"[disagg] phase 6's greedy request ({len(ids)}-token prompt, {GREEDY_TOKENS} "
+                f"tokens), {case}: {len(got)} tokens, the first {same} equal phase 6's "
+                f"monolithic run; handoffs {r['handoffs']}, {r['bytes']} bytes, fallbacks "
+                f"{r['fallbacks']}, export failures on the prefill replica "
+                f"{r['export_failures']}")
+            check(len(got) == GREEDY_TOKENS, f"[disagg] {case}: the stream was cut")
+        check(runs["clean"]["tokens"] == want and runs["clean"]["handoffs"] == 1
+              and runs["clean"]["bytes"] > 0, "the handed-off greedy stream differs from phase 6's")
+        check(runs["handoff_fault"]["fallbacks"] == {"handoff_fault": 1}
+              and runs["handoff_fault"]["handoffs"] == 0
+              and runs["handoff_fault"]["tokens"] == want,
+              "disagg.handoff did not serve in place, exactly")
+        check(runs["export_fault"]["handoffs"] == 1 and runs["export_fault"]["bytes"] == 0
+              and runs["export_fault"]["export_failures"] == 1,
+              "cache.export did not hand off blockless")
+        stats["ladder"] = runs
+        lap("phase 14, the greedy stream and the ladder")
+
+        # the prefill storm: the prefill pool's controller spawns, the
+        # decode pool's does not
+        autoscalers(port, True)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        storm = prefill_storm(port, co, pctrl)
+        autoscalers(port, False)
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        ps, ds = pctrl.state(), dctrl.state()
+        store = weight_store().stats()
+        log(f"[disagg] prefill storm: {STORM_CLIENTS} clients, {STORM_PROMPT}-token prompts at "
+            f"max_tokens 1-2 for {storm['seconds']:.1f}s, {storm['answered']} answered; prefill "
+            f"controller spawns {ps['spawns']} (failures {ps['spawn_failures']}), last_spawn_s "
+            f"{ps['last_spawn_s']:.3f} (an aliased spawn: pool and graph captures, no weight "
+            f"upload); decode controller spawns {ds['spawns']}; pools "
+            f"{len(co.prefill.replicas)} prefill, {len(co.decode.replicas)} decode; "
+            f"torch.cuda.memory_allocated +{(mem1 - mem0) / 1e9:.3f} GB; weight store "
+            f"{store['trees']} tree, {store['refs']} refs")
+        check(ps["spawns"] == 1 and ds["spawns"] == 0 and len(co.prefill.replicas) == 2
+              and len(co.decode.replicas) == 1, "the storm did not spawn exactly one prefill replica")
+        check(store["refs"] == 3 and store["trees"] == 1, "the spawn did not alias the weights")
+        spawned = co.prefill.replicas[1]
+        pool_id, graph_bytes = tuple(spawned.graphs.pool), spawned.graphs.pool_bytes()
+        kv_bytes = spawned.cache.nbytes
+        torch.cuda.synchronize()
+        mem_before, res_before = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        action = pctrl.drain_one()
+        drain_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem_after, res_after = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        graph_left = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg["segment_pool_id"]) == pool_id)
+        store = weight_store().stats()
+        log(f"[disagg] drain_one() on the prefill controller: {action} in {drain_s:.3f}s; the "
+            f"spawned replica held a pool of {kv_bytes} bytes and a graph pool of {graph_bytes} "
+            f"bytes, {graph_left} left of it; torch.cuda.memory_allocated {mem_before / 1e9:.3f} "
+            f"-> {mem_after / 1e9:.3f} GB, reserved {res_before / 1e9:.3f} -> "
+            f"{res_after / 1e9:.3f} GB; weight store {store['refs']} refs")
+        check(action == "drain" and store["refs"] == 2, "drain_one did not retire the spawn")
+        check(mem_before - mem_after >= kv_bytes and graph_left == 0,
+              "the drained replica's pool or graph memory stayed on the card")
+        stats["storm"] = {**storm, "last_spawn_s": ps["last_spawn_s"], "added": mem1 - mem0,
+                          "drain_s": drain_s, "freed": (kv_bytes, graph_bytes, graph_left),
+                          "memory": (mem_before, mem_after)}
+        lap("phase 14, the storm, the spawn and drain_one")
+
+        # brownout: the decode pool's ladder, level by level
+        levels = []
+        for pressure, level in BROWNOUT_STEPS:
+            dctrl.brownout.observe(pressure)
+            dctrl.tick()  # publishes the level to the decode pool's batchers
+            levels.append((dctrl.brownout.level(), decode.resilience_stats()["brownout_level"],
+                           prefill.resilience_stats()["brownout_level"]))
+        # the prefill replica keeps its own pool's level (the storm's)
+        check([lv[:2] for lv in levels] == [(lvl, lvl) for _, lvl in BROWNOUT_STEPS]
+              and len({lv[2] for lv in levels}) == 1,
+              f"[disagg] the ladder's levels (ladder, decode, prefill): {levels}")
+        status, body, headers = post_headers(port, {"prompt": mix_prompt(7, 64),
+                                                    "max_tokens": BROWNOUT_ASK})
+        cap = dctrl.brownout.max_tokens_cap()
+        status_m, text, _ = get(port, "/metrics")
+        values = metric_values(text.decode())
+        events = {k: v for k, v in values.items() if k.startswith("mst_autoscale_events_total")}
+        log(f"[disagg] brownout through the decode pool's ladder: levels (ladder, decode replica, "
+            f"prefill replica) {levels}; a request for {BROWNOUT_ASK} tokens: {status}, "
+            f"{body.get('usage', {}).get('completion_tokens', body)} tokens, headers {headers}; "
+            f"/metrics "
+            f"mst_brownout_level {values.get('mst_brownout_level')}, events {events}")
+        check(status == 200 and body.get("usage", {}).get("completion_tokens") == cap == 96
+              and headers == {"X-MST-Brownout-Level": "3", "X-MST-Max-Tokens-Capped": "96"},
+              "the brownout cap or its headers")
+        check(status_m == 200 and values.get("mst_brownout_level") == 3
+              and all(events.get(f'mst_autoscale_events_total{{kind="brownout_level_{lvl}"}}', 0)
+                      >= 1 for _, lvl in BROWNOUT_STEPS), "/metrics' brownout families")
+        stats["brownout"] = {"levels": levels, "headers": headers, "events": events}
+    finally:
+        faults.disarm()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        co.close()
+    del co, provider, prefill, decode, spawned, pctrl, dctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(weight_store().stats()["refs"] == 0, "the disagg pools' close left a weight ref")
+    lap("phase 14, brownout")
     return launches, stats
 
 
@@ -5408,7 +5732,8 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
         f"{PEAK_BYTES / 1e12:.2f} TB/s ({step['device_ms'] / (w_bytes / PEAK_BYTES * 1e3):.2f}x); "
         + ", ".join(f"{nm} {ms:.3f}" for nm, ms in step["kernels"]))
     ids = tok.encode(mix_prompt(1, n))
-    toks, tok_s, ties = plain_reference(tag, gen, ids, FAMILY_TOKENS)
+    # the tokens and near-ties alone: the decode rate is the streamed request's
+    toks, _, ties = plain_reference(tag, gen, ids, FAMILY_TOKENS, timed=False)
     stats.update(greedy=(ids, toks, ties), launches=launches)
     del gen
     return stats
@@ -5434,7 +5759,8 @@ def family_batch(tag: str, key: str, model, cfg, counts, greedy) -> dict:
     batcher = ContinuousBatcher(engine, decode_block=8, draft="off")
     log(f"{tag} batcher: {FAMILY_SLOTS} slots, pool {pages} pages of {PAGE} tokens "
         f"({batcher.cache.nbytes / 1e6:.1f} MB of K/V), {batcher.async_reason}")
-    graph_line(tag, batcher.warm_up())
+    # the decode block its greedy requests run, and no other
+    graph_line(tag, batcher.warm_up(**GREEDY_ONLY))
     tok = ByteTokenizer()
     server = make_server(ModelProvider(batcher, tok, model_name=key), "127.0.0.1", 0)
     port = server.server_address[1]
@@ -6075,7 +6401,9 @@ def main(argv=None) -> int:
     dense_launches, dense = phase_dense_batching(model, args.seed, single["decode_tok_s"], lap)
     surface_launches, surfaces = phase_surfaces(model, args.seed, lap)
     phase_kv_movement(model, args.seed, lap)
-    share_launches, _ = phase_share_and_replicas(model, args.seed, single_batch_tok_s, lap)
+    share_launches, share = phase_share_and_replicas(model, args.seed, single_batch_tok_s, lap)
+    disagg_launches, _ = phase_disagg(model, args.seed, single_batch_tok_s,
+                                      share["mix"]["tok_s"], greedy["bf16"], lap)
     quant_launches, _ = phase_main_path_4bit(model, args.seed)
     lap("main path, 4-bit")
     del model
@@ -6093,7 +6421,8 @@ def main(argv=None) -> int:
         "source": "mlx_sharding_tpu_torch/csrc/flash_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_attention"] + dense_launches["flash_attention"]
-                     + surface_launches["flash_attention"] + share_launches["flash_attention"]),
+                     + surface_launches["flash_attention"] + share_launches["flash_attention"]
+                     + disagg_launches["flash_attention"]),
         "max_abs_err": max(max_err, dense["kernels"]["flash_attention"],
                            surfaces["unaligned_err"]),
         "ms": mean("ms"),
@@ -6116,7 +6445,8 @@ def main(argv=None) -> int:
         "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/paged_attention.py:153",
         "launches": (paged_launches + surface_launches["paged_attention"]
-                     + share_launches["paged_attention"]),
+                     + share_launches["paged_attention"]
+                     + disagg_launches["paged_attention"]),
         "max_abs_err": paged_err,
         "ms": pmean("ms"),
         "plain_ms": pmean("plain_ms"),

@@ -548,21 +548,19 @@ cudaError_t launch_merge(const Params& p, int B, int row_tiles, cudaStream_t str
   return cudaGetLastError();
 }
 
+// The bf16 build with the options (OPT) or without
+template <bool OPT>
 struct LaunchBf16 {
   const Params& p;
   int B;
   cudaStream_t stream;
   template <int DK, int DV>
   cudaError_t run() const {
-    const bool opt = p.softcap > 0.0f || p.window > 0;
-    cudaError_t err = opt ? prepare_bf16<DK, DV, true>() : prepare_bf16<DK, DV, false>();
+    cudaError_t err = prepare_bf16<DK, DV, OPT>();
     if (err != cudaSuccess) return err;
     const int row_tiles = (p.T * (p.Hq / p.Hkv) + ROWS - 1) / ROWS;
     const dim3 grid(p.splits, row_tiles, B * p.Hkv);
-    if (opt)
-      flash_bf16_kernel<DK, DV, true><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
-    else
-      flash_bf16_kernel<DK, DV, false><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
+    flash_bf16_kernel<DK, DV, OPT><<<grid, THREADS, Bf16Layout<DK, DV>::BYTES, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess || p.splits == 1) return err;
     return launch_merge(p, B, row_tiles, stream);
@@ -572,6 +570,9 @@ struct LaunchBf16 {
 // The MLA build (values from K, Dk 576, Dv 512 in VS = 4 slices of 128)
 constexpr int MLA_DK = 576, MLA_DV = 512, MLA_VS = 4;
 
+// A split build compiles the MLA and fp32 launches in its main part alone
+// (a function that launches a template kernel instantiates it)
+#if !(defined(MST_PART_PLAIN) || defined(MST_PART_OPT))
 cudaError_t launch_mla(const Params& p, int B, cudaStream_t stream) {
   constexpr int DV = MLA_DV / MLA_VS;
   using L = Bf16Layout<MLA_DK, DV, true>;
@@ -584,16 +585,17 @@ cudaError_t launch_mla(const Params& p, int B, cudaStream_t stream) {
   if (err != cudaSuccess || p.splits == 1) return err;
   return launch_merge(p, B, row_tiles, stream);
 }
+#endif
 
 // Shared bytes, registers per thread, resident blocks per SM and local
 // bytes per thread of a variant (with the options or without).
+template <bool OPT>
 struct InfoBf16 {
   long long* out;
-  bool opt;
   template <int DK, int DV>
   cudaError_t run() const {
-    const auto kernel = opt ? flash_bf16_kernel<DK, DV, true> : flash_bf16_kernel<DK, DV, false>;
-    cudaError_t err = opt ? prepare_bf16<DK, DV, true>() : prepare_bf16<DK, DV, false>();
+    const auto kernel = flash_bf16_kernel<DK, DV, OPT>;
+    cudaError_t err = prepare_bf16<DK, DV, OPT>();
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernel);
@@ -847,11 +849,13 @@ cudaError_t launch_f32_stages(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+#if !(defined(MST_PART_PLAIN) || defined(MST_PART_OPT))
 cudaError_t launch_f32(const Params& p, int B, bool vk, cudaStream_t stream) {
   if (vk) return launch_f32_stages<1, true>(p, B, stream);
   return f32_stages(p.Dk, p.Dv) == 2 ? launch_f32_stages<2>(p, B, stream)
                                      : launch_f32_stages<1>(p, B, stream);
 }
+#endif
 
 // Blocks along the longest row tile's walk for `split` keys per block (0:
 // one block); ops/flash_attention.py::num_splits sizes the partials the
@@ -871,7 +875,43 @@ int num_splits(const Params& p, int split) {
 
 }  // namespace
 
+// The library is built as three translation units, compiled in parallel and
+// linked into one (ops/flash_attention.py names the parts): MST_PART_PLAIN
+// holds the bf16 build without the options, MST_PART_OPT the one with them,
+// and MST_PART_MAIN the MLA build, the fp32 kernel and the entry points,
+// which pass a bf16 call to its part (p a Params). Without any of the macros
+// this file holds everything.
+#if defined(MST_PART_PLAIN) || defined(MST_PART_OPT) || defined(MST_PART_MAIN)
+#define MST_SPLIT 1
+#endif
+
+// One bf16 build's launch and its attributes, in its part
+#define MST_BF16_BUILD(NAME, OPT)                                                      \
+  int mst_flash_bf16_##NAME(const void* p, int B, void* stream) {                      \
+    const Params& params = *static_cast<const Params*>(p);                             \
+    return (int)for_dims(params.Dk, params.Dv,                                         \
+                         LaunchBf16<OPT>{params, B, static_cast<cudaStream_t>(stream)}); \
+  }                                                                                    \
+  int mst_flash_bf16_info_##NAME(int Dk, int Dv, long long* out) {                     \
+    return (int)for_dims(Dk, Dv, InfoBf16<OPT>{out});                                  \
+  }
+
 extern "C" {
+
+#if !defined(MST_SPLIT) || defined(MST_PART_PLAIN)
+MST_BF16_BUILD(plain, false)
+#endif
+#if !defined(MST_SPLIT) || defined(MST_PART_OPT)
+MST_BF16_BUILD(opt, true)
+#endif
+
+#if !defined(MST_SPLIT) || defined(MST_PART_MAIN)
+#ifdef MST_SPLIT
+int mst_flash_bf16_plain(const void*, int, void*);
+int mst_flash_bf16_info_plain(int, int, long long*);
+int mst_flash_bf16_opt(const void*, int, void*);
+int mst_flash_bf16_info_opt(int, int, long long*);
+#endif
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, in the
 // order q (b, t, h), k (b, s, h), v (b, s, h), o (b, t, h). softcap: the
@@ -937,7 +977,8 @@ int mst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
   p.split = p.splits > 1 ? split : S;
   if (p.splits > 1 && (part_o == nullptr || part_ml == nullptr)) return (int)cudaErrorInvalidValue;
   if (vk) return (int)launch_mla(p, B, s);
-  return (int)for_dims(Dk, Dv, LaunchBf16{p, B, s});
+  return p.softcap > 0.0f || p.window > 0 ? mst_flash_bf16_opt(&p, B, stream)
+                                          : mst_flash_bf16_plain(&p, B, stream);
 }
 
 const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -947,7 +988,7 @@ const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaErro
 // resident blocks per SM, local (spill) bytes per thread. Returns the
 // cudaError_t of the queries.
 int mst_flash_attention_kernel_info(int Dk, int Dv, int options, long long* out) {
-  return (int)for_dims(Dk, Dv, InfoBf16{out, options != 0});
+  return options ? mst_flash_bf16_info_opt(Dk, Dv, out) : mst_flash_bf16_info_plain(Dk, Dv, out);
 }
 
 // The same of the MLA build (Dk 576, Dv 512 read from K).
@@ -968,5 +1009,6 @@ int mst_flash_attention_mla_info(long long* out) {
   out[3] = (long long)attr.localSizeBytes;
   return (int)err;
 }
+#endif  // MST_PART_MAIN
 
 }  // extern "C"

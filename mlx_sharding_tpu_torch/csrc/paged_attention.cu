@@ -1420,7 +1420,64 @@ int num_splits(int page, int spg, int split) {
 
 }  // namespace
 
+// The library is built as four translation units, compiled in parallel and
+// linked into one (ops/paged_attention.py names the parts): MST_PART_BF16
+// and MST_PART_INT8 hold the tensor-core builds without the options over a
+// bf16 and an int8 pool (the MLA build too), MST_PART_OPT those with them,
+// and MST_PART_MAIN the FMA kernel and the entry points, which pass a
+// tensor-core call to its part (p a Params, km and vm the pools' maps).
+// Without any of the macros this file holds everything.
+#if defined(MST_PART_BF16) || defined(MST_PART_INT8) || defined(MST_PART_OPT) || \
+    defined(MST_PART_MAIN)
+#define MST_SPLIT 1
+#endif
+
+// One pool dtype's plain tensor-core builds (vk: the MLA build) and their
+// attributes (mla: the MLA build's), in its part
+#define MST_TC_BUILD(NAME, TKV)                                                           \
+  int mst_paged_tc_##NAME(const void* p, const void* km, const void* vm, int M, int vk,    \
+                          void* stream) {                                                 \
+    const Params& params = *static_cast<const Params*>(p);                                \
+    const CUtensorMap& k = *static_cast<const CUtensorMap*>(km);                          \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                                   \
+    if (vk) return (int)launch_tc_mla<TKV>(params, k, M, s);                              \
+    return (int)launch_tc_dv<TKV, false>(params, k, *static_cast<const CUtensorMap*>(vm), \
+                                         M, s);                                           \
+  }                                                                                       \
+  int mst_paged_tc_info_##NAME(int Dk, int Dv, int M, int mla, long long* out) {          \
+    if (mla) return (int)tc_info<TKV, VSLICE, MLA_DV / VSLICE>(MLA_DK, M, 16, out);       \
+    return (int)tc_info_dv<TKV>(Dk, Dv, M, out);                                          \
+  }
+
 extern "C" {
+
+#if !defined(MST_SPLIT) || defined(MST_PART_BF16)
+MST_TC_BUILD(bf16, __nv_bfloat16)
+#endif
+#if !defined(MST_SPLIT) || defined(MST_PART_INT8)
+MST_TC_BUILD(int8, int8_t)
+#endif
+#if !defined(MST_SPLIT) || defined(MST_PART_OPT)
+// The tensor-core builds with the softcap and window, over either pool
+int mst_paged_tc_opt(const void* p, const void* km, const void* vm, int M, int int8,
+                     void* stream) {
+  const Params& params = *static_cast<const Params*>(p);
+  const CUtensorMap& k = *static_cast<const CUtensorMap*>(km);
+  const CUtensorMap& v = *static_cast<const CUtensorMap*>(vm);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int8 ? (int)launch_tc_dv<int8_t, true>(params, k, v, M, s)
+              : (int)launch_tc_dv<__nv_bfloat16, true>(params, k, v, M, s);
+}
+#endif
+
+#if !defined(MST_SPLIT) || defined(MST_PART_MAIN)
+#ifdef MST_SPLIT
+int mst_paged_tc_bf16(const void*, const void*, const void*, int, int, void*);
+int mst_paged_tc_info_bf16(int, int, int, int, long long*);
+int mst_paged_tc_int8(const void*, const void*, const void*, int, int, void*);
+int mst_paged_tc_info_int8(int, int, int, int, long long*);
+int mst_paged_tc_opt(const void*, const void*, const void*, int, int, void*);
+#endif
 
 // q_dtype: 0 = float32, 1 = bfloat16. kv_dtype: 0 = float32, 1 = bfloat16,
 // 2 = int8 (then k_scale and v_scale are given). softcap: the logit cap (0:
@@ -1491,15 +1548,13 @@ int mst_paged_attention(const void* q, const void* k, const void* v, const void*
     CUtensorMap km, vm;
     cudaError_t err = pool_map(&km, k, int8, rows, Hkv * Dk, p.box_rows);
     if (err != cudaSuccess) return (int)err;
-    if (vk) return int8 ? (int)launch_tc_mla<int8_t>(p, km, M, s)
-                        : (int)launch_tc_mla<__nv_bfloat16>(p, km, M, s);
-    err = pool_map(&vm, v, int8, rows, Hkv * Dv, p.box_rows);
-    if (err != cudaSuccess) return (int)err;
-    const bool opt = softcap > 0.0f || window > 0;
-    if (int8) return opt ? (int)launch_tc_dv<int8_t, true>(p, km, vm, M, s)
-                         : (int)launch_tc_dv<int8_t, false>(p, km, vm, M, s);
-    return opt ? (int)launch_tc_dv<__nv_bfloat16, true>(p, km, vm, M, s)
-               : (int)launch_tc_dv<__nv_bfloat16, false>(p, km, vm, M, s);
+    if (!vk) {
+      err = pool_map(&vm, v, int8, rows, Hkv * Dv, p.box_rows);
+      if (err != cudaSuccess) return (int)err;
+      if (softcap > 0.0f || window > 0) return mst_paged_tc_opt(&p, &km, &vm, M, int8, stream);
+    }
+    return int8 ? mst_paged_tc_int8(&p, &km, &vm, M, vk, stream)
+                : mst_paged_tc_bf16(&p, &km, &vm, M, vk, stream);
   }
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch_fma<float, float>(p, M, s);
   if (q_dtype == 0 && kv_dtype == 2) return (int)launch_fma<float, int8_t>(p, M, s);
@@ -1515,17 +1570,18 @@ const char* mst_cuda_error_string(int err) { return cudaGetErrorString((cudaErro
 // registers per thread, resident blocks per SM, local (spill) bytes per
 // thread. Returns the cudaError_t of the queries.
 int mst_paged_attention_kernel_info(int kv_dtype, int Dk, int Dv, int M, long long* out) {
-  if (kv_dtype == 1) return (int)tc_info_dv<__nv_bfloat16>(Dk, Dv, M, out);
-  if (kv_dtype == 2) return (int)tc_info_dv<int8_t>(Dk, Dv, M, out);
+  if (kv_dtype == 1) return mst_paged_tc_info_bf16(Dk, Dv, M, 0, out);
+  if (kv_dtype == 2) return mst_paged_tc_info_int8(Dk, Dv, M, 0, out);
   return (int)cudaErrorInvalidValue;
 }
 
 // The same of the MLA build (values_from_k at Dk 576, Dv 512), 16 heads a
 // block.
 int mst_paged_attention_mla_info(int kv_dtype, int M, long long* out) {
-  if (kv_dtype == 1) return (int)tc_info<__nv_bfloat16, VSLICE, MLA_DV / VSLICE>(MLA_DK, M, 16, out);
-  if (kv_dtype == 2) return (int)tc_info<int8_t, VSLICE, MLA_DV / VSLICE>(MLA_DK, M, 16, out);
+  if (kv_dtype == 1) return mst_paged_tc_info_bf16(0, 0, M, 1, out);
+  if (kv_dtype == 2) return mst_paged_tc_info_int8(0, 0, M, 1, out);
   return (int)cudaErrorInvalidValue;
 }
+#endif  // MST_PART_MAIN
 
 }  // extern "C"

@@ -1407,26 +1407,43 @@ Params make_params(const void* x, const void* q, const void* scales, const void*
 
 }  // namespace
 
-// The library is built as four translation units, compiled in parallel and
-// linked into one (ops/quant_matmul.py names the parts): MST_PART_GEMV2,
-// MST_PART_GEMV4 and MST_PART_GEMV8 each hold the GEMV instantiations of one
-// bit width, MST_PART_MATMUL the matmul and the entry points, which pass a
-// GEMV call to its width's part. Without any of the macros this file holds
-// everything.
-#if defined(MST_PART_GEMV2) || defined(MST_PART_GEMV4) || defined(MST_PART_GEMV8) || \
-    defined(MST_PART_MATMUL)
+// The library is built as five translation units, compiled in parallel and
+// linked into one (ops/quant_matmul.py names the parts): MST_PART_GEMV2 and
+// MST_PART_GEMV2_WIDE hold the 2-bit GEMV's instantiations at M <= 2 and at
+// M = 3-8 (the first takes the 2-bit calls and passes the wider ones on),
+// MST_PART_GEMV4 and MST_PART_GEMV8 those of one bit width each,
+// MST_PART_MATMUL the matmul and the entry points, which pass a GEMV call to
+// its width's part. Without any of the macros this file holds everything.
+#if defined(MST_PART_GEMV2) || defined(MST_PART_GEMV2_WIDE) || defined(MST_PART_GEMV4) || \
+    defined(MST_PART_GEMV8) || defined(MST_PART_MATMUL)
 #define MST_SPLIT 1
 #endif
 
 namespace {
 
+// The GEMV's row-count instantiations this translation unit holds
+#if defined(MST_PART_GEMV2)
+constexpr int M_FIRST = 1, M_LAST = 2;
+#elif defined(MST_PART_GEMV2_WIDE)
+constexpr int M_FIRST = 4, M_LAST = 8;
+#else
+constexpr int M_FIRST = 1, M_LAST = 8;
+#endif
+
 // F(std::integral_constant<int, MT>) for the instantiation that serves M
+// (among this unit's: the caller passes only M it holds)
 template <typename F>
 auto for_m(int M, const F& f) {
-  if (M <= 1) return f(std::integral_constant<int, 1>{});
-  if (M <= 2) return f(std::integral_constant<int, 2>{});
-  if (M <= 4) return f(std::integral_constant<int, 4>{});
-  return f(std::integral_constant<int, 8>{});
+  if constexpr (M_FIRST <= 1) {
+    if (M <= 1) return f(std::integral_constant<int, 1>{});
+  }
+  if constexpr (M_FIRST <= 2 && M_LAST > 2) {
+    if (M <= 2) return f(std::integral_constant<int, 2>{});
+  }
+  if constexpr (M_LAST > 4) {
+    if (M <= 4) return f(std::integral_constant<int, 4>{});
+  }
+  return f(std::integral_constant<int, M_LAST>{});
 }
 
 template <int BITS>
@@ -1518,8 +1535,43 @@ int gemv_info(int M, int group_size, int param_code, long long* out) {
 
 extern "C" {
 
+// The 2-bit GEMV over two parts: its M = 3-8 instantiations under other
+// names, which the M <= 2 part's entry points call
+#if !defined(MST_SPLIT) || defined(MST_PART_GEMV2_WIDE)
+int mst_quant_gemv_wide_b2(const void* x, const void* q, const void* scales, const void* biases,
+                           void* out, int x_code, int param_code, int M, int IN, int OUT,
+                           int group_size, int split, void* part, void* stream) {
+  return gemv<2>(x, q, scales, biases, out, x_code, param_code, M, IN, OUT, group_size, split,
+                 part, stream);
+}
+int mst_quant_gemv_info_wide_b2(int M, int group_size, int param_code, long long* out) {
+  return gemv_info<2>(M, group_size, param_code, out);
+}
+#endif
 #if !defined(MST_SPLIT) || defined(MST_PART_GEMV2)
-MST_GEMV_WIDTH(2)
+int mst_quant_gemv_wide_b2(const void*, const void*, const void*, const void*, void*, int, int,
+                           int, int, int, int, int, void*, void*);
+int mst_quant_gemv_info_wide_b2(int, int, int, long long*);
+int mst_quant_gemv_b2(const void* x, const void* q, const void* scales, const void* biases,
+                      void* out, int x_code, int param_code, int M, int IN, int OUT,
+                      int group_size, int split, void* part, void* stream) {
+  if (M > 2)
+    return mst_quant_gemv_wide_b2(x, q, scales, biases, out, x_code, param_code, M, IN, OUT,
+                                  group_size, split, part, stream);
+  return gemv<2>(x, q, scales, biases, out, x_code, param_code, M, IN, OUT, group_size, split,
+                 part, stream);
+}
+int mst_quant_gemv_experts_b2(const void* x, const void* q, const void* scales,
+                              const void* biases, void* out, const void* ids, int x_code,
+                              int param_code, int pairs, int x_div, int experts, int IN,
+                              int OUT, int group_size, void* stream) {
+  return gemv_experts<2>(x, q, scales, biases, out, ids, x_code, param_code, pairs, x_div,
+                         experts, IN, OUT, group_size, stream);
+}
+int mst_quant_gemv_info_b2(int M, int group_size, int param_code, long long* out) {
+  if (M > 2) return mst_quant_gemv_info_wide_b2(M, group_size, param_code, out);
+  return gemv_info<2>(M, group_size, param_code, out);
+}
 #endif
 #if !defined(MST_SPLIT) || defined(MST_PART_GEMV4)
 MST_GEMV_WIDTH(4)

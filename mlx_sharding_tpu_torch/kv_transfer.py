@@ -48,8 +48,10 @@ re-prefills from its folded history; the stream stays exact.
 A block carries the pool's KV share map hash (``share_hash``, None for an
 unshared pool or the identity map); an import into a pool of another
 layout is refused. The batcher's drain (``migrate_out``) moves blocks
-between replicas on the host. Left for later slices: the disagg handoff
-movers and the pod federation's blobs.
+between replicas on the host, and so does the disagg handoff: the prefill
+replica exports (``ContinuousBatcher._handoff_out``), the coordinator
+calls :meth:`KVPageBlock.to_host` on the request's thread, the decode
+replica imports. Left for a later slice: the pod federation's blobs.
 """
 
 from __future__ import annotations

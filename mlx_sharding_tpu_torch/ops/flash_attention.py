@@ -112,7 +112,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mst_flash_attention_mla_info.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
 
 
-_LIBRARY = CudaLibrary("flash_attention.cu", _bind)
+_LIBRARY = CudaLibrary("flash_attention.cu", _bind,
+                       parts=("MST_PART_PLAIN", "MST_PART_OPT", "MST_PART_MAIN"))
 SOURCE = _LIBRARY.source
 
 

@@ -96,7 +96,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
 
 
-_LIBRARY = CudaLibrary("paged_attention.cu", _bind)
+_LIBRARY = CudaLibrary("paged_attention.cu", _bind,
+                       parts=("MST_PART_BF16", "MST_PART_INT8", "MST_PART_OPT", "MST_PART_MAIN"))
 SOURCE = _LIBRARY.source
 
 

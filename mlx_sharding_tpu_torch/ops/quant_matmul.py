@@ -111,7 +111,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 # the GEMVs of each bit width and the matmul are compiled as four parts at
 # once: one nvcc of the whole file was the longest build
 _LIBRARY = CudaLibrary("quant_matmul.cu", _bind, parts=(
-    "MST_PART_GEMV2", "MST_PART_GEMV4", "MST_PART_GEMV8", "MST_PART_MATMUL"))
+    "MST_PART_GEMV2", "MST_PART_GEMV2_WIDE", "MST_PART_GEMV4", "MST_PART_GEMV8",
+    "MST_PART_MATMUL"))
 SOURCE = _LIBRARY.source
 
 

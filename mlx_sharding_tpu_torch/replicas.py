@@ -21,9 +21,9 @@ detour.
 Elasticity: ``add_replica()`` appends a freshly spawned replica (indices are
 stable; retired slots keep their position) and ``drain()`` retires one with
 zero dropped streams. The controller that calls them under queue pressure
-(``fleet.py``) comes with a later slice; this module provides the
-mechanisms plus the ``autoscale_events`` / ``replica_stats()`` /
-``fleet_stats()`` surfaces that /metrics and /health report.
+is ``fleet.FleetAutoscaler``; this module provides the mechanisms plus the
+``autoscale_events`` / ``replica_stats()`` / ``fleet_stats()`` surfaces
+that /metrics and /health report.
 
 Requests route once and normally stay put; when a stream must leave its
 replica anyway — graceful drain or a mid-stream crash — it migrates as a

@@ -11,7 +11,7 @@ error types and the deadline bookkeeping, standard library only.
 - :class:`ResumeState`, :class:`RequestMigratedError`: a stream ended on one
   replica so that it continues on another (drain), with what the target
   needs to resume it exactly; :class:`HandoffReadyError`: a prefill-only
-  stream's handoff (its coordinator comes with the disaggregated slice).
+  stream's handoff (``disagg.DisaggCoordinator`` catches it).
 
 Deadline semantics (enforced by ``ContinuousBatcher``):
 

@@ -140,8 +140,24 @@ block (or its spilled block); the replica set re-places it through
 ``generate_step(_resume=...)`` on another batcher, which imports the block
 at admission (or, without one, folds the history and re-prefills), so a
 greedy or seeded stream continues exactly. A draining batcher refuses new
-work with ``ReplicaDrainingError``. The disaggregated handoff movers come
-with a later slice.
+work with ``ReplicaDrainingError``.
+
+Disaggregated serving (JAX's prefill-only protocol):
+``generate_step(_prefill_only=True)`` admits a request that needs one
+token here. When its prefill completes and its first token is emitted,
+the slot is parked; the tick exports its page chain (a gather on the
+tick's stream, the copy to the host left to the consumer: the disagg
+coordinator calls ``to_host`` on its own thread), frees the slot before
+the decode dispatch, and ends the stream with a ``HandoffReadyError``
+carrying the :class:`ResumeState`. The parked slots' window rows come to
+the host in one copy.
+
+Brownout (``set_pressure``, the fleet controller's ladder): level 1 pauses
+prefix-store insertion, level 2 sheds speculation (per slot, lowest
+acceptance first, through the tracker; a fixed-K draft engine pauses),
+level 3 sheds it everywhere and halves the queue bound. The ``spec.draft``
+fault site degrades one speculative round to a plain block, counted in
+``spec_stats()["draft_faults"]``.
 """
 
 from __future__ import annotations
@@ -172,6 +188,7 @@ from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.graphs import StepGraphs, close_worker, open_worker
 from mlx_sharding_tpu_torch.resilience import (
     Deadlines,
+    HandoffReadyError,
     QueueFullError,
     ReplicaDrainingError,
     RequestMigratedError,
@@ -179,6 +196,7 @@ from mlx_sharding_tpu_torch.resilience import (
     ResumeState,
 )
 from mlx_sharding_tpu_torch.speculative import AcceptanceTracker, NgramDraftProposer
+from mlx_sharding_tpu_torch.testing.faults import inject
 from mlx_sharding_tpu_torch.sample import (
     BIAS_WIDTH,
     SamplerParams,
@@ -196,6 +214,9 @@ from mlx_sharding_tpu_torch.utils.observability import (
 )
 
 logger = logging.getLogger(__name__)
+
+# the decode blocks' kinds, (sampled, logprobs): one CUDA graph each
+BLOCK_KINDS = ((False, False), (False, True), (True, False), (True, True))
 
 # Retry-After clamps for 429 sheds: the estimate comes from the observed
 # completion rate, bounded so that a mis-sampled rate can neither tell
@@ -266,6 +287,9 @@ class _Request:
     block: Optional[object] = None
     consumed_seen: int = 0
     cold_ticks: int = 0
+    # disaggregated serving: emit the first token, then end the stream with
+    # HandoffReadyError(ResumeState) instead of decoding
+    prefill_only: bool = False
     # tracing: the bound timeline (None when off or not sampled; a
     # server-owned one is retired by the server), and the perf_counter
     # stamps of the queue-wait and inter-token histograms
@@ -322,6 +346,10 @@ class ContinuousBatcher:
     # generate_step takes _resume (a ResumeState): the dispatcher re-places
     # migrated streams only onto batchers that advertise it
     supports_resume = True
+    # generate_step takes _prefill_only=True (disaggregated serving): the
+    # stream delivers the first token, then ends with HandoffReadyError
+    # carrying the request's ResumeState
+    supports_prefill_only = True
 
     def __init__(self, engine, *, repetition_window: int = 64, decode_block: int = 8,
                  policy: str = "fifo", prefix_cache: bool = False, overcommit: bool = False,
@@ -479,6 +507,7 @@ class ContinuousBatcher:
         # tokens replayed through the draft to keep its caches in step
         self.fallback_ticks = 0
         self.replayed_tokens = 0
+        self.spec_draft_faults = 0  # spec.draft faults: that tick ran a plain block
         # the slot offsets on the device, which every decode block and
         # verify plans from and moves (the host's are taken whenever exact)
         self._dev_off = torch.zeros(self.M, dtype=torch.int64, device=engine.device)
@@ -499,6 +528,10 @@ class ContinuousBatcher:
         self.shed_queue_full = 0  # rejected at submission (429)
         self.shed_deadline = 0  # shed while queued: the TTFT budget had gone
         self._finish_times: deque = deque(maxlen=256)  # completion stamps
+        # the fleet controller's brownout level (set_pressure): >= 2 sheds
+        # speculation, 3 halves the queue bound. Read racily on the tick, as
+        # JAX does: it changes at the controller's tick cadence
+        self._pressure = 0
         # close() sets it when the scheduler thread outlives its join: the
         # health turns degraded and the thread-live gauge drops to 0
         self.thread_wedged = False
@@ -601,6 +634,10 @@ class ContinuousBatcher:
         # through generate_step(_resume=...)
         self.migrations_out = 0
         self.migrations_in = 0
+        self.handoffs_out = 0  # prefill-only requests handed to a decode pool
+        # prefill-only requests whose first token was emitted this tick:
+        # _handoff_out exports them before the tick's decode dispatch
+        self._handoff_ready: list[_Request] = []
         # the drain flag: migrate_out sets it (under _start_lock) and it
         # stays set, so the batcher is retired
         self._migrate_requested = False
@@ -641,6 +678,7 @@ class ContinuousBatcher:
         ttft_timeout: Optional[float] = None,
         stall_timeout: Optional[float] = None,
         _resume: Optional[ResumeState] = None,
+        _prefill_only: bool = False,
         _trace=None,
     ):
         """Validate and enqueue at once (every rejection raises on the
@@ -651,7 +689,9 @@ class ContinuousBatcher:
         ``_resume``: a stream migrated off another batcher continues here
         (JAX's re-placement): its block is imported at admission, or
         without one its history folds into the prompt and re-prefills, its
-        sampler state restored either way. ``_trace``: the server's
+        sampler state restored either way. ``_prefill_only`` (the disagg
+        coordinator's): the stream ends after the first token with a
+        ``HandoffReadyError`` carrying the request's state. ``_trace``: the server's
         timeline for the request; without one the request begins its own
         on the process tracer (None when off)."""
         with self._start_lock:
@@ -718,6 +758,7 @@ class ContinuousBatcher:
             rep_context=min(repetition_context_size, self.W),
             want_logprobs=want_logprobs,
             deadlines=deadlines,
+            prefill_only=bool(_prefill_only),
         )
         if _resume is not None:
             req.produced, req.history, req.block = produced0, hist, block
@@ -735,7 +776,7 @@ class ContinuousBatcher:
         req.t_submit = time.perf_counter()
         if tr is not None:
             tr.note(prompt_tokens=int(prompt.size), max_tokens=int(max_tokens),
-                    resumed=_resume is not None)
+                    prefill_only=bool(_prefill_only), resumed=_resume is not None)
             tr.point("submit")
         self._ensure_running()
         if self.max_queue is None:
@@ -745,14 +786,19 @@ class ContinuousBatcher:
             # exact across submitters; soft by at most the one request the
             # scheduler thread is moving from the submit queue to the line
             depth = self._submit.qsize() + len(self._waiting)
-            if depth >= self.max_queue:
+            bound = self.max_queue
+            if self._pressure >= 3:
+                # brownout level 3: shed at half the bound, so the queue
+                # wait stays short while the fleet is saturated
+                bound = max(1, bound // 2)
+            if depth >= bound:
                 self.shed_queue_full += 1
                 if tr is not None:
-                    tr.point("shed", depth=depth, bound=self.max_queue)
+                    tr.point("shed", depth=depth, bound=bound)
                     if req.trace_own:
                         tracing.finish(tr)
-                raise QueueFullError(depth, self.max_queue, retry_after_s=estimate_retry_after(
-                    max(1, depth - self.max_queue + 1), self._finish_times, self._clock()))
+                raise QueueFullError(depth, bound, retry_after_s=estimate_retry_after(
+                    max(1, depth - bound + 1), self._finish_times, self._clock()))
             self._submit.put(req)
         return self._consume(req)
 
@@ -800,13 +846,15 @@ class ContinuousBatcher:
         finally:
             req.cancelled = True  # the scheduler reclaims the slot next tick
 
-    def warm_up(self) -> dict:
+    def warm_up(self, blocks=BLOCK_KINDS) -> dict:
         """Capture, before the first request and with every slot idle, the
         prefill chunk of every offset below ``max_seq``, the decode blocks
-        (greedy and sampled, with and without logprobs) and, under
-        speculation, the round of every window (greedy and sampled): the
-        n-gram verify, or the draft engine's proposals and the verify, with
-        the draft's prefill chunks and its replay of a block. Their warm-ups
+        of each (sampled, logprobs) kind in ``blocks`` (all four by default;
+        a caller that serves fewer kinds names them, and any other is
+        captured on first use) and, under speculation, the round of every
+        window, greedy and sampled as ``blocks`` has them: the n-gram
+        verify, or the draft engine's proposals and the verify, with the
+        draft's prefill chunks and its replay of a block. Their warm-ups
         write only the scratch page (or slot). Returns the graphs captured,
         their capture seconds and the pools' bytes (both models' with a
         draft engine); ``{}`` without graphs. Call it before the scheduler
@@ -823,15 +871,15 @@ class ContinuousBatcher:
                 graphs.run(("prefill", off), functools.partial(eng.prefill_step, cache, off))
         windows = (self.spec_tracker.rungs if self.spec_tracker is not None else
                    (self.spec_k,) if self.draft is not None else ())
-        for sampled in (False, True):
-            for want_lp in (False, True):
-                self._run_block(want_lp, sampled)
+        for kind in sorted({sampled for sampled, _ in blocks}):
+            for want_lp in sorted({lp for sampled, lp in blocks if sampled == kind}):
+                self._run_block(want_lp, kind)
             for k in windows:
                 if self.draft is not None:
-                    self._run_round(k, np.ones(self.M, np.int32), sampled)
+                    self._run_round(k, np.ones(self.M, np.int32), kind)
                 else:
                     self._run_verify(k, np.zeros((k, self.M), np.int32),
-                                     np.ones(self.M, np.int32), sampled, exact=True)
+                                     np.ones(self.M, np.int32), kind, exact=True)
         if self.draft is not None:
             self._run_replay(np.zeros((self.decode_block, self.M), np.int64))
         torch.cuda.synchronize(self.engine.device)
@@ -884,13 +932,15 @@ class ContinuousBatcher:
         carries)."""
         live = self.scheduler_thread_live()  # its own lock, taken before ours
         with self._admission_lock:
-            return {"timeouts": self.timeouts, "shed_queue_full": self.shed_queue_full,
+            return {"timeouts": self.timeouts, "brownout_level": self._pressure,
+                    "shed_queue_full": self.shed_queue_full,
                     "shed_deadline": self.shed_deadline, "max_queue": self.max_queue,
                     "scheduler_thread_live": live, "preemptions": self.preemptions,
                     "spills": self.spills, "spill_hits": self.spill_hits,
                     "spill_fallbacks": self.spill_fallbacks,
                     "migrations_out": self.migrations_out,
-                    "migrations_in": self.migrations_in}
+                    "migrations_in": self.migrations_in,
+                    "handoffs_out": self.handoffs_out}
 
     def stats(self) -> tuple[int, int, int]:
         """(slots, active slots, queued requests). ``_slots`` belongs to the
@@ -898,6 +948,19 @@ class ContinuousBatcher:
         with self._admission_lock:
             queued = self._submit.qsize() + len(self._waiting)
         return self.M, sum(1 for r in self._slots if r is not None), queued
+
+    def set_pressure(self, level: int):
+        """The brownout ladder's level from the fleet controller (JAX's):
+        level >= 1 pauses prefix-store insertion (hits still serve), >= 2
+        sheds speculation (per slot, lowest acceptance first, with a tracker;
+        a fixed-K draft engine pauses), 3 sheds it everywhere and halves the
+        queue bound. Idempotent; levels outside [0, 3] are clamped."""
+        lvl = max(0, min(3, int(level)))
+        with self._admission_lock:
+            self._pressure = lvl
+        store = self.prefix_store
+        if store is not None:
+            store.pause_inserts(lvl >= 1)
 
     def _live_locked(self) -> bool:
         """``scheduler_thread_live``'s body; the caller holds ``_start_lock``."""
@@ -1006,8 +1069,7 @@ class ContinuousBatcher:
             "accept_rate": self.accepted_tokens / max(1, self.draft_tokens),
             "fallback_ticks": self.fallback_ticks,
             "replayed_tokens": self.replayed_tokens,
-            # JAX's spec.draft faults: the port has no fault harness
-            "draft_faults": 0,
+            "draft_faults": self.spec_draft_faults,
         }
         if self.spec_tracker is not None:
             out.update(self.spec_tracker.stats())
@@ -1089,6 +1151,10 @@ class ContinuousBatcher:
         from a block (``block``, or its entry in the spill tier) sizes from
         the block's KV rows: at least its pages, plus the same headroom."""
         remaining = max(1, req.max_tokens - req.produced)
+        if req.prefill_only:
+            # it emits one token here before its block leaves for the decode
+            # pool: its decode budget would starve this pool's admission
+            remaining = 1
         if block is None:
             block = req.block
         if block is None and req.spilled and self.spill is not None:
@@ -1713,6 +1779,11 @@ class ContinuousBatcher:
             chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
             lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
         self._emit(req, int(tok[0]), lp)
+        if req.prefill_only and req.slot >= 0:
+            # the first token is the prefill replica's whole work: park the
+            # request; the tick exports its block and frees the slot before
+            # the decode dispatch, so the slot never enters a decode block
+            self._handoff_ready.append(req)
 
     def _emit(self, req: _Request, token: int, logprobs):
         now = time.perf_counter()
@@ -1877,7 +1948,7 @@ class ContinuousBatcher:
             return []
         cold = []
         for req in self._slots:
-            if req is None or req.cancelled:
+            if req is None or req.cancelled or req.prefill_only:
                 continue
             if not self._prefill_done(req) or not req.history:
                 continue
@@ -2079,19 +2150,22 @@ class ContinuousBatcher:
         self._waiting.clear()
         self._parked.clear()
 
-    def _export_resume_state(self, req: _Request, slot: int) -> ResumeState:
+    def _export_resume_state(self, req: _Request, slot: int, *, host: bool = True,
+                             recent: Optional[torch.Tensor] = None) -> ResumeState:
         """A request's portable :class:`ResumeState`. A decoding request in
-        ``slot`` gets its generator state and window captured and its page
-        chain exported; a waiting one that was spilled hands over its tier
-        block. The block is moved to the host (any stage on this card
-        dropped first), since it must outlive the engine. Any failure
-        (a ``cache.export`` fault, the pages short, the copy) is counted
-        and degrades to a blockless state: the target folds the history
-        and re-prefills, exact all the same, since the sampler state
-        travels."""
+        ``slot`` gets its generator state and window (``recent``: the row
+        already on the host) captured and its page chain exported; a
+        waiting one that was spilled hands over its tier block. With
+        ``host`` the block is moved to the host (any stage on this card
+        dropped first), since it must outlive the engine; without, it holds
+        the gather's device tensors and the consumer copies it (the disagg
+        handoff). Any failure (a ``cache.export`` fault, the pages short,
+        the copy) is counted and degrades to a blockless state: the target
+        folds the history and re-prefills, exact all the same, since the
+        sampler state travels."""
         if slot >= 0 and self._prefill_done(req):
             req.resume_gen = self.generators[slot].get_state()
-            req.resume_recent = self.recent[slot].cpu()
+            req.resume_recent = self.recent[slot].cpu() if recent is None else recent
         block, req.block = req.block, None  # one a previous migration brought
         if block is None and req.spilled:
             req.spilled = False
@@ -2116,9 +2190,9 @@ class ContinuousBatcher:
                 block = None
                 with self._admission_lock:
                     self.spill_fallbacks += 1
-                logger.warning("drain export failed for slot %d (re-prefill there): %s",
+                logger.warning("KV export failed for slot %d (the target re-prefills): %s",
                                slot, e)
-        if block is not None:
+        if block is not None and host:
             try:
                 block.drop_prefetch()  # a stage holds this card's memory
                 block.to_host()
@@ -2136,6 +2210,46 @@ class ContinuousBatcher:
             resume_keys=req.resume_gen,
             resume_recent=req.resume_recent,
         )
+
+    def _handoff_out(self):
+        """End this tick's prefill-only requests (JAX ``_handoff_out``):
+        export each parked request's page chain (a gather on the tick's
+        stream, no copy to the host: the disagg coordinator makes it on the
+        request's consumer thread, so this replica's next ticks run under
+        it), free its slot and pages, and end its stream with a
+        ``HandoffReadyError`` carrying the :class:`ResumeState`. Runs after
+        the prefill section and before the decode dispatch, with nothing in
+        flight (the tick quiesced for the prefill), so a released slot is
+        inactive in the next decode block's upload. The parked slots' window
+        rows come to the host in one copy; a generator's state is host
+        memory already."""
+        ready, self._handoff_ready = self._handoff_ready, []
+        live = [r for r in ready if r.slot >= 0]
+        rows = {}
+        keep = [r.slot for r in live if not r.cancelled]
+        if keep:
+            host = self.recent[keep].cpu()
+            rows = {slot: host[i] for i, slot in enumerate(keep)}
+        for req in live:
+            if req.cancelled:
+                self._finish(req)
+                continue
+            slot = req.slot
+            tr = req.trace
+            t0 = time.perf_counter() if tr is not None else 0.0
+            with tracing.bind(tr):
+                state = self._export_resume_state(req, slot, host=False, recent=rows[slot])
+            if tr is not None:
+                # the disagg handoff's first part, on the prefill replica;
+                # the coordinator records the transfer
+                tr.add("handoff_export", t0, time.perf_counter(), slot=slot)
+            # the pages go back to the pool now: their next writer (an
+            # admission's prefill) is enqueued after the gather on this stream
+            self._vacate(req)
+            req.out.put(HandoffReadyError(state))
+            with self._admission_lock:
+                self.handoffs_out += 1
+                self._finish_times.append(self._clock())
 
     def _growth_want(self, req: _Request) -> int:
         """Pages ``req`` needs mapped before the next block: its next write
@@ -2198,6 +2312,10 @@ class ContinuousBatcher:
         up to that many positions, and a write past the capacity would
         fail on the card. Ticks that fail the check run a plain decode
         block."""
+        if self._pressure >= 2 and self.spec_tracker is None:
+            # fixed-K draft engine: brownout level 2 pauses speculation (with
+            # a tracker the shed is per slot, in effective_windows)
+            return False
         k = (2 if self._async else 1) * self._w_max
         for req in self._slots:
             if req is None or not self._prefill_done(req):
@@ -2210,6 +2328,17 @@ class ContinuousBatcher:
                 return False
         return True
 
+    def _spec_draft_ok(self) -> bool:
+        """The ``spec.draft`` fault site, before each speculative round's
+        proposals: a fault makes that tick a plain block, counted, and no
+        stream changes (a draft engine replays the block as usual)."""
+        try:
+            inject("spec.draft", engine=id(self))
+        except Exception:  # noqa: BLE001 — any fault degrades the one round
+            self.spec_draft_faults += 1
+            return False
+        return True
+
     def _spec_plan(self, live):
         """``(K, wins)``: the round's width (the widest live window) and
         each live slot's window from its controller (``spec_k`` for every
@@ -2217,7 +2346,7 @@ class ContinuousBatcher:
         speculates (the tick runs a plain block)."""
         if self.spec_tracker is None:
             return self.spec_k, {slot: self.spec_k for slot, _ in live}
-        wins = self.spec_tracker.effective_windows([slot for slot, _ in live])
+        wins = self.spec_tracker.effective_windows([slot for slot, _ in live], self._pressure)
         k = max(wins.values(), default=0)
         if k < 2:
             return None
@@ -2444,8 +2573,9 @@ class ContinuousBatcher:
     def _spec_tick(self) -> bool:
         """Make this tick a speculative round if it can; False means the
         caller runs a plain decode block (speculation off, gated by
-        :meth:`_spec_ok`, or no slot speculates this round)."""
-        if self._spec_mode == "off" or not self._spec_ok():
+        :meth:`_spec_ok` or faulted at ``spec.draft``, or no slot speculates
+        this round)."""
+        if self._spec_mode == "off" or not (self._spec_ok() and self._spec_draft_ok()):
             return False
         inf = self._dispatch_spec()
         if inf is None:
@@ -2685,6 +2815,8 @@ class ContinuousBatcher:
         self._drain_submissions()
         self._residency()
         self._admit_and_prefill()
+        if self._handoff_ready:
+            self._handoff_out()  # prefill-only completions leave before the block
         if self._decoding():
             if not self._spec_tick():
                 self._harvest(self._dispatch_block())
@@ -2711,12 +2843,16 @@ class ContinuousBatcher:
         if (self._waiting and None in self._slots) or self._prefilling():
             self._quiesce()
         self._admit_and_prefill()
+        if self._handoff_ready:
+            # prefill-only completions leave before the dispatch (nothing is
+            # in flight: the prefill above quiesced)
+            self._handoff_out()
         if self._decoding():
             if not self._growth_fits():
                 self._quiesce()
             prev, self._inflight = self._inflight, None
             nxt = None
-            if self._spec_mode == "ngram" and self._spec_ok():
+            if self._spec_mode == "ngram" and self._spec_ok() and self._spec_draft_ok():
                 nxt = self._dispatch_spec(prev)
             self._inflight = nxt if nxt is not None else self._dispatch_block(prev)
             self._harvest_any(prev)

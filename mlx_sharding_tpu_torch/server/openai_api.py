@@ -35,8 +35,19 @@ the single stream or in the batcher's slots with ``--concurrent``.
 session stickiness, prefix affinity, circuit breakers); on one card they
 alias one resident copy of the weights (``--shared-weights``, the
 ``weights.WeightStore``), and ``POST /admin/drain`` retires one, its streams
-migrating to the others. The autoscaler, brownout and disaggregated serving
-come with a later slice.
+migrating to the others. ``--disagg`` splits them into a prefill pool and a
+decode pool (``--prefill-replicas``, ``--decode-replicas``) behind a
+:class:`~mlx_sharding_tpu_torch.disagg.DisaggCoordinator`: each request
+prefills and emits its first token on a prefill replica, then its KV page
+block moves (through the host) to a decode replica. ``--autoscale``
+(``--autoscale-min``, ``--autoscale-max``, ``--autoscale-interval``,
+``--autoscale-cooldown``) runs a ``fleet.FleetAutoscaler`` over the replica
+set (one per pool under ``--disagg``), spawning aliased replicas under
+sustained pressure and draining idle ones; its brownout ladder
+(``--brownout on|off``) caps ``max_tokens`` (the ``X-MST-Brownout-Level`` and
+``X-MST-Max-Tokens-Capped`` headers), sheds speculation and tightens
+admission. ``POST /admin/autoscaler`` starts, stops and reads the
+controllers.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
         [--prompt-cache] [--decode-block 16] [--api-key KEY] [--chat-template @FILE]
@@ -45,6 +56,9 @@ come with a later slice.
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]]
         [--trace off|sample|on [--trace-buffer N] [--trace-sample N] [--trace-profile]]
         [--kv-share-map MAP.json] [--replicas N [--shared-weights on|off|auto]]
+        [--disagg [--prefill-replicas N] [--decode-replicas N]]
+        [--autoscale [--autoscale-min N] [--autoscale-max N] [--autoscale-interval S]
+         [--autoscale-cooldown S]] [--brownout on|off]
         [--profile-dir DIR] [--log-level INFO]
 """
 
@@ -150,7 +164,11 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     kv_compress_map: Optional[str] = None,
                     kv_compress_rank: Optional[int] = None,
                     kv_share_map: Optional[str] = None, replicas: int = 1,
-                    shared_weights: str = "auto", model=None):
+                    shared_weights: str = "auto", disagg: bool = False,
+                    prefill_replicas: int = 1, decode_replicas: int = 1,
+                    autoscale: bool = False, autoscale_min: Optional[int] = None,
+                    autoscale_max: Optional[int] = None, autoscale_interval: float = 2.0,
+                    autoscale_cooldown: float = 15.0, brownout: bool = True, model=None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -173,7 +191,12 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     resolved on (``auto`` on one device) they alias one resident model
     through the process's ``WeightStore``, each with its own pool, graphs
     and graph memory pool, and a drained replica's card memory is given back
-    at its retirement. ``model``: an already loaded model to serve, which
+    at its retirement. ``disagg``: a ``DisaggCoordinator`` over a prefill
+    pool of ``prefill_replicas`` (which never speculate) and a decode pool
+    of ``decode_replicas``, all aliasing the one resident model.
+    ``autoscale``: a started ``FleetAutoscaler`` over the replica set (one
+    per pool under ``disagg``) with JAX's bounds, its brownout ladder on
+    unless ``brownout`` is False. ``model``: an already loaded model to serve, which
     ``path`` then only names. On a card each generator's step graphs are
     captured here, before the first request."""
     from mlx_sharding_tpu_torch.kv_compress import load_compress_map
@@ -197,7 +220,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     share_map = load_share_map(kv_share_map) if pooled else None
     compress_map = load_compress_map(kv_compress_map, kv_compress_rank) if pooled else None
 
-    def make(model, weights=None, draft_engine=None, graph_pool=None):
+    def make(model, weights=None, draft_engine=None, graph_pool=None, speculate=True):
         from mlx_sharding_tpu_torch.generate import Generator
 
         if concurrent <= 1 and draft == "ngram":
@@ -229,8 +252,9 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                                  policy=admission_policy, overcommit=overcommit,
                                  async_sched=async_sched, prefix_cache=prompt_cache,
                                  max_queue=max_queue, draft_engine=draft_engine,
-                                 spec_k=spec_k, draft=draft,
-                                 spec_window_max=spec_window_max, spill_bytes=spill_bytes,
+                                 spec_k=spec_k, draft=draft if speculate else "off",
+                                 spec_window_max=spec_window_max if speculate else None,
+                                 spill_bytes=spill_bytes,
                                  spill_cold_after=spill_cold_after,
                                  kv_prefetch=kv_prefetch, prefix_store=store)
 
@@ -240,7 +264,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         return PipelineEngine(dmodel, microbatches=concurrent, max_seq=max_seq,
                               prefill_chunk=prefill_chunk, weights=weights, device=device)
 
-    if replicas <= 1:
+    if replicas <= 1 and not disagg:
         draft_engine = None
         if draft_model and concurrent > 1:
             draft_engine = dense_draft_engine(load_model(draft_model, device=device)[0])
@@ -251,10 +275,16 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
 
     signature = (checkpoint_signature(path, keep_quantized=keep_quantized) if model is None
                  else f"{path}::loaded")
+    fleet = dict(disagg=disagg, prefill_replicas=prefill_replicas,
+                 decode_replicas=decode_replicas, autoscale=autoscale,
+                 autoscale_min=autoscale_min, autoscale_max=autoscale_max,
+                 autoscale_interval=autoscale_interval,
+                 autoscale_cooldown=autoscale_cooldown, brownout=brownout)
     return _replica_set(signature, device=device, keep_quantized=keep_quantized, load=load,
                         make=make, dense_draft_engine=dense_draft_engine,
                         draft_model=draft_model if concurrent > 1 else None,
-                        replicas=replicas, shared_weights=shared_weights, prefix_store=store)
+                        replicas=replicas, shared_weights=shared_weights, prefix_store=store,
+                        **fleet)
 
 
 def _warm_up(generator) -> None:
@@ -265,12 +295,19 @@ def _warm_up(generator) -> None:
 
 
 def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_engine,
-                 draft_model, replicas, shared_weights, prefix_store):
+                 draft_model, replicas, shared_weights, prefix_store, disagg=False,
+                 prefill_replicas=1, decode_replicas=1, autoscale=False, autoscale_min=None,
+                 autoscale_max=None, autoscale_interval=2.0, autoscale_cooldown=15.0,
+                 brownout=True):
     """``replicas`` generators behind one ``ReplicaSet`` (JAX's ``--replicas``
-    spawn): with shared weights each aliases the store's resident model (a
-    lease released when its engine closes, so the last retirement frees the
-    tree); otherwise the grid must hold a private copy per replica, which
-    one device does not."""
+    spawn), or under ``disagg`` a prefill and a decode pool behind a
+    ``DisaggCoordinator``: with shared weights each aliases the store's
+    resident model (a lease released when its engine closes, so the last
+    retirement frees the tree); otherwise the grid must hold a private copy
+    per replica, which one device does not. ``autoscale``: the fleet
+    controllers (JAX's bounds on the port's one device slice), started."""
+    import functools
+
     import torch
 
     from mlx_sharding_tpu_torch.device import resolve_device
@@ -285,10 +322,12 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
     )
 
     per, n_devices = 1, 1  # the port's engines run on one device
-    shared = shared_weights_on(shared_weights, replicas, per, n_devices)
-    if not shared and replicas * per > n_devices:
-        raise ValueError(f"{replicas} replicas x {per} devices each needs {replicas * per} "
+    want = prefill_replicas + decode_replicas if disagg else replicas
+    shared = shared_weights_on(shared_weights, want, per, n_devices)
+    if not shared and want * per > n_devices:
+        raise ValueError(f"{want} replicas x {per} devices each needs {want * per} "
                          f"devices, have {n_devices}")
+    slices = n_devices // per  # JAX's device-slice allocator's total
     dev = resolve_device(device)
     store = weight_store()
 
@@ -307,10 +346,13 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
     draft_key = (key_of(checkpoint_signature(draft_model, keep_quantized=keep_quantized), "draft")
                  if draft_model else None)
 
-    def spawn():
+    def spawn(speculate=True):
+        """One replica aliasing the resident model; ``speculate=False``
+        builds one that never drafts (a disagg prefill replica emits one
+        token a request)."""
         def make_one(lease):
             draft_engine = None
-            if draft_key is not None:
+            if draft_key is not None and speculate:
                 def make_draft(dlease):
                     deng = dense_draft_engine(dlease.weights.model, weights=dlease.weights)
                     deng.on_close(dlease.release)
@@ -322,7 +364,7 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
             pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
             try:
                 gen = make(lease.weights.model, weights=lease.weights,
-                           draft_engine=draft_engine, graph_pool=pool)
+                           draft_engine=draft_engine, graph_pool=pool, speculate=speculate)
             except BaseException:
                 if draft_engine is not None:
                     draft_engine.close()
@@ -334,8 +376,6 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
 
         return aliased_spawn(store, key, resident(load), make_one)
 
-    reps = ReplicaSet([spawn() for _ in range(replicas)], prefix_store=prefix_store)
-
     def release_retired(rep):
         # a drained replica stays in the set's list: give its pool, graphs
         # and graph memory pool back to the card
@@ -346,9 +386,58 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
 
+    def controller(pool, factory, lo, hi):
+        from mlx_sharding_tpu_torch.fleet import FleetAutoscaler
+
+        ctrl = FleetAutoscaler(pool, factory, min_replicas=lo, max_replicas=hi,
+                               interval_s=autoscale_interval, cooldown_s=autoscale_cooldown,
+                               enable_brownout=brownout)
+        ctrl.start()
+        return ctrl
+
+    if disagg:
+        from mlx_sharding_tpu_torch.disagg import DisaggCoordinator
+
+        spawn_prefill = functools.partial(spawn, speculate=False)
+        prefill = ReplicaSet([spawn_prefill() for _ in range(prefill_replicas)],
+                             role="prefill", prefix_store=prefix_store)
+        decode = ReplicaSet([spawn() for _ in range(decode_replicas)], role="decode",
+                            prefix_store=prefix_store)
+        for pool in (prefill, decode):
+            pool.on_retire = release_retired
+            pool.shared_weights_active = shared
+        generator = DisaggCoordinator(prefill, decode, prefix_store=prefix_store)
+        generator.shared_weights_active = shared
+        if autoscale:
+            # one controller per pool, each reading its own pool's pressure;
+            # an aliased spawn takes no device slice, so each pool keeps one
+            # elastic spawn on a fully used grid (JAX's arithmetic)
+            spare = slices - (prefill_replicas + decode_replicas)
+            for pool, factory, base in ((prefill, spawn_prefill, prefill_replicas),
+                                        (decode, spawn, decode_replicas)):
+                controller(pool, factory, base,
+                           base + (max(1, spare) if shared else max(0, spare)))
+        return generator
+    reps = ReplicaSet([spawn() for _ in range(replicas)], prefix_store=prefix_store)
     reps.on_retire = release_retired
     reps.shared_weights_active = shared
+    if autoscale:
+        # shared replicas take no device slice: KV memory, not the grid,
+        # bounds them; private ones stay clamped to the slices
+        hi = autoscale_max or slices
+        controller(reps, spawn, autoscale_min or 1, hi if shared else min(hi, slices))
     return reps
+
+
+def fleet_controllers(generator):
+    """The fleet controllers driving ``generator`` (JAX's ``provider.fleet``):
+    a ``FleetAutoscaler`` over a replica set, a (prefill, decode) tuple of
+    them under a disagg coordinator, or None without ``--autoscale``."""
+    pools = (getattr(generator, "prefill", None), getattr(generator, "decode", None))
+    if None not in pools:
+        ctrls = tuple(getattr(p, "_controller", None) for p in pools)
+        return None if None in ctrls else ctrls
+    return getattr(generator, "_controller", None)
 
 
 class ModelProvider:
@@ -384,6 +473,9 @@ class ModelProvider:
         self._key: Optional[str] = None
         self.generator = None
         self.tokenizer = None
+        # the live generator's fleet controllers (fleet_controllers): what
+        # /admin/autoscaler drives and whose brownout ladder caps requests
+        self.fleet = None
         self.load_seconds = 0.0  # the last load's: checkpoint, generator, graphs, tokenizer
         # the share-map artifact every engine binds (the ``mst_kv_share_*``
         # families and the ``kv_share`` block of /health render only with it)
@@ -453,6 +545,8 @@ class ModelProvider:
         self._key = key
         self.generator = generator
         self.tokenizer = tokenizer
+        # the old generator's controllers stop with its close below
+        self.fleet = fleet_controllers(generator)
         if old is None:
             return
         if getattr(old, "concurrent", False):
@@ -524,7 +618,7 @@ class APIHandler(BaseHTTPRequestHandler):
     # request bodies above this are rejected before being read
     MAX_BODY = 8 << 20
     # operator routes: key-gated, no sampler parameters, no model swap
-    ADMIN_ROUTES = ("/admin/drain",)
+    ADMIN_ROUTES = ("/admin/drain", "/admin/autoscaler")
 
     # ------------------------------------------------------------- helpers
     def log_message(self, fmt, *args):
@@ -675,6 +769,8 @@ class APIHandler(BaseHTTPRequestHandler):
             return self._error(400, "invalid JSON body")
         if route == "/admin/drain":
             return self._handle_drain(body)
+        if route == "/admin/autoscaler":
+            return self._handle_autoscaler(body)
         try:
             params = self._validate_params(body)
         except ValueError as e:
@@ -732,6 +828,40 @@ class APIHandler(BaseHTTPRequestHandler):
             logger.exception("replica drain failed")
             return self._error(500, f"{type(e).__name__}: {e}")
         return self._json(200, result)
+
+    def _handle_autoscaler(self, body: dict):
+        """POST /admin/autoscaler ``{"enabled": bool}`` (JAX's): start or
+        stop the fleet controllers' loops (omit ``enabled`` to read them);
+        answers each controller's state and its brownout ladder's, a list
+        per pool under ``--disagg``. 400 without ``--autoscale``."""
+        fleet = self.provider.fleet
+        if fleet is None:
+            return self._error(400, "autoscaler requires --autoscale (and --replicas > 1 or "
+                                    "--disagg) serving")
+        ctrls = fleet if isinstance(fleet, tuple) else (fleet,)
+        enabled = body.get("enabled")
+        if enabled is not None and not isinstance(enabled, bool):
+            return self._error(400, "'enabled' must be a boolean")
+        try:
+            for ctrl in ctrls:
+                if enabled is True:
+                    ctrl.start()
+                elif enabled is False:
+                    ctrl.stop()
+        except Exception as e:  # noqa: BLE001 — a structured 500
+            logger.exception("autoscaler control failed")
+            return self._error(500, f"{type(e).__name__}: {e}")
+
+        def state(ctrl):
+            out = dict(ctrl.state())
+            bro = getattr(ctrl, "brownout", None)
+            if bro is not None:
+                out["brownout"] = bro.state()
+            return out
+
+        if len(ctrls) == 1:
+            return self._json(200, state(ctrls[0]))
+        return self._json(200, {"pools": [state(c) for c in ctrls]})
 
     # ---------------------------------------------------------- validation
     def _validate_params(self, body: dict) -> dict:
@@ -844,6 +974,23 @@ class APIHandler(BaseHTTPRequestHandler):
         if not params["stream"] and params["logprobs"] > 0:
             # streaming discards logprobs, so only this path computes them
             gen_kwargs["want_logprobs"] = True
+        # brownout: under sustained overload the ladder caps max_tokens
+        # before anything is shed, and says so in the response's headers;
+        # under --disagg the decode pool's ladder governs (max_tokens is
+        # decode-side cost)
+        fleet = self.provider.fleet
+        if isinstance(fleet, tuple):
+            fleet = fleet[-1]
+        bro = getattr(fleet, "brownout", None) if fleet is not None else None
+        if bro is not None:
+            bstate = bro.state()
+            level = bstate.get("level", 0)
+            if level > 0:
+                self._resp_headers["X-MST-Brownout-Level"] = level
+                cap = bstate.get("max_tokens_cap")
+                if cap is not None and gen_kwargs["max_tokens"] > cap:
+                    gen_kwargs["max_tokens"] = cap
+                    self._resp_headers["X-MST-Max-Tokens-Capped"] = cap
         # session stickiness: a session_id (or OpenAI's ``user``) keeps a
         # conversation on the replica that holds its prefix
         sess = body.get("session_id") or body.get("user")
@@ -1323,6 +1470,51 @@ def main(argv=None):
                              "--replicas > 1 or --disagg on a single-host "
                              "fused-engine config; off: always private "
                              "per-replica copies")
+    parser.add_argument("--disagg", action="store_true",
+                        help="disaggregated prefill/decode serving: split "
+                             "the fleet into a prefill pool and a decode "
+                             "pool. Each request prefills (and emits its "
+                             "first token) on a prefill replica, then its "
+                             "KV page block is handed to the least-loaded "
+                             "decode replica, which owns the rest of the "
+                             "stream — long prefills stop stalling decode "
+                             "steady-state. Requires --concurrent; "
+                             "--paged-pool makes the handoff a block "
+                             "import instead of a re-prefill; handoff "
+                             "failures degrade to serve-in-place (never a "
+                             "dropped stream)")
+    parser.add_argument("--prefill-replicas", type=int, default=1,
+                        help="with --disagg: replicas in the prefill pool")
+    parser.add_argument("--decode-replicas", type=int, default=1,
+                        help="with --disagg: replicas in the decode pool")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="with --replicas: run the elastic fleet "
+                             "controller — spawn extra replicas onto unused "
+                             "device slices under sustained queue pressure, "
+                             "drain idle ones back down; spawn/drain "
+                             "failures degrade to the static fleet (never a "
+                             "dropped stream). Control at runtime via POST "
+                             "/admin/autoscaler")
+    parser.add_argument("--autoscale-min", type=int, default=None,
+                        help="autoscaler floor: never drain below this many "
+                             "replicas (default: 1)")
+    parser.add_argument("--autoscale-max", type=int, default=None,
+                        help="autoscaler ceiling (default: every replica the "
+                             "device count can hold)")
+    parser.add_argument("--autoscale-interval", type=float, default=2.0,
+                        help="seconds between autoscaler control ticks")
+    parser.add_argument("--autoscale-cooldown", type=float, default=15.0,
+                        help="seconds after any scale event (or failed "
+                             "attempt) before the next one")
+    parser.add_argument("--brownout", choices=("on", "off"), default="on",
+                        help="overload brownout ladder: under sustained "
+                             "pressure cap max_tokens, shed speculation "
+                             "(per-slot lowest-acceptance-first under "
+                             "adaptive windows, globally in fixed-K engine "
+                             "mode) and tighten admission BEFORE shedding "
+                             "with 429; "
+                             "level surfaced in /health and the "
+                             "X-MST-Brownout-Level response header")
     args = parser.parse_args(argv)
     if args.trace_buffer < 1:
         parser.error("--trace-buffer must be >= 1")
@@ -1373,7 +1565,7 @@ def main(argv=None):
             if not args.paged_pool:
                 parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
                              "sharing is page-granular)")
-        elif args.draft_model or args.replicas > 1:
+        elif args.draft_model or args.replicas > 1 or args.disagg:
             parser.error("--prompt-cache applies to the single-chip "
                          "full-model generator path or to --concurrent "
                          "--paged-pool serving (no --coordinator/--tp/--ep/"
@@ -1437,6 +1629,51 @@ def main(argv=None):
     if args.kv_prefetch == "on" and args.spill_bytes is None:
         parser.error("--kv-prefetch on needs a spill tier to prefetch "
                      "from: set --spill-bytes")
+    # JAX's fleet rules and messages (its --coordinator / --engine chained
+    # exclusion has no flag to refuse here: the port has one engine path)
+    if args.disagg:
+        if args.concurrent <= 1:
+            parser.error("--disagg requires --concurrent N (N > 1): only "
+                         "the continuous batcher can park a prefill-only "
+                         "request and resume it from a KV page block")
+        if args.replicas > 1:
+            parser.error("--disagg replaces --replicas: size the pools "
+                         "with --prefill-replicas/--decode-replicas")
+        if args.draft_model:
+            parser.error("--disagg is incompatible with --draft-model: a "
+                         "resumed stream's draft KV cannot be rebuilt from "
+                         "the handed-off block (only the target's pages "
+                         "travel). Use --draft ngram — prompt-lookup "
+                         "drafts need no draft KV, so decode replicas "
+                         "speculate on resumed streams too")
+        if args.prefill_replicas < 1 or args.decode_replicas < 1:
+            parser.error("--prefill-replicas/--decode-replicas must be "
+                         "positive integers")
+        if args.autoscale and (args.autoscale_min is not None
+                               or args.autoscale_max is not None):
+            parser.error("--autoscale-min/--autoscale-max do not apply to "
+                         "--disagg: each pool's floor is its initial size "
+                         "and its ceiling is the free device slices")
+    elif args.prefill_replicas != 1 or args.decode_replicas != 1:
+        parser.error("--prefill-replicas/--decode-replicas require "
+                     "--disagg")
+    if args.autoscale and args.replicas <= 1 and not args.disagg:
+        parser.error("--autoscale requires --replicas N (N > 1) or "
+                     "--disagg: only a ReplicaSet fleet can grow or shrink")
+    if not args.autoscale and (
+        args.autoscale_min is not None or args.autoscale_max is not None
+    ):
+        parser.error("--autoscale-min/--autoscale-max require --autoscale")
+    if args.autoscale_min is not None and args.autoscale_min < 1:
+        parser.error("--autoscale-min must be a positive integer")
+    if (
+        args.autoscale_min is not None and args.autoscale_max is not None
+        and args.autoscale_max < args.autoscale_min
+    ):
+        parser.error("--autoscale-max must be >= --autoscale-min")
+    if args.autoscale_interval <= 0 or args.autoscale_cooldown < 0:
+        parser.error("--autoscale-interval must be > 0 and "
+                     "--autoscale-cooldown >= 0")
     if args.async_sched != "auto" and args.concurrent <= 1:
         parser.error("--async-sched requires --concurrent N (N > 1): only the continuous "
                      "batcher has a tick loop to pipeline")
@@ -1444,7 +1681,7 @@ def main(argv=None):
         parser.error("--async-sched on is incompatible with --draft-model "
                      "(speculative rounds harvest per-round accept counts); "
                      "use 'auto'")
-    if args.shared_weights == "on" and args.replicas <= 1:
+    if args.shared_weights == "on" and args.replicas <= 1 and not args.disagg:
         parser.error("--shared-weights on requires --replicas N "
                      "(N > 1) or --disagg: with one engine there is "
                      "nothing to alias")
@@ -1488,7 +1725,11 @@ def main(argv=None):
         prefix_insert_min_hits=args.prefix_insert_min_hits,
         kv_compress_map=args.kv_compress_map, kv_compress_rank=args.kv_compress_rank,
         kv_share_map=args.kv_share_map, replicas=args.replicas,
-        shared_weights=args.shared_weights,
+        shared_weights=args.shared_weights, disagg=args.disagg,
+        prefill_replicas=args.prefill_replicas, decode_replicas=args.decode_replicas,
+        autoscale=args.autoscale, autoscale_min=args.autoscale_min,
+        autoscale_max=args.autoscale_max, autoscale_interval=args.autoscale_interval,
+        autoscale_cooldown=args.autoscale_cooldown, brownout=args.brownout == "on",
     )
     server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
                          api_key=args.api_key, request_timeout=args.request_timeout,

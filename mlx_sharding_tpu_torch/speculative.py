@@ -522,18 +522,19 @@ class NgramSpeculativeGenerator(_SpeculativeBase):
         self.spec_window_max = spec_window_max
         self._init_rounds(self.tracker.rungs[-1])
 
-    def warm_up(self, prefill_upto: Optional[int] = None) -> dict:
+    def warm_up(self, prefill_upto: Optional[int] = None, sampled=(False, True)) -> dict:
         """The target's graphs (``Generator.warm_up``, its prefill chunks up
         to ``prefill_upto`` tokens), then the verify of every window of the
-        ladder and K = 1, greedy and sampled, at the default window. ``{}``
+        ladder and K = 1, greedy and sampled (or the kinds in ``sampled``,
+        the other captured on first use), at the default window. ``{}``
         without graphs."""
         if not self.target.warm_up(prefill_upto=prefill_upto):
             return {}
         self.target.cache.pos.zero_()  # the verify's rows stay inside the capacity
         for k in (1, *self.tracker.rungs):
             upload_into(self._inputs, np.asarray([k] + [0] * k, np.int64))  # a cap of K
-            for sampled in (False, True):
-                self._verify(k, REPETITION_WINDOW, sampled)
+            for kind in sampled:
+                self._verify(k, REPETITION_WINDOW, kind)
         torch.cuda.synchronize(self.target.device)
         self.rounds_by_k, self.round_tokens = {}, 0  # the warm-up's rounds are not requests'
         return _captured(self.target)
@@ -670,11 +671,12 @@ class SpeculativeGenerator(_SpeculativeBase):
                functools.partial(self._draft_step, k, window, sampled),
                state=(d.cache.pos,), generators=(d.rng,) if sampled else ())
 
-    def warm_up(self, prefill_upto: Optional[int] = None) -> dict:
+    def warm_up(self, prefill_upto: Optional[int] = None, sampled=(False, True)) -> dict:
         """Both Generators' prefill chunks (up to ``prefill_upto`` tokens),
         the target's decode blocks, the draft steps and the verify at
-        ``spec_k``, greedy and sampled, at the default window. ``{}``
-        without graphs."""
+        ``spec_k``, greedy and sampled (or the kinds in ``sampled``, the
+        other captured on first use), at the default window. ``{}`` without
+        graphs."""
         if not self.target.warm_up(prefill_upto=prefill_upto):
             return {}
         self.draft.warm_up(decode_blocks=False, prefill_upto=prefill_upto)
@@ -683,9 +685,9 @@ class SpeculativeGenerator(_SpeculativeBase):
         if self._qlps is None:
             self._qlps = torch.zeros((self.spec_k, 1, self.target.model.config.vocab_size),
                                      dtype=torch.float32, device=self.target.device)
-        for sampled in (False, True):
-            self.propose(self.spec_k, REPETITION_WINDOW, sampled)
-            self._verify(self.spec_k, REPETITION_WINDOW, sampled)
+        for kind in sampled:
+            self.propose(self.spec_k, REPETITION_WINDOW, kind)
+            self._verify(self.spec_k, REPETITION_WINDOW, kind)
         torch.cuda.synchronize(self.target.device)
         self.rounds_by_k, self.round_tokens = {}, 0  # the warm-up's rounds are not requests'
         return _captured(self.target, self.draft)

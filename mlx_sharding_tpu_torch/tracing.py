@@ -3,9 +3,9 @@ standard library only): a flight recorder of request timelines with a
 Chrome ``trace_event`` export.
 
 A :class:`RequestTrace` records typed spans (``queue_wait``,
-``prefix_lookup``, ``prefill``, ``decode_tick``, ``sse_write``, and the
-types of the paths later slices port: handoff, spill, wake, prefetch,
-migration) and instant marks (``submit``, ``first_token``, ``preempt``,
+``prefix_lookup``, ``prefill``, ``decode_tick``, ``sse_write``, the
+handoff's ``handoff_export`` and ``handoff_transfer``, spill, wake,
+prefetch, migration) and instant marks (``submit``, ``first_token``, ``preempt``,
 ``finish``). Finished traces land in a bounded ring (``--trace-buffer N``)
 that serves ``GET /admin/trace/{request_id}`` and ``GET /admin/trace/dump``
 as ``chrome://tracing`` JSON.

@@ -9,11 +9,11 @@ observability.py``, with the profiler on ``torch.profiler``).
   decode-rate summaries, and the batcher's read-outs.
 
 The families whose sources come with later slices are left out, as the
-source module leaves out a family whose source is None: the pod,
-disaggregated handoff, brownout and the resource ledger's anomalies
-(``ROADMAP.md`` lists each under its slice). A replica set's families
-(replicas, the fleet, routing), the weight store, the fault harness, KV
-sharing, KV spill, migration and prefetch (a paged batcher's
+source module leaves out a family whose source is None: the pod and the
+resource ledger's anomalies (``ROADMAP.md`` lists each under its slice).
+A replica set's families (replicas, the fleet, routing, autoscale events),
+the disaggregated handoff, the brownout level, the weight store, the fault
+harness, KV sharing, KV spill, migration and prefetch (a paged batcher's
 ``spill_stats``), the prefix store and KV compression are rendered as the
 source renders them.
 """
@@ -36,6 +36,9 @@ LATENCY_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                      0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
 ITL_BUCKETS_S = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                  0.25, 0.5, 1.0)
+# the disagg handoff's control + device-to-host time, in ms
+HANDOFF_BUCKETS_MS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                      500.0, 1000.0)
 
 
 @contextlib.contextmanager
@@ -431,9 +434,10 @@ def _render_batcher(lines: list, b) -> bool:
 
 
 def _render_fleet(lines: list, b) -> None:
-    """A replica set's families (``replicas.ReplicaSet``): live replicas and
-    their breakers from ``health()``, per-replica routing load, the fleet's
-    size, autoscale events and routing hits."""
+    """A replica set's families (``replicas.ReplicaSet``; a disagg
+    coordinator's, role-labelled): live replicas and their breakers from
+    ``health()``, per-replica routing load, the fleet's size, autoscale
+    events and routing hits, the handoff and the brownout level."""
     health = getattr(b, "health", _none)()
     if health is not None and "replicas_total" in health:
         lines += [
@@ -487,6 +491,31 @@ def _render_fleet(lines: list, b) -> None:
                 "# TYPE mst_route_store_hits_total counter",
                 f"mst_route_store_hits_total {fleet['store_hits']}",
             ]
+    hand = getattr(b, "handoff_stats", _none)()
+    if hand is not None:
+        # disaggregated serving: prefill-to-decode handoffs, their bytes and
+        # control + copy ms, and the degradation ladder's rungs by kind
+        lines += [
+            "# TYPE mst_disagg_handoff_total counter",
+            f"mst_disagg_handoff_total {hand['handoffs']}",
+            "# TYPE mst_disagg_handoff_bytes_total counter",
+            f"mst_disagg_handoff_bytes_total {hand['bytes_total']}",
+        ]
+        Histogram.render_into(lines, "mst_disagg_handoff_ms", hand["ms_hist"])
+        lines.append("# TYPE mst_disagg_fallbacks_total counter")
+        lines += [f'mst_disagg_fallbacks_total{{kind="{kind}"}} {hand["fallbacks"][kind]}'
+                  for kind in sorted(hand["fallbacks"])]
+        # full prefix-store hits that skipped the prefill pool
+        lines += [
+            "# TYPE mst_disagg_store_skips_total counter",
+            f"mst_disagg_store_skips_total {hand['store_skips']}",
+        ]
+    bro = getattr(b, "brownout", None)
+    if bro is not None:
+        lines += [
+            "# TYPE mst_brownout_level gauge",
+            f"mst_brownout_level {bro.level()}",
+        ]
 
 
 def _faults_lines() -> list:

@@ -8,9 +8,9 @@ routing, weight-store, fault-harness, share and migration families with
 JAX's names, every counter equal) and ``POST /admin/drain`` (its answers,
 the validation errors, and the migration counters after it); the flags
 end to end through ``main`` on a checkpoint of the tiny model, and a
-hot-swap that builds a replica set again. Left out: ``--disagg``,
-``--autoscale*``, ``--brownout`` and ``/admin/autoscaler`` (a later
-slice)."""
+hot-swap that builds a replica set again. ``--disagg``, ``--autoscale*``,
+``--brownout`` and ``/admin/autoscaler`` are held against JAX's in
+``tests/test_torch_fleet.py`` and ``tests/test_torch_disagg_server.py``."""
 
 import http.client
 import json

@@ -20,8 +20,9 @@ migration counters; with ``cache.export`` armed the drain degrades to a
 blockless resume, still exact; a parked (cold-spilled) stream's state
 migrates with its tokens, as JAX's does.
 
-Left out: several devices per replica (private slices), the autoscaler,
-brownout, disaggregated pools and the pod (later slices)."""
+Left out: several devices per replica (private slices) and the pod (later
+slices); the autoscaler and brownout are in ``tests/test_torch_fleet.py``,
+the disaggregated pools in ``tests/test_torch_disagg.py``."""
 
 import threading
 
