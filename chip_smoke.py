@@ -211,8 +211,9 @@ final line:
    request's spans from ``/admin/trace/<id>``, their ``decode_tick`` sum
    against its wall time, and under ``--profile-dir`` the
    ``mst.decode_block`` ranges in its ``torch.profiler`` trace against the
-   blocks it dispatched. Hot-swap: two 2-layer checkpoints of the 8B
-   config written to a temporary directory, a request naming the second
+   blocks it dispatched. Hot-swap: a 2-layer checkpoint of the 8B config
+   written to a temporary directory and a second over the same weights
+   file (a hard link) with another RoPE base, a request naming the second
    swaps it in and one naming the first swaps it back (each load's
    seconds and ``torch.cuda.memory_allocated``). Then in f32 at 2 layers
    the hit request's greedy stream against a cold Generator's.
@@ -266,6 +267,24 @@ final line:
    (its replica's level, not the prefill replica's), a request capped to
    96 tokens with both headers, ``mst_brownout_level`` and the
    ``brownout_level_*`` events in ``/metrics``.
+15. pipeline parallelism on one card (``phase_pipeline``, after 14, on
+   phase 4's model; every stage on ``cuda:0``): the fused engine's single
+   stream at pp = 1 and, built by ``build_generator(num_stages=2)`` (the
+   server's ``--num-stages 2``), split 0-16 / 16-32: 64 greedy tokens after
+   a 600-token prompt each, token-identical, the card memory the pp = 2
+   engine adds against its caches and graph pool (no second copy of the
+   weights), one streamed HTTP completion through ``ModelProvider`` over
+   it, and the device ms of each stage's layers in one decode step; the
+   chained pipeline over the same tensors, split 0-20 / 20-32, against the
+   pp = 1 ``Generator``; the batcher over a pool on the ``gather`` path at
+   pp = 1 and pp = 2, a subset of phase 6's mix, token-identical, tok/s
+   and the ticks' host ms against their harvest wait; the engine and the
+   chain again with each stage's share of a step a graph of its own (what
+   stages on distinct cards take), each token-identical. After phase 5 the
+   packed model at pp = 1 and pp = 2 (32 greedy tokens, kernels 3 and 4),
+   and in phase 9 DeepSeek-Coder-V2-Lite bf16 at pp = 1 and split 0-14 /
+   14-27 (32 tokens; kernel 1's MLA build and its T=1 route). Each run's
+   launches are counted from zero and checked against its chunks and steps.
 
 Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
 layers, the eager turn of phases 4-5's step timing an
@@ -294,6 +313,7 @@ import argparse
 import concurrent.futures
 import copy
 import dataclasses
+import functools
 import gc
 import glob
 import http.client
@@ -2536,12 +2556,14 @@ def pack_llama(dense, config: dict, group_size=GROUP_SIZE, bits=BITS, param_dtyp
     return model
 
 
-def phase_main_path_4bit(dense, seed: int):
+def phase_main_path_4bit(dense, seed: int, lap=None):
     """``--keep-quantized`` at full width: the dense model's weights packed
     on the card, its last-position logits against a dense model holding the
     dequantized weights (the dense model itself, overwritten in place), then
-    the dense weights freed and the packed, fused model served. Returns the
-    launches of the counted run per kernel and the request numbers."""
+    the dense weights freed and the packed, fused model served; then, with
+    ``lap``, phase 15's packed run (``pipe_packed``). Returns the launches
+    of the counted run per kernel (and phase 15's) and the request
+    numbers."""
     from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
     from mlx_sharding_tpu_torch.models.base import QuantizedLinear
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
@@ -2656,6 +2678,14 @@ def phase_main_path_4bit(dense, seed: int):
     stats["steps"] = phase_step_timing(packed, gen, "[main-4bit]", prompt)
     stats["routes"] = phase_decode_routes(packed, gen, "[main-4bit]", prompt)
     stats["spec"] = phase_speculation_packed(packed, gen, "[spec-4bit]")
+    if lap is not None:
+        lap("main path, 4-bit")
+        del gen
+        stats["pipeline"] = pipe_packed(packed)
+        for run in (stats["pipeline"]["pp1"], stats["pipeline"]["pp2"]):
+            for name in ("quant_gemv", "quant_matmul", "flash_attention", "flash_decode"):
+                launches[name] += run["launches"][name]
+        lap("phase 15, the packed model at pp = 1 and 2")
     return launches, stats
 
 
@@ -3360,6 +3390,7 @@ PROFILE_TOKENS = 17
 # the hot-swap checkpoints: the 8B config cut to this depth
 SWAP_LAYERS = 2
 SWAP_MAX_SEQ = 512
+SWAP_ROPE_THETA = 10000.0  # the second checkpoint's RoPE base (the 8B's is 500000)
 
 
 def get(port, path):
@@ -3688,12 +3719,15 @@ def write_llama_checkpoint(model, config: dict, path: str) -> None:
 
 
 def surface_hot_swap(seed: int) -> dict:
-    """Model hot-swap by request name: two ``SWAP_LAYERS``-layer checkpoints
-    of the 8B config (other seeds) written to a temporary directory; a
-    provider loads the first as from its ``--model``, a request naming the
-    second swaps it in, one naming the first swaps it back and answers as
-    before. Each load's seconds and ``torch.cuda.memory_allocated`` after it:
-    the replaced generator is released."""
+    """Model hot-swap by request name: a ``SWAP_LAYERS``-layer checkpoint of
+    the 8B config (another seed) written to a temporary directory, and a
+    second checkpoint beside it that hard-links its weights file under
+    another RoPE base (``SWAP_ROPE_THETA``), so it answers otherwise without
+    a second write; a provider loads the first as from its ``--model``, a
+    request naming the second swaps it in, one naming the first swaps it
+    back and answers as before. Each load's seconds and
+    ``torch.cuda.memory_allocated`` after it: the replaced generator is
+    released."""
     from mlx_sharding_tpu_torch.models import build_model
     from mlx_sharding_tpu_torch.server.openai_api import ModelProvider
 
@@ -3703,20 +3737,27 @@ def surface_hot_swap(seed: int) -> dict:
     stats = {"loads": []}
     try:
         t0 = time.perf_counter()
-        paths = []
-        for i in range(2):
-            m, _ = build_model(config, dtype=torch.bfloat16)
-            m.init_params(torch.Generator(device="cuda").manual_seed(seed + 41 + i), "cuda")
-            paths.append(os.path.join(tmp, f"llama-3.1-8b-{SWAP_LAYERS}-layers-{i}"))
-            write_llama_checkpoint(m, config, paths[-1])
-            del m
+        paths = [os.path.join(tmp, f"llama-3.1-8b-{SWAP_LAYERS}-layers-{i}") for i in range(2)]
+        m, _ = build_model(config, dtype=torch.bfloat16)
+        m.init_params(torch.Generator(device="cuda").manual_seed(seed + 41), "cuda")
+        write_llama_checkpoint(m, config, paths[0])
+        del m
+        os.makedirs(paths[1])
+        weights = [os.path.join(p, "model.safetensors") for p in paths]
+        try:
+            os.link(*weights)
+        except OSError:  # a file system without hard links: a copy
+            shutil.copyfile(*weights)
+        with open(os.path.join(paths[1], "config.json"), "w") as f:
+            json.dump({**config, "rope_theta": SWAP_ROPE_THETA}, f)
         size = os.path.getsize(os.path.join(paths[0], "model.safetensors"))
         gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
-        log(f"{tag} two {SWAP_LAYERS}-layer checkpoints of the 8B config written "
-            f"({size / 1e9:.2f} GB each) in {time.perf_counter() - t0:.1f}s; "
-            f"memory_allocated before loading {base / 1e9:.2f} GB")
+        log(f"{tag} a {SWAP_LAYERS}-layer checkpoint of the 8B config written ({size / 1e9:.2f} "
+            f"GB) and a second over the same weights file with rope_theta {SWAP_ROPE_THETA} in "
+            f"{time.perf_counter() - t0:.1f}s; memory_allocated before loading "
+            f"{base / 1e9:.2f} GB")
         provider = ModelProvider.from_checkpoint(
             paths[0], trust_remote_paths=True, tokenizer_loader=lambda _: ByteTokenizer(),
             device="cuda", max_seq=SWAP_MAX_SEQ, prefill_chunk=CHUNK)
@@ -3814,6 +3855,9 @@ STORE_PREFIX = 1024  # the shared system prompt: four 256-token pages
 STORE_SUFFIX = 100
 STORE_TOKENS = 32
 STORE_BYTES = 160 << 20  # holds one 4-page block of the 8B (128 MiB), not two
+# the spill runs' decode blocks: greedy, and the seeded request's (sampled,
+# no logprobs)
+SPILL_BLOCKS = {"blocks": ((False, False), (True, False))}
 
 
 def fill_pool(cache, gen, kv_dtype) -> None:
@@ -3976,7 +4020,7 @@ def spill_runs(model, kv_dtype: str, tag: str) -> dict:
             # a flush, ~0.3 s here, does), so that prefetch on and off
             # compare a stage against a demand copy
             batcher.spill._flush_async = False
-        batcher.warm_up()
+        batcher.warm_up(**SPILL_BLOCKS)
         items, reqs = serve_on_this_thread(batcher, jobs)
         runs[name] = [[t for t, _ in s] for s in items]
         s = batcher.spill_stats()
@@ -4027,7 +4071,7 @@ def cold_spill_run(model, tag: str) -> dict:
                             pool_pages=POOL_PAGES, page_size=PAGE, device=model.device)
     batcher = ContinuousBatcher(engine, decode_block=8, spill_bytes=SPILL_BYTES,
                                 spill_cold_after=COLD_AFTER)
-    batcher.warm_up()
+    batcher.warm_up(**GREEDY_ONLY)
     plain = [t for t, _ in serve_on_this_thread(batcher, [job])[0][0]]
     held = [t for t, _ in serve_on_this_thread(batcher, [job], hold=(0, 8, 10))[0][0]]
     s = batcher.spill_stats()
@@ -5054,6 +5098,308 @@ def phase_disagg(model, seed: int, single_batch_tok_s: float, replicas_tok_s: fl
     return launches, stats
 
 
+# ----------------------------------------------------------------- phase 15
+PIPE_MAX_SEQ = 768  # the 600-token prompt and its 64 tokens: 3 chunk offsets to capture
+PIPE_PROMPT = 600
+PIPE_TOKENS = 64
+PIPE_SPLIT = ((0, 16), (16, 32))  # the fused engine's (balanced for 2 stages)
+PIPE_CHAINED = ((0, 20), (20, 32))  # uneven, through the chained pipeline
+PIPE_BATCH = BATCH_MIX[:4]  # the batcher's subset of phase 6's mix, greedy
+PIPE_SLOTS = 4
+PIPE_PACKED_TOKENS = 32
+PIPE_STAGE_TOKENS = 32  # the runs with each stage's programs captured on their own
+DSV2_SPLIT = ((0, 14), (14, 27))  # the JAX package's headline split
+DSV2_PIPE_PROMPT = 200  # one chunk: each of the Lite's prefill graphs takes seconds
+DSV2_PIPE_TOKENS = 32
+GREEDY_BLOCK = ((False, False),)
+# what a pp = 2 engine may add to the card's memory beyond its caches and
+# graph pool: plans, sampler rows, the stream's carries
+PIPE_SLACK_BYTES = 64 << 20
+
+
+def pipe_ids(n: int) -> list:
+    return ByteTokenizer().encode(mix_prompt(150, n))
+
+
+def stream_launches(layers: int, prompt: int, tokens: int, block: int = 16) -> dict:
+    """Kernel 1 and its T=1 route over one greedy stream of a dense model:
+    a launch a layer for every prefill chunk and for every step of the
+    whole decode blocks after the first token."""
+    return {"flash_attention": layers * -(-prompt // CHUNK),
+            "flash_decode": layers * block * -(-(tokens - 1) // block),
+            "paged_attention": 0}
+
+
+def pipe_stream(tag: str, gen, ids: list, tokens: int, counts, want: dict,
+                warm: bool = False) -> dict:
+    """One greedy stream through ``gen`` (an engine's single stream, a
+    chain or a Generator), its prompt's chunks and the greedy block
+    captured first; the counters zeroed just before it and read just after,
+    each kernel of ``want`` launched exactly that often. ``warm``: the same
+    stream once before, untimed (the first stream after captures reads
+    slower on the card) and held equal. Returns its tokens, decode tok/s
+    and launches."""
+    graph_line(tag, gen.warm_up(prefill_upto=len(ids), blocks=GREEDY_BLOCK))
+    first = stream_tokens(gen, ids, max_tokens=tokens)[0] if warm else None
+    counts.reset()
+    toks, tok_s = stream_tokens(gen, ids, max_tokens=tokens)
+    got = counts.read()
+    check(first is None or first == toks, f"{tag} a second run of the stream differs")
+    log(f"{tag} {len(toks)} greedy tokens after a {len(ids)}-token prompt at {tok_s:.2f} tok/s; "
+        f"launches {got}")
+    for name, n in want.items():
+        check(got[name] == n, f"{tag} {name} launched {got[name]} times, the stream needs {n}")
+    return {"tokens": toks, "tok_s": tok_s, "launches": got}
+
+
+def stage_step_ms(engine) -> list:
+    """Device ms of each stage's layers in one T=1 step of the engine's
+    single stream, captured and replayed (``graph_ms``); the step writes
+    its K/V rows at the stream's next position (the stream has ended)."""
+    from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
+
+    gen = engine.stream()
+    st, m = gen.model, engine.microbatches
+    plan = engine.device_plan(gen.cache.pos.expand(m), st.inputs, 1)
+    lengths = slot_lengths(plan.positions[0], plan.lengths[0] > 0, engine.max_seq)
+    h0 = engine.model.embed(gen._tok[:, None].expand(m, 1))
+
+    def stage(s):
+        return engine._decode_layers(st.cache, s, engine._attend_dense, h0, plan.positions[0],
+                                     lengths, plan.page_ids[0], plan.row_pos[0], plan.tables)
+
+    return [graph_ms(functools.partial(stage, s)) for s in range(engine.num_stages)]
+
+
+def engine_pair(tag: str, model, split, ids: list, tokens: int, counts, want: dict,
+                build=None) -> dict:
+    """The fused engine's single stream at pp = 1, then at the stages
+    ``split`` (built by ``build`` when given), each with its graphs, over
+    ``model``: token-identical streams, and the card memory the pp = 2
+    engine adds no more than its caches, graph pool and
+    ``PIPE_SLACK_BYTES`` (no second copy of the weights). Returns both
+    runs, the bytes, and each stage's device ms in one decode step."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.weights import model_weight_bytes
+
+    kw = dict(max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, device=model.device)
+    one = PipelineEngine(model, stages=1, **kw)
+    out = {"pp1": pipe_stream(f"{tag}[pp=1]", one, ids, tokens, counts, want, warm=True)}
+    out["pp1"]["stage_ms"] = stage_step_ms(one)
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    two = (build() if build is not None else
+           PipelineEngine(model, stage_bounds=split, **kw))
+    check(two.stage_bounds == list(split) and two.num_stages == 2,
+          f"{tag} the engine's stages are {two.stage_bounds}")
+    run = pipe_stream(f"{tag}[pp=2 {split}]", two, ids, tokens, counts, want, warm=True)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    stream = two.stream()
+    caches = stream.model.cache.nbytes
+    pool = stream.graphs.pool_bytes() if stream.graphs is not None else 0
+    weights = model_weight_bytes(model)
+    log(f"{tag} the pp = 2 engine added {grown / 1e6:.1f} MB of card memory: its caches "
+        f"{caches / 1e6:.1f} MB (two stages of {[c.k.shape[0] for c in stream.model.cache.stages]}"
+        f" layers), graph pool {pool / 1e6:.1f} MB; the weights {weights / 1e9:.3f} GB once")
+    check(grown <= caches + pool + PIPE_SLACK_BYTES and grown < weights / 4,
+          f"{tag} the pp = 2 engine grew the card's memory by {grown} bytes")
+    check(run["tokens"] == out["pp1"]["tokens"],
+          f"{tag} the pp = 2 stream parts from pp = 1 at token "
+          f"{first_divergence(run['tokens'], out['pp1']['tokens'])}")
+    run["stage_ms"] = stage_step_ms(two)
+    log(f"{tag} token-identical at pp = 1 and 2; decode {out['pp1']['tok_s']:.2f} / "
+        f"{run['tok_s']:.2f} tok/s; device ms of one decode step by stage: pp = 1 "
+        f"{out['pp1']['stage_ms'][0]:.3f}, pp = 2 "
+        f"{' + '.join(f'{x:.3f}' for x in run['stage_ms'])}")
+    out.update(pp2=run, grown_bytes=grown, cache_bytes=caches, pool_bytes=pool, engine=two)
+    return out
+
+
+def pipe_batch(tag: str, model, stages: int, counts) -> dict:
+    """A subset of phase 6's mix, greedy, through the batcher over a pool
+    on the ``gather`` path (which pp > 1 takes) at ``stages`` stages,
+    served on this thread after its graphs are captured: streams, tok/s,
+    the ticks, and kernel 1 and the T=1 route launched once a layer for
+    every prefill chunk and decode step (kernel 2 never)."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    tok = ByteTokenizer()
+    jobs = [(tok.encode(mix_prompt(i, n)), dict(max_tokens=m))
+            for i, (n, m) in enumerate(PIPE_BATCH)]
+    engine = PipelineEngine(model, stages=stages, microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            paged_attention="gather", device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8)
+    graph_line(tag, batcher.warm_up(blocks=GREEDY_BLOCK))
+    counts.reset()
+    batcher.reset_tick_timing()
+    t0 = time.perf_counter()
+    items, _ = serve_on_this_thread(batcher, jobs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts.read()
+    streams = [[t for t, _ in s] for s in items]
+    n = sum(len(s) for s in streams)
+    layers = model.config.num_hidden_layers
+    log(f"{tag} {len(jobs)} requests, {n} tokens in {secs:.2f}s: {n / secs:.2f} tok/s; "
+        f"{batcher.prefill_chunks} prefill chunks, {batcher.decode_steps} decode steps; "
+        f"launches {got}")
+    tick_line(tag, batcher)
+    check(got["flash_attention"] == layers * batcher.prefill_chunks
+          and got["flash_decode"] == layers * batcher.decode_steps
+          and got["paged_attention"] == 0, f"{tag} launches {got}")
+    ticks = batcher.tick_timing_stats()
+    batcher.close()
+    return {"streams": streams, "tok_s": n / secs, "ticks": ticks, "launches": got}
+
+
+def phase_pipeline(model, seed: int, lap) -> tuple:
+    """Phase 15 on phase 4's model: the fused engine at pp = 1 and pp = 2
+    (the latter built as the server builds ``--num-stages 2``, then serving
+    a streamed completion), the chained pipeline against the pp = 1
+    Generator, the batcher on the gather path at pp = 1 and 2, then the
+    engine and the chain with each stage's programs captured on their own.
+    Returns the launches of its runs per kernel and the numbers."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.parallel.chained import chained_from_model
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, build_generator
+
+    counts = kernel_counts()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    layers = model.config.num_hidden_layers
+    ids = pipe_ids(PIPE_PROMPT)
+    want = stream_launches(layers, PIPE_PROMPT, PIPE_TOKENS)
+    stats = engine_pair("[pipe]", model, PIPE_SPLIT, ids, PIPE_TOKENS, counts, want,
+                        build=lambda: build_generator(
+                            "llama-3.1-8b-random", model=model, device=model.device,
+                            num_stages=2, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK))
+    add(stats["pp1"]["launches"])
+    add(stats["pp2"]["launches"])
+    two = stats.pop("engine")
+    # one streamed completion through the provider over the pp = 2 engine
+    counts.reset()
+    with served(ModelProvider(two, ByteTokenizer(), model_name="llama-3.1-8b-pp2")) as port:
+        status, events, t_head, t_end = post(port, "/v1/completions", {
+            "prompt": mix_prompt(151, 300), "max_tokens": 32, "stream": True,
+            "logit_bias": {"65": 100.0}}, stream=True)
+    got = counts.read()
+    add(got)
+    text = stream_text(events, chat=False)
+    log(f"[pipe] a streamed completion through ModelProvider at pp = 2: status {status}, "
+        f"{len(text)} characters in {t_end * 1e3:.1f} ms, launches {got}")
+    check(status == 200 and events[-1] == "[DONE]" and text == "A" * 32,
+          f"[pipe] the streamed completion: {status} {text!r}")
+    check(got["flash_attention"] > 0 and got["flash_decode"] > 0, "[pipe] HTTP launches")
+    two.close()
+    del two
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 15, the fused engine at pp = 1 and 2")
+    gen = Generator(model, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK)
+    ref = pipe_stream("[pipe-gen][pp=1]", gen, ids, PIPE_TOKENS, counts, want)
+    add(ref["launches"])
+    del gen
+    chain = chained_from_model(model, PIPE_CHAINED, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK)
+    run = pipe_stream(f"[pipe-chained][{PIPE_CHAINED}]", chain, ids, PIPE_TOKENS, counts, want)
+    add(run["launches"])
+    check(run["tokens"] == ref["tokens"], f"[pipe-chained] the chain parts from the Generator at "
+          f"token {first_divergence(run['tokens'], ref['tokens'])}")
+    agree = first_divergence(ref["tokens"], stats["pp1"]["tokens"])
+    log(f"[pipe-chained] token-identical to the pp = 1 Generator ({ref['tok_s']:.2f} / "
+        f"{run['tok_s']:.2f} tok/s); the Generator against the engine's single stream: "
+        f"{'equal' if agree is None else f'parts at token {agree}'} (other kernels' shapes)")
+    stats["chained"], stats["generator"] = run, ref
+    del chain
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 15, the chained pipeline")
+    batch = {s: pipe_batch(f"[pipe-batch][pp={s}]", model, s, counts) for s in (1, 2)}
+    for b in batch.values():
+        add(b["launches"])
+    check(batch[2]["streams"] == batch[1]["streams"], "[pipe-batch] pp = 2 parts from pp = 1")
+    log(f"[pipe-batch] token-identical at pp = 1 and 2: {batch[1]['tok_s']:.2f} / "
+        f"{batch[2]['tok_s']:.2f} tok/s")
+    stats["batch"] = batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 15, the batcher at pp = 1 and 2")
+    # each stage's share of a step as a graph of its own (what stages on
+    # distinct cards take), forced on one card: the fused engine and the
+    # chain, each against the first PIPE_STAGE_TOKENS of its pp = 1 stream
+    kw = dict(max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, stage_graphs=True)
+    want = stream_launches(layers, PIPE_PROMPT, PIPE_STAGE_TOKENS)
+    for tag, gen, want_toks in (
+            ("[pipe-stage-graphs][fused]",
+             PipelineEngine(model, stage_bounds=PIPE_SPLIT, device=model.device, **kw),
+             stats["pp1"]["tokens"][:PIPE_STAGE_TOKENS]),
+            ("[pipe-stage-graphs][chained]", chained_from_model(model, PIPE_CHAINED, **kw),
+             ref["tokens"][:PIPE_STAGE_TOKENS])):
+        run = pipe_stream(tag, gen, ids, PIPE_STAGE_TOKENS, counts, want)
+        add(run["launches"])
+        check(run["tokens"] == want_toks, f"{tag} parts from its pp = 1 stream at token "
+              f"{first_divergence(run['tokens'], want_toks)}")
+        log(f"{tag} token-identical to its pp = 1 stream")
+        stats[tag] = run
+        if hasattr(gen, "close"):
+            gen.close()
+        del gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("phase 15, each stage's programs on their own")
+    return launches, stats
+
+
+def pipe_packed(packed) -> dict:
+    """Phase 15's packed run after phase 5: the packed model's single
+    stream at pp = 1 and pp = 2, 32 greedy tokens each, token-identical;
+    kernels 3 and 4 launched once a layer shape for every chunk and step."""
+    t0 = time.perf_counter()
+    layers = packed.config.num_hidden_layers
+    ids = pipe_ids(PIPE_PROMPT)
+    want = stream_launches(layers, PIPE_PROMPT, PIPE_PACKED_TOKENS)
+    chunks, steps = -(-PIPE_PROMPT // CHUNK), 16 * -(-(PIPE_PACKED_TOKENS - 1) // 16)
+    want.update(quant_matmul=LAYER_SHAPES * layers * chunks,
+                quant_gemv=(LAYER_SHAPES * layers + 1) * steps + chunks)
+    out = engine_pair("[pipe-4bit]", packed, PIPE_SPLIT, ids, PIPE_PACKED_TOKENS, kernel_counts(),
+                      want)
+    out.pop("engine").close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pipe-4bit] phase 15's packed runs took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def pipe_deepseek(model) -> dict:
+    """Phase 15's DeepSeek run in phase 9: the Lite's single stream at pp =
+    1 and split 0-14 / 14-27 (its dense first layer and 13 MoE layers, then
+    13 MoE layers), 32 greedy tokens each, token-identical; kernel 1's MLA
+    build and its T=1 route launched once a layer for every chunk and
+    step."""
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    ids = pipe_ids(DSV2_PIPE_PROMPT)
+    want = stream_launches(layers, DSV2_PIPE_PROMPT, DSV2_PIPE_TOKENS)
+    out = engine_pair("[pipe-deepseek]", model, DSV2_SPLIT, ids, DSV2_PIPE_TOKENS,
+                      kernel_counts(), want)
+    out.pop("engine").close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pipe-deepseek] phase 15's Lite runs took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------ the families' kernel paths
@@ -5894,11 +6240,13 @@ def mla_modes_parity(tag: str, config: dict, seed: int, ids: list, compressed) -
     del gen, model
 
 
-def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True) -> dict:
+def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True, after=None) -> dict:
     """Qwen3-8B, Gemma-2-9B and Mixtral-8x7B (4-bit) at full width (or
     ``runs``), one at a time, each freed before the next: served through the
-    Generator's graphs and through the paged batcher, then, with
-    ``parity``, the f32 parity at 2 layers. Returns each run's numbers."""
+    Generator's graphs and through the paged batcher, then ``after(name,
+    model)`` if given (its result under ``"after"`` when not None), then,
+    with ``parity``, the f32 parity at 2 layers. Returns each run's
+    numbers."""
     counts = kernel_counts()
     out = {}
     for key, config, name in runs:
@@ -5916,6 +6264,10 @@ def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True) -> dict:
         stats = family_serve(tag, key, model, cfg, counts)
         stats["batch"] = family_batch(tag, key, model, cfg, counts, stats.pop("greedy"))
         log(f"{tag} torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        extra = after(name, model) if after is not None else None
+        if extra is not None:
+            stats["after"] = extra
+            lap(f"{name}, phase 15 at pp = 1 and 2")
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -6282,12 +6634,14 @@ def mla_records(rows: dict, errs: dict, served: dict) -> list:
     offsets 0, 256, 512), the T=1 route's values_from_k at position 600, and
     kernel 2's values_from_k over the batcher's four slots (mean over the
     bf16 and int8 pools); their launches are phase 9's served runs', dense
-    and packed."""
+    and packed, and phase 15's at pp = 1 and 2."""
     runs = list(served.values())
+    # phase 15's runs of the bf16 Lite at pp = 1 and 2
+    pipeline = [r["after"][pp]["launches"] for r in runs if "after" in r for pp in ("pp1", "pp2")]
 
     def launched(name, batch=True):
-        return sum(r["launches"][name] + (r["batch"]["launches"][name] if batch else 0)
-                   for r in runs)
+        return (sum(r["launches"][name] + (r["batch"]["launches"][name] if batch else 0)
+                    for r in runs) + sum(p[name] for p in pipeline))
 
     def mean(picked):
         return {key: (None if any(r[key] is None for r in picked)
@@ -6329,8 +6683,12 @@ DSV2_RUNS = (("deepseek_v2", DSV2_LITE, "DeepSeek-Coder-V2-Lite bf16"),
 def phase_deepseek(seed: int, lap) -> dict:
     """Phase 9: DeepSeek-Coder-V2-Lite at full width and depth, compressed
     MLA cache, bf16 and packed, through the Generator's graphs behind the
-    server and the paged batcher; then f32 at 2 layers."""
-    out = phase_families(seed, lap, runs=DSV2_RUNS, parity=False)
+    server and the paged batcher, the bf16 model also through the fused
+    engine at pp = 1 and split 0-14 / 14-27 (phase 15); then f32 at 2
+    layers."""
+    out = phase_families(seed, lap, runs=DSV2_RUNS, parity=False,
+                         after=lambda name, model: pipe_deepseek(model) if "bf16" in name
+                         else None)
     gc.collect()
     torch.cuda.empty_cache()
     family_parity("[deepseek_v2]", "deepseek_v2", DSV2_LITE, seed)
@@ -6404,8 +6762,8 @@ def main(argv=None) -> int:
     share_launches, share = phase_share_and_replicas(model, args.seed, single_batch_tok_s, lap)
     disagg_launches, _ = phase_disagg(model, args.seed, single_batch_tok_s,
                                       share["mix"]["tok_s"], greedy["bf16"], lap)
-    quant_launches, _ = phase_main_path_4bit(model, args.seed)
-    lap("main path, 4-bit")
+    pipe_launches, _ = phase_pipeline(model, args.seed, lap)
+    quant_launches, _ = phase_main_path_4bit(model, args.seed, lap)
     del model
     families = phase_families(args.seed, lap)
     deepseek = phase_deepseek(args.seed, lap)
@@ -6422,7 +6780,8 @@ def main(argv=None) -> int:
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_attention"] + dense_launches["flash_attention"]
                      + surface_launches["flash_attention"] + share_launches["flash_attention"]
-                     + disagg_launches["flash_attention"]),
+                     + disagg_launches["flash_attention"] + pipe_launches["flash_attention"]
+                     + quant_launches["flash_attention"]),
         "max_abs_err": max(max_err, dense["kernels"]["flash_attention"],
                            surfaces["unaligned_err"]),
         "ms": mean("ms"),
@@ -6464,7 +6823,8 @@ def main(argv=None) -> int:
         "source": "mlx_sharding_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_decode"] + quant_launches["flash_decode"]
-                     + dense_launches["flash_decode"] + surface_launches["flash_decode"]),
+                     + dense_launches["flash_decode"] + surface_launches["flash_decode"]
+                     + pipe_launches["flash_decode"]),
         "max_abs_err": max(decode_err, dense["kernels"]["flash_decode"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],

@@ -27,6 +27,11 @@ M+1 caches of the full capacity, slot M the scratch that every inactive
 slot writes into, with per-slot host offsets. They are the pool layout with
 one page of ``max_seq`` rows per slot, ``(L, M+1, max_seq, H_kv, D)``, and
 :func:`slot_table` is their page table: slot m's one page is page m.
+
+A pipeline engine of S > 1 stages keeps one such pool (or set of slot
+caches) per stage, over that stage's layers and on its device
+(:class:`StagedKV`); the stages share the slot offsets and the page table,
+so a request holds the same page ids on every stage.
 """
 
 from __future__ import annotations
@@ -176,6 +181,53 @@ class PagedKV:
         return sum(t.numel() * t.element_size() for t in leaves)
 
 
+@dataclasses.dataclass
+class StagedKV:
+    """The KV of an S-stage pipeline engine: one :class:`PagedKV` per stage
+    (a pool, or dense slot caches, over the stage's own layers, on its own
+    device), all holding the same ``offsets`` list."""
+
+    stages: list
+
+    @property
+    def offsets(self) -> list:
+        return self.stages[0].offsets
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.nbytes for c in self.stages)
+
+
+def staged(caches: list) -> StagedKV:
+    """Per-stage caches made to share the first one's slot offsets."""
+    for c in caches[1:]:
+        c.offsets = caches[0].offsets
+    return StagedKV(list(caches))
+
+
+def stage_caches(cache) -> list:
+    """The per-stage caches of a :class:`StagedKV`, or ``[cache]``."""
+    return cache.stages if isinstance(cache, StagedKV) else [cache]
+
+
+def single_stage(cache) -> None:
+    """Raise for a :class:`StagedKV`: moving page blocks in or out of a
+    pipeline of several stages is not yet ported."""
+    if isinstance(cache, StagedKV):
+        raise NotImplementedError(
+            "moving KV page blocks of a pipeline of several stages is not yet ported "
+            "(ROADMAP queue 1, slice 9b): the spill tier, the prefix store, drains and "
+            "handoffs run at pp=1")
+
+
+def kv_row_bytes(cache) -> int:
+    """K + V bytes of one position over every layer of a pool (every stage
+    of a :class:`StagedKV`), scales included."""
+    return sum(t.shape[0] * t.shape[-2] * t.shape[-1] * t.element_size()
+               for c in stage_caches(cache) for buf in (c.k, c.v)
+               for t in (buf.values() if is_quantized_kv(buf) else (buf,)))
+
+
 def init_cache_paged(num_layers: int, pool_pages: int, page_size: int, n_kv_heads: int,
                      head_dim, slots: int, dtype: torch.dtype, device,
                      quantized: bool = False) -> PagedKV:
@@ -280,6 +332,7 @@ def export_pool_pages(cache: "PagedKV", page_ids: torch.Tensor):
     with the pool axis narrowed to ``len(page_ids)``, in new tensors that
     later writes to the pool leave alone. Enqueued on the current stream,
     nothing read back."""
+    single_stage(cache)
     take = lambda leaf: leaf.index_select(1, page_ids)  # noqa: E731
     return _map_pool(take, cache.k), _map_pool(take, cache.v)
 
@@ -291,6 +344,8 @@ def import_pool_pages(cache: "PagedKV", k_pages, v_pages, page_ids: torch.Tensor
     its tensors are never rebound, since the captured prefill and decode
     graphs hold their addresses. Payload leaves must already sit on the
     pool's device; they are cast to the pool's dtype. Returns ``cache``."""
+
+    single_stage(cache)
 
     def put(pool, blk):
         pool.index_copy_(1, page_ids, blk.to(pool.dtype))

@@ -1,11 +1,18 @@
-"""CLI text generation (port of the single-generator path of
-``mlx_sharding_tpu/cli/generate.py``).
+"""CLI text generation (port of ``mlx_sharding_tpu/cli/generate.py`` at tp =
+ep = 1 without sequence parallelism).
 
     python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
-        [--keep-quantized] [--device cpu] \
+        [--keep-quantized] [--device cpu] [--start-layer A] [--end-layer B] \
+        [--num-stages S | --stage-bounds 0-14,14-27 [--engine fused|chained]] \
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]] \
         [--paged-attention auto|ragged|gather] [--async-sched auto] [--kv-dtype bf16] \
         [--no-chat-template]
+
+``--num-stages S`` or ``--stage-bounds`` runs the model as a pipeline of
+stages (``parallel.pipeline.PipelineEngine``; with ``--engine chained`` and
+bounds, ``parallel.chained.load_chained_pipeline``): without ``--device``
+stage s goes on the s-th card, with ``--device cuda:0`` (or ``cpu``) every
+stage on that device.
 
 The CLI runs one stream, which ``--paged-attention``, ``--async-sched`` and
 ``--kv-dtype bf16`` leave as it is, as in the JAX CLI (they mirror the
@@ -37,7 +44,19 @@ def main(argv=None):
     parser.add_argument("--max-seq", type=int, default=4096)
     parser.add_argument("--prefill-chunk", type=int, default=256)
     parser.add_argument("--device", default=None,
-                        help="torch device (default cuda; 'cpu' runs without a card)")
+                        help="torch device of every stage (default: cuda, stage s on the "
+                        "s-th card; 'cpu' runs without a card)")
+    parser.add_argument("--start-layer", type=int, default=None)
+    parser.add_argument("--end-layer", type=int, default=None)
+    parser.add_argument("--num-stages", type=int, default=None,
+                        help="run the model as an N-stage fused pipeline")
+    parser.add_argument("--stage-bounds", default=None,
+                        help="pipeline stage bounds, e.g. '0-14,14-27' "
+                        "(uneven splits and MoE/dense mixes allowed)")
+    parser.add_argument("--engine", choices=("fused", "chained"), default="fused",
+                        help="pipeline engine for --stage-bounds: 'fused' runs every "
+                        "stage in one engine (default); 'chained' runs one model per "
+                        "stage and hands the hidden state on")
     parser.add_argument("--keep-quantized", action="store_true",
                         help="keep 4-bit decoder weights packed in HBM "
                         "(fused dequant-matmul) instead of dequantizing at "
@@ -90,11 +109,17 @@ def main(argv=None):
                         "'bf16' is valid here")
     parser.add_argument("--no-chat-template", action="store_true")
     args = parser.parse_args(argv)
+    if args.engine == "chained" and not args.stage_bounds:
+        parser.error("--engine chained requires --stage-bounds")
+    if args.draft_model and (args.stage_bounds or args.num_stages):
+        parser.error("--draft-model applies to the single-chip generator")
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine requires --draft-model")
     if args.draft in ("off", "ngram") and args.draft_model:
         parser.error(f"--draft {args.draft} conflicts with --draft-model "
                      "(drop one: 'engine' is the two-model path)")
+    if args.draft == "ngram" and (args.stage_bounds or args.num_stages):
+        parser.error("--draft ngram applies to the single-chip generator")
     if args.spec_window_max is not None:
         if args.spec_window_max < 2:
             parser.error("--spec-window-max must be >= 2 (a 1-token window "
@@ -106,35 +131,70 @@ def main(argv=None):
         parser.error("--kv-dtype int8 requires a paged KV pool; serve with "
                      "--concurrent N --paged-pool P instead")
 
-    from mlx_sharding_tpu_torch.device import resolve_device
+    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
 
+    bounds = None
+    if args.stage_bounds:
+        bounds = [tuple(int(x) for x in part.split("-")) for part in args.stage_bounds.split(",")]
+    stages = len(bounds) if bounds else (args.num_stages or 1)
     try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
+        device = stage_devices(stages, args.device)[0]
+    except (RuntimeError, ValueError) as e:
         parser.error(str(e))
 
-    from mlx_sharding_tpu_torch.generate import Generator, stream_generate
-    from mlx_sharding_tpu_torch.loading import load_model, load_tokenizer
+    from mlx_sharding_tpu_torch.loading import load_model
 
-    model, _ = load_model(args.model, device=device, keep_quantized=args.keep_quantized)
-    if args.draft == "ngram":
-        from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+    if bounds and args.engine == "chained":
+        from mlx_sharding_tpu_torch.parallel.chained import load_chained_pipeline
 
-        generator = NgramSpeculativeGenerator(model, spec_window_max=args.spec_window_max or 8,
-                                              max_seq=args.max_seq,
-                                              prefill_chunk=args.prefill_chunk)
-    elif args.draft_model:
-        from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+        generator = load_chained_pipeline(args.model, bounds, device=args.device,
+                                          max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
+                                          keep_quantized=args.keep_quantized)
+    elif stages > 1 or bounds:
+        from mlx_sharding_tpu_torch.parallel import PipelineEngine
 
-        draft_model, _ = load_model(args.draft_model, device=device)
-        generator = SpeculativeGenerator(model, draft_model, spec_k=args.spec_k,
-                                         max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+        model, _ = load_model(args.model, args.start_layer, args.end_layer, device=device,
+                              keep_quantized=args.keep_quantized)
+        generator = PipelineEngine(model, stages=stages, stage_bounds=bounds,
+                                   max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
+                                   paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
+                                   device=args.device)
     else:
-        generator = Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+        generator = _single_chip(args, load_model(args.model, args.start_layer, args.end_layer,
+                                                  device=device,
+                                                  keep_quantized=args.keep_quantized)[0], device)
     captured = generator.warm_up()  # on a card: every step as a graph
     if captured:
         print(f"captured {captured['graphs']} CUDA graphs in {captured['seconds']:.2f}s, "
               f"graph pool {captured['pool_bytes'] / 1e6:.1f} MB", file=sys.stderr)
+    _generate(args, generator)
+
+
+def _single_chip(args, model, device):
+    """The single-chip generator: n-gram or draft-model speculation, or the
+    plain ``Generator``."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.loading import load_model
+
+    if args.draft == "ngram":
+        from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
+
+        return NgramSpeculativeGenerator(model, spec_window_max=args.spec_window_max or 8,
+                                         max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+    if args.draft_model:
+        from mlx_sharding_tpu_torch.speculative import SpeculativeGenerator
+
+        draft_model, _ = load_model(args.draft_model, device=device)
+        return SpeculativeGenerator(model, draft_model, spec_k=args.spec_k,
+                                    max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+    return Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+
+
+def _generate(args, generator) -> None:
+    """Stream the prompt's completion and report the rates on stderr."""
+    from mlx_sharding_tpu_torch.generate import stream_generate
+    from mlx_sharding_tpu_torch.loading import load_tokenizer
+
     tokenizer = load_tokenizer(args.model)
     if getattr(tokenizer, "chat_template", None) and not args.no_chat_template:
         prompt_ids = tokenizer.apply_chat_template(

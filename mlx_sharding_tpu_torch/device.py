@@ -11,13 +11,18 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means ``cuda``. Raises when CUDA is asked for and absent."""
+    """``None`` means ``cuda``. Raises when CUDA is asked for and absent.
+    A CUDA device comes back with its index (``cuda`` is the current
+    device), as a tensor on it reports its device, so that an engine can
+    compare it with its model's."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available on this machine; pass device='cpu' "
             "(--device cpu on the command line) to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

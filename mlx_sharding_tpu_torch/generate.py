@@ -66,6 +66,8 @@ DEFAULT_PREFILL_CHUNK = 256
 REPETITION_WINDOW = 20
 DEFAULT_DECODE_BLOCK = 16
 LOGPROB_TOPK = 10
+#: the decode blocks a warm-up captures by default: (sampled, logprobs)
+BLOCK_KINDS = ((False, False), (False, True), (True, False), (True, True))
 
 
 @dataclass
@@ -286,27 +288,33 @@ class Generator:
         self.cache = dataclasses.replace(self.cache, offset=self.cache.offset + steps)
         return tuple(o.clone() for o in outs)
 
-    def warm_up(self, decode_blocks: bool = True, prefill_upto: Optional[int] = None) -> dict:
+    def warm_up(self, decode_blocks: bool = True, prefill_upto: Optional[int] = None,
+                blocks=BLOCK_KINDS) -> dict:
         """Capture, before the first request, every prefill chunk's graph
         (one per chunk offset; with ``prefill_upto``, only the chunks of a
         prompt of that many tokens, the rest on first use) and, with
-        ``decode_blocks``, the decode blocks of the default window (greedy
-        and sampled, with and without logprobs). Returns the graphs
-        captured, their capture seconds and the pool's bytes; without
-        graphs, nothing is captured and it returns ``{}``."""
+        ``decode_blocks``, the decode blocks of the default window of each
+        (sampled, logprobs) kind in ``blocks`` (all four by default; any
+        other is captured on first use). Returns the graphs captured, their
+        capture seconds and the pool's bytes; without graphs, nothing is
+        captured and it returns ``{}``."""
         if self.graphs is None:
             return {}
+        self._warm_steps(decode_blocks, prefill_upto, blocks)
+        return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
+                "pool_bytes": self.graphs.pool_bytes()}
+
+    def _warm_steps(self, decode_blocks: bool, prefill_upto: Optional[int], blocks) -> None:
+        """Run the prefill chunks and decode blocks :meth:`warm_up` names,
+        each captured at its first run; a request resets what they move."""
         c = self.prefill_chunk
         self._chunk.zero_()
         self._last.fill_(c - 1)
         for start in range(0, min(self.max_seq, prefill_upto or self.max_seq), c):
             self.run_chunk(start)
-        for sampled in (False, True) if decode_blocks else ():
-            for want_logprobs in (False, True):
-                self.run_block(self.decode_block, REPETITION_WINDOW, sampled, want_logprobs)
+        for sampled, want_logprobs in blocks if decode_blocks else ():
+            self.run_block(self.decode_block, REPETITION_WINDOW, sampled, want_logprobs)
         torch.cuda.synchronize(self.device)
-        return {"graphs": self.graphs.captures, "seconds": self.graphs.capture_seconds,
-                "pool_bytes": self.graphs.pool_bytes()}
 
     # -------------------------------------------------------------- requests
     def begin(

@@ -35,10 +35,15 @@ so the host no longer issues every operation of every step.
   scheduler threads on one card, each batcher with its own graphs, stream
   and memory pool.
 - A capture or replay that fails raises. There is no eager fallback.
+- A pipeline whose stages are on distinct devices cannot put a step into
+  one graph: :class:`StageGraphs` keeps one ``StepGraphs`` per stage, on
+  its device, and each stage's share of a step is captured and replayed
+  alone over static copies of its inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -197,3 +202,45 @@ class StepGraphs:
         pool = tuple(self.pool)
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) == pool)
+
+
+class StageGraphs:
+    """One :class:`StepGraphs` per pipeline stage, each on its stage's
+    device and in a memory pool of its own (``enabled``; else :meth:`run`
+    calls the program as it is). :meth:`run` copies the stage's inputs into
+    that stage's static buffers for the key (made at the first call), then
+    replays the stage's program over them, capturing it first; the outputs
+    are the graph's static ones, which the key's next replay overwrites."""
+
+    def __init__(self, devices, enabled: bool):
+        self.devices = [torch.device(d) for d in devices]
+        self.graphs = None
+        if enabled:
+            self.graphs = []
+            for dev in self.devices:
+                with torch.cuda.device(dev):
+                    self.graphs.append(StepGraphs(dev, torch.cuda.graph_pool_handle()))
+        self._inputs: dict = {}
+
+    def run(self, stage: int, key, fn: Callable, *inputs):
+        """``fn(*inputs)`` as stage ``stage``'s program of ``key``."""
+        if self.graphs is None:
+            return fn(*inputs)
+        static = self._inputs.get((stage, key))
+        if static is None:
+            static = self._inputs[(stage, key)] = [x.clone() for x in inputs]
+        else:
+            for buf, x in zip(static, inputs):
+                buf.copy_(x)
+        dev = self.devices[stage]
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            return self.graphs[stage].run(key, lambda: fn(*static))
+
+    def stats(self) -> dict:
+        """The graphs captured, their capture seconds and the pools' bytes,
+        over every stage (``{}`` when off)."""
+        if self.graphs is None:
+            return {}
+        return {"graphs": sum(g.captures for g in self.graphs),
+                "seconds": sum(g.capture_seconds for g in self.graphs),
+                "pool_bytes": sum(g.pool_bytes() for g in self.graphs)}

@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from mlx_sharding_tpu_torch import tracing
-from mlx_sharding_tpu_torch.cache import export_pool_pages, import_pool_pages
+from mlx_sharding_tpu_torch.cache import export_pool_pages, import_pool_pages, single_stage
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.kv_compress import (
     ZeroLeaf,
@@ -458,6 +458,7 @@ def pages_compatible(k_pages, v_pages, cache, check_dtype: bool = True) -> Optio
 
 
 def _pool_device(cache) -> torch.device:
+    single_stage(cache)
     return tree_leaves(cache.k)[0].device
 
 

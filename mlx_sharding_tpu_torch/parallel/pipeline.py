@@ -1,8 +1,9 @@
-"""The continuous-batching engine (port of the pp=1 subset of
-``mlx_sharding_tpu/parallel/pipeline.py::PipelineEngine``): M slots of one
-model on one device, each with its own KV offset, over a shared pool of KV
-pages (``pool_pages``) or over M+1 dense slot caches (no pool, JAX
-``init_cache``; slot M is the scratch every inactive slot writes into).
+"""The pipeline engine (port of
+``mlx_sharding_tpu/parallel/pipeline.py::PipelineEngine`` at tp = ep = 1):
+M slots of one model split into S pipeline stages, each slot with its own KV
+offset, over a shared pool of KV pages (``pool_pages``) or over M+1 dense
+slot caches (no pool, JAX ``init_cache``; slot M is the scratch every
+inactive slot writes into).
 The dense caches are laid out as a pool whose pages are whole slots
 (``cache.init_cache_slots``, table ``cache.slot_table``), so both engines
 plan their steps alike.
@@ -81,26 +82,67 @@ plan their steps alike.
   the engine, and :meth:`PipelineEngine.close` runs its ``on_close`` hooks
   (a store lease's release) once.
 
-Pipeline, tensor and expert parallelism are not yet ported: they raise.
+Pipeline stages (``stages`` / ``stage_bounds``, JAX's ``pp`` axis): stage s
+owns the layers ``[start, end)`` of its bounds (by default
+:func:`balanced_stage_bounds`, the larger stages first) on its device
+(``parallel.mesh.stage_devices``), with its own pool or slot caches over
+those layers only (``cache.StagedKV``; the stages share the offsets and the
+page table). Stage 0 embeds, the last stage applies the final norm and the
+head, and the hidden state hops between stages (``hop``: an event, then
+``.to(device, non_blocking=True)``; nothing on one device). On one device
+the stages are slices of the model's layer list, so the weights are held
+once whatever S. JAX runs one microbatch a tick through a GPipe loop of
+S + M - 1 ticks; here all M slots run each stage as one batched forward, as
+the pp = 1 step does, which gives the same tokens and on one card streams
+each stage's weights once a step. Sampling runs after the last stage, on
+stage 0's device. What JAX allows only at pp = 1 raises JAX's error here:
+the ragged decode path (a paged engine at S > 1 takes ``gather``), a KV
+share map, a compression map and the speculative steps. On one device a
+step over every stage is one CUDA graph (the batcher's, or the single
+stream's); on distinct devices (or with ``stage_graphs=True``) each
+stage's share of a step is a graph of its own on its device
+(``graphs.StageGraphs``, one set for each cache the engine steps) and the
+rest of the step runs eagerly. At S > 1 each stage runs its layers through
+a view of the model whose RoPE table lies on the stage's device
+(:func:`stage_model`), so no stage moves a table another stage's program
+reads. Stages on distinct devices have not been run on more than one
+card.
+
+:meth:`PipelineEngine.generate_step` is the single stream of JAX's engine,
+a ``Generator`` over the engine's stages (:class:`StagedGenerator` over
+:class:`_Stream`): every one of the M microbatches runs the same tokens
+over dense slot caches of the stream's own (M = 1 serves one request), and
+the stream is slot 0's; chunked prefill and decode blocks are captured as
+at pp = 1 (:meth:`PipelineEngine.warm_up`).
+
+Tensor and expert parallelism are not yet ported: they raise.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
+import itertools
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from mlx_sharding_tpu_torch.cache import (
+    KVCache,
     PagedKV,
+    stage_caches,
+    staged,
     dequantize_kv,
     init_cache_paged,
     init_cache_slots,
     init_page_table,
     quantize_kv_rows,
     is_quantized_kv,
+    slot_table,
     kv_data,
     layer_pool,
     read_pool_rows,
@@ -108,15 +150,117 @@ from mlx_sharding_tpu_torch.cache import (
     write_pool_rows,
     write_pool_span,
 )
-from mlx_sharding_tpu_torch.device import resolve_device, upload_into
-from mlx_sharding_tpu_torch.graphs import note_eager_forward
+from mlx_sharding_tpu_torch.device import upload_into
+from mlx_sharding_tpu_torch.generate import BLOCK_KINDS, DEFAULT_DECODE_BLOCK, Generator
+from mlx_sharding_tpu_torch.graphs import StageGraphs, note_eager_forward
 from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
 from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
 from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
+from mlx_sharding_tpu_torch.parallel.mesh import same_mesh_devices, stage_devices
 from mlx_sharding_tpu_torch.sample import draw, sample_token_batched, update_recent_tokens
 from mlx_sharding_tpu_torch.speculative import dist_logits, verify_round
-from mlx_sharding_tpu_torch.weights import model_weight_bytes
+from mlx_sharding_tpu_torch.weights import ResidentWeights, model_weight_bytes
+
+
+def balanced_stage_bounds(num_layers: int, num_stages: int) -> list[tuple[int, int]]:
+    """Contiguous near-equal ``[start, end)`` bounds, the larger stages
+    first (JAX's): the split when the caller gives no bounds."""
+    base, extra = divmod(num_layers, num_stages)
+    bounds, start = [], 0
+    for s in range(num_stages):
+        size = base + (1 if s < extra else 0)
+        bounds.append((start, start + size))
+        start += size
+    return bounds
+
+
+def check_stage_bounds(stage_bounds, num_layers: int) -> list[tuple[int, int]]:
+    """The bounds as a list of ``(start, end)`` pairs, with JAX's checks
+    (``split_stage_stacks``): they cover every layer, contiguously, and no
+    stage is empty."""
+    bounds = [tuple(int(x) for x in b) for b in stage_bounds]
+    if not bounds or bounds[0][0] != 0 or bounds[-1][1] != num_layers:
+        raise ValueError(f"stage bounds {bounds} must cover all layers")
+    for (_, a1), (b0, _) in zip(bounds, bounds[1:]):
+        if a1 != b0:
+            raise ValueError(f"stage bounds {bounds} must be contiguous")
+    if any(e <= s for s, e in bounds):
+        raise ValueError(f"stage bounds {bounds} contain an empty stage")
+    return bounds
+
+
+def resolve_stage_bounds(num_layers: int, stages: Optional[int] = None,
+                         stage_bounds=None) -> list[tuple[int, int]]:
+    """The split of ``num_layers`` layers: ``stage_bounds`` checked, or
+    ``stages`` balanced stages (one without either)."""
+    if stage_bounds is None:
+        return balanced_stage_bounds(num_layers, stages or 1)
+    if stages is not None and stages != len(stage_bounds):
+        raise ValueError(f"{len(stage_bounds)} stage bounds for a {stages}-stage pp mesh")
+    return check_stage_bounds(stage_bounds, num_layers)
+
+
+def hop(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The hidden state (or logits) handed to ``device``: the receiving
+    stream waits on an event of the sending one, then the copy is enqueued
+    without a host wait. ``x`` itself when it is there already."""
+    if x.device == device:
+        return x
+    if x.is_cuda and device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(x.device))
+        torch.cuda.current_stream(device).wait_event(done)
+    return x.to(device, non_blocking=True)
+
+
+def stage_model(model, start: int, end: int):
+    """The stage ``[start, end)`` of a loaded full model, holding the
+    model's own tensors: its layers ``start .. end`` (the same modules), the
+    embedding where the stage embeds (the first stage, and the last for a
+    tied head), the final norm and the head on the last stage. Its
+    constants (the RoPE table) are its own once it places them
+    (``place_constants``), so stages on distinct devices never move one
+    another's."""
+    stage = copy.copy(model)
+    stage._modules = dict(model._modules)
+    stage._parameters = dict(model._parameters)
+    stage._buffers = dict(model._buffers)
+    stage.__dict__.pop("_graph_pool", None)
+    stage.config = cfg = dataclasses.replace(model.config, start_layer=start, end_layer=end)
+    stage._modules["layers"] = nn.ModuleList(list(model.layers)[start:end])
+    if not cfg.needs_embed:
+        stage._modules.pop("embed_tokens", None)
+    if not cfg.needs_head:
+        stage._parameters.pop("final_norm", None)
+        stage._modules.pop("lm_head", None)
+    return stage
+
+
+def _head_module(model):
+    return model.embed_tokens if model.head_is_tied() else model.lm_head
+
+
+def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None,
+                  device=None) -> ResidentWeights:
+    """Place a loaded full model for an S-stage engine (JAX
+    ``place_weights``) and return its :class:`ResidentWeights`, which
+    carries the split and each stage's device. On one device nothing moves:
+    the stages are slices of the model's layer list. On distinct devices
+    each stage's layers move to its device, and the final norm and the head
+    to the head table's (the last stage's; stage 0's for a tied embedding,
+    whose one table serves both ends)."""
+    cfg = model.config
+    bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
+    devices = stage_devices(len(bounds), device)
+    if len(set(devices)) > 1:
+        for (a, b), dev in zip(bounds, devices):
+            model.layers[a:b].to(dev)
+        head_dev = devices[0] if model.head_is_tied() else devices[-1]
+        _head_module(model).to(head_dev)
+        model.final_norm.data = model.final_norm.data.to(head_dev)
+    return ResidentWeights(model=model, device=devices[0], weight_bytes=model_weight_bytes(model),
+                           stage_bounds=tuple(bounds), devices=tuple(devices))
 
 
 @dataclasses.dataclass
@@ -148,20 +292,30 @@ class DeviceInputs:
 
 
 class PipelineEngine:
-    """M continuous-batching slots of one model on one device (the JAX
-    engine at pp = tp = ep = 1, batch 1 per slot), over a shared KV page
-    pool (``pool_pages`` set) or M+1 dense slot caches (``pool_pages``
-    None).
+    """M continuous-batching slots of one model (the JAX engine at tp = ep
+    = 1, batch 1 per slot) in ``stages`` pipeline stages (or the stages of
+    ``stage_bounds``), over a shared KV page pool (``pool_pages`` set) or
+    M+1 dense slot caches (``pool_pages`` None). ``device``: every stage's
+    device; None puts stage s on the s-th CUDA device.
 
     At construction the model's packed projection groups are fused in
     place, as ``Generator`` does (``models.base.apply_projection_fusion``);
-    at M <= 8 a packed decode step then runs the GEMV kernel."""
+    at M <= 8 a packed decode step then runs the GEMV kernel.
+    ``decode_block`` and ``cuda_graphs`` are the single stream's
+    (:meth:`generate_step`). ``stage_graphs``: capture each stage's share
+    of a step on its own (``graphs.StageGraphs``, one set a cache: a
+    program holds its cache's addresses) rather than whole steps; by
+    default iff the stages are on distinct devices (``cuda_graphs`` off
+    turns both off). At S > 1 stage s runs its layers through a view of the
+    model (:func:`stage_model`) whose constants lie on its device: a
+    captured program reads a RoPE table that no other stage moves."""
 
     def __init__(
         self,
         model,
         *,
-        stages: int = 1,
+        stages: Optional[int] = None,
+        stage_bounds=None,
         tp: int = 1,
         ep: int = 1,
         microbatches: int = 1,
@@ -175,31 +329,61 @@ class PipelineEngine:
         kv_compress_map=None,
         weights=None,
         device=None,
+        decode_block: int = DEFAULT_DECODE_BLOCK,
+        cuda_graphs: bool = True,
+        stage_graphs: Optional[bool] = None,
     ):
-        for name, n in (("pipeline stages", stages), ("tp", tp), ("ep", ep)):
+        for name, n in (("tp", tp), ("ep", ep)):
             if n != 1:
                 raise NotImplementedError(
-                    f"{name}={n}: only the pp=1 engine is ported so far; pipeline, tensor and "
-                    "expert parallelism are not yet ported (ROADMAP queue 1, item 9)"
-                )
+                    f"{name}={n}: tensor and expert parallelism are not yet ported "
+                    "(ROADMAP queue 1, slice 9b)")
         cfg = model.config
         if not (cfg.is_first_stage and cfg.is_last_stage):
             raise ValueError("PipelineEngine wants the full model config")
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
         # Weight residency (JAX ``weights=``): a ``weights.WeightStore``
         # lease's resident model, which other engines (replicas) run
-        # against too. The caller owns the lease and hangs its release on
-        # ``on_close()``. Everything an engine changes lives on the engine.
+        # against too, placed for its stage split. The caller owns the
+        # lease and hangs its release on ``on_close()``. Everything an
+        # engine changes lives on the engine.
         if weights is not None:
             if weights.model is not model:
                 raise ValueError("resident weights hold another model than this engine's")
-            if torch.device(weights.device) != self.device:
+            bounds = [tuple(b) for b in (weights.stage_bounds
+                                         or [(0, cfg.num_hidden_layers)])]
+            if stage_bounds is not None and [tuple(b) for b in stage_bounds] != bounds:
+                raise ValueError(f"stage_bounds {list(stage_bounds)} disagree with the resident "
+                                 f"tree's split {bounds}")
+            if stages is not None and stages != len(bounds):
+                raise ValueError(f"{len(bounds)} stage bounds for a {stages}-stage pp mesh")
+            placed = list(weights.devices or [torch.device(weights.device)])
+            if not same_mesh_devices(placed, stage_devices(len(bounds), device)):
                 raise ValueError(
                     "resident weights were placed on a different device grid than this "
                     "engine's mesh — aliased construction needs identical placement (same "
                     "devices, same axis layout)")
+            self.stage_bounds, self.stage_devices = bounds, placed
+        else:
+            bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
+            devices = stage_devices(len(bounds), device)
+            if len(set(devices)) > 1:
+                place_weights(model, stage_bounds=bounds, device=device)
+            elif model.device != devices[0]:
+                raise ValueError(f"the model is on {model.device}, the engine on {devices[0]}")
+            self.stage_bounds, self.stage_devices = bounds, devices
+        self.num_stages = len(self.stage_bounds)
+        self.device = self.stage_devices[0]  # stage 0's: the inputs, the sampling
+        self._one_device = len(set(self.stage_devices)) == 1
+        head = _head_module(model)
+        self._head_device = next(itertools.chain(head.parameters(), head.buffers())).device
+        self.decode_block = decode_block
+        self.cuda_graphs = cuda_graphs
+        #: each stage's share of a step is captured on its own: the steps
+        #: themselves are not (a batcher over this engine captures none)
+        self.per_stage_graphs = (not self._one_device) if stage_graphs is None else stage_graphs
+        # id(cache) -> (a weak reference to it, its stages' programs)
+        self._stage_graphs: dict = {}
+        self._stream: Optional[StagedGenerator] = None  # made on first use
         self.weights_shared = weights is not None
         self.resident = weights
         self.model = model
@@ -248,13 +432,15 @@ class PipelineEngine:
 
         if paged_attention not in ("auto", "ragged", "gather"):
             raise ValueError(f"paged_attention={paged_attention!r}: want auto|ragged|gather")
-        if paged_attention == "ragged" and not self.paged:
+        # the ragged body runs at pp = 1 only (JAX's ``ragged_ok``)
+        ragged_ok = self.paged and self.num_stages == 1
+        if paged_attention == "ragged" and not ragged_ok:
             raise ValueError(
                 "paged_attention='ragged' needs a paged (pool_pages) pp=1 engine with tp=ep=1, "
                 "batch=1, and a model with supports_sp"
             )
         # JAX's attribute: "ragged" or "gather" (a dense engine's is "gather")
-        self.paged_attention = ("ragged" if paged_attention in ("auto", "ragged") and self.paged
+        self.paged_attention = ("ragged" if paged_attention in ("auto", "ragged") and ragged_ok
                                 else "gather")
         #: the T=1 step's attention: "ragged", "gather" or "dense"
         self.decode_path = self.paged_attention if self.paged else "dense"
@@ -266,6 +452,9 @@ class PipelineEngine:
         if kv_share_map is not None:
             if not self.paged:
                 raise ValueError("kv_share_map requires a paged engine (pool_pages)")
+            if self.num_stages != 1:
+                raise ValueError("kv_share_map requires a pp=1 engine: share groups span the "
+                                 "full layer stack, which a stage split cuts")
             kv_share_map.validate_for(cfg.num_local_layers)
         self.kv_share = kv_share_map
         self.kv_share_hash = kv_share_map.share_hash if kv_share_map is not None else None
@@ -285,12 +474,16 @@ class PipelineEngine:
 
         pool_layers = kv_share_map.num_groups if self._share_active else n_layers
         self.kv_codec = build_codec(model, paged=self.paged, kv_quant=self.kv_quant,
-                                    num_stages=stages, pool_layers=pool_layers,
+                                    num_stages=self.num_stages, pool_layers=pool_layers,
                                     share_hash=self.kv_share_hash,
                                     compress_map=kv_compress_map)
         self.kv_compress_hash = (self.kv_codec.compress_hash if self.kv_codec is not None
                                  else None)
         model.place_constants(self.device)
+        self.stage_models = ([model] if self.num_stages == 1 else
+                             [stage_model(model, a, b) for a, b in self.stage_bounds])
+        for view, dev in zip(self.stage_models, self.stage_devices):
+            view.place_constants(dev)
         # persistent step inputs: a step's key -> (buffer, DeviceInputs over it)
         self._plans: dict = {}
         # (buffer, tokens (1, chunk), page row (SPG,), last valid row (1,))
@@ -315,6 +508,8 @@ class PipelineEngine:
         hooks, self._close_hooks = self._close_hooks, []
         self._plans.clear()
         self._prefill_buf = None
+        self._stream = None
+        self._stage_graphs.clear()
         for cb in hooks:
             cb()
 
@@ -346,29 +541,64 @@ class PipelineEngine:
         if self.paged:
             raise ValueError("a paged engine's cache is its pool: init_cache_paged")
         model = self.model
-        return init_cache_slots(model.config.num_local_layers, self.microbatches, self.max_seq,
-                                model.cache_num_heads(), model.cache_head_dim(), self.cache_dtype,
-                                self.device)
+        caches = [init_cache_slots(b - a, self.microbatches, self.max_seq, model.cache_num_heads(),
+                                   model.cache_head_dim(), self.cache_dtype, dev)
+                  for (a, b), dev in zip(self.stage_bounds, self.stage_devices)]
+        return caches[0] if self.num_stages == 1 else staged(caches)
 
     def init_cache_paged(self) -> tuple[PagedKV, np.ndarray]:
         """The shared page pool (last page scratch) and the host page table
         (M+1, slot_pages), row M all scratch. Under a share map the pool's
-        layer axis is the group count G."""
+        layer axis is the group count G. At S > 1 each stage has a pool of
+        its own layers on its device, with the same pages (``StagedKV``)."""
         if not self.paged:
             raise ValueError("engine built without pool_pages")
         model = self.model
         n_layers = model.config.num_local_layers
         n_pool = self.kv_share.num_groups if self._share_active else n_layers
-        cache = init_cache_paged(
-            n_pool, self.pool_pages, self.page_size,
+        caches = [init_cache_paged(
+            n_pool if self.num_stages == 1 else b - a, self.pool_pages, self.page_size,
             model.cache_num_heads(), model.cache_head_dim(), self.microbatches,
-            self.cache_dtype, self.device, quantized=self.kv_quant,
-        )
+            self.cache_dtype, dev, quantized=self.kv_quant,
+        ) for (a, b), dev in zip(self.stage_bounds, self.stage_devices)]
+        cache = caches[0] if self.num_stages == 1 else staged(caches)
         if self._share_active:
             # the allocation that did not happen: an unshared pool would be
             # L/G times these leaves
             self.kv_share_bytes_saved = int(cache.nbytes * (n_layers - n_pool) / n_pool)
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
+
+    # ------------------------------------------------------------ stages
+    def _stage_layers(self, cache, s: int):
+        """Stage s's layers: ``(global index, layer, K pool, V pool)``, each
+        pool the layer's (its share group's) in the stage's cache."""
+        c = stage_caches(cache)[s]
+        lo, hi = self.stage_bounds[s]
+        for i in range(lo, hi):
+            g = self.pool_layer[i] - lo  # share groups exist at pp = 1 only
+            yield i, self.model.layers[i], layer_pool(c.k, g), layer_pool(c.v, g)
+
+    def _graphs_for(self, cache) -> StageGraphs:
+        """The stages' programs of the steps over ``cache`` (made on first
+        use, dropped with the cache): a captured program writes the rows
+        of the cache it was captured over."""
+        key = id(cache)
+        entry = self._stage_graphs.get(key)
+        if entry is None or entry[0]() is not cache:
+            graphs = StageGraphs(self.stage_devices, self.per_stage_graphs and self.cuda_graphs
+                                 and self.device.type == "cuda")
+            entry = self._stage_graphs[key] = (weakref.ref(cache), graphs)
+            weakref.finalize(cache, self._stage_graphs.pop, key, None)
+        return entry[1]
+
+    def _on(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        """``x`` on stage s's device (a step's plan and inputs)."""
+        return hop(x, self.stage_devices[s])
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        """The final norm and the head after the last stage, the logits
+        handed to stage 0's device, where sampling runs."""
+        return hop(self.model.apply_head(hop(h, self._head_device)), self.device)
 
     def _slot_view(self, pool, page_ids: torch.Tensor) -> torch.Tensor:
         """The slot's pages ``page_ids`` (n,) gathered into a contiguous (1,
@@ -416,23 +646,35 @@ class PipelineEngine:
             self._prefill_buf = (buf, buf[:c].view(1, c), buf[c:-1], buf[-1:])
         upload_into(self._prefill_buf[0], host)
 
-    def prefill_step(self, cache: PagedKV, off: int) -> torch.Tensor:
+    def prefill_step(self, cache: PagedKV, off: int, inputs=None) -> torch.Tensor:
         """One prefill chunk at offset ``off`` from the persistent inputs
-        (:meth:`prefill_inputs`): the page view, the write page (indexed on
-        the device from the slot's row; a dense engine's is the slot) and
-        the last valid row are read on the device, so the step has one
-        program at each offset. Writes the chunk's K/V rows into the pool
-        and returns the logits (1, V) at the last valid row. Device work
-        only: the slot's offset is the caller's."""
-        model, c, page = self.model, self.prefill_chunk, self._plan_page
-        _, tokens, row, last = self._prefill_buf
-        page_ids = row[: -(-(off + c) // page)]
-        write_page, start = row[off // page : off // page + 1], off % page
+        (:meth:`prefill_inputs`, or ``inputs``: tokens (1, chunk), the
+        slot's page row and the last valid row (1,), on the device): the
+        page view, the write page (indexed on the device from the slot's
+        row; a dense engine's is the slot) and the last valid row are read
+        on the device, so the step has one program at each offset. Writes
+        the chunk's K/V rows into the pool and returns the logits (1, V) at
+        the last valid row. Device work only: the slot's offset is the
+        caller's."""
+        tokens, row, last = inputs if inputs is not None else self._prefill_buf[1:]
         note_eager_forward(self, tokens)
-        h = model.embed(tokens)
-        for i, layer in enumerate(model.layers):
-            g, owner = self.pool_layer[i], self.owner_layer[i]
-            kp, vp = layer_pool(cache.k, g), layer_pool(cache.v, g)
+        h = self.model.embed(tokens)
+        graphs = self._graphs_for(cache)
+        for s in range(self.num_stages):
+            h = graphs.run(s, ("prefill", off),
+                                 functools.partial(self._prefill_layers, cache, s, off),
+                                 self._on(s, h), self._on(s, row))
+        return self._head(h.index_select(1, self._on(self.num_stages - 1, last)))[:, 0]
+
+    def _prefill_layers(self, cache, s: int, off: int, h, row):
+        """Stage s's layers over one prefill chunk's hidden states ``h``
+        at offset ``off``, the slot's page row ``row`` on its device."""
+        model, c, page = self.model, self.prefill_chunk, self._plan_page
+        start = off % page
+        page_ids = row[: -(-(off + c) // page)]
+        write_page = row[off // page : off // page + 1]
+        for i, layer, kp, vp in self._stage_layers(cache, s):
+            owner = self.owner_layer[i]
 
             def attn_fn(q, k_new, v_new, kp=kp, vp=vp, owner=owner, values_from_k=None, **opts):
                 # the chunk's own rows are attended as computed (unquantized);
@@ -467,8 +709,8 @@ class PipelineEngine:
                         write_pool_span(vp, write_page, start, v_new[0])
                 return causal_attention(q, k_view, v_view, off, model.scale, **opts)
 
-            h, _, _ = model.sp_layer(layer, h, off, attn_fn)
-        return model.apply_head(h.index_select(1, last))[:, 0]
+            h, _, _ = self.stage_models[s].sp_layer(layer, h, off, attn_fn)
+        return h
 
     def prefill_slot(self, tokens, slot: int, cache: PagedKV, n_valid: int,
                      table: np.ndarray, graphs=None) -> torch.Tensor:
@@ -613,25 +855,39 @@ class PipelineEngine:
         inactive slot's zeros. Offsets are not advanced."""
         model = self.model
         note_eager_forward(self, tokens)
-        lengths, positions = plan.lengths[j], plan.positions[j]
+        lengths = plan.lengths[j]
         if self.decode_path != "ragged":
             # the T=1 route's per-slot lengths, capped at the capacity
-            lengths = slot_lengths(positions, lengths > 0, self.max_seq)
+            lengths = slot_lengths(plan.positions[j], lengths > 0, self.max_seq)
         attend = {"ragged": self._attend_ragged, "gather": self._attend_gather,
                   "dense": self._attend_dense}[self.decode_path]
         h = model.embed(tokens)  # (M, 1, hidden): the slot axis is the batch axis
-        for i, layer in enumerate(model.layers):
-            g = self.pool_layer[i]
-            attn_fn = functools.partial(attend, layer_pool(cache.k, g), layer_pool(cache.v, g),
-                                        plan, j, lengths, self.owner_layer[i])
-            h, _, _ = model.sp_layer(layer, h, positions, attn_fn)
-        return torch.where((lengths > 0)[:, None, None], h,
-                           torch.zeros((), dtype=h.dtype, device=h.device))
+        graphs = self._graphs_for(cache)
+        for s in range(self.num_stages):
+            on = functools.partial(self._on, s)
+            h = graphs.run(s, ("decode",),
+                                 functools.partial(self._decode_layers, cache, s, attend),
+                                 on(h), on(plan.positions[j]), on(lengths), on(plan.page_ids[j]),
+                                 on(plan.row_pos[j]), on(plan.tables))
+        live = self._on(self.num_stages - 1, lengths) > 0
+        return torch.where(live[:, None, None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def _decode_layers(self, cache, s: int, attend, h, positions, lengths, page_ids, row_pos,
+                       tables):
+        """Stage s's layers over one T=1 step of all M slots: ``h`` (M, 1,
+        hidden), the step's (M,) positions, attention lengths, write pages
+        and rows, and the (M, SPG) table rows, on the stage's device."""
+        plan = DecodePlan(page_ids[None], row_pos[None], lengths[None], positions[None], tables)
+        for i, layer, kp, vp in self._stage_layers(cache, s):
+            attn_fn = functools.partial(attend, kp, vp, plan, 0, lengths, self.owner_layer[i])
+            h, _, _ = self.stage_models[s].sp_layer(layer, h, positions, attn_fn)
+        return h
 
     def decode_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
                       j: int) -> torch.Tensor:
-        """:meth:`decode_hidden` through the head: logits (M, V)."""
-        return self.model.apply_head(self.decode_hidden(tokens, cache, plan, j))[:, 0]
+        """:meth:`decode_hidden` through the head: logits (M, V) on stage
+        0's device."""
+        return self._head(self.decode_hidden(tokens, cache, plan, j))[:, 0]
 
     def decode_cb(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan, step: int, *,
                   recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
@@ -661,6 +917,7 @@ class PipelineEngine:
         over the slot caches in place. Returns the logits (M, K, V); an
         inactive slot's are zeros' logits. Offsets are not advanced."""
         model = self.model
+        self._check_pp1()
         note_eager_forward(self, x)
         m, k = x.shape
         start = plan.positions[0]  # (M,)
@@ -668,9 +925,8 @@ class PipelineEngine:
         slots = torch.arange(m, device=x.device)[:, None]
         page_ids, row_pos = plan.page_ids.t().reshape(-1), plan.row_pos.t().reshape(-1)
         h = model.embed(x)  # (M, K, hidden)
-        for i, layer in enumerate(model.layers):
-            g, owner = self.pool_layer[i], self.owner_layer[i]
-            kp, vp = layer_pool(cache.k, g), layer_pool(cache.v, g)
+        for i, layer, kp, vp in self._stage_layers(cache, 0):
+            owner = self.owner_layer[i]
 
             def attn_fn(q, k_new, v_new, kp=kp, vp=vp, owner=owner, values_from_k=None, **opts):
                 # a share group's non-owner writes its rows into its view
@@ -728,15 +984,23 @@ class PipelineEngine:
     def spec_verify_cb(self, k: int):
         """The verify of K positions for a draft engine's proposals, whose
         distributions ``qlps`` (K, M, V) the caller passes."""
+        self._check_pp1()
         return functools.partial(self.spec_verify, k)
 
     def spec_verify_ngram_cb(self, k: int):
         """The verify of K positions for deterministic (n-gram) proposals:
         q is one-hot on the drafts, built on the device."""
+        self._check_pp1()
         return functools.partial(self.spec_verify, k, qlps=None)
+
+    def _check_pp1(self) -> None:
+        """JAX's check: the speculative steps need the pp = 1 body."""
+        if self.num_stages != 1:
+            raise ValueError("speculative continuous batching needs pp=1 engines")
 
     def _check_draft(self) -> None:
         """JAX's check when a draft program is built."""
+        self._check_pp1()
         if self.paged:
             raise ValueError("the draft engine must be dense (no pool_pages)")
 
@@ -792,3 +1056,96 @@ class PipelineEngine:
         for m, a in enumerate(active):
             if a:
                 cache.offsets[m] += steps
+
+    # --------------------------------------------------------- single stream
+    def stream(self) -> StagedGenerator:
+        """The single stream of JAX's engine, made on first use: a
+        ``Generator`` over the engine's stages and dense slot caches of its
+        own (:class:`_Stream`), its steps captured as at pp = 1 (each
+        stage's on its own with :attr:`per_stage_graphs`)."""
+        if self._stream is None:
+            if self.paged:
+                raise ValueError("generate_step runs over the dense slot caches: build the "
+                                 "engine without pool_pages")
+            self._stream = StagedGenerator(_Stream(self), max_seq=self.max_seq,
+                                           prefill_chunk=self.prefill_chunk,
+                                           decode_block=self.decode_block,
+                                           cuda_graphs=self.cuda_graphs)
+        return self._stream
+
+    def warm_up(self, decode_blocks: bool = True, prefill_upto: Optional[int] = None,
+                blocks=BLOCK_KINDS) -> dict:
+        """The single stream's ``Generator.warm_up``."""
+        return self.stream().warm_up(decode_blocks, prefill_upto, blocks)
+
+    def generate_step(self, prompt_tokens, **kwargs):
+        """The contract of ``Generator.generate_step`` (JAX's engine's):
+        every microbatch runs the prompt, and the stream is slot 0's."""
+        return self.stream().generate_step(prompt_tokens, **kwargs)
+
+
+class StageStack:
+    """A stack of pipeline stages as the one model a ``Generator`` steps:
+    the stages keep their rows in caches of their own, so the Generator's
+    cache holds its offset and device position only. ``graphs``: the
+    stages' programs (``StageGraphs``, off when the Generator captures
+    whole steps)."""
+
+    device: torch.device
+    layers: list
+    graphs: StageGraphs
+
+    def make_cache(self, batch: int, max_seq: int) -> KVCache:
+        empty = torch.empty((0, batch, max_seq, 1, 1), device=self.device)
+        return KVCache(k=empty, v=empty)
+
+
+class _Stream(StageStack):
+    """The engine's single stream over dense slot caches of its own: every
+    one of the M microbatches runs the same tokens (JAX runs the prompt in
+    every microbatch), a prefill chunk slot by slot and a decode step as
+    one batched forward at the Generator's device position, and a call
+    returns slot 0's logits."""
+
+    def __init__(self, engine: PipelineEngine):
+        m = engine.microbatches
+        self.engine, self.device, self.layers = engine, engine.device, engine.model.layers
+        self.cache = engine.init_cache()
+        self.graphs = engine._graphs_for(self.cache)
+        # every slot decodes: the table rows and the active mask, uploaded once
+        self.inputs = engine.device_inputs(("stream",), slot_table(m), [True] * m, [0] * m, True)
+        self.rows = self.inputs.rows.long()
+
+    def fused_projection_groups(self) -> dict:
+        return self.engine.model.fused_projection_groups()
+
+    def place_constants(self, device) -> None:
+        """Each stage's view holds its own, placed by the engine."""
+
+    def __call__(self, x, cache: KVCache, n_valid=None, logits_at=None):
+        eng, m = self.engine, self.engine.microbatches
+        if x.shape[1] > 1:
+            for slot in reversed(range(m)):
+                logits = eng.prefill_step(self.cache, cache.offset,
+                                          (x, self.rows[slot], logits_at))
+            return logits[:, None], cache
+        plan = eng.device_plan(cache.pos.expand(m), self.inputs, 1)
+        return eng.decode_logits(x.expand(m, 1), self.cache, plan, 0)[:1, None], cache
+
+
+class StagedGenerator(Generator):
+    """A ``Generator`` over a :class:`StageStack`. With each stage's
+    programs captured on their own it captures no whole step, and its
+    warm-up runs the steps once, every stage's programs captured at their
+    first run."""
+
+    def __init__(self, model: StageStack, *, cuda_graphs: bool = True, **kwargs):
+        super().__init__(model, cuda_graphs=cuda_graphs and model.graphs.graphs is None, **kwargs)
+
+    def warm_up(self, decode_blocks: bool = True, prefill_upto: Optional[int] = None,
+                blocks=BLOCK_KINDS) -> dict:
+        stages = self.model.graphs
+        if stages.graphs is None:
+            return super().warm_up(decode_blocks, prefill_upto, blocks)
+        self._warm_steps(decode_blocks, prefill_upto, blocks)
+        return stages.stats()

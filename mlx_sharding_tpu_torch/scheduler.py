@@ -176,9 +176,10 @@ import numpy as np
 import torch
 
 from mlx_sharding_tpu_torch import tracing
-from mlx_sharding_tpu_torch.cache import rewind_slot_offset, slot_table
+from mlx_sharding_tpu_torch.cache import kv_row_bytes, rewind_slot_offset, slot_table
 from mlx_sharding_tpu_torch.kv_transfer import KVSpillTier, export_block, import_block
 from mlx_sharding_tpu_torch.generate import (
+    BLOCK_KINDS,
     LOGPROB_TOPK,
     TokenLogprobs,
     block_lp_outputs,
@@ -214,9 +215,6 @@ from mlx_sharding_tpu_torch.utils.observability import (
 )
 
 logger = logging.getLogger(__name__)
-
-# the decode blocks' kinds, (sampled, logprobs): one CUDA graph each
-BLOCK_KINDS = ((False, False), (False, True), (True, False), (True, True))
 
 # Retry-After clamps for 429 sheds: the estimate comes from the observed
 # completion rate, bounded so that a mis-sampled rate can neither tell
@@ -378,6 +376,17 @@ class ContinuousBatcher:
         if spec_mode != "engine" and draft_engine is not None:
             raise ValueError(f"a draft engine was given but draft={draft!r} — drop the draft "
                              "engine or select draft='engine'/'auto'")
+        stages = getattr(engine, "num_stages", 1)
+        if spec_mode == "ngram" and stages != 1:
+            raise ValueError("speculative continuous batching needs a pp=1 engine (the verify "
+                             "wants the keep_all vectorized body)")
+        draft_stages = getattr(draft_engine, "num_stages", 1)
+        if draft_engine is not None and (stages != 1 or draft_stages != 1):
+            raise ValueError("speculative continuous batching needs pp=1 engines")
+        if stages != 1 and (spill_bytes is not None or prefix_store is not None):
+            raise NotImplementedError(
+                "the spill tier and the prefix store over a pipeline of several stages are not "
+                "yet ported (ROADMAP queue 1, slice 9b)")
         if spec_window_max is not None:
             if (isinstance(spec_window_max, bool) or not isinstance(spec_window_max, int)
                     or spec_window_max < 2):
@@ -561,10 +570,7 @@ class ContinuousBatcher:
         self.kv_bytes_read_total = 0
         self.weight_bytes_per_token_last = 0.0
         self.kv_bytes_per_token_last = 0.0
-        self._kv_row_bytes = sum(
-            t.shape[0] * t.shape[-2] * t.shape[-1] * t.element_size()
-            for buf in (self.cache.k, self.cache.v)
-            for t in (buf.values() if isinstance(buf, dict) else (buf,)))
+        self._kv_row_bytes = kv_row_bytes(self.cache)
         # prefix sharing: a page's refcount is the slots mapping it plus 1
         # if the index holds it; index-only pages are cached, not free, and
         # evicted least recently used when admission or growth runs short
@@ -589,8 +595,11 @@ class ContinuousBatcher:
         # the batcher's graphs in a memory pool of their own: batchers over
         # one model (replicas) capture on their own threads, and a retired
         # one gives its pool back (release_memory)
+        # (an engine that captures each stage's share of a step on its own,
+        # its stages on distinct devices, leaves the batcher none to capture)
         self.graphs = (StepGraphs(dev, torch.cuda.graph_pool_handle())
-                       if dev.type == "cuda" and cuda_graphs else None)
+                       if dev.type == "cuda" and cuda_graphs
+                       and not getattr(engine, "per_stage_graphs", False) else None)
         self._worker = self.graphs is not None
         if self._worker:
             open_worker()  # a capture's sync check must spare this thread's syncs

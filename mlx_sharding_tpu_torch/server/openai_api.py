@@ -47,9 +47,15 @@ sustained pressure and draining idle ones; its brownout ladder
 (``--brownout on|off``) caps ``max_tokens`` (the ``X-MST-Brownout-Level`` and
 ``X-MST-Max-Tokens-Capped`` headers), sheds speculation and tightens
 admission. ``POST /admin/autoscaler`` starts, stops and reads the
-controllers.
+controllers. ``--num-stages S`` or ``--stage-bounds`` serves the model as a
+pipeline of stages (the engine's single stream, or its batcher with
+``--concurrent``; a pool decodes on the ``gather`` path); ``--engine
+chained`` with bounds serves one model per stage (the single stream only);
+``--start-layer`` / ``--end-layer`` load a layer range.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
+        [--num-stages S | --stage-bounds 0-14,14-27 [--engine fused|chained]]
+        [--start-layer A] [--end-layer B]
         [--prompt-cache] [--decode-block 16] [--api-key KEY] [--chat-template @FILE]
         [--concurrent 8 [--paged-pool 64 [--paged-attention gather] [--kv-dtype int8]
          [--prompt-cache]] [--max-queue 32]] [--request-timeout S] [--ttft-timeout S]
@@ -168,7 +174,10 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     prefill_replicas: int = 1, decode_replicas: int = 1,
                     autoscale: bool = False, autoscale_min: Optional[int] = None,
                     autoscale_max: Optional[int] = None, autoscale_interval: float = 2.0,
-                    autoscale_cooldown: float = 15.0, brownout: bool = True, model=None):
+                    autoscale_cooldown: float = 15.0, brownout: bool = True,
+                    start_layer: Optional[int] = None, end_layer: Optional[int] = None,
+                    num_stages: Optional[int] = None, stage_bounds=None, engine: str = "fused",
+                    model=None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -196,17 +205,44 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     of ``decode_replicas``, all aliasing the one resident model.
     ``autoscale``: a started ``FleetAutoscaler`` over the replica set (one
     per pool under ``disagg``) with JAX's bounds, its brownout ladder on
-    unless ``brownout`` is False. ``model``: an already loaded model to serve, which
-    ``path`` then only names. On a card each generator's step graphs are
-    captured here, before the first request."""
+    unless ``brownout`` is False. ``num_stages`` or ``stage_bounds``: a
+    pipeline of that many stages (JAX's engine choice): the engine's own
+    single stream, or with ``concurrent > 1`` its batcher; ``engine="chained"``
+    with bounds: a ``ChainedPipeline``, one model per stage. Without
+    ``device`` stage s goes on the s-th card. ``start_layer`` /
+    ``end_layer``: the layer range to load. Replicas, disagg and the
+    autoscaler over stages are not yet ported and raise. ``model``: an
+    already loaded model to serve, which ``path`` then only names. On a card
+    each generator's step graphs are captured here, before the first
+    request."""
     from mlx_sharding_tpu_torch.kv_compress import load_compress_map
     from mlx_sharding_tpu_torch.kv_share import load_share_map
     from mlx_sharding_tpu_torch.loading import load_model
+    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
+
+    stages = len(stage_bounds) if stage_bounds else (num_stages or 1)
+    if stages > 1 and (replicas > 1 or disagg or autoscale):
+        raise NotImplementedError(
+            "replicas, disaggregated serving and the autoscaler over a pipeline of several "
+            "stages are not yet ported (ROADMAP queue 1, slice 9b)")
+    if stage_bounds and engine == "chained":
+        from mlx_sharding_tpu_torch.parallel.chained import (
+            chained_from_model,
+            load_chained_pipeline,
+        )
+
+        kw = dict(max_seq=max_seq, prefill_chunk=prefill_chunk, decode_block=decode_block)
+        generator = (chained_from_model(model, stage_bounds, **kw) if model is not None else
+                     load_chained_pipeline(path, stage_bounds, device=device,
+                                           keep_quantized=keep_quantized, **kw))
+        _warm_up(generator)
+        return generator
 
     def load():
         if model is not None:
             return model
-        return load_model(path, device=device, keep_quantized=keep_quantized)[0]
+        return load_model(path, start_layer, end_layer, device=stage_devices(stages, device)[0],
+                          keep_quantized=keep_quantized)[0]
 
     store = None
     if prefix_store and paged_pool and concurrent > 1:
@@ -222,7 +258,13 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
 
     def make(model, weights=None, draft_engine=None, graph_pool=None, speculate=True):
         from mlx_sharding_tpu_torch.generate import Generator
+        from mlx_sharding_tpu_torch.parallel import PipelineEngine
 
+        if concurrent <= 1 and stages > 1:
+            # the engine's single stream (JAX's engine at pp > 1)
+            return PipelineEngine(model, stages=stages, stage_bounds=stage_bounds,
+                                  max_seq=max_seq, prefill_chunk=prefill_chunk,
+                                  decode_block=decode_block, device=device)
         if concurrent <= 1 and draft == "ngram":
             from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator
 
@@ -239,11 +281,11 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
             return Generator(model, max_seq=max_seq, prefill_chunk=prefill_chunk,
                              decode_block=decode_block, prompt_cache=prompt_cache,
                              graph_pool=graph_pool, weights=weights)
-        from mlx_sharding_tpu_torch.parallel import PipelineEngine
         from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
         engine = PipelineEngine(
-            model, microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
+            model, stages=stages, stage_bounds=stage_bounds,
+            microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
             pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
             kv_dtype=kv_dtype, kv_share_map=share_map, kv_compress_map=compress_map,
             weights=weights, device=device,
@@ -280,8 +322,10 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                  autoscale_min=autoscale_min, autoscale_max=autoscale_max,
                  autoscale_interval=autoscale_interval,
                  autoscale_cooldown=autoscale_cooldown, brownout=brownout)
+    # the split is part of a resident tree's identity (JAX's WeightKey)
+    split = (tuple(tuple(b) for b in stage_bounds) if stage_bounds else ("auto", stages))
     return _replica_set(signature, device=device, keep_quantized=keep_quantized, load=load,
-                        make=make, dense_draft_engine=dense_draft_engine,
+                        make=make, dense_draft_engine=dense_draft_engine, split=split,
                         draft_model=draft_model if concurrent > 1 else None,
                         replicas=replicas, shared_weights=shared_weights, prefix_store=store,
                         **fleet)
@@ -295,7 +339,8 @@ def _warm_up(generator) -> None:
 
 
 def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_engine,
-                 draft_model, replicas, shared_weights, prefix_store, disagg=False,
+                 draft_model, replicas, shared_weights, prefix_store, split=("auto", 1),
+                 disagg=False,
                  prefill_replicas=1, decode_replicas=1, autoscale=False, autoscale_min=None,
                  autoscale_max=None, autoscale_interval=2.0, autoscale_cooldown=15.0,
                  brownout=True):
@@ -312,6 +357,7 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
 
     from mlx_sharding_tpu_torch.device import resolve_device
     from mlx_sharding_tpu_torch.loading import checkpoint_signature, load_model
+    from mlx_sharding_tpu_torch.parallel.mesh import mesh_fingerprint
     from mlx_sharding_tpu_torch.replicas import ReplicaSet
     from mlx_sharding_tpu_torch.weights import (
         ResidentWeights,
@@ -337,13 +383,14 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
             return ResidentWeights(model=model, device=dev, weight_bytes=model_weight_bytes(model))
         return build
 
-    def key_of(checkpoint, quant):
-        return WeightKey(checkpoint=checkpoint, stage_bounds=("auto", 1),
+    def key_of(checkpoint, quant, stages):
+        return WeightKey(checkpoint=checkpoint, stage_bounds=stages,
                          dtype="bfloat16",  # load_model's
-                         quant=quant, placement=str(dev))
+                         quant=quant, placement=mesh_fingerprint([dev]))
 
-    key = key_of(signature, "tp1:ep1")
-    draft_key = (key_of(checkpoint_signature(draft_model, keep_quantized=keep_quantized), "draft")
+    key = key_of(signature, "tp1:ep1", split)
+    draft_key = (key_of(checkpoint_signature(draft_model, keep_quantized=keep_quantized), "draft",
+                        ("auto", 1))
                  if draft_model else None)
 
     def spawn(speculate=True):
@@ -566,6 +613,16 @@ class ModelProvider:
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
 
+
+    def _load_arg(self, name: str, default=None):
+        return (self.load_args or {}).get(name, default)
+
+    # JAX's pipeline fields, from the load arguments
+    start_layer = property(lambda self: self._load_arg("start_layer"))
+    end_layer = property(lambda self: self._load_arg("end_layer"))
+    num_stages = property(lambda self: self._load_arg("num_stages"))
+    stage_bounds = property(lambda self: self._load_arg("stage_bounds"))
+    engine = property(lambda self: self._load_arg("engine", "fused"))
 
     @property
     def shared_weights_active(self) -> bool:
@@ -1261,6 +1318,17 @@ def main(argv=None):
     parser.add_argument("--model", required=True, help="local checkpoint directory")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--start-layer", type=int, default=None)
+    parser.add_argument("--end-layer", type=int, default=None)
+    parser.add_argument("--num-stages", type=int, default=None,
+                        help="pipeline stages (fused engine)")
+    parser.add_argument("--stage-bounds", default=None,
+                        help="pipeline stage bounds, e.g. '0-14,14-27' "
+                        "(uneven splits and MoE/dense mixes allowed)")
+    parser.add_argument("--engine", choices=("fused", "chained"), default="fused",
+                        help="pipeline engine for --stage-bounds: fused "
+                        "(one engine over every stage, default) or chained per-stage "
+                        "models")
     parser.add_argument("--max-seq", type=int, default=4096)
     parser.add_argument("--prefill-chunk", type=int, default=256)
     parser.add_argument("--device", default=None,
@@ -1516,17 +1584,36 @@ def main(argv=None):
                              "level surfaced in /health and the "
                              "X-MST-Brownout-Level response header")
     args = parser.parse_args(argv)
+    # JAX's pipeline rules and messages (--tp/--ep, --coordinator and --pod
+    # come with slice 9b)
+    if args.engine == "chained" and not args.stage_bounds:
+        parser.error("--engine chained requires --stage-bounds")
+    if args.concurrent > 1 and args.engine == "chained":
+        parser.error("--concurrent requires the fused engine")
+    staged = bool(args.stage_bounds) or (args.num_stages or 1) > 1 or args.engine == "chained"
+    layer_range = args.start_layer is not None or args.end_layer is not None
     if args.trace_buffer < 1:
         parser.error("--trace-buffer must be >= 1")
     if args.trace_sample < 1:
         parser.error("--trace-sample must be >= 1")
     if args.trace_profile and args.trace == "off":
         parser.error("--trace-profile requires --trace sample|on")
+    if args.draft_model and (staged or layer_range):
+        parser.error("--draft-model applies to the single-chip full-model "
+                     "generator or to --concurrent serving "
+                     "(no --coordinator/--tp/--ep/stage or "
+                     "layer-range flags)")
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine needs --draft-model")
     if args.draft_model and args.draft in ("off", "ngram"):
         parser.error(f"--draft {args.draft} conflicts with --draft-model: "
                      "drop one (--draft-model implies the engine proposer)")
+    if args.draft == "ngram" and (staged or layer_range):
+        parser.error("--draft ngram applies to the single-chip full-model "
+                     "generator or to --concurrent serving (the verify "
+                     "needs the pp=1 vectorized body; multi-host worker "
+                     "mirrors replay plain decode ticks only — run it on "
+                     "single-host replicas or --pod hosts instead)")
     if args.spec_window_max is not None:
         if args.spec_window_max < 2:
             parser.error("--spec-window-max must be >= 2")
@@ -1558,22 +1645,23 @@ def main(argv=None):
         parser.error("--prefix-insert-min-hits must be >= 1")
     if args.prompt_cache:
         # concurrent serving needs the paged pool; otherwise the flag means
-        # the single-stream full-model generator (JAX's rule; the port's
-        # other single-host exclusions, layer ranges and fleet flags, come
-        # with their slices)
+        # the single-stream full-model generator (JAX's rule)
         if args.concurrent > 1:
             if not args.paged_pool:
                 parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
                              "sharing is page-granular)")
-        elif args.draft_model or args.replicas > 1 or args.disagg:
+        elif (staged or args.draft_model or args.replicas > 1 or args.disagg
+              or layer_range):
             parser.error("--prompt-cache applies to the single-chip "
                          "full-model generator path or to --concurrent "
                          "--paged-pool serving (no --coordinator/--tp/--ep/"
                          "stage, layer-range, --draft-model, or fleet "
                          "flags)")
     if args.replicas > 1 and (
-        (args.draft_model and args.concurrent <= 1)
+        args.engine == "chained"
+        or (args.draft_model and args.concurrent <= 1)
         or (args.draft == "ngram" and args.concurrent <= 1)
+        or layer_range
     ):
         parser.error("--replicas requires the fused full-model engine path "
                      "(no --coordinator/--engine chained/layer-range flags "
@@ -1581,15 +1669,22 @@ def main(argv=None):
                      "--concurrent)")
     if args.paged_pool and args.concurrent <= 1:
         parser.error("--paged-pool requires --concurrent N (N > 1)")
+    if args.paged_pool and args.engine == "chained":
+        parser.error("--paged-pool requires the fused engine")
     if args.page_size and not args.paged_pool:
         parser.error("--page-size requires --paged-pool")
     if args.paged_attention != "auto" and not args.paged_pool:
         parser.error("--paged-attention requires --paged-pool")
     if args.kv_dtype and not args.paged_pool:
         parser.error("--kv-dtype requires --paged-pool")
-    if args.kv_share_map and not args.paged_pool:
-        parser.error("--kv-share-map requires --paged-pool (sharing "
-                     "deduplicates the paged KV pool's layer axis)")
+    if args.kv_share_map:
+        if not args.paged_pool:
+            parser.error("--kv-share-map requires --paged-pool (sharing "
+                         "deduplicates the paged KV pool's layer axis)")
+        if args.stage_bounds or (args.num_stages or 1) > 1:
+            parser.error("--kv-share-map requires a single-stage engine: "
+                         "share groups span the full layer stack, which a "
+                         "pipeline stage split cuts")
     if args.kv_compress_map:
         if not args.paged_pool:
             parser.error("--kv-compress-map requires --paged-pool "
@@ -1599,6 +1694,10 @@ def main(argv=None):
                          "--kv-dtype int8: dequantize->project->requantize "
                          "compounds quantization error past the artifact's "
                          "calibrated bound")
+        if args.stage_bounds or (args.num_stages or 1) > 1:
+            parser.error("--kv-compress-map requires a single-stage "
+                         "engine: the calibration spans the full layer "
+                         "stack, which a pipeline stage split cuts")
     if args.kv_compress_rank is not None and not args.kv_compress_map:
         parser.error("--kv-compress-rank requires --kv-compress-map")
     if args.admission_policy != "fifo" and not args.paged_pool:
@@ -1639,6 +1738,10 @@ def main(argv=None):
         if args.replicas > 1:
             parser.error("--disagg replaces --replicas: size the pools "
                          "with --prefill-replicas/--decode-replicas")
+        if args.engine == "chained":
+            parser.error("--disagg requires the single-host fused engine "
+                         "path (no --coordinator/--engine chained) — or "
+                         "--pod, where each host runs its own disagg pools")
         if args.draft_model:
             parser.error("--disagg is incompatible with --draft-model: a "
                          "resumed stream's draft KV cannot be rebuilt from "
@@ -1681,6 +1784,10 @@ def main(argv=None):
         parser.error("--async-sched on is incompatible with --draft-model "
                      "(speculative rounds harvest per-round accept counts); "
                      "use 'auto'")
+    if args.shared_weights == "on" and args.engine == "chained":
+        parser.error("--shared-weights on requires the fused engine "
+                     "path (chained stage processes each own their "
+                     "stage's weights)")
     if args.shared_weights == "on" and args.replicas <= 1 and not args.disagg:
         parser.error("--shared-weights on requires --replicas N "
                      "(N > 1) or --disagg: with one engine there is "
@@ -1697,10 +1804,21 @@ def main(argv=None):
             parser.error(f"{flag} must be a positive number of seconds")
 
     from mlx_sharding_tpu_torch.device import resolve_device
+    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
 
+    stage_bounds = None
+    if args.stage_bounds:
+        stage_bounds = [tuple(int(x) for x in part.split("-"))
+                        for part in args.stage_bounds.split(",")]
+    stages = len(stage_bounds) if stage_bounds else (args.num_stages or 1)
     try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
+        if stages > 1:
+            # without --device stage s goes on the s-th card
+            stage_devices(stages, args.device)
+            device = args.device
+        else:
+            device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
         parser.error(str(e))
     logging.basicConfig(level=args.log_level.upper())
     # before the provider builds any batcher: a batcher resolves the
@@ -1730,6 +1848,8 @@ def main(argv=None):
         autoscale=args.autoscale, autoscale_min=args.autoscale_min,
         autoscale_max=args.autoscale_max, autoscale_interval=args.autoscale_interval,
         autoscale_cooldown=args.autoscale_cooldown, brownout=args.brownout == "on",
+        start_layer=args.start_layer, end_layer=args.end_layer, num_stages=args.num_stages,
+        stage_bounds=stage_bounds, engine=args.engine,
     )
     server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
                          api_key=args.api_key, request_timeout=args.request_timeout,

@@ -43,11 +43,15 @@ class ResidentWeights:
     hold: what ``PipelineEngine(model)`` runs against. Engines that alias
     one share the module; everything an engine changes per step (its
     plans, its pool, its graphs and their memory pool) lives on the
-    engine."""
+    engine. ``stage_bounds`` and ``devices``: the pipeline split it was
+    placed for (``parallel.pipeline.place_weights``) and each stage's
+    device; None is the whole model on ``device``."""
 
     model: Any
     device: Any
     weight_bytes: int
+    stage_bounds: Optional[tuple] = None
+    devices: Optional[tuple] = None
 
 
 def model_weight_bytes(model) -> int:

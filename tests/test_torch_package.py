@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for family in ("models.qwen3", "models.gemma2", "models.mixtral", "ops.moe"):
         assert f"mlx_sharding_tpu_torch.{family}" in modules
     for module in ("kv_share", "weights", "replicas", "resilience", "utils.clock",
-                   "cli.kv_share_calibrate", "cli.kv_compress_calibrate", "fleet", "disagg"):
+                   "cli.kv_share_calibrate", "cli.kv_compress_calibrate", "fleet", "disagg",
+                   "parallel.mesh", "parallel.chained"):
         assert f"mlx_sharding_tpu_torch.{module}" in modules
     code = (
         "import sys, importlib\n"
@@ -110,6 +111,25 @@ def test_resolve_device():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
+
+
+def test_resolve_device_names_the_card_index(monkeypatch):
+    """``cuda`` resolves to the current card with its index, as a tensor on
+    it reports its device, so an engine built without ``device`` accepts a
+    model loaded without one (they compared ``cuda`` with ``cuda:0``)."""
+    from mlx_sharding_tpu_torch.device import resolve_device
+    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert stage_devices(2, "cuda") == [torch.device("cuda", 0)] * 2
+    assert stage_devices(1) == [torch.device("cuda", 0)]
+    with pytest.raises(ValueError, match="pp=2 .* needs 2 devices, have 1"):
+        stage_devices(2)
 
 
 def test_cli_generates_on_cpu_from_the_tiny_checkpoint(tmp_path, capsys):

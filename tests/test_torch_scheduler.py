@@ -280,7 +280,7 @@ def test_auto_async_resolves_to_sync_and_says_why(models):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(stages=2), "not yet ported"),
+    (dict(ep=2), "not yet ported"),
     (dict(tp=2), "not yet ported"),
 ])
 def test_unported_engines_raise(models, kw, match):
