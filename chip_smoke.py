@@ -280,11 +280,33 @@ final line:
    pp = 1 and pp = 2, a subset of phase 6's mix, token-identical, tok/s
    and the ticks' host ms against their harvest wait; the engine and the
    chain again with each stage's share of a step a graph of its own (what
-   stages on distinct cards take), each token-identical. After phase 5 the
+   stages on distinct cards take), each token-identical. Then the mix at
+   pp = 2 with KV movement (``pipe_movement``: one batcher over 7 pages
+   with overcommit, the spill tier, a cold slot and the prefix store, the
+   600-token request repeated once it has ended: a preemption spill, a
+   cold spill and a store host hit, each a block of both stages), as two
+   replicas with shared weights and a drain of replica 0 in the middle,
+   and as a disagg pair (``pipe_fleet``, both through
+   ``build_generator(num_stages=2)``): every stream equal to the gather
+   batcher's, the movement counters > 0, the fleets' card memory their
+   pools and graphs (one resident tree). After phase 5 the
    packed model at pp = 1 and pp = 2 (32 greedy tokens, kernels 3 and 4),
    and in phase 9 DeepSeek-Coder-V2-Lite bf16 at pp = 1 and split 0-14 /
    14-27 (32 tokens; kernel 1's MLA build and its T=1 route). Each run's
    launches are counted from zero and checked against its chunks and steps.
+16. the pod over its in-process transport (``phase_pod``, after 15, on
+   phase 4's model): two ``LoopbackHub`` hosts in this process over one
+   resident copy of the weights, each running its heartbeat loop. Host 0
+   a disagg coordinator with a prefix store, its decode pool priced as
+   saturated; host 1 a paged batcher (the ragged path, kernel 2) with a
+   store of its own. Three greedy requests handed off across the hosts
+   (bytes on the wire, the first relayed token's ms), a prefix served on
+   host 0 and continued on host 1 through one federated fetch of host 0's
+   block, and host 1 going silent after 2 relayed tokens, host 0 finishing
+   the stream (``relay_timeout``): every stream equal to a monolithic
+   batcher's (the drained one to its stream of the request with the
+   delivered tokens folded into the prompt, which the resume prefills
+   again), the fallbacks ``{}`` but the death's.
 
 Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
 layers, the eager turn of phases 4-5's step timing an
@@ -1765,23 +1787,31 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
     layers = model.config.num_hidden_layers
     default_on = flash_decode_on()
     ids = prompt[0].tolist()
+    t_other = time.perf_counter()
     with decode_route(not default_on):
         other = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
         stream_tokens(other, ids, max_tokens=64)  # captures the graphs the turns replay
     gens = {default_on: gen, not default_on: other}
     rows, streams = [], []
+    log(f"[time] {tag} T=1 routes, the other route's Generator: "
+        f"{time.perf_counter() - t_other:.1f} s")
     for on in (True, False, False, True):
         g, name = gens[on], "kernel" if on else "plain"
         with decode_route(on):
+            marks = [time.perf_counter()]
             fa.flash_decode.launches = 0
             toks, tok_s = stream_tokens(g, ids, max_tokens=64)
             stream_launches = fa.flash_decode.launches
             list(g.generate_step(ids, max_tokens=1))
+            marks.append(time.perf_counter())
             fa.flash_decode.launches = 0
             step = step_numbers(
                 lambda g=g: g.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
                 calls=2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
             step_launches = fa.flash_decode.launches
+            marks.append(time.perf_counter())
+            log(f"[time] {tag} T=1 routes, {name} turn: stream, decode step "
+                + " / ".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s")
         streams.append(toks)
         steps = 4 * DEFAULT_DECODE_BLOCK  # the stream's 63 tokens after the first; 4 blocks
         want = (layers * steps, layers * steps) if on else (0, 0)
@@ -1798,6 +1828,7 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
             for s in streams[1:]]
     log(f"{tag} T=1 routes: the streams agree with the first turn's for {same} of 64 tokens")
     del gens[not default_on], other
+    t_logits = time.perf_counter()
     eager = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)
     first = eager.run_prefill(prompt).argmax(-1)
     logits = {}
@@ -1812,6 +1843,7 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
         f"argmax {bool(logits[True].argmax() == logits[False].argmax())}")
     check(rel <= LOGITS_RTOL, f"{tag} the T=1 kernel route disagrees with the plain route")
     del eager
+    log(f"[time] {tag} T=1 routes, the logits check: {time.perf_counter() - t_logits:.1f} s")
     return rows
 
 
@@ -1859,7 +1891,10 @@ def host_and_wall_ms(fn, calls: int, steps: int):
 def kernel_ms(fn, calls: int) -> tuple:
     """Device time by kernel name (ms, summed over the window) of ``calls``
     calls of ``fn`` under ``torch.profiler`` (CPU and CUDA activities), and
-    the window's wall ms (profiled, so the host is slower than without)."""
+    the window's wall ms (profiled, so the host is slower than without).
+    The profile's raw device events are summed by name: ``key_averages()``
+    first builds a Python record of every event, CPU ops included (2 s for
+    a graph decode block of the 8B, 11 s for an eager one, on the H100)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1870,9 +1905,9 @@ def kernel_ms(fn, calls: int) -> tuple:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (e.end_ns() - e.start_ns()) / 1e6
     return by_name, wall
 
 
@@ -1928,17 +1963,25 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
         g = gens[mode]
         eager = mode == "eager"
         row = {"mode": mode}
+        marks = [time.perf_counter()]
         row["prefill_ms"], _ = prefill_median_ms(lambda g=g: g.run_prefill(prompt), runs=3)
+        marks.append(time.perf_counter())
         toks, row["decode_tok_s"] = stream_tokens(
             g, ids, max_tokens=EAGER_STREAM_TOKENS if eager else 64)
         sampled, _ = stream_tokens(g, ids[:300], max_tokens=EAGER_SAMPLE_TOKENS, **seeded)
         streams.setdefault(mode, []).append((toks[:EAGER_STREAM_TOKENS], sampled))
         list(g.generate_step(ids, max_tokens=1))  # the state of a request at its first token
+        marks.append(time.perf_counter())
         row["decode"] = step_numbers(
             lambda g=g: g.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
             calls=1 if eager else 2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
+        marks.append(time.perf_counter())
         row["prefill_chunk"] = step_numbers(lambda g=g: g.run_chunk(CHUNK), calls=4, steps=1,
                                             profiled=2)
+        marks.append(time.perf_counter())
+        log(f"[time] {tag} step timing, {mode} turn: prefill median, streams, decode step, "
+            f"prefill chunk " + " / ".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:]))
+            + " s")
         for what in ("decode", "prefill_chunk"):
             r = row[what]
             busy = "not measured" if r["busy"] is None else f"{100 * r['busy']:.1f}%"
@@ -2573,6 +2616,13 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
 
     cfg = dense.config
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def sub(what):
+        # phase 5's sub-steps, each one's seconds
+        marks.append(time.perf_counter())
+        log(f"[time] phase 5, {what}: {marks[-1] - marks[-2]:.1f}s")
+
     packed = pack_llama(dense, LLAMA_31_8B)
     torch.cuda.synchronize()
     mods = {n: m for n, m in packed.named_modules() if isinstance(m, QuantizedLinear)}
@@ -2607,7 +2657,9 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
     dense.to("meta")  # frees the dense weights: the packed model serves alone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    sub("packing and the logits check")
     graph_line("[main-4bit]", gen.warm_up())
+    sub("captures")
 
     server = make_server(ModelProvider(gen, tok, model_name="llama-3.1-8b-4bit"), "127.0.0.1", 0)
     port = server.server_address[1]
@@ -2668,6 +2720,7 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
     for name, want_n in expected.items():
         log(f"[main-4bit] {name} launches {launches[name]}, expected {want_n}")
         check(launches[name] == want_n, f"{name} launch count disagrees with the requests")
+    sub("the served requests")
     stats["prefill_ms"], runs = prefill_median_ms(lambda: gen.run_prefill(prompt))
     log(f"[main-4bit] Generator.run_prefill of the 600-token prompt, packed, graphs: median "
         f"{stats['prefill_ms']:.2f} ms of {len(runs)} device-synchronised runs after a warm-up "
@@ -2675,9 +2728,13 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main-4bit] torch.cuda.max_memory_allocated while serving packed "
         f"{stats['max_memory_allocated_gb']:.2f} GB (graph pool included)")
+    sub("the prefill median")
     stats["steps"] = phase_step_timing(packed, gen, "[main-4bit]", prompt)
+    sub("step timing, eager and graphs")
     stats["routes"] = phase_decode_routes(packed, gen, "[main-4bit]", prompt)
+    sub("the two T=1 routes")
     stats["spec"] = phase_speculation_packed(packed, gen, "[spec-4bit]")
+    sub("speculation")
     if lap is not None:
         lap("main path, 4-bit")
         del gen
@@ -5104,7 +5161,10 @@ PIPE_PROMPT = 600
 PIPE_TOKENS = 64
 PIPE_SPLIT = ((0, 16), (16, 32))  # the fused engine's (balanced for 2 stages)
 PIPE_CHAINED = ((0, 20), (20, 32))  # uneven, through the chained pipeline
-PIPE_BATCH = BATCH_MIX[:4]  # the batcher's subset of phase 6's mix, greedy
+# the batcher's subset of phase 6's mix, greedy: its first request, its
+# unforced greedy one (which grows into a second page as it decodes) and
+# two whose prompts hold whole pages (which the prefix store registers)
+PIPE_BATCH = (BATCH_MIX[0], (GREEDY_PROMPT, GREEDY_TOKENS), BATCH_MIX[4], BATCH_MIX[5])
 PIPE_SLOTS = 4
 PIPE_PACKED_TOKENS = 32
 PIPE_STAGE_TOKENS = 32  # the runs with each stage's programs captured on their own
@@ -5115,6 +5175,13 @@ GREEDY_BLOCK = ((False, False),)
 # what a pp = 2 engine may add to the card's memory beyond its caches and
 # graph pool: plans, sampler rows, the stream's carries
 PIPE_SLACK_BYTES = 64 << 20
+
+
+# pages: overcommit admits the mix on 7 (1 + 1 + 2 + 3); the greedy request's
+# growth into its second page then preempts the newest
+PIPE_MOVE_POOL = 7
+PIPE_HOLD = (2, 8, 10)  # request 2's reader stops after 8 tokens for 10 ticks
+PIPE_DRAIN_AFTER = 8  # the drain is called once every stream has this many tokens
 
 
 def pipe_ids(n: int) -> list:
@@ -5229,9 +5296,7 @@ def pipe_batch(tag: str, model, stages: int, counts) -> dict:
     from mlx_sharding_tpu_torch.parallel import PipelineEngine
     from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
-    tok = ByteTokenizer()
-    jobs = [(tok.encode(mix_prompt(i, n)), dict(max_tokens=m))
-            for i, (n, m) in enumerate(PIPE_BATCH)]
+    jobs = pipe_jobs()
     engine = PipelineEngine(model, stages=stages, microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ,
                             prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
                             paged_attention="gather", device=model.device)
@@ -5257,6 +5322,172 @@ def pipe_batch(tag: str, model, stages: int, counts) -> dict:
     ticks = batcher.tick_timing_stats()
     batcher.close()
     return {"streams": streams, "tok_s": n / secs, "ticks": ticks, "launches": got}
+
+
+def pipe_jobs(tok=None) -> list:
+    """Phase 15's batcher mix, ``PIPE_BATCH``, as ``(prompt ids, kwargs)``."""
+    tok = tok or ByteTokenizer()
+    return [(tok.encode(mix_prompt(i, n)), dict(max_tokens=m))
+            for i, (n, m) in enumerate(PIPE_BATCH)]
+
+
+def pipe_movement(tag: str, model, counts, want: list) -> dict:
+    """KV movement at pp = 2 (the 8B split 0-16 / 16-32, every stage on the
+    card): phase 15's mix and its 600-token request once more after it has
+    ended, through one batcher over a pool of ``PIPE_MOVE_POOL`` pages with
+    overcommit, the spill tier (prefetch on), a cold slot (request 0's
+    reader stops, ``PIPE_HOLD``) and the prefix store, served on this
+    thread: preemption spills a staged block of both stages and imports it
+    back, the cold slot spills and wakes, the finished 600-token request's
+    pages are demoted into the store's host tier and the repeat imports
+    them. Every stream equals ``want`` (the pp = 2 gather batcher without
+    movement, the repeat equal to the first 600-token stream); spills,
+    prefetch hits, the cold spill and the store's host hit are counted."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.prefix_store import PrefixStore
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    jobs = pipe_jobs()
+    jobs.append(jobs[-1])  # the same prompt again, once the first has ended
+    store = PrefixStore(host_bytes=SPILL_BYTES)
+    store._host._flush_async = False  # the demotion's copy at the release, on this thread
+    engine = PipelineEngine(model, stage_bounds=PIPE_SPLIT, microbatches=PIPE_SLOTS,
+                            max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                            pool_pages=PIPE_MOVE_POOL, page_size=PAGE, device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, overcommit=True,
+                                spill_bytes=SPILL_BYTES, spill_cold_after=COLD_AFTER,
+                                kv_prefetch="on", prefix_store=store)
+    batcher.spill._flush_async = False
+    graph_line(tag, batcher.warm_up(blocks=GREEDY_BLOCK))
+    counts.reset()
+    t0 = time.perf_counter()
+    items, reqs = serve_on_this_thread(batcher, jobs, hold=PIPE_HOLD,
+                                       start_after={len(jobs) - 1: (len(jobs) - 2, 10 ** 9)})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts.read()
+    streams = [[t for t, _ in s] for s in items]
+    sp, st, spilled = batcher.spill_stats(), store.stats(), batcher.spill.stats()
+    sp["bytes_spilled_total"] = spilled["bytes_spilled_total"]
+    layouts = {store._host.peek(k).stage_layers for k in store._host.keys()}
+    log(f"{tag} {len(jobs)} requests over {PIPE_MOVE_POOL} pages in {secs:.2f}s: "
+        f"{sp['preemptions']} preemptions, {sp['spills']} spills, {sp['spill_hits']} spill hits "
+        f"({sp['prefetch_hits']} staged, {sp['demand_imports']} demand), {sp['cold_spills']} "
+        f"cold spills, {sp['cold_wakes']} wakes, {sp['spill_fallbacks']} fallbacks, "
+        f"{sp['reprefill_tokens']} tokens re-prefilled, {sp['bytes_spilled_total'] / 1e6:.1f} MB "
+        f"spilled; store: {st['demotions']} demotions, host hits {st['hits_host']}, device hits "
+        f"{st['hits_device']}, {st['tokens_reused']} tokens reused, host blocks' stage layers "
+        f"{layouts}; launches {got}")
+    check(streams == want, f"{tag} streams part from the gather batcher's at "
+          f"{[first_divergence(a, b) for a, b in zip(streams, want)]}")
+    check(sp["preemptions"] >= 1 and sp["spills"] >= 1 and sp["spill_hits"] >= 1
+          and sp["prefetch_hits"] >= 1 and sp["cold_spills"] >= 1
+          and sp["cold_wakes"] == sp["cold_spills"] and sp["spill_fallbacks"] == 0,
+          f"{tag} spill counters {sp}")
+    check(st["demotions"] >= 1 and st["hits_host"] >= 1 and layouts <= {(16, 16)},
+          f"{tag} store counters {st}, layouts {layouts}")
+    layers = model.config.num_hidden_layers
+    check(got["flash_attention"] == layers * batcher.prefill_chunks
+          and got["flash_decode"] == layers * batcher.decode_steps
+          and got["paged_attention"] == 0, f"{tag} launches {got}")
+    batcher.close()
+    store.close()
+    return {"spill": sp, "store": st, "launches": got, "secs": secs}
+
+
+def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
+    """Phase 15's mix over an S = 2 fleet that ``build_generator`` builds
+    as the server's ``--num-stages 2`` with ``fleet`` (two replicas with
+    shared weights and a drain of replica 0 once every stream has
+    ``PIPE_DRAIN_AFTER`` tokens, or a disagg pair), each request consumed on
+    a thread: every stream equals ``want``; the card memory the fleet adds
+    is its pools and graphs (one resident tree, no second copy of the
+    weights)."""
+    from mlx_sharding_tpu_torch.server.openai_api import build_generator
+    from mlx_sharding_tpu_torch.weights import weight_store
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = build_generator("llama-3.1-8b-random", model=model, device=model.device,
+                          num_stages=2, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                          concurrent=PIPE_SLOTS, paged_pool=POOL_PAGES, page_size=PAGE,
+                          decode_block=8, **fleet)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    store = weight_store().stats()
+    w_bytes = sum(e["bytes"] for e in store["entries"])
+    reps = ([*gen.prefill.replicas, *gen.decode.replicas] if fleet.get("disagg")
+            else gen.replicas)
+    log(f"{tag} built in {load_s:.2f}s: {len(reps)} engines of stages "
+        f"{[r.engine.stage_bounds for r in reps][0]} on {model.device}; card memory "
+        f"+{grown / 1e9:.3f} GB (pools and graphs; the weights {w_bytes / 1e9:.3f} GB once); "
+        f"weight store: {store['trees']} tree, {store['refs']} refs")
+    check(all(r.engine.num_stages == 2 for r in reps), f"{tag} stages")
+    check(store["trees"] == 1 and store["refs"] == len(reps) and grown < w_bytes,
+          f"{tag} a second copy of the weights: {store}, +{grown} bytes")
+    jobs = pipe_jobs()
+    got = [[] for _ in jobs]
+    errors = []
+
+    def consume(i):
+        try:
+            for t, _ in gen.generate_step(jobs[i][0], **jobs[i][1]):
+                got[i].append(t)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+
+    counts.reset()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+        time.sleep(0.05)  # least-loaded routing alternates the replicas
+    out = {"load_s": load_s, "grown_bytes": grown}
+    if not fleet.get("disagg"):
+        t_wait = time.perf_counter()
+        while min(len(g) for g in got) < PIPE_DRAIN_AFTER and time.perf_counter() - t_wait < 120:
+            time.sleep(0.002)
+        at = [len(g) for g in got]
+        t_drain = time.perf_counter()
+        out["drain"] = gen.drain(0)
+        out["drain_s"] = time.perf_counter() - t_drain
+        log(f"{tag} drained replica 0 at tokens {at} in {out['drain_s']:.3f}s: {out['drain']}")
+    for t in threads:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    out["launches"] = counts.read()
+    check(not errors, f"{tag} streams failed: {errors}")
+    check(got == want, f"{tag} streams part from the gather batcher's at "
+          f"{[first_divergence(a, b) for a, b in zip(got, want)]}")
+    n = sum(len(g) for g in got)
+    if fleet.get("disagg"):
+        h = gen.handoff_stats()
+        log(f"{tag} {len(jobs)} requests, {n} tokens in {secs:.2f}s ({n / secs:.2f} tok/s): "
+            f"{h['handoffs']} handoffs, {h['bytes_total'] / 1e6:.1f} MB, ms p50 {h['ms_p50']}, "
+            f"fallbacks {h['fallbacks']}; launches {out['launches']}")
+        check(h["handoffs"] == len(jobs) and h["bytes_total"] > 0 and h["fallbacks"] == {},
+              f"{tag} handoffs {h}")
+        out["handoff"] = h
+    else:
+        r1 = gen.replicas[1]
+        moved = r1.resilience_stats()["migrations_in"], r1.spill_stats()["spill_hits"]
+        log(f"{tag} {len(jobs)} requests, {n} tokens in {secs:.2f}s ({n / secs:.2f} tok/s): "
+            f"{gen.migrated_streams} streams migrated, replica 1 took {moved[0]} in and imported "
+            f"{moved[1]} blocks; launches {out['launches']}")
+        check(out["drain"]["migrated"] >= 1 and moved[1] >= 1,
+              f"{tag} the drain moved nothing: {out['drain']}, {moved}")
+        out["migrated"] = out["drain"]["migrated"]
+    check(out["launches"]["flash_attention"] > 0 and out["launches"]["flash_decode"] > 0,
+          f"{tag} launches {out['launches']}")
+    gen.close()
+    del gen, reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_pipeline(model, seed: int, lap) -> tuple:
@@ -5335,6 +5566,19 @@ def phase_pipeline(model, seed: int, lap) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 15, the batcher at pp = 1 and 2")
+    # KV movement and the fleet over the stages, each against the pp = 2
+    # gather batcher's streams
+    want = batch[2]["streams"]
+    stats["movement"] = pipe_movement("[pipe-move]", model, counts, want + [want[-1]])
+    add(stats["movement"]["launches"])
+    lap("phase 15, spill, a cold slot and the prefix store at pp = 2")
+    stats["replicas"] = pipe_fleet("[pipe-replicas]", model, counts, want, replicas=2,
+                                   shared_weights="on")
+    add(stats["replicas"]["launches"])
+    lap("phase 15, two replicas at pp = 2 and a drain")
+    stats["disagg"] = pipe_fleet("[pipe-disagg]", model, counts, want, disagg=True)
+    add(stats["disagg"]["launches"])
+    lap("phase 15, a disagg pair at pp = 2")
     # each stage's share of a step as a graph of its own (what stages on
     # distinct cards take), forced on one card: the fused engine and the
     # chain, each against the first PIPE_STAGE_TOKENS of its pp = 1 stream
@@ -5359,6 +5603,192 @@ def phase_pipeline(model, seed: int, lap) -> tuple:
         torch.cuda.empty_cache()
     lap("phase 15, each stage's programs on their own")
     return launches, stats
+
+
+# ----------------------------------------------------------------- phase 16
+POD_JOBS = BATCH_MIX[3:6]  # the handed-off requests: (256, 32), (257, 96), (600, 64)
+POD_PREFIX = 600  # the federated prefix: host 0 serves it, host 1 continues it
+POD_SUFFIX = 40
+POD_TOKENS = 32
+POD_RELAY_TIMEOUT_S = 2.0  # the origin's wait for the next relayed token after the death
+POD_DEATH_AFTER = 2  # relayed tokens before host 1 goes silent
+
+
+def pod_batcher(model, store=None):
+    """A plain pp = 1 paged batcher of phase 15's geometry (the ragged
+    path, kernel 2), its greedy decode block captured."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    engine = PipelineEngine(model, microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, prefix_store=store)
+    batcher.warm_up(blocks=GREEDY_BLOCK)
+    return batcher
+
+
+def phase_pod(model, lap) -> tuple:
+    """Phase 16, the pod over its in-process transport on phase 4's model:
+    two loopback hosts in this process over one resident copy of the
+    weights. Host 0 is a disagg coordinator (``build_generator(disagg=True,
+    prefix_store=True)``) whose decode pool is priced as saturated, host 1
+    a plain paged batcher (ragged, kernel 2) with a prefix store of its own.
+    Greedy requests cross from host 0's prefill pool to host 1's batcher
+    (``PodHandoff``: the block's bytes on the wire, host 1 stages and
+    imports it, relays the tokens); host 0 serves a prefix locally, which
+    its store demotes, and host 1 continues it through one federated fetch
+    of host 0's block; then host 1 goes silent after ``POD_DEATH_AFTER``
+    relayed tokens and host 0 finishes the stream itself. Every stream
+    equals a monolithic batcher's; the fallbacks are ``{}`` but the death's
+    ``relay_timeout``, and the drained stream, resumed by refolding the
+    tokens delivered into the prompt, equals the monolithic batcher's
+    stream of that folded request. Returns the launches and the numbers."""
+    from mlx_sharding_tpu_torch.pod import LoopbackHub, PodFleet
+    from mlx_sharding_tpu_torch.prefix_store import PrefixStore
+    from mlx_sharding_tpu_torch.server.openai_api import build_generator
+    from mlx_sharding_tpu_torch.weights import weight_store
+
+    tok = ByteTokenizer()
+    counts = kernel_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    co = build_generator("llama-3.1-8b-random", model=model, device=model.device,
+                         max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, concurrent=PIPE_SLOTS,
+                         paged_pool=POOL_PAGES, page_size=PAGE, decode_block=8, disagg=True,
+                         prefix_store=True)
+    store0 = co.prefix_store
+    store0._host._flush_async = False
+    store1 = PrefixStore(host_bytes=SPILL_BYTES)
+    host1, mono = pod_batcher(model, store1), pod_batcher(model)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    w = weight_store().stats()
+    w_bytes = sum(e["bytes"] for e in w["entries"])
+    log(f"[pod] host 0: a disagg coordinator (its pools {w['refs']} refs on {w['trees']} "
+        f"resident tree), host 1: a paged batcher over the same tensors, and the monolithic "
+        f"reference: card memory +{grown / 1e9:.3f} GB (the weights {w_bytes / 1e9:.3f} GB "
+        f"once)")
+    check(w["trees"] == 1 and grown < w_bytes, f"[pod] a second copy of the weights: {w}")
+    hub = LoopbackHub()
+    f0 = PodFleet(0, hub.register(0), co, prefix_store=store0)
+    f1 = PodFleet(1, hub.register(1), host1, prefix_store=store1)
+    launches = {}
+    out = {"grown_bytes": grown}
+
+    def served(gen, prompt, tokens):
+        return [t for t, _ in gen.generate_step(prompt, max_tokens=tokens)]
+
+    try:
+        f0.tick()
+        f1.tick()
+        for f in (f0, f1):
+            f.start()  # each host's heartbeat loop, as a serving pod runs it
+        f0.handoff.local_pressure = lambda: 1.0  # host 0's decode pool: saturated
+        jobs = [(tok.encode(mix_prompt(160 + i, n)), m) for i, (n, m) in enumerate(POD_JOBS)]
+        want = [served(mono, p, m) for p, m in jobs]
+        counts.reset()
+        got = [served(co, p, m) for p, m in jobs]
+        c = counts.read()
+        h, r1 = f0.handoff.stats(), f1.handoff.stats()
+        log(f"[pod] {len(jobs)} greedy requests handed off from host 0 to host 1: "
+            f"{h['shipped']} shipped, {h['bytes_shipped'] / 1e6:.1f} MB on the wire, "
+            f"{h['relayed_tokens']} tokens relayed, first relayed token p50 {h['ms_p50']:.1f} "
+            f"ms (p99 {h['ms_p99']:.1f}), host 1 received {r1['received']}; fallbacks "
+            f"{h['fallbacks']}; launches {c}; {card_line()}")
+        check(got == want, f"[pod] a handed-off stream parts from the monolithic batcher's at "
+              f"{[first_divergence(a, b) for a, b in zip(got, want)]}")
+        check(h["shipped"] == len(jobs) and r1["received"] == len(jobs)
+              and h["fallbacks"] == {} and c["paged_attention"] > 0,
+              f"[pod] handoff {h}, launches {c}")
+        out["handoff"] = h
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        lap("phase 16, cross-host handoffs")
+        # the federated prefix: host 0 serves it locally, its store demotes it
+        f0.handoff.local_pressure = lambda: 0.0
+        prefix = tok.encode(mix_prompt(170, POD_PREFIX))
+        first = prefix + tok.encode(mix_prompt(171, POD_SUFFIX))
+        second = prefix + tok.encode(mix_prompt(172, POD_SUFFIX))
+        check(served(co, first, POD_TOKENS) == served(mono, first, POD_TOKENS),
+              "[pod] host 0's local stream")
+        # the stream ends before the scheduler releases its slot: the
+        # prefix joins host 0's tier (and its gossip) at that release
+        digest = store0.digests_for(first)[-1]
+        deadline = time.monotonic() + 30
+        while not store0.host_contains(digest) and time.monotonic() < deadline:
+            time.sleep(0.005)
+        check(store0.host_contains(digest), f"[pod] host 0 demoted nothing: {store0.stats()}")
+        f0.tick()
+        f1.tick()
+        want = served(mono, second, POD_TOKENS)
+        counts.reset()
+        t0 = time.perf_counter()
+        got = served(host1, second, POD_TOKENS)
+        secs = time.perf_counter() - t0
+        c = counts.read()
+        p1, p0 = f1.prefix.stats(), f0.prefix.stats()
+        log(f"[pod] host 1 continued host 0's {POD_PREFIX}-token prefix: {p1['fetches']} "
+            f"federated fetch, {p1['fetch_bytes'] / 1e6:.1f} MB, fetch {p1['fetch_ms_p50']:.1f} "
+            f"ms; host 0 served {p0['blobs_served']} blob; host 1's store reused "
+            f"{store1.stats()['tokens_reused']} tokens; the request took {secs * 1e3:.1f} ms; "
+            f"fallbacks {p1['fallbacks']}; launches {c}")
+        check(got == want, f"[pod] the federated stream parts from the monolithic batcher's at "
+              f"{first_divergence(got, want)}")
+        check(p1["fetches"] == 1 and p0["blobs_served"] == 1 and p1["fallbacks"] == {}
+              and store1.stats()["tokens_reused"] >= 2 * PAGE, f"[pod] federation {p1}")
+        out["fetch"] = p1
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        lap("phase 16, a federated prefix fetch")
+        # host 1 dies in the middle of a relay: host 0 resumes after the
+        # relayed tokens
+        f0.handoff.local_pressure = lambda: 1.0
+        orig, seen = hub._handlers[0], [0]
+
+        def silent_death(src, kind, payload):
+            if kind == "pod.tok":
+                seen[0] += 1
+                if seen[0] > POD_DEATH_AFTER:
+                    return
+            elif kind == "pod.end":
+                return
+            orig(src, kind, payload)
+
+        hub._handlers[0] = silent_death
+        f0.handoff.relay_timeout_s = POD_RELAY_TIMEOUT_S
+        # a prompt host 0's store has not seen: a covered one skips the
+        # prefill pool, and with it the handoff
+        p, m = tok.encode(mix_prompt(175, POD_JOBS[1][0])), POD_JOBS[1][1]
+        want = served(mono, p, m)
+        got = served(co, p, m)
+        h = f0.handoff.stats()
+        # host 0 resumes blockless after the tokens its client has (the
+        # prefill's first and the relayed ones): it folds them into the
+        # prompt and prefills it again, as the monolithic batcher serves
+        # that folded request; in bf16 a prefilled row is not bit-equal to
+        # the decoded one, so the rest may part from the unfolded stream
+        k = 1 + POD_DEATH_AFTER
+        folded = want[:k] + served(mono, p + want[:k], m - k)
+        log(f"[pod] host 1 went silent after {POD_DEATH_AFTER} relayed tokens: fallbacks "
+            f"{h['fallbacks']}, host 0 finished the stream ({len(got)} tokens): equal to the "
+            f"monolithic batcher's stream of the folded request (the prompt and the {k} "
+            f"tokens delivered): {got == folded}; against the unfolded stream it parts at "
+            f"token {first_divergence(got, want)} (None: equal)")
+        check(got == folded, f"[pod] the drained stream parts from the monolithic batcher's "
+              f"at {first_divergence(got, folded)}")
+        check(h["fallbacks"] == {"relay_timeout": 1}, f"[pod] fallbacks {h['fallbacks']}")
+        out["death"] = h["fallbacks"]
+        lap("phase 16, a host death in the middle of a relay")
+    finally:
+        f0.close(close_local=False)
+        f1.close(close_local=False)
+        for b in (co, host1, mono):
+            b.close()
+        store1.close()
+    return launches, out
 
 
 def pipe_packed(packed) -> dict:
@@ -6763,6 +7193,7 @@ def main(argv=None) -> int:
     disagg_launches, _ = phase_disagg(model, args.seed, single_batch_tok_s,
                                       share["mix"]["tok_s"], greedy["bf16"], lap)
     pipe_launches, _ = phase_pipeline(model, args.seed, lap)
+    pod_launches, _ = phase_pod(model, lap)
     quant_launches, _ = phase_main_path_4bit(model, args.seed, lap)
     del model
     families = phase_families(args.seed, lap)
@@ -6781,7 +7212,7 @@ def main(argv=None) -> int:
         "launches": (launches["flash_attention"] + dense_launches["flash_attention"]
                      + surface_launches["flash_attention"] + share_launches["flash_attention"]
                      + disagg_launches["flash_attention"] + pipe_launches["flash_attention"]
-                     + quant_launches["flash_attention"]),
+                     + pod_launches["flash_attention"] + quant_launches["flash_attention"]),
         "max_abs_err": max(max_err, dense["kernels"]["flash_attention"],
                            surfaces["unaligned_err"]),
         "ms": mean("ms"),
@@ -6805,7 +7236,7 @@ def main(argv=None) -> int:
         "replaces": "mlx_sharding_tpu/ops/paged_attention.py:153",
         "launches": (paged_launches + surface_launches["paged_attention"]
                      + share_launches["paged_attention"]
-                     + disagg_launches["paged_attention"]),
+                     + disagg_launches["paged_attention"] + pod_launches["paged_attention"]),
         "max_abs_err": paged_err,
         "ms": pmean("ms"),
         "plain_ms": pmean("plain_ms"),

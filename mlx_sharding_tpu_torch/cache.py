@@ -31,7 +31,8 @@ one page of ``max_seq`` rows per slot, ``(L, M+1, max_seq, H_kv, D)``, and
 A pipeline engine of S > 1 stages keeps one such pool (or set of slot
 caches) per stage, over that stage's layers and on its device
 (:class:`StagedKV`); the stages share the slot offsets and the page table,
-so a request holds the same page ids on every stage.
+so a request holds the same page ids on every stage. Its page blocks carry
+one payload per stage (:func:`export_pool_pages`).
 """
 
 from __future__ import annotations
@@ -210,14 +211,17 @@ def stage_caches(cache) -> list:
     return cache.stages if isinstance(cache, StagedKV) else [cache]
 
 
-def single_stage(cache) -> None:
-    """Raise for a :class:`StagedKV`: moving page blocks in or out of a
-    pipeline of several stages is not yet ported."""
-    if isinstance(cache, StagedKV):
-        raise NotImplementedError(
-            "moving KV page blocks of a pipeline of several stages is not yet ported "
-            "(ROADMAP queue 1, slice 9b): the spill tier, the prefix store, drains and "
-            "handoffs run at pp=1")
+def stage_layers(cache) -> Optional[tuple]:
+    """The per-stage layer counts of a :class:`StagedKV` (its stage layout,
+    which a staged page block records), or None for one pool."""
+    if not isinstance(cache, StagedKV):
+        return None
+    return tuple(kv_data(c.k).shape[0] for c in cache.stages)
+
+
+def pool_device(cache) -> torch.device:
+    """The device of a single pool's leaves."""
+    return kv_data(cache.k).device
 
 
 def kv_row_bytes(cache) -> int:
@@ -323,29 +327,42 @@ def _map_pool(fn, buf, *others):
     return fn(buf, *others)
 
 
-def export_pool_pages(cache: "PagedKV", page_ids: torch.Tensor):
-    """Gather pool pages ``page_ids`` (an int64 vector on the pool's
-    device) out of a paged cache's K and V (JAX ``export_pool_pages``):
-    one ``index_select`` along the pool axis (1 here, 2 in JAX's
-    ``(S, L, P+1, B, page, H, D)``) per leaf, an int8 pool's scales with
-    its codes. Returns ``(k_pages, v_pages)`` shaped like the pool leaves
-    with the pool axis narrowed to ``len(page_ids)``, in new tensors that
-    later writes to the pool leave alone. Enqueued on the current stream,
-    nothing read back."""
-    single_stage(cache)
+def export_pool_pages(cache, page_ids: torch.Tensor):
+    """Gather pool pages ``page_ids`` (an int64 vector) out of a paged
+    cache's K and V (JAX ``export_pool_pages``): one ``index_select``
+    along the pool axis (1 here, 2 in JAX's ``(S, L, P+1, B, page, H, D)``)
+    per leaf, an int8 pool's scales with its codes. Returns ``(k_pages,
+    v_pages)`` shaped like the pool leaves with the pool axis narrowed to
+    ``len(page_ids)``, in new tensors that later writes to the pool leave
+    alone. Enqueued on the current stream of the pool's device, nothing
+    read back.
+
+    A :class:`StagedKV` gives one payload per stage, in stage order (lists
+    of the per-stage trees), each gathered on its stage's device: JAX's
+    one leaf with every stage on axis 0. JAX pads an uneven split to its
+    largest stage; the port gathers each stage's own layers, so a staged
+    payload is smaller than JAX's at an uneven split and equal at an even
+    one."""
+    if isinstance(cache, StagedKV):
+        parts = [export_pool_pages(c, page_ids.to(pool_device(c))) for c in cache.stages]
+        return [k for k, _ in parts], [v for _, v in parts]
     take = lambda leaf: leaf.index_select(1, page_ids)  # noqa: E731
     return _map_pool(take, cache.k), _map_pool(take, cache.v)
 
 
-def import_pool_pages(cache: "PagedKV", k_pages, v_pages, page_ids: torch.Tensor) -> "PagedKV":
+def import_pool_pages(cache, k_pages, v_pages, page_ids: torch.Tensor):
     """Scatter exported page payloads into pool pages ``page_ids`` of
     ``cache``, the inverse of :func:`export_pool_pages` (JAX
     ``import_pool_pages``). The pool is written IN PLACE (``index_copy_``):
     its tensors are never rebound, since the captured prefill and decode
     graphs hold their addresses. Payload leaves must already sit on the
-    pool's device; they are cast to the pool's dtype. Returns ``cache``."""
-
-    single_stage(cache)
+    pool's device (each stage's on its stage's); they are cast to the
+    pool's dtype. A :class:`StagedKV` takes the per-stage lists its export
+    gave. Returns ``cache``."""
+    if isinstance(cache, StagedKV):
+        for c, k, v in zip(cache.stages, k_pages, v_pages, strict=True):
+            import_pool_pages(c, k, v, page_ids.to(pool_device(c)))
+        return cache
 
     def put(pool, blk):
         pool.index_copy_(1, page_ids, blk.to(pool.dtype))

@@ -108,7 +108,19 @@ def main(argv=None):
                         "single-stream CLI allocates dense caches, so only "
                         "'bf16' is valid here")
     parser.add_argument("--no-chat-template", action="store_true")
+    # JAX's flags of the collectives, which come with slice 9b.3
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel width within each pipeline stage (not yet ported)")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert-parallel width within each pipeline stage (not yet ported)")
+    parser.add_argument("--sp", type=int, default=None,
+                        help="sequence-parallel prefill over N devices (not yet ported)")
+    parser.add_argument("--sp-decode", action="store_true",
+                        help="with --sp: a sequence-sharded KV cache (not yet ported)")
     args = parser.parse_args(argv)
+    if args.tp > 1 or args.ep > 1 or args.sp or args.sp_decode:
+        parser.error("--tp, --ep, --sp and --sp-decode are not yet ported (ROADMAP queue 1, "
+                     "slice 9b.3)")
     if args.engine == "chained" and not args.stage_bounds:
         parser.error("--engine chained requires --stage-bounds")
     if args.draft_model and (args.stage_bounds or args.num_stages):

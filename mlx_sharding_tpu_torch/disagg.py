@@ -1,8 +1,8 @@
 """Disaggregated prefill/decode serving: role-split pools + KV handoff
 (copied from ``mlx_sharding_tpu/disagg.py``; the pools are the port's
 replica sets of ``ContinuousBatcher`` replicas, the handoff block a
-``kv_transfer.KVPageBlock``. The pod leg, ``attach_pod`` and the remote
-decode host, comes with the pod federation).
+``kv_transfer.KVPageBlock``; the pod leg ships it to a remote decode host
+through ``pod.PodHandoff``).
 
 Monolithic replicas make one engine own a request for its whole lifetime,
 so long prefills and steady decode ticks fight for the same device and
@@ -135,9 +135,10 @@ class DisaggCoordinator:
         self.prefill = prefill_pool
         self.decode = decode_pool
         self.clock = clock
-        # the pod's cross-host handoff (JAX's PodHandoff, attached by the pod
-        # fleet) comes with the pod federation: until then it stays None and
-        # phase 2 always hands off to the local decode pool
+        # pod-scale cross-host handoff (pod.PodHandoff), attached by the
+        # pod fleet after construction: when set, phase 2 may ship the
+        # block to a less-loaded REMOTE decode host instead of the local
+        # decode pool, with the same never-drop degradation ladder
         self.pod = None
         # fleet-wide prefix store (optional): when the WHOLE prompt is
         # already covered — a device entry on some decode replica or a
@@ -178,6 +179,12 @@ class DisaggCoordinator:
         where decode saturation lives); prefill's is the fallback."""
         return (getattr(self.decode, "brownout", None)
                 or getattr(self.prefill, "brownout", None))
+
+    def attach_pod(self, pod_handoff) -> None:
+        """Wire the cross-host leg in (pod.PodFleet calls this): phase 2
+        consults ``pod_handoff.pick_remote()`` per handoff and may serve
+        the decode leg on a remote host."""
+        self.pod = pod_handoff
 
     def _count(self, kind: str):
         with self._lock:
@@ -317,6 +324,36 @@ class DisaggCoordinator:
                            bytes=int(nbytes), compressed=compressed)
             elif tr is not None:
                 tr.point("handoff_fault")
+            # ---- pod leg: a remote decode host may be less loaded than
+            # the local decode pool. serve_remote ships the block through
+            # the ``pod.handoff`` fault site and relays the remote tokens
+            # back; ANY failure raises PodHandoffFallback (counted by the
+            # handoff, by kind) and the request continues on the local
+            # plan below — cross-host never weakens the never-drop ladder.
+            if target is self.decode and self.pod is not None \
+                    and self.pod.pick_remote() is not None:
+                from mlx_sharding_tpu_torch.pod import PodHandoffFallback
+
+                it = self.pod.serve_remote(state, resume_kw)
+                try:
+                    for item in it:
+                        if trackable:
+                            trackable = _track(item)
+                        yield item
+                    return
+                except GeneratorExit:
+                    it.close()
+                    raise
+                except PodHandoffFallback as exc:
+                    if not exc.keep_block or exc.tokens_relayed:
+                        # the block is gone (shipped/corrupt) or the remote
+                        # already advanced the stream: rebuild a blockless
+                        # resume from the coordinator's own delivered-token
+                        # record — the existing token-exact fold path
+                        state = ResumeState(
+                            prompt=prompt_tokens, history=list(emitted),
+                            produced=len(emitted),
+                        )
             plan = [target, self.decode if target is self.prefill
                     else self.prefill]
             fwd = resume_kw

@@ -51,7 +51,19 @@ layout is refused. The batcher's drain (``migrate_out``) moves blocks
 between replicas on the host, and so does the disagg handoff: the prefill
 replica exports (``ContinuousBatcher._handoff_out``), the coordinator
 calls :meth:`KVPageBlock.to_host` on the request's thread, the decode
-replica imports. Left for a later slice: the pod federation's blobs.
+replica imports; the pod (``pod.py``) ships :meth:`KVPageBlock.to_bytes`
+between hosts.
+
+Pipeline stages: a block exported from an S-stage engine's pool
+(``cache.StagedKV``) holds one payload per stage, in stage order (lists of
+the per-stage trees), and records the stage layout (``stage_layers``, each
+stage's layer count), which the checksum and the wire format cover. Each
+stage's gather runs on its stage's device and records an event on that
+device's stream; its flush, stage and import copies run on that device's
+side streams and wait on that stage's event alone. JAX's block is one leaf
+with every stage on axis 0, padded to the largest stage: at an uneven split
+the port's ``nbytes`` is smaller than JAX's, at an even one equal. On one
+card every stage is ``cuda:0``; stages on distinct cards have not been run.
 """
 
 from __future__ import annotations
@@ -71,7 +83,14 @@ import numpy as np
 import torch
 
 from mlx_sharding_tpu_torch import tracing
-from mlx_sharding_tpu_torch.cache import export_pool_pages, import_pool_pages, single_stage
+from mlx_sharding_tpu_torch.cache import (
+    StagedKV,
+    export_pool_pages,
+    import_pool_pages,
+    pool_device,
+    stage_caches,
+    stage_layers,
+)
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.kv_compress import (
     ZeroLeaf,
@@ -137,7 +156,11 @@ class KVPageBlock:
 
     KV rows (the batcher's decode-write rule): a request that has emitted
     ``len(history)`` tokens has ``prompt.size + len(history) - 1`` valid
-    rows; the last token's id is ``last_tok``, the next step's input."""
+    rows; the last token's id is ``last_tok``, the next step's input.
+
+    A block of an S-stage pool: ``k_pages`` / ``v_pages`` are lists of S
+    such trees, one per stage over its own layers, and ``stage_layers``
+    the stages' layer counts (None for a single pool)."""
 
     k_pages: object
     v_pages: object
@@ -153,18 +176,22 @@ class KVPageBlock:
     compress_kind: Optional[str] = None
     compress_hash: Optional[str] = None
     checksum: Optional[str] = None
+    stage_layers: Optional[tuple] = None
     _host: bool = False
     # the checksum was stamped (to_host) or checked (verify) in this
     # process over the payload it holds
     _verified: bool = False
     # (k_pages, v_pages) staged on the device by prefetch() (rebuilt first
-    # for a compressed block) and the event after their copy
+    # for a compressed block) and the event after their copy (a list, one
+    # a stage, for a staged block)
     _staged: Optional[tuple] = None
     _staged_event: Optional[object] = None
-    # the export gather's event (CUDA): the flush waits on it
+    # the export gather's event (CUDA; a list, one a stage, for a staged
+    # block): the flush waits on it
     _ready: Optional[object] = None
-    # the device the pages were exported from (a prefetch stages there)
-    _device: Optional[torch.device] = None
+    # the devices the pages were exported from, one a stage (a prefetch
+    # stages there)
+    _devices: Optional[list] = None
     # the exporting engine's codec: the flusher compresses with it
     _codec: object = None
     _lock: object = field(default_factory=lambda: make_lock("KVPageBlock._lock"), repr=False)
@@ -187,15 +214,25 @@ class KVPageBlock:
     def is_prefetched(self) -> bool:
         return self._staged is not None
 
+    def _stages(self, tree) -> list:
+        """A payload tree's per-stage parts: the list a staged block holds,
+        or ``[tree]``."""
+        return list(tree) if self.stage_layers is not None else [tree]
+
+    def _join(self, parts: list):
+        """The inverse of :meth:`_stages`."""
+        return list(parts) if self.stage_layers is not None else parts[0]
+
     # ----------------------------------------------------------- residency
     def prefetch(self, device=None, codec=None) -> "KVPageBlock":
         """Stage the host payload on ``device`` (default: the one it was
-        exported from) ahead of a scheduled import: on a card the copy is
-        enqueued from pinned memory on the host-to-device side stream with
-        an event after it, and nothing waits. Idempotent; a block not yet
-        flushed needs no stage. A compressed block is rebuilt here. Fault
-        site ``cache.prefetch``: the caller counts it and the import takes
-        the demand path."""
+        exported from; a list gives each stage's) ahead of a scheduled
+        import: on a card the copy is enqueued from pinned memory on the
+        host-to-device side stream of each stage's device with an event
+        after it, and nothing waits. Idempotent; a block not yet flushed
+        needs no stage. A compressed block is rebuilt here. Fault site
+        ``cache.prefetch``: the caller counts it and the import takes the
+        demand path."""
         inject("cache.prefetch", n_bytes=self.nbytes)
         with self._lock:
             if not self._host or self._staged is not None:
@@ -207,18 +244,29 @@ class KVPageBlock:
                 k_pages, v_pages = dec.reconstruct_block(self)
             else:
                 k_pages, v_pages = self.k_pages, self.v_pages
-            dev = torch.device(device) if device is not None else (self._device or
-                                                                     torch.device("cpu"))
-            if dev.type != "cuda":
-                self._staged = (k_pages, v_pages)
-                return self
-            stream = side_stream(dev, "h2d")
-            with torch.cuda.stream(stream):
-                put = lambda t: _pinned(t).to(dev, non_blocking=True)  # noqa: E731
-                staged = (tree_map(put, k_pages), tree_map(put, v_pages))
-                event = torch.cuda.Event()
-                event.record(stream)
-            self._staged, self._staged_event = staged, event
+            ks, vs = self._stages(k_pages), self._stages(v_pages)
+            if isinstance(device, (list, tuple)):
+                devs = [torch.device(d) for d in device]
+            elif device is not None:
+                devs = [torch.device(device)] * len(ks)
+            else:
+                devs = self._devices or [torch.device("cpu")] * len(ks)
+            if len(devs) != len(ks):
+                return self  # another stage layout: the import refuses it
+            events = []
+            for i, dev in enumerate(devs):
+                if dev.type != "cuda":
+                    events.append(None)
+                    continue
+                stream = side_stream(dev, "h2d")
+                with torch.cuda.stream(stream):
+                    put = lambda t, dev=dev: _pinned(t).to(dev, non_blocking=True)  # noqa: E731
+                    ks[i], vs[i] = tree_map(put, ks[i]), tree_map(put, vs[i])
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                events.append(event)
+            self._staged = (self._join(ks), self._join(vs))
+            self._staged_event = None if not any(events) else self._join(events)
         return self
 
     def payload(self) -> tuple:
@@ -251,25 +299,29 @@ class KVPageBlock:
             if self._host:
                 return self
             k, v, recent, ready = self.k_pages, self.v_pages, self.resume_recent, self._ready
-        first = tree_leaves(k)[0]
-        if isinstance(first, torch.Tensor) and first.is_cuda:
+        ks, vs = self._stages(k), self._stages(v)
+        readies = self._stages(ready) if ready is not None else [None] * len(ks)
+        dones = []
+        for i in range(len(ks)):
+            first = tree_leaves(ks[i])[0]
+            if not (isinstance(first, torch.Tensor) and first.is_cuda):
+                continue
+            # each stage's copy on its own device's side stream, after that
+            # stage's gather alone
             stream = side_stream(first.device, "d2h")
             with torch.cuda.stream(stream):
-                if ready is not None:
-                    stream.wait_event(ready)
-
-                def fetch(t):
-                    if not (isinstance(t, torch.Tensor) and t.is_cuda):
-                        return t
-                    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    host.copy_(t, non_blocking=True)
-                    t.record_stream(stream)
-                    return host
-
-                k, v, recent = tree_map(fetch, k), tree_map(fetch, v), fetch(recent)
+                if readies[i] is not None:
+                    stream.wait_event(readies[i])
+                fetch = _fetcher(stream)
+                ks[i], vs[i] = tree_map(fetch, ks[i]), tree_map(fetch, vs[i])
+                if i == 0:
+                    recent = fetch(recent)
                 done = torch.cuda.Event()
                 done.record(stream)
+            dones.append(done)
+        for done in dones:
             done.synchronize()
+        k, v = self._join(ks), self._join(vs)
         kind = chash = None
         if self._codec is not None:
             # compress at the host boundary; a failure leaves the block raw
@@ -302,6 +354,8 @@ class KVPageBlock:
             head += f":share={self.share_hash}"
         if compress_kind:
             head += f":compress={compress_kind}:{compress_hash}"
+        if self.stage_layers is not None:
+            head += ":stages=" + "+".join(str(n) for n in self.stage_layers)
         h.update(head.encode())
         for leaf in tree_leaves((k_pages, v_pages)):
             if isinstance(leaf, ZeroLeaf):
@@ -364,7 +418,9 @@ class KVPageBlock:
                 "prompt": [int(t) for t in self.prompt], "history": list(self.history),
                 "produced": self.produced, "last_tok": self.last_tok,
                 "share_hash": self.share_hash, "compress_kind": self.compress_kind,
-                "compress_hash": self.compress_hash, "checksum": self.checksum, **extra,
+                "compress_hash": self.compress_hash, "checksum": self.checksum,
+                "stage_layers": (None if self.stage_layers is None
+                                 else list(self.stage_layers)), **extra,
             }
         head = json.dumps(header, sort_keys=True).encode()
         body = b"".join([WIRE_MAGIC, struct.pack("<Q", len(head)), head, *chunks])
@@ -403,6 +459,8 @@ class KVPageBlock:
                 return torch.frombuffer(buf, dtype=torch.uint8).view(dt).reshape(shape)
 
             def walk(spec):
+                if isinstance(spec, list):  # a staged payload: one tree a stage
+                    return [walk(part) for part in spec]
                 if "dtype" in spec:
                     return leaf(spec)
                 return {key: walk(spec[key]) for key in sorted(spec)}
@@ -413,6 +471,9 @@ class KVPageBlock:
                      for name in ("resume_gen", "resume_recent")}
             if pos != len(data):
                 raise BlockIntegrityError(f"{len(data) - pos} trailing bytes after the payload")
+            layers = header.get("stage_layers")
+            if (layers is None) != (not isinstance(k_pages, list)):
+                raise BlockIntegrityError("stage layout disagrees with the payload")
             blk = KVPageBlock(
                 k_pages=k_pages, v_pages=v_pages, n_tokens=int(header["n_tokens"]),
                 page_size=int(header["page_size"]),
@@ -421,6 +482,7 @@ class KVPageBlock:
                 last_tok=int(header["last_tok"]), share_hash=header.get("share_hash"),
                 compress_kind=header.get("compress_kind"),
                 compress_hash=header.get("compress_hash"), checksum=header["checksum"],
+                stage_layers=None if layers is None else tuple(int(n) for n in layers),
                 _host=True, **extra)
         except BlockIntegrityError:
             raise
@@ -432,7 +494,11 @@ class KVPageBlock:
     def compatible_with(self, cache) -> Optional[str]:
         """None if the pages can be scattered into ``cache``'s pool, else
         the reason (an int8 block into a bf16 pool, a geometry mismatch
-        off the pool axis, a dtype)."""
+        off the pool axis, a dtype, another stage layout)."""
+        theirs = stage_layers(cache)
+        if self.stage_layers != theirs:
+            return (f"page geometry mismatch: block stage layers {self.stage_layers} vs pool "
+                    f"{theirs}")
         with self._lock:
             return pages_compatible(self.k_pages, self.v_pages, cache)
 
@@ -441,10 +507,40 @@ def _pinned(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_cuda or t.is_pinned() else t.pin_memory()
 
 
+def _fetcher(stream):
+    """A leaf's copy into pinned host memory on ``stream`` (a side stream
+    of the leaf's device); the device tensor is marked used there."""
+    def fetch(t):
+        if not (isinstance(t, torch.Tensor) and t.is_cuda):
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        t.record_stream(stream)
+        return host
+    return fetch
+
+
 def pages_compatible(k_pages, v_pages, cache, check_dtype: bool = True) -> Optional[str]:
     """None if the payload trees fit ``cache``'s pool, else the reason.
     ``check_dtype=False`` is the lossy low-rank import: the rebuilt float32
-    rows are cast into the pool's dtype."""
+    rows are cast into the pool's dtype. A :class:`cache.StagedKV` is
+    checked stage by stage against a staged payload's lists: another stage
+    count or split is a geometry mismatch, as JAX's ``(S, L, ...)`` leaf
+    check finds it. JAX compares a split padded to its largest stage, so it
+    takes a 0-3 / 3-4 block into a 0-1 / 1-4 pool; the port refuses it."""
+    pools = stage_caches(cache)
+    staged = isinstance(cache, StagedKV)
+    if isinstance(k_pages, list) != staged or (staged and len(k_pages) != len(pools)):
+        ours = tuple(tree_leaves(k)[0].shape[0] for k in
+                     (k_pages if isinstance(k_pages, list) else [k_pages]))
+        return (f"page geometry mismatch: block stage layers {ours} vs pool "
+                f"{stage_layers(cache) or (tree_leaves(cache.k)[0].shape[0],)}")
+    if staged:
+        for k, v, pool in zip(k_pages, v_pages, pools):
+            reason = pages_compatible(k, v, pool, check_dtype)
+            if reason is not None:
+                return reason
+        return None
     ours, theirs = tree_structure((k_pages, v_pages)), tree_structure((cache.k, cache.v))
     if ours != theirs:
         return f"KV storage mode mismatch: block {ours} vs pool {theirs}"
@@ -457,11 +553,6 @@ def pages_compatible(k_pages, v_pages, cache, check_dtype: bool = True) -> Optio
     return None
 
 
-def _pool_device(cache) -> torch.device:
-    single_stage(cache)
-    return tree_leaves(cache.k)[0].device
-
-
 def export_block(cache, page_ids, *, page_size: int, n_tokens: int, prompt, history,
                  produced: int, resume_gen, resume_recent, share_hash: Optional[str] = None,
                  codec=None) -> KVPageBlock:
@@ -469,31 +560,50 @@ def export_block(cache, page_ids, *, page_size: int, n_tokens: int, prompt, hist
     :class:`KVPageBlock`: the gather is enqueued on the current stream and
     an event recorded after it; the block holds device tensors until
     someone calls :meth:`KVPageBlock.to_host`. ``codec``: the pool's
-    ``KVCompressCodec``, which the flush compresses with. Fault site
-    ``cache.export`` fires before any device work."""
+    ``KVCompressCodec``, which the flush compresses with. A
+    :class:`cache.StagedKV` gives a staged block: each stage's gather on
+    its device's current stream, an event recorded there after it. Fault
+    site ``cache.export`` fires before any device work."""
     inject("cache.export", n_pages=len(page_ids), n_tokens=n_tokens)
-    device = _pool_device(cache)
-    ids = upload(np.asarray(list(page_ids), np.int64), device)
+    devices = [pool_device(c) for c in stage_caches(cache)]
+    ids = upload(np.asarray(list(page_ids), np.int64), devices[0])
     tr = tracing.current()
     if tr is not None:
         with tr.timed("kv_export", pages=len(page_ids), tokens=n_tokens):
             k_pages, v_pages = export_pool_pages(cache, ids)
     else:
         k_pages, v_pages = export_pool_pages(cache, ids)
-    ready = None
-    if device.type == "cuda":
-        ready = torch.cuda.Event()
-        ready.record()
+    events = []
+    for device in devices:
+        event = None
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+        events.append(event)
+    layers = stage_layers(cache)
+    ready = (events if layers is not None else events[0]) if any(events) else None
     history = [int(t) for t in history]
     return KVPageBlock(
         k_pages=k_pages, v_pages=v_pages, n_tokens=int(n_tokens), page_size=int(page_size),
         prompt=np.array(prompt, np.int64, copy=True), history=history, produced=int(produced),
         last_tok=int(history[-1]) if history else -1,
         resume_gen=resume_gen, resume_recent=resume_recent, share_hash=share_hash,
-        _ready=ready, _device=device, _codec=codec)
+        stage_layers=layers, _ready=ready, _devices=devices, _codec=codec)
 
 
-def _onto(device: torch.device, k_pages, v_pages, event):
+def _onto(cache, k_pages, v_pages, event):
+    """The payload on the pool's devices (:func:`_onto_one`), stage by
+    stage for a :class:`cache.StagedKV`: each stage's copy waits on its own
+    event, on its own device's stream."""
+    if not isinstance(cache, StagedKV):
+        return _onto_one(pool_device(cache), k_pages, v_pages, event)
+    events = event if event is not None else [None] * len(cache.stages)
+    parts = [_onto_one(pool_device(c), k, v, e)
+             for c, k, v, e in zip(cache.stages, k_pages, v_pages, events, strict=True)]
+    return [k for k, _ in parts], [v for _, v in parts]
+
+
+def _onto_one(device: torch.device, k_pages, v_pages, event):
     """The payload on the pool's device, for a scatter enqueued on the
     current stream. A staged payload (``event`` set): the stream waits on
     the stage's event, no host wait. Host tensors on a card (the demand
@@ -564,13 +674,12 @@ def import_block(cache, block: KVPageBlock, page_ids, *, share_hash=None, codec=
         k_pages, v_pages, event = block.payload()
     if reason is not None:
         raise BlockIntegrityError(reason)
-    device = _pool_device(cache)
-    ids = upload(np.asarray(list(page_ids), np.int64), device)
+    ids = upload(np.asarray(list(page_ids), np.int64), pool_device(stage_caches(cache)[0]))
     tr = tracing.current()
     if tr is not None:
         with tr.timed("kv_import", pages=len(page_ids), tokens=block.n_tokens):
-            return import_pool_pages(cache, *_onto(device, k_pages, v_pages, event), ids)
-    return import_pool_pages(cache, *_onto(device, k_pages, v_pages, event), ids)
+            return import_pool_pages(cache, *_onto(cache, k_pages, v_pages, event), ids)
+    return import_pool_pages(cache, *_onto(cache, k_pages, v_pages, event), ids)
 
 
 class KVSpillTier:

@@ -337,7 +337,7 @@ class PipelineEngine:
             if n != 1:
                 raise NotImplementedError(
                     f"{name}={n}: tensor and expert parallelism are not yet ported "
-                    "(ROADMAP queue 1, slice 9b)")
+                    "(ROADMAP queue 1, slice 9b.3)")
         cfg = model.config
         if not (cfg.is_first_stage and cfg.is_last_stage):
             raise ValueError("PipelineEngine wants the full model config")

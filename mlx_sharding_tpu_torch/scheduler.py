@@ -278,6 +278,9 @@ class _Request:
     sdigests: Optional[list] = None
     splan: Optional[tuple] = None
     lease: Optional[object] = None
+    # the pod's prefix fetch (JAX ``_podfetch``): None = not consulted,
+    # "pending" = a fetch in flight (admission holds the request), "done"
+    podfetch: Optional[str] = None
     # KV movement: a block of this request waits in the spill tier, or
     # (``block``) a block handed in with a migrated request; the cold-slot
     # scan's consumed count and the ticks it has not moved
@@ -383,10 +386,6 @@ class ContinuousBatcher:
         draft_stages = getattr(draft_engine, "num_stages", 1)
         if draft_engine is not None and (stages != 1 or draft_stages != 1):
             raise ValueError("speculative continuous batching needs pp=1 engines")
-        if stages != 1 and (spill_bytes is not None or prefix_store is not None):
-            raise NotImplementedError(
-                "the spill tier and the prefix store over a pipeline of several stages are not "
-                "yet ported (ROADMAP queue 1, slice 9b)")
         if spec_window_max is not None:
             if (isinstance(spec_window_max, bool) or not isinstance(spec_window_max, int)
                     or spec_window_max < 2):
@@ -571,6 +570,8 @@ class ContinuousBatcher:
         self.weight_bytes_per_token_last = 0.0
         self.kv_bytes_per_token_last = 0.0
         self._kv_row_bytes = kv_row_bytes(self.cache)
+        # each stage's device: a staged block is prefetched stage by stage
+        self._kv_devices = list(getattr(engine, "stage_devices", [engine.device]))
         # prefix sharing: a page's refcount is the slots mapping it plus 1
         # if the index holds it; index-only pages are cached, not free, and
         # evicted least recently used when admission or growth runs short
@@ -1203,6 +1204,13 @@ class ContinuousBatcher:
             # the store's longest-prefix match instead of the slot-local
             # chain: a device hit discounts the pages it leases, a host hit
             # nothing (its import scatters into fresh pages)
+            if getattr(self.prefix_store, "federation", None) is not None \
+                    and req.podfetch != "done":
+                # the pod federation is attached: hold the request until the
+                # waiting line's pass has classified it or its fetch landed
+                # (the worker flips the flag on every outcome), so the
+                # prefix is not prefilled twice; the flag is only read here
+                return False
             req.splan = None
             plan = self._store_lookup(req)
             discount = plan[1] if plan is not None and plan[0] == "device" else 0
@@ -1466,6 +1474,40 @@ class ContinuousBatcher:
             logger.warning("prefix demotion export failed (prefix dropped): %s", e)
         self._unref_pages(entry.pages)
 
+    def _pod_fetch_waiting(self):
+        """Consult the pod for head-of-line waiting requests whose prefix
+        missed the local store (``pod.PodPrefixFederation``, JAX's): when a
+        live peer advertises the digest, a worker thread pulls the owner's
+        block into the local host tier while admission holds the request
+        on its ``podfetch`` flag. Every failure resolves the flag and the
+        request prefills plain. The federation is called from here and the
+        worker only, never from the tick's device work."""
+        store = self.prefix_store
+        fed = getattr(store, "federation", None) if store is not None else None
+        if fed is None or not self._waiting:
+            return
+        for req in self._waiting[:4]:
+            if req.cancelled or req.spilled or req.block is not None \
+                    or req.podfetch is not None:
+                continue
+            digests = self._store_digests(req)
+            if not digests or self._store_lookup(req) is not None:
+                req.podfetch = "done"  # nothing to federate, or a local hit
+                continue
+            req.podfetch = "pending"
+            threading.Thread(target=self._pod_fetch_one, args=(req, digests[-1]),
+                             name="mst-pod-prefix-fetch", daemon=True).start()
+
+    def _pod_fetch_one(self, req: _Request, digest: bytes):
+        """One waiting request's federated fetch (the federation counts each
+        outcome); on success the next store lookup finds the host-tier
+        block and admission imports it."""
+        try:
+            self.prefix_store.federation.fetch(digest)
+        except Exception as e:  # noqa: BLE001 — degrade to plain prefill
+            logger.debug("pod prefix fetch failed (plain prefill): %s", e)
+        req.podfetch = "done"
+
     def _prefetch_store_waiting(self):
         """Stage the host-tier prefix blocks of requests near the head of
         the waiting line (at most two a tick), so their admission's import
@@ -1487,7 +1529,7 @@ class ContinuousBatcher:
                 continue
             budget -= 1
             try:
-                block.prefetch(device=self.engine.device, codec=self._kv_codec)
+                block.prefetch(device=self._kv_devices, codec=self._kv_codec)
                 with self._admission_lock:
                     self.prefetches += 1
             except Exception as e:  # noqa: BLE001 — the demand import still serves it
@@ -2035,7 +2077,7 @@ class ContinuousBatcher:
         try:
             tr = req.trace
             t0 = time.perf_counter() if tr is not None else 0.0
-            block.prefetch(device=self.engine.device, codec=self._kv_codec)
+            block.prefetch(device=self._kv_devices, codec=self._kv_codec)
             if tr is not None:
                 tr.add("prefetch", t0, time.perf_counter(), pages=block.n_pages)
             with self._admission_lock:
@@ -2056,6 +2098,7 @@ class ContinuousBatcher:
                 if req.spilled and not req.cancelled:
                     self._prefetch_block(req)
                     budget -= 1
+        self._pod_fetch_waiting()
         self._prefetch_store_waiting()
 
     def _drop_spill(self, req: _Request):
@@ -2074,7 +2117,7 @@ class ContinuousBatcher:
         if block is None or not getattr(block, "is_host", False) or block.is_prefetched:
             return False
         try:
-            block.prefetch(device=self.engine.device, codec=self._kv_codec)
+            block.prefetch(device=self._kv_devices, codec=self._kv_codec)
             with self._admission_lock:
                 self.prefetches += 1
             return True

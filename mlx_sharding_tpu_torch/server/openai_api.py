@@ -211,20 +211,20 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     with bounds: a ``ChainedPipeline``, one model per stage. Without
     ``device`` stage s goes on the s-th card. ``start_layer`` /
     ``end_layer``: the layer range to load. Replicas, disagg and the
-    autoscaler over stages are not yet ported and raise. ``model``: an
-    already loaded model to serve, which ``path`` then only names. On a card
-    each generator's step graphs are captured here, before the first
-    request."""
+    autoscaler run over stages too: each replica is an engine of that many
+    stages, JAX's ``stages x tp x ep`` devices a replica, and the resident
+    tree's key carries the split; with ``device`` every replica's stages
+    sit on that one device. The pod (``pod.PodFleet``) is a library over
+    its in-process transport; its ``--pod`` flag comes with the collectives
+    (ROADMAP queue 1, slice 9b.3). ``model``: an already loaded model to
+    serve, which ``path`` then only names. On a card each generator's step
+    graphs are captured here, before the first request."""
     from mlx_sharding_tpu_torch.kv_compress import load_compress_map
     from mlx_sharding_tpu_torch.kv_share import load_share_map
     from mlx_sharding_tpu_torch.loading import load_model
     from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
 
     stages = len(stage_bounds) if stage_bounds else (num_stages or 1)
-    if stages > 1 and (replicas > 1 or disagg or autoscale):
-        raise NotImplementedError(
-            "replicas, disaggregated serving and the autoscaler over a pipeline of several "
-            "stages are not yet ported (ROADMAP queue 1, slice 9b)")
     if stage_bounds and engine == "chained":
         from mlx_sharding_tpu_torch.parallel.chained import (
             chained_from_model,
@@ -326,6 +326,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     split = (tuple(tuple(b) for b in stage_bounds) if stage_bounds else ("auto", stages))
     return _replica_set(signature, device=device, keep_quantized=keep_quantized, load=load,
                         make=make, dense_draft_engine=dense_draft_engine, split=split,
+                        stages=stages, stage_bounds=stage_bounds,
                         draft_model=draft_model if concurrent > 1 else None,
                         replicas=replicas, shared_weights=shared_weights, prefix_store=store,
                         **fleet)
@@ -340,7 +341,7 @@ def _warm_up(generator) -> None:
 
 def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_engine,
                  draft_model, replicas, shared_weights, prefix_store, split=("auto", 1),
-                 disagg=False,
+                 stages=1, stage_bounds=None, disagg=False,
                  prefill_replicas=1, decode_replicas=1, autoscale=False, autoscale_min=None,
                  autoscale_max=None, autoscale_interval=2.0, autoscale_cooldown=15.0,
                  brownout=True):
@@ -349,48 +350,51 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
     ``DisaggCoordinator``: with shared weights each aliases the store's
     resident model (a lease released when its engine closes, so the last
     retirement frees the tree); otherwise the grid must hold a private copy
-    per replica, which one device does not. ``autoscale``: the fleet
-    controllers (JAX's bounds on the port's one device slice), started."""
+    per replica, which one device does not. Each replica takes JAX's ``per
+    = stages x tp x ep`` devices: its stages' cards, or with ``device`` one
+    device that carries every stage. ``autoscale``: the fleet controllers
+    (JAX's bounds on the port's device slices), started."""
     import functools
 
     import torch
 
     from mlx_sharding_tpu_torch.device import resolve_device
     from mlx_sharding_tpu_torch.loading import checkpoint_signature, load_model
-    from mlx_sharding_tpu_torch.parallel.mesh import mesh_fingerprint
+    from mlx_sharding_tpu_torch.parallel.mesh import mesh_fingerprint, stage_devices
+    from mlx_sharding_tpu_torch.parallel.pipeline import place_weights
     from mlx_sharding_tpu_torch.replicas import ReplicaSet
-    from mlx_sharding_tpu_torch.weights import (
-        ResidentWeights,
-        WeightKey,
-        aliased_spawn,
-        model_weight_bytes,
-        weight_store,
-    )
+    from mlx_sharding_tpu_torch.weights import WeightKey, aliased_spawn, weight_store
 
-    per, n_devices = 1, 1  # the port's engines run on one device
+    # JAX's per = stages x tp x ep devices a replica (tp = ep = 1 here):
+    # the stages' own cards, or one device when ``device`` carries them all
+    placed = stage_devices(stages, device)
+    per = len(set(placed))
+    n_devices = per if device is not None else torch.cuda.device_count()
     want = prefill_replicas + decode_replicas if disagg else replicas
     shared = shared_weights_on(shared_weights, want, per, n_devices)
     if not shared and want * per > n_devices:
         raise ValueError(f"{want} replicas x {per} devices each needs {want * per} "
                          f"devices, have {n_devices}")
     slices = n_devices // per  # JAX's device-slice allocator's total
-    dev = resolve_device(device)
+    dev = resolve_device(device) if device is not None else placed[0]
     store = weight_store()
 
-    def resident(build_model):
+    def resident(build_model, staged=True):
         def build():
-            model = build_model()
-            return ResidentWeights(model=model, device=dev, weight_bytes=model_weight_bytes(model))
+            # the tree carries its split and each stage's device, which
+            # every aliasing engine checks against its own
+            return place_weights(build_model(), stages=stages if staged else 1,
+                                 stage_bounds=stage_bounds if staged else None, device=device)
         return build
 
-    def key_of(checkpoint, quant, stages):
+    def key_of(checkpoint, quant, stages, devices):
         return WeightKey(checkpoint=checkpoint, stage_bounds=stages,
                          dtype="bfloat16",  # load_model's
-                         quant=quant, placement=mesh_fingerprint([dev]))
+                         quant=quant, placement=mesh_fingerprint(devices))
 
-    key = key_of(signature, "tp1:ep1", split)
+    key = key_of(signature, "tp1:ep1", split, placed)
     draft_key = (key_of(checkpoint_signature(draft_model, keep_quantized=keep_quantized), "draft",
-                        ("auto", 1))
+                        ("auto", 1), [dev])
                  if draft_model else None)
 
     def spawn(speculate=True):
@@ -407,7 +411,8 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
 
                 draft_engine = aliased_spawn(
                     store, draft_key,
-                    resident(lambda: load_model(draft_model, device=device)[0]), make_draft)
+                    resident(lambda: load_model(draft_model, device=device)[0], staged=False),
+                    make_draft)
             pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
             try:
                 gen = make(lease.weights.model, weights=lease.weights,
@@ -517,6 +522,10 @@ class ModelProvider:
         # swaps are serialized: two requests naming different models would
         # otherwise race the generator and double-load onto the card
         self._load_lock = make_lock("ModelProvider._load_lock")
+        # a pod.PodFleet this host serves in, set by its caller (the server's
+        # --pod comes with slice 9b.3): /health's pod block and /metrics' pod
+        # families read it
+        self.pod_fleet = None
         self._key: Optional[str] = None
         self.generator = None
         self.tokenizer = None
@@ -750,12 +759,15 @@ class APIHandler(BaseHTTPRequestHandler):
             except Exception:  # noqa: BLE001 — health renders without the block
                 pass
             # the prefix store's residency, hits and insertion counters, the
-            # KV share map's, and the KV codec's: the blocks operators size
-            # the pool and the host tiers by
+            # pod's per-host view and counters (absent off a pod), the KV
+            # share map's, and the KV codec's: the blocks operators size the
+            # pool and the host tiers by
             store = self.provider.prefix_store_obj
+            pod = getattr(self.provider, "pod_fleet", None)
             share = (self.provider.kv_share_stats
                      if getattr(self.provider, "kv_share_map", None) is not None else None)
             for key, read in (("prefix_store", store.stats if store is not None else None),
+                              ("pod", pod.pod_stats if pod is not None else None),
                               ("kv_share", share),
                               ("kv_compress", self.provider.kv_compress_stats)):
                 try:
@@ -1303,6 +1315,8 @@ def make_server(provider: ModelProvider, host: str = "127.0.0.1", port: int = 80
         kv_compress_fn=provider.kv_compress_stats,
         kv_share_fn=lambda: (provider.kv_share_stats()
                              if getattr(provider, "kv_share_map", None) is not None else None),
+        pod_stats_fn=lambda: (provider.pod_fleet.pod_stats()
+                              if getattr(provider, "pod_fleet", None) is not None else None),
     )
     handler = type("BoundAPIHandler", (APIHandler,), {
         "provider": provider, "gen_lock": provider.gen_lock, "metrics": metrics,
@@ -1583,13 +1597,34 @@ def main(argv=None):
                              "with 429; "
                              "level surfaced in /health and the "
                              "X-MST-Brownout-Level response header")
+    # JAX's flags of the collectives, which come with slice 9b.3
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel width within each pipeline stage (not yet ported)")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert-parallel width within each pipeline stage (not yet ported)")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of the multi-host coordinator (not yet ported)")
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--pod", action="store_true",
+                        help="pod-scale serving over the multi-host control plane (not yet "
+                             "ported; pod.PodFleet runs over its in-process transport)")
     args = parser.parse_args(argv)
-    # JAX's pipeline rules and messages (--tp/--ep, --coordinator and --pod
-    # come with slice 9b)
     if args.engine == "chained" and not args.stage_bounds:
         parser.error("--engine chained requires --stage-bounds")
     if args.concurrent > 1 and args.engine == "chained":
         parser.error("--concurrent requires the fused engine")
+    # JAX's multi-host rules and messages; what passes them and needs
+    # the collectives raises naming slice 9b.3
+    if (args.tp > 1 or args.ep > 1) and args.engine == "chained":
+        parser.error("--tp/--ep require the fused engine")
+    if args.pod and not (args.coordinator and (args.num_processes or 1) > 1):
+        parser.error("--pod requires --coordinator and --num-processes > 1 (the pod gossip "
+                     "plane rides jax.distributed)")
+    if args.tp > 1 or args.ep > 1 or args.pod or args.coordinator \
+            or (args.num_processes or 1) > 1:
+        parser.error("--tp, --ep, --coordinator, --num-processes and --pod are not yet "
+                     "ported (ROADMAP queue 1, slice 9b.3)")
     staged = bool(args.stage_bounds) or (args.num_stages or 1) > 1 or args.engine == "chained"
     layer_range = args.start_layer is not None or args.end_layer is not None
     if args.trace_buffer < 1:

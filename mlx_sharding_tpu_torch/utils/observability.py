@@ -588,6 +588,9 @@ class ServingMetrics:
     # a share map)
     weight_store_fn: object = None
     kv_share_fn: object = None
+    # the pod's ``pod_stats()`` (``pod.PodFleet``), None off a pod: the
+    # mst_pod_* and mst_prefix_pod_* families render only from it
+    pod_stats_fn: object = None
 
     def record_request(self, *, prompt_tokens: int, generation_tokens: int, ttft_s: float,
                        decode_tps: float, failed: bool = False):
@@ -667,7 +670,8 @@ class ServingMetrics:
                          lambda store: _weight_store_lines(store.stats())),
                         (self.prefix_store_fn, lambda store: _prefix_store_lines(store.stats())),
                         (self.kv_share_fn, _kv_share_lines),
-                        (self.kv_compress_fn, _kv_compress_lines))
+                        (self.kv_compress_fn, _kv_compress_lines),
+                        (self.pod_stats_fn, _pod_lines))
             for fn, render in sections:
                 try:
                     source = fn() if fn is not None else None
@@ -676,6 +680,83 @@ class ServingMetrics:
                 except Exception:  # noqa: BLE001 — scrapes must never 500
                     pass
         return "\n".join(_finalize(lines)) + "\n"
+
+
+def _pod_lines(pod: dict) -> list:
+    """The pod's families (JAX's): host-labeled liveness, heartbeat age,
+    fleet size and weight occupancy from the gossip view, the handoff's
+    counters and latency, and the prefix federation's when the pod
+    federates a store. Built whole before it joins the scrape, so a gossip
+    view that races a host death drops the section instead of answering
+    500."""
+    lines = [
+        "# TYPE mst_pod_hosts gauge",
+        f"mst_pod_hosts {len(pod['hosts'])}",
+        "# TYPE mst_pod_host_deaths_total counter",
+        f"mst_pod_host_deaths_total {pod['autoscaler']['deaths_detected']}",
+    ]
+    hosts = sorted(pod["hosts"])
+    lines.append("# TYPE mst_pod_host_alive gauge")
+    lines += [f'mst_pod_host_alive{{host="{h}"}} {int(bool(pod["hosts"][h].get("alive")))}'
+              for h in hosts]
+    ages = [(h, pod["hosts"][h].get("heartbeat_age_s")) for h in hosts]
+    if any(a is not None for _, a in ages):
+        lines.append("# TYPE mst_pod_heartbeat_age_seconds gauge")
+        lines += [f'mst_pod_heartbeat_age_seconds{{host="{h}"}} {a:.3f}'
+                  for h, a in ages if a is not None]
+    lines += [f'mst_fleet_size{{host="{h}"}} '
+              f"{(pod['hosts'][h].get('fleet') or {}).get('live', 0)}"
+              for h in hosts if pod["hosts"][h].get("fleet")]
+    for fam in ("trees", "refs", "bytes"):
+        lines += [f'mst_weight_store_{fam}{{host="{h}"}} '
+                  f"{(pod['hosts'][h].get('weights') or {}).get(fam, 0)}"
+                  for h in hosts if pod["hosts"][h].get("weights")]
+    ho = pod["handoff"]
+    lines += [
+        "# TYPE mst_pod_handoff_total counter",
+        f"mst_pod_handoff_total {ho['shipped']}",
+        "# TYPE mst_pod_handoff_bytes_total counter",
+        f"mst_pod_handoff_bytes_total {ho['bytes_shipped']}",
+        "# TYPE mst_pod_handoff_received_total counter",
+        f"mst_pod_handoff_received_total {ho['received']}",
+        "# TYPE mst_pod_handoff_fallbacks_total counter",
+    ]
+    lines += _by_kind("mst_pod_handoff_fallbacks_total", ho.get("fallbacks") or {})
+    if ho.get("ms_p50") is not None:
+        lines += [
+            "# TYPE mst_pod_handoff_ms summary",
+            f'mst_pod_handoff_ms{{quantile="0.5"}} {ho["ms_p50"]:.3f}',
+            f'mst_pod_handoff_ms{{quantile="0.99"}} {ho["ms_p99"]:.3f}',
+        ]
+    pp = pod.get("prefix")
+    if pp is not None:
+        lines += [
+            "# TYPE mst_prefix_pod_inventory_keys gauge",
+            f"mst_prefix_pod_inventory_keys {pp.get('inventory_keys', 0)}",
+            "# TYPE mst_prefix_pod_hits_total counter",
+            f"mst_prefix_pod_hits_total {pp.get('hits', 0)}",
+            "# TYPE mst_prefix_pod_fetches_total counter",
+            f"mst_prefix_pod_fetches_total {pp.get('fetches', 0)}",
+            "# TYPE mst_prefix_pod_fetch_bytes_total counter",
+            f"mst_prefix_pod_fetch_bytes_total {pp.get('fetch_bytes', 0)}",
+            "# TYPE mst_prefix_pod_fallbacks_total counter",
+        ]
+        lines += _by_kind("mst_prefix_pod_fallbacks_total", pp.get("fallbacks") or {})
+        if pp.get("fetch_ms_p50") is not None:
+            lines += [
+                "# TYPE mst_prefix_pod_fetch_ms summary",
+                f'mst_prefix_pod_fetch_ms{{quantile="0.5"}} {pp["fetch_ms_p50"]:.3f}',
+                f'mst_prefix_pod_fetch_ms{{quantile="0.99"}} {pp["fetch_ms_p99"]:.3f}',
+            ]
+    return lines
+
+
+def _by_kind(family: str, counts: dict) -> list:
+    """A counter's samples by kind, or its explicit zero (a bare ``# TYPE``
+    with no sample is invalid exposition)."""
+    if not counts:
+        return [f"{family} 0"]
+    return [f'{family}{{kind="{kind}"}} {counts[kind]}' for kind in sorted(counts)]
 
 
 def _host_weight_store():

@@ -31,7 +31,7 @@ from mlx_sharding_tpu.models.llama import LlamaModel
 from mlx_sharding_tpu.models.mixtral import MixtralModel
 from mlx_sharding_tpu.parallel import pipeline as jpipeline
 from mlx_sharding_tpu.parallel.mesh import pipeline_mesh
-from mlx_sharding_tpu_torch.cache import StagedKV, export_pool_pages
+from mlx_sharding_tpu_torch.cache import StagedKV
 from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.parallel import PipelineEngine
@@ -296,11 +296,11 @@ def llama4():
 
 def test_what_jax_allows_only_at_pp1_raises(llama4):
     """Ragged decode, a KV share map, speculation in the batcher (n-gram or
-    a draft engine) raise JAX's errors at pp = 2; the spill tier and the
-    prefix store, which the port has not yet ported at pp > 1, raise naming
-    slice 9b, as do tensor and expert parallelism."""
+    a draft engine) raise JAX's errors at pp = 2; tensor and expert
+    parallelism, not yet ported, raise naming slice 9b.3. The spill tier,
+    the prefix store and page-block moves run at pp = 2
+    (``tests/test_torch_pipeline_kv.py``, ``tests/test_torch_pipeline_fleet.py``)."""
     from mlx_sharding_tpu_torch.kv_share import KVShareMap
-    from mlx_sharding_tpu_torch.prefix_store import PrefixStore
 
     _, _, tm = llama4
     with pytest.raises(ValueError, match="needs a paged \\(pool_pages\\) pp=1 engine"):
@@ -314,12 +314,6 @@ def test_what_jax_allows_only_at_pp1_raises(llama4):
     with pytest.raises(ValueError, match="needs pp=1 engines"):
         ContinuousBatcher(PipelineEngine(tm, stages=2, device="cpu", **GEOMETRY),
                           draft_engine=PipelineEngine(tm, device="cpu", **GEOMETRY))
-    for kw in (dict(spill_bytes=1 << 20, overcommit=True), dict(prefix_store=PrefixStore())):
-        with pytest.raises(NotImplementedError, match="slice 9b"):
-            ContinuousBatcher(eng, **kw)
     for kw in (dict(tp=2), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match="slice 9b"):
+        with pytest.raises(NotImplementedError, match="slice 9b.3"):
             PipelineEngine(tm, device="cpu", **kw)
-    pool = eng.init_cache_paged()[0]  # a staged pool moves no page block yet
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        export_pool_pages(pool, torch.zeros(1, dtype=torch.long))

@@ -12,8 +12,8 @@
   (``tests/make_tiny_checkpoint.py``) the CLI's greedy text at pp = 2,
   fused and chained, equals its pp = 1 text, and the server builds the
   engine the flags ask for, which answers what the pp = 1 server answers;
-- without ``--device`` a pipeline asks for a card (none here), and what is
-  not yet ported over stages (replicas, disagg) raises naming slice 9b."""
+- without ``--device`` a pipeline asks for a card (none here), and
+  replicas and disagg over stages answer as pp = 1."""
 
 import http.client
 import json
@@ -213,6 +213,9 @@ SERVER_CHECKS = [
     ["--stage-bounds", "0-2,2-4", "--concurrent", "2", "--paged-pool", "8",
      "--kv-compress-map", "m"],
     [*CHAINED, "--shared-weights", "on"],
+    ["--pod"],
+    ["--pod", "--coordinator", "127.0.0.1:1234"],
+    [*CHAINED, "--tp", "2"],
 ]
 
 
@@ -226,6 +229,21 @@ def test_cli_pipeline_checks_match_jax(argv, capsys):
 def test_server_pipeline_checks_match_jax(argv, capsys):
     want = _parser_error(japi.main, argv, capsys)
     assert _parser_error(tapi.main, [*argv, "--device", "cpu"], capsys) == want
+
+
+@pytest.mark.parametrize("main,argv", [
+    (tapi.main, ["--tp", "2"]), (tapi.main, ["--ep", "2"]),
+    (tapi.main, ["--pod", "--coordinator", "127.0.0.1:1234", "--num-processes", "2"]),
+    (tapi.main, ["--coordinator", "127.0.0.1:1234", "--num-processes", "2"]),
+    (tcli.main, ["--tp", "2"]), (tcli.main, ["--ep", "2"]), (tcli.main, ["--sp", "2"]),
+    (tcli.main, ["--sp-decode"]),
+], ids=["server_tp", "server_ep", "server_pod", "server_multihost", "cli_tp", "cli_ep",
+        "cli_sp", "cli_sp_decode"])
+def test_the_collectives_flags_raise_naming_slice_9b3(main, argv, capsys):
+    """JAX's flags of the collectives parse, and what JAX would run over
+    them (tensor, expert or sequence parallelism, several processes, the
+    pod over its control plane) is refused naming slice 9b.3."""
+    assert "slice 9b.3" in _parser_error(main, [*argv, "--device", "cpu"], capsys)
 
 
 @pytest.mark.parametrize("main", [tcli.main, tapi.main], ids=["cli", "server"])
@@ -242,12 +260,36 @@ def test_a_pipeline_without_device_asks_for_cards(main, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kw", [dict(replicas=2), dict(disagg=True, concurrent=2,
-                                                       paged_pool=8)],
+@pytest.mark.parametrize("kw", [dict(replicas=2), dict(disagg=True)],
                          ids=["replicas", "disagg"])
-def test_fleets_over_stages_raise_naming_slice_9b(kw):
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        tapi.build_generator("unused", num_stages=2, device="cpu", **kw)
+def test_fleets_over_stages_raise_naming_slice_9b(ckpt, kw):
+    """Replicas and disaggregated serving over an engine of two stages
+    (which raised naming slice 9b before they were ported): through
+    ``build_generator``, every replica's engine has two stages on the one
+    device and aliases one resident tree that carries the split, and the
+    fleet answers each greedy request as the pp = 1 batcher does."""
+    from mlx_sharding_tpu_torch.weights import weight_store
+
+    common = dict(device="cpu", concurrent=2, paged_pool=10, max_seq=128, prefill_chunk=64)
+    jobs = [([5, 9, 2, 7, 11, 3], 9), (list(range(40, 110)), 7), ([8, 1, 6], 12)]
+
+    def serve(gen):
+        try:
+            return [[t for t, _ in gen.generate_step(np.asarray(p), max_tokens=n)]
+                    for p, n in jobs]
+        finally:
+            gen.close()
+
+    want = serve(tapi.build_generator(str(ckpt), **common))
+    fleet = tapi.build_generator(str(ckpt), num_stages=2, **common, **kw)
+    reps = ([*fleet.prefill.replicas, *fleet.decode.replicas] if kw.get("disagg")
+            else fleet.replicas)
+    assert len(reps) == 2
+    assert all(r.engine.num_stages == 2 and r.engine.weights_shared for r in reps)
+    assert reps[0].engine.model is reps[1].engine.model
+    assert [e["refs"] for e in weight_store().stats()["entries"]] == [2]
+    assert serve(fleet) == want
+    assert weight_store().stats()["trees"] == 0
 
 
 @pytest.fixture(scope="module")
