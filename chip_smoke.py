@@ -457,10 +457,16 @@ POOL_PAGES = 16
 BATCH_MIX = ((40, 64), (200, 48), (255, 32), (256, 32), (257, 96), (600, 64), (900, 96),
              (1500, 64), (600, 64))
 # the overcommit run (int8 pool) asks each request of the mix for this many
-# more tokens: every one then decodes past the pages it was admitted with,
-# so growth outruns the pool and preempts (the mix's own 32-96 tokens rarely
-# cross a 256-token page, and an overcommit pool only preempts as it grows)
-OVERCOMMIT_EXTRA_TOKENS = 256
+# more tokens: all but the shortest then decode past the pages they were
+# admitted with, so growth outruns the pool and preempts (the mix's own
+# 32-96 tokens rarely cross a 256-token page, and an overcommit pool only
+# preempts as it grows)
+OVERCOMMIT_EXTRA_TOKENS = 128
+# phase 6's engines (and phases 10 and 14's, on its geometry) stop at 2048
+# positions: the mix's longest request (1500 + 64, and the overcommit run's
+# 128 more) and phase 14's storm prompts fit, and a batcher captures 8
+# prefill graphs, not 16
+BATCH_MAX_SEQ = 2048
 # one more request of every mix, unforced greedy and sent second (after the
 # seeded twin: the older, the later it is preempted), its tokens read from
 # the batcher: it crosses a page edge as it decodes, and under speculation
@@ -1507,7 +1513,7 @@ def phase_gemv_split_timing(seed: int) -> list:
     return rows
 
 
-def quant_record(rows, kernel, launches, max_err):
+def quant_record(rows, kernel, launches, max_err, tp2_rows=()):
     """The kernels-line entry of a packed-weight kernel: per-launch means as
     the main path weighs them. The GEMV: a decode step's 129 launches at
     M = 1 (32 of each layer shape and the head), and beside them the same
@@ -1552,6 +1558,11 @@ def quant_record(rows, kernel, launches, max_err):
         "library_ms": mean("library_ms", m),
         "dense_ms": mean("dense_ms", m),
         **extra,
+        # phase 17's points: each tp = 2 shard shape of the 8B (M = 1 for
+        # the GEMV, 256 for the matmul)
+        "tp2_points": [{k: r[k] for k in ("name", "m", "out", "inp", "ms", "plain_ms",
+                                          "bound_ms")}
+                       for r in tp2_rows if r["kernel"] == kernel],
     }
 
 
@@ -2121,19 +2132,20 @@ def phase_batching(model, seed: int, kv_dtype: str, single_stream_tok_s: float,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"{tag} torch.cuda.memory_allocated at the start {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    engine = PipelineEngine(model, microbatches=SLOTS, max_seq=MAX_SEQ, prefill_chunk=CHUNK,
-                            pool_pages=pool, page_size=PAGE if pool else None,
+    engine = PipelineEngine(model, microbatches=SLOTS, max_seq=BATCH_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=pool,
+                            page_size=PAGE if pool else None,
                             paged_attention=paged_attention,
                             kv_dtype=kv_dtype if pool else None, device=model.device)
     draft_engine = None
     if draft_model is not None:
-        draft_engine = PipelineEngine(draft_model, microbatches=SLOTS, max_seq=MAX_SEQ,
+        draft_engine = PipelineEngine(draft_model, microbatches=SLOTS, max_seq=BATCH_MAX_SEQ,
                                       prefill_chunk=CHUNK, device=model.device)
     batcher = ContinuousBatcher(engine, decode_block=8, overcommit=overcommit, draft=draft,
                                 async_sched=async_sched, draft_engine=draft_engine,
                                 spec_k=SPEC_K)
     kv = (f"pool {pool} pages of {PAGE} tokens, {engine.decode_path} decode attention" if pool
-          else f"dense slot caches of {MAX_SEQ} positions")
+          else f"dense slot caches of {BATCH_MAX_SEQ} positions")
     log(f"{tag} engine: {SLOTS} slots, {kv} ({batcher.cache.nbytes / 1e6:.1f} MB of "
         f"{kv_dtype if pool else 'bf16'} K/V), {'overcommit' if overcommit else 'reserve'} "
         f"admission, {batcher.async_reason}"
@@ -2743,6 +2755,11 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
             for name in ("quant_gemv", "quant_matmul", "flash_attention", "flash_decode"):
                 launches[name] += run["launches"][name]
         lap("phase 15, the packed model at pp = 1 and 2")
+        stats["mesh"] = mesh_packed(packed)
+        for run in stats["mesh"].values():
+            for name in ("quant_gemv", "quant_matmul", "flash_attention", "flash_decode"):
+                launches[name] += run["launches"][name]
+        lap("phase 17, the packed model at tp = 1 and 2")
     return launches, stats
 
 
@@ -3121,6 +3138,12 @@ def batch_verify_numbers(tag: str, batcher) -> dict:
         inputs = eng.device_inputs(("split", k), batcher.table, batcher.active,
                                    batcher.cache.offsets, True)
         plan = eng.device_plan(inputs.offsets.long(), inputs, k)
+        # the verify graph's own inputs, exact: every replay then starts from
+        # the host's offsets (with the last served round's, inexact, each
+        # replay moved the device offsets on, and in one call a K = 8 replay
+        # indexed out of bounds)
+        eng.device_inputs(("verify", k), batcher.table, batcher.active, batcher.cache.offsets,
+                          True, np.zeros((k, m), np.int64), np.full(m, k, np.int64))
         total = replay_ms(batcher.graphs, ("verify", k, False))
         pools = [(layer_pool(batcher.cache.k, i), layer_pool(batcher.cache.v, i))
                  for i in range(model.config.num_hidden_layers)]
@@ -4969,7 +4992,7 @@ def phase_disagg(model, seed: int, single_batch_tok_s: float, replicas_tok_s: fl
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     co = build_generator("llama-3.1-8b-random", model=model, device=model.device,
-                         max_seq=MAX_SEQ, prefill_chunk=CHUNK, concurrent=SLOTS,
+                         max_seq=BATCH_MAX_SEQ, prefill_chunk=CHUNK, concurrent=SLOTS,
                          paged_pool=POOL_PAGES, page_size=PAGE, decode_block=8, disagg=True,
                          autoscale=True, autoscale_interval=AUTOSCALE_INTERVAL,
                          autoscale_cooldown=0.0)
@@ -5830,6 +5853,460 @@ def pipe_deepseek(model) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 17
+# The mesh axes that run in one process, every shard on the one card:
+# tensor parallelism (Llama-3.1-8B bf16 and 4-bit, Mixtral-8x7B 4-bit, the
+# Lite), expert parallelism (the Lite), sequence parallelism (the 8B), and
+# f32 runs at the 8B's widths. Streams in bf16 may part from the tp = 1 /
+# sp = 1 stream only from the first step whose top-2 gap in the reference's
+# logits is under MESH_GAP nats (the sums over the shards round otherwise).
+MESH_TP = 2
+MESH_GAP = 0.1
+MESH_LOGITS_REL_L2 = 5e-2  # bf16 first-step logits against tp = 1 / sp = 1
+# the same for a model whose experts are routed: a token's top-k choice can
+# flip on one rounding step in a layer, and the flipped expert's output is
+# another (Mixtral at tp = 2 read 0.025 after a 600-token prompt and 0.248
+# after a 256-token one, its argmax equal, on an NVIDIA H100 80GB HBM3 at
+# 700 W)
+MESH_MOE_LOGITS_REL_L2 = 0.5
+MESH_BYTES_TOL = 0.01  # the tp = 2 placement's weight bytes against tp = 1's
+MESH_TOKENS = 64  # the 8B's streams after PIPE_PROMPT tokens
+MESH_SHORT_TOKENS = 32  # the packed 8B's, Mixtral's and the Lite's streams
+MESH_SP_PROMPT = 1500  # pads to 1536: the quantum is sp x CHUNK = 512
+MESH_SP_MAX_SEQ = 2048
+MESH_F32_LAYERS = 4
+MESH_F32_SP_PROMPT = 700
+# the engines' and batchers' decode blocks: a capture's seconds are mostly
+# the eager warm-up of a block's steps, and the ep scan's steps are long
+MESH_DECODE_BLOCK = 4
+# the families' streams (Mixtral, the Lite): a prompt of one chunk
+MESH_FAMILY_PROMPT = CHUNK
+# Llama-3.1-8B's projections at tp = 2, one shard's (OUT, IN), unfused
+TP2_SHAPES = (("q_proj", 2048, 4096), ("k_proj/v_proj", 512, 4096), ("o_proj", 4096, 2048),
+              ("gate_proj/up_proj", 7168, 4096), ("down_proj", 4096, 7168))
+# Mixtral-8x7B's experts at tp = 2: the intermediate split in two
+TP2_EXPERT_SHAPES = (("gate/up", 7168, 4096), ("down", 4096, 7168))
+
+
+def lp_run(gen, ids: list, tokens: int, **kw) -> tuple:
+    """One greedy stream with its logprobs: ``(tokens, TokenLogprobs,
+    decode tok/s)`` (tokens after the first over the time after it)."""
+    out, t_first = [], None
+    for item in gen.generate_step(ids, max_tokens=tokens, want_logprobs=True, **kw):
+        if t_first is None:
+            t_first = time.perf_counter()
+        out.append(item)
+    torch.cuda.synchronize()
+    tok_s = (len(out) - 1) / (time.perf_counter() - t_first)
+    return [t for t, _ in out], [lp for _, lp in out], tok_s
+
+
+def near_tie_rule(tag: str, got: list, want: list, want_lps: list):
+    """The bf16 rule: ``got`` equals the reference ``want`` up to the first
+    step whose top-2 gap in the reference's logits is under ``MESH_GAP``;
+    prints where, if anywhere, the streams part. Returns that token."""
+    gaps = [float(lp.top_values[0] - lp.top_values[1]) for lp in want_lps]
+    tie = next((i for i, g in enumerate(gaps) if g < MESH_GAP), len(want))
+    at = first_divergence(got, want)
+    log(f"{tag} against the reference: "
+        + ("token-identical" if at is None else
+           f"parts at token {at} (top-2 gap there {gaps[at]:.4f} nats)")
+        + f" over {len(want)} tokens; its first step under {MESH_GAP} nats is "
+        + (f"{tie}" if tie < len(want) else "none"))
+    check(at is None or at >= tie, f"{tag} parts at token {at}, before the first near tie {tie}")
+    return at
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def mesh_engine_stream(tag: str, model, tokens: int, counts, want: dict, ids=None, tp=1,
+                       ep=1, reference=None) -> dict:
+    """The fused engine's single stream at tp x ep on the model's card,
+    its graphs captured first: the greedy stream with logprobs (the
+    counters zeroed before it and read after it, each kernel of ``want``
+    launched exactly that often) and its decode tok/s, its first-step
+    logits, the placement's weight bytes and, at tp > 1, the
+    in-process reductions of one decode step. ``reference``: a tp = 1 run's
+    numbers, which the stream is held to (``near_tie_rule``), the logits
+    within ``MESH_LOGITS_REL_L2`` (``MESH_MOE_LOGITS_REL_L2`` with routed
+    experts) and the weight bytes within ``MESH_BYTES_TOL``."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.parallel import mesh as pmesh
+
+    ids = ids if ids is not None else pipe_ids(PIPE_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = PipelineEngine(model, tp=tp, ep=ep, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                         decode_block=MESH_DECODE_BLOCK, device=model.device)
+    graph_line(tag, eng.warm_up(prefill_upto=len(ids), blocks=((False, True),)))
+    counts.reset()
+    toks, lps, tok_s = lp_run(eng, ids, tokens)
+    got = counts.read()
+    for name, n in want.items():
+        check(got[name] == n, f"{tag} {name} launched {got[name]} times, the stream needs {n}")
+    stream = eng.stream()
+    logits = stream.run_prefill(np.asarray([ids], np.int64)).float()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    out = {"tokens": toks, "lps": lps, "tok_s": tok_s, "launches": got, "logits": logits,
+           "weight_bytes": eng.weight_stream_bytes, "cache_bytes": stream.model.cache.nbytes,
+           "grown": grown}
+    if tp > 1:
+        red = pmesh.reductions()
+        stream.model(stream._tok[:, None], stream.cache)
+        torch.cuda.synchronize()
+        out["reductions"] = pmesh.reductions() - red
+    log(f"{tag} {len(toks)} greedy tokens after a {len(ids)}-token prompt at {tok_s:.2f} tok/s; "
+        f"launches {got}; weights {eng.weight_stream_bytes / 1e9:.4f} GB, KV caches "
+        f"{out['cache_bytes'] / 1e6:.1f} MB, card memory grown {grown / 1e6:.1f} MB"
+        + (f"; {out['reductions']} in-process reductions a decode step" if tp > 1 else ""))
+    if reference is not None:
+        err = rel_l2(logits, reference["logits"])
+        tol = (MESH_MOE_LOGITS_REL_L2 if hasattr(model.layers[-1], "w_gate")
+               else MESH_LOGITS_REL_L2)
+        ratio = eng.weight_stream_bytes / reference["weight_bytes"]
+        same = bool(logits.argmax() == reference["logits"].argmax())
+        log(f"{tag} first-step logits against tp = 1: relative L2 {err:.3e} (tol {tol}), "
+            f"argmax {'equal' if same else 'other'}; weight bytes {ratio:.4f} x tp = 1's; "
+            f"decode {tok_s:.2f} against {reference['tok_s']:.2f} tok/s at tp = 1")
+        check(err <= tol, f"{tag} first-step logits disagree with tp = 1's")
+        check(abs(ratio - 1) <= MESH_BYTES_TOL, f"{tag} the weights are not held once")
+        check(grown < reference["weight_bytes"] / 4,
+              f"{tag} the engine grew the card's memory by {grown} bytes")
+        out["parts_at"] = near_tie_rule(tag, toks, reference["tokens"], reference["lps"])
+    eng.close()
+    del eng, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_batch(tag: str, model, counts, tp: int, want_streams=None) -> dict:
+    """Phase 15's batcher mix with logprobs through the batcher over a
+    ``MESH`` engine of ``PIPE_SLOTS`` slots and a pool on the gather path,
+    overcommit admission, served on this thread after its captures: kernel
+    1 and the T=1 route launched once a layer and shard for every prefill
+    chunk and decode step, kernel 2 never. ``want_streams``: the tp = 1
+    run's (tokens, logprobs) per request, held to the near-tie rule."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    jobs = [(p, dict(kw, want_logprobs=True)) for p, kw in pipe_jobs()]
+    engine = PipelineEngine(model, tp=tp, microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            paged_attention="gather", device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=MESH_DECODE_BLOCK, overcommit=True)
+    graph_line(tag, batcher.warm_up(blocks=((False, True),)))
+    counts.reset()
+    t0 = time.perf_counter()
+    items, _ = serve_on_this_thread(batcher, jobs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts.read()
+    streams = [([t for t, _ in s], [lp for _, lp in s]) for s in items]
+    n = sum(len(t) for t, _ in streams)
+    layers = model.config.num_hidden_layers * tp
+    log(f"{tag} {len(jobs)} requests, {n} tokens in {secs:.2f}s: {n / secs:.2f} tok/s; "
+        f"{batcher.prefill_chunks} prefill chunks, {batcher.decode_steps} decode steps, "
+        f"{batcher.preemptions} preemptions; launches {got}")
+    check(got["flash_attention"] == layers * batcher.prefill_chunks
+          and got["flash_decode"] == layers * batcher.decode_steps
+          and got["paged_attention"] == 0, f"{tag} launches {got}")
+    if want_streams is not None:
+        for i, ((toks, _), (want, lps)) in enumerate(zip(streams, want_streams)):
+            near_tie_rule(f"{tag} request {i}", toks, want, lps)
+    batcher.close()
+    return {"streams": streams, "tok_s": n / secs, "launches": got}
+
+
+def mesh_attention_checks(seed: int) -> dict:
+    """Kernel 1 and its T=1 route at the tp = 2 shard shapes against their
+    plain versions: the 8B's 16 query heads over 4 KV heads (a prefill
+    chunk at the main path's offsets, one row at positions 0, 600 and the
+    last), and the Lite's MLA build over 8 heads a shard (Dk 576, v from
+    k). Returns the largest error of each."""
+    from mlx_sharding_tpu_torch.ops import flash_attention as fa
+    from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    bf16, errs = torch.bfloat16, {"flash": 0.0, "decode": 0.0}
+    q, k, v = attention_inputs(gen, 1, CHUNK, PIPE_MAX_SEQ, 16, 4, 128, 128, bf16)
+    for off in MAIN_PATH_OFFSETS:
+        errs["flash"] = max(errs["flash"], family_check(
+            f"flash_attention tp=2 Hq=16 Hkv=4 D=128 T={CHUNK} offset {off} bf16",
+            fa.flash_attention(q, k, v, off, 128 ** -0.5),
+            fa.flash_attention_reference(q, k, v, off, 128 ** -0.5)))
+    for position in (0, PIPE_PROMPT, PIPE_MAX_SEQ - 1):
+        qd = torch.randn((1, 1, 16, 128), generator=gen, device="cuda").to(bf16)
+        pos = torch.tensor([position], dtype=torch.int64, device="cuda")
+        lengths = decode_lengths(pos, 1, PIPE_MAX_SEQ)
+        errs["decode"] = max(errs["decode"], family_check(
+            f"flash_decode tp=2 Hq=16 Hkv=4 D=128 position {position} bf16",
+            fa.flash_decode(qd, k, v, pos, 128 ** -0.5, lengths=lengths),
+            fa.flash_decode_reference(qd, k, v, lengths, 128 ** -0.5)))
+    km, vm = mla_cache(gen, 1, PIPE_MAX_SEQ, bf16)
+    qm = torch.randn((1, CHUNK, 8, MLA_DK), generator=gen, device="cuda").to(bf16)
+    for off in MAIN_PATH_OFFSETS:
+        errs["flash"] = max(errs["flash"], family_check(
+            f"flash_attention MLA tp=2 Hq=8 (v from k) T={CHUNK} offset {off} bf16",
+            fa.flash_attention(qm, km, vm, off, mla_scale()),
+            fa.flash_attention_reference(qm, km, vm, off, mla_scale())))
+    qd = torch.randn((1, 1, 8, MLA_DK), generator=gen, device="cuda").to(bf16)
+    pos = torch.tensor([PIPE_PROMPT], dtype=torch.int64, device="cuda")
+    lengths = decode_lengths(pos, 1, PIPE_MAX_SEQ)
+    errs["decode"] = max(errs["decode"], family_check(
+        f"flash_decode MLA tp=2 Hq=8 position {PIPE_PROMPT}",
+        fa.flash_decode(qd, km, vm, pos, mla_scale(), lengths=lengths),
+        fa.flash_decode_reference(qd, km, vm, lengths, mla_scale())))
+    return errs
+
+
+def mesh_quant_points(seed: int) -> list:
+    """Kernels 3 and 4 at the 8B's tp = 2 shard shapes against their plain
+    versions (bit for bit on integer-valued operands, within limits on
+    random bf16), and their device times beside bound and plain version:
+    the decode GEMV at M = 1, the prefill matmul at M = 256."""
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for name, out_dim, in_dim in TP2_SHAPES:
+        for kernel, m in (("quant_gemv", 1), ("quant_matmul", PREFILL_M)):
+            label = f"tp=2 {name} M={m} OUT={out_dim} IN={in_dim}"
+            check_quant(kernel, *quant_operands(gen, m, out_dim, in_dim, integer=True),
+                        GROUP_SIZE, BITS, True, label)
+            x, q, s, b = quant_operands(gen, m, out_dim, in_dim, integer=False)
+            err = check_quant(kernel, x, q, s, b, GROUP_SIZE, BITS, False, label)
+            fn = getattr(qm, kernel)
+            kern = time_ms(lambda: fn(x, q, s, b, GROUP_SIZE, BITS))
+            plain = time_ms(lambda: qm.quant_matmul_reference(x, q, s, b, GROUP_SIZE, BITS))
+            flops, nbytes = quant_work(m, out_dim, in_dim)
+            ops_ms, bytes_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES * 1e3
+            walk = (f"IN split {qm.plan_gemv(out_dim, in_dim, sms) or 'whole'}"
+                    if kernel == "quant_gemv" else
+                    "token tile {}, IN split {}".format(*qm.plan_matmul(m, out_dim, in_dim, sms)))
+            rows.append(dict(kernel=kernel, name=name, m=m, out=out_dim, inp=in_dim, ms=kern,
+                             plain_ms=plain, bound_ms=max(ops_ms, bytes_ms), max_abs_err=err))
+            log(f"[timing] {kernel} {label} ({walk}): kernel {kern:.4f} ms, plain {plain:.4f} "
+                f"ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+                f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
+                f"{max(ops_ms, bytes_ms) / kern:.1%} of it")
+            del x, q, s, b
+    return rows
+
+
+def mesh_expert_points(seed: int) -> list:
+    """The routed GEMV at Mixtral's tp = 2 expert shapes (the intermediate
+    7168 a shard) against its plain version, and its device time."""
+    from mlx_sharding_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    rows = []
+    for name, out_dim, in_dim in TP2_EXPERT_SHAPES:
+        per_pair = name == "down"
+        for integer in (True, False):
+            stack = expert_stack(gen, MIXTRAL_EXPERTS, out_dim, in_dim, integer)
+            x, idx = expert_inputs(gen, 1, in_dim, integer, per_pair)
+            got = qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS)
+            ref = qm.quant_gemv_experts_reference(x, idx, *stack, GROUP_SIZE, BITS)
+            label = f"quant_gemv_experts tp=2 {name} OUT={out_dim} IN={in_dim} N=1"
+            if integer:
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"{label} differs from its plain version")
+                log(f"[kernels] {label} integer-valued: bit-exact True")
+                continue
+            err = family_check(label, got, ref)
+            kern = time_ms(lambda: qm.quant_gemv_experts(x, idx, *stack, GROUP_SIZE, BITS))
+            plain = time_ms(lambda: qm.quant_gemv_experts_reference(x, idx, *stack, GROUP_SIZE,
+                                                                    BITS), iters=5)
+            _, w_bytes = quant_work(0, out_dim, in_dim)
+            nbytes = MIXTRAL_TOP_K * w_bytes + x.numel() * 2 + MIXTRAL_TOP_K * out_dim * 2
+            bound = nbytes / PEAK_BYTES * 1e3
+            rows.append(dict(name=name, ms=kern, plain_ms=plain, bound_ms=bound, max_abs_err=err))
+            log(f"[timing] {label}: kernel {kern:.4f} ms, plain {plain:.4f} ms, bound "
+                f"{bound:.4f} ms (bytes), {bound / kern:.1%} of it")
+            del stack
+    return rows
+
+
+def phase_mesh(model, seed: int, lap) -> tuple:
+    """Phase 17 on the 8B in bf16, every shard on its card: the fused
+    engine's single stream at tp = 1 and 2 (weights held once, decode tok/s,
+    two reductions a layer, the near-tie rule), the gather batcher at tp =
+    1 and 2 over a paged pool with overcommit, a streamed request through
+    the server built as ``--tp 2 --concurrent 4`` builds it, sequence
+    parallelism (a 1,500-token prompt over two sp shards, decoded over the
+    sharded cache, against the sp = 1 Generator), then f32 at 4 layers of
+    the 8B's widths (tp = 2 and sp = 2 token-identical to tp = 1). Returns
+    the launches per kernel and the numbers."""
+    from mlx_sharding_tpu_torch.generate import Generator
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid
+    from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, build_generator
+
+    counts = kernel_counts()
+    launches: dict = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    layers = model.config.num_hidden_layers
+    stats = {}
+    one = mesh_engine_stream("[mesh][tp=1]", model, MESH_TOKENS, counts,
+                             stream_launches(layers, PIPE_PROMPT, MESH_TOKENS,
+                                             MESH_DECODE_BLOCK))
+    two = mesh_engine_stream("[mesh][tp=2]", model, MESH_TOKENS, counts,
+                             stream_launches(MESH_TP * layers, PIPE_PROMPT, MESH_TOKENS,
+                                             MESH_DECODE_BLOCK),
+                             tp=MESH_TP, reference=one)
+    check(two["reductions"] == 2 * layers, f"[mesh][tp=2] {two['reductions']} reductions a "
+          f"step, want {2 * layers}")
+    add(one["launches"])
+    add(two["launches"])
+    stats["stream"] = {"tp1": one, "tp2": two}
+    lap("phase 17, the 8B's single stream at tp = 1 and 2")
+    b1 = mesh_batch("[mesh-batch][tp=1]", model, counts, 1)
+    b2 = mesh_batch("[mesh-batch][tp=2]", model, counts, MESH_TP, want_streams=b1["streams"])
+    add(b1["launches"])
+    add(b2["launches"])
+    stats["batch"] = {"tp1": b1["tok_s"], "tp2": b2["tok_s"]}
+    gen = build_generator("llama-3.1-8b-random", model=model, device=model.device, tp=MESH_TP,
+                          concurrent=4, paged_pool=POOL_PAGES, page_size=PAGE,
+                          max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, overcommit=True,
+                          decode_block=MESH_DECODE_BLOCK)
+    check(gen.engine.tp == MESH_TP and gen.engine.decode_path == "gather",
+          "[mesh-http] the server's engine")
+    counts.reset()
+    with served(ModelProvider(gen, ByteTokenizer(), model_name="llama-3.1-8b-tp2")) as port:
+        status, events, _, t_end = post(port, "/v1/completions", {
+            "prompt": mix_prompt(152, 300), "max_tokens": 32, "stream": True,
+            "logit_bias": {"65": 100.0}}, stream=True)
+    got = counts.read()
+    add(got)
+    text = stream_text(events, chat=False)
+    log(f"[mesh-http] a streamed completion through the server's --tp 2 --concurrent 4 batcher: "
+        f"status {status}, {len(text)} characters in {t_end * 1e3:.1f} ms, launches {got}")
+    check(status == 200 and events[-1] == "[DONE]" and text == "A" * 32,
+          f"[mesh-http] the streamed completion: {status} {text!r}")
+    check(got["flash_attention"] > 0 and got["flash_decode"] > 0, "[mesh-http] launches")
+    gen.close()
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 17, the batcher at tp = 1 and 2 and the server")
+    ids = pipe_ids(MESH_SP_PROMPT)
+    plain = Generator(model, max_seq=MESH_SP_MAX_SEQ, prefill_chunk=CHUNK,
+                      decode_block=MESH_DECODE_BLOCK)
+    plain.warm_up(prefill_upto=len(ids), blocks=((False, True),))
+    want_logits = plain.run_prefill(np.asarray([ids], np.int64)).float()
+    want, want_lps, _ = lp_run(plain, ids, MESH_TOKENS)
+    del plain
+    sp = Generator(model, max_seq=MESH_SP_MAX_SEQ, prefill_chunk=CHUNK,
+                   decode_block=MESH_DECODE_BLOCK,
+                   sp_mesh=device_grid(sp=2, device=model.device), sp_decode=True)
+    graph_line("[mesh-sp]", sp.warm_up(blocks=((False, True),)))
+    t0 = time.perf_counter()
+    logits, ks, vs = sp._sp_prefill.prefill_sharded(np.asarray([ids], np.int64))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    err = rel_l2(logits, want_logits)
+    log(f"[mesh-sp] a {len(ids)}-token prompt over 2 sp shards (padded to "
+        f"{sp._sp_prefill.padded_len(len(ids))}) in {prefill_s * 1e3:.1f} ms; first-step logits "
+        f"against sp = 1: relative L2 {err:.3e} (tol {MESH_LOGITS_REL_L2})")
+    check(err <= MESH_LOGITS_REL_L2, "[mesh-sp] first-step logits disagree with sp = 1's")
+    toks, _, sp_tok_s = lp_run(sp, ids, MESH_TOKENS)
+    shapes = [tuple(k.shape) for k in sp._sp_decode.k]
+    log(f"[mesh-sp] {len(toks)} tokens over the sharded cache ({shapes} a shard) at "
+        f"{sp_tok_s:.2f} tok/s")
+    stats["sp"] = {"prefill_ms": prefill_s * 1e3, "tok_s": sp_tok_s, "logits_rel_l2": err,
+                   "parts_at": near_tie_rule("[mesh-sp]", toks, want, want_lps)}
+    del sp, ks, vs
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 17, sequence parallelism")
+    f32, _ = build_model({**LLAMA_31_8B, "num_hidden_layers": MESH_F32_LAYERS},
+                         dtype=torch.float32)
+    f32.init_params(torch.Generator(device=model.device).manual_seed(seed + 17), model.device)
+    ids = pipe_ids(PIPE_PROMPT)
+    ref = mesh_engine_stream("[mesh-f32][tp=1]", f32, MESH_SHORT_TOKENS, counts, {})
+    tp2 = mesh_engine_stream("[mesh-f32][tp=2]", f32, MESH_SHORT_TOKENS, counts, {},
+                             tp=MESH_TP)
+    check(tp2["tokens"] == ref["tokens"], f"[mesh-f32] tp = 2 parts from tp = 1 at token "
+          f"{first_divergence(tp2['tokens'], ref['tokens'])}")
+    sp_ids = pipe_ids(MESH_F32_SP_PROMPT)
+    plain = Generator(f32, max_seq=MESH_SP_MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)
+    want = [t for t, _ in plain.generate_step(sp_ids, max_tokens=MESH_SHORT_TOKENS)]
+    sp = Generator(f32, max_seq=MESH_SP_MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False,
+                   sp_mesh=device_grid(sp=2, device=f32.device), sp_decode=True)
+    got = [t for t, _ in sp.generate_step(sp_ids, max_tokens=MESH_SHORT_TOKENS)]
+    check(got == want, f"[mesh-f32] sp = 2 parts from sp = 1 at token "
+          f"{first_divergence(got, want)}")
+    log(f"[mesh-f32] {MESH_F32_LAYERS} layers at the 8B's widths in f32: tp = 2 token-identical "
+        f"to tp = 1 over {len(ref['tokens'])} tokens, sp = 2 (sp_decode) to sp = 1 over "
+        f"{len(want)} tokens after a {len(sp_ids)}-token prompt")
+    del f32, plain, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 17, f32 at 4 layers")
+    return launches, stats
+
+
+def mesh_packed(packed) -> dict:
+    """Phase 17's packed run after phase 5: the packed 8B's single stream
+    at tp = 1 and 2, 32 greedy tokens (the fused groups split back: tp > 1
+    takes them apart), kernels 3 and 4 launched once a projection and shard
+    for every chunk and step; the weight bytes held once (the row splits'
+    copies, the wholes dropped)."""
+    from mlx_sharding_tpu_torch.models.base import undo_projection_fusion
+
+    t0 = time.perf_counter()
+    undo_projection_fusion(packed)
+    layers = packed.config.num_hidden_layers
+    block = MESH_DECODE_BLOCK
+    chunks, steps = -(-PIPE_PROMPT // CHUNK), block * -(-(MESH_SHORT_TOKENS - 1) // block)
+    counts = kernel_counts()
+    runs = {}
+    for tp in (1, MESH_TP):
+        want = stream_launches(tp * layers, PIPE_PROMPT, MESH_SHORT_TOKENS, block)
+        # unfused: seven projections a layer and shard, and the head
+        want.update(quant_matmul=7 * tp * layers * chunks,
+                    quant_gemv=(7 * tp * layers + 1) * steps + chunks)
+        if tp == 1:
+            # tp = 1 fuses QKV and gate+up again: five launches a layer
+            want.update(quant_matmul=LAYER_SHAPES * layers * chunks,
+                        quant_gemv=(LAYER_SHAPES * layers + 1) * steps + chunks)
+        runs[tp] = mesh_engine_stream(f"[mesh-4bit][tp={tp}]", packed, MESH_SHORT_TOKENS, counts,
+                                      want, tp=tp, reference=runs.get(1))
+    log(f"[mesh-4bit] phase 17's packed runs took {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def mesh_family(tag: str, model, runs=(("tp", MESH_TP, 1),)) -> dict:
+    """Phase 17's runs of a family model while its phase has it loaded:
+    its single stream at tp = 1 (the reference), then at each (name, tp,
+    ep) of ``runs``, 32 greedy tokens after a one-chunk prompt each, held
+    to the near-tie rule."""
+    t0 = time.perf_counter()
+    counts = kernel_counts()
+    ids = pipe_ids(MESH_FAMILY_PROMPT)
+    out = {"tp1": mesh_engine_stream(f"{tag}[tp=1]", model, MESH_SHORT_TOKENS, counts, {},
+                                     ids=ids)}
+    for name, tp, ep in runs:
+        out[name] = mesh_engine_stream(f"{tag}[tp={tp} ep={ep}]", model, MESH_SHORT_TOKENS,
+                                       counts, {}, ids=ids, tp=tp, ep=ep, reference=out["tp1"])
+        check(all(n > 0 for k, n in out[name]["launches"].items()
+                  if k in ("flash_attention", "flash_decode")), f"{tag} {name} launches")
+    log(f"{tag} phase 17's runs took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 # ------------------------------------------------ the families' kernel paths
@@ -6218,6 +6695,11 @@ FAMILY_PROMPTS = {"qwen3": 600, "gemma2": GEMMA_PROMPT, "mixtral": 600, "deepsee
 FAMILY_MAX_SEQ = {"qwen3": 1024, "gemma2": 18 * CHUNK, "mixtral": 1024,
                   "deepseek_v2": 3 * CHUNK}
 FAMILY_TOKENS = 64
+# the served Generator's decode blocks (the server's --decode-block 8): a
+# capture runs its block's steps eagerly first, so a block of 16 took twice
+# the seconds of one of 8 (5-6.5 s a family on an NVIDIA H100 80GB HBM3,
+# `scripts/smoke_phases.py families`)
+FAMILY_DECODE_BLOCK = 8
 GEMMA_BATCH_PROMPTS = (GEMMA_PROMPT, 600, 1000, 2000)
 FAMILY_BATCH_PROMPTS = {"qwen3": (600, 300, 200, 100), "gemma2": GEMMA_BATCH_PROMPTS,
                         "mixtral": (600, 300, 200, 100), "deepseek_v2": (600, 300, 200, 100)}
@@ -6454,22 +6936,24 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
     chunks and steps, no eager forward; one decode step's device ms; then
     plain greedy decode of the prompt (tokens and near-ties) for the
     batcher's comparison."""
-    from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
-                                                 Generator)
+    from mlx_sharding_tpu_torch.generate import REPETITION_WINDOW, Generator
     from mlx_sharding_tpu_torch.server.openai_api import ModelProvider, make_server
 
     tok = ByteTokenizer()
     n = FAMILY_PROMPTS[key]
-    gen = Generator(model, max_seq=FAMILY_MAX_SEQ[key], prefill_chunk=CHUNK)
-    # the prefill graphs at load; the one decode block served (greedy, no
-    # logprobs) at the warm-up request
-    graph_line(tag, gen.warm_up(decode_blocks=False))
+    block = FAMILY_DECODE_BLOCK
+    gen = Generator(model, max_seq=FAMILY_MAX_SEQ[key], prefill_chunk=CHUNK, decode_block=block)
+    # the prefill graphs and the one decode block served (greedy, no
+    # logprobs) at load: captured on the warm-up request instead, on the
+    # server's thread, a block of 16 steps took 8.8-14.3 s against 5-7 s
+    # here (an NVIDIA H100 80GB HBM3)
+    graph_line(tag, gen.warm_up(blocks=GREEDY_BLOCK))
     server = make_server(ModelProvider(gen, tok, model_name=key), "127.0.0.1", 0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     layers, chunks = cfg.num_hidden_layers, -(-n // CHUNK)
-    steps = DEFAULT_DECODE_BLOCK * -(-(FAMILY_TOKENS - 1) // DEFAULT_DECODE_BLOCK)
+    steps = block * -(-(FAMILY_TOKENS - 1) // block)
     try:
         status, _, _, _ = post(port, "/v1/completions", {"prompt": "warm up", "max_tokens": 2})
         check(status == 200, f"{tag} warm-up request failed: {status}")
@@ -6481,7 +6965,7 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
         check(status == 200 and stream_text(events, chat=False) == "A" * FAMILY_TOKENS,
               f"{tag} streamed completion: status {status}")
         launches = counts.read()
-        served.check(tag, chunks + steps // DEFAULT_DECODE_BLOCK)
+        served.check(tag, chunks + steps // block)
     finally:
         server.shutdown()
         server.server_close()
@@ -6496,8 +6980,8 @@ def family_serve(tag: str, key: str, model, cfg, counts) -> dict:
         f"layers: {want}")
     check(launches == want, f"{tag} a route's launches disagree with the chunks and steps")
     list(gen.generate_step(tok.encode(mix_prompt(0, n)), max_tokens=1))
-    step = step_numbers(lambda: gen.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False,
-                                                 False), calls=2, steps=DEFAULT_DECODE_BLOCK,
+    step = step_numbers(lambda: gen.run_block(block, REPETITION_WINDOW, False, False),
+                        calls=2, steps=block,
                         profiled=1)
     stats["step"] = step
     busy = "not measured" if step["busy"] is None else f"{100 * step['busy']:.1f}%"
@@ -6670,7 +7154,8 @@ def mla_modes_parity(tag: str, config: dict, seed: int, ids: list, compressed) -
     del gen, model
 
 
-def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True, after=None) -> dict:
+def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True, after=None,
+                   after_what: str = "phase 15 at pp = 1 and 2") -> dict:
     """Qwen3-8B, Gemma-2-9B and Mixtral-8x7B (4-bit) at full width (or
     ``runs``), one at a time, each freed before the next: served through the
     Generator's graphs and through the paged batcher, then ``after(name,
@@ -6697,7 +7182,7 @@ def phase_families(seed: int, lap, runs=FAMILY_RUNS, parity=True, after=None) ->
         extra = after(name, model) if after is not None else None
         if extra is not None:
             stats["after"] = extra
-            lap(f"{name}, phase 15 at pp = 1 and 2")
+            lap(f"{name}, {after_what}")
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -7064,10 +7549,15 @@ def mla_records(rows: dict, errs: dict, served: dict) -> list:
     offsets 0, 256, 512), the T=1 route's values_from_k at position 600, and
     kernel 2's values_from_k over the batcher's four slots (mean over the
     bf16 and int8 pools); their launches are phase 9's served runs', dense
-    and packed, and phase 15's at pp = 1 and 2."""
+    and packed, phase 15's at pp = 1 and 2, and phase 17's at tp = 1, tp = 2
+    and ep = 2."""
     runs = list(served.values())
-    # phase 15's runs of the bf16 Lite at pp = 1 and 2
-    pipeline = [r["after"][pp]["launches"] for r in runs if "after" in r for pp in ("pp1", "pp2")]
+    # phase 15's runs of the bf16 Lite at pp = 1 and 2, and phase 17's at
+    # tp = 1, tp = 2 and ep = 2
+    pipeline = [r["after"]["pipeline"][pp]["launches"] for r in runs if "after" in r
+                for pp in ("pp1", "pp2")]
+    pipeline += [run["launches"] for r in runs if "after" in r
+                 for run in r["after"]["mesh"].values()]
 
     def launched(name, batch=True):
         return (sum(r["launches"][name] + (r["batch"]["launches"][name] if batch else 0)
@@ -7114,16 +7604,45 @@ def phase_deepseek(seed: int, lap) -> dict:
     """Phase 9: DeepSeek-Coder-V2-Lite at full width and depth, compressed
     MLA cache, bf16 and packed, through the Generator's graphs behind the
     server and the paged batcher, the bf16 model also through the fused
-    engine at pp = 1 and split 0-14 / 14-27 (phase 15); then f32 at 2
-    layers."""
-    out = phase_families(seed, lap, runs=DSV2_RUNS, parity=False,
-                         after=lambda name, model: pipe_deepseek(model) if "bf16" in name
-                         else None)
+    engine at pp = 1 and split 0-14 / 14-27 (phase 15) and at tp = 2 and ep
+    = 2 (phase 17); then f32 at 2 layers."""
+    def after(name, model):
+        if "bf16" not in name:
+            return None
+        return {"pipeline": pipe_deepseek(model),
+                "mesh": mesh_family("[mesh-deepseek]", model,
+                                    runs=(("tp", MESH_TP, 1), ("ep", 1, 2)))}
+
+    out = phase_families(seed, lap, runs=DSV2_RUNS, parity=False, after=after,
+                         after_what="phase 15 at pp = 1 and 2, phase 17 at tp = 2 and ep = 2")
     gc.collect()
     torch.cuda.empty_cache()
     family_parity("[deepseek_v2]", "deepseek_v2", DSV2_LITE, seed)
     lap("DeepSeek-V2 f32 parity")
     return out
+
+
+def phase_batching_runs(model, seed: int, single_stream_tok_s: float, lap) -> tuple:
+    """Phase 6: ``phase_batching``'s runs, bf16 and int8 pools, plain and
+    speculating, async and sync ticks. Returns kernel 2's launches over
+    them, each pool's unforced greedy request with draft="off", and the
+    bf16 plain run's mix tok/s."""
+    paged_launches = 0
+    greedy = {}  # each pool's unforced greedy request with draft="off"
+    for kv_dtype, draft, sched in (("bf16", "off", "auto"), ("bf16", "ngram", "auto"),
+                                   ("bf16", "ngram", "off"), ("int8", "off", "auto"),
+                                   ("int8", "ngram", "auto")):
+        batch_launches, batch = phase_batching(
+            model, seed, kv_dtype, single_stream_tok_s, draft=draft, async_sched=sched,
+            split=(kv_dtype, draft, sched) == ("bf16", "ngram", "auto"),
+            reference=greedy.get(kv_dtype))
+        if draft == "off":
+            greedy[kv_dtype] = batch["greedy"]
+        if (kv_dtype, draft, sched) == ("bf16", "off", "auto"):
+            single_batch_tok_s = batch["mix_tok_s"]
+        paged_launches += batch_launches["paged_attention"]
+        lap(f"continuous batching, {kv_dtype} pool, draft {draft}, async_sched {sched}")
+    return paged_launches, greedy, single_batch_tok_s
 
 
 def main(argv=None) -> int:
@@ -7166,24 +7685,14 @@ def main(argv=None) -> int:
     decode_rows = phase_decode_timing(args.seed)
     family_rows = phase_family_timing(args.seed)
     mla_rows = phase_mla_timing(args.seed)
+    mesh_err = mesh_attention_checks(args.seed)
+    tp2_rows = mesh_quant_points(args.seed)
+    tp2_expert_rows = mesh_expert_points(args.seed)
     lap("kernel timing")
     launches, single, model = phase_main_path(args.seed)
     lap("main path")
-    paged_launches = 0
-    greedy = {}  # each pool's unforced greedy request with draft="off"
-    for kv_dtype, draft, sched in (("bf16", "off", "auto"), ("bf16", "ngram", "auto"),
-                                   ("bf16", "ngram", "off"), ("int8", "off", "auto"),
-                                   ("int8", "ngram", "auto")):
-        batch_launches, batch = phase_batching(
-            model, args.seed, kv_dtype, single["decode_tok_s"], draft=draft, async_sched=sched,
-            split=(kv_dtype, draft, sched) == ("bf16", "ngram", "auto"),
-            reference=greedy.get(kv_dtype))
-        if draft == "off":
-            greedy[kv_dtype] = batch["greedy"]
-        if (kv_dtype, draft, sched) == ("bf16", "off", "auto"):
-            single_batch_tok_s = batch["mix_tok_s"]
-        paged_launches += batch_launches["paged_attention"]
-        lap(f"continuous batching, {kv_dtype} pool, draft {draft}, async_sched {sched}")
+    paged_launches, greedy, single_batch_tok_s = phase_batching_runs(
+        model, args.seed, single["decode_tok_s"], lap)
     phase_spec_f32(args.seed)
     lap("speculation in f32")
     dense_launches, dense = phase_dense_batching(model, args.seed, single["decode_tok_s"], lap)
@@ -7194,9 +7703,13 @@ def main(argv=None) -> int:
                                       share["mix"]["tok_s"], greedy["bf16"], lap)
     pipe_launches, _ = phase_pipeline(model, args.seed, lap)
     pod_launches, _ = phase_pod(model, lap)
-    quant_launches, _ = phase_main_path_4bit(model, args.seed, lap)
+    mesh_launches, _ = phase_mesh(model, args.seed, lap)
+    quant_launches, quant_stats = phase_main_path_4bit(model, args.seed, lap)
     del model
-    families = phase_families(args.seed, lap)
+    families = phase_families(
+        args.seed, lap, after_what="phase 17 at tp = 2",
+        after=lambda name, m: mesh_family("[mesh-mixtral]", m) if name.startswith("Mixtral")
+        else None)
     deepseek = phase_deepseek(args.seed, lap)
 
     # the kernel record: per-launch means over the main path's chunk offsets
@@ -7212,8 +7725,9 @@ def main(argv=None) -> int:
         "launches": (launches["flash_attention"] + dense_launches["flash_attention"]
                      + surface_launches["flash_attention"] + share_launches["flash_attention"]
                      + disagg_launches["flash_attention"] + pipe_launches["flash_attention"]
-                     + pod_launches["flash_attention"] + quant_launches["flash_attention"]),
-        "max_abs_err": max(max_err, dense["kernels"]["flash_attention"],
+                     + pod_launches["flash_attention"] + quant_launches["flash_attention"]
+                     + mesh_launches["flash_attention"]),
+        "max_abs_err": max(max_err, dense["kernels"]["flash_attention"], mesh_err["flash"],
                            surfaces["unaligned_err"]),
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -7223,7 +7737,8 @@ def main(argv=None) -> int:
     }]}
     for kernel in ("quant_gemv", "quant_matmul"):
         record["kernels"].append(
-            quant_record(quant_rows, kernel, quant_launches[kernel], quant_err[kernel]))
+            quant_record(quant_rows, kernel, quant_launches[kernel], quant_err[kernel],
+                         tp2_rows))
     # the paged decode: means over the bf16 and int8 pools at the mix's
     # first decode step, which phase 6 serves
     mix_rows = [r for r in paged_rows if r["point"] == "mix"]
@@ -7255,8 +7770,8 @@ def main(argv=None) -> int:
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_decode"] + quant_launches["flash_decode"]
                      + dense_launches["flash_decode"] + surface_launches["flash_decode"]
-                     + pipe_launches["flash_decode"]),
-        "max_abs_err": max(decode_err, dense["kernels"]["flash_decode"]),
+                     + pipe_launches["flash_decode"] + mesh_launches["flash_decode"]),
+        "max_abs_err": max(decode_err, dense["kernels"]["flash_decode"], mesh_err["decode"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
@@ -7266,6 +7781,17 @@ def main(argv=None) -> int:
     })
     record["kernels"] += family_records(family_rows, family_err, families)
     record["kernels"] += mla_records(mla_rows, mla_err, deepseek)
+    # phase 17's Mixtral runs (the routed GEMV at tp = 2) and its points
+    experts = next(r for r in record["kernels"] if r["name"] == "quant_gemv_experts")
+    mixtral = families["Mixtral-8x7B 4-bit"]["after"]
+    experts["launches"] += sum(run["launches"]["quant_gemv_experts"] for run in mixtral.values())
+    experts["max_abs_err"] = max([experts["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in tp2_expert_rows])
+    experts["tp2_points"] = [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms")}
+                             for r in tp2_expert_rows]
+    log(f"[mesh] phase 17's launches: 8B bf16 {mesh_launches}; packed "
+        + "; ".join(f"tp={tp} {run['launches']}" for tp, run in quant_stats["mesh"].items())
+        + "; Mixtral " + "; ".join(f"{k} {run['launches']}" for k, run in mixtral.items()))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

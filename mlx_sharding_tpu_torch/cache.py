@@ -32,7 +32,9 @@ A pipeline engine of S > 1 stages keeps one such pool (or set of slot
 caches) per stage, over that stage's layers and on its device
 (:class:`StagedKV`); the stages share the slot offsets and the page table,
 so a request holds the same page ids on every stage. Its page blocks carry
-one payload per stage (:func:`export_pool_pages`).
+one payload per stage (:func:`export_pool_pages`). At tp or ep > 1 a
+stage's KV is one such pool a shard (:class:`ShardedKV`), the same page ids
+again; its page blocks are not exported (slice 9b.3b).
 """
 
 from __future__ import annotations
@@ -199,6 +201,50 @@ class StagedKV:
         return sum(c.nbytes for c in self.stages)
 
 
+@dataclasses.dataclass
+class ShardedKV:
+    """The KV of one stage at tp or ep > 1: one :class:`PagedKV` per shard
+    of the stage (JAX's ``_kv_spec``: a tp shard's pool or slot caches hold
+    its own KV heads, or a whole copy of a head-count independent cache;
+    an ep shard keeps the copy its replicated attention writes), each on
+    its shard's device, all holding the same ``offsets`` list."""
+
+    shards: list
+
+    @property
+    def offsets(self) -> list:
+        return self.shards[0].offsets
+
+    @offsets.setter
+    def offsets(self, value: list) -> None:
+        for c in self.shards:
+            c.offsets = value
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.nbytes for c in self.shards)
+
+
+def sharded(caches: list):
+    """Per-shard caches of one stage made to share the first one's slot
+    offsets (the cache itself for one shard)."""
+    if len(caches) == 1:
+        return caches[0]
+    for c in caches[1:]:
+        c.offsets = caches[0].offsets
+    return ShardedKV(list(caches))
+
+
+def shard_caches(cache) -> list:
+    """The per-shard caches of one stage's cache, or ``[cache]``."""
+    return cache.shards if isinstance(cache, ShardedKV) else [cache]
+
+
+def is_sharded_kv(cache) -> bool:
+    """True when some stage of ``cache`` is split over tp or ep shards."""
+    return any(isinstance(c, ShardedKV) for c in stage_caches(cache))
+
+
 def staged(caches: list) -> StagedKV:
     """Per-stage caches made to share the first one's slot offsets."""
     for c in caches[1:]:
@@ -226,9 +272,10 @@ def pool_device(cache) -> torch.device:
 
 def kv_row_bytes(cache) -> int:
     """K + V bytes of one position over every layer of a pool (every stage
-    of a :class:`StagedKV`), scales included."""
+    of a :class:`StagedKV`, every shard of a :class:`ShardedKV`), scales
+    included."""
     return sum(t.shape[0] * t.shape[-2] * t.shape[-1] * t.element_size()
-               for c in stage_caches(cache) for buf in (c.k, c.v)
+               for st in stage_caches(cache) for c in shard_caches(st) for buf in (c.k, c.v)
                for t in (buf.values() if is_quantized_kv(buf) else (buf,)))
 
 

@@ -1,18 +1,22 @@
-"""CLI text generation (port of ``mlx_sharding_tpu/cli/generate.py`` at tp =
-ep = 1 without sequence parallelism).
+"""CLI text generation (port of ``mlx_sharding_tpu/cli/generate.py``).
 
     python -m mlx_sharding_tpu_torch.cli.generate --model DIR --prompt "..." \
         [--keep-quantized] [--device cpu] [--start-layer A] [--end-layer B] \
         [--num-stages S | --stage-bounds 0-14,14-27 [--engine fused|chained]] \
+        [--tp T] [--ep E] [--sp N [--sp-decode]] \
         [--draft ngram [--spec-window-max W] | --draft-model DIR [--spec-k K]] \
         [--paged-attention auto|ragged|gather] [--async-sched auto] [--kv-dtype bf16] \
         [--no-chat-template]
 
-``--num-stages S`` or ``--stage-bounds`` runs the model as a pipeline of
-stages (``parallel.pipeline.PipelineEngine``; with ``--engine chained`` and
-bounds, ``parallel.chained.load_chained_pipeline``): without ``--device``
-stage s goes on the s-th card, with ``--device cuda:0`` (or ``cpu``) every
-stage on that device.
+``--tp T`` / ``--ep E`` run every stage as T x E shards of the fused
+engine (its single stream), ``--sp N [--sp-decode]`` prefills over N
+sequence shards (and keeps the cache split over them for decode); without
+``--device`` the shards take the first cards, with ``--device cuda:0`` every
+shard sits on that card. ``--num-stages S`` or ``--stage-bounds`` runs the
+model as a pipeline of stages (``parallel.pipeline.PipelineEngine``; with
+``--engine chained`` and bounds, ``parallel.chained.load_chained_pipeline``):
+without ``--device`` stage s goes on the s-th card, with ``--device
+cuda:0`` (or ``cpu``) every stage on that device.
 
 The CLI runs one stream, which ``--paged-attention``, ``--async-sched`` and
 ``--kv-dtype bf16`` leave as it is, as in the JAX CLI (they mirror the
@@ -108,29 +112,36 @@ def main(argv=None):
                         "single-stream CLI allocates dense caches, so only "
                         "'bf16' is valid here")
     parser.add_argument("--no-chat-template", action="store_true")
-    # JAX's flags of the collectives, which come with slice 9b.3
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel width within each pipeline stage (not yet ported)")
+                        help="tensor-parallel width within each pipeline stage (shards on the "
+                        "first cards, or all on --device)")
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert-parallel width within each pipeline stage (not yet ported)")
+                        help="expert-parallel width within each pipeline stage (MoE)")
     parser.add_argument("--sp", type=int, default=None,
-                        help="sequence-parallel prefill over N devices (not yet ported)")
+                        help="sequence-parallel prefill over N shards (ring attention)")
     parser.add_argument("--sp-decode", action="store_true",
-                        help="with --sp: a sequence-sharded KV cache (not yet ported)")
+                        help="with --sp: keep the KV cache sequence-sharded for decode")
     args = parser.parse_args(argv)
-    if args.tp > 1 or args.ep > 1 or args.sp or args.sp_decode:
-        parser.error("--tp, --ep, --sp and --sp-decode are not yet ported (ROADMAP queue 1, "
-                     "slice 9b.3)")
+    # JAX's rules and messages
     if args.engine == "chained" and not args.stage_bounds:
         parser.error("--engine chained requires --stage-bounds")
-    if args.draft_model and (args.stage_bounds or args.num_stages):
+    if (args.tp > 1 or args.ep > 1) and args.engine == "chained":
+        parser.error("--tp/--ep require the fused engine")
+    if args.sp and (args.stage_bounds or args.num_stages or args.tp > 1 or args.ep > 1):
+        parser.error("--sp applies to the single-stage generator only")
+    if args.sp_decode and not (args.sp and args.sp > 1):
+        parser.error("--sp-decode requires --sp N (N > 1)")
+    if args.draft_model and (args.sp or args.stage_bounds or args.num_stages
+                             or args.tp > 1 or args.ep > 1):
         parser.error("--draft-model applies to the single-chip generator")
     if args.draft == "engine" and not args.draft_model:
         parser.error("--draft engine requires --draft-model")
     if args.draft in ("off", "ngram") and args.draft_model:
         parser.error(f"--draft {args.draft} conflicts with --draft-model "
                      "(drop one: 'engine' is the two-model path)")
-    if args.draft == "ngram" and (args.stage_bounds or args.num_stages):
+    if args.draft == "ngram" and (args.sp or args.stage_bounds
+                                  or args.num_stages or args.tp > 1
+                                  or args.ep > 1):
         parser.error("--draft ngram applies to the single-chip generator")
     if args.spec_window_max is not None:
         if args.spec_window_max < 2:
@@ -143,16 +154,18 @@ def main(argv=None):
         parser.error("--kv-dtype int8 requires a paged KV pool; serve with "
                      "--concurrent N --paged-pool P instead")
 
-    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid
 
     bounds = None
     if args.stage_bounds:
         bounds = [tuple(int(x) for x in part.split("-")) for part in args.stage_bounds.split(",")]
     stages = len(bounds) if bounds else (args.num_stages or 1)
+    sp = args.sp if args.sp and args.sp > 1 else 1
     try:
-        device = stage_devices(stages, args.device)[0]
+        grid = device_grid(pp=stages, sp=sp, tp=args.tp, ep=args.ep, device=args.device)
     except (RuntimeError, ValueError) as e:
         parser.error(str(e))
+    device = grid.flat[0]
 
     from mlx_sharding_tpu_torch.loading import load_model
 
@@ -162,19 +175,21 @@ def main(argv=None):
         generator = load_chained_pipeline(args.model, bounds, device=args.device,
                                           max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
                                           keep_quantized=args.keep_quantized)
-    elif stages > 1 or bounds:
+    elif stages > 1 or bounds or args.tp > 1 or args.ep > 1:
         from mlx_sharding_tpu_torch.parallel import PipelineEngine
 
         model, _ = load_model(args.model, args.start_layer, args.end_layer, device=device,
                               keep_quantized=args.keep_quantized)
-        generator = PipelineEngine(model, stages=stages, stage_bounds=bounds,
+        generator = PipelineEngine(model, stages=stages, stage_bounds=bounds, tp=args.tp,
+                                   ep=args.ep,
                                    max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
                                    paged_attention=args.paged_attention, kv_dtype=args.kv_dtype,
                                    device=args.device)
     else:
         generator = _single_chip(args, load_model(args.model, args.start_layer, args.end_layer,
                                                   device=device,
-                                                  keep_quantized=args.keep_quantized)[0], device)
+                                                  keep_quantized=args.keep_quantized)[0], device,
+                                 grid if sp > 1 else None)
     captured = generator.warm_up()  # on a card: every step as a graph
     if captured:
         print(f"captured {captured['graphs']} CUDA graphs in {captured['seconds']:.2f}s, "
@@ -182,9 +197,9 @@ def main(argv=None):
     _generate(args, generator)
 
 
-def _single_chip(args, model, device):
+def _single_chip(args, model, device, sp_mesh=None):
     """The single-chip generator: n-gram or draft-model speculation, or the
-    plain ``Generator``."""
+    plain ``Generator`` (over the ``sp_mesh`` shards with ``--sp``)."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.loading import load_model
 
@@ -199,7 +214,8 @@ def _single_chip(args, model, device):
         draft_model, _ = load_model(args.draft_model, device=device)
         return SpeculativeGenerator(model, draft_model, spec_k=args.spec_k,
                                     max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
-    return Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk)
+    return Generator(model, max_seq=args.max_seq, prefill_chunk=args.prefill_chunk,
+                     sp_mesh=sp_mesh, sp_decode=args.sp_decode)
 
 
 def _generate(args, generator) -> None:

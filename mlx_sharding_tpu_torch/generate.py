@@ -32,8 +32,16 @@
   and the tokens of every decode block the host pulled, less the last
   (the lookahead block's rows hold tokens the host never saw).
 
-Speculative decoding over a Generator lives in ``speculative.py``. The
-sequence-parallel paths come with a later slice.
+- Sequence parallelism (``sp_mesh``, JAX's): a prompt longer than one
+  chunk prefills in one pass over the sp shards (``parallel.sp_prefill``,
+  ring attention), its rows gathered into the Generator's cache, and
+  decode continues as usual; with ``sp_decode`` the cache stays split over
+  the shards for the whole request (``parallel.sp_decode``: every prompt
+  prefills over the shards, and the decode blocks step the sharded cache,
+  captured as graphs on one card). The sp paths keep the projections
+  unfused, as JAX's do.
+
+Speculative decoding over a Generator lives in ``speculative.py``.
 """
 
 from __future__ import annotations
@@ -161,6 +169,8 @@ class Generator:
         prompt_cache: bool = False,
         graph_pool=None,
         weights=None,
+        sp_mesh=None,
+        sp_decode: bool = False,
     ):
         if decode_block < 1:
             raise ValueError(f"decode_block must be >= 1, got {decode_block}")
@@ -169,19 +179,40 @@ class Generator:
         from mlx_sharding_tpu_torch.ops.flash_attention import decode_tables
 
         self.model = model
-        self.fused_projections = apply_projection_fusion(model)
+        self._sp_prefill = self._sp_decode = None
+        if sp_decode and sp_mesh is None:
+            raise ValueError("sp_decode requires sp_mesh")
+        if sp_mesh is not None:
+            from mlx_sharding_tpu_torch.parallel.sp_prefill import SpPrefill, supports_sp_prefill
+
+            if not supports_sp_prefill(model):
+                raise ValueError(
+                    f"{type(model).__name__} does not support sequence-parallel prefill (needs "
+                    "supports_sp = True with the sp_layer/sp_groups hooks, on a full first+last "
+                    "stage)")
+            self._sp_prefill = SpPrefill(model, sp_mesh, prefill_chunk, keep_sharded=sp_decode)
+        self.fused_projections = apply_projection_fusion(model) if sp_mesh is None else []
         self.device = dev = model.device
-        self.max_seq = -(-max_seq // prefill_chunk) * prefill_chunk
+        # a sharded cache's capacity splits evenly over the shards too
+        quantum = prefill_chunk * (self._sp_prefill.size if sp_decode else 1)
+        self.max_seq = -(-max_seq // quantum) * quantum
+        #: the model the steps run: the sharded cache's steps under sp_decode
+        self._step = model
+        if sp_decode:
+            from mlx_sharding_tpu_torch.parallel.sp_decode import SpDecode
+
+            self._sp_decode = self._step = SpDecode(model, sp_mesh, max_seq=self.max_seq,
+                                                    models=self._sp_prefill.models)
         self.prefill_chunk = prefill_chunk
         self.decode_block = decode_block
         self._prompt_cache = bool(prompt_cache)
         self._pc_tokens: Optional[np.ndarray] = None  # the rows the cache holds, by token
         self.last_prefix_hit = 0
-        model.place_constants(dev)
+        self._step.place_constants(dev)
         # the T=1 route's page table over this cache: a host copy, which a
         # captured step must not make
         decode_tables(1, self.max_seq, dev)
-        self.cache = dataclasses.replace(model.make_cache(1, self.max_seq),
+        self.cache = dataclasses.replace(self._step.make_cache(1, self.max_seq),
                                          pos=torch.zeros(1, dtype=torch.int64, device=dev))
         self.sp = stack_sampler_params([make_sampler_params(device="cpu")], device=dev)
         self.rng = torch.Generator(device=dev)
@@ -235,7 +266,7 @@ class Generator:
         recent = self._recent[window]
         tok, outs = self._tok, []
         for _ in range(steps):
-            logits, _ = self.model(tok[:, None], self.cache)
+            logits, _ = self._step(tok[:, None], self.cache)
             self.cache.pos.add_(1)
             tok, logprobs = sample_token_batched(self.rng, logits[:, -1], self.sp, recent,
                                                  sampled=sampled)
@@ -310,7 +341,8 @@ class Generator:
         c = self.prefill_chunk
         self._chunk.zero_()
         self._last.fill_(c - 1)
-        for start in range(0, min(self.max_seq, prefill_upto or self.max_seq), c):
+        chunked = self._sp_decode is None  # under sp_decode every prompt goes over the shards
+        for start in range(0, min(self.max_seq, prefill_upto or self.max_seq) if chunked else 0, c):
             self.run_chunk(start)
         for sampled, want_logprobs in blocks if decode_blocks else ():
             self.run_block(self.decode_block, REPETITION_WINDOW, sampled, want_logprobs)
@@ -358,7 +390,7 @@ class Generator:
             self.last_prefix_hit = self._prefix_hit(prompt[0])
             start = self.last_prefix_hit // self.prefill_chunk * self.prefill_chunk
             self._pc_tokens = None  # the rows are about to change
-        last_logits = self.run_prefill(prompt, start)
+        last_logits = self._prefill(prompt, start)
         tok, logprobs = sample_token_batched(self.rng, last_logits, self.sp, recent,
                                              sampled=sampled)
         recent.copy_(update_recent_tokens(recent, tok))
@@ -368,6 +400,26 @@ class Generator:
             chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
             first_lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
         return int(tok[0]), first_lp, window, sampled
+
+    def _prefill(self, prompt: np.ndarray, start: int) -> torch.Tensor:
+        """The prompt's prefill (JAX's choice): over the sp shards under
+        ``sp_decode``; over them and gathered into the cache for a prompt
+        longer than a chunk with no prefix hit whose padded length fits;
+        else chunked from ``start``. Returns the logits (1, V) at the last
+        position; the cache's offset and device position end at T."""
+        n = prompt.shape[1]
+        spp = self._sp_prefill
+        if self._sp_decode is not None:
+            logits, ks, vs = spp.prefill_sharded(prompt)
+            self._sp_decode.write_prefill(ks, vs)
+        elif (spp is not None and n > self.prefill_chunk and self.last_prefix_hit == 0
+              and spp.padded_len(n) <= self.max_seq):
+            logits = spp(prompt, self.cache.k, self.cache.v)
+        else:
+            return self.run_prefill(prompt, start)
+        self.cache = dataclasses.replace(self.cache, offset=n)
+        self.cache.pos.fill_(n)
+        return logits
 
     def _prefix_hit(self, prompt: np.ndarray) -> int:
         """JAX's prompt-cache hit for ``prompt`` (T,): the longest common

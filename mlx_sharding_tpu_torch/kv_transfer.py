@@ -87,6 +87,7 @@ from mlx_sharding_tpu_torch.cache import (
     StagedKV,
     export_pool_pages,
     import_pool_pages,
+    is_sharded_kv,
     pool_device,
     stage_caches,
     stage_layers,
@@ -100,6 +101,7 @@ from mlx_sharding_tpu_torch.kv_compress import (
     tree_map,
     tree_structure,
 )
+from mlx_sharding_tpu_torch.parallel.mesh import DEFER_KV
 from mlx_sharding_tpu_torch.testing.faults import inject
 from mlx_sharding_tpu_torch.utils.locks import make_lock
 
@@ -564,6 +566,8 @@ def export_block(cache, page_ids, *, page_size: int, n_tokens: int, prompt, hist
     :class:`cache.StagedKV` gives a staged block: each stage's gather on
     its device's current stream, an event recorded there after it. Fault
     site ``cache.export`` fires before any device work."""
+    if is_sharded_kv(cache):
+        raise NotImplementedError(DEFER_KV)
     inject("cache.export", n_pages=len(page_ids), n_tokens=n_tokens)
     devices = [pool_device(c) for c in stage_caches(cache)]
     ids = upload(np.asarray(list(page_ids), np.int64), devices[0])
@@ -637,6 +641,8 @@ def import_block(cache, block: KVPageBlock, page_ids, *, share_hash=None, codec=
     ``codec``) and raises on any problem, so the caller releases the pages
     and re-prefills. A compressed block is rebuilt here unless a prefetch
     staged its rebuild. Fault sites ``cache.import`` / ``cache.compress``."""
+    if is_sharded_kv(cache):
+        raise NotImplementedError(DEFER_KV)
     inject("cache.import", n_pages=len(page_ids), n_tokens=block.n_tokens)
     block.verify(recheck=False)
     if block.share_hash != share_hash:

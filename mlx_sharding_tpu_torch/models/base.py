@@ -22,6 +22,7 @@ from torch import nn
 from mlx_sharding_tpu_torch.cache import KVCache, init_cache
 from mlx_sharding_tpu_torch.ops.quant import dequantize, fuse_packed, is_quantized
 from mlx_sharding_tpu_torch.ops.quant import linear as quant_linear
+from mlx_sharding_tpu_torch.parallel.mesh import run_local
 
 
 class QuantizedLinear(nn.Module):
@@ -87,14 +88,43 @@ def apply_projection_fusion(model) -> list[str]:
             triple = fuse_packed([m.packed for m in mods])
             biases = [m.bias for m in mods]
             bias = None if any(b is None for b in biases) else torch.cat(biases)
-            setattr(layer, fname, QuantizedLinear(triple["q"], triple["scales"],
-                                                  triple["biases"], mods[0].group_size,
-                                                  mods[0].bits, bias))
+            group = QuantizedLinear(triple["q"], triple["scales"], triple["biases"],
+                                    mods[0].group_size, mods[0].bits, bias)
+            group.parts = tuple((p, m.q.shape[-2]) for p, m in zip(parts, mods))
+            setattr(layer, fname, group)
             for p in parts:
                 delattr(layer, p)
             if fname not in fused:
                 fused.append(fname)
     return fused
+
+
+def undo_projection_fusion(model) -> list[str]:
+    """Split every fused group of :func:`apply_projection_fusion` back into
+    its projections, IN PLACE: each a view of its rows of the fused
+    triple, so nothing is copied. A tp placement wants them apart (JAX
+    fuses only at tp = 1, on its own copy of the tree). Returns the fused
+    names split."""
+    split = []
+    for layer in getattr(model, "layers", []):
+        for fname in model.fused_projection_groups():
+            group = getattr(layer, fname, None)
+            if group is None:
+                continue
+            if not hasattr(group, "parts"):
+                raise ValueError(f"{fname} was loaded fused: its members' rows are unknown, so "
+                                 "it cannot be split")
+            at = 0
+            for name, rows in group.parts:
+                part = {leaf: t.narrow(-2, at, rows) for leaf, t in group.packed.items()}
+                bias = None if group.bias is None else group.bias.narrow(0, at, rows)
+                setattr(layer, name, QuantizedLinear(part["q"], part["scales"], part["biases"],
+                                                     group.group_size, group.bits, bias))
+                at += rows
+            delattr(layer, fname)
+            if fname not in split:
+                split.append(fname)
+    return split
 
 
 class BaseModel(nn.Module):
@@ -107,6 +137,8 @@ class BaseModel(nn.Module):
 
     #: projections may stay packed (``loading.load_model(keep_quantized=True)``)
     supports_packed = False
+    #: wired for the sequence-parallel paths (the ``sp_layer`` hook pair)
+    supports_sp = False
 
     def __init__(self, config, dtype=torch.bfloat16):
         super().__init__()
@@ -136,6 +168,36 @@ class BaseModel(nn.Module):
         ``(h, k_new, v_new)``."""
         q, k, v = self.layer_attn_inputs(p, h, offset)
         return self.layer_finish(p, h, attn_fn(q, k, v, **self.attn_options(p))), k, v
+
+    def layer_finish(self, p, h, attn):
+        """The layer after its attention, on one device: the shard program
+        :meth:`finish_steps` with no mesh axis."""
+        return run_local(self.finish_steps(p, h, attn))
+
+    def finish_steps(self, p, h, attn, tp_axis=None, ep_axis=None):
+        """The layer after its attention as one shard's program (a
+        generator, ``parallel.mesh``): JAX's ``layer_finish(p, h, attn,
+        tp_axis, ep_axis)``, its psums written ``yield from reduce(x,
+        axis)``. ``tp_axis`` / ``ep_axis``: the shard's ``ShardAxis`` of
+        the tensor- and expert-parallel axes, or None."""
+        raise NotImplementedError
+
+    # -- tensor and expert parallelism (JAX's hooks, JAX's orientation:
+    # dims counted after the stacked-L axis, dense weights (in, out))
+    def tp_layer_axes(self) -> dict:
+        """{layer param name: per-layer dim sharded over tp, or None};
+        empty: no tensor-parallel wiring, and engines reject tp > 1."""
+        return {}
+
+    def ep_layer_axes(self) -> dict:
+        """As :meth:`tp_layer_axes` for the expert-parallel axis."""
+        return {}
+
+    def cache_tp_replicated(self) -> bool:
+        """True when the KV cache is head-count independent and every tp
+        shard keeps a whole copy (MLA's compressed latent) rather than its
+        heads."""
+        return False
 
     def attn_options(self, p) -> dict:
         """The attention options of layer ``p``: ``logit_softcap`` and

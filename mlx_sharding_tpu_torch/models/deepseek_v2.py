@@ -43,6 +43,7 @@ from mlx_sharding_tpu_torch.models.mixtral import ExpertStack
 from mlx_sharding_tpu_torch.ops import causal_attention, rms_norm
 from mlx_sharding_tpu_torch.ops.attention import _product_f32
 from mlx_sharding_tpu_torch.ops.moe import apply_experts, deepseek_routing
+from mlx_sharding_tpu_torch.parallel.mesh import reduce
 from mlx_sharding_tpu_torch.ops.rope import (apply_rope_interleaved, rope_frequencies,
                                              yarn_frequencies, yarn_get_mscale)
 
@@ -180,9 +181,11 @@ class DeepseekV2Model(LlamaModel):
 
     # ------------------------------------------------------------------
     def _kv_b(self, p):
-        """kv_b's dense weight as (H, nope + v, rank)."""
+        """kv_b's dense weight as (H, nope + v, rank); a tp shard's H is
+        its own heads."""
         cfg = self.config
-        return p.kv_b_proj.weight.view(cfg.num_attention_heads, -1, cfg.kv_lora_rank)
+        return p.kv_b_proj.weight.view(-1, cfg.qk_nope_head_dim + cfg.v_head_dim,
+                                        cfg.kv_lora_rank)
 
     def layer_attn_inputs(self, p: DeepseekV2Layer, h, offset):
         """``(q, k_new, v_new)`` at positions ``offset .. offset+T``. Compressed:
@@ -221,9 +224,13 @@ class DeepseekV2Model(LlamaModel):
         k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:-1], rope_d)], dim=-1)
         return torch.cat([q_nope, q_pe], dim=-1), k, v
 
-    def layer_finish(self, p: DeepseekV2Layer, h, attn):
+    def finish_steps(self, p: DeepseekV2Layer, h, attn, tp_axis=None, ep_axis=None):
         """Compressed mode's latent output through kv_b's value half, the O
-        projection with its residual, then the dense or routed MLP."""
+        projection with its residual (summed over tp: its heads are
+        split), then the dense or routed MLP. Under tp alone the routed and
+        shared experts are both partial and take one sum over tp; under tp
+        x ep the routed sum is made whole over ep inside the experts and
+        only the shared experts' is summed over tp."""
         cfg = self.config
         b, t, hidden = h.shape
         if self.compressed:
@@ -232,10 +239,11 @@ class DeepseekV2Model(LlamaModel):
             out = _product_f32(attn.permute(2, 0, 1, 3).reshape(heads, b * t, rank),
                                w_bv.transpose(1, 2))
             attn = out.to(h.dtype).view(heads, b, t, -1).permute(1, 2, 0, 3)
-        h = h + self._linear(attn.reshape(b, t, -1), p.o_proj)
+        h = h + (yield from reduce(self._linear(attn.reshape(b, t, -1), p.o_proj), tp_axis))
         r = rms_norm(h, p.post_norm, cfg.rms_norm_eps)
         if not p.moe:
-            return h + self._swiglu(r, p.gate_proj, p.up_proj, p.down_proj)
+            return h + (yield from reduce(self._swiglu(r, p.gate_proj, p.up_proj, p.down_proj),
+                                          tp_axis))
         flat = r.reshape(b * t, hidden)
         weights, idx = deepseek_routing(
             flat, p.router.weight, cfg.num_experts_per_tok, norm_topk_prob=cfg.norm_topk_prob,
@@ -248,9 +256,54 @@ class DeepseekV2Model(LlamaModel):
         q = getattr(cfg, "quantization", None) or {}
         routed = apply_experts(flat, weights, idx, stack(p.w_gate), stack(p.w_up),
                                stack(p.w_down), int(q.get("group_size", 64)),
-                               int(q.get("bits", 4)))
+                               int(q.get("bits", 4)), ep_axis=ep_axis)
+        if ep_axis is not None:
+            routed = yield from routed
         shared = self._swiglu(flat, p.shared_gate, p.shared_up, p.shared_down)
-        return h + (routed + shared).reshape(b, t, hidden)
+        if tp_axis is None:
+            combined = routed + shared
+        elif ep_axis is None:
+            combined = yield from reduce(routed + shared, tp_axis)
+        else:
+            combined = routed + (yield from reduce(shared, tp_axis))
+        return h + combined.reshape(b, t, hidden)
+
+    def cache_tp_replicated(self) -> bool:
+        # the compressed cache holds one latent "head" computed from
+        # replicated projections: every tp shard keeps a whole copy
+        return self.compressed
+
+    def layer_group(self, p) -> str:
+        """The JAX layer group of layer ``p``: ``"moe"`` or ``"dense"``."""
+        return "moe" if p.moe else "dense"
+
+    def ep_layer_axes(self) -> dict:
+        """Only the moe group's routed stacks split over ep."""
+        return {"moe": {"w_gate": 0, "w_up": 0, "w_down": 0}}
+
+    def tp_layer_axes(self) -> dict:
+        """Per group: the per-head projections (q or q_b, kv_b) column-
+        parallel, o_proj row-parallel, the latent path and the router
+        replicated; the routed stacks split their intermediate dim (over ep
+        instead under tp x ep), the shared experts as a dense MLP."""
+        cfg = self.config
+        attn = {
+            "input_norm": None, "post_norm": None,
+            "kv_a_proj": None, "kv_a_norm": None,
+            "kv_b_proj": 1, "o_proj": 0,
+        }
+        if cfg.q_lora_rank is None:
+            attn["q_proj"] = 1
+        else:
+            attn.update({"q_a_proj": None, "q_a_norm": None, "q_b_proj": 1})
+        fk = min(max(cfg.first_k_dense_replace, 0), cfg.num_hidden_layers)
+        out = {}
+        if fk > 0:
+            out["dense"] = {**attn, "gate_proj": 1, "up_proj": 1, "down_proj": 0}
+        if fk < cfg.num_hidden_layers:
+            out["moe"] = {**attn, "router": None, "shared_gate": 1, "shared_up": 1,
+                          "shared_down": 0, "w_gate": 2, "w_up": 2, "w_down": 1}
+        return out
 
     def _swiglu(self, r, gate, up, down):
         return self._linear(F.silu(self._linear(r, gate)) * self._linear(r, up), down)

@@ -21,6 +21,7 @@ from torch import nn
 
 from mlx_sharding_tpu_torch.models.llama import LlamaLayer, LlamaModel
 from mlx_sharding_tpu_torch.ops import rms_norm
+from mlx_sharding_tpu_torch.parallel.mesh import reduce
 
 
 class Gemma2Layer(LlamaLayer):
@@ -58,21 +59,32 @@ class Gemma2Model(LlamaModel):
         return {"logit_softcap": cfg.attn_logit_softcapping or None,
                 "sliding_window": cfg.sliding_window if p.layer_idx % 2 == 0 else None}
 
-    def layer_finish(self, p, h, attn):
+    def finish_steps(self, p, h, attn, tp_axis=None, ep_axis=None):
         """The O projection into the post-attention norm (sandwich norms),
-        then GeGLU into the post-feed-forward norm, each with its residual."""
+        then GeGLU into the post-feed-forward norm, each with its residual.
+        The norms are nonlinear: under tp the partial products are summed
+        before them."""
         b, t, _ = h.shape
         eps = self.config.rms_norm_eps
-        attn_out = self._linear(attn.reshape(b, t, -1), p.o_proj)
+        attn_out = yield from reduce(self._linear(attn.reshape(b, t, -1), p.o_proj), tp_axis)
         h = h + rms_norm(attn_out, p.post_attn_norm, eps, offset=1.0)
         r = rms_norm(h, p.pre_ffw_norm, eps, offset=1.0)
-        if hasattr(p, "gate_up_proj"):  # fused packed gate+up
+        if hasattr(p, "gate_up_proj"):  # fused packed gate+up (tp = 1 only)
             gate, up = torch.split(self._linear(r, p.gate_up_proj),
                                    self.config.intermediate_size, dim=-1)
         else:
             gate, up = self._linear(r, p.gate_proj), self._linear(r, p.up_proj)
-        ff = self._linear(F.gelu(gate, approximate="tanh") * up, p.down_proj)
+        ff = yield from reduce(self._linear(F.gelu(gate, approximate="tanh") * up, p.down_proj),
+                               tp_axis)
         return h + rms_norm(ff, p.post_ffw_norm, eps, offset=1.0)
+
+    def tp_layer_axes(self) -> dict:
+        return {
+            "input_norm": None, "post_attn_norm": None, "pre_ffw_norm": None,
+            "post_ffw_norm": None, "layer_idx": None,
+            "q_proj": 1, "k_proj": 1, "v_proj": 1, "o_proj": 0,
+            "gate_proj": 1, "up_proj": 1, "down_proj": 0,
+        }
 
     def embed_transform(self, h: torch.Tensor) -> torch.Tensor:
         # sqrt(hidden) rounded to the activations' dtype first, as JAX's

@@ -23,6 +23,7 @@ from mlx_sharding_tpu_torch.models.base import BaseModel
 from mlx_sharding_tpu_torch.ops import apply_rope, causal_attention, rms_norm, rope_frequencies
 from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
 from mlx_sharding_tpu_torch.ops.flash_attention import decode_lengths
+from mlx_sharding_tpu_torch.parallel.mesh import reduce
 
 
 class LlamaLayer(nn.Module):
@@ -56,6 +57,8 @@ class LlamaLayer(nn.Module):
 class LlamaModel(BaseModel):
     # projections may stay packed (loading.load_model(keep_quantized=True))
     supports_packed = True
+    # the sequence-parallel paths run over the sp_layer hooks (every family)
+    supports_sp = True
     #: the module of one decoder layer
     LAYER = LlamaLayer
     #: RMSNorm's weight offset (Gemma-2 scales by 1 + w)
@@ -130,17 +133,32 @@ class LlamaModel(BaseModel):
         (Qwen3's RMSNorms); none in Llama."""
         return q, k
 
-    def layer_finish(self, p: LlamaLayer, h, attn):
-        """Output projection and the SwiGLU MLP, each with its residual."""
+    def finish_steps(self, p: LlamaLayer, h, attn, tp_axis=None, ep_axis=None):
+        """Output projection and the SwiGLU MLP, each with its residual.
+        Under tp the O and down projections contract over sharded dims, so
+        their partial products are summed over ``tp_axis``: two reductions
+        a layer (Megatron's column/row split)."""
         b, t, _ = h.shape
-        h = h + self._linear(attn.reshape(b, t, -1), p.o_proj)
+        h = h + (yield from reduce(self._linear(attn.reshape(b, t, -1), p.o_proj), tp_axis))
         r = rms_norm(h, p.post_norm, self.config.rms_norm_eps)
-        if hasattr(p, "gate_up_proj"):  # fused packed gate+up
+        if hasattr(p, "gate_up_proj"):  # fused packed gate+up (tp = 1 only)
             gate, up = torch.split(self._linear(r, p.gate_up_proj),
                                    self.config.intermediate_size, dim=-1)
         else:
             gate, up = self._linear(r, p.gate_proj), self._linear(r, p.up_proj)
-        return h + self._linear(F.silu(gate) * up, p.down_proj)
+        return h + (yield from reduce(self._linear(F.silu(gate) * up, p.down_proj), tp_axis))
+
+    def tp_layer_axes(self) -> dict:
+        """Column-parallel QKV/gate/up (output dim), row-parallel O/down
+        (contracting dim), norms replicated; JAX's map, its orientation."""
+        axes = {
+            "input_norm": None, "post_norm": None,
+            "q_proj": 1, "k_proj": 1, "v_proj": 1, "o_proj": 0,
+            "gate_proj": 1, "up_proj": 1, "down_proj": 0,
+        }
+        if getattr(self.config, "attention_bias", False):
+            axes.update({"q_bias": 0, "k_bias": 0, "v_bias": 0})
+        return axes
 
     def _layer(self, p: LlamaLayer, h, k_buf, v_buf, offset: int, pos, lengths=None):
         """``offset`` is the host position (the flash kernel's); ``pos`` the

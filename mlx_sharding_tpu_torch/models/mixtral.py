@@ -20,6 +20,7 @@ from mlx_sharding_tpu_torch.models.base import QuantizedLinear
 from mlx_sharding_tpu_torch.models.llama import LlamaLayer, LlamaModel
 from mlx_sharding_tpu_torch.ops import rms_norm
 from mlx_sharding_tpu_torch.ops.moe import apply_experts, mixtral_routing
+from mlx_sharding_tpu_torch.parallel.mesh import reduce
 
 
 class ExpertStack(nn.Module):
@@ -60,11 +61,15 @@ class MixtralModel(LlamaModel):
         window = self.config.sliding_window
         return {"sliding_window": window} if window else {}
 
-    def layer_finish(self, p, h, attn):
-        """The O projection with its residual, then the routed experts."""
+    def finish_steps(self, p, h, attn, tp_axis=None, ep_axis=None):
+        """The O projection with its residual, then the routed experts.
+        Under tp alone the experts' intermediate dim is split, so their
+        down products are partial and summed over tp; under tp x ep the
+        stacks are split over ep instead and the experts' own psum over ep
+        makes them whole."""
         cfg = self.config
         b, t, hidden = h.shape
-        h = h + self._linear(attn.reshape(b, t, -1), p.o_proj)
+        h = h + (yield from reduce(self._linear(attn.reshape(b, t, -1), p.o_proj), tp_axis))
         flat = rms_norm(h, p.post_norm, cfg.rms_norm_eps).reshape(b * t, hidden)
         weights, idx = mixtral_routing(flat, p.router.weight, cfg.num_experts_per_tok)
 
@@ -73,8 +78,26 @@ class MixtralModel(LlamaModel):
 
         q = getattr(cfg, "quantization", None) or {}
         moe = apply_experts(flat, weights, idx, stack(p.w_gate), stack(p.w_up), stack(p.w_down),
-                            int(q.get("group_size", 64)), int(q.get("bits", 4)))
+                            int(q.get("group_size", 64)), int(q.get("bits", 4)), ep_axis=ep_axis)
+        if ep_axis is not None:
+            moe = yield from moe
+        elif tp_axis is not None:
+            moe = yield from reduce(moe, tp_axis)
         return h + moe.reshape(b, t, hidden)
+
+    def ep_layer_axes(self) -> dict:
+        """The expert stacks split their leading (E) dim over ep."""
+        return {"w_gate": 0, "w_up": 0, "w_down": 0}
+
+    def tp_layer_axes(self) -> dict:
+        """Megatron's split of the attention (whole heads a shard); the
+        expert stacks split their intermediate dim, the router replicates."""
+        return {
+            "input_norm": None, "post_norm": None,
+            "q_proj": 1, "k_proj": 1, "v_proj": 1, "o_proj": 0,
+            "router": None,
+            "w_gate": 2, "w_up": 2, "w_down": 1,
+        }
 
     def map_weights(self, weights: dict) -> dict:
         """Llama's names, and each layer's per-expert tensors stacked on a

@@ -30,6 +30,10 @@ class Qwen3Model(LlamaModel):
         "self_attn.k_norm.weight": "k_norm",
     }
 
+    def tp_layer_axes(self) -> dict:
+        # q/k norms are (head_dim,): shared across heads, replicated over tp
+        return {**super().tp_layer_axes(), "q_norm": None, "k_norm": None}
+
     def head_norms(self, p, q, k):
         eps = self.config.rms_norm_eps
         return rms_norm(q, p.q_norm, eps), rms_norm(k, p.k_norm, eps)

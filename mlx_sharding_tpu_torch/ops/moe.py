@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from mlx_sharding_tpu_torch.ops.quant import is_quantized, linear
 from mlx_sharding_tpu_torch.ops.quant_matmul import quant_gemv_experts
+from mlx_sharding_tpu_torch.parallel.mesh import reduce
 
 GATHER_PATH_MAX_TOKENS = 16
 
@@ -75,14 +76,29 @@ def deepseek_routing(x: torch.Tensor, router: torch.Tensor, k: int, *, norm_topk
 
 
 def apply_experts(x, weights, idx, w_gate, w_up, w_down, group_size: int = 64,
-                  bits: int = 4) -> torch.Tensor:
+                  bits: int = 4, ep_axis=None) -> torch.Tensor:
     """SwiGLU experts: x (N, H), routing ``weights`` and ``idx`` (N, K).
-    Returns (N, H) in x's dtype."""
+    Returns (N, H) in x's dtype.
+
+    ``ep_axis`` (a ``parallel.mesh.ShardAxis``, inside a shard program):
+    the stacks hold this shard's E/ep experts, whose global ids start at
+    ``index * E_local``; the routing is every shard's. Each shard scans its
+    own experts over every token (``idx - base``; no gather path, as in
+    JAX) and one psum over ep combines them: the result is then a program
+    to ``yield from``."""
+    if ep_axis is not None:
+        return _apply_ep(x, weights, idx, w_gate, w_up, w_down, group_size, bits, ep_axis)
     if x.shape[0] <= GATHER_PATH_MAX_TOKENS:
         if is_quantized(w_gate):
             return _apply_gather_packed(x, weights, idx, w_gate, w_up, w_down, group_size, bits)
         return _apply_gather(x, weights, idx, w_gate, w_up, w_down)
     return _apply_scan(x, weights, idx, w_gate, w_up, w_down, group_size, bits)
+
+
+def _apply_ep(x, weights, idx, w_gate, w_up, w_down, gs, bits, ep_axis):
+    e_local = (w_gate["q"] if is_quantized(w_gate) else w_gate).shape[0]
+    acc = _apply_scan(x, weights, idx - ep_axis.index * e_local, w_gate, w_up, w_down, gs, bits)
+    return (yield from reduce(acc, ep_axis))
 
 
 def _combine(y: torch.Tensor, weights: torch.Tensor, dtype) -> torch.Tensor:

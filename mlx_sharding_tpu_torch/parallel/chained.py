@@ -30,12 +30,11 @@ import torch
 from mlx_sharding_tpu_torch.cache import KVCache
 from mlx_sharding_tpu_torch.generate import DEFAULT_PREFILL_CHUNK
 from mlx_sharding_tpu_torch.graphs import StageGraphs
-from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
+from mlx_sharding_tpu_torch.parallel.mesh import hop, stage_devices
 from mlx_sharding_tpu_torch.parallel.pipeline import (
     StagedGenerator,
     StageStack,
     check_stage_bounds,
-    hop,
     stage_model,
 )
 

@@ -1,5 +1,5 @@
 """The pipeline engine (port of
-``mlx_sharding_tpu/parallel/pipeline.py::PipelineEngine`` at tp = ep = 1):
+``mlx_sharding_tpu/parallel/pipeline.py::PipelineEngine``):
 M slots of one model split into S pipeline stages, each slot with its own KV
 offset, over a shared pool of KV pages (``pool_pages``) or over M+1 dense
 slot caches (no pool, JAX ``init_cache``; slot M is the scratch every
@@ -115,7 +115,22 @@ over dense slot caches of the stream's own (M = 1 serves one request), and
 the stream is slot 0's; chunked prefill and decode blocks are captured as
 at pp = 1 (:meth:`PipelineEngine.warm_up`).
 
-Tensor and expert parallelism are not yet ported: they raise.
+Tensor and expert parallelism (``tp`` / ``ep``, JAX's mesh axes): every
+stage runs as tp x ep shards, shard r = e * tp + t on the device grid's cell
+(s, 0, e, t) (``parallel.mesh.device_grid``), each with its own layer
+modules (:func:`place_weights`, ``parallel.tp.shard_layer``: column- and
+row-parallel slices, expert stacks split over ep) and its own pool or slot
+caches (``cache.ShardedKV``: its KV heads, or a whole copy of a head-count
+independent cache). The loop over the shards runs inside each layer
+(:meth:`PipelineEngine._layer_step`): every shard's attention and its part
+of the layer up to a reduction, then the reduction in process
+(``parallel.mesh.run_shards``), twice a layer under tp; the hidden state
+after it is shard 0's. On one device a whole step is still one CUDA graph.
+Fusion stays off, the decode path is ``gather`` or ``dense`` (ragged needs
+tp = ep = 1, as in JAX), and what JAX accepts there and this port defers
+(page-block moves, speculation, share and compression maps) raises naming
+slice 9b.3b. Shards of a stage on distinct devices run eagerly: one graph
+cannot hold a program over two cards.
 """
 
 from __future__ import annotations
@@ -134,6 +149,8 @@ from torch import nn
 from mlx_sharding_tpu_torch.cache import (
     KVCache,
     PagedKV,
+    shard_caches,
+    sharded,
     stage_caches,
     staged,
     dequantize_kv,
@@ -153,14 +170,22 @@ from mlx_sharding_tpu_torch.cache import (
 from mlx_sharding_tpu_torch.device import upload_into
 from mlx_sharding_tpu_torch.generate import BLOCK_KINDS, DEFAULT_DECODE_BLOCK, Generator
 from mlx_sharding_tpu_torch.graphs import StageGraphs, note_eager_forward
-from mlx_sharding_tpu_torch.models.base import apply_projection_fusion
+from mlx_sharding_tpu_torch.models.base import apply_projection_fusion, undo_projection_fusion
 from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
 from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
-from mlx_sharding_tpu_torch.parallel.mesh import same_mesh_devices, stage_devices
+from mlx_sharding_tpu_torch.parallel.mesh import (
+    DEFER_KV,
+    ShardAxis,
+    device_grid,
+    hop,
+    run_shards,
+    same_mesh_devices,
+)
+from mlx_sharding_tpu_torch.parallel.tp import drop_whole, layer_axes, merge_axes, shard_layer
 from mlx_sharding_tpu_torch.sample import draw, sample_token_batched, update_recent_tokens
 from mlx_sharding_tpu_torch.speculative import dist_logits, verify_round
-from mlx_sharding_tpu_torch.weights import ResidentWeights, model_weight_bytes
+from mlx_sharding_tpu_torch.weights import ResidentWeights, model_weight_bytes, tree_weight_bytes
 
 
 def balanced_stage_bounds(num_layers: int, num_stages: int) -> list[tuple[int, int]]:
@@ -201,19 +226,6 @@ def resolve_stage_bounds(num_layers: int, stages: Optional[int] = None,
     return check_stage_bounds(stage_bounds, num_layers)
 
 
-def hop(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """The hidden state (or logits) handed to ``device``: the receiving
-    stream waits on an event of the sending one, then the copy is enqueued
-    without a host wait. ``x`` itself when it is there already."""
-    if x.device == device:
-        return x
-    if x.is_cuda and device.type == "cuda":
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(x.device))
-        torch.cuda.current_stream(device).wait_event(done)
-    return x.to(device, non_blocking=True)
-
-
 def stage_model(model, start: int, end: int):
     """The stage ``[start, end)`` of a loaded full model, holding the
     model's own tensors: its layers ``start .. end`` (the same modules), the
@@ -241,26 +253,84 @@ def _head_module(model):
     return model.embed_tokens if model.head_is_tied() else model.lm_head
 
 
-def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None,
-                  device=None) -> ResidentWeights:
-    """Place a loaded full model for an S-stage engine (JAX
-    ``place_weights``) and return its :class:`ResidentWeights`, which
-    carries the split and each stage's device. On one device nothing moves:
-    the stages are slices of the model's layer list. On distinct devices
-    each stage's layers move to its device, and the final norm and the head
-    to the head table's (the last stage's; stage 0's for a tied embedding,
-    whose one table serves both ends)."""
+def check_mesh_model(model, tp: int, ep: int) -> None:
+    """JAX's checks of a model for tp / ep > 1: the wiring, and tp
+    dividing the KV heads unless the cache is head-count independent."""
+    if tp > 1:
+        if not model.tp_layer_axes():
+            raise ValueError(f"tensor parallelism is not wired for {type(model).__name__}")
+        if not model.cache_tp_replicated() and model.cache_num_heads() % tp:
+            raise ValueError(f"tp={tp} must divide the {model.cache_num_heads()} KV heads")
+    if ep > 1 and not model.ep_layer_axes():
+        raise ValueError(f"expert parallelism is not wired for {type(model).__name__}")
+
+
+def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp: int = 1,
+                  ep: int = 1, device=None) -> ResidentWeights:
+    """Place a loaded full model for an S-stage engine at ``tp`` x ``ep``
+    (JAX ``place_weights``) and return its :class:`ResidentWeights`, which
+    carries the split, the device grid and each shard's layers. On one
+    device nothing moves: the stages are slices of the model's layer list.
+    On distinct devices each stage's layers move to its first shard's
+    device, and the final norm and the head to the head table's (the last
+    stage's; stage 0's for a tied embedding, whose one table serves both
+    ends); the embedding and the head replicate over tp and ep, used on
+    the first shard only. At tp or ep > 1 every shard of every stage gets
+    its own layer modules (``parallel.tp.shard_layer``: views of the
+    model's tensors, or contiguous copies of packed slices, whose whole
+    tensor is then dropped layer by layer)."""
     cfg = model.config
     bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
-    devices = stage_devices(len(bounds), device)
+    grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device)
+    devices = list(grid[:, 0, 0, 0])
     if len(set(devices)) > 1:
         for (a, b), dev in zip(bounds, devices):
             model.layers[a:b].to(dev)
         head_dev = devices[0] if model.head_is_tied() else devices[-1]
         _head_module(model).to(head_dev)
         model.final_norm.data = model.final_norm.data.to(head_dev)
-    return ResidentWeights(model=model, device=devices[0], weight_bytes=model_weight_bytes(model),
-                           stage_bounds=tuple(bounds), devices=tuple(devices))
+    shards = None
+    if tp * ep > 1:
+        check_mesh_model(model, tp, ep)
+        # a fused group's OUT axis interleaves its members' rows, which a
+        # column split would cut wrongly: split into its members first
+        undo_projection_fusion(model)
+        axes = merge_axes(model, tp, ep)
+        shards = []
+        for s, (a, b) in enumerate(bounds):
+            per = [[] for _ in range(tp * ep)]
+            for i in range(a, b):
+                layer = model.layers[i]
+                each = []
+                for e, t in itertools.product(range(ep), range(tp)):
+                    part, copied = shard_layer(layer, layer_axes(axes, model, layer),
+                                               {"tp": (t, tp), "ep": (e, ep)}, grid[s, 0, e, t])
+                    per[e * tp + t].append(part)
+                    each.append(set(copied))
+                drop_whole(layer, sorted(set.intersection(*each)))
+            shards.append(tuple(per))
+        shards = tuple(shards)
+        rest = [getattr(model, n) for n in ("embed_tokens", "lm_head") if hasattr(model, n)]
+        weight_bytes = tree_weight_bytes(
+            [m for stage in shards for per in stage for m in per] + rest + [model.final_norm])
+    else:
+        weight_bytes = model_weight_bytes(model)
+    return ResidentWeights(model=model, device=devices[0], weight_bytes=weight_bytes,
+                           stage_bounds=tuple(bounds), devices=tuple(devices), tp=tp, ep=ep,
+                           grid=grid, shard_layers=shards)
+
+
+def shard_view(view, layers: list, device):
+    """A stage's view (:func:`stage_model`) over one shard's layer modules,
+    its constants on the shard's ``device``."""
+    shard = copy.copy(view)
+    shard._modules = dict(view._modules)
+    shard._parameters = dict(view._parameters)
+    shard._buffers = dict(view._buffers)
+    shard.__dict__.pop("_graph_pool", None)
+    shard._modules["layers"] = nn.ModuleList(layers)
+    shard.place_constants(device)
+    return shard
 
 
 @dataclasses.dataclass
@@ -292,15 +362,18 @@ class DeviceInputs:
 
 
 class PipelineEngine:
-    """M continuous-batching slots of one model (the JAX engine at tp = ep
-    = 1, batch 1 per slot) in ``stages`` pipeline stages (or the stages of
-    ``stage_bounds``), over a shared KV page pool (``pool_pages`` set) or
-    M+1 dense slot caches (``pool_pages`` None). ``device``: every stage's
-    device; None puts stage s on the s-th CUDA device.
+    """M continuous-batching slots of one model (the JAX engine, batch 1 per
+    slot) in ``stages`` pipeline stages (or the stages of ``stage_bounds``)
+    of ``tp`` x ``ep`` shards each, over a shared KV page pool
+    (``pool_pages`` set) or M+1 dense slot caches (``pool_pages`` None).
+    ``device``: every shard's device; None puts shard (s, e, t) on its own
+    CUDA device, in the grid's order.
 
     At construction the model's packed projection groups are fused in
     place, as ``Generator`` does (``models.base.apply_projection_fusion``);
-    at M <= 8 a packed decode step then runs the GEMV kernel.
+    at M <= 8 a packed decode step then runs the GEMV kernel. At tp or ep
+    > 1 they are split back instead, and the shards are placed
+    (:func:`place_weights`).
     ``decode_block`` and ``cuda_graphs`` are the single stream's
     (:meth:`generate_step`). ``stage_graphs``: capture each stage's share
     of a step on its own (``graphs.StageGraphs``, one set a cache: a
@@ -333,19 +406,23 @@ class PipelineEngine:
         cuda_graphs: bool = True,
         stage_graphs: Optional[bool] = None,
     ):
-        for name, n in (("tp", tp), ("ep", ep)):
-            if n != 1:
-                raise NotImplementedError(
-                    f"{name}={n}: tensor and expert parallelism are not yet ported "
-                    "(ROADMAP queue 1, slice 9b.3)")
         cfg = model.config
         if not (cfg.is_first_stage and cfg.is_last_stage):
             raise ValueError("PipelineEngine wants the full model config")
+        #: the tensor- and expert-parallel widths: every stage runs as tp x
+        #: ep shards, shard r = e * tp + t on the device grid's cell (s, e, t)
+        self.tp, self.ep = tp, ep
+        self.shards = tp * ep
+        if self.shards > 1:
+            check_mesh_model(model, tp, ep)
+            if kv_share_map is not None or kv_compress_map is not None:
+                raise NotImplementedError(DEFER_KV)
+        placed = None
         # Weight residency (JAX ``weights=``): a ``weights.WeightStore``
         # lease's resident model, which other engines (replicas) run
-        # against too, placed for its stage split. The caller owns the
-        # lease and hangs its release on ``on_close()``. Everything an
-        # engine changes lives on the engine.
+        # against too, placed for its stage split and its grid. The caller
+        # owns the lease and hangs its release on ``on_close()``.
+        # Everything an engine changes lives on the engine.
         if weights is not None:
             if weights.model is not model:
                 raise ValueError("resident weights hold another model than this engine's")
@@ -356,24 +433,32 @@ class PipelineEngine:
                                  f"tree's split {bounds}")
             if stages is not None and stages != len(bounds):
                 raise ValueError(f"{len(bounds)} stage bounds for a {stages}-stage pp mesh")
-            placed = list(weights.devices or [torch.device(weights.device)])
-            if not same_mesh_devices(placed, stage_devices(len(bounds), device)):
+            grid = weights.grid
+            if grid is None:
+                grid = np.empty(len(bounds), dtype=object)
+                grid[:] = list(weights.devices or [torch.device(weights.device)])
+                grid = grid.reshape(-1, 1, 1, 1)
+            if (weights.tp, weights.ep) != (tp, ep) or not same_mesh_devices(
+                    grid, device_grid(pp=len(bounds), tp=tp, ep=ep, device=device)):
                 raise ValueError(
                     "resident weights were placed on a different device grid than this "
                     "engine's mesh — aliased construction needs identical placement (same "
                     "devices, same axis layout)")
-            self.stage_bounds, self.stage_devices = bounds, placed
+            placed = weights
         else:
             bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
-            devices = stage_devices(len(bounds), device)
-            if len(set(devices)) > 1:
-                place_weights(model, stage_bounds=bounds, device=device)
-            elif model.device != devices[0]:
-                raise ValueError(f"the model is on {model.device}, the engine on {devices[0]}")
-            self.stage_bounds, self.stage_devices = bounds, devices
+            grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device)
+            if len(set(grid.flat)) > 1 or self.shards > 1:
+                placed = place_weights(model, stage_bounds=bounds, tp=tp, ep=ep, device=device)
+            elif model.device != grid.flat[0]:
+                raise ValueError(f"the model is on {model.device}, the engine on {grid.flat[0]}")
+        self.stage_bounds, self.grid = bounds, grid
+        self.stage_devices = list(grid[:, 0, 0, 0])
+        #: each stage's shards' devices, shard r = e * tp + t
+        self.shard_devices = [list(grid[s, 0].flat) for s in range(len(bounds))]
         self.num_stages = len(self.stage_bounds)
         self.device = self.stage_devices[0]  # stage 0's: the inputs, the sampling
-        self._one_device = len(set(self.stage_devices)) == 1
+        self._one_device = len(set(grid.flat)) == 1
         head = _head_module(model)
         self._head_device = next(itertools.chain(head.parameters(), head.buffers())).device
         self.decode_block = decode_block
@@ -381,16 +466,22 @@ class PipelineEngine:
         #: each stage's share of a step is captured on its own: the steps
         #: themselves are not (a batcher over this engine captures none)
         self.per_stage_graphs = (not self._one_device) if stage_graphs is None else stage_graphs
+        # a stage's program spans its shards' devices, which one graph
+        # cannot hold: shards of a stage on distinct devices run eagerly
+        self._stage_capture = all(len(set(devs)) == 1 for devs in self.shard_devices)
         # id(cache) -> (a weak reference to it, its stages' programs)
         self._stage_graphs: dict = {}
         self._stream: Optional[StagedGenerator] = None  # made on first use
         self.weights_shared = weights is not None
         self.resident = weights
         self.model = model
-        apply_projection_fusion(model)  # idempotent: a fused group is left as it is
+        if self.shards == 1:
+            # idempotent: a fused group is left as it is; at tp > 1 the
+            # fused OUT axis would interleave the group's rows (JAX's rule)
+            apply_projection_fusion(model)
         # the weight bytes a decode step streams (JAX ``weight_bytes``, the
-        # batcher's bytes-a-token gauge): every tensor of the model once
-        self.weight_stream_bytes = (weights.weight_bytes if weights is not None
+        # batcher's bytes-a-token gauge): every tensor of the placement once
+        self.weight_stream_bytes = (placed.weight_bytes if placed is not None
                                     else model_weight_bytes(model))
         self.microbatches = microbatches
         # chunk-multiple capacity: padded prefill writes stay in bounds
@@ -432,8 +523,8 @@ class PipelineEngine:
 
         if paged_attention not in ("auto", "ragged", "gather"):
             raise ValueError(f"paged_attention={paged_attention!r}: want auto|ragged|gather")
-        # the ragged body runs at pp = 1 only (JAX's ``ragged_ok``)
-        ragged_ok = self.paged and self.num_stages == 1
+        # the ragged body runs at pp = 1, tp = ep = 1 only (JAX's ``ragged_ok``)
+        ragged_ok = self.paged and self.num_stages == 1 and self.shards == 1
         if paged_attention == "ragged" and not ragged_ok:
             raise ValueError(
                 "paged_attention='ragged' needs a paged (pool_pages) pp=1 engine with tp=ep=1, "
@@ -473,10 +564,11 @@ class PipelineEngine:
         from mlx_sharding_tpu_torch.kv_compress import build_codec
 
         pool_layers = kv_share_map.num_groups if self._share_active else n_layers
-        self.kv_codec = build_codec(model, paged=self.paged, kv_quant=self.kv_quant,
-                                    num_stages=self.num_stages, pool_layers=pool_layers,
-                                    share_hash=self.kv_share_hash,
-                                    compress_map=kv_compress_map)
+        # no codec at tp or ep > 1: its page blocks move with slice 9b.3b
+        self.kv_codec = None if self.shards > 1 else build_codec(
+            model, paged=self.paged, kv_quant=self.kv_quant, num_stages=self.num_stages,
+            pool_layers=pool_layers, share_hash=self.kv_share_hash,
+            compress_map=kv_compress_map)
         self.kv_compress_hash = (self.kv_codec.compress_hash if self.kv_codec is not None
                                  else None)
         model.place_constants(self.device)
@@ -484,6 +576,21 @@ class PipelineEngine:
                              [stage_model(model, a, b) for a, b in self.stage_bounds])
         for view, dev in zip(self.stage_models, self.stage_devices):
             view.place_constants(dev)
+        #: each stage's shards' views of the model (the stage's view at tp =
+        #: ep = 1), each over its shard's layers with its constants on its
+        #: device, and each shard's mesh axes
+        self.shard_views = [[view] for view in self.stage_models]
+        if self.shards > 1:
+            self.shard_views = [
+                [shard_view(view, layers, dev) for layers, dev in zip(per, devs)]
+                for view, per, devs in zip(self.stage_models, placed.shard_layers,
+                                           self.shard_devices)]
+        self._axes = [dict(tp_axis=ShardAxis("tp", t, tp) if tp > 1 else None,
+                           ep_axis=ShardAxis("ep", e, ep) if ep > 1 else None)
+                      for e, t in itertools.product(range(ep), range(tp))]
+        # the ranks that reduce together over each axis
+        self._groups = {"tp": [[e * tp + t for t in range(tp)] for e in range(ep)],
+                        "ep": [[e * tp + t for e in range(ep)] for t in range(tp)]}
         # persistent step inputs: a step's key -> (buffer, DeviceInputs over it)
         self._plans: dict = {}
         # (buffer, tokens (1, chunk), page row (SPG,), last valid row (1,))
@@ -541,10 +648,18 @@ class PipelineEngine:
         if self.paged:
             raise ValueError("a paged engine's cache is its pool: init_cache_paged")
         model = self.model
-        caches = [init_cache_slots(b - a, self.microbatches, self.max_seq, model.cache_num_heads(),
-                                   model.cache_head_dim(), self.cache_dtype, dev)
-                  for (a, b), dev in zip(self.stage_bounds, self.stage_devices)]
+        caches = [sharded([init_cache_slots(b - a, self.microbatches, self.max_seq,
+                                            self.cache_heads(), model.cache_head_dim(),
+                                            self.cache_dtype, dev) for dev in devs])
+                  for (a, b), devs in zip(self.stage_bounds, self.shard_devices)]
         return caches[0] if self.num_stages == 1 else staged(caches)
+
+    def cache_heads(self) -> int:
+        """The KV heads one shard's cache holds (JAX ``_kv_spec``): the
+        model's cache heads over tp, or all of them when the cache is
+        head-count independent (every tp shard keeps a whole copy)."""
+        heads = self.model.cache_num_heads()
+        return heads if self.model.cache_tp_replicated() else heads // self.tp
 
     def init_cache_paged(self) -> tuple[PagedKV, np.ndarray]:
         """The shared page pool (last page scratch) and the host page table
@@ -556,11 +671,11 @@ class PipelineEngine:
         model = self.model
         n_layers = model.config.num_local_layers
         n_pool = self.kv_share.num_groups if self._share_active else n_layers
-        caches = [init_cache_paged(
+        caches = [sharded([init_cache_paged(
             n_pool if self.num_stages == 1 else b - a, self.pool_pages, self.page_size,
-            model.cache_num_heads(), model.cache_head_dim(), self.microbatches,
+            self.cache_heads(), model.cache_head_dim(), self.microbatches,
             self.cache_dtype, dev, quantized=self.kv_quant,
-        ) for (a, b), dev in zip(self.stage_bounds, self.stage_devices)]
+        ) for dev in devs]) for (a, b), devs in zip(self.stage_bounds, self.shard_devices)]
         cache = caches[0] if self.num_stages == 1 else staged(caches)
         if self._share_active:
             # the allocation that did not happen: an unshared pool would be
@@ -569,14 +684,41 @@ class PipelineEngine:
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
 
     # ------------------------------------------------------------ stages
-    def _stage_layers(self, cache, s: int):
-        """Stage s's layers: ``(global index, layer, K pool, V pool)``, each
-        pool the layer's (its share group's) in the stage's cache."""
-        c = stage_caches(cache)[s]
+    def _stage_layers(self, cache, s: int, r: int = 0):
+        """Stage s's layers in shard r: ``(global index, layer, K pool, V
+        pool)``, each pool the layer's (its share group's) in the shard's
+        cache."""
+        c = shard_caches(stage_caches(cache)[s])[r]
         lo, hi = self.stage_bounds[s]
+        layers = self.shard_views[s][r].layers
         for i in range(lo, hi):
             g = self.pool_layer[i] - lo  # share groups exist at pp = 1 only
-            yield i, self.model.layers[i], layer_pool(c.k, g), layer_pool(c.v, g)
+            yield i, layers[i - lo], layer_pool(c.k, g), layer_pool(c.v, g)
+
+    def _shard_pools(self, cache, s: int):
+        """Stage s's layers: ``(global index, [(K pool, V pool) a shard])``."""
+        per = [list(self._stage_layers(cache, s, r)) for r in range(self.shards)]
+        for rows in zip(*per):
+            yield rows[0][0], [(kp, vp) for _, _, kp, vp in rows]
+
+    def _layer_step(self, s: int, i: int, h: torch.Tensor, offset, attn_fns: list):
+        """Layer i of stage s over ``h`` with shard r's attention
+        ``attn_fns[r]`` (JAX ``sp_layer``). At tp or ep > 1 every shard runs
+        its part of the layer, and the loop over the shards runs inside the
+        layer: each shard's attention, then its program to its partial sums,
+        each reduced over its axis in process (``parallel.mesh.run_shards``),
+        twice a layer under tp. Returns the hidden state on shard 0's
+        device."""
+        views, lo = self.shard_views[s], self.stage_bounds[s][0]
+        if len(views) == 1:
+            return views[0].sp_layer(views[0].layers[i - lo], h, offset, attn_fns[0])[0]
+        programs = []
+        for view, fn, dev, axes in zip(views, attn_fns, self.shard_devices[s], self._axes):
+            p, hr = view.layers[i - lo], hop(h, dev)
+            off = hop(offset, dev) if isinstance(offset, torch.Tensor) else offset
+            q, k, v = view.layer_attn_inputs(p, hr, off)
+            programs.append(view.finish_steps(p, hr, fn(q, k, v, **view.attn_options(p)), **axes))
+        return run_shards(programs, self._groups)[0]
 
     def _graphs_for(self, cache) -> StageGraphs:
         """The stages' programs of the steps over ``cache`` (made on first
@@ -586,7 +728,7 @@ class PipelineEngine:
         entry = self._stage_graphs.get(key)
         if entry is None or entry[0]() is not cache:
             graphs = StageGraphs(self.stage_devices, self.per_stage_graphs and self.cuda_graphs
-                                 and self.device.type == "cuda")
+                                 and self._stage_capture and self.device.type == "cuda")
             entry = self._stage_graphs[key] = (weakref.ref(cache), graphs)
             weakref.finalize(cache, self._stage_graphs.pop, key, None)
         return entry[1]
@@ -669,48 +811,50 @@ class PipelineEngine:
     def _prefill_layers(self, cache, s: int, off: int, h, row):
         """Stage s's layers over one prefill chunk's hidden states ``h``
         at offset ``off``, the slot's page row ``row`` on its device."""
+        rows = [hop(row, dev) for dev in self.shard_devices[s]]
+        for i, pools in self._shard_pools(cache, s):
+            fns = [functools.partial(self._prefill_attn, kp, vp, self.owner_layer[i], off, rr)
+                   for (kp, vp), rr in zip(pools, rows)]
+            h = self._layer_step(s, i, h, off, fns)
+        return h
+
+    def _prefill_attn(self, kp, vp, owner: bool, off: int, row, q, k_new, v_new,
+                      values_from_k=None, **opts):
+        """One layer's attention over a prefill chunk at ``off`` into the
+        pools ``kp``/``vp`` of the slot whose page row is ``row``. The
+        chunk's own rows are attended as computed (unquantized); the pool
+        keeps them quantized for an int8 pool. ``opts``: the layer's softcap
+        and window (the model's attn_options); ``values_from_k`` (MLA): the
+        values are the keys' first columns, so only K rows are written. A
+        share group's non-owner writes its chunk into its view only: it
+        attends over the owner's rows and its own chunk, which the pool
+        never keeps (JAX's ``_paged_writeback`` keeps owner rows)."""
         model, c, page = self.model, self.prefill_chunk, self._plan_page
         start = off % page
         page_ids = row[: -(-(off + c) // page)]
         write_page = row[off // page : off // page + 1]
-        for i, layer, kp, vp in self._stage_layers(cache, s):
-            owner = self.owner_layer[i]
-
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, owner=owner, values_from_k=None, **opts):
-                # the chunk's own rows are attended as computed (unquantized);
-                # the pool keeps them quantized for an int8 pool. ``opts``:
-                # the layer's softcap and window (the model's attn_options);
-                # ``values_from_k`` (MLA): the values are the keys' first
-                # columns, so only K rows are written. A share group's
-                # non-owner writes its chunk into its view only: it attends
-                # over the owner's rows and its own chunk, which the pool
-                # never keeps (JAX's ``_paged_writeback`` keeps owner rows)
-                if not self.paged:
-                    # the slot's cache is one page: written, then attended in
-                    # place by the flash kernel, the slot a device index
-                    write_pool_span(kp, write_page, start, k_new[0])
-                    if values_from_k is not None:
-                        v_all = kp[..., :values_from_k]
-                    else:
-                        write_pool_span(vp, write_page, start, v_new[0])
-                        v_all = vp
-                    return causal_attention(q, kp, v_all, off, model.scale, kv_index=write_page,
-                                            **opts)
-                k_view = self._slot_view(kp, page_ids)
-                k_view[:, off : off + c] = k_new
-                if owner:
-                    write_pool_span(kp, write_page, start, k_new[0])
-                if values_from_k is not None:
-                    v_view = k_view[..., :values_from_k]
-                else:
-                    v_view = self._slot_view(vp, page_ids)
-                    v_view[:, off : off + c] = v_new
-                    if owner:
-                        write_pool_span(vp, write_page, start, v_new[0])
-                return causal_attention(q, k_view, v_view, off, model.scale, **opts)
-
-            h, _, _ = self.stage_models[s].sp_layer(layer, h, off, attn_fn)
-        return h
+        if not self.paged:
+            # the slot's cache is one page: written, then attended in place
+            # by the flash kernel, the slot a device index
+            write_pool_span(kp, write_page, start, k_new[0])
+            if values_from_k is not None:
+                v_all = kp[..., :values_from_k]
+            else:
+                write_pool_span(vp, write_page, start, v_new[0])
+                v_all = vp
+            return causal_attention(q, kp, v_all, off, model.scale, kv_index=write_page, **opts)
+        k_view = self._slot_view(kp, page_ids)
+        k_view[:, off : off + c] = k_new
+        if owner:
+            write_pool_span(kp, write_page, start, k_new[0])
+        if values_from_k is not None:
+            v_view = k_view[..., :values_from_k]
+        else:
+            v_view = self._slot_view(vp, page_ids)
+            v_view[:, off : off + c] = v_new
+            if owner:
+                write_pool_span(vp, write_page, start, v_new[0])
+        return causal_attention(q, k_view, v_view, off, model.scale, **opts)
 
     def prefill_slot(self, tokens, slot: int, cache: PagedKV, n_valid: int,
                      table: np.ndarray, graphs=None) -> torch.Tensor:
@@ -877,10 +1021,15 @@ class PipelineEngine:
         """Stage s's layers over one T=1 step of all M slots: ``h`` (M, 1,
         hidden), the step's (M,) positions, attention lengths, write pages
         and rows, and the (M, SPG) table rows, on the stage's device."""
-        plan = DecodePlan(page_ids[None], row_pos[None], lengths[None], positions[None], tables)
-        for i, layer, kp, vp in self._stage_layers(cache, s):
-            attn_fn = functools.partial(attend, kp, vp, plan, 0, lengths, self.owner_layer[i])
-            h, _, _ = self.stage_models[s].sp_layer(layer, h, positions, attn_fn)
+        plans = []
+        for dev in self.shard_devices[s]:
+            on = functools.partial(hop, device=dev)
+            plans.append((DecodePlan(on(page_ids)[None], on(row_pos)[None], on(lengths)[None],
+                                     on(positions)[None], on(tables)), on(lengths)))
+        for i, pools in self._shard_pools(cache, s):
+            fns = [functools.partial(attend, kp, vp, plan, 0, lens, self.owner_layer[i])
+                   for (kp, vp), (plan, lens) in zip(pools, plans)]
+            h = self._layer_step(s, i, h, positions, fns)
         return h
 
     def decode_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
@@ -994,7 +1143,11 @@ class PipelineEngine:
         return functools.partial(self.spec_verify, k, qlps=None)
 
     def _check_pp1(self) -> None:
-        """JAX's check: the speculative steps need the pp = 1 body."""
+        """JAX's check: the speculative steps need the pp = 1 body (and at
+        tp or ep > 1 they come with slice 9b.3b)."""
+        if self.shards > 1:
+            raise NotImplementedError(
+                "speculative steps at tp or ep > 1 come with slice 9b.3b (ROADMAP queue 1)")
         if self.num_stages != 1:
             raise ValueError("speculative continuous batching needs pp=1 engines")
 
@@ -1117,7 +1270,9 @@ class _Stream(StageStack):
         self.rows = self.inputs.rows.long()
 
     def fused_projection_groups(self) -> dict:
-        return self.engine.model.fused_projection_groups()
+        # at tp or ep > 1 the shards' layers stay unfused (JAX's rule)
+        eng = self.engine
+        return eng.model.fused_projection_groups() if eng.shards == 1 else {}
 
     def place_constants(self, device) -> None:
         """Each stage's view holds its own, placed by the engine."""

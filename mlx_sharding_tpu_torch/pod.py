@@ -32,8 +32,8 @@ module stitches N of those hosts into a pod with three coordinated pieces:
 Transports: :class:`LoopbackTransport` is the in-process fabric (N
 simulated hosts in one process, as JAX's quick-tier tests drive it). JAX's
 :class:`CollectiveTransport` rides its multi-host control plane; the port's
-raises until the collectives on ``torch.distributed`` are ported (ROADMAP
-queue 1, slice 9b.3), and with it the server's ``--pod``. Both speak the
+raises until multi-host serving on ``torch.distributed`` is ported (ROADMAP
+queue 1, slice 9b.3c), and with it the server's ``--pod``. Both speak the
 same 4-call surface (publish / peers / send / handler).
 """
 
@@ -186,7 +186,7 @@ class CollectiveTransport:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "the pod's collective transport is not yet ported (ROADMAP queue 1, slice "
-            "9b.3); run the pod over LoopbackHub")
+            "9b.3c); run the pod over LoopbackHub")
 
 
 # --------------------------------------------------------------------------

@@ -187,6 +187,7 @@ from mlx_sharding_tpu_torch.generate import (
 )
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.graphs import StepGraphs, close_worker, open_worker
+from mlx_sharding_tpu_torch.parallel.mesh import DEFER_KV
 from mlx_sharding_tpu_torch.resilience import (
     Deadlines,
     HandoffReadyError,
@@ -380,6 +381,9 @@ class ContinuousBatcher:
             raise ValueError(f"a draft engine was given but draft={draft!r} — drop the draft "
                              "engine or select draft='engine'/'auto'")
         stages = getattr(engine, "num_stages", 1)
+        if spec_mode != "off" and getattr(engine, "shards", 1) > 1:
+            raise NotImplementedError("speculative continuous batching at tp or ep > 1 comes "
+                                      "with slice 9b.3b (ROADMAP queue 1)")
         if spec_mode == "ngram" and stages != 1:
             raise ValueError("speculative continuous batching needs a pp=1 engine (the verify "
                              "wants the keep_all vectorized body)")
@@ -443,6 +447,9 @@ class ContinuousBatcher:
                 # the draft's dense KV has no page chain to export
                 raise ValueError("KV spill is incompatible with a draft engine — "
                                  "speculative slots re-prefill on preemption")
+        if (spill_bytes is not None or prefix_store is not None) \
+                and getattr(engine, "tp", 1) * getattr(engine, "ep", 1) > 1:
+            raise NotImplementedError(DEFER_KV)
         if spill_cold_after is not None:
             if isinstance(spill_cold_after, bool) or not isinstance(spill_cold_after, int) \
                     or spill_cold_after < 1:

@@ -177,7 +177,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     autoscale_cooldown: float = 15.0, brownout: bool = True,
                     start_layer: Optional[int] = None, end_layer: Optional[int] = None,
                     num_stages: Optional[int] = None, stage_bounds=None, engine: str = "fused",
-                    model=None):
+                    tp: int = 1, ep: int = 1, model=None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -214,16 +214,25 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     autoscaler run over stages too: each replica is an engine of that many
     stages, JAX's ``stages x tp x ep`` devices a replica, and the resident
     tree's key carries the split; with ``device`` every replica's stages
-    sit on that one device. The pod (``pod.PodFleet``) is a library over
-    its in-process transport; its ``--pod`` flag comes with the collectives
-    (ROADMAP queue 1, slice 9b.3). ``model``: an already loaded model to
+    sit on that one device. ``tp`` / ``ep``: every stage as tp x ep shards
+    (JAX's mesh axes; the engine's single stream without ``concurrent``,
+    else its batcher on the gather path), each on its own card, or all on
+    ``device``; page-block moves and the fleet over them raise naming slice
+    9b.3b. The pod (``pod.PodFleet``) is a library over its in-process
+    transport; its ``--pod`` flag comes with slice 9b.3c. ``model``: an
+    already loaded model to
     serve, which ``path`` then only names. On a card each generator's step
     graphs are captured here, before the first request."""
     from mlx_sharding_tpu_torch.kv_compress import load_compress_map
     from mlx_sharding_tpu_torch.kv_share import load_share_map
     from mlx_sharding_tpu_torch.loading import load_model
-    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
+    from mlx_sharding_tpu_torch.parallel.mesh import DEFER_FLEET, DEFER_KV, device_grid
 
+    if tp > 1 or ep > 1:
+        if replicas > 1 or disagg or autoscale:
+            raise NotImplementedError(DEFER_FLEET)
+        if spill_bytes is not None or prefix_store or kv_share_map or kv_compress_map:
+            raise NotImplementedError(DEFER_KV)
     stages = len(stage_bounds) if stage_bounds else (num_stages or 1)
     if stage_bounds and engine == "chained":
         from mlx_sharding_tpu_torch.parallel.chained import (
@@ -241,7 +250,8 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     def load():
         if model is not None:
             return model
-        return load_model(path, start_layer, end_layer, device=stage_devices(stages, device)[0],
+        return load_model(path, start_layer, end_layer,
+                          device=device_grid(pp=stages, tp=tp, ep=ep, device=device).flat[0],
                           keep_quantized=keep_quantized)[0]
 
     store = None
@@ -260,9 +270,9 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         from mlx_sharding_tpu_torch.generate import Generator
         from mlx_sharding_tpu_torch.parallel import PipelineEngine
 
-        if concurrent <= 1 and stages > 1:
-            # the engine's single stream (JAX's engine at pp > 1)
-            return PipelineEngine(model, stages=stages, stage_bounds=stage_bounds,
+        if concurrent <= 1 and (stages > 1 or tp > 1 or ep > 1):
+            # the engine's single stream (JAX's engine at pp, tp or ep > 1)
+            return PipelineEngine(model, stages=stages, stage_bounds=stage_bounds, tp=tp, ep=ep,
                                   max_seq=max_seq, prefill_chunk=prefill_chunk,
                                   decode_block=decode_block, device=device)
         if concurrent <= 1 and draft == "ngram":
@@ -284,7 +294,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
         engine = PipelineEngine(
-            model, stages=stages, stage_bounds=stage_bounds,
+            model, stages=stages, stage_bounds=stage_bounds, tp=tp, ep=ep,
             microbatches=concurrent, max_seq=max_seq, prefill_chunk=prefill_chunk,
             pool_pages=paged_pool, page_size=page_size, paged_attention=paged_attention,
             kv_dtype=kv_dtype, kv_share_map=share_map, kv_compress_map=compress_map,
@@ -523,7 +533,7 @@ class ModelProvider:
         # otherwise race the generator and double-load onto the card
         self._load_lock = make_lock("ModelProvider._load_lock")
         # a pod.PodFleet this host serves in, set by its caller (the server's
-        # --pod comes with slice 9b.3): /health's pod block and /metrics' pod
+        # --pod comes with slice 9b.3c): /health's pod block and /metrics' pod
         # families read it
         self.pod_fleet = None
         self._key: Optional[str] = None
@@ -1597,11 +1607,12 @@ def main(argv=None):
                              "with 429; "
                              "level surfaced in /health and the "
                              "X-MST-Brownout-Level response header")
-    # JAX's flags of the collectives, which come with slice 9b.3
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel width within each pipeline stage (not yet ported)")
+                        help="tensor-parallel width within each pipeline stage (shards on the "
+                             "first cards, or all on --device)")
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert-parallel width within each pipeline stage (not yet ported)")
+                        help="expert-parallel width within each pipeline stage (MoE)")
+    # JAX's multi-host flags, which come with slice 9b.3c
     parser.add_argument("--coordinator", default=None,
                         help="host:port of the multi-host coordinator (not yet ported)")
     parser.add_argument("--process-id", type=int, default=None)
@@ -1614,18 +1625,20 @@ def main(argv=None):
         parser.error("--engine chained requires --stage-bounds")
     if args.concurrent > 1 and args.engine == "chained":
         parser.error("--concurrent requires the fused engine")
-    # JAX's multi-host rules and messages; what passes them and needs
-    # the collectives raises naming slice 9b.3
+    # JAX's mesh and multi-host rules and messages; several processes
+    # raise naming slice 9b.3c
     if (args.tp > 1 or args.ep > 1) and args.engine == "chained":
         parser.error("--tp/--ep require the fused engine")
     if args.pod and not (args.coordinator and (args.num_processes or 1) > 1):
         parser.error("--pod requires --coordinator and --num-processes > 1 (the pod gossip "
                      "plane rides jax.distributed)")
-    if args.tp > 1 or args.ep > 1 or args.pod or args.coordinator \
-            or (args.num_processes or 1) > 1:
-        parser.error("--tp, --ep, --coordinator, --num-processes and --pod are not yet "
-                     "ported (ROADMAP queue 1, slice 9b.3)")
-    staged = bool(args.stage_bounds) or (args.num_stages or 1) > 1 or args.engine == "chained"
+    if args.pod or args.coordinator or (args.num_processes or 1) > 1:
+        from mlx_sharding_tpu_torch.parallel.mesh import DEFER_MULTIHOST
+
+        parser.error(DEFER_MULTIHOST)
+    # the stage flags, and (JAX's rules) the tp / ep mesh beside them
+    staged = (bool(args.stage_bounds) or (args.num_stages or 1) > 1 or args.engine == "chained"
+              or args.tp > 1 or args.ep > 1)
     layer_range = args.start_layer is not None or args.end_layer is not None
     if args.trace_buffer < 1:
         parser.error("--trace-buffer must be >= 1")
@@ -1839,7 +1852,7 @@ def main(argv=None):
             parser.error(f"{flag} must be a positive number of seconds")
 
     from mlx_sharding_tpu_torch.device import resolve_device
-    from mlx_sharding_tpu_torch.parallel.mesh import stage_devices
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid
 
     stage_bounds = None
     if args.stage_bounds:
@@ -1847,9 +1860,9 @@ def main(argv=None):
                         for part in args.stage_bounds.split(",")]
     stages = len(stage_bounds) if stage_bounds else (args.num_stages or 1)
     try:
-        if stages > 1:
-            # without --device stage s goes on the s-th card
-            stage_devices(stages, args.device)
+        if stages * args.tp * args.ep > 1:
+            # without --device shard (s, e, t) goes on its own card
+            device_grid(pp=stages, tp=args.tp, ep=args.ep, device=args.device)
             device = args.device
         else:
             device = resolve_device(args.device)
@@ -1884,7 +1897,7 @@ def main(argv=None):
         autoscale_max=args.autoscale_max, autoscale_interval=args.autoscale_interval,
         autoscale_cooldown=args.autoscale_cooldown, brownout=args.brownout == "on",
         start_layer=args.start_layer, end_layer=args.end_layer, num_stages=args.num_stages,
-        stage_bounds=stage_bounds, engine=args.engine,
+        stage_bounds=stage_bounds, engine=args.engine, tp=args.tp, ep=args.ep,
     )
     server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
                          api_key=args.api_key, request_timeout=args.request_timeout,

@@ -52,6 +52,12 @@ class ResidentWeights:
     weight_bytes: int
     stage_bounds: Optional[tuple] = None
     devices: Optional[tuple] = None
+    #: the tensor- and expert-parallel widths, the (pp, sp, ep, tp) device
+    #: grid and, at tp or ep > 1, each stage's per-shard layer modules
+    tp: int = 1
+    ep: int = 1
+    grid: Any = None
+    shard_layers: Optional[tuple] = None
 
 
 def model_weight_bytes(model) -> int:
@@ -62,14 +68,27 @@ def model_weight_bytes(model) -> int:
     return sum(sizes.values())
 
 
+def tree_weight_bytes(parts) -> int:
+    """Bytes of every tensor of ``parts`` (modules or tensors) once: a
+    tensor that several shards share (a replicated norm) counts once, and a
+    shard's view of a model tensor counts its own slice."""
+    sizes = {}
+    for part in parts:
+        tensors = part.state_dict().values() if hasattr(part, "state_dict") else [part]
+        for t in tensors:
+            sizes.setdefault((str(t.device), t.data_ptr()), t.numel() * t.element_size())
+    return sum(sizes.values())
+
+
 @dataclass(frozen=True)
 class WeightKey:
     """Identity of a resident tree. Two engines share arrays iff every
     field matches: the checkpoint's weight content (resolved path + quant
     config + packed/dense residency, see ``loading.checkpoint_signature``),
-    the stage split, the compute dtype, the build-time fusion config, and
-    the placement (the device) — tensors are device-resident, so WHERE
-    they live is part of WHAT they are."""
+    the stage split, the compute dtype, the build-time fusion config and
+    the tp / ep widths (``quant``: ``tp2:ep1`` ...), and the placement (the
+    device grid, ``parallel.mesh.mesh_fingerprint``) — tensors are
+    device-resident, so WHERE they live is part of WHAT they are."""
 
     checkpoint: str
     stage_bounds: tuple

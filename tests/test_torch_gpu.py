@@ -12,8 +12,8 @@ import threading
 import pytest
 import torch
 
-from chip_smoke import (FORCE_CYCLE, REL_L2_TOL, first_layers, forced_passage, graph_nodes,
-                        kernel_disagreement, pack_llama, paged_case, quant_operands)
+from chip_smoke import (FORCE_CYCLE, REL_L2_TOL, TP2_SHAPES, first_layers, forced_passage,
+                        graph_nodes, kernel_disagreement, pack_llama, paged_case, quant_operands)
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import causal_attention
@@ -247,6 +247,28 @@ def test_quant_kernels_match_plain_version(cuda, kernel, m, out_dim, in_dim, gs,
     torch.cuda.synchronize()
     assert fn.launches == before + 1 and got.shape == (m, out_dim) and got.dtype == x_dtype
     want = qm.quant_matmul_reference(x, q, s, b, gs, bits)
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        _, worst, rel_l2 = kernel_disagreement(got, want)
+        assert worst <= 1 and rel_l2 <= REL_L2_TOL, (worst, rel_l2)
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+@pytest.mark.parametrize("kernel,m", [("quant_gemv", 1), ("quant_gemv", 8),
+                                      ("quant_matmul", 88), ("quant_matmul", 256)])
+@pytest.mark.parametrize("name,out_dim,in_dim", TP2_SHAPES, ids=[s[0] for s in TP2_SHAPES])
+def test_quant_kernels_at_tp2_shard_shapes(cuda, name, out_dim, in_dim, kernel, m, integer):
+    """Kernels 3 and 4 at Llama-3.1-8B's projections split over tp = 2 (one
+    shard's OUT x IN, unfused: K/V at OUT 512, where the GEMV's plan splits
+    IN; o_proj and down at half their IN), 4 bits, group 64, fp16 scales:
+    bit for bit on integer-valued operands, the smoke's limits on random
+    ones."""
+    g = torch.Generator(device=cuda).manual_seed(out_dim + in_dim + m)
+    x, q, s, b = quant_operands(g, m, out_dim, in_dim, integer=integer)
+    got = getattr(qm, kernel)(x, q, s, b, 64, 4)
+    want = qm.quant_matmul_reference(x, q, s, b, 64, 4)
+    torch.cuda.synchronize()
     if integer:
         assert torch.equal(got, want)
     else:

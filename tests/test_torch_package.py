@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         assert f"mlx_sharding_tpu_torch.{family}" in modules
     for module in ("kv_share", "weights", "replicas", "resilience", "utils.clock",
                    "cli.kv_share_calibrate", "cli.kv_compress_calibrate", "fleet", "disagg",
-                   "parallel.mesh", "parallel.chained", "pod"):
+                   "parallel.mesh", "parallel.chained", "pod", "parallel.tp",
+                   "parallel.expert_parallel", "parallel.ring_attention", "parallel.sp_prefill",
+                   "parallel.sp_decode"):
         assert f"mlx_sharding_tpu_torch.{module}" in modules
     code = (
         "import sys, importlib\n"

@@ -296,8 +296,10 @@ def llama4():
 
 def test_what_jax_allows_only_at_pp1_raises(llama4):
     """Ragged decode, a KV share map, speculation in the batcher (n-gram or
-    a draft engine) raise JAX's errors at pp = 2; tensor and expert
-    parallelism, not yet ported, raise naming slice 9b.3. The spill tier,
+    a draft engine) raise JAX's errors at pp = 2; tensor parallelism runs
+    at pp = 2 (on ``gather``), and expert parallelism over a model without
+    experts raises JAX's error (tp and ep: ``tests/test_torch_tp.py``,
+    ``tests/test_torch_expert_parallel.py``). The spill tier,
     the prefix store and page-block moves run at pp = 2
     (``tests/test_torch_pipeline_kv.py``, ``tests/test_torch_pipeline_fleet.py``)."""
     from mlx_sharding_tpu_torch.kv_share import KVShareMap
@@ -314,6 +316,7 @@ def test_what_jax_allows_only_at_pp1_raises(llama4):
     with pytest.raises(ValueError, match="needs pp=1 engines"):
         ContinuousBatcher(PipelineEngine(tm, stages=2, device="cpu", **GEOMETRY),
                           draft_engine=PipelineEngine(tm, device="cpu", **GEOMETRY))
-    for kw in (dict(tp=2), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match="slice 9b.3"):
-            PipelineEngine(tm, device="cpu", **kw)
+    tp2 = PipelineEngine(tm, stages=2, tp=2, device="cpu", **GEOMETRY, **POOL)
+    assert (tp2.shards, tp2.paged_attention) == (2, "gather")
+    with pytest.raises(ValueError, match="expert parallelism is not wired for LlamaModel"):
+        PipelineEngine(tm, stages=2, ep=2, device="cpu", **GEOMETRY)

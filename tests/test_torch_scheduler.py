@@ -21,7 +21,7 @@ from mlx_sharding_tpu import scheduler as jscheduler
 from mlx_sharding_tpu.config import LlamaConfig
 from mlx_sharding_tpu.models.llama import LlamaModel as JLlamaModel
 from mlx_sharding_tpu.ops.rope import apply_rope as j_apply_rope
-from mlx_sharding_tpu.parallel.mesh import pipeline_mesh
+from mlx_sharding_tpu.parallel.mesh import make_mesh, pipeline_mesh
 from mlx_sharding_tpu.parallel.pipeline import PipelineEngine as JPipelineEngine
 from mlx_sharding_tpu_torch import generate, sample, scheduler
 from mlx_sharding_tpu_torch.convert import params_from_numpy
@@ -280,12 +280,26 @@ def test_auto_async_resolves_to_sync_and_says_why(models):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(ep=2), "not yet ported"),
-    (dict(tp=2), "not yet ported"),
+    (dict(ep=2), "expert parallelism is not wired for LlamaModel"),
+    (dict(tp=2), None),
 ])
 def test_unported_engines_raise(models, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _engine(models, **kw)
+    """Tensor and expert parallelism are ported (``tests/test_torch_tp.py``,
+    ``tests/test_torch_expert_parallel.py``): ep over a model without
+    experts raises JAX's error, and a tp = 2 engine builds as JAX's does,
+    on the ``gather`` path (ragged needs tp = ep = 1)."""
+    jm, params, _ = models
+    mesh = make_mesh(**kw)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            JPipelineEngine(jm, params, mesh, cache_dtype=jnp.float32, **ENGINE)
+        with pytest.raises(ValueError, match=match):
+            _engine(models, **kw)
+        return
+    jeng = JPipelineEngine(jm, params, mesh, cache_dtype=jnp.float32, **ENGINE)
+    eng = _engine(models, **kw)
+    assert (eng.shards, eng.paged_attention, eng.decode_path) == (2, jeng.paged_attention,
+                                                                  "gather")
 
 
 @pytest.mark.parametrize("kw,path", [(dict(pool_pages=None), "dense"),

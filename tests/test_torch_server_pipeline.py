@@ -232,18 +232,30 @@ def test_server_pipeline_checks_match_jax(argv, capsys):
 
 
 @pytest.mark.parametrize("main,argv", [
-    (tapi.main, ["--tp", "2"]), (tapi.main, ["--ep", "2"]),
+    (tapi.main, ["--tp", "2", "--concurrent", "2", "--paged-pool", "16", "--replicas", "2"]),
+    (tapi.main, ["--ep", "2", "--concurrent", "2", "--paged-pool", "16", "--overcommit",
+                 "--spill-bytes", "1048576"]),
     (tapi.main, ["--pod", "--coordinator", "127.0.0.1:1234", "--num-processes", "2"]),
     (tapi.main, ["--coordinator", "127.0.0.1:1234", "--num-processes", "2"]),
-    (tcli.main, ["--tp", "2"]), (tcli.main, ["--ep", "2"]), (tcli.main, ["--sp", "2"]),
+    (tcli.main, ["--tp", "2", "--engine", "chained", "--stage-bounds", "0-2,2-4"]),
+    (tcli.main, ["--ep", "2", "--draft", "ngram"]), (tcli.main, ["--sp", "2", "--tp", "2"]),
     (tcli.main, ["--sp-decode"]),
 ], ids=["server_tp", "server_ep", "server_pod", "server_multihost", "cli_tp", "cli_ep",
         "cli_sp", "cli_sp_decode"])
 def test_the_collectives_flags_raise_naming_slice_9b3(main, argv, capsys):
-    """JAX's flags of the collectives parse, and what JAX would run over
-    them (tensor, expert or sequence parallelism, several processes, the
-    pod over its control plane) is refused naming slice 9b.3."""
-    assert "slice 9b.3" in _parser_error(main, [*argv, "--device", "cpu"], capsys)
+    """The mesh flags run (``tests/test_torch_tp_serve.py``); what this
+    slice defers raises naming its slice: the fleet and page-block moves at
+    tp or ep > 1 (9b.3b, ``NotImplementedError`` before any load), several
+    processes and the pod over its control plane (9b.3c, a parser error);
+    the CLI's mesh rules are JAX's, message for message."""
+    if main is tapi.main and "--coordinator" not in argv:
+        with pytest.raises(NotImplementedError, match="slice 9b\\.3b"):
+            main(["--model", "unused", *argv, "--device", "cpu"])
+    elif main is tapi.main:
+        assert "slice 9b.3c" in _parser_error(main, [*argv, "--device", "cpu"], capsys)
+    else:
+        want = _parser_error(jcli.main, argv, capsys)
+        assert _parser_error(main, [*argv, "--device", "cpu"], capsys) == want
 
 
 @pytest.mark.parametrize("main", [tcli.main, tapi.main], ids=["cli", "server"])
