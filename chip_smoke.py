@@ -307,6 +307,21 @@ final line:
    batcher's (the drained one to its stream of the request with the
    delivered tokens folded into the prompt, which the resume prefills
    again), the fallbacks ``{}`` but the death's.
+17. the mesh axes in one process (``phase_mesh``, after 16, on phase 4's
+   model; every shard on ``cuda:0``): the fused engine's single stream and
+   the gather batcher at tp = 1 and 2 (the weights held once, two
+   reductions a layer, bf16 streams held to the near-tie rule), the
+   server's ``--tp 2 --concurrent 4``; over tp = 2 engines, against the tp
+   = 2 batcher's streams, KV movement (``pipe_movement``, each block with
+   every KV head), two replicas with a drain and a disagg pair
+   (``pipe_fleet`` through ``build_generator(tp=2)``, one resident tree),
+   n-gram speculation (``mesh_ngram``, phase 6's rule); sequence
+   parallelism over two sp shards; f32 at 4 layers (tp = 2 and sp = 2
+   token-identical to tp = 1, and blocks moved between tp = 1 and tp = 2
+   pools, ``mesh_cross_tp``). After phase 5 the packed 8B at tp = 1 and 2
+   and as two tp = 2 replicas against one packed tp = 2 batcher
+   (``mesh_packed_fleet``, kernels 3 and 4 at the shard shapes); in phases
+   8-9 Mixtral at tp = 2 and the Lite at tp = 2 and ep = 2.
 
 Phase 6's parity runs take the model's first ``BATCH_PARITY_LAYERS``
 layers, the eager turn of phases 4-5's step timing an
@@ -320,7 +335,12 @@ their greedy rounds. DeepSeek-V2 is served at
 a capacity of 768 (its prompt and tokens need 3 chunks: each of its
 prefill graphs takes seconds to capture), and phases 4-5's speculating
 generators verify on the served Generator, whose prefill and decode graphs
-are captured already.
+are captured already. Phases 4-5's served Generators decode in blocks of
+``MAIN_DECODE_BLOCK`` and capture the main prompt's prefill chunks alone,
+phase 15's single streams in blocks of ``PIPE_DECODE_BLOCK``, phase 17's
+in blocks of ``MESH_DECODE_BLOCK`` and its fleets of
+``MESH_FLEET_DECODE_BLOCK`` (a capture runs its block's steps eagerly
+first).
 
 ``--kernels-only`` stops after phase 2 (a short first check of a new
 kernel) and prints no result line.
@@ -407,6 +427,12 @@ MAX_SEQ = 4096
 CHUNK = 256
 # chunk offsets of the main path's 600-token prompt
 MAIN_PATH_OFFSETS = (0, 256, 512)
+MAIN_PROMPT = 600
+# phases 4-5's served Generators (and their step timing's) decode in blocks
+# of 8: a block's capture runs its steps eagerly first, and they capture the
+# prefill chunks of the main path's prompt alone (its served requests' are
+# no longer)
+MAIN_DECODE_BLOCK = 8
 # the flash kernel's timing: those, the last chunk of phase 6's 1,500-token
 # prompt and the last chunk of the cache
 FLASH_TIMING_OFFSETS = MAIN_PATH_OFFSETS + (1280, 3840)
@@ -1620,7 +1646,7 @@ def phase_main_path(seed: int):
     """The port's server over Llama-3.1-8B at full width. Returns the flash
     launches of the counted run, the measured request numbers and the
     model."""
-    from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
+    from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.models import build_model
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
@@ -1635,8 +1661,8 @@ def phase_main_path(seed: int):
     log(f"[main] Llama-3.1-8B full width, {cfg.num_hidden_layers} layers, {n_params / 1e9:.3f} B "
         f"bf16 parameters drawn on the card in {time.perf_counter() - t0:.1f}s")
     tok = ByteTokenizer()
-    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
-    graph_line("[main]", gen.warm_up())
+    gen = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, decode_block=MAIN_DECODE_BLOCK)
+    graph_line("[main]", gen.warm_up(prefill_upto=MAIN_PROMPT))
     server = make_server(ModelProvider(gen, tok, model_name="llama-3.1-8b"), "127.0.0.1", 0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1649,7 +1675,7 @@ def phase_main_path(seed: int):
     chat_len = len(tok.encode(convert_chat(messages)))
     force_a = {"65": 100.0}  # byte 'A': makes streamed token counts exact
     chunks = lambda n: -(-n // CHUNK)  # noqa: E731
-    blocks = lambda n: -(-(n - 1) // DEFAULT_DECODE_BLOCK)  # noqa: E731  (after the first token)
+    blocks = lambda n: -(-(n - 1) // MAIN_DECODE_BLOCK)  # noqa: E731  (after the first token)
     stats = {}
     try:
         # warm-up outside the counted run: cuBLAS handles, the kernel library
@@ -1720,10 +1746,10 @@ def phase_main_path(seed: int):
         check(launches["flash_attention"] == expected,
               "flash launch count disagrees with the chunk count")
         route = flash_decode_on()
-        expected = cfg.num_hidden_layers * DEFAULT_DECODE_BLOCK * expected_blocks if route else 0
+        expected = cfg.num_hidden_layers * MAIN_DECODE_BLOCK * expected_blocks if route else 0
         log(f"[main] T=1 route {'on' if route else 'off'} (MST_FLASH_DECODE); flash_decode "
             f"launches {launches['flash_decode']}, expected {expected} ({cfg.num_hidden_layers} "
-            f"layers x {DEFAULT_DECODE_BLOCK * expected_blocks} decode steps)")
+            f"layers x {MAIN_DECODE_BLOCK * expected_blocks} decode steps)")
         check(launches["flash_decode"] == expected,
               "flash_decode launch count disagrees with the decode steps")
         served.check("[main]", expected_chunks + expected_blocks)
@@ -1786,21 +1812,20 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
     when the route is on by default, and a Generator of the same model
     whose graphs are captured with the other route. Each turn: a greedy
     64-token stream's decode tok/s and one decode step's device ms (blocks
-    of 16, ``step_numbers``), with the T=1 route's launches checked (32 a
-    step on the kernel route, none on the plain one). Then the last
+    of the Generator's, ``step_numbers``), with the T=1 route's launches
+    checked (32 a step on the kernel route, none on the plain one). Then the last
     position's logits of one T=1 step on each route, eagerly from the same
     cache, within ``LOGITS_RTOL`` of each other."""
-    from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
-                                                 Generator)
+    from mlx_sharding_tpu_torch.generate import REPETITION_WINDOW, Generator
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops.attention import flash_decode_on
 
-    layers = model.config.num_hidden_layers
+    layers, block = model.config.num_hidden_layers, gen.decode_block
     default_on = flash_decode_on()
     ids = prompt[0].tolist()
     t_other = time.perf_counter()
     with decode_route(not default_on):
-        other = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+        other = Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, decode_block=block)
         stream_tokens(other, ids, max_tokens=64)  # captures the graphs the turns replay
     gens = {default_on: gen, not default_on: other}
     rows, streams = [], []
@@ -1817,15 +1842,17 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
             marks.append(time.perf_counter())
             fa.flash_decode.launches = 0
             step = step_numbers(
-                lambda g=g: g.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
-                calls=2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
+                lambda g=g: g.run_block(block, REPETITION_WINDOW, False, False),
+                calls=2, steps=block, profiled=1)
             step_launches = fa.flash_decode.launches
             marks.append(time.perf_counter())
             log(f"[time] {tag} T=1 routes, {name} turn: stream, decode step "
                 + " / ".join(f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s")
         streams.append(toks)
-        steps = 4 * DEFAULT_DECODE_BLOCK  # the stream's 63 tokens after the first; 4 blocks
-        want = (layers * steps, layers * steps) if on else (0, 0)
+        # the stream's 63 tokens after the first in whole blocks; the step's
+        # four calls of a block (``step_numbers``)
+        steps = (block * -(-63 // block), 4 * block)
+        want = (layers * steps[0], layers * steps[1]) if on else (0, 0)
         check((stream_launches, step_launches) == want,
               f"{tag} {name} route: flash_decode launches {stream_launches}, {step_launches}, "
               f"want {want}")
@@ -1833,7 +1860,7 @@ def phase_decode_routes(model, gen, tag: str, prompt: np.ndarray) -> list:
         log(f"{tag} T=1 {name} route: greedy 64-token stream {tok_s:.2f} tok/s; decode step "
             f"host {step['host_ms']:.3f} ms, wall {step['wall_ms']:.3f} ms, device "
             f"{step['device_ms']:.3f} ms; flash_decode launches {stream_launches} (stream) and "
-            f"{step_launches} (4 blocks of {DEFAULT_DECODE_BLOCK}); "
+            f"{step_launches} (4 blocks of {block}); "
             + ", ".join(f"{n} {ms:.3f}" for n, ms in step["kernels"]))
     same = [next((j for j, (a, b) in enumerate(zip(streams[0], s)) if a != b), len(s))
             for s in streams[1:]]
@@ -1957,16 +1984,17 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
     graphs captured) and a Generator of the same model that runs the same
     steps eagerly. Each turn: the ``run_prefill`` median of the prompt, one
     greedy 64-token stream (``EAGER_STREAM_TOKENS`` on the eager turn; its
-    decode tok/s), one decode step (blocks of 16 greedy steps) and one
+    decode tok/s), one decode step (blocks of the Generator's greedy steps) and one
     256-token prefill chunk (at offset 256): host ms, wall ms, the device's
     busy share and the kernels by device time. The streams' first
     ``EAGER_STREAM_TOKENS`` tokens must be token-identical both ways, and a
     seeded top-p sample too."""
-    from mlx_sharding_tpu_torch.generate import (DEFAULT_DECODE_BLOCK, REPETITION_WINDOW,
-                                                 Generator)
+    from mlx_sharding_tpu_torch.generate import REPETITION_WINDOW, Generator
 
+    block = gen.decode_block
     gens = {"graph": gen,
-            "eager": Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, cuda_graphs=False)}
+            "eager": Generator(model, max_seq=MAX_SEQ, prefill_chunk=CHUNK, decode_block=block,
+                               cuda_graphs=False)}
     ids = prompt[0].tolist()
     seeded = dict(temperature=0.8, top_p=0.9, seed=1234)
     rows, streams = [], {}
@@ -1984,8 +2012,8 @@ def phase_step_timing(model, gen, tag: str, prompt: np.ndarray) -> list:
         list(g.generate_step(ids, max_tokens=1))  # the state of a request at its first token
         marks.append(time.perf_counter())
         row["decode"] = step_numbers(
-            lambda g=g: g.run_block(DEFAULT_DECODE_BLOCK, REPETITION_WINDOW, False, False),
-            calls=1 if eager else 2, steps=DEFAULT_DECODE_BLOCK, profiled=1)
+            lambda g=g: g.run_block(block, REPETITION_WINDOW, False, False),
+            calls=1 if eager else 2, steps=block, profiled=1)
         marks.append(time.perf_counter())
         row["prefill_chunk"] = step_numbers(lambda g=g: g.run_chunk(CHUNK), calls=4, steps=1,
                                             profiled=2)
@@ -2619,7 +2647,7 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
     ``lap``, phase 15's packed run (``pipe_packed``). Returns the launches
     of the counted run per kernel (and phase 15's) and the request
     numbers."""
-    from mlx_sharding_tpu_torch.generate import DEFAULT_DECODE_BLOCK, Generator
+    from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.models.base import QuantizedLinear
     from mlx_sharding_tpu_torch.ops import flash_attention as fa
     from mlx_sharding_tpu_torch.ops import quant_matmul as qm
@@ -2650,7 +2678,7 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
     words = ("pipeline stages pass activations over rings while the cache grows; "
              "every chunk of the prompt runs through the flash kernel. ")
     long_prompt = (words * 8)[:600]
-    gen = Generator(packed, max_seq=MAX_SEQ, prefill_chunk=CHUNK)
+    gen = Generator(packed, max_seq=MAX_SEQ, prefill_chunk=CHUNK, decode_block=MAIN_DECODE_BLOCK)
     log(f"[main-4bit] fused {gen.fused_projections}")
     prompt = np.asarray([tok.encode(long_prompt)], np.int64)
     got = gen.run_prefill(prompt)
@@ -2670,7 +2698,7 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sub("packing and the logits check")
-    graph_line("[main-4bit]", gen.warm_up())
+    graph_line("[main-4bit]", gen.warm_up(prefill_upto=MAIN_PROMPT))
     sub("captures")
 
     server = make_server(ModelProvider(gen, tok, model_name="llama-3.1-8b-4bit"), "127.0.0.1", 0)
@@ -2711,15 +2739,15 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
                     "flash_decode": fa.flash_decode.launches,
                     "quant_gemv": qm.quant_gemv.launches,
                     "quant_matmul": qm.quant_matmul.launches}
-        # whole decode blocks of 16: 31 and 63 tokens after the first
-        block_counts = (-(-31 // DEFAULT_DECODE_BLOCK), -(-63 // DEFAULT_DECODE_BLOCK))
+        # whole decode blocks: 31 and 63 tokens after the first
+        block_counts = (-(-31 // MAIN_DECODE_BLOCK), -(-63 // MAIN_DECODE_BLOCK))
         served.check("[main-4bit]", 2 * 3 + sum(block_counts))
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
     layers, chunks = cfg.num_hidden_layers, 2 * 3
-    steps = DEFAULT_DECODE_BLOCK * sum(block_counts)
+    steps = MAIN_DECODE_BLOCK * sum(block_counts)
     expected = {
         "flash_attention": layers * chunks,
         # fused QKV, o_proj, fused gate+up and down_proj per layer and chunk
@@ -2756,10 +2784,11 @@ def phase_main_path_4bit(dense, seed: int, lap=None):
                 launches[name] += run["launches"][name]
         lap("phase 15, the packed model at pp = 1 and 2")
         stats["mesh"] = mesh_packed(packed)
-        for run in stats["mesh"].values():
+        stats["mesh_fleet"] = mesh_packed_fleet(packed)
+        for run in [*stats["mesh"].values(), *stats["mesh_fleet"].values()]:
             for name in ("quant_gemv", "quant_matmul", "flash_attention", "flash_decode"):
                 launches[name] += run["launches"][name]
-        lap("phase 17, the packed model at tp = 1 and 2")
+        lap("phase 17, the packed model at tp = 1 and 2, and as two tp = 2 replicas")
     return launches, stats
 
 
@@ -5191,6 +5220,9 @@ PIPE_BATCH = (BATCH_MIX[0], (GREEDY_PROMPT, GREEDY_TOKENS), BATCH_MIX[4], BATCH_
 PIPE_SLOTS = 4
 PIPE_PACKED_TOKENS = 32
 PIPE_STAGE_TOKENS = 32  # the runs with each stage's programs captured on their own
+# the single streams' decode blocks (engines, the Generator, the chain): a
+# capture runs its block's steps eagerly first
+PIPE_DECODE_BLOCK = 8
 DSV2_SPLIT = ((0, 14), (14, 27))  # the JAX package's headline split
 DSV2_PIPE_PROMPT = 200  # one chunk: each of the Lite's prefill graphs takes seconds
 DSV2_PIPE_TOKENS = 32
@@ -5211,7 +5243,8 @@ def pipe_ids(n: int) -> list:
     return ByteTokenizer().encode(mix_prompt(150, n))
 
 
-def stream_launches(layers: int, prompt: int, tokens: int, block: int = 16) -> dict:
+def stream_launches(layers: int, prompt: int, tokens: int,
+                    block: int = PIPE_DECODE_BLOCK) -> dict:
     """Kernel 1 and its T=1 route over one greedy stream of a dense model:
     a launch a layer for every prefill chunk and for every step of the
     whole decode blocks after the first token."""
@@ -5272,7 +5305,8 @@ def engine_pair(tag: str, model, split, ids: list, tokens: int, counts, want: di
     from mlx_sharding_tpu_torch.parallel import PipelineEngine
     from mlx_sharding_tpu_torch.weights import model_weight_bytes
 
-    kw = dict(max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, device=model.device)
+    kw = dict(max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, device=model.device,
+              decode_block=PIPE_DECODE_BLOCK)
     one = PipelineEngine(model, stages=1, **kw)
     out = {"pp1": pipe_stream(f"{tag}[pp=1]", one, ids, tokens, counts, want, warm=True)}
     out["pp1"]["stage_ms"] = stage_step_ms(one)
@@ -5354,18 +5388,24 @@ def pipe_jobs(tok=None) -> list:
             for i, (n, m) in enumerate(PIPE_BATCH)]
 
 
-def pipe_movement(tag: str, model, counts, want: list) -> dict:
-    """KV movement at pp = 2 (the 8B split 0-16 / 16-32, every stage on the
-    card): phase 15's mix and its 600-token request once more after it has
-    ended, through one batcher over a pool of ``PIPE_MOVE_POOL`` pages with
-    overcommit, the spill tier (prefetch on), a cold slot (request 0's
-    reader stops, ``PIPE_HOLD``) and the prefix store, served on this
-    thread: preemption spills a staged block of both stages and imports it
-    back, the cold slot spills and wakes, the finished 600-token request's
-    pages are demoted into the store's host tier and the repeat imports
-    them. Every stream equals ``want`` (the pp = 2 gather batcher without
-    movement, the repeat equal to the first 600-token stream); spills,
-    prefetch hits, the cold spill and the store's host hit are counted."""
+def pipe_movement(tag: str, model, counts, want: list, mesh=None, decode_block: int = 8) -> dict:
+    """KV movement over an engine of ``mesh`` (by default pp = 2: the 8B
+    split 0-16 / 16-32; phase 17 passes ``tp=2``), every stage and shard
+    on the card: phase 15's mix and its 600-token request once more after
+    it has ended, through one batcher over a pool of ``PIPE_MOVE_POOL``
+    pages with overcommit, the spill tier (prefetch on), a cold slot
+    (request 0's reader stops, ``PIPE_HOLD``) and the prefix store, served
+    on this thread: preemption spills a block (one payload a stage, each
+    with every KV head) and imports it back, the cold slot spills and
+    wakes, the finished 600-token request's pages are demoted into the
+    store's host tier and the repeat imports them. Every stream equals
+    ``want`` (the gather batcher of the same mesh without movement, the
+    repeat equal to the first 600-token stream); spills, prefetch hits, the
+    cold spill and the store's host hit are counted, and kernel 1 and its
+    T=1 route launched once a layer and shard for every prefill chunk and
+    decode step."""
+    from mlx_sharding_tpu_torch.cache import stage_layers
+    from mlx_sharding_tpu_torch.kv_compress import tree_leaves
     from mlx_sharding_tpu_torch.parallel import PipelineEngine
     from mlx_sharding_tpu_torch.prefix_store import PrefixStore
     from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
@@ -5374,10 +5414,10 @@ def pipe_movement(tag: str, model, counts, want: list) -> dict:
     jobs.append(jobs[-1])  # the same prompt again, once the first has ended
     store = PrefixStore(host_bytes=SPILL_BYTES)
     store._host._flush_async = False  # the demotion's copy at the release, on this thread
-    engine = PipelineEngine(model, stage_bounds=PIPE_SPLIT, microbatches=PIPE_SLOTS,
-                            max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+    engine = PipelineEngine(model, **(mesh or dict(stage_bounds=PIPE_SPLIT)),
+                            microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
                             pool_pages=PIPE_MOVE_POOL, page_size=PAGE, device=model.device)
-    batcher = ContinuousBatcher(engine, decode_block=8, overcommit=True,
+    batcher = ContinuousBatcher(engine, decode_block=decode_block, overcommit=True,
                                 spill_bytes=SPILL_BYTES, spill_cold_after=COLD_AFTER,
                                 kv_prefetch="on", prefix_store=store)
     batcher.spill._flush_async = False
@@ -5392,7 +5432,9 @@ def pipe_movement(tag: str, model, counts, want: list) -> dict:
     streams = [[t for t, _ in s] for s in items]
     sp, st, spilled = batcher.spill_stats(), store.stats(), batcher.spill.stats()
     sp["bytes_spilled_total"] = spilled["bytes_spilled_total"]
-    layouts = {store._host.peek(k).stage_layers for k in store._host.keys()}
+    blocks = [store._host.peek(k) for k in store._host.keys()]
+    layouts = {b.stage_layers for b in blocks}
+    heads = {leaf.shape[3] for b in blocks for leaf in tree_leaves((b.k_pages, b.v_pages))}
     log(f"{tag} {len(jobs)} requests over {PIPE_MOVE_POOL} pages in {secs:.2f}s: "
         f"{sp['preemptions']} preemptions, {sp['spills']} spills, {sp['spill_hits']} spill hits "
         f"({sp['prefetch_hits']} staged, {sp['demand_imports']} demand), {sp['cold_spills']} "
@@ -5400,16 +5442,18 @@ def pipe_movement(tag: str, model, counts, want: list) -> dict:
         f"{sp['reprefill_tokens']} tokens re-prefilled, {sp['bytes_spilled_total'] / 1e6:.1f} MB "
         f"spilled; store: {st['demotions']} demotions, host hits {st['hits_host']}, device hits "
         f"{st['hits_device']}, {st['tokens_reused']} tokens reused, host blocks' stage layers "
-        f"{layouts}; launches {got}")
+        f"{layouts}, KV heads {heads}; launches {got}")
     check(streams == want, f"{tag} streams part from the gather batcher's at "
           f"{[first_divergence(a, b) for a, b in zip(streams, want)]}")
     check(sp["preemptions"] >= 1 and sp["spills"] >= 1 and sp["spill_hits"] >= 1
           and sp["prefetch_hits"] >= 1 and sp["cold_spills"] >= 1
           and sp["cold_wakes"] == sp["cold_spills"] and sp["spill_fallbacks"] == 0,
           f"{tag} spill counters {sp}")
-    check(st["demotions"] >= 1 and st["hits_host"] >= 1 and layouts <= {(16, 16)},
-          f"{tag} store counters {st}, layouts {layouts}")
-    layers = model.config.num_hidden_layers
+    check(st["demotions"] >= 1 and st["hits_host"] >= 1
+          and layouts <= {stage_layers(batcher.cache)}
+          and heads == {model.cache_num_heads()},
+          f"{tag} store counters {st}, layouts {layouts}, KV heads {heads}")
+    layers = model.config.num_hidden_layers * engine.shards
     check(got["flash_attention"] == layers * batcher.prefill_chunks
           and got["flash_decode"] == layers * batcher.decode_steps
           and got["paged_attention"] == 0, f"{tag} launches {got}")
@@ -5418,14 +5462,15 @@ def pipe_movement(tag: str, model, counts, want: list) -> dict:
     return {"spill": sp, "store": st, "launches": got, "secs": secs}
 
 
-def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
-    """Phase 15's mix over an S = 2 fleet that ``build_generator`` builds
-    as the server's ``--num-stages 2`` with ``fleet`` (two replicas with
-    shared weights and a drain of replica 0 once every stream has
-    ``PIPE_DRAIN_AFTER`` tokens, or a disagg pair), each request consumed on
-    a thread: every stream equals ``want``; the card memory the fleet adds
-    is its pools and graphs (one resident tree, no second copy of the
-    weights)."""
+def pipe_fleet(tag: str, model, counts, want: list, mesh=None, decode_block: int = 8,
+               drain: bool = True, **fleet) -> dict:
+    """Phase 15's mix over a fleet that ``build_generator`` builds as the
+    server's ``--num-stages 2`` (or, ``mesh``, ``--tp 2``) with ``fleet``
+    (two replicas with shared weights and, with ``drain``, a drain of
+    replica 0 once every stream has ``PIPE_DRAIN_AFTER`` tokens, or a
+    disagg pair), each request consumed on a thread: every stream equals
+    ``want``; the card memory the fleet adds is its pools and graphs (one
+    resident tree, no second copy of the weights)."""
     from mlx_sharding_tpu_torch.server.openai_api import build_generator
     from mlx_sharding_tpu_torch.weights import weight_store
 
@@ -5434,10 +5479,11 @@ def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
+    mesh = mesh or dict(num_stages=2)
     gen = build_generator("llama-3.1-8b-random", model=model, device=model.device,
-                          num_stages=2, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                          max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
                           concurrent=PIPE_SLOTS, paged_pool=POOL_PAGES, page_size=PAGE,
-                          decode_block=8, **fleet)
+                          decode_block=decode_block, **mesh, **fleet)
     load_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     grown = torch.cuda.memory_allocated() - before
@@ -5446,10 +5492,12 @@ def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
     reps = ([*gen.prefill.replicas, *gen.decode.replicas] if fleet.get("disagg")
             else gen.replicas)
     log(f"{tag} built in {load_s:.2f}s: {len(reps)} engines of stages "
-        f"{[r.engine.stage_bounds for r in reps][0]} on {model.device}; card memory "
+        f"{[r.engine.stage_bounds for r in reps][0]}, tp {reps[0].engine.tp}, on "
+        f"{model.device}; card memory "
         f"+{grown / 1e9:.3f} GB (pools and graphs; the weights {w_bytes / 1e9:.3f} GB once); "
         f"weight store: {store['trees']} tree, {store['refs']} refs")
-    check(all(r.engine.num_stages == 2 for r in reps), f"{tag} stages")
+    check(all(r.engine.num_stages == mesh.get("num_stages", 1)
+              and r.engine.tp == mesh.get("tp", 1) for r in reps), f"{tag} the engines' mesh")
     check(store["trees"] == 1 and store["refs"] == len(reps) and grown < w_bytes,
           f"{tag} a second copy of the weights: {store}, +{grown} bytes")
     jobs = pipe_jobs()
@@ -5470,7 +5518,8 @@ def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
         t.start()
         time.sleep(0.05)  # least-loaded routing alternates the replicas
     out = {"load_s": load_s, "grown_bytes": grown}
-    if not fleet.get("disagg"):
+    drain = drain and not fleet.get("disagg")
+    if drain:
         t_wait = time.perf_counter()
         while min(len(g) for g in got) < PIPE_DRAIN_AFTER and time.perf_counter() - t_wait < 120:
             time.sleep(0.002)
@@ -5495,7 +5544,7 @@ def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
         check(h["handoffs"] == len(jobs) and h["bytes_total"] > 0 and h["fallbacks"] == {},
               f"{tag} handoffs {h}")
         out["handoff"] = h
-    else:
+    elif drain:
         r1 = gen.replicas[1]
         moved = r1.resilience_stats()["migrations_in"], r1.spill_stats()["spill_hits"]
         log(f"{tag} {len(jobs)} requests, {n} tokens in {secs:.2f}s ({n / secs:.2f} tok/s): "
@@ -5504,6 +5553,9 @@ def pipe_fleet(tag: str, model, counts, want: list, **fleet) -> dict:
         check(out["drain"]["migrated"] >= 1 and moved[1] >= 1,
               f"{tag} the drain moved nothing: {out['drain']}, {moved}")
         out["migrated"] = out["drain"]["migrated"]
+    else:
+        log(f"{tag} {len(jobs)} requests, {n} tokens in {secs:.2f}s ({n / secs:.2f} tok/s) over "
+            f"{len(reps)} replicas; launches {out['launches']}")
     check(out["launches"]["flash_attention"] > 0 and out["launches"]["flash_decode"] > 0,
           f"{tag} launches {out['launches']}")
     gen.close()
@@ -5538,7 +5590,8 @@ def phase_pipeline(model, seed: int, lap) -> tuple:
     stats = engine_pair("[pipe]", model, PIPE_SPLIT, ids, PIPE_TOKENS, counts, want,
                         build=lambda: build_generator(
                             "llama-3.1-8b-random", model=model, device=model.device,
-                            num_stages=2, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK))
+                            num_stages=2, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                            decode_block=PIPE_DECODE_BLOCK))
     add(stats["pp1"]["launches"])
     add(stats["pp2"]["launches"])
     two = stats.pop("engine")
@@ -5561,11 +5614,13 @@ def phase_pipeline(model, seed: int, lap) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 15, the fused engine at pp = 1 and 2")
-    gen = Generator(model, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK)
+    gen = Generator(model, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                    decode_block=PIPE_DECODE_BLOCK)
     ref = pipe_stream("[pipe-gen][pp=1]", gen, ids, PIPE_TOKENS, counts, want)
     add(ref["launches"])
     del gen
-    chain = chained_from_model(model, PIPE_CHAINED, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK)
+    chain = chained_from_model(model, PIPE_CHAINED, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
+                               decode_block=PIPE_DECODE_BLOCK)
     run = pipe_stream(f"[pipe-chained][{PIPE_CHAINED}]", chain, ids, PIPE_TOKENS, counts, want)
     add(run["launches"])
     check(run["tokens"] == ref["tokens"], f"[pipe-chained] the chain parts from the Generator at "
@@ -5605,7 +5660,8 @@ def phase_pipeline(model, seed: int, lap) -> tuple:
     # each stage's share of a step as a graph of its own (what stages on
     # distinct cards take), forced on one card: the fused engine and the
     # chain, each against the first PIPE_STAGE_TOKENS of its pp = 1 stream
-    kw = dict(max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, stage_graphs=True)
+    kw = dict(max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, stage_graphs=True,
+              decode_block=PIPE_DECODE_BLOCK)
     want = stream_launches(layers, PIPE_PROMPT, PIPE_STAGE_TOKENS)
     for tag, gen, want_toks in (
             ("[pipe-stage-graphs][fused]",
@@ -5822,7 +5878,8 @@ def pipe_packed(packed) -> dict:
     layers = packed.config.num_hidden_layers
     ids = pipe_ids(PIPE_PROMPT)
     want = stream_launches(layers, PIPE_PROMPT, PIPE_PACKED_TOKENS)
-    chunks, steps = -(-PIPE_PROMPT // CHUNK), 16 * -(-(PIPE_PACKED_TOKENS - 1) // 16)
+    block = PIPE_DECODE_BLOCK
+    chunks, steps = -(-PIPE_PROMPT // CHUNK), block * -(-(PIPE_PACKED_TOKENS - 1) // block)
     want.update(quant_matmul=LAYER_SHAPES * layers * chunks,
                 quant_gemv=(LAYER_SHAPES * layers + 1) * steps + chunks)
     out = engine_pair("[pipe-4bit]", packed, PIPE_SPLIT, ids, PIPE_PACKED_TOKENS, kernel_counts(),
@@ -5876,9 +5933,15 @@ MESH_SP_PROMPT = 1500  # pads to 1536: the quantum is sp x CHUNK = 512
 MESH_SP_MAX_SEQ = 2048
 MESH_F32_LAYERS = 4
 MESH_F32_SP_PROMPT = 700
+# f32 K/V of the same request at tp = 2 and tp = 1 (summation order only)
+MESH_BLOCK_REL_L2 = 1e-5
 # the engines' and batchers' decode blocks: a capture's seconds are mostly
 # the eager warm-up of a block's steps, and the ep scan's steps are long
 MESH_DECODE_BLOCK = 4
+# the tp = 2 fleets' decode blocks: ``build_generator`` captures every
+# block kind of every replica at load, each block's steps run eagerly
+# first, and an eager step at tp = 2 is long
+MESH_FLEET_DECODE_BLOCK = 1
 # the families' streams (Mixtral, the Lite): a prompt of one chunk
 MESH_FAMILY_PROMPT = CHUNK
 # Llama-3.1-8B's projections at tp = 2, one shard's (OUT, IN), unfused
@@ -6135,16 +6198,130 @@ def mesh_expert_points(seed: int) -> list:
     return rows
 
 
+def mesh_ngram(tag: str, model, counts, want: list) -> dict:
+    """n-gram speculation in the tp = 2 batcher (phase 17's geometry, the
+    gather path, overcommit): phase 15's mix, greedy, served on this thread
+    after its captures. Each stream is held by phase 6's rule to ``want``,
+    the tp = 2 batcher's run without speculation (tokens and logprobs):
+    equal, or parting only at a near tie (``NEAR_TIE_GAP``) to a near-tied
+    token; kernel 1 and the T=1 route launched once a layer and shard for
+    every prefill chunk and plain decode step (the verify attends through
+    ``masked_attention``, as JAX's does). Prints ``spec_stats``."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    engine = PipelineEngine(model, tp=MESH_TP, microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            paged_attention="gather", device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=MESH_DECODE_BLOCK, overcommit=True,
+                                draft="ngram")
+    graph_line(tag, batcher.warm_up(blocks=GREEDY_BLOCK))
+    counts.reset()
+    t0 = time.perf_counter()
+    items, _ = serve_on_this_thread(batcher, pipe_jobs())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts.read()
+    streams = [[t for t, _ in s] for s in items]
+    spec = batcher.spec_stats()
+    n = sum(len(s) for s in streams)
+    log(f"{tag} {len(streams)} requests, {n} tokens in {secs:.2f}s: {n / secs:.2f} tok/s; "
+        f"{batcher.prefill_chunks} prefill chunks, {batcher.decode_steps} plain decode steps, "
+        f"{batcher.verify_ticks} verify ticks; spec_stats {spec}; launches {got}")
+    for i, (toks, (want_toks, lps)) in enumerate(zip(streams, want)):
+        same = agreement(f"{tag} request {i}", "against the tp = 2 batcher without speculation",
+                         toks, want_toks, near_ties(tag, f"request {i}", lps))
+        log(f"{tag} request {i}: {same} of {len(want_toks)} tokens equal the run without "
+            f"speculation")
+    check(spec["rounds"] > 0 and batcher.verify_ticks > 0, f"{tag} no verify round: {spec}")
+    layers = model.config.num_hidden_layers * MESH_TP
+    check(got["flash_attention"] == layers * batcher.prefill_chunks
+          and got["flash_decode"] == layers * batcher.decode_steps
+          and got["paged_attention"] == 0, f"{tag} launches {got}")
+    batcher.close()
+    return {"spec": spec, "tok_s": n / secs, "launches": got}
+
+
+def handed_off(batcher, ids: list, tokens: int) -> tuple:
+    """A prefill-only stream on ``batcher`` (the disagg protocol): its
+    first token and its state, the block flushed to the host."""
+    from mlx_sharding_tpu_torch.resilience import HandoffReadyError
+
+    first = []
+    try:
+        for t, _ in batcher.generate_step(ids, max_tokens=tokens, _prefill_only=True):
+            first.append(t)
+    except HandoffReadyError as ready:
+        ready.state.block.to_host()
+        return first, ready.state
+    raise RuntimeError("the prefill-only stream ended without a handoff")
+
+
+def mesh_cross_tp(tag: str, f32) -> dict:
+    """f32 at 4 layers of the 8B's widths: a block exported from a tp = 2
+    pool after the first token imports into a tp = 1 pool (and a tp = 1
+    block into a tp = 2 pool), and each resumed stream is token-identical
+    to the uninterrupted tp = 1 stream; the tp = 2 block's whole-head
+    payload is within ``MESH_BLOCK_REL_L2`` of the tp = 1 block's for the
+    same request, layer by layer."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    ids = pipe_ids(PIPE_PROMPT)
+    tokens = MESH_SHORT_TOKENS
+    kw = dict(microbatches=2, max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, pool_pages=8,
+              page_size=PAGE, device=f32.device)
+
+    def batcher(tp):
+        return ContinuousBatcher(PipelineEngine(f32, tp=tp, **kw), decode_block=MESH_DECODE_BLOCK)
+
+    ref = batcher(1)
+    want = [t for t, _ in ref.generate_step(ids, max_tokens=tokens)]
+    states, errs = {}, []
+    for tp in (MESH_TP, 1):
+        src = batcher(tp)
+        states[tp] = handed_off(src, ids, tokens)
+        src.close()
+    b2, b1 = states[MESH_TP][1].block, states[1][1].block
+    for name in ("k_pages", "v_pages"):
+        a, b = getattr(b2, name), getattr(b1, name)
+        check(a.shape == b.shape, f"{tag} {name}: tp = 2 {tuple(a.shape)}, tp = 1 "
+              f"{tuple(b.shape)}")
+        errs += [rel_l2(a[layer], b[layer]) for layer in range(a.shape[0])]
+    log(f"{tag} the tp = 2 block against the tp = 1 block of the same request: leaves "
+        f"{tuple(b2.k_pages.shape)} both, {b2.nbytes / 1e6:.1f} MB both; relative L2 by layer "
+        f"(K then V) {[f'{e:.2e}' for e in errs]} (tol {MESH_BLOCK_REL_L2})")
+    check(max(errs) <= MESH_BLOCK_REL_L2, f"{tag} the tp = 2 block is not the tp = 1 block")
+    out = {"block_rel_l2": max(errs)}
+    for src_tp, dst in ((MESH_TP, ref), (1, batcher(MESH_TP))):
+        first, state = states[src_tp]
+        got = first + [t for t, _ in dst.generate_step(ids, max_tokens=tokens, _resume=state)]
+        stats = dst.spill_stats()
+        name = f"tp = {src_tp} into tp = {dst.engine.tp}"
+        log(f"{tag} {name}: the resumed stream "
+            f"{'equals' if got == want else 'parts from'} the uninterrupted tp = 1 stream over "
+            f"{len(want)} tokens; imports {stats['demand_imports']}, fallbacks "
+            f"{stats['spill_fallbacks']}")
+        check(got == want and stats["spill_fallbacks"] == 0 and stats["demand_imports"] >= 1,
+              f"{tag} {name}: parts at token {first_divergence(got, want)}, {stats}")
+        dst.close()
+    return out
+
+
 def phase_mesh(model, seed: int, lap) -> tuple:
     """Phase 17 on the 8B in bf16, every shard on its card: the fused
     engine's single stream at tp = 1 and 2 (weights held once, decode tok/s,
     two reductions a layer, the near-tie rule), the gather batcher at tp =
     1 and 2 over a paged pool with overcommit, a streamed request through
-    the server built as ``--tp 2 --concurrent 4`` builds it, sequence
+    the server built as ``--tp 2 --concurrent 4`` builds it, then over tp
+    = 2 engines KV movement (``pipe_movement``), two replicas with a drain
+    and a disagg pair (``pipe_fleet``) and n-gram speculation
+    (``mesh_ngram``), each against the tp = 2 batcher's streams, sequence
     parallelism (a 1,500-token prompt over two sp shards, decoded over the
     sharded cache, against the sp = 1 Generator), then f32 at 4 layers of
-    the 8B's widths (tp = 2 and sp = 2 token-identical to tp = 1). Returns
-    the launches per kernel and the numbers."""
+    the 8B's widths (tp = 2 and sp = 2 token-identical to tp = 1, and page
+    blocks moved between tp = 1 and tp = 2 pools, ``mesh_cross_tp``).
+    Returns the launches per kernel and the numbers."""
     from mlx_sharding_tpu_torch.generate import Generator
     from mlx_sharding_tpu_torch.models import build_model
     from mlx_sharding_tpu_torch.parallel.mesh import device_grid
@@ -6201,6 +6378,23 @@ def phase_mesh(model, seed: int, lap) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 17, the batcher at tp = 1 and 2 and the server")
+    # KV movement, the fleet and speculation over tp = 2 engines, each
+    # against the tp = 2 gather batcher's streams without them
+    want = [t for t, _ in b2["streams"]]
+    stats["movement"] = pipe_movement("[mesh-move]", model, counts, want + [want[-1]],
+                                      mesh=dict(tp=MESH_TP), decode_block=MESH_DECODE_BLOCK)
+    add(stats["movement"]["launches"])
+    lap("phase 17, spill, a cold slot and the prefix store at tp = 2")
+    mesh = dict(mesh=dict(tp=MESH_TP), decode_block=MESH_FLEET_DECODE_BLOCK)
+    stats["replicas"] = pipe_fleet("[mesh-replicas]", model, counts, want, replicas=2,
+                                   shared_weights="on", **mesh)
+    add(stats["replicas"]["launches"])
+    stats["disagg"] = pipe_fleet("[mesh-disagg]", model, counts, want, disagg=True, **mesh)
+    add(stats["disagg"]["launches"])
+    lap("phase 17, two replicas with a drain and a disagg pair at tp = 2")
+    stats["ngram"] = mesh_ngram("[mesh-ngram]", model, counts, b2["streams"])
+    add(stats["ngram"]["launches"])
+    lap("phase 17, n-gram speculation in the tp = 2 batcher")
     ids = pipe_ids(MESH_SP_PROMPT)
     plain = Generator(model, max_seq=MESH_SP_MAX_SEQ, prefill_chunk=CHUNK,
                       decode_block=MESH_DECODE_BLOCK)
@@ -6251,7 +6445,9 @@ def phase_mesh(model, seed: int, lap) -> tuple:
     log(f"[mesh-f32] {MESH_F32_LAYERS} layers at the 8B's widths in f32: tp = 2 token-identical "
         f"to tp = 1 over {len(ref['tokens'])} tokens, sp = 2 (sp_decode) to sp = 1 over "
         f"{len(want)} tokens after a {len(sp_ids)}-token prompt")
-    del f32, plain, sp
+    del plain, sp
+    stats["cross_tp"] = mesh_cross_tp("[mesh-f32-blocks]", f32)
+    del f32
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 17, f32 at 4 layers")
@@ -6286,6 +6482,47 @@ def mesh_packed(packed) -> dict:
                                       want, tp=tp, reference=runs.get(1))
     log(f"[mesh-4bit] phase 17's packed runs took {time.perf_counter() - t0:.1f}s")
     return runs
+
+
+def mesh_packed_fleet(packed) -> dict:
+    """Phase 17's packed fleet after ``mesh_packed``: phase 15's mix,
+    greedy, through one packed tp = 2 batcher (the gather path, served on
+    this thread after its captures), then through two packed tp = 2
+    replicas that ``build_generator`` builds as the server's ``--tp 2
+    --replicas 2 --keep-quantized`` does (``pipe_fleet``, no drain: the
+    bf16 fleet drains): stream for stream equal, kernels 3 and 4 launched at
+    the shard shapes, and one resident tree (the model's tp = 2 placement,
+    which every engine aliases: no second copy of the packed row
+    splits)."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    t0 = time.perf_counter()
+    counts = kernel_counts()
+    engine = PipelineEngine(packed, tp=MESH_TP, microbatches=PIPE_SLOTS, max_seq=PIPE_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            paged_attention="gather", device=packed.device)
+    batcher = ContinuousBatcher(engine, decode_block=MESH_DECODE_BLOCK)
+    graph_line("[mesh-4bit-batch]", batcher.warm_up(blocks=GREEDY_BLOCK))
+    counts.reset()
+    items, _ = serve_on_this_thread(batcher, pipe_jobs())
+    torch.cuda.synchronize()
+    one = {"launches": counts.read()}
+    want = [[t for t, _ in s] for s in items]
+    log(f"[mesh-4bit-batch] {len(want)} requests through one packed tp = 2 batcher: "
+        f"{batcher.prefill_chunks} prefill chunks, {batcher.decode_steps} decode steps; "
+        f"launches {one['launches']}")
+    batcher.close()
+    del batcher, engine
+    fleet = pipe_fleet("[mesh-4bit-replicas]", packed, counts, want, mesh=dict(tp=MESH_TP),
+                       decode_block=MESH_FLEET_DECODE_BLOCK, drain=False, replicas=2,
+                       shared_weights="on")
+    for run, tag in ((one, "batcher"), (fleet, "replicas")):
+        check(all(run["launches"][k] > 0 for k in ("quant_matmul", "quant_gemv",
+                                                   "flash_attention", "flash_decode")),
+              f"[mesh-4bit-{tag}] launches {run['launches']}")
+    log(f"[mesh-4bit-replicas] phase 17's packed fleet took {time.perf_counter() - t0:.1f}s")
+    return {"batcher": one, "replicas": fleet}
 
 
 def mesh_family(tag: str, model, runs=(("tp", MESH_TP, 1),)) -> dict:

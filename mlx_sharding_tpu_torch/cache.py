@@ -34,7 +34,14 @@ caches) per stage, over that stage's layers and on its device
 so a request holds the same page ids on every stage. Its page blocks carry
 one payload per stage (:func:`export_pool_pages`). At tp or ep > 1 a
 stage's KV is one such pool a shard (:class:`ShardedKV`), the same page ids
-again; its page blocks are not exported (slice 9b.3b).
+again. Its page payload carries whole heads, as JAX's block out of its one
+global array does: the export gathers the tp shards' pages (of ep index 0)
+and joins them on the heads axis on the first shard's device, the import
+splits them back and writes every ep copy in place, and a head-count
+independent cache (MLA's latent) moves shard 0's pages alone. So a block
+has the tp = 1 pool's leaf shapes and bytes whatever tp and ep, and
+imports into a pool of another tp. On distinct cards the export costs one
+device-to-device copy of the other shards' pages, and the import one back.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from mlx_sharding_tpu_torch.parallel.mesh import hop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,12 +213,22 @@ class StagedKV:
 @dataclasses.dataclass
 class ShardedKV:
     """The KV of one stage at tp or ep > 1: one :class:`PagedKV` per shard
-    of the stage (JAX's ``_kv_spec``: a tp shard's pool or slot caches hold
-    its own KV heads, or a whole copy of a head-count independent cache;
-    an ep shard keeps the copy its replicated attention writes), each on
-    its shard's device, all holding the same ``offsets`` list."""
+    of the stage, shard r = e * tp + t (JAX's ``_kv_spec``: a tp shard's
+    pool or slot caches hold its own KV heads, or a whole copy of a
+    head-count independent cache, ``replicated``; an ep shard keeps the
+    copy its replicated attention writes), each on its shard's device, all
+    holding the same ``offsets`` list."""
 
     shards: list
+    tp: int = 1
+    replicated: bool = False
+
+    @property
+    def whole(self) -> list:
+        """The shards whose heads, in tp order, make the whole-head cache:
+        the tp shards of ep index 0, or shard 0 alone for a replicated
+        cache."""
+        return self.shards[:1] if self.replicated else self.shards[: self.tp]
 
     @property
     def offsets(self) -> list:
@@ -225,24 +244,20 @@ class ShardedKV:
         return sum(c.nbytes for c in self.shards)
 
 
-def sharded(caches: list):
+def sharded(caches: list, tp: int = 1, replicated: bool = False):
     """Per-shard caches of one stage made to share the first one's slot
-    offsets (the cache itself for one shard)."""
+    offsets (the cache itself for one shard). ``tp``: the tp width (shard r
+    = e * tp + t); ``replicated``: every shard holds a whole copy."""
     if len(caches) == 1:
         return caches[0]
     for c in caches[1:]:
         c.offsets = caches[0].offsets
-    return ShardedKV(list(caches))
+    return ShardedKV(list(caches), tp=tp, replicated=replicated)
 
 
 def shard_caches(cache) -> list:
     """The per-shard caches of one stage's cache, or ``[cache]``."""
     return cache.shards if isinstance(cache, ShardedKV) else [cache]
-
-
-def is_sharded_kv(cache) -> bool:
-    """True when some stage of ``cache`` is split over tp or ep shards."""
-    return any(isinstance(c, ShardedKV) for c in stage_caches(cache))
 
 
 def staged(caches: list) -> StagedKV:
@@ -262,20 +277,41 @@ def stage_layers(cache) -> Optional[tuple]:
     which a staged page block records), or None for one pool."""
     if not isinstance(cache, StagedKV):
         return None
-    return tuple(kv_data(c.k).shape[0] for c in cache.stages)
+    return tuple(kv_data(shard_caches(c)[0].k).shape[0] for c in cache.stages)
 
 
 def pool_device(cache) -> torch.device:
-    """The device of a single pool's leaves."""
-    return kv_data(cache.k).device
+    """The device of a single pool's leaves (a :class:`ShardedKV`'s first
+    shard's, where its whole-head page payloads lie)."""
+    return kv_data(shard_caches(cache)[0].k).device
+
+
+def whole_pool(cache):
+    """The pool geometry a page block of one stage's cache carries: the
+    pool itself, or for a :class:`ShardedKV` a :class:`PagedKV` of meta
+    tensors with its whole heads (its :attr:`ShardedKV.whole` shards'
+    heads summed; JAX's global leaf), which nothing reads or writes."""
+    if not isinstance(cache, ShardedKV):
+        return cache
+    parts = cache.whole
+
+    def meta(*leaves):
+        shape = list(leaves[0].shape)
+        shape[3] = sum(t.shape[3] for t in leaves)
+        return torch.empty(shape, dtype=leaves[0].dtype, device="meta")
+
+    return PagedKV(k=_map_pool(meta, parts[0].k, *(c.k for c in parts[1:])),
+                   v=_map_pool(meta, parts[0].v, *(c.v for c in parts[1:])),
+                   offsets=cache.offsets)
 
 
 def kv_row_bytes(cache) -> int:
     """K + V bytes of one position over every layer of a pool (every stage
-    of a :class:`StagedKV`, every shard of a :class:`ShardedKV`), scales
-    included."""
+    of a :class:`StagedKV`; a :class:`ShardedKV`'s whole heads once, as
+    JAX's global leaves count them), scales included."""
+    pools = [whole_pool(st) for st in stage_caches(cache)]
     return sum(t.shape[0] * t.shape[-2] * t.shape[-1] * t.element_size()
-               for st in stage_caches(cache) for c in shard_caches(st) for buf in (c.k, c.v)
+               for pool in pools for buf in (pool.k, pool.v)
                for t in (buf.values() if is_quantized_kv(buf) else (buf,)))
 
 
@@ -389,10 +425,23 @@ def export_pool_pages(cache, page_ids: torch.Tensor):
     one leaf with every stage on axis 0. JAX pads an uneven split to its
     largest stage; the port gathers each stage's own layers, so a staged
     payload is smaller than JAX's at an uneven split and equal at an even
-    one."""
+    one.
+
+    A :class:`ShardedKV` gives one whole-head payload (JAX's global leaf):
+    each of its :attr:`ShardedKV.whole` shards' pages gathered on its
+    device, then joined on the heads axis (3) in tp order on the first
+    shard's device."""
     if isinstance(cache, StagedKV):
         parts = [export_pool_pages(c, page_ids.to(pool_device(c))) for c in cache.stages]
         return [k for k, _ in parts], [v for _, v in parts]
+    if isinstance(cache, ShardedKV):
+        dev = pool_device(cache)
+        parts = [export_pool_pages(c, page_ids.to(pool_device(c))) for c in cache.whole]
+        if len(parts) == 1:
+            return parts[0]
+        join = lambda *leaves: torch.cat([hop(t, dev) for t in leaves], dim=3)  # noqa: E731
+        return (_map_pool(join, *(k for k, _ in parts)),
+                _map_pool(join, *(v for _, v in parts)))
     take = lambda leaf: leaf.index_select(1, page_ids)  # noqa: E731
     return _map_pool(take, cache.k), _map_pool(take, cache.v)
 
@@ -405,10 +454,26 @@ def import_pool_pages(cache, k_pages, v_pages, page_ids: torch.Tensor):
     graphs hold their addresses. Payload leaves must already sit on the
     pool's device (each stage's on its stage's); they are cast to the
     pool's dtype. A :class:`StagedKV` takes the per-stage lists its export
-    gave. Returns ``cache``."""
+    gave. A :class:`ShardedKV` takes a whole-head payload on its first
+    shard's device: shard r = e * tp + t gets heads ``[t·H, (t+1)·H)`` of it
+    (all of them for a replicated cache), so every ep copy is written.
+    Returns ``cache``."""
     if isinstance(cache, StagedKV):
         for c, k, v in zip(cache.stages, k_pages, v_pages, strict=True):
             import_pool_pages(c, k, v, page_ids.to(pool_device(c)))
+        return cache
+    if isinstance(cache, ShardedKV):
+        for r, c in enumerate(cache.shards):
+            dev, t = pool_device(c), r % cache.tp
+
+            def part(blk, pool, dev=dev, t=t):
+                if not cache.replicated:
+                    h = pool.shape[3]
+                    blk = blk.narrow(3, t * h, h)
+                return hop(blk, dev)
+
+            import_pool_pages(c, _map_pool(part, k_pages, c.k), _map_pool(part, v_pages, c.v),
+                              page_ids.to(dev))
         return cache
 
     def put(pool, blk):

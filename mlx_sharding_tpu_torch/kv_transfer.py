@@ -64,6 +64,16 @@ side streams and wait on that stage's event alone. JAX's block is one leaf
 with every stage on axis 0, padded to the largest stage: at an uneven split
 the port's ``nbytes`` is smaller than JAX's, at an even one equal. On one
 card every stage is ``cuda:0``; stages on distinct cards have not been run.
+
+Tensor and expert parallelism: a stage split over shards
+(``cache.ShardedKV``) exports one whole-head payload, as JAX's block out of
+its global array: the same leaf shapes, bytes and checksum as the tp = 1
+pool's wherever the KV is equal, and nothing in the block or its wire
+format names a shard count. The payload lies on the stage's first shard's
+device (the export's event is recorded there, a prefetch stages there),
+and the import splits its heads over the tp shards and writes every ep
+copy. The geometry checks compare whole heads (``cache.whole_pool``), so a
+block moves between pools of another tp.
 """
 
 from __future__ import annotations
@@ -87,10 +97,10 @@ from mlx_sharding_tpu_torch.cache import (
     StagedKV,
     export_pool_pages,
     import_pool_pages,
-    is_sharded_kv,
     pool_device,
     stage_caches,
     stage_layers,
+    whole_pool,
 )
 from mlx_sharding_tpu_torch.device import upload
 from mlx_sharding_tpu_torch.kv_compress import (
@@ -101,7 +111,6 @@ from mlx_sharding_tpu_torch.kv_compress import (
     tree_map,
     tree_structure,
 )
-from mlx_sharding_tpu_torch.parallel.mesh import DEFER_KV
 from mlx_sharding_tpu_torch.testing.faults import inject
 from mlx_sharding_tpu_torch.utils.locks import make_lock
 
@@ -529,24 +538,28 @@ def pages_compatible(k_pages, v_pages, cache, check_dtype: bool = True) -> Optio
     checked stage by stage against a staged payload's lists: another stage
     count or split is a geometry mismatch, as JAX's ``(S, L, ...)`` leaf
     check finds it. JAX compares a split padded to its largest stage, so it
-    takes a 0-3 / 3-4 block into a 0-1 / 1-4 pool; the port refuses it."""
+    takes a 0-3 / 3-4 block into a 0-1 / 1-4 pool; the port refuses it. A
+    :class:`cache.ShardedKV` is checked on its whole heads
+    (``cache.whole_pool``), as JAX compares global shapes: a block of a tp =
+    2 pool fits a tp = 1 pool of the same model, and back."""
     pools = stage_caches(cache)
     staged = isinstance(cache, StagedKV)
     if isinstance(k_pages, list) != staged or (staged and len(k_pages) != len(pools)):
         ours = tuple(tree_leaves(k)[0].shape[0] for k in
                      (k_pages if isinstance(k_pages, list) else [k_pages]))
         return (f"page geometry mismatch: block stage layers {ours} vs pool "
-                f"{stage_layers(cache) or (tree_leaves(cache.k)[0].shape[0],)}")
+                f"{stage_layers(cache) or (tree_leaves(whole_pool(cache).k)[0].shape[0],)}")
     if staged:
         for k, v, pool in zip(k_pages, v_pages, pools):
             reason = pages_compatible(k, v, pool, check_dtype)
             if reason is not None:
                 return reason
         return None
-    ours, theirs = tree_structure((k_pages, v_pages)), tree_structure((cache.k, cache.v))
+    whole = whole_pool(cache)
+    ours, theirs = tree_structure((k_pages, v_pages)), tree_structure((whole.k, whole.v))
     if ours != theirs:
         return f"KV storage mode mismatch: block {ours} vs pool {theirs}"
-    for blk, pool in zip(tree_leaves((k_pages, v_pages)), tree_leaves((cache.k, cache.v))):
+    for blk, pool in zip(tree_leaves((k_pages, v_pages)), tree_leaves((whole.k, whole.v))):
         bs, ps = tuple(blk.shape), tuple(pool.shape)
         if len(bs) != len(ps) or bs[:1] != ps[:1] or bs[2:] != ps[2:]:
             return f"page geometry mismatch: block leaf {bs} vs pool {ps}"
@@ -566,8 +579,6 @@ def export_block(cache, page_ids, *, page_size: int, n_tokens: int, prompt, hist
     :class:`cache.StagedKV` gives a staged block: each stage's gather on
     its device's current stream, an event recorded there after it. Fault
     site ``cache.export`` fires before any device work."""
-    if is_sharded_kv(cache):
-        raise NotImplementedError(DEFER_KV)
     inject("cache.export", n_pages=len(page_ids), n_tokens=n_tokens)
     devices = [pool_device(c) for c in stage_caches(cache)]
     ids = upload(np.asarray(list(page_ids), np.int64), devices[0])
@@ -641,8 +652,6 @@ def import_block(cache, block: KVPageBlock, page_ids, *, share_hash=None, codec=
     ``codec``) and raises on any problem, so the caller releases the pages
     and re-prefills. A compressed block is rebuilt here unless a prefetch
     staged its rebuild. Fault sites ``cache.import`` / ``cache.compress``."""
-    if is_sharded_kv(cache):
-        raise NotImplementedError(DEFER_KV)
     inject("cache.import", n_pages=len(page_ids), n_tokens=block.n_tokens)
     block.verify(recheck=False)
     if block.share_hash != share_hash:

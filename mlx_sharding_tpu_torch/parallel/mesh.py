@@ -42,11 +42,7 @@ AXIS_SP = "sp"
 AXIS_EP = "ep"
 AXIS_TP = "tp"
 
-#: what this slice defers over tp or ep > 1 and over several processes
-DEFER_KV = ("page-block moves at tp or ep > 1 (spill, prefix store, drain, handoff) come with "
-            "slice 9b.3b (ROADMAP queue 1)")
-DEFER_FLEET = ("--replicas, --disagg and --autoscale over tp or ep > 1 come with slice 9b.3b "
-               "(ROADMAP queue 1)")
+#: what the port defers: several processes
 DEFER_MULTIHOST = ("several processes (--coordinator, --num-processes, --pod) and the pod's "
                    "collective transport come with slice 9b.3c (ROADMAP queue 1)")
 

@@ -126,11 +126,13 @@ independent cache). The loop over the shards runs inside each layer
 of the layer up to a reduction, then the reduction in process
 (``parallel.mesh.run_shards``), twice a layer under tp; the hidden state
 after it is shard 0's. On one device a whole step is still one CUDA graph.
-Fusion stays off, the decode path is ``gather`` or ``dense`` (ragged needs
-tp = ep = 1, as in JAX), and what JAX accepts there and this port defers
-(page-block moves, speculation, share and compression maps) raises naming
-slice 9b.3b. Shards of a stage on distinct devices run eagerly: one graph
-cannot hold a program over two cards.
+Fusion stays off, and the decode path is ``gather`` or ``dense`` (ragged
+needs tp = ep = 1, as in JAX). Share maps group every shard's pool alike;
+a page block carries whole heads (``cache.export_pool_pages``), so the
+codecs act on the tp = 1 payload; the speculative verify runs its T = K
+rows through the same shard loop, its reductions over every position
+(JAX's keep-all body). Shards of a stage on distinct devices run eagerly:
+one graph cannot hold a program over two cards.
 """
 
 from __future__ import annotations
@@ -159,6 +161,7 @@ from mlx_sharding_tpu_torch.cache import (
     init_page_table,
     quantize_kv_rows,
     is_quantized_kv,
+    whole_pool,
     slot_table,
     kv_data,
     layer_pool,
@@ -175,7 +178,6 @@ from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attent
 from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
 from mlx_sharding_tpu_torch.parallel.mesh import (
-    DEFER_KV,
     ShardAxis,
     device_grid,
     hop,
@@ -278,10 +280,18 @@ def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp:
     the first shard only. At tp or ep > 1 every shard of every stage gets
     its own layer modules (``parallel.tp.shard_layer``: views of the
     model's tensors, or contiguous copies of packed slices, whose whole
-    tensor is then dropped layer by layer)."""
+    tensor is then dropped layer by layer). Such a placement is the
+    model's: a second call for the same split and grid returns it (JAX
+    places a tree from the parameters anew each time; here the wholes it
+    would slice are gone, and a second copy would double the packed
+    bytes)."""
     cfg = model.config
     bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
     grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device)
+    key = (tuple(bounds), tp, ep, tuple(str(d) for d in grid.flat))
+    placed = model.__dict__.setdefault("_mesh_placements", {})
+    if tp * ep > 1 and key in placed:
+        return placed[key]
     devices = list(grid[:, 0, 0, 0])
     if len(set(devices)) > 1:
         for (a, b), dev in zip(bounds, devices):
@@ -315,9 +325,12 @@ def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp:
             [m for stage in shards for per in stage for m in per] + rest + [model.final_norm])
     else:
         weight_bytes = model_weight_bytes(model)
-    return ResidentWeights(model=model, device=devices[0], weight_bytes=weight_bytes,
-                           stage_bounds=tuple(bounds), devices=tuple(devices), tp=tp, ep=ep,
-                           grid=grid, shard_layers=shards)
+    out = ResidentWeights(model=model, device=devices[0], weight_bytes=weight_bytes,
+                          stage_bounds=tuple(bounds), devices=tuple(devices), tp=tp, ep=ep,
+                          grid=grid, shard_layers=shards)
+    if tp * ep > 1:
+        placed[key] = out
+    return out
 
 
 def shard_view(view, layers: list, device):
@@ -415,8 +428,6 @@ class PipelineEngine:
         self.shards = tp * ep
         if self.shards > 1:
             check_mesh_model(model, tp, ep)
-            if kv_share_map is not None or kv_compress_map is not None:
-                raise NotImplementedError(DEFER_KV)
         placed = None
         # Weight residency (JAX ``weights=``): a ``weights.WeightStore``
         # lease's resident model, which other engines (replicas) run
@@ -564,8 +575,9 @@ class PipelineEngine:
         from mlx_sharding_tpu_torch.kv_compress import build_codec
 
         pool_layers = kv_share_map.num_groups if self._share_active else n_layers
-        # no codec at tp or ep > 1: its page blocks move with slice 9b.3b
-        self.kv_codec = None if self.shards > 1 else build_codec(
+        # a block carries whole heads at any tp or ep, so the codec is the
+        # tp = 1 pool's
+        self.kv_codec = build_codec(
             model, paged=self.paged, kv_quant=self.kv_quant, num_stages=self.num_stages,
             pool_layers=pool_layers, share_hash=self.kv_share_hash,
             compress_map=kv_compress_map)
@@ -650,7 +662,8 @@ class PipelineEngine:
         model = self.model
         caches = [sharded([init_cache_slots(b - a, self.microbatches, self.max_seq,
                                             self.cache_heads(), model.cache_head_dim(),
-                                            self.cache_dtype, dev) for dev in devs])
+                                            self.cache_dtype, dev) for dev in devs],
+                          self.tp, model.cache_tp_replicated())
                   for (a, b), devs in zip(self.stage_bounds, self.shard_devices)]
         return caches[0] if self.num_stages == 1 else staged(caches)
 
@@ -675,12 +688,14 @@ class PipelineEngine:
             n_pool if self.num_stages == 1 else b - a, self.pool_pages, self.page_size,
             self.cache_heads(), model.cache_head_dim(), self.microbatches,
             self.cache_dtype, dev, quantized=self.kv_quant,
-        ) for dev in devs]) for (a, b), devs in zip(self.stage_bounds, self.shard_devices)]
+        ) for dev in devs], self.tp, model.cache_tp_replicated())
+            for (a, b), devs in zip(self.stage_bounds, self.shard_devices)]
         cache = caches[0] if self.num_stages == 1 else staged(caches)
         if self._share_active:
             # the allocation that did not happen: an unshared pool would be
-            # L/G times these leaves
-            self.kv_share_bytes_saved = int(cache.nbytes * (n_layers - n_pool) / n_pool)
+            # L/G times these leaves (whole heads once, JAX's global bytes)
+            whole = whole_pool(cache).nbytes
+            self.kv_share_bytes_saved = int(whole * (n_layers - n_pool) / n_pool)
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
 
     # ------------------------------------------------------------ stages
@@ -1063,46 +1078,56 @@ class PipelineEngine:
         ``masked_attention`` attends at each slot's position: a paged
         engine over each slot's pages gathered into a view over its whole
         table row (the new rows written into it unquantized), a dense one
-        over the slot caches in place. Returns the logits (M, K, V); an
-        inactive slot's are zeros' logits. Offsets are not advanced."""
-        model = self.model
+        over the slot caches in place. At tp or ep > 1 every shard runs its
+        heads' part of each layer (:meth:`_layer_step`), its reductions
+        over all K rows (JAX's keep-all body). Returns the logits (M, K,
+        V); an inactive slot's are zeros' logits. Offsets are not
+        advanced."""
         self._check_pp1()
         note_eager_forward(self, x)
-        m, k = x.shape
         start = plan.positions[0]  # (M,)
-        rows = plan.positions.t().long().clamp(max=self.max_seq - 1)  # (M, K) rows of the view
-        slots = torch.arange(m, device=x.device)[:, None]
-        page_ids, row_pos = plan.page_ids.t().reshape(-1), plan.row_pos.t().reshape(-1)
-        h = model.embed(x)  # (M, K, hidden)
-        for i, layer, kp, vp in self._stage_layers(cache, 0):
-            owner = self.owner_layer[i]
-
-            def attn_fn(q, k_new, v_new, kp=kp, vp=vp, owner=owner, values_from_k=None, **opts):
-                # a share group's non-owner writes its rows into its view
-                # only (JAX's gather body keeps owner rows)
-                if owner:
-                    write_pool_rows(kp, page_ids, row_pos,
-                                    k_new.reshape(m * k, *k_new.shape[2:]))
-                if owner and values_from_k is None:
-                    write_pool_rows(vp, page_ids, row_pos,
-                                    v_new.reshape(m * k, *v_new.shape[2:]))
-                if not self.paged:
-                    k_view = kp[:m]
-                    v_view = k_view[..., :values_from_k] if values_from_k is not None else vp[:m]
-                    return masked_attention(q, k_view, v_view, start, model.scale, **opts)
-                k_view = self._slot_view(kp, plan.tables)
-                k_view[slots, rows] = k_new.to(k_view.dtype)
-                if values_from_k is not None:
-                    v_view = k_view[..., :values_from_k]
-                else:
-                    v_view = self._slot_view(vp, plan.tables)
-                    v_view[slots, rows] = v_new.to(v_view.dtype)
-                return masked_attention(q, k_view, v_view, start, model.scale, **opts)
-
-            h, _, _ = model.sp_layer(layer, h, start, attn_fn)
+        plans = []
+        for dev in self.shard_devices[0]:
+            on = functools.partial(hop, device=dev)
+            plans.append((on(plan.positions), on(plan.page_ids), on(plan.row_pos),
+                          on(plan.tables)))
+        h = self.model.embed(x)  # (M, K, hidden)
+        for i, pools in self._shard_pools(cache, 0):
+            fns = [functools.partial(self._verify_attn, kp, vp, self.owner_layer[i], *p)
+                   for (kp, vp), p in zip(pools, plans)]
+            h = self._layer_step(0, i, h, start, fns)
         active = plan.lengths[0] > 0
         h = torch.where(active[:, None, None], h, torch.zeros((), dtype=h.dtype, device=h.device))
-        return model.apply_head(h)
+        return self.model.apply_head(h)
+
+    def _verify_attn(self, kp, vp, owner: bool, positions, page_ids, row_pos, tables, q, k_new,
+                     v_new, values_from_k=None, **opts):
+        """One layer's attention over a verify's K rows of every slot, into
+        the pools ``kp``/``vp`` of one shard; the plan's (K, M) positions,
+        pages and rows and its (M, SPG) tables on the shard's device. A
+        share group's non-owner writes its rows into its view only (JAX's
+        gather body keeps owner rows)."""
+        m, k = q.shape[:2]
+        start = positions[0]
+        pages, rows_in = page_ids.t().reshape(-1), row_pos.t().reshape(-1)
+        if owner:
+            write_pool_rows(kp, pages, rows_in, k_new.reshape(m * k, *k_new.shape[2:]))
+        if owner and values_from_k is None:
+            write_pool_rows(vp, pages, rows_in, v_new.reshape(m * k, *v_new.shape[2:]))
+        if not self.paged:
+            k_view = kp[:m]
+            v_view = k_view[..., :values_from_k] if values_from_k is not None else vp[:m]
+            return masked_attention(q, k_view, v_view, start, self.model.scale, **opts)
+        rows = positions.t().long().clamp(max=self.max_seq - 1)  # (M, K) rows of the view
+        slots = torch.arange(m, device=q.device)[:, None]
+        k_view = self._slot_view(kp, tables)
+        k_view[slots, rows] = k_new.to(k_view.dtype)
+        if values_from_k is not None:
+            v_view = k_view[..., :values_from_k]
+        else:
+            v_view = self._slot_view(vp, tables)
+            v_view[slots, rows] = v_new.to(v_view.dtype)
+        return masked_attention(q, k_view, v_view, start, self.model.scale, **opts)
 
     def spec_verify(self, k: int, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
                     drafts: torch.Tensor, wcap: torch.Tensor, *, qlps=None,
@@ -1143,11 +1168,7 @@ class PipelineEngine:
         return functools.partial(self.spec_verify, k, qlps=None)
 
     def _check_pp1(self) -> None:
-        """JAX's check: the speculative steps need the pp = 1 body (and at
-        tp or ep > 1 they come with slice 9b.3b)."""
-        if self.shards > 1:
-            raise NotImplementedError(
-                "speculative steps at tp or ep > 1 come with slice 9b.3b (ROADMAP queue 1)")
+        """JAX's check: the speculative steps need the pp = 1 body."""
         if self.num_stages != 1:
             raise ValueError("speculative continuous batching needs pp=1 engines")
 

@@ -217,22 +217,19 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     sit on that one device. ``tp`` / ``ep``: every stage as tp x ep shards
     (JAX's mesh axes; the engine's single stream without ``concurrent``,
     else its batcher on the gather path), each on its own card, or all on
-    ``device``; page-block moves and the fleet over them raise naming slice
-    9b.3b. The pod (``pod.PodFleet``) is a library over its in-process
-    transport; its ``--pod`` flag comes with slice 9b.3c. ``model``: an
-    already loaded model to
-    serve, which ``path`` then only names. On a card each generator's step
+    ``device``; the spill tier, the prefix store, share and compression
+    maps, replicas, disagg and the autoscaler run over them as over one
+    shard (a page block carries whole heads), every replica's resident
+    tree the one placed tp x ep tree. The pod (``pod.PodFleet``) is a
+    library over its in-process transport; its ``--pod`` flag comes with
+    slice 9b.3c. ``model``: an already loaded model to serve, which
+    ``path`` then only names. On a card each generator's step
     graphs are captured here, before the first request."""
     from mlx_sharding_tpu_torch.kv_compress import load_compress_map
     from mlx_sharding_tpu_torch.kv_share import load_share_map
     from mlx_sharding_tpu_torch.loading import load_model
-    from mlx_sharding_tpu_torch.parallel.mesh import DEFER_FLEET, DEFER_KV, device_grid
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid
 
-    if tp > 1 or ep > 1:
-        if replicas > 1 or disagg or autoscale:
-            raise NotImplementedError(DEFER_FLEET)
-        if spill_bytes is not None or prefix_store or kv_share_map or kv_compress_map:
-            raise NotImplementedError(DEFER_KV)
     stages = len(stage_bounds) if stage_bounds else (num_stages or 1)
     if stage_bounds and engine == "chained":
         from mlx_sharding_tpu_torch.parallel.chained import (
@@ -336,7 +333,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     split = (tuple(tuple(b) for b in stage_bounds) if stage_bounds else ("auto", stages))
     return _replica_set(signature, device=device, keep_quantized=keep_quantized, load=load,
                         make=make, dense_draft_engine=dense_draft_engine, split=split,
-                        stages=stages, stage_bounds=stage_bounds,
+                        stages=stages, stage_bounds=stage_bounds, tp=tp, ep=ep,
                         draft_model=draft_model if concurrent > 1 else None,
                         replicas=replicas, shared_weights=shared_weights, prefix_store=store,
                         **fleet)
@@ -351,7 +348,7 @@ def _warm_up(generator) -> None:
 
 def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_engine,
                  draft_model, replicas, shared_weights, prefix_store, split=("auto", 1),
-                 stages=1, stage_bounds=None, disagg=False,
+                 stages=1, stage_bounds=None, tp=1, ep=1, disagg=False,
                  prefill_replicas=1, decode_replicas=1, autoscale=False, autoscale_min=None,
                  autoscale_max=None, autoscale_interval=2.0, autoscale_cooldown=15.0,
                  brownout=True):
@@ -361,8 +358,11 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
     resident model (a lease released when its engine closes, so the last
     retirement frees the tree); otherwise the grid must hold a private copy
     per replica, which one device does not. Each replica takes JAX's ``per
-    = stages x tp x ep`` devices: its stages' cards, or with ``device`` one
-    device that carries every stage. ``autoscale``: the fleet controllers
+    = stages x tp x ep`` devices: its shards' cards, or with ``device`` one
+    device that carries every shard. The resident tree is placed once, at
+    tp x ep (``parallel.pipeline.place_weights``), and every replica
+    aliases it: its key names tp and ep, so a tp = 2 tree is never served
+    to a tp = 1 engine. ``autoscale``: the fleet controllers
     (JAX's bounds on the port's device slices), started."""
     import functools
 
@@ -370,15 +370,15 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
 
     from mlx_sharding_tpu_torch.device import resolve_device
     from mlx_sharding_tpu_torch.loading import checkpoint_signature, load_model
-    from mlx_sharding_tpu_torch.parallel.mesh import mesh_fingerprint, stage_devices
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid, mesh_fingerprint
     from mlx_sharding_tpu_torch.parallel.pipeline import place_weights
     from mlx_sharding_tpu_torch.replicas import ReplicaSet
     from mlx_sharding_tpu_torch.weights import WeightKey, aliased_spawn, weight_store
 
-    # JAX's per = stages x tp x ep devices a replica (tp = ep = 1 here):
-    # the stages' own cards, or one device when ``device`` carries them all
-    placed = stage_devices(stages, device)
-    per = len(set(placed))
+    # JAX's per = stages x tp x ep devices a replica: the shards' own cards,
+    # or one device when ``device`` carries them all
+    placed = device_grid(pp=stages, tp=tp, ep=ep, device=device)
+    per = len(set(placed.flat))
     n_devices = per if device is not None else torch.cuda.device_count()
     want = prefill_replicas + decode_replicas if disagg else replicas
     shared = shared_weights_on(shared_weights, want, per, n_devices)
@@ -386,15 +386,16 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
         raise ValueError(f"{want} replicas x {per} devices each needs {want * per} "
                          f"devices, have {n_devices}")
     slices = n_devices // per  # JAX's device-slice allocator's total
-    dev = resolve_device(device) if device is not None else placed[0]
+    dev = resolve_device(device) if device is not None else placed.flat[0]
     store = weight_store()
 
     def resident(build_model, staged=True):
         def build():
-            # the tree carries its split and each stage's device, which
-            # every aliasing engine checks against its own
+            # the tree carries its split, its grid and each shard's layers,
+            # which every aliasing engine checks against its own
             return place_weights(build_model(), stages=stages if staged else 1,
-                                 stage_bounds=stage_bounds if staged else None, device=device)
+                                 stage_bounds=stage_bounds if staged else None,
+                                 tp=tp if staged else 1, ep=ep if staged else 1, device=device)
         return build
 
     def key_of(checkpoint, quant, stages, devices):
@@ -402,7 +403,7 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
                          dtype="bfloat16",  # load_model's
                          quant=quant, placement=mesh_fingerprint(devices))
 
-    key = key_of(signature, "tp1:ep1", split, placed)
+    key = key_of(signature, f"tp{tp}:ep{ep}", split, placed)
     draft_key = (key_of(checkpoint_signature(draft_model, keep_quantized=keep_quantized), "draft",
                         ("auto", 1), [dev])
                  if draft_model else None)

@@ -5,8 +5,9 @@ laps.
 
     python3 scripts/smoke_phases.py [--stamp] [--keep-going] [--no-mesh] batching mesh 4bit families
 
-``batching`` is phase 6 (``phase_batching_runs``; its single-stream rate is
-a stand-in, phase 4 is not run), ``pipeline`` phase 15
+``main`` is phase 4 (``phase_main_path``, which builds the 8B itself and
+serves the later phases), ``batching`` phase 6 (``phase_batching_runs``;
+its single-stream rate is a stand-in), ``pipeline`` phase 15
 (``phase_pipeline``), ``pod`` phase 16 (``phase_pod``), ``mesh`` phase 17
 on the 8B (``phase_mesh``, with its kernel checks at the shard shapes),
 ``4bit`` phase 5 (``phase_main_path_4bit``, with phase 15's and 17's packed
@@ -35,7 +36,7 @@ import torch  # noqa: E402
 import chip_smoke as c  # noqa: E402
 from mlx_sharding_tpu_torch.models import build_model  # noqa: E402
 
-PHASES = ("batching", "pipeline", "pod", "mesh", "4bit", "families", "deepseek")
+PHASES = ("main", "batching", "pipeline", "pod", "mesh", "4bit", "families", "deepseek")
 NEEDS_8B = ("batching", "pipeline", "pod", "mesh", "4bit")
 # phase 6's runs, for a tree from before ``chip_smoke.phase_batching_runs``
 BATCH_RUNS = (("bf16", "off", "auto"), ("bf16", "ngram", "auto"), ("bf16", "ngram", "off"),
@@ -80,13 +81,18 @@ def main(argv=None) -> int:
     c.build_kernels()
     lap("builds")
     model = None
-    if any(p in NEEDS_8B for p in args.phases):
+    if "main" in args.phases:
+        model = c.phase_main_path(0)[2]
+        lap("main path")
+    elif any(p in NEEDS_8B for p in args.phases):
         model, _ = build_model(c.LLAMA_31_8B, dtype=torch.bfloat16)
         model.init_params(torch.Generator(device="cuda").manual_seed(0), "cuda")
         torch.cuda.synchronize()
         lap("the 8B")
     failed = False
     for phase in sorted(args.phases, key=PHASES.index):
+        if phase == "main":
+            continue
         if phase == "mesh" and not hasattr(c, "phase_mesh"):
             c.log(f"[{phase}] this tree has no such phase")
             continue

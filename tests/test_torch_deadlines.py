@@ -23,6 +23,7 @@ from mlx_sharding_tpu import scheduler as jscheduler
 from mlx_sharding_tpu_torch import resilience, scheduler
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 from tests.test_torch_scheduler import _engine, _jax_engine, models  # noqa: F401
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 PROMPT = [int(t) for t in np.random.default_rng(5).integers(1, 300, size=13)]
 

@@ -32,6 +32,7 @@ from tests.test_torch_families import (
     prefill_then_decode,
     prompt,
 )
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 FAMILY = "deepseek_v2"
 YARN = FAMILIES[FAMILY]["rope_scaling"]

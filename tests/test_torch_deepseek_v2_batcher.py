@@ -6,6 +6,7 @@ of the dense model over an int8 pool, token-identical."""
 
 from tests.test_torch_deepseek_v2 import _pair
 from tests.test_torch_families import batcher_streams
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 
 def test_batcher_streams_match_jax():

@@ -10,6 +10,7 @@ import pytest
 from mlx_sharding_tpu_torch.models.base import QuantizedLinear
 from tests.test_torch_deepseek_v2 import FAMILY
 from tests.test_torch_families import loads_match, serve_cli_and_server, tokenizer_checkpoint
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

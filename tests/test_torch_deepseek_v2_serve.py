@@ -9,6 +9,7 @@ import pytest
 
 from tests.test_torch_deepseek_v2 import _pair
 from tests.test_torch_families import generator_streams
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=["compressed", "compressed-packed"])

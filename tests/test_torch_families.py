@@ -35,6 +35,7 @@ from mlx_sharding_tpu_torch.models import MODEL_REGISTRY, build_model
 from mlx_sharding_tpu_torch.models.base import QuantizedLinear
 from mlx_sharding_tpu_torch.parallel import PipelineEngine
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 # tiny configurations: narrow widths, 2-3 layers. Gemma-2's window (24) is
 # shorter than the tests' sequences, so it cuts, and its caps (3 and 5) bend

@@ -15,6 +15,7 @@ from mlx_sharding_tpu_torch.ops import attention as attention_mod
 from mlx_sharding_tpu_torch.ops import causal_attention
 from mlx_sharding_tpu_torch.ops import flash_attention as fa
 from mlx_sharding_tpu_torch.ops.attention import flash_eligible
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 GRID = [
     # b, t, s, hq, hkv, dk, dv, offset — prefill

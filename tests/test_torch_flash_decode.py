@@ -32,6 +32,7 @@ from mlx_sharding_tpu_torch.ops import attention as attention_mod
 from mlx_sharding_tpu_torch.ops import causal_attention
 from mlx_sharding_tpu_torch.ops import flash_attention as fa
 from mlx_sharding_tpu_torch.ops.attention import FLASH_DECODE_DEFAULT, flash_eligible
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 S = 512
 POSITIONS = [0, 63, 64, 255, S - 1]

@@ -14,6 +14,7 @@ from mlx_sharding_tpu.ops import quant as jq
 from mlx_sharding_tpu.ops.quant_matmul import quant_gemv_pipelined
 from mlx_sharding_tpu_torch.ops import quant as tq
 from mlx_sharding_tpu_torch.ops import quant_matmul as tqm
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 # the packed path's Llama-3.1-8B shapes (OUT, IN), and ragged ones
 LLAMA_8B = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336), (128256, 4096)]

@@ -15,6 +15,7 @@ from mlx_sharding_tpu.models.llama import LlamaModel as JLlamaModel
 from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.generate import Generator, stream_generate
 from tests.test_tokenizer_utils import ByteTokenizer
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 TINY = dict(
     vocab_size=300, hidden_size=128, intermediate_size=256, num_hidden_layers=2,

@@ -42,6 +42,7 @@ from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attent
 from mlx_sharding_tpu_torch.parallel import PipelineEngine
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 from tests.test_torch_scheduler import ENGINE, _engine, _jax_engine, models  # noqa: F401
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 ATTN_RTOL = 1e-5
 CAPACITY = 64

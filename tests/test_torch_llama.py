@@ -18,6 +18,7 @@ from mlx_sharding_tpu_torch.loading import load_model, read_safetensors
 from mlx_sharding_tpu_torch.models import build_model
 from mlx_sharding_tpu_torch.ops import attention as attention_mod
 from mlx_sharding_tpu_torch.ops import flash_attention as fa
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 TINY = dict(
     vocab_size=300, hidden_size=128, intermediate_size=256, num_hidden_layers=3,

@@ -17,6 +17,7 @@ from mlx_sharding_tpu.ops import quant as jq
 from mlx_sharding_tpu.ops.quant_matmul import quant_matmul_pallas
 from mlx_sharding_tpu_torch.ops import quant as tq
 from mlx_sharding_tpu_torch.ops import quant_matmul as tqm
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 # the four projections of a Llama-3.1-8B layer as the packed path runs them
 # (QKV and gate+up fused): (OUT, IN)

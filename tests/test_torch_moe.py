@@ -19,6 +19,7 @@ from mlx_sharding_tpu.ops.quant import quantize as j_quantize
 from mlx_sharding_tpu_torch.ops import moe
 from mlx_sharding_tpu_torch.ops import quant_matmul as qm
 from mlx_sharding_tpu_torch.ops.quant import words_to_torch
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 H, I, E, K = 128, 192, 6, 2
 TOL = 1e-5

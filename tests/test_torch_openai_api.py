@@ -19,6 +19,7 @@ from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.server import openai_api as tapi
 from tests.test_tokenizer_utils import ByteTokenizer
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 TINY = dict(
     vocab_size=300, hidden_size=64, intermediate_size=128, num_hidden_layers=2,

@@ -12,6 +12,7 @@ from mlx_sharding_tpu.ops import rms_norm as j_rms_norm
 from mlx_sharding_tpu.ops import rope_frequencies as j_rope_frequencies
 from mlx_sharding_tpu_torch.convert import to_torch
 from mlx_sharding_tpu_torch.ops import apply_rope, causal_attention, rms_norm, rope_frequencies
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 LLAMA3 = {
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,

@@ -24,6 +24,7 @@ from mlx_sharding_tpu.parallel.mesh import pipeline_mesh
 from mlx_sharding_tpu.parallel.pipeline import PipelineEngine as JPipelineEngine
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 from tests.test_torch_scheduler import ENGINE, JOBS, _engine, _jobs, models  # noqa: F401
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 # the JOBS mix's largest request needs 6 pages of 8; over a pool of 6 the
 # overcommit batchers admit on current need and must preempt

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import mlx_sharding_tpu_torch
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -18,6 +18,7 @@ from mlx_sharding_tpu.ops.paged_attention import paged_attention as j_paged_atte
 from mlx_sharding_tpu_torch import cache
 from mlx_sharding_tpu_torch.convert import to_torch
 from mlx_sharding_tpu_torch.ops import paged_attention as pa
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 PAGE = 8
 SPG = 4  # pages per slot: 32 positions

@@ -28,6 +28,7 @@ from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 from mlx_sharding_tpu_torch.server import openai_api as tapi
 from tests.test_tokenizer_utils import ByteTokenizer
 from tests.test_torch_scheduler import ENGINE, _engine, models  # noqa: F401
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PROMPTS = ["the quick brown fox", "hello world, this is", "pipelines run on meshes; stages"]

@@ -23,6 +23,7 @@ from mlx_sharding_tpu.parallel.pipeline import PipelineEngine as JPipelineEngine
 from mlx_sharding_tpu_torch.sample import make_sampler_params
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher, _Request
 from tests.test_torch_scheduler import ENGINE, _engine, models  # noqa: F401
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(11)
 SYSTEM = [int(t) for t in RNG.integers(1, 300, size=24)]  # three pages of 8

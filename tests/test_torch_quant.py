@@ -13,6 +13,7 @@ from mlx_sharding_tpu.ops import quant as jq
 from mlx_sharding_tpu.ops.quant_matmul import quant_gemv_pipelined, quant_matmul_pallas
 from mlx_sharding_tpu_torch.ops import quant as tq
 from mlx_sharding_tpu_torch.ops import quant_matmul as tqm
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 CONFIGS = [(bits, gs) for bits in (2, 4, 8) for gs in (32, 64, 128)]
 

@@ -24,6 +24,7 @@ from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.generate import Generator
 from mlx_sharding_tpu_torch.loading import load_model
 from mlx_sharding_tpu_torch.models.base import QuantizedLinear
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 PROMPT = [3, 17, 42, 9, 77]
 PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")

@@ -28,6 +28,7 @@ from tests.test_torch_families import (
     serve_cli_and_server,
     tokenizer_checkpoint,
 )
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 FAMILY = "qwen3"
 

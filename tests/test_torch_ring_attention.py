@@ -16,6 +16,7 @@ from mlx_sharding_tpu.ops import causal_attention as jcausal
 from mlx_sharding_tpu.parallel.mesh import make_mesh
 from mlx_sharding_tpu.parallel.ring_attention import ring_attention as jring
 from mlx_sharding_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_local
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 CPU = [torch.device("cpu")]
 

@@ -11,6 +11,7 @@ import torch
 
 from mlx_sharding_tpu import sample as jsample
 from mlx_sharding_tpu_torch import sample as tsample
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 BIAS = {3: 2.5, 7: -1.0, 41: 100.0}
 

@@ -28,6 +28,7 @@ from mlx_sharding_tpu_torch.convert import params_from_numpy
 from mlx_sharding_tpu_torch.ops.rope import apply_rope
 from mlx_sharding_tpu_torch.parallel import PipelineEngine
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=300, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2)

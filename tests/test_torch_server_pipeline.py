@@ -242,15 +242,33 @@ def test_server_pipeline_checks_match_jax(argv, capsys):
     (tcli.main, ["--sp-decode"]),
 ], ids=["server_tp", "server_ep", "server_pod", "server_multihost", "cli_tp", "cli_ep",
         "cli_sp", "cli_sp_decode"])
-def test_the_collectives_flags_raise_naming_slice_9b3(main, argv, capsys):
-    """The mesh flags run (``tests/test_torch_tp_serve.py``); what this
-    slice defers raises naming its slice: the fleet and page-block moves at
-    tp or ep > 1 (9b.3b, ``NotImplementedError`` before any load), several
-    processes and the pod over its control plane (9b.3c, a parser error);
+def test_the_collectives_flags_raise_naming_slice_9b3(main, argv, capsys, monkeypatch):
+    """The mesh flags run (``tests/test_torch_tp_serve.py``). The fleet and
+    page-block moves at tp or ep > 1 (slice 9b.3b) pass both packages'
+    parsers, and the port's server hands its provider what JAX's hands
+    its own (tp, ep, replicas, the spill tier); several processes and the
+    pod over its control plane raise naming slice 9b.3c (a parser error);
     the CLI's mesh rules are JAX's, message for message."""
     if main is tapi.main and "--coordinator" not in argv:
-        with pytest.raises(NotImplementedError, match="slice 9b\\.3b"):
-            main(["--model", "unused", *argv, "--device", "cpu"])
+        seen = {}
+
+        class Built(Exception):
+            pass
+
+        def record(pkg):
+            def build(*args, **kw):
+                seen[pkg] = {k: kw.get(k) for k in ("tp", "ep", "replicas", "spill_bytes",
+                                                    "overcommit", "paged_pool", "concurrent")}
+                raise Built
+            return build
+
+        monkeypatch.setattr(japi, "ModelProvider", record("jax"))
+        monkeypatch.setattr(tapi.ModelProvider, "from_checkpoint", record("port"))
+        for pkg_main, extra in ((japi.main, []), (main, ["--device", "cpu"])):
+            with pytest.raises(Built):
+                pkg_main(["--model", "unused", *argv, *extra])
+        assert seen["port"] == seen["jax"]
+        assert seen["port"]["tp"] * seen["port"]["ep"] == 2
     elif main is tapi.main:
         assert "slice 9b.3c" in _parser_error(main, [*argv, "--device", "cpu"], capsys)
     else:

@@ -20,6 +20,7 @@ from mlx_sharding_tpu_torch.cli import generate as tcli
 from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 from mlx_sharding_tpu_torch.server import openai_api as tapi
 from mlx_sharding_tpu_torch.speculative import NgramSpeculativeGenerator, SpeculativeGenerator
+from tests.test_torch_pipeline_archs import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -299,9 +299,12 @@ def test_packed_tp2_stream_matches_jax():
 
 
 def test_what_tp_does_not_take():
-    """JAX's wiring check, its ragged rule (a tp batcher decodes on
-    ``gather``), and what this slice defers at tp or ep > 1: share and
-    compression maps, speculation, page-block moves (slice 9b.3b)."""
+    """JAX's wiring check and its ragged rule (a tp batcher decodes on
+    ``gather``); what JAX takes at tp > 1 the port takes too: a share map
+    lays out every shard's pool as tp = 1's (its ``kv_share_stats`` tp =
+    1's), and a batcher with a spill tier or n-gram speculation builds
+    over the tp = 2 engine as over tp = 1's (the streams are held to JAX's
+    in ``tests/test_torch_tp_kv.py`` and ``tests/test_torch_tp_fleet.py``)."""
     from mlx_sharding_tpu_torch.kv_share import KVShareMap
     from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
@@ -316,8 +319,15 @@ def test_what_tp_does_not_take():
         PipelineEngine(tm, tp=2, paged_attention="ragged", **pool)
     eng = PipelineEngine(tm, tp=2, **pool)
     assert eng.decode_path == "gather"
-    with pytest.raises(NotImplementedError, match="slice 9b.3b"):
-        PipelineEngine(tm, tp=2, kv_share_map=KVShareMap.identity(4), **pool)
-    for kw in (dict(spill_bytes=1 << 20), dict(draft="ngram")):
-        with pytest.raises(NotImplementedError, match="slice 9b.3b"):
-            ContinuousBatcher(eng, **kw)
+    share = KVShareMap(4, (0, 1, 0, 1))
+    shared = PipelineEngine(tm, tp=2, kv_share_map=share, **pool)
+    assert shared.kv_share_stats() == PipelineEngine(tm, kv_share_map=share,
+                                                     **pool).kv_share_stats()
+    for kw, read in ((dict(spill_bytes=1 << 20), "spill_stats"),
+                     (dict(draft="ngram"), "spec_stats")):
+        b, one = ContinuousBatcher(eng, **kw), ContinuousBatcher(PipelineEngine(tm, **pool), **kw)
+        try:
+            assert getattr(b, read)() == getattr(one, read)()
+        finally:
+            b.close()
+            one.close()

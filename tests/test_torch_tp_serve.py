@@ -7,9 +7,10 @@ greedy text with ``--tp 2`` and ``--sp 2 --sp-decode`` equal to the JAX
 CLI's with the same flags, and the
 server with ``--tp 2`` (its single stream, and ``--concurrent 2
 --paged-pool 16 --overcommit``) answering what the tp = 1 server answers;
-JAX's parser errors for the mesh flags word for word; and what this slice
-defers (page-block moves and the fleet at tp or ep > 1) raising naming
-slice 9b.3b."""
+JAX's parser errors for the mesh flags word for word; and what slice
+9b.3a deferred (page-block moves and the fleet at tp or ep > 1) building
+over tp = 2 engines (held against JAX in ``tests/test_torch_tp_kv.py`` and
+``tests/test_torch_tp_fleet.py``)."""
 
 import http.client
 import json
@@ -169,11 +170,29 @@ def test_mesh_flag_errors_match_jax(main, jmain, argv, capsys):
     assert _parser_error(main, [*argv, "--device", "cpu"], capsys) == want
 
 
+def _greedy(gen, prompt=(5, 9, 2, 7, 11, 3), n=6):
+    try:
+        return [t for t, _ in gen.generate_step(list(prompt), max_tokens=n)]
+    finally:
+        gen.close()
+
+
 @pytest.mark.parametrize("kw", [dict(replicas=2), dict(disagg=True),
                                 dict(spill_bytes=1 << 20), dict(prefix_store=True)],
                          ids=["replicas", "disagg", "spill", "prefix_store"])
 def test_deferred_combinations_raise_naming_9b3b(ckpt, kw):
-    """JAX accepts these at tp or ep > 1; this slice defers them: each
-    raises ``NotImplementedError`` naming slice 9b.3b before any load."""
-    with pytest.raises(NotImplementedError, match="slice 9b.3b"):
-        tapi.build_generator(str(ckpt), device="cpu", concurrent=2, paged_pool=16, tp=2, **kw)
+    """What JAX accepts at tp or ep > 1 and slice 9b.3a deferred (two
+    replicas, a disagg pair, the spill tier, the prefix store) now builds
+    over tp = 2 engines: ``build_generator`` gives a generator whose every
+    engine is tp = 2 and whose greedy stream equals the plain tp = 2
+    batcher's on the same checkpoint (``tests/test_torch_tp_fleet.py``
+    holds each against JAX's)."""
+    base = dict(device="cpu", concurrent=2, paged_pool=16, max_seq=128, prefill_chunk=64,
+                tp=2)
+    want = _greedy(tapi.build_generator(str(ckpt), **base))
+    gen = tapi.build_generator(str(ckpt), **base, **kw)
+    engines = ([r.engine for r in gen.replicas] if hasattr(gen, "replicas") else
+               [r.engine for p in (gen.prefill, gen.decode) for r in p.replicas]
+               if hasattr(gen, "prefill") else [gen.engine])
+    assert engines and all(e.tp == 2 for e in engines)
+    assert _greedy(gen) == want
