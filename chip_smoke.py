@@ -509,6 +509,8 @@ PARITY_TOKENS = 128
 PARITY_MAX_SEQ = 1280
 # the eager pass of those runs: the first three greedy requests, 48 tokens
 PARITY_EAGER_JOBS = 3
+# the decode blocks the parity runs serve: greedy, and the seeded top-p one
+PARITY_BLOCKS = ((False, False), (True, False))
 PARITY_EAGER_TOKENS = 48
 # the parity runs hold the batcher's paths to each other (graphs, eager,
 # sync, overcommit; the prefix cache off and on), which the depth does not
@@ -2579,7 +2581,7 @@ def batcher_parity(model, kv_dtype: str, tag: str) -> None:
                                 prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
                                 kv_dtype=kv_dtype, device=model.device)
         batcher = ContinuousBatcher(engine, decode_block=8, **kw)
-        batcher.warm_up()
+        batcher.warm_up(blocks=PARITY_BLOCKS)
         # the eager pass serves the first PARITY_EAGER_JOBS greedy requests
         # for PARITY_EAGER_TOKENS tokens: a slot's tokens do not depend on
         # the others', and the step shapes are the M slots' whatever runs
@@ -5483,7 +5485,7 @@ def pipe_fleet(tag: str, model, counts, want: list, mesh=None, decode_block: int
     gen = build_generator("llama-3.1-8b-random", model=model, device=model.device,
                           max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
                           concurrent=PIPE_SLOTS, paged_pool=POOL_PAGES, page_size=PAGE,
-                          decode_block=decode_block, **mesh, **fleet)
+                          decode_block=decode_block, warm_blocks=GREEDY_BLOCK, **mesh, **fleet)
     load_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     grown = torch.cuda.memory_allocated() - before
@@ -5737,7 +5739,7 @@ def phase_pod(model, lap) -> tuple:
     co = build_generator("llama-3.1-8b-random", model=model, device=model.device,
                          max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, concurrent=PIPE_SLOTS,
                          paged_pool=POOL_PAGES, page_size=PAGE, decode_block=8, disagg=True,
-                         prefix_store=True)
+                         prefix_store=True, warm_blocks=GREEDY_BLOCK)
     store0 = co.prefix_store
     store0._host._flush_async = False
     store1 = PrefixStore(host_bytes=SPILL_BYTES)
@@ -6783,6 +6785,63 @@ def sdpa_window_call(q, k, v, offset, scale, window):
     return call
 
 
+def flex_call(q, k, v, positions, scale: float, cap: float, window):
+    """One compiled ``torch.nn.attention.flex_attention`` call over the same
+    inputs as an options row: Gemma-2's logit softcap as its ``score_mod``,
+    the causal and sliding-window mask as a block mask, GQA. ``q`` (B, T,
+    Hq, D) at ``positions`` (B,) of its first row, ``k``/``v`` (B, S, Hkv,
+    D) contiguous (a paged batch's gathered view, its rows past a slot's
+    length masked by the causal rule). Timed here only; the port never
+    calls it. Returns ``(call, compile seconds)``, or ``(None, why)`` when
+    this PyTorch lacks it or cannot compile it."""
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    except ImportError as e:
+        return None, f"torch {torch.__version__} has no flex_attention ({e})"
+    b, t = q.shape[:2]
+    start = positions.to(torch.int64)
+
+    def mask(bi, h, qi, ki):
+        pos = start[bi] + qi
+        ok = ki <= pos
+        return ok & (ki > pos - window) if window else ok
+
+    def softcap(score, bi, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    try:
+        block = create_block_mask(mask, B=b, H=None, Q_LEN=t, KV_LEN=k.shape[1],
+                                  device=q.device)
+        fn = torch.compile(flex_attention, dynamic=False)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def call():
+            return fn(qt, kt, vt, score_mod=softcap, block_mask=block, scale=scale,
+                      enable_gqa=True).transpose(1, 2)
+
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return call, time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001 — the row says why it has no library time
+        return None, f"flex_attention failed here: {type(e).__name__}: {str(e)[:200]}"
+
+
+def flex_library(label: str, q, k, v, positions, scale: float, cap: float, window, want):
+    """The library time of an options row through :func:`flex_call`, held
+    against the row's plain output ``want``; ``(ms or None, note)``."""
+    call, info = flex_call(q, k, v, positions, scale, cap, window)
+    if call is None:
+        log(f"[timing] {label}: no library time: {info}")
+        return None, info
+    err = (call().float() - want.float()).abs().max().item()
+    check(err < 5e-2, f"[timing] {label}: flex_attention is not the same function ({err})")
+    ms = time_ms(call)
+    log(f"[timing] {label}: flex_attention {ms:.4f} ms (compiled in {info:.1f}s; max abs err "
+        f"{err:.3e} against the plain version)")
+    return ms, f"flex_attention (compiled; softcap score_mod, window block mask), err {err:.2e}"
+
+
 def timing_row(label, kern, plain, flops, nbytes, dtype, library=None, floor=None, **extra):
     """One variant's times beside its bound; logs the line."""
     ops_ms, bytes_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -6824,10 +6883,17 @@ def phase_family_timing(seed: int) -> dict:
         plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, off, scale, **opts))
         floor = time_ms(sdpa_window_call(q, k, v, off, scale, window))
         flops, nbytes = windowed_attention_work(q, k, v, off, window)
+        label = (f"flash_attention Gemma-2 shapes T={CHUNK} offset {off} softcap {GEMMA_CAP} "
+                 f"window {window} bf16")
+        # the library call for the windowed rows, which the kernels line keeps
+        lib, note = flex_library(label, q, k, v, torch.tensor([off], device="cuda"), scale,
+                                 GEMMA_CAP, window,
+                                 fa.flash_attention_reference(q, k, v, off, scale, **opts)
+                                 ) if window else (None, None)
         rows["flash"].append(timing_row(
-            f"flash_attention Gemma-2 shapes T={CHUNK} offset {off} softcap {GEMMA_CAP} window "
-            f"{window} bf16 (walk split {fa.plan_split(1, CHUNK, GEMMA_MAX_SEQ, hq, hkv, off, 132, window) or 'whole'})",
-            kern, plain, flops, nbytes, bf16, floor=floor, window=window))
+            f"{label} (walk split {fa.plan_split(1, CHUNK, GEMMA_MAX_SEQ, hq, hkv, off, 132, window) or 'whole'})",
+            kern, plain, flops, nbytes, bf16, library=lib, floor=floor, window=window,
+            library_note=note))
     qd = torch.randn((1, 1, hq, d), generator=gen, device="cuda").to(bf16)
     position = GEMMA_PROMPT
     pos = torch.tensor([position], dtype=torch.int64, device="cuda")
@@ -6838,10 +6904,13 @@ def phase_family_timing(seed: int) -> dict:
         plain = time_ms(lambda: fa.flash_decode_reference(qd, k, v, lengths, scale, **opts))
         floor = time_ms(sdpa_window_call(qd, k, v, position, scale, window))
         flops, nbytes = windowed_attention_work(qd, k, v, position, window)
-        rows["decode"].append(timing_row(
-            f"flash_decode Gemma-2 shapes S={GEMMA_MAX_SEQ} position {position} softcap "
-            f"{GEMMA_CAP} window {window}", kern, plain, flops, nbytes, bf16, floor=floor,
-            window=window))
+        label = (f"flash_decode Gemma-2 shapes S={GEMMA_MAX_SEQ} position {position} softcap "
+                 f"{GEMMA_CAP} window {window}")
+        lib, note = flex_library(label, qd, k, v, pos, scale, GEMMA_CAP, window,
+                                 fa.flash_decode_reference(qd, k, v, lengths, scale, **opts)
+                                 ) if window else (None, None)
+        rows["decode"].append(timing_row(label, kern, plain, flops, nbytes, bf16, library=lib,
+                                         floor=floor, window=window, library_note=note))
     del q, k, v
     lens_host = tuple(n + 1 for n in GEMMA_BATCH_PROMPTS)
     for pool_dtype in (bf16, torch.int8):
@@ -6854,10 +6923,24 @@ def phase_family_timing(seed: int) -> dict:
                                                                  **opts))
             seen = torch.clamp(lens, max=window) if window else lens
             flops, nbytes = paged_work(qp, kp, vp, ks, tables, seen)
+            label = (f"paged_attention Gemma-2 shapes M={len(lens_host)} lengths "
+                     f"{list(lens_host)} {str(pool_dtype)[6:]} pool softcap {GEMMA_CAP} window "
+                     f"{window}")
+            lib = note = None
+            if pool_dtype == bf16 and window:
+                # flex_attention over each slot's pages gathered (not timed),
+                # the query at the slot's last position
+                m = len(lens_host)
+                kg, vg = (pool[tables.long()].reshape(m, -1, hkv, d) for pool in (kp, vp))
+                lib, note = flex_library(
+                    label + " (after a gather, not timed)", qp[:, None], kg, vg,
+                    lens.long() - 1, scale, GEMMA_CAP, window,
+                    pa.paged_attention_reference(qp, kp, vp, tables, lens, scale,
+                                                 **opts)[:, None])
+                del kg, vg
             rows["paged"].append(timing_row(
-                f"paged_attention Gemma-2 shapes M={len(lens_host)} lengths {list(lens_host)} "
-                f"{str(pool_dtype)[6:]} pool softcap {GEMMA_CAP} window {window}",
-                kern, plain, flops, nbytes, bf16, window=window, pool=str(pool_dtype)[6:]))
+                label, kern, plain, flops, nbytes, bf16, library=lib, window=window,
+                pool=str(pool_dtype)[6:], library_note=note))
         del qp, kp, vp, ks, vs
     for name, out_dim, in_dim in EXPERT_SHAPES:
         per_pair = name == "down"
@@ -7464,14 +7547,16 @@ def family_records(rows: dict, errs: dict, families: dict) -> list:
         entry("flash_attention_softcap_window", "flash_attention.cu",
               "mlx_sharding_tpu/ops/flash_attention.py:127",
               gemma["launches"]["flash_attention"] + gemma["batch"]["launches"]["flash_attention"],
-              errs["flash"], flash, floor_ms=flash["floor_ms"], ms_no_window=flash_odd["ms"]),
+              errs["flash"], flash, floor_ms=flash["floor_ms"], ms_no_window=flash_odd["ms"],
+              library=flash["library_note"]),
         entry("flash_decode_softcap_window", "paged_attention.cu",
               "mlx_sharding_tpu/ops/flash_attention.py:127", gemma["launches"]["flash_decode"],
-              errs["decode"], dec, floor_ms=dec["floor_ms"], ms_no_window=dec_odd["ms"]),
+              errs["decode"], dec, floor_ms=dec["floor_ms"], ms_no_window=dec_odd["ms"],
+              library=dec["library_note"]),
         entry("paged_attention_softcap_window", "paged_attention.cu",
               "mlx_sharding_tpu/ops/paged_attention.py:153",
               gemma["batch"]["launches"]["paged_attention"], errs["paged"], paged,
-              ms_no_window=paged_odd["ms"]),
+              ms_no_window=paged_odd["ms"], library=paged["library_note"]),
         entry("quant_gemv_experts", "quant_matmul.cu", "mlx_sharding_tpu/ops/quant_matmul.py:382",
               mixtral["launches"]["quant_gemv_experts"]
               + mixtral["batch"]["launches"]["quant_gemv_experts"], errs["experts"], expert_row,
@@ -7859,6 +7944,385 @@ def phase_deepseek(seed: int, lap) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 18
+# Multi-host serving on the one card: the port's server as two processes
+# (rank 0 serves HTTP, rank 1 mirrors it), stage 0-16 on rank 0 and 16-32
+# on rank 1, both on cuda:0, each holding only its own layers of the 8B
+# checkpoint that the smoke writes once; the control plane and the hop run
+# over gloo (NCCL refuses two ranks on one card).
+MH_MAX_SEQ = PIPE_MAX_SEQ
+MH_STREAMS = ((150, PIPE_PROMPT, PIPE_TOKENS), (181, 400, 32), (182, 300, 32))  # (i, n, tokens)
+# phase 15's mix without its 257-token request, then a request sharing the
+# 600-token one's first two pages, sent once that one has ended
+MH_BATCH = tuple((i, n, m) for i, (n, m) in enumerate(PIPE_BATCH) if n != 257)
+MH_SHARED = (3, 2 * PAGE, 40, 32)  # (the job it shares with, shared tokens, suffix, tokens)
+MH_TIMEOUT_S = 30  # the batcher deployment's liveness budget (its worker is killed)
+MH_SPAWN_S = 240  # a deployment's limit to become healthy
+MH_POD_LAYERS = 4  # the pod at full width, this deep (phase 16 ran it at full depth)
+# a rank of the port's server, the byte tokenizer in the checkpoint's place
+MH_LAUNCH = ("import sys; import chip_smoke as c; "
+             "from mlx_sharding_tpu_torch.server.openai_api import main; "
+             "main(sys.argv[1:], tokenizer_loader=lambda _: c.ByteTokenizer())")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class MultiHost:
+    """Two ranks of the port's server (``MH_LAUNCH``) over ``argv``, on
+    the card, each writing its read-outs (launches, the hop, its stages'
+    device ms, its memory) to ``reports`` at each request boundary and
+    when it leaves. Every wait on them is bounded (their start, each
+    request, their exit), ``close`` kills what is left, and a failed
+    check prints their logs' tails."""
+
+    def __init__(self, tag: str, argv: list, folder: str, env: Optional[dict] = None):
+        self.tag, self.port = tag, free_port()
+        coord = f"127.0.0.1:{free_port()}"
+        self.reports = [os.path.join(folder, f"{tag.strip('[]')}-rank{r}.json")
+                        for r in range(2)]
+        self.logs = [os.path.join(folder, f"{tag.strip('[]')}-rank{r}.log") for r in range(2)]
+        env = dict(os.environ, PYTHONPATH=os.getcwd(), OMP_NUM_THREADS="2",
+                   MST_RANK_REPORT=os.path.join(folder, f"{tag.strip('[]')}-rank{{rank}}.json"),
+                   **(env or {}))
+        self.procs = []
+        for r in (1, 0):
+            cmd = [sys.executable, "-c", MH_LAUNCH, *argv,
+                   "--coordinator", coord, "--num-processes", "2", "--process-id", str(r),
+                   "--host", "127.0.0.1", "--port", str(self.port if r == 0 else free_port())]
+            with open(self.logs[r], "w") as log_file:
+                self.procs.insert(0, subprocess.Popen(
+                    cmd, env=env, stdout=log_file, stderr=subprocess.STDOUT))
+
+    def tails(self) -> str:
+        out = []
+        for r, path in enumerate(self.logs):
+            with open(path, errors="replace") as f:
+                out.append(f"--- {self.tag} rank {r} log tail\n" + f.read()[-4000:])
+        return "\n".join(out)
+
+    def check(self, cond, what):
+        if not cond:
+            log(self.tails())
+            raise AssertionError(what)
+
+    def wait_healthy(self) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < MH_SPAWN_S:
+            self.check(all(p.poll() is None for p in self.procs),
+                       f"{self.tag} a rank exited: {[p.poll() for p in self.procs]}")
+            try:
+                if get(self.port, "/health")[0] == 200:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.5)
+        self.check(False, f"{self.tag} not healthy within {MH_SPAWN_S} s")
+
+    def report(self, rank: int) -> dict:
+        with open(self.reports[rank]) as f:
+            return json.load(f)
+
+    def requests_logged(self) -> list:
+        """Rank 0's per-request log lines (TTFT, decode tok/s)."""
+        with open(self.logs[0], errors="replace") as f:
+            return [ln.strip() for ln in f if "request:" in ln]
+
+    def stop(self) -> None:
+        """SIGTERM to rank 0, which shuts the worker down; both must leave."""
+        if self.procs[0].poll() is None:
+            self.procs[0].terminate()
+        for p in self.procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+        self.check(all(p.poll() is not None for p in self.procs),
+                   f"{self.tag} a rank did not leave after SIGTERM")
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def mh_tokens(port, text: str, tokens: int) -> tuple:
+    """One greedy completion's token ids (its logprobs carry them) and
+    seconds."""
+    status, data, _, secs = post(port, "/v1/completions", {
+        "prompt": text, "max_tokens": tokens, "logprobs": 1})
+    check(status == 200, f"[multihost] a completion failed: {status} {data}")
+    return data["choices"][0]["logprobs"]["tokens"], secs
+
+
+def mh_batch_jobs() -> list:
+    """The batcher run's requests as ``(text, max_tokens)``: ``MH_BATCH``,
+    then one that shares the first ``MH_SHARED[1]`` tokens of job
+    ``MH_SHARED[0]``'s prompt."""
+    jobs = [(mix_prompt(i, n), m) for i, n, m in MH_BATCH]
+    owner, shared, suffix, tokens = MH_SHARED
+    jobs.append((mix_prompt(owner, PIPE_BATCH[owner][0])[:shared] + mix_prompt(190, suffix),
+                 tokens))
+    return jobs
+
+
+def mh_run_batch(submit) -> list:
+    """The batcher run: ``MH_BATCH`` at once (each on a thread), then the
+    shared-prefix request after them; ``submit(text, tokens)`` returns a
+    stream's tokens. Returns the streams in job order."""
+    jobs = mh_batch_jobs()
+    out = [None] * len(jobs)
+    errors = []
+
+    def run(i):
+        try:
+            out[i] = submit(*jobs[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"job {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs) - 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    run(len(jobs) - 1)
+    check(not errors, f"[multihost] batch requests failed: {errors}")
+    return out
+
+
+def mh_references(model) -> dict:
+    """The in-process pp = 2 runs each deployment must equal: the engine's
+    single stream over ``MH_STREAMS`` (built as the server builds
+    ``--num-stages 2``), and the pp = 2 gather batcher with the prefix
+    cache over the batch run."""
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+    from mlx_sharding_tpu_torch.server.openai_api import build_generator
+
+    tok = ByteTokenizer()
+    two = build_generator("llama-3.1-8b-random", model=model, device=model.device, num_stages=2,
+                          max_seq=MH_MAX_SEQ, prefill_chunk=CHUNK, decode_block=PIPE_DECODE_BLOCK)
+    streams = [[t for t, _ in two.generate_step(tok.encode(mix_prompt(i, n)), max_tokens=m)]
+               for i, n, m in MH_STREAMS]
+    two.close()
+    del two
+    engine = PipelineEngine(model, stages=2, microbatches=PIPE_SLOTS, max_seq=MH_MAX_SEQ,
+                            prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
+                            paged_attention="gather", device=model.device)
+    batcher = ContinuousBatcher(engine, decode_block=8, prefix_cache=True)
+    batcher.warm_up(blocks=((False, True),))
+    batch = mh_run_batch(lambda text, m: [t for t, _ in batcher.generate_step(
+        tok.encode(text), max_tokens=m, want_logprobs=True)])
+    hits = batcher.prefix_hits
+    batcher.close()
+    del batcher, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(hits >= 1, f"[multihost] the reference batcher's prefix cache did not hit ({hits})")
+    return {"streams": streams, "batch": batch, "prefix_hits": hits}
+
+
+def mh_rank_line(tag: str, reports: list, kind: str = "decode") -> None:
+    for r in reports:
+        h = r["hop"]
+        sent, recv, toks = max(1, h["sent"]), max(1, h["received"]), max(1, h["token_broadcasts"])
+        log(f"{tag} rank {r['rank']}: stage device ms ({kind}) "
+            f"{ {int(s): round(ms, 3) for s, ms in r['stage_ms'].get(kind, {}).items()} }; "
+            f"hop sends {h['sent']} ({h['bytes_sent'] / sent / 1e3:.1f} kB, "
+            f"{h['send_s'] / sent * 1e3:.3f} ms each, the host copy included), receives "
+            f"{h['received']} ({h['bytes_received'] / recv / 1e3:.1f} kB, "
+            f"{h['recv_s'] / recv * 1e3:.3f} ms each, the peer's stages included), token "
+            f"broadcasts {h['token_broadcasts']} ({h['token_bytes'] / toks:.0f} B, "
+            f"{h['token_s'] / toks * 1e3:.3f} ms each); card memory peak "
+            f"{r.get('max_memory_allocated', 0) / 1e9:.3f} GB; launches {r['launches']}")
+
+
+def phase_multihost(model, seed: int, lap) -> tuple:
+    """Phase 18: the port's server over two processes on the one card, at
+    full width and depth, against the in-process pp = 2 runs: (a) the single
+    stream, three greedy completions; (b) the mirror batcher over a pool
+    (the gather path), phase 15's mix with a shared prefix; (c) the
+    batcher's worker SIGKILLed; (d) the pod over its collective transport,
+    at full width and ``MH_POD_LAYERS`` deep (its own self-test). Returns
+    the kernels' launches summed over both ranks' served runs."""
+    from mlx_sharding_tpu_torch.weights import model_weight_bytes
+
+    folder = tempfile.mkdtemp(prefix="mst-multihost-")
+    layers = model.config.num_hidden_layers
+    try:
+        refs = mh_references(model)
+        lap("phase 18, the in-process pp = 2 references")
+        ckpt = os.path.join(folder, "llama-3.1-8b-random")
+        t0 = time.perf_counter()
+        write_llama_checkpoint(model, LLAMA_31_8B, ckpt)
+        weights = model_weight_bytes(model)
+        log(f"[multihost] wrote the 8B checkpoint ({weights / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        common = ["--model", ckpt, "--device", "cuda:0", "--num-stages", "2",
+                  "--max-seq", str(MH_MAX_SEQ), "--prefill-chunk", str(CHUNK)]
+        launches = {}
+
+        def add(reports):
+            for r in reports:
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+
+        # both deployments start at once (their loads and warm-ups overlap);
+        # each serves while the other is idle
+        stream_dep = MultiHost("[multihost-stream]", [*common, "--decode-block",
+                                                       str(PIPE_DECODE_BLOCK)], folder)
+        batch_dep = MultiHost("[multihost-batch]", [
+            *common, "--concurrent", str(PIPE_SLOTS), "--paged-pool", str(POOL_PAGES),
+            "--page-size", str(PAGE), "--prompt-cache", "--decode-block", "8"], folder,
+            env={"MST_MULTIHOST_TIMEOUT_S": str(MH_TIMEOUT_S)})
+        try:
+            up = [dep.wait_healthy() for dep in (stream_dep, batch_dep)]
+            log(f"[multihost] started together: the stream's deployment healthy after "
+                f"{up[0]:.1f}s, the batcher's after {up[0] + up[1]:.1f}s")
+            # (a) the single stream
+            dep = stream_dep
+            got = [mh_tokens(dep.port, mix_prompt(i, n), m)[0] for i, n, m in MH_STREAMS]
+            dep.stop()
+            reports = [dep.report(r) for r in range(2)]
+            log(f"[multihost-stream] rank 0's requests: " + " | ".join(dep.requests_logged()))
+            mh_rank_line("[multihost-stream]", reports)
+            dep.check(got == refs["streams"], "[multihost-stream] a stream parts from the "
+                      "in-process pp = 2 engine's at "
+                      f"{[first_divergence(a, b) for a, b in zip(got, refs['streams'])]}")
+            chunks = sum(-(-n // CHUNK) for _, n, _ in MH_STREAMS)
+            steps = sum(PIPE_DECODE_BLOCK * -(-(m - 1) // PIPE_DECODE_BLOCK)
+                        for _, _, m in MH_STREAMS)
+            for r in reports:
+                mine = layers // 2
+                dep.check(r["launches"]["flash_attention"] == mine * chunks
+                          and r["launches"]["flash_decode"] == mine * steps
+                          and r["launches"]["paged_attention"] == 0,
+                          f"[multihost-stream] rank {r['rank']} launches {r['launches']}: want "
+                          f"{mine} layers x {chunks} chunks and {steps} steps")
+                dep.check(r["max_memory_allocated"] < 0.7 * weights,
+                          f"[multihost-stream] rank {r['rank']} holds "
+                          f"{r['max_memory_allocated'] / 1e9:.2f} GB of a {weights / 1e9:.2f} GB "
+                          "model")
+            log(f"[multihost-stream] {len(got)} greedy streams token-identical to the in-process "
+                f"pp = 2 engine's; each rank's peak "
+                f"{[round(r['max_memory_allocated'] / 1e9, 3) for r in reports]} GB of "
+                f"{weights / 1e9:.2f} GB of weights; {card_line()}")
+            add(reports)
+            lap("phase 18, the single stream over two processes")
+
+            # (b) the mirror batcher, then (c) its worker's death
+            dep = batch_dep
+            t0 = time.perf_counter()
+            batch = mh_run_batch(lambda text, m: mh_tokens(dep.port, text, m)[0])
+            secs = time.perf_counter() - t0
+            hits = metric_values(get(dep.port, "/metrics")[1].decode()).get(
+                "mst_prefix_cache_hits_total")
+            time.sleep(1.0)  # the worker's report at its idle op
+            worker = dep.report(1)
+            dep.check(batch == refs["batch"], "[multihost-batch] a stream parts from the "
+                      "in-process pp = 2 gather batcher's at "
+                      f"{[first_divergence(a, b) for a, b in zip(batch, refs['batch'])]}")
+            dep.check(hits is not None and hits >= 1,
+                      f"[multihost-batch] mst_prefix_cache_hits_total {hits}")
+            n = sum(len(b) for b in batch)
+            log(f"[multihost-batch] {len(batch)} requests, {n} tokens in {secs:.2f}s "
+                f"({n / secs:.2f} tok/s), every stream equal to the in-process pp = 2 gather "
+                f"batcher's; prefix cache hits {hits:.0f} (the reference's {refs['prefix_hits']})")
+            # (c) SIGKILL the worker
+            dep.procs[1].kill()
+            dep.procs[1].wait(timeout=30)
+            t0 = time.perf_counter()
+            status, err, _, _ = post(dep.port, "/v1/completions",
+                                     {"prompt": "hello", "max_tokens": 4})
+            first_s = time.perf_counter() - t0
+            hstatus, health, _ = get(dep.port, "/health")
+            health = json.loads(health)
+            t0 = time.perf_counter()
+            status2, err2, _, _ = post(dep.port, "/v1/completions",
+                                       {"prompt": "again", "max_tokens": 4})
+            later_s = time.perf_counter() - t0
+            alive = dep.procs[0].poll() is None
+            log(f"[multihost-death] worker SIGKILLed: next request {status} in {first_s:.3f}s "
+                f"({str(err)[:160]}); /health {hstatus} {health.get('status')} multihost "
+                f"{health.get('multihost')}; a later request {status2} in {later_s:.3f}s; "
+                f"rank 0 alive {alive}")
+            dep.check(status >= 500 and "error" in err and first_s < MH_TIMEOUT_S + 30,
+                      f"[multihost-death] the next request: {status} {err}")
+            dep.check(hstatus == 503 and health["status"] == "degraded"
+                      and health["multihost"]["workers_responsive"] is False,
+                      f"[multihost-death] /health {hstatus} {health}")
+            dep.check(status2 >= 500 and "error" in err2 and later_s < 30 and alive,
+                      f"[multihost-death] a later request {status2} in {later_s:.1f}s")
+            dep.stop()
+            reports = [dep.report(0), worker]
+        finally:
+            stream_dep.close()
+            batch_dep.close()
+        mh_rank_line("[multihost-batch]", reports)
+        for r in reports:
+            dep.check(r["launches"]["flash_attention"] > 0 and r["launches"]["flash_decode"] > 0
+                      and r["launches"]["paged_attention"] == 0,
+                      f"[multihost-batch] rank {r['rank']} launches {r['launches']}")
+        add(reports)
+        lap("phase 18, the mirror batcher over two processes and its worker's death")
+
+        # (d) the pod over its collective transport
+        config = os.path.join(folder, "config.json")
+        with open(config, "w") as f:
+            json.dump(LLAMA_31_8B, f)
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=os.getcwd(), OMP_NUM_THREADS="2")
+        pod_logs = [os.path.join(folder, f"pod-rank{r}.log") for r in range(2)]
+        procs = []
+        for r in (1, 0):
+            with open(pod_logs[r], "w") as log_file:
+                procs.insert(0, subprocess.Popen(
+                    [sys.executable, "-m",
+                     "mlx_sharding_tpu_torch.pod", "--coordinator", f"127.0.0.1:{port}",
+                     "--num-processes", "2", "--process-id", str(r), "--device", "cuda:0",
+                     "--config", config, "--layers", str(MH_POD_LAYERS), "--dtype", "bfloat16",
+                     "--seed", str(seed), "--max-seq", "1024", "--chunk", str(CHUNK),
+                     "--page", str(PAGE), "--pool-pages", "10"],
+                    env=env, stdout=log_file, stderr=subprocess.STDOUT))
+        try:
+            procs[0].wait(timeout=400)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        with open(pod_logs[0], errors="replace") as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        if not lines or procs[0].returncode != 0:
+            with open(pod_logs[1], errors="replace") as f:
+                log(f"--- pod rank 0\n{text[-4000:]}\n--- pod rank 1\n{f.read()[-4000:]}")
+        check(lines, "[multihost-pod] rank 0 printed no report")
+        report = json.loads(lines[-1])
+        h = report["handoff"]
+        log(f"[multihost-pod] the 8B at full width, {MH_POD_LAYERS} layers, two pod hosts over "
+            f"CollectiveTransport: handoff match {h['match']}, {h['shipped']} shipped, "
+            f"{h['bytes_shipped'] / 1e6:.2f} MB, {h['relayed_tokens']} tokens relayed, first "
+            f"relayed token p50 {h['ms_p50']} ms; fault sweep {report['fault_sweep']}; host "
+            f"death {report['host_death']}; hosts' weights "
+            f"{ {k: v['weights'].get('trees') for k, v in report['hosts'].items()} } trees")
+        check(report["ok"] is True and procs[0].returncode == 0 and h["match"]
+              and h["bytes_shipped"] > 0, f"[multihost-pod] {report}")
+        lap("phase 18, the pod over its collective transport")
+        log(f"[multihost] phase 18's launches over both ranks' served runs: {launches}")
+        return launches, {"streams": got, "batch": batch}
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def phase_batching_runs(model, seed: int, single_stream_tok_s: float, lap) -> tuple:
     """Phase 6: ``phase_batching``'s runs, bf16 and int8 pools, plain and
     speculating, async and sync ticks. Returns kernel 2's launches over
@@ -7941,6 +8405,7 @@ def main(argv=None) -> int:
     pipe_launches, _ = phase_pipeline(model, args.seed, lap)
     pod_launches, _ = phase_pod(model, lap)
     mesh_launches, _ = phase_mesh(model, args.seed, lap)
+    mh_launches, _ = phase_multihost(model, args.seed, lap)
     quant_launches, quant_stats = phase_main_path_4bit(model, args.seed, lap)
     del model
     families = phase_families(
@@ -7963,7 +8428,7 @@ def main(argv=None) -> int:
                      + surface_launches["flash_attention"] + share_launches["flash_attention"]
                      + disagg_launches["flash_attention"] + pipe_launches["flash_attention"]
                      + pod_launches["flash_attention"] + quant_launches["flash_attention"]
-                     + mesh_launches["flash_attention"]),
+                     + mesh_launches["flash_attention"] + mh_launches["flash_attention"]),
         "max_abs_err": max(max_err, dense["kernels"]["flash_attention"], mesh_err["flash"],
                            surfaces["unaligned_err"]),
         "ms": mean("ms"),
@@ -8007,7 +8472,8 @@ def main(argv=None) -> int:
         "replaces": "mlx_sharding_tpu/ops/flash_attention.py:127",
         "launches": (launches["flash_decode"] + quant_launches["flash_decode"]
                      + dense_launches["flash_decode"] + surface_launches["flash_decode"]
-                     + pipe_launches["flash_decode"] + mesh_launches["flash_decode"]),
+                     + pipe_launches["flash_decode"] + mesh_launches["flash_decode"]
+                     + mh_launches["flash_decode"]),
         "max_abs_err": max(decode_err, dense["kernels"]["flash_decode"], mesh_err["decode"]),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],

@@ -268,12 +268,24 @@ class Generator:
         for _ in range(steps):
             logits, _ = self._step(tok[:, None], self.cache)
             self.cache.pos.add_(1)
-            tok, logprobs = sample_token_batched(self.rng, logits[:, -1], self.sp, recent,
-                                                 sampled=sampled)
+            tok, lp = self._sample(logits[:, -1], recent, sampled, want_logprobs)
             recent.copy_(update_recent_tokens(recent, tok))
-            outs.append((tok, *block_lp_outputs(tok, logprobs)) if want_logprobs else (tok,))
+            outs.append((tok, *lp) if want_logprobs else (tok,))
         self._tok.copy_(tok)
         return tuple(torch.stack(x) for x in zip(*outs))
+
+    def _sample(self, logits, recent, sampled: bool, want_logprobs: bool):
+        """One token from ``logits`` (1, V) with the sampler row, ``rng`` and
+        the window, and its logprob summary when ``want_logprobs``: here,
+        or where the model is a stage stack over several processes, on the
+        rank that holds the head (its ``shared_sample``)."""
+        def run():
+            tok, logprobs = sample_token_batched(self.rng, logits, self.sp, recent,
+                                                 sampled=sampled)
+            return tok, (block_lp_outputs(tok, logprobs) if want_logprobs else None)
+
+        share = getattr(self.model, "shared_sample", None)
+        return run() if share is None else share(run, 1, want_logprobs)
 
     def _window(self, size: int) -> torch.Tensor:
         if size not in self._recent:
@@ -391,13 +403,12 @@ class Generator:
             start = self.last_prefix_hit // self.prefill_chunk * self.prefill_chunk
             self._pc_tokens = None  # the rows are about to change
         last_logits = self._prefill(prompt, start)
-        tok, logprobs = sample_token_batched(self.rng, last_logits, self.sp, recent,
-                                             sampled=sampled)
+        tok, lp = self._sample(last_logits, recent, sampled, want_logprobs)
         recent.copy_(update_recent_tokens(recent, tok))
         self._tok.copy_(tok)
         first_lp = None
         if want_logprobs:
-            chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
+            chosen, top_v, top_i = (x.cpu().numpy() for x in lp)
             first_lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
         return int(tok[0]), first_lp, window, sampled
 

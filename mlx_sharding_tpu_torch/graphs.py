@@ -216,8 +216,12 @@ class StageGraphs:
         self.devices = [torch.device(d) for d in devices]
         self.graphs = None
         if enabled:
+            # another process's stage (a ``meta`` device) has no programs here
             self.graphs = []
             for dev in self.devices:
+                if dev.type != "cuda":
+                    self.graphs.append(None)
+                    continue
                 with torch.cuda.device(dev):
                     self.graphs.append(StepGraphs(dev, torch.cuda.graph_pool_handle()))
         self._inputs: dict = {}
@@ -241,6 +245,7 @@ class StageGraphs:
         over every stage (``{}`` when off)."""
         if self.graphs is None:
             return {}
-        return {"graphs": sum(g.captures for g in self.graphs),
-                "seconds": sum(g.capture_seconds for g in self.graphs),
-                "pool_bytes": sum(g.pool_bytes() for g in self.graphs)}
+        graphs = [g for g in self.graphs if g is not None]
+        return {"graphs": sum(g.captures for g in graphs),
+                "seconds": sum(g.capture_seconds for g in graphs),
+                "pool_bytes": sum(g.pool_bytes() for g in graphs)}

@@ -74,13 +74,16 @@ def load_config(model_path: Path, start_layer: Optional[int] = None,
     return config
 
 
-def read_safetensors(path: Path) -> dict[str, torch.Tensor]:
+def read_safetensors(path: Path, keep=None) -> dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file, as CPU tensors sharing one
-    buffer that holds the file's data once."""
+    buffer that holds the file's data once; with ``keep`` (a predicate on
+    the names) only the tensors it keeps, each read on its own."""
     path = Path(path)
     with open(path, "rb") as f:
         (header_len,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(header_len))
+        if keep is not None:
+            return _read_kept(f, 8 + header_len, header, keep, path)
         buf = bytearray(path.stat().st_size - 8 - header_len)
         f.readinto(buf)
     out = {}
@@ -100,35 +103,55 @@ def read_safetensors(path: Path) -> dict[str, torch.Tensor]:
     return out
 
 
+def _read_kept(f, base: int, header: dict, keep, path: Path) -> dict[str, torch.Tensor]:
+    """The tensors of an open ``.safetensors`` file whose names ``keep``
+    keeps, each read from its own byte range."""
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__" or not keep(name):
+            continue
+        if info["dtype"] not in SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype {info['dtype']}")
+        dtype = SAFETENSORS_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        if end == start:
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+            continue
+        buf = bytearray(end - start)
+        f.seek(base + start)
+        f.readinto(buf)
+        out[name] = torch.frombuffer(buf, dtype=dtype).reshape(info["shape"])
+    return out
+
+
 def write_safetensors(path: Path, tensors: dict[str, torch.Tensor]) -> None:
     """Write ``tensors`` as one ``.safetensors`` file that
     :func:`read_safetensors` reads back (the same layout: 8-byte header
     length, a JSON header, the raw little-endian data; ``int32`` as
-    ``I32``)."""
+    ``I32``), one tensor's bytes on the host at a time."""
     names = {v: k for k, v in SAFETENSORS_DTYPES.items() if k != "U32"}
-    header, blobs, offset = {}, [], 0
+    header, offset = {}, 0
     for name, t in tensors.items():
-        data = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        n = t.numel() * t.element_size()
         header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for data in blobs:
-            f.write(data)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
 
 
-def load_raw_weights(model_path: Path) -> dict[str, torch.Tensor]:
+def load_raw_weights(model_path: Path, keep=None) -> dict[str, torch.Tensor]:
     files = sorted(model_path.glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"No safetensors found in {model_path}")
     weights: dict[str, torch.Tensor] = {}
     for file in files:
-        weights.update(read_safetensors(file))
+        weights.update(read_safetensors(file, keep))
     return weights
 
 
@@ -163,29 +186,28 @@ def dequantize_weights(weights: dict, quantization: dict, dtype=torch.bfloat16,
     return out
 
 
+def stage_keeps(name: str, config) -> bool:
+    """Whether the stage of ``config`` keeps the checkpoint tensor ``name``:
+    its layers in [start, end), the embedding where the stage needs it, the
+    final norm and the head on the last stage; never a rotary inv_freq
+    buffer."""
+    if "rotary_emb.inv_freq" in name:
+        return False
+    m = LAYER_RE.search(name)
+    if m:
+        return config.start_layer <= int(m.group(1)) < config.end_layer
+    if "embed_tokens" in name:
+        return config.needs_embed
+    if name.startswith(("model.norm", "norm.")) or "lm_head" in name:
+        return config.needs_head
+    return True
+
+
 def filter_stage_weights(weights: dict, config) -> dict:
     """Keep layers in [start, end); the embedding only where the stage needs
     it; the final norm and head only on the last stage. Rotary inv_freq
     buffers are dropped."""
-    kept = {}
-    for name, value in weights.items():
-        if "rotary_emb.inv_freq" in name:
-            continue
-        m = LAYER_RE.search(name)
-        if m:
-            if config.start_layer <= int(m.group(1)) < config.end_layer:
-                kept[name] = value
-            continue
-        if "embed_tokens" in name:
-            if config.needs_embed:
-                kept[name] = value
-            continue
-        if name.startswith(("model.norm", "norm.")) or "lm_head" in name:
-            if config.needs_head:
-                kept[name] = value
-            continue
-        kept[name] = value
-    return kept
+    return {name: value for name, value in weights.items() if stage_keeps(name, config)}
 
 
 def load_model(path: str, start_layer: Optional[int] = None, end_layer: Optional[int] = None,
@@ -206,7 +228,10 @@ def load_model(path: str, start_layer: Optional[int] = None, end_layer: Optional
             "keep_quantized requires a quantized checkpoint "
             "(no 'quantization' key in config.json)"
         )
-    weights = load_raw_weights(model_path)
+    # a stage reads only its own tensors' bytes
+    whole = config.is_first_stage and config.is_last_stage
+    weights = load_raw_weights(model_path, None if whole else
+                               (lambda name: stage_keeps(name, config)))
     if config.quantization is not None:
         weights = dequantize_weights(weights, config.quantization, dtype,
                                      keep_packed_layers=keep_quantized,
@@ -214,6 +239,47 @@ def load_model(path: str, start_layer: Optional[int] = None, end_layer: Optional
     weights = filter_stage_weights(weights, config)
     model.load_weights(model.map_weights(weights), dev, dtype)
     return model, config
+
+
+def rank_model(part):
+    """A model of the whole layer range over ``part``, a stage's model
+    (``load_model`` with a layer range): its layers keep their global
+    indices, the layers of other processes are empty placeholders that
+    nothing runs, and the embedding, final norm and head are ``part``'s
+    (present where the stage needs them). A ``PipelineEngine`` over
+    several processes takes it with the stages of this rank."""
+    import copy
+    import dataclasses
+
+    from torch import nn
+
+    cfg = part.config
+    full = copy.copy(part)
+    full._modules = dict(part._modules)
+    full._parameters = dict(part._parameters)
+    full._buffers = dict(part._buffers)
+    full.config = dataclasses.replace(cfg, start_layer=0, end_layer=cfg.num_hidden_layers)
+    full._modules["layers"] = nn.ModuleList(
+        [nn.Module() for _ in range(cfg.start_layer)] + list(part.layers)
+        + [nn.Module() for _ in range(cfg.num_hidden_layers - cfg.end_layer)])
+    return full
+
+
+def load_rank_model(path: str, stage_bounds, processes, dtype=torch.bfloat16, device=None,
+                    keep_quantized: bool = False):
+    """This rank's share of a checkpoint for an engine over several
+    processes (``processes``, a ``parallel.mesh.ProcessLayout`` over the
+    stages of ``stage_bounds``): the layers of its stages, the embedding
+    where it runs stage 0 (or the last stage of a tied model) and the final
+    norm and head where it runs the last stage, as a :func:`rank_model`.
+    Only those tensors are read and placed on ``device``. Returns ``(model,
+    config of the whole range)``."""
+    local = processes.local_stages
+    start, end = stage_bounds[local[0]][0], stage_bounds[local[-1]][1]
+    part, _ = load_model(path, start, end, dtype=dtype, device=device,
+                         keep_quantized=keep_quantized)
+    full = rank_model(part)
+    return full, full.config
 
 
 def load_tokenizer(path: str):

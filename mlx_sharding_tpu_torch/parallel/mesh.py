@@ -19,6 +19,13 @@ it; for two shards that is also one f32 sum rounded once), and hands each
 shard its copy on its own device. ``lax.axis_index`` is a shard program's
 :attr:`ShardAxis.index`.
 
+Over several processes (``parallel/multihost.py``) a process axis splits
+the pp stages (:func:`process_layout`): stage s belongs to rank ``s // (S /
+P)``, a rank's tp, ep and sp shards stay in its process, and the grid's
+cells of another rank's stages are ``meta`` devices, of which nothing is
+held here. A split that would cut a tp, ep or sp group across processes
+raises ``NotImplementedError``.
+
 Code written as JAX writes an SPMD body, a shard's program with its psums
 inline, runs here as a generator: where JAX calls ``psum(x, axis)`` it
 writes ``x = yield from reduce(x, axis)``, and :func:`run_shards` advances
@@ -42,9 +49,10 @@ AXIS_SP = "sp"
 AXIS_EP = "ep"
 AXIS_TP = "tp"
 
-#: what the port defers: several processes
-DEFER_MULTIHOST = ("several processes (--coordinator, --num-processes, --pod) and the pod's "
-                   "collective transport come with slice 9b.3c (ROADMAP queue 1)")
+#: what the port does not run: a tp, ep or sp group over several processes
+DEFER_PROCESS_GROUPS = ("a tp, ep or sp group spanning processes is not ported (ROADMAP queue "
+                        "1, \"tp, ep and sp groups across processes\"): give each process "
+                        "whole pipeline stages")
 
 # reductions run by psum / pmax (one a group of an axis); a captured
 # step's replays run none
@@ -57,14 +65,73 @@ def reductions() -> int:
     return _reductions[0]
 
 
-def device_grid(pp: int = 1, sp: int = 1, ep: int = 1, tp: int = 1, device=None) -> np.ndarray:
+@dataclasses.dataclass(frozen=True)
+class ProcessLayout:
+    """Which rank of a deployment runs each pipeline stage (the process
+    axis over pp): stage s belongs to rank ``s // (S / P)``. This rank runs
+    only its own stages; the hidden state crosses to the next rank where a
+    stage boundary does (``parallel.multihost.send_hidden``)."""
+
+    rank: int
+    size: int
+    stage_ranks: tuple  # the rank of each stage
+
+    def owns(self, s: int) -> bool:
+        return self.stage_ranks[s] == self.rank
+
+    @property
+    def local_stages(self) -> list:
+        return [s for s, r in enumerate(self.stage_ranks) if r == self.rank]
+
+    @property
+    def head_rank(self) -> int:
+        """The rank of the last stage: it applies the head and samples."""
+        return self.stage_ranks[-1]
+
+
+def process_layout(num_stages: int, sp: int = 1, ep: int = 1, tp: int = 1, *,
+                   rank: Optional[int] = None, size: Optional[int] = None):
+    """The :class:`ProcessLayout` of ``num_stages`` stages over the
+    deployment's processes (this process's rank and the count from
+    ``parallel.multihost`` unless given), or None in one process. The
+    stages must split evenly over the processes (JAX's ``make_mesh``
+    refuses a mesh that does not divide the devices); a split that would
+    cut a tp, ep or sp group across processes raises
+    ``NotImplementedError``."""
+    if rank is None or size is None:
+        from mlx_sharding_tpu_torch.parallel.multihost import process_count, process_index
+
+        rank, size = process_index(), process_count()
+    if size <= 1:
+        return None
+    if num_stages % size:
+        if (num_stages * sp * ep * tp) % size == 0:
+            raise NotImplementedError(DEFER_PROCESS_GROUPS)
+        raise ValueError(f"{num_stages} pipeline stages do not split evenly over {size} "
+                         f"processes: each process runs whole stages")
+    per = num_stages // size
+    return ProcessLayout(rank, size, tuple(s // per for s in range(num_stages)))
+
+
+def device_grid(pp: int = 1, sp: int = 1, ep: int = 1, tp: int = 1, device=None,
+                procs: Optional[ProcessLayout] = None) -> np.ndarray:
     """The (pp, sp, ep, tp) grid of devices (JAX ``make_mesh`` with dp = 1):
     the first pp·sp·ep·tp CUDA devices in axis order, or ``device`` in
-    every cell."""
+    every cell. Over several processes (``procs``) the cells of another
+    rank's stages are ``meta`` (nothing of them is held here) and this
+    rank's stages take its own first CUDA devices, or ``device``."""
     sizes = dict(pp=pp, sp=sp, ep=ep, tp=tp)
     for name, n in sizes.items():
         if n < 1:
             raise ValueError(f"mesh axis {name} needs at least one device, got {n}")
+    if procs is not None:
+        local = procs.local_stages
+        sub = device_grid(len(local), sp, ep, tp, device)
+        grid = np.empty((pp, sp, ep, tp), dtype=object)
+        grid.fill(torch.device("meta"))
+        for j, s in enumerate(local):
+            grid[s] = sub[j]
+        return grid
     n = pp * sp * ep * tp
     grid = np.empty(n, dtype=object)
     if device is not None:
@@ -82,13 +149,14 @@ def device_grid(pp: int = 1, sp: int = 1, ep: int = 1, tp: int = 1, device=None)
     return grid.reshape(pp, sp, ep, tp)
 
 
-def stage_devices(num_stages: int, device=None) -> list[torch.device]:
+def stage_devices(num_stages: int, device=None, procs: Optional[ProcessLayout] = None
+                  ) -> list[torch.device]:
     """The device of each of ``num_stages`` stages: the first S CUDA devices
     (JAX's ``make_mesh(pp=S)`` over ``jax.devices()``), or ``device`` for
-    every stage."""
+    every stage (``meta`` for another rank's, with ``procs``)."""
     if num_stages < 1:
         raise ValueError(f"a pipeline needs at least one stage, got {num_stages}")
-    return list(device_grid(pp=num_stages, device=device)[:, 0, 0, 0])
+    return list(device_grid(pp=num_stages, device=device, procs=procs)[:, 0, 0, 0])
 
 
 def mesh_fingerprint(devices) -> str:

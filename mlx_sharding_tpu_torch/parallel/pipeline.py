@@ -108,6 +108,20 @@ a view of the model whose RoPE table lies on the stage's device
 reads. Stages on distinct devices have not been run on more than one
 card.
 
+Over several processes (``processes``, a ``parallel.mesh.ProcessLayout``)
+each rank holds and runs only its own stages (its model a
+``loading.rank_model``, another rank's stages ``meta`` devices with no
+cache), every rank calls the same steps in lockstep (the control plane of
+``parallel/multihost.py`` orders them), and where the next stage is
+another rank's the hidden state is sent to it through host memory
+(``multihost.send_hidden`` / ``recv_hidden``). The last stage's rank applies
+the head and samples, and every rank takes its tokens (and the logprob
+summaries asked for) from its broadcast (:meth:`PipelineEngine.
+shared_sample`); elsewhere a step's logits are a buffer nothing reads. Each
+rank's share of a step is its per-stage graphs, the hops between them run
+eagerly (one graph cannot wait on another process), and CUDA events time
+each of its stage programs (:meth:`PipelineEngine.stage_ms`).
+
 :meth:`PipelineEngine.generate_step` is the single stream of JAX's engine,
 a ``Generator`` over the engine's stages (:class:`StagedGenerator` over
 :class:`_Stream`): every one of the M microbatches runs the same tokens
@@ -137,6 +151,7 @@ one graph cannot hold a program over two cards.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import functools
@@ -171,7 +186,12 @@ from mlx_sharding_tpu_torch.cache import (
     write_pool_span,
 )
 from mlx_sharding_tpu_torch.device import upload_into
-from mlx_sharding_tpu_torch.generate import BLOCK_KINDS, DEFAULT_DECODE_BLOCK, Generator
+from mlx_sharding_tpu_torch.generate import (
+    BLOCK_KINDS,
+    DEFAULT_DECODE_BLOCK,
+    Generator,
+    block_lp_outputs,
+)
 from mlx_sharding_tpu_torch.graphs import StageGraphs, note_eager_forward
 from mlx_sharding_tpu_torch.models.base import apply_projection_fusion, undo_projection_fusion
 from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
@@ -268,7 +288,7 @@ def check_mesh_model(model, tp: int, ep: int) -> None:
 
 
 def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp: int = 1,
-                  ep: int = 1, device=None) -> ResidentWeights:
+                  ep: int = 1, device=None, processes=None) -> ResidentWeights:
     """Place a loaded full model for an S-stage engine at ``tp`` x ``ep``
     (JAX ``place_weights``) and return its :class:`ResidentWeights`, which
     carries the split, the device grid and each shard's layers. On one
@@ -284,10 +304,14 @@ def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp:
     model's: a second call for the same split and grid returns it (JAX
     places a tree from the parameters anew each time; here the wholes it
     would slice are gone, and a second copy would double the packed
-    bytes)."""
+    bytes). Over several processes (``processes``, a
+    ``parallel.mesh.ProcessLayout``) the model holds this rank's stages
+    only (``loading.load_rank_model``): only they are placed, the head on
+    the last stage's device where this rank runs it, the embedding on its
+    first stage's device."""
     cfg = model.config
     bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
-    grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device)
+    grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device, procs=processes)
     key = (tuple(bounds), tp, ep, tuple(str(d) for d in grid.flat))
     placed = model.__dict__.setdefault("_mesh_placements", {})
     if tp * ep > 1 and key in placed:
@@ -295,10 +319,20 @@ def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp:
     devices = list(grid[:, 0, 0, 0])
     if len(set(devices)) > 1:
         for (a, b), dev in zip(bounds, devices):
-            model.layers[a:b].to(dev)
-        head_dev = devices[0] if model.head_is_tied() else devices[-1]
-        _head_module(model).to(head_dev)
-        model.final_norm.data = model.final_norm.data.to(head_dev)
+            if dev.type != "meta":
+                model.layers[a:b].to(dev)
+        if processes is None:
+            head_dev = devices[0] if model.head_is_tied() else devices[-1]
+            _head_module(model).to(head_dev)
+            model.final_norm.data = model.final_norm.data.to(head_dev)
+        else:
+            first = devices[processes.local_stages[0]]
+            if processes.owns(len(bounds) - 1):
+                _head_module(model).to(devices[-1])
+                model.final_norm.data = model.final_norm.data.to(devices[-1])
+            if hasattr(model, "embed_tokens") and not (
+                    model.head_is_tied() and processes.owns(len(bounds) - 1)):
+                model.embed_tokens.to(first)
     shards = None
     if tp * ep > 1:
         check_mesh_model(model, tp, ep)
@@ -309,6 +343,9 @@ def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp:
         shards = []
         for s, (a, b) in enumerate(bounds):
             per = [[] for _ in range(tp * ep)]
+            if grid[s, 0, 0, 0].type == "meta":  # another rank's stage
+                shards.append(tuple(per))
+                continue
             for i in range(a, b):
                 layer = model.layers[i]
                 each = []
@@ -320,9 +357,11 @@ def place_weights(model, *, stages: Optional[int] = None, stage_bounds=None, tp:
                 drop_whole(layer, sorted(set.intersection(*each)))
             shards.append(tuple(per))
         shards = tuple(shards)
-        rest = [getattr(model, n) for n in ("embed_tokens", "lm_head") if hasattr(model, n)]
+        # the ends this process holds (another rank's are absent)
+        rest = [getattr(model, n) for n in ("embed_tokens", "lm_head", "final_norm")
+                if hasattr(model, n)]
         weight_bytes = tree_weight_bytes(
-            [m for stage in shards for per in stage for m in per] + rest + [model.final_norm])
+            [m for stage in shards for per in stage for m in per] + rest)
     else:
         weight_bytes = model_weight_bytes(model)
     out = ResidentWeights(model=model, device=devices[0], weight_bytes=weight_bytes,
@@ -418,6 +457,7 @@ class PipelineEngine:
         decode_block: int = DEFAULT_DECODE_BLOCK,
         cuda_graphs: bool = True,
         stage_graphs: Optional[bool] = None,
+        processes=None,
     ):
         cfg = model.config
         if not (cfg.is_first_stage and cfg.is_last_stage):
@@ -428,6 +468,12 @@ class PipelineEngine:
         self.shards = tp * ep
         if self.shards > 1:
             check_mesh_model(model, tp, ep)
+        #: the ranks of a deployment that run the stages
+        #: (``parallel.mesh.ProcessLayout``), None in one process
+        self.procs = processes
+        if processes is not None and weights is not None:
+            raise ValueError("resident weights are one process's: an engine over several "
+                             "processes holds its own stages")
         placed = None
         # Weight residency (JAX ``weights=``): a ``weights.WeightStore``
         # lease's resident model, which other engines (replicas) run
@@ -458,9 +504,13 @@ class PipelineEngine:
             placed = weights
         else:
             bounds = resolve_stage_bounds(cfg.num_hidden_layers, stages, stage_bounds)
-            grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device)
+            if processes is not None and len(processes.stage_ranks) != len(bounds):
+                raise ValueError(f"a process layout of {len(processes.stage_ranks)} stages for "
+                                 f"{len(bounds)} stage bounds")
+            grid = device_grid(pp=len(bounds), tp=tp, ep=ep, device=device, procs=processes)
             if len(set(grid.flat)) > 1 or self.shards > 1:
-                placed = place_weights(model, stage_bounds=bounds, tp=tp, ep=ep, device=device)
+                placed = place_weights(model, stage_bounds=bounds, tp=tp, ep=ep, device=device,
+                                       processes=processes)
             elif model.device != grid.flat[0]:
                 raise ValueError(f"the model is on {model.device}, the engine on {grid.flat[0]}")
         self.stage_bounds, self.grid = bounds, grid
@@ -468,10 +518,29 @@ class PipelineEngine:
         #: each stage's shards' devices, shard r = e * tp + t
         self.shard_devices = [list(grid[s, 0].flat) for s in range(len(bounds))]
         self.num_stages = len(self.stage_bounds)
-        self.device = self.stage_devices[0]  # stage 0's: the inputs, the sampling
+        #: the stages this process runs (all of them in one process)
+        self.local_stages = (processes.local_stages if processes is not None
+                             else list(range(self.num_stages)))
+        # stage 0's (this rank's first stage's): the inputs, the sampling
+        self.device = self.stage_devices[self.local_stages[0]]
         self._one_device = len(set(grid.flat)) == 1
-        head = _head_module(model)
-        self._head_device = next(itertools.chain(head.parameters(), head.buffers())).device
+        self._head_device = None  # where another rank applies the head
+        if self._owns(self.num_stages - 1):
+            head = _head_module(model)
+            self._head_device = next(itertools.chain(head.parameters(), head.buffers())).device
+        # the hidden state's dtype where it crosses to another rank
+        self._hidden_dtype = getattr(model, "compute_dtype", model.dtype)
+        # over several processes: per (stage, "prefill" | "decode") CUDA
+        # events around this rank's stage programs (stage_ms()), and the
+        # hop's counters (``parallel.multihost.hop_counters``)
+        self._stage_events: Optional[dict] = (
+            {} if processes is not None and self.device.type == "cuda" else None)
+        self.hop_stats: Optional[dict] = None
+        if processes is not None:
+            from mlx_sharding_tpu_torch.parallel.multihost import hop_counters
+
+            self.hop_stats = hop_counters()
+        self._no_logits_buf: dict = {}
         self.decode_block = decode_block
         self.cuda_graphs = cuda_graphs
         #: each stage's share of a step is captured on its own: the steps
@@ -699,6 +768,88 @@ class PipelineEngine:
         return cache, init_page_table(self.microbatches, self.slot_pages, self.pool_pages)
 
     # ------------------------------------------------------------ stages
+    def _owns(self, s: int) -> bool:
+        """Whether this process runs stage s."""
+        return self.procs is None or self.procs.owns(s)
+
+    def _run_stages(self, h, run, lead: tuple):
+        """This process's stages in order: ``run(s, h)`` is stage s's program
+        over its input ``h`` (stage 0's embedded tokens, None where another
+        rank embeds). Where the previous stage is another rank's, its hidden
+        state of shape ``lead + (hidden,)`` is received; where the next one
+        is, the output is sent to it. Returns the last stage's output where
+        this rank runs it, else None."""
+        procs, last = self.procs, self.num_stages - 1
+        if procs is None:
+            for s in range(self.num_stages):
+                h = run(s, h)
+            return h
+        from mlx_sharding_tpu_torch.parallel.multihost import recv_hidden, send_hidden
+
+        kind = "prefill" if lead[-1] > 1 else "decode"
+        for s in self.local_stages:
+            if s > 0 and not procs.owns(s - 1):
+                h = recv_hidden((*lead, self.model.config.hidden_size), self._hidden_dtype,
+                                procs.stage_ranks[s - 1], self.stage_devices[s],
+                                self.hop_stats)
+            if self._stage_events is not None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record(torch.cuda.current_stream(self.stage_devices[s]))
+                h = run(s, h)
+                events[1].record(torch.cuda.current_stream(self.stage_devices[s]))
+                self._stage_events.setdefault((s, kind), collections.deque(maxlen=512)).append(
+                    events)
+            else:
+                h = run(s, h)
+            if s < last and not procs.owns(s + 1):
+                send_hidden(h, procs.stage_ranks[s + 1], self.hop_stats)
+                h = None
+        return h
+
+    def stage_ms(self) -> dict:
+        """Over several processes on the card: the mean device ms of each of
+        this rank's stage programs, ``{"prefill" | "decode": {stage: ms}}``,
+        over its last 512 runs of each (a decode run is one step of every
+        slot); ``{}`` otherwise."""
+        out: dict = {}
+        for (s, kind), runs in (self._stage_events or {}).items():
+            ms = [a.elapsed_time(b) for a, b in list(runs)]
+            out.setdefault(kind, {})[s] = sum(ms) / len(ms)
+        return out
+
+    def reset_read_outs(self) -> None:
+        """Zero the stage timings and the hop's counters (after a warm-up)."""
+        if self._stage_events is not None:
+            self._stage_events.clear()
+        if self.hop_stats is not None:
+            for key, value in self.hop_stats.items():
+                self.hop_stats[key] = type(value)()
+
+    def _no_logits(self, rows: int) -> torch.Tensor:
+        """What a step returns for the logits where another rank applies the
+        head: a buffer of their shape that nothing reads (the tokens come
+        from that rank's broadcast, :meth:`shared_sample`)."""
+        buf = self._no_logits_buf.get(rows)
+        if buf is None:
+            buf = self._no_logits_buf[rows] = torch.empty(
+                (rows, self.model.config.vocab_size), dtype=torch.float32, device=self.device)
+        return buf
+
+    def shared_sample(self, run, rows: int, want_lp: bool):
+        """One sampling of ``rows`` rows: ``run() -> (tokens (rows,), the
+        logprob summary or None)`` here, or over several processes on the
+        rank that holds the head, whose tokens (and summaries, when
+        ``want_lp``) every rank then receives
+        (``parallel.multihost.share_tokens``)."""
+        procs = self.procs
+        if procs is None:
+            return run()
+        from mlx_sharding_tpu_torch.parallel.multihost import share_tokens
+
+        return share_tokens(run if procs.owns(self.num_stages - 1) else None, rows, want_lp,
+                            procs.head_rank, self.device, self.hop_stats)
+
     def _stage_layers(self, cache, s: int, r: int = 0):
         """Stage s's layers in shard r: ``(global index, layer, K pool, V
         pool)``, each pool the layer's (its share group's) in the shard's
@@ -815,12 +966,17 @@ class PipelineEngine:
         caller's."""
         tokens, row, last = inputs if inputs is not None else self._prefill_buf[1:]
         note_eager_forward(self, tokens)
-        h = self.model.embed(tokens)
+        h = self.model.embed(tokens) if self._owns(0) else None
         graphs = self._graphs_for(cache)
-        for s in range(self.num_stages):
-            h = graphs.run(s, ("prefill", off),
-                                 functools.partial(self._prefill_layers, cache, s, off),
-                                 self._on(s, h), self._on(s, row))
+
+        def run(s, h):
+            return graphs.run(s, ("prefill", off),
+                              functools.partial(self._prefill_layers, cache, s, off),
+                              self._on(s, h), self._on(s, row))
+
+        h = self._run_stages(h, run, tuple(tokens.shape))
+        if h is None:
+            return self._no_logits(tokens.shape[0])
         return self._head(h.index_select(1, self._on(self.num_stages - 1, last)))[:, 0]
 
     def _prefill_layers(self, cache, s: int, off: int, h, row):
@@ -1020,14 +1176,20 @@ class PipelineEngine:
             lengths = slot_lengths(plan.positions[j], lengths > 0, self.max_seq)
         attend = {"ragged": self._attend_ragged, "gather": self._attend_gather,
                   "dense": self._attend_dense}[self.decode_path]
-        h = model.embed(tokens)  # (M, 1, hidden): the slot axis is the batch axis
+        # (M, 1, hidden): the slot axis is the batch axis
+        h = model.embed(tokens) if self._owns(0) else None
         graphs = self._graphs_for(cache)
-        for s in range(self.num_stages):
+
+        def run(s, h):
             on = functools.partial(self._on, s)
-            h = graphs.run(s, ("decode",),
-                                 functools.partial(self._decode_layers, cache, s, attend),
-                                 on(h), on(plan.positions[j]), on(lengths), on(plan.page_ids[j]),
-                                 on(plan.row_pos[j]), on(plan.tables))
+            return graphs.run(s, ("decode",),
+                              functools.partial(self._decode_layers, cache, s, attend),
+                              on(h), on(plan.positions[j]), on(lengths), on(plan.page_ids[j]),
+                              on(plan.row_pos[j]), on(plan.tables))
+
+        h = self._run_stages(h, run, tuple(tokens.shape))
+        if h is None:  # another rank runs the last stage
+            return None
         live = self._on(self.num_stages - 1, lengths) > 0
         return torch.where(live[:, None, None], h, torch.zeros((), dtype=h.dtype, device=h.device))
 
@@ -1050,25 +1212,38 @@ class PipelineEngine:
     def decode_logits(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
                       j: int) -> torch.Tensor:
         """:meth:`decode_hidden` through the head: logits (M, V) on stage
-        0's device."""
-        return self._head(self.decode_hidden(tokens, cache, plan, j))[:, 0]
+        0's device (a buffer nothing reads where another rank applies the
+        head)."""
+        h = self.decode_hidden(tokens, cache, plan, j)
+        if h is None:
+            return self._no_logits(tokens.shape[0])
+        return self._head(h)[:, 0]
 
     def decode_cb(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan, step: int, *,
                   recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
-                  sampled: bool):
+                  sampled: bool, want_lp: bool = False):
         """One continuous-batching decode step (step ``step`` of ``plan``):
         the T=1 forward of all M slots, then per-slot sampling with each
         slot's settings, generator and repetition window (``rep_mask``
         keeps the last ``rep_context`` entries of slot m's window), and the
         window updated in place. ``sampled``: some slot may sample (every
-        row then draws from its generator). Device work only: offsets are
-        the caller's (:meth:`advance_offsets`). Returns ``(tokens (M, 1),
-        logprobs (M, V))``."""
+        row then draws from its generator). Over several processes the rank
+        holding the head samples and every rank takes its tokens
+        (:meth:`shared_sample`). Device work only: offsets are the caller's
+        (:meth:`advance_offsets`). Returns ``(tokens (M, 1), the logprob
+        summary (chosen, top values, top indices) when want_lp, else
+        None)``."""
         logits = self.decode_logits(tokens, cache, plan, step)
-        masked = torch.where(rep_mask, recent, torch.full_like(recent, -1))
-        tok, logprobs = sample_token_batched(generators, logits, sp, masked, sampled=sampled)
+
+        def run():
+            masked = torch.where(rep_mask, recent, torch.full_like(recent, -1))
+            tok, logprobs = sample_token_batched(generators, logits, sp, masked,
+                                                 sampled=sampled)
+            return tok, (block_lp_outputs(tok, logprobs) if want_lp else None)
+
+        tok, lp = self.shared_sample(run, tokens.shape[0], want_lp)
         recent.copy_(update_recent_tokens(recent, tok))
-        return tok[:, None], logprobs
+        return tok[:, None], lp
 
     # ----------------------------------------------------------- speculation
     def verify_logits(self, x: torch.Tensor, cache: PagedKV, plan: DecodePlan) -> torch.Tensor:
@@ -1294,6 +1469,11 @@ class _Stream(StageStack):
         # at tp or ep > 1 the shards' layers stay unfused (JAX's rule)
         eng = self.engine
         return eng.model.fused_projection_groups() if eng.shards == 1 else {}
+
+    def shared_sample(self, run, rows: int, want_lp: bool):
+        """The engine's :meth:`PipelineEngine.shared_sample`: over several
+        processes the rank holding the head samples."""
+        return self.engine.shared_sample(run, rows, want_lp)
 
     def place_constants(self, device) -> None:
         """Each stage's view holds its own, placed by the engine."""

@@ -1,6 +1,6 @@
 """Pod-scale fleet: one front door over N host-local fleets (copied from
-``mlx_sharding_tpu/pod.py``; framework-free there but for its collective
-transport and its self-test).
+``mlx_sharding_tpu/pod.py``, framework-free there but for its collective
+transport and its self-test, which are ported onto ``torch.distributed``).
 
 Everything below this module is per-host: the ``WeightStore`` keeps ONE
 resident tree per process, ``DisaggCoordinator`` hands KV blocks between
@@ -30,11 +30,13 @@ module stitches N of those hosts into a pod with three coordinated pieces:
   miss pulls the owner host's block into the local host tier.
 
 Transports: :class:`LoopbackTransport` is the in-process fabric (N
-simulated hosts in one process, as JAX's quick-tier tests drive it). JAX's
-:class:`CollectiveTransport` rides its multi-host control plane; the port's
-raises until multi-host serving on ``torch.distributed`` is ported (ROADMAP
-queue 1, slice 9b.3c), and with it the server's ``--pod``. Both speak the
-same 4-call surface (publish / peers / send / handler).
+simulated hosts in one process, as JAX's quick-tier tests drive it);
+:class:`CollectiveTransport` is the real one, one process a host, over
+``parallel.multihost.PodControlPlane`` (an all_gather of the pod's own
+gloo group), behind the server's ``--pod``. Both speak the same 4-call
+surface (publish / peers / send / handler). ``python -m
+mlx_sharding_tpu_torch.pod --coordinator H:P --num-processes 2
+--process-id R`` runs the two-process self-test (:func:`_selftest_main`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import logging
 import pickle
 import queue
 import threading
+import time
 import uuid
 from collections import deque
 from typing import Callable, Optional
@@ -179,14 +182,225 @@ class LoopbackTransport:
 
 
 class CollectiveTransport:
-    """The pod fabric over the multi-host control plane's collectives (JAX's
-    ``CollectiveTransport``, ``parallel.multihost.PodControlPlane``). Not
-    yet ported: it comes with the collectives on ``torch.distributed``."""
+    """The real pod fabric: every host contributes one fixed-shape buffer
+    per tick through ``PodControlPlane.pod_exchange`` (a symmetric
+    allgather) and receives everyone's. Heartbeats are the ticks; queued
+    messages are framed into the tick blob, fragmented when larger than one
+    blob, so a block of many megabytes ships across consecutive ticks while
+    both hosts' decode loops keep running.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the pod's collective transport is not yet ported (ROADMAP queue 1, slice "
-            "9b.3c); run the pod over LoopbackHub")
+    A peer that stops arriving turns the collective into a timeout
+    (``WorkerTimeoutError`` from the plane); the transport then reports
+    every peer dead, and the local fleet degrades to single-host serving
+    rather than wedging a request thread in a collective."""
+
+    # blob framing: [4B n_msgs] then per message
+    # [4B dest][4B kind_len][4B payload_len][kind][payload]; dest -1 = all
+    _HDR = 12
+
+    def __init__(self, *, interval_s: float = 0.05, plane=None,
+                 clock: Clock = MONOTONIC):
+        from mlx_sharding_tpu_torch.parallel.multihost import (
+            PodControlPlane,
+            process_count,
+            process_index,
+        )
+
+        self.plane = plane if plane is not None else PodControlPlane()
+        self.host_id = process_index()
+        self.n_hosts = process_count()
+        self.interval_s = interval_s
+        self.clock = clock
+        self._lock = make_lock("CollectiveTransport._lock")
+        self._outbox: deque = deque()   # framed (dest, kind, payload) bytes
+        self._info: dict = {}
+        self._peers: dict = {}          # host -> (info, stamp)
+        self._handler: Optional[Callable] = None
+        self._frags: dict = {}          # (src, msgid) -> {idx: part, ...}
+        self._seq = 0
+        self._closed = False
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # ------------------------------------------------------------- surface
+    def set_handler(self, cb: Callable[[int, str, bytes], None]) -> None:
+        self._handler = cb
+
+    def publish(self, info: dict) -> None:
+        with self._lock:
+            self._info = dict(info)
+
+    def peers(self) -> dict:
+        now = self.clock()
+        with self._lock:
+            if self.plane.dead:
+                # a dead plane means no peer is provably alive: report every
+                # known peer at infinite age so death detection fires
+                return {
+                    h: {"info": dict(info), "age_s": float("inf")}
+                    for h, (info, stamp) in self._peers.items()
+                }
+            return {
+                h: {"info": dict(info), "age_s": now - stamp}
+                for h, (info, stamp) in self._peers.items()
+            }
+
+    def send(self, dest: int, kind: str, payload: bytes) -> None:
+        if self._closed or self.plane.dead:
+            raise PodTransportError("pod fabric is down")
+        kb = kind.encode()
+        # fragment anything that cannot ride one tick blob (leave header
+        # room); reassembly is keyed by a random message id
+        cap = self.plane.blob_bytes - 4 - self._HDR - len(kb) - 64
+        if len(payload) <= cap:
+            msgs = [(dest, kind, payload)]
+        else:
+            msgid = uuid.uuid4().bytes  # 16B
+            msgs = []
+            parts = [payload[i:i + cap] for i in range(0, len(payload), cap)]
+            for i, part in enumerate(parts):
+                head = msgid + np.asarray(
+                    [i, len(parts), len(kb)], np.int32
+                ).tobytes() + kb
+                msgs.append((dest, "_frag", head + part))
+        with self._lock:
+            self._outbox.extend(msgs)
+
+    # ---------------------------------------------------------------- loop
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name="mst-pod-transport", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self) -> None:
+        from mlx_sharding_tpu_torch.parallel.multihost import WorkerTimeoutError
+
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.tick()
+            except WorkerTimeoutError:
+                logger.error(
+                    "pod collective timed out — peers presumed dead; "
+                    "degrading to single-host serving"
+                )
+                return
+            except Exception:  # noqa: BLE001 — the fabric must not die quietly
+                logger.exception("pod transport tick failed")
+                return
+
+    def tick(self) -> None:
+        """One pod exchange: frame as much of the outbox as fits, allgather,
+        deliver every received message to the handler."""
+        blob, n_msgs = self._drain_outbox()
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+        hdr = np.asarray(
+            [seq, self.host_id, n_msgs, len(blob), 0, 0, 0, 0], np.int32
+        )
+        headers, blobs = self.plane.pod_exchange(
+            hdr, np.frombuffer(blob, np.uint8)
+        )
+        now = self.clock()
+        for h in range(headers.shape[0]):
+            src = int(headers[h][1])
+            if src == self.host_id:
+                continue
+            used = int(headers[h][3])
+            with self._lock:
+                info, _ = self._peers.get(src, ({}, now))
+                self._peers[src] = (info, now)
+            self._deliver(src, bytes(blobs[h][:used].tobytes()))
+
+    def _drain_outbox(self) -> tuple:
+        # heartbeat info rides every tick as message 0
+        with self._lock:
+            msgs = [(-1, "hb", pickle.dumps(self._info))]
+            used = 4 + self._HDR + 2 + len(msgs[0][2])
+            budget = self.plane.blob_bytes
+            while self._outbox:
+                dest, kind, payload = self._outbox[0]
+                need = self._HDR + len(kind.encode()) + len(payload)
+                if used + need > budget:
+                    if len(msgs) == 1 and 4 + need <= budget:
+                        # a whole fragment leaves no room for the heartbeat
+                        # (JAX's sizing reserves 64 bytes for it, and a
+                        # gossiped info outgrows that): it rides this tick
+                        # alone, or a block over one blob would never ship
+                        msgs = [self._outbox.popleft()]
+                    break
+                used += need
+                msgs.append(self._outbox.popleft())
+        out = [np.asarray([len(msgs)], np.int32).tobytes()]
+        for dest, kind, payload in msgs:
+            kb = kind.encode()
+            out.append(np.asarray(
+                [dest, len(kb), len(payload)], np.int32
+            ).tobytes())
+            out.append(kb)
+            out.append(payload)
+        return b"".join(out), len(msgs)
+
+    def _deliver(self, src: int, blob: bytes) -> None:
+        if len(blob) < 4:
+            return
+        n = int(np.frombuffer(blob[:4], np.int32)[0])
+        off = 4
+        for _ in range(n):
+            if off + self._HDR > len(blob):
+                return
+            dest, klen, plen = np.frombuffer(
+                blob[off:off + self._HDR], np.int32
+            )
+            off += self._HDR
+            kind = blob[off:off + klen].decode()
+            off += int(klen)
+            payload = blob[off:off + plen]
+            off += int(plen)
+            if dest not in (-1, self.host_id):
+                continue
+            if kind == "hb":
+                try:
+                    info = pickle.loads(payload)
+                except Exception:  # noqa: BLE001 — a bad heartbeat is stale,
+                    continue       # not fatal
+                with self._lock:
+                    self._peers[src] = (info, self.clock())
+                continue
+            if kind == "_frag":
+                done = self._reassemble(src, payload)
+                if done is None:
+                    continue
+                kind, payload = done
+            if self._handler is not None:
+                try:
+                    self._handler(src, kind, payload)
+                except Exception:  # noqa: BLE001 — one bad message must not
+                    logger.exception("pod message handler failed")  # kill ticks
+
+    def _reassemble(self, src: int, payload: bytes) -> Optional[tuple]:
+        msgid = payload[:16]
+        idx, total, klen = np.frombuffer(payload[16:28], np.int32)
+        kind = payload[28:28 + klen].decode()
+        part = payload[28 + int(klen):]
+        with self._lock:
+            parts = self._frags.setdefault((src, msgid), {})
+            parts[int(idx)] = part
+            if len(parts) < int(total):
+                return None
+            del self._frags[(src, msgid)]
+        return kind, b"".join(parts[i] for i in range(int(total)))
+
+    def close(self) -> None:
+        self._closed = True
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=5.0)
 
 
 # --------------------------------------------------------------------------
@@ -1229,3 +1443,211 @@ class PodFleet:
             close = getattr(self.local, "close", None)
             if close is not None:
                 close()
+
+
+# --------------------------------------------------------------------------
+# two-process self-test (``python -m mlx_sharding_tpu_torch.pod``)
+
+#: the self-test's default model: a tiny Llama in f32
+SELFTEST_TINY = dict(model_type="llama", vocab_size=256, hidden_size=32, intermediate_size=64,
+                     num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
+
+
+def _selftest_main(argv=None):  # pragma: no cover — driven by the tests in subprocesses
+    """Two-process acceptance run over real gloo collectives (JAX's
+    ``_selftest_main``).
+
+    Rank 0 runs a disagg coordinator (prefill and decode batchers aliasing
+    one weight tree) with the pod attached; rank 1 runs a decode host (two
+    batchers aliasing one tree, one of them pod-attached). The run proves:
+    (1) one weight tree per host with >= 2 local refs, visible through the
+    gossip view; (2) a cross-host prefill→decode handoff whose greedy stream
+    is bit-identical to a monolithic batcher's; (3) the ``pod.handoff``
+    fault and a real host death mid-relay both degrading to the local plan
+    with no dropped stream and counted fallbacks. Rank 0 prints one JSON
+    document. The model is random (``--seed``): the tiny f32 Llama, or
+    ``--config`` (a config.json) cut to ``--layers`` layers in ``--dtype``;
+    ``--device`` is every engine's (the first card without it)."""
+    import argparse
+    import json
+    import os
+    import sys
+
+    import torch
+
+    os.environ.setdefault("MST_POD_TIMEOUT_S", "20")
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--coordinator", required=True)
+    p.add_argument("--num-processes", type=int, required=True)
+    p.add_argument("--process-id", type=int, required=True)
+    p.add_argument("--device", default=None)
+    p.add_argument("--config", default=None, help="a config.json (default: a tiny Llama)")
+    p.add_argument("--layers", type=int, default=None)
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-seq", type=int, default=64)
+    p.add_argument("--chunk", type=int, default=8)
+    p.add_argument("--page", type=int, default=8)
+    p.add_argument("--pool-pages", type=int, default=10)
+    args = p.parse_args(argv)
+
+    from mlx_sharding_tpu_torch.device import resolve_device
+    from mlx_sharding_tpu_torch.disagg import DisaggCoordinator
+    from mlx_sharding_tpu_torch.models import build_model
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.parallel.multihost import init_process, process_index
+    from mlx_sharding_tpu_torch.parallel.pipeline import place_weights
+    from mlx_sharding_tpu_torch.replicas import ReplicaSet
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+    from mlx_sharding_tpu_torch.testing import faults
+    from mlx_sharding_tpu_torch.weights import WeightKey, aliased_spawn
+
+    device = resolve_device(args.device)
+    init_process(args.coordinator, args.num_processes, args.process_id)
+    host = process_index()
+    config = dict(SELFTEST_TINY)
+    if args.config is not None:
+        with open(args.config) as f:
+            config = json.load(f)
+    if args.layers is not None:
+        config["num_hidden_layers"] = args.layers
+    dtype = getattr(torch, args.dtype)
+    model, _ = build_model(config, dtype=dtype)
+    model.init_params(torch.Generator(device=device).manual_seed(args.seed), device)
+    key = WeightKey(checkpoint="pod-demo", stage_bounds=(("auto", 1),), dtype=args.dtype,
+                    quant="tp1", placement=f"pod-host-{host}")
+    store = weight_store()
+    eng_kw = dict(microbatches=2, max_seq=args.max_seq, prefill_chunk=args.chunk,
+                  pool_pages=args.pool_pages, page_size=args.page, device=device)
+
+    def batcher(eng):
+        b = ContinuousBatcher(eng, decode_block=3)
+        b.warm_up(blocks=((False, False),))
+        return b
+
+    def aliased_batcher():
+        def make(lease):
+            eng = PipelineEngine(model, weights=lease.weights, **eng_kw)
+            eng.on_close(lease.release)
+            return batcher(eng)
+
+        return aliased_spawn(store, key, lambda: place_weights(model, device=device), make)
+
+    transport = CollectiveTransport(interval_s=0.05)
+    job = ([3, 17, 42], dict(max_tokens=24))
+
+    with torch.no_grad():
+        if host == 0:
+            # prefill and decode pools alias one local tree (trees=1, refs=2)
+            co = DisaggCoordinator(
+                ReplicaSet([aliased_batcher()], role="prefill"),
+                ReplicaSet([aliased_batcher()], role="decode"),
+            )
+            fleet = PodFleet(host, transport, co, relay_timeout_s=5.0, interval_s=0.1)
+            # the monolithic reference, built outside the store so the
+            # tree and ref gauges stay an exact statement about the fleet
+            mono = batcher(PipelineEngine(model, **eng_kw))
+            ref = [t for t, _ in mono.generate_step(job[0], **job[1])]
+            fleet.start()
+            # price the local decode pool as hot, so routing picks the remote
+            fleet.handoff.local_pressure = lambda: 1.0
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                view = fleet.pod_stats()["hosts"]
+                if "1" in view and (view["1"].get("weights") or {}).get("trees"):
+                    break
+                time.sleep(0.2)
+            report = {"hosts": fleet.pod_stats()["hosts"]}
+
+            # 2: a cross-host handoff, its greedy stream bit-identical
+            got = [t for t, _ in co.generate_step(job[0], **job[1])]
+            h = fleet.handoff.stats()
+            report["handoff"] = {
+                "match": got == ref, "shipped": h["shipped"],
+                "bytes_shipped": h["bytes_shipped"],
+                "relayed_tokens": h["relayed_tokens"],
+                "ms_p50": h["ms_p50"], "ms_p99": h["ms_p99"],
+            }
+
+            # 3: an injected pod.handoff fault, served in place
+            faults.arm("pod.handoff", exc=faults.FaultError, times=1)
+            got_fault = [t for t, _ in co.generate_step(job[0], **job[1])]
+            faults.disarm()
+            report["fault_sweep"] = {
+                "match": got_fault == ref,
+                "fallbacks": fleet.handoff.stats()["fallbacks"],
+            }
+
+            # 4: a real host death mid-relay, drained token-exact locally
+            transport.send(1, "demo.die", b"2")  # die after 2 relayed tokens
+            time.sleep(0.5)
+            got_death = [t for t, _ in co.generate_step(job[0], **job[1])]
+            h = fleet.handoff.stats()
+            report["host_death"] = {
+                "match": got_death == ref,
+                "fallbacks": h["fallbacks"],
+                "dropped_streams": 0 if got_death == ref else 1,
+            }
+            report["ok"] = all((
+                report["handoff"]["match"], report["handoff"]["shipped"] >= 1,
+                report["handoff"]["bytes_shipped"] > 0,
+                report["fault_sweep"]["match"],
+                report["fault_sweep"]["fallbacks"].get("handoff_fault") == 1,
+                report["host_death"]["match"],
+                (report["host_death"]["fallbacks"].get("relay_timeout", 0)
+                 + report["host_death"]["fallbacks"].get("remote_error", 0)
+                 + report["host_death"]["fallbacks"].get("transfer_fault", 0)
+                 >= 1),
+                all((v.get("weights") or {}).get("trees") == 1
+                    and (v.get("weights") or {}).get("refs", 0) >= 2
+                    for v in report["hosts"].values()),
+            ))
+            print(json.dumps(report))
+            sys.stdout.flush()
+            os._exit(0 if report["ok"] else 1)
+        else:
+            # the decode host: two batchers alias one tree; the first is the
+            # pod-attached decode target, the second proves the aliasing
+            b1 = aliased_batcher()
+            _b2 = aliased_batcher()  # noqa: F841 — holds the second ref live
+            die_after = [None]
+
+            class _Mortal:
+                """A decode target that can die mid-relay on command."""
+
+                def __init__(self, inner):
+                    self.inner = inner
+
+                def __getattr__(self, name):
+                    return getattr(self.inner, name)
+
+                def generate_step(self, prompt, **kw):
+                    n = 0
+                    for item in self.inner.generate_step(prompt, **kw):
+                        yield item
+                        n += 1
+                        if die_after[0] is not None and n >= die_after[0]:
+                            os._exit(0)  # SIGKILL-grade: no goodbyes
+
+            fleet = PodFleet(host, transport, _Mortal(b1), interval_s=0.1)
+            inner_handler = transport._handler
+
+            def handler(src, kind, payload):
+                if kind == "demo.die":
+                    die_after[0] = int(payload or b"1")
+                    return
+                inner_handler(src, kind, payload)
+
+            transport.set_handler(handler)
+            fleet.start()
+            time.sleep(300)  # ended by the host death demo (or the caller's timeout)
+
+
+if __name__ == "__main__":
+    # run the canonical module's driver: under ``python -m`` this file is
+    # imported twice (as __main__ and as mlx_sharding_tpu_torch.pod), and
+    # the fallback exceptions must be the classes disagg.py catches
+    from mlx_sharding_tpu_torch.pod import _selftest_main as _canonical_main
+
+    _canonical_main()

@@ -30,6 +30,14 @@ free slot alone, no page accounting, as JAX's dense batcher).
   ``decode_block_prog``, and each prefill chunk one graph per chunk offset
   (``PipelineEngine.prefill_step``), JAX's ``prefill_slot``.
 
+Over an engine whose stages span processes (``engine.procs``), rank 0's
+batcher and the workers' mirrors replay one op stream
+(``parallel.multihost.MultiHostBatcher``): a sync tick's decode block is
+:meth:`ContinuousBatcher._decode_once`, which that batcher overrides to
+broadcast the op first; "auto" ticks resolve to sync, and n-gram
+speculation, overcommit, cold-slot spill and the prefix store are refused
+with JAX's messages (each a host-side decision outside the op stream).
+
 Async ticks (``async_sched``, "auto" resolves to on): decode block t+1 is
 dispatched before block t is harvested, so the card runs block t+1 while
 the host waits for block t's tokens and emits them. The streams
@@ -265,6 +273,12 @@ class _Request:
     resume_recent: Optional[torch.Tensor] = None
     preempted_at: list = field(default_factory=list)  # tokens produced at each preemption
     deadlines: Optional[Deadlines] = None
+    # the sampler settings as submitted: a multi-host batcher broadcasts
+    # them (``parallel.multihost._assign_msg``)
+    temperature: float = 0.0
+    top_p: float = 1.0
+    repetition_penalty: Optional[float] = None
+    logit_bias: Optional[dict] = None
     draft_pos: int = 0  # next prompt index the draft engine prefills
     # the target's logits at its last prompt chunk, while the draft catches up
     last_logits: Optional[torch.Tensor] = None
@@ -380,9 +394,19 @@ class ContinuousBatcher:
             raise ValueError(f"a draft engine was given but draft={draft!r} — drop the draft "
                              "engine or select draft='engine'/'auto'")
         stages = getattr(engine, "num_stages", 1)
+        # an engine whose stages span processes: rank 0's batcher and the
+        # workers' mirrors replay one op stream (JAX's refusals at
+        # process_count() > 1, message for message)
+        multi = getattr(engine, "procs", None) is not None
         if spec_mode == "ngram" and stages != 1:
             raise ValueError("speculative continuous batching needs a pp=1 engine (the verify "
                              "wants the keep_all vectorized body)")
+        if spec_mode == "ngram" and multi:
+            # the mirror protocol has no speculative op: a controller-local
+            # round would desync the mirrored op streams
+            raise ValueError("--draft ngram is not supported in multi-host serving: worker "
+                             "mirrors replay plain decode ticks only; run it on single-host "
+                             "replicas (e.g. behind --replicas) instead")
         draft_stages = getattr(draft_engine, "num_stages", 1)
         if draft_engine is not None and (stages != 1 or draft_stages != 1):
             raise ValueError("speculative continuous batching needs pp=1 engines")
@@ -429,8 +453,23 @@ class ContinuousBatcher:
                 raise ValueError("the prefix store is incompatible with a draft engine: the "
                                  "draft's dense KV has no shareable pages, so a store hit "
                                  "would leave it attending to unprefilled state")
+            if multi:
+                # lookup, lease and import are host-side page-table decisions
+                # outside the op stream the workers mirror
+                raise ValueError("the prefix store is not supported in multi-host serving: "
+                                 "store hits rewrite page tables host-side, outside the "
+                                 "mirrored op stream; run it on single-host replicas (e.g. "
+                                 "behind --replicas) instead")
         if overcommit and not paged:
             raise ValueError("overcommit admission requires a paged engine (pool_pages)")
+        if overcommit and multi:
+            # preemption and re-import are host-side decisions that rewrite
+            # page tables and pop the free list outside the mirrored stream
+            raise ValueError("overcommit admission is not supported in multi-host serving: "
+                             "preemption/resume rewrites page tables and free lists "
+                             "host-side, outside the op stream worker ranks mirror; run "
+                             "overcommit on single-host replicas (e.g. behind --replicas) "
+                             "instead")
         if spill_bytes is not None:
             if isinstance(spill_bytes, bool) or not isinstance(spill_bytes, int) \
                     or spill_bytes <= 0:
@@ -451,6 +490,9 @@ class ContinuousBatcher:
             if spill_bytes is None:
                 raise ValueError("spill_cold_after needs a spill tier to spill into — "
                                  "set spill_bytes (--spill-bytes)")
+            if multi:
+                # a rank-local cold spill would desync the mirrored op streams
+                raise ValueError("cold-slot spill is not supported in multi-host serving")
         if kv_prefetch not in ("on", "off", "auto"):
             raise ValueError(f"kv_prefetch must be 'on', 'off' or 'auto', got {kv_prefetch!r}")
         if kv_prefetch == "on" and spill_bytes is None:
@@ -460,17 +502,24 @@ class ContinuousBatcher:
             # the next round's proposals depend on this round's accept counts
             raise ValueError("async_sched='on' is incompatible with a draft engine; use 'auto' "
                              "(resolves to sync when speculating)")
+        if async_sched == "on" and multi:
+            # the mirrors replay the op stream a tick at a time; a rank-local
+            # lookahead block would desync them
+            raise ValueError("async_sched='on' is not supported in multi-host serving")
         # async ticks: "auto" resolves as the JAX rule does; with no draft
         # engine and one host, plain decode and n-gram rounds are pure
         # device-side chains
         self.async_sched = async_sched
-        self._async = async_sched == "on" or (async_sched == "auto" and draft_engine is None)
+        self._async = async_sched == "on" or (async_sched == "auto" and draft_engine is None
+                                              and not multi)
         self.async_reason = (
             "async ticks: async_sched='on'" if async_sched == "on" else
             "sync ticks: async_sched='off'" if async_sched == "off" else
             "sync ticks: auto resolved to sync — the draft engine's speculative rounds harvest "
             "per-round accept counts that the next round's proposals depend on, so there is no "
             "device-side chain to run ahead on" if draft_engine is not None else
+            "sync ticks: auto resolved to sync — multi-host worker mirrors replay the op stream "
+            "per broadcast tick; a rank-local lookahead block would desync them" if multi else
             "async ticks: auto resolved to async — n-gram drafts are host-built (no draft "
             "engine, no draft KV), so the speculative round chains pure device-side like a "
             "plain decode block" if spec_mode == "ngram" else
@@ -769,6 +818,10 @@ class ContinuousBatcher:
             want_logprobs=want_logprobs,
             deadlines=deadlines,
             prefill_only=bool(_prefill_only),
+            temperature=temperature,
+            top_p=top_p,
+            repetition_penalty=repetition_penalty,
+            logit_bias=logit_bias,
         )
         if _resume is not None:
             req.produced, req.history, req.block = produced0, hist, block
@@ -868,7 +921,24 @@ class ContinuousBatcher:
         write only the scratch page (or slot). Returns the graphs captured,
         their capture seconds and the pools' bytes (both models' with a
         draft engine); ``{}`` without graphs. Call it before the scheduler
-        thread starts."""
+        thread starts. An engine that captures each stage's share of a step
+        on its own (its batcher has no graphs) runs the same chunks and
+        blocks, so its stage programs are captured here (over several
+        processes every rank runs them in lockstep); its stats are the
+        engine's."""
+        stage_graphs = (self.graphs is None and self.draft is None
+                        and getattr(self.engine, "per_stage_graphs", False)
+                        and self.engine._graphs_for(self.cache).graphs is not None)
+        if stage_graphs:
+            eng, c = self.engine, self.engine.prefill_chunk
+            eng.prefill_inputs(np.zeros(c, np.int64), self.M, c, self.table)  # row M: scratch
+            for off in range(0, eng.max_seq, c):
+                eng.prefill_step(self.cache, off)
+            for kind in sorted({sampled for sampled, _ in blocks}):
+                for want_lp in sorted({lp for sampled, lp in blocks if sampled == kind}):
+                    self._run_block(want_lp, kind)
+            torch.cuda.synchronize(eng.device)
+            return eng._graphs_for(self.cache).stats()
         if self.graphs is None:
             return {}
         engines = [(self.engine, self.cache, self.table, self.graphs)]
@@ -1757,16 +1827,23 @@ class ContinuousBatcher:
         return req.prefill_pos >= req.prompt.size and (
             self.draft is None or req.draft_pos >= req.prompt.size)
 
-    def _first_sample(self, logits: torch.Tensor, slot: int):
+    def _first_sample(self, logits: torch.Tensor, slot: int, want_lp: bool = False):
         """The first token of the request in ``slot`` from its prefill
-        logits, with the slot's own settings, window and generator."""
-        masked = torch.where(self.rep_mask[slot : slot + 1], self.recent[slot : slot + 1],
-                             torch.full_like(self.recent[slot : slot + 1], -1))
-        tok, logprobs = sample_token_batched([self.generators[slot]], logits.reshape(1, -1),
-                                             select_rows(self.sp, [slot]), masked,
-                                             sampled=self._slots[slot].sp.temperature > 0)
+        logits, with the slot's own settings, window and generator, and its
+        logprob summary when ``want_lp`` (over several processes sampled on
+        the rank that holds the head: the engine's ``shared_sample``)."""
+        def run():
+            masked = torch.where(self.rep_mask[slot : slot + 1], self.recent[slot : slot + 1],
+                                 torch.full_like(self.recent[slot : slot + 1], -1))
+            tok, logprobs = sample_token_batched([self.generators[slot]], logits.reshape(1, -1),
+                                                 select_rows(self.sp, [slot]), masked,
+                                                 sampled=self._slots[slot].sp.temperature > 0)
+            return tok, (block_lp_outputs(tok, logprobs) if want_lp else None)
+
+        share = getattr(self.engine, "shared_sample", None)
+        tok, lp = run() if share is None else share(run, 1, want_lp)
         self.recent[slot] = torch.cat([self.recent[slot, 1:], tok])
-        return tok, logprobs
+        return tok, lp
 
     def _prefill_one_chunk(self, req: _Request):
         """One prefill chunk of a request being admitted (a replay of the
@@ -1822,12 +1899,12 @@ class ContinuousBatcher:
         if self.draft is not None:
             # the draft's sampled proposals draw from a stream of their own
             self.dgenerators[slot].manual_seed((req.seed + 1) & 0x7FFFFFFF)
-        tok, logprobs = self._first_sample(logits, slot)
+        tok, summary = self._first_sample(logits, slot, req.want_logprobs)
         self.last_tok[slot] = tok
         self.active[slot] = True
         lp = None
         if req.want_logprobs:
-            chosen, top_v, top_i = (x.cpu().numpy() for x in block_lp_outputs(tok, logprobs))
+            chosen, top_v, top_i = (x.cpu().numpy() for x in summary)
             lp = TokenLogprobs(float(chosen[0]), top_i[0], top_v[0])
         self._emit(req, int(tok[0]), lp)
         if req.prefill_only and req.slot >= 0:
@@ -2644,12 +2721,12 @@ class ContinuousBatcher:
         plan, off = self._device_plan(inputs, self.decode_block)
         eng, tok, outs = self.engine, self.last_tok, []
         for j in range(self.decode_block):
-            tok, logprobs = eng.decode_cb(
+            tok, lp = eng.decode_cb(
                 tok, self.cache, plan, j, recent=self.recent, generators=self.generators,
-                sp=self.sp, rep_mask=self.rep_mask, sampled=sampled,
+                sp=self.sp, rep_mask=self.rep_mask, sampled=sampled, want_lp=want_lp,
             )
             if want_lp:
-                chosen, top_v, top_i = block_lp_outputs(tok[:, 0], logprobs)
+                chosen, top_v, top_i = lp
                 outs.append(torch.cat([tok.double(), chosen[:, None].double(),
                                        top_v.double(), top_i.double()], dim=1))
             else:
@@ -2871,9 +2948,15 @@ class ContinuousBatcher:
             self._handoff_out()  # prefill-only completions leave before the block
         if self._decoding():
             if not self._spec_tick():
-                self._harvest(self._dispatch_block())
+                self._decode_once()
         elif not any(self._slots):
             self._idle_wait()
+
+    def _decode_once(self):
+        """One decode block, dispatched and harvested: the sync tick's
+        composition point (JAX's), which the multi-host batcher overrides to
+        broadcast the op first."""
+        self._harvest(self._dispatch_block())
 
     def _tick_async(self):
         """Async tick: dispatch decode block (or speculative round) t+1

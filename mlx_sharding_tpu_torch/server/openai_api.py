@@ -51,7 +51,15 @@ controllers. ``--num-stages S`` or ``--stage-bounds`` serves the model as a
 pipeline of stages (the engine's single stream, or its batcher with
 ``--concurrent``; a pool decodes on the ``gather`` path); ``--engine
 chained`` with bounds serves one model per stage (the single stream only);
-``--start-layer`` / ``--end-layer`` load a layer range.
+``--start-layer`` / ``--end-layer`` load a layer range. ``--coordinator
+H:P --num-processes P --process-id R`` serves a pipeline over P processes
+(``parallel/multihost.py``): each holds and runs its own stages, rank 0
+serves HTTP and drives the others over the control plane (a
+``MultiHostPipeline``, or with ``--concurrent`` a ``MultiHostBatcher``),
+and ranks above 0 serve no HTTP and mirror its steps; ``/health`` then has
+a ``multihost`` block and answers 503 ``degraded`` once a worker stops
+answering. With ``--pod`` each process serves its own fleet instead, one
+host of a ``pod.PodFleet`` over a ``pod.CollectiveTransport``.
 
     python -m mlx_sharding_tpu_torch.server.openai_api --model DIR [--device cpu]
         [--num-stages S | --stage-bounds 0-14,14-27 [--engine fused|chained]]
@@ -65,16 +73,20 @@ chained`` with bounds serves one model per stage (the single stream only);
         [--disagg [--prefill-replicas N] [--decode-replicas N]]
         [--autoscale [--autoscale-min N] [--autoscale-max N] [--autoscale-interval S]
          [--autoscale-cooldown S]] [--brownout on|off]
+        [--coordinator H:P --num-processes P --process-id R [--pod]]
         [--profile-dir DIR] [--log-level INFO]
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import hmac
 import json
 import logging
+import os
+import signal
 import threading
 import time
 import uuid
@@ -177,7 +189,8 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     autoscale_cooldown: float = 15.0, brownout: bool = True,
                     start_layer: Optional[int] = None, end_layer: Optional[int] = None,
                     num_stages: Optional[int] = None, stage_bounds=None, engine: str = "fused",
-                    tp: int = 1, ep: int = 1, model=None):
+                    tp: int = 1, ep: int = 1, model=None, multihost: bool = False,
+                    dtype=None, warm_blocks=None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -220,17 +233,32 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     ``device``; the spill tier, the prefix store, share and compression
     maps, replicas, disagg and the autoscaler run over them as over one
     shard (a page block carries whole heads), every replica's resident
-    tree the one placed tp x ep tree. The pod (``pod.PodFleet``) is a
-    library over its in-process transport; its ``--pod`` flag comes with
-    slice 9b.3c. ``model``: an already loaded model to serve, which
-    ``path`` then only names. On a card each generator's step
-    graphs are captured here, before the first request."""
+    tree the one placed tp x ep tree. ``multihost``: the stages span the
+    deployment's processes (:func:`multihost_generator`). ``dtype``: the
+    load's (JAX's provider ``cache_dtype``; bf16 by default). ``model``: an
+    already loaded model to serve, which ``path`` then only names. On a
+    card each generator's step graphs are captured here, before the first
+    request: every decode-block kind, or the (sampled, logprobs) kinds in
+    ``warm_blocks`` (a batcher's or a Generator's; any other is captured on
+    first use)."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
     from mlx_sharding_tpu_torch.kv_compress import load_compress_map
     from mlx_sharding_tpu_torch.kv_share import load_share_map
     from mlx_sharding_tpu_torch.loading import load_model
     from mlx_sharding_tpu_torch.parallel.mesh import device_grid
 
     stages = len(stage_bounds) if stage_bounds else (num_stages or 1)
+    if multihost:
+        return multihost_generator(
+            path, device=device, max_seq=max_seq, prefill_chunk=prefill_chunk,
+            keep_quantized=keep_quantized, decode_block=decode_block, concurrent=concurrent,
+            paged_pool=paged_pool, page_size=page_size, paged_attention=paged_attention,
+            kv_dtype=kv_dtype, admission_policy=admission_policy, async_sched=async_sched,
+            prompt_cache=prompt_cache, max_queue=max_queue, spill_bytes=spill_bytes,
+            spill_cold_after=spill_cold_after, kv_prefetch=kv_prefetch, stages=stages,
+            stage_bounds=stage_bounds, tp=tp, ep=ep, dtype=dtype)
     if stage_bounds and engine == "chained":
         from mlx_sharding_tpu_torch.parallel.chained import (
             chained_from_model,
@@ -239,15 +267,15 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
 
         kw = dict(max_seq=max_seq, prefill_chunk=prefill_chunk, decode_block=decode_block)
         generator = (chained_from_model(model, stage_bounds, **kw) if model is not None else
-                     load_chained_pipeline(path, stage_bounds, device=device,
+                     load_chained_pipeline(path, stage_bounds, device=device, dtype=dtype,
                                            keep_quantized=keep_quantized, **kw))
-        _warm_up(generator)
+        _warm_up(generator, warm_blocks)
         return generator
 
     def load():
         if model is not None:
             return model
-        return load_model(path, start_layer, end_layer,
+        return load_model(path, start_layer, end_layer, dtype=dtype,
                           device=device_grid(pp=stages, tp=tp, ep=ep, device=device).flat[0],
                           keep_quantized=keep_quantized)[0]
 
@@ -318,7 +346,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         if draft_model and concurrent > 1:
             draft_engine = dense_draft_engine(load_model(draft_model, device=device)[0])
         generator = make(load(), draft_engine=draft_engine)
-        _warm_up(generator)
+        _warm_up(generator, warm_blocks)
         return generator
     from mlx_sharding_tpu_torch.loading import checkpoint_signature
 
@@ -336,11 +364,110 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                         stages=stages, stage_bounds=stage_bounds, tp=tp, ep=ep,
                         draft_model=draft_model if concurrent > 1 else None,
                         replicas=replicas, shared_weights=shared_weights, prefix_store=store,
-                        **fleet)
+                        warm_blocks=warm_blocks, **fleet)
 
 
-def _warm_up(generator) -> None:
-    captured = generator.warm_up()  # on a card: the step graphs, before any request
+def multihost_generator(path: str, *, device, max_seq: int, prefill_chunk: int,
+                        keep_quantized: bool, decode_block: int, concurrent: int,
+                        paged_pool: Optional[int], page_size: Optional[int],
+                        paged_attention: str, kv_dtype: Optional[str], admission_policy: str,
+                        async_sched: str, prompt_cache: bool, max_queue: Optional[int],
+                        spill_bytes: Optional[int], spill_cold_after: Optional[int],
+                        kv_prefetch: str, stages: int, stage_bounds, tp: int, ep: int,
+                        dtype):
+    """This rank's generator of a pipeline over the deployment's processes
+    (JAX's provider under ``multihost``): the rank loads only its stages
+    (``loading.load_rank_model``) into a ``PipelineEngine`` over the
+    process layout (stage s on rank ``s // (S / P)``). Rank 0 gets a
+    ``MultiHostPipeline`` over the engine's single stream, or with
+    ``concurrent > 1`` a ``MultiHostBatcher`` (decode blocks of ``min(8,
+    decode_block)``, JAX's, its spill flags passed on for the batcher to
+    refuse what the mirrors cannot replay); a worker rank gets the engine,
+    which ``serve_worker`` drives, or the mirror batcher that
+    ``serve_worker_batched`` drives. Every rank warms up here, running the
+    same steps in the same order over the hops; the kernels' launch
+    counters, the hop's and the stage timings start from zero after it."""
+    from mlx_sharding_tpu_torch.graphs import counted_wrappers
+    from mlx_sharding_tpu_torch.loading import get_model_path, load_config, load_rank_model
+    from mlx_sharding_tpu_torch.parallel import PipelineEngine
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid, process_layout
+    from mlx_sharding_tpu_torch.parallel.multihost import (
+        MultiHostPipeline,
+        make_multihost_batcher,
+        process_index,
+    )
+    from mlx_sharding_tpu_torch.parallel.pipeline import resolve_stage_bounds
+    from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
+
+    procs = process_layout(stages, tp=tp, ep=ep)
+    layers = load_config(get_model_path(path))["num_hidden_layers"]
+    bounds = resolve_stage_bounds(layers, stages, stage_bounds)
+    first = device_grid(pp=stages, tp=tp, ep=ep, device=device, procs=procs)[
+        procs.local_stages[0], 0, 0, 0]
+    model, _ = load_rank_model(path, bounds, procs, dtype=dtype, device=first,
+                               keep_quantized=keep_quantized)
+    paged = concurrent > 1 and paged_pool
+    engine = PipelineEngine(
+        model, stage_bounds=bounds, tp=tp, ep=ep,
+        microbatches=concurrent if concurrent > 1 else 1, max_seq=max_seq,
+        prefill_chunk=prefill_chunk, pool_pages=paged_pool if paged else None,
+        page_size=page_size if paged else None,
+        paged_attention=paged_attention, kv_dtype=kv_dtype if paged else None,
+        decode_block=decode_block, device=device, processes=procs)
+    rank0 = process_index() == 0
+    if concurrent > 1:
+        mirror = dict(decode_block=min(8, decode_block), prefix_cache=prompt_cache)
+        generator = (make_multihost_batcher(
+            engine, policy=admission_policy, max_queue=max_queue, async_sched=async_sched,
+            spill_bytes=spill_bytes, spill_cold_after=spill_cold_after,
+            kv_prefetch=kv_prefetch, **mirror) if rank0
+            # the worker's mirror, as serve_worker_batched builds it
+            else ContinuousBatcher(engine, **mirror))
+    else:
+        generator = MultiHostPipeline(engine) if rank0 else engine
+    _warm_up(generator)
+    # the read-outs count what serving runs
+    engine.reset_read_outs()
+    for wrapper in counted_wrappers():
+        wrapper.launches = 0
+    return generator
+
+
+def rank_report(generator) -> dict:
+    """This rank's read-outs of a deployment over several processes: the
+    kernels' launches, the hop's counters, each of its stages' mean device
+    ms, and the card's memory (allocated now and at its peak)."""
+    import torch
+
+    from mlx_sharding_tpu_torch.graphs import counted_wrappers
+    from mlx_sharding_tpu_torch.parallel.multihost import process_index
+
+    engine = getattr(generator, "engine", generator)
+    out = {"rank": process_index(),
+           "launches": {w.__name__: int(w.launches) for w in counted_wrappers()},
+           "hop": dict(engine.hop_stats), "stage_ms": engine.stage_ms()}
+    dev = getattr(engine, "device", None)
+    if dev is not None and dev.type == "cuda":
+        out["memory_allocated"] = torch.cuda.memory_allocated(dev)
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _write_rank_report(generator) -> None:
+    """Write :func:`rank_report` to the path ``MST_RANK_REPORT`` names
+    (``{rank}`` filled in), when it is set: a worker at each request
+    boundary and when it leaves, rank 0 when it shuts down."""
+    template = os.environ.get("MST_RANK_REPORT")
+    if not template:
+        return
+    report = rank_report(generator)
+    with open(template.format(rank=report["rank"]), "w") as f:
+        json.dump(report, f)
+
+
+def _warm_up(generator, blocks=None) -> None:
+    # on a card: the step graphs, before any request
+    captured = generator.warm_up() if blocks is None else generator.warm_up(blocks=blocks)
     if captured:
         logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
                     captured["graphs"], captured["seconds"], captured["pool_bytes"] / 1e6)
@@ -351,6 +478,7 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
                  stages=1, stage_bounds=None, tp=1, ep=1, disagg=False,
                  prefill_replicas=1, decode_replicas=1, autoscale=False, autoscale_min=None,
                  autoscale_max=None, autoscale_interval=2.0, autoscale_cooldown=15.0,
+                 warm_blocks=None,
                  brownout=True):
     """``replicas`` generators behind one ``ReplicaSet`` (JAX's ``--replicas``
     spawn), or under ``disagg`` a prefill and a decode pool behind a
@@ -434,7 +562,7 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
                 raise
             owner = getattr(gen, "engine", gen)
             owner.on_close(lease.release)
-            _warm_up(gen)
+            _warm_up(gen, warm_blocks)
             return gen
 
         return aliased_spawn(store, key, resident(load), make_one)
@@ -521,9 +649,16 @@ class ModelProvider:
 
     def __init__(self, generator=None, tokenizer=None, *, model_name: str = "default_model",
                  load_args: Optional[dict] = None, trust_remote_paths: bool = False,
-                 chat_template: Optional[str] = None, tokenizer_loader=None):
+                 chat_template: Optional[str] = None, tokenizer_loader=None,
+                 pod: bool = False):
         self.model_name = model_name
         self.load_args = load_args
+        #: JAX's ``multihost``: the stages span the deployment's processes
+        #: (no hot-swap then: the workers mirror steps, not loads)
+        self.multihost = bool((load_args or {}).get("multihost"))
+        #: ``--pod``: this host's fleet joins the pod over a
+        #: ``pod.CollectiveTransport`` at load
+        self.pod = pod
         self.trust_remote_paths = trust_remote_paths
         self.chat_template = chat_template
         self.tokenizer_loader = tokenizer_loader
@@ -533,9 +668,8 @@ class ModelProvider:
         # swaps are serialized: two requests naming different models would
         # otherwise race the generator and double-load onto the card
         self._load_lock = make_lock("ModelProvider._load_lock")
-        # a pod.PodFleet this host serves in, set by its caller (the server's
-        # --pod comes with slice 9b.3c): /health's pod block and /metrics' pod
-        # families read it
+        # the pod.PodFleet this host serves in (--pod, or set by a caller):
+        # /health's pod block and /metrics' pod families read it
         self.pod_fleet = None
         self._key: Optional[str] = None
         self.generator = None
@@ -559,13 +693,13 @@ class ModelProvider:
     @classmethod
     def from_checkpoint(cls, path: str, *, trust_remote_paths: bool = False,
                         chat_template: Optional[str] = None, tokenizer_loader=None,
-                        **load_args) -> "ModelProvider":
+                        pod: bool = False, **load_args) -> "ModelProvider":
         """A provider serving the checkpoint at ``path``, its generator
         built by :func:`build_generator` with ``load_args`` (kept for
-        swaps)."""
+        swaps); with ``pod``, wrapped in this host's ``PodFleet``."""
         provider = cls(model_name=path, load_args=load_args,
                        trust_remote_paths=trust_remote_paths, chat_template=chat_template,
-                       tokenizer_loader=tokenizer_loader)
+                       tokenizer_loader=tokenizer_loader, pod=pod)
         provider.load("default_model")
         return provider
 
@@ -592,9 +726,14 @@ class ModelProvider:
         with self._load_lock:
             if self._key == target:
                 return self.generator, self.tokenizer
+            if self.multihost and self._key is not None:
+                # workers mirror only the step sequence, not model swaps
+                raise ValueError("model hot-swap is not supported in multi-host serving")
             logger.info("loading model %s", target)
             t0 = time.perf_counter()
             generator = build_generator(target, **self.load_args)
+            if self.pod:
+                generator = self._join_pod(generator)
             loader = self.tokenizer_loader
             if loader is None:
                 from mlx_sharding_tpu_torch.loading import load_tokenizer as loader
@@ -603,6 +742,23 @@ class ModelProvider:
             self._set(target, generator, tokenizer)
             logger.info("loaded model %s in %.2f s", target, self.load_seconds)
             return self.generator, self.tokenizer
+
+    def _join_pod(self, generator):
+        """Stitch this host's fleet into the pod (JAX's ``--pod``): the
+        gossip transport over the pod's control plane, and the weight
+        registry, the cross-host handoff, the pod autoscaler and the prefix
+        federation around the local generator. Returns the ``PodFleet``,
+        which serves in its place."""
+        from mlx_sharding_tpu_torch.pod import CollectiveTransport, PodFleet
+
+        fleet = fleet_controllers(generator)
+        ctrls = fleet if isinstance(fleet, tuple) else (fleet,) if fleet is not None else ()
+        transport = CollectiveTransport()
+        pf = PodFleet(transport.host_id, transport, generator, controllers=list(ctrls),
+                      prefix_store=getattr(generator, "prefix_store", None))
+        pf.start()
+        self.pod_fleet = pf
+        return pf
 
     def _set(self, key, generator, tokenizer):
         if self.chat_template:
@@ -787,6 +943,20 @@ class APIHandler(BaseHTTPRequestHandler):
                     block = None
                 if block is not None:
                     payload[key] = block
+            ctrl = getattr(gen, "ctrl", None)
+            if ctrl is not None:
+                # a timed-out or failed collective marks the plane dead
+                # (parallel/multihost.py); a completed one proves every rank
+                # alive at that moment
+                last = getattr(ctrl, "last_ok", None)
+                payload["multihost"] = {
+                    "workers_responsive": not ctrl.dead,
+                    "last_exchange_s_ago": (None if last is None
+                                            else round(time.monotonic() - last, 1)),
+                }
+                if ctrl.dead:
+                    payload["status"] = "degraded"
+                    serving = False
             return self._json(200 if serving else 503, payload)
         elif path == "/admin/trace" or path.startswith("/admin/trace/"):
             # the flight recorder: /admin/trace/dump is the whole ring (and
@@ -1336,7 +1506,11 @@ def make_server(provider: ModelProvider, host: str = "127.0.0.1", port: int = 80
     return ThreadingHTTPServer((host, port), handler)
 
 
-def main(argv=None):
+def main(argv=None, *, tokenizer_loader=None, dtype=None):
+    """The server's command line. ``tokenizer_loader`` (a path -> tokenizer
+    callable) replaces the checkpoint's ``transformers`` tokenizer, and
+    ``dtype`` the load's bf16 (JAX's provider ``cache_dtype``), for a
+    caller that runs the entry point itself."""
     import argparse
 
     parser = argparse.ArgumentParser(description="OpenAI-compatible API server (PyTorch port)")
@@ -1613,30 +1787,36 @@ def main(argv=None):
                              "first cards, or all on --device)")
     parser.add_argument("--ep", type=int, default=1,
                         help="expert-parallel width within each pipeline stage (MoE)")
-    # JAX's multi-host flags, which come with slice 9b.3c
+    # multi-host bring-up: the torch.distributed control plane
     parser.add_argument("--coordinator", default=None,
-                        help="host:port of the multi-host coordinator (not yet ported)")
+                        help="host:port of the torch.distributed rendezvous (rank 0 listens "
+                             "there)")
     parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--pod", action="store_true",
-                        help="pod-scale serving over the multi-host control plane (not yet "
-                             "ported; pod.PodFleet runs over its in-process transport)")
+                        help="pod-scale serving: each process runs its own "
+                             "host-local fleet on its local devices, "
+                             "stitched by the pod gossip plane (weight "
+                             "registry, cross-host disagg handoff, pod "
+                             "autoscaler) instead of the SPMD mirror — "
+                             "requires --coordinator and --num-processes")
     args = parser.parse_args(argv)
     if args.engine == "chained" and not args.stage_bounds:
         parser.error("--engine chained requires --stage-bounds")
     if args.concurrent > 1 and args.engine == "chained":
         parser.error("--concurrent requires the fused engine")
-    # JAX's mesh and multi-host rules and messages; several processes
-    # raise naming slice 9b.3c
+    # JAX's mesh and multi-host rules and messages (its "requires --model"
+    # rules have nothing to refuse: --model is required here)
     if (args.tp > 1 or args.ep > 1) and args.engine == "chained":
         parser.error("--tp/--ep require the fused engine")
     if args.pod and not (args.coordinator and (args.num_processes or 1) > 1):
         parser.error("--pod requires --coordinator and --num-processes > 1 (the pod gossip "
                      "plane rides jax.distributed)")
-    if args.pod or args.coordinator or (args.num_processes or 1) > 1:
-        from mlx_sharding_tpu_torch.parallel.mesh import DEFER_MULTIHOST
-
-        parser.error(DEFER_MULTIHOST)
+    # a pipeline over several processes, rank 0 driving the others
+    multihost = bool(args.coordinator) and (args.num_processes or 1) > 1 and not args.pod
+    if multihost and not args.stage_bounds and (args.num_stages or 1) <= 1:
+        parser.error("multi-host serving requires a pipeline "
+                     "(--num-stages > 1 or --stage-bounds)")
     # the stage flags, and (JAX's rules) the tp / ep mesh beside them
     staged = (bool(args.stage_bounds) or (args.num_stages or 1) > 1 or args.engine == "chained"
               or args.tp > 1 or args.ep > 1)
@@ -1647,7 +1827,7 @@ def main(argv=None):
         parser.error("--trace-sample must be >= 1")
     if args.trace_profile and args.trace == "off":
         parser.error("--trace-profile requires --trace sample|on")
-    if args.draft_model and (staged or layer_range):
+    if args.draft_model and (args.coordinator or staged or layer_range):
         parser.error("--draft-model applies to the single-chip full-model "
                      "generator or to --concurrent serving "
                      "(no --coordinator/--tp/--ep/stage or "
@@ -1657,7 +1837,7 @@ def main(argv=None):
     if args.draft_model and args.draft in ("off", "ngram"):
         parser.error(f"--draft {args.draft} conflicts with --draft-model: "
                      "drop one (--draft-model implies the engine proposer)")
-    if args.draft == "ngram" and (staged or layer_range):
+    if args.draft == "ngram" and (multihost or staged or layer_range):
         parser.error("--draft ngram applies to the single-chip full-model "
                      "generator or to --concurrent serving (the verify "
                      "needs the pp=1 vectorized body; multi-host worker "
@@ -1686,6 +1866,10 @@ def main(argv=None):
         if args.draft_model:
             parser.error("--prefix-store is incompatible with --draft-model "
                          "(the draft cache cannot alias shared prefix pages)")
+        if args.coordinator and (args.num_processes or 1) > 1:
+            parser.error("--prefix-store is single-host only: store "
+                         "admissions rewrite page tables host-side, outside "
+                         "the op stream worker ranks mirror")
     elif args.prefix_store_bytes is not None or args.prefix_insert_min_hits != 1:
         parser.error("--prefix-store-bytes/--prefix-insert-min-hits require --prefix-store")
     if args.prefix_store_bytes is not None and args.prefix_store_bytes < 1:
@@ -1699,15 +1883,15 @@ def main(argv=None):
             if not args.paged_pool:
                 parser.error("--prompt-cache with --concurrent requires --paged-pool (prefix "
                              "sharing is page-granular)")
-        elif (staged or args.draft_model or args.replicas > 1 or args.disagg
-              or layer_range):
+        elif (args.coordinator or staged or args.draft_model or args.replicas > 1
+              or args.disagg or layer_range):
             parser.error("--prompt-cache applies to the single-chip "
                          "full-model generator path or to --concurrent "
                          "--paged-pool serving (no --coordinator/--tp/--ep/"
                          "stage, layer-range, --draft-model, or fleet "
                          "flags)")
     if args.replicas > 1 and (
-        args.engine == "chained"
+        (args.coordinator and not args.pod) or args.engine == "chained"
         or (args.draft_model and args.concurrent <= 1)
         or (args.draft == "ngram" and args.concurrent <= 1)
         or layer_range
@@ -1753,6 +1937,16 @@ def main(argv=None):
         parser.error("--admission-policy requires --paged-pool")
     if args.overcommit and not args.paged_pool:
         parser.error("--overcommit requires --paged-pool")
+    if args.overcommit and multihost:
+        # preemption and resume rewrite page tables and free lists host-side,
+        # outside the op stream the worker ranks mirror
+        parser.error(
+            "--overcommit is not supported in multi-host serving: "
+            "preemption/resume rewrites page tables and free lists "
+            "host-side, outside the op stream worker ranks mirror; run "
+            "overcommit on single-host replicas (e.g. behind --replicas) "
+            "instead"
+        )
     if args.spill_bytes is not None:
         if args.spill_bytes < 1:
             parser.error("--spill-bytes must be a positive byte count")
@@ -1777,8 +1971,7 @@ def main(argv=None):
     if args.kv_prefetch == "on" and args.spill_bytes is None:
         parser.error("--kv-prefetch on needs a spill tier to prefetch "
                      "from: set --spill-bytes")
-    # JAX's fleet rules and messages (its --coordinator / --engine chained
-    # exclusion has no flag to refuse here: the port has one engine path)
+    # JAX's fleet rules and messages
     if args.disagg:
         if args.concurrent <= 1:
             parser.error("--disagg requires --concurrent N (N > 1): only "
@@ -1787,7 +1980,7 @@ def main(argv=None):
         if args.replicas > 1:
             parser.error("--disagg replaces --replicas: size the pools "
                          "with --prefill-replicas/--decode-replicas")
-        if args.engine == "chained":
+        if (args.coordinator and not args.pod) or args.engine == "chained":
             parser.error("--disagg requires the single-host fused engine "
                          "path (no --coordinator/--engine chained) — or "
                          "--pod, where each host runs its own disagg pools")
@@ -1833,6 +2026,16 @@ def main(argv=None):
         parser.error("--async-sched on is incompatible with --draft-model "
                      "(speculative rounds harvest per-round accept counts); "
                      "use 'auto'")
+    if args.async_sched == "on" and multihost:
+        parser.error("--async-sched on is not supported in multi-host "
+                     "serving (worker mirrors replay the op stream per "
+                     "broadcast tick); use 'auto'")
+    if args.shared_weights == "on" and (
+            args.coordinator or (args.num_processes or 1) > 1) and not args.pod:
+        parser.error("--shared-weights on is single-host only: worker "
+                     "ranks hold their own device grids, there is no "
+                     "one resident tree for them to alias (--pod hosts "
+                     "each alias their own local tree)")
     if args.shared_weights == "on" and args.engine == "chained":
         parser.error("--shared-weights on requires the fused engine "
                      "path (chained stage processes each own their "
@@ -1853,23 +2056,33 @@ def main(argv=None):
             parser.error(f"{flag} must be a positive number of seconds")
 
     from mlx_sharding_tpu_torch.device import resolve_device
-    from mlx_sharding_tpu_torch.parallel.mesh import device_grid
+    from mlx_sharding_tpu_torch.parallel.mesh import device_grid, process_layout
 
     stage_bounds = None
     if args.stage_bounds:
         stage_bounds = [tuple(int(x) for x in part.split("-"))
                         for part in args.stage_bounds.split(",")]
     stages = len(stage_bounds) if stage_bounds else (args.num_stages or 1)
+    logging.basicConfig(level=args.log_level.upper())
+    if args.coordinator:
+        # before anything is built: the rank decides what this process loads
+        from mlx_sharding_tpu_torch.parallel.multihost import init_process
+
+        try:
+            init_process(args.coordinator, args.num_processes, args.process_id)
+        except ValueError as e:
+            parser.error(str(e))
     try:
+        procs = process_layout(stages, tp=args.tp, ep=args.ep) if multihost else None
         if stages * args.tp * args.ep > 1:
-            # without --device shard (s, e, t) goes on its own card
-            device_grid(pp=stages, tp=args.tp, ep=args.ep, device=args.device)
+            # without --device shard (s, e, t) goes on its own card (over
+            # several processes: this rank's stages on its own cards)
+            device_grid(pp=stages, tp=args.tp, ep=args.ep, device=args.device, procs=procs)
             device = args.device
         else:
             device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
+    except (RuntimeError, ValueError, NotImplementedError) as e:
         parser.error(str(e))
-    logging.basicConfig(level=args.log_level.upper())
     # before the provider builds any batcher: a batcher resolves the
     # profile bridge once, at construction
     tracing.configure(args.trace, buffer=args.trace_buffer, sample_n=args.trace_sample,
@@ -1877,8 +2090,8 @@ def main(argv=None):
     chat_template = args.chat_template
     if chat_template and chat_template.startswith("@"):
         chat_template = Path(chat_template[1:]).read_text()
-    provider = ModelProvider.from_checkpoint(
-        args.model, chat_template=chat_template, device=device, max_seq=args.max_seq,
+    load_args = dict(
+        device=device, max_seq=args.max_seq,
         prefill_chunk=args.prefill_chunk, keep_quantized=args.keep_quantized,
         decode_block=max(1, args.decode_block), concurrent=args.concurrent,
         paged_pool=args.paged_pool, page_size=args.page_size,
@@ -1899,12 +2112,54 @@ def main(argv=None):
         autoscale_cooldown=args.autoscale_cooldown, brownout=args.brownout == "on",
         start_layer=args.start_layer, end_layer=args.end_layer, num_stages=args.num_stages,
         stage_bounds=stage_bounds, engine=args.engine, tp=args.tp, ep=args.ep,
+        multihost=multihost, dtype=dtype,
     )
+    if multihost and procs.rank > 0:
+        # a worker rank: no HTTP and no tokenizer; it mirrors rank 0's step
+        # sequence until rank 0 shuts the deployment down (the reference's
+        # per-machine shard server without its RPC surface)
+        import torch
+
+        from mlx_sharding_tpu_torch.parallel.multihost import (
+            serve_worker,
+            serve_worker_batched,
+            shutdown_process,
+        )
+
+        logger.info("worker rank %d serving", procs.rank)
+        # the engine, or with --concurrent the mirror batcher over it
+        mirror = build_generator(args.model, **load_args)
+        # its read-outs at each request boundary (MST_RANK_REPORT)
+        on_idle = functools.partial(_write_rank_report, mirror)
+        with torch.no_grad():
+            if args.concurrent > 1:
+                serve_worker_batched(mirror, on_idle=on_idle)
+            else:
+                serve_worker(mirror, on_idle=on_idle)
+        _write_rank_report(mirror)
+        shutdown_process()
+        return
+    provider = ModelProvider.from_checkpoint(
+        args.model, chat_template=chat_template, tokenizer_loader=tokenizer_loader,
+        pod=args.pod, **load_args)
     server = make_server(provider, args.host, args.port, profile_dir=args.profile_dir,
                          api_key=args.api_key, request_timeout=args.request_timeout,
                          ttft_timeout=args.ttft_timeout)
+    if multihost and threading.current_thread() is threading.main_thread():
+        # SIGTERM ends rank 0 through the finally below, which shuts the
+        # workers down first
+        def _terminate(signum, frame):
+            raise SystemExit(0)
+
+        signal.signal(signal.SIGTERM, _terminate)
     logger.info("serving on http://%s:%d", args.host, args.port)
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    finally:
+        if multihost:
+            gen = provider.generator
+            gen.close()  # the workers leave their loops on its SHUTDOWN
+            _write_rank_report(gen)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,9 @@ serves the later phases), ``batching`` phase 6 (``phase_batching_runs``;
 its single-stream rate is a stand-in), ``pipeline`` phase 15
 (``phase_pipeline``), ``pod`` phase 16 (``phase_pod``), ``mesh`` phase 17
 on the 8B (``phase_mesh``, with its kernel checks at the shard shapes),
+``multihost`` phase 18 (``phase_multihost``: the server over two
+processes, the pod over its collective transport), ``timing`` the families'
+kernel timing (``phase_family_timing``, the options rows' library times),
 ``4bit`` phase 5 (``phase_main_path_4bit``, with phase 15's and 17's packed
 runs; it frees the dense weights, so it runs after the others that take
 them), ``families`` phase 8 (``phase_families``, with phase 17's Mixtral
@@ -36,8 +39,9 @@ import torch  # noqa: E402
 import chip_smoke as c  # noqa: E402
 from mlx_sharding_tpu_torch.models import build_model  # noqa: E402
 
-PHASES = ("main", "batching", "pipeline", "pod", "mesh", "4bit", "families", "deepseek")
-NEEDS_8B = ("batching", "pipeline", "pod", "mesh", "4bit")
+PHASES = ("main", "batching", "pipeline", "pod", "mesh", "multihost", "4bit", "families",
+          "deepseek", "timing")
+NEEDS_8B = ("batching", "pipeline", "pod", "mesh", "multihost", "4bit")
 # phase 6's runs, for a tree from before ``chip_smoke.phase_batching_runs``
 BATCH_RUNS = (("bf16", "off", "auto"), ("bf16", "ngram", "auto"), ("bf16", "ngram", "off"),
               ("int8", "off", "auto"), ("int8", "ngram", "auto"))
@@ -93,7 +97,7 @@ def main(argv=None) -> int:
     for phase in sorted(args.phases, key=PHASES.index):
         if phase == "main":
             continue
-        if phase == "mesh" and not hasattr(c, "phase_mesh"):
+        if phase in ("mesh", "multihost") and not hasattr(c, f"phase_{phase}"):
             c.log(f"[{phase}] this tree has no such phase")
             continue
         try:
@@ -109,6 +113,11 @@ def main(argv=None) -> int:
                 c.mesh_expert_points(0)
                 lap("phase 17's kernel checks at the shard shapes")
                 c.phase_mesh(model, 0, lap)
+            elif phase == "multihost":
+                c.phase_multihost(model, 0, lap)
+            elif phase == "timing":
+                c.phase_family_timing(0)
+                lap("the families' kernel timing")
             elif phase == "4bit":
                 c.phase_main_path_4bit(model, 0, lap)
                 model = None

@@ -762,7 +762,38 @@ def test_pod_metrics_absent_off_a_pod_and_never_500(source):
 
 
 def test_collective_transport_raises_naming_slice_9b3():
-    """The pod's fabric over the collectives comes with multi-host serving
-    (slice 9b.3c)."""
-    with pytest.raises(NotImplementedError, match="slice 9b\\.3c"):
-        tpod.CollectiveTransport()
+    """The pod's fabric over the collectives is ported (slice 9b.3c): no
+    refusal names the slice. Over a plane that reports itself dead, both
+    packages' transports refuse to send with the same error and report
+    every known peer at infinite age, so death detection fires; one tick's
+    heartbeat from a peer is seen alike (its two-process run over gloo:
+    ``tests/test_torch_pod_collective.py``)."""
+    class Plane:
+        blob_bytes = 4096
+        dead = False
+
+        def __init__(self, headers, blobs):
+            self.out = (headers, blobs)
+
+        def pod_exchange(self, header, blob):
+            return self.out
+
+    peer = pickle.dumps({"fleet": {"slots": 2}})
+    frame = (np.asarray([1], np.int32).tobytes() + np.asarray([-1, 2, len(peer)], np.int32)
+             .tobytes() + b"hb" + peer)
+    headers = np.asarray([[1, 0, 1, 0, 0, 0, 0, 0], [1, 1, 1, len(frame), 0, 0, 0, 0]],
+                         np.int32)
+    blobs = np.zeros((2, 4096), np.uint8)
+    blobs[1, :len(frame)] = np.frombuffer(frame, np.uint8)
+    seen = {}
+    for name, pod in (("port", tpod), ("jax", jpod)):
+        plane = Plane(headers, blobs)
+        t = pod.CollectiveTransport(plane=plane)
+        t.tick()
+        alive = t.peers()
+        plane.dead = True
+        dead = t.peers()
+        with pytest.raises(pod.PodTransportError, match="pod fabric is down"):
+            t.send(1, "handoff.block", b"x")
+        seen[name] = (alive[1]["info"], alive[1]["age_s"] < 60, dead[1]["age_s"])
+    assert seen["port"] == seen["jax"] == ({"fleet": {"slots": 2}}, True, float("inf"))

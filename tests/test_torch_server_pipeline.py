@@ -231,12 +231,57 @@ def test_server_pipeline_checks_match_jax(argv, capsys):
     assert _parser_error(tapi.main, [*argv, "--device", "cpu"], capsys) == want
 
 
+COORD = ["--coordinator", "127.0.0.1:1234", "--num-processes", "2"]
+
+
+class _Built(Exception):
+    """Raised where a server builds its provider: its parser took the argv."""
+
+
+def _join_or_parser_error(main, argv, capsys, monkeypatch):
+    """``("built", (coordinator, processes, process id))`` where ``main``'s
+    parser takes ``argv`` and the server goes on to build its generator,
+    after joining the deployment with those arguments (JAX's
+    ``jax.distributed.initialize``, the port's ``init_process``, each
+    stubbed here; ``None`` when it joined none), else ``("error", the
+    parser's message)``."""
+    import jax
+
+    from mlx_sharding_tpu_torch.parallel import multihost as tmh
+
+    joined = {}
+
+    def join(coordinator, num_processes=None, process_id=None):
+        joined["args"] = (coordinator, num_processes, process_id)
+
+    def build(*args, **kw):
+        raise _Built
+
+    monkeypatch.setattr(jax.distributed, "initialize", join)
+    monkeypatch.setattr(tmh, "init_process", join)
+    monkeypatch.setattr(tmh, "process_index", lambda: (joined["args"][2] or 0))
+    monkeypatch.setattr(tmh, "process_count", lambda: (joined["args"][1] or 1))
+    monkeypatch.setattr(japi, "ModelProvider", build)
+    monkeypatch.setattr(tapi.ModelProvider, "from_checkpoint", build)
+    monkeypatch.setattr(tapi, "build_generator", build)
+    # JAX's CPU-collectives switch is a process-wide setting: not here
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    try:
+        main(["--model", "unused", *argv])
+    except _Built:
+        return "built", joined.get("args")
+    except SystemExit as info:
+        assert info.code == 2
+        return "error", capsys.readouterr().err.strip().splitlines()[-1]
+    raise AssertionError("neither built a generator nor refused the argv")
+
+
 @pytest.mark.parametrize("main,argv", [
     (tapi.main, ["--tp", "2", "--concurrent", "2", "--paged-pool", "16", "--replicas", "2"]),
     (tapi.main, ["--ep", "2", "--concurrent", "2", "--paged-pool", "16", "--overcommit",
                  "--spill-bytes", "1048576"]),
-    (tapi.main, ["--pod", "--coordinator", "127.0.0.1:1234", "--num-processes", "2"]),
-    (tapi.main, ["--coordinator", "127.0.0.1:1234", "--num-processes", "2"]),
+    (tapi.main, ["--pod", *COORD]),
+    (tapi.main, COORD),
     (tcli.main, ["--tp", "2", "--engine", "chained", "--stage-bounds", "0-2,2-4"]),
     (tcli.main, ["--ep", "2", "--draft", "ngram"]), (tcli.main, ["--sp", "2", "--tp", "2"]),
     (tcli.main, ["--sp-decode"]),
@@ -244,11 +289,13 @@ def test_server_pipeline_checks_match_jax(argv, capsys):
         "cli_sp", "cli_sp_decode"])
 def test_the_collectives_flags_raise_naming_slice_9b3(main, argv, capsys, monkeypatch):
     """The mesh flags run (``tests/test_torch_tp_serve.py``). The fleet and
-    page-block moves at tp or ep > 1 (slice 9b.3b) pass both packages'
-    parsers, and the port's server hands its provider what JAX's hands
-    its own (tp, ep, replicas, the spill tier); several processes and the
-    pod over its control plane raise naming slice 9b.3c (a parser error);
-    the CLI's mesh rules are JAX's, message for message."""
+    page-block moves at tp or ep > 1 pass both packages' parsers, and the
+    port's server hands its provider what JAX's hands its own (tp, ep,
+    replicas, the spill tier); several processes and the pod take or refuse
+    what JAX's parser does, message for message, and where they take it
+    both servers join the deployment with the same arguments and go on to
+    build (slice 9b.3c is ported: no refusal names it); the CLI's mesh
+    rules are JAX's."""
     if main is tapi.main and "--coordinator" not in argv:
         seen = {}
 
@@ -270,10 +317,48 @@ def test_the_collectives_flags_raise_naming_slice_9b3(main, argv, capsys, monkey
         assert seen["port"] == seen["jax"]
         assert seen["port"]["tp"] * seen["port"]["ep"] == 2
     elif main is tapi.main:
-        assert "slice 9b.3c" in _parser_error(main, [*argv, "--device", "cpu"], capsys)
+        want = _join_or_parser_error(japi.main, argv, capsys, monkeypatch)
+        got = _join_or_parser_error(main, [*argv, "--device", "cpu"], capsys, monkeypatch)
+        assert got == want
+        assert "9b.3c" not in got[1]
     else:
         want = _parser_error(jcli.main, argv, capsys)
         assert _parser_error(main, [*argv, "--device", "cpu"], capsys) == want
+
+
+MULTIHOST_CHECKS = [
+    [*COORD, "--num-stages", "2"],
+    [*COORD, "--num-stages", "4", "--process-id", "1", "--concurrent", "2"],
+    [*COORD, "--stage-bounds", "0-2,2-4", "--concurrent", "2", "--paged-pool", "8",
+     "--prompt-cache"],
+    [*COORD, "--num-stages", "2", "--concurrent", "2", "--paged-pool", "8", "--overcommit"],
+    [*COORD, "--num-stages", "2", "--concurrent", "2", "--draft", "ngram"],
+    [*COORD, "--num-stages", "2", "--replicas", "2"],
+    [*COORD, "--num-stages", "2", "--concurrent", "2", "--disagg"],
+    [*COORD, "--num-stages", "2", "--shared-weights", "on"],
+    [*COORD, "--num-stages", "2", "--concurrent", "2", "--async-sched", "on"],
+    [*COORD, "--num-stages", "2", "--concurrent", "2", "--paged-pool", "8", "--prefix-store"],
+    [*COORD, "--num-stages", "2", "--prompt-cache"],
+    [*COORD, "--num-stages", "2", "--draft-model", "draft"],
+    [*COORD, "--pod", "--draft-model", "draft"],
+    [*COORD, "--pod", "--concurrent", "2", "--paged-pool", "8", "--replicas", "2"],
+    [*COORD, "--pod", "--concurrent", "2", "--paged-pool", "8", "--overcommit"],
+    [*COORD, "--pod", "--concurrent", "2", "--paged-pool", "8", "--prefix-store"],
+    ["--coordinator", "127.0.0.1:1234", "--num-stages", "2"],
+    ["--num-processes", "2", "--pod"],
+]
+
+
+@pytest.mark.parametrize("argv", MULTIHOST_CHECKS, ids=_ids)
+def test_multihost_flags_match_jax(argv, capsys, monkeypatch):
+    """``--coordinator``, ``--num-processes``, ``--process-id`` and
+    ``--pod`` with the other flags: the port's server refuses what JAX's
+    refuses with its message, and where JAX's takes the argv the port's
+    takes it too, having joined the deployment with the same coordinator,
+    process count and id."""
+    want = _join_or_parser_error(japi.main, argv, capsys, monkeypatch)
+    got = _join_or_parser_error(tapi.main, [*argv, "--device", "cpu"], capsys, monkeypatch)
+    assert got == want
 
 
 @pytest.mark.parametrize("main", [tcli.main, tapi.main], ids=["cli", "server"])
