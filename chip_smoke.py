@@ -509,8 +509,6 @@ PARITY_TOKENS = 128
 PARITY_MAX_SEQ = 1280
 # the eager pass of those runs: the first three greedy requests, 48 tokens
 PARITY_EAGER_JOBS = 3
-# the decode blocks the parity runs serve: greedy, and the seeded top-p one
-PARITY_BLOCKS = ((False, False), (True, False))
 PARITY_EAGER_TOKENS = 48
 # the parity runs hold the batcher's paths to each other (graphs, eager,
 # sync, overcommit; the prefix cache off and on), which the depth does not
@@ -2581,7 +2579,7 @@ def batcher_parity(model, kv_dtype: str, tag: str) -> None:
                                 prefill_chunk=CHUNK, pool_pages=POOL_PAGES, page_size=PAGE,
                                 kv_dtype=kv_dtype, device=model.device)
         batcher = ContinuousBatcher(engine, decode_block=8, **kw)
-        batcher.warm_up(blocks=PARITY_BLOCKS)
+        batcher.warm_up()
         # the eager pass serves the first PARITY_EAGER_JOBS greedy requests
         # for PARITY_EAGER_TOKENS tokens: a slot's tokens do not depend on
         # the others', and the step shapes are the M slots' whatever runs
@@ -5485,7 +5483,7 @@ def pipe_fleet(tag: str, model, counts, want: list, mesh=None, decode_block: int
     gen = build_generator("llama-3.1-8b-random", model=model, device=model.device,
                           max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK,
                           concurrent=PIPE_SLOTS, paged_pool=POOL_PAGES, page_size=PAGE,
-                          decode_block=decode_block, warm_blocks=GREEDY_BLOCK, **mesh, **fleet)
+                          decode_block=decode_block, **mesh, **fleet)
     load_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     grown = torch.cuda.memory_allocated() - before
@@ -5739,7 +5737,7 @@ def phase_pod(model, lap) -> tuple:
     co = build_generator("llama-3.1-8b-random", model=model, device=model.device,
                          max_seq=PIPE_MAX_SEQ, prefill_chunk=CHUNK, concurrent=PIPE_SLOTS,
                          paged_pool=POOL_PAGES, page_size=PAGE, decode_block=8, disagg=True,
-                         prefix_store=True, warm_blocks=GREEDY_BLOCK)
+                         prefix_store=True)
     store0 = co.prefix_store
     store0._host._flush_async = False
     store1 = PrefixStore(host_bytes=SPILL_BYTES)
@@ -7958,6 +7956,7 @@ MH_BATCH = tuple((i, n, m) for i, (n, m) in enumerate(PIPE_BATCH) if n != 257)
 MH_SHARED = (3, 2 * PAGE, 40, 32)  # (the job it shares with, shared tokens, suffix, tokens)
 MH_TIMEOUT_S = 30  # the batcher deployment's liveness budget (its worker is killed)
 MH_SPAWN_S = 240  # a deployment's limit to become healthy
+MH_REPORT_S = 30  # a rank's limit to write its report after a run
 MH_POD_LAYERS = 4  # the pod at full width, this deep (phase 16 ran it at full depth)
 # a rank of the port's server, the byte tokenizer in the checkpoint's place
 MH_LAUNCH = ("import sys; import chip_smoke as c; "
@@ -8027,6 +8026,22 @@ class MultiHost:
     def report(self, rank: int) -> dict:
         with open(self.reports[rank]) as f:
             return json.load(f)
+
+    def settled_report(self, rank: int, since: float) -> dict:
+        """Rank ``rank``'s report once one written after ``since`` (a
+        ``time.time()``) holds still for half a second: the one it wrote at
+        its idle op after the run (a rank replaces its report whole)."""
+        t0, last = time.perf_counter(), None
+        while time.perf_counter() - t0 < MH_REPORT_S:
+            if (os.path.exists(self.reports[rank])
+                    and os.path.getmtime(self.reports[rank]) > since):
+                now = self.report(rank)
+                if now == last:
+                    return now
+                last = now
+            time.sleep(0.5)
+        self.check(False, f"{self.tag} rank {rank} wrote no report after the run that held "
+                   f"still within {MH_REPORT_S} s")
 
     def requests_logged(self) -> list:
         """Rank 0's per-request log lines (TTFT, decode tok/s)."""
@@ -8220,13 +8235,12 @@ def phase_multihost(model, seed: int, lap) -> tuple:
 
             # (b) the mirror batcher, then (c) its worker's death
             dep = batch_dep
-            t0 = time.perf_counter()
+            t0, since = time.perf_counter(), time.time()
             batch = mh_run_batch(lambda text, m: mh_tokens(dep.port, text, m)[0])
             secs = time.perf_counter() - t0
             hits = metric_values(get(dep.port, "/metrics")[1].decode()).get(
                 "mst_prefix_cache_hits_total")
-            time.sleep(1.0)  # the worker's report at its idle op
-            worker = dep.report(1)
+            worker = dep.settled_report(1, since)
             dep.check(batch == refs["batch"], "[multihost-batch] a stream parts from the "
                       "in-process pp = 2 gather batcher's at "
                       f"{[first_divergence(a, b) for a, b in zip(batch, refs['batch'])]}")

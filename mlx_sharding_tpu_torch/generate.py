@@ -278,14 +278,13 @@ class Generator:
         """One token from ``logits`` (1, V) with the sampler row, ``rng`` and
         the window, and its logprob summary when ``want_logprobs``: here,
         or where the model is a stage stack over several processes, on the
-        rank that holds the head (its ``shared_sample``)."""
+        rank that holds the head (the model's ``shared_sample``)."""
         def run():
             tok, logprobs = sample_token_batched(self.rng, logits, self.sp, recent,
                                                  sampled=sampled)
             return tok, (block_lp_outputs(tok, logprobs) if want_logprobs else None)
 
-        share = getattr(self.model, "shared_sample", None)
-        return run() if share is None else share(run, 1, want_logprobs)
+        return self.model.shared_sample(run, 1, want_logprobs)
 
     def _window(self, size: int) -> torch.Tensor:
         if size not in self._recent:

@@ -214,6 +214,13 @@ class BaseModel(nn.Module):
     def place_constants(self, device) -> None:
         """Move constants made on the host (RoPE tables) to ``device``."""
 
+    def shared_sample(self, run, rows: int, want_lp: bool):
+        """One sampling of the ``rows`` rows a step gives: ``run() ->
+        (tokens, the logprob summary or None)``, here. A stack of stages
+        over several processes samples on the rank that holds the head
+        (``parallel.pipeline.PipelineEngine.shared_sample``)."""
+        return run()
+
     def fused_projection_groups(self) -> dict:
         """{fused name: (source names, ...)}: per-layer projections that share
         their input and may be concatenated along OUT once packed. The

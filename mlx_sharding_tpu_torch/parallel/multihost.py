@@ -18,7 +18,10 @@ mirror rank 0's step sequence (:func:`serve_worker`,
   broadcasts the tokens to every rank, with each row's logprob summary
   where it was asked for (:func:`share_tokens`): every mirror then emits
   the same tokens, so its max-tokens finishes and page frees match rank
-  0's.
+  0's. JAX's failures are alike on every process because every process
+  runs the whole step; here a rank's share of a step can fail alone, so
+  the hop and the token broadcast carry a status and every rank raises in
+  the same step (:class:`PeerStepError`).
 - The wire: the control plane's fixed-shape int32 / float32 host buffers
   (JAX's layout exactly: :func:`_request_msg`, :func:`_assign_msg`) go out
   in one ``broadcast`` from rank 0 (:func:`broadcast_one_to_all`); the
@@ -65,6 +68,14 @@ class WorkerTimeoutError(RuntimeError):
     dead or wedged. The plane is marked down: every later exchange fails
     fast instead of stranding another thread in the collective, so rank 0
     keeps answering (5xx + degraded /health) and can be restarted."""
+
+
+class PeerStepError(RuntimeError):
+    """Another rank's share of this step failed (its stages, its head or
+    its sampling). Every rank raises in the same step (the hop's status
+    byte and the token broadcast's status column carry the failure), so
+    the lockstep holds: rank 0 fails the request and the workers resync
+    as they do after a failure of their own. The plane stays up."""
 
 
 # control ops
@@ -237,14 +248,27 @@ def _hop_call(fn, what: str):
             "the control plane down (restart the deployment)") from e
 
 
-def send_hidden(x: torch.Tensor, dst: int, counters: Optional[dict] = None) -> None:
-    """Send a stage boundary's hidden state to rank ``dst`` (its bytes,
-    copied to the host first: one device sync a boundary a step), counted
-    in ``counters`` (:func:`hop_counters`)."""
+def _hop_bytes(shape, dtype: torch.dtype) -> int:
+    return int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+
+
+def send_hidden(x: Optional[torch.Tensor], dst: int, counters: Optional[dict] = None,
+                shape=None, dtype: Optional[torch.dtype] = None) -> None:
+    """Send a stage boundary's hidden state to rank ``dst``: its bytes,
+    copied to the host (one device sync a boundary a step), then a status
+    byte. ``x`` None sends a failed step's (``shape`` and ``dtype`` give
+    its size, status 1): the receiver raises :class:`PeerStepError`.
+    Counted in ``counters`` (:func:`hop_counters`)."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
-    host = x.detach().contiguous().cpu().view(torch.uint8).reshape(-1)
+    n = _hop_bytes(shape if x is None else x.shape, dtype if x is None else x.dtype)
+    host = torch.empty(n + 1, dtype=torch.uint8)
+    if x is None:
+        host.fill_(1)
+    else:
+        host[:n].view(x.dtype).view(x.shape).copy_(x.detach())
+        host[n] = 0
     _hop_call(lambda: dist.send(host, dst=dst, group=_group("hop")), "stage hop (send)")
     if counters is not None:
         counters["sent"] += 1
@@ -255,56 +279,76 @@ def send_hidden(x: torch.Tensor, dst: int, counters: Optional[dict] = None) -> N
 def recv_hidden(shape, dtype: torch.dtype, src: int, device,
                 counters: Optional[dict] = None) -> torch.Tensor:
     """The hidden state of ``shape`` and ``dtype`` that rank ``src`` sent
-    (:func:`send_hidden`), on ``device``."""
+    (:func:`send_hidden`), on ``device``; :class:`PeerStepError` where
+    ``src`` sent a failed step's."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
-    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
-    host = torch.empty(n, dtype=torch.uint8)
+    n = _hop_bytes(shape, dtype)
+    host = torch.empty(n + 1, dtype=torch.uint8)
     _hop_call(lambda: dist.recv(host, src=src, group=_group("hop")), "stage hop (recv)")
-    out = host.view(dtype).reshape(shape).to(device)
     if counters is not None:
         counters["received"] += 1
-        counters["bytes_received"] += n
+        counters["bytes_received"] += host.numel()
         counters["recv_s"] += time.perf_counter() - t0
-    return out
+    if host[n]:
+        raise PeerStepError(f"rank {src}'s share of this step failed")
+    return host[:n].view(dtype).reshape(shape).to(device)
 
 
 def share_tokens(run: Optional[Callable], rows: int, want_lp: bool, src: int, device,
-                 counters: Optional[dict] = None):
+                 counters: Optional[dict] = None, error: Optional[BaseException] = None):
     """The tokens of one sampling, on every rank: rank ``src`` (the one
     holding the head) calls ``run() -> (tokens (rows,) int64, the logprob
     summary (chosen (rows,), top values (rows, K), top indices (rows, K))
     or None)`` and broadcasts them, the summary when ``want_lp``; every
-    other rank passes ``run=None`` and gets them on ``device``."""
+    other rank passes ``run=None`` and gets them on ``device``.
+
+    Column 0 is the step's status. ``error``: this rank's share of the
+    step failed before the sampling (its stages, its head, or a failure a
+    hop brought). Where ``src``'s failed (``error`` there, or ``run``
+    raising), it broadcasts status 1 all the same and raises its error
+    after the collective; every other rank then raises its own ``error``
+    or :class:`PeerStepError`. So each rank fails in this step and none is
+    left waiting in it."""
     import torch.distributed as dist
 
     from mlx_sharding_tpu_torch.generate import LOGPROB_TOPK
 
     t0 = time.perf_counter()
     k = LOGPROB_TOPK
-    width = 2 + 2 * k if want_lp else 1
+    width = 3 + 2 * k if want_lp else 2
+    buf = torch.zeros((rows, width), dtype=torch.float64)
     if run is not None:
-        tok, lp = run()
-        parts = [tok.reshape(rows, 1).double()]
-        if want_lp:
-            chosen, top_v, top_i = lp
-            parts += [chosen.reshape(rows, 1).double(), top_v.double(), top_i.double()]
-        buf = torch.cat(parts, dim=1).cpu()
-    else:
-        buf = torch.empty((rows, width), dtype=torch.float64)
+        if error is None:
+            try:
+                inject("multihost.sample")
+                tok, lp = run()
+                parts = [tok.reshape(rows, 1).double()]
+                if want_lp:
+                    chosen, top_v, top_i = lp
+                    parts += [chosen.reshape(rows, 1).double(), top_v.double(), top_i.double()]
+                buf[:, 1:] = torch.cat(parts, dim=1).cpu()
+            except Exception as e:  # noqa: BLE001 — every rank must fail in this step
+                error = e
+        if error is not None:
+            buf[:, 0] = 1
     _hop_call(lambda: dist.broadcast(buf, src=src, group=_group("hop")), "token broadcast")
     if counters is not None:
         counters["token_broadcasts"] += 1
         counters["token_bytes"] += buf.numel() * buf.element_size()
         counters["token_s"] += time.perf_counter() - t0
+    if error is not None:
+        raise error
+    if buf[0, 0]:
+        raise PeerStepError(f"rank {src}'s share of this step failed")
     if run is not None:
         return tok, lp
     buf = buf.to(device)
-    tok = buf[:, 0].long()
+    tok = buf[:, 1].long()
     if not want_lp:
         return tok, None
-    return tok, (buf[:, 1].float(), buf[:, 2 : 2 + k].float(), buf[:, 2 + k :].long())
+    return tok, (buf[:, 2].float(), buf[:, 3 : 3 + k].float(), buf[:, 3 + k :].long())
 
 
 # ------------------------------------------------------------------ the wire
@@ -340,6 +384,18 @@ def _pack_bias(logit_bias) -> tuple[np.ndarray, np.ndarray, int]:
         bias_idx[:n_bias] = [int(k) for k, _ in items]
         bias_val[:n_bias] = [float(v) for _, v in items]
     return bias_idx, bias_val, n_bias
+
+
+def _check_request(engine, seed, logit_bias) -> None:
+    """Refuse, before anything is broadcast, what would fail on one rank
+    only: a seed over 62 bits (the wire's), and a logit_bias token id
+    outside the vocabulary (only the head rank applies the bias)."""
+    if seed is not None and not 0 <= int(seed) < (1 << 62):
+        raise ValueError("seed must fit in 62 bits for multi-host serving")
+    vocab = engine.model.config.vocab_size
+    bad = sorted(k for k in (logit_bias or {}) if not 0 <= int(k) < vocab)
+    if bad:
+        raise ValueError(f"logit_bias token ids must be in [0, {vocab}): got {bad[:8]}")
 
 
 def _unpack_bias(bias_idx, bias_val, n_bias: int):
@@ -577,8 +633,7 @@ class MultiHostPipeline:
                 f"prompt ({prompt.size}) + max_tokens ({max_tokens}) exceeds "
                 f"KV capacity {self.engine.max_seq}"
             )
-        if seed is not None and not 0 <= int(seed) < (1 << 62):
-            raise ValueError("seed must fit in 62 bits for multi-host serving")
+        _check_request(self.engine, seed, logit_bias)
         msg = _request_msg(
             prompt, temperature, top_p, repetition_penalty,
             repetition_context_size, logit_bias,
@@ -726,10 +781,9 @@ def _make_multihost_batcher():
             self.ctrl = BatchControlPlane(max_prompt=engine.max_seq)
             self._shut = False
 
-        def generate_step(self, prompt_tokens, *, seed=None, **kw):
-            if seed is not None and not 0 <= int(seed) < (1 << 62):
-                raise ValueError("seed must fit in 62 bits for multi-host serving")
-            return super().generate_step(prompt_tokens, seed=seed, **kw)
+        def generate_step(self, prompt_tokens, *, seed=None, logit_bias=None, **kw):
+            _check_request(self.engine, seed, logit_bias)
+            return super().generate_step(prompt_tokens, seed=seed, logit_bias=logit_bias, **kw)
 
         def _bcast(self, *header):
             self.ctrl.exchange({"header": np.asarray(header, np.int32)})
@@ -811,9 +865,11 @@ def serve_worker_batched(engine, *, decode_block: int = 8, repetition_window: in
     and OP_B_CANCEL) and rank 0's admission polls are read-only, so
     identical op streams give identical page tables on every rank.
 
-    Failure discipline: a device op fails alike on every rank, so rank 0
-    fails its consumers and broadcasts OP_B_FAIL, which resets this mirror
-    too. An op code outside the protocol is a desync and raises.
+    Failure discipline: a device op fails on every rank in the same step
+    (a rank's own failure reaches the others through the hop's status and
+    the token broadcast's, ``PeerStepError``), so rank 0 fails its
+    consumers and broadcasts OP_B_FAIL, which resets this mirror too. An
+    op code outside the protocol is a desync and raises.
     ``on_idle``: called after an op that leaves no request in a slot."""
     from mlx_sharding_tpu_torch.scheduler import ContinuousBatcher
 
@@ -850,8 +906,9 @@ def serve_worker_batched(engine, *, decode_block: int = 8, repetition_window: in
             except WorkerTimeoutError:
                 raise  # a broken lockstep cannot be resynced
             except Exception:  # noqa: BLE001
-                # deterministic failure: rank 0's identical op fails the same
-                # way and OP_B_FAIL arrives next to reset this mirror
+                # the op failed on every rank in the same step (PeerStepError
+                # where another rank's share failed): OP_B_FAIL arrives next
+                # to reset this mirror
                 logger.exception("worker batched op %d failed", op)
             if on_idle is not None and not any(batcher._slots):
                 on_idle()
@@ -862,13 +919,14 @@ def serve_worker(engine, on_idle: Optional[Callable[[], None]] = None) -> None:
     process with its RPC surface replaced by the control plane. Blocks
     until rank 0 publishes OP_SHUTDOWN.
 
-    Failure discipline: a step fails alike on every rank, so when a local
-    step raises this worker logs it and drains to the request's STOP
-    instead of dying; rank 0 raises the same error to the client and its
-    ``finally`` broadcasts that STOP. Failures of rank 0 alone reach the
-    worker as a bare STOP. A broken lockstep (a dead peer) and an op
-    outside the protocol raise. ``on_idle``: called after each request's
-    STOP."""
+    Failure discipline: a step fails on every rank in the same step (a
+    rank's own failure reaches the others through the hop's status and the
+    token broadcast's, ``PeerStepError``), so when a step raises here this
+    worker logs it and drains to the request's STOP instead of dying; rank
+    0 raises to the client and its ``finally`` broadcasts that STOP.
+    Failures of rank 0 before any step reach the worker as a bare STOP. A
+    broken lockstep (a dead peer) and an op outside the protocol raise.
+    ``on_idle``: called after each request's STOP."""
     gen = engine.stream()
     ctrl = ControlPlane(max_prompt=engine.max_seq)
     with torch.no_grad():

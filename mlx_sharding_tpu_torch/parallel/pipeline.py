@@ -197,6 +197,14 @@ from mlx_sharding_tpu_torch.models.base import apply_projection_fusion, undo_pro
 from mlx_sharding_tpu_torch.ops.attention import causal_attention, masked_attention
 from mlx_sharding_tpu_torch.ops.flash_attention import slot_lengths
 from mlx_sharding_tpu_torch.ops.paged_attention import paged_attention
+from mlx_sharding_tpu_torch.parallel.multihost import (
+    PeerStepError,
+    WorkerTimeoutError,
+    hop_counters,
+    recv_hidden,
+    send_hidden,
+    share_tokens,
+)
 from mlx_sharding_tpu_torch.parallel.mesh import (
     ShardAxis,
     device_grid,
@@ -537,10 +545,11 @@ class PipelineEngine:
             {} if processes is not None and self.device.type == "cuda" else None)
         self.hop_stats: Optional[dict] = None
         if processes is not None:
-            from mlx_sharding_tpu_torch.parallel.multihost import hop_counters
-
             self.hop_stats = hop_counters()
         self._no_logits_buf: dict = {}
+        # over several processes: this rank's failure of the step in flight,
+        # raised on every rank at the next token broadcast (_run_stages)
+        self._step_error: Optional[Exception] = None
         self.decode_block = decode_block
         self.cuda_graphs = cuda_graphs
         #: each stage's share of a step is captured on its own: the steps
@@ -772,39 +781,69 @@ class PipelineEngine:
         """Whether this process runs stage s."""
         return self.procs is None or self.procs.owns(s)
 
-    def _run_stages(self, h, run, lead: tuple):
+    def _run_stages(self, h, run, lead: tuple, last=None):
         """This process's stages in order: ``run(s, h)`` is stage s's program
         over its input ``h`` (stage 0's embedded tokens, None where another
-        rank embeds). Where the previous stage is another rank's, its hidden
+        rank embeds), and ``last(h)`` (the head, the live mask) follows the
+        last stage. Where the previous stage is another rank's, its hidden
         state of shape ``lead + (hidden,)`` is received; where the next one
-        is, the output is sent to it. Returns the last stage's output where
-        this rank runs it, else None."""
-        procs, last = self.procs, self.num_stages - 1
-        if procs is None:
-            for s in range(self.num_stages):
-                h = run(s, h)
-            return h
-        from mlx_sharding_tpu_torch.parallel.multihost import recv_hidden, send_hidden
+        is, the output is sent to it. Returns ``last``'s output (the last
+        stage's where ``last`` is None) where this rank runs the last stage,
+        else None.
 
+        Over several processes a failure of this rank's share of the step
+        does not raise here (:meth:`_part`): its hops still run, flagged
+        failed, and the step's token broadcast raises it on every rank
+        (:meth:`shared_sample`), so no rank is left waiting in a collective.
+        A step that samples nothing (a prefill chunk before the last) keeps
+        the failure to the rank's next token broadcast, running no stage
+        until then."""
+        top = self.num_stages - 1
         kind = "prefill" if lead[-1] > 1 else "decode"
+        shape = (*lead, self.model.config.hidden_size)
         for s in self.local_stages:
-            if s > 0 and not procs.owns(s - 1):
-                h = recv_hidden((*lead, self.model.config.hidden_size), self._hidden_dtype,
-                                procs.stage_ranks[s - 1], self.stage_devices[s],
-                                self.hop_stats)
-            if self._stage_events is not None:
-                events = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                events[0].record(torch.cuda.current_stream(self.stage_devices[s]))
-                h = run(s, h)
-                events[1].record(torch.cuda.current_stream(self.stage_devices[s]))
-                self._stage_events.setdefault((s, kind), collections.deque(maxlen=512)).append(
-                    events)
-            else:
-                h = run(s, h)
-            if s < last and not procs.owns(s + 1):
-                send_hidden(h, procs.stage_ranks[s + 1], self.hop_stats)
+            if s > 0 and not self._owns(s - 1):
+                try:
+                    h = recv_hidden(shape, self._hidden_dtype, self.procs.stage_ranks[s - 1],
+                                    self.stage_devices[s], self.hop_stats)
+                except PeerStepError as e:
+                    self._step_error = self._step_error or e
+            h = self._part(self._stage, run, s, kind, h)
+            if s < top and not self._owns(s + 1):
+                send_hidden(h, self.procs.stage_ranks[s + 1], self.hop_stats, shape,
+                            self._hidden_dtype)
                 h = None
+        if last is not None and self._owns(top):
+            h = self._part(last, h)
+        return h
+
+    def _part(self, fn, *args):
+        """``fn(*args)``, a part of this rank's share of a step: in one
+        process as it is; over several, None once the step has failed here,
+        and a failure kept as the step's (:meth:`_run_stages`)."""
+        if self.procs is None:
+            return fn(*args)
+        if self._step_error is not None:
+            return None
+        try:
+            return fn(*args)
+        except WorkerTimeoutError:
+            raise  # a broken lockstep: no collective of this step completes
+        except Exception as e:  # noqa: BLE001 — raised on every rank at the broadcast
+            self._step_error = e
+            return None
+
+    def _stage(self, run, s: int, kind: str, h):
+        """Stage s's program, timed by CUDA events where :meth:`stage_ms`
+        reads them."""
+        if self._stage_events is None:
+            return run(s, h)
+        dev = self.stage_devices[s]
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record(torch.cuda.current_stream(dev))
+        h = run(s, h)
+        events[1].record(torch.cuda.current_stream(dev))
+        self._stage_events.setdefault((s, kind), collections.deque(maxlen=512)).append(events)
         return h
 
     def stage_ms(self) -> dict:
@@ -840,15 +879,14 @@ class PipelineEngine:
         """One sampling of ``rows`` rows: ``run() -> (tokens (rows,), the
         logprob summary or None)`` here, or over several processes on the
         rank that holds the head, whose tokens (and summaries, when
-        ``want_lp``) every rank then receives
-        (``parallel.multihost.share_tokens``)."""
+        ``want_lp``) every rank then receives, with the step's failure on
+        any rank raised on every one (``parallel.multihost.share_tokens``)."""
         procs = self.procs
         if procs is None:
             return run()
-        from mlx_sharding_tpu_torch.parallel.multihost import share_tokens
-
+        error, self._step_error = self._step_error, None
         return share_tokens(run if procs.owns(self.num_stages - 1) else None, rows, want_lp,
-                            procs.head_rank, self.device, self.hop_stats)
+                            procs.head_rank, self.device, self.hop_stats, error)
 
     def _stage_layers(self, cache, s: int, r: int = 0):
         """Stage s's layers in shard r: ``(global index, layer, K pool, V
@@ -966,7 +1004,7 @@ class PipelineEngine:
         caller's."""
         tokens, row, last = inputs if inputs is not None else self._prefill_buf[1:]
         note_eager_forward(self, tokens)
-        h = self.model.embed(tokens) if self._owns(0) else None
+        h = self._part(self.model.embed, tokens) if self._owns(0) else None
         graphs = self._graphs_for(cache)
 
         def run(s, h):
@@ -974,10 +1012,10 @@ class PipelineEngine:
                               functools.partial(self._prefill_layers, cache, s, off),
                               self._on(s, h), self._on(s, row))
 
-        h = self._run_stages(h, run, tuple(tokens.shape))
-        if h is None:
-            return self._no_logits(tokens.shape[0])
-        return self._head(h.index_select(1, self._on(self.num_stages - 1, last)))[:, 0]
+        logits = self._run_stages(
+            h, run, tuple(tokens.shape),
+            lambda h: self._head(h.index_select(1, self._on(self.num_stages - 1, last)))[:, 0])
+        return self._no_logits(tokens.shape[0]) if logits is None else logits
 
     def _prefill_layers(self, cache, s: int, off: int, h, row):
         """Stage s's layers over one prefill chunk's hidden states ``h``
@@ -1163,11 +1201,12 @@ class PipelineEngine:
                                 lengths=lengths, **opts)
 
     def decode_hidden(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan,
-                      j: int) -> torch.Tensor:
+                      j: int, head=None) -> Optional[torch.Tensor]:
         """The T=1 forward of step j of the plan for all M slots through the
         last layer, on :attr:`decode_path`: the new K/V rows land in the
         cache, ``tokens`` (M, 1) give hidden states (M, 1, hidden), an
-        inactive slot's zeros. Offsets are not advanced."""
+        inactive slot's zeros, then ``head`` of them where given. None where
+        another rank runs the last stage. Offsets are not advanced."""
         model = self.model
         note_eager_forward(self, tokens)
         lengths = plan.lengths[j]
@@ -1177,7 +1216,7 @@ class PipelineEngine:
         attend = {"ragged": self._attend_ragged, "gather": self._attend_gather,
                   "dense": self._attend_dense}[self.decode_path]
         # (M, 1, hidden): the slot axis is the batch axis
-        h = model.embed(tokens) if self._owns(0) else None
+        h = self._part(model.embed, tokens) if self._owns(0) else None
         graphs = self._graphs_for(cache)
 
         def run(s, h):
@@ -1187,11 +1226,13 @@ class PipelineEngine:
                               on(h), on(plan.positions[j]), on(lengths), on(plan.page_ids[j]),
                               on(plan.row_pos[j]), on(plan.tables))
 
-        h = self._run_stages(h, run, tuple(tokens.shape))
-        if h is None:  # another rank runs the last stage
-            return None
-        live = self._on(self.num_stages - 1, lengths) > 0
-        return torch.where(live[:, None, None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+        def last(h):
+            live = self._on(self.num_stages - 1, lengths) > 0
+            h = torch.where(live[:, None, None], h,
+                            torch.zeros((), dtype=h.dtype, device=h.device))
+            return h if head is None else head(h)
+
+        return self._run_stages(h, run, tuple(tokens.shape), last)
 
     def _decode_layers(self, cache, s: int, attend, h, positions, lengths, page_ids, row_pos,
                        tables):
@@ -1214,10 +1255,8 @@ class PipelineEngine:
         """:meth:`decode_hidden` through the head: logits (M, V) on stage
         0's device (a buffer nothing reads where another rank applies the
         head)."""
-        h = self.decode_hidden(tokens, cache, plan, j)
-        if h is None:
-            return self._no_logits(tokens.shape[0])
-        return self._head(h)[:, 0]
+        logits = self.decode_hidden(tokens, cache, plan, j, lambda h: self._head(h)[:, 0])
+        return self._no_logits(tokens.shape[0]) if logits is None else logits
 
     def decode_cb(self, tokens: torch.Tensor, cache: PagedKV, plan: DecodePlan, step: int, *,
                   recent: torch.Tensor, generators: list, sp, rep_mask: torch.Tensor,
@@ -1447,6 +1486,10 @@ class StageStack:
     def make_cache(self, batch: int, max_seq: int) -> KVCache:
         empty = torch.empty((0, batch, max_seq, 1, 1), device=self.device)
         return KVCache(k=empty, v=empty)
+
+    def shared_sample(self, run, rows: int, want_lp: bool):
+        """One sampling (``BaseModel.shared_sample``): here."""
+        return run()
 
 
 class _Stream(StageStack):

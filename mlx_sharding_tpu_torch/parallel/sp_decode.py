@@ -95,6 +95,9 @@ class SpDecode:
         for m, dev in zip(self.models, self.devices):
             m.place_constants(dev)
 
+    def shared_sample(self, run, rows: int, want_lp: bool):
+        return run()
+
     def make_cache(self, batch: int, max_seq: int) -> KVCache:
         """The shards' caches (zeros, the model's layout: its per-tensor
         head dims and cache heads), and an empty cache for the Generator."""

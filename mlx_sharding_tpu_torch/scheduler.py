@@ -1840,8 +1840,7 @@ class ContinuousBatcher:
                                                  sampled=self._slots[slot].sp.temperature > 0)
             return tok, (block_lp_outputs(tok, logprobs) if want_lp else None)
 
-        share = getattr(self.engine, "shared_sample", None)
-        tok, lp = run() if share is None else share(run, 1, want_lp)
+        tok, lp = self.engine.shared_sample(run, 1, want_lp)
         self.recent[slot] = torch.cat([self.recent[slot, 1:], tok])
         return tok, lp
 

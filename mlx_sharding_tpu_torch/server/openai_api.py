@@ -190,7 +190,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                     start_layer: Optional[int] = None, end_layer: Optional[int] = None,
                     num_stages: Optional[int] = None, stage_bounds=None, engine: str = "fused",
                     tp: int = 1, ep: int = 1, model=None, multihost: bool = False,
-                    dtype=None, warm_blocks=None):
+                    dtype=None):
     """The generator the server runs for the checkpoint at ``path``: a
     single-stream ``Generator`` (with ``prompt_cache``, JAX's prompt-prefix
     reuse), or with ``concurrent > 1`` a ``ContinuousBatcher`` of that many
@@ -238,9 +238,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
     load's (JAX's provider ``cache_dtype``; bf16 by default). ``model``: an
     already loaded model to serve, which ``path`` then only names. On a
     card each generator's step graphs are captured here, before the first
-    request: every decode-block kind, or the (sampled, logprobs) kinds in
-    ``warm_blocks`` (a batcher's or a Generator's; any other is captured on
-    first use)."""
+    request."""
     import torch
 
     dtype = dtype or torch.bfloat16
@@ -269,7 +267,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         generator = (chained_from_model(model, stage_bounds, **kw) if model is not None else
                      load_chained_pipeline(path, stage_bounds, device=device, dtype=dtype,
                                            keep_quantized=keep_quantized, **kw))
-        _warm_up(generator, warm_blocks)
+        _warm_up(generator)
         return generator
 
     def load():
@@ -346,7 +344,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
         if draft_model and concurrent > 1:
             draft_engine = dense_draft_engine(load_model(draft_model, device=device)[0])
         generator = make(load(), draft_engine=draft_engine)
-        _warm_up(generator, warm_blocks)
+        _warm_up(generator)
         return generator
     from mlx_sharding_tpu_torch.loading import checkpoint_signature
 
@@ -364,7 +362,7 @@ def build_generator(path: str, *, device=None, max_seq: int = 4096, prefill_chun
                         stages=stages, stage_bounds=stage_bounds, tp=tp, ep=ep,
                         draft_model=draft_model if concurrent > 1 else None,
                         replicas=replicas, shared_weights=shared_weights, prefix_store=store,
-                        warm_blocks=warm_blocks, **fleet)
+                        **fleet)
 
 
 def multihost_generator(path: str, *, device, max_seq: int, prefill_chunk: int,
@@ -461,13 +459,15 @@ def _write_rank_report(generator) -> None:
     if not template:
         return
     report = rank_report(generator)
-    with open(template.format(rank=report["rank"]), "w") as f:
+    path = template.format(rank=report["rank"])
+    # whole or not at all: a reader never sees a report half written
+    with open(path + ".tmp", "w") as f:
         json.dump(report, f)
+    os.replace(path + ".tmp", path)
 
 
-def _warm_up(generator, blocks=None) -> None:
-    # on a card: the step graphs, before any request
-    captured = generator.warm_up() if blocks is None else generator.warm_up(blocks=blocks)
+def _warm_up(generator) -> None:
+    captured = generator.warm_up()  # on a card: the step graphs, before any request
     if captured:
         logger.info("captured %d CUDA graphs in %.2f s, graph pool %.1f MB",
                     captured["graphs"], captured["seconds"], captured["pool_bytes"] / 1e6)
@@ -478,7 +478,6 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
                  stages=1, stage_bounds=None, tp=1, ep=1, disagg=False,
                  prefill_replicas=1, decode_replicas=1, autoscale=False, autoscale_min=None,
                  autoscale_max=None, autoscale_interval=2.0, autoscale_cooldown=15.0,
-                 warm_blocks=None,
                  brownout=True):
     """``replicas`` generators behind one ``ReplicaSet`` (JAX's ``--replicas``
     spawn), or under ``disagg`` a prefill and a decode pool behind a
@@ -562,7 +561,7 @@ def _replica_set(signature, *, device, keep_quantized, load, make, dense_draft_e
                 raise
             owner = getattr(gen, "engine", gen)
             owner.on_close(lease.release)
-            _warm_up(gen, warm_blocks)
+            _warm_up(gen)
             return gen
 
         return aliased_spawn(store, key, resident(load), make_one)

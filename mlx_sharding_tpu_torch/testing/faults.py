@@ -22,6 +22,10 @@ Sites wired into the serving stack:
   replica; ctx ``replica=<i>`` (match to delay/fail one specific replica)
 - ``multihost.exchange``  — top of every ControlPlane collective (raise
   :class:`DropExchange` to simulate a peer that never arrives)
+- ``multihost.sample``    — the head rank's sampling in a token broadcast
+  of a deployment over several processes (a port-only site: JAX samples
+  on every process); raise here to prove that every rank fails in that
+  step and the next request is served
 - ``server.sse_write``    — every SSE chunk write in the HTTP layer (raise
   ``BrokenPipeError`` to kill a stream mid-generation)
 - ``cache.export``        — top of every KV page-block export (preemption

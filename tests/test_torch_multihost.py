@@ -8,6 +8,10 @@ each rank holding only its own layers of the tiny checkpoint
   same checkpoint (in f32, token-identical texts); a seeded sampled one and
   a greedy one with logprobs equal the port's single-process 4-stage
   server's; a second request passes through the same workers.
+- A step failing on the head rank alone (the ``multihost.sample`` fault),
+  single stream and batcher: a 5xx at once, the workers resync and the next
+  request equals the one-process server's; a logit_bias id outside the
+  vocabulary gets a 400 before anything is broadcast.
 - A SIGKILLed worker (JAX's ``test_worker_death_fails_cleanly_not_hang``,
   with a 10 s liveness budget): the next request gets a 5xx, ``/health``
   answers 503 ``degraded`` with ``workers_responsive`` false, a later
@@ -243,6 +247,44 @@ def test_worker_death_fails_cleanly_not_hang(ckpt, tmp_path):
         assert dep.procs[0].poll() is None  # rank 0 never wedged or died
     finally:
         dep.stop()
+
+
+@pytest.mark.parametrize("extra,reference,after", [
+    # the single stream: the fourth sampling, inside the first decode block
+    ([], {}, 3),
+    # the mirror batcher: the first token, sampled after the prefill
+    (["--concurrent", "2", "--paged-pool", "12", "--page-size", "16"],
+     dict(concurrent=2, paged_pool=12, page_size=16), 0),
+], ids=["stream", "concurrent"])
+def test_a_step_failing_on_the_head_rank_fails_every_rank(ckpt, tmp_path, extra, reference,
+                                                           after):
+    """Rank 1 holds the head and samples alone; its sampling raises once
+    (the ``multihost.sample`` fault). The token broadcast still completes,
+    with its status set, so rank 0 raises in the same step: the request
+    gets a 5xx at once, not after the 20 s liveness budget, and the plane
+    stays up. The workers resync (the drain to STOP; OP_B_FAIL), and the
+    next request equals the one-process server's. A logit_bias id outside
+    the vocabulary, which only the head rank would meet, is refused with a
+    400 before anything is broadcast."""
+    (ref,) = port_reference(ckpt, reference, [lambda port: _text(port, GREEDY)])
+    dep = Deployment(ckpt, [*LAYOUT, *extra], tmp_path,
+                     {"MST_FAULTS": f"multihost.sample:exc=runtime:times=1:after={after}",
+                      "MST_MULTIHOST_TIMEOUT_S": "20"})
+    try:
+        dep.wait_healthy()
+        t0 = time.time()
+        status, err = post(dep.port, GREEDY, timeout=60)
+        assert status >= 500 and "error" in err, (status, err, dep.tails())
+        assert time.time() - t0 < 15, dep.tails()
+        assert "share of this step failed" in Path(dep.logs[0]).read_text(), dep.tails()
+        status, err = post(dep.port, {**GREEDY, "logit_bias": {"1000000": 5.0}})
+        assert status == 400 and "logit_bias token ids" in err["error"]["message"], err
+        assert _text(dep.port, GREEDY) == ref, dep.tails()
+        status, health = get(dep.port, "/health")
+        assert status == 200 and json.loads(health)["multihost"]["workers_responsive"] is True
+    finally:
+        dep.stop()
+    assert [p.returncode for p in dep.procs] == [0, 0], dep.tails()
 
 
 def test_two_process_tp_shards_stay_in_process(ckpt, tmp_path):

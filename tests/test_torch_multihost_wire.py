@@ -13,7 +13,9 @@ package's (``mlx_sharding_tpu/parallel/multihost.py``, ``pod.py``):
 - two ranks over real gloo (two subprocesses, one torch thread each, each
   with a timeout and killed in ``finally``): ``ControlPlane.exchange``
   (bit-equal messages on the worker), ``PodControlPlane.pod_exchange``,
-  the stage hop and the token broadcast, the injected ``multihost.exchange``
+  the stage hop and the token broadcast, a step failed on one rank (a
+  failed hop, the head's sampling raising: every rank raises in that
+  call and the next goes through), the injected ``multihost.exchange``
   drop (``WorkerTimeoutError``, the plane dead, the next exchange failing at
   once), and a peer that exits (rank 0's next exchange and hop fail within
   the budget and leave the plane dead)."""
@@ -216,6 +218,28 @@ out["tokens"] = [tok.tolist(), lp[0].tolist(), lp[1].tolist(), lp[2].tolist()]
 tok, lp = mh.share_tokens((lambda: (torch.tensor([9]), None)) if rank == 1 else None,
                           1, False, 1, "cpu")
 out["greedy_tokens"] = [tok.tolist(), lp]
+# a failed step: rank 0 sends a failed share down the hop; the head's
+# sampling raises; the head's share failed before the sampling
+if rank == 0:
+    mh.send_hidden(None, 1, shape=(1, 3, 8), dtype=torch.bfloat16)
+else:
+    try:
+        mh.recv_hidden((1, 3, 8), torch.bfloat16, 0, "cpu")
+        out["failed_hop"] = "ok"
+    except mh.PeerStepError as e:
+        out["failed_hop"] = type(e).__name__
+def boom():
+    raise ValueError("the head's sampling failed")
+for run, error in ((boom, None), (run, RuntimeError("the head's stages failed"))):
+    try:
+        mh.share_tokens(run if rank == 1 else None, 2, True, 1, "cpu",
+                        error=error if rank == 1 else None)
+        out.setdefault("failed_steps", []).append("ok")
+    except Exception as e:
+        out.setdefault("failed_steps", []).append(type(e).__name__)
+tok, _ = mh.share_tokens((lambda: (torch.tensor([3]), None)) if rank == 1 else None,
+                         1, False, 1, "cpu")
+out["after_failures"] = [tok.tolist(), mh.hop_failed()]
 if rank == 1:
     print(json.dumps(out), flush=True)
     os._exit(0)  # the peer leaves without a goodbye
@@ -300,6 +324,13 @@ def test_two_ranks_over_gloo():
     assert r0["tokens"] == r1["tokens"]
     assert r0["tokens"][0] == [5, 7] and r0["tokens"][3][1] == list(range(10, 20))
     assert r0["greedy_tokens"] == [[9], None]
+    # a failed share reaches the next rank as PeerStepError; a failed head
+    # raises its own error after the broadcast and every other rank
+    # PeerStepError in the same call; the lockstep holds and the hop is up
+    assert r1["failed_hop"] == "PeerStepError"
+    assert r1["failed_steps"] == ["ValueError", "RuntimeError"]
+    assert r0["failed_steps"] == ["PeerStepError", "PeerStepError"]
+    assert r0["after_failures"] == r1["after_failures"] == [[3], False]
     assert r0["drop"] == [["multi-host collective dropped (injected fault)",
                            "multi-host control plane is down (a peer rank previously failed "
                            "to respond)"], True]
